@@ -5,13 +5,18 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, each on its
 own lines; any failure exits nonzero and prints no result:
 
 1. device  — require CUDA, print the card's name and power limit, TF32 off.
-2. build   — compile every CUDA kernel of the serving path from csrc/
-             (one nvcc per source, all at once) and print the seconds.
-3. kernels — each kernel at the shapes the serving path gives it (B = 4096
-             sessions, L = 100, d = 128, 4 heads, 15,872-column catalog):
-             held against its plain PyTorch twin on the same inputs on the
-             card, and timed beside its twin, one PyTorch library call
+2. build   — compile every CUDA kernel of the port from csrc/ (one nvcc per
+             source, all at once) and print the seconds.
+3. kernels — each serving kernel at the shapes the serving path gives it
+             (B = 4096 sessions, L = 100, d = 128, 4 heads, 15,872-column
+             catalog): held against its plain PyTorch twin on the same inputs
+             on the card, and timed beside its twin, one PyTorch library call
              (a yardstick only; the port never calls it) and its bound.
+   train kernels — the same for the training kernels at the KION training
+             width (B = 512, L = 100, d = 128, 4 heads, 15,872 items, dropout
+             0.2): LayerNorm backward, attention forward with dropout (its
+             keep bits checked for equality with the twin's mask) and
+             backward, the streaming logsumexp and the fused CE gradients.
 4. main    — SASRecModel serving at the KION width: a synthetic KION-shaped
              frame (8,192 users, sessions of 1-300 Zipf-drawn items over
              15,871 ids) -> Dataset.construct -> load_jax_params with random
@@ -22,6 +27,18 @@ own lines; any failure exits nonzero and prints no result:
              non-increasing) and agreement with the port's own CPU run on 64
              users; times warm calls and profiles one (device time by kernel,
              device busy share, host functions).
+5. train   — SASRecModel(...).fit on the same frame at the training width
+             (batch 512, full-catalog softmax through the fused CE, Adam) for
+             2 epochs with about 1,024 users held out for validation
+             (val_recall@10). Checks the launch counts of every training
+             kernel, finite losses that fall from epoch 1 to epoch 2, finite
+             validation loss and recall, and recommend for 1,024 users; prints
+             train examples/s over epoch 2, peak device memory and one profiled
+             step.
+6. agree   — 3 train steps with dropout 0.2 on the same 64 sessions at full
+             width, on the card and on the port's CPU twins from the same
+             start weights and dropout seed: losses within 1e-4 relative,
+             parameters within 1e-4 absolute.
 
 Output, last lines: one JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -35,6 +52,7 @@ import time
 from pathlib import Path
 
 SEED = 20260
+START, COVER_DAY = "2021-03-13", 90  # the frame's first day; the catalog-cover rows follow day 90
 N_USERS = 8192
 N_ITEM_IDS = 15871  # + PAD = 15,872 rows, 124 groups of 128
 SESSION_MAX_LEN = 100
@@ -47,6 +65,16 @@ PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores, data shee
 LN_TOL = 1e-5
 ATTN_TOL = 1e-5
 SCORE_RTOL, SCORE_ATOL, TIE_GAP = 1e-4, 1e-4, 1e-4  # GPU vs CPU run: f32 sums in another order
+TRAIN_B = 512
+DROPOUT = 0.2
+LR = 1e-3
+EPOCHS = 2
+LN_BWD_TOL = 1e-5  # dx absolute; dgamma and dbeta relative to their largest entry (sums over 51,200 rows)
+LSE_RTOL = 1e-5  # relative, per row: one column of 15,872 left out moves an lse of about 10 by 6e-6 relative
+CE_RTOL = 1e-4  # relative to the largest entry of ds and of di
+LOSS_RTOL, PARAM_ATOL = 1e-4, 1e-4  # GPU vs CPU training
+AGREE_SESSIONS, AGREE_STEPS = 64, 3
+RAGGED_N = N_ITEM_IDS + 1 - 37  # an odd catalog: every item tile of kernels 6 and 7 leaves a tail
 
 
 class SmokeFailure(RuntimeError):
@@ -166,6 +194,151 @@ def kernel_phase(torch, dev, b: int = 4096) -> dict:
     return results
 
 
+# ---------------------------------------------------------------- phase 3, training width
+
+
+def _max_rel(got, ref) -> float:
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
+    import torch.nn.functional as F
+
+    from rectools_tpu_torch.ops import attention, layer_norm, softmax_lse
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    l, h, d, n = SESSION_MAX_LEN, N_HEADS, N_FACTORS, N_ITEM_IDS + 1
+    dh, m = d // h, b * l
+    results = {}
+
+    def grad_ms(outputs, inputs, grad_outputs, iters: int = 10) -> float:
+        return time_ms(lambda: torch.autograd.grad(outputs, inputs, grad_outputs, retain_graph=True), iters=iters)
+
+    # kernel 4, LayerNorm backward: (B*L, d), 5 calls per step
+    x = torch.randn((m, d), generator=gen, device=dev) * 2 + 0.5
+    gamma = torch.randn((d,), generator=gen, device=dev)
+    dy = torch.randn((m, d), generator=gen, device=dev)
+    got = layer_norm.layer_norm_bwd(x, gamma, dy, 1e-6)
+    ref = layer_norm.layer_norm_bwd_reference(x, gamma, dy, 1e-6)
+    err_dx = (got[0] - ref[0]).abs().max().item()
+    err_sums = max(_max_rel(got[1], ref[1]), _max_rel(got[2], ref[2]))
+    check(err_dx <= LN_BWD_TOL and err_sums <= LN_BWD_TOL,
+          f"layer_norm_bwd disagrees with its twin: dx {err_dx}, dgamma/dbeta relative {err_sums}")
+    xg, gg, bg = (t.detach().clone().requires_grad_() for t in (x, gamma, torch.zeros_like(gamma)))
+    y_lib = F.layer_norm(xg, (d,), gg, bg, 1e-6)
+    results["layer_norm_bwd"] = dict(
+        max_abs_err=max((a - r).abs().max().item() for a, r in zip(got, ref)),
+        ms=time_ms(lambda: layer_norm.layer_norm_bwd(x, gamma, dy, 1e-6)),
+        plain_ms=time_ms(lambda: layer_norm.layer_norm_bwd_reference(x, gamma, dy, 1e-6)),
+        library_ms=grad_ms(y_lib, (xg, gg, bg), dy),
+        bound=bound_ms(3 * x.numel() * 4 + 3 * d * 4, 12 * x.numel()),
+    )
+    del x, dy, got, ref, xg, y_lib
+
+    # kernel 2 with dropout and kernel 5: (B, L, H, dh) projections, causal bias
+    q, k, v, dout = (torch.randn((b, l, h, dh), generator=gen, device=dev).transpose(1, 2) for _ in range(4))
+    bias = torch.where(torch.ones((l, l), dtype=torch.bool, device=dev).tril(), 0.0, -1e9)[None, None]
+    scale, seed = 1.0 / math.sqrt(dh), 987654321
+    out, lse = attention.attention_fwd(q, k, v, bias, scale, DROPOUT, seed)
+    ref_out, ref_lse = attention.attention_reference(q, k, v, bias, scale, DROPOUT, seed)
+    err = max((out - ref_out).abs().max().item(), (lse - ref_lse).abs().max().item())
+    check(err <= ATTN_TOL, f"attention forward with dropout disagrees with its twin: max abs err {err}")
+    # keep bits: with q = k = 0 every probability is 1/L, and one-hot values
+    # carry each key column's kept-or-dropped probability into the output
+    zeros = torch.zeros_like(q)
+    kept = torch.empty((b, h, l, l), dtype=torch.bool, device=dev)
+    for c0 in range(0, l, dh):
+        w = min(dh, l - c0)
+        onehot = torch.zeros((b, l, h, dh), device=dev)
+        onehot[:, torch.arange(c0, c0 + w), :, torch.arange(w)] = 1.0
+        probe, _ = attention.attention_fwd(zeros, zeros, onehot.transpose(1, 2), None, 1.0, DROPOUT, seed)
+        kept[..., c0 : c0 + w] = probe[..., :w] > 0
+    mask = attention.dropout_keep_mask(seed, b, h, l, DROPOUT, dev).bool()
+    check(bool(torch.equal(kept, mask)), "attention dropout keep bits differ from the twin's mask")
+    print(f"train kernels: attention dropout keep bits equal the twin's on {mask.numel()} positions, "
+          f"kept share {mask.float().mean().item():.4f}")
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias, scale=scale)
+    flops = b * h * l * l * dh
+    results["attention_fwd_train"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: attention.attention_fwd(q, k, v, bias, scale, DROPOUT, seed)),
+        plain_ms=time_ms(lambda: attention.attention_reference(q, k, v, bias, scale, DROPOUT, seed), iters=3),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)),
+        bound=bound_ms(4 * q.numel() * 4 + lse.numel() * 4 + bias.numel() * 4, 4 * flops),
+    )
+    delta = (dout * out).sum(-1).contiguous()
+    got = attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)
+    ref = attention.attention_bwd_reference(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)
+    err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+    check(err <= ATTN_TOL, f"attention backward disagrees with its twin: max abs err {err}")
+    results["attention_bwd"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)),
+        plain_ms=time_ms(
+            lambda: attention.attention_bwd_reference(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed), iters=3
+        ),
+        library_ms=grad_ms(out_lib, (qg, kg, vg), dout),
+        bound=bound_ms(7 * q.numel() * 4 + 2 * lse.numel() * 4 + bias.numel() * 4, 10 * flops),
+    )
+    del q, k, v, dout, out, lse, ref_out, ref_lse, zeros, kept, mask, qg, kg, vg, out_lib, delta, got, ref
+    torch.cuda.empty_cache()
+
+    # kernels 6 and 7: session towers (B*L, d) against the 15,872-row item table
+    s = torch.randn((m, d), generator=gen, device=dev)
+    items = 0.1 * torch.randn((n, d), generator=gen, device=dev)
+    lse = softmax_lse.streaming_lse(s, items)
+    ref = softmax_lse.streaming_lse_reference(s, items)
+    rel = ((lse - ref).abs() / ref.abs()).max().item()
+    check(rel <= LSE_RTOL, f"streaming lse disagrees with its twin: max relative err {rel}")
+    products = 2 * m * n * d
+    results["lse_fwd"] = dict(
+        max_abs_err=(lse - ref).abs().max().item(),
+        ms=time_ms(lambda: softmax_lse.streaming_lse(s, items), iters=5),
+        plain_ms=time_ms(lambda: softmax_lse.streaming_lse_reference(s, items), iters=3),
+        library_ms=time_ms(lambda: torch.logsumexp(s @ items.T, dim=1), iters=3),
+        bound=bound_ms((m * d + n * d + m) * 4, products),
+    )
+    y = torch.randint(1, n, (m,), generator=gen, device=dev)
+    y[torch.rand((m,), generator=gen, device=dev) < 0.2] = 0  # PAD targets
+    coeff = (y != 0).float() / (y != 0).sum()
+    z = lse - torch.log(coeff)  # +inf on PAD rows
+    got = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    ref = softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff)
+    rel = max(_max_rel(got[0], ref[0]), _max_rel(got[1], ref[1]))
+    check(rel <= CE_RTOL, f"CE gradients disagree with their twin: max err relative to the largest entry {rel}")
+    # both kernels again on an odd catalog, where every item tile leaves a tail (checked, not timed)
+    rows, y_ragged = items[:RAGGED_N], torch.where(y < RAGGED_N, y, 0)
+    lse_ragged = softmax_lse.streaming_lse(s, rows)
+    ref_ragged = softmax_lse.streaming_lse_reference(s, rows)
+    rel = ((lse_ragged - ref_ragged).abs() / ref_ragged.abs()).max().item()
+    check(rel <= LSE_RTOL, f"streaming lse at N={RAGGED_N} disagrees with its twin: max relative err {rel}")
+    z_ragged = lse_ragged - torch.log(coeff)
+    got_ragged = softmax_lse.softmax_ce_grads_from_z(s, rows, z_ragged, y_ragged, coeff)
+    ref_ragged = softmax_lse.softmax_ce_grads_from_z_reference(s, rows, z_ragged, y_ragged, coeff)
+    rel_ce = max(_max_rel(g, r) for g, r in zip(got_ragged, ref_ragged))
+    check(rel_ce <= CE_RTOL, f"CE gradients at N={RAGGED_N} disagree with their twin: {rel_ce}")
+    print(f"kernels: at N={RAGGED_N}, lse max relative err {rel:.3g}, CE gradients {rel_ce:.3g}")
+    del rows, y_ragged, lse_ragged, ref_ragged, z_ragged, got_ragged
+    sg, ig = s.detach().clone().requires_grad_(), items.detach().clone().requires_grad_()
+    ce_lib = (F.cross_entropy(sg @ ig.T, y, reduction="none") * coeff).sum()
+    results["ce_grads"] = dict(
+        max_abs_err=max((a - r).abs().max().item() for a, r in zip(got, ref)),
+        ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3),
+        plain_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff), iters=3),
+        library_ms=grad_ms(ce_lib, (sg, ig), None, iters=3),
+        bound=bound_ms((2 * m * d + 2 * n * d + 3 * m) * 4, 3 * products),
+    )
+    del s, items, lse, ref, y, coeff, z, got, sg, ig, ce_lib
+    torch.cuda.empty_cache()
+    for name, r in results.items():
+        print(
+            f"train kernel {name}: max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})"
+        )
+    return results
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -175,18 +348,18 @@ def kion_frame(np, pd, Columns):
     lengths = rng.integers(1, 301, size=N_USERS)
     users = np.repeat(np.arange(N_USERS), lengths)
     items = (rng.zipf(1.2, size=len(users)) - 1) % N_ITEM_IDS
-    seconds = rng.integers(0, 90 * 86400, size=len(users))
+    seconds = rng.integers(0, COVER_DAY * 86400, size=len(users))
     # every item id once more, last in time, so the table has all 15,871 ids
     cover_users = rng.integers(0, N_USERS, size=N_ITEM_IDS)
     users = np.concatenate([users, cover_users])
     items = np.concatenate([items, np.arange(N_ITEM_IDS)])
-    seconds = np.concatenate([seconds, 90 * 86400 + np.arange(N_ITEM_IDS)])
+    seconds = np.concatenate([seconds, COVER_DAY * 86400 + np.arange(N_ITEM_IDS)])
     return pd.DataFrame(
         {
             Columns.User: users,
             Columns.Item: items,
             Columns.Weight: np.ones(len(users), np.float32),
-            Columns.Datetime: pd.Timestamp("2021-03-13") + pd.to_timedelta(seconds, unit="s"),
+            Columns.Datetime: pd.Timestamp(START) + pd.to_timedelta(seconds, unit="s"),
         }
     )
 
@@ -293,17 +466,11 @@ def profile_phase(torch, recommend) -> dict:
     return {"profiled_wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms}
 
 
-def main_phase(torch, np, pd, port, dev) -> dict:
+def main_phase(torch, np, port, df, dataset, dev) -> dict:
     from rectools_tpu_torch import Columns
-    from rectools_tpu_torch.dataset import Dataset
     from rectools_tpu_torch.models import SASRecModel
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
 
-    t0 = time.perf_counter()
-    df = kion_frame(np, pd, Columns)
-    dataset = Dataset.construct(df)
-    build_s = time.perf_counter() - t0
-    print(f"main: frame {len(df)} interactions, {dataset.user_id_map.size} users, built in {build_s:.1f} s")
     config = dict(
         n_blocks=N_BLOCKS, n_heads=N_HEADS, n_factors=N_FACTORS, session_max_len=SESSION_MAX_LEN,
         dropout_rate=0.2, item_net_block_types=(IdEmbeddingsItemNet,),
@@ -321,8 +488,9 @@ def main_phase(torch, np, pd, port, dev) -> dict:
     reco = model.recommend(users, dataset, k=K, filter_viewed=True)
     first_s = time.perf_counter() - t0
     launches = dict(port.LAUNCHES)
-    expected = {"attention_fwd": N_BLOCKS * n_batches, "layer_norm_fwd": (2 * N_BLOCKS + 1) * n_batches,
-                "group_topm": n_batches}
+    expected = {name: 0 for name in port.LAUNCHES}  # no training kernel runs in recommend
+    expected.update(attention_fwd=N_BLOCKS * n_batches, layer_norm_fwd=(2 * N_BLOCKS + 1) * n_batches,
+                    group_topm=n_batches)
     check(launches == expected, f"launches on the main path {launches}, expected {expected}")
     print(f"main: recommend {len(users)} users in {n_batches} batches, launches {launches}")
 
@@ -365,6 +533,154 @@ def main_phase(torch, np, pd, port, dev) -> dict:
             "users_per_s": len(users) / warm_s, "peak_device_mib": peak_mb, **profile}
 
 
+# ---------------------------------------------------------------- phases 5 and 6
+
+
+def hold_out_last(interactions):
+    """Validation mask: for every eighth user (~1,024 of 8,192), the last
+    interaction before the catalog-cover rows, which stay in training so that
+    the item table keeps all 15,871 ids."""
+    import pandas as pd
+
+    from rectools_tpu_torch import Columns
+
+    before = interactions[Columns.Datetime] < pd.Timestamp(START) + pd.Timedelta(days=COVER_DAY)
+    last = interactions[Columns.Datetime].where(before).groupby(interactions[Columns.User]).transform("max")
+    return (before & (interactions[Columns.Datetime] == last) & (interactions[Columns.User] % 8 == 0)).to_numpy()
+
+
+TRAIN_CONFIG = dict(
+    n_blocks=N_BLOCKS, n_heads=N_HEADS, n_factors=N_FACTORS, session_max_len=SESSION_MAX_LEN, dropout_rate=DROPOUT,
+    batch_size=TRAIN_B, lr=LR, loss="softmax", seed=SEED,
+)
+
+
+def train_phase(torch, np, port, df, dataset, dev) -> dict:
+    from rectools_tpu_torch.models import SASRecModel
+    from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+    from rectools_tpu_torch.models.nn.transformers import TrainingCallback
+    from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+
+    class EpochClock(TrainingCallback):
+        def __init__(self) -> None:
+            self.times = []
+
+        def on_train_start(self, module) -> None:
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter())
+
+        def on_epoch_end(self, module, epoch, logs) -> bool:
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter())
+            return False
+
+    clock = EpochClock()
+    model = SASRecModel(
+        **TRAIN_CONFIG, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,), get_val_mask_func=hold_out_last,
+        get_callbacks_func=lambda: [clock], training_module_kwargs={"val_recall_k": K}, device=dev,
+    )
+    torch.cuda.reset_peak_memory_stats()
+    port.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(dataset)
+    fit_s = time.perf_counter() - t0
+    launches = dict(port.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    tm = model.training_module
+    check(model.backbone.item_model.n_items == N_ITEM_IDS + 1, "item table is not 15,872 rows")
+    check(tm._use_fused_softmax, "the full-catalog loss did not take the fused softmax-CE")
+    steps = tm.global_step
+    val_batches = len(model.data_preparator.get_dataloader_val())
+    forwards = steps + EPOCHS * val_batches  # validation runs one forward per batch
+    expected = {
+        "layer_norm_fwd": (2 * N_BLOCKS + 1) * forwards, "attention_fwd": N_BLOCKS * forwards, "group_topm": 0,
+        "layer_norm_bwd": (2 * N_BLOCKS + 1) * steps, "attention_bwd": N_BLOCKS * steps,
+        "lse_fwd": steps, "ce_grads_ds": steps, "ce_grads_di": steps,
+    }
+    check(launches == expected, f"launches in fit {launches}, expected {expected}")
+    losses, val_losses = tm.train_loss_history, tm.val_loss_history
+    recall = tm.val_metric_history.get(f"val_recall@{K}", [])
+    check(len(losses) == EPOCHS and bool(np.isfinite(losses).all()), f"train losses {losses}")
+    check(losses[1] < losses[0], f"train loss did not fall: {losses}")
+    check(len(val_losses) == EPOCHS and bool(np.isfinite(val_losses).all()), f"validation losses {val_losses}")
+    check(len(recall) == EPOCHS and bool(np.isfinite(recall).all()), f"val_recall@{K} {recall}")
+    steps_per_epoch = steps // EPOCHS
+    epoch2_s = clock.times[2] - clock.times[1]
+    examples_per_s = TRAIN_B * steps_per_epoch / epoch2_s
+    print(f"train: fit {EPOCHS} epochs x {steps_per_epoch} steps of {TRAIN_B} in {fit_s:.2f} s, "
+          f"{val_batches} validation batches per epoch; launches {launches}")
+    print(f"train: losses {losses}, val_loss {val_losses}, val_recall@{K} {recall}")
+    print(f"train: epoch 2 wall {epoch2_s:.3f} s (validation included), {examples_per_s:.0f} train examples/s, "
+          f"peak device memory {peak_mb:.0f} MiB")
+
+    users = dataset.user_id_map.external_ids[:1024]
+    reco = model.recommend(users, dataset, k=K, filter_viewed=True)
+    from rectools_tpu_torch import Columns
+
+    check(len(reco) == K * len(users), f"{len(reco)} rows after fit, expected {K * len(users)}")
+    seen = set(zip(df[Columns.User].to_numpy().tolist(), df[Columns.Item].to_numpy().tolist()))
+    check(not any(p in seen for p in zip(reco["user_id"].tolist(), reco["item_id"].tolist())), "a seen item came back")
+    scores = reco["score"].to_numpy().reshape(len(users), K)
+    check(bool(np.isfinite(scores).all()) and bool((np.diff(scores, axis=1) <= 0).all()), "bad scores after fit")
+    print(f"train: the fitted model recommends {K} unseen items to each of {len(users)} users")
+
+    loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
+    batch = tm._device_batch(pad_batch(next(iter(loader)), TRAIN_B))
+    print("train: profile of one train step")
+    profile = profile_phase(torch, lambda: tm._train_step(batch))
+    return {"launches": launches, "steps": steps, "train_loss": losses, "val_loss": val_losses,
+            f"val_recall@{K}": recall, "fit_s": fit_s, "epoch2_s": epoch2_s, "train_examples_per_s": examples_per_s,
+            "peak_device_mib": peak_mb, **{f"step_{k}": v for k, v in profile.items()}}
+
+
+def agreement_phase(torch, np, dataset, dev) -> dict:
+    """3 train steps with dropout on the card and on the CPU twins, on one
+    batch of 64 sessions of the KION frame, full catalog."""
+    from rectools_tpu_torch.models import SASRecModel
+    from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+    from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+
+    models = {}
+    for run, device in (("cpu", "cpu"), ("card", dev)):
+        model = SASRecModel(
+            **{**TRAIN_CONFIG, "batch_size": AGREE_SESSIONS}, item_net_block_types=(IdEmbeddingsItemNet,),
+            device=device,
+        )
+        model._build_model_from_dataset(dataset)
+        models[run] = model
+    check(models["card"].backbone.item_model.n_items == N_ITEM_IDS + 1, "agreement model is not at full width")
+    models["cpu"].training_module.init_params()
+    start = {k: v.clone() for k, v in models["cpu"].backbone.state_dict().items()}
+    batch = pad_batch(next(iter(models["cpu"].data_preparator.get_dataloader_train(np.random.default_rng(SEED)))),
+                      AGREE_SESSIONS)
+    losses = {}
+    t0 = time.perf_counter()
+    for run, model in models.items():
+        tm = model.training_module
+        tm.load_params(start)
+        device_batch = tm._device_batch(batch)
+        losses[run] = [tm._train_step(device_batch).item() for _ in range(AGREE_STEPS)]
+    loss_rel = max(abs(g - c) / abs(c) for g, c in zip(losses["card"], losses["cpu"]))
+    # The attention key-projection biases have a zero gradient in exact
+    # arithmetic (softmax ignores a shift shared by a query's scores), so Adam
+    # moves them by the sign of rounding noise: their reading is printed, not
+    # held to PARAM_ATOL. Every other parameter entry is.
+    cpu_params = dict(models["cpu"].backbone.named_parameters())
+    param_err, key_bias_err = 0.0, 0.0
+    for name, param in models["card"].backbone.named_parameters():
+        err = (param.detach().cpu() - cpu_params[name].detach()).abs().max().item()
+        if name.endswith("multi_head_attn.k_proj.bias"):
+            key_bias_err = max(key_bias_err, err)
+        else:
+            param_err = max(param_err, err)
+    print(f"agree: {AGREE_STEPS} steps on {AGREE_SESSIONS} sessions in {time.perf_counter() - t0:.1f} s; "
+          f"losses card {losses['card']} cpu {losses['cpu']}; max loss rel diff {loss_rel:.3g}, "
+          f"max param abs diff {param_err:.3g} (key-projection biases {key_bias_err:.3g})")
+    check(loss_rel <= LOSS_RTOL, f"train losses differ from the CPU run by {loss_rel} relative")
+    check(param_err <= PARAM_ATOL, f"parameters differ from the CPU run by {param_err}")
+    return {"loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_err, "key_bias_max_abs_diff": key_bias_err}
+
+
 def main() -> int:
     import torch
 
@@ -398,35 +714,55 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}")
 
-    # phase 3: kernels
+    # phase 3: kernels, at serving shapes and at the training width
     kernels = kernel_phase(torch, torch.device("cuda"))
+    kernels.update(train_kernel_phase(torch, torch.device("cuda")))
 
-    # phase 4: main path
-    main_result = main_phase(torch, np, pd, port, "cuda")
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.dataset import Dataset
 
-    sources = {
-        "layer_norm_fwd": ("rectools_tpu_torch/csrc/layer_norm.cu", "rectools_tpu/ops/layer_norm.py:27"),
-        "attention_fwd": ("rectools_tpu_torch/csrc/attention.cu", "rectools_tpu/ops/attention.py:104"),
-        "group_topm": ("rectools_tpu_torch/csrc/topk_select.cu", "rectools_tpu/ops/topk_select.py:49"),
+    t0 = time.perf_counter()
+    df = kion_frame(np, pd, Columns)
+    dataset = Dataset.construct(df)
+    print(f"main: frame {len(df)} interactions, {dataset.user_id_map.size} users, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+
+    # phase 4: the serving path
+    main_result = main_phase(torch, np, port, df, dataset, "cuda")
+    # phase 5: the training path
+    train_result = train_phase(torch, np, port, df, dataset, "cuda")
+    # phase 6: card against CPU twins
+    agree_result = agreement_phase(torch, np, dataset, "cuda")
+
+    # name: (source, replaced TPU kernel, launch-count keys, entry of `kernels` with its numbers)
+    table = {
+        "layer_norm_fwd": ("layer_norm.cu", "layer_norm.py:27", ("layer_norm_fwd",), "layer_norm_fwd"),
+        "attention_fwd": ("attention.cu", "attention.py:104", ("attention_fwd",), "attention_fwd"),
+        "group_topm": ("topk_select.cu", "topk_select.py:49", ("group_topm",), "group_topm"),
+        "layer_norm_bwd": ("layer_norm.cu", "layer_norm.py:36", ("layer_norm_bwd",), "layer_norm_bwd"),
+        "attention_bwd": ("attention.cu", "attention.py:256", ("attention_bwd",), "attention_bwd"),
+        "lse_fwd": ("softmax_lse.cu", "softmax_lse.py:169", ("lse_fwd",), "lse_fwd"),
+        "ce_grads": ("softmax_lse.cu", "softmax_lse.py:643", ("ce_grads_ds", "ce_grads_di"), "ce_grads"),
     }
+
+    def numbers(r: dict) -> dict:
+        return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+
+    entries = []
+    for name, (source, replaces, keys, result_key) in table.items():
+        serve = sum(main_result["launches"].get(key, 0) for key in keys)
+        train = sum(train_result["launches"].get(key, 0) for key in keys)
+        entry = {"name": name, "route": "cuda", "source": f"rectools_tpu_torch/csrc/{source}",
+                 "replaces": f"rectools_tpu/ops/{replaces}", "launches": serve + train,
+                 "launches_by_path": {"recommend": serve, "fit": train}, **numbers(kernels[result_key])}
+        if name == "attention_fwd":  # the same kernel at the training width, with dropout
+            entry["train_width_dropout"] = numbers(kernels["attention_fwd_train"])
+        entries.append(entry)
     line = {
-        "kernels": [
-            {
-                "name": name,
-                "route": "cuda",
-                "source": sources[name][0],
-                "replaces": sources[name][1],
-                "launches": main_result["launches"][name],
-                "max_abs_err": r["max_abs_err"],
-                "ms": r["ms"],
-                "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound"][0],
-                "bound_by": r["bound"][1],
-                "library_ms": r["library_ms"],
-            }
-            for name, r in kernels.items()
-        ],
+        "kernels": entries,
         "recommend": {k: v for k, v in main_result.items() if k != "launches"},
+        "train": {**{k: v for k, v in train_result.items() if k != "launches"}, "agreement": agree_result},
     }
     print(json.dumps(line))
     print(card)

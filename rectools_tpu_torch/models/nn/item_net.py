@@ -9,7 +9,7 @@ whole catalog:
   row 0.
 - ``CatFeaturesItemNet``: ``EmbeddingBag(mode="sum")`` over the item
   categorical one-hot indices becomes a gather plus ``index_add_`` over the
-  CSR (item, feature) coordinates.
+  CSR (item, feature) coordinates, followed by :class:`HashDropout`.
 - ``SumOfEmbeddingsConstructor`` sums the block outputs.
 """
 
@@ -22,6 +22,7 @@ from torch import nn
 
 from ...dataset.dataset import Dataset, DatasetSchema
 from ...dataset.features import SparseFeatures
+from .dropout import HashDropout
 
 
 class ItemNetBase(nn.Module):
@@ -82,6 +83,7 @@ class CatFeaturesItemNet(ItemNetBase):
         self.n_factors = n_factors
         self.dropout_rate = dropout_rate
         self.cat_emb = nn.Embedding(n_cat_feature_values, n_factors, device=device)
+        self.dropout = HashDropout(dropout_rate)
         self.register_buffer(
             "feature_rows", torch.as_tensor(feature_rows, dtype=torch.int64, device=device), persistent=False
         )
@@ -92,7 +94,7 @@ class CatFeaturesItemNet(ItemNetBase):
     def embed_catalog(self) -> torch.Tensor:
         weight = self.cat_emb.weight
         out = weight.new_zeros((self.n_items, weight.shape[1]))
-        return out.index_add_(0, self.feature_rows, weight[self.feature_cols])
+        return self.dropout(out.index_add_(0, self.feature_rows, weight[self.feature_cols]))
 
     @staticmethod
     def _warn_for_unsupported_dataset_schema(dataset_schema: DatasetSchema) -> None:

@@ -1,6 +1,7 @@
 from .backbone import TransformerBackbone, TransformerBackboneBase
 from .base import TransformerModelBase, TransformerModelConfig
-from .convert import flax_params_to_state_dict
+from .callbacks import BestStateKeeper, EarlyStopping, TrainingCallback
+from .convert import flax_params_to_state_dict, state_dict_to_flax_params
 from .data_preparator import BatchLoader, SequenceDataset, TransformerDataPreparatorBase, scatter_left_padded
 from .net_blocks import (
     LearnableInversePositionalEncoding,
@@ -17,10 +18,15 @@ from .sasrec import (
     SASRecTransformerLayers,
 )
 from .similarity import DistanceSimilarityModule, SimilarityModuleBase
-from .training import TransformerTrainingModule
+from .training import TransformerTrainingModule, TransformerTrainingModuleBase
 
 __all__ = [
     "BatchLoader",
+    "BestStateKeeper",
+    "EarlyStopping",
+    "TrainingCallback",
+    "TransformerTrainingModuleBase",
+    "state_dict_to_flax_params",
     "DistanceSimilarityModule",
     "LearnableInversePositionalEncoding",
     "MultiHeadAttention",

@@ -13,6 +13,7 @@ import typing as tp
 import torch
 from torch import nn
 
+from ..dropout import HashDropout
 from ..item_net import ItemNetBase
 from .net_blocks import MASK_VALUE, PositionalEncodingBase, TransformerLayersBase
 from .similarity import SimilarityModuleBase
@@ -23,6 +24,12 @@ class TransformerBackboneBase(nn.Module):
 
     def encode_sessions(self, batch: tp.Dict[str, torch.Tensor], item_embs: torch.Tensor) -> torch.Tensor:
         """Encode user sessions -> (B, L, D)."""
+        raise NotImplementedError()
+
+    def forward(
+        self, batch: tp.Dict[str, torch.Tensor], candidate_item_ids: tp.Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """Full-catalog logits (B, L, N), or candidate logits (B, L, C)."""
         raise NotImplementedError()
 
 
@@ -49,6 +56,7 @@ class TransformerBackbone(TransformerBackboneBase):
         self.dropout_rate = dropout_rate
         self.use_causal_attn = use_causal_attn
         self.use_key_padding_mask = use_key_padding_mask
+        self.emb_dropout = HashDropout(dropout_rate)
 
     def _build_attn_bias(self, sessions: torch.Tensor) -> tp.Optional[torch.Tensor]:
         b, l = sessions.shape
@@ -76,12 +84,13 @@ class TransformerBackbone(TransformerBackboneBase):
         sessions = batch["x"]  # (B, L) int
         timeline_mask = (sessions != 0).to(item_embs.dtype)[:, :, None]  # (B, L, 1)
         seqs = item_embs[sessions]  # (B, L, D)
-        seqs = self.pos_encoding_layer(seqs)
+        seqs = self.emb_dropout(self.pos_encoding_layer(seqs))
         attn_bias = self._build_attn_bias(sessions)
         return self.transformer_layers(seqs, timeline_mask, attn_bias, batch)
 
-    def forward(self, batch: tp.Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Full-catalog logits (B, L, n_items). Candidate (negative-sampled)
-        logits come with the training slice."""
+    def forward(
+        self, batch: tp.Dict[str, torch.Tensor], candidate_item_ids: tp.Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
         item_embs = self.item_model.embed_catalog()
-        return self.similarity_module(self.encode_sessions(batch, item_embs), item_embs)
+        session_embs = self.encode_sessions(batch, item_embs)
+        return self.similarity_module(session_embs, item_embs, candidate_item_ids)

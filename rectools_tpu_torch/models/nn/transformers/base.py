@@ -1,13 +1,15 @@
-"""TransformerModelBase: wires preparator, item net and backbone from swappable
-component types; owns recommend and weight loading.
+"""TransformerModelBase: wires preparator, item net, backbone and training
+module from swappable component types; owns fit, fit_partial, recommend and
+weight loading.
 
-Port of rectools_tpu/models/nn/transformers/base.py, serving half. The
-config keeps the JAX model's hyper-parameters (training ones included, so a
-JAX config carries over) plus ``device``. ``fit`` raises until the training
-slice lands; weights come in through :meth:`load_jax_params`.
+Port of rectools_tpu/models/nn/transformers/base.py. The config keeps the JAX
+model's hyper-parameters, so a JAX config carries over, plus ``device``.
+Weights trained by the JAX package come in through :meth:`load_jax_params`.
+Checkpoints (``save_checkpoint``, ``load_from_checkpoint``) are not ported yet.
 """
 
 import typing as tp
+from collections.abc import Callable
 
 import numpy as np
 import pandas as pd
@@ -29,9 +31,11 @@ from ..item_net import (
 from .backbone import TransformerBackbone, TransformerBackboneBase
 from .convert import flax_params_to_state_dict
 from .data_preparator import InitKwargs, TransformerDataPreparatorBase
+from .losses import requires_negatives
+from .negative_sampler import CatalogUniformSampler, TransformerNegativeSamplerBase
 from .net_blocks import LearnableInversePositionalEncoding, PositionalEncodingBase, TransformerLayersBase
 from .similarity import DistanceSimilarityModule, SimilarityModuleBase
-from .training import TRAINING_NOT_PORTED, TransformerTrainingModule
+from .training import TransformerTrainingModule, TransformerTrainingModuleBase
 
 # ---------------------------------------------------------------- config types
 
@@ -60,6 +64,8 @@ def _class_path_annotated(base: tp.Any) -> tp.Any:
 
 PositionalEncodingType = _class_path_annotated(PositionalEncodingBase)
 TransformerLayersType = _class_path_annotated(TransformerLayersBase)
+TransformerTrainingModuleType = _class_path_annotated(TransformerTrainingModuleBase)
+TransformerNegativeSamplerType = _class_path_annotated(TransformerNegativeSamplerBase)
 SimilarityModuleType = _class_path_annotated(SimilarityModuleBase)
 TransformerBackboneType = _class_path_annotated(TransformerBackboneBase)
 TransformerDataPreparatorType = _class_path_annotated(TransformerDataPreparatorBase)
@@ -71,9 +77,17 @@ ItemNetBlockTypes = tpe.Annotated[
     PlainSerializer(func=_serialize_type_sequence, return_type=tp.Tuple[str, ...], when_used="json"),
 ]
 
-ValMaskCallable = tp.Callable[..., np.ndarray]
+ValMaskCallable = Callable[..., np.ndarray]
 ValMaskCallableSerialized = tpe.Annotated[
     ValMaskCallable,
+    BeforeValidator(_get_class_obj),
+    PlainSerializer(func=get_class_or_function_full_path, return_type=str, when_used="json"),
+]
+
+# factory of fresh training callbacks for each fit, serialized as an import path
+CallbacksCallable = Callable[[], tp.Sequence[tp.Any]]
+CallbacksCallableSerialized = tpe.Annotated[
+    CallbacksCallable,
     BeforeValidator(_get_class_obj),
     PlainSerializer(func=get_class_or_function_full_path, return_type=str, when_used="json"),
 ]
@@ -105,14 +119,19 @@ class TransformerModelConfig(ModelConfig):
     item_net_constructor_type: ItemNetConstructorType = SumOfEmbeddingsConstructor
     pos_encoding_type: PositionalEncodingType = LearnableInversePositionalEncoding
     transformer_layers_type: TransformerLayersType
+    training_module_type: TransformerTrainingModuleType = TransformerTrainingModule
+    negative_sampler_type: TransformerNegativeSamplerType = CatalogUniformSampler
     similarity_module_type: SimilarityModuleType = DistanceSimilarityModule
     backbone_type: TransformerBackboneType = TransformerBackbone
     get_val_mask_func: tp.Optional[ValMaskCallableSerialized] = None
     get_val_mask_func_kwargs: tp.Optional[InitKwargs] = None
+    get_callbacks_func: tp.Optional[CallbacksCallableSerialized] = None
     data_preparator_kwargs: tp.Optional[InitKwargs] = None
     transformer_layers_kwargs: tp.Optional[InitKwargs] = None
     item_net_constructor_kwargs: tp.Optional[InitKwargs] = None
     pos_encoding_kwargs: tp.Optional[InitKwargs] = None
+    training_module_kwargs: tp.Optional[InitKwargs] = None
+    negative_sampler_kwargs: tp.Optional[InitKwargs] = None
     similarity_module_kwargs: tp.Optional[InitKwargs] = None
     backbone_kwargs: tp.Optional[InitKwargs] = None
     device: str = "cuda"
@@ -125,6 +144,8 @@ class TransformerModelBase(ModelBase[TransformerModelConfig_T]):
     """Base class for transformer sequential recommenders."""
 
     config_class: tp.Type[TransformerModelConfig_T]
+    train_loss_name: str = "train_loss"
+    val_loss_name: str = "val_loss"
 
     def __init__(
         self,
@@ -152,14 +173,19 @@ class TransformerModelBase(ModelBase[TransformerModelConfig_T]):
         item_net_block_types: tp.Sequence[tp.Type[ItemNetBase]] = (IdEmbeddingsItemNet, CatFeaturesItemNet),
         item_net_constructor_type: tp.Type[ItemNetConstructorBase] = SumOfEmbeddingsConstructor,
         pos_encoding_type: tp.Type[PositionalEncodingBase] = LearnableInversePositionalEncoding,
+        training_module_type: tp.Type[TransformerTrainingModuleBase] = TransformerTrainingModule,
+        negative_sampler_type: tp.Type[TransformerNegativeSamplerBase] = CatalogUniformSampler,
         similarity_module_type: tp.Type[SimilarityModuleBase] = DistanceSimilarityModule,
         backbone_type: tp.Type[TransformerBackboneBase] = TransformerBackbone,
         get_val_mask_func: tp.Optional[ValMaskCallable] = None,
         get_val_mask_func_kwargs: tp.Optional[InitKwargs] = None,
+        get_callbacks_func: tp.Optional[CallbacksCallable] = None,
         data_preparator_kwargs: tp.Optional[InitKwargs] = None,
         transformer_layers_kwargs: tp.Optional[InitKwargs] = None,
         item_net_constructor_kwargs: tp.Optional[InitKwargs] = None,
         pos_encoding_kwargs: tp.Optional[InitKwargs] = None,
+        training_module_kwargs: tp.Optional[InitKwargs] = None,
+        negative_sampler_kwargs: tp.Optional[InitKwargs] = None,
         similarity_module_kwargs: tp.Optional[InitKwargs] = None,
         backbone_kwargs: tp.Optional[InitKwargs] = None,
         device: str = "cuda",
@@ -190,32 +216,49 @@ class TransformerModelBase(ModelBase[TransformerModelConfig_T]):
         self.item_net_block_types = item_net_block_types
         self.item_net_constructor_type = item_net_constructor_type
         self.pos_encoding_type = pos_encoding_type
+        self.training_module_type = training_module_type
+        self.negative_sampler_type = negative_sampler_type
         self.similarity_module_type = similarity_module_type
         self.backbone_type = backbone_type
         self.get_val_mask_func = get_val_mask_func
         self.get_val_mask_func_kwargs = get_val_mask_func_kwargs
+        self.get_callbacks_func = get_callbacks_func
         self.data_preparator_kwargs = data_preparator_kwargs
         self.transformer_layers_kwargs = transformer_layers_kwargs
         self.item_net_constructor_kwargs = item_net_constructor_kwargs
         self.pos_encoding_kwargs = pos_encoding_kwargs
+        self.training_module_kwargs = training_module_kwargs
+        self.negative_sampler_kwargs = negative_sampler_kwargs
         self.similarity_module_kwargs = similarity_module_kwargs
         self.backbone_kwargs = backbone_kwargs
 
-        self.data_preparator: TransformerDataPreparatorBase = self.data_preparator_type(
-            session_max_len=self.session_max_len,
-            batch_size=self.batch_size,
-            train_min_user_interactions=self.train_min_user_interactions,
-            get_val_mask_func=self.get_val_mask_func,
-            get_val_mask_func_kwargs=self.get_val_mask_func_kwargs,
-            **self._get_kwargs(self.data_preparator_kwargs),
-        )
-        self.training_module: TransformerTrainingModule
+        self.data_preparator: TransformerDataPreparatorBase
+        self._init_data_preparator()
+        self.training_module: TransformerTrainingModuleBase
 
     # ------------------------------------------------------------ construction
 
     @staticmethod
     def _get_kwargs(actual_kwargs: tp.Optional[InitKwargs]) -> InitKwargs:
         return actual_kwargs if actual_kwargs is not None else {}
+
+    def _init_data_preparator(self) -> None:
+        needs_negatives = requires_negatives(self.loss)
+        self.data_preparator = self.data_preparator_type(
+            session_max_len=self.session_max_len,
+            batch_size=self.batch_size,
+            train_min_user_interactions=self.train_min_user_interactions,
+            negative_sampler=self._init_negative_sampler() if needs_negatives else None,
+            n_negatives=self.n_negatives if needs_negatives else None,
+            get_val_mask_func=self.get_val_mask_func,
+            get_val_mask_func_kwargs=self.get_val_mask_func_kwargs,
+            **self._get_kwargs(self.data_preparator_kwargs),
+        )
+
+    def _init_negative_sampler(self) -> TransformerNegativeSamplerBase:
+        return self.negative_sampler_type(
+            n_negatives=self.n_negatives, **self._get_kwargs(self.negative_sampler_kwargs)
+        )
 
     def _construct_item_net(self, dataset: Dataset) -> ItemNetBase:
         return self.item_net_constructor_type.from_dataset(
@@ -262,26 +305,71 @@ class TransformerModelBase(ModelBase[TransformerModelConfig_T]):
             **self._get_kwargs(self.backbone_kwargs),
         )
 
+    def _init_training_module(self, backbone: TransformerBackboneBase) -> None:
+        self.training_module = self.training_module_type(
+            backbone=backbone,
+            device=self._device,
+            data_preparator=self.data_preparator,
+            item_extra_tokens=self.data_preparator.item_extra_tokens,
+            lr=self.lr,
+            loss=self.loss,
+            gbce_t=self.gbce_t,
+            verbose=self.verbose,
+            train_loss_name=self.train_loss_name,
+            val_loss_name=self.val_loss_name,
+            adam_betas=(0.9, 0.98),
+            seed=self.seed,
+            **self._training_module_extra_kwargs(),
+        )
+
+    def _training_module_extra_kwargs(self) -> InitKwargs:
+        kwargs = dict(self._get_kwargs(self.training_module_kwargs))
+        if self.get_callbacks_func is not None and "callbacks" not in kwargs:
+            kwargs["callbacks"] = self.get_callbacks_func()  # fresh instances per fit
+        return kwargs
+
     def _build_model_from_dataset(self, dataset: Dataset) -> None:
-        """The same construction the JAX ``fit`` runs first
+        """The construction the JAX ``fit`` runs first
         (rectools_tpu/models/nn/transformers/base.py:352)."""
         self.data_preparator.process_dataset_train(dataset)
         backbone = self._init_backbone(self._construct_item_net(self.data_preparator.train_dataset))
-        self.training_module = TransformerTrainingModule(backbone=backbone, device=self._device)
+        self._init_training_module(backbone)
 
     def load_jax_params(self, dataset: Dataset, params: tp.Mapping[str, tp.Any]) -> tpe.Self:
         """Build the model for ``dataset`` as the JAX ``fit`` does, load the
         JAX package's parameter tree (nested dicts of numpy arrays, flax
         layout) and mark the model fitted."""
         self._build_model_from_dataset(dataset)
-        self.backbone.load_state_dict(flax_params_to_state_dict(params), strict=True)
+        self.training_module.load_params(flax_params_to_state_dict(params))
         self.is_fitted = True
         return self
 
     # -------------------------------------------------------------------- fit
 
-    def _fit(self, dataset: Dataset, *args: tp.Any, **kwargs: tp.Any) -> None:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+    def _fit(self, dataset: Dataset) -> None:
+        self._build_model_from_dataset(dataset)
+        self.training_module.fit(
+            train_loader_factory=self.data_preparator.get_dataloader_train,
+            val_loader_factory=self.data_preparator.get_dataloader_val,
+            max_epochs=self.epochs,
+        )
+
+    def _fit_partial(
+        self, dataset: Dataset, min_epochs: tp.Optional[int] = None, max_epochs: tp.Optional[int] = None
+    ) -> None:
+        """Continue training for `max_epochs` more epochs (reference
+        transformers/base.py:505-533); the same dataset is expected."""
+        if max_epochs is None:
+            max_epochs = self.epochs
+        if not self.is_fitted:
+            self._build_model_from_dataset(dataset)
+        else:
+            self.data_preparator.process_dataset_train(dataset)
+        self.training_module.fit(
+            train_loader_factory=self.data_preparator.get_dataloader_train,
+            val_loader_factory=self.data_preparator.get_dataloader_val,
+            max_epochs=max_epochs,
+        )
 
     # --------------------------------------------------------------- recommend
 

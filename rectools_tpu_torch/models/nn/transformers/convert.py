@@ -1,4 +1,4 @@
-"""Flax parameter trees -> the port's ``state_dict``.
+"""Flax parameter trees <-> the port's ``state_dict``, both directions.
 
 The JAX package's transformer backbone keeps its parameters as a nested
 dict (flax layout), for SASRec:
@@ -15,7 +15,9 @@ The port's modules carry the same names, with two layout rules: a numbered
 child ``name_{i}`` is entry ``i`` of the ``nn.ModuleList`` ``name`` (``block``
 becomes ``blocks``), and a flax ``Dense`` kernel, stored (in, out), becomes
 the transposed ``nn.Linear.weight``, stored (out, in). Embedding tables become
-``nn.Embedding.weight``.
+``nn.Embedding.weight``. These names cover every parameter of the SASRec
+training path (item tables, positions, LayerNorms, attention, FFN), so a
+model trained on either side continues on the other.
 """
 
 import re
@@ -26,6 +28,7 @@ import torch
 
 _NUMBERED = re.compile(r"^(.*)_(\d+)$")
 _LIST_NAMES = {"block": "blocks", "item_net_blocks": "item_net_blocks"}
+_FLAX_LIST_NAMES = {torch_name: flax_name for flax_name, torch_name in _LIST_NAMES.items()}
 _EMBEDDING_TABLES = ("ids_emb", "cat_emb")
 
 
@@ -57,3 +60,31 @@ def flax_params_to_state_dict(params: tp.Mapping[str, tp.Any]) -> tp.Dict[str, t
 
     walk(params, "")
     return state
+
+
+def state_dict_to_flax_params(state: tp.Mapping[str, torch.Tensor]) -> tp.Dict[str, tp.Any]:
+    """The inverse of :func:`flax_params_to_state_dict`: a flax parameter tree
+    (nested dicts of float32 numpy arrays) for the port's backbone ``state_dict``."""
+    params: tp.Dict[str, tp.Any] = {}
+    for key, value in state.items():
+        parts = key.split(".")
+        path: tp.List[str] = []
+        i = 0
+        while i < len(parts):
+            part = parts[i]
+            if part in _FLAX_LIST_NAMES and i + 1 < len(parts) and parts[i + 1].isdigit():
+                path.append(f"{_FLAX_LIST_NAMES[part]}_{parts[i + 1]}")
+                i += 2
+                continue
+            path.append(part)
+            i += 1
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        if path[-1] == "weight" and len(path) > 1 and path[-2] in _EMBEDDING_TABLES:
+            path = path[:-1]
+        elif path[-1] == "weight":
+            path[-1], arr = "kernel", arr.T.copy()
+        node = params
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = arr
+    return params

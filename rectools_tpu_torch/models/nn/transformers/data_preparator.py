@@ -1,12 +1,12 @@
-"""Host-side data pipeline for sequential transformers — the serving half.
+"""Host-side data pipeline for sequential transformers.
 
 Port of rectools_tpu/models/nn/transformers/data_preparator.py: sessions live
 in a CSR-of-sessions structure (flat value arrays + indptr) and every collate
-is a vectorised numpy scatter into fixed-shape left-padded batches. This
-slice ports what ``recommend`` needs (the train dataset and id maps built by
-``process_dataset_train``, the recommend loader, the u2i / i2i dataset
-transforms); the train and validation loaders, negative sampling and the
-native C++ collation come with the training slice.
+is a vectorised numpy scatter into fixed-shape left-padded batches — the
+train, validation and recommend loaders, host negative sampling and the u2i /
+i2i dataset transforms. The JAX package's optional native C++ collation is
+not ported: its numpy path, which gives the same batches, is the port's only
+path.
 """
 
 import typing as tp
@@ -22,6 +22,7 @@ from ....dataset import Dataset, IdMap, Interactions
 from ....dataset.features import DenseFeatures, Features, SparseFeatures
 from ....types import ExternalIds
 from .constants import PADDING_VALUE
+from .negative_sampler import TransformerNegativeSamplerBase
 
 InitKwargs = tp.Dict[str, tp.Any]
 Batch = tp.Dict[str, np.ndarray]
@@ -108,6 +109,12 @@ def scatter_left_padded(
     return out
 
 
+def _take_last(starts: np.ndarray, lengths: np.ndarray, limit: int) -> tp.Tuple[np.ndarray, np.ndarray]:
+    """Clip ragged rows to their last ``limit`` elements."""
+    clipped = np.minimum(lengths, limit)
+    return starts + (lengths - clipped), clipped
+
+
 class BatchLoader:
     """Iterable over fixed-shape batches; reshuffles (from its own rng stream)
     on every pass when ``shuffle`` is set."""
@@ -142,7 +149,7 @@ class BatchLoader:
 
 
 class TransformerDataPreparatorBase:
-    """Train-dataset / id-map processing and the recommend loader
+    """Train/val/recommend dataset processing and batch loaders
     (reference data_preparator.py:102-469)."""
 
     train_session_max_len_addition: int = 0
@@ -154,6 +161,9 @@ class TransformerDataPreparatorBase:
         batch_size: int,
         train_min_user_interactions: int = 2,
         get_val_mask_func: tp.Optional[tp.Callable] = None,
+        shuffle_train: bool = True,
+        n_negatives: tp.Optional[int] = None,
+        negative_sampler: tp.Optional[TransformerNegativeSamplerBase] = None,
         get_val_mask_func_kwargs: tp.Optional[InitKwargs] = None,
         extra_cols: tp.Optional[tp.List[str]] = None,
         add_unix_ts: bool = False,
@@ -164,8 +174,11 @@ class TransformerDataPreparatorBase:
         self.train_dataset: Dataset
         self.val_interactions: tp.Optional[pd.DataFrame] = None
         self.session_max_len = session_max_len
+        self.negative_sampler = negative_sampler
+        self.n_negatives = n_negatives
         self.batch_size = batch_size
         self.train_min_user_interactions = train_min_user_interactions
+        self.shuffle_train = shuffle_train
         self.get_val_mask_func = get_val_mask_func
         self.get_val_mask_func_kwargs = get_val_mask_func_kwargs
         self.extra_cols = extra_cols
@@ -278,6 +291,30 @@ class TransformerDataPreparatorBase:
 
     # -------------------------------------------------------------- dataloaders
 
+    def get_dataloader_train(self, rng: tp.Optional[np.random.Generator] = None) -> BatchLoader:
+        """Train loader; ``rng`` drives shuffling and host negatives."""
+        sequence_dataset = SequenceDataset.from_interactions(self.train_dataset.interactions.df)
+        return BatchLoader(
+            dataset=sequence_dataset,
+            collate_fn=self._collate_fn_train,
+            batch_size=self.batch_size,
+            shuffle=self.shuffle_train,
+            rng=rng,
+        )
+
+    def get_dataloader_val(self, rng: tp.Optional[np.random.Generator] = None) -> tp.Optional[BatchLoader]:
+        """Validation loader, or None without a validation mask."""
+        if self.val_interactions is None:
+            return None
+        sequence_dataset = SequenceDataset.from_interactions(self.val_interactions)
+        return BatchLoader(
+            dataset=sequence_dataset,
+            collate_fn=self._collate_fn_val,
+            batch_size=self.batch_size,
+            shuffle=False,
+            rng=rng,
+        )
+
     def get_dataloader_recommend(self, dataset: Dataset, batch_size: int) -> BatchLoader:
         """Recommend loader; sessions sorted by internal user id so that row i
         of the stacked embeddings is user i (reference data_preparator.py:331-352)."""
@@ -350,10 +387,40 @@ class TransformerDataPreparatorBase:
 
     # ------------------------------------------------------------------ collates
 
+    def _collate_fn_train(
+        self, dataset: SequenceDataset, rows: np.ndarray, rng: tp.Optional[np.random.Generator]
+    ) -> Batch:
+        raise NotImplementedError()
+
+    def _collate_fn_val(
+        self, dataset: SequenceDataset, rows: np.ndarray, rng: tp.Optional[np.random.Generator]
+    ) -> Batch:
+        raise NotImplementedError()
+
     def _collate_fn_recommend(
         self, dataset: SequenceDataset, rows: np.ndarray, rng: tp.Optional[np.random.Generator]
     ) -> Batch:
         raise NotImplementedError()
+
+    # --------------------------------------------------------- collate helpers
+
+    # Training modules that draw uniform negatives on the device flip this
+    # off, so batches skip the (B, L, n_negatives) host array.
+    host_negatives: bool = True
+
+    def _sample_negatives(
+        self, batch: Batch, rng: tp.Optional[np.random.Generator], session_len_limit: tp.Optional[int] = None
+    ) -> None:
+        if self.negative_sampler is not None and self.host_negatives:
+            if rng is None:  # pragma: no cover
+                raise ValueError("negative sampling requires rng")
+            batch["negatives"] = self.negative_sampler.get_negatives(
+                batch,
+                lowest_id=self.n_item_extra_tokens,
+                highest_id=self.item_id_map.size,
+                rng=rng,
+                session_len_limit=session_len_limit,
+            )
 
     @staticmethod
     def _left_fill_first_value(t: np.ndarray, lengths_to_pad: np.ndarray) -> np.ndarray:
@@ -362,3 +429,42 @@ class TransformerDataPreparatorBase:
         cols = np.arange(out_len)[None, :]
         first_vals = t[np.arange(len(t)), np.minimum(lengths_to_pad, out_len - 1)]
         return np.where(cols < lengths_to_pad[:, None], first_vals[:, None], t)
+
+    def _val_inputs_targets(
+        self, dataset: SequenceDataset, rows: np.ndarray
+    ) -> tp.Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Split validation sessions into weight-0 history (inputs) and the
+        first weighted row (target). Returns ``(input_flat, input_seg, y, yw,
+        target_flat)``: flat indices and segment ids of the history rows, the
+        per-session target item and weight, and the targets' flat indices."""
+        starts = dataset.indptr[rows]
+        lengths = dataset.lengths[rows]
+        total = int(lengths.sum())
+        seg = np.repeat(np.arange(len(rows)), lengths)
+        within = np.arange(total) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+        flat_idx = np.repeat(starts, lengths) + within
+        is_input = dataset.weights[flat_idx] == 0
+        is_target = ~is_input
+        uniq_seg, first_pos = np.unique(seg[is_target], return_index=True)
+        target_flat = flat_idx[is_target][first_pos]
+        if len(uniq_seg) != len(rows):  # pragma: no cover
+            raise ValueError("Every validation session must contain a weighted target row")
+        return flat_idx[is_input], seg[is_input], dataset.items[target_flat], dataset.weights[target_flat], target_flat
+
+    @staticmethod
+    def _ragged_right_align(
+        values: np.ndarray, seg: np.ndarray, n_rows: int, out_len: int, dtype: tp.Any
+    ) -> np.ndarray:
+        """Right-align ragged (values, seg) into (n_rows, out_len), keeping the
+        last ``out_len`` elements of each row."""
+        lengths = np.bincount(seg, minlength=n_rows)
+        out = np.zeros((n_rows, out_len), dtype=dtype)
+        if len(values) == 0:
+            return out
+        within = np.arange(len(values)) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+        keep = within >= np.repeat(lengths - out_len, lengths)  # last out_len per row
+        seg_k = seg[keep]
+        within_k = within[keep] - np.maximum(lengths - out_len, 0)[seg_k]
+        cols = (out_len - np.minimum(lengths, out_len))[seg_k] + within_k
+        out[seg_k, cols] = values[keep]
+        return out

@@ -1,10 +1,12 @@
 """Transformer building blocks — port of
-rectools_tpu/models/nn/transformers/net_blocks.py (the SASRec serving path).
+rectools_tpu/models/nn/transformers/net_blocks.py (the SASRec path).
 
 Attention masks are additive float biases (``MASK_VALUE``, finite, never
--inf), so fully-masked rows stay NaN-free. The modules here are forward-only
-for serving: in training mode a positive dropout rate raises in the attention
-wrapper (dropout and the backward kernels come with the training slice).
+-inf), so fully-masked rows stay NaN-free. In training mode the attention
+draws its dropout seed from the training module's generator and applies the
+counter-hash dropout inside the kernel; the FFN applies :class:`HashDropout`
+to its inner activations. ``PreLNTransformerLayers`` and ``SwigluFeedForward``
+are not ported yet.
 """
 
 import typing as tp
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from ....ops.attention import dot_product_attention
+from ..dropout import HashDropout, draw_attention_seed
 
 MASK_VALUE = -1e9  # additive attention-bias "minus infinity"
 
@@ -32,6 +35,7 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = nn.Linear(n_factors, n_factors, device=device)
         self.v_proj = nn.Linear(n_factors, n_factors, device=device)
         self.out_proj = nn.Linear(n_factors, n_factors, device=device)
+        self.dropout_generator: tp.Optional[torch.Generator] = None  # see dropout.attach_generator
 
     def forward(
         self,
@@ -47,7 +51,8 @@ class MultiHeadAttention(nn.Module):
         v = self.v_proj(value).view(b, l, self.n_heads, head_dim)
         scale = 1.0 / float(head_dim) ** 0.5
         rate = self.dropout_rate if self.training else 0.0
-        out = dot_product_attention(q, k, v, attn_bias, scale, dropout_rate=rate)
+        seed = draw_attention_seed(self.dropout_generator) if rate > 0.0 else None
+        out = dot_product_attention(q, k, v, attn_bias, scale, dropout_rate=rate, dropout_seed=seed)
         return self.out_proj(out.reshape(b, l, self.n_factors))
 
 
@@ -67,9 +72,10 @@ class PointWiseFeedForward(nn.Module):
         self.ff_linear_1 = nn.Linear(n_factors, n_factors_ff, bias=use_bias, device=device)
         self.ff_linear_2 = nn.Linear(n_factors_ff, n_factors, bias=use_bias, device=device)
         self.activation = activation
+        self.dropout = HashDropout(dropout_rate)
 
     def forward(self, seqs: torch.Tensor) -> torch.Tensor:
-        return self.ff_linear_2(self.activation(self.ff_linear_1(seqs)))
+        return self.ff_linear_2(self.dropout(self.activation(self.ff_linear_1(seqs))))
 
 
 class TransformerLayersBase(nn.Module):

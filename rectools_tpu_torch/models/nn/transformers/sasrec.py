@@ -1,8 +1,8 @@
 """SASRec: shifted-sequence objective + unidirectional attention.
 
-Port of rectools_tpu/models/nn/transformers/sasrec.py, serving half: the
-recommend collation, the SASRec blocks, the config and the model. Train and
-validation collation come with the training slice.
+Port of rectools_tpu/models/nn/transformers/sasrec.py: the train, validation
+and recommend collations (numpy scatters), the SASRec blocks, the config and
+the model.
 """
 
 import typing as tp
@@ -18,9 +18,11 @@ from ..item_net import (
     ItemNetConstructorBase,
     SumOfEmbeddingsConstructor,
 )
+from ..dropout import HashDropout
 from ..norm import FusedLayerNorm
 from .backbone import TransformerBackbone, TransformerBackboneBase
 from .base import (
+    CallbacksCallable,
     InitKwargs,
     TransformerDataPreparatorType,
     TransformerLayersType,
@@ -29,6 +31,7 @@ from .base import (
     ValMaskCallable,
 )
 from .data_preparator import Batch, SequenceDataset, TransformerDataPreparatorBase, scatter_left_padded
+from .negative_sampler import CatalogUniformSampler, TransformerNegativeSamplerBase
 from .net_blocks import (
     LearnableInversePositionalEncoding,
     MultiHeadAttention,
@@ -37,12 +40,54 @@ from .net_blocks import (
     TransformerLayersBase,
 )
 from .similarity import DistanceSimilarityModule, SimilarityModuleBase
+from .training import TransformerTrainingModule, TransformerTrainingModuleBase
 
 
 class SASRecDataPreparator(TransformerDataPreparatorBase):
     """Shifted-sequence collation (reference sasrec.py:51-166)."""
 
     train_session_max_len_addition: int = 1
+
+    def _collate_fn_train(
+        self, dataset: SequenceDataset, rows: np.ndarray, rng: tp.Optional[np.random.Generator]
+    ) -> Batch:
+        """x = session[:-1], y = session[1:], left-padded to session_max_len."""
+        starts = dataset.indptr[rows]
+        lengths = dataset.lengths[rows]
+        m = lengths - 1  # shifted-pair count per session
+        x = scatter_left_padded(dataset.items, starts, m, self.session_max_len, np.int64)
+        y = scatter_left_padded(dataset.items, starts + 1, m, self.session_max_len, np.int64)
+        yw = scatter_left_padded(dataset.weights, starts + 1, m, self.session_max_len, np.float32)
+        batch: Batch = {"x": x, "y": y, "yw": yw}
+        self._sample_negatives(batch, rng)
+        if self.add_unix_ts:
+            # (B, L+1): full session timestamps incl. the target, left-filled
+            # with the first real value (reference sasrec.py:109-116)
+            t = scatter_left_padded(dataset.extras["unix_ts"], starts, lengths, self.session_max_len + 1, np.int64)
+            batch["unix_ts"] = self._left_fill_first_value(t, self.session_max_len + 1 - lengths)
+        return batch
+
+    def _collate_fn_val(
+        self, dataset: SequenceDataset, rows: np.ndarray, rng: tp.Optional[np.random.Generator]
+    ) -> Batch:
+        """Input = weight-0 history rows; target = first weighted row
+        (reference sasrec.py:119-148)."""
+        input_flat, input_seg, y_vals, yw_vals, _ = self._val_inputs_targets(dataset, rows)
+        x = self._ragged_right_align(dataset.items[input_flat], input_seg, len(rows), self.session_max_len, np.int64)
+        batch: Batch = {
+            "x": x,
+            "y": y_vals.reshape(-1, 1).astype(np.int64),
+            "yw": yw_vals.reshape(-1, 1).astype(np.float32),
+        }
+        self._sample_negatives(batch, rng, session_len_limit=1)
+        if self.add_unix_ts:
+            starts = dataset.indptr[rows]
+            lengths = dataset.lengths[rows]
+            t = scatter_left_padded(
+                dataset.extras["unix_ts"], starts + 1, lengths - 1, self.session_max_len + 1, np.int64
+            )
+            batch["unix_ts"] = self._left_fill_first_value(t, self.session_max_len + 2 - lengths)
+        return batch
 
     def _collate_fn_recommend(
         self, dataset: SequenceDataset, rows: np.ndarray, rng: tp.Optional[np.random.Generator]
@@ -79,12 +124,13 @@ class SASRecTransformerLayer(nn.Module):
         self.multi_head_attn = MultiHeadAttention(n_factors, n_heads, dropout_rate, device=device)
         self.ff_layer_norm = FusedLayerNorm(n_factors, device=device)
         self.feed_forward = PointWiseFeedForward(n_factors, n_factors, dropout_rate, torch.relu, device=device)
+        self.dropout = HashDropout(dropout_rate)
 
     def forward(self, seqs: torch.Tensor, attn_bias: tp.Optional[torch.Tensor]) -> torch.Tensor:
         q = self.q_layer_norm(seqs)
         seqs = q + self.multi_head_attn(q, seqs, seqs, attn_bias)
         ff_input = self.ff_layer_norm(seqs)
-        return self.feed_forward(ff_input) + ff_input
+        return self.dropout(self.feed_forward(ff_input)) + ff_input
 
 
 class SASRecTransformerLayers(TransformerLayersBase):
@@ -127,11 +173,14 @@ class SASRecModelConfig(TransformerModelConfig):
 
 
 class SASRecModel(TransformerModelBase[SASRecModelConfig]):
-    """SASRec sequential recommender (arXiv 1808.09781), serving on the GPU.
+    """SASRec sequential recommender (arXiv 1808.09781) with swappable losses
+    and components, trained and served on the GPU.
 
-    ``fit`` raises until the training slice is ported; load weights trained by
-    the JAX package with :meth:`load_jax_params`. ``device`` defaults to
-    ``"cuda"`` and construction raises when no card is present.
+    ``fit`` trains with the port's kernels (the fused softmax-CE for the
+    full-catalog loss); :meth:`load_jax_params` loads weights trained by the
+    JAX package instead. ``device`` defaults to ``"cuda"`` and construction
+    raises when no card is present; ``device="cpu"`` runs the kernels' plain
+    twins.
     """
 
     config_class = SASRecModelConfig
@@ -161,15 +210,20 @@ class SASRecModel(TransformerModelBase[SASRecModelConfig]):
         pos_encoding_type: tp.Type[PositionalEncodingBase] = LearnableInversePositionalEncoding,
         transformer_layers_type: tp.Type[TransformerLayersBase] = SASRecTransformerLayers,
         data_preparator_type: tp.Type[TransformerDataPreparatorBase] = SASRecDataPreparator,
+        training_module_type: tp.Type[TransformerTrainingModuleBase] = TransformerTrainingModule,
+        negative_sampler_type: tp.Type[TransformerNegativeSamplerBase] = CatalogUniformSampler,
         similarity_module_type: tp.Type[SimilarityModuleBase] = DistanceSimilarityModule,
         backbone_type: tp.Type[TransformerBackboneBase] = TransformerBackbone,
         get_val_mask_func: tp.Optional[ValMaskCallable] = None,
         get_val_mask_func_kwargs: tp.Optional[InitKwargs] = None,
+        get_callbacks_func: tp.Optional[CallbacksCallable] = None,
         recommend_batch_size: tp.Optional[int] = None,
         data_preparator_kwargs: tp.Optional[InitKwargs] = None,
         transformer_layers_kwargs: tp.Optional[InitKwargs] = None,
         item_net_constructor_kwargs: tp.Optional[InitKwargs] = None,
         pos_encoding_kwargs: tp.Optional[InitKwargs] = None,
+        training_module_kwargs: tp.Optional[InitKwargs] = None,
+        negative_sampler_kwargs: tp.Optional[InitKwargs] = None,
         similarity_module_kwargs: tp.Optional[InitKwargs] = None,
         backbone_kwargs: tp.Optional[InitKwargs] = None,
         device: str = "cuda",
@@ -199,14 +253,19 @@ class SASRecModel(TransformerModelBase[SASRecModelConfig]):
             item_net_block_types=item_net_block_types,
             item_net_constructor_type=item_net_constructor_type,
             pos_encoding_type=pos_encoding_type,
+            training_module_type=training_module_type,
+            negative_sampler_type=negative_sampler_type,
             similarity_module_type=similarity_module_type,
             backbone_type=backbone_type,
             get_val_mask_func=get_val_mask_func,
             get_val_mask_func_kwargs=get_val_mask_func_kwargs,
+            get_callbacks_func=get_callbacks_func,
             data_preparator_kwargs=data_preparator_kwargs,
             transformer_layers_kwargs=transformer_layers_kwargs,
             item_net_constructor_kwargs=item_net_constructor_kwargs,
             pos_encoding_kwargs=pos_encoding_kwargs,
+            training_module_kwargs=training_module_kwargs,
+            negative_sampler_kwargs=negative_sampler_kwargs,
             similarity_module_kwargs=similarity_module_kwargs,
             backbone_kwargs=backbone_kwargs,
             device=device,

@@ -24,6 +24,11 @@ class SimilarityModuleBase(nn.Module):
     def _get_full_catalog_logits(self, session_embs: torch.Tensor, item_embs: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError()
 
+    def _get_pos_neg_logits(
+        self, session_embs: torch.Tensor, item_embs: torch.Tensor, candidate_item_ids: torch.Tensor
+    ) -> torch.Tensor:
+        raise NotImplementedError()
+
     def session_tower_forward(self, session_embs: torch.Tensor) -> torch.Tensor:
         """Forward pass for session tower."""
         return session_embs
@@ -32,8 +37,21 @@ class SimilarityModuleBase(nn.Module):
         """Forward pass for item tower."""
         return item_embs
 
-    def forward(self, session_embs: torch.Tensor, item_embs: torch.Tensor) -> torch.Tensor:
-        """Full-catalog logits (B, L, N)."""
+    def catalog_loss_towers(
+        self, session_embs: torch.Tensor, item_embs: torch.Tensor
+    ) -> tp.Optional[tp.Tuple[torch.Tensor, torch.Tensor]]:
+        """(s, i) such that ``einsum('bld,nd->bln', s, i)`` equals
+        `_get_full_catalog_logits`, or None when the module's logits are not a
+        plain dot product (disables the fused softmax loss)."""
+        return None
+
+    def forward(
+        self,
+        session_embs: torch.Tensor,
+        item_embs: torch.Tensor,
+        candidate_item_ids: tp.Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Full-catalog logits (B, L, N), or candidate logits (B, L, C)."""
         raise NotImplementedError()
 
     def recommend_u2i(
@@ -64,15 +82,35 @@ class DistanceSimilarityModule(SimilarityModuleBase):
     def _get_full_catalog_logits(self, session_embs: torch.Tensor, item_embs: torch.Tensor) -> torch.Tensor:
         return torch.einsum("bld,nd->bln", session_embs, item_embs)
 
+    def _get_pos_neg_logits(
+        self, session_embs: torch.Tensor, item_embs: torch.Tensor, candidate_item_ids: torch.Tensor
+    ) -> torch.Tensor:
+        # candidates (B, L, C): gather, then a per-position dot
+        return torch.einsum("blcd,bld->blc", item_embs[candidate_item_ids], session_embs)
+
     def _normalize(self, embeddings: torch.Tensor) -> torch.Tensor:
         norm_sq = (embeddings * embeddings).sum(dim=-1, keepdim=True)
         return embeddings / torch.sqrt(torch.clamp(norm_sq, min=EPSILON_COSINE_DIST**2))
 
-    def forward(self, session_embs: torch.Tensor, item_embs: torch.Tensor) -> torch.Tensor:
+    def catalog_loss_towers(
+        self, session_embs: torch.Tensor, item_embs: torch.Tensor
+    ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        if self._dist() == Distance.COSINE:
+            return self._normalize(session_embs), self._normalize(item_embs)
+        return session_embs, item_embs
+
+    def forward(
+        self,
+        session_embs: torch.Tensor,
+        item_embs: torch.Tensor,
+        candidate_item_ids: tp.Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
         if self._dist() == Distance.COSINE:
             session_embs = self._normalize(session_embs)
             item_embs = self._normalize(item_embs)
-        return self._get_full_catalog_logits(session_embs, item_embs)
+        if candidate_item_ids is None:
+            return self._get_full_catalog_logits(session_embs, item_embs)
+        return self._get_pos_neg_logits(session_embs, item_embs, candidate_item_ids)
 
     def recommend_u2i(
         self,

@@ -1,11 +1,32 @@
-"""Training module — the inference half of
-rectools_tpu/models/nn/transformers/training.py.
+"""Training module — port of rectools_tpu/models/nn/transformers/training.py.
 
-Holds the backbone (an ``nn.Module`` on the model's device) and serves u2i and
-i2i recommendations from it. Training (the optimizer loop, the fused
-softmax-CE and the backward kernels) is the next slice of the port.
+Holds the backbone (an ``nn.Module`` on the model's device), trains it and
+serves u2i and i2i recommendations from it. A train step is forward, loss,
+``backward`` and ``torch.optim.Adam`` (betas 0.9/0.98, eps 1e-8) in full f32;
+on CUDA every LayerNorm, attention and softmax-CE goes through the port's
+kernels and their ``autograd.Function``s. The rest follows the JAX module:
+Xavier-normal init of every parameter with more than one dimension (Linear
+biases from U(±1/√in)), the host rng contract (one
+``np.random.default_rng(SeedSequence((seed, epochs_completed)))`` per fit
+call, so batches equal the JAX package's), the fused softmax loss under the
+same rule (``_use_fused_softmax``), validation loss at the last position
+only, ``val_recall@k``, callbacks and loss histories.
+
+Dropout salts come from a CPU ``torch.Generator`` that this module owns,
+hands to the backbone's dropout and attention modules, and reseeds for every
+step from ``(seed + 1, global_step)``, so a CPU and a CUDA run with the same
+seed draw the same masks (see ``models/nn/dropout.py``).
+
+Not ported yet, and refused with ``NotImplementedError``: ``mesh_shape``
+(multi-device), ``remat=True``, ``negatives_sharing="batch"`` and
+``compute_dtype="bfloat16"``; ``compute_dtype="auto"`` resolves to float32,
+as it does in the JAX package on every backend but the TPU.
+``steps_per_dispatch`` is validated for config compatibility and otherwise
+unused: it never changes the trajectory in the JAX package, and the port
+dispatches step by step.
 """
 
+import copy
 import typing as tp
 
 import numpy as np
@@ -15,26 +36,350 @@ from ....dataset.dataset import Dataset
 from ....utils.device import full_f32_matmul, host_to_device
 from ...base import InternalRecoTriplet
 from ...rank import Distance, TorchRanker
+from ..dropout import attach_generator, draw_key_words, hash_uniform_ints
 from .backbone import TransformerBackboneBase
-from .data_preparator import BatchLoader
+from .data_preparator import Batch, BatchLoader, TransformerDataPreparatorBase
+from .losses import bce_loss, fused_softmax_loss, gbce_loss, requires_negatives, sampled_softmax_loss, softmax_loss
+from .negative_sampler import CatalogUniformSampler
+from .similarity import SimilarityModuleBase
 
-TRAINING_NOT_PORTED = (
-    "Training is not ported yet: it is the next slice of the PyTorch port (ROADMAP.md, slice 2: "
-    "training). Load weights trained by the JAX package with `load_jax_params` instead."
-)
+if tp.TYPE_CHECKING:  # pragma: no cover
+    from .callbacks import TrainingCallback
 
 
-class TransformerTrainingModule:
-    """Default module (reference lightning.py:259-449), inference half."""
+def _xavier_normal_reinit(backbone: torch.nn.Module, generator: torch.Generator) -> None:
+    """Xavier-normal re-init of every parameter with more than one dimension
+    (reference lightning.py:296-299); ``nn.Linear`` biases get torch's own
+    default U(±1/√in_features), as the JAX package gives its Dense biases
+    (rectools_tpu/models/nn/transformers/training.py:49-95). LayerNorm
+    parameters stay as built. Draws on the CPU ``generator`` in parameter
+    order, so every device gets the same values."""
+    with torch.no_grad():
+        for param in backbone.parameters():
+            if param.dim() > 1:
+                fan_out, fan_in = param.shape[0], int(np.prod(param.shape[1:]))
+                std = float(np.sqrt(2.0 / (fan_in + fan_out)))
+                param.copy_(torch.randn(param.shape, generator=generator) * std)
+        for module in backbone.modules():
+            if isinstance(module, torch.nn.Linear) and module.bias is not None:
+                bound = 1.0 / float(np.sqrt(module.weight.shape[1]))  # torch fan-in: weight is (out, in)
+                module.bias.copy_(torch.rand(module.bias.shape, generator=generator) * (2 * bound) - bound)
+
+
+def pad_batch(batch: Batch, batch_size: int) -> Batch:
+    """Zero-pad a batch to the static batch size (padded rows have y == 0 and
+    yw == 0, so they never contribute to the loss)."""
+    n = batch["x"].shape[0]
+    if n == batch_size:
+        return batch
+    return {key: np.pad(arr, [(0, batch_size - n)] + [(0, 0)] * (arr.ndim - 1)) for key, arr in batch.items()}
+
+
+def _stream_seed(*entropy: int) -> int:
+    """A 63-bit generator seed derived from ``entropy`` (numpy's SeedSequence)."""
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
+
+
+class TransformerTrainingModuleBase:
+    """Base class for training modules; subclass and pass via
+    ``training_module_type`` to change the training procedure."""
+
+    def __init__(
+        self,
+        backbone: TransformerBackboneBase,
+        device: torch.device,
+        data_preparator: TransformerDataPreparatorBase,
+        item_extra_tokens: tp.Sequence[tp.Any],
+        lr: float = 0.001,
+        gbce_t: float = 0.2,
+        loss: str = "softmax",
+        verbose: int = 0,
+        train_loss_name: str = "train_loss",
+        val_loss_name: str = "val_loss",
+        adam_betas: tp.Tuple[float, float] = (0.9, 0.98),
+        logits_t: float = 1,
+        seed: int = 0,
+        mesh_shape: tp.Optional[tp.Tuple[int, int]] = None,
+        compute_dtype: str = "auto",
+        negatives_on_device: bool = True,
+        steps_per_dispatch: int = 8,
+        fused_softmax_chunk: tp.Optional[int] = 2048,
+        callbacks: tp.Optional[tp.Sequence["TrainingCallback"]] = None,
+        val_recall_k: tp.Optional[int] = None,
+        remat: bool = False,
+        negatives_sharing: str = "positionwise",
+        **kwargs: tp.Any,
+    ) -> None:
+        if steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+        if negatives_sharing not in ("positionwise", "batch"):
+            raise ValueError("negatives_sharing must be 'positionwise' or 'batch'")
+        if compute_dtype not in ("auto", "float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'auto', 'float32' or 'bfloat16', got {compute_dtype}")
+        if mesh_shape is not None:
+            raise NotImplementedError("mesh_shape: multi-device training is not ported yet (ROADMAP.md, multi-device)")
+        if remat:
+            raise NotImplementedError("remat=True is not ported yet (ROADMAP.md, remat and shared negatives)")
+        if negatives_sharing == "batch":
+            raise NotImplementedError(
+                "negatives_sharing='batch' (shared negatives, rectools_tpu training.py:406-437) is not ported yet "
+                "(ROADMAP.md, remat and shared negatives)"
+            )
+        if compute_dtype == "bfloat16":
+            raise NotImplementedError(
+                "compute_dtype='bfloat16' is not ported yet (ROADMAP.md, bf16 compute with tensor-core kernels)"
+            )
+        self.backbone = backbone.to(device).eval()
+        self.device = device
+        self.callbacks: tp.List["TrainingCallback"] = list(callbacks) if callbacks is not None else []
+        self.val_recall_k = val_recall_k
+        self.fused_softmax_chunk = fused_softmax_chunk
+        self.negatives_on_device = negatives_on_device
+        self.item_extra_tokens = item_extra_tokens
+        self.data_preparator = data_preparator
+        self.lr = lr
+        self.loss = loss
+        self.gbce_t = gbce_t
+        self.adam_betas = adam_betas
+        self.verbose = verbose
+        self.train_loss_name = train_loss_name
+        self.val_loss_name = val_loss_name
+        self.logits_t = logits_t
+        self.seed = seed
+
+        self._requires_negatives = requires_negatives(loss)
+        self.is_fitted = False
+        self.optimizer: tp.Optional[torch.optim.Optimizer] = None
+        self.epochs_completed = 0
+        self.global_step = 0
+        self.train_loss_history: tp.List[float] = []
+        self.val_loss_history: tp.List[float] = []
+        self.val_metric_history: tp.Dict[str, tp.List[float]] = {}
+        self.dropout_generator = torch.Generator()
+        attach_generator(self.backbone, self.dropout_generator)
+
+    def fit(
+        self,
+        train_loader_factory: tp.Callable[[np.random.Generator], BatchLoader],
+        val_loader_factory: tp.Callable[[np.random.Generator], tp.Optional[BatchLoader]],
+        max_epochs: int,
+    ) -> None:
+        raise NotImplementedError()
+
+    def recommend_u2i(self, *args: tp.Any, **kwargs: tp.Any) -> InternalRecoTriplet:
+        raise NotImplementedError()
+
+    def recommend_i2i(self, *args: tp.Any, **kwargs: tp.Any) -> InternalRecoTriplet:
+        raise NotImplementedError()
+
+
+class TransformerTrainingModule(TransformerTrainingModuleBase):
+    """Default training module (reference lightning.py:259-449)."""
 
     i2i_dist = Distance.COSINE
 
-    def __init__(self, backbone: TransformerBackboneBase, device: torch.device) -> None:
-        self.backbone = backbone.to(device).eval()
-        self.device = device
+    # ------------------------------------------------------------------- setup
 
-    def fit(self, *args: tp.Any, **kwargs: tp.Any) -> None:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+    def _make_optimizer(self) -> torch.optim.Optimizer:
+        return torch.optim.Adam(self.backbone.parameters(), lr=self.lr, betas=self.adam_betas, eps=1e-8)
+
+    def _loss_fn(self, logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        if self.loss == "softmax":
+            return softmax_loss(logits, y, w)
+        if self.loss == "BCE":
+            return bce_loss(logits, y, w)
+        if self.loss == "gBCE":
+            n_actual_items = self.backbone.item_model.n_items - len(self.item_extra_tokens)
+            n_negatives = self.data_preparator.n_negatives
+            if n_negatives is None:  # pragma: no cover
+                raise ValueError("`n_negatives` is not defined. Please ensure that `n_negatives` is set.")
+            return gbce_loss(logits, y, w, n_actual_items, n_negatives, self.gbce_t)
+        if self.loss == "sampled_softmax":
+            return sampled_softmax_loss(logits, y, w)
+        return self._calc_custom_loss(logits, y, w)
+
+    def _calc_custom_loss(self, logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        raise ValueError(f"loss {self.loss} is not supported")
+
+    @property
+    def _use_fused_softmax(self) -> bool:
+        sim = self.backbone.similarity_module
+        return (
+            self.loss == "softmax"
+            and self.fused_softmax_chunk is not None
+            # single-chunk catalogs: the JAX package keeps the plain loss there
+            and self.backbone.item_model.n_items > self.fused_softmax_chunk
+            and type(sim).catalog_loss_towers is not SimilarityModuleBase.catalog_loss_towers
+        )
+
+    @property
+    def _use_device_negatives(self) -> bool:
+        return (
+            bool(self._requires_negatives)
+            and self.negatives_on_device
+            and type(self.data_preparator.negative_sampler) is CatalogUniformSampler
+        )
+
+    def _draw_device_negatives(self, batch: tp.Dict[str, torch.Tensor], words: tp.Sequence[int]) -> torch.Tensor:
+        """Uniform negatives over [n_extra_tokens, n_items) from the counter
+        hash, as ``CatalogUniformSampler`` draws them on the host."""
+        b, length = batch["y"].shape
+        shape = (b, length, self.data_preparator.n_negatives)
+        return hash_uniform_ints(
+            words, shape, len(self.item_extra_tokens), self.backbone.item_model.n_items, batch["y"].device
+        )
+
+    def _candidates(
+        self, batch: tp.Dict[str, torch.Tensor], neg_words: tp.Optional[tp.Sequence[int]]
+    ) -> torch.Tensor:
+        if "negatives" in batch:
+            negatives = batch["negatives"]
+        else:
+            if neg_words is None:
+                raise ValueError("negative key words are required when negatives are sampled on the device")
+            negatives = self._draw_device_negatives(batch, neg_words)
+        return torch.cat([batch["y"][..., None], negatives], dim=-1)
+
+    def _batch_logits(
+        self, batch: tp.Dict[str, torch.Tensor], neg_words: tp.Optional[tp.Sequence[int]] = None
+    ) -> torch.Tensor:
+        """Forward pass -> logits / logits_t (reference lightning.py:301-309)."""
+        candidates = self._candidates(batch, neg_words) if self._requires_negatives else None
+        return self.backbone(batch, candidate_item_ids=candidates).float() / self.logits_t
+
+    def _fused_softmax_loss_value(self, batch: tp.Dict[str, torch.Tensor]) -> torch.Tensor:
+        item_embs = self.backbone.item_model.embed_catalog()
+        session_embs = self.backbone.encode_sessions(batch, item_embs)
+        s_t, i_t = self.backbone.similarity_module.catalog_loss_towers(session_embs, item_embs)
+        return fused_softmax_loss(s_t.float() / self.logits_t, i_t.float(), batch["y"], batch["yw"])
+
+    def _device_batch(self, batch: Batch) -> tp.Dict[str, torch.Tensor]:
+        return {k: host_to_device(v, self.device) for k, v in batch.items()}
+
+    def _train_step(self, batch: tp.Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One optimizer step; returns the loss as a device scalar."""
+        self.dropout_generator.manual_seed(_stream_seed(self.seed + 1, self.global_step))
+        self.backbone.train()
+        with full_f32_matmul():
+            neg_words = draw_key_words(self.dropout_generator) if self._use_device_negatives else None
+            if self._use_fused_softmax:
+                loss = self._fused_softmax_loss_value(batch)
+            else:
+                loss = self._loss_fn(self._batch_logits(batch, neg_words), batch["y"], batch["yw"])
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            self.optimizer.step()
+        self.global_step += 1
+        return loss.detach()
+
+    def _val_step(
+        self,
+        batch: tp.Dict[str, torch.Tensor],
+        neg_words: tp.Optional[tp.Sequence[int]],
+        recall_k: tp.Optional[int] = None,
+    ) -> tp.Tuple[torch.Tensor, tp.Optional[tp.Tuple[torch.Tensor, torch.Tensor]]]:
+        """Validation loss of the last position and, with ``recall_k``, the
+        (hits, n_valid) of recall@k, from one encoding of the batch. The JAX
+        ``_val_step`` slices the full logits to ``[:, -1:]``; the port computes
+        only that slice."""
+        item_embs = self.backbone.item_model.embed_catalog()
+        session_embs = self.backbone.encode_sessions(batch, item_embs)[:, -1:, :]
+        candidates = self._candidates(batch, neg_words) if self._requires_negatives else None
+        logits = self.backbone.similarity_module(session_embs, item_embs, candidates).float() / self.logits_t
+        loss = self._loss_fn(logits, batch["y"], batch["yw"])
+        if recall_k is None:
+            return loss, None
+        # recall@k of the held-out targets: last-position catalog scores,
+        # extra tokens masked, padded rows excluded
+        scores = self.backbone.similarity_module._get_full_catalog_logits(session_embs, item_embs)[:, 0, :]
+        n_extra = len(self.item_extra_tokens)
+        if n_extra:
+            scores[:, :n_extra] = float("-inf")
+        top = torch.topk(scores, min(recall_k, scores.shape[-1]), dim=-1).indices
+        valid = batch["yw"][:, 0] > 0
+        hits = (top == batch["y"][:, :1]).any(dim=1) & valid
+        return loss, (hits.sum(), valid.sum())
+
+    # -------------------------------------------------------------------- init
+
+    def init_params(self) -> None:
+        """Xavier-normal init from ``seed`` and a fresh optimizer (the port's
+        parameter shapes, unlike flax's, need no sample batch)."""
+        _xavier_normal_reinit(self.backbone, torch.Generator().manual_seed(self.seed))
+        self.optimizer = self._make_optimizer()
+
+    def load_params(self, state_dict: tp.Mapping[str, torch.Tensor]) -> None:
+        """Start training from given parameters (a backbone ``state_dict``, e.g.
+        from ``flax_params_to_state_dict``) with a fresh optimizer."""
+        self.backbone.load_state_dict(state_dict, strict=True)
+        self.optimizer = self._make_optimizer()
+
+    # --------------------------------------------------------------------- fit
+
+    def fit(
+        self,
+        train_loader_factory: tp.Callable[[np.random.Generator], BatchLoader],
+        val_loader_factory: tp.Callable[[np.random.Generator], tp.Optional[BatchLoader]],
+        max_epochs: int,
+    ) -> None:
+        """Epoch loop. Loaders come from factories so each fit / fit_partial
+        call re-derives its host rng stream from the seed and epoch counter."""
+        self.data_preparator.host_negatives = not self._use_device_negatives
+        host_rng = np.random.default_rng(np.random.SeedSequence(entropy=(self.seed, self.epochs_completed)))
+        train_loader = train_loader_factory(host_rng)
+        val_loader = val_loader_factory(host_rng)
+        if self.optimizer is None:
+            self.init_params()
+
+        for callback in self.callbacks:
+            callback.on_train_start(self)
+        for _ in range(max_epochs):
+            logs: tp.Dict[str, float] = {}
+            # losses stay on the device until the epoch closes: no sync per step
+            epoch_losses = [
+                self._train_step(self._device_batch(pad_batch(batch, train_loader.batch_size)))
+                for batch in train_loader
+            ]
+            if epoch_losses:
+                self.train_loss_history.append(float(torch.stack(epoch_losses).mean()))
+                logs[self.train_loss_name] = self.train_loss_history[-1]
+            if val_loader is not None:
+                self._validate(val_loader, logs)
+            self.epochs_completed += 1
+            if self.verbose > 0:
+                print(f"epoch {self.epochs_completed}: " + " ".join(f"{n}={v:.5f}" for n, v in logs.items()))
+            # every callback sees every epoch (no short-circuit)
+            stop = [callback.on_epoch_end(self, self.epochs_completed, logs) for callback in self.callbacks]
+            if any(stop):
+                break
+        for callback in self.callbacks:
+            callback.on_train_end(self)
+        self.backbone.eval()
+        self.is_fitted = True
+
+    def _validate(self, val_loader: BatchLoader, logs: tp.Dict[str, float]) -> None:
+        self.backbone.eval()
+        losses, hits, totals = [], [], []
+        with torch.no_grad(), full_f32_matmul():
+            for vi, batch in enumerate(val_loader):
+                batch = pad_batch(batch, val_loader.batch_size)
+                neg_words = None
+                if self._requires_negatives and "negatives" not in batch:
+                    neg_words = draw_key_words(torch.Generator().manual_seed(_stream_seed(self.seed + 3, vi)))
+                loss, recall = self._val_step(self._device_batch(batch), neg_words, self.val_recall_k)
+                losses.append(loss)
+                if recall is not None:
+                    hits.append(recall[0])
+                    totals.append(recall[1])
+        if losses:
+            self.val_loss_history.append(float(torch.stack(losses).mean()))
+            logs[self.val_loss_name] = self.val_loss_history[-1]
+        recall_total = float(torch.stack(totals).sum()) if totals else 0.0
+        if self.val_recall_k is not None and recall_total > 0:
+            name = f"val_recall@{self.val_recall_k}"
+            value = float(torch.stack(hits).sum()) / recall_total
+            self.val_metric_history.setdefault(name, []).append(value)
+            logs[name] = value
 
     # --------------------------------------------------------------- inference
 
@@ -73,6 +418,7 @@ class TransformerTrainingModule:
         ui_csr_for_filter = None
         if filter_viewed:
             ui_csr_for_filter = dataset.get_user_item_matrix(include_weights=False, include_warm_items=True)[user_ids]
+        self.backbone.eval()
         with torch.inference_mode(), full_f32_matmul():
             user_embs, item_embs = self._get_user_item_embeddings(recommend_loader)
             return self.backbone.similarity_module.recommend_u2i(
@@ -92,6 +438,7 @@ class TransformerTrainingModule:
     ) -> InternalRecoTriplet:
         """I2I: cosine ranking over raw item-net embeddings
         (reference lightning.py:428-449)."""
+        self.backbone.eval()
         with torch.inference_mode(), full_f32_matmul():
             item_embs = self._catalog_item_embs()
             ranker = TorchRanker(
@@ -103,3 +450,30 @@ class TransformerTrainingModule:
                 filter_pairs_csr=None,
                 sorted_object_whitelist=sorted_item_ids_to_recommend,
             )
+
+    # ------------------------------------------------------------------- state
+
+    def get_state(self) -> tp.Dict[str, tp.Any]:
+        """Parameters (CPU copies), optimizer state and counters."""
+        return {
+            "params": {k: v.detach().cpu().clone() for k, v in self.backbone.state_dict().items()},
+            "opt_state": copy.deepcopy(self.optimizer.state_dict()) if self.optimizer is not None else None,
+            "epochs_completed": self.epochs_completed,
+            "global_step": self.global_step,
+            "train_loss_history": list(self.train_loss_history),
+            "val_loss_history": list(self.val_loss_history),
+            "val_metric_history": {name: list(vals) for name, vals in self.val_metric_history.items()},
+            "is_fitted": self.is_fitted,
+        }
+
+    def set_state(self, state: tp.Dict[str, tp.Any], sample_batch: tp.Optional[Batch] = None) -> None:
+        """Restore a :meth:`get_state` payload."""
+        self.load_params(state["params"])
+        if state["opt_state"] is not None:
+            self.optimizer.load_state_dict(state["opt_state"])
+        self.epochs_completed = state["epochs_completed"]
+        self.global_step = state["global_step"]
+        self.train_loss_history = list(state["train_loss_history"])
+        self.val_loss_history = list(state["val_loss_history"])
+        self.val_metric_history = {name: list(vals) for name, vals in state.get("val_metric_history", {}).items()}
+        self.is_fitted = state["is_fitted"]

@@ -25,14 +25,23 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("layer_norm", "attention", "topk_select")
+SOURCES = ("layer_norm", "attention", "topk_select", "softmax_lse")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 BUILD_TIMEOUT_S = 600
 
-LAUNCHES: tp.Dict[str, int] = {"layer_norm_fwd": 0, "attention_fwd": 0, "group_topm": 0}
+LAUNCHES: tp.Dict[str, int] = {
+    "layer_norm_fwd": 0,
+    "attention_fwd": 0,
+    "group_topm": 0,
+    "layer_norm_bwd": 0,
+    "attention_bwd": 0,
+    "lse_fwd": 0,
+    "ce_grads_ds": 0,
+    "ce_grads_di": 0,
+}
 
 _LOCK = threading.Lock()
 _LIBS: tp.Dict[str, ctypes.CDLL] = {}
@@ -132,10 +141,11 @@ def current_stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda_f32(kernel: str, **tensors: torch.Tensor) -> None:
-    """The wrappers' common input checks: CUDA, float32, one device, and no
-    autograd (the kernels are forward-only; backward kernels come with the
-    training slice)."""
+def require_cuda_f32(kernel: str, forward_only: bool = False, **tensors: torch.Tensor) -> None:
+    """The wrappers' common input checks: CUDA, float32, one device. A
+    ``forward_only`` kernel (one with no backward kernel, such as the top-m
+    selection) also refuses tensors that need a gradient; the others are
+    reached through their ``autograd.Function``."""
     device = None
     for arg, t in tensors.items():
         if t.device.type != "cuda":
@@ -144,7 +154,7 @@ def require_cuda_f32(kernel: str, **tensors: torch.Tensor) -> None:
             raise TypeError(f"{kernel}: {arg} must be float32, got {t.dtype}")
         if device is not None and t.device != device:
             raise ValueError(f"{kernel}: all inputs must be on one device")
-        if t.requires_grad and torch.is_grad_enabled():
+        if forward_only and t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(f"{kernel}: the CUDA kernel is forward-only; run under torch.no_grad()")
         device = t.device
 

@@ -1,13 +1,23 @@
-"""Attention forward: a hand-written CUDA kernel and its plain PyTorch twin.
+"""Attention forward and backward: hand-written CUDA kernels and their plain
+PyTorch twins, joined by a ``torch.autograd.Function``.
 
-Port of rectools_tpu/ops/attention.py (forward, dropout off). The score
-``q kᵀ · scale + bias``, the softmax and the value product run in one kernel
-(``csrc/attention.cu``) for CUDA tensors, and in :func:`attention_reference`
-for CPU tensors. Masks are finite additive biases (``MASK_VALUE = -1e9`` in
-net_blocks), never ``-inf``. The counter-hash dropout and the backward kernel
-come with the training slice: a positive ``dropout_rate`` raises. The kernel
-takes head dims 8, 16, 32 and 64 (``SUPPORTED_HEAD_DIMS``); others raise on
-CUDA.
+Port of rectools_tpu/ops/attention.py. The forward (``csrc/attention.cu``
+``attn_fwd_f32``) computes ``dropout(softmax(q kᵀ · scale + bias)) v`` and
+the pre-dropout row logsumexp in one kernel; the backward (``attn_bwd_f32``)
+recomputes the probabilities from that logsumexp, regenerates the dropout
+mask and writes dq, dk and dv. ``delta = sum(dout * out)`` is computed in
+torch between the two, as the JAX package does. CPU tensors take the plain
+twins (:func:`attention_reference`, :func:`attention_bwd_reference`).
+
+Dropout is the counter hash of the JAX package (``dropout_keep_mask``): the
+keep bit of (batch·head ``bh``, query row, key column) is a pure function of
+``seed + bh · 40503`` and ``row · L + col``, so forward, backward, kernel and
+twin all draw the same mask, bit for bit the JAX one for the same int32 seed.
+
+Masks are finite additive biases (``MASK_VALUE = -1e9`` in net_blocks), never
+``-inf``. The bias is a constant mask (the JAX ``bias_has_grad=False``
+default): a bias that requires a gradient raises. The kernels take head dims
+8, 16, 32 and 64 (``SUPPORTED_HEAD_DIMS``); others raise on CUDA.
 """
 
 import ctypes
@@ -20,10 +30,58 @@ from . import _native
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
+# bias batch and head strides, scale, seed, dropout on, keep threshold, keep scale, stream
+_TAIL = (_L, _L, _F, _I, _I, ctypes.c_uint, _F, _C)
 _SIGNATURES = {
-    "attn_fwd_f32": (_C, _C, _C, _C, _C, _C, _I, _I, _I, _I) + (_L,) * 14 + (ctypes.c_float, _C),
+    # q, k, v, bias, out, lse; B, H, L, dh; (batch, head, row) strides of q, k, v, out
+    "attn_fwd_f32": (_C,) * 6 + (_I,) * 4 + (_L,) * 12 + _TAIL,
+    # q, k, v, bias, lse, delta, dout, dq, dk, dv; B, H, L, dh; strides of q, k, v, dout, dq, dk, dv
+    "attn_bwd_f32": (_C,) * 10 + (_I,) * 4 + (_L,) * 21 + _TAIL,
 }
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
+
+# The counter hash of rectools_tpu/ops/attention.py:39-75 on uint32 values held
+# in int64: ``& MASK32`` after every multiply keeps the low 32 bits of the
+# product whatever int64 overflow does to the high ones.
+MASK32 = 0xFFFFFFFF
+GOLDEN = 0x9E3779B9
+
+
+def fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer."""
+    h = h ^ (h >> 16)
+    h = (h * 0x85EBCA6B) & MASK32
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2AE35) & MASK32
+    return h ^ (h >> 16)
+
+
+def mix32_fast(h: torch.Tensor) -> torch.Tensor:
+    """Single-multiply finalizer used for dropout thresholds."""
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & MASK32
+    return h ^ (h >> 15)
+
+
+def dropout_threshold(rate: float) -> int:
+    """Keep an element when its 32 hash bits are at least this value."""
+    return min(MASK32, int(round(rate * 4294967296.0)))
+
+
+def dropout_keep_mask(seed: int, b: int, h: int, l: int, rate: float, device: tp.Optional[torch.device] = None):
+    """(B, H, L, L) float keep mask in {0, 1}, P(1) = 1 - rate: the JAX
+    package's ``dropout_keep_mask`` for every batch·head row."""
+    bh = torch.arange(b * h, dtype=torch.int64, device=device).reshape(b, h, 1, 1)
+    salt = (seed + bh * 40503) & MASK32
+    pos = torch.arange(l * l, dtype=torch.int64, device=device).reshape(1, 1, l, l)
+    bits = mix32_fast((pos * GOLDEN + salt * 0x01000193) & MASK32)
+    return (bits >= dropout_threshold(rate)).to(torch.float32)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, bias: tp.Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    return s if bias is None else s + bias
 
 
 def attention_reference(
@@ -32,24 +90,80 @@ def attention_reference(
     v: torch.Tensor,
     bias: tp.Optional[torch.Tensor],  # (B|1, H|1, L, L) additive, or None
     scale: float,
+    dropout_rate: float = 0.0,
+    seed: int = 0,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of the kernel: (out (B, H, L, dh), lse (B, H, L))."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-    if bias is not None:
-        s = s + bias
+    """Plain PyTorch twin of the forward kernel: (out (B, H, L, dh), lse (B, H, L))."""
+    s = _scores(q, k, bias, scale)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
+    if dropout_rate > 0.0:
+        b, h, l, _ = q.shape
+        p = p * (dropout_keep_mask(seed, b, h, l, dropout_rate, q.device) * (1.0 / (1.0 - dropout_rate)))
     out = torch.einsum("bhqk,bhkd->bhqd", p, v)
     return out, lse
 
 
-def _check_bias(bias: torch.Tensor, b: int, h: int, l: int) -> None:
+def attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: tp.Optional[torch.Tensor],
+    lse: torch.Tensor,  # (B, H, L) pre-dropout
+    delta: torch.Tensor,  # (B, H, L) = sum(dout * out, -1)
+    dout: torch.Tensor,
+    scale: float,
+    dropout_rate: float = 0.0,
+    seed: int = 0,
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of the backward kernel: (dq, dk, dv), the
+    recompute-based math of ``_xla_bwd_math``."""
+    p = torch.exp(_scores(q, k, bias, scale) - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout, v)
+    p_dropped = p
+    if dropout_rate > 0.0:
+        b, h, l, _ = q.shape
+        scaled_keep = dropout_keep_mask(seed, b, h, l, dropout_rate, q.device) * (1.0 / (1.0 - dropout_rate))
+        p_dropped = p * scaled_keep
+        dp = dp * scaled_keep
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_dropped, dout)
+    return dq, dk, dv
+
+
+def _check_shapes(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias) -> tp.Tuple[int, int]:
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{kernel}: q, k, v must share one (B, H, L, dh) shape, got {q.shape}, {k.shape}, {v.shape}")
+    b, h, l, dh = q.shape
+    if dh not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{kernel}: head dim {dh} not in {SUPPORTED_HEAD_DIMS}")
+    if bias is None:
+        return 0, 0
     if bias.dim() != 4 or bias.shape[0] not in (1, b) or bias.shape[1] not in (1, h) or bias.shape[2:] != (l, l):
-        raise ValueError(
-            f"attention_fwd: bias must be (1|B, 1|H, L, L) = (1|{b}, 1|{h}, {l}, {l}), got {tuple(bias.shape)}"
-        )
+        raise ValueError(f"{kernel}: bias must be (1|B, 1|H, L, L) = (1|{b}, 1|{h}, {l}, {l}), got {tuple(bias.shape)}")
     if not bias.is_contiguous():
-        raise ValueError("attention_fwd: bias must be contiguous")
+        raise ValueError(f"{kernel}: bias must be contiguous")
+    return (bias.stride(0) if bias.shape[0] > 1 else 0), (bias.stride(1) if bias.shape[1] > 1 else 0)
+
+
+def _blhd_empty(b: int, h: int, l: int, dh: int, device: torch.device) -> torch.Tensor:
+    """A (B, H, L, dh) view over (B, L, H, dh) memory: the projections' layout."""
+    return torch.empty((b, l, h, dh), dtype=torch.float32, device=device).transpose(1, 2)
+
+
+def _strides(*tensors: torch.Tensor) -> tp.Tuple[int, ...]:
+    return tuple(s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2)))
+
+
+def _dropout_args(seed: int, dropout_rate: float) -> tp.Tuple[int, int, int, float]:
+    """(seed, on, uint32 keep threshold, keep scale) as the kernels take them."""
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"attention: dropout_rate must be in [0, 1), got {dropout_rate}")
+    if dropout_rate == 0.0:
+        return seed, 0, 0, 1.0
+    return seed, 1, dropout_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate)
 
 
 def attention_fwd(
@@ -59,51 +173,113 @@ def attention_fwd(
     bias: tp.Optional[torch.Tensor],
     scale: float,
     dropout_rate: float = 0.0,
+    seed: int = 0,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """softmax(q kᵀ · scale + bias) v and the row logsumexp (float32).
-
-    On CUDA the output is a (B, H, L, dh) view over (B, L, H, dh) memory, so
-    ``out.transpose(1, 2)`` is contiguous in the projections' layout.
-    """
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout (the counter-hash keep mask of rectools_tpu/ops/attention.py:43-101) "
-            "is ported with the training slice; serving runs with dropout_rate=0"
-        )
+    """dropout(softmax(q kᵀ · scale + bias)) v and the pre-dropout row
+    logsumexp (float32). On CUDA the output is a (B, H, L, dh) view over
+    (B, L, H, dh) memory, so ``out.transpose(1, 2)`` is contiguous."""
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, bias, scale)
+        return attention_reference(q, k, v, bias, scale, dropout_rate, seed)
     tensors = {"q": q, "k": k, "v": v} if bias is None else {"q": q, "k": k, "v": v, "bias": bias}
     _native.require_cuda_f32("attention_fwd", **tensors)
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"attention_fwd: q, k, v must share one (B, H, L, dh) shape, got {q.shape}, {k.shape}, {v.shape}"
-        )
+    bias_sb, bias_sh = _check_shapes("attention_fwd", q, k, v, bias)
     b, h, l, dh = q.shape
-    if dh not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"attention_fwd: head dim {dh} not in {SUPPORTED_HEAD_DIMS}")
     for t in (q, k, v):
         _native.require_aligned("attention_fwd", t, (0, 1, 2))
-    bias_sb = bias_sh = 0
-    if bias is not None:
-        _check_bias(bias, b, h, l)
-        bias_sb = bias.stride(0) if bias.shape[0] > 1 else 0
-        bias_sh = bias.stride(1) if bias.shape[1] > 1 else 0
-
-    out = torch.empty((b, l, h, dh), dtype=torch.float32, device=q.device).transpose(1, 2)
+    out = _blhd_empty(b, h, l, dh, q.device)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     lib = _native.load("attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         status = lib.attn_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, h, l, dh,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            bias_sb, bias_sh, scale, _native.current_stream_ptr(q.device),
+            out.data_ptr(), lse.data_ptr(), b, h, l, dh, *_strides(q, k, v, out),
+            bias_sb, bias_sh, scale, *_dropout_args(seed, dropout_rate), _native.current_stream_ptr(q.device),
         )
     _native.check_launch("attention_fwd", status)
     return out, lse
+
+
+def attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: tp.Optional[torch.Tensor],
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    dout: torch.Tensor,
+    scale: float,
+    dropout_rate: float = 0.0,
+    seed: int = 0,
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`attention_fwd`; on CUDA each is a (B, H, L, dh)
+    view over (B, L, H, dh) memory."""
+    if q.device.type == "cpu":
+        return attention_bwd_reference(q, k, v, bias, lse, delta, dout, scale, dropout_rate, seed)
+    tensors = {"q": q, "k": k, "v": v, "lse": lse, "delta": delta, "dout": dout}
+    if bias is not None:
+        tensors["bias"] = bias
+    _native.require_cuda_f32("attention_bwd", **tensors)
+    bias_sb, bias_sh = _check_shapes("attention_bwd", q, k, v, bias)
+    b, h, l, dh = q.shape
+    if dout.shape != q.shape or lse.shape != (b, h, l) or delta.shape != (b, h, l):
+        raise ValueError("attention_bwd: dout must match q, and lse and delta must be (B, H, L)")
+    if not (lse.is_contiguous() and delta.is_contiguous()):
+        raise ValueError("attention_bwd: lse and delta must be contiguous")
+    for t in (q, k, v, dout):
+        _native.require_aligned("attention_bwd", t, (0, 1, 2))
+    dq, dk, dv = (_blhd_empty(b, h, l, dh, q.device) for _ in range(3))
+    lib = _native.load("attention", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        status = lib.attn_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, l, dh, *_strides(q, k, v, dout, dq, dk, dv),
+            bias_sb, bias_sh, scale, *_dropout_args(seed, dropout_rate), _native.current_stream_ptr(q.device),
+        )
+    _native.check_launch("attention_bwd", status)
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """Kernel 2 forward, kernel 5 backward; the bias is a constant mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale: float, dropout_rate: float, seed: int):  # type: ignore[override]
+        out, lse = attention_fwd(q, k, v, bias, scale, dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.args = (scale, dropout_rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):  # type: ignore[override]
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        scale, dropout_rate, seed = ctx.args
+        if dout.stride(-1) != 1 or dout.data_ptr() % 16 or any(dout.stride(i) % 4 for i in range(3)):
+            dout = dout.transpose(1, 2).contiguous().transpose(1, 2)
+        delta = (dout * out).sum(dim=-1).contiguous()
+        dq, dk, dv = attention_bwd(q, k, v, bias, lse, delta, dout, scale, dropout_rate, seed)
+        return dq, dk, dv, None, None, None, None
+
+
+def attention(
+    q: torch.Tensor,  # (B, H, L, dh)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: tp.Optional[torch.Tensor],
+    scale: float,
+    dropout_rate: float = 0.0,
+    seed: int = 0,
+) -> torch.Tensor:
+    """Differentiable attention output (B, H, L, dh): the kernels on CUDA,
+    the twins on the CPU, the same ``autograd.Function`` on both."""
+    if bias is not None and bias.requires_grad:
+        raise NotImplementedError(
+            "attention: the bias is a constant mask; a learnable bias needs the score-gradient "
+            "route of rectools_tpu/ops/attention.py:558-569, which is not ported"
+        )
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return attention_fwd(q, k, v, bias, scale, dropout_rate, seed)[0]
+    return _Attention.apply(q, k, v, bias, scale, dropout_rate, seed)
 
 
 def dot_product_attention(
@@ -113,9 +289,13 @@ def dot_product_attention(
     bias: tp.Optional[torch.Tensor],  # (B|1, H|1, L, L) additive, or None
     scale: float,
     dropout_rate: float = 0.0,
+    dropout_seed: tp.Optional[int] = None,
 ) -> torch.Tensor:
     """Attention entry point for the transformer stack, (B, L, H, dh) in and out
     (rectools_tpu/ops/attention.py:603-641). The transposes are views: the
-    kernel reads and writes this layout through strides."""
-    out, _ = attention_fwd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias, scale, dropout_rate)
+    kernels read and write this layout through strides."""
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires a dropout_seed")
+    seed = 0 if dropout_seed is None else dropout_seed
+    out = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias, scale, dropout_rate, seed)
     return out.transpose(1, 2)

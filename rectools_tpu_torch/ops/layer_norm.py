@@ -1,25 +1,35 @@
-"""LayerNorm forward: a hand-written CUDA kernel and its plain PyTorch twin.
+"""LayerNorm forward and backward: hand-written CUDA kernels, their plain
+PyTorch twins and the ``torch.autograd.Function`` that joins them.
 
-Port of rectools_tpu/ops/layer_norm.py (forward). Math follows flax
-``nn.LayerNorm``: reductions in f32, two-pass variance, ``rsqrt(var + eps)``,
-output in the input dtype. A CUDA tensor goes to ``csrc/layer_norm.cu``; a
-CPU tensor goes to :func:`layer_norm_reference`. The backward kernel comes
-with the training slice.
+Port of rectools_tpu/ops/layer_norm.py. Math follows flax ``nn.LayerNorm``:
+reductions in f32, two-pass variance, ``rsqrt(var + eps)``. The backward
+recomputes the row statistics from x (as the JAX ``_bwd_kernel`` does) and
+returns dx, dγ and dβ. A CUDA tensor goes to ``csrc/layer_norm.cu``
+(``ln_fwd_f32``, ``ln_bwd_f32``); a CPU tensor goes to the twins.
 """
 
 import ctypes
+import typing as tp
 
 import torch
 
 from . import _native
 
 _C = ctypes.c_void_p
-_SIGNATURES = {"ln_fwd_f32": (_C, _C, _C, _C, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, _C)}
+_SIGNATURES = {
+    "ln_fwd_f32": (_C, _C, _C, _C, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, _C),
+    # x, gamma, dy, dx, partials (n_blocks, D), dgamma, dbeta, m, d, eps, n_blocks, stream
+    "ln_bwd_f32": (_C,) * 7 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, _C),
+}
 MAX_D = 1024
+# blocks of the backward: a function of nothing but the row count, so the
+# fixed-order dγ/dβ reduction gives the same bits on every card
+MAX_BWD_BLOCKS = 1024
+_ROWS_PER_BLOCK = 8
 
 
 def layer_norm_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel (flax ``nn.LayerNorm`` semantics)."""
+    """Plain PyTorch twin of the forward kernel (flax ``nn.LayerNorm`` semantics)."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
@@ -27,18 +37,41 @@ def layer_norm_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     return y.to(x.dtype)
 
 
-def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis of a 2-D (M, D) input."""
+def layer_norm_bwd_reference(
+    x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of the backward kernel: (dx, dγ, dβ)."""
+    xf, dyf = x.float(), dy.float()
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    dxhat = dyf * gamma.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = rstd * (dxhat - m1 - xhat * m2)
+    return dx.to(x.dtype), (dyf * xhat).sum(0).to(gamma.dtype), dyf.sum(0).to(gamma.dtype)
+
+
+def _check(kernel: str, x: torch.Tensor, gamma: torch.Tensor, *others: torch.Tensor) -> tp.Tuple[int, int]:
+    if x.dim() != 2 or not 1 <= x.shape[1] <= MAX_D:
+        raise ValueError(f"{kernel}: x must be (M, D) with 1 <= D <= {MAX_D}, got {tuple(x.shape)}")
+    m, d = x.shape
+    if gamma.shape != (d,):
+        raise ValueError(f"{kernel}: gamma and beta must be ({d},)")
+    if not all(t.is_contiguous() for t in (x, gamma, *others)):
+        raise ValueError(f"{kernel}: inputs must be contiguous")
+    return m, d
+
+
+def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis of a 2-D (M, D) input (kernel 1)."""
     if x.device.type == "cpu":
         return layer_norm_reference(x, gamma, beta, eps)
     _native.require_cuda_f32("layer_norm_fwd", x=x, gamma=gamma, beta=beta)
-    if x.dim() != 2 or not 1 <= x.shape[1] <= MAX_D:
-        raise ValueError(f"layer_norm_fwd: x must be (M, D) with 1 <= D <= {MAX_D}, got {tuple(x.shape)}")
-    m, d = x.shape
-    if gamma.shape != (d,) or beta.shape != (d,):
+    m, d = _check("layer_norm_fwd", x, gamma, beta)
+    if beta.shape != (d,):
         raise ValueError(f"layer_norm_fwd: gamma and beta must be ({d},)")
-    if not (x.is_contiguous() and gamma.is_contiguous() and beta.is_contiguous()):
-        raise ValueError("layer_norm_fwd: inputs must be contiguous")
     y = torch.empty_like(x)
     lib = _native.load("layer_norm", _SIGNATURES)
     with torch.cuda.device(x.device):
@@ -48,3 +81,50 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: fl
         )
     _native.check_launch("layer_norm_fwd", status)
     return y
+
+
+def layer_norm_bwd(
+    x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dγ, dβ) of :func:`layer_norm_fwd` (kernel 4)."""
+    if x.device.type == "cpu":
+        return layer_norm_bwd_reference(x, gamma, dy, eps)
+    _native.require_cuda_f32("layer_norm_bwd", x=x, gamma=gamma, dy=dy)
+    m, d = _check("layer_norm_bwd", x, gamma, dy)
+    if dy.shape != x.shape:
+        raise ValueError("layer_norm_bwd: dy must match x")
+    n_blocks = max(1, min(MAX_BWD_BLOCKS, -(-m // _ROWS_PER_BLOCK)))
+    dx = torch.empty_like(x)
+    partials = torch.empty((n_blocks, 2, d), dtype=torch.float32, device=x.device)
+    dgamma = torch.empty((d,), dtype=torch.float32, device=x.device)
+    dbeta = torch.empty((d,), dtype=torch.float32, device=x.device)
+    lib = _native.load("layer_norm", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        status = lib.ln_bwd_f32(
+            x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), partials.data_ptr(),
+            dgamma.data_ptr(), dbeta.data_ptr(), m, d, eps, n_blocks, _native.current_stream_ptr(x.device),
+        )
+    _native.check_launch("layer_norm_bwd", status)
+    return dx, dgamma, dbeta
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps: float):  # type: ignore[override]
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return layer_norm_fwd(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, dy):  # type: ignore[override]
+        x, gamma = ctx.saved_tensors
+        dx, dgamma, dbeta = layer_norm_bwd(x, gamma, dy.contiguous(), ctx.eps)
+        return dx, dgamma, dbeta, None
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Differentiable LayerNorm over the last axis of a 2-D (M, D) input:
+    kernels 1 and 4 on CUDA, their twins on the CPU."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta)):
+        return _LayerNorm.apply(x, gamma, beta, eps)
+    return layer_norm_fwd(x, gamma, beta, eps)

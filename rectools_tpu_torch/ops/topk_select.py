@@ -65,7 +65,7 @@ def group_topm(scores: torch.Tensor, m: int) -> TopK:
     """
     if scores.device.type == "cpu":
         return group_topm_reference(scores, m)
-    _native.require_cuda_f32("group_topm", scores=scores)
+    _native.require_cuda_f32("group_topm", forward_only=True, scores=scores)
     if scores.dim() != 2 or scores.shape[1] % GROUP_W:
         raise ValueError(f"group_topm: scores must be (B, G*{GROUP_W}), got {tuple(scores.shape)}")
     if not 1 <= m <= GROUP_W:

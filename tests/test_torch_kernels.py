@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from rectools_tpu_torch.models import SASRecModel, TorchRanker
-from rectools_tpu_torch.ops import _native, attention, layer_norm, topk, topk_select
+from rectools_tpu_torch.ops import _native, attention, layer_norm, softmax_lse, topk, topk_select
 
 REPO = Path(__file__).resolve().parents[1]
 MASK_VALUE = -1e9
@@ -215,3 +215,137 @@ def test_cuda_sasrec_recommend_matches_cpu(cuda: torch.device) -> None:
     np.testing.assert_array_equal(got[Columns.TargetItem], expected[Columns.TargetItem])
     np.testing.assert_allclose(got[Columns.Score], expected[Columns.Score], rtol=1e-4, atol=1e-5)
     assert (got[Columns.Item].to_numpy() == expected[Columns.Item].to_numpy()).mean() > 0.99
+
+
+# ------------------------------------------------------------------ training kernels on the card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(5000, 128), (33, 96), (7, 1024)])
+def test_cuda_layer_norm_bwd_matches_twin(cuda: torch.device, m: int, d: int) -> None:
+    rng = np.random.default_rng(m + 1)
+    x = _t((rng.normal(size=(m, d)) * 3 + 1).astype(np.float32)).to(cuda)
+    g = _t(rng.normal(size=(d,)).astype(np.float32)).to(cuda)
+    dy = _t(rng.normal(size=(m, d)).astype(np.float32)).to(cuda)
+    before = _native.LAUNCHES["layer_norm_bwd"]
+    got = layer_norm.layer_norm_bwd(x, g, dy, 1e-6)
+    assert _native.LAUNCHES["layer_norm_bwd"] == before + 1
+    for a, b in zip(got, layer_norm.layer_norm_bwd_reference(x, g, dy, 1e-6)):
+        torch.testing.assert_close(a, b, atol=1e-5 * max(1.0, m / 1000), rtol=1e-5)
+    # deterministic: the same bits twice
+    again = layer_norm.layer_norm_bwd(x, g, dy, 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _blhd(rng: np.random.Generator, b: int, l: int, h: int, dh: int, dev: torch.device) -> torch.Tensor:
+    return _t(rng.normal(size=(b, l, h, dh)).astype(np.float32)).to(dev).transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("l,dh,bias_kind", [(100, 32, "causal"), (12, 16, "none"), (200, 64, "key_padding")])
+def test_cuda_attention_fwd_bwd_with_dropout_matches_twin(
+    cuda: torch.device, rate: float, l: int, dh: int, bias_kind: str
+) -> None:
+    rng = np.random.default_rng(l + dh)
+    b, h, seed = 3, 4, 123457
+    q, k, v, dout = (_blhd(rng, b, l, h, dh, cuda) for _ in range(4))
+    bias = None
+    if bias_kind == "causal":
+        bias = _t(_causal_bias(l)).to(cuda)
+    elif bias_kind == "key_padding":  # (B, 1, L, L): per-batch strides in both kernels
+        pad = np.arange(l)[None, :] < rng.integers(0, l, size=b)[:, None]
+        kp = np.where(pad, MASK_VALUE, 0.0)[:, None, None, :] + _causal_bias(l)
+        kp[:, :, np.arange(l), np.arange(l)] = 0.0
+        bias = _t(kp.astype(np.float32)).to(cuda)
+    scale = 1.0 / dh**0.5
+    out, lse = attention.attention_fwd(q, k, v, bias, scale, rate, seed)
+    ref_out, ref_lse = attention.attention_reference(q, k, v, bias, scale, rate, seed)
+    torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    delta = (dout * out).sum(-1).contiguous()
+    before = _native.LAUNCHES["attention_bwd"]
+    got = attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, rate, seed)
+    assert _native.LAUNCHES["attention_bwd"] == before + 1
+    expected = attention.attention_bwd_reference(q, k, v, bias, lse, delta, dout, scale, rate, seed)
+    for a, e in zip(got, expected):
+        torch.testing.assert_close(a, e, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_attention_dropout_bits_match_twin(cuda: torch.device) -> None:
+    """The kernel's keep bits are the twin's: with v = one-hot key columns, the
+    output of one query row is its dropped probability row."""
+    b, h, l, seed, rate = 2, 3, 40, 77, 0.3
+    q = torch.zeros((b, h, l, 64), device=cuda)  # uniform probabilities 1/l
+    k = torch.zeros_like(q)
+    v = torch.zeros_like(q)
+    v[:, :, torch.arange(l), torch.arange(l)] = 1.0
+    out, _ = attention.attention_fwd(q, k, v, None, 1.0, rate, seed)
+    kept = (out[..., :l] > 0).cpu()
+    expected = attention.dropout_keep_mask(seed, b, h, l, rate).bool()
+    assert torch.equal(kept, expected)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,d", [(51, 300, 32), (1000, 2111, 128), (64, 64, 16)])
+def test_cuda_streaming_lse_and_ce_grads_match_twin(cuda: torch.device, m: int, n: int, d: int) -> None:
+    rng = np.random.default_rng(n)
+    s = _t((0.3 * rng.normal(size=(m, d))).astype(np.float32)).to(cuda)
+    items = _t((0.3 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+    before = _native.LAUNCHES["lse_fwd"]
+    lse = softmax_lse.streaming_lse(s, items)
+    assert _native.LAUNCHES["lse_fwd"] == before + 1
+    torch.testing.assert_close(lse, softmax_lse.streaming_lse_reference(s, items), atol=0, rtol=1e-5)
+    y = _t(rng.integers(0, n, size=m)).to(cuda)
+    coeff = _t(rng.uniform(0, 1e-2, size=m).astype(np.float32)).to(cuda)
+    coeff[::7] = 0.0  # ignored rows: z = +inf
+    z = lse - torch.log(coeff)
+    ds, di = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    ref_ds, ref_di = softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff)
+    for got, ref in ((ds, ref_ds), (di, ref_di)):
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_cuda_sasrec_fit_matches_cpu(cuda: torch.device) -> None:
+    """Three train steps with dropout on the card and on the CPU twins, from the
+    same start weights and the same dropout generator seed."""
+    import pandas as pd
+
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.dataset import Dataset
+
+    rng = np.random.default_rng(12)
+    n = 2000
+    df = pd.DataFrame({
+        Columns.User: rng.integers(0, 96, n),
+        Columns.Item: rng.integers(0, 3000, n),
+        Columns.Weight: 1.0,
+        Columns.Datetime: pd.Timestamp("2021-01-01") + pd.to_timedelta(rng.integers(0, 10**6, n), unit="s"),
+    })
+    dataset = Dataset.construct(df)
+    config = dict(n_blocks=2, n_heads=4, n_factors=64, session_max_len=20, dropout_rate=0.2, batch_size=32,
+                  epochs=1, training_module_kwargs={"fused_softmax_chunk": 512})
+    models = {dev: SASRecModel(**config, device=dev) for dev in ("cpu", "cuda")}
+    for model in models.values():
+        model._build_model_from_dataset(dataset)
+    start = {k: v.clone() for k, v in models["cpu"].backbone.state_dict().items()}
+    for model in models.values():
+        model.training_module.load_params(start)
+    _native.reset_launches()
+    for model in models.values():
+        model.training_module.fit(model.data_preparator.get_dataloader_train,
+                                  model.data_preparator.get_dataloader_val, 1)
+    assert _native.LAUNCHES["lse_fwd"] == 3 and _native.LAUNCHES["ce_grads_di"] == 3
+    assert _native.LAUNCHES["attention_bwd"] == 6 and _native.LAUNCHES["layer_norm_bwd"] == 15
+    cpu_loss = models["cpu"].training_module.train_loss_history
+    gpu_loss = models["cuda"].training_module.train_loss_history
+    np.testing.assert_allclose(gpu_loss, cpu_loss, rtol=1e-4)
+    cpu_state = models["cpu"].backbone.state_dict()
+    for name, value in models["cuda"].backbone.state_dict().items():
+        # the key-projection biases have a zero gradient in exact arithmetic, so
+        # Adam moves them by the sign of rounding noise: held to steps * lr
+        tol = 3 * 1e-3 if name.endswith("multi_head_attn.k_proj.bias") else 1e-4
+        assert (value.cpu() - cpu_state[name]).abs().max().item() <= tol, name

@@ -95,9 +95,15 @@ def test_dot_product_attention_blhd_layout_matches_jax() -> None:
 
 
 def test_attention_rejects_dropout() -> None:
-    q, k, v = (_t(a) for a in _attention_inputs(1, 1, 4, 8, seed=0))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        attention.attention_fwd(q, k, v, None, 1.0, dropout_rate=0.2)
+    """Dropout needs a seed (as in the JAX entry point) and a rate below 1."""
+    q, k, v = (_t(a) for a in _attention_inputs(1, 4, 1, 8, seed=0))  # (B, L, H, dh)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        attention.dot_product_attention(q, k, v, None, 1.0, dropout_rate=0.2)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        jax_attention.dot_product_attention(*map(jnp.asarray, (q.numpy(), k.numpy(), v.numpy())), None, 1.0,
+                                            dropout_rate=0.2)
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        attention._dropout_args(0, 1.0)
 
 
 # ------------------------------------------------------------------ top-m / top-k

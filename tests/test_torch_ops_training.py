@@ -1,0 +1,269 @@
+"""The port's training kernels and losses, held against the JAX package on the CPU.
+
+Every input is made from a seed with numpy and fed to both sides. The port
+runs on CPU tensors, i.e. through each kernel's plain PyTorch twin and its
+``autograd.Function``; the JAX side runs its Pallas kernels in interpret mode
+(or, for the losses, its XLA path). The CUDA kernels themselves are held
+against the twins on the card by tests/test_torch_kernels.py and
+``chip_smoke.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rectools_tpu.models.nn import dropout as jax_dropout
+from rectools_tpu.models.nn.transformers import losses as jax_losses
+from rectools_tpu.ops import attention as jax_attention
+from rectools_tpu.ops import layer_norm as jax_layer_norm
+from rectools_tpu.ops import softmax_lse as jax_softmax_lse
+from rectools_tpu_torch.models.nn import dropout
+from rectools_tpu_torch.models.nn.transformers import losses
+from rectools_tpu_torch.ops import attention, layer_norm, softmax_lse
+
+MASK_VALUE = -1e9
+
+
+def _t(x: np.ndarray, grad: bool = False) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x)).requires_grad_(grad)
+
+
+def _causal_bias(l: int) -> np.ndarray:
+    return np.where(np.tril(np.ones((l, l), dtype=bool)), 0.0, MASK_VALUE).astype(np.float32)[None, None]
+
+
+# ------------------------------------------------------------------ counter-hash dropout
+
+
+@pytest.mark.parametrize("key_seed", [0, 7, 2**31 - 1])
+@pytest.mark.parametrize("rate", [0.1, 0.2, 0.5])
+def test_hash_keep_mask_bits_equal_jax(key_seed: int, rate: float) -> None:
+    key = jax.random.PRNGKey(key_seed)
+    words = [int(w) for w in np.asarray(jax_dropout._key_words(key))]
+    shape = (3, 20, 33)
+    expected = np.asarray(jax_dropout.hash_keep_mask(key, shape, rate))
+    got = dropout.hash_keep_mask(words, shape, rate).numpy()
+    np.testing.assert_array_equal(got, expected)
+    assert abs(got.mean() - (1 - rate)) < 0.05
+
+
+@pytest.mark.parametrize("key_seed", [1, 12345])
+@pytest.mark.parametrize("low,high", [(1, 301), (1, 15872)])
+def test_hash_uniform_ints_equal_jax(key_seed: int, low: int, high: int) -> None:
+    key = jax.random.PRNGKey(key_seed)
+    words = [int(w) for w in np.asarray(jax_dropout._key_words(key))]
+    shape = (4, 20, 7)
+    expected = np.asarray(jax_dropout.hash_uniform_ints(key, shape, low, high))
+    got = dropout.hash_uniform_ints(words, shape, low, high).numpy()
+    np.testing.assert_array_equal(got, expected)
+    assert got.min() >= low and got.max() < high
+
+
+def test_hash_dropout_module_applies_the_mask_of_its_drawn_words() -> None:
+    x = torch.ones((2, 5, 16))
+    module = torch.nn.Sequential(dropout.HashDropout(0.25)).train()
+    with pytest.raises(RuntimeError, match="generator"):
+        module(x)
+    dropout.attach_generator(module, torch.Generator().manual_seed(3))
+    out = module(x)
+    words = dropout.draw_key_words(torch.Generator().manual_seed(3))
+    keep = dropout.hash_keep_mask(words, x.shape, 0.25)
+    torch.testing.assert_close(out, torch.where(keep, x / 0.75, torch.zeros_like(x)))
+    assert torch.equal(module.eval()(x), x)
+
+
+@pytest.mark.parametrize("seed", [0, 12345, 2**31 - 2])
+@pytest.mark.parametrize("rate", [0.2, 0.5])
+def test_attention_keep_mask_bits_equal_jax(seed: int, rate: float) -> None:
+    b, h, l = 3, 2, 37
+    expected = np.asarray(jax_attention._full_keep_mask(jnp.array([seed], jnp.int32), b * h, l, rate))
+    got = attention.dropout_keep_mask(seed, b, h, l, rate).numpy().reshape(b * h, l, l)
+    np.testing.assert_array_equal(got, expected)
+
+
+# ------------------------------------------------------------------ LayerNorm backward
+
+
+@pytest.mark.parametrize("m", [37, 1030])
+@pytest.mark.parametrize("eps", [1e-6, 1e-8])
+def test_layer_norm_backward_matches_jax(m: int, eps: float) -> None:
+    rng = np.random.default_rng(m)
+    d = 64
+    x = (rng.normal(size=(m, d)) * 3 + 1).astype(np.float32)
+    gamma = rng.normal(size=(d,)).astype(np.float32)
+    beta = rng.normal(size=(d,)).astype(np.float32)
+    dy = rng.normal(size=(m, d)).astype(np.float32)
+    y_jax, vjp = jax.vjp(
+        lambda a, g, b: jax_layer_norm.fused_layer_norm(a, g, b, eps, 1024, True), *map(jnp.asarray, (x, gamma, beta))
+    )
+    expected = vjp(jnp.asarray(dy))
+
+    xt, gt, bt = _t(x, True), _t(gamma, True), _t(beta, True)
+    y = layer_norm.layer_norm(xt, gt, bt, eps)
+    y.backward(_t(dy))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_jax), atol=1e-5, rtol=1e-5)
+    for got, exp in zip((xt.grad, gt.grad, bt.grad), expected):
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=1e-5, rtol=1e-5)
+    twin = layer_norm.layer_norm_bwd_reference(_t(x), _t(gamma), _t(dy), eps)
+    for got, exp in zip(twin, expected):
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------------------------------------ attention forward and backward
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("bias_kind", ["causal", "none"])
+def test_attention_forward_backward_matches_jax(rate: float, bias_kind: str) -> None:
+    rng = np.random.default_rng(21)
+    b, h, l, dh, seed = 2, 2, 20, 16, 98765
+    q, k, v, dout = (rng.normal(size=(b, h, l, dh)).astype(np.float32) for _ in range(4))
+    bias = _causal_bias(l) if bias_kind == "causal" else np.zeros((1, 1, l, l), np.float32)
+    scale = 1.0 / np.sqrt(dh)
+
+    def jax_fn(jq, jk, jv):
+        return jax_attention.fused_attention(
+            jq, jk, jv, jnp.asarray(bias), jnp.array([seed], jnp.int32), scale, rate, 8, True, False
+        )
+
+    out_jax, vjp = jax.vjp(jax_fn, *map(jnp.asarray, (q, k, v)))
+    dq_jax, dk_jax, dv_jax = vjp(jnp.asarray(dout))
+
+    qt, kt, vt = _t(q, True), _t(k, True), _t(v, True)
+    port_bias = None if bias_kind == "none" else _t(bias)
+    out = attention.attention(qt, kt, vt, port_bias, scale, rate, seed)
+    out.backward(_t(dout))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_jax), atol=1e-5, rtol=1e-5)
+    for got, exp in ((qt.grad, dq_jax), (kt.grad, dk_jax), (vt.grad, dv_jax)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=1e-5, rtol=1e-5)
+
+
+def test_attention_refuses_a_learnable_bias() -> None:
+    q = _t(np.zeros((1, 1, 4, 8), np.float32), True)
+    with pytest.raises(NotImplementedError, match="constant mask"):
+        attention.attention(q, q, q, _t(np.zeros((1, 1, 4, 4), np.float32), True), 1.0)
+
+
+# ------------------------------------------------------------------ streaming lse and CE gradients
+
+
+def _lse_inputs(m: int, n: int, d: int, seed: int):
+    rng = np.random.default_rng(seed)
+    s = (0.5 * rng.normal(size=(m, d))).astype(np.float32)
+    items = (0.5 * rng.normal(size=(n, d))).astype(np.float32)
+    return rng, s, items
+
+
+@pytest.mark.parametrize("m,n", [(50, 300), (64, 129)])  # ragged against block_m = 16 and chunk_n = 64
+def test_streaming_lse_matches_jax(m: int, n: int) -> None:
+    _, s, items = _lse_inputs(m, n, 32, seed=m + n)
+    expected = np.asarray(jax_softmax_lse.streaming_lse(jnp.asarray(s), jnp.asarray(items), None, 16, 64, True))
+    got = softmax_lse.streaming_lse(_t(s), _t(items)).numpy()
+    np.testing.assert_allclose(got, expected, atol=1e-5, rtol=1e-5)
+    # the twin's chunking is its own: any chunk gives the same lse
+    small = softmax_lse.streaming_lse_reference(_t(s), _t(items), chunk=7).numpy()
+    np.testing.assert_allclose(small, expected, atol=1e-5, rtol=1e-5)
+
+
+def test_streaming_lse_refuses_unported_routes() -> None:
+    s = _t(np.zeros((4, 16), np.float32))
+    with pytest.raises(NotImplementedError, match="kernel 8"):
+        softmax_lse.streaming_lse(s, s, row_bias=_t(np.zeros(4, np.float32)))
+    with pytest.raises(NotImplementedError, match="kernel 16"):
+        softmax_lse.streaming_lse(s, s, bounded_shift=True)
+
+
+@pytest.mark.parametrize("m,n", [(50, 300), (64, 129)])
+def test_softmax_ce_grads_from_z_matches_jax(m: int, n: int) -> None:
+    rng, s, items = _lse_inputs(m, n, 32, seed=3 * m + n)
+    y = rng.integers(0, n, size=m).astype(np.int32)
+    coeff = rng.uniform(0.0, 0.05, size=m).astype(np.float32)
+    coeff[::5] = 0.0  # ignored rows
+    lse = np.asarray(jax_softmax_lse.reference_lse(jnp.asarray(s), jnp.asarray(items)))
+    with np.errstate(divide="ignore"):
+        z = (lse - np.log(coeff)).astype(np.float32)
+    ds_jax, di_jax = jax_softmax_lse.softmax_ce_grads_from_z(*map(jnp.asarray, (s, items, z, y, coeff)), 16, 64, True)
+    ds, di = softmax_lse.softmax_ce_grads_from_z(_t(s), _t(items), _t(z), _t(y.astype(np.int64)), _t(coeff))
+    np.testing.assert_allclose(ds.numpy(), np.asarray(ds_jax), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(di.numpy(), np.asarray(di_jax), atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------------------------------------ losses
+
+
+def _loss_inputs(b: int, l: int, c: int, seed: int, n_items: int):
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(b, l, c)).astype(np.float32)
+    y = rng.integers(1, n_items, size=(b, l))
+    y[:, : l // 3] = 0  # PAD targets
+    w = rng.uniform(0.5, 2.0, size=(b, l)).astype(np.float32)
+    return logits, y, w
+
+
+@pytest.mark.parametrize("name", ["softmax", "BCE", "gBCE", "sampled_softmax"])
+def test_losses_and_gradients_match_jax(name: str) -> None:
+    n_items = 40
+    logits, y, w = _loss_inputs(3, 9, n_items if name == "softmax" else 6, seed=len(name), n_items=n_items)
+    jax_fns = {
+        "softmax": jax_losses.softmax_loss,
+        "BCE": jax_losses.bce_loss,
+        "gBCE": lambda lg, yy, ww: jax_losses.gbce_loss(lg, yy, ww, n_items - 1, 5, 0.2),
+        "sampled_softmax": jax_losses.sampled_softmax_loss,
+    }
+    port_fns = {
+        "softmax": losses.softmax_loss,
+        "BCE": losses.bce_loss,
+        "gBCE": lambda lg, yy, ww: losses.gbce_loss(lg, yy, ww, n_items - 1, 5, 0.2),
+        "sampled_softmax": losses.sampled_softmax_loss,
+    }
+    value, grad = jax.value_and_grad(jax_fns[name])(jnp.asarray(logits), jnp.asarray(y, jnp.int32), jnp.asarray(w))
+    lt = _t(logits, True)
+    got = port_fns[name](lt, _t(y), _t(w))
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(value), rtol=1e-5)
+    np.testing.assert_allclose(lt.grad.numpy(), np.asarray(grad), atol=1e-5, rtol=1e-5)
+    assert losses.requires_negatives(name) == jax_losses.requires_negatives(name)
+
+
+def test_fused_softmax_loss_value_and_gradients_match_jax() -> None:
+    rng = np.random.default_rng(4)
+    b, l, d, n = 3, 11, 32, 301
+    s = (0.5 * rng.normal(size=(b, l, d))).astype(np.float32)
+    items = (0.5 * rng.normal(size=(n, d))).astype(np.float32)
+    y = rng.integers(1, n, size=(b, l))
+    y[0, :4] = 0
+    w = rng.uniform(0.0, 2.0, size=(b, l)).astype(np.float32)
+    w[1, 2] = 0.0
+
+    def jax_fused(js, ji, jw):
+        return jax_losses.fused_softmax_loss(js, ji, jnp.asarray(y, jnp.int32), jw, chunk=64)
+
+    def jax_plain(js, ji, jw):
+        logits = jnp.einsum("bld,nd->bln", js, ji)
+        return jax_losses.softmax_loss(logits, jnp.asarray(y, jnp.int32), jw)
+
+    st, it, wt = _t(s, True), _t(items, True), _t(w, True)
+    got = losses.fused_softmax_loss(st, it, _t(y), wt)
+    (0.7 * got).backward()  # a non-unit upstream cotangent
+    for fn in (jax_fused, jax_plain):
+        value, grads = jax.value_and_grad(lambda *a: 0.7 * fn(*a), argnums=(0, 1, 2))(
+            *map(jnp.asarray, (s, items, w))
+        )
+        np.testing.assert_allclose(0.7 * got.item(), float(value), rtol=1e-5)
+        for port_grad, jax_grad in zip((st.grad, it.grad, wt.grad), grads):
+            np.testing.assert_allclose(port_grad.numpy(), np.asarray(jax_grad), atol=1e-5, rtol=1e-5)
+
+
+def test_ce_from_lse_matches_jax() -> None:
+    rng = np.random.default_rng(8)
+    b, l, d, n = 2, 7, 16, 90
+    s = rng.normal(size=(b, l, d)).astype(np.float32)
+    items = rng.normal(size=(n, d)).astype(np.float32)
+    y = rng.integers(0, n, size=(b, l))
+    w = rng.uniform(0.0, 1.5, size=(b, l)).astype(np.float32)
+    lse = np.asarray(jax.nn.logsumexp(jnp.einsum("bld,nd->bln", s, items), axis=-1))
+    expected = jax_losses._ce_from_lse(*map(jnp.asarray, (s, items, y.astype(np.int32), w, lse)))
+    got = losses._ce_from_lse(_t(s), _t(items), _t(y), _t(w), _t(lse))
+    np.testing.assert_allclose(got.item(), float(expected), rtol=1e-5)
