@@ -38,7 +38,24 @@ own lines; any failure exits nonzero and prints no result:
 6. agree   — 3 train steps with dropout 0.2 on the same 64 sessions at full
              width, on the card and on the port's CPU twins from the same
              start weights and dropout seed: losses within 1e-4 relative,
-             parameters within 1e-4 absolute.
+             parameters within 1e-4 absolute; the gradients' agreement and the
+             gradients at the parameter entry that differs most are printed.
+7. HSTU    — the second model family through the same entry points, at the
+             same width (d = 128, 4 heads of 32, 2 blocks, L = 100, time and
+             position bias on). ``stu kernels``: the three STU attention
+             kernels (forward; backward dq, dk, dv; head-summed score gradient)
+             against their twins at the training width (B = 512), at a long
+             context (B = 64, L = 1,024) and, checked only, at ragged lengths
+             (L = 80 and 96, with a per-row mask), timed beside the twin, the
+             materialized einsum-SiLU-einsum and its autograd (the yardstick)
+             and the bound; dq, dk, dv, ds and the sums of ds by time bucket
+             bit-equal on a second run. The forward also at the serving batch
+             (B = 4,096, left-padded sessions of the frame's lengths).
+             ``hstu main``: random flax-layout weights -> HSTUModel.recommend
+             with a context of one later timestamp per user, all 8,192 users;
+             launch counts, k unseen items, agreement with the CPU run on 64
+             users, the card's time buckets equal to the CPU's. ``hstu train``
+             and ``hstu agree``: phases 5 and 6 for HSTUModel.
 
 Output, last lines: one JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -75,6 +92,10 @@ CE_RTOL = 1e-4  # relative to the largest entry of ds and of di
 LOSS_RTOL, PARAM_ATOL = 1e-4, 1e-4  # GPU vs CPU training
 AGREE_SESSIONS, AGREE_STEPS = 64, 3
 RAGGED_N = N_ITEM_IDS + 1 - 37  # an odd catalog: every item tile of kernels 6 and 7 leaves a tail
+STU_FWD_TOL, STU_GRAD_TOL = 1e-5, 1e-4  # absolute, times the twin's largest entry where that is above 1
+LONG_CTX = dict(b=64, l=1024)  # the long-context shape the STU kernels exist for
+SERVING_B = 4096  # the recommend batch
+NUM_BUCKETS = 128
 
 
 class SmokeFailure(RuntimeError):
@@ -339,6 +360,161 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     return results
 
 
+# ---------------------------------------------------------------- phase 7, STU attention kernels
+
+
+def _stu_case(torch, dev, gen, b: int, l: int, per_row_allowed: bool = False, serving: bool = False) -> tuple:
+    """Inputs of the three STU kernels as the HSTU layer gives them: q, k, v,
+    dout in (B, L, H, d) memory, the (B, L, L) time buckets and the bias of
+    buckets plus positions, the causal mask (shared, or one per row with key
+    padding) and a left-padded timeline whose last row is all padding. With
+    ``serving`` the sessions have the frame's lengths (1-300, cut to L) as
+    ``recommend`` sees them; otherwise every length is as likely."""
+    from rectools_tpu_torch.ops import stu_attention
+
+    h, d = N_HEADS, N_FACTORS // N_HEADS
+    q, k, v, dout = (torch.randn((b, l, h, d), generator=gen, device=dev).transpose(1, 2) for _ in range(4))
+    gaps = torch.randint(1, 3 * 86400, (b, l + 2), generator=gen, device=dev)
+    ts = 1_600_000_000 + torch.cumsum(gaps, dim=1)
+    tw = 0.1 * torch.randn((NUM_BUCKETS + 1,), generator=gen, device=dev)
+    pw = 0.1 * torch.randn((2 * l - 1,), generator=gen, device=dev)
+    buckets = stu_attention.time_buckets(ts, l, NUM_BUCKETS)
+    bias = stu_attention.combined_bias(buckets, tw, pw, l, dev)
+    if serving:
+        n_pad = (l - torch.randint(1, 301, (b,), generator=gen, device=dev)).clamp_(min=0)
+    else:
+        n_pad = torch.randint(0, l, (b,), generator=gen, device=dev)
+    n_pad[0], n_pad[-1] = 0, l
+    timeline = (torch.arange(l, device=dev)[None, :] >= n_pad[:, None]).float()
+    allowed = torch.ones((l, l), device=dev).tril()[None]
+    if per_row_allowed:
+        allowed = torch.maximum(allowed * timeline[:, None, :], torch.eye(l, device=dev)[None]).contiguous()
+    return q, k, v, dout, bias, allowed, timeline, buckets
+
+
+def _stu_check(torch, args, dout, buckets, what: str, forward_only: bool = False) -> dict:
+    """The three kernels (or the forward alone) against their twins on one
+    case; dq, dk, dv, ds and the sums of ds by bucket bit-equal on a second
+    run. Returns each kernel's largest absolute error."""
+    from rectools_tpu_torch.ops import stu_attention
+
+    def worst(got, ref, tol: float, name: str) -> float:
+        err = (got - ref).abs().max().item()
+        limit = tol * max(1.0, ref.abs().max().item())
+        check(bool(torch.isfinite(got).all()) and err <= limit, f"{name} {what}: max abs err {err} above {limit}")
+        return err
+
+    out = stu_attention.stu_fwd(*args)
+    errs = {"stu_fwd": worst(out, stu_attention.stu_reference(*args), STU_FWD_TOL, "stu_fwd")}
+    check(not bool(out[-1].any()), f"stu_fwd {what}: a fully padded row did not come out as zeros")
+    if forward_only:
+        return errs
+    got = stu_attention.stu_bwd(*args, dout)
+    ref = stu_attention.stu_bwd_reference(*args, dout)
+    errs["stu_bwd"] = max(worst(g, r, STU_GRAD_TOL, f"stu_bwd {n}") for g, r, n in zip(got, ref, ("dq", "dk", "dv")))
+    ds = stu_attention.stu_ds(*args, dout, buckets, NUM_BUCKETS + 1)
+    ref = stu_attention.stu_ds_reference(*args, dout, buckets, NUM_BUCKETS + 1)
+    check(bool(ref[1].any()), f"stu_ds {what}: the twin's bucket sums are all zero")
+    errs["stu_ds"] = max(worst(g, r, STU_GRAD_TOL, f"stu_ds {n}") for g, r, n in zip(ds, ref, ("ds", "bucket sums")))
+    del ref
+    again = (*stu_attention.stu_bwd(*args, dout), *stu_attention.stu_ds(*args, dout, buckets, NUM_BUCKETS + 1))
+    check(all(bool(torch.equal(a, g)) for a, g in zip(again, (*got, *ds))),
+          f"stu_bwd / stu_ds {what}: a second run gave other bits")
+    return errs
+
+
+def stu_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
+    import torch.nn.functional as F
+
+    from rectools_tpu_torch.ops import stu_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    h, d = N_HEADS, N_FACTORS // N_HEADS
+    results = {}
+
+    # checked only: ragged lengths, the second with a mask that varies by row
+    for l, per_row in ((80, False), (96, True)):
+        q, k, v, dout, bias, allowed, timeline, buckets = _stu_case(torch, dev, gen, 8, l, per_row)
+        errs = _stu_check(torch, (q, k, v, bias, allowed, timeline), dout, buckets, f"at L={l}")
+        print(f"stu kernels: at L={l}{' with a per-row mask' if per_row else ''}, max abs err {errs}; "
+              "dq, dk, dv, ds, bucket sums bit-equal on a second run")
+
+    def library(q, k, v, bias, allowed, timeline):
+        """The materialized form: one einsum, SiLU and mask over (B, H, L, L), one einsum."""
+        l = q.shape[2]
+        mask = (allowed * timeline[:, :, None] * timeline[:, None, :])[:, None]
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k) + bias[:, None]
+        return torch.einsum("bhqk,bhkd->bhqd", F.silu(s) / l * mask, v)
+
+    for tag, shape in (("", dict(b=b, l=SESSION_MAX_LEN)), ("_long_ctx", LONG_CTX),
+                       ("_serving", dict(b=SERVING_B, l=SESSION_MAX_LEN))):
+        bb, l = shape["b"], shape["l"]
+        serving = tag == "_serving"  # the shape recommend gives the forward; it runs no backward
+        q, k, v, dout, bias, allowed, timeline, buckets = _stu_case(torch, dev, gen, bb, l, serving=serving)
+        args = (q, k, v, bias, allowed, timeline)
+        errs = _stu_check(torch, args, dout, buckets, f"at B={bb}, L={l}", forward_only=serving)
+        # least work for this run's data: only pairs that the masks let through need their products
+        n_pairs = h * (allowed * timeline[:, :, None] * timeline[:, None, :]).sum().item()
+        qkv_bytes = 4 * 4 * bb * h * l * d  # q, k, v and one of out / dout, f32
+        mask_bytes = (bias.numel() + allowed.numel() + timeline.numel()) * 4
+        iters = 10 if bb * l <= TRAIN_B * SESSION_MAX_LEN else 3
+        results[f"stu_fwd{tag}"] = dict(
+            max_abs_err=errs["stu_fwd"],
+            ms=time_ms(lambda: stu_attention.stu_fwd(*args), iters=iters),
+            plain_ms=time_ms(lambda: stu_attention.stu_reference(*args), iters=iters),
+            library_ms=time_ms(lambda: library(*args), iters=iters),
+            bound=bound_ms(qkv_bytes + mask_bytes, 2 * n_pairs * 2 * d),
+        )
+        if serving:
+            print(f"stu kernels: forward at B={bb}, L={l}: {n_pairs:.0f} unmasked (head, query, key) pairs of "
+                  f"{bb * h * l * l}")
+            del q, k, v, dout, bias, allowed, timeline, buckets, args
+            torch.cuda.empty_cache()
+            continue
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+        lib_out = library(*leaves, allowed, timeline)
+
+        def grad_ms(inputs) -> float:
+            return time_ms(lambda: torch.autograd.grad(lib_out, inputs, dout, retain_graph=True), iters=iters)
+
+        def library_ds() -> tuple:
+            """Autograd to the bias and ``index_add_`` by bucket (float atomics)."""
+            (dbias,) = torch.autograd.grad(lib_out, leaves[3:], dout, retain_graph=True)
+            sums = torch.zeros(NUM_BUCKETS + 1, device=dev)
+            return dbias, sums.index_add_(0, buckets.reshape(-1), dbias.reshape(-1))
+
+        n_partials = bb * math.ceil(l / stu_attention.DS_TILE_KEYS) * math.ceil(l / stu_attention.DS_TILE_QUERIES)
+        results[f"stu_bwd{tag}"] = dict(
+            max_abs_err=errs["stu_bwd"],
+            ms=time_ms(lambda: stu_attention.stu_bwd(*args, dout), iters=iters),
+            plain_ms=time_ms(lambda: stu_attention.stu_bwd_reference(*args, dout), iters=iters),
+            library_ms=grad_ms(leaves[:3]),
+            bound=bound_ms(qkv_bytes + 3 * 4 * bb * h * l * d + mask_bytes, 2 * n_pairs * 5 * d),
+        )
+        results[f"stu_ds{tag}"] = dict(
+            max_abs_err=errs["stu_ds"],
+            ms=time_ms(lambda: stu_attention.stu_ds(*args, dout, buckets, NUM_BUCKETS + 1), iters=iters),
+            plain_ms=time_ms(lambda: stu_attention.stu_ds_reference(*args, dout, buckets, NUM_BUCKETS + 1),
+                             iters=iters),
+            library_ms=time_ms(library_ds, iters=iters),
+            # reads the buckets too; writes ds, the per-block partials and their sum
+            bound=bound_ms(qkv_bytes + mask_bytes + 2 * bias.numel() * 4 + (n_partials + 1) * (NUM_BUCKETS + 1) * 4,
+                           2 * n_pairs * 2 * d + bias.numel()),
+        )
+        ds_alone_ms = time_ms(lambda: stu_attention.stu_ds(*args, dout), iters=iters)
+        print(f"stu kernels: at B={bb}, L={l}: {n_pairs:.0f} unmasked (head, query, key) pairs of {bb * h * l * l}; "
+              f"stu_ds without the bucket sums {ds_alone_ms:.4f} ms; "
+              "dq, dk, dv, ds, bucket sums bit-equal on a second run")
+        del q, k, v, dout, bias, allowed, timeline, buckets, args, leaves, lib_out
+        torch.cuda.empty_cache()
+    for name, r in results.items():
+        print(
+            f"stu kernel {name}: max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})"
+        )
+    return results
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -364,9 +540,10 @@ def kion_frame(np, pd, Columns):
     )
 
 
-def flax_params(np, n_items: int) -> dict:
-    """Random weights in the JAX package's flax layout, from the seed."""
-    rng = np.random.default_rng(SEED + 1)
+def flax_params(np, n_items: int, hstu: bool = False) -> dict:
+    """Random weights in the JAX package's flax layout (SASRec's tree, or
+    HSTU's), from the seed."""
+    rng = np.random.default_rng(SEED + 1 + 10 * hstu)
     d = N_FACTORS
 
     def dense(fan_in, fan_out):
@@ -391,6 +568,20 @@ def flax_params(np, n_items: int) -> dict:
         for i in range(N_BLOCKS)
     }
     layers["last_layernorm"] = norm()
+    if hstu:
+        layers = {
+            f"block_{i}": {
+                "norm_input": norm(),
+                "uvqk_proj": (rng.normal(size=(d, 4 * d)) / math.sqrt(d)).astype(np.float32),
+                "rel_attn": {
+                    "time_weights": (0.1 * rng.normal(size=(NUM_BUCKETS + 1,))).astype(np.float32),
+                    "pos_weights": (0.1 * rng.normal(size=(2 * SESSION_MAX_LEN - 1,))).astype(np.float32),
+                },
+                "norm_attn_output": norm(),
+                "output_mlp": dense(d, d),
+            }
+            for i in range(N_BLOCKS)
+        }
     return {
         "item_model": {"item_net_blocks_0": {"ids_emb": (0.1 * rng.normal(size=(n_items, d))).astype(np.float32)}},
         "pos_encoding_layer": {"pos_emb": (0.1 * rng.normal(size=(SESSION_MAX_LEN, d))).astype(np.float32)},
@@ -466,17 +657,35 @@ def profile_phase(torch, recommend) -> dict:
     return {"profiled_wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms}
 
 
-def main_phase(torch, np, port, df, dataset, dev) -> dict:
+def later_context(np, pd, dataset):
+    """The recommend context of a time-aware model: one timestamp per user,
+    within a day after the frame's last interaction, through ``get_context``."""
     from rectools_tpu_torch import Columns
-    from rectools_tpu_torch.models import SASRecModel
+    from rectools_tpu_torch.dataset.context import get_context
+
+    users = dataset.user_id_map.external_ids
+    seconds = (COVER_DAY + 1) * 86400 + np.random.default_rng(SEED + 4).integers(0, 86400, size=len(users))
+    when = pd.Timestamp(START) + pd.to_timedelta(seconds, unit="s")
+    return get_context(pd.DataFrame({Columns.User: users, Columns.Item: 0, Columns.Datetime: when}))
+
+
+def main_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
+    """The serving path of SASRecModel or, with ``hstu``, of HSTUModel with a
+    recommend context."""
+    import pandas as pd
+
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.models import HSTUModel, SASRecModel
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
 
+    tag, model_cls = ("hstu main", HSTUModel) if hstu else ("main", SASRecModel)
     config = dict(
         n_blocks=N_BLOCKS, n_heads=N_HEADS, n_factors=N_FACTORS, session_max_len=SESSION_MAX_LEN,
         dropout_rate=0.2, item_net_block_types=(IdEmbeddingsItemNet,),
     )
-    params = flax_params(np, N_ITEM_IDS + 1)
-    model = SASRecModel(**config, device=dev).load_jax_params(dataset, params)
+    extra = {"context": later_context(np, pd, dataset)} if hstu else {}
+    params = flax_params(np, N_ITEM_IDS + 1, hstu)
+    model = model_cls(**config, device=dev).load_jax_params(dataset, params)
     check(model.backbone.item_model.n_items == N_ITEM_IDS + 1, "item table is not 15,872 rows")
     batch = model._effective_recommend_batch_size()
     check(batch == 4096, f"recommend batch resolved to {batch}, expected 4096")
@@ -485,14 +694,17 @@ def main_phase(torch, np, port, df, dataset, dev) -> dict:
 
     port.reset_launches()
     t0 = time.perf_counter()
-    reco = model.recommend(users, dataset, k=K, filter_viewed=True)
+    reco = model.recommend(users, dataset, k=K, filter_viewed=True, **extra)
     first_s = time.perf_counter() - t0
     launches = dict(port.LAUNCHES)
     expected = {name: 0 for name in port.LAUNCHES}  # no training kernel runs in recommend
-    expected.update(attention_fwd=N_BLOCKS * n_batches, layer_norm_fwd=(2 * N_BLOCKS + 1) * n_batches,
-                    group_topm=n_batches)
-    check(launches == expected, f"launches on the main path {launches}, expected {expected}")
-    print(f"main: recommend {len(users)} users in {n_batches} batches, launches {launches}")
+    if hstu:  # two LayerNorms and one STU attention per block, no closing LayerNorm, no softmax attention
+        expected.update(stu_fwd=N_BLOCKS * n_batches, layer_norm_fwd=2 * N_BLOCKS * n_batches, group_topm=n_batches)
+    else:
+        expected.update(attention_fwd=N_BLOCKS * n_batches, layer_norm_fwd=(2 * N_BLOCKS + 1) * n_batches,
+                        group_topm=n_batches)
+    check(launches == expected, f"launches on the {tag} path {launches}, expected {expected}")
+    print(f"{tag}: recommend {len(users)} users in {n_batches} batches, launches {launches}")
 
     check(len(reco) == K * len(users), f"{len(reco)} rows, expected {K * len(users)}")
     check(bool((reco.groupby("user_id").size() == K).all()), "some user did not get k items")
@@ -506,29 +718,42 @@ def main_phase(torch, np, port, df, dataset, dev) -> dict:
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
-        model.recommend(users, dataset, k=K, filter_viewed=True)
+        model.recommend(users, dataset, k=K, filter_viewed=True, **extra)
         times.append(time.perf_counter() - t0)
     warm_s = float(np.median(times))
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    print(f"main: recommend wall first {first_s:.3f} s, warm median {warm_s:.3f} s of {[round(t, 3) for t in times]}, "
+    print(f"{tag}: recommend wall first {first_s:.3f} s, warm median {warm_s:.3f} s of {[round(t, 3) for t in times]}, "
           f"{len(users) / warm_s:.0f} users/s, peak device memory {peak_mb:.0f} MiB")
 
-    profile = profile_phase(torch, lambda: model.recommend(users, dataset, k=K, filter_viewed=True))
+    profile = profile_phase(torch, lambda: model.recommend(users, dataset, k=K, filter_viewed=True, **extra))
 
-    port.reset_launches()
-    targets = model.data_preparator.get_known_item_ids()[:2048]
-    i2i = model.recommend_to_items(targets, dataset, k=K)
-    check(len(i2i) == K * len(targets), f"i2i returned {len(i2i)} rows")
-    check(port.LAUNCHES["group_topm"] == 1, f"i2i launches {dict(port.LAUNCHES)}")
-    print(f"main: recommend_to_items {len(targets)} items, launches {dict(port.LAUNCHES)}")
+    if hstu:
+        # the card's integer time buckets against the CPU's, on the first recommend batch of the frame
+        from rectools_tpu_torch.ops import stu_attention
+
+        u2i = model.data_preparator.transform_dataset_u2i(dataset, users, extra["context"])
+        ts = torch.from_numpy(next(iter(model.data_preparator.get_dataloader_recommend(u2i, 1024)))["unix_ts"])
+        ts = torch.cat([ts, ts[:, -1:]], dim=1)
+        on_cpu = stu_attention.time_buckets(ts, SESSION_MAX_LEN, NUM_BUCKETS)
+        on_card = stu_attention.time_buckets(ts.to(dev), SESSION_MAX_LEN, NUM_BUCKETS).cpu()
+        check(bool(torch.equal(on_card, on_cpu)), "the card's time buckets differ from the CPU's")
+        print(f"{tag}: {on_cpu.numel()} time buckets of the frame equal on the card and on the CPU, "
+              f"{len(torch.unique(on_cpu))} distinct, largest {int(on_cpu.max())}")
+    else:
+        port.reset_launches()
+        targets = model.data_preparator.get_known_item_ids()[:2048]
+        i2i = model.recommend_to_items(targets, dataset, k=K)
+        check(len(i2i) == K * len(targets), f"i2i returned {len(i2i)} rows")
+        check(port.LAUNCHES["group_topm"] == 1, f"i2i launches {dict(port.LAUNCHES)}")
+        print(f"{tag}: recommend_to_items {len(targets)} items, launches {dict(port.LAUNCHES)}")
 
     # the port's own CPU run (plain twins) on 64 users, same weights
     sample = users[:64]
-    cpu_model = SASRecModel(**config, device="cpu").load_jax_params(dataset, params)
-    ref = cpu_model.recommend(sample, dataset, k=K + 1, filter_viewed=True)
-    got = model.recommend(sample, dataset, k=K, filter_viewed=True)
+    cpu_model = model_cls(**config, device="cpu").load_jax_params(dataset, params)
+    ref = cpu_model.recommend(sample, dataset, k=K + 1, filter_viewed=True, **extra)
+    got = model.recommend(sample, dataset, k=K, filter_viewed=True, **extra)
     n_cmp = compare_reco(np, got, ref, K)
-    print(f"main: {n_cmp} users agree with the CPU run (score rtol {SCORE_RTOL}, atol {SCORE_ATOL})")
+    print(f"{tag}: {n_cmp} users agree with the CPU run (score rtol {SCORE_RTOL}, atol {SCORE_ATOL})")
     return {"launches": launches, "first_s": first_s, "warm_s": warm_s, "warm_samples_s": times,
             "users_per_s": len(users) / warm_s, "peak_device_mib": peak_mb, **profile}
 
@@ -555,8 +780,11 @@ TRAIN_CONFIG = dict(
 )
 
 
-def train_phase(torch, np, port, df, dataset, dev) -> dict:
-    from rectools_tpu_torch.models import SASRecModel
+def train_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
+    """``fit`` at the training width for SASRecModel or, with ``hstu``, HSTUModel."""
+    import pandas as pd
+
+    from rectools_tpu_torch.models import HSTUModel, SASRecModel
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
     from rectools_tpu_torch.models.nn.transformers import TrainingCallback
     from rectools_tpu_torch.models.nn.transformers.training import pad_batch
@@ -574,8 +802,9 @@ def train_phase(torch, np, port, df, dataset, dev) -> dict:
             self.times.append(time.perf_counter())
             return False
 
+    tag, model_cls = ("hstu train", HSTUModel) if hstu else ("train", SASRecModel)
     clock = EpochClock()
-    model = SASRecModel(
+    model = model_cls(
         **TRAIN_CONFIG, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,), get_val_mask_func=hold_out_last,
         get_callbacks_func=lambda: [clock], training_module_kwargs={"val_recall_k": K}, device=dev,
     )
@@ -592,12 +821,15 @@ def train_phase(torch, np, port, df, dataset, dev) -> dict:
     steps = tm.global_step
     val_batches = len(model.data_preparator.get_dataloader_val())
     forwards = steps + EPOCHS * val_batches  # validation runs one forward per batch
-    expected = {
-        "layer_norm_fwd": (2 * N_BLOCKS + 1) * forwards, "attention_fwd": N_BLOCKS * forwards, "group_topm": 0,
-        "layer_norm_bwd": (2 * N_BLOCKS + 1) * steps, "attention_bwd": N_BLOCKS * steps,
-        "lse_fwd": steps, "ce_grads_ds": steps, "ce_grads_di": steps,
-    }
-    check(launches == expected, f"launches in fit {launches}, expected {expected}")
+    expected = {name: 0 for name in port.LAUNCHES}
+    expected.update(lse_fwd=steps, ce_grads_ds=steps, ce_grads_di=steps)
+    if hstu:  # per block: two LayerNorms, one STU attention with its backward and its score gradient
+        expected.update(layer_norm_fwd=2 * N_BLOCKS * forwards, stu_fwd=N_BLOCKS * forwards,
+                        layer_norm_bwd=2 * N_BLOCKS * steps, stu_bwd=N_BLOCKS * steps, stu_ds=N_BLOCKS * steps)
+    else:
+        expected.update(layer_norm_fwd=(2 * N_BLOCKS + 1) * forwards, attention_fwd=N_BLOCKS * forwards,
+                        layer_norm_bwd=(2 * N_BLOCKS + 1) * steps, attention_bwd=N_BLOCKS * steps)
+    check(launches == expected, f"launches in {tag} {launches}, expected {expected}")
     losses, val_losses = tm.train_loss_history, tm.val_loss_history
     recall = tm.val_metric_history.get(f"val_recall@{K}", [])
     check(len(losses) == EPOCHS and bool(np.isfinite(losses).all()), f"train losses {losses}")
@@ -607,14 +839,15 @@ def train_phase(torch, np, port, df, dataset, dev) -> dict:
     steps_per_epoch = steps // EPOCHS
     epoch2_s = clock.times[2] - clock.times[1]
     examples_per_s = TRAIN_B * steps_per_epoch / epoch2_s
-    print(f"train: fit {EPOCHS} epochs x {steps_per_epoch} steps of {TRAIN_B} in {fit_s:.2f} s, "
+    print(f"{tag}: fit {EPOCHS} epochs x {steps_per_epoch} steps of {TRAIN_B} in {fit_s:.2f} s, "
           f"{val_batches} validation batches per epoch; launches {launches}")
-    print(f"train: losses {losses}, val_loss {val_losses}, val_recall@{K} {recall}")
-    print(f"train: epoch 2 wall {epoch2_s:.3f} s (validation included), {examples_per_s:.0f} train examples/s, "
+    print(f"{tag}: losses {losses}, val_loss {val_losses}, val_recall@{K} {recall}")
+    print(f"{tag}: epoch 2 wall {epoch2_s:.3f} s (validation included), {examples_per_s:.0f} train examples/s, "
           f"peak device memory {peak_mb:.0f} MiB")
 
     users = dataset.user_id_map.external_ids[:1024]
-    reco = model.recommend(users, dataset, k=K, filter_viewed=True)
+    extra = {"context": later_context(np, pd, dataset)} if hstu else {}
+    reco = model.recommend(users, dataset, k=K, filter_viewed=True, **extra)
     from rectools_tpu_torch import Columns
 
     check(len(reco) == K * len(users), f"{len(reco)} rows after fit, expected {K * len(users)}")
@@ -622,27 +855,29 @@ def train_phase(torch, np, port, df, dataset, dev) -> dict:
     check(not any(p in seen for p in zip(reco["user_id"].tolist(), reco["item_id"].tolist())), "a seen item came back")
     scores = reco["score"].to_numpy().reshape(len(users), K)
     check(bool(np.isfinite(scores).all()) and bool((np.diff(scores, axis=1) <= 0).all()), "bad scores after fit")
-    print(f"train: the fitted model recommends {K} unseen items to each of {len(users)} users")
+    print(f"{tag}: the fitted model recommends {K} unseen items to each of {len(users)} users")
 
     loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
     batch = tm._device_batch(pad_batch(next(iter(loader)), TRAIN_B))
-    print("train: profile of one train step")
+    print(f"{tag}: profile of one train step")
     profile = profile_phase(torch, lambda: tm._train_step(batch))
     return {"launches": launches, "steps": steps, "train_loss": losses, "val_loss": val_losses,
             f"val_recall@{K}": recall, "fit_s": fit_s, "epoch2_s": epoch2_s, "train_examples_per_s": examples_per_s,
             "peak_device_mib": peak_mb, **{f"step_{k}": v for k, v in profile.items()}}
 
 
-def agreement_phase(torch, np, dataset, dev) -> dict:
+def agreement_phase(torch, np, dataset, dev, hstu: bool = False) -> dict:
     """3 train steps with dropout on the card and on the CPU twins, on one
-    batch of 64 sessions of the KION frame, full catalog."""
-    from rectools_tpu_torch.models import SASRecModel
+    batch of 64 sessions of the KION frame, full catalog, for SASRecModel or,
+    with ``hstu``, HSTUModel."""
+    from rectools_tpu_torch.models import HSTUModel, SASRecModel
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
     from rectools_tpu_torch.models.nn.transformers.training import pad_batch
 
+    tag, model_cls = ("hstu agree", HSTUModel) if hstu else ("agree", SASRecModel)
     models = {}
     for run, device in (("cpu", "cpu"), ("card", dev)):
-        model = SASRecModel(
+        model = model_cls(
             **{**TRAIN_CONFIG, "batch_size": AGREE_SESSIONS}, item_net_block_types=(IdEmbeddingsItemNet,),
             device=device,
         )
@@ -653,32 +888,56 @@ def agreement_phase(torch, np, dataset, dev) -> dict:
     start = {k: v.clone() for k, v in models["cpu"].backbone.state_dict().items()}
     batch = pad_batch(next(iter(models["cpu"].data_preparator.get_dataloader_train(np.random.default_rng(SEED)))),
                       AGREE_SESSIONS)
-    losses = {}
+    losses, grads = {}, {}
     t0 = time.perf_counter()
     for run, model in models.items():
         tm = model.training_module
         tm.load_params(start)
         device_batch = tm._device_batch(batch)
-        losses[run] = [tm._train_step(device_batch).item() for _ in range(AGREE_STEPS)]
+        losses[run], grads[run] = [], []
+        for _ in range(AGREE_STEPS):
+            losses[run].append(tm._train_step(device_batch).item())
+            grads[run].append({n: p.grad.detach().cpu().clone() for n, p in model.backbone.named_parameters()})
     loss_rel = max(abs(g - c) / abs(c) for g, c in zip(losses["card"], losses["cpu"]))
     # The attention key-projection biases have a zero gradient in exact
     # arithmetic (softmax ignores a shift shared by a query's scores), so Adam
     # moves them by the sign of rounding noise: their reading is printed, not
-    # held to PARAM_ATOL. Every other parameter entry is.
+    # held to PARAM_ATOL. Every other parameter entry is. HSTU has no such
+    # parameter (its attention has no softmax and its projection no bias):
+    # nothing of it is exempted.
     cpu_params = dict(models["cpu"].backbone.named_parameters())
-    param_err, key_bias_err = 0.0, 0.0
+    param_err, key_bias_err, worst, worst_at = 0.0, 0.0, "", 0
     for name, param in models["card"].backbone.named_parameters():
-        err = (param.detach().cpu() - cpu_params[name].detach()).abs().max().item()
+        diff = (param.detach().cpu() - cpu_params[name].detach()).abs().reshape(-1)
+        err = diff.max().item()
         if name.endswith("multi_head_attn.k_proj.bias"):
             key_bias_err = max(key_bias_err, err)
-        else:
-            param_err = max(param_err, err)
-    print(f"agree: {AGREE_STEPS} steps on {AGREE_SESSIONS} sessions in {time.perf_counter() - t0:.1f} s; "
+        elif err > param_err:
+            param_err, worst, worst_at = err, name, int(diff.argmax())
+    print(f"{tag}: {AGREE_STEPS} steps on {AGREE_SESSIONS} sessions in {time.perf_counter() - t0:.1f} s; "
           f"losses card {losses['card']} cpu {losses['cpu']}; max loss rel diff {loss_rel:.3g}, "
-          f"max param abs diff {param_err:.3g} (key-projection biases {key_bias_err:.3g})")
+          f"max param abs diff {param_err:.3g} in {worst} (key-projection biases {key_bias_err:.3g})")
+    # Why the parameters differ more than the losses: the gradients' own
+    # agreement, each parameter's relative to its largest gradient entry, and
+    # the gradients at the entry that differs most. Adam moves an entry by
+    # lr * m / (sqrt(v) + 1e-8): where |gradient| is near 1e-8 or changes sign,
+    # rounding noise of that size becomes a visible share of lr.
+    grad_abs, grad_rel = 0.0, 0.0
+    for on_card, on_cpu in zip(grads["card"], grads["cpu"]):
+        for name, g in on_card.items():
+            if not name.endswith("multi_head_attn.k_proj.bias"):
+                err = (g - on_cpu[name]).abs().max().item()
+                grad_abs, grad_rel = max(grad_abs, err), max(grad_rel, err / on_cpu[name].abs().max().item())
+    at_worst = {run: [g[worst].reshape(-1)[worst_at].item() for g in grads[run]] for run in grads}
+    largest = max(g[worst].abs().max().item() for g in grads["cpu"])
+    print(f"{tag}: gradients over the {AGREE_STEPS} steps: max abs diff {grad_abs:.3g}, max diff relative to the "
+          f"parameter's largest gradient entry {grad_rel:.3g}; at entry {worst_at} of {worst} the gradients were "
+          f"card {at_worst['card']} cpu {at_worst['cpu']} (largest entry of that gradient {largest:.3g}, lr {LR})")
     check(loss_rel <= LOSS_RTOL, f"train losses differ from the CPU run by {loss_rel} relative")
     check(param_err <= PARAM_ATOL, f"parameters differ from the CPU run by {param_err}")
-    return {"loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_err, "key_bias_max_abs_diff": key_bias_err}
+    return {"loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_err, "key_bias_max_abs_diff": key_bias_err,
+            "grad_max_abs_diff": grad_abs, "grad_max_rel_diff": grad_rel, "worst_param": worst,
+            "worst_entry_grads": at_worst}
 
 
 def main() -> int:
@@ -717,6 +976,7 @@ def main() -> int:
     # phase 3: kernels, at serving shapes and at the training width
     kernels = kernel_phase(torch, torch.device("cuda"))
     kernels.update(train_kernel_phase(torch, torch.device("cuda")))
+    kernels.update(stu_kernel_phase(torch, torch.device("cuda")))
 
     from rectools_tpu_torch import Columns
     from rectools_tpu_torch.dataset import Dataset
@@ -733,6 +993,10 @@ def main() -> int:
     train_result = train_phase(torch, np, port, df, dataset, "cuda")
     # phase 6: card against CPU twins
     agree_result = agreement_phase(torch, np, dataset, "cuda")
+    # phase 7: HSTU through the same entry points
+    hstu_main_result = main_phase(torch, np, port, df, dataset, "cuda", hstu=True)
+    hstu_train_result = train_phase(torch, np, port, df, dataset, "cuda", hstu=True)
+    hstu_agree_result = agreement_phase(torch, np, dataset, "cuda", hstu=True)
 
     # name: (source, replaced TPU kernel, launch-count keys, entry of `kernels` with its numbers)
     table = {
@@ -743,7 +1007,12 @@ def main() -> int:
         "attention_bwd": ("attention.cu", "attention.py:256", ("attention_bwd",), "attention_bwd"),
         "lse_fwd": ("softmax_lse.cu", "softmax_lse.py:169", ("lse_fwd",), "lse_fwd"),
         "ce_grads": ("softmax_lse.cu", "softmax_lse.py:643", ("ce_grads_ds", "ce_grads_di"), "ce_grads"),
+        "stu_fwd": ("stu_attention.cu", "stu_attention.py:90", ("stu_fwd",), "stu_fwd"),
+        "stu_bwd": ("stu_attention.cu", "stu_attention.py:274", ("stu_bwd",), "stu_bwd"),
+        "stu_ds": ("stu_attention.cu", "stu_attention.py:316", ("stu_ds",), "stu_ds"),
     }
+    paths = {"recommend": main_result, "fit": train_result, "hstu_recommend": hstu_main_result,
+             "hstu_fit": hstu_train_result}
 
     def numbers(r: dict) -> dict:
         return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -751,18 +1020,24 @@ def main() -> int:
 
     entries = []
     for name, (source, replaces, keys, result_key) in table.items():
-        serve = sum(main_result["launches"].get(key, 0) for key in keys)
-        train = sum(train_result["launches"].get(key, 0) for key in keys)
+        by_path = {path: sum(result["launches"].get(key, 0) for key in keys) for path, result in paths.items()}
         entry = {"name": name, "route": "cuda", "source": f"rectools_tpu_torch/csrc/{source}",
-                 "replaces": f"rectools_tpu/ops/{replaces}", "launches": serve + train,
-                 "launches_by_path": {"recommend": serve, "fit": train}, **numbers(kernels[result_key])}
+                 "replaces": f"rectools_tpu/ops/{replaces}", "launches": sum(by_path.values()),
+                 "launches_by_path": by_path, **numbers(kernels[result_key])}
         if name == "attention_fwd":  # the same kernel at the training width, with dropout
             entry["train_width_dropout"] = numbers(kernels["attention_fwd_train"])
+        if name.startswith("stu_"):  # the same kernel at B = 64, L = 1,024
+            entry["long_ctx"] = numbers(kernels[f"{name}_long_ctx"])
+        if name == "stu_fwd":  # and at the recommend batch, B = 4,096, L = 100
+            entry["serving"] = numbers(kernels["stu_fwd_serving"])
         entries.append(entry)
     line = {
         "kernels": entries,
         "recommend": {k: v for k, v in main_result.items() if k != "launches"},
         "train": {**{k: v for k, v in train_result.items() if k != "launches"}, "agreement": agree_result},
+        "hstu_recommend": {k: v for k, v in hstu_main_result.items() if k != "launches"},
+        "hstu_train": {**{k: v for k, v in hstu_train_result.items() if k != "launches"},
+                       "agreement": hstu_agree_result},
     }
     print(json.dumps(line))
     print(card)

@@ -3,6 +3,7 @@ from .base import TransformerModelBase, TransformerModelConfig
 from .callbacks import BestStateKeeper, EarlyStopping, TrainingCallback
 from .convert import flax_params_to_state_dict, state_dict_to_flax_params
 from .data_preparator import BatchLoader, SequenceDataset, TransformerDataPreparatorBase, scatter_left_padded
+from .hstu import HSTUModel, HSTUModelConfig, RelativeAttentionBias, STULayer, STULayers
 from .net_blocks import (
     LearnableInversePositionalEncoding,
     MultiHeadAttention,
@@ -24,6 +25,11 @@ __all__ = [
     "BatchLoader",
     "BestStateKeeper",
     "EarlyStopping",
+    "HSTUModel",
+    "HSTUModelConfig",
+    "RelativeAttentionBias",
+    "STULayer",
+    "STULayers",
     "TrainingCallback",
     "TransformerTrainingModuleBase",
     "state_dict_to_flax_params",

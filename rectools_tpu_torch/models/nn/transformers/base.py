@@ -252,8 +252,11 @@ class TransformerModelBase(ModelBase[TransformerModelConfig_T]):
             n_negatives=self.n_negatives if needs_negatives else None,
             get_val_mask_func=self.get_val_mask_func,
             get_val_mask_func_kwargs=self.get_val_mask_func_kwargs,
-            **self._get_kwargs(self.data_preparator_kwargs),
+            **self._data_preparator_extra_kwargs(),
         )
+
+    def _data_preparator_extra_kwargs(self) -> InitKwargs:
+        return self._get_kwargs(self.data_preparator_kwargs)
 
     def _init_negative_sampler(self) -> TransformerNegativeSamplerBase:
         return self.negative_sampler_type(

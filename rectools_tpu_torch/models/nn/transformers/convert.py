@@ -11,13 +11,23 @@ dict (flax layout), for SASRec:
     transformer_layers/block_{i}/feed_forward/ff_linear_{1,2}/{kernel,bias}
     transformer_layers/last_layernorm/{scale,bias}
 
+and for HSTU, in place of the ``transformer_layers`` entries above:
+
+    transformer_layers/block_{i}/{norm_input,norm_attn_output}/{scale,bias}
+    transformer_layers/block_{i}/uvqk_proj                     (d, 2·lh·H + 2·ad·H)
+    transformer_layers/block_{i}/rel_attn/{time_weights,pos_weights}   (129,), (2L − 1,)
+    transformer_layers/block_{i}/output_mlp/{kernel,bias}
+
 The port's modules carry the same names, with two layout rules: a numbered
 child ``name_{i}`` is entry ``i`` of the ``nn.ModuleList`` ``name`` (``block``
 becomes ``blocks``), and a flax ``Dense`` kernel, stored (in, out), becomes
 the transposed ``nn.Linear.weight``, stored (out, in). Embedding tables become
-``nn.Embedding.weight``. These names cover every parameter of the SASRec
-training path (item tables, positions, LayerNorms, attention, FFN), so a
-model trained on either side continues on the other.
+``nn.Embedding.weight``. Every other leaf keeps its name and its layout:
+``uvqk_proj`` is a raw parameter stored (in, out) on both sides and is not
+transposed, and the two relative-bias tables are plain vectors. These names
+cover every parameter of the SASRec and HSTU training paths (item tables,
+positions, LayerNorms, attention, FFN, STU blocks), so a model trained on
+either side continues on the other.
 """
 
 import re

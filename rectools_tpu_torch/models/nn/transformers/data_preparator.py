@@ -234,8 +234,10 @@ class TransformerDataPreparatorBase:
         )
         return train_interactions
 
-    def _convert_to_unix_ts(self, datetime: pd.Series) -> pd.Series:
-        return (datetime.values.astype("int64") / 10**9).astype("int64")
+    def _convert_to_unix_ts(self, datetime: pd.Series) -> np.ndarray:
+        """Whole unix seconds, whatever unit the datetime column is stored in
+        (pandas keeps the unit a frame was built with: ns, us, ms or s)."""
+        return datetime.to_numpy().astype("datetime64[s]").astype("int64")
 
     def process_dataset_train(self, dataset: Dataset) -> None:
         """Build the model's train dataset: filter, truncate, new id maps with

@@ -95,6 +95,13 @@ class TransformerLayersBase(nn.Module):
     ) -> torch.Tensor:
         raise NotImplementedError()
 
+    def reinit_vectors(self, generator: torch.Generator) -> None:
+        """Redraw the stack's one-dimensional parameters that are not biases or
+        LayerNorm parameters, on the CPU from ``generator``. The training
+        module calls it after the Xavier re-init, which leaves such vectors
+        alone, so that the seed fixes them too. A stack without any does
+        nothing."""
+
 
 class PositionalEncodingBase(nn.Module):
     """Base class for positional encodings."""

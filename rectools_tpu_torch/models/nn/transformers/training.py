@@ -47,12 +47,14 @@ if tp.TYPE_CHECKING:  # pragma: no cover
     from .callbacks import TrainingCallback
 
 
-def _xavier_normal_reinit(backbone: torch.nn.Module, generator: torch.Generator) -> None:
+def _xavier_normal_reinit(backbone: TransformerBackboneBase, generator: torch.Generator) -> None:
     """Xavier-normal re-init of every parameter with more than one dimension
     (reference lightning.py:296-299); ``nn.Linear`` biases get torch's own
     default U(±1/√in_features), as the JAX package gives its Dense biases
     (rectools_tpu/models/nn/transformers/training.py:49-95). LayerNorm
-    parameters stay as built. Draws on the CPU ``generator`` in parameter
+    parameters stay as built; other vectors of the layer stack (HSTU's
+    relative-bias tables) keep their own distribution and are redrawn by the
+    stack's ``reinit_vectors``. Draws on the CPU ``generator`` in parameter
     order, so every device gets the same values."""
     with torch.no_grad():
         for param in backbone.parameters():
@@ -64,6 +66,7 @@ def _xavier_normal_reinit(backbone: torch.nn.Module, generator: torch.Generator)
             if isinstance(module, torch.nn.Linear) and module.bias is not None:
                 bound = 1.0 / float(np.sqrt(module.weight.shape[1]))  # torch fan-in: weight is (out, in)
                 module.bias.copy_(torch.rand(module.bias.shape, generator=generator) * (2 * bound) - bound)
+        backbone.transformer_layers.reinit_vectors(generator)
 
 
 def pad_batch(batch: Batch, batch_size: int) -> Batch:
@@ -383,9 +386,10 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
 
     # --------------------------------------------------------------- inference
 
-    def _encode_last(self, x: torch.Tensor, item_embs: torch.Tensor) -> torch.Tensor:
-        """Session-tower output of the last position for each session."""
-        session_embs = self.backbone.encode_sessions({"x": x}, item_embs)
+    def _encode_last(self, batch: tp.Dict[str, torch.Tensor], item_embs: torch.Tensor) -> torch.Tensor:
+        """Session-tower output of the last position for each session. The
+        whole batch goes in: time-aware layers read its ``unix_ts``."""
+        session_embs = self.backbone.encode_sessions(batch, item_embs)
         return self.backbone.similarity_module.session_tower_forward(session_embs[:, -1, :])
 
     def _catalog_item_embs(self) -> torch.Tensor:
@@ -399,9 +403,7 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
         batch is dispatched before anything comes back to the host, and the
         ranker consumes the tensors where they are."""
         item_embs = self._catalog_item_embs()
-        user_embs = [
-            self._encode_last(host_to_device(batch["x"], self.device), item_embs) for batch in recommend_loader
-        ]
+        user_embs = [self._encode_last(self._device_batch(batch), item_embs) for batch in recommend_loader]
         return torch.cat(user_embs, dim=0), self._catalog_item_tower(item_embs)
 
     def recommend_u2i(

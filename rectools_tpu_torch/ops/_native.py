@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("layer_norm", "attention", "topk_select", "softmax_lse")
+SOURCES = ("layer_norm", "attention", "topk_select", "softmax_lse", "stu_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -41,6 +41,9 @@ LAUNCHES: tp.Dict[str, int] = {
     "lse_fwd": 0,
     "ce_grads_ds": 0,
     "ce_grads_di": 0,
+    "stu_fwd": 0,
+    "stu_bwd": 0,
+    "stu_ds": 0,
 }
 
 _LOCK = threading.Lock()

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from rectools_tpu_torch.models import SASRecModel, TorchRanker
-from rectools_tpu_torch.ops import _native, attention, layer_norm, softmax_lse, topk, topk_select
+from rectools_tpu_torch.models import HSTUModel, SASRecModel, TorchRanker
+from rectools_tpu_torch.ops import _native, attention, layer_norm, softmax_lse, stu_attention, topk, topk_select
 
 REPO = Path(__file__).resolve().parents[1]
 MASK_VALUE = -1e9
@@ -55,6 +55,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch: pytest.M
     objects = np.ones((4, 2), np.float32)
     with pytest.raises(RuntimeError, match="cuda"):
         SASRecModel()
+    with pytest.raises(RuntimeError, match="cuda"):
+        HSTUModel()
     with pytest.raises(RuntimeError, match="cuda"):
         TorchRanker(topk.Distance.DOT, objects, objects)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -349,3 +351,158 @@ def test_cuda_sasrec_fit_matches_cpu(cuda: torch.device) -> None:
         # Adam moves them by the sign of rounding noise: held to steps * lr
         tol = 3 * 1e-3 if name.endswith("multi_head_attn.k_proj.bias") else 1e-4
         assert (value.cpu() - cpu_state[name]).abs().max().item() <= tol, name
+
+
+# ------------------------------------------------------------------ STU attention kernels on the card
+
+
+def _stu_inputs(b: int, h: int, l: int, ad: int, lh: int, dev: torch.device, per_row_allowed: bool = False):
+    """q, k, v, dout in the layer's (B, L, H, d) memory, a (B, L, L) bias made
+    of time buckets and positions, a timeline with left padding and one fully
+    padded row, the causal mask, shared or with key padding, and the buckets."""
+    rng = np.random.default_rng(1000 * l + ad + lh)
+    q, k = (_blhd(rng, b, l, h, ad, dev) for _ in range(2))
+    v, dout = (_blhd(rng, b, l, h, lh, dev) for _ in range(2))
+    ts = 1_600_000_000 + np.sort(rng.integers(0, 86400 * 30, size=(b, l + 2)), axis=1)
+    tw = (0.1 * rng.normal(size=(129,))).astype(np.float32)
+    pw = (0.1 * rng.normal(size=(2 * l - 1,))).astype(np.float32)
+    buckets = stu_attention.time_buckets(_t(ts).to(dev), l, 128)
+    bias = stu_attention.combined_bias(buckets, _t(tw).to(dev), _t(pw).to(dev), l, dev)
+    real = np.arange(l)[None, :] >= rng.integers(0, l, size=b)[:, None]  # left padding
+    real[0] = True
+    real[-1] = False
+    timeline = _t(real.astype(np.float32)).to(dev)
+    allowed = np.tril(np.ones((l, l), np.float32))[None]
+    if per_row_allowed:
+        allowed = np.maximum(allowed * real[:, None, :], np.eye(l, dtype=np.float32)[None])
+    return q, k, v, dout, bias, _t(np.ascontiguousarray(allowed, dtype=np.float32)).to(dev), timeline, buckets
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,h,l,ad,lh,per_row_allowed",
+    [(3, 4, 100, 32, 32, False), (2, 2, 80, 16, 16, False), (2, 2, 96, 16, 16, True), (3, 2, 7, 8, 64, False),
+     (2, 2, 130, 64, 8, True), (2, 4, 1024, 32, 32, False)],
+)
+def test_cuda_stu_kernels_match_twins(
+    cuda: torch.device, b: int, h: int, l: int, ad: int, lh: int, per_row_allowed: bool
+) -> None:
+    """Forward 1e-5 absolute, gradients 1e-4 absolute against the twins on the
+    card (sums over up to 1,024 keys or queries and 4 heads in another order);
+    at L = 1,024 the scores reach tens, so the tolerances there scale with the
+    twin's largest entry. dq, dk, dv, ds and its sums by bucket come out
+    bit-equal on a second run."""
+    q, k, v, dout, bias, allowed, timeline, buckets = _stu_inputs(b, h, l, ad, lh, cuda, per_row_allowed)
+    args = (q, k, v, bias, allowed, timeline)
+    before = dict(_native.LAUNCHES)
+    out = stu_attention.stu_fwd(*args)
+    got = stu_attention.stu_bwd(*args, dout)
+    ds, sums = stu_attention.stu_ds(*args, dout, buckets, 129)
+    assert [_native.LAUNCHES[n] - before[n] for n in ("stu_fwd", "stu_bwd", "stu_ds")] == [1, 1, 1]
+    assert out.transpose(1, 2).is_contiguous() and all(g.transpose(1, 2).is_contiguous() for g in got)
+    ref_out = stu_attention.stu_reference(*args)
+    scale = max(1.0, ref_out.abs().max().item())
+    torch.testing.assert_close(out, ref_out, atol=1e-5 * scale, rtol=0)
+    assert not out[-1].any()  # a fully padded row gives zeros
+    for g, ref in zip((*got, ds, sums), (*stu_attention.stu_bwd_reference(*args, dout),
+                                         *stu_attention.stu_ds_reference(*args, dout, buckets, 129))):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, ref, atol=1e-4 * max(1.0, ref.abs().max().item()), rtol=0)
+    assert sums.abs().max() > 0
+    again = (*stu_attention.stu_bwd(*args, dout), *stu_attention.stu_ds(*args, dout, buckets, 129))
+    assert all(torch.equal(a, g) for a, g in zip(again, (*got, ds, sums)))
+    alone, none = stu_attention.stu_ds(*args, dout)  # without buckets: the same ds, no sums
+    assert none is None and torch.equal(alone, ds)
+
+
+@pytest.mark.gpu
+def test_cuda_stu_attention_autograd_matches_cpu(cuda: torch.device) -> None:
+    """The whole op (buckets, bias, three kernels, the two table reductions)
+    on the card against the CPU twins, and the table gradients bit-equal on a
+    second run; the card's integer buckets equal the CPU's."""
+    rng = np.random.default_rng(8)
+    b, l, h, d = 4, 100, 4, 32
+    arrays = [rng.normal(size=(b, l, h, d)).astype(np.float32) for _ in range(3)]
+    ts = 1_600_000_000 + np.sort(rng.integers(0, 86400 * 90, size=(b, l + 2)), axis=1)
+    tw, pw = (0.1 * rng.normal(size=(129,))).astype(np.float32), (0.1 * rng.normal(size=(199,))).astype(np.float32)
+    timeline = (np.arange(l)[None, :] >= rng.integers(0, l, size=b)[:, None]).astype(np.float32)
+    allowed = np.tril(np.ones((l, l), np.float32))
+
+    def run(dev):
+        leaves = [_t(a).to(dev).requires_grad_() for a in (*arrays, tw, pw)]
+        out = stu_attention.stu_dot_product_attention(
+            *leaves[:3], _t(ts).to(dev), _t(timeline).to(dev), _t(allowed).to(dev), leaves[3], leaves[4], 128
+        )
+        grads = torch.autograd.grad((out**2).sum(), leaves)
+        return [out.detach().cpu(), *(g.cpu() for g in grads)]
+
+    _native.reset_launches()
+    got, again, expected = run(cuda), run(cuda), run("cpu")
+    assert [_native.LAUNCHES[n] for n in ("stu_fwd", "stu_bwd", "stu_ds")] == [2, 2, 2]
+    torch.testing.assert_close(got[0], expected[0], atol=1e-5, rtol=0)
+    for g, e in zip(got[1:], expected[1:]):
+        torch.testing.assert_close(g, e, atol=1e-4, rtol=0)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    on_card = stu_attention.time_buckets(_t(ts).to(cuda), l, 128).cpu()
+    assert torch.equal(on_card, stu_attention.time_buckets(_t(ts), l, 128))
+
+
+@pytest.mark.gpu
+def test_cuda_stu_refuses_other_head_dims(cuda: torch.device) -> None:
+    q, k, v, _, bias, allowed, timeline, _ = _stu_inputs(2, 2, 16, 8, 8, cuda)
+    wide = torch.zeros((2, 2, 16, 24), device=cuda)
+    with pytest.raises(ValueError, match="must be in"):
+        stu_attention.stu_fwd(wide, wide, v, bias, allowed, timeline)
+    with pytest.raises(ValueError, match="must be in"):
+        stu_attention.stu_fwd(q, k, wide, bias, allowed, timeline)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key_padding", [False, True])
+def test_cuda_hstu_fit_and_recommend_match_cpu(cuda: torch.device, key_padding: bool) -> None:
+    """Three train steps with dropout and a recommend with context, on the card
+    and on the CPU twins, from the same start weights and dropout seed."""
+    import pandas as pd
+
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.dataset import Dataset
+    from rectools_tpu_torch.dataset.context import get_context
+
+    rng = np.random.default_rng(12)
+    n = 2000
+    df = pd.DataFrame({
+        Columns.User: rng.integers(0, 96, n),
+        Columns.Item: rng.integers(0, 3000, n),
+        Columns.Weight: 1.0,
+        Columns.Datetime: pd.Timestamp("2021-01-01") + pd.to_timedelta(rng.integers(0, 10**7, n), unit="s"),
+    })
+    dataset = Dataset.construct(df)
+    config = dict(n_blocks=2, n_heads=4, n_factors=64, session_max_len=20, dropout_rate=0.2, batch_size=32, epochs=1,
+                  use_key_padding_mask=key_padding, training_module_kwargs={"fused_softmax_chunk": 512})
+    models = {dev: HSTUModel(**config, device=dev) for dev in ("cpu", "cuda")}
+    for model in models.values():
+        model._build_model_from_dataset(dataset)
+    models["cpu"].training_module.init_params()
+    start = {k: v.clone() for k, v in models["cpu"].backbone.state_dict().items()}
+    for model in models.values():
+        model.training_module.load_params(start)
+    _native.reset_launches()
+    for model in models.values():
+        model.training_module.fit(model.data_preparator.get_dataloader_train,
+                                  model.data_preparator.get_dataloader_val, 1)
+        model.is_fitted = True
+    assert [_native.LAUNCHES[n] for n in ("stu_fwd", "stu_bwd", "stu_ds")] == [6, 6, 6]
+    assert _native.LAUNCHES["layer_norm_bwd"] == 12 and _native.LAUNCHES["attention_fwd"] == 0
+    np.testing.assert_allclose(models["cuda"].training_module.train_loss_history,
+                               models["cpu"].training_module.train_loss_history, rtol=1e-4)
+    cpu_state = models["cpu"].backbone.state_dict()
+    for name, value in models["cuda"].backbone.state_dict().items():
+        assert (value.cpu() - cpu_state[name]).abs().max().item() <= 1e-4, name
+    users = np.unique(df[Columns.User])
+    context = get_context(pd.DataFrame({Columns.User: users, Columns.Item: 0,
+                                        Columns.Datetime: pd.Timestamp("2021-06-01")}))
+    got = models["cuda"].recommend(users, dataset, k=8, filter_viewed=True, context=context)
+    expected = models["cpu"].recommend(users, dataset, k=8, filter_viewed=True, context=context)
+    np.testing.assert_array_equal(got[Columns.User], expected[Columns.User])
+    np.testing.assert_allclose(got[Columns.Score], expected[Columns.Score], rtol=1e-4, atol=1e-4)
+    assert (got[Columns.Item].to_numpy() == expected[Columns.Item].to_numpy()).mean() > 0.99
