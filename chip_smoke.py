@@ -56,6 +56,26 @@ own lines; any failure exits nonzero and prints no result:
              launch counts, k unseen items, agreement with the CPU run on 64
              users, the card's time buckets equal to the CPU's. ``hstu train``
              and ``hstu agree``: phases 5 and 6 for HSTUModel.
+8. mesh    — training on a (data, model) process mesh. ``mesh kernels``: the
+             biased streaming lse (kernel 8) and its generic VJP, fused
+             (kernel 9) and split (kernels 10 + 11), against their twins at
+             the shape a (1, 1) mesh gives them (51,200 x 15,872, zero bias),
+             at a (2, 2) mesh's shard (25,600 x 7,936) and at the last shard of
+             the 15,835-row catalog cut four ways (3,959 rows, one of them
+             invalid, bias -1e30), with a cotangent of mixed sign; fused beside
+             split, and the fused kernel's bits on a second run. ``mesh fit``:
+             SASRecModel with ``mesh_shape=(1, 1)`` through a one-rank process
+             group on the card, the training phase's width and depth: kernel 8
+             and kernel 9 once per step and none of kernels 6 and 7, the
+             losses of the fit without a mesh within LOSS_RTOL, then two steps
+             with the partials budget forced to 0 (kernels 10 + 11).
+             ``mesh fit 4``: four ranks spawned on the one card, mesh (2, 2),
+             one epoch on the odd catalog (the second model shard ends in an
+             invalid row): every rank reports its launches, losses and a
+             digest of its parameters; all ranks equal, and equal to the
+             single-process fit of the same batches within LOSS_RTOL and
+             PARAM_ATOL. The ranks share one card and talk through gloo with
+             host staging, so their step time says nothing of a real mesh.
 
 Output, last lines: one JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -92,6 +112,8 @@ CE_RTOL = 1e-4  # relative to the largest entry of ds and of di
 LOSS_RTOL, PARAM_ATOL = 1e-4, 1e-4  # GPU vs CPU training
 AGREE_SESSIONS, AGREE_STEPS = 64, 3
 RAGGED_N = N_ITEM_IDS + 1 - 37  # an odd catalog: every item tile of kernels 6 and 7 leaves a tail
+MESH_4 = (2, 2)  # the four-rank mesh; its model axis cuts the odd catalog into 7,918 + 7,917 rows
+MESH_RANK_TIMEOUT_S = 420.0
 STU_FWD_TOL, STU_GRAD_TOL = 1e-5, 1e-4  # absolute, times the twin's largest entry where that is above 1
 LONG_CTX = dict(b=64, l=1024)  # the long-context shape the STU kernels exist for
 SERVING_B = 4096  # the recommend batch
@@ -515,21 +537,134 @@ def stu_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     return results
 
 
+
+# ---------------------------------------------------------------- phase 8, the biased lse and its VJP
+
+
+def mesh_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
+    """Kernels 8-11 against their twins at the shapes mesh training gives them."""
+    from rectools_tpu_torch.ops import softmax_lse
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    l, d, n = SESSION_MAX_LEN, N_FACTORS, N_ITEM_IDS + 1
+    ragged_shard = -(-RAGGED_N // 4)
+    # tag: (session rows, item rows of the shard, invalid rows at its end)
+    shapes = {"": (b * l, n, 0), "_shard_2x2": (b * l // 2, n // 2, 0),
+              "_ragged_shard": (b * l // 2, ragged_shard, 4 * ragged_shard - RAGGED_N)}
+    budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
+    results = {}
+    for tag, (m, rows, n_invalid) in shapes.items():
+        s = torch.randn((m, d), generator=gen, device=dev)
+        items = 0.1 * torch.randn((rows, d), generator=gen, device=dev)
+        bias = torch.zeros((rows,), device=dev)
+        if n_invalid:
+            items[rows - n_invalid:] = 0.0  # the zero rows a shard is padded with
+            bias[rows - n_invalid:] = softmax_lse.NEG_BIG
+        dlse = torch.randn((m,), generator=gen, device=dev) / m  # mixed sign
+        what = f"at M={m}, N={rows}" + (f" with {n_invalid} invalid row(s)" if n_invalid else "")
+
+        lse = softmax_lse.streaming_lse_fwd(s, items, bias)
+        ref = softmax_lse.streaming_lse_bias_reference(s, items, bias)
+        rel = ((lse - ref).abs() / ref.abs()).max().item()
+        check(bool(torch.isfinite(lse).all()) and rel <= LSE_RTOL,
+              f"biased lse {what} disagrees with its twin: max relative err {rel}")
+        if not n_invalid:
+            check(bool(torch.equal(lse, softmax_lse.streaming_lse_fwd(s, items))),
+                  f"biased lse {what}: a zero bias changed the bits of the unbiased kernel")
+
+        def library_lse(s_=s, items_=items):
+            return torch.logsumexp(s_ @ items_.T + bias, dim=1)
+
+        products = 2 * m * rows * d
+        iters = 5 if tag == "" else 10
+        results[f"lse_bias_fwd{tag}"] = dict(
+            max_abs_err=(lse - ref).abs().max().item(),
+            ms=time_ms(lambda: softmax_lse.streaming_lse_fwd(s, items, bias), iters=iters),
+            plain_ms=time_ms(lambda: softmax_lse.streaming_lse_bias_reference(s, items, bias), iters=3),
+            library_ms=time_ms(library_lse, iters=3),
+            bound=bound_ms((m * d + rows * d + rows + m) * 4, products),
+        )
+
+        ref_ds, ref_di = softmax_lse.streaming_lse_bwd_reference(s, items, bias, lse, dlse)
+        got = {}
+        for route, forced in (("fused", 1 << 62), ("split", 0)):
+            softmax_lse.FUSED_BWD_PARTIALS_BUDGET = forced
+            got[route] = softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)
+            rel = max(_max_rel(got[route][0], ref_ds), _max_rel(got[route][1], ref_di))
+            check(all(bool(torch.isfinite(g).all()) for g in got[route]) and rel <= CE_RTOL,
+                  f"lse backward ({route}) {what} disagrees with its twin: {rel} of the largest entry")
+            if n_invalid:
+                check(not bool(got[route][1][rows - n_invalid:].any()),
+                      f"lse backward ({route}) {what}: an invalid row's gradient is not exactly 0")
+        softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62
+        again = softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)
+        check(bool(torch.equal(again[0], got["fused"][0])) and bool(torch.equal(again[1], got["fused"][1])),
+              f"fused lse backward {what}: a second run gave other bits")
+        fused_ms = time_ms(lambda: softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse), iters=3)
+        softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 0
+        # each split kernel alone, timed through the library handle (the wrapper launches the pair)
+        out_ds, out_di = torch.empty_like(s), torch.empty_like(items)
+        ds_ms = di_ms = 0.0
+        if dev.type == "cuda":
+            lib = softmax_lse._native.load("softmax_lse", softmax_lse._SIGNATURES)
+            stream = softmax_lse._native.current_stream_ptr(s.device)
+            args = (s.data_ptr(), items.data_ptr(), bias.data_ptr(), lse.data_ptr(), dlse.data_ptr())
+            ds_ms = time_ms(lambda: lib.lse_bwd_ds_f32(*args, out_ds.data_ptr(), m, rows, d, stream), iters=3)
+            di_ms = time_ms(lambda: lib.lse_bwd_di_f32(*args, out_di.data_ptr(), m, rows, d, stream), iters=3)
+            check(bool(torch.equal(out_ds, got["split"][0])) and bool(torch.equal(out_di, got["split"][1])),
+                  f"split lse backward {what}: the timed launches gave other bits than the wrapper's")
+        softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+        plain_ms = time_ms(lambda: softmax_lse.streaming_lse_bwd_reference(s, items, bias, lse, dlse), iters=3)
+        sg, ig = s.detach().clone().requires_grad_(), items.detach().clone().requires_grad_()
+        lib_out = library_lse(sg, ig)
+
+        def grad_ms(inputs) -> float:
+            return time_ms(lambda: torch.autograd.grad(lib_out, inputs, dlse, retain_graph=True), iters=3)
+
+        vectors = (rows + 2 * m) * 4
+        plan = softmax_lse.fused_bwd_plan(m, rows, d, torch.cuda.get_device_properties(dev).multi_processor_count
+                                          if dev.type == "cuda" else 132)
+        results[f"lse_bwd_fused{tag}"] = dict(
+            max_abs_err=max((g - r).abs().max().item() for g, r in zip(got["fused"], (ref_ds, ref_di))),
+            ms=fused_ms, plain_ms=plain_ms, library_ms=grad_ms((sg, ig)),
+            bound=bound_ms((2 * m * d + 2 * rows * d) * 4 + vectors, 3 * products),
+        )
+        # the twin computes both gradients in one walk: its time stands beside each split kernel
+        results[f"lse_bwd_ds{tag}"] = dict(
+            max_abs_err=(got["split"][0] - ref_ds).abs().max().item(), ms=ds_ms, plain_ms=plain_ms,
+            library_ms=grad_ms((sg,)), bound=bound_ms((2 * m * d + rows * d) * 4 + vectors, 2 * products),
+        )
+        results[f"lse_bwd_di{tag}"] = dict(
+            max_abs_err=(got["split"][1] - ref_di).abs().max().item(), ms=di_ms, plain_ms=plain_ms,
+            library_ms=grad_ms((ig,)), bound=bound_ms((m * d + 2 * rows * d) * 4 + vectors, 2 * products),
+        )
+        print(f"mesh kernels: {what}: fused backward {fused_ms:.4f} ms (partials {plan[2] / 2**20:.0f} MiB, "
+              f"{plan[1]} session groups of {plan[0]} tiles) beside split {ds_ms + di_ms:.4f} ms "
+              f"(ds {ds_ms:.4f} + di {di_ms:.4f}); fused ds, di bit-equal on a second run")
+        del s, items, bias, dlse, lse, ref, ref_ds, ref_di, got, again, out_ds, out_di, sg, ig, lib_out
+        torch.cuda.empty_cache()
+    for name, r in results.items():
+        print(
+            f"mesh kernel {name}: max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})"
+        )
+    return results
+
 # ---------------------------------------------------------------- phase 4
 
 
-def kion_frame(np, pd, Columns):
+def kion_frame(np, pd, Columns, n_item_ids: int = N_ITEM_IDS):
     """Synthetic KION-shaped interactions: session lengths 1-300, Zipf items."""
     rng = np.random.default_rng(SEED)
     lengths = rng.integers(1, 301, size=N_USERS)
     users = np.repeat(np.arange(N_USERS), lengths)
-    items = (rng.zipf(1.2, size=len(users)) - 1) % N_ITEM_IDS
+    items = (rng.zipf(1.2, size=len(users)) - 1) % n_item_ids
     seconds = rng.integers(0, COVER_DAY * 86400, size=len(users))
-    # every item id once more, last in time, so the table has all 15,871 ids
-    cover_users = rng.integers(0, N_USERS, size=N_ITEM_IDS)
+    # every item id once more, last in time, so the table has all the ids
+    cover_users = rng.integers(0, N_USERS, size=n_item_ids)
     users = np.concatenate([users, cover_users])
-    items = np.concatenate([items, np.arange(N_ITEM_IDS)])
-    seconds = np.concatenate([seconds, COVER_DAY * 86400 + np.arange(N_ITEM_IDS)])
+    items = np.concatenate([items, np.arange(n_item_ids)])
+    seconds = np.concatenate([seconds, COVER_DAY * 86400 + np.arange(n_item_ids)])
     return pd.DataFrame(
         {
             Columns.User: users,
@@ -780,30 +915,40 @@ TRAIN_CONFIG = dict(
 )
 
 
+def epoch_clock(torch, dev):
+    """A training callback that reads the host clock, the device drained, at
+    the start of a fit and at the end of every epoch (``times``)."""
+    from rectools_tpu_torch.models.nn.transformers import TrainingCallback
+
+    class EpochClock(TrainingCallback):
+        def __init__(self) -> None:
+            self.times = []
+
+        def read(self) -> None:
+            if str(dev) != "cpu":
+                torch.cuda.synchronize()
+            self.times.append(time.perf_counter())
+
+        def on_train_start(self, module) -> None:
+            self.read()
+
+        def on_epoch_end(self, module, epoch, logs) -> bool:
+            self.read()
+            return False
+
+    return EpochClock()
+
+
 def train_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
     """``fit`` at the training width for SASRecModel or, with ``hstu``, HSTUModel."""
     import pandas as pd
 
     from rectools_tpu_torch.models import HSTUModel, SASRecModel
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
-    from rectools_tpu_torch.models.nn.transformers import TrainingCallback
     from rectools_tpu_torch.models.nn.transformers.training import pad_batch
 
-    class EpochClock(TrainingCallback):
-        def __init__(self) -> None:
-            self.times = []
-
-        def on_train_start(self, module) -> None:
-            torch.cuda.synchronize()
-            self.times.append(time.perf_counter())
-
-        def on_epoch_end(self, module, epoch, logs) -> bool:
-            torch.cuda.synchronize()
-            self.times.append(time.perf_counter())
-            return False
-
     tag, model_cls = ("hstu train", HSTUModel) if hstu else ("train", SASRecModel)
-    clock = EpochClock()
+    clock = epoch_clock(torch, dev)
     model = model_cls(
         **TRAIN_CONFIG, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,), get_val_mask_func=hold_out_last,
         get_callbacks_func=lambda: [clock], training_module_kwargs={"val_recall_k": K}, device=dev,
@@ -939,6 +1084,211 @@ def agreement_phase(torch, np, dataset, dev, hstu: bool = False) -> dict:
             "grad_max_abs_diff": grad_abs, "grad_max_rel_diff": grad_rel, "worst_param": worst,
             "worst_entry_grads": at_worst}
 
+# ---------------------------------------------------------------- phase 8, mesh training
+
+
+def _mesh_model(dev, mesh_shape, epochs: int, callbacks=()):
+    from rectools_tpu_torch.models import SASRecModel
+    from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+
+    kwargs = {"val_recall_k": K}
+    if mesh_shape is not None:
+        kwargs["mesh_shape"] = mesh_shape
+    return SASRecModel(
+        **TRAIN_CONFIG, epochs=epochs, item_net_block_types=(IdEmbeddingsItemNet,), get_val_mask_func=hold_out_last,
+        get_callbacks_func=lambda: list(callbacks), training_module_kwargs=kwargs, device=dev,
+    )
+
+
+def _mesh_fit_expected(port, model, epochs: int) -> dict:
+    """Launches of a SASRec mesh fit on one rank: the encoder's kernels as in
+    the plain fit, kernel 8 and kernel 9 once per step, none of kernels 6, 7,
+    10 and 11."""
+    steps = model.training_module.global_step
+    forwards = steps + epochs * len(model.data_preparator.get_dataloader_val())
+    expected = {name: 0 for name in port.LAUNCHES}
+    expected.update(lse_bias_fwd=steps, lse_bwd_fused=steps,
+                    layer_norm_fwd=(2 * N_BLOCKS + 1) * forwards, attention_fwd=N_BLOCKS * forwards,
+                    layer_norm_bwd=(2 * N_BLOCKS + 1) * steps, attention_bwd=N_BLOCKS * steps)
+    return expected
+
+
+def _losses_close(np, got: dict, ref: dict, what: str) -> float:
+    worst = 0.0
+    for key in ("train_loss", "val_loss"):
+        check(len(got[key]) == len(ref[key]) and bool(np.isfinite(got[key]).all()), f"{what}: {key} {got[key]}")
+        worst = max(worst, max(abs(g - r) / abs(r) for g, r in zip(got[key], ref[key])))
+    check(worst <= LOSS_RTOL, f"{what}: losses {got} differ from {ref} by {worst} relative")
+    return worst
+
+
+def mesh_fit_phase(torch, np, port, dataset, dev, plain: dict) -> dict:
+    """``mesh_shape=(1, 1)`` through a one-rank process group: the mesh route
+    of the loss at the full width, against the fit without a mesh (``plain``,
+    the training phase's losses)."""
+    import tempfile
+
+    from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+    from rectools_tpu_torch.ops import softmax_lse
+    from rectools_tpu_torch.parallel import distributed as dist
+
+    with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
+        dist.initialize(init_method=f"file://{tmp}/store", num_processes=1, process_id=0,
+                        timeout_s=MESH_RANK_TIMEOUT_S)
+        try:
+            check(dist.is_initialized() and dist.process_count() == 1, "the one-rank world did not start")
+            backend = torch.distributed.get_backend()
+            clock = epoch_clock(torch, dev)
+            model = _mesh_model(dev, (1, 1), EPOCHS, [clock])
+            port.reset_launches()
+            t0 = time.perf_counter()
+            model.fit(dataset)
+            fit_s = time.perf_counter() - t0
+            launches = dict(port.LAUNCHES)
+            tm = model.training_module
+            steps = tm.global_step
+            epoch2_s = clock.times[2] - clock.times[1]
+            examples_per_s = TRAIN_B * (steps // EPOCHS) / epoch2_s
+            check(tm._use_fused_softmax and tm._get_mesh() is not None, "the fit did not take the mesh route")
+            expected = _mesh_fit_expected(port, model, EPOCHS)
+            check(launches == expected, f"launches in mesh fit {launches}, expected {expected}")
+            got = {"train_loss": tm.train_loss_history, "val_loss": tm.val_loss_history}
+            check(got["train_loss"][1] < got["train_loss"][0], f"mesh fit: train loss did not fall: {got}")
+            rel = _losses_close(np, got, plain, "mesh fit against the fit without a mesh")
+            print(f"mesh fit: mesh (1, 1) on a one-rank {backend} world, {steps} steps in {fit_s:.2f} s; "
+                  f"launches {launches}")
+            print(f"mesh fit: losses {got['train_loss']}, val_loss {got['val_loss']}; max relative difference from "
+                  f"the fit without a mesh {rel:.3g} (limit {LOSS_RTOL})")
+            print(f"mesh fit: epoch 2 wall {epoch2_s:.3f} s (validation included), {examples_per_s:.0f} train "
+                  f"examples/s (the fit without a mesh: {plain['train_examples_per_s']:.0f})")
+            # the split route of the backward: the partials budget forced to 0
+            loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
+            batch = tm._device_batch(tm._local_batch(pad_batch(next(iter(loader)), TRAIN_B)))
+            profile = {}
+            if str(dev) != "cpu":
+                print("mesh fit: profile of one train step")
+                profile = profile_phase(torch, lambda: tm._train_step(batch))
+            budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
+            softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 0
+            port.reset_launches()
+            split_losses = [tm._train_step(batch).item() for _ in range(2)]
+            softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+            split = {k: port.LAUNCHES[k] for k in ("lse_bias_fwd", "lse_bwd_fused", "lse_bwd_ds", "lse_bwd_di")}
+            check(split == {"lse_bias_fwd": 2, "lse_bwd_fused": 0, "lse_bwd_ds": 2, "lse_bwd_di": 2},
+                  f"launches with the partials budget forced to 0: {split}")
+            check(bool(np.isfinite(split_losses).all()) and split_losses[1] < split_losses[0],
+                  f"losses of two steps on one batch through the split backward: {split_losses}")
+            print(f"mesh fit: two steps with the partials budget forced to 0: launches {split}, "
+                  f"losses {split_losses}")
+        finally:
+            dist.shutdown()
+    return {"launches": launches, "launches_budget_forced": split, "steps": steps, "fit_s": fit_s,
+            "train_loss": got["train_loss"], "val_loss": got["val_loss"], "loss_max_rel_diff_from_plain_fit": rel,
+            "backend": backend, "epoch2_s": epoch2_s, "train_examples_per_s": examples_per_s,
+            **{f"step_{k}": v for k, v in profile.items()}}
+
+
+def _state_digest(state: dict) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for name in sorted(state):
+        digest.update(name.encode())
+        digest.update(state[name].detach().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def mesh_rank_worker(rank: int, repo: str, dev: str) -> dict:
+    """One rank of the four-rank mesh fit: its own frame from the seed (the
+    odd catalog), ``fit`` at ``mesh_shape=MESH_4``, and what it reports."""
+    sys.path.insert(0, repo)
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    import rectools_tpu_torch.ops as port
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.dataset import Dataset
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dataset = Dataset.construct(kion_frame(np, pd, Columns, RAGGED_N - 1))
+    clock = epoch_clock(torch, dev)
+    model = _mesh_model(dev, MESH_4, 1, [clock])
+    port.reset_launches()
+    model.fit(dataset)
+    launches = dict(port.LAUNCHES)
+    tm = model.training_module
+    state = tm.get_state()["params"]  # whole tables: every rank gathers
+    return {
+        "rank": rank, "coords": dict(tm._get_mesh().coords), "launches": launches,
+        "expected_launches": _mesh_fit_expected(port, model, 1), "steps": tm.global_step,
+        "epoch_s": clock.times[1] - clock.times[0],
+        "train_loss": tm.train_loss_history, "val_loss": tm.val_loss_history,
+        "recall": tm.val_metric_history.get(f"val_recall@{K}", []),
+        "n_items": model.backbone.item_model.n_items, "backend": torch.distributed.get_backend(),
+        "table_shape": tuple(model.backbone.item_model.item_net_blocks[0].ids_emb.weight.shape),
+        "digest": _state_digest(state), "params": state if rank == 0 else None,
+    }
+
+
+def mesh_fit_4_phase(torch, np, pd, dev, world: int = 4) -> dict:
+    """Four ranks on the one card at mesh (2, 2), one epoch on the odd catalog,
+    against each other (exactly) and against the single-process fit of the
+    same global batches (LOSS_RTOL, PARAM_ATOL)."""
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.dataset import Dataset
+    from rectools_tpu_torch.parallel.launch import run_ranks
+
+    repo = str(Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    # several ranks on one card: gloo, device tensors staged through host memory
+    ranks = run_ranks(mesh_rank_worker, world, (repo, dev), timeout_s=MESH_RANK_TIMEOUT_S, backend="gloo", threads=2)
+    spawn_s = time.perf_counter() - t0
+    first = ranks[0]
+    check(first["n_items"] == RAGGED_N, f"the ranks' catalog has {first['n_items']} rows, expected {RAGGED_N}")
+    check(first["table_shape"] == (RAGGED_N, N_FACTORS // MESH_4[1]),
+          f"ids_emb on a rank is {first['table_shape']}, not column-sharded over the model group")
+    check({(r["coords"]["data"], r["coords"]["model"]) for r in ranks} == {(d, m) for d in range(MESH_4[0])
+                                                                          for m in range(MESH_4[1])},
+          f"mesh coordinates {[r['coords'] for r in ranks]}")
+    for r in ranks:
+        check(r["launches"] == r["expected_launches"],
+              f"rank {r['rank']}: launches {r['launches']}, expected {r['expected_launches']}")
+        for key in ("train_loss", "val_loss", "recall", "digest", "steps"):
+            check(r[key] == first[key], f"rank {r['rank']}: {key} {r[key]} differs from rank 0's {first[key]}")
+    check(bool(np.isfinite(first["train_loss"] + first["val_loss"] + first["recall"]).all()), f"rank losses {first}")
+
+    single = _mesh_model(dev, None, 1)
+    single.fit(Dataset.construct(kion_frame(np, pd, Columns, RAGGED_N - 1)))
+    tm = single.training_module
+    rel = _losses_close(np, first, {"train_loss": tm.train_loss_history, "val_loss": tm.val_loss_history},
+                        "four-rank mesh fit against the single-process fit")
+    param_err, key_bias_err, worst = 0.0, 0.0, ""
+    for name, value in tm.get_state()["params"].items():
+        err = (first["params"][name] - value).abs().max().item()
+        if name.endswith("multi_head_attn.k_proj.bias"):  # zero gradient in exact arithmetic: see the agree phase
+            key_bias_err = max(key_bias_err, err)
+        elif err > param_err:
+            param_err, worst = err, name
+    check(param_err <= PARAM_ATOL, f"four-rank mesh fit: parameters differ from the single-process fit by "
+                                   f"{param_err} in {worst}")
+    step_ms = [1e3 * r["epoch_s"] / r["steps"] for r in ranks]  # the epoch's wall, its validation batches included
+    print(f"mesh fit 4: {world} ranks on one card ({first['backend']}, host staging), mesh {MESH_4}, "
+          f"{first['steps']} steps on the {RAGGED_N}-row catalog, spawn to results {spawn_s:.1f} s; "
+          f"per rank launches {first['launches']}")
+    print(f"mesh fit 4: all ranks report the same losses {first['train_loss']}, val_loss {first['val_loss']}, "
+          f"val_recall@{K} {first['recall']} and parameter digest {first['digest'][:16]}; each holds "
+          f"ids_emb columns {first['table_shape']}")
+    print(f"mesh fit 4: against the single-process fit: max loss rel diff {rel:.3g}, max param abs diff "
+          f"{param_err:.3g} in {worst} (key-projection biases {key_bias_err:.3g}); epoch wall per step, "
+          f"4 ranks on one card: {[round(t, 1) for t in step_ms]} ms")
+    return {"launches": first["launches"], "launches_by_rank": [r["launches"] for r in ranks],
+            "steps": first["steps"], "train_loss": first["train_loss"], "val_loss": first["val_loss"],
+            "digest": first["digest"], "loss_max_rel_diff_from_single_process": rel,
+            "param_max_abs_diff_from_single_process": param_err, "key_bias_max_abs_diff": key_bias_err,
+            "four_ranks_on_one_card_step_ms": step_ms, "spawn_to_results_s": spawn_s}
+
 
 def main() -> int:
     import torch
@@ -977,6 +1327,7 @@ def main() -> int:
     kernels = kernel_phase(torch, torch.device("cuda"))
     kernels.update(train_kernel_phase(torch, torch.device("cuda")))
     kernels.update(stu_kernel_phase(torch, torch.device("cuda")))
+    kernels.update(mesh_kernel_phase(torch, torch.device("cuda")))
 
     from rectools_tpu_torch import Columns
     from rectools_tpu_torch.dataset import Dataset
@@ -997,6 +1348,9 @@ def main() -> int:
     hstu_main_result = main_phase(torch, np, port, df, dataset, "cuda", hstu=True)
     hstu_train_result = train_phase(torch, np, port, df, dataset, "cuda", hstu=True)
     hstu_agree_result = agreement_phase(torch, np, dataset, "cuda", hstu=True)
+    # phase 8: mesh training, one rank and four ranks
+    mesh_result = mesh_fit_phase(torch, np, port, dataset, "cuda", train_result)
+    mesh_4_result = mesh_fit_4_phase(torch, np, pd, "cuda")
 
     # name: (source, replaced TPU kernel, launch-count keys, entry of `kernels` with its numbers)
     table = {
@@ -1010,9 +1364,16 @@ def main() -> int:
         "stu_fwd": ("stu_attention.cu", "stu_attention.py:90", ("stu_fwd",), "stu_fwd"),
         "stu_bwd": ("stu_attention.cu", "stu_attention.py:274", ("stu_bwd",), "stu_bwd"),
         "stu_ds": ("stu_attention.cu", "stu_attention.py:316", ("stu_ds",), "stu_ds"),
+        "lse_bias_fwd": ("softmax_lse.cu", "softmax_lse.py:99", ("lse_bias_fwd",), "lse_bias_fwd"),
+        "lse_bwd_fused": ("softmax_lse.cu", "softmax_lse.py:234", ("lse_bwd_fused",), "lse_bwd_fused"),
+        "lse_bwd_ds": ("softmax_lse.cu", "softmax_lse.py:205", ("lse_bwd_ds",), "lse_bwd_ds"),
+        "lse_bwd_di": ("softmax_lse.cu", "softmax_lse.py:266", ("lse_bwd_di",), "lse_bwd_di"),
     }
+    # mesh_fit_4 counts one rank's launches (every rank's are equal); kernels 10
+    # and 11 run where the partials budget is forced to 0
     paths = {"recommend": main_result, "fit": train_result, "hstu_recommend": hstu_main_result,
-             "hstu_fit": hstu_train_result}
+             "hstu_fit": hstu_train_result, "mesh_fit": mesh_result, "mesh_fit_4": mesh_4_result,
+             "mesh_fit_budget_forced": {"launches": mesh_result["launches_budget_forced"]}}
 
     def numbers(r: dict) -> dict:
         return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -1030,6 +1391,9 @@ def main() -> int:
             entry["long_ctx"] = numbers(kernels[f"{name}_long_ctx"])
         if name == "stu_fwd":  # and at the recommend batch, B = 4,096, L = 100
             entry["serving"] = numbers(kernels["stu_fwd_serving"])
+        if name.startswith("lse_b"):  # the same kernel on a (2, 2) mesh's shard and on a shard with an invalid row
+            entry["shard_2x2"] = numbers(kernels[f"{name}_shard_2x2"])
+            entry["ragged_shard"] = numbers(kernels[f"{name}_ragged_shard"])
         entries.append(entry)
     line = {
         "kernels": entries,
@@ -1038,6 +1402,8 @@ def main() -> int:
         "hstu_recommend": {k: v for k, v in hstu_main_result.items() if k != "launches"},
         "hstu_train": {**{k: v for k, v in hstu_train_result.items() if k != "launches"},
                        "agreement": hstu_agree_result},
+        "mesh_fit": {k: v for k, v in mesh_result.items() if not k.startswith("launches")},
+        "mesh_fit_4": {k: v for k, v in mesh_4_result.items() if k != "launches"},
     }
     print(json.dumps(line))
     print(card)

@@ -42,6 +42,37 @@
 //   Deterministic, no atomics, no partials; the price is a second logit pass,
 //   8 * M * N * D operations against the function's 6 * M * N * D.
 // Rows with z = +inf (PAD targets, coeff = 0) contribute nothing.
+//
+// The biased lse and its generic VJP (the row-sharded loss of mesh training:
+// each rank holds a slice of the item table, a bias of 0 / -1e30 marks rows
+// that only pad the slice):
+// - rectools_tpu/ops/softmax_lse.py:99 `_lse_fwd_kernel` (`lse_bias_f32`):
+//   lse[m] = logsumexp_n(s[m] . items[n] + bias[n]). `lse_f32`'s kernel with
+//   the bias added to each logit column before the max. The running max
+//   starts at -1e30, not -inf, so a slice whose every row is invalid gives
+//   -1e30 + log(count), never NaN or inf.
+// - rectools_tpu/ops/softmax_lse.py:205 `_dsessions_kernel` (`lse_bwd_ds_f32`)
+//   and :266 `_ditems_kernel` (`lse_bwd_di_f32`): the two CE gradient kernels
+//   with pw = exp((logit + bias[n]) - lse[m]) * dlse[m] in place of
+//   exp(logit - z[m]) and no label term; dlse may have any sign. Both form pw
+//   (probability times dlse) and multiply it into the item rows or the plain
+//   session rows; the TPU `_ditems_kernel` scales the session rows by dlse
+//   instead, which differs in rounding only.
+// - rectools_tpu/ops/softmax_lse.py:234 `_bwd_fused_kernel`
+//   (`lse_bwd_fused_f32`): one logit pass for both gradients. A block owns an
+//   item chunk (2,048 rows by default, 32 tiles) and a group of session tiles.
+//   For each of its session tiles it walks the chunk's item tiles, forms each
+//   pw tile once, adds pw items into a register accumulator that becomes the
+//   ds partial of (chunk, session tile), and adds pw^T s into the block's own
+//   slice of a di partial buffer in device memory, with plain loads and stores:
+//   the block is that slice's only writer. Partials: ds (n_chunks, M, D) and di
+//   (n_groups, N, D); the caller sums each over its first axis in a fixed
+//   order. No float atomics, so a second run gives the same bits. 6 * M * N * D
+//   operations against the split pair's 8 * M * N * D, paid for with the
+//   read-modify-write of a 64 x D block per tile pair.
+// In these three, session rows past M and item rows past N have their pw
+// forced to 0; an invalid row inside the slice (bias -1e30) gets
+// exp(-1e30 - lse) = 0 by arithmetic, so its di row is exactly 0.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -92,13 +123,16 @@ __device__ __forceinline__ void tile_logits(const float* s_tile, const float* i_
   }
 }
 
-template <int D>
+// kBias: add bias[n] to every logit column (lse_bias_f32); the bias tile sits
+// behind the item tile in shared memory
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads)
-    lse_kernel(const float* __restrict__ s, const float* __restrict__ items, float* __restrict__ lse, long long M,
-               long long N) {
+    lse_kernel(const float* __restrict__ s, const float* __restrict__ items, const float* __restrict__ bias,
+               float* __restrict__ lse, long long M, long long N) {
   extern __shared__ float smem[];
   float* s_tile = smem;
   float* i_tile = smem + kBM * (D + 1);
+  float* bs = i_tile + kBN * (D + 1);
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const long long row0 = (long long)blockIdx.x * kBM;
@@ -113,9 +147,16 @@ __global__ void __launch_bounds__(kThreads)
   for (long long n0 = 0; n0 < N; n0 += kBN) {
     __syncthreads();  // the previous item tile is consumed (and s_tile loaded)
     load_tile<D>(i_tile, items, n0, N);
+    if (kBias && threadIdx.x < kBN) bs[threadIdx.x] = n0 + threadIdx.x < N ? bias[n0 + threadIdx.x] : 0.f;
     __syncthreads();
     float acc[4][4];
     tile_logits<D>(s_tile, i_tile, ty, tx, acc);
+    if (kBias) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] += bs[tx + 16 * b];
+    }
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       float mx = m_run[a];
@@ -148,30 +189,71 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Shared layout of the gradient kernels: session tile, item tile, the
-// corrected probability tile [64][65], then z, coeff and y of the session tile.
+// weighted probability tile [64][65], then two per-row vectors and the
+// per-column bias of the current tiles, then y of the session tile.
 template <int D>
 constexpr int grad_smem_bytes() {
-  return (2 * 64 * (D + 1) + kBM * (kBN + 1) + 2 * kBM) * (int)sizeof(float) + kBM * (int)sizeof(long long);
+  return (2 * 64 * (D + 1) + kBM * (kBN + 1) + 2 * kBM + kBN) * (int)sizeof(float) + kBM * (int)sizeof(long long);
 }
 
-// z, coeff and y of session rows [row0, row0 + 64); rows past M get z = +inf
-// and coeff = 0, so their probabilities and label terms vanish
-__device__ __forceinline__ void load_rows(float* zs, float* cs, long long* ys, const float* __restrict__ z,
-                                          const float* __restrict__ coeff, const long long* __restrict__ y,
-                                          long long row0, long long M) {
+// The per-row and per-column inputs of a gradient kernel, in its two forms.
+// kCE (softmax-CE from z): row_a = z, row_b = coeff, y = labels, no bias.
+// Otherwise (generic lse VJP): row_a = lse, row_b = dlse, bias per item row.
+struct GradRows {
+  const float* row_a;
+  const float* row_b;
+  const long long* y;
+  const float* bias;
+};
+
+struct GradSmem {
+  float* s_tile;
+  float* i_tile;
+  float* p_tile;
+  float* zs;
+  float* cs;
+  float* bs;
+  long long* ys;
+};
+
+template <int D>
+__device__ __forceinline__ GradSmem grad_smem(float* smem) {
+  GradSmem sh;
+  sh.s_tile = smem;
+  sh.i_tile = sh.s_tile + kBM * (D + 1);
+  sh.p_tile = sh.i_tile + kBN * (D + 1);
+  sh.zs = sh.p_tile + kBM * (kBN + 1);
+  sh.cs = sh.zs + kBM;
+  sh.bs = sh.cs + kBM;
+  sh.ys = reinterpret_cast<long long*>(sh.bs + kBN);
+  return sh;
+}
+
+// row vectors of session rows [row0, row0 + 64); rows past M get row_a = +inf
+// and row_b = 0, so their probabilities and label terms vanish
+template <bool kCE>
+__device__ __forceinline__ void load_rows(const GradSmem& sh, const GradRows& in, long long row0, long long M) {
   for (int r = threadIdx.x; r < kBM; r += kThreads) {
     const bool ok = row0 + r < M;
-    zs[r] = ok ? z[row0 + r] : INFINITY;
-    cs[r] = ok ? coeff[row0 + r] : 0.f;
-    ys[r] = ok ? y[row0 + r] : -1;
+    sh.zs[r] = ok ? in.row_a[row0 + r] : INFINITY;
+    sh.cs[r] = ok ? in.row_b[row0 + r] : 0.f;
+    if (kCE) sh.ys[r] = ok ? in.y[row0 + r] : -1;
   }
 }
 
-// p_tile[a_row][b_col] = exp(logit - z) - coeff * [col == y], 0 past N
-template <int D>
-__device__ __forceinline__ void corrected_probs(const float acc[4][4], float* p_tile, const float* zs,
-                                                const float* cs, const long long* ys, long long n0, long long N,
-                                                int ty, int tx) {
+// bias of item rows [n0, n0 + 64), 0 past N (those columns are forced to 0)
+template <bool kCE>
+__device__ __forceinline__ void load_cols(const GradSmem& sh, const GradRows& in, long long n0, long long N) {
+  if (kCE) return;
+  for (int c = threadIdx.x; c < kBN; c += kThreads) sh.bs[c] = n0 + c < N ? in.bias[n0 + c] : 0.f;
+}
+
+// kCE:  p_tile[row][col] = exp(logit - z) - coeff * [col == y]
+// else: p_tile[row][col] = exp((logit + bias) - lse) * dlse
+// and 0 for columns past N and rows past M
+template <bool kCE>
+__device__ __forceinline__ void weighted_probs(const float acc[4][4], const GradSmem& sh, long long row0,
+                                               long long M, long long n0, long long N, int ty, int tx) {
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int r = ty + 16 * a;
@@ -180,161 +262,258 @@ __device__ __forceinline__ void corrected_probs(const float acc[4][4], float* p_
       const int c = tx + 16 * b;
       const long long col = n0 + c;
       float pw = 0.f;
-      if (col < N) {
-        pw = expf(acc[a][b] - zs[r]);
-        if (col == ys[r]) pw -= cs[r];
+      if (col < N && row0 + r < M) {
+        if (kCE) {
+          pw = expf(acc[a][b] - sh.zs[r]);
+          if (col == sh.ys[r]) pw -= sh.cs[r];
+        } else {
+          pw = expf((acc[a][b] + sh.bs[c]) - sh.zs[r]) * sh.cs[r];
+        }
       }
-      p_tile[r * (kBN + 1) + c] = pw;
+      sh.p_tile[r * (kBN + 1) + c] = pw;
+    }
+  }
+}
+
+// out[a][c] += sum_n p_tile[ty + 16a][n] * i_tile[n][tx + 16c]
+template <int D>
+__device__ __forceinline__ void accumulate_ds(const GradSmem& sh, int ty, int tx, float out[4][(D + 15) / 16]) {
+  constexpr int kC = (D + 15) / 16;
+#pragma unroll 2
+  for (int n = 0; n < kBN; ++n) {
+    float pa[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) pa[a] = sh.p_tile[(ty + 16 * a) * (kBN + 1) + n];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const int col = tx + 16 * c;
+      const float iv = col < D ? sh.i_tile[n * (D + 1) + col] : 0.f;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) out[a][c] = fmaf(pa[a], iv, out[a][c]);
+    }
+  }
+}
+
+// out[a][c] += sum_m p_tile[m][ty + 16a] * s_tile[m][tx + 16c]
+template <int D>
+__device__ __forceinline__ void accumulate_di(const GradSmem& sh, int ty, int tx, float out[4][(D + 15) / 16]) {
+  constexpr int kC = (D + 15) / 16;
+#pragma unroll 2
+  for (int m = 0; m < kBM; ++m) {
+    float pa[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) pa[a] = sh.p_tile[m * (kBN + 1) + ty + 16 * a];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const int col = tx + 16 * c;
+      const float sv = col < D ? sh.s_tile[m * (D + 1) + col] : 0.f;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) out[a][c] = fmaf(pa[a], sv, out[a][c]);
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    ce_ds_kernel(const float* __restrict__ s, const float* __restrict__ items, const float* __restrict__ z,
-                 const long long* __restrict__ y, const float* __restrict__ coeff, float* __restrict__ ds,
-                 long long M, long long N) {
-  extern __shared__ float smem[];
-  float* s_tile = smem;
-  float* i_tile = s_tile + kBM * (D + 1);
-  float* p_tile = i_tile + kBN * (D + 1);
-  float* zs = p_tile + kBM * (kBN + 1);
-  float* cs = zs + kBM;
-  long long* ys = reinterpret_cast<long long*>(cs + kBM);
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const long long row0 = (long long)blockIdx.x * kBM;
-  load_tile<D>(s_tile, s, row0, M);
-  load_rows(zs, cs, ys, z, coeff, y, row0, M);
-
-  constexpr int kC = (D + 15) / 16;
-  float out[4][kC];
+__device__ __forceinline__ void zero_out(float out[4][(D + 15) / 16]) {
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < kC; ++c) out[a][c] = 0.f;
+    for (int c = 0; c < (D + 15) / 16; ++c) out[a][c] = 0.f;
+}
 
-  for (long long n0 = 0; n0 < N; n0 += kBN) {
-    __syncthreads();  // the previous tiles are consumed
-    load_tile<D>(i_tile, items, n0, N);
-    __syncthreads();
-    float acc[4][4];
-    tile_logits<D>(s_tile, i_tile, ty, tx, acc);
-    corrected_probs<D>(acc, p_tile, zs, cs, ys, n0, N, ty, tx);
-    __syncthreads();
-#pragma unroll 2
-    for (int n = 0; n < kBN; ++n) {
-      float pa[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = p_tile[(ty + 16 * a) * (kBN + 1) + n];
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int col = tx + 16 * c;
-        const float iv = col < D ? i_tile[n * (D + 1) + col] : 0.f;
-#pragma unroll
-        for (int a = 0; a < 4; ++a) out[a][c] = fmaf(pa[a], iv, out[a][c]);
-      }
-    }
-  }
+// rows row0 + ty + 16a (below `rows`) of a (rows, D) matrix <- out
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float out[4][(D + 15) / 16],
+                                           long long row0, long long rows, int ty, int tx) {
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const long long row = row0 + ty + 16 * a;
-    if (row >= M) continue;
+    if (row >= rows) continue;
 #pragma unroll
-    for (int c = 0; c < kC; ++c) {
+    for (int c = 0; c < (D + 15) / 16; ++c) {
       const int col = tx + 16 * c;
-      if (col < D) ds[row * D + col] = out[a][c];
+      if (col < D) dst[row * D + col] = out[a][c];
     }
   }
 }
 
-template <int D>
+template <int D, bool kCE>
 __global__ void __launch_bounds__(kThreads)
-    ce_di_kernel(const float* __restrict__ s, const float* __restrict__ items, const float* __restrict__ z,
-                 const long long* __restrict__ y, const float* __restrict__ coeff, float* __restrict__ di,
-                 long long M, long long N) {
+    grad_ds_kernel(const float* __restrict__ s, const float* __restrict__ items, GradRows in,
+                   float* __restrict__ ds, long long M, long long N) {
   extern __shared__ float smem[];
-  float* s_tile = smem;
-  float* i_tile = s_tile + kBM * (D + 1);
-  float* p_tile = i_tile + kBN * (D + 1);
-  float* zs = p_tile + kBM * (kBN + 1);
-  float* cs = zs + kBM;
-  long long* ys = reinterpret_cast<long long*>(cs + kBM);
+  const GradSmem sh = grad_smem<D>(smem);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const long long row0 = (long long)blockIdx.x * kBM;
+  load_tile<D>(sh.s_tile, s, row0, M);
+  load_rows<kCE>(sh, in, row0, M);
+
+  float out[4][(D + 15) / 16];
+  zero_out<D>(out);
+  for (long long n0 = 0; n0 < N; n0 += kBN) {
+    __syncthreads();  // the previous tiles are consumed
+    load_tile<D>(sh.i_tile, items, n0, N);
+    load_cols<kCE>(sh, in, n0, N);
+    __syncthreads();
+    float acc[4][4];
+    tile_logits<D>(sh.s_tile, sh.i_tile, ty, tx, acc);
+    weighted_probs<kCE>(acc, sh, row0, M, n0, N, ty, tx);
+    __syncthreads();
+    accumulate_ds<D>(sh, ty, tx, out);
+  }
+  store_rows<D>(ds, out, row0, M, ty, tx);
+}
+
+template <int D, bool kCE>
+__global__ void __launch_bounds__(kThreads)
+    grad_di_kernel(const float* __restrict__ s, const float* __restrict__ items, GradRows in,
+                   float* __restrict__ di, long long M, long long N) {
+  extern __shared__ float smem[];
+  const GradSmem sh = grad_smem<D>(smem);
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const long long n0 = (long long)blockIdx.x * kBN;
-  load_tile<D>(i_tile, items, n0, N);
+  load_tile<D>(sh.i_tile, items, n0, N);
+  load_cols<kCE>(sh, in, n0, N);
 
-  constexpr int kC = (D + 15) / 16;
-  float out[4][kC];  // items ty + 16a, dims tx + 16c
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < kC; ++c) out[a][c] = 0.f;
-
+  float out[4][(D + 15) / 16];  // items ty + 16a, dims tx + 16c
+  zero_out<D>(out);
   for (long long row0 = 0; row0 < M; row0 += kBM) {
     __syncthreads();  // the previous tiles are consumed
-    load_tile<D>(s_tile, s, row0, M);
-    load_rows(zs, cs, ys, z, coeff, y, row0, M);
+    load_tile<D>(sh.s_tile, s, row0, M);
+    load_rows<kCE>(sh, in, row0, M);
     __syncthreads();
     float acc[4][4];
-    tile_logits<D>(s_tile, i_tile, ty, tx, acc);
-    corrected_probs<D>(acc, p_tile, zs, cs, ys, n0, N, ty, tx);
+    tile_logits<D>(sh.s_tile, sh.i_tile, ty, tx, acc);
+    weighted_probs<kCE>(acc, sh, row0, M, n0, N, ty, tx);
     __syncthreads();
-#pragma unroll 2
-    for (int m = 0; m < kBM; ++m) {
-      float pa[4];
+    accumulate_di<D>(sh, ty, tx, out);
+  }
+  store_rows<D>(di, out, n0, N, ty, tx);
+}
+
+// Both gradients of the biased lse from one logit pass. Block (x, y) owns item
+// rows [x * chunk_rows, (x + 1) * chunk_rows) and session tiles
+// [y * tiles_per_group, (y + 1) * tiles_per_group). ds_part is (gridDim.x, M, D),
+// di_part is (gridDim.y, N, D); every element of both is written.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    lse_bwd_fused_kernel(const float* __restrict__ s, const float* __restrict__ items, GradRows in,
+                         float* __restrict__ ds_part, float* __restrict__ di_part, long long M, long long N,
+                         long long chunk_rows, long long tiles_per_group) {
+  extern __shared__ float smem[];
+  const GradSmem sh = grad_smem<D>(smem);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const long long n_begin = (long long)blockIdx.x * chunk_rows;
+  const long long n_end = n_begin + chunk_rows < N ? n_begin + chunk_rows : N;
+  const long long m_tiles = (M + kBM - 1) / kBM;
+  const long long t_begin = (long long)blockIdx.y * tiles_per_group;
+  const long long t_end = t_begin + tiles_per_group < m_tiles ? t_begin + tiles_per_group : m_tiles;
+  float* __restrict__ ds_mine = ds_part + (long long)blockIdx.x * M * D;
+  float* __restrict__ di_mine = di_part + (long long)blockIdx.y * N * D;
+
+  for (long long t = t_begin; t < t_end; ++t) {
+    const long long row0 = t * kBM;
+    __syncthreads();  // the previous session tile is consumed
+    load_tile<D>(sh.s_tile, s, row0, M);
+    load_rows<false>(sh, in, row0, M);
+    float out[4][(D + 15) / 16];
+    zero_out<D>(out);
+    for (long long n0 = n_begin; n0 < n_end; n0 += kBN) {
+      __syncthreads();  // the previous item and probability tiles are consumed
+      load_tile<D>(sh.i_tile, items, n0, n_end);
+      load_cols<false>(sh, in, n0, n_end);
+      __syncthreads();
+      float acc[4][4];
+      tile_logits<D>(sh.s_tile, sh.i_tile, ty, tx, acc);
+      weighted_probs<false>(acc, sh, row0, M, n0, n_end, ty, tx);
+      __syncthreads();
+      accumulate_ds<D>(sh, ty, tx, out);
+      float di_tile[4][(D + 15) / 16];
+      zero_out<D>(di_tile);
+      accumulate_di<D>(sh, ty, tx, di_tile);
+      // this block alone writes these rows of its di partial: plain
+      // read-modify-write, in session-tile order
 #pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = p_tile[m * (kBN + 1) + ty + 16 * a];
+      for (int a = 0; a < 4; ++a) {
+        const long long item = n0 + ty + 16 * a;
+        if (item >= n_end) continue;
 #pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int col = tx + 16 * c;
-        const float sv = col < D ? s_tile[m * (D + 1) + col] : 0.f;
-#pragma unroll
-        for (int a = 0; a < 4; ++a) out[a][c] = fmaf(pa[a], sv, out[a][c]);
+        for (int c = 0; c < (D + 15) / 16; ++c) {
+          const int col = tx + 16 * c;
+          if (col >= D) continue;
+          float* p = di_mine + item * D + col;
+          *p = t == t_begin ? di_tile[a][c] : *p + di_tile[a][c];
+        }
       }
     }
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const long long item = n0 + ty + 16 * a;
-    if (item >= N) continue;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) di[item * D + col] = out[a][c];
-    }
+    store_rows<D>(ds_mine, out, row0, M, ty, tx);
   }
 }
 
-template <int D>
-int launch_lse(const float* s, const float* items, float* lse, long long M, long long N, cudaStream_t stream) {
-  const int smem = 2 * 64 * (D + 1) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lse_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int D, bool kBias>
+int launch_lse(const float* s, const float* items, const float* bias, float* lse, long long M, long long N,
+               cudaStream_t stream) {
+  const int smem = (2 * 64 * (D + 1) + kBN) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(lse_kernel<D, kBias>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  lse_kernel<D><<<(unsigned)((M + kBM - 1) / kBM), kThreads, smem, stream>>>(s, items, lse, M, N);
+  lse_kernel<D, kBias><<<(unsigned)((M + kBM - 1) / kBM), kThreads, smem, stream>>>(s, items, bias, lse, M, N);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool kCE>
+int launch_ds(const float* s, const float* items, GradRows in, float* ds, long long M, long long N,
+              cudaStream_t stream) {
+  const int smem = grad_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(grad_ds_kernel<D, kCE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  grad_ds_kernel<D, kCE><<<(unsigned)((M + kBM - 1) / kBM), kThreads, smem, stream>>>(s, items, in, ds, M, N);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool kCE>
+int launch_di(const float* s, const float* items, GradRows in, float* di, long long M, long long N,
+              cudaStream_t stream) {
+  const int smem = grad_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(grad_di_kernel<D, kCE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  grad_di_kernel<D, kCE><<<(unsigned)((N + kBN - 1) / kBN), kThreads, smem, stream>>>(s, items, in, di, M, N);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_ds(const float* s, const float* items, const float* z, const long long* y, const float* coeff, float* ds,
-              long long M, long long N, cudaStream_t stream) {
+int launch_fused(const float* s, const float* items, GradRows in, float* ds_part, float* di_part, long long M,
+                 long long N, long long chunk_rows, long long tiles_per_group, cudaStream_t stream) {
   const int smem = grad_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(ce_ds_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(lse_bwd_fused_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  ce_ds_kernel<D><<<(unsigned)((M + kBM - 1) / kBM), kThreads, smem, stream>>>(s, items, z, y, coeff, ds, M, N);
+  const long long m_tiles = (M + kBM - 1) / kBM;
+  const dim3 grid((unsigned)((N + chunk_rows - 1) / chunk_rows),
+                  (unsigned)((m_tiles + tiles_per_group - 1) / tiles_per_group));
+  lse_bwd_fused_kernel<D><<<grid, kThreads, smem, stream>>>(s, items, in, ds_part, di_part, M, N, chunk_rows,
+                                                             tiles_per_group);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_di(const float* s, const float* items, const float* z, const long long* y, const float* coeff, float* di,
-              long long M, long long N, cudaStream_t stream) {
-  const int smem = grad_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(ce_di_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  ce_di_kernel<D><<<(unsigned)((N + kBN - 1) / kBN), kThreads, smem, stream>>>(s, items, z, y, coeff, di, M, N);
-  return (int)cudaGetLastError();
-}
+// `call<D>(args...)` for the runtime feature width
+#define DISPATCH_D(D, CALL, ...)                          \
+  switch (D) {                                            \
+    case 16: return CALL(16, __VA_ARGS__);                \
+    case 32: return CALL(32, __VA_ARGS__);                \
+    case 64: return CALL(64, __VA_ARGS__);                \
+    case 128: return CALL(128, __VA_ARGS__);              \
+    case 256: return CALL(256, __VA_ARGS__);              \
+    default: return (int)cudaErrorInvalidValue;           \
+  }
+#define CALL_LSE(D, ...) launch_lse<D, false>(__VA_ARGS__)
+#define CALL_LSE_BIAS(D, ...) launch_lse<D, true>(__VA_ARGS__)
+#define CALL_CE_DS(D, ...) launch_ds<D, true>(__VA_ARGS__)
+#define CALL_CE_DI(D, ...) launch_di<D, true>(__VA_ARGS__)
+#define CALL_LSE_DS(D, ...) launch_ds<D, false>(__VA_ARGS__)
+#define CALL_LSE_DI(D, ...) launch_di<D, false>(__VA_ARGS__)
+#define CALL_FUSED(D, ...) launch_fused<D>(__VA_ARGS__)
 
 }  // namespace
 
@@ -344,38 +523,51 @@ int launch_di(const float* s, const float* items, const float* z, const long lon
 extern "C" int lse_f32(const float* s, const float* items, float* lse, long long M, long long N, int D,
                        cudaStream_t stream) {
   if (M <= 0) return 0;
-  switch (D) {
-    case 16: return launch_lse<16>(s, items, lse, M, N, stream);
-    case 32: return launch_lse<32>(s, items, lse, M, N, stream);
-    case 64: return launch_lse<64>(s, items, lse, M, N, stream);
-    case 128: return launch_lse<128>(s, items, lse, M, N, stream);
-    case 256: return launch_lse<256>(s, items, lse, M, N, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  DISPATCH_D(D, CALL_LSE, s, items, nullptr, lse, M, N, stream)
+}
+
+extern "C" int lse_bias_f32(const float* s, const float* items, const float* bias, float* lse, long long M,
+                            long long N, int D, cudaStream_t stream) {
+  if (M <= 0) return 0;
+  DISPATCH_D(D, CALL_LSE_BIAS, s, items, bias, lse, M, N, stream)
 }
 
 extern "C" int ce_ds_f32(const float* s, const float* items, const float* z, const long long* y, const float* coeff,
                          float* ds, long long M, long long N, int D, cudaStream_t stream) {
   if (M <= 0) return 0;
-  switch (D) {
-    case 16: return launch_ds<16>(s, items, z, y, coeff, ds, M, N, stream);
-    case 32: return launch_ds<32>(s, items, z, y, coeff, ds, M, N, stream);
-    case 64: return launch_ds<64>(s, items, z, y, coeff, ds, M, N, stream);
-    case 128: return launch_ds<128>(s, items, z, y, coeff, ds, M, N, stream);
-    case 256: return launch_ds<256>(s, items, z, y, coeff, ds, M, N, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const GradRows in{z, coeff, y, nullptr};
+  DISPATCH_D(D, CALL_CE_DS, s, items, in, ds, M, N, stream)
 }
 
 extern "C" int ce_di_f32(const float* s, const float* items, const float* z, const long long* y, const float* coeff,
                          float* di, long long M, long long N, int D, cudaStream_t stream) {
   if (N <= 0) return 0;
-  switch (D) {
-    case 16: return launch_di<16>(s, items, z, y, coeff, di, M, N, stream);
-    case 32: return launch_di<32>(s, items, z, y, coeff, di, M, N, stream);
-    case 64: return launch_di<64>(s, items, z, y, coeff, di, M, N, stream);
-    case 128: return launch_di<128>(s, items, z, y, coeff, di, M, N, stream);
-    case 256: return launch_di<256>(s, items, z, y, coeff, di, M, N, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const GradRows in{z, coeff, y, nullptr};
+  DISPATCH_D(D, CALL_CE_DI, s, items, in, di, M, N, stream)
+}
+
+// bias (N,), lse and dlse (M,)
+extern "C" int lse_bwd_ds_f32(const float* s, const float* items, const float* bias, const float* lse,
+                              const float* dlse, float* ds, long long M, long long N, int D, cudaStream_t stream) {
+  if (M <= 0) return 0;
+  const GradRows in{lse, dlse, nullptr, bias};
+  DISPATCH_D(D, CALL_LSE_DS, s, items, in, ds, M, N, stream)
+}
+
+extern "C" int lse_bwd_di_f32(const float* s, const float* items, const float* bias, const float* lse,
+                              const float* dlse, float* di, long long M, long long N, int D, cudaStream_t stream) {
+  if (N <= 0) return 0;
+  const GradRows in{lse, dlse, nullptr, bias};
+  DISPATCH_D(D, CALL_LSE_DI, s, items, in, di, M, N, stream)
+}
+
+// ds_part (ceil(N / chunk_rows), M, D) and di_part (ceil(ceil(M / 64) /
+// tiles_per_group), N, D); chunk_rows a multiple of 64
+extern "C" int lse_bwd_fused_f32(const float* s, const float* items, const float* bias, const float* lse,
+                                 const float* dlse, float* ds_part, float* di_part, long long M, long long N, int D,
+                                 long long chunk_rows, long long tiles_per_group, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN || tiles_per_group <= 0) return (int)cudaErrorInvalidValue;
+  const GradRows in{lse, dlse, nullptr, bias};
+  DISPATCH_D(D, CALL_FUSED, s, items, in, ds_part, di_part, M, N, chunk_rows, tiles_per_group, stream)
 }

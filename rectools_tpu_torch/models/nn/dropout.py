@@ -12,6 +12,15 @@ does not reproduce that key stream. Its salts come from an explicit
 ``seed`` and hands to every salt-drawing module (:func:`attach_generator`),
 never from the global RNG: a CPU run and a CUDA run with the same seed then
 draw the same masks.
+
+Batch shards. Under a process mesh a rank holds rows ``[b0, b0 + b)`` of the
+global batch and must draw those rows of the global batch's mask, as the JAX
+package's single program does. The position of element ``i`` of the shard in
+the global tensor is ``b0 · prod(shape[1:]) + i``, and because the hash input
+is ``position · GOLDEN + salt`` the shift folds into the salt
+(:func:`_shifted`). Modules that draw a mask for a batch-leading tensor carry
+a ``batch_offset`` (0 on a single device) that the training module sets with
+:func:`set_batch_offset`.
 """
 
 import typing as tp
@@ -32,24 +41,40 @@ def _salt(words: tp.Sequence[int], mult: int) -> int:
     return _i32(_i32(words[0]) ^ _i32(_i32(words[1]) * mult))
 
 
+def _shifted(salt: int, offset: int) -> int:
+    """The salt that makes local position ``i`` hash as global position ``offset + i``."""
+    return (salt + offset * GOLDEN) & _MASK32
+
+
 def _positions(shape: tp.Sequence[int], device: torch.device) -> torch.Tensor:
     return torch.arange(int(np.prod(shape)), dtype=torch.int64, device=device).reshape(tuple(shape))
 
 
 def hash_keep_mask(
-    words: tp.Sequence[int], shape: tp.Sequence[int], rate: float, device: tp.Optional[torch.device] = None
+    words: tp.Sequence[int],
+    shape: tp.Sequence[int],
+    rate: float,
+    device: tp.Optional[torch.device] = None,
+    offset: int = 0,
 ) -> torch.Tensor:
-    """Boolean keep mask of ``shape``; P(keep) = 1 - rate, pure in (key words, index)."""
-    salt = _salt(words, 40503) & _MASK32
+    """Boolean keep mask of ``shape``; P(keep) = 1 - rate, pure in (key words,
+    index). ``offset`` is the flat position of element 0 in a larger tensor."""
+    salt = _shifted(_salt(words, 40503) & _MASK32, offset)
     bits = mix32_fast((_positions(shape, device) * GOLDEN + salt) & _MASK32)
     return bits >= dropout_threshold(rate)
 
 
 def hash_uniform_ints(
-    words: tp.Sequence[int], shape: tp.Sequence[int], low: int, high: int, device: tp.Optional[torch.device] = None
+    words: tp.Sequence[int],
+    shape: tp.Sequence[int],
+    low: int,
+    high: int,
+    device: tp.Optional[torch.device] = None,
+    offset: int = 0,
 ) -> torch.Tensor:
-    """int64 tensor of ``shape``, ~uniform on [low, high) (counter-hash draw)."""
-    salt = _salt(words, 48271) & _MASK32
+    """int64 tensor of ``shape``, ~uniform on [low, high) (counter-hash draw).
+    ``offset`` is the flat position of element 0 in a larger tensor."""
+    salt = _shifted(_salt(words, 48271) & _MASK32, offset)
     bits = fmix32((_positions(shape, device) * GOLDEN + salt) & _MASK32)
     return low + bits % (high - low)
 
@@ -82,6 +107,22 @@ def attach_generator(module: nn.Module, generator: torch.Generator) -> None:
             sub.dropout_generator = generator
 
 
+def set_batch_offset(module: nn.Module, rows: int) -> None:
+    """Tell every mask-drawing submodule of ``module`` (those with a
+    ``batch_offset`` attribute) that its inputs are rows ``rows...`` of the
+    global batch."""
+    for sub in module.modules():
+        if hasattr(sub, "batch_offset"):
+            sub.batch_offset = rows
+
+
+def shifted_attention_seed(seed: int, batch_offset: int, n_heads: int) -> int:
+    """The attention kernels salt batch·head row ``bh`` with ``seed + bh · 40503``;
+    this is the int32 seed that makes local row ``bh`` draw the mask of global
+    row ``batch_offset · n_heads + bh``."""
+    return _i32(seed + batch_offset * n_heads * 40503)
+
+
 class HashDropout(nn.Module):
     """``nn.Dropout`` counterpart backed by :func:`hash_keep_mask`."""
 
@@ -89,11 +130,13 @@ class HashDropout(nn.Module):
         super().__init__()
         self.rate = rate
         self.dropout_generator: tp.Optional[torch.Generator] = None
+        self.batch_offset = 0  # first row of the global batch this module sees
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        keep = hash_keep_mask(draw_key_words(self.dropout_generator), x.shape, self.rate, x.device)
+        offset = self.batch_offset * int(np.prod(x.shape[1:]))
+        keep = hash_keep_mask(draw_key_words(self.dropout_generator), x.shape, self.rate, x.device, offset)
         return torch.where(keep, x * (1.0 / (1.0 - self.rate)), torch.zeros_like(x))

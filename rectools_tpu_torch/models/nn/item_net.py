@@ -11,6 +11,14 @@ whole catalog:
   categorical one-hot indices becomes a gather plus ``index_add_`` over the
   CSR (item, feature) coordinates, followed by :class:`HashDropout`.
 - ``SumOfEmbeddingsConstructor`` sums the block outputs.
+
+Under a process mesh the two tables are column-sharded over the model axis
+when ``n_factors`` divides by its size (the JAX package's
+``_MODEL_SHARDED_PARAM_NAMES``): a rank owns ``(rows, n_factors / n_model)``
+columns of the table and of its Adam state. ``embed_catalog`` computes this
+rank's columns and all-gathers the others inside the model group; the
+backward keeps this rank's columns of the gradient, with no reduction,
+because the ranks of a model group see the same batch rows.
 """
 
 import typing as tp
@@ -22,11 +30,56 @@ from torch import nn
 
 from ...dataset.dataset import Dataset, DatasetSchema
 from ...dataset.features import SparseFeatures
+from ...parallel import collectives
+from ...parallel.mesh import MODEL_AXIS, ProcessMesh
 from .dropout import HashDropout
 
 
+def _column_range(n_columns: int, mesh: ProcessMesh) -> tp.Tuple[int, int]:
+    per_rank = n_columns // mesh.size(MODEL_AXIS)
+    start = mesh.index(MODEL_AXIS) * per_rank
+    return start, start + per_rank
+
+
+class _GatherColumns(torch.autograd.Function):
+    """(rows, d / n_model) on each rank of the model group -> (rows, d) on all."""
+
+    @staticmethod
+    def forward(ctx, local, mesh: ProcessMesh):  # type: ignore[override]
+        ctx.mesh = mesh
+        return torch.cat(collectives.all_gather(local, mesh.group(MODEL_AXIS)), dim=1)
+
+    @staticmethod
+    def backward(ctx, grad):  # type: ignore[override]
+        start, stop = _column_range(grad.shape[1], ctx.mesh)
+        return grad[:, start:stop].contiguous(), None
+
+
 class ItemNetBase(nn.Module):
-    """Base class for item towers. Subclasses implement ``embed_catalog``."""
+    """Base class for item towers. Subclasses implement ``embed_catalog``.
+    A block with an item-vocabulary table names it in ``table_name``."""
+
+    table_name: tp.Optional[str] = None
+    column_mesh: tp.Optional[ProcessMesh] = None  # set by shard_columns
+
+    def shard_columns(self, mesh: ProcessMesh) -> bool:
+        """Keep only this rank's columns of the block's table (a no-op, False,
+        when the block has none, the model axis has one rank or the width does
+        not divide)."""
+        n_model = mesh.size(MODEL_AXIS)
+        if self.table_name is None or n_model == 1 or self.column_mesh is not None:
+            return self.column_mesh is not None
+        table = getattr(self, self.table_name)
+        if table.weight.shape[1] % n_model != 0:
+            return False
+        start, stop = _column_range(table.weight.shape[1], mesh)
+        table.weight = nn.Parameter(table.weight.detach()[:, start:stop].clone())
+        self.column_mesh = mesh
+        return True
+
+    def _whole(self, local: torch.Tensor) -> torch.Tensor:
+        """All columns of a tensor computed from this rank's table columns."""
+        return local if self.column_mesh is None else _GatherColumns.apply(local, self.column_mesh)
 
     def embed_catalog(self) -> torch.Tensor:
         """Return (n_items, n_factors) embeddings for the full catalog."""
@@ -41,6 +94,8 @@ class ItemNetBase(nn.Module):
 class IdEmbeddingsItemNet(ItemNetBase):
     """Id-embedding block (reference item_net.py:236-331)."""
 
+    table_name = "ids_emb"
+
     def __init__(
         self, n_items: int, n_factors: int, dropout_rate: float, device: tp.Optional[torch.device] = None
     ) -> None:
@@ -51,7 +106,7 @@ class IdEmbeddingsItemNet(ItemNetBase):
         self.ids_emb = nn.Embedding(n_items, n_factors, device=device)
 
     def embed_catalog(self) -> torch.Tensor:
-        emb = self.ids_emb.weight
+        emb = self._whole(self.ids_emb.weight)
         return torch.cat([emb.new_zeros((1, emb.shape[1])), emb[1:]], dim=0)
 
     @classmethod
@@ -67,6 +122,8 @@ class CatFeaturesItemNet(ItemNetBase):
     feature values (reference item_net.py:60-233). ``feature_rows`` /
     ``feature_cols`` are the COO coordinates of the item categorical-feature
     CSR, kept as non-persistent buffers (they come from the dataset)."""
+
+    table_name = "cat_emb"
 
     def __init__(
         self,
@@ -94,7 +151,7 @@ class CatFeaturesItemNet(ItemNetBase):
     def embed_catalog(self) -> torch.Tensor:
         weight = self.cat_emb.weight
         out = weight.new_zeros((self.n_items, weight.shape[1]))
-        return self.dropout(out.index_add_(0, self.feature_rows, weight[self.feature_cols]))
+        return self.dropout(self._whole(out.index_add_(0, self.feature_rows, weight[self.feature_cols])))
 
     @staticmethod
     def _warn_for_unsupported_dataset_schema(dataset_schema: DatasetSchema) -> None:

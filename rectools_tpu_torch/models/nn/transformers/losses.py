@@ -24,28 +24,49 @@ import torch
 from ....ops.softmax_lse import softmax_ce_grads_from_z, streaming_lse
 
 
-def softmax_loss(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+CountReduce = tp.Optional[tp.Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _denominator(count: torch.Tensor, count_reduce: CountReduce) -> torch.Tensor:
+    """The count of contributing positions, at least 1. Under a process mesh a
+    rank holds a shard of the batch: ``count_reduce`` sums the count over the
+    shards, so each rank's value is its share of the one global loss and the
+    shares add up to it."""
+    if count_reduce is not None:
+        count = count_reduce(count)
+    return torch.clamp(count, min=1.0)
+
+
+def softmax_loss(
+    logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor, count_reduce: CountReduce = None
+) -> torch.Tensor:
     """CE over the catalog. logits (B, L, N); y (B, L) int targets; w (B, L) weights."""
     logprobs = torch.log_softmax(logits, dim=-1)
     ce = -torch.gather(logprobs, -1, y[..., None])[..., 0]
     ce = torch.where(y == 0, torch.zeros_like(ce), ce)
     loss = ce * w
     n = (loss > 0).to(loss.dtype)
-    return loss.sum() / torch.clamp(n.sum(), min=1.0)
+    return loss.sum() / _denominator(n.sum(), count_reduce)
 
 
-def bce_loss(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def bce_loss(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor, count_reduce: CountReduce = None) -> torch.Tensor:
     """BCE against 1 positive (index 0) + negatives. logits (B, L, 1 + n_neg)."""
     mask = (y != 0).to(logits.dtype)
     target = torch.zeros_like(logits)
     target[:, :, 0] = 1.0
     per_logit = torch.clamp(logits, min=0.0) - logits * target + torch.log1p(torch.exp(-logits.abs()))
     loss = per_logit.mean(dim=-1) * mask * w
-    return loss.sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss.sum() / _denominator(mask.sum(), count_reduce)
 
 
 def gbce_loss(
-    logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor, n_actual_items: int, n_negatives: int, gbce_t: float
+    logits: torch.Tensor,
+    y: torch.Tensor,
+    w: torch.Tensor,
+    n_actual_items: int,
+    n_negatives: int,
+    gbce_t: float,
+    count_reduce: CountReduce = None,
 ) -> torch.Tensor:
     """gBCE: reduce positive-logit overconfidence, then BCE."""
     alpha = n_negatives / (n_actual_items - 1)
@@ -58,32 +79,47 @@ def gbce_loss(
     pos_probs_adjusted = torch.clamp(pos_probs ** (-beta), 1 + epsilon, f32_max)
     pos_probs_adjusted = torch.clamp(1.0 / (pos_probs_adjusted - 1), epsilon, f32_max)
     calibrated = torch.cat([torch.log(pos_probs_adjusted), neg_logits], dim=-1)
-    return bce_loss(calibrated, y, w)
+    return bce_loss(calibrated, y, w, count_reduce)
 
 
-def sampled_softmax_loss(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def sampled_softmax_loss(
+    logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor, count_reduce: CountReduce = None
+) -> torch.Tensor:
     """Sampled softmax: positive moved to class index 1 (index 0 = ignore)."""
     swapped = torch.cat([logits[:, :, 1:2], logits[:, :, 0:1], logits[:, :, 2:]], dim=-1)
-    return softmax_loss(swapped, (y != 0).to(torch.int64), w)
+    return softmax_loss(swapped, (y != 0).to(torch.int64), w, count_reduce)
 
 
 def _ce_pieces(
-    s2: torch.Tensor, items: torch.Tensor, y_flat: torch.Tensor, w_flat: torch.Tensor, lse: torch.Tensor
+    s2: torch.Tensor,
+    items: torch.Tensor,
+    y_flat: torch.Tensor,
+    w_flat: torch.Tensor,
+    lse: torch.Tensor,
+    count_reduce: CountReduce = None,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Loss scalar + the per-position pieces both forward and backward need."""
     logit_y = (s2 * items[y_flat]).sum(dim=-1)
     ce = torch.where(y_flat == 0, torch.zeros_like(lse), lse - logit_y)
     weighted = ce * w_flat
-    denom = torch.clamp((weighted > 0).to(torch.float32).sum(), min=1.0)
+    denom = _denominator((weighted > 0).to(torch.float32).sum(), count_reduce)
     return weighted.sum() / denom, ce, denom
 
 
 def _ce_from_lse(
-    session_towers: torch.Tensor, item_towers: torch.Tensor, y: torch.Tensor, w: torch.Tensor, lse: torch.Tensor
+    session_towers: torch.Tensor,
+    item_towers: torch.Tensor,
+    y: torch.Tensor,
+    w: torch.Tensor,
+    lse: torch.Tensor,
+    count_reduce: CountReduce = None,
 ) -> torch.Tensor:
-    """Softmax CE from a given (B, L) logsumexp."""
+    """Softmax CE from a given (B, L) logsumexp, differentiated by autograd
+    through ``lse`` and the target logits (the mesh route of the fused loss)."""
     d = session_towers.shape[-1]
-    loss, _, _ = _ce_pieces(session_towers.reshape(-1, d), item_towers, y.reshape(-1), w.reshape(-1), lse.reshape(-1))
+    loss, _, _ = _ce_pieces(
+        session_towers.reshape(-1, d), item_towers, y.reshape(-1), w.reshape(-1), lse.reshape(-1), count_reduce
+    )
     return loss
 
 

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ....ops.attention import dot_product_attention
-from ..dropout import HashDropout, draw_attention_seed
+from ..dropout import HashDropout, draw_attention_seed, shifted_attention_seed
 
 MASK_VALUE = -1e9  # additive attention-bias "minus infinity"
 
@@ -36,6 +36,7 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = nn.Linear(n_factors, n_factors, device=device)
         self.out_proj = nn.Linear(n_factors, n_factors, device=device)
         self.dropout_generator: tp.Optional[torch.Generator] = None  # see dropout.attach_generator
+        self.batch_offset = 0  # see dropout.set_batch_offset
 
     def forward(
         self,
@@ -51,7 +52,9 @@ class MultiHeadAttention(nn.Module):
         v = self.v_proj(value).view(b, l, self.n_heads, head_dim)
         scale = 1.0 / float(head_dim) ** 0.5
         rate = self.dropout_rate if self.training else 0.0
-        seed = draw_attention_seed(self.dropout_generator) if rate > 0.0 else None
+        seed = None
+        if rate > 0.0:
+            seed = shifted_attention_seed(draw_attention_seed(self.dropout_generator), self.batch_offset, self.n_heads)
         out = dot_product_attention(q, k, v, attn_bias, scale, dropout_rate=rate, dropout_seed=seed)
         return self.out_proj(out.reshape(b, l, self.n_factors))
 

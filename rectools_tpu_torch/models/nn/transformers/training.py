@@ -17,10 +17,33 @@ hands to the backbone's dropout and attention modules, and reseeds for every
 step from ``(seed + 1, global_step)``, so a CPU and a CUDA run with the same
 seed draw the same masks (see ``models/nn/dropout.py``).
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh_shape``
-(multi-device), ``remat=True``, ``negatives_sharing="batch"`` and
-``compute_dtype="bfloat16"``; ``compute_dtype="auto"`` resolves to float32,
-as it does in the JAX package on every backend but the TPU.
+Mesh training (``mesh_shape=(n_data, n_model)``). The JAX package is one
+program over a device mesh and XLA places the collectives; here every rank of
+a ``torch.distributed`` world of ``n_data · n_model`` processes runs this
+module on the same dataset and seed, and the collectives are written out:
+
+- a rank takes the batch rows of its data coordinate (``_local_batch``), and
+  its dropout masks and device-drawn negatives are those rows of the global
+  batch's (``dropout.set_batch_offset``), so a mesh fit follows the
+  single-process fit up to summation order;
+- the item tables are column-sharded over the model group (``item_net.py``);
+- the full-catalog softmax loss row-shards the item tower over the model
+  group (``ops.softmax_lse.sharded_streaming_lse``: kernel 8 forward, kernel 9
+  or 10 + 11 backward), sums the session gradient and gathers the tower
+  gradient over that group;
+- there is one global loss: a rank's loss is its rows' sum over the global
+  count of contributing positions (summed over the data group only: the ranks
+  of a model group hold copies of the same rows), and parameter gradients are
+  summed, not averaged, over the data group, in one flat buffer per step that
+  also carries the loss value;
+- train and validation losses and ``val_recall@k`` are global values, equal
+  on every rank; ``get_state`` and the recommend paths see whole tables (they
+  gather the column shards, so every rank must call them together).
+
+Not ported yet, and refused with ``NotImplementedError``: ``remat=True``,
+``negatives_sharing="batch"`` and ``compute_dtype="bfloat16"``;
+``compute_dtype="auto"`` resolves to float32, as it does in the JAX package
+on every backend but the TPU.
 ``steps_per_dispatch`` is validated for config compatibility and otherwise
 unused: it never changes the trajectory in the JAX package, and the port
 dispatches step by step.
@@ -33,13 +56,26 @@ import numpy as np
 import torch
 
 from ....dataset.dataset import Dataset
+from ....ops.softmax_lse import sharded_streaming_lse
+from ....parallel import collectives
+from ....parallel.distributed import data_parallel_row_range, global_batch_to_local
+from ....parallel.mesh import DATA_AXIS, MODEL_AXIS, ProcessMesh, make_mesh
 from ....utils.device import full_f32_matmul, host_to_device
 from ...base import InternalRecoTriplet
 from ...rank import Distance, TorchRanker
-from ..dropout import attach_generator, draw_key_words, hash_uniform_ints
+from ..dropout import attach_generator, draw_key_words, hash_uniform_ints, set_batch_offset
+from ..item_net import ItemNetBase
 from .backbone import TransformerBackboneBase
 from .data_preparator import Batch, BatchLoader, TransformerDataPreparatorBase
-from .losses import bce_loss, fused_softmax_loss, gbce_loss, requires_negatives, sampled_softmax_loss, softmax_loss
+from .losses import (
+    _ce_from_lse,
+    bce_loss,
+    fused_softmax_loss,
+    gbce_loss,
+    requires_negatives,
+    sampled_softmax_loss,
+    softmax_loss,
+)
 from .negative_sampler import CatalogUniformSampler
 from .similarity import SimilarityModuleBase
 
@@ -119,19 +155,20 @@ class TransformerTrainingModuleBase:
             raise ValueError("negatives_sharing must be 'positionwise' or 'batch'")
         if compute_dtype not in ("auto", "float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be 'auto', 'float32' or 'bfloat16', got {compute_dtype}")
-        if mesh_shape is not None:
-            raise NotImplementedError("mesh_shape: multi-device training is not ported yet (ROADMAP.md, multi-device)")
         if remat:
-            raise NotImplementedError("remat=True is not ported yet (ROADMAP.md, remat and shared negatives)")
+            raise NotImplementedError("remat=True is not ported yet (ROADMAP.md §1, remat and shared negatives)")
         if negatives_sharing == "batch":
             raise NotImplementedError(
                 "negatives_sharing='batch' (shared negatives, rectools_tpu training.py:406-437) is not ported yet "
-                "(ROADMAP.md, remat and shared negatives)"
+                "(ROADMAP.md §1, remat and shared negatives)"
             )
         if compute_dtype == "bfloat16":
             raise NotImplementedError(
-                "compute_dtype='bfloat16' is not ported yet (ROADMAP.md, bf16 compute with tensor-core kernels)"
+                "compute_dtype='bfloat16' is not ported yet (ROADMAP.md §1, bf16 compute with tensor-core kernels)"
             )
+        self.mesh_shape = (int(mesh_shape[0]), int(mesh_shape[1])) if mesh_shape is not None else None
+        self._mesh: tp.Optional[ProcessMesh] = None
+        self._batch_offset = 0  # first row of the global batch this rank holds
         self.backbone = backbone.to(device).eval()
         self.device = device
         self.callbacks: tp.List["TrainingCallback"] = list(callbacks) if callbacks is not None else []
@@ -187,18 +224,21 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
         return torch.optim.Adam(self.backbone.parameters(), lr=self.lr, betas=self.adam_betas, eps=1e-8)
 
     def _loss_fn(self, logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The loss of this rank's rows over the global count of contributing
+        positions: the whole loss on one device, this rank's share under a mesh."""
+        count_reduce = self._count_reduce
         if self.loss == "softmax":
-            return softmax_loss(logits, y, w)
+            return softmax_loss(logits, y, w, count_reduce)
         if self.loss == "BCE":
-            return bce_loss(logits, y, w)
+            return bce_loss(logits, y, w, count_reduce)
         if self.loss == "gBCE":
             n_actual_items = self.backbone.item_model.n_items - len(self.item_extra_tokens)
             n_negatives = self.data_preparator.n_negatives
             if n_negatives is None:  # pragma: no cover
                 raise ValueError("`n_negatives` is not defined. Please ensure that `n_negatives` is set.")
-            return gbce_loss(logits, y, w, n_actual_items, n_negatives, self.gbce_t)
+            return gbce_loss(logits, y, w, n_actual_items, n_negatives, self.gbce_t, count_reduce)
         if self.loss == "sampled_softmax":
-            return sampled_softmax_loss(logits, y, w)
+            return sampled_softmax_loss(logits, y, w, count_reduce)
         return self._calc_custom_loss(logits, y, w)
 
     def _calc_custom_loss(self, logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -229,7 +269,8 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
         b, length = batch["y"].shape
         shape = (b, length, self.data_preparator.n_negatives)
         return hash_uniform_ints(
-            words, shape, len(self.item_extra_tokens), self.backbone.item_model.n_items, batch["y"].device
+            words, shape, len(self.item_extra_tokens), self.backbone.item_model.n_items, batch["y"].device,
+            offset=self._batch_offset * length * self.data_preparator.n_negatives,
         )
 
     def _candidates(
@@ -254,10 +295,94 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
         item_embs = self.backbone.item_model.embed_catalog()
         session_embs = self.backbone.encode_sessions(batch, item_embs)
         s_t, i_t = self.backbone.similarity_module.catalog_loss_towers(session_embs, item_embs)
-        return fused_softmax_loss(s_t.float() / self.logits_t, i_t.float(), batch["y"], batch["yw"])
+        s_t, i_t = s_t.float() / self.logits_t, i_t.float()
+        mesh = self._get_mesh()
+        if mesh is None:
+            return fused_softmax_loss(s_t, i_t, batch["y"], batch["yw"])
+        # data x model form: the item tower row-sharded over the model group,
+        # a streaming lse per shard, one (M,) merge; session rows stay with
+        # their data coordinate
+        b, length, d = s_t.shape
+        lse = sharded_streaming_lse(s_t.reshape(b * length, d), i_t, mesh, MODEL_AXIS, data_axis=DATA_AXIS)
+        return _ce_from_lse(s_t, i_t, batch["y"], batch["yw"], lse.reshape(b, length), self._count_reduce)
 
     def _device_batch(self, batch: Batch) -> tp.Dict[str, torch.Tensor]:
         return {k: host_to_device(v, self.device) for k, v in batch.items()}
+
+    # ---------------------------------------------------------------- sharding
+
+    def _get_mesh(self) -> tp.Optional[ProcessMesh]:
+        if self.mesh_shape is None:
+            return None
+        if self._mesh is None:
+            self._mesh = make_mesh(n_data=self.mesh_shape[0], n_model=self.mesh_shape[1])
+        return self._mesh
+
+    @property
+    def _data_group(self) -> tp.Any:
+        mesh = self._get_mesh()
+        return None if mesh is None else mesh.group(DATA_AXIS)
+
+    @property
+    def _count_reduce(self) -> tp.Optional[tp.Callable[[torch.Tensor], torch.Tensor]]:
+        group = self._data_group
+        return None if group is None else lambda count: collectives.all_reduce_sum(count, group)
+
+    def _shard_params(self) -> None:
+        """Column-shard the item-vocabulary tables over the model group (see
+        ``item_net.py``); everything else is replicated. The optimizer is made
+        after this, so its state follows the shards."""
+        mesh = self._get_mesh()
+        if mesh is not None:
+            for block in self.backbone.modules():
+                if isinstance(block, ItemNetBase):
+                    block.shard_columns(mesh)
+
+    def _sharded_tables(self) -> tp.Iterator[tp.Tuple[str, ItemNetBase]]:
+        """(state_dict key, block) of every column-sharded table."""
+        for name, block in self.backbone.named_modules():
+            if isinstance(block, ItemNetBase) and block.column_mesh is not None:
+                yield f"{name}.{block.table_name}.weight", block
+
+    def full_state_dict(self) -> tp.Dict[str, torch.Tensor]:
+        """The backbone ``state_dict`` with whole tables: the column shards
+        are gathered over the model group, so under a mesh with ``n_model > 1``
+        every rank must call it together."""
+        state = dict(self.backbone.state_dict())
+        for key, block in self._sharded_tables():
+            parts = collectives.all_gather(state[key], block.column_mesh.group(MODEL_AXIS))
+            state[key] = torch.cat(parts, dim=1)
+        return state
+
+    def _local_batch(self, batch: Batch) -> Batch:
+        """This rank's rows of a global host batch, and the matching offset for
+        every mask-drawing module of the session encoder (the item tower's
+        masks cover the whole catalog on every rank)."""
+        mesh = self._get_mesh()
+        if mesh is None:
+            return batch
+        start, _ = data_parallel_row_range(batch["x"].shape[0], mesh)
+        if start != self._batch_offset:
+            self._batch_offset = start
+            set_batch_offset(self.backbone, start)
+            set_batch_offset(self.backbone.item_model, 0)
+        return global_batch_to_local(batch, mesh)
+
+    def _sum_over_data_group(self, loss: torch.Tensor) -> torch.Tensor:
+        """Sum every parameter gradient, and this rank's share of the loss,
+        over the data group: one flat buffer, one all-reduce. A sum, not a
+        mean: each share is already divided by the global count."""
+        group = self._data_group
+        if group is None:
+            return loss.detach()
+        grads = [p.grad for p in self.backbone.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+        collectives.all_reduce_sum(flat, group)
+        start = 0
+        for g in grads:
+            g.copy_(flat[start : start + g.numel()].view_as(g))
+            start += g.numel()
+        return flat[-1]
 
     def _train_step(self, batch: tp.Dict[str, torch.Tensor]) -> torch.Tensor:
         """One optimizer step; returns the loss as a device scalar."""
@@ -271,9 +396,10 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
                 loss = self._loss_fn(self._batch_logits(batch, neg_words), batch["y"], batch["yw"])
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            loss = self._sum_over_data_group(loss)
             self.optimizer.step()
         self.global_step += 1
-        return loss.detach()
+        return loss
 
     def _val_step(
         self,
@@ -309,11 +435,19 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
         """Xavier-normal init from ``seed`` and a fresh optimizer (the port's
         parameter shapes, unlike flax's, need no sample batch)."""
         _xavier_normal_reinit(self.backbone, torch.Generator().manual_seed(self.seed))
+        self._shard_params()
         self.optimizer = self._make_optimizer()
 
     def load_params(self, state_dict: tp.Mapping[str, torch.Tensor]) -> None:
         """Start training from given parameters (a backbone ``state_dict``, e.g.
-        from ``flax_params_to_state_dict``) with a fresh optimizer."""
+        from ``flax_params_to_state_dict``) with a fresh optimizer. Under a
+        mesh the tables come whole and each rank keeps its columns."""
+        self._shard_params()
+        state_dict = dict(state_dict)
+        for key, block in self._sharded_tables():
+            width = state_dict[key].shape[1] // block.column_mesh.size(MODEL_AXIS)
+            start = block.column_mesh.index(MODEL_AXIS) * width
+            state_dict[key] = state_dict[key][:, start : start + width]
         self.backbone.load_state_dict(state_dict, strict=True)
         self.optimizer = self._make_optimizer()
 
@@ -340,7 +474,7 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
             logs: tp.Dict[str, float] = {}
             # losses stay on the device until the epoch closes: no sync per step
             epoch_losses = [
-                self._train_step(self._device_batch(pad_batch(batch, train_loader.batch_size)))
+                self._train_step(self._device_batch(self._local_batch(pad_batch(batch, train_loader.batch_size))))
                 for batch in train_loader
             ]
             if epoch_losses:
@@ -365,7 +499,7 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
         losses, hits, totals = [], [], []
         with torch.no_grad(), full_f32_matmul():
             for vi, batch in enumerate(val_loader):
-                batch = pad_batch(batch, val_loader.batch_size)
+                batch = self._local_batch(pad_batch(batch, val_loader.batch_size))
                 neg_words = None
                 if self._requires_negatives and "negatives" not in batch:
                     neg_words = draw_key_words(torch.Generator().manual_seed(_stream_seed(self.seed + 3, vi)))
@@ -374,13 +508,20 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
                 if recall is not None:
                     hits.append(recall[0])
                     totals.append(recall[1])
+        # under a mesh: the ranks' shares of each batch's loss, and their hit
+        # and row counts, summed over the data group
+        group = self._data_group
         if losses:
-            self.val_loss_history.append(float(torch.stack(losses).mean()))
+            self.val_loss_history.append(float(collectives.all_reduce_sum(torch.stack(losses), group).mean()))
             logs[self.val_loss_name] = self.val_loss_history[-1]
-        recall_total = float(torch.stack(totals).sum()) if totals else 0.0
+        counts = None
+        if totals:
+            counts = torch.stack([torch.stack(hits).sum(), torch.stack(totals).sum()])
+            counts = collectives.all_reduce_sum(counts, group)
+        recall_total = float(counts[1]) if counts is not None else 0.0
         if self.val_recall_k is not None and recall_total > 0:
             name = f"val_recall@{self.val_recall_k}"
-            value = float(torch.stack(hits).sum()) / recall_total
+            value = float(counts[0]) / recall_total
             self.val_metric_history.setdefault(name, []).append(value)
             logs[name] = value
 
@@ -456,9 +597,11 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
     # ------------------------------------------------------------------- state
 
     def get_state(self) -> tp.Dict[str, tp.Any]:
-        """Parameters (CPU copies), optimizer state and counters."""
+        """Parameters (CPU copies, whole tables), optimizer state and counters.
+        Under a mesh every rank calls it together; the optimizer state of a
+        column-sharded table stays this rank's shard."""
         return {
-            "params": {k: v.detach().cpu().clone() for k, v in self.backbone.state_dict().items()},
+            "params": {k: v.detach().cpu().clone() for k, v in self.full_state_dict().items()},
             "opt_state": copy.deepcopy(self.optimizer.state_dict()) if self.optimizer is not None else None,
             "epochs_completed": self.epochs_completed,
             "global_step": self.global_step,

@@ -41,6 +41,10 @@ LAUNCHES: tp.Dict[str, int] = {
     "lse_fwd": 0,
     "ce_grads_ds": 0,
     "ce_grads_di": 0,
+    "lse_bias_fwd": 0,
+    "lse_bwd_fused": 0,
+    "lse_bwd_ds": 0,
+    "lse_bwd_di": 0,
     "stu_fwd": 0,
     "stu_bwd": 0,
     "stu_ds": 0,

@@ -39,6 +39,9 @@ def _imported_modules(path: Path) -> set:
 def test_port_imports_no_jax_and_nothing_of_the_jax_package() -> None:
     sources = sorted((REPO / "rectools_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 20
+    assert {"mesh.py", "distributed.py", "collectives.py", "launch.py"} <= {
+        path.name for path in sources if path.parent.name == "parallel"
+    }
     offenders = {}
     for path in sources:
         bad = {
@@ -307,6 +310,62 @@ def test_cuda_streaming_lse_and_ce_grads_match_twin(cuda: torch.device, m: int, 
     ref_ds, ref_di = softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff)
     for got, ref in ((ds, ref_ds), (di, ref_di)):
         assert torch.isfinite(got).all()
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["fused", "split"])
+@pytest.mark.parametrize(
+    "m,n,d,n_invalid", [(51, 300, 32, 7), (1000, 2111, 128, 1), (64, 64, 16, 64), (200, 4200, 64, 0), (130, 77, 256, 3)]
+)
+def test_cuda_biased_lse_and_its_vjp_match_twins(
+    cuda: torch.device, monkeypatch: pytest.MonkeyPatch, m: int, n: int, d: int, n_invalid: int, route: str
+) -> None:
+    """Kernels 8 and 9 (or 10 + 11 with the budget forced to 0) against their
+    twins: a bias with -1e30 rows (a whole invalid shard included), ragged
+    tiles, a mixed-sign cotangent."""
+    rng = np.random.default_rng(n + m)
+    s = _t((0.3 * rng.normal(size=(m, d))).astype(np.float32)).to(cuda)
+    items = _t((0.3 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+    bias = torch.zeros(n, device=cuda)
+    if n_invalid:
+        bias[n - n_invalid :] = softmax_lse.NEG_BIG
+    dlse = _t(rng.normal(size=m).astype(np.float32)).to(cuda)
+    before = dict(_native.LAUNCHES)
+    lse = softmax_lse.streaming_lse_fwd(s, items, bias)
+    assert _native.LAUNCHES["lse_bias_fwd"] == before["lse_bias_fwd"] + 1
+    assert torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, softmax_lse.streaming_lse_bias_reference(s, items, bias), atol=1e-6, rtol=1e-5)
+    if not n_invalid:  # an all-zero bias is kernel 6's result, bit for bit
+        assert torch.equal(lse, softmax_lse.streaming_lse_fwd(s, items))
+    if route == "split":
+        monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 0)
+    ds, di = softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)
+    launched = {k: _native.LAUNCHES[k] - before[k] for k in ("lse_bwd_fused", "lse_bwd_ds", "lse_bwd_di")}
+    assert launched == ({"lse_bwd_fused": 1, "lse_bwd_ds": 0, "lse_bwd_di": 0} if route == "fused"
+                        else {"lse_bwd_fused": 0, "lse_bwd_ds": 1, "lse_bwd_di": 1})
+    ref_ds, ref_di = softmax_lse.streaming_lse_bwd_reference(s, items, bias, lse, dlse)
+    for got, ref in ((ds, ref_ds), (di, ref_di)):
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    if 0 < n_invalid < n:  # an invalid row's gradient is exactly 0
+        assert not di[n - n_invalid :].any()
+    again = softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)
+    assert torch.equal(again[0], ds) and torch.equal(again[1], di)  # no atomics: the same bits
+
+
+@pytest.mark.gpu
+def test_cuda_streaming_lse_autograd_matches_cpu(cuda: torch.device) -> None:
+    rng = np.random.default_rng(5)
+    s_np = (0.3 * rng.normal(size=(300, 64))).astype(np.float32)
+    i_np = (0.3 * rng.normal(size=(2500, 64))).astype(np.float32)
+    g_np = rng.normal(size=300).astype(np.float32)
+    grads = {}
+    for dev in (torch.device("cpu"), cuda):
+        s, items = _t(s_np).to(dev).requires_grad_(True), _t(i_np).to(dev).requires_grad_(True)
+        (softmax_lse.streaming_lse(s, items) * _t(g_np).to(dev)).sum().backward()
+        grads[dev.type] = (s.grad.cpu(), items.grad.cpu())
+    for got, ref in zip(grads["cuda"], grads["cpu"]):
         assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 

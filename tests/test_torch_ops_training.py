@@ -169,10 +169,122 @@ def test_streaming_lse_matches_jax(m: int, n: int) -> None:
 
 def test_streaming_lse_refuses_unported_routes() -> None:
     s = _t(np.zeros((4, 16), np.float32))
-    with pytest.raises(NotImplementedError, match="kernel 8"):
-        softmax_lse.streaming_lse(s, s, row_bias=_t(np.zeros(4, np.float32)))
+    # a row bias is ported (kernel 8): an all-zero bias changes nothing
+    np.testing.assert_array_equal(
+        softmax_lse.streaming_lse(s, s, row_bias=_t(np.zeros(4, np.float32))).numpy(),
+        softmax_lse.streaming_lse(s, s).numpy(),
+    )
     with pytest.raises(NotImplementedError, match="kernel 16"):
         softmax_lse.streaming_lse(s, s, bounded_shift=True)
+
+
+def _biased_case(m: int, n: int, d: int, invalid: str):
+    """Inputs of the biased lse: ``invalid`` rows carry -1e30 ("tail": the last
+    5, "scattered": every seventh, "all": a shard with no valid row)."""
+    rng, s, items = _lse_inputs(m, n, d, seed=7 * m + n)
+    bias = np.zeros(n, np.float32)
+    if invalid == "tail":
+        bias[-5:] = -1e30
+    elif invalid == "scattered":
+        bias[::7] = -1e30
+    elif invalid == "all":
+        bias[:] = -1e30
+    dlse = rng.normal(size=m).astype(np.float32)  # mixed sign
+    dlse[::6] = 0.0
+    return s, items, bias, dlse
+
+
+BIASED_CASES = [(50, 300, 32, "tail"), (64, 129, 16, "scattered"), (33, 70, 32, "none"), (20, 40, 16, "all")]
+
+
+@pytest.mark.parametrize("m,n,d,invalid", BIASED_CASES)
+def test_streaming_lse_with_bias_matches_jax(m: int, n: int, d: int, invalid: str) -> None:
+    """Kernel 8's twin against the JAX biased kernel in interpret mode, 1e-5 relative."""
+    s, items, bias, _ = _biased_case(m, n, d, invalid)
+    expected = np.asarray(
+        jax_softmax_lse.streaming_lse(jnp.asarray(s), jnp.asarray(items), jnp.asarray(bias), 16, 64, True)
+    )
+    got = softmax_lse.streaming_lse(_t(s), _t(items), _t(bias)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, expected, rtol=1e-5, atol=1e-6)
+    small = softmax_lse.streaming_lse_bias_reference(_t(s), _t(items), _t(bias), chunk=7).numpy()
+    np.testing.assert_allclose(small, expected, rtol=1e-5, atol=1e-6)
+    if invalid == "all":  # -1e30 + log(count): finite, never NaN or inf
+        np.testing.assert_array_equal(got, np.full(m, -1e30, np.float32))
+
+
+@pytest.mark.parametrize("route", ["fused", "split"])
+@pytest.mark.parametrize("m,n,d,invalid", BIASED_CASES)
+def test_streaming_lse_vjp_matches_jax(monkeypatch, m: int, n: int, d: int, invalid: str, route: str) -> None:
+    """The generic VJP (kernel 9's twin, or 10 + 11's with the partials budget
+    forced to 0, as tests/ops/test_softmax_lse.py does for JAX) against
+    ``jax.grad`` of the JAX kernel, 1e-5 of each output's largest entry."""
+    s, items, bias, dlse = _biased_case(m, n, d, invalid)
+    if route == "split":
+        monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 0)
+        monkeypatch.setattr(jax_softmax_lse, "_FUSED_BWD_PARTIALS_BUDGET", 0)
+    with_bias = invalid != "none"
+
+    def value(s_, i_):
+        lse = jax_softmax_lse.streaming_lse(s_, i_, jnp.asarray(bias) if with_bias else None, 16, 64, True)
+        return jnp.sum(lse * dlse)
+
+    eds, edi = jax.grad(value, argnums=(0, 1))(jnp.asarray(s), jnp.asarray(items))
+    ts, ti = _t(s, True), _t(items, True)
+    lse = softmax_lse.streaming_lse(ts, ti, _t(bias) if with_bias else None)
+    (lse * _t(dlse)).sum().backward()
+    np.testing.assert_allclose(ts.grad.numpy(), np.asarray(eds), atol=1e-5 * max(np.abs(eds).max(), 1e-30))
+    np.testing.assert_allclose(ti.grad.numpy(), np.asarray(edi), atol=1e-5 * max(np.abs(edi).max(), 1e-30))
+    if invalid in ("tail", "scattered"):  # an invalid row's gradient is exactly 0
+        assert not ti.grad.numpy()[bias < 0].any()
+
+
+def test_streaming_lse_vjp_routes_agree(monkeypatch) -> None:
+    """Fused (one ds partial per chunk, summed at the end) against split (a
+    running sum): the twins keep the kernels' two summation orders."""
+    s, items, bias, dlse = _biased_case(70, 5000, 32, "tail")
+    lse = softmax_lse.streaming_lse_fwd(_t(s), _t(items), _t(bias))
+    fused = softmax_lse.streaming_lse_bwd(_t(s), _t(items), _t(bias), lse, _t(dlse))
+    monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 0)
+    split = softmax_lse.streaming_lse_bwd(_t(s), _t(items), _t(bias), lse, _t(dlse))
+    for got, expected in zip(fused, split):
+        np.testing.assert_allclose(got.numpy(), expected.numpy(), atol=1e-5 * expected.abs().max().item())
+    # above the budget the plan says split: a catalog of 2M items at the training width
+    assert softmax_lse.fused_bwd_plan(51200, 2_000_000, 128, 132)[2] > 512 * 1024 * 1024
+    plan = softmax_lse.fused_bwd_plan(51200, 15872, 128, 132)  # 8 chunks x 32 groups: 256 blocks, 2 per SM
+    assert plan == (25, 32, (8 * 51200 + 32 * 15872) * 128 * 4) and plan[2] <= 512 * 1024 * 1024
+
+
+def test_streaming_lse_bias_gets_no_gradient() -> None:
+    s, items, bias, _ = _biased_case(8, 20, 16, "tail")
+    with pytest.raises(ValueError, match="constant validity mask"):
+        softmax_lse.streaming_lse(_t(s, True), _t(items), _t(bias, True))
+
+
+@pytest.mark.parametrize("offset_rows", [0, 3, 17])
+def test_hash_masks_of_a_batch_shard_are_rows_of_the_global_mask(offset_rows: int) -> None:
+    """A rank holding rows [b0, b0 + b) draws those rows of the global mask:
+    dropout, device negatives and the attention mask."""
+    words, shape, b = (123456789, -987654321), (24, 5, 7), 4
+    inner = 5 * 7
+    full = dropout.hash_keep_mask(words, shape, 0.3)
+    part = dropout.hash_keep_mask(words, (b, 5, 7), 0.3, offset=offset_rows * inner)
+    assert torch.equal(part, full[offset_rows : offset_rows + b])
+    full_ints = dropout.hash_uniform_ints(words, shape, 1, 301)
+    part_ints = dropout.hash_uniform_ints(words, (b, 5, 7), 1, 301, offset=offset_rows * inner)
+    assert torch.equal(part_ints, full_ints[offset_rows : offset_rows + b])
+    seed, heads, length = 2**31 - 5, 2, 6
+    full_attn = attention.dropout_keep_mask(seed, 24, heads, length, 0.2)
+    shifted = dropout.shifted_attention_seed(seed, offset_rows, heads)
+    assert -(2**31) <= shifted < 2**31
+    part_attn = attention.dropout_keep_mask(shifted, b, heads, length, 0.2)
+    assert torch.equal(part_attn, full_attn[offset_rows : offset_rows + b])
+    layer = dropout.HashDropout(0.3).train()
+    layer.dropout_generator = torch.Generator().manual_seed(1)
+    whole = layer(torch.ones(shape))
+    layer.dropout_generator = torch.Generator().manual_seed(1)
+    dropout.set_batch_offset(layer, offset_rows)
+    assert torch.equal(layer(torch.ones((b, 5, 7))), whole[offset_rows : offset_rows + b])
 
 
 @pytest.mark.parametrize("m,n", [(50, 300), (64, 129)])

@@ -98,13 +98,17 @@ def test_recommend_to_items_matches_jax(models) -> None:
 
 
 def test_fit_is_not_ported_yet() -> None:
-    """fit is ported; what is not yet (multi-device, bf16 compute) raises."""
+    """fit is ported; what is not yet (bf16 compute) raises, and a mesh needs
+    a world of n_data * n_model processes, which one process is not."""
     df = _frame()
     model = SASRecModel(**CONFIG, epochs=1, batch_size=32, device="cpu").fit(Dataset.construct(df))
     assert model.is_fitted and np.isfinite(model.training_module.train_loss_history).all()
-    for kwargs in ({"mesh_shape": (2, 2)}, {"compute_dtype": "bfloat16"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            SASRecModel(**CONFIG, training_module_kwargs=kwargs, device="cpu").fit(Dataset.construct(df))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        SASRecModel(**CONFIG, training_module_kwargs={"compute_dtype": "bfloat16"}, device="cpu").fit(
+            Dataset.construct(df)
+        )
+    with pytest.raises(ValueError, match="must equal the world size 1"):
+        SASRecModel(**CONFIG, training_module_kwargs={"mesh_shape": (2, 2)}, device="cpu").fit(Dataset.construct(df))
 
 
 @pytest.mark.parametrize("session_max_len,n_factors,n_heads", [(100, 128, 4), (200, 256, 8), (1000, 64, 2)])
