@@ -16,7 +16,15 @@ own lines; any failure exits nonzero and prints no result:
              width (B = 512, L = 100, d = 128, 4 heads, 15,872 items, dropout
              0.2): LayerNorm backward, attention forward with dropout (its
              keep bits checked for equality with the twin's mask) and
-             backward, the streaming logsumexp and the fused CE gradients.
+             backward; the streaming logsumexp three ways (kernel 6's
+             per-chunk partials, kernel 15's running max, kernel 16's fixed
+             shift at these inputs and scaled so that window 2 serves the
+             rows, with the share of rows in each window); the softmax
+             gradients from z (kernel 12, bit-equal on a rerun; kernels 13 +
+             14 at 15,872, at the odd catalog and at 131,072 items); the
+             fused CE gradients (kernel 7); at 51,200 x 131,072 the CE
+             gradients' very-large-catalog route against kernel 7 on the same
+             inputs, bit-equal on a rerun.
 4. main    — SASRecModel serving at the KION width: a synthetic KION-shaped
              frame (8,192 users, sessions of 1-300 Zipf-drawn items over
              15,871 ids) -> Dataset.construct -> load_jax_params with random
@@ -76,6 +84,17 @@ own lines; any failure exits nonzero and prints no result:
              single-process fit of the same batches within LOSS_RTOL and
              PARAM_ATOL. The ranks share one card and talk through gloo with
              host staging, so their step time says nothing of a real mesh.
+9. lse doors — ``ops``: ``streaming_lse(..., bounded_shift=True)`` with its
+             backward (kernels 16 and 9) and ``softmax_grads_from_z`` (kernel
+             12) as a user calls them, at the training width. ``classic
+             forward``: two KION train steps with ``USE_PARTIALS_FWD = False``
+             (kernel 15 once a step, kernel 6 never), losses within LOSS_RTOL
+             of the default's from the same start. ``large fit``: SASRecModel
+             fit at the training width on a 131,072-row catalog (the frame
+             with 131,071 item ids), 2 epochs: kernels 6, 13 and 14 once a
+             step and kernel 7 never, finite falling losses, validation loss
+             and recall, train examples/s over epoch 2, peak memory, one
+             profiled step, and one step's loss gradients against the twins.
 
 Output, last lines: one JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -112,6 +131,8 @@ CE_RTOL = 1e-4  # relative to the largest entry of ds and of di
 LOSS_RTOL, PARAM_ATOL = 1e-4, 1e-4  # GPU vs CPU training
 AGREE_SESSIONS, AGREE_STEPS = 64, 3
 RAGGED_N = N_ITEM_IDS + 1 - 37  # an odd catalog: every item tile of kernels 6 and 7 leaves a tail
+LARGE_N_ITEM_IDS = 131071  # + PAD = 131,072 rows: past the 81,920 items at which the CE gradients leave kernel 7
+SHIFT_WINDOW2_SCALE = 2.5  # scales sessions and items so that kernel 16's bound gap (~11) grows to ~70: window 2
 MESH_4 = (2, 2)  # the four-rank mesh; its model axis cuts the odd catalog into 7,918 + 7,917 rows
 MESH_RANK_TIMEOUT_S = 420.0
 STU_FWD_TOL, STU_GRAD_TOL = 1e-5, 1e-4  # absolute, times the twin's largest entry where that is above 1
@@ -327,42 +348,157 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     del q, k, v, dout, out, lse, ref_out, ref_lse, zeros, kept, mask, qg, kg, vg, out_lib, delta, got, ref
     torch.cuda.empty_cache()
 
-    # kernels 6 and 7: session towers (B*L, d) against the 15,872-row item table
+    # kernels 6, 15, 16, 12-14 and 7: session towers (B*L, d) against the 15,872-row item table
     s = torch.randn((m, d), generator=gen, device=dev)
     items = 0.1 * torch.randn((n, d), generator=gen, device=dev)
-    lse = softmax_lse.streaming_lse(s, items)
-    ref = softmax_lse.streaming_lse_reference(s, items)
-    rel = ((lse - ref).abs() / ref.abs()).max().item()
-    check(rel <= LSE_RTOL, f"streaming lse disagrees with its twin: max relative err {rel}")
     products = 2 * m * n * d
-    results["lse_fwd"] = dict(
-        max_abs_err=(lse - ref).abs().max().item(),
-        ms=time_ms(lambda: softmax_lse.streaming_lse(s, items), iters=5),
-        plain_ms=time_ms(lambda: softmax_lse.streaming_lse_reference(s, items), iters=3),
-        library_ms=time_ms(lambda: torch.logsumexp(s @ items.T, dim=1), iters=3),
-        bound=bound_ms((m * d + n * d + m) * 4, products),
-    )
+    lse_library_ms = time_ms(lambda: torch.logsumexp(s @ items.T, dim=1), iters=3)
+    forwards = {}
+    for name, partials, twin in (("lse_partials_fwd", True, softmax_lse.streaming_lse_partials_reference),
+                                 ("lse_fwd", False, softmax_lse.streaming_lse_reference)):
+        softmax_lse.USE_PARTIALS_FWD = partials
+        forwards[name] = softmax_lse.streaming_lse(s, items)
+        ref = twin(s, items)
+        rel = ((forwards[name] - ref).abs() / ref.abs()).max().item()
+        check(rel <= LSE_RTOL, f"{name} disagrees with its twin: max relative err {rel}")
+        # both forwards again on an odd catalog, where the last item tile leaves a tail (checked, not timed)
+        got_ragged, ref_ragged = softmax_lse.streaming_lse(s, items[:RAGGED_N]), twin(s, items[:RAGGED_N])
+        rel_ragged = ((got_ragged - ref_ragged).abs() / ref_ragged.abs()).max().item()
+        check(rel_ragged <= LSE_RTOL, f"{name} at N={RAGGED_N} disagrees with its twin: {rel_ragged}")
+        results[name] = dict(
+            max_abs_err=(forwards[name] - ref).abs().max().item(),
+            ms=time_ms(lambda: softmax_lse.streaming_lse(s, items), iters=5),
+            plain_ms=time_ms(lambda: twin(s, items), iters=3),
+            library_ms=lse_library_ms,
+            bound=bound_ms((m * d + n * d + m) * 4, products),
+        )
+    softmax_lse.USE_PARTIALS_FWD = True
+    lse = forwards["lse_partials_fwd"]
+    between = ((lse - forwards["lse_fwd"]).abs() / forwards["lse_fwd"].abs()).max().item()
+    check(between <= LSE_RTOL, f"kernels 6 and 15 differ by {between} relative")
+    print(f"train kernels: kernels 6 and 15 agree to {between:.3g} relative; at N={RAGGED_N} both within "
+          f"{LSE_RTOL} of their twins")
+
+    # kernel 16 at the scale of these inputs, then scaled so that window 2 serves the rows
+    for tag, scale in (("", 1.0), ("_window_2", SHIFT_WINDOW2_SCALE)):
+        ss, ii = s * scale, items * scale
+        got = softmax_lse.streaming_lse(ss, ii, bounded_shift=True)
+        ref = softmax_lse.streaming_lse_shift_reference(ss, ii)
+        exact = lse if scale == 1.0 else softmax_lse.streaming_lse(ss, ii)
+        rel = max(((got - r).abs() / r.abs()).max().item() for r in (ref, exact))
+        check(bool(torch.isfinite(got).all()) and rel <= LSE_RTOL,
+              f"lse_shift_fwd at scale {scale} disagrees with its twin or with kernel 6: {rel}")
+        shift, l_sum, _ = softmax_lse.lse_shift_sums(ss, ii)
+        gap = shift - (ss @ ii.T).max(dim=1).values
+        window_1 = (l_sum >= softmax_lse.WINDOW1_FLOOR).float().mean().item()
+        check(window_1 >= 0.99 if scale == 1.0 else window_1 <= 0.01,
+              f"kernel 16 at scale {scale}: window 1 serves {window_1} of the rows")
+        print(f"train kernels: lse_shift_fwd at scale {scale}: rows in window 1 {window_1:.4f}, in window 2 "
+              f"{1 - window_1:.4f}; bound gap min {gap.min().item():.1f} median {gap.median().item():.1f} max "
+              f"{gap.max().item():.1f}; max relative err against its twin and kernel 6 {rel:.3g}")
+        results[f"lse_shift_fwd{tag}"] = dict(
+            max_abs_err=(got - ref).abs().max().item(),
+            ms=time_ms(lambda: softmax_lse.streaming_lse(ss, ii, bounded_shift=True), iters=5),
+            plain_ms=time_ms(lambda: softmax_lse.streaming_lse_shift_reference(ss, ii), iters=3),
+            library_ms=time_ms(lambda: torch.logsumexp(ss @ ii.T, dim=1), iters=3),
+            bound=bound_ms((m * d + n * d + 2 * m) * 4, products),
+        )
+        del ss, ii, got, ref, exact, shift, l_sum, gap
+    torch.cuda.empty_cache()
+
     y = torch.randint(1, n, (m,), generator=gen, device=dev)
-    y[torch.rand((m,), generator=gen, device=dev) < 0.2] = 0  # PAD targets
+    pad = torch.rand((m,), generator=gen, device=dev) < 0.2  # PAD targets
+    y[pad] = 0
     coeff = (y != 0).float() / (y != 0).sum()
     z = lse - torch.log(coeff)  # +inf on PAD rows
+
+    # kernel 12: both softmax gradients from z in one pass (its partials fit the budget here)
+    plan = softmax_lse.fused_bwd_plan(m, n, d, torch.cuda.get_device_properties(dev).multi_processor_count
+                                      if dev.type == "cuda" else 132)
+    check(plan[2] <= softmax_lse.FUSED_BWD_PARTIALS_BUDGET, f"kernel 12's partials {plan[2]} pass the budget")
+    got = softmax_lse.softmax_grads_from_z(s, items, z)
+    ref = softmax_lse.softmax_grads_from_z_reference(s, items, z, partials=True)
+    rel = max(_max_rel(g, r) for g, r in zip(got, ref))
+    check(rel <= CE_RTOL and not bool(got[0][pad].any()),
+          f"grads_z_fused disagrees with its twin ({rel} of the largest entry) or a z = +inf row is not 0")
+    again = softmax_lse.softmax_grads_from_z(s, items, z)
+    check(all(bool(torch.equal(a, g)) for a, g in zip(again, got)), "grads_z_fused: a second run gave other bits")
+
+    def materialized(want_ds: bool = True, want_di: bool = True, s_=s, items_=items, z_=z) -> tuple:
+        """P = exp(s @ itemsᵀ − z) in device memory, then its products."""
+        p = (s_ @ items_.T).sub_(z_[:, None]).exp_()
+        return (p @ items_ if want_ds else None), (p.T @ s_ if want_di else None)
+
+    vectors = m * 4
+    results["grads_z_fused"] = dict(
+        max_abs_err=max((g - r).abs().max().item() for g, r in zip(got, ref)),
+        ms=time_ms(lambda: softmax_lse.softmax_grads_from_z(s, items, z), iters=3),
+        plain_ms=time_ms(lambda: softmax_lse.softmax_grads_from_z_reference(s, items, z), iters=3),
+        library_ms=time_ms(materialized, iters=3),
+        bound=bound_ms((2 * m * d + 2 * n * d) * 4 + vectors, 3 * products),
+    )
+    print(f"train kernels: grads_z_fused bit-equal on a second run; partials {plan[2] / 2**20:.0f} MiB, "
+          f"{plan[1]} session groups of {plan[0]} tiles")
+    del got, ref, again
+
+    # kernels 13 + 14 with the budget forced to 0, at 15,872 items and at the odd catalog
+    budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
+    lib = softmax_lse._native.load("softmax_lse", softmax_lse._SIGNATURES) if dev.type == "cuda" else None
+
+    def split_pair(rows, z_, tag: str, timed: bool) -> None:
+        """Kernels 13 + 14 against their twin (the split order); each kernel
+        timed alone through the library handle."""
+        softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 0
+        got_ = softmax_lse.softmax_grads_from_z(s, rows, z_)
+        softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+        ref_ = softmax_lse.softmax_grads_from_z_reference(s, rows, z_, partials=False)
+        errs = [_max_rel(g, r) for g, r in zip(got_, ref_)]
+        check(max(errs) <= CE_RTOL, f"grads_z_ds / grads_z_di at N={rows.shape[0]} disagree with their twin: {errs}")
+        if not timed:
+            return
+        n_rows = rows.shape[0]
+        plain = time_ms(lambda: softmax_lse.softmax_grads_from_z_reference(s, rows, z_, partials=False),
+                        iters=1 if tag else 3, warmup=0 if tag else 2)
+        out_ds, out_di = torch.empty_like(s), torch.empty_like(rows)
+        ds_ms = di_ms = 0.0
+        if lib is not None:
+            stream = softmax_lse._native.current_stream_ptr(s.device)
+            args = (s.data_ptr(), rows.data_ptr(), z_.data_ptr())
+            ds_ms = time_ms(lambda: lib.grads_z_ds_f32(*args, out_ds.data_ptr(), m, n_rows, d, stream), iters=3)
+            di_ms = time_ms(lambda: lib.grads_z_di_f32(*args, out_di.data_ptr(), m, n_rows, d, stream), iters=3)
+            check(bool(torch.equal(out_ds, got_[0])) and bool(torch.equal(out_di, got_[1])),
+                  f"grads_z at N={n_rows}: the timed launches gave other bits than the wrapper's")
+        n_products = 2 * m * n_rows * d
+        lib_ds = time_ms(lambda: materialized(True, False, s, rows, z_), iters=1 if tag else 3)
+        lib_di = time_ms(lambda: materialized(False, True, s, rows, z_), iters=1 if tag else 3)
+        results[f"grads_z_ds{tag}"] = dict(max_abs_err=(got_[0] - ref_[0]).abs().max().item(), ms=ds_ms,
+                                           plain_ms=plain, library_ms=lib_ds,
+                                           bound=bound_ms((2 * m * d + n_rows * d) * 4 + vectors, 2 * n_products))
+        results[f"grads_z_di{tag}"] = dict(max_abs_err=(got_[1] - ref_[1]).abs().max().item(), ms=di_ms,
+                                           plain_ms=plain, library_ms=lib_di,
+                                           bound=bound_ms((m * d + 2 * n_rows * d) * 4 + vectors, 2 * n_products))
+        print(f"train kernels: at N={n_rows}: grads_z_ds {ds_ms:.4f} ms + grads_z_di {di_ms:.4f} ms; twin {plain:.1f} "
+              f"ms; max err relative to the largest entry {max(errs):.3g}")
+
+    split_pair(items, z, "", timed=True)
+    split_pair(items[:RAGGED_N], softmax_lse.streaming_lse(s, items[:RAGGED_N]) - torch.log(coeff), "_ragged",
+               timed=False)
+    print(f"train kernels: grads_z_ds / grads_z_di at N={RAGGED_N} within {CE_RTOL} of their twin")
+
+    # kernel 7, from the same z
     got = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
     ref = softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff)
     rel = max(_max_rel(got[0], ref[0]), _max_rel(got[1], ref[1]))
     check(rel <= CE_RTOL, f"CE gradients disagree with their twin: max err relative to the largest entry {rel}")
-    # both kernels again on an odd catalog, where every item tile leaves a tail (checked, not timed)
+    # again on the odd catalog, where every item tile leaves a tail (checked, not timed)
     rows, y_ragged = items[:RAGGED_N], torch.where(y < RAGGED_N, y, 0)
-    lse_ragged = softmax_lse.streaming_lse(s, rows)
-    ref_ragged = softmax_lse.streaming_lse_reference(s, rows)
-    rel = ((lse_ragged - ref_ragged).abs() / ref_ragged.abs()).max().item()
-    check(rel <= LSE_RTOL, f"streaming lse at N={RAGGED_N} disagrees with its twin: max relative err {rel}")
-    z_ragged = lse_ragged - torch.log(coeff)
+    z_ragged = softmax_lse.streaming_lse(s, rows) - torch.log(coeff)
     got_ragged = softmax_lse.softmax_ce_grads_from_z(s, rows, z_ragged, y_ragged, coeff)
     ref_ragged = softmax_lse.softmax_ce_grads_from_z_reference(s, rows, z_ragged, y_ragged, coeff)
     rel_ce = max(_max_rel(g, r) for g, r in zip(got_ragged, ref_ragged))
     check(rel_ce <= CE_RTOL, f"CE gradients at N={RAGGED_N} disagree with their twin: {rel_ce}")
-    print(f"kernels: at N={RAGGED_N}, lse max relative err {rel:.3g}, CE gradients {rel_ce:.3g}")
-    del rows, y_ragged, lse_ragged, ref_ragged, z_ragged, got_ragged
+    print(f"kernels: at N={RAGGED_N}, CE gradients {rel_ce:.3g} of the largest entry from their twin")
+    del rows, y_ragged, z_ragged, got_ragged, ref_ragged
     sg, ig = s.detach().clone().requires_grad_(), items.detach().clone().requires_grad_()
     ce_lib = (F.cross_entropy(sg @ ig.T, y, reduction="none") * coeff).sum()
     results["ce_grads"] = dict(
@@ -372,9 +508,34 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         library_ms=grad_ms(ce_lib, (sg, ig), None, iters=3),
         bound=bound_ms((2 * m * d + 2 * n * d + 3 * m) * 4, 3 * products),
     )
-    del s, items, lse, ref, y, coeff, z, got, sg, ig, ce_lib
+    del items, lse, forwards, z, got, ref, sg, ig, ce_lib
+    torch.cuda.empty_cache()
+
+    # the very-large catalog: kernels 13 + 14, and the CE route against kernel 7 on the same inputs
+    n_large = LARGE_N_ITEM_IDS + 1
+    items = 0.1 * torch.randn((n_large, d), generator=gen, device=dev)
+    y = torch.where(pad, 0, torch.randint(1, n_large, (m,), generator=gen, device=dev))
+    z = softmax_lse.streaming_lse(s, items) - torch.log(coeff)
+    check(softmax_lse.ce_takes_split_route(m, n_large, d), f"the CE gradients at N={n_large} stay on kernel 7")
+    split_pair(items, z, "_large_catalog", timed=True)
+    route = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    again = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    check(all(bool(torch.equal(a, g)) for a, g in zip(again, route)), "the CE split route: a second run gave other bits")
+    route_ms = time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3)
+    softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62  # kernel 7 at any size
+    kernel_7 = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    kernel_7_ms = time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3)
+    softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+    rel = max(_max_rel(a, k) for a, k in zip(route, kernel_7))
+    check(rel <= CE_RTOL, f"the CE split route at N={n_large} differs from kernel 7 by {rel} of the largest entry")
+    results["ce_grads_large_catalog_route"] = {"route_ms": route_ms, "kernel_7_ms": kernel_7_ms, "max_rel_diff": rel}
+    print(f"train kernels: at N={n_large}: the CE split route {route_ms:.3f} ms beside kernel 7's two launches "
+          f"{kernel_7_ms:.3f} ms; they differ by {rel:.3g} of the largest entry; the route bit-equal on a rerun")
+    del s, items, y, coeff, z, route, again, kernel_7, pad
     torch.cuda.empty_cache()
     for name, r in results.items():
+        if "bound" not in r:
+            continue
         print(
             f"train kernel {name}: max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})"
@@ -568,9 +729,11 @@ def mesh_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         rel = ((lse - ref).abs() / ref.abs()).max().item()
         check(bool(torch.isfinite(lse).all()) and rel <= LSE_RTOL,
               f"biased lse {what} disagrees with its twin: max relative err {rel}")
-        if not n_invalid:
+        if not n_invalid:  # kernel 8 is kernel 15 with a bias column
+            softmax_lse.USE_PARTIALS_FWD = False
             check(bool(torch.equal(lse, softmax_lse.streaming_lse_fwd(s, items))),
-                  f"biased lse {what}: a zero bias changed the bits of the unbiased kernel")
+                  f"biased lse {what}: a zero bias changed the bits of the unbiased kernel 15")
+            softmax_lse.USE_PARTIALS_FWD = True
 
         def library_lse(s_=s, items_=items):
             return torch.logsumexp(s_ @ items_.T + bias, dim=1)
@@ -967,7 +1130,7 @@ def train_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
     val_batches = len(model.data_preparator.get_dataloader_val())
     forwards = steps + EPOCHS * val_batches  # validation runs one forward per batch
     expected = {name: 0 for name in port.LAUNCHES}
-    expected.update(lse_fwd=steps, ce_grads_ds=steps, ce_grads_di=steps)
+    expected.update(lse_partials_fwd=steps, ce_grads_ds=steps, ce_grads_di=steps)
     if hstu:  # per block: two LayerNorms, one STU attention with its backward and its score gradient
         expected.update(layer_norm_fwd=2 * N_BLOCKS * forwards, stu_fwd=N_BLOCKS * forwards,
                         layer_norm_bwd=2 * N_BLOCKS * steps, stu_bwd=N_BLOCKS * steps, stu_ds=N_BLOCKS * steps)
@@ -1083,6 +1246,170 @@ def agreement_phase(torch, np, dataset, dev, hstu: bool = False) -> dict:
     return {"loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_err, "key_bias_max_abs_diff": key_bias_err,
             "grad_max_abs_diff": grad_abs, "grad_max_rel_diff": grad_rel, "worst_param": worst,
             "worst_entry_grads": at_worst}
+
+# ---------------------------------------------------------------- phase 9, the other doors of the streaming lse
+
+
+def ops_phase(torch, dev, b: int = TRAIN_B) -> dict:
+    """The public ops whose kernels no model path runs, as a user calls them at
+    the training width (51,200 x 15,872 x 128): ``streaming_lse(...,
+    bounded_shift=True)`` with its backward (kernel 16, then kernel 9) and
+    ``softmax_grads_from_z`` (kernel 12, its partials within the budget)."""
+    import rectools_tpu_torch.ops as port
+    from rectools_tpu_torch.ops import softmax_lse
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    m, n, d = b * SESSION_MAX_LEN, N_ITEM_IDS + 1, N_FACTORS
+    s = torch.randn((m, d), generator=gen, device=dev).requires_grad_()
+    items = (0.1 * torch.randn((n, d), generator=gen, device=dev)).requires_grad_()
+    dlse = torch.rand((m,), generator=gen, device=dev) / m
+    port.reset_launches()
+    lse = softmax_lse.streaming_lse(s, items, bounded_shift=True)
+    lse.backward(dlse)
+    z = lse.detach() - torch.log(dlse)
+    ds, di = softmax_lse.softmax_grads_from_z(s.detach(), items.detach(), z)
+    launches = dict(port.LAUNCHES)
+    expected = {name: 0 for name in launches}
+    expected.update(lse_shift_fwd=1, lse_bwd_fused=1, grads_z_fused=1)
+    check(launches == expected, f"launches of the ops {launches}, expected {expected}")
+    # the same function twice: the gradients of lse · dlse, and P @ items, Pᵀ @ s from z = lse − log(dlse)
+    rel = max(_max_rel(ds, s.grad), _max_rel(di, items.grad))
+    check(rel <= CE_RTOL, f"softmax_grads_from_z and the bounded-shift lse's VJP differ by {rel} of the largest entry")
+    exact = softmax_lse.streaming_lse(s.detach(), items.detach())
+    rel_lse = ((lse.detach() - exact).abs() / exact.abs()).max().item()
+    check(rel_lse <= LSE_RTOL, f"the bounded-shift lse differs from kernel 6's by {rel_lse} relative")
+    print(f"ops: streaming_lse(bounded_shift=True) with its backward and softmax_grads_from_z at M={m}, N={n}: "
+          f"launches {launches}; the two gradients agree to {rel:.3g} of the largest entry, the lse with kernel 6's "
+          f"to {rel_lse:.3g}")
+    del s, items, dlse, lse, z, ds, di, exact
+    torch.cuda.empty_cache()
+    return {"launches": launches, "grads_max_rel_diff": rel, "lse_max_rel_diff": rel_lse}
+
+
+def large_fit_phase(torch, np, pd, port, dev) -> dict:
+    """``SASRecModel(...).fit`` at the training width on a 131,072-row catalog:
+    every step's CE gradients take the very-large-catalog route (kernels 13 +
+    14 and the label term in torch), then one step's loss gradients on the
+    card against the twins."""
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.dataset import Dataset
+    from rectools_tpu_torch.models import SASRecModel
+    from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+    from rectools_tpu_torch.models.nn.transformers import losses
+    from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+    from rectools_tpu_torch.ops import softmax_lse
+
+    t0 = time.perf_counter()
+    dataset = Dataset.construct(kion_frame(np, pd, Columns, LARGE_N_ITEM_IDS))
+    n_items, m = LARGE_N_ITEM_IDS + 1, TRAIN_B * SESSION_MAX_LEN
+    print(f"large fit: frame of {dataset.user_id_map.size} users over {LARGE_N_ITEM_IDS} item ids built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(softmax_lse.ce_takes_split_route(m, n_items, N_FACTORS), "the CE gradients would stay on kernel 7")
+    clock = epoch_clock(torch, dev)
+    model = SASRecModel(
+        **TRAIN_CONFIG, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,), get_val_mask_func=hold_out_last,
+        get_callbacks_func=lambda: [clock], training_module_kwargs={"val_recall_k": K}, device=dev,
+    )
+    torch.cuda.reset_peak_memory_stats()
+    port.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(dataset)
+    fit_s = time.perf_counter() - t0
+    launches = dict(port.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    tm = model.training_module
+    check(model.backbone.item_model.n_items == n_items, f"item table is not {n_items} rows")
+    steps = tm.global_step
+    forwards = steps + EPOCHS * len(model.data_preparator.get_dataloader_val())
+    expected = {name: 0 for name in port.LAUNCHES}
+    expected.update(lse_partials_fwd=steps, grads_z_ds=steps, grads_z_di=steps,
+                    layer_norm_fwd=(2 * N_BLOCKS + 1) * forwards, attention_fwd=N_BLOCKS * forwards,
+                    layer_norm_bwd=(2 * N_BLOCKS + 1) * steps, attention_bwd=N_BLOCKS * steps)
+    check(launches == expected, f"launches in the large fit {launches}, expected {expected}")
+    losses_, val_losses = tm.train_loss_history, tm.val_loss_history
+    recall = tm.val_metric_history.get(f"val_recall@{K}", [])
+    check(len(losses_) == EPOCHS and bool(np.isfinite(losses_).all()) and losses_[1] < losses_[0],
+          f"train losses {losses_}")
+    check(len(val_losses) == EPOCHS and bool(np.isfinite(val_losses).all()), f"validation losses {val_losses}")
+    check(len(recall) == EPOCHS and bool(np.isfinite(recall).all()), f"val_recall@{K} {recall}")
+    epoch2_s = clock.times[2] - clock.times[1]
+    examples_per_s = TRAIN_B * (steps // EPOCHS) / epoch2_s
+    print(f"large fit: {EPOCHS} epochs x {steps // EPOCHS} steps of {TRAIN_B} on {n_items} items in {fit_s:.2f} s; "
+          f"launches {launches}")
+    print(f"large fit: losses {losses_}, val_loss {val_losses}, val_recall@{K} {recall}")
+    print(f"large fit: epoch 2 wall {epoch2_s:.3f} s (validation included), {examples_per_s:.0f} train examples/s, "
+          f"peak device memory {peak_mb:.0f} MiB")
+
+    loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
+    batch = tm._device_batch(pad_batch(next(iter(loader)), TRAIN_B))
+    print("large fit: profile of one train step")
+    profile = profile_phase(torch, lambda: tm._train_step(batch))
+
+    # one step's loss gradients of the trained towers: the route against the twins (kernel 7's for the gradients)
+    backbone = model.backbone.eval()
+    with torch.no_grad():
+        item_embs = backbone.item_model.embed_catalog()
+        s_t, i_t = backbone.similarity_module.catalog_loss_towers(backbone.encode_sessions(batch, item_embs), item_embs)
+    s2 = (s_t.float() / tm.logits_t).reshape(m, N_FACTORS).contiguous()
+    items, y, w = i_t.float().contiguous(), batch["y"].reshape(-1), batch["yw"].reshape(-1)
+    sg, ig = s2.clone().requires_grad_(), items.clone().requires_grad_()
+    port.reset_launches()
+    loss = losses.fused_softmax_loss(sg[None], ig, y[None], w[None])
+    ds, di = torch.autograd.grad(loss, (sg, ig))
+    step = {k: port.LAUNCHES[k] for k in ("lse_partials_fwd", "grads_z_ds", "grads_z_di", "ce_grads_ds")}
+    check(step == {"lse_partials_fwd": 1, "grads_z_ds": 1, "grads_z_di": 1, "ce_grads_ds": 0},
+          f"launches of one loss gradient {step}")
+    lse = softmax_lse.streaming_lse_partials_reference(s2, items)
+    ref_loss, _, denom = losses._ce_pieces(s2, items, y, w, lse)
+    c = w.float() * (y != 0).float() / denom
+    ref_ds, ref_di = softmax_lse.softmax_ce_grads_from_z_reference(s2, items, lse - torch.log(c), y, c)
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    grad_rel = max(_max_rel(ds, ref_ds), _max_rel(di, ref_di))
+    check(loss_rel <= LOSS_RTOL and grad_rel <= CE_RTOL,
+          f"one step's loss {loss_rel} / gradients {grad_rel} differ from the twins'")
+    print(f"large fit: one step's loss and gradients against the twins: loss {loss_rel:.3g} relative, gradients "
+          f"{grad_rel:.3g} of the largest entry")
+    return {"launches": launches, "steps": steps, "n_items": n_items, "train_loss": losses_, "val_loss": val_losses,
+            f"val_recall@{K}": recall, "fit_s": fit_s, "epoch2_s": epoch2_s, "train_examples_per_s": examples_per_s,
+            "peak_device_mib": peak_mb, "step_loss_rel_diff": loss_rel, "step_grad_rel_diff": grad_rel,
+            **{f"step_{k}": v for k, v in profile.items()}}
+
+
+def classic_fwd_phase(torch, np, port, dataset, dev) -> dict:
+    """Two KION train steps with ``USE_PARTIALS_FWD = False`` (kernel 15) beside
+    the same two steps from the same start with the default (kernel 6)."""
+    from rectools_tpu_torch.models import SASRecModel
+    from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+    from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+    from rectools_tpu_torch.ops import softmax_lse
+
+    models = {run: SASRecModel(**TRAIN_CONFIG, item_net_block_types=(IdEmbeddingsItemNet,), device=dev)
+              for run in ("partials", "classic")}
+    for model in models.values():
+        model._build_model_from_dataset(dataset)
+    models["partials"].training_module.init_params()
+    start = {k: v.clone() for k, v in models["partials"].backbone.state_dict().items()}
+    loader = iter(models["partials"].data_preparator.get_dataloader_train(np.random.default_rng(SEED)))
+    batches = [pad_batch(next(loader), TRAIN_B) for _ in range(2)]
+    losses, launches = {}, {}
+    for run, model in models.items():
+        tm = model.training_module
+        tm.load_params(start)
+        device_batches = [tm._device_batch(batch) for batch in batches]
+        softmax_lse.USE_PARTIALS_FWD = run == "partials"
+        port.reset_launches()
+        losses[run] = [tm._train_step(batch).item() for batch in device_batches]
+        launches[run] = dict(port.LAUNCHES)
+    softmax_lse.USE_PARTIALS_FWD = True
+    for run, (on, off) in {"partials": ("lse_partials_fwd", "lse_fwd"), "classic": ("lse_fwd", "lse_partials_fwd")}.items():
+        check(launches[run][on] == 2 and launches[run][off] == 0, f"{run} steps: launches {launches[run]}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["classic"], losses["partials"]))
+    check(bool(np.isfinite(losses["classic"]).all()) and rel <= LOSS_RTOL,
+          f"losses with kernel 15 {losses['classic']} against kernel 6 {losses['partials']}: {rel} relative")
+    print(f"classic forward: two steps with USE_PARTIALS_FWD = False: launches {launches['classic']}; losses "
+          f"{losses['classic']} beside the default's {losses['partials']}, {rel:.3g} relative")
+    return {"launches": launches["classic"], "losses": losses["classic"], "default_losses": losses["partials"],
+            "loss_max_rel_diff": rel}
 
 # ---------------------------------------------------------------- phase 8, mesh training
 
@@ -1351,29 +1678,40 @@ def main() -> int:
     # phase 8: mesh training, one rank and four ranks
     mesh_result = mesh_fit_phase(torch, np, port, dataset, "cuda", train_result)
     mesh_4_result = mesh_fit_4_phase(torch, np, pd, "cuda")
+    # phase 9: the other doors of the streaming lse
+    ops_result = ops_phase(torch, torch.device("cuda"))
+    classic_result = classic_fwd_phase(torch, np, port, dataset, "cuda")
+    large_result = large_fit_phase(torch, np, pd, port, "cuda")
 
-    # name: (source, replaced TPU kernel, launch-count keys, entry of `kernels` with its numbers)
+    # name: (source, replaced TPU kernel, launch-count keys, entry of `kernels` with its numbers), by kernel number
     table = {
         "layer_norm_fwd": ("layer_norm.cu", "layer_norm.py:27", ("layer_norm_fwd",), "layer_norm_fwd"),
         "attention_fwd": ("attention.cu", "attention.py:104", ("attention_fwd",), "attention_fwd"),
         "group_topm": ("topk_select.cu", "topk_select.py:49", ("group_topm",), "group_topm"),
         "layer_norm_bwd": ("layer_norm.cu", "layer_norm.py:36", ("layer_norm_bwd",), "layer_norm_bwd"),
         "attention_bwd": ("attention.cu", "attention.py:256", ("attention_bwd",), "attention_bwd"),
-        "lse_fwd": ("softmax_lse.cu", "softmax_lse.py:169", ("lse_fwd",), "lse_fwd"),
+        "lse_partials_fwd": ("softmax_lse.cu", "softmax_lse.py:169", ("lse_partials_fwd",), "lse_partials_fwd"),
         "ce_grads": ("softmax_lse.cu", "softmax_lse.py:643", ("ce_grads_ds", "ce_grads_di"), "ce_grads"),
-        "stu_fwd": ("stu_attention.cu", "stu_attention.py:90", ("stu_fwd",), "stu_fwd"),
-        "stu_bwd": ("stu_attention.cu", "stu_attention.py:274", ("stu_bwd",), "stu_bwd"),
-        "stu_ds": ("stu_attention.cu", "stu_attention.py:316", ("stu_ds",), "stu_ds"),
         "lse_bias_fwd": ("softmax_lse.cu", "softmax_lse.py:99", ("lse_bias_fwd",), "lse_bias_fwd"),
         "lse_bwd_fused": ("softmax_lse.cu", "softmax_lse.py:234", ("lse_bwd_fused",), "lse_bwd_fused"),
         "lse_bwd_ds": ("softmax_lse.cu", "softmax_lse.py:205", ("lse_bwd_ds",), "lse_bwd_ds"),
         "lse_bwd_di": ("softmax_lse.cu", "softmax_lse.py:266", ("lse_bwd_di",), "lse_bwd_di"),
+        "grads_z_fused": ("softmax_lse.cu", "softmax_lse.py:591", ("grads_z_fused",), "grads_z_fused"),
+        "grads_z_ds": ("softmax_lse.cu", "softmax_lse.py:757", ("grads_z_ds",), "grads_z_ds"),
+        "grads_z_di": ("softmax_lse.cu", "softmax_lse.py:774", ("grads_z_di",), "grads_z_di"),
+        "lse_fwd": ("softmax_lse.cu", "softmax_lse.py:127", ("lse_fwd",), "lse_fwd"),
+        "lse_shift_fwd": ("softmax_lse.cu", "softmax_lse.py:50", ("lse_shift_fwd",), "lse_shift_fwd"),
+        "stu_fwd": ("stu_attention.cu", "stu_attention.py:90", ("stu_fwd",), "stu_fwd"),
+        "stu_bwd": ("stu_attention.cu", "stu_attention.py:274", ("stu_bwd",), "stu_bwd"),
+        "stu_ds": ("stu_attention.cu", "stu_attention.py:316", ("stu_ds",), "stu_ds"),
     }
     # mesh_fit_4 counts one rank's launches (every rank's are equal); kernels 10
-    # and 11 run where the partials budget is forced to 0
+    # and 11 run where the partials budget is forced to 0; `ops` calls the public
+    # ops whose kernels no model path runs (12, 16)
     paths = {"recommend": main_result, "fit": train_result, "hstu_recommend": hstu_main_result,
              "hstu_fit": hstu_train_result, "mesh_fit": mesh_result, "mesh_fit_4": mesh_4_result,
-             "mesh_fit_budget_forced": {"launches": mesh_result["launches_budget_forced"]}}
+             "mesh_fit_budget_forced": {"launches": mesh_result["launches_budget_forced"]},
+             "ops": ops_result, "fit_classic_fwd": classic_result, "fit_large_catalog": large_result}
 
     def numbers(r: dict) -> dict:
         return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -1394,6 +1732,13 @@ def main() -> int:
         if name.startswith("lse_b"):  # the same kernel on a (2, 2) mesh's shard and on a shard with an invalid row
             entry["shard_2x2"] = numbers(kernels[f"{name}_shard_2x2"])
             entry["ragged_shard"] = numbers(kernels[f"{name}_ragged_shard"])
+        if name in ("grads_z_ds", "grads_z_di"):  # the same kernel at 51,200 x 131,072
+            entry["large_catalog"] = numbers(kernels[f"{name}_large_catalog"])
+        if name == "lse_shift_fwd":  # the same kernel with every row in window 2
+            entry["window_2"] = numbers(kernels["lse_shift_fwd_window_2"])
+        if name == "ce_grads":  # the CE gradients at 51,200 x 131,072: the split route beside kernel 7
+            entry["large_catalog_route"] = kernels["ce_grads_large_catalog_route"]
+        check(entry["launches"] > 0, f"{name}: no path launched it")
         entries.append(entry)
     line = {
         "kernels": entries,
@@ -1404,6 +1749,9 @@ def main() -> int:
                        "agreement": hstu_agree_result},
         "mesh_fit": {k: v for k, v in mesh_result.items() if not k.startswith("launches")},
         "mesh_fit_4": {k: v for k, v in mesh_4_result.items() if k != "launches"},
+        "ops": {k: v for k, v in ops_result.items() if k != "launches"},
+        "fit_classic_fwd": {k: v for k, v in classic_result.items() if k != "launches"},
+        "fit_large_catalog": {k: v for k, v in large_result.items() if k != "launches"},
     }
     print(json.dumps(line))
     print(card)

@@ -38,13 +38,18 @@ LAUNCHES: tp.Dict[str, int] = {
     "group_topm": 0,
     "layer_norm_bwd": 0,
     "attention_bwd": 0,
+    "lse_partials_fwd": 0,
     "lse_fwd": 0,
+    "lse_shift_fwd": 0,
     "ce_grads_ds": 0,
     "ce_grads_di": 0,
     "lse_bias_fwd": 0,
     "lse_bwd_fused": 0,
     "lse_bwd_ds": 0,
     "lse_bwd_di": 0,
+    "grads_z_fused": 0,
+    "grads_z_ds": 0,
+    "grads_z_di": 0,
     "stu_fwd": 0,
     "stu_bwd": 0,
     "stu_ds": 0,

@@ -1,14 +1,19 @@
-"""Streaming logsumexp, its gradients and the fused softmax-CE gradients:
+"""Streaming logsumexp, its gradients and the softmax-CE gradients:
 hand-written CUDA kernels and their plain PyTorch twins.
 
-Port of rectools_tpu/ops/softmax_lse.py, the routes the full-catalog softmax
-loss takes:
+Port of rectools_tpu/ops/softmax_lse.py, every route the full-catalog softmax
+loss and its public ops take:
 
 - :func:`streaming_lse` — ``logsumexp_n(sessions @ itemsᵀ + row_bias)[m]``
   without the (M, N) logits reaching device memory. Without a bias it is
-  ``lse_f32`` (kernel 6), with one ``lse_bias_f32`` (kernel 8). It is
-  differentiable through one ``torch.autograd.Function`` whose backward is
-  the generic VJP of the JAX ``_streaming_lse_bwd``: the single-pass
+  ``lse_partials_f32`` (kernel 6: per-chunk (max, Σexp) partials combined in
+  torch), or ``lse_f32`` (kernel 15: one running max per row) when
+  ``USE_PARTIALS_FWD`` is False; ``bounded_shift=True`` takes
+  ``lse_shift_f32`` (kernel 16: a fixed per-row shift and two windows, no
+  max); with a bias it is ``lse_bias_f32`` (kernel 8), whatever
+  ``bounded_shift`` says, as in JAX. It is differentiable through one
+  ``torch.autograd.Function`` whose backward is the generic VJP of the JAX
+  ``_streaming_lse_bwd`` from the saved lse: the single-pass
   ``lse_bwd_fused_f32`` (kernel 9) while its partial sums fit
   ``FUSED_BWD_PARTIALS_BUDGET``, else ``lse_bwd_ds_f32`` + ``lse_bwd_di_f32``
   (kernels 10 and 11). The bias gets no gradient.
@@ -16,16 +21,24 @@ loss takes:
   a process mesh: each rank runs :func:`streaming_lse` on its slice with a
   0 / -1e30 validity bias and the ranks merge their results with one (M,)
   sized all-gather. This is the loss of mesh training.
+- :func:`softmax_grads_from_z` — ``ds = P @ items`` and ``di = Pᵀ @ sessions``
+  with ``P = exp(sessions @ itemsᵀ − z)``: ``grads_z_fused_f32`` (kernel 12)
+  while its partials fit the budget, else ``grads_z_ds_f32`` +
+  ``grads_z_di_f32`` (kernels 13 and 14).
 - :func:`softmax_ce_grads_from_z` — ``ds = (P − D) @ items`` and
-  ``di = (P − D)ᵀ @ sessions`` with ``P = exp(sessions @ itemsᵀ − z)`` and
-  ``D = coeff · onehot(y)``: two kernels launched back to back
-  (``ce_ds_f32``, ``ce_di_f32``), each recomputing the logits. The
-  single-device CE loss differentiates through it.
+  ``di = (P − D)ᵀ @ sessions`` with ``D = coeff · onehot(y)``: two kernels
+  launched back to back (``ce_ds_f32``, ``ce_di_f32``: kernel 7), each
+  recomputing the logits. Above the JAX package's partials budget for the
+  loss's tiling (:func:`ce_takes_split_route`: catalogs above 81,920 items at
+  51,200 × 128) it is :func:`softmax_grads_from_z` and the label term in
+  plain torch, as the JAX fallback does. The single-device CE loss
+  differentiates through it.
 
 CPU tensors take the twins, which walk the catalog in item chunks exactly as
-the kernels walk their tiles (running max for the lse; label correction and
-tail handling per chunk for the gradients). Rows with ``z = +inf`` (PAD
-targets, ``coeff = 0``) contribute nothing.
+the kernels walk their tiles (per-chunk partials, a running max or fixed
+shifts for the lse; label correction and tail handling per chunk for the
+gradients; the summation order of the fused or the split backward). Rows
+with ``z = +inf`` (PAD targets, ``coeff = 0``) contribute nothing.
 """
 
 import ctypes
@@ -43,6 +56,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # sessions, items, lse; M, N, D; stream
     "lse_f32": (_C, _C, _C, _LL, _LL, _I, _C),
+    # sessions, items, max partials, sum partials; M, N, D; chunk rows; stream
+    "lse_partials_f32": (_C, _C, _C, _C, _LL, _LL, _I, _LL, _C),
+    # sessions, items, shift, window-1 partials, window-2 partials; M, N, D; chunk rows; stream
+    "lse_shift_f32": (_C, _C, _C, _C, _C, _LL, _LL, _I, _LL, _C),
     # sessions, items, bias, lse; M, N, D; stream
     "lse_bias_f32": (_C, _C, _C, _C, _LL, _LL, _I, _C),
     # sessions, items, z, y (int64), coeff, out; M, N, D; stream
@@ -53,11 +70,28 @@ _SIGNATURES = {
     "lse_bwd_di_f32": (_C,) * 6 + (_LL, _LL, _I, _C),
     # sessions, items, bias, lse, dlse, ds partials, di partials; M, N, D; chunk rows, tiles per group; stream
     "lse_bwd_fused_f32": (_C,) * 7 + (_LL, _LL, _I, _LL, _LL, _C),
+    # sessions, items, z, out; M, N, D; stream
+    "grads_z_ds_f32": (_C,) * 4 + (_LL, _LL, _I, _C),
+    "grads_z_di_f32": (_C,) * 4 + (_LL, _LL, _I, _C),
+    # sessions, items, z, ds partials, di partials; M, N, D; chunk rows, tiles per group; stream
+    "grads_z_fused_f32": (_C,) * 5 + (_LL, _LL, _I, _LL, _LL, _C),
 }
 SUPPORTED_D = (16, 32, 64, 128, 256)
 TWIN_CHUNK = 2048  # item columns per step of the plain twins
 NEG_BIG = -1e30  # bias of an item row that only pads a shard
 TILE = 64  # session and item rows per kernel tile
+
+# The forward without a bias: kernel 6 (per-chunk partials, the JAX default
+# `_USE_PARTIALS_FWD = True`) or, set to False, kernel 15 (one running max per
+# row). Read at every call.
+USE_PARTIALS_FWD = True
+LSE_CHUNK = 2048  # item rows a block of kernels 6 and 16 owns (why: csrc/softmax_lse.cu)
+
+# Kernel 16's second window: terms scaled by e^64 inside the exp, which
+# carries exact coverage from bound gaps of ~64 to ~128; window 1 is kept
+# while its sum is at least e^-20 (rectools_tpu/ops/softmax_lse.py:47, 379-386).
+WINDOW2_OFFSET = 64.0
+WINDOW1_FLOOR = 2.061e-9
 
 # The fused backward writes its ds partials per item chunk, (n_chunks, M, D),
 # and its di partials per group of session tiles, (n_groups, N, D). Above this
@@ -85,8 +119,74 @@ def _running_lse(
 
 
 def streaming_lse_reference(sessions: torch.Tensor, items: torch.Tensor, chunk: int = TWIN_CHUNK) -> torch.Tensor:
-    """Plain PyTorch twin of ``lse_f32``: running (max, Σexp) over item chunks."""
+    """Plain PyTorch twin of ``lse_f32`` (kernel 15): running (max, Σexp) over
+    item chunks."""
     return _running_lse(sessions, items, None, chunk, float("-inf"))
+
+
+def combine_lse_partials(m_part: torch.Tensor, l_part: torch.Tensor) -> torch.Tensor:
+    """(M,) lse from (n_chunks, M) per-chunk maxima and Σexp(logit − max):
+    the JAX combine (rectools_tpu/ops/softmax_lse.py:411-413)."""
+    m_all = m_part.max(dim=0).values
+    l_all = (l_part * torch.exp(m_part - m_all[None])).sum(dim=0)
+    return m_all + torch.log(l_all)
+
+
+def streaming_lse_partials_reference(
+    sessions: torch.Tensor, items: torch.Tensor, chunk: int = LSE_CHUNK
+) -> torch.Tensor:
+    """Plain PyTorch twin of ``lse_partials_f32`` (kernel 6): each item chunk's
+    (max, Σexp), then :func:`combine_lse_partials`."""
+    if items.shape[0] == 0:
+        return torch.full((sessions.shape[0],), float("-inf"), device=sessions.device)
+    m_parts, l_parts = [], []
+    for start in range(0, items.shape[0], chunk):
+        logits = sessions @ items[start : start + chunk].T
+        m_j = logits.max(dim=1).values
+        m_parts.append(m_j)
+        l_parts.append(torch.exp(logits - m_j[:, None]).sum(dim=1))
+    return combine_lse_partials(torch.stack(m_parts), torch.stack(l_parts))
+
+
+def lse_shift(sessions: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """(M,) per-row upper bound of the logits, ``‖s_m‖ · max_n ‖item_n‖``
+    (Cauchy-Schwarz; rectools_tpu/ops/softmax_lse.py:364-365)."""
+    if items.shape[0] == 0:
+        return torch.zeros((sessions.shape[0],), device=sessions.device)
+    item_max_norm = torch.sqrt((items * items).sum(dim=1).max())
+    return torch.sqrt((sessions * sessions).sum(dim=1)) * item_max_norm
+
+
+def select_shift_window(shift: torch.Tensor, l: torch.Tensor, l2: torch.Tensor) -> torch.Tensor:
+    """Per row: ``shift + log l`` while window 1's sum stays at least e^-20,
+    else ``shift − 64 + log l2``; both sums flushed to 0 (a bound gap past
+    ~128, outside the contract) give −inf, never NaN."""
+    return torch.where(l >= WINDOW1_FLOOR, shift + torch.log(l), (shift - WINDOW2_OFFSET) + torch.log(l2))
+
+
+def lse_shift_sums_reference(
+    sessions: torch.Tensor, items: torch.Tensor, chunk: int = LSE_CHUNK
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of ``lse_shift_f32`` (kernel 16): (shift, l, l2)
+    with l = Σ exp(logit − shift) and l2 = Σ exp(logit − shift + 64), summed
+    per item chunk and then over the chunks."""
+    shift = lse_shift(sessions, items)
+    if items.shape[0] == 0:
+        return shift, torch.zeros_like(shift), torch.zeros_like(shift)
+    l_parts, l2_parts = [], []
+    for start in range(0, items.shape[0], chunk):
+        shifted = sessions @ items[start : start + chunk].T - shift[:, None]
+        l_parts.append(torch.exp(shifted).sum(dim=1))
+        l2_parts.append(torch.exp(shifted + WINDOW2_OFFSET).sum(dim=1))
+    return shift, torch.stack(l_parts).sum(dim=0), torch.stack(l2_parts).sum(dim=0)
+
+
+def streaming_lse_shift_reference(
+    sessions: torch.Tensor, items: torch.Tensor, chunk: int = LSE_CHUNK
+) -> torch.Tensor:
+    """Plain PyTorch twin of the ``bounded_shift`` forward: kernel 16's sums
+    and the window selection."""
+    return select_shift_window(*lse_shift_sums_reference(sessions, items, chunk))
 
 
 def streaming_lse_bias_reference(
@@ -98,26 +198,22 @@ def streaming_lse_bias_reference(
     return _running_lse(sessions, items, row_bias, chunk, NEG_BIG)
 
 
-def streaming_lse_bwd_reference(
+def _grads_reference(
     sessions: torch.Tensor,
     items: torch.Tensor,
-    row_bias: torch.Tensor,
-    lse: torch.Tensor,
-    dlse: torch.Tensor,
-    chunk: int = TWIN_CHUNK,
-    partials: bool = True,
+    weights: tp.Callable[[torch.Tensor, int], torch.Tensor],
+    chunk: int,
+    partials: bool,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of the lse backward kernels: (ds, di) with
-    ``pw = exp((logits + bias) − lse) · dlse``, ``ds = pw @ items`` and
-    ``di = pwᵀ @ sessions``. ``partials=True`` sums one ds partial per item
-    chunk at the end, as the fused kernel's caller does; ``False`` carries a
-    running sum, as the split ds kernel does."""
+    """(pw @ items, pwᵀ @ sessions) with ``pw = weights(logits, start)`` per
+    item chunk. ``partials=True`` sums one ds partial per chunk at the end, as
+    a fused kernel's caller does; ``False`` carries a running sum, as a split
+    ds kernel does."""
     di = torch.empty_like(items)
     ds_parts = []
     for start in range(0, items.shape[0], chunk):
         block = items[start : start + chunk]
-        logits = sessions @ block.T + row_bias[start : start + chunk][None, :]
-        pw = torch.exp(logits - lse[:, None]) * dlse[:, None]
+        pw = weights(sessions @ block.T, start)
         part = pw @ block
         if partials or not ds_parts:
             ds_parts.append(part)
@@ -129,6 +225,35 @@ def streaming_lse_bwd_reference(
     return (torch.stack(ds_parts).sum(dim=0) if len(ds_parts) > 1 else ds_parts[0]), di
 
 
+def streaming_lse_bwd_reference(
+    sessions: torch.Tensor,
+    items: torch.Tensor,
+    row_bias: torch.Tensor,
+    lse: torch.Tensor,
+    dlse: torch.Tensor,
+    chunk: int = TWIN_CHUNK,
+    partials: bool = True,
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of the lse backward kernels (9, or 10 + 11): (ds, di)
+    with ``pw = exp((logits + bias) − lse) · dlse``, ``ds = pw @ items`` and
+    ``di = pwᵀ @ sessions``, in the fused (``partials=True``) or split order."""
+
+    def weights(logits: torch.Tensor, start: int) -> torch.Tensor:
+        logits = logits + row_bias[start : start + logits.shape[1]][None, :]
+        return torch.exp(logits - lse[:, None]) * dlse[:, None]
+
+    return _grads_reference(sessions, items, weights, chunk, partials)
+
+
+def softmax_grads_from_z_reference(
+    sessions: torch.Tensor, items: torch.Tensor, z: torch.Tensor, chunk: int = TWIN_CHUNK, partials: bool = True
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of kernel 12 (``partials=True``: one ds partial per
+    chunk, summed at the end) or of kernels 13 + 14 (``False``: a running
+    sum): (P @ items, Pᵀ @ sessions) with ``P = exp(logits − z)``."""
+    return _grads_reference(sessions, items, lambda logits, start: torch.exp(logits - z[:, None]), chunk, partials)
+
+
 def softmax_ce_grads_from_z_reference(
     sessions: torch.Tensor,
     items: torch.Tensor,
@@ -138,16 +263,13 @@ def softmax_ce_grads_from_z_reference(
     chunk: int = TWIN_CHUNK,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of ``ce_ds_f32`` / ``ce_di_f32``: (ds, di)."""
-    ds = torch.zeros_like(sessions)
-    di = torch.empty_like(items)
-    for start in range(0, items.shape[0], chunk):
-        block = items[start : start + chunk]
-        pw = torch.exp(sessions @ block.T - z[:, None])
-        cols = torch.arange(start, start + block.shape[0], device=sessions.device)
-        pw = torch.where(cols[None, :] == y[:, None], pw - coeff[:, None], pw)
-        ds += pw @ block
-        di[start : start + block.shape[0]] = pw.T @ sessions
-    return ds, di
+
+    def weights(logits: torch.Tensor, start: int) -> torch.Tensor:
+        pw = torch.exp(logits - z[:, None])
+        cols = torch.arange(start, start + logits.shape[1], device=sessions.device)
+        return torch.where(cols[None, :] == y[:, None], pw - coeff[:, None], pw)
+
+    return _grads_reference(sessions, items, weights, chunk, partials=False)
 
 
 def _check(kernel: str, sessions: torch.Tensor, items: torch.Tensor) -> tp.Tuple[int, int, int]:
@@ -171,20 +293,72 @@ def _check_vectors(kernel: str, rows: int, what: str, **vectors: torch.Tensor) -
             raise ValueError(f"{kernel}: {name} must be a contiguous ({rows},) vector, one entry per {what}")
 
 
-def streaming_lse_fwd(
-    sessions: torch.Tensor, items: torch.Tensor, row_bias: tp.Optional[torch.Tensor] = None
-) -> torch.Tensor:
-    """(M,) float32 lse, no autograd: kernel 6 without a bias, kernel 8 with one."""
+def _launch_chunked_lse(
+    kernel: str, sessions: torch.Tensor, items: torch.Tensor, shift: tp.Optional[torch.Tensor]
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel 6 (``shift`` None) or kernel 16 on (session tile, item
+    chunk) blocks; returns its two (n_chunks, M) partials."""
+    m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
+    n_chunks = -(-n // LSE_CHUNK)
+    part_a = torch.empty((n_chunks, m), dtype=torch.float32, device=sessions.device)
+    part_b = torch.empty_like(part_a)
+    lib = _native.load("softmax_lse", _SIGNATURES)
+    stream = _native.current_stream_ptr(sessions.device)
+    pointers = (sessions.data_ptr(), items.data_ptr())
+    with torch.cuda.device(sessions.device):
+        if shift is None:
+            status = lib.lse_partials_f32(*pointers, part_a.data_ptr(), part_b.data_ptr(), m, n, d, LSE_CHUNK, stream)
+        else:
+            status = lib.lse_shift_f32(
+                *pointers, shift.data_ptr(), part_a.data_ptr(), part_b.data_ptr(), m, n, d, LSE_CHUNK, stream
+            )
+    _native.check_launch(kernel, status)
+    return part_a, part_b
+
+
+def lse_shift_sums(
+    sessions: torch.Tensor, items: torch.Tensor
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(shift, l, l2) of the ``bounded_shift`` forward (kernel 16; its twin on
+    the CPU): the per-row shift and the two windows' sums."""
     if sessions.device.type == "cpu":
-        if row_bias is None:
-            return streaming_lse_reference(sessions, items)
-        return streaming_lse_bias_reference(sessions, items, row_bias)
-    kernel = "lse_fwd" if row_bias is None else "lse_bias_fwd"
+        return lse_shift_sums_reference(sessions, items)
+    _native.require_cuda_f32("lse_shift_fwd", sessions=sessions, items=items)
+    m, n, _ = _check("lse_shift_fwd", sessions, items)
+    shift = lse_shift(sessions, items).contiguous()
+    if m == 0 or n == 0:
+        return shift, torch.zeros_like(shift), torch.zeros_like(shift)
+    l_part, l2_part = _launch_chunked_lse("lse_shift_fwd", sessions, items, shift)
+    return shift, l_part.sum(dim=0), l2_part.sum(dim=0)  # fixed-order sums over the chunks
+
+
+def streaming_lse_fwd(
+    sessions: torch.Tensor,
+    items: torch.Tensor,
+    row_bias: tp.Optional[torch.Tensor] = None,
+    bounded_shift: bool = False,
+) -> torch.Tensor:
+    """(M,) float32 lse, no autograd: with a bias kernel 8; without one
+    kernel 16 for ``bounded_shift``, else kernel 6 (or 15 when
+    ``USE_PARTIALS_FWD`` is False)."""
+    if row_bias is None and bounded_shift:
+        return select_shift_window(*lse_shift_sums(sessions, items))
+    partials = USE_PARTIALS_FWD
+    if sessions.device.type == "cpu":
+        if row_bias is not None:
+            return streaming_lse_bias_reference(sessions, items, row_bias)
+        twin = streaming_lse_partials_reference if partials else streaming_lse_reference
+        return twin(sessions, items)
+    kernel = "lse_bias_fwd" if row_bias is not None else "lse_partials_fwd" if partials else "lse_fwd"
     tensors = {"sessions": sessions, "items": items}
     if row_bias is not None:
         tensors["row_bias"] = row_bias
     _native.require_cuda_f32(kernel, **tensors)
     m, n, d = _check(kernel, sessions, items)
+    if row_bias is None and partials:
+        if m == 0 or n == 0:
+            return torch.full((m,), float("-inf"), device=sessions.device)
+        return combine_lse_partials(*_launch_chunked_lse(kernel, sessions, items, None))
     lse = torch.empty((m,), dtype=torch.float32, device=sessions.device)
     lib = _native.load("softmax_lse", _SIGNATURES)
     stream = _native.current_stream_ptr(sessions.device)
@@ -202,17 +376,61 @@ def streaming_lse_fwd(
 
 def fused_bwd_plan(m: int, n: int, d: int, n_sms: int) -> tp.Tuple[int, int, int]:
     """(tiles per session group, n_groups, bytes of partials) of the fused
-    backward: one block per (item chunk, session group), and no more blocks
-    than ``FUSED_BWD_BLOCKS_PER_SM`` per multiprocessor, so that all run in one
-    wave (a few blocks over it and the last ones run alone: twice the time).
-    Two blocks share a multiprocessor's registers and shared memory at
-    D <= 128, and two hide each other's latency: one per multiprocessor
-    measured a third slower."""
+    backward kernels (9 and 12): one block per (item chunk, session group),
+    and no more blocks than ``FUSED_BWD_BLOCKS_PER_SM`` per multiprocessor, so
+    that all run in one wave (a few blocks over it and the last ones run
+    alone: twice the time). Two blocks share a multiprocessor's registers and
+    shared memory at D <= 128, and two hide each other's latency: one per
+    multiprocessor measured a third slower."""
     n_chunks = max(1, -(-n // FUSED_BWD_CHUNK))
     m_tiles = max(1, -(-m // TILE))
     tiles_per_group = -(-m_tiles // max(1, FUSED_BWD_BLOCKS_PER_SM * n_sms // n_chunks))
     n_groups = -(-m_tiles // tiles_per_group)
     return tiles_per_group, n_groups, (n_chunks * m + n_groups * n) * d * 4
+
+
+def _fused_or_split(
+    prefix: str, sessions: torch.Tensor, items: torch.Tensor, row_pointers: tp.Tuple[int, ...]
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """(ds, di) from ``{prefix}_fused_f32`` while its partials fit
+    ``FUSED_BWD_PARTIALS_BUDGET``, else from ``{prefix}_ds_f32`` and
+    ``{prefix}_di_f32``; ``row_pointers`` are the kernels' inputs after the
+    sessions and the items. Launch keys: ``{prefix}_fused`` / ``_ds`` / ``_di``."""
+    m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
+    if m == 0 or n == 0:
+        return torch.zeros_like(sessions), torch.zeros_like(items)
+    n_sms = torch.cuda.get_device_properties(sessions.device).multi_processor_count
+    tiles_per_group, n_groups, partials_bytes = fused_bwd_plan(m, n, d, n_sms)
+    lib = _native.load("softmax_lse", _SIGNATURES)
+    stream = _native.current_stream_ptr(sessions.device)
+    args = (sessions.data_ptr(), items.data_ptr(), *row_pointers)
+    if partials_bytes <= FUSED_BWD_PARTIALS_BUDGET:
+        n_chunks = -(-n // FUSED_BWD_CHUNK)
+        ds_part = torch.empty((n_chunks, m, d), dtype=torch.float32, device=sessions.device)
+        di_part = torch.empty((n_groups, n, d), dtype=torch.float32, device=sessions.device)
+        with torch.cuda.device(sessions.device):
+            status = getattr(lib, f"{prefix}_fused_f32")(
+                *args, ds_part.data_ptr(), di_part.data_ptr(), m, n, d, FUSED_BWD_CHUNK, tiles_per_group, stream
+            )
+        _native.check_launch(f"{prefix}_fused", status)
+        # fixed-order sums of the partials
+        ds = ds_part.sum(dim=0) if n_chunks > 1 else ds_part[0]
+        di = di_part.sum(dim=0) if n_groups > 1 else di_part[0]
+        return ds, di
+    ds = torch.empty_like(sessions)
+    di = torch.empty_like(items)
+    with torch.cuda.device(sessions.device):
+        status = getattr(lib, f"{prefix}_ds_f32")(*args, ds.data_ptr(), m, n, d, stream)
+        _native.check_launch(f"{prefix}_ds", status)
+        status = getattr(lib, f"{prefix}_di_f32")(*args, di.data_ptr(), m, n, d, stream)
+    _native.check_launch(f"{prefix}_di", status)
+    return ds, di
+
+
+def _fused_on_the_card(m: int, n: int, d: int) -> bool:
+    """Whether the card would take the fused kernel; the CPU twins keep that
+    summation order (132 = an H100's multiprocessors)."""
+    return fused_bwd_plan(m, n, d, 132)[2] <= FUSED_BWD_PARTIALS_BUDGET
 
 
 def streaming_lse_bwd(
@@ -228,52 +446,24 @@ def streaming_lse_bwd(
         row_bias = torch.zeros((items.shape[0],), dtype=torch.float32, device=items.device)
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
     if sessions.device.type == "cpu":
-        # the twin keeps the kernels' two summation orders; 132 = an H100's multiprocessors
-        fused = fused_bwd_plan(m, n, d, 132)[2] <= FUSED_BWD_PARTIALS_BUDGET
-        return streaming_lse_bwd_reference(sessions, items, row_bias, lse, dlse, partials=fused)
+        return streaming_lse_bwd_reference(sessions, items, row_bias, lse, dlse, partials=_fused_on_the_card(m, n, d))
     _native.require_cuda_f32(
         "lse_bwd", sessions=sessions, items=items, row_bias=row_bias, lse=lse, dlse=dlse
     )
     _check("lse_bwd", sessions, items)
     _check_vectors("lse_bwd", n, "item row", row_bias=row_bias)
     _check_vectors("lse_bwd", m, "session row", lse=lse, dlse=dlse)
-    n_sms = torch.cuda.get_device_properties(sessions.device).multi_processor_count
-    tiles_per_group, n_groups, partials_bytes = fused_bwd_plan(m, n, d, n_sms)
-    if m == 0 or n == 0:
-        return torch.zeros_like(sessions), torch.zeros_like(items)
-    lib = _native.load("softmax_lse", _SIGNATURES)
-    stream = _native.current_stream_ptr(sessions.device)
-    args = (sessions.data_ptr(), items.data_ptr(), row_bias.data_ptr(), lse.data_ptr(), dlse.data_ptr())
-    if partials_bytes <= FUSED_BWD_PARTIALS_BUDGET:
-        n_chunks = -(-n // FUSED_BWD_CHUNK)
-        ds_part = torch.empty((n_chunks, m, d), dtype=torch.float32, device=sessions.device)
-        di_part = torch.empty((n_groups, n, d), dtype=torch.float32, device=sessions.device)
-        with torch.cuda.device(sessions.device):
-            status = lib.lse_bwd_fused_f32(
-                *args, ds_part.data_ptr(), di_part.data_ptr(), m, n, d, FUSED_BWD_CHUNK, tiles_per_group, stream
-            )
-        _native.check_launch("lse_bwd_fused", status)
-        # fixed-order sums of the partials
-        ds = ds_part.sum(dim=0) if n_chunks > 1 else ds_part[0]
-        di = di_part.sum(dim=0) if n_groups > 1 else di_part[0]
-        return ds, di
-    ds = torch.empty_like(sessions)
-    di = torch.empty_like(items)
-    with torch.cuda.device(sessions.device):
-        status = lib.lse_bwd_ds_f32(*args, ds.data_ptr(), m, n, d, stream)
-        _native.check_launch("lse_bwd_ds", status)
-        status = lib.lse_bwd_di_f32(*args, di.data_ptr(), m, n, d, stream)
-    _native.check_launch("lse_bwd_di", status)
-    return ds, di
+    return _fused_or_split("lse_bwd", sessions, items, (row_bias.data_ptr(), lse.data_ptr(), dlse.data_ptr()))
 
 
 class _StreamingLSE(torch.autograd.Function):
-    """Kernel 6 or 8 forward, kernel 9 (or 10 + 11) backward; the bias is a
-    constant validity mask and gets no gradient."""
+    """Kernel 6, 15, 16 or 8 forward, kernel 9 (or 10 + 11) backward from the
+    saved lse, whichever forward made it (the JAX custom VJP's rule); the bias
+    is a constant validity mask and gets no gradient."""
 
     @staticmethod
-    def forward(ctx, sessions, items, row_bias):  # type: ignore[override]
-        lse = streaming_lse_fwd(sessions, items, row_bias)
+    def forward(ctx, sessions, items, row_bias, bounded_shift):  # type: ignore[override]
+        lse = streaming_lse_fwd(sessions, items, row_bias, bounded_shift)
         ctx.save_for_backward(sessions, items, row_bias, lse)
         return lse
 
@@ -281,7 +471,7 @@ class _StreamingLSE(torch.autograd.Function):
     def backward(ctx, dlse):  # type: ignore[override]
         sessions, items, row_bias, lse = ctx.saved_tensors
         ds, di = streaming_lse_bwd(sessions, items, row_bias, lse, dlse.float().contiguous())
-        return ds.to(sessions.dtype), di.to(items.dtype), None
+        return ds.to(sessions.dtype), di.to(items.dtype), None, None
 
 
 def streaming_lse(
@@ -291,17 +481,18 @@ def streaming_lse(
     bounded_shift: bool = False,
 ) -> torch.Tensor:
     """(M,) ``logsumexp_n(sessions @ itemsᵀ + row_bias)`` in float32,
-    differentiable in ``sessions`` and ``items``."""
-    if bounded_shift:
-        raise NotImplementedError(
-            "streaming_lse: bounded_shift is kernel 16 (rectools_tpu/ops/softmax_lse.py:50), which waits for "
-            "ROADMAP.md §1 item 1 (slice 5: kernels 12-16)"
-        )
+    differentiable in ``sessions`` and ``items``.
+
+    ``bounded_shift=True`` (no bias) takes the fixed-shift forward (kernel
+    16): exact while the Cauchy-Schwarz bound gap (``‖s_m‖ · max ‖item‖``
+    minus the row's largest logit) stays under ~120, and −inf beyond ~170
+    (both windows flushed); it is meant for callers that control their
+    embedding scale. With a bias it is ignored, as in the JAX package."""
     if row_bias is not None and row_bias.requires_grad:
         raise ValueError("streaming_lse: row_bias is a constant validity mask and cannot require a gradient")
     if torch.is_grad_enabled() and (sessions.requires_grad or items.requires_grad):
-        return _StreamingLSE.apply(sessions, items, row_bias)
-    return streaming_lse_fwd(sessions, items, row_bias)
+        return _StreamingLSE.apply(sessions, items, row_bias, bounded_shift)
+    return streaming_lse_fwd(sessions, items, row_bias, bounded_shift)
 
 
 class _ShardedStreamingLSE(torch.autograd.Function):
@@ -364,6 +555,42 @@ def sharded_streaming_lse(
     return _ShardedStreamingLSE.apply(sessions.contiguous(), items.contiguous(), mesh, shard_axis)
 
 
+def softmax_grads_from_z(
+    sessions: torch.Tensor,  # (M, D)
+    items: torch.Tensor,  # (N, D)
+    z: torch.Tensor,  # (M,) f32: lse - log(row cotangent magnitude), +inf = ignore row
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """(ds, di) = (P @ items, Pᵀ @ sessions) with ``P = exp(sessions @ itemsᵀ −
+    z)``: the nonnegative-cotangent softmax backward
+    (rectools_tpu/ops/softmax_lse.py:793-868). A caller whose per-row lse
+    cotangent is ``c >= 0`` up to one scalar sign passes ``z = lse − log(c)``
+    and applies the sign to the outputs. Kernel 12 while its partials fit
+    ``FUSED_BWD_PARTIALS_BUDGET``, else kernels 13 + 14."""
+    m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
+    if sessions.device.type == "cpu":
+        return softmax_grads_from_z_reference(sessions, items, z, partials=_fused_on_the_card(m, n, d))
+    _native.require_cuda_f32("grads_z", sessions=sessions, items=items, z=z)
+    _check("grads_z", sessions, items)
+    _check_vectors("grads_z", m, "session row", z=z)
+    return _fused_or_split("grads_z", sessions, items, (z.data_ptr(),))
+
+
+def ce_takes_split_route(m: int, n: int, d: int) -> bool:
+    """Whether the softmax-CE gradients of (M, D) session rows against an
+    (N, D) float32 catalog leave kernel 7, by the JAX package's rule: the
+    loss's f32 tiling (rectools_tpu/models/nn/transformers/losses.py:25-27,
+    121-127), capped by its backward (:214-215), then the fused kernel's ds
+    partials ``ceil(N / chunk_n) · pad(M, block_m) · D · 4`` bytes against
+    the budget (rectools_tpu/ops/softmax_lse.py:720-723). At M = 51,200 and
+    D = 128 that is (256, 4096) tiles, 26.2 MB a chunk: catalogs above 81,920
+    items take the split route."""
+    block_m, chunk_n = (256, 4096) if d <= 128 else (512, 2048)
+    block_m = min(block_m, 384)
+    chunk_n = min(chunk_n, max(1024, (4096 * 128 // max(d, 1)) // 1024 * 1024))
+    partials_bytes = -(-n // chunk_n) * (-(-m // block_m) * block_m) * d * 4
+    return partials_bytes > FUSED_BWD_PARTIALS_BUDGET
+
+
 def softmax_ce_grads_from_z(
     sessions: torch.Tensor,  # (M, D)
     items: torch.Tensor,  # (N, D)
@@ -371,16 +598,31 @@ def softmax_ce_grads_from_z(
     y: torch.Tensor,  # (M,) int label ids; rows with coeff == 0 are ignored
     coeff: torch.Tensor,  # (M,) f32 nonnegative row cotangent magnitude
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """(ds, di) = ((P − D) @ items, (P − D)ᵀ @ sessions) (kernel 7, two launches)."""
-    if sessions.device.type == "cpu":
-        return softmax_ce_grads_from_z_reference(sessions, items, z, y, coeff)
-    _native.require_cuda_f32("ce_grads", sessions=sessions, items=items, z=z, coeff=coeff)
-    m, n, d = _check("ce_grads", sessions, items)
-    if z.shape != (m,) or coeff.shape != (m,) or y.shape != (m,):
-        raise ValueError(f"ce_grads: z, y and coeff must be ({m},)")
-    if y.device != sessions.device or y.dtype.is_floating_point:
-        raise ValueError(f"ce_grads: y must be an integer tensor on {sessions.device}")
+    """(ds, di) = ((P − D) @ items, (P − D)ᵀ @ sessions): kernel 7 (two
+    launches), or above :func:`ce_takes_split_route`'s threshold the JAX
+    very-large-catalog route (rectools_tpu/ops/softmax_lse.py:748-754):
+    :func:`softmax_grads_from_z`, then ``ds −= coeff · items[y]`` and ``di −=
+    segment-sum(coeff · sessions, y)`` outside any kernel. The segment sum is
+    ``index_put_(accumulate=True)``, which sorts the labels and adds each
+    run in order: the same bits on every run (``index_add_`` would use float
+    atomics on the card)."""
+    m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
+    on_card = sessions.device.type != "cpu"
+    if on_card:
+        _native.require_cuda_f32("ce_grads", sessions=sessions, items=items, z=z, coeff=coeff)
+        _check("ce_grads", sessions, items)
+        if z.shape != (m,) or coeff.shape != (m,) or y.shape != (m,):
+            raise ValueError(f"ce_grads: z, y and coeff must be ({m},)")
+        if y.device != sessions.device or y.dtype.is_floating_point:
+            raise ValueError(f"ce_grads: y must be an integer tensor on {sessions.device}")
     y = y.to(torch.int64).contiguous()
+    if ce_takes_split_route(m, n, d):
+        ds, di = softmax_grads_from_z(sessions, items, z)
+        coeff_col = coeff[:, None]
+        labels = torch.zeros_like(items).index_put_((y,), coeff_col * sessions, accumulate=True)
+        return ds - coeff_col * items[y], di - labels
+    if not on_card:
+        return softmax_ce_grads_from_z_reference(sessions, items, z, y, coeff)
     z, coeff = z.contiguous(), coeff.contiguous()
     ds = torch.empty_like(sessions)
     di = torch.empty_like(items)

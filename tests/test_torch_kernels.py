@@ -293,15 +293,25 @@ def test_cuda_attention_dropout_bits_match_twin(cuda: torch.device) -> None:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n,d", [(51, 300, 32), (1000, 2111, 128), (64, 64, 16)])
-def test_cuda_streaming_lse_and_ce_grads_match_twin(cuda: torch.device, m: int, n: int, d: int) -> None:
+@pytest.mark.parametrize("partials", [True, False])
+@pytest.mark.parametrize("m,n,d", [(51, 300, 32), (1000, 2111, 128), (64, 64, 16), (130, 4100, 256)])
+def test_cuda_streaming_lse_and_ce_grads_match_twin(
+    cuda: torch.device, monkeypatch: pytest.MonkeyPatch, m: int, n: int, d: int, partials: bool
+) -> None:
+    """Kernel 6 (``USE_PARTIALS_FWD``) or kernel 15 against its twin, then
+    kernel 7 from that lse."""
     rng = np.random.default_rng(n)
     s = _t((0.3 * rng.normal(size=(m, d))).astype(np.float32)).to(cuda)
     items = _t((0.3 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
-    before = _native.LAUNCHES["lse_fwd"]
+    monkeypatch.setattr(softmax_lse, "USE_PARTIALS_FWD", partials)
+    key = "lse_partials_fwd" if partials else "lse_fwd"
+    before = dict(_native.LAUNCHES)
     lse = softmax_lse.streaming_lse(s, items)
-    assert _native.LAUNCHES["lse_fwd"] == before + 1
-    torch.testing.assert_close(lse, softmax_lse.streaming_lse_reference(s, items), atol=0, rtol=1e-5)
+    assert {k: _native.LAUNCHES[k] - before[k] for k in ("lse_partials_fwd", "lse_fwd")} == {
+        "lse_partials_fwd": int(partials), "lse_fwd": int(not partials)}
+    twin = softmax_lse.streaming_lse_partials_reference if partials else softmax_lse.streaming_lse_reference
+    torch.testing.assert_close(lse, twin(s, items), atol=0, rtol=1e-5)
+    assert _native.LAUNCHES[key] == before[key] + 1
     y = _t(rng.integers(0, n, size=m)).to(cuda)
     coeff = _t(rng.uniform(0, 1e-2, size=m).astype(np.float32)).to(cuda)
     coeff[::7] = 0.0  # ignored rows: z = +inf
@@ -311,6 +321,87 @@ def test_cuda_streaming_lse_and_ce_grads_match_twin(cuda: torch.device, m: int, 
     for got, ref in ((ds, ref_ds), (di, ref_di)):
         assert torch.isfinite(got).all()
         assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [0.3, 1.0, 1.5, 4.0])
+@pytest.mark.parametrize("m,n,d", [(51, 300, 32), (700, 4500, 128)])
+def test_cuda_lse_shift_matches_twin(cuda: torch.device, m: int, n: int, d: int, scale: float) -> None:
+    """Kernel 16 against its twin on the card: both windows, and past the
+    contract (scale 4 at d = 32) -inf rows where the gap passes ~170, never
+    NaN. Rows with a gap between 120 and 170 are left out: the twin's sums and
+    the kernel's round differently near the flush."""
+    rng = np.random.default_rng(m + n)
+    s = _t((scale * rng.normal(size=(m, d)) / np.sqrt(d / 32)).astype(np.float32)).to(cuda)
+    items = _t((scale * rng.normal(size=(n, d)) / np.sqrt(d / 32)).astype(np.float32)).to(cuda)
+    before = _native.LAUNCHES["lse_shift_fwd"]
+    got = softmax_lse.streaming_lse(s, items, bounded_shift=True)
+    assert _native.LAUNCHES["lse_shift_fwd"] == before + 1
+    ref = softmax_lse.streaming_lse_shift_reference(s, items)
+    gap = softmax_lse.lse_shift(s, items) - (s @ items.T).max(dim=1).values
+    assert not torch.isnan(got).any()
+    inside, outside = gap < 120, gap > 170
+    torch.testing.assert_close(got[inside], ref[inside], atol=1e-6, rtol=1e-5)
+    assert torch.isneginf(got[outside]).all() and torch.isneginf(ref[outside]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["fused", "split"])
+@pytest.mark.parametrize("m,n,d", [(51, 300, 32), (1000, 2111, 128), (64, 64, 16), (130, 4177, 256)])
+def test_cuda_softmax_grads_from_z_match_twins(
+    cuda: torch.device, monkeypatch: pytest.MonkeyPatch, m: int, n: int, d: int, route: str
+) -> None:
+    """Kernel 12 (or 13 + 14 with the budget forced to 0) against its twin in
+    the same summation order; z = +inf rows give exactly 0 in ds; the same
+    bits on a second run."""
+    rng = np.random.default_rng(3 * n + m)
+    s = _t((0.3 * rng.normal(size=(m, d))).astype(np.float32)).to(cuda)
+    items = _t((0.3 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+    coeff = _t(rng.uniform(0, 1e-2, size=m).astype(np.float32)).to(cuda)
+    coeff[::5] = 0.0
+    z = softmax_lse.streaming_lse(s, items) - torch.log(coeff)
+    if route == "split":
+        monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 0)
+    before = dict(_native.LAUNCHES)
+    ds, di = softmax_lse.softmax_grads_from_z(s, items, z)
+    launched = {k: _native.LAUNCHES[k] - before[k] for k in ("grads_z_fused", "grads_z_ds", "grads_z_di")}
+    assert launched == ({"grads_z_fused": 1, "grads_z_ds": 0, "grads_z_di": 0} if route == "fused"
+                        else {"grads_z_fused": 0, "grads_z_ds": 1, "grads_z_di": 1})
+    ref = softmax_lse.softmax_grads_from_z_reference(s, items, z, partials=route == "fused")
+    for got, expected in zip((ds, di), ref):
+        assert torch.isfinite(got).all()
+        assert (got - expected).abs().max().item() <= 1e-4 * expected.abs().max().item()
+    assert not ds[coeff == 0].any()
+    again = softmax_lse.softmax_grads_from_z(s, items, z)
+    assert torch.equal(again[0], ds) and torch.equal(again[1], di)  # no atomics: the same bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,d", [(300, 5000, 64), (1000, 2111, 128)])
+def test_cuda_ce_split_route_matches_kernel_7(
+    cuda: torch.device, monkeypatch: pytest.MonkeyPatch, m: int, n: int, d: int
+) -> None:
+    """The very-large-catalog route of the CE gradients (kernels 13 + 14 and
+    the label term in torch, the budget forced to 0) against kernel 7 on the
+    same inputs, and its bits on a second run (the label sum has no atomics)."""
+    rng = np.random.default_rng(m * n)
+    s = _t((0.3 * rng.normal(size=(m, d))).astype(np.float32)).to(cuda)
+    items = _t((0.3 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+    y = _t(rng.integers(0, n, size=m)).to(cuda)
+    y[:40] = 7  # repeated labels: several rows add into one di row
+    coeff = _t(rng.uniform(0, 1e-2, size=m).astype(np.float32)).to(cuda)
+    coeff[::7] = 0.0
+    z = softmax_lse.streaming_lse(s, items) - torch.log(coeff)
+    kernel_7 = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 0)
+    before = dict(_native.LAUNCHES)
+    route = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    launched = {k: _native.LAUNCHES[k] - before[k] for k in ("ce_grads_ds", "ce_grads_di", "grads_z_ds", "grads_z_di")}
+    assert launched == {"ce_grads_ds": 0, "ce_grads_di": 0, "grads_z_ds": 1, "grads_z_di": 1}
+    for got, expected in zip(route, kernel_7):
+        assert (got - expected).abs().max().item() <= 1e-4 * expected.abs().max().item()
+    again = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    assert torch.equal(again[0], route[0]) and torch.equal(again[1], route[1])
 
 
 @pytest.mark.gpu
@@ -336,7 +427,8 @@ def test_cuda_biased_lse_and_its_vjp_match_twins(
     assert _native.LAUNCHES["lse_bias_fwd"] == before["lse_bias_fwd"] + 1
     assert torch.isfinite(lse).all()
     torch.testing.assert_close(lse, softmax_lse.streaming_lse_bias_reference(s, items, bias), atol=1e-6, rtol=1e-5)
-    if not n_invalid:  # an all-zero bias is kernel 6's result, bit for bit
+    if not n_invalid:  # an all-zero bias is kernel 15's result, bit for bit
+        monkeypatch.setattr(softmax_lse, "USE_PARTIALS_FWD", False)
         assert torch.equal(lse, softmax_lse.streaming_lse_fwd(s, items))
     if route == "split":
         monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 0)
@@ -372,7 +464,8 @@ def test_cuda_streaming_lse_autograd_matches_cpu(cuda: torch.device) -> None:
 @pytest.mark.gpu
 def test_cuda_sasrec_fit_matches_cpu(cuda: torch.device) -> None:
     """Three train steps with dropout on the card and on the CPU twins, from the
-    same start weights and the same dropout generator seed."""
+    same start weights (the fit's own Xavier init from the model's seed) and
+    the same dropout generator seed."""
     import pandas as pd
 
     from rectools_tpu_torch import Columns
@@ -392,6 +485,7 @@ def test_cuda_sasrec_fit_matches_cpu(cuda: torch.device) -> None:
     models = {dev: SASRecModel(**config, device=dev) for dev in ("cpu", "cuda")}
     for model in models.values():
         model._build_model_from_dataset(dataset)
+    models["cpu"].training_module.init_params()
     start = {k: v.clone() for k, v in models["cpu"].backbone.state_dict().items()}
     for model in models.values():
         model.training_module.load_params(start)
@@ -399,7 +493,7 @@ def test_cuda_sasrec_fit_matches_cpu(cuda: torch.device) -> None:
     for model in models.values():
         model.training_module.fit(model.data_preparator.get_dataloader_train,
                                   model.data_preparator.get_dataloader_val, 1)
-    assert _native.LAUNCHES["lse_fwd"] == 3 and _native.LAUNCHES["ce_grads_di"] == 3
+    assert _native.LAUNCHES["lse_partials_fwd"] == 3 and _native.LAUNCHES["ce_grads_di"] == 3
     assert _native.LAUNCHES["attention_bwd"] == 6 and _native.LAUNCHES["layer_norm_bwd"] == 15
     cpu_loss = models["cpu"].training_module.train_loss_history
     gpu_loss = models["cuda"].training_module.train_loss_history

@@ -168,14 +168,251 @@ def test_streaming_lse_matches_jax(m: int, n: int) -> None:
 
 
 def test_streaming_lse_refuses_unported_routes() -> None:
+    """No route of the JAX ``streaming_lse`` is refused any more: a row bias
+    (kernel 8) and ``bounded_shift`` (kernel 16) both run."""
     s = _t(np.zeros((4, 16), np.float32))
-    # a row bias is ported (kernel 8): an all-zero bias changes nothing
-    np.testing.assert_array_equal(
-        softmax_lse.streaming_lse(s, s, row_bias=_t(np.zeros(4, np.float32))).numpy(),
-        softmax_lse.streaming_lse(s, s).numpy(),
-    )
-    with pytest.raises(NotImplementedError, match="kernel 16"):
-        softmax_lse.streaming_lse(s, s, bounded_shift=True)
+    plain = softmax_lse.streaming_lse(s, s).numpy()
+    # an all-zero bias changes nothing
+    np.testing.assert_array_equal(softmax_lse.streaming_lse(s, s, row_bias=_t(np.zeros(4, np.float32))).numpy(), plain)
+    # zero rows: shift 0, every logit 0, window 1 holds log 4
+    np.testing.assert_allclose(softmax_lse.streaming_lse(s, s, bounded_shift=True).numpy(), plain, rtol=1e-6)
+    np.testing.assert_allclose(plain, np.full(4, np.log(4.0), np.float32), rtol=1e-6)
+
+
+def _jump_case(kind: str):
+    """The forward cases of tests/ops/test_softmax_lse.py:80-106: a logit ~400
+    above every earlier chunk's max in the last chunk ("up"), or later chunks
+    far below the first one's max ("down")."""
+    if kind == "up":
+        rng = np.random.default_rng(3)
+        s = rng.normal(size=(8, 32)).astype(np.float32)
+        items = rng.normal(scale=0.1, size=(256, 32)).astype(np.float32)
+        items[200] = 400.0 * s[0] / np.linalg.norm(s[0]) ** 2
+        return s, items.astype(np.float32)
+    rng = np.random.default_rng(5)
+    s = rng.normal(size=(4, 16)).astype(np.float32)
+    items = np.concatenate([rng.normal(scale=3.0, size=(64, 16)), rng.normal(scale=0.001, size=(192, 16))])
+    return s, items.astype(np.float32)
+
+
+@pytest.mark.parametrize("partials", [True, False])
+@pytest.mark.parametrize("case", ["50x300", "64x129", "up", "down"])
+def test_lse_forward_kernels_match_jax(monkeypatch, case: str, partials: bool) -> None:
+    """Kernel 6's twin (per-chunk partials, combined) with ``USE_PARTIALS_FWD``
+    and kernel 15's (one running max) without, against the JAX forward with
+    ``_USE_PARTIALS_FWD`` set alike, in interpret mode: 1e-5 relative."""
+    if case in ("up", "down"):
+        s, items = _jump_case(case)
+    else:
+        m, n = map(int, case.split("x"))
+        _, s, items = _lse_inputs(m, n, 32, seed=m * n)
+    monkeypatch.setattr(jax_softmax_lse, "_USE_PARTIALS_FWD", partials)
+    monkeypatch.setattr(softmax_lse, "USE_PARTIALS_FWD", partials)
+    expected = np.asarray(jax_softmax_lse.streaming_lse(jnp.asarray(s), jnp.asarray(items), None, 16, 64, True))
+    got = softmax_lse.streaming_lse(_t(s), _t(items)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, expected, rtol=1e-5)
+    twin = softmax_lse.streaming_lse_partials_reference if partials else softmax_lse.streaming_lse_reference
+    np.testing.assert_allclose(twin(_t(s), _t(items), chunk=64).numpy(), expected, rtol=1e-5)
+    if case == "up":  # the jump lands in the last of four chunks
+        assert got[0] > 399.0
+
+
+def test_lse_partials_combine_is_the_jax_formula() -> None:
+    """The twin's partials are each chunk's (max, Σexp) and the combine is
+    rectools_tpu/ops/softmax_lse.py:411-413."""
+    _, s, items = _lse_inputs(9, 130, 16, seed=1)
+    logits = _t(s) @ _t(items).T
+    chunks = [logits[:, i : i + 64] for i in range(0, 130, 64)]  # 64, 64, 2 columns
+    m_part = torch.stack([c.max(dim=1).values for c in chunks])
+    l_part = torch.stack([torch.exp(c - c.max(dim=1, keepdim=True).values).sum(dim=1) for c in chunks])
+    m_all = m_part.max(dim=0).values
+    expected = m_all + torch.log((l_part * torch.exp(m_part - m_all)).sum(dim=0))
+    torch.testing.assert_close(softmax_lse.combine_lse_partials(m_part, l_part), expected, rtol=0, atol=0)
+    torch.testing.assert_close(softmax_lse.streaming_lse_partials_reference(_t(s), _t(items), chunk=64), expected,
+                               rtol=0, atol=0)
+
+
+def _z_case(m: int, n: int, seed: int):
+    rng, s, items = _lse_inputs(m, n, 32, seed=seed)
+    coeff = rng.uniform(0.0, 0.05, size=m).astype(np.float32)
+    coeff[::5] = 0.0  # ignored rows: z = +inf
+    lse = np.asarray(jax_softmax_lse.reference_lse(jnp.asarray(s), jnp.asarray(items)))
+    with np.errstate(divide="ignore"):
+        z = (lse - np.log(coeff)).astype(np.float32)
+    return rng, s, items, z, coeff
+
+
+@pytest.mark.parametrize("route", ["fused", "split"])
+@pytest.mark.parametrize("m,n", [(50, 300), (64, 129), (33, 70)])  # ragged against block_m = 16 and chunk_n = 64
+def test_softmax_grads_from_z_matches_jax(monkeypatch, m: int, n: int, route: str) -> None:
+    """Kernel 12's twin (one ds partial per chunk) or, with the budget forced
+    to 0 on both sides, kernels 13 + 14's (a running sum) against the JAX op in
+    interpret mode, with z = +inf rows and a ragged tail; the tolerance of the
+    CE gradients' test. z = +inf rows give exactly 0 in ds."""
+    _, s, items, z, coeff = _z_case(m, n, seed=5 * m + n)
+    if route == "split":
+        monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 0)
+        monkeypatch.setattr(jax_softmax_lse, "_FUSED_BWD_PARTIALS_BUDGET", 0)
+    orders = []
+    twin = softmax_lse.softmax_grads_from_z_reference
+    monkeypatch.setattr(softmax_lse, "softmax_grads_from_z_reference",
+                        lambda *a, **k: orders.append(k["partials"]) or twin(*a, **k))
+    ds_jax, di_jax = jax_softmax_lse.softmax_grads_from_z(*map(jnp.asarray, (s, items, z)), 16, 64, True)
+    ds, di = softmax_lse.softmax_grads_from_z(_t(s), _t(items), _t(z))
+    assert orders == [route == "fused"]
+    np.testing.assert_allclose(ds.numpy(), np.asarray(ds_jax), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(di.numpy(), np.asarray(di_jax), atol=1e-5, rtol=1e-5)
+    assert not ds.numpy()[coeff == 0].any()
+    # the twin's chunking is its own
+    small = twin(_t(s), _t(items), _t(z), chunk=7, partials=route == "fused")
+    for got, expected in zip(small, (ds_jax, di_jax)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(expected), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("m,n", [(50, 300), (64, 129)])
+def test_ce_split_route_matches_jax_fallback(monkeypatch, m: int, n: int) -> None:
+    """With the partials budget lowered on both sides, the JAX CE op takes its
+    very-large-catalog fallback (softmax_lse.py:748-754: the spy sees its
+    ``softmax_grads_from_z``) and the port takes the same route: its
+    ``softmax_grads_from_z`` in the split order (kernels 13 + 14, not 12), then
+    the label term. Both agree, and equal the port's kernel-7 twin."""
+    rng, s, items, z, coeff = _z_case(m, n, seed=11 * m + n)
+    y = rng.integers(0, n, size=m).astype(np.int32)
+    monkeypatch.setattr(jax_softmax_lse, "_FUSED_BWD_PARTIALS_BUDGET", 0)
+    monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 0)
+    calls = {"jax": 0, "port": 0, "orders": []}
+    jax_gz, port_gz, twin = (jax_softmax_lse.softmax_grads_from_z, softmax_lse.softmax_grads_from_z,
+                             softmax_lse.softmax_grads_from_z_reference)
+
+    def jax_spy(*a, **k):
+        calls["jax"] += 1
+        return jax_gz(*a, **k)
+
+    def port_spy(*a, **k):
+        calls["port"] += 1
+        return port_gz(*a, **k)
+
+    monkeypatch.setattr(jax_softmax_lse, "softmax_grads_from_z", jax_spy)
+    monkeypatch.setattr(softmax_lse, "softmax_grads_from_z", port_spy)
+    monkeypatch.setattr(softmax_lse, "softmax_grads_from_z_reference",
+                        lambda *a, **k: calls["orders"].append(k["partials"]) or twin(*a, **k))
+    ds_jax, di_jax = jax_softmax_lse.softmax_ce_grads_from_z(*map(jnp.asarray, (s, items, z, y, coeff)), 16, 64, True)
+    yt = _t(y.astype(np.int64))
+    assert softmax_lse.ce_takes_split_route(m, n, 32)
+    ds, di = softmax_lse.softmax_ce_grads_from_z(_t(s), _t(items), _t(z), yt, _t(coeff))
+    assert calls == {"jax": 1, "port": 1, "orders": [False]}
+    np.testing.assert_allclose(ds.numpy(), np.asarray(ds_jax), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(di.numpy(), np.asarray(di_jax), atol=1e-5, rtol=1e-5)
+    kernel_7 = softmax_lse.softmax_ce_grads_from_z_reference(_t(s), _t(items), _t(z), yt, _t(coeff))
+    for got, expected in zip((ds, di), kernel_7):
+        np.testing.assert_allclose(got.numpy(), expected.numpy(), atol=1e-5 * expected.abs().max().item())
+    again = softmax_lse.softmax_ce_grads_from_z(_t(s), _t(items), _t(z), yt, _t(coeff))
+    assert all(torch.equal(a, g) for a, g in zip(again, (ds, di)))
+
+
+def _jax_ce_takes_split_route(m: int, n: int, d: int) -> bool:
+    """The decision as the JAX package makes it for an f32 fit: the tiling of
+    ``fused_softmax_loss``, the caps of ``_fused_ce_bwd``, the bytes and the
+    budget of ``softmax_ce_grads_from_z``."""
+    if d <= 128:
+        block_m, chunk_n = jax_losses._NARROW_D_TILING_F32
+    else:
+        block_m, chunk_n = jax_softmax_lse.DEFAULT_BLOCK_M, jax_softmax_lse.DEFAULT_CHUNK_N
+    chunk_cap = max(1024, (4096 * 128 // max(d, 1)) // 1024 * 1024)
+    block_m, chunk_n = min(block_m, 384), min(chunk_n, chunk_cap)
+    padded_m = -(-m // block_m) * block_m
+    return -(-n // chunk_n) * padded_m * d * 4 > jax_softmax_lse._FUSED_BWD_PARTIALS_BUDGET
+
+
+@pytest.mark.parametrize(
+    "m,n,d,split",
+    [(51200, 81920, 128, False), (51200, 81921, 128, True), (51200, 15872, 128, False), (51200, 131072, 128, True),
+     (51200, 20480, 256, False), (51200, 20481, 256, True), (640, 3000, 64, False), (52224, 81920, 128, False),
+     (52225, 81920, 128, True)],
+)
+def test_ce_route_threshold_is_the_jax_rule(m: int, n: int, d: int, split: bool) -> None:
+    """At the KION training width (512 x 100 rows, d = 128) 81,920 items stay
+    on kernel 7 and 81,921 leave it; at d = 256, 20,480 and 20,481; at 81,920
+    items, 52,225 rows pad to a 205th block of 256 and pass the budget where
+    52,224 do not. The port's own plan puts
+    the 131,072-item catalog over budget too: the route runs kernels 13 + 14."""
+    assert softmax_lse.ce_takes_split_route(m, n, d) == _jax_ce_takes_split_route(m, n, d) == split
+    if (m, n, d) == (51200, 131072, 128):
+        assert softmax_lse.fused_bwd_plan(m, n, d, 132)[2] > softmax_lse.FUSED_BWD_PARTIALS_BUDGET
+
+
+def _shift_case(scale: float, m: int = 60, n: int = 300, d: int = 32, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    s = (scale * rng.normal(size=(m, d))).astype(np.float32)
+    items = (scale * rng.normal(size=(n, d))).astype(np.float32)
+    return s, items
+
+
+def _bound_gap(s: np.ndarray, items: np.ndarray) -> np.ndarray:
+    logits = s.astype(np.float64) @ items.astype(np.float64).T
+    shift = np.linalg.norm(s.astype(np.float64), axis=1) * np.linalg.norm(items.astype(np.float64), axis=1).max()
+    return shift - logits.max(axis=1)
+
+
+@pytest.mark.parametrize("scale", [0.3, 1.0, 1.5])
+def test_bounded_shift_matches_jax(scale: float) -> None:
+    """Kernel 16's twin against the JAX fixed-shift kernel in interpret mode
+    (tests/ops/test_softmax_lse.py:26-37: scales 1.0 and 1.5; 0.3 keeps every
+    row in window 1, 1.5 sends every row to window 2): 1e-5 relative."""
+    s, items = _shift_case(scale)
+    expected = np.asarray(jax_softmax_lse.streaming_lse(jnp.asarray(s), jnp.asarray(items), None, 16, 64, True, True))
+    got = softmax_lse.streaming_lse(_t(s), _t(items), bounded_shift=True).numpy()
+    np.testing.assert_allclose(got, expected, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(jax_softmax_lse.reference_lse(jnp.asarray(s), jnp.asarray(items))),
+                               rtol=1e-5, atol=1e-6)
+    shift, l, l2 = softmax_lse.lse_shift_sums_reference(_t(s), _t(items), chunk=64)
+    window_1 = (l >= softmax_lse.WINDOW1_FLOOR).numpy()
+    assert {0.3: window_1.all(), 1.0: True, 1.5: not window_1.any()}[scale]
+    np.testing.assert_allclose(softmax_lse.select_shift_window(shift, l, l2).numpy(), expected, rtol=1e-5, atol=1e-6)
+
+
+def test_bounded_shift_past_the_contract_gives_the_same_minus_inf_rows() -> None:
+    """Rows whose bound gap passes ~170 flush both windows: -inf in both
+    packages, never NaN. Rows under a gap of 120 stay exact. Rows between are
+    left out: XLA flushes subnormals to zero and the twin (like the card)
+    keeps them, so near window 2's horizon JAX may give -inf where the port
+    gives a finite value."""
+    s, items = _shift_case(1.0, m=80, n=200, seed=2)
+    s = (s * np.linspace(0.2, 9.0, 80, dtype=np.float32)[:, None] * 1.6).astype(np.float32)
+    gap = _bound_gap(s, items)
+    inside, outside = gap < 120.0, gap > 170.0
+    assert inside.sum() >= 10 and outside.sum() >= 10
+    expected = np.asarray(jax_softmax_lse.streaming_lse(jnp.asarray(s), jnp.asarray(items), None, 16, 64, True, True))
+    got = softmax_lse.streaming_lse(_t(s), _t(items), bounded_shift=True).numpy()
+    assert not np.isnan(got).any() and not np.isnan(expected).any()
+    np.testing.assert_array_equal(np.isneginf(got[outside]), np.ones(outside.sum(), bool))
+    np.testing.assert_array_equal(np.isneginf(expected[outside]), np.ones(outside.sum(), bool))
+    assert np.isfinite(got[inside]).all()
+    np.testing.assert_allclose(got[inside], expected[inside], rtol=1e-5, atol=1e-6)
+
+
+def test_bounded_shift_gradients_match_jax_and_a_bias_ignores_it() -> None:
+    """The backward is kernel 9's (or 10 + 11's) from the saved lse, as JAX's
+    custom VJP; with a bias JAX runs kernel 8 whatever ``bounded_shift`` says,
+    and so does the port."""
+    s, items = _shift_case(1.0, m=45, n=150, seed=4)
+    dlse = np.random.default_rng(9).normal(size=45).astype(np.float32)
+
+    def value(s_, i_):
+        return jnp.sum(jax_softmax_lse.streaming_lse(s_, i_, None, 16, 64, True, True) * dlse)
+
+    eds, edi = jax.grad(value, argnums=(0, 1))(jnp.asarray(s), jnp.asarray(items))
+    ts, ti = _t(s, True), _t(items, True)
+    (softmax_lse.streaming_lse(ts, ti, bounded_shift=True) * _t(dlse)).sum().backward()
+    np.testing.assert_allclose(ts.grad.numpy(), np.asarray(eds), atol=1e-5 * np.abs(eds).max())
+    np.testing.assert_allclose(ti.grad.numpy(), np.asarray(edi), atol=1e-5 * np.abs(edi).max())
+    bias = np.zeros(150, np.float32)
+    bias[-9:] = -1e30
+    with_shift = softmax_lse.streaming_lse(_t(s), _t(items), _t(bias), bounded_shift=True)
+    torch.testing.assert_close(with_shift, softmax_lse.streaming_lse(_t(s), _t(items), _t(bias)), rtol=0, atol=0)
+    expected = jax_softmax_lse.streaming_lse(jnp.asarray(s), jnp.asarray(items), jnp.asarray(bias), 16, 64, True, True)
+    np.testing.assert_allclose(with_shift.numpy(), np.asarray(expected), rtol=1e-5, atol=1e-6)
 
 
 def _biased_case(m: int, n: int, d: int, invalid: str):

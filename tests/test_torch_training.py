@@ -34,6 +34,7 @@ from rectools_tpu_torch.models.nn.transformers import (
 )
 from rectools_tpu_torch.models.nn.transformers.negative_sampler import CatalogUniformSampler
 from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+from rectools_tpu_torch.ops import softmax_lse
 
 CONFIG = dict(n_blocks=2, n_heads=2, n_factors=32, session_max_len=20, batch_size=32, epochs=1, seed=5)
 TRAINING_KWARGS = {"fused_softmax_chunk": 64, "val_recall_k": 5}
@@ -144,6 +145,25 @@ def test_one_epoch_fit_matches_jax(jax_run) -> None:
     np.testing.assert_allclose(tm.val_loss_history, jax_tm.val_loss_history, rtol=1e-4)
     assert tm.val_metric_history.keys() == jax_tm.val_metric_history.keys() == {"val_recall@5"}
     np.testing.assert_allclose(tm.val_metric_history["val_recall@5"], jax_tm.val_metric_history["val_recall@5"])
+    _assert_params_close(model, jax_run["final"], atol=1e-4, steps=tm.global_step)
+
+
+def test_one_epoch_fit_through_the_very_large_catalog_route_matches_jax(jax_run, monkeypatch) -> None:
+    """With the partials budget forced to 0 every step's CE gradients take the
+    route a catalog above 81,920 items takes at the KION width: the softmax
+    gradients from z in the split order (kernels 13 + 14) and the label term in
+    plain torch. The epoch still follows the JAX fit (1e-4)."""
+    monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 0)
+    orders = []
+    twin = softmax_lse.softmax_grads_from_z_reference
+    monkeypatch.setattr(softmax_lse, "softmax_grads_from_z_reference",
+                        lambda *a, **k: orders.append(k["partials"]) or twin(*a, **k))
+    model = _port_model(jax_run["df"], jax_run["start"])
+    tm, jax_tm = model.training_module, jax_run["tm"]
+    tm.fit(model.data_preparator.get_dataloader_train, model.data_preparator.get_dataloader_val, max_epochs=1)
+    assert orders == [False] * tm.global_step and tm.global_step == jax_tm.global_step == 7
+    np.testing.assert_allclose(tm.train_loss_history, jax_tm.train_loss_history, rtol=1e-4)
+    np.testing.assert_allclose(tm.val_loss_history, jax_tm.val_loss_history, rtol=1e-4)
     _assert_params_close(model, jax_run["final"], atol=1e-4, steps=tm.global_step)
 
 
