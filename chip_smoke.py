@@ -21,10 +21,15 @@ own lines; any failure exits nonzero and prints no result:
              shift at these inputs and scaled so that window 2 serves the
              rows, with the share of rows in each window); the softmax
              gradients from z (kernel 12, bit-equal on a rerun; kernels 13 +
-             14 at 15,872, at the odd catalog and at 131,072 items); the
-             fused CE gradients (kernel 7); at 51,200 x 131,072 the CE
-             gradients' very-large-catalog route against kernel 7 on the same
-             inputs, bit-equal on a rerun.
+             14 at 15,872, at the odd catalog and at 131,072 items); the CE
+             gradients (kernel 7) in one pass, bit-equal on a rerun, and its
+             two launches with the partials budget forced below the fused
+             plan's; at 51,200 x 131,072 the CE gradients' very-large-catalog
+             route against kernel 7's one pass on the same inputs (the budget
+             lifted: 1.7 GiB of partials), bit-equal on a rerun. Kernels 7, 9
+             and 12 run 3xTF32 tensor-core products: their bound is counted
+             at 495 TFLOP/s TF32, three products per f32 product, with the
+             FP32 bound beside it.
 4. main    — SASRecModel serving at the KION width: a synthetic KION-shaped
              frame (8,192 users, sessions of 1-300 Zipf-drawn items over
              15,871 ids) -> Dataset.construct -> load_jax_params with random
@@ -118,6 +123,10 @@ N_BLOCKS = 2
 K = 10
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores, data sheet
+PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores, data sheet
+# kernels 7, 9 and 12 on the SIMT tile, before they moved to the tensor cores (PERF.md §6, NVIDIA H100 80GB
+# HBM3 at 700 W; kernel 7 then its two launches), printed beside this run's times
+SIMT_TILE_MS = {"ce_grads": 33.2298, "lse_bwd_fused": 24.6118, "grads_z_fused": 24.3758}
 LN_TOL = 1e-5
 ATTN_TOL = 1e-5
 SCORE_RTOL, SCORE_ATOL, TIE_GAP = 1e-4, 1e-4, 1e-4  # GPU vs CPU run: f32 sums in another order
@@ -128,6 +137,10 @@ EPOCHS = 2
 LN_BWD_TOL = 1e-5  # dx absolute; dgamma and dbeta relative to their largest entry (sums over 51,200 rows)
 LSE_RTOL = 1e-5  # relative, per row: one column of 15,872 left out moves an lse of about 10 by 6e-6 relative
 CE_RTOL = 1e-4  # relative to the largest entry of ds and of di
+# the same for kernels 7 (one pass), 9 and 12 on the tensor-core tile (3xTF32 products, a fresh fragment per 16 k;
+# 2.7e-6 at most at the training shape): plain TF32 lands near 5e-4, and 3xTF32 accumulated straight onto the
+# running fragment at 1.3-3.0e-5, both above it
+TC_RTOL = 6e-6
 LOSS_RTOL, PARAM_ATOL = 1e-4, 1e-4  # GPU vs CPU training
 AGREE_SESSIONS, AGREE_STEPS = 64, 3
 RAGGED_N = N_ITEM_IDS + 1 - 37  # an odd catalog: every item tile of kernels 6 and 7 leaves a tail
@@ -173,10 +186,26 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+def bound_ms(n_bytes: float, n_ops: float, tf32x3: bool = False) -> tuple:
+    """(ms, "bytes" or "operations"): the bytes over the memory rate or the
+    f32 operations over the FP32 rate, whichever is longer; with ``tf32x3``
+    each f32 operation is three TF32 tensor-core operations at the TF32 rate
+    (kernels 7, 9 and 12)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = (3 * n_ops / PEAK_TF32_FLOP_PER_S if tf32x3 else n_ops / PEAK_F32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tc_bounds(n_bytes: float, n_ops: float) -> dict:
+    """A tensor-core kernel's bound (3xTF32) and, beside it, its FP32 bound."""
+    return {"bound": bound_ms(n_bytes, n_ops, tf32x3=True), "bound_f32": bound_ms(n_bytes, n_ops)}
+
+
+def bound_text(r: dict) -> str:
+    text = f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}"
+    if "bound_f32" in r:
+        text += f" (3xTF32); FP32 bound {r['bound_f32'][0]:.4f}"
+    return text + ")"
 
 
 # ---------------------------------------------------------------- phase 3
@@ -253,7 +282,7 @@ def kernel_phase(torch, dev, b: int = 4096) -> dict:
     for name, r in results.items():
         print(
             f"kernel {name}: max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})"
+            f"library_ms={r['library_ms']:.4f} {bound_text(r)}"
         )
     return results
 
@@ -263,6 +292,22 @@ def kernel_phase(torch, dev, b: int = 4096) -> dict:
 
 def _max_rel(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def ce_grads_plain_tf32(torch, softmax_lse, s, items, z, y, coeff) -> tuple:
+    """Kernel 7's function with plain TF32 products: each operand of the three
+    products rounded once as ``cvt.rna.tf32.f32`` does (a product of two TF32
+    values is exact in f32), in the twin's chunks and order."""
+
+    def tf32(x):
+        return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    def weights(logits, start: int):
+        pw = torch.exp(logits - z[:, None])
+        cols = torch.arange(start, start + logits.shape[1], device=s.device)
+        return tf32(torch.where(cols[None, :] == y[:, None], pw - coeff[:, None], pw))
+
+    return softmax_lse._grads_reference(tf32(s), tf32(items), weights, softmax_lse.TWIN_CHUNK, True)
 
 
 def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
@@ -419,7 +464,7 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     got = softmax_lse.softmax_grads_from_z(s, items, z)
     ref = softmax_lse.softmax_grads_from_z_reference(s, items, z, partials=True)
     rel = max(_max_rel(g, r) for g, r in zip(got, ref))
-    check(rel <= CE_RTOL and not bool(got[0][pad].any()),
+    check(rel <= TC_RTOL and not bool(got[0][pad].any()),
           f"grads_z_fused disagrees with its twin ({rel} of the largest entry) or a z = +inf row is not 0")
     again = softmax_lse.softmax_grads_from_z(s, items, z)
     check(all(bool(torch.equal(a, g)) for a, g in zip(again, got)), "grads_z_fused: a second run gave other bits")
@@ -435,10 +480,10 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         ms=time_ms(lambda: softmax_lse.softmax_grads_from_z(s, items, z), iters=3),
         plain_ms=time_ms(lambda: softmax_lse.softmax_grads_from_z_reference(s, items, z), iters=3),
         library_ms=time_ms(materialized, iters=3),
-        bound=bound_ms((2 * m * d + 2 * n * d) * 4 + vectors, 3 * products),
+        **tc_bounds((2 * m * d + 2 * n * d) * 4 + vectors, 3 * products),
     )
-    print(f"train kernels: grads_z_fused bit-equal on a second run; partials {plan[2] / 2**20:.0f} MiB, "
-          f"{plan[1]} session groups of {plan[0]} tiles")
+    print(f"train kernels: grads_z_fused {rel:.3g} of the largest entry from its twin (limit {TC_RTOL}), bit-equal "
+          f"on a second run; partials {plan[2] / 2**20:.0f} MiB, {plan[1]} session groups of {plan[0]} tiles")
     del got, ref, again
 
     # kernels 13 + 14 with the budget forced to 0, at 15,872 items and at the odd catalog
@@ -485,29 +530,61 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
                timed=False)
     print(f"train kernels: grads_z_ds / grads_z_di at N={RAGGED_N} within {CE_RTOL} of their twin")
 
-    # kernel 7, from the same z
+    # kernel 7, from the same z: one pass (its partials fit the budget here), against the twin in that order
+    check(softmax_lse._fused_on_the_card(m, n, d) and not softmax_lse.ce_takes_split_route(m, n, d),
+          "the CE gradients at the training width do not take kernel 7's one pass")
     got = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
-    ref = softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff)
+    ref = softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff, partials=True)
     rel = max(_max_rel(got[0], ref[0]), _max_rel(got[1], ref[1]))
-    check(rel <= CE_RTOL, f"CE gradients disagree with their twin: max err relative to the largest entry {rel}")
+    check(rel <= TC_RTOL, f"CE gradients disagree with their twin: max err relative to the largest entry {rel}")
+    again = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    check(all(bool(torch.equal(a, g)) for a, g in zip(again, got)), "ce_grads_fused: a second run gave other bits")
+    # the control: the same products in plain TF32 must fail the tensor-core tile's limit
+    rel_plain = max(_max_rel(p, r) for p, r in zip(ce_grads_plain_tf32(torch, softmax_lse, s, items, z, y, coeff), ref))
+    check(rel_plain > TC_RTOL, f"plain TF32 products read {rel_plain} of the largest entry, within TC_RTOL {TC_RTOL}")
+    print(f"train kernels: CE gradients {rel:.3g} of the largest entry from their twin (limit {TC_RTOL}); the same "
+          f"products in plain TF32 {rel_plain:.3g} (the SIMT kernels' limit is {CE_RTOL})")
     # again on the odd catalog, where every item tile leaves a tail (checked, not timed)
     rows, y_ragged = items[:RAGGED_N], torch.where(y < RAGGED_N, y, 0)
     z_ragged = softmax_lse.streaming_lse(s, rows) - torch.log(coeff)
     got_ragged = softmax_lse.softmax_ce_grads_from_z(s, rows, z_ragged, y_ragged, coeff)
-    ref_ragged = softmax_lse.softmax_ce_grads_from_z_reference(s, rows, z_ragged, y_ragged, coeff)
+    ref_ragged = softmax_lse.softmax_ce_grads_from_z_reference(s, rows, z_ragged, y_ragged, coeff, partials=True)
     rel_ce = max(_max_rel(g, r) for g, r in zip(got_ragged, ref_ragged))
-    check(rel_ce <= CE_RTOL, f"CE gradients at N={RAGGED_N} disagree with their twin: {rel_ce}")
+    check(rel_ce <= TC_RTOL, f"CE gradients at N={RAGGED_N} disagree with their twin: {rel_ce}")
     print(f"kernels: at N={RAGGED_N}, CE gradients {rel_ce:.3g} of the largest entry from their twin")
-    del rows, y_ragged, z_ragged, got_ragged, ref_ragged
+    del rows, y_ragged, z_ragged, got_ragged, ref_ragged, again
     sg, ig = s.detach().clone().requires_grad_(), items.detach().clone().requires_grad_()
     ce_lib = (F.cross_entropy(sg @ ig.T, y, reduction="none") * coeff).sum()
+    ce_library_ms = grad_ms(ce_lib, (sg, ig), None, iters=3)
+    ce_bytes = (2 * m * d + 2 * n * d + 3 * m) * 4
     results["ce_grads"] = dict(
         max_abs_err=max((a - r).abs().max().item() for a, r in zip(got, ref)),
         ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3),
         plain_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff), iters=3),
-        library_ms=grad_ms(ce_lib, (sg, ig), None, iters=3),
-        bound=bound_ms((2 * m * d + 2 * n * d + 3 * m) * 4, 3 * products),
+        library_ms=ce_library_ms, **tc_bounds(ce_bytes, 3 * products),
     )
+    # kernel 7's two launches: a budget under the fused plan's partials and over the JAX rule's bytes
+    plan = softmax_lse.fused_bwd_plan(m, n, d, torch.cuda.get_device_properties(dev).multi_processor_count
+                                      if dev.type == "cuda" else 132)
+    softmax_lse.FUSED_BWD_PARTIALS_BUDGET = plan[2] - 1
+    check(not softmax_lse._fused_on_the_card(m, n, d) and not softmax_lse.ce_takes_split_route(m, n, d),
+          f"a budget of {plan[2] - 1} bytes does not send the CE gradients to kernel 7's two launches")
+    pair = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    pair_ms = time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3)
+    softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+    ref_pair = softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff, partials=False)
+    rel_pair = max(_max_rel(g, r) for g, r in zip(pair, ref_pair))
+    check(rel_pair <= CE_RTOL, f"kernel 7's two launches disagree with their twin: {rel_pair}")
+    results["ce_grads_pair"] = dict(
+        max_abs_err=max((a - r).abs().max().item() for a, r in zip(pair, ref_pair)), ms=pair_ms,
+        plain_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff, partials=False),
+                         iters=3),
+        library_ms=ce_library_ms, bound=bound_ms(ce_bytes, 3 * products),
+    )
+    print(f"train kernels: CE gradients, one pass {results['ce_grads']['ms']:.4f} ms (bit-equal on a rerun; partials "
+          f"{plan[2] / 2**20:.0f} MiB, {plan[1]} session groups of {plan[0]} tiles) beside the two launches "
+          f"{pair_ms:.4f} ms; max err relative to the largest entry {rel:.3g} / {rel_pair:.3g}")
+    del pair, ref_pair
     del items, lse, forwards, z, got, ref, sg, ig, ce_lib
     torch.cuda.empty_cache()
 
@@ -522,15 +599,18 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     again = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
     check(all(bool(torch.equal(a, g)) for a, g in zip(again, route)), "the CE split route: a second run gave other bits")
     route_ms = time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3)
-    softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62  # kernel 7 at any size
+    softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62  # kernel 7's one pass at any size: 1.7 GiB of partials here
+    large_plan = softmax_lse.fused_bwd_plan(m, n_large, d, torch.cuda.get_device_properties(dev).multi_processor_count
+                                            if dev.type == "cuda" else 132)
     kernel_7 = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
     kernel_7_ms = time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3)
     softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
     rel = max(_max_rel(a, k) for a, k in zip(route, kernel_7))
     check(rel <= CE_RTOL, f"the CE split route at N={n_large} differs from kernel 7 by {rel} of the largest entry")
     results["ce_grads_large_catalog_route"] = {"route_ms": route_ms, "kernel_7_ms": kernel_7_ms, "max_rel_diff": rel}
-    print(f"train kernels: at N={n_large}: the CE split route {route_ms:.3f} ms beside kernel 7's two launches "
-          f"{kernel_7_ms:.3f} ms; they differ by {rel:.3g} of the largest entry; the route bit-equal on a rerun")
+    print(f"train kernels: at N={n_large}: the CE split route {route_ms:.3f} ms beside kernel 7's one pass "
+          f"{kernel_7_ms:.3f} ms (the budget lifted: {large_plan[2] / 2**30:.2f} GiB of partials, acceptable on an "
+          f"80 GB card); they differ by {rel:.3g} of the largest entry; the route bit-equal on a rerun")
     del s, items, y, coeff, z, route, again, kernel_7, pad
     torch.cuda.empty_cache()
     for name, r in results.items():
@@ -538,7 +618,7 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
             continue
         print(
             f"train kernel {name}: max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})"
+            f"library_ms={r['library_ms']:.4f} {bound_text(r)}"
         )
     return results
 
@@ -693,7 +773,7 @@ def stu_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     for name, r in results.items():
         print(
             f"stu kernel {name}: max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})"
+            f"library_ms={r['library_ms']:.4f} {bound_text(r)}"
         )
     return results
 
@@ -754,8 +834,11 @@ def mesh_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
             softmax_lse.FUSED_BWD_PARTIALS_BUDGET = forced
             got[route] = softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)
             rel = max(_max_rel(got[route][0], ref_ds), _max_rel(got[route][1], ref_di))
-            check(all(bool(torch.isfinite(g).all()) for g in got[route]) and rel <= CE_RTOL,
+            limit = TC_RTOL if route == "fused" else CE_RTOL
+            check(all(bool(torch.isfinite(g).all()) for g in got[route]) and rel <= limit,
                   f"lse backward ({route}) {what} disagrees with its twin: {rel} of the largest entry")
+            print(f"mesh kernels: lse backward ({route}) {what}: {rel:.3g} of the largest entry from its twin "
+                  f"(limit {limit})")
             if n_invalid:
                 check(not bool(got[route][1][rows - n_invalid:].any()),
                       f"lse backward ({route}) {what}: an invalid row's gradient is not exactly 0")
@@ -790,7 +873,7 @@ def mesh_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         results[f"lse_bwd_fused{tag}"] = dict(
             max_abs_err=max((g - r).abs().max().item() for g, r in zip(got["fused"], (ref_ds, ref_di))),
             ms=fused_ms, plain_ms=plain_ms, library_ms=grad_ms((sg, ig)),
-            bound=bound_ms((2 * m * d + 2 * rows * d) * 4 + vectors, 3 * products),
+            **tc_bounds((2 * m * d + 2 * rows * d) * 4 + vectors, 3 * products),
         )
         # the twin computes both gradients in one walk: its time stands beside each split kernel
         results[f"lse_bwd_ds{tag}"] = dict(
@@ -809,7 +892,7 @@ def mesh_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     for name, r in results.items():
         print(
             f"mesh kernel {name}: max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})"
+            f"library_ms={r['library_ms']:.4f} {bound_text(r)}"
         )
     return results
 
@@ -1130,7 +1213,7 @@ def train_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
     val_batches = len(model.data_preparator.get_dataloader_val())
     forwards = steps + EPOCHS * val_batches  # validation runs one forward per batch
     expected = {name: 0 for name in port.LAUNCHES}
-    expected.update(lse_partials_fwd=steps, ce_grads_ds=steps, ce_grads_di=steps)
+    expected.update(lse_partials_fwd=steps, ce_grads_fused=steps)  # kernel 7's one pass, never its two launches
     if hstu:  # per block: two LayerNorms, one STU attention with its backward and its score gradient
         expected.update(layer_norm_fwd=2 * N_BLOCKS * forwards, stu_fwd=N_BLOCKS * forwards,
                         layer_norm_bwd=2 * N_BLOCKS * steps, stu_bwd=N_BLOCKS * steps, stu_ds=N_BLOCKS * steps)
@@ -1356,8 +1439,9 @@ def large_fit_phase(torch, np, pd, port, dev) -> dict:
     port.reset_launches()
     loss = losses.fused_softmax_loss(sg[None], ig, y[None], w[None])
     ds, di = torch.autograd.grad(loss, (sg, ig))
-    step = {k: port.LAUNCHES[k] for k in ("lse_partials_fwd", "grads_z_ds", "grads_z_di", "ce_grads_ds")}
-    check(step == {"lse_partials_fwd": 1, "grads_z_ds": 1, "grads_z_di": 1, "ce_grads_ds": 0},
+    step = {k: port.LAUNCHES[k]
+            for k in ("lse_partials_fwd", "grads_z_ds", "grads_z_di", "ce_grads_ds", "ce_grads_fused")}
+    check(step == {"lse_partials_fwd": 1, "grads_z_ds": 1, "grads_z_di": 1, "ce_grads_ds": 0, "ce_grads_fused": 0},
           f"launches of one loss gradient {step}")
     lse = softmax_lse.streaming_lse_partials_reference(s2, items)
     ref_loss, _, denom = losses._ce_pieces(s2, items, y, w, lse)
@@ -1691,7 +1775,8 @@ def main() -> int:
         "layer_norm_bwd": ("layer_norm.cu", "layer_norm.py:36", ("layer_norm_bwd",), "layer_norm_bwd"),
         "attention_bwd": ("attention.cu", "attention.py:256", ("attention_bwd",), "attention_bwd"),
         "lse_partials_fwd": ("softmax_lse.cu", "softmax_lse.py:169", ("lse_partials_fwd",), "lse_partials_fwd"),
-        "ce_grads": ("softmax_lse.cu", "softmax_lse.py:643", ("ce_grads_ds", "ce_grads_di"), "ce_grads"),
+        "ce_grads": ("softmax_lse.cu", "softmax_lse.py:643", ("ce_grads_fused", "ce_grads_ds", "ce_grads_di"),
+                     "ce_grads"),
         "lse_bias_fwd": ("softmax_lse.cu", "softmax_lse.py:99", ("lse_bias_fwd",), "lse_bias_fwd"),
         "lse_bwd_fused": ("softmax_lse.cu", "softmax_lse.py:234", ("lse_bwd_fused",), "lse_bwd_fused"),
         "lse_bwd_ds": ("softmax_lse.cu", "softmax_lse.py:205", ("lse_bwd_ds",), "lse_bwd_ds"),
@@ -1714,8 +1799,11 @@ def main() -> int:
              "ops": ops_result, "fit_classic_fwd": classic_result, "fit_large_catalog": large_result}
 
     def numbers(r: dict) -> dict:
-        return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+        out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+               "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+        if "bound_f32" in r:  # tensor-core kernels: bound_ms counts 3xTF32 products; the FP32 bound beside it
+            out.update(bound_ops="3xTF32", bound_f32_ms=r["bound_f32"][0], bound_f32_by=r["bound_f32"][1])
+        return out
 
     entries = []
     for name, (source, replaces, keys, result_key) in table.items():
@@ -1736,8 +1824,12 @@ def main() -> int:
             entry["large_catalog"] = numbers(kernels[f"{name}_large_catalog"])
         if name == "lse_shift_fwd":  # the same kernel with every row in window 2
             entry["window_2"] = numbers(kernels["lse_shift_fwd_window_2"])
-        if name == "ce_grads":  # the CE gradients at 51,200 x 131,072: the split route beside kernel 7
+        if name == "ce_grads":  # kernel 7's two launches; at 51,200 x 131,072 the split route beside its one pass
+            entry["two_launch_pair"] = numbers(kernels["ce_grads_pair"])
             entry["large_catalog_route"] = kernels["ce_grads_large_catalog_route"]
+        if name in SIMT_TILE_MS:  # redesigned on the tensor cores
+            print(f"redesigned: {name} {entry['ms']:.4f} ms on the tensor-core tile beside {SIMT_TILE_MS[name]} ms on "
+                  f"the SIMT tile (PERF.md §6)")
         check(entry["launches"] > 0, f"{name}: no path launched it")
         entries.append(entry)
     line = {

@@ -3,113 +3,127 @@
 //
 // Replaces:
 // - rectools_tpu/ops/softmax_lse.py:169 `_lse_fwd_partials_kernel`
-//   (`lse_partials_f32`, the default forward): per (item chunk, session tile)
-//   the chunk's (max, sum of exp) of s . items^T, written to (n_chunks, M)
-//   partials that the caller combines (max over chunks, then
-//   sum l * exp(m - max), then max + log).
-// - rectools_tpu/ops/softmax_lse.py:127 `_lse_fwd_tail_kernel` (`lse_f32`,
-//   the carried-max forward, `USE_PARTIALS_FWD = False`): lse[m] =
-//   logsumexp_n(s[m] . items[n]) with one running (max, sum of exp) per row.
-// - rectools_tpu/ops/softmax_lse.py:50 `_lse_shift_kernel` (`lse_shift_f32`,
-//   `bounded_shift=True`): with a per-row shift >= every logit of the row
-//   (computed by the caller), l = sum exp(logit - shift) and
-//   l2 = sum exp(logit - shift + 64) per (item chunk, session tile), no max;
-//   the caller sums the chunks and picks a window per row.
-// - rectools_tpu/ops/softmax_lse.py:643 `_ce_grads_z_fused_kernel`
-//   (`ce_ds_f32` and `ce_di_f32`): with P = exp(s items^T - z) and
-//   D = coeff * onehot(y), ds = (P - D) items and di = (P - D)^T s.
-// - rectools_tpu/ops/softmax_lse.py:591 `_grads_z_fused_kernel`
-//   (`grads_z_fused_f32`), :757 `_ds_z_kernel` (`grads_z_ds_f32`) and :774
-//   `_di_z_kernel` (`grads_z_di_f32`): ds = P items and di = P^T s, the
-//   nonnegative-cotangent softmax backward, no label term; the softmax-CE
-//   loss takes it above the partials budget of its fused kernel and applies
-//   the label term outside (softmax_lse.py:748-754).
+//   (`lse_partials_f32`, kernel 6, the default forward): per (item chunk,
+//   session tile) the chunk's (max, sum of exp) of s . items^T, written to
+//   (n_chunks, M) partials that the caller combines.
+// - :127 `_lse_fwd_tail_kernel` (`lse_f32`, kernel 15, `USE_PARTIALS_FWD =
+//   False`): one running (max, sum of exp) per row over the whole catalog.
+// - :50 `_lse_shift_kernel` (`lse_shift_f32`, kernel 16, `bounded_shift`):
+//   l = sum exp(logit - shift) and l2 = sum exp(logit - shift + 64) per (item
+//   chunk, session tile) with the caller's per-row shift, no max.
+// - :99 `_lse_fwd_kernel` (`lse_bias_f32`, kernel 8): kernel 15 with a bias
+//   per item column (0, or -1e30 for the rows that only pad a mesh shard);
+//   the running max starts at -1e30, so an all-invalid slice gives -1e30 +
+//   log(count), never NaN.
+// - :643 `_ce_grads_z_fused_kernel` (kernel 7): with P = exp(s items^T - z)
+//   and D = coeff * onehot(y), ds = (P - D) items and di = (P - D)^T s, in one
+//   pass (`ce_fused_f32`) or in two launches that each recompute the logits
+//   (`ce_ds_f32`, `ce_di_f32`: 8 M N D operations for the function's 6).
+// - :234 `_bwd_fused_kernel` (`lse_bwd_fused_f32`, kernel 9) and :205
+//   `_dsessions_kernel` / :266 `_ditems_kernel` (`lse_bwd_ds_f32` /
+//   `lse_bwd_di_f32`, kernels 10, 11): the generic lse VJP, pw =
+//   exp((logit + bias[n]) - lse[m]) * dlse[m], dlse of any sign.
+// - :591 `_grads_z_fused_kernel` (`grads_z_fused_f32`, kernel 12), :757
+//   `_ds_z_kernel` and :774 `_di_z_kernel` (`grads_z_ds_f32` /
+//   `grads_z_di_f32`, kernels 13, 14): pw = exp(logit - z[m]), no bias, no
+//   multiplier, no label term.
+// The three gradient forms are one template (`Form`: kLse, kCE, kZ). In all
+// of them session rows past M and item rows past N load as zeros and get pw
+// forced to 0 (the NaN rule of softmax_lse.py:636-640: garbage times 0 can
+// be NaN); rows with z = +inf (PAD targets, coeff = 0) contribute nothing; an
+// item row with bias -1e30 gets exp(-1e30 - lse) = 0, so its di row is 0.
+// No float atomics anywhere: every run gives the same bits.
 //
-// Bound on an H100: f32 operations. At the training shape M = 512 * 100 =
-// 51,200 sessions, N = 15,872 items, D = 128, one logit pass is
-// 2 * M * N * D = 208 GFLOP, 3.10 ms at 67 TFLOP/s (non-tensor FP32); the CE
-// gradients are three such products (logits, ds, di), 624 GFLOP, 9.31 ms.
-// The JAX reference is exact f32, so these are f32 FMA SIMT tiles, not TF32
-// tensor-core tiles (a tensor-core design with its own tolerance is later
-// work). No fast-math: subnormals reach the edge of the shift windows.
+// Bound on an H100 at the training shape M = 512 * 100 = 51,200 sessions, N
+// = 15,872 items, D = 128: one logit pass is 2 M N D = 208 GFLOP; the
+// gradients are three such products (logits, ds, di), 624 GFLOP: 9.31 ms at
+// 67 TFLOP/s FP32, or, as 3xTF32 tensor-core products (three TF32 products
+// per f32 product), 3 * 624 GFLOP at 495 TFLOP/s = 3.78 ms. The bytes (inputs
+// read once, outputs written once) are 0.06 GB, 0.02 ms: operations bound.
 //
-// Design, all kernels: 256 threads in a 16 x 16 grid; a block holds a
-// 64-row session tile and a 64-row item tile whole in shared memory (rows
-// padded to D + 1 floats so the per-thread row reads are conflict-free) and
-// forms their 64 x 64 logits, each thread a 4 x 4 micro-tile (rows ty + 16a,
-// columns tx + 16b). Ragged edges are masked by index: item rows past N and
-// session rows past M load as zeros, their columns are left out of the
-// max/sum, and their probabilities are forced to 0 (the NaN rule of
-// softmax_lse.py:636-640: garbage times 0 can be NaN).
+// Two tiles.
 //
-// - lse_f32 (kernel 15): a block owns a session tile and streams every item
-//   tile, each thread keeping a running (max, sum of exp) for its rows over
-//   the columns it sees; the 16 threads that share a row merge theirs with
-//   shuffles at the end. One pass, no partials buffer. At the training shape
-//   that is 800 blocks of 66 KB of shared memory, 3 or 2 resident per SM:
-//   2.02 or 3.03 waves on 132 SMs, the last wave 8 blocks.
-// - lse_partials_f32 (kernel 6) and lse_shift_f32 (kernel 16): a block owns
-//   (session tile, item chunk of `chunk_rows` rows, 2,048 from the wrapper)
-//   and writes one partial per row; blockIdx.x runs over the session tiles,
-//   so the blocks in flight share an item chunk (1 MB at D = 128) in L2.
-//   2,048 rows: 8 chunks at N = 15,872, so 6,400 blocks, 16.2 waves at 3
-//   blocks per SM (24.2 at 2): the partial last wave costs under a sixteenth
-//   of the time instead of a third. Each chunk holds at least one valid
-//   column, so no max partial is empty; the partials are 2 * 8 * M floats.
-//   Kernel 16's sums add in a fixed order (columns in tile order, then the
-//   16 lanes by a butterfly, then the chunks in the caller).
-// - The CE gradients need a sum over items (ds) and a sum over sessions (di).
-//   On the TPU one fused pass wrote ds as per-chunk partials and carried di
-//   across its sequential grid (softmax_lse.py:655-660, 725-745). GPU blocks
-//   run in no order, so one fused pass would need float atomics or an
-//   (M-tiles, N, D) partials buffer for one of the two. The choice here:
-//   two kernels launched back to back, each owning its output. `ce_ds_f32`:
-//   a block owns a session tile, streams every item tile, recomputes the
-//   logits, forms the corrected probability tile P - D in shared memory and
-//   accumulates ds += (P - D) items in registers. `ce_di_f32`: a block owns an
-//   item tile, streams every session tile and accumulates di += (P - D)^T s.
-//   Deterministic, no atomics, no partials; the price is a second logit pass,
-//   8 * M * N * D operations against the function's 6 * M * N * D.
-// Rows with z = +inf (PAD targets, coeff = 0) contribute nothing.
+// The tensor-core tile: the fused gradient kernel (7's one pass, 9, 12) for
+// D in {32, 64, 128} (`lse_bwd_fused_tc_kernel`). The JAX reference is f32,
+// and plain TF32 keeps about three digits (4.4e-4 of the largest entry at the
+// training shape: chip_smoke.py's control), so the products are 3xTF32: each
+// f32 operand x splits
+// into hi = tf32_rna(x) and lo = tf32_rna(x - hi) (`cvt.rna.tf32.f32`), and
+// `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32` accumulates lo*hi, then
+// hi*lo, then hi*hi in f32; the dropped lo*lo is ~2^-22 relative.
+// - Grid: block (x, y) owns an item chunk of `chunk_rows` (2,048) rows and a
+//   group of 128-row session tiles; for each of its session tiles it walks
+//   the chunk's 64-row item tiles. One block of 256 threads (8 warps) per
+//   SM: 8 chunks x 16 groups = 128 blocks at the training shape, one wave on
+//   132 SMs.
+// - Per (session tile, item tile) pair, three products: the logits (128 x
+//   64, warps 4 x 2, 32 x 32 each), ds += P items (128 x D, warps 2 x 4) into
+//   registers that become the ds partial of (chunk, session tile), and di +=
+//   P^T s (64 x D, warps 2 x 4) onto the di partial rows of the item tile,
+//   which the block alone writes. The probability tile is formed in the
+//   logits' accumulator fragments by weighted_probs<F>'s formulas (the kCE
+//   label compared as its column in the item tile) and staged in shared
+//   memory as its TF32 halves, read as A for ds and as transposed A for di.
+// - Stages: the item tiles come by 16-byte `cp.async` into a ring of two,
+//   the next tile loading while this pair multiplies; the session tile and
+//   the di partial rows by `cp.async` too. Shared memory 231,936 bytes at D =
+//   128 (session tile 64 KB, item ring 64 KB, P halves 64 KB, di rows 32 KB,
+//   row vectors), under the 232,448 a block can have, so one block per SM.
+// - Banks: every staged tile is row-major with rows of a multiple of 32
+//   floats and its columns' bits 2-4 XORed by the row (`tc::swz`), so the
+//   fragment loads (8 rows x 4 columns, or 4 rows x 8 columns) hit 32
+//   distinct banks and 16-byte copies land whole.
+// - The di read-modify-write: 128 session rows per read-modify-write halve
+//   the SIMT tile's traffic. At the training shape 400 x 248 pairs write a
+//   64 x 128 block (32 KB) each and read it back for all but each group's
+//   first session tile: 3.25 + 3.12 = 6.4 GB a call, ~1.9 ms at 3.35 TB/s,
+//   against 12.7 GB for 64-row tiles; the reads arrive by `cp.async` under
+//   the logits and ds products. Partials: ds (8, M, D) and di (16, N, D),
+//   210 + 130 = 340 MB (324 MiB), under the 512 MiB budget; the caller sums
+//   each over its first axis in a fixed order.
+// - Accumulation: the tensor cores' f32 accumulation truncates, so each
+//   fragment takes its six products of 16 k in a fresh fragment that a
+//   rounded f32 add puts onto the running one (`tc::mma_k16`): 0.7-3.3e-6 of
+//   the largest entry from the f32 twin at the training and mesh shapes,
+//   against 1.3-3.0e-5 accumulated straight on (which failed the
+//   card-vs-CPU fit check); the kernel checks hold the tile to 6e-6. The
+//   TF32 rounding is two integer operations, not the conversion instruction
+//   (16 a clock per SM).
+// - Registers (ptxas -v): 255 at D = 128, 224-229 at 64, 184-186 at 32, no
+//   spills; the 16-k loops stay rolled (unrolled, the compiler spilled
+//   80-130 bytes at D = 128 and the kernels ran 4-10% slower).
+// - What bounds it: issue slots and latency, at 8 warps per SM. Each
+//   `mma.sync` comes with ~6 other instructions (the TF32 splits of the item
+//   and session fragments, the fresh-fragment adds, fragment loads, address
+//   arithmetic, the exp); the kernels run at ~28% of the 3xTF32 rate.
+//   `wgmma` and operands split once into shared memory are the next steps.
 //
-// The biased lse and its generic VJP (the row-sharded loss of mesh training:
-// each rank holds a slice of the item table, a bias of 0 / -1e30 marks rows
-// that only pad the slice):
-// - rectools_tpu/ops/softmax_lse.py:99 `_lse_fwd_kernel` (`lse_bias_f32`):
-//   lse[m] = logsumexp_n(s[m] . items[n] + bias[n]). `lse_f32`'s kernel with
-//   the bias added to each logit column before the max. The running max
-//   starts at -1e30, not -inf, so a slice whose every row is invalid gives
-//   -1e30 + log(count), never NaN or inf.
-// - rectools_tpu/ops/softmax_lse.py:205 `_dsessions_kernel` (`lse_bwd_ds_f32`)
-//   and :266 `_ditems_kernel` (`lse_bwd_di_f32`): the two CE gradient kernels
-//   with pw = exp((logit + bias[n]) - lse[m]) * dlse[m] in place of
-//   exp(logit - z[m]) and no label term; dlse may have any sign. Both form pw
-//   (probability times dlse) and multiply it into the item rows or the plain
-//   session rows; the TPU `_ditems_kernel` scales the session rows by dlse
-//   instead, which differs in rounding only.
-// - rectools_tpu/ops/softmax_lse.py:234 `_bwd_fused_kernel`
-//   (`lse_bwd_fused_f32`): one logit pass for both gradients. A block owns an
-//   item chunk (2,048 rows by default, 32 tiles) and a group of session tiles.
-//   For each of its session tiles it walks the chunk's item tiles, forms each
-//   pw tile once, adds pw items into a register accumulator that becomes the
-//   ds partial of (chunk, session tile), and adds pw^T s into the block's own
-//   slice of a di partial buffer in device memory, with plain loads and stores:
-//   the block is that slice's only writer. Partials: ds (n_chunks, M, D) and di
-//   (n_groups, N, D); the caller sums each over its first axis in a fixed
-//   order. No float atomics, so a second run gives the same bits. 6 * M * N * D
-//   operations against the split pair's 8 * M * N * D, paid for with the
-//   read-modify-write of a 64 x D block per tile pair.
-// In these three, session rows past M and item rows past N have their pw
-// forced to 0; an invalid row inside the slice (bias -1e30) gets
-// exp(-1e30 - lse) = 0 by arithmetic, so its di row is exactly 0.
-//
-// The z form (kernels 12-14) is the same three kernels with pw = exp(logit -
-// z[m]): no bias, no multiplier, no label term (`Form::kZ` below). Kernel 12
-// keeps kernel 9's grid (one wave, ds partials per item chunk, di partials
-// per session group by read-modify-write with one writer per row).
+// The SIMT tile: everything else (kernels 6, 8, 10, 11, 13-16, 7's two
+// launches, and the fused kernel at D = 16 and 256). 256 threads in a 16 x
+// 16 grid; a block holds a 64-row session tile and a 64-row item tile whole
+// in shared memory (rows padded to D + 1 floats so the per-thread row reads
+// are conflict-free) and forms their 64 x 64 logits, each thread a 4 x 4
+// micro-tile (rows ty + 16a, columns tx + 16b) with f32 FMA. At 21-25
+// TFLOP/s it runs at a third of the FP32 peak.
+// - lse_f32 / lse_bias_f32: a block owns a session tile and streams every
+//   item tile with a running (max, sum of exp) per row; the 16 threads of a
+//   row merge theirs by shuffles. 800 blocks, 3 or 2 resident per SM.
+// - lse_partials_f32 / lse_shift_f32: a block owns (session tile, item
+//   chunk of 2,048 rows); blockIdx.x runs over the session tiles, so the
+//   blocks in flight share a chunk in L2; 6,400 blocks, 16.2 waves.
+// - The split gradient kernels: `grad_ds_kernel` owns a session tile and
+//   streams every item tile (ds in registers), `grad_di_kernel` owns an item
+//   tile and streams every session tile (di in registers); each recomputes
+//   the logits.
+// - `lse_bwd_fused_kernel` (D = 16, 256): the tensor-core kernel's grid on
+//   this tile, 64-row session tiles, two blocks per SM, the di rows read and
+//   written in device memory per pair (the swizzle needs rows of 32 floats,
+//   and a 128 x 256 ds accumulator would take 128 registers a thread).
+// No fast-math: subnormals reach the edge of kernel 16's shift windows.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -348,16 +362,22 @@ __device__ __forceinline__ GradSmem grad_smem(float* smem) {
   return sh;
 }
 
-// row vectors of session rows [row0, row0 + 64); rows past M get row_a = +inf
-// and row_b = 0, so their probabilities and label terms vanish
+// row vectors of session rows [row0, row0 + kRows); rows past M get row_a =
+// +inf and row_b = 0, so their probabilities and label terms vanish
+template <int F, int kRows, class Label>
+__device__ __forceinline__ void load_row_vectors(float* zs, float* cs, Label* ys, const GradRows& in,
+                                                 long long row0, long long M) {
+  for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
+    const bool ok = row0 + r < M;
+    zs[r] = ok ? in.row_a[row0 + r] : INFINITY;
+    if (F != kZ) cs[r] = ok ? in.row_b[row0 + r] : 0.f;
+    if (F == kCE) ys[r] = ok ? (Label)in.y[row0 + r] : (Label)-1;
+  }
+}
+
 template <int F>
 __device__ __forceinline__ void load_rows(const GradSmem& sh, const GradRows& in, long long row0, long long M) {
-  for (int r = threadIdx.x; r < kBM; r += kThreads) {
-    const bool ok = row0 + r < M;
-    sh.zs[r] = ok ? in.row_a[row0 + r] : INFINITY;
-    if (F != kZ) sh.cs[r] = ok ? in.row_b[row0 + r] : 0.f;
-    if (F == kCE) sh.ys[r] = ok ? in.y[row0 + r] : -1;
-  }
+  load_row_vectors<F, kBM>(sh.zs, sh.cs, sh.ys, in, row0, M);
 }
 
 // bias of item rows [n0, n0 + 64), 0 past N (those columns are forced to 0)
@@ -574,6 +594,409 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------- the tensor-core tile of the fused backward
+
+namespace tc {
+
+constexpr int kBM = 128;       // session rows per tile
+constexpr int kBN = 64;        // item rows per tile
+constexpr int kThreads = 256;  // 8 warps
+
+// Element (r, c) of a row-major tile whose rows hold a multiple of 32
+// floats sits at column c ^ swz(r): bits 2-4 of the column flipped by the
+// row. The m16n8k8 fragments read 8 rows x 4 columns (rows g, columns t) or
+// 4 rows x 8 columns (rows t, columns g) of a tile, and both patterns then
+// hit 32 distinct banks. Four-float groups stay whole, so 16-byte copies
+// land in place.
+__device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
+
+template <int W>
+__device__ __forceinline__ int at(int r, int c) {
+  return r * W + (c ^ swz(r));
+}
+
+// cvt.rna.tf32.f32 (round to nearest, ties away from zero, at 10 mantissa
+// bits) in two integer operations: half a TF32 ulp added to the magnitude
+// bits, the 13 low bits cleared. The same bits as the conversion
+// instruction, which is a conversion at 16 results a clock per SM: with it
+// kernel 7 took 16.1-16.2 ms at the training shape, with this 13.4-13.7
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6).
+__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// x = hi + lo + O(2^-22 |x|): hi and lo are TF32 values
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[mf][nf] += sum over k in [k0, k0 + 16) of a(mf, k) b(k, nf) in 3xTF32:
+// per 8-deep step the two small terms first, then hi * hi (lo * lo, ~2^-22
+// relative, is dropped). The tensor cores' f32 accumulation truncates, so
+// the six products of the 16 k go into a fresh fragment that a rounded f32
+// add then puts onto c: accumulated straight onto c over the 768 steps of a
+// 2,048-item chunk they drifted by 3e-5 of the largest entry on an H100, and
+// 3 train steps there left the CPU run's parameters by 1.7e-4. load_b(k, bh,
+// bl) gives the B fragments of all kNF columns at depth k, load_a(mf, k, ah,
+// al) the A fragment of row block mf; B for both depths stays in registers
+// while the row blocks pass.
+template <int kMF, int kNF, class LoadA, class LoadB>
+__device__ __forceinline__ void mma_k16(float c[kMF][kNF][4], int k0, LoadA load_a, LoadB load_b) {
+  uint32_t bh[2][kNF][2], bl[2][kNF][2];
+  load_b(k0, bh[0], bl[0]);
+  load_b(k0 + 8, bh[1], bl[1]);
+#pragma unroll
+  for (int mf = 0; mf < kMF; ++mf) {
+    uint32_t ah[2][4], al[2][4];
+    load_a(mf, k0, ah[0], al[0]);
+    load_a(mf, k0 + 8, ah[1], al[1]);
+#pragma unroll
+    for (int nf = 0; nf < kNF; ++nf) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        mma(t, al[ks], bh[ks][nf]);
+        mma(t, ah[ks], bl[ks][nf]);
+        mma(t, ah[ks], bh[ks][nf]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[mf][nf][e] += t[e];
+    }
+  }
+}
+
+// Four 8 x 4 blocks of 32-bit words from shared memory: lane l gives the
+// address of row l % 8 of block l / 8 (16 bytes), and gets word l % 4 of row
+// l / 4 of block j in r[j]: an m16n8k8 A fragment (blocks: rows 0-7 and 8-15
+// of columns 0-3, then of columns 4-7) or two B fragments, in one instruction
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !ok (nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;"); }
+// wait until at most `kPending` of this thread's latest copy groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// The block's shared memory: the session tile, a ring of two item tiles,
+// the probability tile split into its TF32 halves, the di partial rows of
+// the item tile as the earlier session tiles left them, the row vectors of
+// the session tile and the bias of each item tile. 231,936 bytes at D = 128
+// (the limit is 232,448).
+template <int D>
+struct Smem {
+  float s[kBM * D];
+  float items[2][kBN * D];
+  uint32_t p_hi[kBM * kBN];
+  uint32_t p_lo[kBM * kBN];
+  float di[kBN * D];
+  float zs[kBM];
+  float cs[kBM];
+  int ys[kBM];  // the label, < N < 2^31 (ce_fused_f32 checks)
+  float bs[2][kBN];
+};
+
+// rows [row0, row0 + kRows) of an (R, D) row-major matrix into a swizzled
+// tile by cp.async, zeros past `rows`
+template <int D, int kRows>
+__device__ __forceinline__ void load_tile(float* tile, const float* __restrict__ src, long long row0, long long rows) {
+  static_assert(kRows * (D / 4) % kThreads == 0, "whole copies per thread");
+#pragma unroll
+  for (int i = 0; i < kRows * (D / 4) / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / (D / 4);
+    const int c = 4 * (idx % (D / 4));
+    const bool ok = row0 + r < rows;
+    cp_async16(tile + at<D>(r, c), ok ? src + (row0 + r) * D + c : src, ok);
+  }
+}
+
+template <int D, int F>
+__device__ __forceinline__ void load_items(Smem<D>& sh, int stage, const float* __restrict__ items,
+                                           const GradRows& in, long long n0, long long n_end) {
+  load_tile<D, kBN>(sh.items[stage], items, n0, n_end);
+  if (F == kLse && threadIdx.x < kBN) {
+    const bool ok = n0 + threadIdx.x < n_end;
+    cp_async4(&sh.bs[stage][threadIdx.x], ok ? in.bias + n0 + threadIdx.x : in.bias, ok);
+  }
+}
+
+// Product 1, the logits of the tile pair: 128 x 64 over D. Warp w owns rows
+// 32 (w >> 1) + [0, 32) and columns 32 (w & 1) + [0, 32): 2 x 4 fragments.
+template <int D>
+__device__ __forceinline__ void logits(const Smem<D>& sh, int stage, float acc[2][4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m_base = (warp >> 1) * 32, n_base = (warp & 1) * 32;
+  const float* it = sh.items[stage];
+  // ldmatrix rows: block j = lane / 8 is rows + 8 (j & 1), columns + 4 (j >> 1)
+  // of an A fragment; rows + 8 (j >> 1), columns + 4 (j & 1) of two B fragments
+  const int blk = lane >> 3, row = lane & 7;
+  const int a_row = m_base + row + 8 * (blk & 1), a_col = 4 * (blk >> 1);
+  const int b_row = n_base + row + 8 * (blk >> 1), b_col = 4 * (blk & 1);
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
+  const auto load_a = [&](int mf, int k, uint32_t ah[4], uint32_t al[4]) {
+    uint32_t raw[4];
+    ldsm_x4(raw, &sh.s[at<D>(a_row + mf * 16, k + a_col)]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(__uint_as_float(raw[e]), ah[e], al[e]);
+  };
+  const auto load_b = [&](int k, uint32_t bh[4][2], uint32_t bl[4][2]) {
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t raw[4];
+      ldsm_x4(raw, &it[at<D>(b_row + np * 16, k + b_col)]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int nf = 2 * np + (e >> 1);  // blocks: fragment nf's b0, b1, then fragment nf + 1's
+        split(__uint_as_float(raw[e]), bh[nf][e & 1], bl[nf][e & 1]);
+      }
+    }
+  };
+#pragma unroll 1
+  for (int k0 = 0; k0 < D; k0 += 16) mma_k16<2, 4>(acc, k0, load_a, load_b);
+}
+
+// The weighted probability tile from the logits in the accumulator
+// fragments, by weighted_probs<F>'s formulas (0 past n_end and past M), into
+// shared memory as its TF32 halves
+template <int D, int F>
+__device__ __forceinline__ void probs(Smem<D>& sh, int stage, const float acc[2][4][4], long long row0, long long M,
+                                      long long n0, long long n_end) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m_base = (warp >> 1) * 32, n_base = (warp & 1) * 32;
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m_base + mf * 16 + g + 8 * h;
+      const bool row_ok = row0 + r < M;
+      const int label = F == kCE ? sh.ys[r] - (int)n0 : -1;  // its column in the tile
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf) {
+        const int c = n_base + nf * 8 + 2 * t;
+        uint32_t hi[2], lo[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const long long col = n0 + c + e;
+          const float logit = acc[mf][nf][2 * h + e];
+          float pw = 0.f;
+          if (row_ok && col < n_end) {
+            if (F == kLse) {
+              pw = expf((logit + sh.bs[stage][c + e]) - sh.zs[r]) * sh.cs[r];
+            } else {
+              pw = expf(logit - sh.zs[r]);
+              if (F == kCE && c + e == label) pw -= sh.cs[r];
+            }
+          }
+          split(pw, hi[e], lo[e]);
+        }
+        *reinterpret_cast<uint2*>(&sh.p_hi[at<kBN>(r, c)]) = make_uint2(hi[0], hi[1]);
+        *reinterpret_cast<uint2*>(&sh.p_lo[at<kBN>(r, c)]) = make_uint2(lo[0], lo[1]);
+      }
+    }
+}
+
+// Product 2, ds += P items: 128 x D over the 64 items. Warp w owns rows
+// 64 (w >> 2) + [0, 64) and columns D/4 (w & 3) + [0, D/4): 4 x D/32
+// fragments.
+template <int D>
+__device__ __forceinline__ void accumulate_ds(const Smem<D>& sh, int stage, float acc[4][D / 32][4]) {
+  constexpr int kNF = D / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m_base = (warp >> 2) * 64, n_base = (warp & 3) * (D / 4);
+  const float* it = sh.items[stage];
+  const int blk = lane >> 3;
+  const int a_row = m_base + (lane & 7) + 8 * (blk & 1), a_col = 4 * (blk >> 1);
+  const auto load_a = [&](int mf, int k, uint32_t ah[4], uint32_t al[4]) {
+    ldsm_x4(ah, &sh.p_hi[at<kBN>(a_row + mf * 16, k + a_col)]);
+    ldsm_x4(al, &sh.p_lo[at<kBN>(a_row + mf * 16, k + a_col)]);
+  };
+  const auto load_b = [&](int k, uint32_t bh[kNF][2], uint32_t bl[kNF][2]) {
+#pragma unroll
+    for (int nf = 0; nf < kNF; ++nf) {
+      const int n = n_base + nf * 8 + g;
+      split(it[at<D>(k + t, n)], bh[nf][0], bl[nf][0]);
+      split(it[at<D>(k + t + 4, n)], bh[nf][1], bl[nf][1]);
+    }
+  };
+#pragma unroll 1
+  for (int k0 = 0; k0 < kBN; k0 += 16) mma_k16<4, kNF>(acc, k0, load_a, load_b);
+}
+
+// Product 3, di += P^T s: 64 x D over the 128 sessions, P read transposed.
+// Warp w owns item rows 32 (w >> 2) + [0, 32) and columns D/4 (w & 3) +
+// [0, D/4): 2 x D/32 fragments.
+template <int D>
+__device__ __forceinline__ void accumulate_di(const Smem<D>& sh, float acc[2][D / 32][4]) {
+  constexpr int kNF = D / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int i_base = (warp >> 2) * 32, n_base = (warp & 3) * (D / 4);
+  const auto load_a = [&](int mf, int k, uint32_t ah[4], uint32_t al[4]) {
+    const int i = i_base + mf * 16 + g;
+    const int idx[4] = {at<kBN>(k + t, i), at<kBN>(k + t, i + 8), at<kBN>(k + t + 4, i), at<kBN>(k + t + 4, i + 8)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ah[e] = sh.p_hi[idx[e]];
+      al[e] = sh.p_lo[idx[e]];
+    }
+  };
+  const auto load_b = [&](int k, uint32_t bh[kNF][2], uint32_t bl[kNF][2]) {
+#pragma unroll
+    for (int nf = 0; nf < kNF; ++nf) {
+      const int n = n_base + nf * 8 + g;
+      split(sh.s[at<D>(k + t, n)], bh[nf][0], bl[nf][0]);
+      split(sh.s[at<D>(k + t + 4, n)], bh[nf][1], bl[nf][1]);
+    }
+  };
+#pragma unroll 1
+  for (int k0 = 0; k0 < kBM; k0 += 16) mma_k16<2, kNF>(acc, k0, load_a, load_b);
+}
+
+}  // namespace tc
+
+// lse_bwd_fused_kernel's grid and outputs on the tensor-core tile: block (x,
+// y) owns item rows [x * chunk_rows, (x + 1) * chunk_rows) and 128-row
+// session tiles [y * tiles_per_group, (y + 1) * tiles_per_group). Per
+// (session tile, item tile) pair: the logits, the probability tile, ds += P
+// items into registers and di += P^T s onto the di partial rows, which this
+// thread alone reads and writes. D in {32, 64, 128}.
+template <int D, int F>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+    lse_bwd_fused_tc_kernel(const float* __restrict__ s, const float* __restrict__ items, GradRows in,
+                            float* __restrict__ ds_part, float* __restrict__ di_part, long long M, long long N,
+                            long long chunk_rows, long long tiles_per_group) {
+  constexpr int kNF = D / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  tc::Smem<D>& sh = *reinterpret_cast<tc::Smem<D>*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long long n_begin = (long long)blockIdx.x * chunk_rows;
+  const long long n_end = n_begin + chunk_rows < N ? n_begin + chunk_rows : N;
+  const int n_tiles = (int)((n_end - n_begin + tc::kBN - 1) / tc::kBN);
+  const long long m_tiles = (M + tc::kBM - 1) / tc::kBM;
+  const long long t_begin = (long long)blockIdx.y * tiles_per_group;
+  const long long t_end = t_begin + tiles_per_group < m_tiles ? t_begin + tiles_per_group : m_tiles;
+  float* __restrict__ ds_mine = ds_part + (long long)blockIdx.x * M * D;
+  float* __restrict__ di_mine = di_part + (long long)blockIdx.y * N * D;
+  // the fragment rows and columns of products 2 (ds) and 3 (di)
+  const int ds_row = (warp >> 2) * 64 + g, di_row = (warp >> 2) * 32 + g, col0 = (warp & 3) * (D / 4) + 2 * t;
+
+  tc::load_tile<D, tc::kBM>(sh.s, s, t_begin * tc::kBM, M);
+  tc::load_items<D, F>(sh, 0, items, in, n_begin, n_end);
+  tc::cp_commit();
+  load_row_vectors<F, tc::kBM>(sh.zs, sh.cs, sh.ys, in, t_begin * tc::kBM, M);
+  int stage = 0;
+  for (long long tile = t_begin; tile < t_end; ++tile) {
+    const long long row0 = tile * tc::kBM;
+    float ds_acc[4][kNF][4];
+#pragma unroll
+    for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds_acc[mf][nf][e] = 0.f;
+    for (int j = 0; j < n_tiles; ++j) {
+      const long long n0 = n_begin + (long long)j * tc::kBN;
+      tc::cp_wait<0>();
+      __syncthreads();  // this stage's item tile (and the session tile) landed; the last pair's reads are done
+      // the di partial rows of this item tile as the earlier session tiles
+      // left them (this block alone writes them; the barriers since order
+      // the writes before these reads), then the next item tile into the
+      // other stage: tile j + 1, or tile 0 of the next session tile
+      if (tile > t_begin) tc::load_tile<D, tc::kBN>(sh.di, di_mine, n0, n_end);
+      tc::cp_commit();
+      if (j + 1 < n_tiles)
+        tc::load_items<D, F>(sh, stage ^ 1, items, in, n0 + tc::kBN, n_end);
+      else if (tile + 1 < t_end)
+        tc::load_items<D, F>(sh, stage ^ 1, items, in, n_begin, n_end);
+      tc::cp_commit();
+      {
+        float acc[2][4][4];
+        tc::logits<D>(sh, stage, acc);
+        tc::probs<D, F>(sh, stage, acc, row0, M, n0, n_end);
+      }
+      tc::cp_wait<1>();  // the di rows landed (the item prefetch may still fly)
+      __syncthreads();   // and the probability tile is complete
+      tc::accumulate_ds<D>(sh, stage, ds_acc);
+      float di_acc[2][kNF][4];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = di_row + mf * 16 + 8 * h;
+#pragma unroll
+          for (int nf = 0; nf < kNF; ++nf) {
+            float2 v = make_float2(0.f, 0.f);
+            if (tile > t_begin) v = *reinterpret_cast<const float2*>(&sh.di[tc::at<D>(r, col0 + nf * 8)]);
+            di_acc[mf][nf][2 * h] = v.x;
+            di_acc[mf][nf][2 * h + 1] = v.y;
+          }
+        }
+      tc::accumulate_di<D>(sh, di_acc);
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long item = n0 + di_row + mf * 16 + 8 * h;
+          if (item >= n_end) continue;
+#pragma unroll
+          for (int nf = 0; nf < kNF; ++nf)
+            *reinterpret_cast<float2*>(di_mine + item * D + col0 + nf * 8) =
+                make_float2(di_acc[mf][nf][2 * h], di_acc[mf][nf][2 * h + 1]);
+        }
+      stage ^= 1;
+    }
+    // the ds partial of (item chunk, session tile)
+#pragma unroll
+    for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = row0 + ds_row + mf * 16 + 8 * h;
+        if (row >= M) continue;
+#pragma unroll
+        for (int nf = 0; nf < kNF; ++nf)
+          *reinterpret_cast<float2*>(ds_mine + row * D + col0 + nf * 8) =
+              make_float2(ds_acc[mf][nf][2 * h], ds_acc[mf][nf][2 * h + 1]);
+      }
+    if (tile + 1 < t_end) {
+      __syncthreads();  // product 3 and the last probability tile are done with the session rows
+      tc::load_tile<D, tc::kBM>(sh.s, s, row0 + tc::kBM, M);
+      tc::cp_commit();
+      load_row_vectors<F, tc::kBM>(sh.zs, sh.cs, sh.ys, in, row0 + tc::kBM, M);
+    }
+  }
+}
+
 template <int D, bool kBias>
 int launch_lse(const float* s, const float* items, const float* bias, float* lse, long long M, long long N,
                cudaStream_t stream) {
@@ -616,18 +1039,35 @@ int launch_di(const float* s, const float* items, GradRows in, float* di, long l
   return (int)cudaGetLastError();
 }
 
+// The fused backward: the tensor-core tile for D in {32, 64, 128}, the SIMT
+// tile for D = 16 (rows under the swizzle's 32 floats) and D = 256 (a 128 x
+// 256 ds accumulator is 128 registers a thread). The caller plans the grid
+// (ops/softmax_lse.py `_FUSED_BWD_TILE`) and sizes di_part by its n_groups:
+// another count of session groups than this tile gives is refused.
 template <int D, int F>
 int launch_fused(const float* s, const float* items, GradRows in, float* ds_part, float* di_part, long long M,
-                 long long N, long long chunk_rows, long long tiles_per_group, cudaStream_t stream) {
-  const int smem = grad_smem_bytes<D>();
-  cudaError_t err =
-      cudaFuncSetAttribute(lse_bwd_fused_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long m_tiles = (M + kBM - 1) / kBM;
-  const dim3 grid((unsigned)((N + chunk_rows - 1) / chunk_rows),
-                  (unsigned)((m_tiles + tiles_per_group - 1) / tiles_per_group));
-  lse_bwd_fused_kernel<D, F><<<grid, kThreads, smem, stream>>>(s, items, in, ds_part, di_part, M, N, chunk_rows,
-                                                                tiles_per_group);
+                 long long N, long long chunk_rows, long long tiles_per_group, long long n_groups,
+                 cudaStream_t stream) {
+  constexpr bool kTensorCores = D >= 32 && D <= 128;
+  constexpr int kTileRows = kTensorCores ? tc::kBM : kBM;
+  const long long m_tiles = (M + kTileRows - 1) / kTileRows;
+  if ((m_tiles + tiles_per_group - 1) / tiles_per_group != n_groups) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((N + chunk_rows - 1) / chunk_rows), (unsigned)n_groups);
+  if constexpr (kTensorCores) {
+    const int smem = (int)sizeof(tc::Smem<D>);
+    cudaError_t err =
+        cudaFuncSetAttribute(lse_bwd_fused_tc_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    lse_bwd_fused_tc_kernel<D, F><<<grid, tc::kThreads, smem, stream>>>(s, items, in, ds_part, di_part, M, N,
+                                                                         chunk_rows, tiles_per_group);
+  } else {
+    const int smem = grad_smem_bytes<D>();
+    cudaError_t err =
+        cudaFuncSetAttribute(lse_bwd_fused_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    lse_bwd_fused_kernel<D, F><<<grid, kThreads, smem, stream>>>(s, items, in, ds_part, di_part, M, N, chunk_rows,
+                                                                  tiles_per_group);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -647,6 +1087,7 @@ int launch_fused(const float* s, const float* items, GradRows in, float* ds_part
 #define CALL_LSE_SHIFT(D, ...) launch_chunks<D, true>(__VA_ARGS__)
 #define CALL_CE_DS(D, ...) launch_ds<D, kCE>(__VA_ARGS__)
 #define CALL_CE_DI(D, ...) launch_di<D, kCE>(__VA_ARGS__)
+#define CALL_CE_FUSED(D, ...) launch_fused<D, kCE>(__VA_ARGS__)
 #define CALL_LSE_DS(D, ...) launch_ds<D, kLse>(__VA_ARGS__)
 #define CALL_LSE_DI(D, ...) launch_di<D, kLse>(__VA_ARGS__)
 #define CALL_LSE_FUSED(D, ...) launch_fused<D, kLse>(__VA_ARGS__)
@@ -703,6 +1144,18 @@ extern "C" int ce_di_f32(const float* s, const float* items, const float* z, con
   DISPATCH_D(D, CALL_CE_DI, s, items, in, di, M, N, stream)
 }
 
+// ds_part (ceil(N / chunk_rows), M, D) and di_part (n_groups, N, D), as
+// lse_bwd_fused_f32 gives them; the label term inside the probability tile
+extern "C" int ce_fused_f32(const float* s, const float* items, const float* z, const long long* y, const float* coeff,
+                            float* ds_part, float* di_part, long long M, long long N, int D, long long chunk_rows,
+                            long long tiles_per_group, long long n_groups, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN || tiles_per_group <= 0 || N > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const GradRows in{z, coeff, y, nullptr};
+  DISPATCH_D(D, CALL_CE_FUSED, s, items, in, ds_part, di_part, M, N, chunk_rows, tiles_per_group, n_groups, stream)
+}
+
 // bias (N,), lse and dlse (M,)
 extern "C" int lse_bwd_ds_f32(const float* s, const float* items, const float* bias, const float* lse,
                               const float* dlse, float* ds, long long M, long long N, int D, cudaStream_t stream) {
@@ -718,15 +1171,19 @@ extern "C" int lse_bwd_di_f32(const float* s, const float* items, const float* b
   DISPATCH_D(D, CALL_LSE_DI, s, items, in, di, M, N, stream)
 }
 
-// ds_part (ceil(N / chunk_rows), M, D) and di_part (ceil(ceil(M / 64) /
-// tiles_per_group), N, D); chunk_rows a multiple of 64
+// ds_part (ceil(N / chunk_rows), M, D) and di_part (n_groups, N, D) with
+// n_groups = ceil(ceil(M / rows) / tiles_per_group), rows = 128 for D in {32,
+// 64, 128} and 64 otherwise (the session tile), else cudaErrorInvalidValue;
+// chunk_rows a multiple of 64
 extern "C" int lse_bwd_fused_f32(const float* s, const float* items, const float* bias, const float* lse,
                                  const float* dlse, float* ds_part, float* di_part, long long M, long long N, int D,
-                                 long long chunk_rows, long long tiles_per_group, cudaStream_t stream) {
+                                 long long chunk_rows, long long tiles_per_group, long long n_groups,
+                                 cudaStream_t stream) {
   if (M <= 0 || N <= 0) return 0;
   if (chunk_rows <= 0 || chunk_rows % kBN || tiles_per_group <= 0) return (int)cudaErrorInvalidValue;
   const GradRows in{lse, dlse, nullptr, bias};
-  DISPATCH_D(D, CALL_LSE_FUSED, s, items, in, ds_part, di_part, M, N, chunk_rows, tiles_per_group, stream)
+  DISPATCH_D(D, CALL_LSE_FUSED, s, items, in, ds_part, di_part, M, N, chunk_rows, tiles_per_group, n_groups,
+             stream)
 }
 
 // z (M,), +inf = ignore the row; the outputs as lse_bwd_ds_f32 / lse_bwd_di_f32 /
@@ -747,9 +1204,9 @@ extern "C" int grads_z_di_f32(const float* s, const float* items, const float* z
 
 extern "C" int grads_z_fused_f32(const float* s, const float* items, const float* z, float* ds_part, float* di_part,
                                  long long M, long long N, int D, long long chunk_rows, long long tiles_per_group,
-                                 cudaStream_t stream) {
+                                 long long n_groups, cudaStream_t stream) {
   if (M <= 0 || N <= 0) return 0;
   if (chunk_rows <= 0 || chunk_rows % kBN || tiles_per_group <= 0) return (int)cudaErrorInvalidValue;
   const GradRows in{z, nullptr, nullptr, nullptr};
-  DISPATCH_D(D, CALL_Z_FUSED, s, items, in, ds_part, di_part, M, N, chunk_rows, tiles_per_group, stream)
+  DISPATCH_D(D, CALL_Z_FUSED, s, items, in, ds_part, di_part, M, N, chunk_rows, tiles_per_group, n_groups, stream)
 }

@@ -41,6 +41,7 @@ LAUNCHES: tp.Dict[str, int] = {
     "lse_partials_fwd": 0,
     "lse_fwd": 0,
     "lse_shift_fwd": 0,
+    "ce_grads_fused": 0,
     "ce_grads_ds": 0,
     "ce_grads_di": 0,
     "lse_bias_fwd": 0,

@@ -26,13 +26,20 @@ loss and its public ops take:
   while its partials fit the budget, else ``grads_z_ds_f32`` +
   ``grads_z_di_f32`` (kernels 13 and 14).
 - :func:`softmax_ce_grads_from_z` — ``ds = (P − D) @ items`` and
-  ``di = (P − D)ᵀ @ sessions`` with ``D = coeff · onehot(y)``: two kernels
-  launched back to back (``ce_ds_f32``, ``ce_di_f32``: kernel 7), each
-  recomputing the logits. Above the JAX package's partials budget for the
-  loss's tiling (:func:`ce_takes_split_route`: catalogs above 81,920 items at
-  51,200 × 128) it is :func:`softmax_grads_from_z` and the label term in
-  plain torch, as the JAX fallback does. The single-device CE loss
-  differentiates through it.
+  ``di = (P − D)ᵀ @ sessions`` with ``D = coeff · onehot(y)`` (kernel 7). In
+  this order: above the JAX package's partials budget for the loss's tiling
+  (:func:`ce_takes_split_route`: catalogs above 81,920 items at 51,200 × 128)
+  it is :func:`softmax_grads_from_z` and the label term in plain torch, as
+  the JAX fallback does; else, while the fused kernel's partials fit
+  ``FUSED_BWD_PARTIALS_BUDGET``, one pass (``ce_fused_f32``, kernels 9 and
+  12's grid with the label term in the probability tile); else two kernels
+  launched back to back (``ce_ds_f32``, ``ce_di_f32``), each recomputing the
+  logits. The single-device CE loss differentiates through it.
+
+The fused kernels (9, 12 and 7's one pass) run their products on the tensor
+cores in 3xTF32 (each f32 operand split into two TF32 halves, about f32
+accuracy) for D in 32..128, on SIMT f32 tiles for D = 16 and 256; the other
+kernels are SIMT f32 tiles (csrc/softmax_lse.cu says why).
 
 CPU tensors take the twins, which walk the catalog in item chunks exactly as
 the kernels walk their tiles (per-chunk partials, a running max or fixed
@@ -65,21 +72,25 @@ _SIGNATURES = {
     # sessions, items, z, y (int64), coeff, out; M, N, D; stream
     "ce_ds_f32": (_C,) * 6 + (_LL, _LL, _I, _C),
     "ce_di_f32": (_C,) * 6 + (_LL, _LL, _I, _C),
+    # sessions, items, z, y (int64), coeff, ds partials, di partials; M, N, D; chunk rows, tiles per group,
+    # session groups; stream
+    "ce_fused_f32": (_C,) * 7 + (_LL, _LL, _I, _LL, _LL, _LL, _C),
     # sessions, items, bias, lse, dlse, out; M, N, D; stream
     "lse_bwd_ds_f32": (_C,) * 6 + (_LL, _LL, _I, _C),
     "lse_bwd_di_f32": (_C,) * 6 + (_LL, _LL, _I, _C),
-    # sessions, items, bias, lse, dlse, ds partials, di partials; M, N, D; chunk rows, tiles per group; stream
-    "lse_bwd_fused_f32": (_C,) * 7 + (_LL, _LL, _I, _LL, _LL, _C),
+    # sessions, items, bias, lse, dlse, ds partials, di partials; M, N, D; chunk rows, tiles per group, session
+    # groups; stream
+    "lse_bwd_fused_f32": (_C,) * 7 + (_LL, _LL, _I, _LL, _LL, _LL, _C),
     # sessions, items, z, out; M, N, D; stream
     "grads_z_ds_f32": (_C,) * 4 + (_LL, _LL, _I, _C),
     "grads_z_di_f32": (_C,) * 4 + (_LL, _LL, _I, _C),
-    # sessions, items, z, ds partials, di partials; M, N, D; chunk rows, tiles per group; stream
-    "grads_z_fused_f32": (_C,) * 5 + (_LL, _LL, _I, _LL, _LL, _C),
+    # sessions, items, z, ds partials, di partials; M, N, D; chunk rows, tiles per group, session groups; stream
+    "grads_z_fused_f32": (_C,) * 5 + (_LL, _LL, _I, _LL, _LL, _LL, _C),
 }
 SUPPORTED_D = (16, 32, 64, 128, 256)
 TWIN_CHUNK = 2048  # item columns per step of the plain twins
 NEG_BIG = -1e30  # bias of an item row that only pads a shard
-TILE = 64  # session and item rows per kernel tile
+TILE = 64  # item rows per tile of every kernel, session rows per tile of the SIMT kernels
 
 # The forward without a bias: kernel 6 (per-chunk partials, the JAX default
 # `_USE_PARTIALS_FWD = True`) or, set to False, kernel 15 (one running max per
@@ -99,7 +110,11 @@ WINDOW1_FLOOR = 2.061e-9
 # partials, one more logit pass (the JAX package's constant and rule).
 FUSED_BWD_PARTIALS_BUDGET = 512 * 1024 * 1024
 FUSED_BWD_CHUNK = 2048  # item rows a block of the fused backward owns
-FUSED_BWD_BLOCKS_PER_SM = 2  # blocks of the fused backward that share a multiprocessor
+# The fused backward's tile by feature width: (session rows per tile, blocks
+# per multiprocessor). D in 32..128 take the tensor-core tile (227 KB of shared
+# memory, one block), 16 and 256 the SIMT tile (two blocks). The kernels are
+# built for the same rows and reject a grid of other session groups.
+_FUSED_BWD_TILE = {d: (128, 1) if 32 <= d <= 128 else (TILE, 2) for d in SUPPORTED_D}
 
 
 def _running_lse(
@@ -261,15 +276,18 @@ def softmax_ce_grads_from_z_reference(
     y: torch.Tensor,
     coeff: torch.Tensor,
     chunk: int = TWIN_CHUNK,
+    partials: bool = True,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of ``ce_ds_f32`` / ``ce_di_f32``: (ds, di)."""
+    """Plain PyTorch twin of kernel 7: (ds, di) in the order of
+    ``ce_fused_f32`` (``partials=True``: one ds partial per chunk, summed at
+    the end) or of ``ce_ds_f32`` + ``ce_di_f32`` (``False``: a running sum)."""
 
     def weights(logits: torch.Tensor, start: int) -> torch.Tensor:
         pw = torch.exp(logits - z[:, None])
         cols = torch.arange(start, start + logits.shape[1], device=sessions.device)
         return torch.where(cols[None, :] == y[:, None], pw - coeff[:, None], pw)
 
-    return _grads_reference(sessions, items, weights, chunk, partials=False)
+    return _grads_reference(sessions, items, weights, chunk, partials)
 
 
 def _check(kernel: str, sessions: torch.Tensor, items: torch.Tensor) -> tp.Tuple[int, int, int]:
@@ -376,26 +394,27 @@ def streaming_lse_fwd(
 
 def fused_bwd_plan(m: int, n: int, d: int, n_sms: int) -> tp.Tuple[int, int, int]:
     """(tiles per session group, n_groups, bytes of partials) of the fused
-    backward kernels (9 and 12): one block per (item chunk, session group),
-    and no more blocks than ``FUSED_BWD_BLOCKS_PER_SM`` per multiprocessor, so
-    that all run in one wave (a few blocks over it and the last ones run
-    alone: twice the time). Two blocks share a multiprocessor's registers and
-    shared memory at D <= 128, and two hide each other's latency: one per
-    multiprocessor measured a third slower."""
+    backward kernels (7, 9 and 12): one block per (item chunk, session
+    group), and no more blocks than fit the multiprocessors at once, so that
+    all run in one wave (a few blocks over it and the last ones run alone:
+    twice the time)."""
+    tile_rows, blocks_per_sm = _FUSED_BWD_TILE[d]
     n_chunks = max(1, -(-n // FUSED_BWD_CHUNK))
-    m_tiles = max(1, -(-m // TILE))
-    tiles_per_group = -(-m_tiles // max(1, FUSED_BWD_BLOCKS_PER_SM * n_sms // n_chunks))
+    m_tiles = max(1, -(-m // tile_rows))
+    tiles_per_group = -(-m_tiles // max(1, blocks_per_sm * n_sms // n_chunks))
     n_groups = -(-m_tiles // tiles_per_group)
     return tiles_per_group, n_groups, (n_chunks * m + n_groups * n) * d * 4
 
 
 def _fused_or_split(
-    prefix: str, sessions: torch.Tensor, items: torch.Tensor, row_pointers: tp.Tuple[int, ...]
+    prefix: str, sessions: torch.Tensor, items: torch.Tensor, row_pointers: tp.Tuple[int, ...], key: str = ""
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """(ds, di) from ``{prefix}_fused_f32`` while its partials fit
     ``FUSED_BWD_PARTIALS_BUDGET``, else from ``{prefix}_ds_f32`` and
     ``{prefix}_di_f32``; ``row_pointers`` are the kernels' inputs after the
-    sessions and the items. Launch keys: ``{prefix}_fused`` / ``_ds`` / ``_di``."""
+    sessions and the items. Launch keys: ``{key}_fused`` / ``_ds`` / ``_di``,
+    ``key`` defaulting to ``prefix``."""
+    key = key or prefix
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
     if m == 0 or n == 0:
         return torch.zeros_like(sessions), torch.zeros_like(items)
@@ -410,9 +429,10 @@ def _fused_or_split(
         di_part = torch.empty((n_groups, n, d), dtype=torch.float32, device=sessions.device)
         with torch.cuda.device(sessions.device):
             status = getattr(lib, f"{prefix}_fused_f32")(
-                *args, ds_part.data_ptr(), di_part.data_ptr(), m, n, d, FUSED_BWD_CHUNK, tiles_per_group, stream
+                *args, ds_part.data_ptr(), di_part.data_ptr(), m, n, d, FUSED_BWD_CHUNK, tiles_per_group, n_groups,
+                stream,
             )
-        _native.check_launch(f"{prefix}_fused", status)
+        _native.check_launch(f"{key}_fused", status)
         # fixed-order sums of the partials
         ds = ds_part.sum(dim=0) if n_chunks > 1 else ds_part[0]
         di = di_part.sum(dim=0) if n_groups > 1 else di_part[0]
@@ -421,9 +441,9 @@ def _fused_or_split(
     di = torch.empty_like(items)
     with torch.cuda.device(sessions.device):
         status = getattr(lib, f"{prefix}_ds_f32")(*args, ds.data_ptr(), m, n, d, stream)
-        _native.check_launch(f"{prefix}_ds", status)
+        _native.check_launch(f"{key}_ds", status)
         status = getattr(lib, f"{prefix}_di_f32")(*args, di.data_ptr(), m, n, d, stream)
-    _native.check_launch(f"{prefix}_di", status)
+    _native.check_launch(f"{key}_di", status)
     return ds, di
 
 
@@ -598,14 +618,17 @@ def softmax_ce_grads_from_z(
     y: torch.Tensor,  # (M,) int label ids; rows with coeff == 0 are ignored
     coeff: torch.Tensor,  # (M,) f32 nonnegative row cotangent magnitude
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """(ds, di) = ((P − D) @ items, (P − D)ᵀ @ sessions): kernel 7 (two
-    launches), or above :func:`ce_takes_split_route`'s threshold the JAX
-    very-large-catalog route (rectools_tpu/ops/softmax_lse.py:748-754):
-    :func:`softmax_grads_from_z`, then ``ds −= coeff · items[y]`` and ``di −=
-    segment-sum(coeff · sessions, y)`` outside any kernel. The segment sum is
+    """(ds, di) = ((P − D) @ items, (P − D)ᵀ @ sessions). Above
+    :func:`ce_takes_split_route`'s threshold the JAX very-large-catalog route
+    (rectools_tpu/ops/softmax_lse.py:748-754): :func:`softmax_grads_from_z`,
+    then ``ds −= coeff · items[y]`` and ``di −= segment-sum(coeff · sessions,
+    y)`` outside any kernel. The segment sum is
     ``index_put_(accumulate=True)``, which sorts the labels and adds each
     run in order: the same bits on every run (``index_add_`` would use float
-    atomics on the card)."""
+    atomics on the card). Below it kernel 7: one pass (``ce_fused_f32``,
+    launch key ``ce_grads_fused``) while its partials fit
+    ``FUSED_BWD_PARTIALS_BUDGET``, else two launches (``ce_grads_ds``,
+    ``ce_grads_di``)."""
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
     on_card = sessions.device.type != "cpu"
     if on_card:
@@ -622,16 +645,6 @@ def softmax_ce_grads_from_z(
         labels = torch.zeros_like(items).index_put_((y,), coeff_col * sessions, accumulate=True)
         return ds - coeff_col * items[y], di - labels
     if not on_card:
-        return softmax_ce_grads_from_z_reference(sessions, items, z, y, coeff)
+        return softmax_ce_grads_from_z_reference(sessions, items, z, y, coeff, partials=_fused_on_the_card(m, n, d))
     z, coeff = z.contiguous(), coeff.contiguous()
-    ds = torch.empty_like(sessions)
-    di = torch.empty_like(items)
-    lib = _native.load("softmax_lse", _SIGNATURES)
-    stream = _native.current_stream_ptr(sessions.device)
-    args = (sessions.data_ptr(), items.data_ptr(), z.data_ptr(), y.data_ptr(), coeff.data_ptr())
-    with torch.cuda.device(sessions.device):
-        status = lib.ce_ds_f32(*args, ds.data_ptr(), m, n, d, stream)
-        _native.check_launch("ce_grads_ds", status)
-        status = lib.ce_di_f32(*args, di.data_ptr(), m, n, d, stream)
-    _native.check_launch("ce_grads_di", status)
-    return ds, di
+    return _fused_or_split("ce", sessions, items, (z.data_ptr(), y.data_ptr(), coeff.data_ptr()), key="ce_grads")

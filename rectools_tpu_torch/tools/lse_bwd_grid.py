@@ -14,6 +14,9 @@ warm-up) and the largest error against the twin relative to the twin's
 largest entry. The session-group counts are those that give 1, 2, 3 and 4
 blocks per multiprocessor, and one just over a wave (the grid the first
 version of the wrapper chose), which shows what a partial second wave costs.
+At D = 128 the kernel runs the tensor-core tile (128-row session tiles; one
+block of 227 KB of shared memory fits a multiprocessor, so 2-4 blocks per
+multiprocessor are 2-4 waves).
 ``rectools_tpu_torch.ops.softmax_lse.fused_bwd_plan`` holds the choice made
 from these numbers. The first line names the card and its power limit.
 """
@@ -79,7 +82,7 @@ def main() -> int:
         print(json.dumps({"m": m, "n": n, "kernel_8_ms": forward_ms, "kernels_10_11_ms": time_ms(torch, backward),
                           "kernels_10_11_err": worst(backward())}), flush=True)
         softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62
-        m_tiles = -(-m // softmax_lse.TILE)
+        m_tiles = -(-m // softmax_lse._FUSED_BWD_TILE[D][0])
         for chunk in CHUNKS:
             n_chunks = -(-n // chunk)
             wanted = sorted({max(1, k * n_sms // n_chunks) for k in (1, 2, 3, 4)} | {-(-n_sms // n_chunks)})

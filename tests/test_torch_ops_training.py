@@ -488,8 +488,11 @@ def test_streaming_lse_vjp_routes_agree(monkeypatch) -> None:
         np.testing.assert_allclose(got.numpy(), expected.numpy(), atol=1e-5 * expected.abs().max().item())
     # above the budget the plan says split: a catalog of 2M items at the training width
     assert softmax_lse.fused_bwd_plan(51200, 2_000_000, 128, 132)[2] > 512 * 1024 * 1024
-    plan = softmax_lse.fused_bwd_plan(51200, 15872, 128, 132)  # 8 chunks x 32 groups: 256 blocks, 2 per SM
-    assert plan == (25, 32, (8 * 51200 + 32 * 15872) * 128 * 4) and plan[2] <= 512 * 1024 * 1024
+    # the tensor-core tile at d = 128: 8 chunks x 16 groups of 25 tiles of 128 rows, 128 blocks, 1 per SM
+    plan = softmax_lse.fused_bwd_plan(51200, 15872, 128, 132)
+    assert plan == (25, 16, (8 * 51200 + 16 * 15872) * 128 * 4) and plan[2] <= 512 * 1024 * 1024
+    # the SIMT tile at d = 256: 64-row tiles, 2 blocks per SM (20,480 items: 10 chunks x 26 groups)
+    assert softmax_lse.fused_bwd_plan(51200, 20480, 256, 132) == (31, 26, (10 * 51200 + 26 * 20480) * 256 * 4)
 
 
 def test_streaming_lse_bias_gets_no_gradient() -> None:
@@ -524,19 +527,108 @@ def test_hash_masks_of_a_batch_shard_are_rows_of_the_global_mask(offset_rows: in
     assert torch.equal(layer(torch.ones((b, 5, 7))), whole[offset_rows : offset_rows + b])
 
 
-@pytest.mark.parametrize("m,n", [(50, 300), (64, 129)])
-def test_softmax_ce_grads_from_z_matches_jax(m: int, n: int) -> None:
-    rng, s, items = _lse_inputs(m, n, 32, seed=3 * m + n)
+def _ce_case(m: int, n: int, d: int = 32):
+    rng, s, items = _lse_inputs(m, n, d, seed=3 * m + n)
     y = rng.integers(0, n, size=m).astype(np.int32)
     coeff = rng.uniform(0.0, 0.05, size=m).astype(np.float32)
     coeff[::5] = 0.0  # ignored rows
     lse = np.asarray(jax_softmax_lse.reference_lse(jnp.asarray(s), jnp.asarray(items)))
     with np.errstate(divide="ignore"):
         z = (lse - np.log(coeff)).astype(np.float32)
+    return s, items, z, y, coeff
+
+
+@pytest.mark.parametrize("partials", [True, False])
+@pytest.mark.parametrize("m,n", [(50, 300), (64, 129)])
+def test_softmax_ce_grads_from_z_matches_jax(m: int, n: int, partials: bool) -> None:
+    """Kernel 7's twin in the one-pass order (``partials=True``: one ds
+    partial per item chunk, summed at the end) and in the two-launch order (a
+    running sum), chunked finely so that the orders differ, and the public op,
+    against the JAX op in interpret mode."""
+    s, items, z, y, coeff = _ce_case(m, n)
     ds_jax, di_jax = jax_softmax_lse.softmax_ce_grads_from_z(*map(jnp.asarray, (s, items, z, y, coeff)), 16, 64, True)
-    ds, di = softmax_lse.softmax_ce_grads_from_z(_t(s), _t(items), _t(z), _t(y.astype(np.int64)), _t(coeff))
-    np.testing.assert_allclose(ds.numpy(), np.asarray(ds_jax), atol=1e-5, rtol=1e-5)
-    np.testing.assert_allclose(di.numpy(), np.asarray(di_jax), atol=1e-5, rtol=1e-5)
+    args = (_t(s), _t(items), _t(z), _t(y.astype(np.int64)), _t(coeff))
+    for got in (softmax_lse.softmax_ce_grads_from_z(*args),
+                softmax_lse.softmax_ce_grads_from_z_reference(*args, chunk=7, partials=partials)):
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(ds_jax), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(di_jax), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("budget,fused", [(None, True), (40_000, False)])
+def test_softmax_ce_grads_from_z_takes_the_order_of_the_card(monkeypatch, budget, fused: bool) -> None:
+    """On the CPU the CE gradients take the summation order the card would
+    take: the one pass while the fused plan's partials fit the budget, the
+    two launches when they do not but the JAX rule keeps kernel 7 (at 50 x
+    300 x 32 the rule counts 32,768 bytes, the plan 44,800)."""
+    m, n, d = 50, 300, 32
+    if budget is not None:
+        monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", budget)
+    assert not softmax_lse.ce_takes_split_route(m, n, d)
+    assert softmax_lse._fused_on_the_card(m, n, d) == fused
+    orders = []
+    twin = softmax_lse.softmax_ce_grads_from_z_reference
+    monkeypatch.setattr(softmax_lse, "softmax_ce_grads_from_z_reference",
+                        lambda *a, **k: orders.append(k["partials"]) or twin(*a, **k))
+    s, items, z, y, coeff = _ce_case(m, n, d)
+    args = (_t(s), _t(items), _t(z), _t(y.astype(np.int64)), _t(coeff))
+    got = softmax_lse.softmax_ce_grads_from_z(*args)
+    assert orders == [fused]
+    for g, expected in zip(got, twin(*args, partials=fused)):
+        assert torch.equal(g, expected)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: x kept to 10 mantissa bits, rounded to nearest
+    with ties away from zero (half a TF32 ulp added to the magnitude bits,
+    then the 13 low bits cleared)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    rounded = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(rounded >= 2**31, rounded - 2**32, rounded).to(torch.int32).view(torch.float32)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, three: bool) -> torch.Tensor:
+    """a @ b from TF32 halves: 3xTF32 (lo·hi + hi·lo, then hi·hi) or, with
+    ``three`` False, plain TF32 (hi·hi)."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    if not three:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def test_tf32_rounding_is_round_to_nearest_away() -> None:
+    one, ulp = 1.0, 2.0**-10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 4, one + 3 * ulp / 4, 3.0, -0.0])
+    expected = torch.tensor([one + ulp, -(one + ulp), one, one + ulp, 3.0, -0.0])
+    assert torch.equal(_tf32_rna(x), expected)
+    hi = _tf32_rna(x)
+    assert torch.equal(_tf32_rna(hi), hi)  # TF32 values are fixed points
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_ce_gradients_in_3xtf32_pass_the_card_tolerance(d: int) -> None:
+    """The arithmetic of the tensor-core tile on the CPU: the three products
+    of the CE gradients (logits, ds, di) from TF32 halves, the probabilities
+    between them as the kernel forms them, at the input scale of the card's
+    kernel phases (sessions N(0, 1), items 0.1 N(0, 1)). 3xTF32 stays within
+    1e-5 of the exact f32 twin's largest entry; plain TF32 lands above 1e-4,
+    the loosest limit the card holds a kernel to, so no limit there passes
+    it."""
+    m, n = 96, 300
+    rng = np.random.default_rng(d)
+    s = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32))
+    items = torch.from_numpy((0.1 * rng.normal(size=(n, d))).astype(np.float32))
+    y = torch.from_numpy(rng.integers(1, n, size=m))
+    coeff = torch.full((m,), 1.0 / m)
+    coeff[::5] = 0.0
+    z = softmax_lse.streaming_lse_reference(s, items) - torch.log(coeff)
+    exact = softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff)
+    for three in (True, False):
+        pw = torch.exp(_mm_tf32(s, items.T, three) - z[:, None])
+        pw[torch.arange(m), y] -= coeff
+        got = (_mm_tf32(pw, items, three), _mm_tf32(pw.T, s, three))
+        worst = max(((g - e).abs().max() / e.abs().max()).item() for g, e in zip(got, exact))
+        assert worst <= 1e-5 if three else worst > 1e-4, (three, worst)
 
 
 # ------------------------------------------------------------------ losses
