@@ -20,16 +20,19 @@ own lines; any failure exits nonzero and prints no result:
              per-chunk partials, kernel 15's running max, kernel 16's fixed
              shift at these inputs and scaled so that window 2 serves the
              rows, with the share of rows in each window); the softmax
-             gradients from z (kernel 12, bit-equal on a rerun; kernels 13 +
-             14 at 15,872, at the odd catalog and at 131,072 items); the CE
-             gradients (kernel 7) in one pass, bit-equal on a rerun, and its
-             two launches with the partials budget forced below the fused
-             plan's; at 51,200 x 131,072 the CE gradients' very-large-catalog
-             route against kernel 7's one pass on the same inputs (the budget
-             lifted: 1.7 GiB of partials), bit-equal on a rerun. Kernels 7, 9
-             and 12 run 3xTF32 tensor-core products: their bound is counted
-             at 495 TFLOP/s TF32, three products per f32 product, with the
-             FP32 bound beside it.
+             gradients from z (kernel 12; kernels 13 + 14 at 15,872, at the
+             odd catalog and at 131,072 items); the CE gradients (kernel 7) in
+             one pass, and its two launches with the partials budget forced
+             below the fused plan's, each with a plain-TF32 control that must
+             fail the tensor-core limit; at 51,200 x 131,072 the CE gradients'
+             very-large-catalog route against kernel 7's one pass on the same
+             inputs (the budget lifted: 1.7 GiB of partials), and kernel 7's
+             two launches and kernels 10 + 11 against their twins. Every
+             gradient kernel gives the same bits on a rerun and runs 3xTF32
+             tensor-core products at d = 128: its bound is counted at 495
+             TFLOP/s TF32, three products per f32 product, with the FP32 bound
+             beside it; the split kernels' times are printed beside their
+             SIMT-tile times (``redesigned:`` lines).
 4. main    — SASRecModel serving at the KION width: a synthetic KION-shaped
              frame (8,192 users, sessions of 1-300 Zipf-drawn items over
              15,871 ids) -> Dataset.construct -> load_jax_params with random
@@ -76,7 +79,7 @@ own lines; any failure exits nonzero and prints no result:
              at a (2, 2) mesh's shard (25,600 x 7,936) and at the last shard of
              the 15,835-row catalog cut four ways (3,959 rows, one of them
              invalid, bias -1e30), with a cotangent of mixed sign; fused beside
-             split, and the fused kernel's bits on a second run. ``mesh fit``:
+             split, and both routes' bits on a second run. ``mesh fit``:
              SASRecModel with ``mesh_shape=(1, 1)`` through a one-rank process
              group on the card, the training phase's width and depth: kernel 8
              and kernel 9 once per step and none of kernels 6 and 7, the
@@ -94,12 +97,14 @@ own lines; any failure exits nonzero and prints no result:
              12) as a user calls them, at the training width. ``classic
              forward``: two KION train steps with ``USE_PARTIALS_FWD = False``
              (kernel 15 once a step, kernel 6 never), losses within LOSS_RTOL
-             of the default's from the same start. ``large fit``: SASRecModel
-             fit at the training width on a 131,072-row catalog (the frame
-             with 131,071 item ids), 2 epochs: kernels 6, 13 and 14 once a
-             step and kernel 7 never, finite falling losses, validation loss
-             and recall, train examples/s over epoch 2, peak memory, one
-             profiled step, and one step's loss gradients against the twins.
+             of the default's from the same start. ``mid fit`` and ``large
+             fit``: SASRecModel fit at the training width on a 65,536-row and
+             a 131,072-row catalog (the frame with 65,535 and 131,071 item
+             ids), 2 epochs each: kernel 6 and kernel 7's two launches (mid),
+             or kernels 6, 13 and 14 (large), once a step and kernel 7's one
+             pass never, finite falling losses, validation loss and recall,
+             train examples/s over epoch 2, peak memory, one profiled step,
+             and one step's loss gradients against the twins.
 
 Output, last lines: one JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -124,9 +129,16 @@ K = 10
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores, data sheet
 PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores, data sheet
-# kernels 7, 9 and 12 on the SIMT tile, before they moved to the tensor cores (PERF.md §6, NVIDIA H100 80GB
-# HBM3 at 700 W; kernel 7 then its two launches), printed beside this run's times
-SIMT_TILE_MS = {"ce_grads": 33.2298, "lse_bwd_fused": 24.6118, "grads_z_fused": 24.3758}
+# the gradient kernels on the SIMT tile, before they moved to the tensor cores (PERF.md §6, NVIDIA H100 80GB
+# HBM3 at 700 W): kernels 7, 9 and 12 (kernel 7 then its two launches) until PR 6, the split kernels (7's two
+# launches, 10, 11, 13, 14, by the entry of `kernels` that holds this run's time) until PR 7; printed beside this
+# run's times on `redesigned:` lines, never in the JSON line
+SIMT_TILE_MS = {
+    "ce_grads": 33.2298, "lse_bwd_fused": 24.6118, "grads_z_fused": 24.3758, "ce_grads_pair": 33.4354,
+    "lse_bwd_ds": 17.7596, "lse_bwd_di": 16.1084, "lse_bwd_ds_shard_2x2": 5.0311, "lse_bwd_di_shard_2x2": 5.1938,
+    "lse_bwd_ds_ragged_shard": 2.5195, "lse_bwd_di_ragged_shard": 5.1749, "grads_z_ds": 17.6091,
+    "grads_z_di": 16.0467, "grads_z_ds_large_catalog": 146.99, "grads_z_di_large_catalog": 126.41,
+}
 LN_TOL = 1e-5
 ATTN_TOL = 1e-5
 SCORE_RTOL, SCORE_ATOL, TIE_GAP = 1e-4, 1e-4, 1e-4  # GPU vs CPU run: f32 sums in another order
@@ -137,14 +149,18 @@ EPOCHS = 2
 LN_BWD_TOL = 1e-5  # dx absolute; dgamma and dbeta relative to their largest entry (sums over 51,200 rows)
 LSE_RTOL = 1e-5  # relative, per row: one column of 15,872 left out moves an lse of about 10 by 6e-6 relative
 CE_RTOL = 1e-4  # relative to the largest entry of ds and of di
-# the same for kernels 7 (one pass), 9 and 12 on the tensor-core tile (3xTF32 products, a fresh fragment per 16 k;
-# 2.7e-6 at most at the training shape): plain TF32 lands near 5e-4, and 3xTF32 accumulated straight onto the
-# running fragment at 1.3-3.0e-5, both above it
+# the same for the gradient kernels on the tensor-core tile, fused (7's one pass, 9, 12) and split (7's two
+# launches, 10, 11, 13, 14) (3xTF32 products, a fresh fragment per 16 k; 4.3e-6 at most at the training shape and
+# at 131,072 items): plain TF32 lands near 5e-4, and 3xTF32 accumulated straight onto the running fragment at
+# 1.3-3.0e-5, both above it
 TC_RTOL = 6e-6
 LOSS_RTOL, PARAM_ATOL = 1e-4, 1e-4  # GPU vs CPU training
 AGREE_SESSIONS, AGREE_STEPS = 64, 3
 RAGGED_N = N_ITEM_IDS + 1 - 37  # an odd catalog: every item tile of kernels 6 and 7 leaves a tail
 LARGE_N_ITEM_IDS = 131071  # + PAD = 131,072 rows: past the 81,920 items at which the CE gradients leave kernel 7
+# + PAD = 65,536 rows, a MovieLens-25M-sized catalog: kernel 7's one pass would need 928 MiB of partials, over the
+# budget, and the JAX rule keeps kernel 7: its two launches
+MID_N_ITEM_IDS = 65535
 SHIFT_WINDOW2_SCALE = 2.5  # scales sessions and items so that kernel 16's bound gap (~11) grows to ~70: window 2
 MESH_4 = (2, 2)  # the four-rank mesh; its model axis cuts the odd catalog into 7,918 + 7,917 rows
 MESH_RANK_TIMEOUT_S = 420.0
@@ -294,10 +310,11 @@ def _max_rel(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max()).item()
 
 
-def ce_grads_plain_tf32(torch, softmax_lse, s, items, z, y, coeff) -> tuple:
+def ce_grads_plain_tf32(torch, softmax_lse, s, items, z, y, coeff, partials: bool = True) -> tuple:
     """Kernel 7's function with plain TF32 products: each operand of the three
     products rounded once as ``cvt.rna.tf32.f32`` does (a product of two TF32
-    values is exact in f32), in the twin's chunks and order."""
+    values is exact in f32), in the twin's chunks and the one pass's order
+    (``partials``) or the two launches'."""
 
     def tf32(x):
         return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
@@ -307,7 +324,7 @@ def ce_grads_plain_tf32(torch, softmax_lse, s, items, z, y, coeff) -> tuple:
         cols = torch.arange(start, start + logits.shape[1], device=s.device)
         return tf32(torch.where(cols[None, :] == y[:, None], pw - coeff[:, None], pw))
 
-    return softmax_lse._grads_reference(tf32(s), tf32(items), weights, softmax_lse.TWIN_CHUNK, True)
+    return softmax_lse._grads_reference(tf32(s), tf32(items), weights, softmax_lse.TWIN_CHUNK, partials)
 
 
 def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
@@ -458,8 +475,8 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     z = lse - torch.log(coeff)  # +inf on PAD rows
 
     # kernel 12: both softmax gradients from z in one pass (its partials fit the budget here)
-    plan = softmax_lse.fused_bwd_plan(m, n, d, torch.cuda.get_device_properties(dev).multi_processor_count
-                                      if dev.type == "cuda" else 132)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    plan = softmax_lse.fused_bwd_plan(m, n, d, n_sms)
     check(plan[2] <= softmax_lse.FUSED_BWD_PARTIALS_BUDGET, f"kernel 12's partials {plan[2]} pass the budget")
     got = softmax_lse.softmax_grads_from_z(s, items, z)
     ref = softmax_lse.softmax_grads_from_z_reference(s, items, z, partials=True)
@@ -491,44 +508,55 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     lib = softmax_lse._native.load("softmax_lse", softmax_lse._SIGNATURES) if dev.type == "cuda" else None
 
     def split_pair(rows, z_, tag: str, timed: bool) -> None:
-        """Kernels 13 + 14 against their twin (the split order); each kernel
-        timed alone through the library handle."""
+        """Kernels 13 + 14 against their twin (the split order), the same bits
+        on a rerun; each kernel timed alone through the library handle (ds
+        with the sum of its chunk partials)."""
         softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 0
         got_ = softmax_lse.softmax_grads_from_z(s, rows, z_)
+        again_ = softmax_lse.softmax_grads_from_z(s, rows, z_)
         softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
         ref_ = softmax_lse.softmax_grads_from_z_reference(s, rows, z_, partials=False)
         errs = [_max_rel(g, r) for g, r in zip(got_, ref_)]
-        check(max(errs) <= CE_RTOL, f"grads_z_ds / grads_z_di at N={rows.shape[0]} disagree with their twin: {errs}")
+        n_rows = rows.shape[0]
+        check(max(errs) <= TC_RTOL, f"grads_z_ds / grads_z_di at N={n_rows} disagree with their twin: {errs}")
+        check(all(bool(torch.equal(a, g)) for a, g in zip(again_, got_)),
+              f"grads_z_ds / grads_z_di at N={n_rows}: a second run gave other bits")
         if not timed:
             return
-        n_rows = rows.shape[0]
         plain = time_ms(lambda: softmax_lse.softmax_grads_from_z_reference(s, rows, z_, partials=False),
                         iters=1 if tag else 3, warmup=0 if tag else 2)
-        out_ds, out_di = torch.empty_like(s), torch.empty_like(rows)
+        n_chunks, chunk_rows = softmax_lse.split_bwd_plan(m, n_rows, d, n_sms)
+        ds_part, out_di = torch.empty((n_chunks, m, d), device=dev), torch.empty_like(rows)
         ds_ms = di_ms = 0.0
         if lib is not None:
             stream = softmax_lse._native.current_stream_ptr(s.device)
             args = (s.data_ptr(), rows.data_ptr(), z_.data_ptr())
-            ds_ms = time_ms(lambda: lib.grads_z_ds_f32(*args, out_ds.data_ptr(), m, n_rows, d, stream), iters=3)
+
+            def ds_kernel():
+                lib.grads_z_ds_f32(*args, ds_part.data_ptr(), m, n_rows, d, chunk_rows, n_chunks, stream)
+                return ds_part.sum(dim=0)
+
+            ds_ms = time_ms(ds_kernel, iters=3)
             di_ms = time_ms(lambda: lib.grads_z_di_f32(*args, out_di.data_ptr(), m, n_rows, d, stream), iters=3)
-            check(bool(torch.equal(out_ds, got_[0])) and bool(torch.equal(out_di, got_[1])),
+            check(bool(torch.equal(ds_kernel(), got_[0])) and bool(torch.equal(out_di, got_[1])),
                   f"grads_z at N={n_rows}: the timed launches gave other bits than the wrapper's")
         n_products = 2 * m * n_rows * d
         lib_ds = time_ms(lambda: materialized(True, False, s, rows, z_), iters=1 if tag else 3)
         lib_di = time_ms(lambda: materialized(False, True, s, rows, z_), iters=1 if tag else 3)
-        results[f"grads_z_ds{tag}"] = dict(max_abs_err=(got_[0] - ref_[0]).abs().max().item(), ms=ds_ms,
-                                           plain_ms=plain, library_ms=lib_ds,
-                                           bound=bound_ms((2 * m * d + n_rows * d) * 4 + vectors, 2 * n_products))
-        results[f"grads_z_di{tag}"] = dict(max_abs_err=(got_[1] - ref_[1]).abs().max().item(), ms=di_ms,
-                                           plain_ms=plain, library_ms=lib_di,
-                                           bound=bound_ms((m * d + 2 * n_rows * d) * 4 + vectors, 2 * n_products))
-        print(f"train kernels: at N={n_rows}: grads_z_ds {ds_ms:.4f} ms + grads_z_di {di_ms:.4f} ms; twin {plain:.1f} "
-              f"ms; max err relative to the largest entry {max(errs):.3g}")
+        results[f"grads_z_ds{tag}"] = dict(
+            max_abs_err=(got_[0] - ref_[0]).abs().max().item(), ms=ds_ms, plain_ms=plain, library_ms=lib_ds,
+            **tc_bounds((2 * m * d + n_rows * d) * 4 + vectors, 2 * n_products))
+        results[f"grads_z_di{tag}"] = dict(
+            max_abs_err=(got_[1] - ref_[1]).abs().max().item(), ms=di_ms, plain_ms=plain, library_ms=lib_di,
+            **tc_bounds((m * d + 2 * n_rows * d) * 4 + vectors, 2 * n_products))
+        print(f"train kernels: at N={n_rows}: grads_z_ds {ds_ms:.4f} ms ({n_chunks} item chunks of {chunk_rows} rows) "
+              f"+ grads_z_di {di_ms:.4f} ms; twin {plain:.1f} ms; max err relative to the largest entry "
+              f"{max(errs):.3g} (limit {TC_RTOL}), bit-equal on a rerun")
 
     split_pair(items, z, "", timed=True)
     split_pair(items[:RAGGED_N], softmax_lse.streaming_lse(s, items[:RAGGED_N]) - torch.log(coeff), "_ragged",
                timed=False)
-    print(f"train kernels: grads_z_ds / grads_z_di at N={RAGGED_N} within {CE_RTOL} of their twin")
+    print(f"train kernels: grads_z_ds / grads_z_di at N={RAGGED_N} within {TC_RTOL} of their twin")
 
     # kernel 7, from the same z: one pass (its partials fit the budget here), against the twin in that order
     check(softmax_lse._fused_on_the_card(m, n, d) and not softmax_lse.ce_takes_split_route(m, n, d),
@@ -564,27 +592,36 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         library_ms=ce_library_ms, **tc_bounds(ce_bytes, 3 * products),
     )
     # kernel 7's two launches: a budget under the fused plan's partials and over the JAX rule's bytes
-    plan = softmax_lse.fused_bwd_plan(m, n, d, torch.cuda.get_device_properties(dev).multi_processor_count
-                                      if dev.type == "cuda" else 132)
+    plan = softmax_lse.fused_bwd_plan(m, n, d, n_sms)
     softmax_lse.FUSED_BWD_PARTIALS_BUDGET = plan[2] - 1
     check(not softmax_lse._fused_on_the_card(m, n, d) and not softmax_lse.ce_takes_split_route(m, n, d),
           f"a budget of {plan[2] - 1} bytes does not send the CE gradients to kernel 7's two launches")
     pair = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    again = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
     pair_ms = time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3)
     softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+    check(all(bool(torch.equal(a, g)) for a, g in zip(again, pair)), "ce_grads_ds / _di: a second run gave other bits")
     ref_pair = softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff, partials=False)
     rel_pair = max(_max_rel(g, r) for g, r in zip(pair, ref_pair))
-    check(rel_pair <= CE_RTOL, f"kernel 7's two launches disagree with their twin: {rel_pair}")
+    check(rel_pair <= TC_RTOL, f"kernel 7's two launches disagree with their twin: {rel_pair}")
+    # the control in the two launches' order: plain TF32 products must fail the tile's limit there too
+    rel_pair_plain = max(_max_rel(p, r) for p, r in zip(
+        ce_grads_plain_tf32(torch, softmax_lse, s, items, z, y, coeff, partials=False), ref_pair))
+    check(rel_pair_plain > TC_RTOL,
+          f"plain TF32 products in the two launches' order read {rel_pair_plain}, within TC_RTOL {TC_RTOL}")
     results["ce_grads_pair"] = dict(
         max_abs_err=max((a - r).abs().max().item() for a, r in zip(pair, ref_pair)), ms=pair_ms,
         plain_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff, partials=False),
                          iters=3),
-        library_ms=ce_library_ms, bound=bound_ms(ce_bytes, 3 * products),
+        library_ms=ce_library_ms, **tc_bounds(ce_bytes, 3 * products),
     )
+    split_plan = softmax_lse.split_bwd_plan(m, n, d, n_sms)
     print(f"train kernels: CE gradients, one pass {results['ce_grads']['ms']:.4f} ms (bit-equal on a rerun; partials "
           f"{plan[2] / 2**20:.0f} MiB, {plan[1]} session groups of {plan[0]} tiles) beside the two launches "
-          f"{pair_ms:.4f} ms; max err relative to the largest entry {rel:.3g} / {rel_pair:.3g}")
-    del pair, ref_pair
+          f"{pair_ms:.4f} ms (bit-equal on a rerun; ds in {split_plan[0]} item chunks of {split_plan[1]} rows); max "
+          f"err relative to the largest entry {rel:.3g} / {rel_pair:.3g} (limit {TC_RTOL}); the two launches' "
+          f"products in plain TF32 {rel_pair_plain:.3g}")
+    del pair, ref_pair, again
     del items, lse, forwards, z, got, ref, sg, ig, ce_lib
     torch.cuda.empty_cache()
 
@@ -600,8 +637,7 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     check(all(bool(torch.equal(a, g)) for a, g in zip(again, route)), "the CE split route: a second run gave other bits")
     route_ms = time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3)
     softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62  # kernel 7's one pass at any size: 1.7 GiB of partials here
-    large_plan = softmax_lse.fused_bwd_plan(m, n_large, d, torch.cuda.get_device_properties(dev).multi_processor_count
-                                            if dev.type == "cuda" else 132)
+    large_plan = softmax_lse.fused_bwd_plan(m, n_large, d, n_sms)
     kernel_7 = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
     kernel_7_ms = time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3)
     softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
@@ -611,7 +647,27 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     print(f"train kernels: at N={n_large}: the CE split route {route_ms:.3f} ms beside kernel 7's one pass "
           f"{kernel_7_ms:.3f} ms (the budget lifted: {large_plan[2] / 2**30:.2f} GiB of partials, acceptable on an "
           f"80 GB card); they differ by {rel:.3g} of the largest entry; the route bit-equal on a rerun")
-    del s, items, y, coeff, z, route, again, kernel_7, pad
+    del route, again, kernel_7
+    # the other split kernels at this size (checked, not timed): kernel 7's two launches (the JAX rule set aside)
+    # and kernels 10 + 11 (a zero bias, a cotangent of mixed sign), each against its twin in the split order
+    softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 0
+    takes_route, softmax_lse.ce_takes_split_route = softmax_lse.ce_takes_split_route, lambda *_: False
+    bias, dlse = torch.zeros((n_large,), device=dev), torch.randn((m,), generator=gen, device=dev) / m
+    lse_large = softmax_lse.streaming_lse(s, items)
+    long_split = {
+        "ce_grads_ds / _di": (softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff),
+                              lambda: softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff,
+                                                                                     partials=False)),
+        "lse_bwd_ds / _di": (softmax_lse.streaming_lse_bwd(s, items, bias, lse_large, dlse),
+                             lambda: softmax_lse.streaming_lse_bwd_reference(s, items, bias, lse_large, dlse,
+                                                                              partials=False)),
+    }
+    softmax_lse.FUSED_BWD_PARTIALS_BUDGET, softmax_lse.ce_takes_split_route = budget, takes_route
+    for what, (got_, twin) in long_split.items():
+        rel = max(_max_rel(g, r) for g, r in zip(got_, twin()))
+        check(rel <= TC_RTOL, f"{what} at N={n_large} disagree with their twin: {rel} of the largest entry")
+        print(f"train kernels: at N={n_large}: {what} {rel:.3g} of the largest entry from their twin (limit {TC_RTOL})")
+    del s, items, y, coeff, z, pad, bias, dlse, lse_large, long_split
     torch.cuda.empty_cache()
     for name, r in results.items():
         if "bound" not in r:
@@ -793,6 +849,7 @@ def mesh_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     shapes = {"": (b * l, n, 0), "_shard_2x2": (b * l // 2, n // 2, 0),
               "_ragged_shard": (b * l // 2, ragged_shard, 4 * ragged_shard - RAGGED_N)}
     budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
     results = {}
     for tag, (m, rows, n_invalid) in shapes.items():
         s = torch.randn((m, d), generator=gen, device=dev)
@@ -828,36 +885,43 @@ def mesh_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
             bound=bound_ms((m * d + rows * d + rows + m) * 4, products),
         )
 
-        ref_ds, ref_di = softmax_lse.streaming_lse_bwd_reference(s, items, bias, lse, dlse)
-        got = {}
+        refs, got = {}, {}
         for route, forced in (("fused", 1 << 62), ("split", 0)):
             softmax_lse.FUSED_BWD_PARTIALS_BUDGET = forced
             got[route] = softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)
-            rel = max(_max_rel(got[route][0], ref_ds), _max_rel(got[route][1], ref_di))
-            limit = TC_RTOL if route == "fused" else CE_RTOL
-            check(all(bool(torch.isfinite(g).all()) for g in got[route]) and rel <= limit,
+            again = softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)
+            check(bool(torch.equal(again[0], got[route][0])) and bool(torch.equal(again[1], got[route][1])),
+                  f"{route} lse backward {what}: a second run gave other bits")
+            refs[route] = softmax_lse.streaming_lse_bwd_reference(s, items, bias, lse, dlse, partials=route == "fused")
+            rel = max(_max_rel(g, r) for g, r in zip(got[route], refs[route]))
+            check(all(bool(torch.isfinite(g).all()) for g in got[route]) and rel <= TC_RTOL,
                   f"lse backward ({route}) {what} disagrees with its twin: {rel} of the largest entry")
             print(f"mesh kernels: lse backward ({route}) {what}: {rel:.3g} of the largest entry from its twin "
-                  f"(limit {limit})")
+                  f"(limit {TC_RTOL}), bit-equal on a rerun")
             if n_invalid:
                 check(not bool(got[route][1][rows - n_invalid:].any()),
                       f"lse backward ({route}) {what}: an invalid row's gradient is not exactly 0")
+        ref_ds, ref_di = refs["fused"]
         softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62
-        again = softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)
-        check(bool(torch.equal(again[0], got["fused"][0])) and bool(torch.equal(again[1], got["fused"][1])),
-              f"fused lse backward {what}: a second run gave other bits")
         fused_ms = time_ms(lambda: softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse), iters=3)
         softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 0
-        # each split kernel alone, timed through the library handle (the wrapper launches the pair)
-        out_ds, out_di = torch.empty_like(s), torch.empty_like(items)
+        # each split kernel alone, timed through the library handle (the wrapper launches the pair; ds with the
+        # sum of its chunk partials)
+        n_chunks, chunk_rows = softmax_lse.split_bwd_plan(m, rows, d, n_sms)
+        ds_part, out_di = torch.empty((n_chunks, m, d), device=dev), torch.empty_like(items)
         ds_ms = di_ms = 0.0
         if dev.type == "cuda":
             lib = softmax_lse._native.load("softmax_lse", softmax_lse._SIGNATURES)
             stream = softmax_lse._native.current_stream_ptr(s.device)
             args = (s.data_ptr(), items.data_ptr(), bias.data_ptr(), lse.data_ptr(), dlse.data_ptr())
-            ds_ms = time_ms(lambda: lib.lse_bwd_ds_f32(*args, out_ds.data_ptr(), m, rows, d, stream), iters=3)
+
+            def ds_kernel():
+                lib.lse_bwd_ds_f32(*args, ds_part.data_ptr(), m, rows, d, chunk_rows, n_chunks, stream)
+                return ds_part.sum(dim=0)
+
+            ds_ms = time_ms(ds_kernel, iters=3)
             di_ms = time_ms(lambda: lib.lse_bwd_di_f32(*args, out_di.data_ptr(), m, rows, d, stream), iters=3)
-            check(bool(torch.equal(out_ds, got["split"][0])) and bool(torch.equal(out_di, got["split"][1])),
+            check(bool(torch.equal(ds_kernel(), got["split"][0])) and bool(torch.equal(out_di, got["split"][1])),
                   f"split lse backward {what}: the timed launches gave other bits than the wrapper's")
         softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
         plain_ms = time_ms(lambda: softmax_lse.streaming_lse_bwd_reference(s, items, bias, lse, dlse), iters=3)
@@ -868,8 +932,7 @@ def mesh_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
             return time_ms(lambda: torch.autograd.grad(lib_out, inputs, dlse, retain_graph=True), iters=3)
 
         vectors = (rows + 2 * m) * 4
-        plan = softmax_lse.fused_bwd_plan(m, rows, d, torch.cuda.get_device_properties(dev).multi_processor_count
-                                          if dev.type == "cuda" else 132)
+        plan = softmax_lse.fused_bwd_plan(m, rows, d, n_sms)
         results[f"lse_bwd_fused{tag}"] = dict(
             max_abs_err=max((g - r).abs().max().item() for g, r in zip(got["fused"], (ref_ds, ref_di))),
             ms=fused_ms, plain_ms=plain_ms, library_ms=grad_ms((sg, ig)),
@@ -877,17 +940,17 @@ def mesh_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         )
         # the twin computes both gradients in one walk: its time stands beside each split kernel
         results[f"lse_bwd_ds{tag}"] = dict(
-            max_abs_err=(got["split"][0] - ref_ds).abs().max().item(), ms=ds_ms, plain_ms=plain_ms,
-            library_ms=grad_ms((sg,)), bound=bound_ms((2 * m * d + rows * d) * 4 + vectors, 2 * products),
+            max_abs_err=(got["split"][0] - refs["split"][0]).abs().max().item(), ms=ds_ms, plain_ms=plain_ms,
+            library_ms=grad_ms((sg,)), **tc_bounds((2 * m * d + rows * d) * 4 + vectors, 2 * products),
         )
         results[f"lse_bwd_di{tag}"] = dict(
-            max_abs_err=(got["split"][1] - ref_di).abs().max().item(), ms=di_ms, plain_ms=plain_ms,
-            library_ms=grad_ms((ig,)), bound=bound_ms((m * d + 2 * rows * d) * 4 + vectors, 2 * products),
+            max_abs_err=(got["split"][1] - refs["split"][1]).abs().max().item(), ms=di_ms, plain_ms=plain_ms,
+            library_ms=grad_ms((ig,)), **tc_bounds((m * d + 2 * rows * d) * 4 + vectors, 2 * products),
         )
         print(f"mesh kernels: {what}: fused backward {fused_ms:.4f} ms (partials {plan[2] / 2**20:.0f} MiB, "
               f"{plan[1]} session groups of {plan[0]} tiles) beside split {ds_ms + di_ms:.4f} ms "
-              f"(ds {ds_ms:.4f} + di {di_ms:.4f}); fused ds, di bit-equal on a second run")
-        del s, items, bias, dlse, lse, ref, ref_ds, ref_di, got, again, out_ds, out_di, sg, ig, lib_out
+              f"(ds {ds_ms:.4f} in {n_chunks} item chunks of {chunk_rows} rows + di {di_ms:.4f})")
+        del s, items, bias, dlse, lse, ref, ref_ds, ref_di, refs, got, again, ds_part, out_di, sg, ig, lib_out
         torch.cuda.empty_cache()
     for name, r in results.items():
         print(
@@ -1369,11 +1432,13 @@ def ops_phase(torch, dev, b: int = TRAIN_B) -> dict:
     return {"launches": launches, "grads_max_rel_diff": rel, "lse_max_rel_diff": rel_lse}
 
 
-def large_fit_phase(torch, np, pd, port, dev) -> dict:
-    """``SASRecModel(...).fit`` at the training width on a 131,072-row catalog:
-    every step's CE gradients take the very-large-catalog route (kernels 13 +
-    14 and the label term in torch), then one step's loss gradients on the
-    card against the twins."""
+def large_fit_phase(torch, np, pd, port, dev, n_item_ids: int = LARGE_N_ITEM_IDS) -> dict:
+    """``SASRecModel(...).fit`` at the training width on a catalog of
+    ``n_item_ids`` + 1 rows, too large for kernel 7's one pass: at 131,072
+    rows every step's CE gradients take the very-large-catalog route (kernels
+    13 + 14 and the label term in torch), at 65,536 kernel 7's two launches
+    (``ce_ds_f32``, ``ce_di_f32``); then one step's loss gradients on the card
+    against the twins."""
     from rectools_tpu_torch import Columns
     from rectools_tpu_torch.dataset import Dataset
     from rectools_tpu_torch.models import SASRecModel
@@ -1383,11 +1448,16 @@ def large_fit_phase(torch, np, pd, port, dev) -> dict:
     from rectools_tpu_torch.ops import softmax_lse
 
     t0 = time.perf_counter()
-    dataset = Dataset.construct(kion_frame(np, pd, Columns, LARGE_N_ITEM_IDS))
-    n_items, m = LARGE_N_ITEM_IDS + 1, TRAIN_B * SESSION_MAX_LEN
-    print(f"large fit: frame of {dataset.user_id_map.size} users over {LARGE_N_ITEM_IDS} item ids built in "
+    dataset = Dataset.construct(kion_frame(np, pd, Columns, n_item_ids))
+    n_items, m = n_item_ids + 1, TRAIN_B * SESSION_MAX_LEN
+    route = softmax_lse.ce_takes_split_route(m, n_items, N_FACTORS)
+    tag = "large fit" if route else "mid fit"
+    # the loss gradients' launches each step: the large-catalog route, or kernel 7's two launches
+    loss_keys = ("grads_z_ds", "grads_z_di") if route else ("ce_grads_ds", "ce_grads_di")
+    print(f"{tag}: frame of {dataset.user_id_map.size} users over {n_item_ids} item ids built in "
           f"{time.perf_counter() - t0:.1f} s")
-    check(softmax_lse.ce_takes_split_route(m, n_items, N_FACTORS), "the CE gradients would stay on kernel 7")
+    check(not softmax_lse._fused_on_the_card(m, n_items, N_FACTORS),
+          f"the CE gradients at N={n_items} would take kernel 7's one pass")
     clock = epoch_clock(torch, dev)
     model = SASRecModel(
         **TRAIN_CONFIG, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,), get_val_mask_func=hold_out_last,
@@ -1405,10 +1475,10 @@ def large_fit_phase(torch, np, pd, port, dev) -> dict:
     steps = tm.global_step
     forwards = steps + EPOCHS * len(model.data_preparator.get_dataloader_val())
     expected = {name: 0 for name in port.LAUNCHES}
-    expected.update(lse_partials_fwd=steps, grads_z_ds=steps, grads_z_di=steps,
+    expected.update(lse_partials_fwd=steps, **{key: steps for key in loss_keys},
                     layer_norm_fwd=(2 * N_BLOCKS + 1) * forwards, attention_fwd=N_BLOCKS * forwards,
                     layer_norm_bwd=(2 * N_BLOCKS + 1) * steps, attention_bwd=N_BLOCKS * steps)
-    check(launches == expected, f"launches in the large fit {launches}, expected {expected}")
+    check(launches == expected, f"launches in the {tag} {launches}, expected {expected}")
     losses_, val_losses = tm.train_loss_history, tm.val_loss_history
     recall = tm.val_metric_history.get(f"val_recall@{K}", [])
     check(len(losses_) == EPOCHS and bool(np.isfinite(losses_).all()) and losses_[1] < losses_[0],
@@ -1417,15 +1487,15 @@ def large_fit_phase(torch, np, pd, port, dev) -> dict:
     check(len(recall) == EPOCHS and bool(np.isfinite(recall).all()), f"val_recall@{K} {recall}")
     epoch2_s = clock.times[2] - clock.times[1]
     examples_per_s = TRAIN_B * (steps // EPOCHS) / epoch2_s
-    print(f"large fit: {EPOCHS} epochs x {steps // EPOCHS} steps of {TRAIN_B} on {n_items} items in {fit_s:.2f} s; "
+    print(f"{tag}: {EPOCHS} epochs x {steps // EPOCHS} steps of {TRAIN_B} on {n_items} items in {fit_s:.2f} s; "
           f"launches {launches}")
-    print(f"large fit: losses {losses_}, val_loss {val_losses}, val_recall@{K} {recall}")
-    print(f"large fit: epoch 2 wall {epoch2_s:.3f} s (validation included), {examples_per_s:.0f} train examples/s, "
+    print(f"{tag}: losses {losses_}, val_loss {val_losses}, val_recall@{K} {recall}")
+    print(f"{tag}: epoch 2 wall {epoch2_s:.3f} s (validation included), {examples_per_s:.0f} train examples/s, "
           f"peak device memory {peak_mb:.0f} MiB")
 
     loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
     batch = tm._device_batch(pad_batch(next(iter(loader)), TRAIN_B))
-    print("large fit: profile of one train step")
+    print(f"{tag}: profile of one train step")
     profile = profile_phase(torch, lambda: tm._train_step(batch))
 
     # one step's loss gradients of the trained towers: the route against the twins (kernel 7's for the gradients)
@@ -1439,21 +1509,23 @@ def large_fit_phase(torch, np, pd, port, dev) -> dict:
     port.reset_launches()
     loss = losses.fused_softmax_loss(sg[None], ig, y[None], w[None])
     ds, di = torch.autograd.grad(loss, (sg, ig))
-    step = {k: port.LAUNCHES[k]
-            for k in ("lse_partials_fwd", "grads_z_ds", "grads_z_di", "ce_grads_ds", "ce_grads_fused")}
-    check(step == {"lse_partials_fwd": 1, "grads_z_ds": 1, "grads_z_di": 1, "ce_grads_ds": 0, "ce_grads_fused": 0},
+    keys = ("lse_partials_fwd", "grads_z_ds", "grads_z_di", "ce_grads_ds", "ce_grads_di", "ce_grads_fused")
+    step = {k: port.LAUNCHES[k] for k in keys}
+    check(step == {k: int(k == "lse_partials_fwd" or k in loss_keys) for k in keys},
           f"launches of one loss gradient {step}")
     lse = softmax_lse.streaming_lse_partials_reference(s2, items)
     ref_loss, _, denom = losses._ce_pieces(s2, items, y, w, lse)
     c = w.float() * (y != 0).float() / denom
-    ref_ds, ref_di = softmax_lse.softmax_ce_grads_from_z_reference(s2, items, lse - torch.log(c), y, c)
+    ref_ds, ref_di = softmax_lse.softmax_ce_grads_from_z_reference(s2, items, lse - torch.log(c), y, c,
+                                                                    partials=route)
     loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
     grad_rel = max(_max_rel(ds, ref_ds), _max_rel(di, ref_di))
     check(loss_rel <= LOSS_RTOL and grad_rel <= CE_RTOL,
           f"one step's loss {loss_rel} / gradients {grad_rel} differ from the twins'")
-    print(f"large fit: one step's loss and gradients against the twins: loss {loss_rel:.3g} relative, gradients "
+    print(f"{tag}: one step's loss and gradients against the twins: loss {loss_rel:.3g} relative, gradients "
           f"{grad_rel:.3g} of the largest entry")
-    return {"launches": launches, "steps": steps, "n_items": n_items, "train_loss": losses_, "val_loss": val_losses,
+    return {"launches": launches, "steps": steps, "n_items": n_items, "route": "large-catalog" if route else
+            "kernel 7's two launches", "train_loss": losses_, "val_loss": val_losses,
             f"val_recall@{K}": recall, "fit_s": fit_s, "epoch2_s": epoch2_s, "train_examples_per_s": examples_per_s,
             "peak_device_mib": peak_mb, "step_loss_rel_diff": loss_rel, "step_grad_rel_diff": grad_rel,
             **{f"step_{k}": v for k, v in profile.items()}}
@@ -1765,6 +1837,7 @@ def main() -> int:
     # phase 9: the other doors of the streaming lse
     ops_result = ops_phase(torch, torch.device("cuda"))
     classic_result = classic_fwd_phase(torch, np, port, dataset, "cuda")
+    mid_result = large_fit_phase(torch, np, pd, port, "cuda", MID_N_ITEM_IDS)
     large_result = large_fit_phase(torch, np, pd, port, "cuda")
 
     # name: (source, replaced TPU kernel, launch-count keys, entry of `kernels` with its numbers), by kernel number
@@ -1792,11 +1865,13 @@ def main() -> int:
     }
     # mesh_fit_4 counts one rank's launches (every rank's are equal); kernels 10
     # and 11 run where the partials budget is forced to 0; `ops` calls the public
-    # ops whose kernels no model path runs (12, 16)
+    # ops whose kernels no model path runs (12, 16); the mid-catalog fit runs
+    # kernel 7's two launches
     paths = {"recommend": main_result, "fit": train_result, "hstu_recommend": hstu_main_result,
              "hstu_fit": hstu_train_result, "mesh_fit": mesh_result, "mesh_fit_4": mesh_4_result,
              "mesh_fit_budget_forced": {"launches": mesh_result["launches_budget_forced"]},
-             "ops": ops_result, "fit_classic_fwd": classic_result, "fit_large_catalog": large_result}
+             "ops": ops_result, "fit_classic_fwd": classic_result, "fit_mid_catalog": mid_result,
+             "fit_large_catalog": large_result}
 
     def numbers(r: dict) -> dict:
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -1827,11 +1902,11 @@ def main() -> int:
         if name == "ce_grads":  # kernel 7's two launches; at 51,200 x 131,072 the split route beside its one pass
             entry["two_launch_pair"] = numbers(kernels["ce_grads_pair"])
             entry["large_catalog_route"] = kernels["ce_grads_large_catalog_route"]
-        if name in SIMT_TILE_MS:  # redesigned on the tensor cores
-            print(f"redesigned: {name} {entry['ms']:.4f} ms on the tensor-core tile beside {SIMT_TILE_MS[name]} ms on "
-                  f"the SIMT tile (PERF.md §6)")
         check(entry["launches"] > 0, f"{name}: no path launched it")
         entries.append(entry)
+    for key, simt_ms in SIMT_TILE_MS.items():  # redesigned on the tensor cores
+        print(f"redesigned: {key} {kernels[key]['ms']:.4f} ms on the tensor-core tile beside {simt_ms} ms on the SIMT "
+              f"tile (PERF.md §6)")
     line = {
         "kernels": entries,
         "recommend": {k: v for k, v in main_result.items() if k != "launches"},
@@ -1843,6 +1918,7 @@ def main() -> int:
         "mesh_fit_4": {k: v for k, v in mesh_4_result.items() if k != "launches"},
         "ops": {k: v for k, v in ops_result.items() if k != "launches"},
         "fit_classic_fwd": {k: v for k, v in classic_result.items() if k != "launches"},
+        "fit_mid_catalog": {k: v for k, v in mid_result.items() if k != "launches"},
         "fit_large_catalog": {k: v for k, v in large_result.items() if k != "launches"},
     }
     print(json.dumps(line))

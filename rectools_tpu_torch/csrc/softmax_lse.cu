@@ -40,11 +40,15 @@
 // 67 TFLOP/s FP32, or, as 3xTF32 tensor-core products (three TF32 products
 // per f32 product), 3 * 624 GFLOP at 495 TFLOP/s = 3.78 ms. The bytes (inputs
 // read once, outputs written once) are 0.06 GB, 0.02 ms: operations bound.
+// A split kernel does two of the three products: 2.52 ms (3xTF32) or 6.21
+// ms (FP32) each at the training shape, 20.8 / 51.3 ms at 131,072 items.
 //
 // Two tiles.
 //
-// The tensor-core tile: the fused gradient kernel (7's one pass, 9, 12) for
-// D in {32, 64, 128} (`lse_bwd_fused_tc_kernel`). The JAX reference is f32,
+// The tensor-core tile: the gradient kernels for D in {32, 64, 128}, fused
+// (7's one pass, 9, 12: `lse_bwd_fused_tc_kernel`) and split (7's two
+// launches, 10 + 11, 13 + 14: `grad_ds_tc_kernel`, `grad_di_tc_kernel`;
+// below the fused kernel's notes). The JAX reference is f32,
 // and plain TF32 keeps about three digits (4.4e-4 of the largest entry at the
 // training shape: chip_smoke.py's control), so the products are 3xTF32: each
 // f32 operand x splits
@@ -98,8 +102,43 @@
 //   arithmetic, the exp); the kernels run at ~28% of the 3xTF32 rate.
 //   `wgmma` and operands split once into shared memory are the next steps.
 //
-// The SIMT tile: everything else (kernels 6, 8, 10, 11, 13-16, 7's two
-// launches, and the fused kernel at D = 16 and 256). 256 threads in a 16 x
+// The split kernels on the same tile, products and fragment layouts (`tc::`
+// helpers on pointers, so each kernel has a shared-memory struct of its own):
+// - ds (`grad_ds_tc_kernel`): block (x, y) owns the 128-row session tile x
+//   and item chunk y, walks the chunk's 64-row item tiles through a ring of
+//   two by `cp.async` (the next tile loading under this pair's products),
+//   with products 1 (the logits) and 2 (ds += P items, 64 floats a thread at
+//   D = 128, in registers), and writes the ds partial of (chunk, session
+//   tile); two barriers a pair. The caller plans the chunks
+//   (ops/softmax_lse.py `split_bwd_plan`): one block per SM (198,656 bytes of
+//   shared memory at D = 128), and one block per session tile would leave
+//   the fourth of 3.03 waves to 4 blocks at the training shape, so the
+//   catalog is cut into the 1-4 chunks that fill the last wave best: 4 at
+//   51,200 rows (400 x 4 = 1,600 blocks, 93% of 13 waves), whatever the
+//   catalog, so the partials are 4 M D floats (105 MB at the training
+//   width), summed by the caller in a fixed order.
+// - di (`grad_di_tc_kernel`): block x owns the 64-row item tile x and walks
+//   every 128-row session tile through a ring of two, with products 1 and 3
+//   (di += P^T s, 32 floats a thread at D = 128), and writes its di rows: N
+//   / 64 blocks, 248 at 15,872 items (2 waves), 2,048 at 131,072 (15.5).
+//   Shared memory 231,680 bytes at D = 128 (item tile 32 KB, session ring
+//   128 KB, P halves 64 KB, one set of row vectors refilled by `cp.async`
+//   once the probability tile that read them is complete: a second set would
+//   pass the 232,448-byte limit).
+// - Registers (ptxas -v): ds 253 / 177 / 152 at D = 128 / 64 / 32, di 241 /
+//   183 / 160, no spills. Accuracy: the ds running sum is 3,968 items long at
+//   the training shape and 32,768 at 131,072 (2,048 fresh-fragment adds), di's
+//   51,200 sessions; 2.0-4.3e-6 of the twin's largest entry on an H100 at
+//   both shapes (limit 6e-6).
+// - What bounds them: as the fused kernel, issue slots and latency at 8
+//   warps per SM: ~30% of the 3xTF32 rate (8.5-9.2 ms against 2.52 at the
+//   training shape; NVIDIA H100 80GB HBM3, 700 W, PERF.md section 6). The
+//   pair does four products where the function needs three (the logits
+//   twice), which keeps kernel 7's two launches behind one autograd pass of
+//   the materialized logits.
+//
+// The SIMT tile: everything else (kernels 6, 8, 15, 16, and the gradient
+// kernels, fused and split, at D = 16 and 256). 256 threads in a 16 x
 // 16 grid; a block holds a 64-row session tile and a 64-row item tile whole
 // in shared memory (rows padded to D + 1 floats so the per-thread row reads
 // are conflict-free) and forms their 64 x 64 logits, each thread a 4 x 4
@@ -111,10 +150,10 @@
 // - lse_partials_f32 / lse_shift_f32: a block owns (session tile, item
 //   chunk of 2,048 rows); blockIdx.x runs over the session tiles, so the
 //   blocks in flight share a chunk in L2; 6,400 blocks, 16.2 waves.
-// - The split gradient kernels: `grad_ds_kernel` owns a session tile and
-//   streams every item tile (ds in registers), `grad_di_kernel` owns an item
-//   tile and streams every session tile (di in registers); each recomputes
-//   the logits.
+// - The split gradient kernels at D = 16 and 256: `grad_ds_kernel` owns a
+//   session tile and streams every item tile (ds in registers, one chunk),
+//   `grad_di_kernel` owns an item tile and streams every session tile (di in
+//   registers); each recomputes the logits.
 // - `lse_bwd_fused_kernel` (D = 16, 256): the tensor-core kernel's grid on
 //   this tile, 64-row session tiles, two blocks per SM, the di rows read and
 //   written in device memory per pair (the swizzle needs rows of 32 floats,
@@ -131,6 +170,11 @@ constexpr int kBM = 64;  // session rows per tile
 constexpr int kBN = 64;  // item rows per tile
 constexpr int kThreads = 256;
 constexpr float kNegBig = -1e30f;
+
+// Which gradient kernels take the tensor-core tile: D in {32, 64, 128}. D =
+// 16 has rows under the swizzle's 32 floats; at D = 256 a 128 x 256 ds
+// accumulator is 128 registers a thread.
+constexpr bool tensor_cores(int d) { return d >= 32 && d <= 128; }
 
 // rows [row0, row0 + 64) of an (R, D) row-major matrix into tile[64][D + 1],
 // zeros past R
@@ -693,6 +737,11 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d), "l"(src), "r"(ok ? 8 : 0));
+}
+
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;"); }
 // wait until at most `kPending` of this thread's latest copy groups are in flight
 template <int kPending>
@@ -718,6 +767,52 @@ struct Smem {
   float bs[2][kBN];
 };
 
+// The split ds kernel's: the session tile, a ring of two item tiles, the
+// probability tile's halves, the session tile's row vectors, each item
+// tile's bias. 198,656 bytes at D = 128.
+template <int D>
+struct SplitDsSmem {
+  float s[kBM * D];
+  float items[2][kBN * D];
+  uint32_t p_hi[kBM * kBN];
+  uint32_t p_lo[kBM * kBN];
+  float zs[kBM];
+  float cs[kBM];
+  int ys[kBM];  // the label, < N < 2^31 (ce_ds_f32 checks)
+  float bs[2][kBN];
+};
+
+// The split di kernel's: the block's item tile and its bias, a ring of two
+// session tiles, the probability tile's halves, and one set of row vectors,
+// refilled by cp.async once the probability tile that read them is complete
+// (two sets would pass the limit). 231,680 bytes at D = 128 (the limit is
+// 232,448).
+template <int D>
+struct SplitDiSmem {
+  float items[kBN * D];
+  float s[2][kBM * D];
+  uint32_t p_hi[kBM * kBN];
+  uint32_t p_lo[kBM * kBN];
+  float zs[kBM];
+  float cs[kBM];
+  long long ys[kBM];  // the label as the caller gave it (int64, copied whole)
+  float bs[kBN];
+};
+
+// row vectors of session rows [row0, row0 + kBM) by cp.async (zeros past M,
+// where the probability tile is forced to 0 anyway)
+template <int F>
+__device__ __forceinline__ void load_row_vectors_async(float* zs, float* cs, long long* ys, const GradRows& in,
+                                                       long long row0, long long M) {
+  const int r = threadIdx.x;
+  if (r >= kBM) return;
+  const bool ok = row0 + r < M;
+  const long long src = ok ? row0 + r : 0;
+  cp_async4(&zs[r], in.row_a + src, ok);
+  if (F != kZ) cp_async4(&cs[r], in.row_b + src, ok);
+  if (F == kCE) cp_async8(&ys[r], in.y + src, ok);
+}
+
 // rows [row0, row0 + kRows) of an (R, D) row-major matrix into a swizzled
 // tile by cp.async, zeros past `rows`
 template <int D, int kRows>
@@ -733,23 +828,23 @@ __device__ __forceinline__ void load_tile(float* tile, const float* __restrict__
   }
 }
 
+// an item tile and, for kLse, its bias (0 past n_end) by cp.async
 template <int D, int F>
-__device__ __forceinline__ void load_items(Smem<D>& sh, int stage, const float* __restrict__ items,
+__device__ __forceinline__ void load_items(float* tile, float* bs, const float* __restrict__ items,
                                            const GradRows& in, long long n0, long long n_end) {
-  load_tile<D, kBN>(sh.items[stage], items, n0, n_end);
+  load_tile<D, kBN>(tile, items, n0, n_end);
   if (F == kLse && threadIdx.x < kBN) {
     const bool ok = n0 + threadIdx.x < n_end;
-    cp_async4(&sh.bs[stage][threadIdx.x], ok ? in.bias + n0 + threadIdx.x : in.bias, ok);
+    cp_async4(&bs[threadIdx.x], ok ? in.bias + n0 + threadIdx.x : in.bias, ok);
   }
 }
 
 // Product 1, the logits of the tile pair: 128 x 64 over D. Warp w owns rows
 // 32 (w >> 1) + [0, 32) and columns 32 (w & 1) + [0, 32): 2 x 4 fragments.
 template <int D>
-__device__ __forceinline__ void logits(const Smem<D>& sh, int stage, float acc[2][4][4]) {
+__device__ __forceinline__ void logits(const float* s_tile, const float* it, float acc[2][4][4]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m_base = (warp >> 1) * 32, n_base = (warp & 1) * 32;
-  const float* it = sh.items[stage];
   // ldmatrix rows: block j = lane / 8 is rows + 8 (j & 1), columns + 4 (j >> 1)
   // of an A fragment; rows + 8 (j >> 1), columns + 4 (j & 1) of two B fragments
   const int blk = lane >> 3, row = lane & 7;
@@ -763,7 +858,7 @@ __device__ __forceinline__ void logits(const Smem<D>& sh, int stage, float acc[2
       for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
   const auto load_a = [&](int mf, int k, uint32_t ah[4], uint32_t al[4]) {
     uint32_t raw[4];
-    ldsm_x4(raw, &sh.s[at<D>(a_row + mf * 16, k + a_col)]);
+    ldsm_x4(raw, &s_tile[at<D>(a_row + mf * 16, k + a_col)]);
 #pragma unroll
     for (int e = 0; e < 4; ++e) split(__uint_as_float(raw[e]), ah[e], al[e]);
   };
@@ -785,10 +880,12 @@ __device__ __forceinline__ void logits(const Smem<D>& sh, int stage, float acc[2
 
 // The weighted probability tile from the logits in the accumulator
 // fragments, by weighted_probs<F>'s formulas (0 past n_end and past M), into
-// shared memory as its TF32 halves
-template <int D, int F>
-__device__ __forceinline__ void probs(Smem<D>& sh, int stage, const float acc[2][4][4], long long row0, long long M,
-                                      long long n0, long long n_end) {
+// shared memory as its TF32 halves. zs, cs, ys: the session tile's row
+// vectors; bs: the item tile's bias.
+template <int F, class Label>
+__device__ __forceinline__ void probs(uint32_t* p_hi, uint32_t* p_lo, const float* zs, const float* cs,
+                                      const Label* ys, const float* bs, const float acc[2][4][4], long long row0,
+                                      long long M, long long n0, long long n_end) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int m_base = (warp >> 1) * 32, n_base = (warp & 1) * 32;
@@ -798,7 +895,7 @@ __device__ __forceinline__ void probs(Smem<D>& sh, int stage, const float acc[2]
     for (int h = 0; h < 2; ++h) {
       const int r = m_base + mf * 16 + g + 8 * h;
       const bool row_ok = row0 + r < M;
-      const int label = F == kCE ? sh.ys[r] - (int)n0 : -1;  // its column in the tile
+      const int label = F == kCE ? (int)(ys[r] - n0) : -1;  // its column in the tile
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf) {
         const int c = n_base + nf * 8 + 2 * t;
@@ -810,16 +907,16 @@ __device__ __forceinline__ void probs(Smem<D>& sh, int stage, const float acc[2]
           float pw = 0.f;
           if (row_ok && col < n_end) {
             if (F == kLse) {
-              pw = expf((logit + sh.bs[stage][c + e]) - sh.zs[r]) * sh.cs[r];
+              pw = expf((logit + bs[c + e]) - zs[r]) * cs[r];
             } else {
-              pw = expf(logit - sh.zs[r]);
-              if (F == kCE && c + e == label) pw -= sh.cs[r];
+              pw = expf(logit - zs[r]);
+              if (F == kCE && c + e == label) pw -= cs[r];
             }
           }
           split(pw, hi[e], lo[e]);
         }
-        *reinterpret_cast<uint2*>(&sh.p_hi[at<kBN>(r, c)]) = make_uint2(hi[0], hi[1]);
-        *reinterpret_cast<uint2*>(&sh.p_lo[at<kBN>(r, c)]) = make_uint2(lo[0], lo[1]);
+        *reinterpret_cast<uint2*>(&p_hi[at<kBN>(r, c)]) = make_uint2(hi[0], hi[1]);
+        *reinterpret_cast<uint2*>(&p_lo[at<kBN>(r, c)]) = make_uint2(lo[0], lo[1]);
       }
     }
 }
@@ -828,17 +925,17 @@ __device__ __forceinline__ void probs(Smem<D>& sh, int stage, const float acc[2]
 // 64 (w >> 2) + [0, 64) and columns D/4 (w & 3) + [0, D/4): 4 x D/32
 // fragments.
 template <int D>
-__device__ __forceinline__ void accumulate_ds(const Smem<D>& sh, int stage, float acc[4][D / 32][4]) {
+__device__ __forceinline__ void accumulate_ds(const uint32_t* p_hi, const uint32_t* p_lo, const float* it,
+                                              float acc[4][D / 32][4]) {
   constexpr int kNF = D / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int m_base = (warp >> 2) * 64, n_base = (warp & 3) * (D / 4);
-  const float* it = sh.items[stage];
   const int blk = lane >> 3;
   const int a_row = m_base + (lane & 7) + 8 * (blk & 1), a_col = 4 * (blk >> 1);
   const auto load_a = [&](int mf, int k, uint32_t ah[4], uint32_t al[4]) {
-    ldsm_x4(ah, &sh.p_hi[at<kBN>(a_row + mf * 16, k + a_col)]);
-    ldsm_x4(al, &sh.p_lo[at<kBN>(a_row + mf * 16, k + a_col)]);
+    ldsm_x4(ah, &p_hi[at<kBN>(a_row + mf * 16, k + a_col)]);
+    ldsm_x4(al, &p_lo[at<kBN>(a_row + mf * 16, k + a_col)]);
   };
   const auto load_b = [&](int k, uint32_t bh[kNF][2], uint32_t bl[kNF][2]) {
 #pragma unroll
@@ -856,7 +953,8 @@ __device__ __forceinline__ void accumulate_ds(const Smem<D>& sh, int stage, floa
 // Warp w owns item rows 32 (w >> 2) + [0, 32) and columns D/4 (w & 3) +
 // [0, D/4): 2 x D/32 fragments.
 template <int D>
-__device__ __forceinline__ void accumulate_di(const Smem<D>& sh, float acc[2][D / 32][4]) {
+__device__ __forceinline__ void accumulate_di(const uint32_t* p_hi, const uint32_t* p_lo, const float* s_tile,
+                                              float acc[2][D / 32][4]) {
   constexpr int kNF = D / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -866,16 +964,16 @@ __device__ __forceinline__ void accumulate_di(const Smem<D>& sh, float acc[2][D 
     const int idx[4] = {at<kBN>(k + t, i), at<kBN>(k + t, i + 8), at<kBN>(k + t + 4, i), at<kBN>(k + t + 4, i + 8)};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      ah[e] = sh.p_hi[idx[e]];
-      al[e] = sh.p_lo[idx[e]];
+      ah[e] = p_hi[idx[e]];
+      al[e] = p_lo[idx[e]];
     }
   };
   const auto load_b = [&](int k, uint32_t bh[kNF][2], uint32_t bl[kNF][2]) {
 #pragma unroll
     for (int nf = 0; nf < kNF; ++nf) {
       const int n = n_base + nf * 8 + g;
-      split(sh.s[at<D>(k + t, n)], bh[nf][0], bl[nf][0]);
-      split(sh.s[at<D>(k + t + 4, n)], bh[nf][1], bl[nf][1]);
+      split(s_tile[at<D>(k + t, n)], bh[nf][0], bl[nf][0]);
+      split(s_tile[at<D>(k + t + 4, n)], bh[nf][1], bl[nf][1]);
     }
   };
 #pragma unroll 1
@@ -912,7 +1010,7 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
   const int ds_row = (warp >> 2) * 64 + g, di_row = (warp >> 2) * 32 + g, col0 = (warp & 3) * (D / 4) + 2 * t;
 
   tc::load_tile<D, tc::kBM>(sh.s, s, t_begin * tc::kBM, M);
-  tc::load_items<D, F>(sh, 0, items, in, n_begin, n_end);
+  tc::load_items<D, F>(sh.items[0], sh.bs[0], items, in, n_begin, n_end);
   tc::cp_commit();
   load_row_vectors<F, tc::kBM>(sh.zs, sh.cs, sh.ys, in, t_begin * tc::kBM, M);
   int stage = 0;
@@ -936,18 +1034,18 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
       if (tile > t_begin) tc::load_tile<D, tc::kBN>(sh.di, di_mine, n0, n_end);
       tc::cp_commit();
       if (j + 1 < n_tiles)
-        tc::load_items<D, F>(sh, stage ^ 1, items, in, n0 + tc::kBN, n_end);
+        tc::load_items<D, F>(sh.items[stage ^ 1], sh.bs[stage ^ 1], items, in, n0 + tc::kBN, n_end);
       else if (tile + 1 < t_end)
-        tc::load_items<D, F>(sh, stage ^ 1, items, in, n_begin, n_end);
+        tc::load_items<D, F>(sh.items[stage ^ 1], sh.bs[stage ^ 1], items, in, n_begin, n_end);
       tc::cp_commit();
       {
         float acc[2][4][4];
-        tc::logits<D>(sh, stage, acc);
-        tc::probs<D, F>(sh, stage, acc, row0, M, n0, n_end);
+        tc::logits<D>(sh.s, sh.items[stage], acc);
+        tc::probs<F>(sh.p_hi, sh.p_lo, sh.zs, sh.cs, sh.ys, sh.bs[stage], acc, row0, M, n0, n_end);
       }
       tc::cp_wait<1>();  // the di rows landed (the item prefetch may still fly)
       __syncthreads();   // and the probability tile is complete
-      tc::accumulate_ds<D>(sh, stage, ds_acc);
+      tc::accumulate_ds<D>(sh.p_hi, sh.p_lo, sh.items[stage], ds_acc);
       float di_acc[2][kNF][4];
 #pragma unroll
       for (int mf = 0; mf < 2; ++mf)
@@ -962,7 +1060,7 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
             di_acc[mf][nf][2 * h + 1] = v.y;
           }
         }
-      tc::accumulate_di<D>(sh, di_acc);
+      tc::accumulate_di<D>(sh.p_hi, sh.p_lo, sh.s, di_acc);
 #pragma unroll
       for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
@@ -997,6 +1095,128 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
   }
 }
 
+// The split ds kernel on the tensor-core tile (D in {32, 64, 128}): block (x,
+// y) owns the 128-row session tile x and the item rows [y * chunk_rows, (y +
+// 1) * chunk_rows), walks the chunk's 64-row item tiles (a ring of two by
+// cp.async) with products 1 (the logits) and 2 (ds += P items, in
+// registers), and writes its rows of the ds partial y: ds_part is
+// (gridDim.y, M, D), every element written.
+template <int D, int F>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+    grad_ds_tc_kernel(const float* __restrict__ s, const float* __restrict__ items, GradRows in,
+                      float* __restrict__ ds_part, long long M, long long N, long long chunk_rows) {
+  constexpr int kNF = D / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  tc::SplitDsSmem<D>& sh = *reinterpret_cast<tc::SplitDsSmem<D>*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long long row0 = (long long)blockIdx.x * tc::kBM;
+  const long long n_begin = (long long)blockIdx.y * chunk_rows;
+  const long long n_end = n_begin + chunk_rows < N ? n_begin + chunk_rows : N;
+  const int n_tiles = (int)((n_end - n_begin + tc::kBN - 1) / tc::kBN);
+  float* __restrict__ ds_mine = ds_part + (long long)blockIdx.y * M * D;
+  const int ds_row = (warp >> 2) * 64 + g, col0 = (warp & 3) * (D / 4) + 2 * t;
+
+  tc::load_tile<D, tc::kBM>(sh.s, s, row0, M);
+  tc::load_items<D, F>(sh.items[0], sh.bs[0], items, in, n_begin, n_end);
+  tc::cp_commit();
+  load_row_vectors<F, tc::kBM>(sh.zs, sh.cs, sh.ys, in, row0, M);
+  float ds_acc[4][kNF][4];
+#pragma unroll
+  for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds_acc[mf][nf][e] = 0.f;
+  int stage = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    const long long n0 = n_begin + (long long)j * tc::kBN;
+    tc::cp_wait<0>();
+    __syncthreads();  // item tile j (and the session tile) landed; the last pair's reads of P and of the other stage are done
+    if (j + 1 < n_tiles) tc::load_items<D, F>(sh.items[stage ^ 1], sh.bs[stage ^ 1], items, in, n0 + tc::kBN, n_end);
+    tc::cp_commit();
+    {
+      float acc[2][4][4];
+      tc::logits<D>(sh.s, sh.items[stage], acc);
+      tc::probs<F>(sh.p_hi, sh.p_lo, sh.zs, sh.cs, sh.ys, sh.bs[stage], acc, row0, M, n0, n_end);
+    }
+    __syncthreads();  // the probability tile is complete
+    tc::accumulate_ds<D>(sh.p_hi, sh.p_lo, sh.items[stage], ds_acc);
+    stage ^= 1;
+  }
+#pragma unroll
+  for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = row0 + ds_row + mf * 16 + 8 * h;
+      if (row >= M) continue;
+#pragma unroll
+      for (int nf = 0; nf < kNF; ++nf)
+        *reinterpret_cast<float2*>(ds_mine + row * D + col0 + nf * 8) =
+            make_float2(ds_acc[mf][nf][2 * h], ds_acc[mf][nf][2 * h + 1]);
+    }
+}
+
+// The split di kernel on the tensor-core tile (D in {32, 64, 128}): block x
+// owns the 64-row item tile x, walks every 128-row session tile (a ring of
+// two by cp.async, the row vectors refilled behind the probability tile)
+// with products 1 (the logits) and 3 (di += P^T s, in registers), and writes
+// its di rows.
+template <int D, int F>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+    grad_di_tc_kernel(const float* __restrict__ s, const float* __restrict__ items, GradRows in,
+                      float* __restrict__ di, long long M, long long N) {
+  constexpr int kNF = D / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  tc::SplitDiSmem<D>& sh = *reinterpret_cast<tc::SplitDiSmem<D>*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long long n0 = (long long)blockIdx.x * tc::kBN;
+  const long long m_tiles = (M + tc::kBM - 1) / tc::kBM;
+  const int di_row = (warp >> 2) * 32 + g, col0 = (warp & 3) * (D / 4) + 2 * t;
+
+  tc::load_items<D, F>(sh.items, sh.bs, items, in, n0, N);
+  tc::load_tile<D, tc::kBM>(sh.s[0], s, 0, M);
+  tc::load_row_vectors_async<F>(sh.zs, sh.cs, sh.ys, in, 0, M);
+  tc::cp_commit();
+  float di_acc[2][kNF][4];
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) di_acc[mf][nf][e] = 0.f;
+  int stage = 0;
+  for (long long tile = 0; tile < m_tiles; ++tile) {
+    const long long row0 = tile * tc::kBM;
+    tc::cp_wait<0>();
+    __syncthreads();  // session tile `tile` and its row vectors landed; the last pair's reads of P and of the other stage are done
+    if (tile + 1 < m_tiles) tc::load_tile<D, tc::kBM>(sh.s[stage ^ 1], s, row0 + tc::kBM, M);
+    tc::cp_commit();
+    {
+      float acc[2][4][4];
+      tc::logits<D>(sh.s[stage], sh.items, acc);
+      tc::probs<F>(sh.p_hi, sh.p_lo, sh.zs, sh.cs, sh.ys, sh.bs, acc, row0, M, n0, N);
+    }
+    __syncthreads();  // the probability tile is complete and the row vectors are read
+    if (tile + 1 < m_tiles) tc::load_row_vectors_async<F>(sh.zs, sh.cs, sh.ys, in, row0 + tc::kBM, M);
+    tc::cp_commit();
+    tc::accumulate_di<D>(sh.p_hi, sh.p_lo, sh.s[stage], di_acc);
+    stage ^= 1;
+  }
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long item = n0 + di_row + mf * 16 + 8 * h;
+      if (item >= N) continue;
+#pragma unroll
+      for (int nf = 0; nf < kNF; ++nf)
+        *reinterpret_cast<float2*>(di + item * D + col0 + nf * 8) =
+            make_float2(di_acc[mf][nf][2 * h], di_acc[mf][nf][2 * h + 1]);
+    }
+}
+
 template <int D, bool kBias>
 int launch_lse(const float* s, const float* items, const float* bias, float* lse, long long M, long long N,
                cudaStream_t stream) {
@@ -1019,36 +1239,63 @@ int launch_chunks(const float* s, const float* items, const float* shift, float*
   return (int)cudaGetLastError();
 }
 
+// The split ds kernel: the tensor-core tile for D in {32, 64, 128}, whose
+// grid the caller plans (ops/softmax_lse.py `split_bwd_plan`) and whose
+// ds_part it sizes by n_chunks item chunks of chunk_rows rows; the SIMT tile
+// for D = 16 and 256, one block per 64-row session tile over the whole
+// catalog, so n_chunks must be 1 there. Another count of chunks than
+// chunk_rows gives is refused.
 template <int D, int F>
-int launch_ds(const float* s, const float* items, GradRows in, float* ds, long long M, long long N,
-              cudaStream_t stream) {
-  const int smem = grad_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(grad_ds_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  grad_ds_kernel<D, F><<<(unsigned)((M + kBM - 1) / kBM), kThreads, smem, stream>>>(s, items, in, ds, M, N);
+int launch_ds(const float* s, const float* items, GradRows in, float* ds_part, long long M, long long N,
+              long long chunk_rows, long long n_chunks, cudaStream_t stream) {
+  if ((N + chunk_rows - 1) / chunk_rows != n_chunks) return (int)cudaErrorInvalidValue;
+  if constexpr (tensor_cores(D)) {
+    const int smem = (int)sizeof(tc::SplitDsSmem<D>);
+    cudaError_t err =
+        cudaFuncSetAttribute(grad_ds_tc_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)((M + tc::kBM - 1) / tc::kBM), (unsigned)n_chunks);
+    grad_ds_tc_kernel<D, F><<<grid, tc::kThreads, smem, stream>>>(s, items, in, ds_part, M, N, chunk_rows);
+  } else {
+    if (n_chunks != 1) return (int)cudaErrorInvalidValue;
+    const int smem = grad_smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(grad_ds_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    grad_ds_kernel<D, F><<<(unsigned)((M + kBM - 1) / kBM), kThreads, smem, stream>>>(s, items, in, ds_part, M, N);
+  }
   return (int)cudaGetLastError();
 }
 
+// The split di kernel, one block per 64-row item tile on either tile.
 template <int D, int F>
 int launch_di(const float* s, const float* items, GradRows in, float* di, long long M, long long N,
               cudaStream_t stream) {
-  const int smem = grad_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(grad_di_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  grad_di_kernel<D, F><<<(unsigned)((N + kBN - 1) / kBN), kThreads, smem, stream>>>(s, items, in, di, M, N);
+  if constexpr (tensor_cores(D)) {
+    const int smem = (int)sizeof(tc::SplitDiSmem<D>);
+    cudaError_t err =
+        cudaFuncSetAttribute(grad_di_tc_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    grad_di_tc_kernel<D, F><<<(unsigned)((N + tc::kBN - 1) / tc::kBN), tc::kThreads, smem, stream>>>(s, items, in,
+                                                                                                   di, M, N);
+  } else {
+    const int smem = grad_smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(grad_di_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    grad_di_kernel<D, F><<<(unsigned)((N + kBN - 1) / kBN), kThreads, smem, stream>>>(s, items, in, di, M, N);
+  }
   return (int)cudaGetLastError();
 }
 
 // The fused backward: the tensor-core tile for D in {32, 64, 128}, the SIMT
 // tile for D = 16 (rows under the swizzle's 32 floats) and D = 256 (a 128 x
 // 256 ds accumulator is 128 registers a thread). The caller plans the grid
-// (ops/softmax_lse.py `_FUSED_BWD_TILE`) and sizes di_part by its n_groups:
+// (ops/softmax_lse.py `_BWD_TILE`) and sizes di_part by its n_groups:
 // another count of session groups than this tile gives is refused.
 template <int D, int F>
 int launch_fused(const float* s, const float* items, GradRows in, float* ds_part, float* di_part, long long M,
                  long long N, long long chunk_rows, long long tiles_per_group, long long n_groups,
                  cudaStream_t stream) {
-  constexpr bool kTensorCores = D >= 32 && D <= 128;
+  constexpr bool kTensorCores = tensor_cores(D);
   constexpr int kTileRows = kTensorCores ? tc::kBM : kBM;
   const long long m_tiles = (M + kTileRows - 1) / kTileRows;
   if ((m_tiles + tiles_per_group - 1) / tiles_per_group != n_groups) return (int)cudaErrorInvalidValue;
@@ -1130,16 +1377,23 @@ extern "C" int lse_bias_f32(const float* s, const float* items, const float* bia
   DISPATCH_D(D, CALL_LSE_BIAS, s, items, bias, lse, M, N, stream)
 }
 
+// ds_part (n_chunks, M, D): the ds partial of each item chunk of chunk_rows
+// rows (a multiple of 64), n_chunks = ceil(N / chunk_rows), and 1 for D = 16
+// and 256, else cudaErrorInvalidValue; the caller sums them over the first
+// axis
 extern "C" int ce_ds_f32(const float* s, const float* items, const float* z, const long long* y, const float* coeff,
-                         float* ds, long long M, long long N, int D, cudaStream_t stream) {
-  if (M <= 0) return 0;
+                         float* ds_part, long long M, long long N, int D, long long chunk_rows, long long n_chunks,
+                         cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN || N > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const GradRows in{z, coeff, y, nullptr};
-  DISPATCH_D(D, CALL_CE_DS, s, items, in, ds, M, N, stream)
+  DISPATCH_D(D, CALL_CE_DS, s, items, in, ds_part, M, N, chunk_rows, n_chunks, stream)
 }
 
 extern "C" int ce_di_f32(const float* s, const float* items, const float* z, const long long* y, const float* coeff,
                          float* di, long long M, long long N, int D, cudaStream_t stream) {
   if (N <= 0) return 0;
+  if (N > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // the label's column in an item tile is an int
   const GradRows in{z, coeff, y, nullptr};
   DISPATCH_D(D, CALL_CE_DI, s, items, in, di, M, N, stream)
 }
@@ -1156,12 +1410,14 @@ extern "C" int ce_fused_f32(const float* s, const float* items, const float* z, 
   DISPATCH_D(D, CALL_CE_FUSED, s, items, in, ds_part, di_part, M, N, chunk_rows, tiles_per_group, n_groups, stream)
 }
 
-// bias (N,), lse and dlse (M,)
+// bias (N,), lse and dlse (M,); ds_part as ce_ds_f32 gives it
 extern "C" int lse_bwd_ds_f32(const float* s, const float* items, const float* bias, const float* lse,
-                              const float* dlse, float* ds, long long M, long long N, int D, cudaStream_t stream) {
-  if (M <= 0) return 0;
+                              const float* dlse, float* ds_part, long long M, long long N, int D, long long chunk_rows,
+                              long long n_chunks, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
   const GradRows in{lse, dlse, nullptr, bias};
-  DISPATCH_D(D, CALL_LSE_DS, s, items, in, ds, M, N, stream)
+  DISPATCH_D(D, CALL_LSE_DS, s, items, in, ds_part, M, N, chunk_rows, n_chunks, stream)
 }
 
 extern "C" int lse_bwd_di_f32(const float* s, const float* items, const float* bias, const float* lse,
@@ -1188,11 +1444,12 @@ extern "C" int lse_bwd_fused_f32(const float* s, const float* items, const float
 
 // z (M,), +inf = ignore the row; the outputs as lse_bwd_ds_f32 / lse_bwd_di_f32 /
 // lse_bwd_fused_f32 give theirs
-extern "C" int grads_z_ds_f32(const float* s, const float* items, const float* z, float* ds, long long M, long long N,
-                              int D, cudaStream_t stream) {
-  if (M <= 0) return 0;
+extern "C" int grads_z_ds_f32(const float* s, const float* items, const float* z, float* ds_part, long long M,
+                              long long N, int D, long long chunk_rows, long long n_chunks, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
   const GradRows in{z, nullptr, nullptr, nullptr};
-  DISPATCH_D(D, CALL_Z_DS, s, items, in, ds, M, N, stream)
+  DISPATCH_D(D, CALL_Z_DS, s, items, in, ds_part, M, N, chunk_rows, n_chunks, stream)
 }
 
 extern "C" int grads_z_di_f32(const float* s, const float* items, const float* z, float* di, long long M, long long N,

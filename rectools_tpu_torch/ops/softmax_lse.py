@@ -36,15 +36,17 @@ loss and its public ops take:
   launched back to back (``ce_ds_f32``, ``ce_di_f32``), each recomputing the
   logits. The single-device CE loss differentiates through it.
 
-The fused kernels (9, 12 and 7's one pass) run their products on the tensor
-cores in 3xTF32 (each f32 operand split into two TF32 halves, about f32
-accuracy) for D in 32..128, on SIMT f32 tiles for D = 16 and 256; the other
-kernels are SIMT f32 tiles (csrc/softmax_lse.cu says why).
+The gradient kernels, fused (9, 12 and 7's one pass) and split (7's two
+launches, 10, 11, 13, 14), run their products on the tensor cores in 3xTF32
+(each f32 operand split into two TF32 halves, about f32 accuracy) for D in
+32..128, on SIMT f32 tiles for D = 16 and 256; the lse forwards are SIMT f32
+tiles (csrc/softmax_lse.cu says why).
 
 CPU tensors take the twins, which walk the catalog in item chunks exactly as
 the kernels walk their tiles (per-chunk partials, a running max or fixed
 shifts for the lse; label correction and tail handling per chunk for the
-gradients; the summation order of the fused or the split backward). Rows
+gradients; the summation order of the fused or the split backward, whose ds
+sums are partials per item chunk of :func:`split_bwd_plan`). Rows
 with ``z = +inf`` (PAD targets, ``coeff = 0``) contribute nothing.
 """
 
@@ -69,20 +71,23 @@ _SIGNATURES = {
     "lse_shift_f32": (_C, _C, _C, _C, _C, _LL, _LL, _I, _LL, _C),
     # sessions, items, bias, lse; M, N, D; stream
     "lse_bias_f32": (_C, _C, _C, _C, _LL, _LL, _I, _C),
-    # sessions, items, z, y (int64), coeff, out; M, N, D; stream
-    "ce_ds_f32": (_C,) * 6 + (_LL, _LL, _I, _C),
+    # sessions, items, z, y (int64), coeff, ds partials; M, N, D; chunk rows, chunks; stream
+    "ce_ds_f32": (_C,) * 6 + (_LL, _LL, _I, _LL, _LL, _C),
+    # sessions, items, z, y (int64), coeff, di; M, N, D; stream
     "ce_di_f32": (_C,) * 6 + (_LL, _LL, _I, _C),
     # sessions, items, z, y (int64), coeff, ds partials, di partials; M, N, D; chunk rows, tiles per group,
     # session groups; stream
     "ce_fused_f32": (_C,) * 7 + (_LL, _LL, _I, _LL, _LL, _LL, _C),
-    # sessions, items, bias, lse, dlse, out; M, N, D; stream
-    "lse_bwd_ds_f32": (_C,) * 6 + (_LL, _LL, _I, _C),
+    # sessions, items, bias, lse, dlse, ds partials; M, N, D; chunk rows, chunks; stream
+    "lse_bwd_ds_f32": (_C,) * 6 + (_LL, _LL, _I, _LL, _LL, _C),
+    # sessions, items, bias, lse, dlse, di; M, N, D; stream
     "lse_bwd_di_f32": (_C,) * 6 + (_LL, _LL, _I, _C),
     # sessions, items, bias, lse, dlse, ds partials, di partials; M, N, D; chunk rows, tiles per group, session
     # groups; stream
     "lse_bwd_fused_f32": (_C,) * 7 + (_LL, _LL, _I, _LL, _LL, _LL, _C),
-    # sessions, items, z, out; M, N, D; stream
-    "grads_z_ds_f32": (_C,) * 4 + (_LL, _LL, _I, _C),
+    # sessions, items, z, ds partials; M, N, D; chunk rows, chunks; stream
+    "grads_z_ds_f32": (_C,) * 4 + (_LL, _LL, _I, _LL, _LL, _C),
+    # sessions, items, z, di; M, N, D; stream
     "grads_z_di_f32": (_C,) * 4 + (_LL, _LL, _I, _C),
     # sessions, items, z, ds partials, di partials; M, N, D; chunk rows, tiles per group, session groups; stream
     "grads_z_fused_f32": (_C,) * 5 + (_LL, _LL, _I, _LL, _LL, _LL, _C),
@@ -106,15 +111,19 @@ WINDOW1_FLOOR = 2.061e-9
 
 # The fused backward writes its ds partials per item chunk, (n_chunks, M, D),
 # and its di partials per group of session tiles, (n_groups, N, D). Above this
-# many bytes of partials the backward takes the two split kernels instead: no
-# partials, one more logit pass (the JAX package's constant and rule).
+# many bytes of partials the backward takes the two split kernels instead: a
+# few ds partials that do not grow with the catalog, one more logit pass (the
+# JAX package's constant and rule).
 FUSED_BWD_PARTIALS_BUDGET = 512 * 1024 * 1024
 FUSED_BWD_CHUNK = 2048  # item rows a block of the fused backward owns
-# The fused backward's tile by feature width: (session rows per tile, blocks
-# per multiprocessor). D in 32..128 take the tensor-core tile (227 KB of shared
-# memory, one block), 16 and 256 the SIMT tile (two blocks). The kernels are
-# built for the same rows and reject a grid of other session groups.
-_FUSED_BWD_TILE = {d: (128, 1) if 32 <= d <= 128 else (TILE, 2) for d in SUPPORTED_D}
+# The gradient kernels' tile by feature width: (session rows per tile, blocks
+# of the fused kernel per multiprocessor, most item chunks of the split ds
+# kernel). D in 32..128 take the tensor-core tile (one block of up to 227 KB of
+# shared memory per multiprocessor; the split ds kernel cuts the catalog into
+# up to 4 chunks to fill its last wave), 16 and 256 the SIMT tile (two fused
+# blocks; the split ds kernel walks the whole catalog). The kernels are built
+# for the same rows and reject a grid of other session groups or item chunks.
+_BWD_TILE = {d: (128, 1, 4) if 32 <= d <= 128 else (TILE, 2, 1) for d in SUPPORTED_D}
 
 
 def _running_lse(
@@ -213,6 +222,28 @@ def streaming_lse_bias_reference(
     return _running_lse(sessions, items, row_bias, chunk, NEG_BIG)
 
 
+def split_bwd_plan(m: int, n: int, d: int, n_sms: int) -> tp.Tuple[int, int]:
+    """(item chunks, rows per chunk) of the split ds kernels (7's ``ce_ds_f32``,
+    10, 13). On the tensor-core tile a block owns (128-row session tile, item
+    chunk), one block per multiprocessor: of 1 to ``_BWD_TILE[d][2]`` chunks
+    (no more than the 64-row item tiles) the count whose grid fills its last
+    wave best, the fewest on a tie (one block per session tile leaves 4 of 400
+    in the last wave at the training width). Each chunk writes a ds partial of
+    M · D floats whatever the catalog; the caller sums them in order. The SIMT
+    tile walks the whole catalog in one chunk."""
+    tile_rows, blocks_per_sm, max_chunks = _BWD_TILE[d]
+    n_tiles = max(1, -(-n // TILE))
+    m_tiles = max(1, -(-m // tile_rows))
+    wave = blocks_per_sm * n_sms
+
+    def fill(chunks: int) -> float:
+        return m_tiles * chunks / (-(-m_tiles * chunks // wave) * wave)
+
+    chunks = max(range(1, min(max_chunks, n_tiles) + 1), key=lambda c: (fill(c), -c))
+    tiles_per_chunk = -(-n_tiles // chunks)
+    return -(-n_tiles // tiles_per_chunk), tiles_per_chunk * TILE
+
+
 def _grads_reference(
     sessions: torch.Tensor,
     items: torch.Tensor,
@@ -221,20 +252,25 @@ def _grads_reference(
     partials: bool,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """(pw @ items, pwᵀ @ sessions) with ``pw = weights(logits, start)`` per
-    item chunk. ``partials=True`` sums one ds partial per chunk at the end, as
-    a fused kernel's caller does; ``False`` carries a running sum, as a split
-    ds kernel does."""
+    step of ``chunk`` item rows. ``partials=True`` sums one ds partial per step
+    at the end, as a fused kernel's caller does; ``False`` takes the split ds
+    kernel's order: one partial per item chunk of :func:`split_bwd_plan` (at an
+    H100's 132 multiprocessors), each a running sum over its steps, summed at
+    the end."""
+    m, n = sessions.shape[0], items.shape[0]
+    ds_rows = chunk if partials else split_bwd_plan(m, n, sessions.shape[1], 132)[1]
     di = torch.empty_like(items)
     ds_parts = []
-    for start in range(0, items.shape[0], chunk):
-        block = items[start : start + chunk]
-        pw = weights(sessions @ block.T, start)
-        part = pw @ block
-        if partials or not ds_parts:
-            ds_parts.append(part)
-        else:
-            ds_parts[0] = ds_parts[0] + part
-        di[start : start + block.shape[0]] = pw.T @ sessions
+    for lo in range(0, n, ds_rows):
+        hi = min(lo + ds_rows, n)
+        part = None
+        for start in range(lo, hi, chunk):
+            block = items[start : min(start + chunk, hi)]
+            pw = weights(sessions @ block.T, start)
+            term = pw @ block
+            part = term if part is None else part + term
+            di[start : start + block.shape[0]] = pw.T @ sessions
+        ds_parts.append(part)
     if not ds_parts:
         return torch.zeros_like(sessions), di
     return (torch.stack(ds_parts).sum(dim=0) if len(ds_parts) > 1 else ds_parts[0]), di
@@ -264,8 +300,9 @@ def softmax_grads_from_z_reference(
     sessions: torch.Tensor, items: torch.Tensor, z: torch.Tensor, chunk: int = TWIN_CHUNK, partials: bool = True
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of kernel 12 (``partials=True``: one ds partial per
-    chunk, summed at the end) or of kernels 13 + 14 (``False``: a running
-    sum): (P @ items, Pᵀ @ sessions) with ``P = exp(logits − z)``."""
+    chunk, summed at the end) or of kernels 13 + 14 (``False``: a running sum
+    per item chunk of the split plan, the chunks summed at the end): (P @
+    items, Pᵀ @ sessions) with ``P = exp(logits − z)``."""
     return _grads_reference(sessions, items, lambda logits, start: torch.exp(logits - z[:, None]), chunk, partials)
 
 
@@ -280,7 +317,8 @@ def softmax_ce_grads_from_z_reference(
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of kernel 7: (ds, di) in the order of
     ``ce_fused_f32`` (``partials=True``: one ds partial per chunk, summed at
-    the end) or of ``ce_ds_f32`` + ``ce_di_f32`` (``False``: a running sum)."""
+    the end) or of ``ce_ds_f32`` + ``ce_di_f32`` (``False``: a running sum per
+    item chunk of the split plan, the chunks summed at the end)."""
 
     def weights(logits: torch.Tensor, start: int) -> torch.Tensor:
         pw = torch.exp(logits - z[:, None])
@@ -398,7 +436,7 @@ def fused_bwd_plan(m: int, n: int, d: int, n_sms: int) -> tp.Tuple[int, int, int
     group), and no more blocks than fit the multiprocessors at once, so that
     all run in one wave (a few blocks over it and the last ones run alone:
     twice the time)."""
-    tile_rows, blocks_per_sm = _FUSED_BWD_TILE[d]
+    tile_rows, blocks_per_sm, _ = _BWD_TILE[d]
     n_chunks = max(1, -(-n // FUSED_BWD_CHUNK))
     m_tiles = max(1, -(-m // tile_rows))
     tiles_per_group = -(-m_tiles // max(1, blocks_per_sm * n_sms // n_chunks))
@@ -410,10 +448,10 @@ def _fused_or_split(
     prefix: str, sessions: torch.Tensor, items: torch.Tensor, row_pointers: tp.Tuple[int, ...], key: str = ""
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """(ds, di) from ``{prefix}_fused_f32`` while its partials fit
-    ``FUSED_BWD_PARTIALS_BUDGET``, else from ``{prefix}_ds_f32`` and
-    ``{prefix}_di_f32``; ``row_pointers`` are the kernels' inputs after the
-    sessions and the items. Launch keys: ``{key}_fused`` / ``_ds`` / ``_di``,
-    ``key`` defaulting to ``prefix``."""
+    ``FUSED_BWD_PARTIALS_BUDGET``, else from ``{prefix}_ds_f32`` (on the grid
+    of :func:`split_bwd_plan`) and ``{prefix}_di_f32``; ``row_pointers`` are
+    the kernels' inputs after the sessions and the items. Launch keys:
+    ``{key}_fused`` / ``_ds`` / ``_di``, ``key`` defaulting to ``prefix``."""
     key = key or prefix
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
     if m == 0 or n == 0:
@@ -437,19 +475,20 @@ def _fused_or_split(
         ds = ds_part.sum(dim=0) if n_chunks > 1 else ds_part[0]
         di = di_part.sum(dim=0) if n_groups > 1 else di_part[0]
         return ds, di
-    ds = torch.empty_like(sessions)
+    n_chunks, chunk_rows = split_bwd_plan(m, n, d, n_sms)
+    ds_part = torch.empty((n_chunks, m, d), dtype=torch.float32, device=sessions.device)
     di = torch.empty_like(items)
     with torch.cuda.device(sessions.device):
-        status = getattr(lib, f"{prefix}_ds_f32")(*args, ds.data_ptr(), m, n, d, stream)
+        status = getattr(lib, f"{prefix}_ds_f32")(*args, ds_part.data_ptr(), m, n, d, chunk_rows, n_chunks, stream)
         _native.check_launch(f"{key}_ds", status)
         status = getattr(lib, f"{prefix}_di_f32")(*args, di.data_ptr(), m, n, d, stream)
     _native.check_launch(f"{key}_di", status)
-    return ds, di
+    return (ds_part.sum(dim=0) if n_chunks > 1 else ds_part[0]), di  # a fixed-order sum of the chunks
 
 
 def _fused_on_the_card(m: int, n: int, d: int) -> bool:
     """Whether the card would take the fused kernel; the CPU twins keep that
-    summation order (132 = an H100's multiprocessors)."""
+    summation order, or the split kernels' (132 = an H100's multiprocessors)."""
     return fused_bwd_plan(m, n, d, 132)[2] <= FUSED_BWD_PARTIALS_BUDGET
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the tensor-core fused backward (kernels 7, 9 and 12) beside variants
-of its source, on one NVIDIA GPU: what each design choice of
+"""Time the tensor-core gradient kernels, fused (kernels 7, 9 and 12) and
+split (kernel 7's two launches, 10 + 11, 13 + 14), beside variants of their
+source, on one NVIDIA GPU: what each design choice of
 ``csrc/softmax_lse.cu`` buys at the KION training shape.
 
 Run from the repository root:
@@ -13,13 +14,16 @@ one edit:
   its two-integer-operation form (the same bits).
 - ``straight``: the 3xTF32 products accumulated straight onto the running
   fragment, no fresh fragment per 16 k.
-- ``simt``: the fused kernels on the SIMT tile with its plan (64-row session
-  tiles, two blocks per SM): kernel 7's one pass before the tensor cores.
+- ``simt``: the gradient kernels on the SIMT tile with its plans (64-row
+  session tiles; fused: two blocks per SM; split: ds over the whole catalog
+  in one block per session tile): the kernels before the tensor cores.
 
 The variants build at once (one ``nvcc`` each), then each is timed in a
-process of its own, in turns, twice: kernels 7 (one pass), 9 and 12 at
-51,200 x 15,872 x 128 (CUDA events, mean of 5 after a warm-up), each with
-its largest error against its twin relative to the twin's largest entry.
+process of its own, in turns, twice: kernels 7 (one pass), 9 and 12, and
+the split pairs with the partials budget forced to 0 (7's two launches,
+10 + 11, 13 + 14), at 51,200 x 15,872 x 128 (CUDA events, mean of 5 after a
+warm-up), each with its largest error against its twin (in the same order)
+relative to the twin's largest entry.
 One JSON line per variant and round; the first line names the card and its
 power limit.
 """
@@ -42,9 +46,10 @@ VARIANTS = {
              '{\n  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));\n  return r;\n}')],
     "straight": [(CU, "      float t[4] = {0.f, 0.f, 0.f, 0.f};\n", "      float* t = c[mf][nf];\n"),
                  (CU, "#pragma unroll\n      for (int e = 0; e < 4; ++e) c[mf][nf][e] += t[e];\n", "")],
-    "simt": [(CU, "constexpr bool kTensorCores = D >= 32 && D <= 128;", "constexpr bool kTensorCores = false;"),
-             (PY, "{d: (128, 1) if 32 <= d <= 128 else (TILE, 2) for d in SUPPORTED_D}",
-              "{d: (TILE, 2) for d in SUPPORTED_D}")],
+    "simt": [(CU, "constexpr bool tensor_cores(int d) { return d >= 32 && d <= 128; }",
+              "constexpr bool tensor_cores(int d) { return false; }"),
+             (PY, "{d: (128, 1, 4) if 32 <= d <= 128 else (TILE, 2, 1) for d in SUPPORTED_D}",
+              "{d: (TILE, 2, 1) for d in SUPPORTED_D}")],
 }
 
 
@@ -61,7 +66,8 @@ def edited_sources(name: str) -> tp.Dict[str, str]:
 
 
 def worker() -> None:
-    """Time kernels 7, 9 and 12 of the package on sys.path[0]."""
+    """Time kernels 7, 9 and 12 and the split pairs of the package on
+    sys.path[0]."""
     import torch
 
     from rectools_tpu_torch.ops import softmax_lse as sl
@@ -91,6 +97,7 @@ def worker() -> None:
     z = lse - torch.log(coeff)
     bias = torch.zeros(N, device=dev)
     dlse = torch.randn((M,), generator=gen, device=dev) / M
+    ce_takes_split_route = sl.ce_takes_split_route
     calls = {
         "kernel_7": (lambda: sl.softmax_ce_grads_from_z(s, items, z, y, coeff),
                      lambda: sl.softmax_ce_grads_from_z_reference(s, items, z, y, coeff)),
@@ -99,8 +106,21 @@ def worker() -> None:
         "kernel_12": (lambda: sl.softmax_grads_from_z(s, items, z),
                       lambda: sl.softmax_grads_from_z_reference(s, items, z)),
     }
+    calls.update({
+        "kernel_7_pair": (calls["kernel_7"][0],
+                          lambda: sl.softmax_ce_grads_from_z_reference(s, items, z, y, coeff, partials=False)),
+        "kernels_10_11": (calls["kernel_9"][0],
+                          lambda: sl.streaming_lse_bwd_reference(s, items, bias, lse, dlse, partials=False)),
+        "kernels_13_14": (calls["kernel_12"][0],
+                          lambda: sl.softmax_grads_from_z_reference(s, items, z, partials=False)),
+    })
+    budget = sl.FUSED_BWD_PARTIALS_BUDGET
     out = {}
     for name, (kernel, twin) in calls.items():
+        # the split pairs: no partials budget, and the CE gradients kept off the large-catalog route
+        split = name in ("kernel_7_pair", "kernels_10_11", "kernels_13_14")
+        sl.FUSED_BWD_PARTIALS_BUDGET = 0 if split else budget
+        sl.ce_takes_split_route = (lambda *_: False) if split else ce_takes_split_route
         out[f"{name}_err"] = err(kernel(), twin())
         out[f"{name}_ms"] = time_ms(kernel)
     print(json.dumps(out))

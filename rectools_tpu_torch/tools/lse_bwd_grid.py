@@ -70,19 +70,20 @@ def main() -> int:
         dlse = (torch.randn(m, generator=gen) / m).to(dev)
         lse = softmax_lse.streaming_lse_fwd(s, items, bias)
         ref = softmax_lse.streaming_lse_bwd_reference(s, items, bias, lse, dlse)
+        split_ref = softmax_lse.streaming_lse_bwd_reference(s, items, bias, lse, dlse, partials=False)
 
         def backward():
             return softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)
 
-        def worst(got) -> float:
+        def worst(got, ref=ref) -> float:
             return max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
 
         softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 0
         forward_ms = time_ms(torch, lambda: softmax_lse.streaming_lse_fwd(s, items, bias))
         print(json.dumps({"m": m, "n": n, "kernel_8_ms": forward_ms, "kernels_10_11_ms": time_ms(torch, backward),
-                          "kernels_10_11_err": worst(backward())}), flush=True)
+                          "kernels_10_11_err": worst(backward(), split_ref)}), flush=True)
         softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62
-        m_tiles = -(-m // softmax_lse._FUSED_BWD_TILE[D][0])
+        m_tiles = -(-m // softmax_lse._BWD_TILE[D][0])
         for chunk in CHUNKS:
             n_chunks = -(-n // chunk)
             wanted = sorted({max(1, k * n_sms // n_chunks) for k in (1, 2, 3, 4)} | {-(-n_sms // n_chunks)})

@@ -22,15 +22,16 @@ from rectools_tpu_torch.tools import fused_bwd_variants
 
 REPO = Path(__file__).resolve().parents[1]
 MASK_VALUE = -1e9
-# Relative to the twin's largest entry: kernels 7 (one pass), 9 and 12 on the
-# tensor-core tile (D in 32..128; 3xTF32, a fresh fragment per 16 k), where
+# Relative to the twin's largest entry: the gradient kernels on the
+# tensor-core tile, fused (7's one pass, 9, 12) and split (7's two launches,
+# 10, 11, 13, 14), at D in 32..128 (3xTF32, a fresh fragment per 16 k), where
 # plain TF32 and 3xTF32 accumulated straight on land above it; the SIMT
-# kernels.
+# kernels (D = 16, 256).
 TC_RTOL, SIMT_RTOL = 6e-6, 1e-4
 
 
-def _grads_rtol(route: str, d: int) -> float:
-    return TC_RTOL if route == "fused" and softmax_lse._FUSED_BWD_TILE[d][0] == 128 else SIMT_RTOL
+def _grads_rtol(d: int) -> float:
+    return TC_RTOL if softmax_lse._BWD_TILE[d][0] == 128 else SIMT_RTOL
 
 
 def _t(x: np.ndarray) -> torch.Tensor:
@@ -78,15 +79,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch: pytest.M
 
 
 def test_fused_bwd_tile_rows_match_the_cuda_source() -> None:
-    """The wrapper plans the fused backward's grid from ``_FUSED_BWD_TILE``;
-    the kernels are built for the session rows of csrc/softmax_lse.cu (and
-    refuse another grid on the card). The two agree at every D."""
+    """The wrapper plans the gradient kernels' grids, fused and split, from
+    ``_BWD_TILE``; the kernels are built for the session rows of
+    csrc/softmax_lse.cu (and refuse another grid on the card). The two agree
+    at every D: one rule picks the tensor-core tile for the fused kernel and
+    for both split kernels, and only that tile cuts the catalog into ds
+    chunks."""
     src = (REPO / "rectools_tpu_torch" / "csrc" / "softmax_lse.cu").read_text()
-    assert "constexpr bool kTensorCores = D >= 32 && D <= 128;" in src
+    assert "constexpr bool tensor_cores(int d) { return d >= 32 && d <= 128; }" in src
+    assert src.count("if constexpr (tensor_cores(D))") == 2  # launch_ds, launch_di
+    assert "constexpr bool kTensorCores = tensor_cores(D);" in src  # launch_fused
+    for kernel in ("grad_ds_tc_kernel", "grad_di_tc_kernel"):
+        assert f"{kernel}<D, F><<<" in src
     tc_rows = int(re.search(r"namespace tc \{\s*constexpr int kBM = (\d+);", src).group(1))
     simt_rows = int(re.search(r"^constexpr int kBM = (\d+);", src, re.M).group(1))
-    rows = {d: tile[0] for d, tile in softmax_lse._FUSED_BWD_TILE.items()}
+    rows = {d: tile[0] for d, tile in softmax_lse._BWD_TILE.items()}
     assert rows == {d: tc_rows if 32 <= d <= 128 else simt_rows for d in softmax_lse.SUPPORTED_D}
+    # the SIMT split ds kernel takes one chunk (launch_ds refuses another count)
+    assert "if (n_chunks != 1) return (int)cudaErrorInvalidValue;" in src
+    assert {d: tile[2] == 1 for d, tile in softmax_lse._BWD_TILE.items()} == {
+        d: rows[d] == simt_rows for d in softmax_lse.SUPPORTED_D}
 
 
 @pytest.mark.parametrize("name", sorted(fused_bwd_variants.VARIANTS))
@@ -329,7 +341,9 @@ def test_cuda_attention_dropout_bits_match_twin(cuda: torch.device) -> None:
 @pytest.mark.parametrize("route", ["fused", "split"])
 @pytest.mark.parametrize("partials", [True, False])
 @pytest.mark.parametrize(
-    "m,n,d", [(51, 300, 32), (1000, 2111, 128), (64, 64, 16), (130, 4100, 256), (257, 1000, 64), (300, 2177, 128)]
+    "m,n,d",
+    [(51, 300, 32), (1000, 2111, 128), (64, 64, 16), (130, 4100, 256), (257, 1000, 64), (300, 2177, 128),
+     (700, 20000, 128), (300, 20033, 64)],
 )
 def test_cuda_streaming_lse_and_ce_grads_match_twin(
     cuda: torch.device, monkeypatch: pytest.MonkeyPatch, m: int, n: int, d: int, partials: bool, route: str
@@ -338,7 +352,8 @@ def test_cuda_streaming_lse_and_ce_grads_match_twin(
     kernel 7 from that lse: its one pass (``ce_fused_f32``) or, with the
     budget forced to 0 below the large-catalog threshold, its two launches,
     against the twin in the same summation order; ragged tiles on both axes
-    (257 and 300 rows against 128-row session tiles); the same bits on a
+    (257 and 300 rows against 128-row session tiles); catalogs of ~20,000
+    items, whose split ds sums cross several item chunks; the same bits on a
     second run."""
     rng = np.random.default_rng(n)
     s = _t((0.3 * rng.normal(size=(m, d))).astype(np.float32)).to(cuda)
@@ -367,7 +382,7 @@ def test_cuda_streaming_lse_and_ce_grads_match_twin(
     ref_ds, ref_di = softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff, partials=route == "fused")
     for got, ref in ((ds, ref_ds), (di, ref_di)):
         assert torch.isfinite(got).all()
-        assert (got - ref).abs().max().item() <= _grads_rtol(route, d) * ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= _grads_rtol(d) * ref.abs().max().item()
     again = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
     assert torch.equal(again[0], ds) and torch.equal(again[1], di)  # no atomics: the same bits
 
@@ -397,7 +412,9 @@ def test_cuda_lse_shift_matches_twin(cuda: torch.device, m: int, n: int, d: int,
 @pytest.mark.gpu
 @pytest.mark.parametrize("route", ["fused", "split"])
 @pytest.mark.parametrize(
-    "m,n,d", [(51, 300, 32), (1000, 2111, 128), (64, 64, 16), (130, 4177, 256), (257, 1000, 64)]
+    "m,n,d",
+    [(51, 300, 32), (1000, 2111, 128), (64, 64, 16), (130, 4177, 256), (257, 1000, 64), (700, 20000, 128),
+     (90, 19999, 32)],
 )
 def test_cuda_softmax_grads_from_z_match_twins(
     cuda: torch.device, monkeypatch: pytest.MonkeyPatch, m: int, n: int, d: int, route: str
@@ -421,10 +438,32 @@ def test_cuda_softmax_grads_from_z_match_twins(
     ref = softmax_lse.softmax_grads_from_z_reference(s, items, z, partials=route == "fused")
     for got, expected in zip((ds, di), ref):
         assert torch.isfinite(got).all()
-        assert (got - expected).abs().max().item() <= _grads_rtol(route, d) * expected.abs().max().item()
+        assert (got - expected).abs().max().item() <= _grads_rtol(d) * expected.abs().max().item()
     assert not ds[coeff == 0].any()
     again = softmax_lse.softmax_grads_from_z(s, items, z)
     assert torch.equal(again[0], ds) and torch.equal(again[1], di)  # no atomics: the same bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 128, 256])
+def test_cuda_split_ds_entries_refuse_another_chunk_count(cuda: torch.device, d: int) -> None:
+    """The split ds entries take the plan's item chunks from the caller and
+    refuse a count that their chunk rows do not give (or, on the SIMT tile,
+    any count but 1), as the fused entries refuse another grid."""
+    m, n = 300, 5000
+    s, items = torch.zeros((m, d), device=cuda), torch.zeros((n, d), device=cuda)
+    z = torch.zeros((m,), device=cuda)
+    n_chunks, chunk_rows = softmax_lse.split_bwd_plan(m, n, d, 132)
+    ds_part = torch.empty((n_chunks + 1, m, d), device=cuda)
+    lib = _native.load("softmax_lse", softmax_lse._SIGNATURES)
+    stream = _native.current_stream_ptr(cuda)
+    args = (s.data_ptr(), items.data_ptr(), z.data_ptr(), ds_part.data_ptr(), m, n, d)
+    assert lib.grads_z_ds_f32(*args, chunk_rows, n_chunks, stream) == 0
+    assert lib.grads_z_ds_f32(*args, chunk_rows, n_chunks + 1, stream) != 0
+    assert lib.grads_z_ds_f32(*args, chunk_rows + 1, n_chunks, stream) != 0  # not a multiple of 64
+    if d == 256:
+        assert n_chunks == 1 and lib.grads_z_ds_f32(*args, 64 * -(-n // 128), 2, stream) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
@@ -459,7 +498,9 @@ def test_cuda_ce_split_route_matches_kernel_7(
 @pytest.mark.gpu
 @pytest.mark.parametrize("route", ["fused", "split"])
 @pytest.mark.parametrize(
-    "m,n,d,n_invalid", [(51, 300, 32, 7), (1000, 2111, 128, 1), (64, 64, 16, 64), (200, 4200, 64, 0), (130, 77, 256, 3)]
+    "m,n,d,n_invalid",
+    [(51, 300, 32, 7), (1000, 2111, 128, 1), (64, 64, 16, 64), (200, 4200, 64, 0), (130, 77, 256, 3),
+     (700, 20000, 128, 5), (333, 20111, 32, 0)],
 )
 def test_cuda_biased_lse_and_its_vjp_match_twins(
     cuda: torch.device, monkeypatch: pytest.MonkeyPatch, m: int, n: int, d: int, n_invalid: int, route: str
@@ -488,10 +529,10 @@ def test_cuda_biased_lse_and_its_vjp_match_twins(
     launched = {k: _native.LAUNCHES[k] - before[k] for k in ("lse_bwd_fused", "lse_bwd_ds", "lse_bwd_di")}
     assert launched == ({"lse_bwd_fused": 1, "lse_bwd_ds": 0, "lse_bwd_di": 0} if route == "fused"
                         else {"lse_bwd_fused": 0, "lse_bwd_ds": 1, "lse_bwd_di": 1})
-    ref_ds, ref_di = softmax_lse.streaming_lse_bwd_reference(s, items, bias, lse, dlse)
+    ref_ds, ref_di = softmax_lse.streaming_lse_bwd_reference(s, items, bias, lse, dlse, partials=route == "fused")
     for got, ref in ((ds, ref_ds), (di, ref_di)):
         assert torch.isfinite(got).all()
-        assert (got - ref).abs().max().item() <= _grads_rtol(route, d) * ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= _grads_rtol(d) * ref.abs().max().item()
     if 0 < n_invalid < n:  # an invalid row's gradient is exactly 0
         assert not di[n - n_invalid :].any()
     again = softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)

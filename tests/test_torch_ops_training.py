@@ -495,6 +495,51 @@ def test_streaming_lse_vjp_routes_agree(monkeypatch) -> None:
     assert softmax_lse.fused_bwd_plan(51200, 20480, 256, 132) == (31, 26, (10 * 51200 + 26 * 20480) * 256 * 4)
 
 
+@pytest.mark.parametrize(
+    "m,n,d,plan",
+    [(51200, 15872, 128, (4, 3968)), (51200, 131072, 128, (4, 32768)), (51200, 65536, 128, (4, 16384)),
+     (25600, 7936, 128, (3, 2688)), (25600, 3959, 128, (3, 1344)), (51200, 15872, 64, (4, 3968)),
+     (300, 100, 32, (2, 64)), (51200, 20480, 256, (1, 20480)), (51200, 15872, 16, (1, 15872))],
+)
+def test_split_bwd_plan_is_pinned(m: int, n: int, d: int, plan: tuple) -> None:
+    """The split ds kernel's grid on an H100 (132 multiprocessors): at the
+    training width 400 session tiles x 4 item chunks, 1,600 blocks of one per
+    multiprocessor, whose last wave is 93% full (one chunk: 400 blocks, the
+    fourth wave 4 blocks alone); the same 4 chunks at 65,536 and 131,072
+    items, so the ds partials stay 4 x M x D floats whatever the catalog;
+    no more chunks than item tiles; the SIMT tile (D = 16, 256) one chunk."""
+    assert softmax_lse.split_bwd_plan(m, n, d, 132) == plan
+    chunks, rows = plan
+    assert rows % softmax_lse.TILE == 0 and -(-n // rows) == chunks
+    if (m, n, d) == (51200, 15872, 128):
+        blocks = -(-m // 128) * chunks
+        assert blocks == 1600 and blocks / (-(-blocks // 132) * 132) > 0.93
+    if d == 128 and m == 51200:  # far under the budget, and not growing with the catalog
+        assert chunks * m * d * 4 == 4 * 51200 * 128 * 4 < softmax_lse.FUSED_BWD_PARTIALS_BUDGET // 5
+
+
+def test_split_order_twin_sums_running_chunk_partials() -> None:
+    """The twins' split order is the split ds kernel's: one running sum per
+    item chunk of the plan (steps of ``chunk`` rows that never cross a chunk's
+    end), the chunk sums added at the end; di is per item row either way."""
+    rng, s, items = _lse_inputs(40, 700, 32, seed=17)
+    z = np.full(40, 3.0, np.float32)
+    chunks, rows = softmax_lse.split_bwd_plan(40, 700, 32, 132)
+    assert chunks > 1 and rows % 5  # steps of 5 rows cut at each chunk's end
+    ds, di = softmax_lse.softmax_grads_from_z_reference(_t(s), _t(items), _t(z), chunk=5, partials=False)
+    st, it = _t(s), _t(items)
+    parts = []
+    for lo in range(0, 700, rows):
+        part = None
+        for start in range(lo, min(lo + rows, 700), 5):
+            block = it[start : min(start + 5, lo + rows, 700)]
+            term = torch.exp(st @ block.T - 3.0) @ block
+            part = term if part is None else part + term
+        parts.append(part)
+    assert torch.equal(ds, torch.stack(parts).sum(dim=0))
+    torch.testing.assert_close(di, torch.exp(st @ it.T - 3.0).T @ st, rtol=1e-6, atol=1e-6)
+
+
 def test_streaming_lse_bias_gets_no_gradient() -> None:
     s, items, bias, _ = _biased_case(8, 20, 16, "tail")
     with pytest.raises(ValueError, match="constant validity mask"):
@@ -605,16 +650,37 @@ def test_tf32_rounding_is_round_to_nearest_away() -> None:
     assert torch.equal(_tf32_rna(hi), hi)  # TF32 values are fixed points
 
 
+def _split_order_tf32(s: torch.Tensor, items: torch.Tensor, pw: torch.Tensor, three: bool) -> tuple:
+    """The split kernels' order at tile grain: ds as one running sum of
+    64-item tiles per item chunk of the plan, the chunks summed at the end;
+    di as one running sum of 128-session tiles per item row."""
+    m, n = pw.shape
+    _, rows = softmax_lse.split_bwd_plan(m, n, s.shape[1], 132)
+    parts = []
+    for lo in range(0, n, rows):
+        part = torch.zeros_like(s)
+        for start in range(lo, min(lo + rows, n), 64):
+            part = part + _mm_tf32(pw[:, start : start + 64], items[start : start + 64], three)
+        parts.append(part)
+    di = torch.zeros_like(items)
+    for start in range(0, m, 128):
+        di = di + _mm_tf32(pw[start : start + 128].T, s[start : start + 128], three)
+    return torch.stack(parts).sum(dim=0), di
+
+
+@pytest.mark.parametrize("order", ["fused", "split"])
 @pytest.mark.parametrize("d", [32, 128])
-def test_ce_gradients_in_3xtf32_pass_the_card_tolerance(d: int) -> None:
+def test_ce_gradients_in_3xtf32_pass_the_card_tolerance(d: int, order: str) -> None:
     """The arithmetic of the tensor-core tile on the CPU: the three products
     of the CE gradients (logits, ds, di) from TF32 halves, the probabilities
     between them as the kernel forms them, at the input scale of the card's
-    kernel phases (sessions N(0, 1), items 0.1 N(0, 1)). 3xTF32 stays within
-    1e-5 of the exact f32 twin's largest entry; plain TF32 lands above 1e-4,
-    the loosest limit the card holds a kernel to, so no limit there passes
-    it."""
-    m, n = 96, 300
+    kernel phases (sessions N(0, 1), items 0.1 N(0, 1)), summed whole (the
+    one pass) or in the split kernels' order (ds per item chunk of the plan,
+    running sums over tiles) against the exact f32 twin in the same order.
+    3xTF32 stays within 1e-5 of the twin's largest entry; plain TF32 lands
+    above 1e-4, the loosest limit the card holds a kernel to, so no limit
+    there passes it."""
+    m, n = 300, 1000
     rng = np.random.default_rng(d)
     s = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32))
     items = torch.from_numpy((0.1 * rng.normal(size=(n, d))).astype(np.float32))
@@ -622,11 +688,16 @@ def test_ce_gradients_in_3xtf32_pass_the_card_tolerance(d: int) -> None:
     coeff = torch.full((m,), 1.0 / m)
     coeff[::5] = 0.0
     z = softmax_lse.streaming_lse_reference(s, items) - torch.log(coeff)
-    exact = softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff)
+    exact = softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff, partials=order == "fused")
+    if order == "split":
+        assert softmax_lse.split_bwd_plan(m, n, d, 132)[0] > 1
     for three in (True, False):
         pw = torch.exp(_mm_tf32(s, items.T, three) - z[:, None])
         pw[torch.arange(m), y] -= coeff
-        got = (_mm_tf32(pw, items, three), _mm_tf32(pw.T, s, three))
+        if order == "fused":
+            got = (_mm_tf32(pw, items, three), _mm_tf32(pw.T, s, three))
+        else:
+            got = _split_order_tf32(s, items, pw, three)
         worst = max(((g - e).abs().max() / e.abs().max()).item() for g, e in zip(got, exact))
         assert worst <= 1e-5 if three else worst > 1e-4, (three, worst)
 
