@@ -17,7 +17,9 @@ own lines; any failure exits nonzero and prints no result:
              0.2): LayerNorm backward, attention forward with dropout (its
              keep bits checked for equality with the twin's mask) and
              backward; the streaming logsumexp three ways (kernel 6's
-             per-chunk partials, kernel 15's running max, kernel 16's fixed
+             per-chunk partials on the 3xTF32 tile, with a plain-TF32
+             control that must fail its limit, and timed again at 65,536
+             and 131,072 items; kernel 15's running max; kernel 16's fixed
              shift at these inputs and scaled so that window 2 serves the
              rows, with the share of rows in each window); the softmax
              gradients from z (kernel 12; kernels 13 + 14 at 15,872, at the
@@ -64,7 +66,9 @@ own lines; any failure exits nonzero and prints no result:
              context (B = 64, L = 1,024) and, checked only, at ragged lengths
              (L = 80 and 96, with a per-row mask), timed beside the twin, the
              materialized einsum-SiLU-einsum and its autograd (the yardstick)
-             and the bound; dq, dk, dv, ds and the sums of ds by time bucket
+             and the bound; the backward (two tensor-core launches, dk/dv and
+             dq, at heads of 32) with the share of its warps' units the masks
+             let it skip; dq, dk, dv, ds and the sums of ds by time bucket
              bit-equal on a second run. The forward also at the serving batch
              (B = 4,096, left-padded sessions of the frame's lengths).
              ``hstu main``: random flax-layout weights -> HSTUModel.recommend
@@ -129,15 +133,18 @@ K = 10
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores, data sheet
 PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores, data sheet
-# the gradient kernels on the SIMT tile, before they moved to the tensor cores (PERF.md §6, NVIDIA H100 80GB
-# HBM3 at 700 W): kernels 7, 9 and 12 (kernel 7 then its two launches) until PR 6, the split kernels (7's two
-# launches, 10, 11, 13, 14, by the entry of `kernels` that holds this run's time) until PR 7; printed beside this
-# run's times on `redesigned:` lines, never in the JSON line
+# the kernels on the SIMT tile, before they moved to the tensor cores (PERF.md §6, NVIDIA H100 80GB HBM3 at
+# 700 W): kernels 7, 9 and 12 (kernel 7 then its two launches), the split kernels (7's two launches, 10, 11, 13,
+# 14), and kernels 6 and 18 (kernel 6 at 65,536 and 131,072 items: its device time in a one-step profile of those
+# fits), by the entry of `kernels` that holds this run's time; printed beside this run's times on `redesigned:`
+# lines, never in the JSON line
 SIMT_TILE_MS = {
     "ce_grads": 33.2298, "lse_bwd_fused": 24.6118, "grads_z_fused": 24.3758, "ce_grads_pair": 33.4354,
     "lse_bwd_ds": 17.7596, "lse_bwd_di": 16.1084, "lse_bwd_ds_shard_2x2": 5.0311, "lse_bwd_di_shard_2x2": 5.1938,
     "lse_bwd_ds_ragged_shard": 2.5195, "lse_bwd_di_ragged_shard": 5.1749, "grads_z_ds": 17.6091,
     "grads_z_di": 16.0467, "grads_z_ds_large_catalog": 146.99, "grads_z_di_large_catalog": 126.41,
+    "lse_partials_fwd": 8.3204, "lse_partials_fwd_mid_catalog": 32.92, "lse_partials_fwd_large_catalog": 66.26,
+    "stu_bwd": 0.8185, "stu_bwd_long_ctx": 10.7321,
 }
 LN_TOL = 1e-5
 ATTN_TOL = 1e-5
@@ -148,6 +155,9 @@ LR = 1e-3
 EPOCHS = 2
 LN_BWD_TOL = 1e-5  # dx absolute; dgamma and dbeta relative to their largest entry (sums over 51,200 rows)
 LSE_RTOL = 1e-5  # relative, per row: one column of 15,872 left out moves an lse of about 10 by 6e-6 relative
+# kernel 6 on the tensor cores (3xTF32), relative per row from its twin in the same chunks: below it, and plain
+# TF32 products (its control) above it
+LSE_TC_RTOL = 1e-6
 CE_RTOL = 1e-4  # relative to the largest entry of ds and of di
 # the same for the gradient kernels on the tensor-core tile, fused (7's one pass, 9, 12) and split (7's two
 # launches, 10, 11, 13, 14) (3xTF32 products, a fresh fragment per 16 k; 4.3e-6 at most at the training shape and
@@ -310,21 +320,23 @@ def _max_rel(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max()).item()
 
 
+def tf32(torch, x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does (a product of two TF32
+    values is exact in f32): the operands of a plain-TF32 control."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
 def ce_grads_plain_tf32(torch, softmax_lse, s, items, z, y, coeff, partials: bool = True) -> tuple:
     """Kernel 7's function with plain TF32 products: each operand of the three
-    products rounded once as ``cvt.rna.tf32.f32`` does (a product of two TF32
-    values is exact in f32), in the twin's chunks and the one pass's order
+    products rounded once, in the twin's chunks and the one pass's order
     (``partials``) or the two launches'."""
-
-    def tf32(x):
-        return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
     def weights(logits, start: int):
         pw = torch.exp(logits - z[:, None])
         cols = torch.arange(start, start + logits.shape[1], device=s.device)
-        return tf32(torch.where(cols[None, :] == y[:, None], pw - coeff[:, None], pw))
+        return tf32(torch, torch.where(cols[None, :] == y[:, None], pw - coeff[:, None], pw))
 
-    return softmax_lse._grads_reference(tf32(s), tf32(items), weights, softmax_lse.TWIN_CHUNK, partials)
+    return softmax_lse._grads_reference(tf32(torch, s), tf32(torch, items), weights, softmax_lse.TWIN_CHUNK, partials)
 
 
 def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
@@ -415,6 +427,8 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     items = 0.1 * torch.randn((n, d), generator=gen, device=dev)
     products = 2 * m * n * d
     lse_library_ms = time_ms(lambda: torch.logsumexp(s @ items.T, dim=1), iters=3)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    chunks_6 = -(-n // softmax_lse.LSE_CHUNK)  # kernel 6's item chunks
     forwards = {}
     for name, partials, twin in (("lse_partials_fwd", True, softmax_lse.streaming_lse_partials_reference),
                                  ("lse_fwd", False, softmax_lse.streaming_lse_reference)):
@@ -427,13 +441,25 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         got_ragged, ref_ragged = softmax_lse.streaming_lse(s, items[:RAGGED_N]), twin(s, items[:RAGGED_N])
         rel_ragged = ((got_ragged - ref_ragged).abs() / ref_ragged.abs()).max().item()
         check(rel_ragged <= LSE_RTOL, f"{name} at N={RAGGED_N} disagrees with its twin: {rel_ragged}")
+        lse_bytes = (m * d + n * d + (m if name == "lse_fwd" else 2 * m * chunks_6)) * 4
         results[name] = dict(
             max_abs_err=(forwards[name] - ref).abs().max().item(),
             ms=time_ms(lambda: softmax_lse.streaming_lse(s, items), iters=5),
             plain_ms=time_ms(lambda: twin(s, items), iters=3),
             library_ms=lse_library_ms,
-            bound=bound_ms((m * d + n * d + m) * 4, products),
+            # kernel 6 runs its product in 3xTF32 on the tensor cores at d = 128, kernel 15 in f32
+            **(tc_bounds(lse_bytes, products) if partials else {"bound": bound_ms(lse_bytes, products)}),
         )
+        if partials:  # the control: the same lse from plain TF32 products, in the card's chunks
+            plain_tf32 = softmax_lse.streaming_lse_partials_reference(tf32(torch, s), tf32(torch, items))
+            rel_plain = ((plain_tf32 - ref).abs() / ref.abs()).max().item()
+            check(rel <= LSE_TC_RTOL < rel_plain,
+                  f"lse_partials_fwd {rel} and its plain-TF32 control {rel_plain} relative: not on either side of "
+                  f"{LSE_TC_RTOL}")
+            print(f"train kernels: lse_partials_fwd (3xTF32, {chunks_6} item chunks) {rel:.3g} "
+                  f"relative per row from its twin, plain TF32 products {rel_plain:.3g} (limit {LSE_TC_RTOL}); at "
+                  f"N={RAGGED_N} {rel_ragged:.3g}")
+            del plain_tf32
     softmax_lse.USE_PARTIALS_FWD = True
     lse = forwards["lse_partials_fwd"]
     between = ((lse - forwards["lse_fwd"]).abs() / forwards["lse_fwd"].abs()).max().item()
@@ -475,7 +501,6 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     z = lse - torch.log(coeff)  # +inf on PAD rows
 
     # kernel 12: both softmax gradients from z in one pass (its partials fit the budget here)
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
     plan = softmax_lse.fused_bwd_plan(m, n, d, n_sms)
     check(plan[2] <= softmax_lse.FUSED_BWD_PARTIALS_BUDGET, f"kernel 12's partials {plan[2]} pass the budget")
     got = softmax_lse.softmax_grads_from_z(s, items, z)
@@ -630,6 +655,25 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     items = 0.1 * torch.randn((n_large, d), generator=gen, device=dev)
     y = torch.where(pad, 0, torch.randint(1, n_large, (m,), generator=gen, device=dev))
     z = softmax_lse.streaming_lse(s, items) - torch.log(coeff)
+    # kernel 6 at the mid and the large fit's catalogs, timed beside its twin and the library call
+    for tag, rows in (("_mid_catalog", items[: MID_N_ITEM_IDS + 1]), ("_large_catalog", items)):
+        n_rows = rows.shape[0]
+        chunks = -(-n_rows // softmax_lse.LSE_CHUNK)
+        got, ref = softmax_lse.streaming_lse(s, rows), softmax_lse.streaming_lse_partials_reference(s, rows)
+        rel = ((got - ref).abs() / ref.abs()).max().item()
+        check(rel <= LSE_RTOL and bool(torch.equal(got, softmax_lse.streaming_lse(s, rows))),
+              f"lse_partials_fwd at N={n_rows}: {rel} relative from its twin, or other bits on a rerun")
+        results[f"lse_partials_fwd{tag}"] = dict(
+            max_abs_err=(got - ref).abs().max().item(),
+            ms=time_ms(lambda: softmax_lse.streaming_lse(s, rows), iters=3),
+            plain_ms=time_ms(lambda: softmax_lse.streaming_lse_partials_reference(s, rows), iters=1, warmup=1),
+            library_ms=time_ms(lambda: torch.logsumexp(s @ rows.T, dim=1), iters=1, warmup=1),
+            **tc_bounds((m * d + n_rows * d + 2 * m * chunks) * 4, 2 * m * n_rows * d),
+        )
+        print(f"train kernels: lse_partials_fwd at N={n_rows} ({chunks} item chunks) {rel:.3g} relative per row from "
+              f"its twin, bit-equal on a rerun")
+        del got, ref
+    torch.cuda.empty_cache()
     check(softmax_lse.ce_takes_split_route(m, n_large, d), f"the CE gradients at N={n_large} stay on kernel 7")
     split_pair(items, z, "_large_catalog", timed=True)
     route = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
@@ -742,6 +786,20 @@ def _stu_check(torch, args, dout, buckets, what: str, forward_only: bool = False
     return errs
 
 
+def _dead_unit_shares(torch, allowed, timeline, tile: int) -> tuple:
+    """The shares of the warps' units, per (b, h), whose allowed * tl_q * tl_k
+    is zero everywhere, so that kernel 18's tensor-core launches skip them:
+    (16 keys x 32 queries of dk/dv, 16 queries x 32 keys of dq), the length
+    padded to whole tiles of ``tile`` rows."""
+    import torch.nn.functional as F
+
+    b, l = timeline.shape
+    n = -(-l // tile) * tile
+    live = F.pad(allowed * timeline[:, :, None] * timeline[:, None, :], (0, n - l, 0, n - l)).ne(0)
+    return tuple(1.0 - live.reshape(b, n // q, q, n // k, k).any(dim=4).any(dim=2).float().mean().item()
+                 for q, k in ((32, 16), (16, 32)))
+
+
 def stu_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     import torch.nn.functional as F
 
@@ -754,9 +812,12 @@ def stu_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     # checked only: ragged lengths, the second with a mask that varies by row
     for l, per_row in ((80, False), (96, True)):
         q, k, v, dout, bias, allowed, timeline, buckets = _stu_case(torch, dev, gen, 8, l, per_row)
-        errs = _stu_check(torch, (q, k, v, bias, allowed, timeline), dout, buckets, f"at L={l}")
+        args = (q, k, v, bias, allowed, timeline)
+        errs = _stu_check(torch, args, dout, buckets, f"at L={l}")
         print(f"stu kernels: at L={l}{' with a per-row mask' if per_row else ''}, max abs err {errs}; "
-              "dq, dk, dv, ds, bucket sums bit-equal on a second run")
+              "dq, dk, dv, ds, bucket sums bit-equal on a second run; stu_bwd "
+              f"{time_ms(lambda: stu_attention.stu_bwd(*args, dout)):.4f} ms, skipping (dk/dv, dq) "
+              f"{_dead_unit_shares(torch, allowed, timeline, stu_attention.BWD_TILE)} of their units")
 
     def library(q, k, v, bias, allowed, timeline):
         """The materialized form: one einsum, SiLU and mask over (B, H, L, L), one einsum."""
@@ -803,13 +864,15 @@ def stu_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
             return dbias, sums.index_add_(0, buckets.reshape(-1), dbias.reshape(-1))
 
         n_partials = bb * math.ceil(l / stu_attention.DS_TILE_KEYS) * math.ceil(l / stu_attention.DS_TILE_QUERIES)
+        # heads of 32: the backward's products run in 3xTF32 on the tensor cores
         results[f"stu_bwd{tag}"] = dict(
             max_abs_err=errs["stu_bwd"],
             ms=time_ms(lambda: stu_attention.stu_bwd(*args, dout), iters=iters),
             plain_ms=time_ms(lambda: stu_attention.stu_bwd_reference(*args, dout), iters=iters),
             library_ms=grad_ms(leaves[:3]),
-            bound=bound_ms(qkv_bytes + 3 * 4 * bb * h * l * d + mask_bytes, 2 * n_pairs * 5 * d),
+            **tc_bounds(qkv_bytes + 3 * 4 * bb * h * l * d + mask_bytes, 2 * n_pairs * 5 * d),
         )
+        dead = _dead_unit_shares(torch, allowed, timeline, stu_attention.BWD_TILE)
         results[f"stu_ds{tag}"] = dict(
             max_abs_err=errs["stu_ds"],
             ms=time_ms(lambda: stu_attention.stu_ds(*args, dout, buckets, NUM_BUCKETS + 1), iters=iters),
@@ -822,8 +885,8 @@ def stu_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         )
         ds_alone_ms = time_ms(lambda: stu_attention.stu_ds(*args, dout), iters=iters)
         print(f"stu kernels: at B={bb}, L={l}: {n_pairs:.0f} unmasked (head, query, key) pairs of {bb * h * l * l}; "
-              f"stu_ds without the bucket sums {ds_alone_ms:.4f} ms; "
-              "dq, dk, dv, ds, bucket sums bit-equal on a second run")
+              f"stu_ds without the bucket sums {ds_alone_ms:.4f} ms; stu_bwd skips (dk/dv, dq) {dead[0]:.3f}, "
+              f"{dead[1]:.3f} of its warps' units; dq, dk, dv, ds, bucket sums bit-equal on a second run")
         del q, k, v, dout, bias, allowed, timeline, buckets, args, leaves, lib_out
         torch.cuda.empty_cache()
     for name, r in results.items():
@@ -1279,7 +1342,8 @@ def train_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
     expected.update(lse_partials_fwd=steps, ce_grads_fused=steps)  # kernel 7's one pass, never its two launches
     if hstu:  # per block: two LayerNorms, one STU attention with its backward and its score gradient
         expected.update(layer_norm_fwd=2 * N_BLOCKS * forwards, stu_fwd=N_BLOCKS * forwards,
-                        layer_norm_bwd=2 * N_BLOCKS * steps, stu_bwd=N_BLOCKS * steps, stu_ds=N_BLOCKS * steps)
+                        layer_norm_bwd=2 * N_BLOCKS * steps, stu_bwd=N_BLOCKS * steps, stu_bwd_dq=N_BLOCKS * steps,
+                        stu_ds=N_BLOCKS * steps)  # heads of 32: the backward's two launches on the tensor cores
     else:
         expected.update(layer_norm_fwd=(2 * N_BLOCKS + 1) * forwards, attention_fwd=N_BLOCKS * forwards,
                         layer_norm_bwd=(2 * N_BLOCKS + 1) * steps, attention_bwd=N_BLOCKS * steps)
@@ -1860,7 +1924,7 @@ def main() -> int:
         "lse_fwd": ("softmax_lse.cu", "softmax_lse.py:127", ("lse_fwd",), "lse_fwd"),
         "lse_shift_fwd": ("softmax_lse.cu", "softmax_lse.py:50", ("lse_shift_fwd",), "lse_shift_fwd"),
         "stu_fwd": ("stu_attention.cu", "stu_attention.py:90", ("stu_fwd",), "stu_fwd"),
-        "stu_bwd": ("stu_attention.cu", "stu_attention.py:274", ("stu_bwd",), "stu_bwd"),
+        "stu_bwd": ("stu_attention.cu", "stu_attention.py:274", ("stu_bwd", "stu_bwd_dq"), "stu_bwd"),
         "stu_ds": ("stu_attention.cu", "stu_attention.py:316", ("stu_ds",), "stu_ds"),
     }
     # mesh_fit_4 counts one rank's launches (every rank's are equal); kernels 10
@@ -1897,6 +1961,9 @@ def main() -> int:
             entry["ragged_shard"] = numbers(kernels[f"{name}_ragged_shard"])
         if name in ("grads_z_ds", "grads_z_di"):  # the same kernel at 51,200 x 131,072
             entry["large_catalog"] = numbers(kernels[f"{name}_large_catalog"])
+        if name == "lse_partials_fwd":  # the same kernel at 65,536 and 131,072 items
+            entry["mid_catalog"] = numbers(kernels["lse_partials_fwd_mid_catalog"])
+            entry["large_catalog"] = numbers(kernels["lse_partials_fwd_large_catalog"])
         if name == "lse_shift_fwd":  # the same kernel with every row in window 2
             entry["window_2"] = numbers(kernels["lse_shift_fwd_window_2"])
         if name == "ce_grads":  # kernel 7's two launches; at 51,200 x 131,072 the split route beside its one pass

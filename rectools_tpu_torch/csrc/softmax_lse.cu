@@ -137,8 +137,25 @@
 //   twice), which keeps kernel 7's two launches behind one autograd pass of
 //   the materialized logits.
 //
-// The SIMT tile: everything else (kernels 6, 8, 15, 16, and the gradient
-// kernels, fused and split, at D = 16 and 256). 256 threads in a 16 x
+// Kernel 6 on the same tile (`lse_partials_tc_kernel`, D in {32, 64, 128}):
+// product 1 alone, 208 GFLOP at the training shape, 1.26 ms in 3xTF32 (3.11
+// FP32). Block (x, y) owns the 128-row session tile x and the item chunk y of
+// `chunk_rows` (2,048, as the SIMT kernel's) rows and walks the chunk's item
+// tiles through a `cp.async` ring of two; one block of 8 warps per SM
+// (131,072 bytes of tiles at D = 128): 8 chunks at the training shape, 3,200
+// blocks, the last wave 97% full. Each thread folds the four rows of its
+// accumulator fragments
+// into running (max, sum of exp) pairs, 36 `expf` an item tile; the four
+// threads of a row merge theirs by shuffles, the two warp columns through
+// shared memory, once per block. Registers (ptxas -v) 173 / 153 / 143 at D =
+// 128 / 64 / 32, no spills. It ran 4.84-4.90 ms at the training shape (NVIDIA
+// H100 80GB HBM3, 700 W; PERF.md section 6), 26% of the 3xTF32 rate: bound,
+// as the gradient kernels, by issue slots and latency at 8 warps per SM (the
+// operand splits, the exps). Its error from the f32 twin in the same chunks
+// is ~1e-7 per row; plain TF32 products gave 1.6-1.8e-5.
+//
+// The SIMT tile: everything else (kernels 8, 15 and 16; kernel 6 and the
+// gradient kernels, fused and split, at D = 16 and 256). 256 threads in a 16 x
 // 16 grid; a block holds a 64-row session tile and a 64-row item tile whole
 // in shared memory (rows padded to D + 1 floats so the per-thread row reads
 // are conflict-free) and forms their 64 x 64 logits, each thread a 4 x 4
@@ -638,116 +655,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------- the tensor-core tile of the fused backward
+// ---------------------------------------------------------------- the tensor-core tile
+
+#include "tc_tile.cuh"
 
 namespace tc {
 
 constexpr int kBM = 128;       // session rows per tile
 constexpr int kBN = 64;        // item rows per tile
 constexpr int kThreads = 256;  // 8 warps
-
-// Element (r, c) of a row-major tile whose rows hold a multiple of 32
-// floats sits at column c ^ swz(r): bits 2-4 of the column flipped by the
-// row. The m16n8k8 fragments read 8 rows x 4 columns (rows g, columns t) or
-// 4 rows x 8 columns (rows t, columns g) of a tile, and both patterns then
-// hit 32 distinct banks. Four-float groups stay whole, so 16-byte copies
-// land in place.
-__device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
-
-template <int W>
-__device__ __forceinline__ int at(int r, int c) {
-  return r * W + (c ^ swz(r));
-}
-
-// cvt.rna.tf32.f32 (round to nearest, ties away from zero, at 10 mantissa
-// bits) in two integer operations: half a TF32 ulp added to the magnitude
-// bits, the 13 low bits cleared. The same bits as the conversion
-// instruction, which is a conversion at 16 results a clock per SM: with it
-// kernel 7 took 16.1-16.2 ms at the training shape, with this 13.4-13.7
-// (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6).
-__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
-
-// x = hi + lo + O(2^-22 |x|): hi and lo are TF32 values
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c[mf][nf] += sum over k in [k0, k0 + 16) of a(mf, k) b(k, nf) in 3xTF32:
-// per 8-deep step the two small terms first, then hi * hi (lo * lo, ~2^-22
-// relative, is dropped). The tensor cores' f32 accumulation truncates, so
-// the six products of the 16 k go into a fresh fragment that a rounded f32
-// add then puts onto c: accumulated straight onto c over the 768 steps of a
-// 2,048-item chunk they drifted by 3e-5 of the largest entry on an H100, and
-// 3 train steps there left the CPU run's parameters by 1.7e-4. load_b(k, bh,
-// bl) gives the B fragments of all kNF columns at depth k, load_a(mf, k, ah,
-// al) the A fragment of row block mf; B for both depths stays in registers
-// while the row blocks pass.
-template <int kMF, int kNF, class LoadA, class LoadB>
-__device__ __forceinline__ void mma_k16(float c[kMF][kNF][4], int k0, LoadA load_a, LoadB load_b) {
-  uint32_t bh[2][kNF][2], bl[2][kNF][2];
-  load_b(k0, bh[0], bl[0]);
-  load_b(k0 + 8, bh[1], bl[1]);
-#pragma unroll
-  for (int mf = 0; mf < kMF; ++mf) {
-    uint32_t ah[2][4], al[2][4];
-    load_a(mf, k0, ah[0], al[0]);
-    load_a(mf, k0 + 8, ah[1], al[1]);
-#pragma unroll
-    for (int nf = 0; nf < kNF; ++nf) {
-      float t[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        mma(t, al[ks], bh[ks][nf]);
-        mma(t, ah[ks], bl[ks][nf]);
-        mma(t, ah[ks], bh[ks][nf]);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[mf][nf][e] += t[e];
-    }
-  }
-}
-
-// Four 8 x 4 blocks of 32-bit words from shared memory: lane l gives the
-// address of row l % 8 of block l / 8 (16 bytes), and gets word l % 4 of row
-// l / 4 of block j in r[j]: an m16n8k8 A fragment (blocks: rows 0-7 and 8-15
-// of columns 0-3, then of columns 4-7) or two B fragments, in one instruction
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !ok (nothing is read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d), "l"(src), "r"(ok ? 8 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;"); }
-// wait until at most `kPending` of this thread's latest copy groups are in flight
-template <int kPending>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
-}
 
 // The block's shared memory: the session tile, a ring of two item tiles,
 // the probability tile split into its TF32 halves, the di partial rows of
@@ -1217,6 +1133,121 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
     }
 }
 
+// Kernel 6's shared memory: the session tile, a ring of two item tiles and
+// the (max, sum of exp) of warp column 1 for the merge at the end. 131,072
+// bytes of tiles at D = 128.
+template <int D>
+struct LseSmem {
+  float s[tc::kBM * D];
+  float items[2][tc::kBN * D];
+  float m_half[tc::kBM];
+  float l_half[tc::kBM];
+};
+
+// Kernel 6 on the tensor-core tile (D in {32, 64, 128}): block (x, y) owns
+// the 128-row session tile x and item rows [y * chunk_rows, (y + 1) *
+// chunk_rows), walks the chunk's 64-row item tiles through a ring of two
+// by cp.async with product 1 (the logits, 3xTF32), and folds each tile
+// into a running (max, sum of exp) for the four rows its accumulator
+// fragments hold (columns past the chunk's end left out). At the end the
+// four threads of a row merge theirs by shuffles and the two warp columns
+// through shared memory; m_part and l_part are (gridDim.y, M), rows past M
+// never written.
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+    lse_partials_tc_kernel(const float* __restrict__ s, const float* __restrict__ items, float* __restrict__ m_part,
+                           float* __restrict__ l_part, long long M, long long N, long long chunk_rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  LseSmem<D>& sh = *reinterpret_cast<LseSmem<D>*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long long row0 = (long long)blockIdx.x * tc::kBM;
+  const long long n_begin = (long long)blockIdx.y * chunk_rows;
+  const long long n_end = n_begin + chunk_rows < N ? n_begin + chunk_rows : N;
+  const int n_tiles = (int)((n_end - n_begin + tc::kBN - 1) / tc::kBN);
+  // the fragment rows (mf, h) and columns of product 1 (tc::logits)
+  const int m_base = (warp >> 1) * 32, n_base = (warp & 1) * 32;
+
+  tc::load_tile<D, tc::kBM>(sh.s, s, row0, M);
+  tc::load_tile<D, tc::kBN>(sh.items[0], items, n_begin, n_end);
+  tc::cp_commit();
+  float m_run[2][2], l_run[2][2];
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_run[mf][h] = kNegBig;
+      l_run[mf][h] = 0.f;
+    }
+  int stage = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    const long long n0 = n_begin + (long long)j * tc::kBN;
+    tc::cp_wait<0>();
+    __syncthreads();  // item tile j (and the session tile) landed; every warp is done with the other stage
+    if (j + 1 < n_tiles) tc::load_tile<D, tc::kBN>(sh.items[stage ^ 1], items, n0 + tc::kBN, n_end);
+    tc::cp_commit();
+    float acc[2][4][4];
+    tc::logits<D>(sh.s, sh.items[stage], acc);
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = m_run[mf][h];
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (n0 + n_base + nf * 8 + 2 * t + e < n_end) mx = fmaxf(mx, acc[mf][nf][2 * h + e]);
+        float l = l_run[mf][h] * expf(m_run[mf][h] - mx);
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (n0 + n_base + nf * 8 + 2 * t + e < n_end) l += expf(acc[mf][nf][2 * h + e] - mx);
+        m_run[mf][h] = mx;
+        l_run[mf][h] = l;
+      }
+    stage ^= 1;
+  }
+  // merge: the four threads of a row (lanes 4g + t), then the two warp columns
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m = m_run[mf][h], l = l_run[mf][h];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float m_o = __shfl_xor_sync(0xffffffffu, m, off);
+        const float l_o = __shfl_xor_sync(0xffffffffu, l, off);
+        const float m_new = fmaxf(m, m_o);
+        l = l * expf(m - m_new) + l_o * expf(m_o - m_new);
+        m = m_new;
+      }
+      m_run[mf][h] = m;
+      l_run[mf][h] = l;
+      const int r = m_base + mf * 16 + g + 8 * h;
+      if ((warp & 1) && t == 0) {
+        sh.m_half[r] = m;
+        sh.l_half[r] = l;
+      }
+    }
+  __syncthreads();
+  if ((warp & 1) || t != 0) return;
+  float* __restrict__ m_mine = m_part + (long long)blockIdx.y * M;
+  float* __restrict__ l_mine = l_part + (long long)blockIdx.y * M;
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m_base + mf * 16 + g + 8 * h;
+      if (row0 + r >= M) continue;
+      const float m = m_run[mf][h], l = l_run[mf][h], m_o = sh.m_half[r], l_o = sh.l_half[r];
+      const float m_new = fmaxf(m, m_o);
+      m_mine[row0 + r] = m_new;
+      l_mine[row0 + r] = l * expf(m - m_new) + l_o * expf(m_o - m_new);
+    }
+}
+
 template <int D, bool kBias>
 int launch_lse(const float* s, const float* items, const float* bias, float* lse, long long M, long long N,
                cudaStream_t stream) {
@@ -1227,15 +1258,27 @@ int launch_lse(const float* s, const float* items, const float* bias, float* lse
   return (int)cudaGetLastError();
 }
 
+// Kernels 6 and 16 on (session tile, item chunk) blocks: kernel 6 on the
+// tensor-core tile for D in {32, 64, 128} (128-row session tiles), else, and
+// kernel 16 always, on the SIMT tile (64-row session tiles).
 template <int D, bool kShift>
 int launch_chunks(const float* s, const float* items, const float* shift, float* out_a, float* out_b, long long M,
                   long long N, long long chunk_rows, cudaStream_t stream) {
-  const int smem = 2 * 64 * (D + 1) * (int)sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(lse_chunk_kernel<D, kShift>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((N + chunk_rows - 1) / chunk_rows));
-  lse_chunk_kernel<D, kShift><<<grid, kThreads, smem, stream>>>(s, items, shift, out_a, out_b, M, N, chunk_rows);
+  if constexpr (!kShift && tensor_cores(D)) {
+    const int smem = (int)sizeof(LseSmem<D>);
+    cudaError_t err =
+        cudaFuncSetAttribute(lse_partials_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)((M + tc::kBM - 1) / tc::kBM), (unsigned)((N + chunk_rows - 1) / chunk_rows));
+    lse_partials_tc_kernel<D><<<grid, tc::kThreads, smem, stream>>>(s, items, out_a, out_b, M, N, chunk_rows);
+  } else {
+    const int smem = 2 * 64 * (D + 1) * (int)sizeof(float);
+    cudaError_t err =
+        cudaFuncSetAttribute(lse_chunk_kernel<D, kShift>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((N + chunk_rows - 1) / chunk_rows));
+    lse_chunk_kernel<D, kShift><<<grid, kThreads, smem, stream>>>(s, items, shift, out_a, out_b, M, N, chunk_rows);
+  }
   return (int)cudaGetLastError();
 }
 

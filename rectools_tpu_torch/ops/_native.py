@@ -53,6 +53,7 @@ LAUNCHES: tp.Dict[str, int] = {
     "grads_z_di": 0,
     "stu_fwd": 0,
     "stu_bwd": 0,
+    "stu_bwd_dq": 0,
     "stu_ds": 0,
 }
 

@@ -39,8 +39,9 @@ loss and its public ops take:
 The gradient kernels, fused (9, 12 and 7's one pass) and split (7's two
 launches, 10, 11, 13, 14), run their products on the tensor cores in 3xTF32
 (each f32 operand split into two TF32 halves, about f32 accuracy) for D in
-32..128, on SIMT f32 tiles for D = 16 and 256; the lse forwards are SIMT f32
-tiles (csrc/softmax_lse.cu says why).
+32..128, on SIMT f32 tiles for D = 16 and 256. So does kernel 6's logits
+product; the lse forwards 8, 15 and 16 are SIMT f32 tiles
+(csrc/softmax_lse.cu says why).
 
 CPU tensors take the twins, which walk the catalog in item chunks exactly as
 the kernels walk their tiles (per-chunk partials, a running max or fixed

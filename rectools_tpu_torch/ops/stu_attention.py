@@ -10,11 +10,13 @@ weights. As in the JAX package it is computed outside the kernels (here with
 torch ops, :func:`combined_bias`) and streamed in.
 
 Three kernels (``csrc/stu_attention.cu``): the forward (``stu_fwd_f32``), the
-backward giving dq, dk and dv (``stu_bwd_f32``), and the gradient of the score
-summed over heads (``stu_ds_f32``), from which the two tables get their
-gradients. A CUDA tensor launches them at every shape; a CPU tensor takes the
-plain twins (:func:`stu_reference`, :func:`stu_bwd_reference`,
-:func:`stu_ds_reference`). Nothing else decides. The kernels take the attention
+backward giving dq, dk and dv (``stu_bwd_f32``; at attention and hidden dims
+of 32 or 64 it runs on the tensor cores in two launches, dq's being
+``stu_bwd_dq_f32``), and the gradient of the score summed over heads
+(``stu_ds_f32``), from which the two tables get their gradients. A CUDA
+tensor launches them at every shape; a CPU tensor takes the plain twins
+(:func:`stu_reference`, :func:`stu_bwd_reference`, :func:`stu_ds_reference`).
+Nothing else decides. The kernels take the attention
 dim of q and k and the hidden dim of v from ``SUPPORTED_HEAD_DIMS``
 independently; others raise on CUDA.
 
@@ -62,11 +64,18 @@ _SIGNATURES = {
     "stu_fwd_f32": (_C,) * 7 + (_I,) * 5 + (_L,) * 12 + (_L, _L, _C),
     # q, k, v, dout, bias, allowed, timeline, dq, dk, dv; dims; strides of q, k, v, dout, dq, dk, dv
     "stu_bwd_f32": (_C,) * 10 + (_I,) * 5 + (_L,) * 21 + (_L, _L, _C),
+    # q, k, v, dout, bias, allowed, timeline, dq; dims; strides of q, k, v, dout, dq
+    "stu_bwd_dq_f32": (_C,) * 8 + (_I,) * 5 + (_L,) * 15 + (_L, _L, _C),
     # q, k, v, dout, bias, allowed, timeline, ds; dims; strides of q, k, v, dout; bias and allowed batch strides;
     # buckets, bucket partials, their entries and rows
     "stu_ds_f32": (_C,) * 8 + (_I,) * 5 + (_L,) * 12 + (_L, _L) + (_C, _C, _I, _L) + (_C,),
 }
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
+# The backward on the tensor cores: attention and hidden dims both from TC_HEAD_DIMS, two launches
+# (``stu_bwd_f32`` for dk and dv, ``stu_bwd_dq_f32`` for dq) whose blocks own BWD_TILE keys and BWD_TILE
+# queries of one (b, h); other dims take the SIMT kernel, one launch, one block per (b, h).
+TC_HEAD_DIMS = (32, 64)
+BWD_TILE = 64
 DS_TILE_KEYS, DS_TILE_QUERIES = 128, 32  # the (keys, queries) tile one block of ``stu_ds_f32`` owns
 INT32_MAX = 2**31 - 1
 
@@ -267,9 +276,18 @@ def stu_fwd(q, k, v, bias, allowed, timeline) -> torch.Tensor:
     return out
 
 
+def bwd_on_tensor_cores(ad: int, lh: int) -> bool:
+    """Whether the backward of attention dim ``ad`` and hidden dim ``lh`` runs
+    on the tensor cores (two launches) rather than the SIMT kernel (one)."""
+    return ad in TC_HEAD_DIMS and lh in TC_HEAD_DIMS
+
+
 def stu_bwd(q, k, v, bias, allowed, timeline, dout) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of :func:`stu_fwd` (kernel ``stu_bwd_f32``); on CUDA each
-    is a (B, H, L, d) view over (B, L, H, d) memory."""
+    """(dq, dk, dv) of :func:`stu_fwd`: on the tensor cores (see
+    :func:`bwd_on_tensor_cores`) kernel ``stu_bwd_f32`` for dk and dv, then
+    ``stu_bwd_dq_f32`` for dq (launch keys ``stu_bwd``, ``stu_bwd_dq``), else
+    ``stu_bwd_f32`` for all three. On CUDA each is a (B, H, L, d) view over
+    (B, L, H, d) memory."""
     if q.device.type == "cpu":
         return stu_bwd_reference(q, k, v, bias, allowed, timeline, dout)
     bias_sb, allowed_sb = _check("stu_bwd", q, k, v, bias, allowed, timeline, dout)
@@ -278,13 +296,20 @@ def stu_bwd(q, k, v, bias, allowed, timeline, dout) -> tp.Tuple[torch.Tensor, to
     dq, dk = (_blhd_empty(b, h, l, ad, q.device) for _ in range(2))
     dv = _blhd_empty(b, h, l, lh, q.device)
     lib = _native.load("stu_attention", _SIGNATURES)
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(), allowed.data_ptr(),
+                timeline.data_ptr())
+    stream = _native.current_stream_ptr(q.device)
     with torch.cuda.device(q.device):
         status = lib.stu_bwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(), allowed.data_ptr(),
-            timeline.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, l, ad, lh,
-            *_strides(q, k, v, dout, dq, dk, dv), bias_sb, allowed_sb, _native.current_stream_ptr(q.device),
+            *pointers, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, l, ad, lh,
+            *_strides(q, k, v, dout, dq, dk, dv), bias_sb, allowed_sb, stream,
         )
-    _native.check_launch("stu_bwd", status)
+        _native.check_launch("stu_bwd", status)
+        if bwd_on_tensor_cores(ad, lh):
+            status = lib.stu_bwd_dq_f32(
+                *pointers, dq.data_ptr(), b, h, l, ad, lh, *_strides(q, k, v, dout, dq), bias_sb, allowed_sb, stream
+            )
+            _native.check_launch("stu_bwd_dq", status)
     return dq, dk, dv
 
 

@@ -14,9 +14,13 @@ one edit:
   its two-integer-operation form (the same bits).
 - ``straight``: the 3xTF32 products accumulated straight onto the running
   fragment, no fresh fragment per 16 k.
-- ``simt``: the gradient kernels on the SIMT tile with its plans (64-row
-  session tiles; fused: two blocks per SM; split: ds over the whole catalog
-  in one block per session tile): the kernels before the tensor cores.
+- ``simt``: the gradient kernels (and kernel 6, not timed here) on the SIMT
+  tile with its plans (64-row session tiles; fused: two blocks per SM;
+  split: ds over the whole catalog in one block per session tile): the
+  kernels before the tensor cores.
+
+``cvt`` and ``straight`` edit ``csrc/tc_tile.cuh``, which kernel 18 shares;
+only ``softmax_lse`` is built and timed.
 
 The variants build at once (one ``nvcc`` each), then each is timed in a
 process of its own, in turns, twice: kernels 7 (one pass), 9 and 12, and
@@ -38,14 +42,15 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 M, N, D = 51200, 15872, 128
 CU = "rectools_tpu_torch/csrc/softmax_lse.cu"
+CUH = "rectools_tpu_torch/csrc/tc_tile.cuh"  # the tile's helpers, shared with csrc/stu_attention.cu
 PY = "rectools_tpu_torch/ops/softmax_lse.py"
 # name: [(file, text in it, replacement)]
 VARIANTS = {
     "tile": [],
-    "cvt": [(CU, "{ return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }",
+    "cvt": [(CUH, "{ return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }",
              '{\n  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));\n  return r;\n}')],
-    "straight": [(CU, "      float t[4] = {0.f, 0.f, 0.f, 0.f};\n", "      float* t = c[mf][nf];\n"),
-                 (CU, "#pragma unroll\n      for (int e = 0; e < 4; ++e) c[mf][nf][e] += t[e];\n", "")],
+    "straight": [(CUH, "  float t[4] = {0.f, 0.f, 0.f, 0.f};\n", "  float* t = c;\n"),
+                 (CUH, "#pragma unroll\n  for (int e = 0; e < 4; ++e) c[e] += t[e];\n", "")],
     "simt": [(CU, "constexpr bool tensor_cores(int d) { return d >= 32 && d <= 128; }",
               "constexpr bool tensor_cores(int d) { return false; }"),
              (PY, "{d: (128, 1, 4) if 32 <= d <= 128 else (TILE, 2, 1) for d in SUPPORTED_D}",

@@ -101,6 +101,42 @@ def test_fused_bwd_tile_rows_match_the_cuda_source() -> None:
         d: rows[d] == simt_rows for d in softmax_lse.SUPPORTED_D}
 
 
+def test_lse_partials_tile_matches_the_cuda_source() -> None:
+    """Kernel 6 takes the tensor-core kernel (128-row session tiles of
+    ``namespace tc``) for exactly the D of the gradient kernels' tensor-core
+    rule and the SIMT kernel otherwise; kernel 16 stays on the SIMT tile. Both
+    tiles walk the same ``LSE_CHUNK``-row item chunks, whole 64-row item
+    tiles, so the twin's chunks are the card's: 8 at the training shape, whose
+    400 x 8 = 3,200 blocks of one per multiprocessor fill the last wave to 97%
+    (one chunk per session tile would leave 4 blocks alone in a fourth)."""
+    src = (REPO / "rectools_tpu_torch" / "csrc" / "softmax_lse.cu").read_text()
+    assert "if constexpr (!kShift && tensor_cores(D)) {" in src
+    assert "lse_partials_tc_kernel<D><<<grid, tc::kThreads, smem, stream>>>" in src
+    grid = "const dim3 grid((unsigned)((M + tc::kBM - 1) / tc::kBM), (unsigned)((N + chunk_rows - 1) / chunk_rows));"
+    assert grid in src
+    tile = re.search(r"namespace tc \{\s*constexpr int kBM = (\d+);[^\n]*\n\s*constexpr int kBN = (\d+);", src)
+    tc_rows, item_rows = int(tile.group(1)), int(tile.group(2))
+    assert item_rows == softmax_lse.TILE and softmax_lse.LSE_CHUNK % item_rows == 0
+    assert {d for d in softmax_lse.SUPPORTED_D if softmax_lse._BWD_TILE[d][0] == tc_rows} == {32, 64, 128}
+    blocks = -(-51200 // tc_rows) * -(-15872 // softmax_lse.LSE_CHUNK)
+    assert blocks == 3200 and blocks / (-(-blocks // 132) * 132) > 0.96
+
+
+def test_stu_bwd_tile_matches_the_cuda_source() -> None:
+    """The wrapper launches the backward's second kernel (dq) exactly for the
+    head dims the ``.cu`` puts on the tensor cores, whose blocks own
+    ``BWD_TILE`` keys and ``BWD_TILE`` queries."""
+    src = (REPO / "rectools_tpu_torch" / "csrc" / "stu_attention.cu").read_text()
+    rule = "{ return (ad == 32 || ad == 64) && (lh == 32 || lh == 64); }"
+    assert f"constexpr bool stu_tensor_cores(int ad, int lh) {rule}" in src and stu_attention.TC_HEAD_DIMS == (32, 64)
+    assert src.count("if constexpr (stu_tensor_cores(AD, LH))") == 2  # the dk/dv and the dq launch
+    for name in ("kTcKeys", "kTcQueries"):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == stu_attention.BWD_TILE
+    dims = stu_attention.SUPPORTED_HEAD_DIMS
+    assert {(a, l) for a in dims for l in dims if stu_attention.bwd_on_tensor_cores(a, l)} == {
+        (a, l) for a in (32, 64) for l in (32, 64)}
+
+
 @pytest.mark.parametrize("name", sorted(fused_bwd_variants.VARIANTS))
 def test_fused_bwd_variants_still_apply(name: str) -> None:
     """Each variant that tools/fused_bwd_variants.py times on the card finds
@@ -335,6 +371,26 @@ def test_cuda_attention_dropout_bits_match_twin(cuda: torch.device) -> None:
     kept = (out[..., :l] > 0).cpu()
     expected = attention.dropout_keep_mask(seed, b, h, l, rate).bool()
     assert torch.equal(kept, expected)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,d", [(300, 2177, 16), (257, 2177, 32), (300, 4100, 64), (130, 20033, 128),
+                                   (129, 4100, 256), (51200, 15835, 128)])
+def test_cuda_lse_partials_matches_twin(cuda: torch.device, m: int, n: int, d: int) -> None:
+    """Kernel 6 (tensor-core tile at D = 32..128, SIMT at 16 and 256) at
+    ragged session and item counts, and at the training width on the odd
+    catalog, against its twin in the card's chunks: 1e-5 relative per row,
+    one launch, the same bits on a rerun."""
+    rng = np.random.default_rng(m + n + d)
+    s = _t((0.3 * rng.normal(size=(m, d))).astype(np.float32)).to(cuda)
+    items = _t((0.3 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+    before = _native.LAUNCHES["lse_partials_fwd"]
+    lse = softmax_lse.streaming_lse(s, items)
+    assert _native.LAUNCHES["lse_partials_fwd"] == before + 1
+    ref = softmax_lse.streaming_lse_partials_reference(s, items)
+    assert torch.isfinite(lse).all()
+    assert ((lse - ref).abs() / ref.abs()).max().item() <= 1e-5
+    assert torch.equal(softmax_lse.streaming_lse(s, items), lse)
 
 
 @pytest.mark.gpu
@@ -629,7 +685,8 @@ def _stu_inputs(b: int, h: int, l: int, ad: int, lh: int, dev: torch.device, per
 @pytest.mark.parametrize(
     "b,h,l,ad,lh,per_row_allowed",
     [(3, 4, 100, 32, 32, False), (2, 2, 80, 16, 16, False), (2, 2, 96, 16, 16, True), (3, 2, 7, 8, 64, False),
-     (2, 2, 130, 64, 8, True), (2, 4, 1024, 32, 32, False)],
+     (2, 2, 130, 64, 8, True), (2, 4, 1024, 32, 32, False), (2, 2, 80, 32, 32, False), (2, 2, 96, 32, 32, True),
+     (2, 2, 96, 64, 64, True), (3, 2, 7, 32, 64, False), (2, 2, 130, 64, 32, True), (2, 2, 100, 8, 8, False)],
 )
 def test_cuda_stu_kernels_match_twins(
     cuda: torch.device, b: int, h: int, l: int, ad: int, lh: int, per_row_allowed: bool
@@ -637,15 +694,18 @@ def test_cuda_stu_kernels_match_twins(
     """Forward 1e-5 absolute, gradients 1e-4 absolute against the twins on the
     card (sums over up to 1,024 keys or queries and 4 heads in another order);
     at L = 1,024 the scores reach tens, so the tolerances there scale with the
-    twin's largest entry. dq, dk, dv, ds and its sums by bucket come out
-    bit-equal on a second run."""
+    twin's largest entry. The backward runs on the tensor cores in two
+    launches (``stu_bwd``, ``stu_bwd_dq``) at head dims of 32 and 64, on the
+    SIMT kernel in one at 8 and 16. dq, dk, dv, ds and its sums by bucket come
+    out bit-equal on a second run."""
     q, k, v, dout, bias, allowed, timeline, buckets = _stu_inputs(b, h, l, ad, lh, cuda, per_row_allowed)
     args = (q, k, v, bias, allowed, timeline)
     before = dict(_native.LAUNCHES)
     out = stu_attention.stu_fwd(*args)
     got = stu_attention.stu_bwd(*args, dout)
     ds, sums = stu_attention.stu_ds(*args, dout, buckets, 129)
-    assert [_native.LAUNCHES[n] - before[n] for n in ("stu_fwd", "stu_bwd", "stu_ds")] == [1, 1, 1]
+    assert [_native.LAUNCHES[n] - before[n] for n in ("stu_fwd", "stu_bwd", "stu_bwd_dq", "stu_ds")] == [
+        1, 1, int(stu_attention.bwd_on_tensor_cores(ad, lh)), 1]
     assert out.transpose(1, 2).is_contiguous() and all(g.transpose(1, 2).is_contiguous() for g in got)
     ref_out = stu_attention.stu_reference(*args)
     scale = max(1.0, ref_out.abs().max().item())
@@ -685,7 +745,7 @@ def test_cuda_stu_attention_autograd_matches_cpu(cuda: torch.device) -> None:
 
     _native.reset_launches()
     got, again, expected = run(cuda), run(cuda), run("cpu")
-    assert [_native.LAUNCHES[n] for n in ("stu_fwd", "stu_bwd", "stu_ds")] == [2, 2, 2]
+    assert [_native.LAUNCHES[n] for n in ("stu_fwd", "stu_bwd", "stu_bwd_dq", "stu_ds")] == [2, 2, 2, 2]
     torch.testing.assert_close(got[0], expected[0], atol=1e-5, rtol=0)
     for g, e in zip(got[1:], expected[1:]):
         torch.testing.assert_close(g, e, atol=1e-4, rtol=0)
@@ -738,7 +798,8 @@ def test_cuda_hstu_fit_and_recommend_match_cpu(cuda: torch.device, key_padding: 
         model.training_module.fit(model.data_preparator.get_dataloader_train,
                                   model.data_preparator.get_dataloader_val, 1)
         model.is_fitted = True
-    assert [_native.LAUNCHES[n] for n in ("stu_fwd", "stu_bwd", "stu_ds")] == [6, 6, 6]
+    # heads of 16: the SIMT backward, one launch, no dq launch of its own
+    assert [_native.LAUNCHES[n] for n in ("stu_fwd", "stu_bwd", "stu_bwd_dq", "stu_ds")] == [6, 6, 0, 6]
     assert _native.LAUNCHES["layer_norm_bwd"] == 12 and _native.LAUNCHES["attention_fwd"] == 0
     np.testing.assert_allclose(models["cuda"].training_module.train_loss_history,
                                models["cpu"].training_module.train_loss_history, rtol=1e-4)

@@ -233,6 +233,29 @@ def test_lse_partials_combine_is_the_jax_formula() -> None:
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("m,n,d", [(40, 4300, 32), (33, 4200, 64), (20, 4500, 128), (17, 4300, 16)])
+def test_lse_partials_twin_in_the_cards_chunks_matches_jax(m: int, n: int, d: int) -> None:
+    """Kernel 6's twin walks the catalog in the card's chunks (``LSE_CHUNK``
+    rows, on the tensor-core tile and on the SIMT tile alike: three chunks, a
+    ragged last one, at these shapes), and so does the CPU ``streaming_lse``;
+    both hold against the JAX forward ``_streaming_lse_fwd`` with per-chunk
+    partials in interpret mode at ragged M and N, 1e-5 relative per row."""
+    _, s, items = _lse_inputs(m, n, d, seed=m + n + d)
+    assert -(-n // softmax_lse.LSE_CHUNK) == 3
+    lse, _ = jax_softmax_lse._streaming_lse_fwd(jnp.asarray(s), jnp.asarray(items), None, 16, 64, True, False)
+    expected = np.asarray(lse)
+    twin = softmax_lse.streaming_lse_partials_reference(_t(s), _t(items))
+    m_parts, l_parts = [], []
+    for start in range(0, n, softmax_lse.LSE_CHUNK):  # the chunks, written out
+        logits = _t(s) @ _t(items[start : start + softmax_lse.LSE_CHUNK]).T
+        m_parts.append(logits.max(dim=1).values)
+        l_parts.append(torch.exp(logits - m_parts[-1][:, None]).sum(dim=1))
+    chunked = softmax_lse.combine_lse_partials(torch.stack(m_parts), torch.stack(l_parts))
+    torch.testing.assert_close(twin, chunked, rtol=0, atol=0)
+    torch.testing.assert_close(softmax_lse.streaming_lse(_t(s), _t(items)), twin, rtol=0, atol=0)
+    np.testing.assert_allclose(twin.numpy(), expected, rtol=1e-5)
+
+
 def _z_case(m: int, n: int, seed: int):
     rng, s, items = _lse_inputs(m, n, 32, seed=seed)
     coeff = rng.uniform(0.0, 0.05, size=m).astype(np.float32)

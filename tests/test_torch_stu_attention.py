@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from rectools_tpu.ops.stu_attention import _bucket, _stu_reference, _toeplitz_bias
+from rectools_tpu.ops.stu_attention import _bucket, _stu_pallas_bwd, _stu_reference, _toeplitz_bias
 from rectools_tpu.ops.stu_attention import stu_attention as jax_stu_attention
 from rectools_tpu_torch.ops import stu_attention
 
@@ -95,6 +95,26 @@ def test_gradients_match_jax(use_time: bool, use_pos: bool, l: int, block_q: int
         assert not got[3][len(stu_attention.bucket_thresholds()) + 1 :].any()  # buckets no int32 difference reaches
     if use_pos:
         assert got[4].abs().max() > 0
+
+
+@pytest.mark.parametrize("l,ad,lh,block_q", [(80, 32, 32, 32), (96, 64, 32, 32), (100, 16, 16, 64), (7, 32, 64, 8)])
+def test_backward_twin_matches_jax_pallas_bwd(l: int, ad: int, lh: int, block_q: int) -> None:
+    """The backward kernel's twin (dq, dk, dv), which the card's two launches
+    are held to (dk and dv per key tile, dq per query tile, no partials),
+    against the JAX backward kernel ``_stu_pallas_bwd`` in interpret mode, time
+    and position bias on, at ragged lengths and at both routes' head dims:
+    1e-4 absolute, as the module states."""
+    q, k, v, ts, tl, tw, pw, allowed = _inputs(l=l, ad=ad, lh=lh, seed=l + ad)
+    d_out = np.random.default_rng(l).normal(size=v.shape).astype(np.float32)
+    jax_bwd = jax.jit(lambda *a: _stu_pallas_bwd(*a, NB, True, True, block_q, True)[:3])
+    expected = jax_bwd(*(jnp.asarray(a) for a in (q, k, v, ts, tl, tw, pw, allowed, d_out)))
+    bias = stu_attention.combined_bias(stu_attention.time_buckets(_t(ts), l, NB), _t(tw), _t(pw), l,
+                                       torch.device("cpu"))
+    got = stu_attention.stu_bwd(_t(q), _t(k), _t(v), bias, _t(allowed), _t(tl), _t(d_out))
+    assert stu_attention.bwd_on_tensor_cores(ad, lh) == (ad >= 32 and lh >= 32)
+    for name, g, e in zip(("dq", "dk", "dv"), got, expected):
+        assert np.abs(np.asarray(e)).max() > 0
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=1e-4, rtol=0, err_msg=name)
 
 
 def test_second_precision_timestamps() -> None:
