@@ -68,16 +68,20 @@ own lines; any failure exits nonzero and prints no result:
              materialized einsum-SiLU-einsum and its autograd (the yardstick)
              and the bound; the backward (two tensor-core launches, dk/dv and
              dq, at heads of 32) with the share of its warps' units the masks
-             let it skip; dq, dk, dv, ds and the sums of ds by time bucket
-             bit-equal on a second run. The forward also at the serving batch
-             (B = 4,096, left-padded sessions of the frame's lengths).
+             let it skip; the score gradient (one tensor-core launch at heads
+             of 32) timed with and without its bucket sums; dq, dk, dv, ds
+             and the sums of ds by time bucket bit-equal on a second run. The
+             forward also at the serving batch (B = 4,096, left-padded
+             sessions of the frame's lengths).
              ``hstu main``: random flax-layout weights -> HSTUModel.recommend
              with a context of one later timestamp per user, all 8,192 users;
              launch counts, k unseen items, agreement with the CPU run on 64
              users, the card's time buckets equal to the CPU's. ``hstu train``
              and ``hstu agree``: phases 5 and 6 for HSTUModel.
 8. mesh    — training on a (data, model) process mesh. ``mesh kernels``: the
-             biased streaming lse (kernel 8) and its generic VJP, fused
+             biased streaming lse (kernel 8: kernel 6's tensor-core tile
+             with the bias, a plain-TF32 control that must fail its limit,
+             and kernel 6's bits at a zero bias) and its generic VJP, fused
              (kernel 9) and split (kernels 10 + 11), against their twins at
              the shape a (1, 1) mesh gives them (51,200 x 15,872, zero bias),
              at a (2, 2) mesh's shard (25,600 x 7,936) and at the last shard of
@@ -135,9 +139,9 @@ PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores, data shee
 PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores, data sheet
 # the kernels on the SIMT tile, before they moved to the tensor cores (PERF.md §6, NVIDIA H100 80GB HBM3 at
 # 700 W): kernels 7, 9 and 12 (kernel 7 then its two launches), the split kernels (7's two launches, 10, 11, 13,
-# 14), and kernels 6 and 18 (kernel 6 at 65,536 and 131,072 items: its device time in a one-step profile of those
-# fits), by the entry of `kernels` that holds this run's time; printed beside this run's times on `redesigned:`
-# lines, never in the JSON line
+# 14), kernels 6 and 18 (kernel 6 at 65,536 and 131,072 items: its device time in a one-step profile of those
+# fits), and kernels 8 (at the three mesh shapes) and 19 (with the bucket sums), by the entry of `kernels` that
+# holds this run's time; printed beside this run's times on `redesigned:` lines, never in the JSON line
 SIMT_TILE_MS = {
     "ce_grads": 33.2298, "lse_bwd_fused": 24.6118, "grads_z_fused": 24.3758, "ce_grads_pair": 33.4354,
     "lse_bwd_ds": 17.7596, "lse_bwd_di": 16.1084, "lse_bwd_ds_shard_2x2": 5.0311, "lse_bwd_di_shard_2x2": 5.1938,
@@ -145,6 +149,8 @@ SIMT_TILE_MS = {
     "grads_z_di": 16.0467, "grads_z_ds_large_catalog": 146.99, "grads_z_di_large_catalog": 126.41,
     "lse_partials_fwd": 8.3204, "lse_partials_fwd_mid_catalog": 32.92, "lse_partials_fwd_large_catalog": 66.26,
     "stu_bwd": 0.8185, "stu_bwd_long_ctx": 10.7321,
+    "lse_bias_fwd": 9.6292, "lse_bias_fwd_shard_2x2": 2.9302, "lse_bias_fwd_ragged_shard": 1.4812,
+    "stu_ds": 0.8109, "stu_ds_long_ctx": 6.8854,
 }
 LN_TOL = 1e-5
 ATTN_TOL = 1e-5
@@ -155,8 +161,8 @@ LR = 1e-3
 EPOCHS = 2
 LN_BWD_TOL = 1e-5  # dx absolute; dgamma and dbeta relative to their largest entry (sums over 51,200 rows)
 LSE_RTOL = 1e-5  # relative, per row: one column of 15,872 left out moves an lse of about 10 by 6e-6 relative
-# kernel 6 on the tensor cores (3xTF32), relative per row from its twin in the same chunks: below it, and plain
-# TF32 products (its control) above it
+# kernels 6 and 8 on the tensor cores (3xTF32), relative per row from their twins in the same chunks: below it,
+# and plain TF32 products (their control) above it
 LSE_TC_RTOL = 1e-6
 CE_RTOL = 1e-4  # relative to the largest entry of ds and of di
 # the same for the gradient kernels on the tensor-core tile, fused (7's one pass, 9, 12) and split (7's two
@@ -863,7 +869,8 @@ def stu_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
             sums = torch.zeros(NUM_BUCKETS + 1, device=dev)
             return dbias, sums.index_add_(0, buckets.reshape(-1), dbias.reshape(-1))
 
-        n_partials = bb * math.ceil(l / stu_attention.DS_TILE_KEYS) * math.ceil(l / stu_attention.DS_TILE_QUERIES)
+        tile_keys, tile_queries = stu_attention.ds_tile(d, d)
+        n_partials = bb * math.ceil(l / tile_keys) * math.ceil(l / tile_queries)
         # heads of 32: the backward's products run in 3xTF32 on the tensor cores
         results[f"stu_bwd{tag}"] = dict(
             max_abs_err=errs["stu_bwd"],
@@ -879,9 +886,10 @@ def stu_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
             plain_ms=time_ms(lambda: stu_attention.stu_ds_reference(*args, dout, buckets, NUM_BUCKETS + 1),
                              iters=iters),
             library_ms=time_ms(library_ds, iters=iters),
-            # reads the buckets too; writes ds, the per-block partials and their sum
-            bound=bound_ms(qkv_bytes + mask_bytes + 2 * bias.numel() * 4 + (n_partials + 1) * (NUM_BUCKETS + 1) * 4,
-                           2 * n_pairs * 2 * d + bias.numel()),
+            # reads the buckets too; writes ds, the per-block partials and their sum; s and da in 3xTF32 at heads
+            # of 32
+            **tc_bounds(qkv_bytes + mask_bytes + 2 * bias.numel() * 4 + (n_partials + 1) * (NUM_BUCKETS + 1) * 4,
+                        2 * n_pairs * 2 * d + bias.numel()),
         )
         ds_alone_ms = time_ms(lambda: stu_attention.stu_ds(*args, dout), iters=iters)
         print(f"stu kernels: at B={bb}, L={l}: {n_pairs:.0f} unmasked (head, query, key) pairs of {bb * h * l * l}; "
@@ -927,13 +935,21 @@ def mesh_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         lse = softmax_lse.streaming_lse_fwd(s, items, bias)
         ref = softmax_lse.streaming_lse_bias_reference(s, items, bias)
         rel = ((lse - ref).abs() / ref.abs()).max().item()
-        check(bool(torch.isfinite(lse).all()) and rel <= LSE_RTOL,
-              f"biased lse {what} disagrees with its twin: max relative err {rel}")
-        if not n_invalid:  # kernel 8 is kernel 15 with a bias column
-            softmax_lse.USE_PARTIALS_FWD = False
+        # the control: the same lse from plain TF32 products, in the card's chunks
+        plain_tf32 = softmax_lse.streaming_lse_bias_reference(tf32(torch, s), tf32(torch, items), bias)
+        rel_plain = ((plain_tf32 - ref).abs() / ref.abs()).max().item()
+        check(bool(torch.isfinite(lse).all()) and rel <= LSE_TC_RTOL < rel_plain,
+              f"biased lse {what}: {rel} relative from its twin and its plain-TF32 control {rel_plain}: not on "
+              f"either side of {LSE_TC_RTOL}")
+        check(bool(torch.equal(lse, softmax_lse.streaming_lse_fwd(s, items, bias))),
+              f"biased lse {what}: a second run gave other bits")
+        if not n_invalid:  # kernel 8 is kernel 6 with a bias column
             check(bool(torch.equal(lse, softmax_lse.streaming_lse_fwd(s, items))),
-                  f"biased lse {what}: a zero bias changed the bits of the unbiased kernel 15")
-            softmax_lse.USE_PARTIALS_FWD = True
+                  f"biased lse {what}: a zero bias changed the bits of the unbiased kernel 6")
+        print(f"mesh kernels: biased lse {what} (3xTF32, {-(-rows // softmax_lse.LSE_CHUNK)} item chunks): {rel:.3g} "
+              f"relative per row from its twin, plain TF32 products {rel_plain:.3g} (limit {LSE_TC_RTOL}), "
+              f"bit-equal on a rerun{'' if n_invalid else ' and to kernel 6'}")
+        del plain_tf32
 
         def library_lse(s_=s, items_=items):
             return torch.logsumexp(s_ @ items_.T + bias, dim=1)
@@ -945,7 +961,7 @@ def mesh_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
             ms=time_ms(lambda: softmax_lse.streaming_lse_fwd(s, items, bias), iters=iters),
             plain_ms=time_ms(lambda: softmax_lse.streaming_lse_bias_reference(s, items, bias), iters=3),
             library_ms=time_ms(library_lse, iters=3),
-            bound=bound_ms((m * d + rows * d + rows + m) * 4, products),
+            **tc_bounds((m * d + rows * d + rows + m) * 4, products),  # 3xTF32 products at d = 128
         )
 
         refs, got = {}, {}

@@ -11,10 +11,12 @@
 // - :50 `_lse_shift_kernel` (`lse_shift_f32`, kernel 16, `bounded_shift`):
 //   l = sum exp(logit - shift) and l2 = sum exp(logit - shift + 64) per (item
 //   chunk, session tile) with the caller's per-row shift, no max.
-// - :99 `_lse_fwd_kernel` (`lse_bias_f32`, kernel 8): kernel 15 with a bias
-//   per item column (0, or -1e30 for the rows that only pad a mesh shard);
-//   the running max starts at -1e30, so an all-invalid slice gives -1e30 +
-//   log(count), never NaN.
+// - :99 `_lse_fwd_kernel` (`lse_bias_f32`, kernel 8): kernel 6 with a bias
+//   per item column (0, or -1e30 for the rows that only pad a mesh shard),
+//   added to each logit before the chunk's running (max, sum of exp); the
+//   same (n_chunks, M) partials, which the caller combines. Each chunk's max
+//   starts at -1e30, so an all-invalid slice gives -1e30 + log(count), never
+//   NaN; a zero bias gives kernel 6's bits.
 // - :643 `_ce_grads_z_fused_kernel` (kernel 7): with P = exp(s items^T - z)
 //   and D = coeff * onehot(y), ds = (P - D) items and di = (P - D)^T s, in one
 //   pass (`ce_fused_f32`) or in two launches that each recompute the logits
@@ -137,36 +139,41 @@
 //   twice), which keeps kernel 7's two launches behind one autograd pass of
 //   the materialized logits.
 //
-// Kernel 6 on the same tile (`lse_partials_tc_kernel`, D in {32, 64, 128}):
-// product 1 alone, 208 GFLOP at the training shape, 1.26 ms in 3xTF32 (3.11
-// FP32). Block (x, y) owns the 128-row session tile x and the item chunk y of
+// Kernels 6 and 8 on the same tile (`lse_partials_tc_kernel`, D in {32, 64,
+// 128}; kernel 8 passes its bias, kernel 6 none): product 1 alone, 208 GFLOP
+// at the training shape, 1.26 ms in 3xTF32 (3.11 FP32). Block (x, y) owns
+// the 128-row session tile x and the item chunk y of
 // `chunk_rows` (2,048, as the SIMT kernel's) rows and walks the chunk's item
 // tiles through a `cp.async` ring of two; one block of 8 warps per SM
 // (131,072 bytes of tiles at D = 128): 8 chunks at the training shape, 3,200
-// blocks, the last wave 97% full. Each thread folds the four rows of its
-// accumulator fragments
+// blocks, the last wave 97% full. The bias of each item tile comes with it
+// in the same ring, and each thread reads the bias of its eight columns
+// once a tile.
+// Each thread folds the four rows of its accumulator fragments
 // into running (max, sum of exp) pairs, 36 `expf` an item tile; the four
 // threads of a row merge theirs by shuffles, the two warp columns through
-// shared memory, once per block. Registers (ptxas -v) 173 / 153 / 143 at D =
-// 128 / 64 / 32, no spills. It ran 4.84-4.90 ms at the training shape (NVIDIA
-// H100 80GB HBM3, 700 W; PERF.md section 6), 26% of the 3xTF32 rate: bound,
-// as the gradient kernels, by issue slots and latency at 8 warps per SM (the
-// operand splits, the exps). Its error from the f32 twin in the same chunks
-// is ~1e-7 per row; plain TF32 products gave 1.6-1.8e-5.
+// shared memory, once per block. Registers (ptxas -v) 174 / 154 / 144 at D =
+// 128 / 64 / 32, no spills. Kernel 6 ran 4.80-4.90 ms at the training shape
+// and kernel 8 4.74-4.89 (1.36-1.39 on a (2, 2) mesh's shard, 0.80 on the
+// ragged one; NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), 26% of the
+// 3xTF32 rate: bound, as the gradient kernels, by issue slots and latency at
+// 8 warps per SM (the operand splits, the exps). Their error from the f32
+// twin in the same chunks is ~1e-7 per row; plain TF32 products gave
+// 1.6-2.1e-5.
 //
-// The SIMT tile: everything else (kernels 8, 15 and 16; kernel 6 and the
+// The SIMT tile: everything else (kernels 15 and 16; kernels 6 and 8 and the
 // gradient kernels, fused and split, at D = 16 and 256). 256 threads in a 16 x
 // 16 grid; a block holds a 64-row session tile and a 64-row item tile whole
 // in shared memory (rows padded to D + 1 floats so the per-thread row reads
 // are conflict-free) and forms their 64 x 64 logits, each thread a 4 x 4
 // micro-tile (rows ty + 16a, columns tx + 16b) with f32 FMA. At 21-25
 // TFLOP/s it runs at a third of the FP32 peak.
-// - lse_f32 / lse_bias_f32: a block owns a session tile and streams every
-//   item tile with a running (max, sum of exp) per row; the 16 threads of a
-//   row merge theirs by shuffles. 800 blocks, 3 or 2 resident per SM.
-// - lse_partials_f32 / lse_shift_f32: a block owns (session tile, item
-//   chunk of 2,048 rows); blockIdx.x runs over the session tiles, so the
-//   blocks in flight share a chunk in L2; 6,400 blocks, 16.2 waves.
+// - lse_f32: a block owns a session tile and streams every item tile with a
+//   running (max, sum of exp) per row; the 16 threads of a row merge theirs
+//   by shuffles. 800 blocks, 3 or 2 resident per SM.
+// - lse_partials_f32 / lse_bias_f32 / lse_shift_f32: a block owns (session
+//   tile, item chunk of 2,048 rows); blockIdx.x runs over the session tiles,
+//   so the blocks in flight share a chunk in L2; 6,400 blocks, 16.2 waves.
 // - The split gradient kernels at D = 16 and 256: `grad_ds_kernel` owns a
 //   session tile and streams every item tile (ds in registers, one chunk),
 //   `grad_di_kernel` owns an item tile and streams every session tile (di in
@@ -264,16 +271,13 @@ __device__ __forceinline__ void running_merge(float& m, float& l) {
   }
 }
 
-// kBias: add bias[n] to every logit column (lse_bias_f32); the bias tile sits
-// behind the item tile in shared memory
-template <int D, bool kBias>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    lse_kernel(const float* __restrict__ s, const float* __restrict__ items, const float* __restrict__ bias,
-               float* __restrict__ lse, long long M, long long N) {
+    lse_kernel(const float* __restrict__ s, const float* __restrict__ items, float* __restrict__ lse, long long M,
+               long long N) {
   extern __shared__ float smem[];
   float* s_tile = smem;
   float* i_tile = smem + kBM * (D + 1);
-  float* bs = i_tile + kBN * (D + 1);
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const long long row0 = (long long)blockIdx.x * kBM;
@@ -288,16 +292,9 @@ __global__ void __launch_bounds__(kThreads)
   for (long long n0 = 0; n0 < N; n0 += kBN) {
     __syncthreads();  // the previous item tile is consumed (and s_tile loaded)
     load_tile<D>(i_tile, items, n0, N);
-    if (kBias && threadIdx.x < kBN) bs[threadIdx.x] = n0 + threadIdx.x < N ? bias[n0 + threadIdx.x] : 0.f;
     __syncthreads();
     float acc[4][4];
     tile_logits<D>(s_tile, i_tile, ty, tx, acc);
-    if (kBias) {
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] += bs[tx + 16 * b];
-    }
     running_update(acc, m_run, l_run, n0, N, tx);
   }
 #pragma unroll
@@ -312,16 +309,19 @@ __global__ void __launch_bounds__(kThreads)
 // Block (x, y) owns session tile x and item rows [y * chunk_rows, (y + 1) *
 // chunk_rows) and writes one partial per row of its tile: out_a and out_b are
 // (gridDim.y, M). kShift (kernel 16): out_a = sum exp(logit - shift[m]),
-// out_b = sum exp(logit - shift[m] + 64). Otherwise (kernel 6): out_a = the
-// chunk's max logit, out_b = sum exp(logit - max).
+// out_b = sum exp(logit - shift[m] + 64). Otherwise (kernel 6, and kernel 8
+// with `bias`, added to each logit column; the bias tile sits behind the
+// item tile in shared memory): out_a = the chunk's max logit, out_b = sum
+// exp(logit - max).
 template <int D, bool kShift>
 __global__ void __launch_bounds__(kThreads)
     lse_chunk_kernel(const float* __restrict__ s, const float* __restrict__ items, const float* __restrict__ shift,
-                     float* __restrict__ out_a, float* __restrict__ out_b, long long M, long long N,
-                     long long chunk_rows) {
+                     const float* __restrict__ bias, float* __restrict__ out_a, float* __restrict__ out_b,
+                     long long M, long long N, long long chunk_rows) {
   extern __shared__ float smem[];
   float* s_tile = smem;
   float* i_tile = smem + kBM * (D + 1);
+  float* bs = i_tile + kBN * (D + 1);
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const long long row0 = (long long)blockIdx.x * kBM;
@@ -340,9 +340,16 @@ __global__ void __launch_bounds__(kThreads)
   for (long long n0 = n_begin; n0 < n_end; n0 += kBN) {
     __syncthreads();  // the previous item tile is consumed (and s_tile loaded)
     load_tile<D>(i_tile, items, n0, n_end);
+    if (bias != nullptr && threadIdx.x < kBN) bs[threadIdx.x] = n0 + threadIdx.x < n_end ? bias[n0 + threadIdx.x] : 0.f;
     __syncthreads();
     float acc[4][4];
     tile_logits<D>(s_tile, i_tile, ty, tx, acc);
+    if (bias != nullptr) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] += bs[tx + 16 * b];
+    }
     if (kShift) {
 #pragma unroll
       for (int a = 0; a < 4; ++a)
@@ -744,15 +751,20 @@ __device__ __forceinline__ void load_tile(float* tile, const float* __restrict__
   }
 }
 
-// an item tile and, for kLse, its bias (0 past n_end) by cp.async
+// the bias of item rows [n0, n0 + kBN) by cp.async, 0 past n_end
+__device__ __forceinline__ void load_bias(float* bs, const float* __restrict__ bias, long long n0, long long n_end) {
+  if (threadIdx.x < kBN) {
+    const bool ok = n0 + threadIdx.x < n_end;
+    cp_async4(&bs[threadIdx.x], ok ? bias + n0 + threadIdx.x : bias, ok);
+  }
+}
+
+// an item tile and, for kLse, its bias by cp.async
 template <int D, int F>
 __device__ __forceinline__ void load_items(float* tile, float* bs, const float* __restrict__ items,
                                            const GradRows& in, long long n0, long long n_end) {
   load_tile<D, kBN>(tile, items, n0, n_end);
-  if (F == kLse && threadIdx.x < kBN) {
-    const bool ok = n0 + threadIdx.x < n_end;
-    cp_async4(&bs[threadIdx.x], ok ? in.bias + n0 + threadIdx.x : in.bias, ok);
-  }
+  if (F == kLse) load_bias(bs, in.bias, n0, n_end);
 }
 
 // Product 1, the logits of the tile pair: 128 x 64 over D. Warp w owns rows
@@ -1133,30 +1145,33 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
     }
 }
 
-// Kernel 6's shared memory: the session tile, a ring of two item tiles and
-// the (max, sum of exp) of warp column 1 for the merge at the end. 131,072
-// bytes of tiles at D = 128.
+// Kernel 6's and 8's shared memory: the session tile, a ring of two item
+// tiles with their bias (kernel 8) and the (max, sum of exp) of warp column 1
+// for the merge at the end. 131,072 bytes of tiles at D = 128.
 template <int D>
 struct LseSmem {
   float s[tc::kBM * D];
   float items[2][tc::kBN * D];
+  float bs[2][tc::kBN];
   float m_half[tc::kBM];
   float l_half[tc::kBM];
 };
 
-// Kernel 6 on the tensor-core tile (D in {32, 64, 128}): block (x, y) owns
-// the 128-row session tile x and item rows [y * chunk_rows, (y + 1) *
-// chunk_rows), walks the chunk's 64-row item tiles through a ring of two
-// by cp.async with product 1 (the logits, 3xTF32), and folds each tile
-// into a running (max, sum of exp) for the four rows its accumulator
+// Kernels 6 and 8 on the tensor-core tile (D in {32, 64, 128}): block (x, y)
+// owns the 128-row session tile x and item rows [y * chunk_rows, (y + 1) *
+// chunk_rows), walks the chunk's 64-row item tiles (and, for kernel 8, their
+// bias) through a ring of two by cp.async with product 1 (the logits,
+// 3xTF32), adds the bias (kernel 8; 0 without one) and folds each tile into
+// a running (max, sum of exp), from -1e30, for the four rows its accumulator
 // fragments hold (columns past the chunk's end left out). At the end the
 // four threads of a row merge theirs by shuffles and the two warp columns
 // through shared memory; m_part and l_part are (gridDim.y, M), rows past M
 // never written.
 template <int D>
 __global__ void __launch_bounds__(tc::kThreads, 1)
-    lse_partials_tc_kernel(const float* __restrict__ s, const float* __restrict__ items, float* __restrict__ m_part,
-                           float* __restrict__ l_part, long long M, long long N, long long chunk_rows) {
+    lse_partials_tc_kernel(const float* __restrict__ s, const float* __restrict__ items,
+                           const float* __restrict__ bias, float* __restrict__ m_part, float* __restrict__ l_part,
+                           long long M, long long N, long long chunk_rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   LseSmem<D>& sh = *reinterpret_cast<LseSmem<D>*>(smem_raw);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -1170,6 +1185,7 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
 
   tc::load_tile<D, tc::kBM>(sh.s, s, row0, M);
   tc::load_tile<D, tc::kBN>(sh.items[0], items, n_begin, n_end);
+  if (bias != nullptr) tc::load_bias(sh.bs[0], bias, n_begin, n_end);
   tc::cp_commit();
   float m_run[2][2], l_run[2][2];
 #pragma unroll
@@ -1184,10 +1200,24 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
     const long long n0 = n_begin + (long long)j * tc::kBN;
     tc::cp_wait<0>();
     __syncthreads();  // item tile j (and the session tile) landed; every warp is done with the other stage
-    if (j + 1 < n_tiles) tc::load_tile<D, tc::kBN>(sh.items[stage ^ 1], items, n0 + tc::kBN, n_end);
+    if (j + 1 < n_tiles) {
+      tc::load_tile<D, tc::kBN>(sh.items[stage ^ 1], items, n0 + tc::kBN, n_end);
+      if (bias != nullptr) tc::load_bias(sh.bs[stage ^ 1], bias, n0 + tc::kBN, n_end);
+    }
     tc::cp_commit();
     float acc[2][4][4];
     tc::logits<D>(sh.s, sh.items[stage], acc);
+    // kernel 8: the bias of this thread's eight columns onto both row blocks (+0 leaves a logit as it is)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float bc = bias != nullptr ? sh.bs[stage][n_base + nf * 8 + 2 * t + e] : 0.f;
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) acc[mf][nf][2 * h + e] += bc;
+      }
 #pragma unroll
     for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
@@ -1248,36 +1278,37 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
     }
 }
 
-template <int D, bool kBias>
-int launch_lse(const float* s, const float* items, const float* bias, float* lse, long long M, long long N,
-               cudaStream_t stream) {
-  const int smem = (2 * 64 * (D + 1) + kBN) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lse_kernel<D, kBias>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int D>
+int launch_lse(const float* s, const float* items, float* lse, long long M, long long N, cudaStream_t stream) {
+  const int smem = 2 * 64 * (D + 1) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(lse_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  lse_kernel<D, kBias><<<(unsigned)((M + kBM - 1) / kBM), kThreads, smem, stream>>>(s, items, bias, lse, M, N);
+  lse_kernel<D><<<(unsigned)((M + kBM - 1) / kBM), kThreads, smem, stream>>>(s, items, lse, M, N);
   return (int)cudaGetLastError();
 }
 
-// Kernels 6 and 16 on (session tile, item chunk) blocks: kernel 6 on the
-// tensor-core tile for D in {32, 64, 128} (128-row session tiles), else, and
-// kernel 16 always, on the SIMT tile (64-row session tiles).
+// Kernels 6, 8 (`bias` not null) and 16 on (session tile, item chunk)
+// blocks: kernels 6 and 8 on the tensor-core tile for D in {32, 64, 128}
+// (128-row session tiles), else, and kernel 16 always, on the SIMT tile
+// (64-row session tiles).
 template <int D, bool kShift>
-int launch_chunks(const float* s, const float* items, const float* shift, float* out_a, float* out_b, long long M,
-                  long long N, long long chunk_rows, cudaStream_t stream) {
+int launch_chunks(const float* s, const float* items, const float* shift, const float* bias, float* out_a,
+                  float* out_b, long long M, long long N, long long chunk_rows, cudaStream_t stream) {
   if constexpr (!kShift && tensor_cores(D)) {
     const int smem = (int)sizeof(LseSmem<D>);
     cudaError_t err =
         cudaFuncSetAttribute(lse_partials_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)((M + tc::kBM - 1) / tc::kBM), (unsigned)((N + chunk_rows - 1) / chunk_rows));
-    lse_partials_tc_kernel<D><<<grid, tc::kThreads, smem, stream>>>(s, items, out_a, out_b, M, N, chunk_rows);
+    lse_partials_tc_kernel<D><<<grid, tc::kThreads, smem, stream>>>(s, items, bias, out_a, out_b, M, N, chunk_rows);
   } else {
-    const int smem = 2 * 64 * (D + 1) * (int)sizeof(float);
+    const int smem = (2 * 64 * (D + 1) + kBN) * (int)sizeof(float);
     cudaError_t err =
         cudaFuncSetAttribute(lse_chunk_kernel<D, kShift>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((N + chunk_rows - 1) / chunk_rows));
-    lse_chunk_kernel<D, kShift><<<grid, kThreads, smem, stream>>>(s, items, shift, out_a, out_b, M, N, chunk_rows);
+    lse_chunk_kernel<D, kShift><<<grid, kThreads, smem, stream>>>(s, items, shift, bias, out_a, out_b, M, N,
+                                                                  chunk_rows);
   }
   return (int)cudaGetLastError();
 }
@@ -1371,8 +1402,7 @@ int launch_fused(const float* s, const float* items, GradRows in, float* ds_part
     case 256: return CALL(256, __VA_ARGS__);              \
     default: return (int)cudaErrorInvalidValue;           \
   }
-#define CALL_LSE(D, ...) launch_lse<D, false>(__VA_ARGS__)
-#define CALL_LSE_BIAS(D, ...) launch_lse<D, true>(__VA_ARGS__)
+#define CALL_LSE(D, ...) launch_lse<D>(__VA_ARGS__)
 #define CALL_LSE_PARTIALS(D, ...) launch_chunks<D, false>(__VA_ARGS__)
 #define CALL_LSE_SHIFT(D, ...) launch_chunks<D, true>(__VA_ARGS__)
 #define CALL_CE_DS(D, ...) launch_ds<D, kCE>(__VA_ARGS__)
@@ -1393,7 +1423,7 @@ int launch_fused(const float* s, const float* items, GradRows in, float* ds_part
 extern "C" int lse_f32(const float* s, const float* items, float* lse, long long M, long long N, int D,
                        cudaStream_t stream) {
   if (M <= 0) return 0;
-  DISPATCH_D(D, CALL_LSE, s, items, nullptr, lse, M, N, stream)
+  DISPATCH_D(D, CALL_LSE, s, items, lse, M, N, stream)
 }
 
 // m_part and l_part (ceil(N / chunk_rows), M): each item chunk's max logit and
@@ -1402,7 +1432,7 @@ extern "C" int lse_partials_f32(const float* s, const float* items, float* m_par
                                 long long N, int D, long long chunk_rows, cudaStream_t stream) {
   if (M <= 0 || N <= 0) return 0;
   if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
-  DISPATCH_D(D, CALL_LSE_PARTIALS, s, items, nullptr, m_part, l_part, M, N, chunk_rows, stream)
+  DISPATCH_D(D, CALL_LSE_PARTIALS, s, items, nullptr, nullptr, m_part, l_part, M, N, chunk_rows, stream)
 }
 
 // shift (M,); l_part and l2_part (ceil(N / chunk_rows), M): each item chunk's
@@ -1411,13 +1441,16 @@ extern "C" int lse_shift_f32(const float* s, const float* items, const float* sh
                              long long M, long long N, int D, long long chunk_rows, cudaStream_t stream) {
   if (M <= 0 || N <= 0) return 0;
   if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
-  DISPATCH_D(D, CALL_LSE_SHIFT, s, items, shift, l_part, l2_part, M, N, chunk_rows, stream)
+  DISPATCH_D(D, CALL_LSE_SHIFT, s, items, shift, nullptr, l_part, l2_part, M, N, chunk_rows, stream)
 }
 
-extern "C" int lse_bias_f32(const float* s, const float* items, const float* bias, float* lse, long long M,
-                            long long N, int D, cudaStream_t stream) {
-  if (M <= 0) return 0;
-  DISPATCH_D(D, CALL_LSE_BIAS, s, items, bias, lse, M, N, stream)
+// bias (N,); m_part and l_part as lse_partials_f32 gives them, with bias[n]
+// added to each logit
+extern "C" int lse_bias_f32(const float* s, const float* items, const float* bias, float* m_part, float* l_part,
+                            long long M, long long N, int D, long long chunk_rows, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
+  DISPATCH_D(D, CALL_LSE_PARTIALS, s, items, nullptr, bias, m_part, l_part, M, N, chunk_rows, stream)
 }
 
 // ds_part (n_chunks, M, D): the ds partial of each item chunk of chunk_rows

@@ -10,8 +10,9 @@ loss and its public ops take:
   torch), or ``lse_f32`` (kernel 15: one running max per row) when
   ``USE_PARTIALS_FWD`` is False; ``bounded_shift=True`` takes
   ``lse_shift_f32`` (kernel 16: a fixed per-row shift and two windows, no
-  max); with a bias it is ``lse_bias_f32`` (kernel 8), whatever
-  ``bounded_shift`` says, as in JAX. It is differentiable through one
+  max); with a bias it is ``lse_bias_f32`` (kernel 8: kernel 6's partials
+  with the bias added to each logit), whatever ``bounded_shift`` says, as in
+  JAX. It is differentiable through one
   ``torch.autograd.Function`` whose backward is the generic VJP of the JAX
   ``_streaming_lse_bwd`` from the saved lse: the single-pass
   ``lse_bwd_fused_f32`` (kernel 9) while its partial sums fit
@@ -39,8 +40,8 @@ loss and its public ops take:
 The gradient kernels, fused (9, 12 and 7's one pass) and split (7's two
 launches, 10, 11, 13, 14), run their products on the tensor cores in 3xTF32
 (each f32 operand split into two TF32 halves, about f32 accuracy) for D in
-32..128, on SIMT f32 tiles for D = 16 and 256. So does kernel 6's logits
-product; the lse forwards 8, 15 and 16 are SIMT f32 tiles
+32..128, on SIMT f32 tiles for D = 16 and 256. So do the logits products of
+kernels 6 and 8; the lse forwards 15 and 16 are SIMT f32 tiles
 (csrc/softmax_lse.cu says why).
 
 CPU tensors take the twins, which walk the catalog in item chunks exactly as
@@ -70,8 +71,8 @@ _SIGNATURES = {
     "lse_partials_f32": (_C, _C, _C, _C, _LL, _LL, _I, _LL, _C),
     # sessions, items, shift, window-1 partials, window-2 partials; M, N, D; chunk rows; stream
     "lse_shift_f32": (_C, _C, _C, _C, _C, _LL, _LL, _I, _LL, _C),
-    # sessions, items, bias, lse; M, N, D; stream
-    "lse_bias_f32": (_C, _C, _C, _C, _LL, _LL, _I, _C),
+    # sessions, items, bias, max partials, sum partials; M, N, D; chunk rows; stream
+    "lse_bias_f32": (_C, _C, _C, _C, _C, _LL, _LL, _I, _LL, _C),
     # sessions, items, z, y (int64), coeff, ds partials; M, N, D; chunk rows, chunks; stream
     "ce_ds_f32": (_C,) * 6 + (_LL, _LL, _I, _LL, _LL, _C),
     # sessions, items, z, y (int64), coeff, di; M, N, D; stream
@@ -102,7 +103,7 @@ TILE = 64  # item rows per tile of every kernel, session rows per tile of the SI
 # `_USE_PARTIALS_FWD = True`) or, set to False, kernel 15 (one running max per
 # row). Read at every call.
 USE_PARTIALS_FWD = True
-LSE_CHUNK = 2048  # item rows a block of kernels 6 and 16 owns (why: csrc/softmax_lse.cu)
+LSE_CHUNK = 2048  # item rows a block of kernels 6, 8 and 16 owns (why: csrc/softmax_lse.cu)
 
 # Kernel 16's second window: terms scaled by e^64 inside the exp, which
 # carries exact coverage from bound gaps of ~64 to ~128; window 1 is kept
@@ -127,26 +128,17 @@ FUSED_BWD_CHUNK = 2048  # item rows a block of the fused backward owns
 _BWD_TILE = {d: (128, 1, 4) if 32 <= d <= 128 else (TILE, 2, 1) for d in SUPPORTED_D}
 
 
-def _running_lse(
-    sessions: torch.Tensor, items: torch.Tensor, row_bias: tp.Optional[torch.Tensor], chunk: int, start_max: float
-) -> torch.Tensor:
-    """Running (max, Σexp) over item chunks, the max starting at ``start_max``."""
-    m_run = torch.full((sessions.shape[0],), start_max, dtype=torch.float32, device=sessions.device)
+def streaming_lse_reference(sessions: torch.Tensor, items: torch.Tensor, chunk: int = TWIN_CHUNK) -> torch.Tensor:
+    """Plain PyTorch twin of ``lse_f32`` (kernel 15): running (max, Σexp) over
+    item chunks."""
+    m_run = torch.full((sessions.shape[0],), float("-inf"), dtype=torch.float32, device=sessions.device)
     l_run = torch.zeros_like(m_run)
     for start in range(0, items.shape[0], chunk):
         logits = sessions @ items[start : start + chunk].T
-        if row_bias is not None:
-            logits = logits + row_bias[start : start + chunk][None, :]
         m_new = torch.maximum(m_run, logits.max(dim=1).values)
         l_run = l_run * torch.exp(m_run - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=1)
         m_run = m_new
     return m_run + torch.log(l_run)
-
-
-def streaming_lse_reference(sessions: torch.Tensor, items: torch.Tensor, chunk: int = TWIN_CHUNK) -> torch.Tensor:
-    """Plain PyTorch twin of ``lse_f32`` (kernel 15): running (max, Σexp) over
-    item chunks."""
-    return _running_lse(sessions, items, None, chunk, float("-inf"))
 
 
 def combine_lse_partials(m_part: torch.Tensor, l_part: torch.Tensor) -> torch.Tensor:
@@ -158,16 +150,23 @@ def combine_lse_partials(m_part: torch.Tensor, l_part: torch.Tensor) -> torch.Te
 
 
 def streaming_lse_partials_reference(
-    sessions: torch.Tensor, items: torch.Tensor, chunk: int = LSE_CHUNK
+    sessions: torch.Tensor,
+    items: torch.Tensor,
+    chunk: int = LSE_CHUNK,
+    row_bias: tp.Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch twin of ``lse_partials_f32`` (kernel 6): each item chunk's
-    (max, Σexp), then :func:`combine_lse_partials`."""
+    """Plain PyTorch twin of ``lse_partials_f32`` (kernel 6) and, given
+    ``row_bias``, of ``lse_bias_f32`` (kernel 8): each item chunk's (max,
+    Σexp) of the logits plus the bias, the max from -1e30 as in the kernels,
+    then :func:`combine_lse_partials`."""
     if items.shape[0] == 0:
         return torch.full((sessions.shape[0],), float("-inf"), device=sessions.device)
     m_parts, l_parts = [], []
     for start in range(0, items.shape[0], chunk):
         logits = sessions @ items[start : start + chunk].T
-        m_j = logits.max(dim=1).values
+        if row_bias is not None:
+            logits = logits + row_bias[start : start + chunk][None, :]
+        m_j = logits.max(dim=1).values.clamp(min=NEG_BIG)
         m_parts.append(m_j)
         l_parts.append(torch.exp(logits - m_j[:, None]).sum(dim=1))
     return combine_lse_partials(torch.stack(m_parts), torch.stack(l_parts))
@@ -215,12 +214,13 @@ def streaming_lse_shift_reference(
 
 
 def streaming_lse_bias_reference(
-    sessions: torch.Tensor, items: torch.Tensor, row_bias: torch.Tensor, chunk: int = TWIN_CHUNK
+    sessions: torch.Tensor, items: torch.Tensor, row_bias: torch.Tensor, chunk: int = LSE_CHUNK
 ) -> torch.Tensor:
-    """Plain PyTorch twin of ``lse_bias_f32``. The running max starts at
-    -1e30 as in the kernel, so a table whose every row is invalid gives
-    ``-1e30 + log(count)`` and never NaN."""
-    return _running_lse(sessions, items, row_bias, chunk, NEG_BIG)
+    """Plain PyTorch twin of ``lse_bias_f32`` (kernel 8), in its item chunks.
+    Each chunk's max starts at -1e30 as in the kernel, so a table whose every
+    row is invalid gives ``-1e30 + log(count)`` and never NaN; a zero bias
+    gives kernel 6's twin, bit for bit."""
+    return streaming_lse_partials_reference(sessions, items, chunk, row_bias)
 
 
 def split_bwd_plan(m: int, n: int, d: int, n_sms: int) -> tp.Tuple[int, int]:
@@ -351,10 +351,15 @@ def _check_vectors(kernel: str, rows: int, what: str, **vectors: torch.Tensor) -
 
 
 def _launch_chunked_lse(
-    kernel: str, sessions: torch.Tensor, items: torch.Tensor, shift: tp.Optional[torch.Tensor]
+    kernel: str,
+    sessions: torch.Tensor,
+    items: torch.Tensor,
+    shift: tp.Optional[torch.Tensor] = None,
+    row_bias: tp.Optional[torch.Tensor] = None,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel 6 (``shift`` None) or kernel 16 on (session tile, item
-    chunk) blocks; returns its two (n_chunks, M) partials."""
+    """Launch kernel 6, kernel 8 (given ``row_bias``) or kernel 16 (given
+    ``shift``) on (session tile, item chunk) blocks; returns its two (n_chunks,
+    M) partials."""
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
     n_chunks = -(-n // LSE_CHUNK)
     part_a = torch.empty((n_chunks, m), dtype=torch.float32, device=sessions.device)
@@ -363,7 +368,11 @@ def _launch_chunked_lse(
     stream = _native.current_stream_ptr(sessions.device)
     pointers = (sessions.data_ptr(), items.data_ptr())
     with torch.cuda.device(sessions.device):
-        if shift is None:
+        if row_bias is not None:
+            status = lib.lse_bias_f32(
+                *pointers, row_bias.data_ptr(), part_a.data_ptr(), part_b.data_ptr(), m, n, d, LSE_CHUNK, stream
+            )
+        elif shift is None:
             status = lib.lse_partials_f32(*pointers, part_a.data_ptr(), part_b.data_ptr(), m, n, d, LSE_CHUNK, stream)
         else:
             status = lib.lse_shift_f32(
@@ -385,7 +394,7 @@ def lse_shift_sums(
     shift = lse_shift(sessions, items).contiguous()
     if m == 0 or n == 0:
         return shift, torch.zeros_like(shift), torch.zeros_like(shift)
-    l_part, l2_part = _launch_chunked_lse("lse_shift_fwd", sessions, items, shift)
+    l_part, l2_part = _launch_chunked_lse("lse_shift_fwd", sessions, items, shift=shift)
     return shift, l_part.sum(dim=0), l2_part.sum(dim=0)  # fixed-order sums over the chunks
 
 
@@ -397,7 +406,8 @@ def streaming_lse_fwd(
 ) -> torch.Tensor:
     """(M,) float32 lse, no autograd: with a bias kernel 8; without one
     kernel 16 for ``bounded_shift``, else kernel 6 (or 15 when
-    ``USE_PARTIALS_FWD`` is False)."""
+    ``USE_PARTIALS_FWD`` is False). Kernels 6 and 8 give per-chunk partials
+    that :func:`combine_lse_partials` merges."""
     if row_bias is None and bounded_shift:
         return select_shift_window(*lse_shift_sums(sessions, items))
     partials = USE_PARTIALS_FWD
@@ -412,21 +422,18 @@ def streaming_lse_fwd(
         tensors["row_bias"] = row_bias
     _native.require_cuda_f32(kernel, **tensors)
     m, n, d = _check(kernel, sessions, items)
-    if row_bias is None and partials:
+    if row_bias is not None:
+        _check_vectors(kernel, n, "item row", row_bias=row_bias)
+    if row_bias is not None or partials:
         if m == 0 or n == 0:
             return torch.full((m,), float("-inf"), device=sessions.device)
-        return combine_lse_partials(*_launch_chunked_lse(kernel, sessions, items, None))
+        return combine_lse_partials(*_launch_chunked_lse(kernel, sessions, items, row_bias=row_bias))
     lse = torch.empty((m,), dtype=torch.float32, device=sessions.device)
     lib = _native.load("softmax_lse", _SIGNATURES)
-    stream = _native.current_stream_ptr(sessions.device)
     with torch.cuda.device(sessions.device):
-        if row_bias is None:
-            status = lib.lse_f32(sessions.data_ptr(), items.data_ptr(), lse.data_ptr(), m, n, d, stream)
-        else:
-            _check_vectors(kernel, n, "item row", row_bias=row_bias)
-            status = lib.lse_bias_f32(
-                sessions.data_ptr(), items.data_ptr(), row_bias.data_ptr(), lse.data_ptr(), m, n, d, stream
-            )
+        status = lib.lse_f32(
+            sessions.data_ptr(), items.data_ptr(), lse.data_ptr(), m, n, d, _native.current_stream_ptr(sessions.device)
+        )
     _native.check_launch(kernel, status)
     return lse
 

@@ -13,7 +13,8 @@ Three kernels (``csrc/stu_attention.cu``): the forward (``stu_fwd_f32``), the
 backward giving dq, dk and dv (``stu_bwd_f32``; at attention and hidden dims
 of 32 or 64 it runs on the tensor cores in two launches, dq's being
 ``stu_bwd_dq_f32``), and the gradient of the score summed over heads
-(``stu_ds_f32``), from which the two tables get their gradients. A CUDA
+(``stu_ds_f32``; on the tensor cores too at those dims, with 64 x 64 tiles),
+from which the two tables get their gradients. A CUDA
 tensor launches them at every shape; a CPU tensor takes the plain twins
 (:func:`stu_reference`, :func:`stu_bwd_reference`, :func:`stu_ds_reference`).
 Nothing else decides. The kernels take the attention
@@ -41,9 +42,11 @@ the time table, by diagonal for the positional one. Neither uses a float
 atomic (``index_add_`` and ``bincount`` would), so the same inputs give the
 same bits. On CUDA the score-gradient kernel, which owns every tile of ds,
 also sums its tile by bucket and writes one row of partials per block; their
-sum over the blocks is the time table's gradient. On the CPU the plain twin
-(:func:`bucket_sums`) takes one masked reduction per reachable bucket. The
-diagonal sums are the autograd adjoint of the pad/repeat/reshape construction.
+sum over the blocks is the time table's gradient. The plain twin
+(:func:`bucket_sums`) keeps that order: per block of the kernel's tile
+(:func:`ds_tile`), one masked reduction per reachable bucket, then the sum
+over the blocks. The diagonal sums are the autograd adjoint of the
+pad/repeat/reshape construction.
 """
 
 import ctypes
@@ -76,7 +79,9 @@ SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
 # queries of one (b, h); other dims take the SIMT kernel, one launch, one block per (b, h).
 TC_HEAD_DIMS = (32, 64)
 BWD_TILE = 64
-DS_TILE_KEYS, DS_TILE_QUERIES = 128, 32  # the (keys, queries) tile one block of ``stu_ds_f32`` owns
+# The (keys, queries) tile one block of ``stu_ds_f32`` owns: BWD_TILE x BWD_TILE on the tensor cores (the
+# backward's dims), these on the SIMT kernel (see :func:`ds_tile`)
+DS_TILE_KEYS, DS_TILE_QUERIES = 128, 32
 INT32_MAX = 2**31 - 1
 
 
@@ -127,15 +132,28 @@ def time_buckets(ts: torch.Tensor, l: int, num_buckets: int) -> torch.Tensor:
     return bucket(ts[:, 1 : l + 1, None] - ts[:, None, :l], num_buckets)
 
 
-def bucket_sums(values: torch.Tensor, buckets: torch.Tensor, n_entries: int) -> torch.Tensor:
-    """``out[j] = values[buckets == j].sum()``, the plain twin of the bucket
-    sums of ``stu_ds_f32``: one masked reduction for each bucket an int32
-    difference can reach (the others stay 0), so the memory is one temporary
-    of ``values``' size and the sums have a fixed order."""
+def bucket_sums(
+    values: torch.Tensor, buckets: torch.Tensor, n_entries: int, tile: tp.Tuple[int, int]
+) -> torch.Tensor:
+    """``out[j] = values[buckets == j].sum()`` for (B, L, L) values, the plain
+    twin of the bucket sums of ``stu_ds_f32`` in its order: per block of the
+    kernel's grid, a (keys, queries) ``tile`` in block order (batch row, key
+    tile, query tile), one masked reduction for each bucket an int32
+    difference can reach (the others stay 0), then the blocks' partials
+    summed. The memory is a few temporaries of ``values``' size."""
+    keys, queries = tile
+    b, l, _ = values.shape
+    n_k, n_q = -(-l // keys), -(-l // queries)
+    pad = (0, n_k * keys - l, 0, n_q * queries - l)
+
+    def blocks(x: torch.Tensor) -> torch.Tensor:  # (B * n_k * n_q, queries * keys), block order
+        return x.reshape(b, n_q, queries, n_k, keys).permute(0, 3, 1, 2, 4).reshape(b * n_k * n_q, -1)
+
+    vals, bks = blocks(F.pad(values, pad)), blocks(F.pad(buckets, pad, value=-1))
     zero = torch.zeros((), dtype=values.dtype, device=values.device)
     n_reachable = min(n_entries, len(bucket_thresholds()) + 1)
-    sums = torch.stack([torch.where(buckets == j, values, zero).sum() for j in range(n_reachable)])
-    return F.pad(sums, (0, n_entries - n_reachable))
+    partials = torch.stack([torch.where(bks == j, vals, zero).sum(dim=1) for j in range(n_reachable)], dim=1)
+    return F.pad(partials.sum(dim=0), (0, n_entries - n_reachable))
 
 
 def toeplitz_bias(pos_weights: torch.Tensor, l: int) -> torch.Tensor:
@@ -211,9 +229,12 @@ def stu_ds_reference(
     q, k, v, bias, allowed, timeline, dout, buckets: tp.Optional[torch.Tensor] = None, n_entries: int = 0
 ) -> tp.Tuple[torch.Tensor, tp.Optional[torch.Tensor]]:
     """Plain PyTorch twin of the score-gradient kernel: ds summed over heads,
-    (B, L, L), and, given the (B, L, L) buckets, its sums by bucket, (n_entries,)."""
+    (B, L, L), and, given the (B, L, L) buckets, its sums by bucket, (n_entries,),
+    per block of the kernel's tile for these head dims and then over the blocks."""
     ds = _score_grad(q, k, v, bias, allowed, timeline, dout)[1].sum(dim=1)
-    return ds, (None if buckets is None else bucket_sums(ds, buckets, n_entries))
+    if buckets is None:
+        return ds, None
+    return ds, bucket_sums(ds, buckets, n_entries, ds_tile(q.shape[3], v.shape[3]))
 
 
 # ------------------------------------------------------------------ kernel wrappers
@@ -278,8 +299,15 @@ def stu_fwd(q, k, v, bias, allowed, timeline) -> torch.Tensor:
 
 def bwd_on_tensor_cores(ad: int, lh: int) -> bool:
     """Whether the backward of attention dim ``ad`` and hidden dim ``lh`` runs
-    on the tensor cores (two launches) rather than the SIMT kernel (one)."""
+    on the tensor cores (two launches) rather than the SIMT kernel (one); the
+    score-gradient kernel takes the tensor cores at the same dims."""
     return ad in TC_HEAD_DIMS and lh in TC_HEAD_DIMS
+
+
+def ds_tile(ad: int, lh: int) -> tp.Tuple[int, int]:
+    """(keys, queries) of the tile one block of ``stu_ds_f32`` owns at these
+    head dims: 64 x 64 on the tensor cores, 128 x 32 on the SIMT kernel."""
+    return (BWD_TILE, BWD_TILE) if bwd_on_tensor_cores(ad, lh) else (DS_TILE_KEYS, DS_TILE_QUERIES)
 
 
 def stu_bwd(q, k, v, bias, allowed, timeline, dout) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -317,13 +345,15 @@ def stu_ds(
     q, k, v, bias, allowed, timeline, dout, buckets: tp.Optional[torch.Tensor] = None, n_entries: int = 0
 ) -> tp.Tuple[torch.Tensor, tp.Optional[torch.Tensor]]:
     """The gradient of the score ``q kᵀ + bias`` summed over heads, (B, L, L)
-    (kernel ``stu_ds_f32``) and, given the (B, L, L) int32 time buckets, its
-    sums by bucket, (n_entries,): the kernel's per-block partials added up in
-    block order. Without buckets the second result is None."""
+    (kernel ``stu_ds_f32``, one block per :func:`ds_tile` tile) and, given the
+    (B, L, L) int32 time buckets, its sums by bucket, (n_entries,): the
+    kernel's per-block partials added up in block order. Without buckets the
+    second result is None."""
     if q.device.type == "cpu":
         return stu_ds_reference(q, k, v, bias, allowed, timeline, dout, buckets, n_entries)
     bias_sb, allowed_sb = _check("stu_ds", q, k, v, bias, allowed, timeline, dout)
     b, h, l, ad = q.shape
+    lh = v.shape[3]
     ds = torch.empty((b, l, l), dtype=torch.float32, device=q.device)
     partials, buckets_ptr, partials_ptr, n_partials = None, None, None, 0
     if buckets is not None:
@@ -332,14 +362,15 @@ def stu_ds(
             or not buckets.is_contiguous() or n_entries <= 0
         ):
             raise ValueError(f"stu_ds: buckets must be contiguous int32 ({b}, {l}, {l}) on {q.device}, n_entries > 0")
-        n_partials = b * -(-l // DS_TILE_KEYS) * -(-l // DS_TILE_QUERIES)
+        keys, queries = ds_tile(ad, lh)
+        n_partials = b * -(-l // keys) * -(-l // queries)
         partials = torch.empty((n_partials, n_entries), dtype=torch.float32, device=q.device)
         buckets_ptr, partials_ptr = buckets.data_ptr(), partials.data_ptr()
     lib = _native.load("stu_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         status = lib.stu_ds_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(), allowed.data_ptr(),
-            timeline.data_ptr(), ds.data_ptr(), b, h, l, ad, v.shape[3], *_strides(q, k, v, dout),
+            timeline.data_ptr(), ds.data_ptr(), b, h, l, ad, lh, *_strides(q, k, v, dout),
             bias_sb, allowed_sb, buckets_ptr, partials_ptr, n_entries, n_partials,
             _native.current_stream_ptr(q.device),
         )

@@ -137,6 +137,62 @@ def test_stu_bwd_tile_matches_the_cuda_source() -> None:
         (a, l) for a in (32, 64) for l in (32, 64)}
 
 
+def test_lse_bias_chunks_match_the_cuda_source() -> None:
+    """Kernel 8 is kernel 6's launch with a bias: ``lse_bias_f32`` runs the
+    same (session tile, item chunk) grid on the same two tiles, and the
+    wrapper gives it ``LSE_CHUNK``-row chunks and combines its partials as
+    kernel 6's, so its twin's chunks are the card's. The carried-max kernel
+    (15) keeps no bias."""
+    import inspect
+
+    src = (REPO / "rectools_tpu_torch" / "csrc" / "softmax_lse.cu").read_text()
+    entry = src[src.index('extern "C" int lse_bias_f32('):]
+    entry = entry[: entry.index("\n}\n")]
+    assert "DISPATCH_D(D, CALL_LSE_PARTIALS, s, items, nullptr, bias, m_part, l_part, M, N, chunk_rows, stream)" in entry
+    assert "chunk_rows % kBN" in entry
+    assert "#define CALL_LSE_PARTIALS(D, ...) launch_chunks<D, false>(__VA_ARGS__)" in src
+    assert "lse_partials_tc_kernel<D><<<grid, tc::kThreads, smem, stream>>>(s, items, bias, " in src
+    assert "lse_kernel<D><<<" in src and "kBias" not in src
+    launch = inspect.getsource(softmax_lse._launch_chunked_lse)
+    assert "lib.lse_bias_f32(" in launch and launch.count("LSE_CHUNK, stream") == 3
+    assert softmax_lse._SIGNATURES["lse_bias_f32"] == softmax_lse._SIGNATURES["lse_partials_f32"][:2] + (
+        softmax_lse._C,) + softmax_lse._SIGNATURES["lse_partials_f32"][2:]
+    fwd = inspect.getsource(softmax_lse.streaming_lse_fwd)
+    assert "combine_lse_partials(*_launch_chunked_lse(kernel, sessions, items, row_bias=row_bias))" in fwd
+    twin = inspect.signature(softmax_lse.streaming_lse_bias_reference).parameters["chunk"].default
+    assert twin == softmax_lse.LSE_CHUNK
+
+
+def test_stu_ds_tile_matches_the_cuda_source() -> None:
+    """Kernel 19's wrapper sizes the bucket partials by ``ds_tile``, which is
+    the ``.cu``'s tile at every head dim: ``BWD_TILE`` x ``BWD_TILE`` (keys x
+    queries) on the tensor cores, exactly where the backward takes them, and
+    ``DS_TILE_KEYS`` x ``DS_TILE_QUERIES`` on the SIMT kernel; both kernels
+    number their partial rows (batch row, key tile, query tile) on a grid of
+    (B, key tiles, query tiles), the twin's block order. At the HSTU training
+    shape that is 512 x 2 x 2 blocks."""
+    src = (REPO / "rectools_tpu_torch" / "csrc" / "stu_attention.cu").read_text()
+    launch = src[src.index("struct DsLaunch {"):]
+    launch = launch[: launch.index("\n};\n")]
+    assert "constexpr bool kTensorCores = stu_tensor_cores(AD, LH);" in launch
+    assert "constexpr int kKeys = kTensorCores ? kTcKeys : kKT, kQueries = kTensorCores ? kTcQueries : kDQ;" in launch
+    assert "const dim3 grid((unsigned)p.B, (unsigned)((p.L + kKeys - 1) / kKeys), (unsigned)((p.L + kQueries - 1) / " \
+           "kQueries));" in launch
+    assert "stu_ds_tc_kernel<AD, LH><<<grid, kTcThreads, smem, stream>>>(p);" in launch
+    assert "stu_ds_kernel<AD, LH><<<grid, kKT, smem, stream>>>(p);" in launch
+    assert "n_partials != (long long)grid.x * grid.y * grid.z" in launch
+    assert src.count("((long long)(b * gridDim.y + blockIdx.y) * gridDim.z + blockIdx.z) * p.n_entries") == 2
+    const = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+             for name in ("kKT", "kDQ", "kTcKeys", "kTcQueries")}
+    assert (const["kKT"], const["kDQ"]) == (stu_attention.DS_TILE_KEYS, stu_attention.DS_TILE_QUERIES)
+    assert const["kTcKeys"] == const["kTcQueries"] == stu_attention.BWD_TILE
+    dims = stu_attention.SUPPORTED_HEAD_DIMS
+    assert {(a, l): stu_attention.ds_tile(a, l) for a in dims for l in dims} == {
+        (a, l): (64, 64) if stu_attention.bwd_on_tensor_cores(a, l) else (128, 32) for a in dims for l in dims}
+    keys, queries = stu_attention.ds_tile(32, 32)
+    assert 512 * -(-100 // keys) * -(-100 // queries) == 2048
+
+
 @pytest.mark.parametrize("name", sorted(fused_bwd_variants.VARIANTS))
 def test_fused_bwd_variants_still_apply(name: str) -> None:
     """Each variant that tools/fused_bwd_variants.py times on the card finds
@@ -556,14 +612,17 @@ def test_cuda_ce_split_route_matches_kernel_7(
 @pytest.mark.parametrize(
     "m,n,d,n_invalid",
     [(51, 300, 32, 7), (1000, 2111, 128, 1), (64, 64, 16, 64), (200, 4200, 64, 0), (130, 77, 256, 3),
-     (700, 20000, 128, 5), (333, 20111, 32, 0)],
+     (700, 20000, 128, 5), (333, 20111, 32, 0), (300, 6200, 64, 2104), (97, 2500, 16, 0), (130, 4100, 256, 0)],
 )
 def test_cuda_biased_lse_and_its_vjp_match_twins(
     cuda: torch.device, monkeypatch: pytest.MonkeyPatch, m: int, n: int, d: int, n_invalid: int, route: str
 ) -> None:
     """Kernels 8 and 9 (or 10 + 11 with the budget forced to 0) against their
-    twins: a bias with -1e30 rows (a whole invalid shard included), ragged
-    tiles, a mixed-sign cotangent."""
+    twins: a bias with -1e30 rows (a whole invalid shard included, and the
+    last two ``LSE_CHUNK`` item chunks wholly invalid in one case), ragged
+    tiles, a mixed-sign cotangent. Kernel 8 at every D within ``LSE_RTOL`` per
+    row of its twin in the card's chunks, the same bits on a rerun, and with
+    a zero bias kernel 6's bits."""
     rng = np.random.default_rng(n + m)
     s = _t((0.3 * rng.normal(size=(m, d))).astype(np.float32)).to(cuda)
     items = _t((0.3 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
@@ -575,9 +634,12 @@ def test_cuda_biased_lse_and_its_vjp_match_twins(
     lse = softmax_lse.streaming_lse_fwd(s, items, bias)
     assert _native.LAUNCHES["lse_bias_fwd"] == before["lse_bias_fwd"] + 1
     assert torch.isfinite(lse).all()
-    torch.testing.assert_close(lse, softmax_lse.streaming_lse_bias_reference(s, items, bias), atol=1e-6, rtol=1e-5)
-    if not n_invalid:  # an all-zero bias is kernel 15's result, bit for bit
-        monkeypatch.setattr(softmax_lse, "USE_PARTIALS_FWD", False)
+    ref_lse = softmax_lse.streaming_lse_bias_reference(s, items, bias)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-6, rtol=1e-5)
+    assert ((lse - ref_lse).abs() / ref_lse.abs()).max().item() <= 1e-5  # LSE_RTOL, per row
+    assert torch.equal(softmax_lse.streaming_lse_fwd(s, items, bias), lse)
+    if not n_invalid:  # an all-zero bias is kernel 6's result, bit for bit
+        monkeypatch.setattr(softmax_lse, "USE_PARTIALS_FWD", True)
         assert torch.equal(lse, softmax_lse.streaming_lse_fwd(s, items))
     if route == "split":
         monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 0)
@@ -686,7 +748,8 @@ def _stu_inputs(b: int, h: int, l: int, ad: int, lh: int, dev: torch.device, per
     "b,h,l,ad,lh,per_row_allowed",
     [(3, 4, 100, 32, 32, False), (2, 2, 80, 16, 16, False), (2, 2, 96, 16, 16, True), (3, 2, 7, 8, 64, False),
      (2, 2, 130, 64, 8, True), (2, 4, 1024, 32, 32, False), (2, 2, 80, 32, 32, False), (2, 2, 96, 32, 32, True),
-     (2, 2, 96, 64, 64, True), (3, 2, 7, 32, 64, False), (2, 2, 130, 64, 32, True), (2, 2, 100, 8, 8, False)],
+     (2, 2, 96, 64, 64, True), (3, 2, 7, 32, 64, False), (2, 2, 130, 64, 32, True), (2, 2, 100, 8, 8, False),
+     (2, 4, 190, 64, 64, True), (2, 2, 1024, 16, 16, False), (2, 4, 1024, 64, 64, True)],
 )
 def test_cuda_stu_kernels_match_twins(
     cuda: torch.device, b: int, h: int, l: int, ad: int, lh: int, per_row_allowed: bool
@@ -696,8 +759,9 @@ def test_cuda_stu_kernels_match_twins(
     at L = 1,024 the scores reach tens, so the tolerances there scale with the
     twin's largest entry. The backward runs on the tensor cores in two
     launches (``stu_bwd``, ``stu_bwd_dq``) at head dims of 32 and 64, on the
-    SIMT kernel in one at 8 and 16. dq, dk, dv, ds and its sums by bucket come
-    out bit-equal on a second run."""
+    SIMT kernel in one at 8 and 16; the score gradient is one launch on
+    either tile (64 x 64 on the tensor cores at 32 and 64). dq, dk, dv, ds
+    and its sums by bucket come out bit-equal on a second run."""
     q, k, v, dout, bias, allowed, timeline, buckets = _stu_inputs(b, h, l, ad, lh, cuda, per_row_allowed)
     args = (q, k, v, bias, allowed, timeline)
     before = dict(_native.LAUNCHES)

@@ -440,7 +440,8 @@ def test_bounded_shift_gradients_match_jax_and_a_bias_ignores_it() -> None:
 
 def _biased_case(m: int, n: int, d: int, invalid: str):
     """Inputs of the biased lse: ``invalid`` rows carry -1e30 ("tail": the last
-    5, "scattered": every seventh, "all": a shard with no valid row)."""
+    5, "scattered": every seventh, "all": a shard with no valid row, "chunk":
+    the second ``LSE_CHUNK`` item chunk whole and the last 5 rows)."""
     rng, s, items = _lse_inputs(m, n, d, seed=7 * m + n)
     bias = np.zeros(n, np.float32)
     if invalid == "tail":
@@ -449,28 +450,53 @@ def _biased_case(m: int, n: int, d: int, invalid: str):
         bias[::7] = -1e30
     elif invalid == "all":
         bias[:] = -1e30
+    elif invalid == "chunk":
+        bias[softmax_lse.LSE_CHUNK : 2 * softmax_lse.LSE_CHUNK] = -1e30
+        bias[-5:] = -1e30
     dlse = rng.normal(size=m).astype(np.float32)  # mixed sign
     dlse[::6] = 0.0
     return s, items, bias, dlse
 
 
 BIASED_CASES = [(50, 300, 32, "tail"), (64, 129, 16, "scattered"), (33, 70, 32, "none"), (20, 40, 16, "all")]
+# and for the forward alone, in the card's chunks: ragged M and N over two and three chunks, a whole chunk invalid
+BIASED_FWD_CASES = BIASED_CASES + [
+    (45, 2111, 32, "tail"), (70, 2300, 128, "none"), (37, 4500, 128, "chunk"), (29, 4400, 32, "chunk")]
 
 
-@pytest.mark.parametrize("m,n,d,invalid", BIASED_CASES)
+@pytest.mark.parametrize("m,n,d,invalid", BIASED_FWD_CASES)
 def test_streaming_lse_with_bias_matches_jax(m: int, n: int, d: int, invalid: str) -> None:
-    """Kernel 8's twin against the JAX biased kernel in interpret mode, 1e-5 relative."""
+    """Kernel 8's twin, which walks the catalog in the card's chunks (``LSE_CHUNK``
+    rows, each chunk's (max, Σexp) of the biased logits with the max from
+    -1e30, then the combine), and the CPU ``streaming_lse`` that takes it,
+    against the JAX biased kernel in interpret mode, 1e-5 relative per row. A
+    zero bias gives kernel 6's twin bit for bit; a wholly invalid chunk adds
+    nothing."""
     s, items, bias, _ = _biased_case(m, n, d, invalid)
     expected = np.asarray(
         jax_softmax_lse.streaming_lse(jnp.asarray(s), jnp.asarray(items), jnp.asarray(bias), 16, 64, True)
     )
-    got = softmax_lse.streaming_lse(_t(s), _t(items), _t(bias)).numpy()
-    assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, expected, rtol=1e-5, atol=1e-6)
+    got = softmax_lse.streaming_lse(_t(s), _t(items), _t(bias))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), expected, rtol=1e-5, atol=1e-6)
+    m_parts, l_parts = [], []
+    for start in range(0, n, softmax_lse.LSE_CHUNK):  # the chunks, written out
+        chunk = slice(start, start + softmax_lse.LSE_CHUNK)
+        logits = _t(s) @ _t(items[chunk]).T + _t(bias[chunk])[None, :]
+        m_parts.append(torch.clamp(logits.max(dim=1).values, min=-1e30))
+        l_parts.append(torch.exp(logits - m_parts[-1][:, None]).sum(dim=1))
+    chunked = softmax_lse.combine_lse_partials(torch.stack(m_parts), torch.stack(l_parts))
+    torch.testing.assert_close(got, chunked, rtol=0, atol=0)
     small = softmax_lse.streaming_lse_bias_reference(_t(s), _t(items), _t(bias), chunk=7).numpy()
     np.testing.assert_allclose(small, expected, rtol=1e-5, atol=1e-6)
+    if invalid == "none":  # kernel 8 with a zero bias is kernel 6
+        assert torch.equal(got, softmax_lse.streaming_lse_partials_reference(_t(s), _t(items)))
+    if invalid == "chunk":  # the invalid chunk left out: the lse of the valid columns alone
+        valid = bias == 0
+        alone = softmax_lse.streaming_lse_partials_reference(_t(s), _t(items[valid]))
+        torch.testing.assert_close(got, alone, rtol=1e-6, atol=0)
     if invalid == "all":  # -1e30 + log(count): finite, never NaN or inf
-        np.testing.assert_array_equal(got, np.full(m, -1e30, np.float32))
+        np.testing.assert_array_equal(got.numpy(), np.full(m, -1e30, np.float32))
 
 
 @pytest.mark.parametrize("route", ["fused", "split"])

@@ -201,20 +201,64 @@ def test_batch_dependent_allowed_matches_dense_math() -> None:
         torch.testing.assert_close(g, e, atol=1e-4, rtol=0)
 
 
-def test_score_gradient_sums_by_bucket() -> None:
-    """``stu_ds`` gives ds and, with the buckets, its sums by bucket: against
-    a float64 scatter-add of the same ds (1e-5: f32 sums of up to 64 x 64 x 2
+@pytest.mark.parametrize("l,ad,lh", [(64, 16, 16), (100, 32, 32), (90, 64, 64), (70, 32, 64)])
+def test_score_gradient_sums_by_bucket(l: int, ad: int, lh: int) -> None:
+    """``stu_ds`` gives ds and, with the buckets, its sums by bucket, per block
+    of the kernel's tile for these head dims (128 keys x 32 queries on the
+    SIMT kernel, 64 x 64 on the tensor cores) and then over the blocks: against
+    a float64 scatter-add of the same ds (1e-5: f32 sums of up to 100 x 100 x 2
     entries), and None without buckets."""
-    q, k, v, ts, tl, tw, pw, allowed = (_t(a) for a in _inputs(l=64))
+    q, k, v, ts, tl, tw, pw, allowed = (_t(a) for a in _inputs(l=l, ad=ad, lh=lh))
     dout = _t(np.random.default_rng(6).normal(size=tuple(v.shape)).astype(np.float32))
-    buckets = stu_attention.time_buckets(ts, 64, NB)
-    bias = stu_attention.combined_bias(buckets, tw, pw, 64, q.device)
+    buckets = stu_attention.time_buckets(ts, l, NB)
+    bias = stu_attention.combined_bias(buckets, tw, pw, l, q.device)
     ds, sums = stu_attention.stu_ds(q, k, v, bias, allowed, tl, dout, buckets, NB + 1)
     alone, none = stu_attention.stu_ds(q, k, v, bias, allowed, tl, dout)
     assert none is None and torch.equal(alone, ds) and tuple(sums.shape) == (NB + 1,)
     expected = torch.zeros(NB + 1, dtype=torch.float64).index_add_(0, buckets.reshape(-1), ds.reshape(-1).double())
     torch.testing.assert_close(sums.double(), expected, atol=1e-5, rtol=0)
     assert sums.abs().max() > 0
+    # the twin's order, written out: one partial per block of the tile, batch row, key tile, query tile
+    keys, queries = stu_attention.ds_tile(ad, lh)
+    assert (keys, queries) == ((64, 64) if ad >= 32 and lh >= 32 else (128, 32))
+    partials = []
+    for bi in range(ds.shape[0]):
+        for k0 in range(0, l, keys):
+            for q0 in range(0, l, queries):
+                tile = (bi, slice(q0, q0 + queries), slice(k0, k0 + keys))
+                partials.append(torch.stack([ds[tile][buckets[tile] == j].sum() for j in range(NB + 1)]))
+    torch.testing.assert_close(sums, torch.stack(partials).sum(dim=0), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "l,ad,lh,mask,block_q", [(100, 32, 32, "causal", 32), (90, 64, 64, "causal", 32), (100, 64, 32, "key_padding", 64),
+                             (90, 32, 32, "key_padding", 32)]
+)
+def test_score_gradient_twin_matches_jax_pallas_bwd(l: int, ad: int, lh: int, mask: str, block_q: int) -> None:
+    """The score-gradient kernel's twin (ds summed over heads, its sums by time
+    bucket per block of the card's 64 x 64 tile, then over the blocks), from
+    which the two tables get their gradients, against the JAX ``_stu_pallas_bwd``
+    in interpret mode (its ``_stu_ds_kernel``): ``dtw`` and ``dpw``, at L = 100
+    and at a length that is not a multiple of 64, heads of 32 and 64, under the
+    causal mask and a key-padding one (shared by the batch, as the JAX kernel
+    takes it); 1e-4 absolute, as the module states."""
+    q, k, v, ts, tl, tw, pw, allowed = _inputs(l=l, ad=ad, lh=lh, seed=l + ad + lh)
+    if mask == "key_padding":  # the first 23 keys are padding, the diagonal stays
+        allowed = np.maximum(allowed * (np.arange(l) >= 23)[None, None, :], np.eye(l, dtype=np.float32)[None])
+        allowed = allowed.astype(np.float32)
+    d_out = np.random.default_rng(l + 1).normal(size=v.shape).astype(np.float32)
+    jax_bwd = jax.jit(lambda *a: _stu_pallas_bwd(*a, NB, True, True, block_q, True)[3:])
+    expected = jax_bwd(*(jnp.asarray(a) for a in (q, k, v, ts, tl, tw, pw, allowed, d_out)))
+    buckets = stu_attention.time_buckets(_t(ts), l, NB)
+    bias = stu_attention.combined_bias(buckets, _t(tw), _t(pw), l, torch.device("cpu"))
+    ds, dtw = stu_attention.stu_ds_reference(_t(q), _t(k), _t(v), bias, _t(allowed), _t(tl), _t(d_out), buckets,
+                                             NB + 1)
+    pw_leaf = _t(pw).requires_grad_()
+    (dpw,) = torch.autograd.grad(stu_attention.toeplitz_bias(pw_leaf, l), pw_leaf, ds.sum(dim=0))
+    assert stu_attention.ds_tile(ad, lh) == (64, 64)
+    for name, g, e in zip(("dtw", "dpw"), (dtw, dpw), expected):
+        assert np.abs(np.asarray(e)).max() > 0
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=1e-4, rtol=0, err_msg=name)
 
 
 def test_fully_padded_rows_give_zeros_and_no_nan() -> None:
