@@ -34,7 +34,10 @@ own lines; any failure exits nonzero and prints no result:
              tensor-core products at d = 128: its bound is counted at 495
              TFLOP/s TF32, three products per f32 product, with the FP32 bound
              beside it; the split kernels' times are printed beside their
-             SIMT-tile times (``redesigned:`` lines).
+             SIMT-tile times (``redesigned:`` lines). So are the attention
+             kernels' (2 at serving and with dropout, and 5), which run
+             3xTF32 tensor-core products at head dim 32 and give the same
+             bits on a rerun.
 4. main    — SASRecModel serving at the KION width: a synthetic KION-shaped
              frame (8,192 users, sessions of 1-300 Zipf-drawn items over
              15,871 ids) -> Dataset.construct -> load_jax_params with random
@@ -140,8 +143,9 @@ PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores, data s
 # the kernels on the SIMT tile, before they moved to the tensor cores (PERF.md §6, NVIDIA H100 80GB HBM3 at
 # 700 W): kernels 7, 9 and 12 (kernel 7 then its two launches), the split kernels (7's two launches, 10, 11, 13,
 # 14), kernels 6 and 18 (kernel 6 at 65,536 and 131,072 items: its device time in a one-step profile of those
-# fits), and kernels 8 (at the three mesh shapes) and 19 (with the bucket sums), by the entry of `kernels` that
-# holds this run's time; printed beside this run's times on `redesigned:` lines, never in the JSON line
+# fits), kernels 8 (at the three mesh shapes) and 19 (with the bucket sums), and kernels 2 (at serving, and with
+# dropout at the training width) and 5, by the entry of `kernels` that holds this run's time; printed beside this
+# run's times on `redesigned:` lines, never in the JSON line
 SIMT_TILE_MS = {
     "ce_grads": 33.2298, "lse_bwd_fused": 24.6118, "grads_z_fused": 24.3758, "ce_grads_pair": 33.4354,
     "lse_bwd_ds": 17.7596, "lse_bwd_di": 16.1084, "lse_bwd_ds_shard_2x2": 5.0311, "lse_bwd_di_shard_2x2": 5.1938,
@@ -151,6 +155,7 @@ SIMT_TILE_MS = {
     "stu_bwd": 0.8185, "stu_bwd_long_ctx": 10.7321,
     "lse_bias_fwd": 9.6292, "lse_bias_fwd_shard_2x2": 2.9302, "lse_bias_fwd_ragged_shard": 1.4812,
     "stu_ds": 0.8109, "stu_ds_long_ctx": 6.8854,
+    "attention_fwd": 1.6675, "attention_fwd_train": 0.2841, "attention_bwd": 0.6189,
 }
 LN_TOL = 1e-5
 ATTN_TOL = 1e-5
@@ -279,15 +284,18 @@ def kernel_phase(torch, dev, b: int = 4096) -> dict:
     ref_out, ref_lse = attention.attention_reference(qt, kt, vt, bias, scale)
     err = max((out - ref_out).abs().max().item(), (lse - ref_lse).abs().max().item())
     check(err <= ATTN_TOL, f"attention kernel disagrees with its twin: max abs err {err}")
+    again = attention.attention_fwd(qt, kt, vt, bias, scale)
+    check(bool(torch.equal(again[0], out) and torch.equal(again[1], lse)), "attention forward: other bits on a rerun")
     n_bytes = 4 * q.numel() * 4 + lse.numel() * 4 + bias.numel() * 4
-    n_ops = 4 * b * h * l * l * dh  # q·kᵀ and p·v, 2 operations per multiply-add
+    n_ops = 4 * b * h * l * l * dh  # q·kᵀ and p·v over every (query, key) pair, 2 operations per multiply-add
     results["attention_fwd"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: attention.attention_fwd(qt, kt, vt, bias, scale)),
         plain_ms=time_ms(lambda: attention.attention_reference(qt, kt, vt, bias, scale), iters=3),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias, scale=scale)),
-        bound=bound_ms(n_bytes, n_ops),
+        **tc_bounds(n_bytes, n_ops),  # head dim 32: the tensor-core kernel (attention.TC_HEAD_DIMS)
     )
+    del again
     del q, k, v, qt, kt, vt, out, lse, ref_out, ref_lse
 
     # grouped top-m: the (B, 15,872) masked score rows, m = 12
@@ -387,6 +395,9 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     ref_out, ref_lse = attention.attention_reference(q, k, v, bias, scale, DROPOUT, seed)
     err = max((out - ref_out).abs().max().item(), (lse - ref_lse).abs().max().item())
     check(err <= ATTN_TOL, f"attention forward with dropout disagrees with its twin: max abs err {err}")
+    again = attention.attention_fwd(q, k, v, bias, scale, DROPOUT, seed)
+    check(bool(torch.equal(again[0], out) and torch.equal(again[1], lse)),
+          "attention forward with dropout: other bits on a rerun")
     # keep bits: with q = k = 0 every probability is 1/L, and one-hot values
     # carry each key column's kept-or-dropped probability into the output
     zeros = torch.zeros_like(q)
@@ -409,13 +420,16 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         ms=time_ms(lambda: attention.attention_fwd(q, k, v, bias, scale, DROPOUT, seed)),
         plain_ms=time_ms(lambda: attention.attention_reference(q, k, v, bias, scale, DROPOUT, seed), iters=3),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)),
-        bound=bound_ms(4 * q.numel() * 4 + lse.numel() * 4 + bias.numel() * 4, 4 * flops),
+        **tc_bounds(4 * q.numel() * 4 + lse.numel() * 4 + bias.numel() * 4, 4 * flops),
     )
     delta = (dout * out).sum(-1).contiguous()
     got = attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)
     ref = attention.attention_bwd_reference(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)
     err = max((a - r).abs().max().item() for a, r in zip(got, ref))
     check(err <= ATTN_TOL, f"attention backward disagrees with its twin: max abs err {err}")
+    again = attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)
+    check(all(bool(torch.equal(a, g)) for a, g in zip(again, got)), "attention backward: other bits on a rerun")
+    print("train kernels: attention forward (serving and with dropout) and backward bit-equal on a rerun")
     results["attention_bwd"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)),
@@ -423,9 +437,9 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
             lambda: attention.attention_bwd_reference(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed), iters=3
         ),
         library_ms=grad_ms(out_lib, (qg, kg, vg), dout),
-        bound=bound_ms(7 * q.numel() * 4 + 2 * lse.numel() * 4 + bias.numel() * 4, 10 * flops),
+        **tc_bounds(7 * q.numel() * 4 + 2 * lse.numel() * 4 + bias.numel() * 4, 10 * flops),
     )
-    del q, k, v, dout, out, lse, ref_out, ref_lse, zeros, kept, mask, qg, kg, vg, out_lib, delta, got, ref
+    del q, k, v, dout, out, lse, ref_out, ref_lse, zeros, kept, mask, qg, kg, vg, out_lib, delta, got, ref, again
     torch.cuda.empty_cache()
 
     # kernels 6, 15, 16, 12-14 and 7: session towers (B*L, d) against the 15,872-row item table

@@ -17,7 +17,10 @@ twin all draw the same mask, bit for bit the JAX one for the same int32 seed.
 Masks are finite additive biases (``MASK_VALUE = -1e9`` in net_blocks), never
 ``-inf``. The bias is a constant mask (the JAX ``bias_has_grad=False``
 default): a bias that requires a gradient raises. The kernels take head dims
-8, 16, 32 and 64 (``SUPPORTED_HEAD_DIMS``); others raise on CUDA.
+8, 16, 32 and 64 (``SUPPORTED_HEAD_DIMS``); others raise on CUDA. At head
+dims 32 and 64 (``TC_HEAD_DIMS``) both run their products on the tensor
+cores in 3xTF32 (each f32 operand as two TF32 halves; on an H100 as close to
+float64 as the f32 FMA kernels at these depths); at 8 and 16 in f32 FMA.
 """
 
 import ctypes
@@ -40,6 +43,16 @@ _SIGNATURES = {
     "attn_bwd_f32": (_C,) * 10 + (_I,) * 4 + (_L,) * 21 + _TAIL,
 }
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
+# The head dims whose kernels run on the tensor cores (csrc/attention.cu
+# `attn_tensor_cores`), and their tiles: a forward block owns FWD_TILE queries
+# and walks the keys in tiles of FWD_TILE; a backward block owns a (b, h) row
+# and walks the keys in tiles of BWD_KEY_TILE and, per key tile, the queries
+# in tiles of BWD_QUERY_TILE. A warp's unit of work, 16 x 32 (forward:
+# queries x keys; backward: keys x queries), is skipped when its bias masks
+# all of it.
+TC_HEAD_DIMS = (32, 64)
+FWD_TILE = 64
+BWD_KEY_TILE, BWD_QUERY_TILE = 128, 32
 
 # The counter hash of rectools_tpu/ops/attention.py:39-75 on uint32 values held
 # in int64: ``& MASK32`` after every multiply keeps the low 32 bits of the

@@ -137,6 +137,30 @@ def test_stu_bwd_tile_matches_the_cuda_source() -> None:
         (a, l) for a in (32, 64) for l in (32, 64)}
 
 
+def test_attention_tile_matches_the_cuda_source() -> None:
+    """Kernels 2 and 5 take the tensor-core kernels exactly at
+    ``attention.TC_HEAD_DIMS`` (one rule in the ``.cu``, used by both
+    launches), on the tiles the wrapper module names, which the CPU emulation
+    of their order (tests/test_torch_ops_training.py) walks: a forward block
+    of 4 warps owns ``FWD_TILE`` queries and steps ``FWD_TILE`` keys; a
+    backward block of 8 warps owns a (b, h) row, ``BWD_KEY_TILE`` keys a step
+    (16 a warp) and ``BWD_QUERY_TILE`` queries a step. At the SASRec training
+    shape that is 4,096 forward and 2,048 backward blocks."""
+    src = (REPO / "rectools_tpu_torch" / "csrc" / "attention.cu").read_text()
+    rule = "constexpr bool attn_tensor_cores(int dh) { return dh == 32 || dh == 64; }"
+    assert rule in src and attention.TC_HEAD_DIMS == (32, 64)
+    assert set(attention.TC_HEAD_DIMS) < set(attention.SUPPORTED_HEAD_DIMS)
+    assert src.count("if constexpr (attn_tensor_cores(DH))") == 2  # launch_fwd, launch_bwd
+    const = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+             for name in ("kFwdTile", "kFwdThreads", "kBwdKeys", "kBwdQueries", "kBwdThreads")}
+    assert const["kFwdTile"] == attention.FWD_TILE
+    assert (const["kBwdKeys"], const["kBwdQueries"]) == (attention.BWD_KEY_TILE, attention.BWD_QUERY_TILE)
+    assert const["kFwdThreads"] == 32 * attention.FWD_TILE // 16 and const["kBwdThreads"] == 32 * attention.BWD_KEY_TILE // 16
+    assert "const long long blocks = (long long)p.B * p.H * ((p.L + kFwdTile - 1) / kFwdTile);" in src
+    assert "attn_bwd_tc_kernel<DH, kDropout><<<(unsigned)(p.B * p.H), kBwdThreads, smem, stream>>>(p);" in src
+    assert 512 * 4 * -(-100 // attention.FWD_TILE) == 4096
+
+
 def test_lse_bias_chunks_match_the_cuda_source() -> None:
     """Kernel 8 is kernel 6's launch with a bias: ``lse_bias_f32`` runs the
     same (session tile, item chunk) grid on the same two tiles, and the
@@ -217,6 +241,15 @@ def _causal_bias(l: int) -> np.ndarray:
     return np.where(np.tril(np.ones((l, l), dtype=bool)), 0.0, MASK_VALUE).astype(np.float32)[None, None]
 
 
+def _masked_row_bias(l: int) -> np.ndarray:
+    """The causal bias with query row l // 3 masked everywhere: its lse is
+    about MASK_VALUE and p = exp(s - lse) is 1 for every key, in the twin and
+    in the kernels (never skipped)."""
+    bias = _causal_bias(l)
+    bias[..., l // 3, :] = MASK_VALUE
+    return bias
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,d,eps", [(4099, 128, 1e-6), (33, 96, 1e-8), (7, 1024, 1e-6)])
 def test_cuda_layer_norm_matches_twin(cuda: torch.device, m: int, d: int, eps: float) -> None:
@@ -230,8 +263,8 @@ def test_cuda_layer_norm_matches_twin(cuda: torch.device, m: int, d: int, eps: f
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bias_kind", ["none", "causal", "key_padding"])
-@pytest.mark.parametrize("l,dh", [(100, 32), (12, 16), (257, 64)])
+@pytest.mark.parametrize("bias_kind", ["none", "causal", "key_padding", "masked_row"])
+@pytest.mark.parametrize("l,dh", [(100, 32), (12, 16), (257, 64), (100, 64), (37, 32)])
 def test_cuda_attention_matches_twin(cuda: torch.device, bias_kind: str, l: int, dh: int) -> None:
     rng = np.random.default_rng(l)
     b, h = 3, 4
@@ -239,6 +272,8 @@ def test_cuda_attention_matches_twin(cuda: torch.device, bias_kind: str, l: int,
     bias = None
     if bias_kind == "causal":
         bias = _t(_causal_bias(l)).to(cuda)
+    elif bias_kind == "masked_row":
+        bias = _t(_masked_row_bias(l)).to(cuda)
     elif bias_kind == "key_padding":
         pad = np.arange(l)[None, :] < rng.integers(0, l, size=b)[:, None]
         kp = np.where(pad, MASK_VALUE, 0.0)[:, None, None, :] + _causal_bias(l)
@@ -253,6 +288,8 @@ def test_cuda_attention_matches_twin(cuda: torch.device, bias_kind: str, l: int,
     ref_out, ref_lse = attention.attention_reference(qt, kt, vt, bias, scale)
     torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    again = attention.attention_fwd(qt, kt, vt, bias, scale)  # the same bits on a rerun
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
 @pytest.mark.gpu
@@ -385,7 +422,8 @@ def _blhd(rng: np.random.Generator, b: int, l: int, h: int, dh: int, dev: torch.
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("l,dh,bias_kind", [(100, 32, "causal"), (12, 16, "none"), (200, 64, "key_padding")])
+@pytest.mark.parametrize("l,dh,bias_kind", [(100, 32, "causal"), (12, 16, "none"), (200, 64, "key_padding"),
+                                          (100, 64, "causal"), (37, 32, "key_padding"), (100, 32, "masked_row")])
 def test_cuda_attention_fwd_bwd_with_dropout_matches_twin(
     cuda: torch.device, rate: float, l: int, dh: int, bias_kind: str
 ) -> None:
@@ -395,6 +433,8 @@ def test_cuda_attention_fwd_bwd_with_dropout_matches_twin(
     bias = None
     if bias_kind == "causal":
         bias = _t(_causal_bias(l)).to(cuda)
+    elif bias_kind == "masked_row":
+        bias = _t(_masked_row_bias(l)).to(cuda)
     elif bias_kind == "key_padding":  # (B, 1, L, L): per-batch strides in both kernels
         pad = np.arange(l)[None, :] < rng.integers(0, l, size=b)[:, None]
         kp = np.where(pad, MASK_VALUE, 0.0)[:, None, None, :] + _causal_bias(l)
@@ -410,8 +450,34 @@ def test_cuda_attention_fwd_bwd_with_dropout_matches_twin(
     got = attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, rate, seed)
     assert _native.LAUNCHES["attention_bwd"] == before + 1
     expected = attention.attention_bwd_reference(q, k, v, bias, lse, delta, dout, scale, rate, seed)
-    for a, e in zip(got, expected):
+    rows = torch.ones(l, dtype=torch.bool, device=cuda)
+    if bias_kind == "masked_row":
+        # The fully masked row has p = 1 on every key, so its ds is the size
+        # of delta (about 100, not a probability's) and its dq a cancelling sum
+        # of L such terms: two f32 orders part there by that sum's rounding
+        # (the twin itself is 8e-5 / 4e-4 from the exact sum of its own terms
+        # at L = 100 / 257). That row's dq, the kernel's and the twin's, is
+        # held to the f32 error bound of the exact sum, L * 2^-24 * sum |ds k|
+        # * scale; every other entry to 1e-5 as usual.
+        r = l // 3
+        rows[r] = False
+        p = torch.exp(attention._scores(q, k, bias, scale)[:, :, r] - lse[:, :, r, None])  # (B, H, L)
+        dp = torch.einsum("bhd,bhkd->bhk", dout[:, :, r], v)
+        if rate > 0.0:
+            dp = dp * attention.dropout_keep_mask(seed, b, h, l, rate, cuda)[:, :, r] / (1.0 - rate)
+        ds = (p * (dp - delta[:, :, r, None])).double()
+        exact = torch.einsum("bhk,bhkd->bhd", ds, k.double()) * scale
+        bound = l * 2.0**-24 * torch.einsum("bhk,bhkd->bhd", ds.abs(), k.double().abs()) * scale
+        for dq in (got[0], expected[0]):
+            assert ((dq[:, :, r].double() - exact).abs() <= bound).all()
+    torch.testing.assert_close(got[0][:, :, rows], expected[0][:, :, rows], atol=1e-5, rtol=1e-5)
+    for a, e in zip(got[1:], expected[1:]):
         torch.testing.assert_close(a, e, atol=1e-5, rtol=1e-5)
+    # the same bits on a rerun, forward and backward
+    again = attention.attention_fwd(q, k, v, bias, scale, rate, seed)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    again = attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, rate, seed)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
 @pytest.mark.gpu

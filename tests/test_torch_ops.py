@@ -66,11 +66,23 @@ def _key_padding_bias(b: int, l: int, rng: np.random.Generator) -> np.ndarray:
     return (bias + _causal_bias(l)).astype(np.float32)
 
 
-@pytest.mark.parametrize("bias_kind", ["causal", "key_padding"])
+@pytest.mark.parametrize("bias_kind", ["causal", "key_padding", "masked_row"])
 def test_attention_twin_matches_jax(bias_kind: str) -> None:
+    """``masked_row``: the causal bias with query row 37 masked everywhere.
+    Its lse rounds to its max (about MASK_VALUE), so p = exp(s - lse) is 1
+    for every key. The JAX package's two paths part there: its XLA path (the
+    one it takes below L = 256) and both packages' backward use that p, and
+    the output is the sum of v; its Pallas kernel divides by the sum of p
+    and gives the mean of v. The twin (and the port's kernels) take the XLA
+    path's value; every other row and every lse agree with both paths."""
     b, h, l, dh = 3, 2, 100, 16  # L=100: not a multiple of the 64-row q tile
     q, k, v = _attention_inputs(b, h, l, dh, seed=7)
     bias = _causal_bias(l) if bias_kind == "causal" else _key_padding_bias(b, l, np.random.default_rng(8))
+    rows = np.ones(l, dtype=bool)  # the rows held against both JAX paths
+    if bias_kind == "masked_row":
+        bias = _causal_bias(l)
+        bias[..., 37, :] = MASK_VALUE
+        rows[37] = False
     scale = 1.0 / np.sqrt(dh)
     out, lse = attention.attention_fwd(_t(q), _t(k), _t(v), _t(bias), scale)
 
@@ -80,8 +92,12 @@ def test_attention_twin_matches_jax(bias_kind: str) -> None:
     _, jax_lse = jax_attention._pallas_attention(jq, jk, jv, jb, seed, scale, 0.0, 64, interpret=True)
     ref_out, ref_lse = jax_attention._reference_attention(jq, jk, jv, jb, scale)
     for expected_out, expected_lse in ((jax_out, jax_lse), (ref_out, ref_lse)):
-        np.testing.assert_allclose(out.numpy(), np.asarray(expected_out), atol=2e-5)
+        np.testing.assert_allclose(out.numpy()[:, :, rows], np.asarray(expected_out)[:, :, rows], atol=2e-5)
         np.testing.assert_allclose(lse.numpy(), np.asarray(expected_lse), atol=2e-5, rtol=1e-6)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=2e-5)
+    if bias_kind == "masked_row":
+        np.testing.assert_allclose(out.numpy()[:, :, 37], v.sum(axis=2), atol=2e-5)
+        np.testing.assert_allclose(np.asarray(jax_out)[:, :, 37], v.mean(axis=2), atol=2e-5)
 
 
 def test_dot_product_attention_blhd_layout_matches_jax() -> None:

@@ -751,6 +751,89 @@ def test_ce_gradients_in_3xtf32_pass_the_card_tolerance(d: int, order: str) -> N
         assert worst <= 1e-5 if three else worst > 1e-4, (three, worst)
 
 
+def _attention_fwd_tf32(q, k, v, bias, scale: float, keep, three: bool) -> tuple:
+    """Kernel 2's arithmetic on the tensor-core tile: per 32-key unit in key
+    order, s from TF32 halves, times the scale, plus the bias; the online
+    softmax of each row (running max, correction of the sum and the output);
+    p times the scaled keep bits into the value product from TF32 halves.
+    The lse is pre-dropout."""
+    b, h, l, dh = q.shape
+    m = torch.full((b, h, l), float("-inf"))
+    total = torch.zeros((b, h, l))
+    acc = torch.zeros((b, h, l, dh))
+    for kc in range(0, l, 32):
+        keys = slice(kc, min(kc + 32, l))
+        s = _mm_tf32(q, k[:, :, keys].transpose(-1, -2).contiguous(), three) * scale + bias[..., keys]
+        m_new = torch.maximum(m, s.max(dim=-1).values)
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        total = total * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + _mm_tf32((p * keep[..., keys]).contiguous(), v[:, :, keys], three)
+        m = m_new
+    return acc / total[..., None], m + torch.log(total)
+
+
+def _attention_bwd_tf32(q, k, v, bias, lse, delta, dout, scale: float, keep, three: bool) -> tuple:
+    """Kernel 5's arithmetic on the tensor-core tile: per key tile of
+    ``BWD_KEY_TILE`` and query tile of ``BWD_QUERY_TILE`` in order, s^T and
+    dp^T from TF32 halves, p, p_drop and ds in f32, dv += p_drop^T dout and
+    dk += ds^T q from TF32 halves (dk times the scale at the end), and dq of
+    the query tile, ds k times the scale, written on the first key tile and
+    added on later ones."""
+    l = q.shape[2]
+    keep_t = keep.transpose(-1, -2)
+    bias_t = bias.transpose(-1, -2)
+    dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
+    for k0 in range(0, l, attention.BWD_KEY_TILE):
+        keys = slice(k0, min(k0 + attention.BWD_KEY_TILE, l))
+        dk_tile = torch.zeros_like(k[:, :, keys])
+        dv_tile = torch.zeros_like(v[:, :, keys])
+        for q0 in range(0, l, attention.BWD_QUERY_TILE):
+            rows = slice(q0, min(q0 + attention.BWD_QUERY_TILE, l))
+            st = _mm_tf32(k[:, :, keys], q[:, :, rows].transpose(-1, -2).contiguous(), three)
+            dpt = _mm_tf32(v[:, :, keys], dout[:, :, rows].transpose(-1, -2).contiguous(), three)
+            p = torch.exp(st * scale + bias_t[..., keys, rows] - lse[:, :, None, rows])
+            scaled_keep = keep_t[..., keys, rows]
+            ds = p * (dpt * scaled_keep - delta[:, :, None, rows])
+            dv_tile = dv_tile + _mm_tf32((p * scaled_keep).contiguous(), dout[:, :, rows], three)
+            dk_tile = dk_tile + _mm_tf32(ds.contiguous(), q[:, :, rows], three)
+            dq[:, :, rows] = dq[:, :, rows] + _mm_tf32(ds.transpose(-1, -2).contiguous(), k[:, :, keys], three) * scale
+        dk[:, :, keys] = dk_tile * scale
+        dv[:, :, keys] = dv_tile
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("bias_kind", ["causal", "key_padding"])
+@pytest.mark.parametrize("l,dh", [(100, 32), (100, 64), (257, 32), (257, 64)])
+def test_attention_in_3xtf32_passes_the_card_tolerance(l: int, dh: int, bias_kind: str) -> None:
+    """The arithmetic of kernels 2 and 5 on the tensor-core tile, on the CPU:
+    their products from TF32 halves in the kernels' order (the forward's
+    online softmax over 32-key units, the backward's key and query tiles) at
+    the input scale of the card's kernel phases (q, k, v, dout N(0, 1)), with
+    dropout 0.2, against the exact f32 twins. 3xTF32 stays within the card's
+    absolute limit of 1e-5 (``ATTN_TOL`` in chip_smoke.py) on out, lse, dq,
+    dk and dv; plain TF32 lands above it."""
+    rng = np.random.default_rng(l + dh)
+    b, h, rate, seed = 2, 2, 0.2, 31337
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=(b, h, l, dh)).astype(np.float32)) for _ in range(4))
+    bias = _causal_bias(l)
+    if bias_kind == "key_padding":  # left padding, the diagonal kept, as the backbone builds it
+        pad = np.arange(l)[None, :] < (l - rng.integers(1, l + 1, size=b))[:, None]
+        bias = np.where(pad, MASK_VALUE, 0.0)[:, None, None, :] + bias
+        bias[:, :, np.arange(l), np.arange(l)] = 0.0
+    bias = torch.from_numpy(bias.astype(np.float32))
+    scale = 1.0 / dh**0.5
+    keep = attention.dropout_keep_mask(seed, b, h, l, rate) / (1.0 - rate)
+    out, lse = attention.attention_reference(q, k, v, bias, scale, rate, seed)
+    delta = (dout * out).sum(dim=-1)
+    exact = (out, lse, *attention.attention_bwd_reference(q, k, v, bias, lse, delta, dout, scale, rate, seed))
+    for three in (True, False):
+        got = (*_attention_fwd_tf32(q, k, v, bias, scale, keep, three),
+               *_attention_bwd_tf32(q, k, v, bias, lse, delta, dout, scale, keep, three))
+        worst = max((g - e).abs().max().item() for g, e in zip(got, exact))
+        assert worst <= 1e-5 if three else worst > 1e-5, (three, worst)
+
+
 # ------------------------------------------------------------------ losses
 
 
