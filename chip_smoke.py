@@ -10,8 +10,10 @@ own lines; any failure exits nonzero and prints no result:
 3. kernels — each serving kernel at the shapes the serving path gives it
              (B = 4096 sessions, L = 100, d = 128, 4 heads, 15,872-column
              catalog): held against its plain PyTorch twin on the same inputs
-             on the card, and timed beside its twin, one PyTorch library call
-             (a yardstick only; the port never calls it) and its bound.
+             on the card (the grouped top-m in every value and lane id, the
+             (-inf, lane 0) slots included, on its thread-per-group kernel),
+             and timed beside its twin, one PyTorch library call (a yardstick
+             only; the port never calls it) and its bound.
    train kernels — the same for the training kernels at the KION training
              width (B = 512, L = 100, d = 128, 4 heads, 15,872 items, dropout
              0.2): LayerNorm backward, attention forward with dropout (its
@@ -69,18 +71,22 @@ own lines; any failure exits nonzero and prints no result:
              context (B = 64, L = 1,024) and, checked only, at ragged lengths
              (L = 80 and 96, with a per-row mask), timed beside the twin, the
              materialized einsum-SiLU-einsum and its autograd (the yardstick)
-             and the bound; the backward (two tensor-core launches, dk/dv and
-             dq, at heads of 32) with the share of its warps' units the masks
-             let it skip; the score gradient (one tensor-core launch at heads
-             of 32) timed with and without its bucket sums; dq, dk, dv, ds
-             and the sums of ds by time bucket bit-equal on a second run. The
+             and the bound; the forward on its tensor-core route at heads of
+             32; the backward (two tensor-core launches, dk/dv and dq, at
+             heads of 32) with the share of its warps' units the masks let it
+             skip; the score gradient (one tensor-core launch at heads of 32)
+             timed with and without its bucket sums; out, dq, dk, dv, ds and
+             the sums of ds by time bucket bit-equal on a second run. The
              forward also at the serving batch (B = 4,096, left-padded
              sessions of the frame's lengths).
              ``hstu main``: random flax-layout weights -> HSTUModel.recommend
              with a context of one later timestamp per user, all 8,192 users;
              launch counts, k unseen items, agreement with the CPU run on 64
-             users, the card's time buckets equal to the CPU's. ``hstu train``
-             and ``hstu agree``: phases 5 and 6 for HSTUModel.
+             users, the card's time buckets equal to the CPU's; the forward
+             (kernel 17) on its tensor-core route and the top-m (kernel 3) on
+             its thread-per-group kernel, by their launch counts. ``hstu
+             train`` and ``hstu agree``: phases 5 and 6 for HSTUModel, the
+             fit's forward on the tensor-core route too.
 8. mesh    — training on a (data, model) process mesh. ``mesh kernels``: the
              biased streaming lse (kernel 8: kernel 6's tensor-core tile
              with the bias, a plain-TF32 control that must fail its limit,
@@ -140,12 +146,13 @@ K = 10
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores, data sheet
 PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores, data sheet
-# the kernels on the SIMT tile, before they moved to the tensor cores (PERF.md §6, NVIDIA H100 80GB HBM3 at
-# 700 W): kernels 7, 9 and 12 (kernel 7 then its two launches), the split kernels (7's two launches, 10, 11, 13,
-# 14), kernels 6 and 18 (kernel 6 at 65,536 and 131,072 items: its device time in a one-step profile of those
-# fits), kernels 8 (at the three mesh shapes) and 19 (with the bucket sums), and kernels 2 (at serving, and with
-# dropout at the training width) and 5, by the entry of `kernels` that holds this run's time; printed beside this
-# run's times on `redesigned:` lines, never in the JSON line
+# the redesigned kernels' times before their redesign (PERF.md §6, NVIDIA H100 80GB HBM3 at 700 W): on the SIMT
+# tile, before they moved to the tensor cores, kernels 7, 9 and 12 (kernel 7 then its two launches), the split
+# kernels (7's two launches, 10, 11, 13, 14), kernels 6 and 18 (kernel 6 at 65,536 and 131,072 items: its device
+# time in a one-step profile of those fits), kernels 8 (at the three mesh shapes) and 19 (with the bucket sums),
+# kernels 2 (at serving, and with dropout at the training width) and 5, and kernel 17 (at the training width, at
+# L = 1,024 and at serving); kernel 3 on its warp-per-group kernel (at serving); by the entry of `kernels` that
+# holds this run's time; printed beside this run's times on `redesigned:` lines, never in the JSON line
 SIMT_TILE_MS = {
     "ce_grads": 33.2298, "lse_bwd_fused": 24.6118, "grads_z_fused": 24.3758, "ce_grads_pair": 33.4354,
     "lse_bwd_ds": 17.7596, "lse_bwd_di": 16.1084, "lse_bwd_ds_shard_2x2": 5.0311, "lse_bwd_di_shard_2x2": 5.1938,
@@ -156,6 +163,7 @@ SIMT_TILE_MS = {
     "lse_bias_fwd": 9.6292, "lse_bias_fwd_shard_2x2": 2.9302, "lse_bias_fwd_ragged_shard": 1.4812,
     "stu_ds": 0.8109, "stu_ds_long_ctx": 6.8854,
     "attention_fwd": 1.6675, "attention_fwd_train": 0.2841, "attention_bwd": 0.6189,
+    "stu_fwd": 0.2795, "stu_fwd_long_ctx": 4.0498, "stu_fwd_serving": 1.9215, "group_topm": 0.6820,
 }
 LN_TOL = 1e-5
 ATTN_TOL = 1e-5
@@ -251,7 +259,7 @@ def bound_text(r: dict) -> str:
 def kernel_phase(torch, dev, b: int = 4096) -> dict:
     import torch.nn.functional as F
 
-    from rectools_tpu_torch.ops import attention, layer_norm, topk_select
+    from rectools_tpu_torch.ops import _native, attention, layer_norm, topk_select
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     l, h, d = SESSION_MAX_LEN, N_HEADS, N_FACTORS
@@ -303,11 +311,15 @@ def kernel_phase(torch, dev, b: int = 4096) -> dict:
     m = topk_select.pick_m(n_pad, K)
     scores = torch.randn((b, n_pad), generator=gen, device=dev)
     scores[:, N_ITEM_IDS:] = float("-inf")
+    before = _native.LAUNCHES["group_topm"]
     vals, lanes = topk_select.group_topm(scores, m)
+    check(_native.LAUNCHES["group_topm"] == before + 1,
+          f"group_topm at m={m} did not take the thread-per-group kernel")
     ref_vals, ref_lanes = topk_select.group_topm_reference(scores, m)
     finite = torch.isfinite(ref_vals)
     check(bool(torch.equal(vals, ref_vals)), "group_topm values differ from its twin")
-    check(bool(torch.equal(lanes[finite], ref_lanes[finite])), "group_topm lane ids differ from its twin")
+    # every slot: past a group's finite values the TPU's rule gives (-inf, lane 0)
+    check(bool(torch.equal(lanes, ref_lanes)), "group_topm lane ids differ from its twin")
     g = n_pad // 128
     n_bytes = scores.numel() * 4 + b * g * m * 8
     results["group_topm"] = dict(
@@ -777,9 +789,10 @@ def _stu_case(torch, dev, gen, b: int, l: int, per_row_allowed: bool = False, se
 
 def _stu_check(torch, args, dout, buckets, what: str, forward_only: bool = False) -> dict:
     """The three kernels (or the forward alone) against their twins on one
-    case; dq, dk, dv, ds and the sums of ds by bucket bit-equal on a second
-    run. Returns each kernel's largest absolute error."""
-    from rectools_tpu_torch.ops import stu_attention
+    case, the forward on its tensor-core route; out, dq, dk, dv, ds and the
+    sums of ds by bucket bit-equal on a second run. Returns each kernel's
+    largest absolute error."""
+    from rectools_tpu_torch.ops import _native, stu_attention
 
     def worst(got, ref, tol: float, name: str) -> float:
         err = (got - ref).abs().max().item()
@@ -787,9 +800,12 @@ def _stu_check(torch, args, dout, buckets, what: str, forward_only: bool = False
         check(bool(torch.isfinite(got).all()) and err <= limit, f"{name} {what}: max abs err {err} above {limit}")
         return err
 
+    before = _native.LAUNCHES["stu_fwd"]
     out = stu_attention.stu_fwd(*args)
+    check(_native.LAUNCHES["stu_fwd"] == before + 1, f"stu_fwd {what} did not take the tensor-core route")
     errs = {"stu_fwd": worst(out, stu_attention.stu_reference(*args), STU_FWD_TOL, "stu_fwd")}
     check(not bool(out[-1].any()), f"stu_fwd {what}: a fully padded row did not come out as zeros")
+    check(bool(torch.equal(stu_attention.stu_fwd(*args), out)), f"stu_fwd {what}: a second run gave other bits")
     if forward_only:
         return errs
     got = stu_attention.stu_bwd(*args, dout)
@@ -835,7 +851,7 @@ def stu_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         args = (q, k, v, bias, allowed, timeline)
         errs = _stu_check(torch, args, dout, buckets, f"at L={l}")
         print(f"stu kernels: at L={l}{' with a per-row mask' if per_row else ''}, max abs err {errs}; "
-              "dq, dk, dv, ds, bucket sums bit-equal on a second run; stu_bwd "
+              "out, dq, dk, dv, ds, bucket sums bit-equal on a second run; stu_bwd "
               f"{time_ms(lambda: stu_attention.stu_bwd(*args, dout)):.4f} ms, skipping (dk/dv, dq) "
               f"{_dead_unit_shares(torch, allowed, timeline, stu_attention.BWD_TILE)} of their units")
 
@@ -863,11 +879,12 @@ def stu_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
             ms=time_ms(lambda: stu_attention.stu_fwd(*args), iters=iters),
             plain_ms=time_ms(lambda: stu_attention.stu_reference(*args), iters=iters),
             library_ms=time_ms(lambda: library(*args), iters=iters),
-            bound=bound_ms(qkv_bytes + mask_bytes, 2 * n_pairs * 2 * d),
+            # heads of 32: the forward's two products run in 3xTF32 on the tensor cores
+            **tc_bounds(qkv_bytes + mask_bytes, 2 * n_pairs * 2 * d),
         )
         if serving:
             print(f"stu kernels: forward at B={bb}, L={l}: {n_pairs:.0f} unmasked (head, query, key) pairs of "
-                  f"{bb * h * l * l}")
+                  f"{bb * h * l * l}; out bit-equal on a second run")
             del q, k, v, dout, bias, allowed, timeline, buckets, args
             torch.cuda.empty_cache()
             continue
@@ -908,7 +925,7 @@ def stu_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         ds_alone_ms = time_ms(lambda: stu_attention.stu_ds(*args, dout), iters=iters)
         print(f"stu kernels: at B={bb}, L={l}: {n_pairs:.0f} unmasked (head, query, key) pairs of {bb * h * l * l}; "
               f"stu_ds without the bucket sums {ds_alone_ms:.4f} ms; stu_bwd skips (dk/dv, dq) {dead[0]:.3f}, "
-              f"{dead[1]:.3f} of its warps' units; dq, dk, dv, ds, bucket sums bit-equal on a second run")
+              f"{dead[1]:.3f} of its warps' units; out, dq, dk, dv, ds, bucket sums bit-equal on a second run")
         del q, k, v, dout, bias, allowed, timeline, buckets, args, leaves, lib_out
         torch.cuda.empty_cache()
     for name, r in results.items():
@@ -1242,6 +1259,9 @@ def main_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
                         group_topm=n_batches)
     check(launches == expected, f"launches on the {tag} path {launches}, expected {expected}")
     print(f"{tag}: recommend {len(users)} users in {n_batches} batches, launches {launches}")
+    if hstu:  # `expected` holds stu_fwd_simt and group_topm_warp at 0
+        print(f"{tag}: kernel 17 on the tensor-core route, {launches['stu_fwd']} launches (SIMT route 0); kernel 3 "
+              f"on the thread-per-group kernel, {launches['group_topm']} launches (warp kernel 0)")
 
     check(len(reco) == K * len(users), f"{len(reco)} rows, expected {K * len(users)}")
     check(bool((reco.groupby("user_id").size() == K).all()), "some user did not get k items")
@@ -1378,6 +1398,8 @@ def train_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
         expected.update(layer_norm_fwd=(2 * N_BLOCKS + 1) * forwards, attention_fwd=N_BLOCKS * forwards,
                         layer_norm_bwd=(2 * N_BLOCKS + 1) * steps, attention_bwd=N_BLOCKS * steps)
     check(launches == expected, f"launches in {tag} {launches}, expected {expected}")
+    if hstu:  # `expected` holds stu_fwd_simt at 0
+        print(f"{tag}: kernel 17 on the tensor-core route, {launches['stu_fwd']} launches (SIMT route 0)")
     losses, val_losses = tm.train_loss_history, tm.val_loss_history
     recall = tm.val_metric_history.get(f"val_recall@{K}", [])
     check(len(losses) == EPOCHS and bool(np.isfinite(losses).all()), f"train losses {losses}")
@@ -1938,7 +1960,7 @@ def main() -> int:
     table = {
         "layer_norm_fwd": ("layer_norm.cu", "layer_norm.py:27", ("layer_norm_fwd",), "layer_norm_fwd"),
         "attention_fwd": ("attention.cu", "attention.py:104", ("attention_fwd",), "attention_fwd"),
-        "group_topm": ("topk_select.cu", "topk_select.py:49", ("group_topm",), "group_topm"),
+        "group_topm": ("topk_select.cu", "topk_select.py:49", ("group_topm", "group_topm_warp"), "group_topm"),
         "layer_norm_bwd": ("layer_norm.cu", "layer_norm.py:36", ("layer_norm_bwd",), "layer_norm_bwd"),
         "attention_bwd": ("attention.cu", "attention.py:256", ("attention_bwd",), "attention_bwd"),
         "lse_partials_fwd": ("softmax_lse.cu", "softmax_lse.py:169", ("lse_partials_fwd",), "lse_partials_fwd"),
@@ -1953,7 +1975,7 @@ def main() -> int:
         "grads_z_di": ("softmax_lse.cu", "softmax_lse.py:774", ("grads_z_di",), "grads_z_di"),
         "lse_fwd": ("softmax_lse.cu", "softmax_lse.py:127", ("lse_fwd",), "lse_fwd"),
         "lse_shift_fwd": ("softmax_lse.cu", "softmax_lse.py:50", ("lse_shift_fwd",), "lse_shift_fwd"),
-        "stu_fwd": ("stu_attention.cu", "stu_attention.py:90", ("stu_fwd",), "stu_fwd"),
+        "stu_fwd": ("stu_attention.cu", "stu_attention.py:90", ("stu_fwd", "stu_fwd_simt"), "stu_fwd"),
         "stu_bwd": ("stu_attention.cu", "stu_attention.py:274", ("stu_bwd", "stu_bwd_dq"), "stu_bwd"),
         "stu_ds": ("stu_attention.cu", "stu_attention.py:316", ("stu_ds",), "stu_ds"),
     }
@@ -2001,9 +2023,8 @@ def main() -> int:
             entry["large_catalog_route"] = kernels["ce_grads_large_catalog_route"]
         check(entry["launches"] > 0, f"{name}: no path launched it")
         entries.append(entry)
-    for key, simt_ms in SIMT_TILE_MS.items():  # redesigned on the tensor cores
-        print(f"redesigned: {key} {kernels[key]['ms']:.4f} ms on the tensor-core tile beside {simt_ms} ms on the SIMT "
-              f"tile (PERF.md §6)")
+    for key, before_ms in SIMT_TILE_MS.items():  # redesigned
+        print(f"redesigned: {key} {kernels[key]['ms']:.4f} ms beside {before_ms} ms before its redesign (PERF.md §6)")
     line = {
         "kernels": entries,
         "recommend": {k: v for k, v in main_result.items() if k != "launches"},

@@ -1,6 +1,7 @@
 // The 3xTF32 tensor-core tile's building blocks, shared by the kernels of
 // softmax_lse.cu (the gradient kernels, kernels 6 and 8), stu_attention.cu
-// (kernels 18 and 19) and attention.cu (kernels 2 and 5): TF32 rounding and
+// (kernels 17-19) and attention.cu (kernels 2 and 5; topk_select.cu takes
+// its cp.async helpers): TF32 rounding and
 // the hi/lo split, `mma.sync` m16n8k8 with a fresh fragment per 16 k,
 // `ldmatrix`, `cp.async`, the swizzle of a staged tile, and (at the end) the
 // row tiles of the attention kernels: rows of one (b, h) staged at a pitch
@@ -164,7 +165,7 @@ __device__ __forceinline__ void cp_wait() {
 // Tiles of whole rows of one (b, h) (q, k, v, dout), products over their
 // head dim, and accumulator fragments fed back as the A operand of the next
 // product: the attention kernels of attention.cu (kernels 2 and 5) and of
-// stu_attention.cu (kernels 18 and 19). A warp's rows are 16 w + [0, 16) of
+// stu_attention.cu (kernels 17-19). A warp's rows are 16 w + [0, 16) of
 // its block's tile.
 
 // Staged row tiles have a pitch of d + 4 floats: the m16n8k8 fragment reads

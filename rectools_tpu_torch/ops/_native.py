@@ -36,6 +36,7 @@ LAUNCHES: tp.Dict[str, int] = {
     "layer_norm_fwd": 0,
     "attention_fwd": 0,
     "group_topm": 0,
+    "group_topm_warp": 0,
     "layer_norm_bwd": 0,
     "attention_bwd": 0,
     "lse_partials_fwd": 0,
@@ -52,6 +53,7 @@ LAUNCHES: tp.Dict[str, int] = {
     "grads_z_ds": 0,
     "grads_z_di": 0,
     "stu_fwd": 0,
+    "stu_fwd_simt": 0,
     "stu_bwd": 0,
     "stu_bwd_dq": 0,
     "stu_ds": 0,

@@ -9,11 +9,12 @@ each timestamp difference, plus a Toeplitz matrix of 2L − 1 positional
 weights. As in the JAX package it is computed outside the kernels (here with
 torch ops, :func:`combined_bias`) and streamed in.
 
-Three kernels (``csrc/stu_attention.cu``): the forward (``stu_fwd_f32``), the
-backward giving dq, dk and dv (``stu_bwd_f32``; at attention and hidden dims
-of 32 or 64 it runs on the tensor cores in two launches, dq's being
-``stu_bwd_dq_f32``), and the gradient of the score summed over heads
-(``stu_ds_f32``; on the tensor cores too at those dims, with 64 x 64 tiles),
+Three kernels (``csrc/stu_attention.cu``): the forward (``stu_fwd_f32``; at
+attention and hidden dims of 32 or 64 on the tensor cores), the backward
+giving dq, dk and dv (``stu_bwd_f32``; at those dims on the tensor cores in
+two launches, dq's being ``stu_bwd_dq_f32``), and the gradient of the score
+summed over heads (``stu_ds_f32``; on the tensor cores too at those dims,
+with 64 x 64 tiles),
 from which the two tables get their gradients. A CUDA
 tensor launches them at every shape; a CPU tensor takes the plain twins
 (:func:`stu_reference`, :func:`stu_bwd_reference`, :func:`stu_ds_reference`).
@@ -277,9 +278,11 @@ def _strides(*tensors: torch.Tensor) -> tp.Tuple[int, ...]:
 
 
 def stu_fwd(q, k, v, bias, allowed, timeline) -> torch.Tensor:
-    """The forward (kernel ``stu_fwd_f32``). q, k (B, H, L, ad) and v
-    (B, H, L, lh) with any strides and a unit last one; on CUDA the output is a
-    (B, H, L, lh) view over (B, L, H, lh) memory."""
+    """The forward (kernel ``stu_fwd_f32``): on the tensor cores at the head
+    dims of :func:`bwd_on_tensor_cores` (launch key ``stu_fwd``), else the SIMT
+    kernel (``stu_fwd_simt``). q, k (B, H, L, ad) and v (B, H, L, lh) with any
+    strides and a unit last one; on CUDA the output is a (B, H, L, lh) view
+    over (B, L, H, lh) memory."""
     if q.device.type == "cpu":
         return stu_reference(q, k, v, bias, allowed, timeline)
     bias_sb, allowed_sb = _check("stu_fwd", q, k, v, bias, allowed, timeline)
@@ -293,14 +296,15 @@ def stu_fwd(q, k, v, bias, allowed, timeline) -> torch.Tensor:
             out.data_ptr(), b, h, l, ad, lh, *_strides(q, k, v, out), bias_sb, allowed_sb,
             _native.current_stream_ptr(q.device),
         )
-    _native.check_launch("stu_fwd", status)
+    _native.check_launch("stu_fwd" if bwd_on_tensor_cores(ad, lh) else "stu_fwd_simt", status)
     return out
 
 
 def bwd_on_tensor_cores(ad: int, lh: int) -> bool:
     """Whether the backward of attention dim ``ad`` and hidden dim ``lh`` runs
     on the tensor cores (two launches) rather than the SIMT kernel (one); the
-    score-gradient kernel takes the tensor cores at the same dims."""
+    forward and the score-gradient kernel take the tensor cores at the same
+    dims."""
     return ad in TC_HEAD_DIMS and lh in TC_HEAD_DIMS
 
 

@@ -5,7 +5,9 @@ Port of rectools_tpu/ops/topk_select.py.
 1. **Stage 1, kernel** (:func:`group_topm`): view each row as G groups of 128
    columns and reduce each group to its top-``m`` values and lane ids, ties
    toward the lowest lane (``csrc/topk_select.cu`` on CUDA,
-   :func:`group_topm_reference` on the CPU).
+   :func:`group_topm_reference` on the CPU). On CUDA ``m <= SELECT_MAX_M``
+   takes the thread-per-group kernel (launch key ``group_topm``), a larger m
+   the warp-per-group kernel (``group_topm_warp``).
 2. **Stage 2**: the top k of the (B, G·m) candidates by a stable descending
    ``torch.sort``. ``torch.topk`` is not used: on CUDA it does not promise
    lowest-index-first among ties, and ``lax.top_k`` does.
@@ -28,6 +30,7 @@ from . import _native
 
 GROUP_W = 128
 DEFAULT_M = 12
+SELECT_MAX_M = 16  # the largest m of the thread-per-group kernel (``kSelectMaxM`` in csrc/topk_select.cu)
 _C = ctypes.c_void_p
 _SIGNATURES = {
     "group_topm_f32": (_C, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _C, _C, _C),
@@ -81,7 +84,7 @@ def group_topm(scores: torch.Tensor, m: int) -> TopK:
             scores.data_ptr(), b, g, scores.stride(0), m, vals.data_ptr(), lanes.data_ptr(),
             _native.current_stream_ptr(scores.device),
         )
-    _native.check_launch("group_topm", status)
+    _native.check_launch("group_topm" if m <= SELECT_MAX_M else "group_topm_warp", status)
     return vals, lanes
 
 

@@ -18,7 +18,7 @@ import torch
 
 from rectools_tpu_torch.models import HSTUModel, SASRecModel, TorchRanker
 from rectools_tpu_torch.ops import _native, attention, layer_norm, softmax_lse, stu_attention, topk, topk_select
-from rectools_tpu_torch.tools import fused_bwd_variants
+from rectools_tpu_torch.tools import fused_bwd_variants, stu_fwd_topm_check
 
 REPO = Path(__file__).resolve().parents[1]
 MASK_VALUE = -1e9
@@ -123,18 +123,33 @@ def test_lse_partials_tile_matches_the_cuda_source() -> None:
 
 
 def test_stu_bwd_tile_matches_the_cuda_source() -> None:
-    """The wrapper launches the backward's second kernel (dq) exactly for the
-    head dims the ``.cu`` puts on the tensor cores, whose blocks own
-    ``BWD_TILE`` keys and ``BWD_TILE`` queries."""
+    """The wrapper launches the backward's second kernel (dq), and counts the
+    forward's launch as the tensor-core one, exactly for the head dims the
+    ``.cu`` puts on the tensor cores, whose blocks own ``BWD_TILE`` keys and
+    ``BWD_TILE`` queries."""
     src = (REPO / "rectools_tpu_torch" / "csrc" / "stu_attention.cu").read_text()
     rule = "{ return (ad == 32 || ad == 64) && (lh == 32 || lh == 64); }"
     assert f"constexpr bool stu_tensor_cores(int ad, int lh) {rule}" in src and stu_attention.TC_HEAD_DIMS == (32, 64)
-    assert src.count("if constexpr (stu_tensor_cores(AD, LH))") == 2  # the dk/dv and the dq launch
+    assert src.count("if constexpr (stu_tensor_cores(AD, LH))") == 3  # the forward, the dk/dv and the dq launch
+    assert "stu_fwd_tc_kernel<AD, LH><<<(unsigned)blocks, kFwdThreads, smem, stream>>>(p);" in src
     for name in ("kTcKeys", "kTcQueries"):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == stu_attention.BWD_TILE
     dims = stu_attention.SUPPORTED_HEAD_DIMS
     assert {(a, l) for a in dims for l in dims if stu_attention.bwd_on_tensor_cores(a, l)} == {
         (a, l) for a in (32, 64) for l in (32, 64)}
+
+
+def test_group_topm_routes_match_the_cuda_source() -> None:
+    """The wrapper counts a launch as the thread-per-group kernel's
+    (``group_topm``) exactly for the m the ``.cu`` gives it, up to
+    ``SELECT_MAX_M``, with lists of 4, 8, 12 or 16 entries; a larger m takes
+    the warp kernel (``group_topm_warp``)."""
+    src = (REPO / "rectools_tpu_torch" / "csrc" / "topk_select.cu").read_text()
+    assert int(re.search(r"constexpr int kSelectMaxM = (\d+);", src).group(1)) == topk_select.SELECT_MAX_M == 16
+    entry = src[src.index('extern "C" int group_topm_f32('):]
+    sizes = [int(n) for n in re.findall(r"if \(m <= (\d+)\) return launch_select<\1>", entry)]
+    assert sizes == [4, 8, 12] and "if (m <= kSelectMaxM) return launch_select<kSelectMaxM>" in entry
+    assert entry.index("launch_select<kSelectMaxM>") < entry.index("group_topm_kernel<<<")
 
 
 def test_attention_tile_matches_the_cuda_source() -> None:
@@ -227,6 +242,16 @@ def test_fused_bwd_variants_still_apply(name: str) -> None:
         assert text != (REPO / rel).read_text()
 
 
+@pytest.mark.parametrize("name", sorted(stu_fwd_topm_check.VARIANTS))
+def test_stu_fwd_topm_check_variants_still_apply(name: str) -> None:
+    """Each variant that tools/stu_fwd_topm_check.py builds and times on the
+    card finds each text it replaces exactly once in today's source."""
+    source, edits = stu_fwd_topm_check.VARIANTS[name]
+    assert (REPO / "rectools_tpu_torch" / "csrc" / f"{source}.cu").exists()
+    for file, old, new in edits:
+        assert (REPO / "rectools_tpu_torch" / "csrc" / file).read_text().count(old) == 1 and old != new
+
+
 # ------------------------------------------------------------------ kernels on the card
 
 
@@ -292,26 +317,49 @@ def test_cuda_attention_matches_twin(cuda: torch.device, bias_kind: str, l: int,
     assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
-@pytest.mark.gpu
-def test_cuda_group_topm_matches_twin(cuda: torch.device) -> None:
-    rng = np.random.default_rng(2)
+def _topm_cases(m: int) -> np.ndarray:
+    """(9, 5 * 128) scores whose groups hold the selection's edge cases:
+    N(0, 1) scores, ties inside a group, 128 equal values, fewer than m
+    finite values among -inf, ties straddling the m-th slot, +inf values and
+    all -inf."""
+    rng = np.random.default_rng(m)
     x = rng.normal(size=(9, 5 * 128)).astype(np.float32)
     x[:, [3, 40, 77, 127]] = 5.0  # ties inside a group: lowest lane first
-    x[1, 128:256] = 1.0
-    x[2, 256:384] = -np.inf  # all -inf: lane 0 every round on both sides
+    x[1, 128:256] = 1.0  # 128 equal values
+    x[2, 256:384] = -np.inf  # all -inf: (-inf, lane 0) every slot
     x[4, 600:] = -np.inf
-    xt = _t(x).to(cuda)
-    before = _native.LAUNCHES["group_topm"]
-    vals, lanes = topk_select.group_topm(xt, 12)
-    assert _native.LAUNCHES["group_topm"] == before + 1
-    ref_vals, ref_lanes = topk_select.group_topm_reference(xt, 12)
+    x[5, 128:256] = -np.inf  # fewer than m finite values: the rest (-inf, lane 0)
+    x[5, 128 + rng.choice(128, max(m // 2, 1), replace=False)] = rng.normal(size=max(m // 2, 1))
+    straddle = rng.normal(size=128).astype(np.float32) - 10.0  # m - 2 larger values, then 6 ties
+    straddle[rng.choice(128, max(m - 2, 0), replace=False)] = 5.0 + np.arange(max(m - 2, 0))
+    straddle[rng.choice(np.flatnonzero(straddle < 0), 6, replace=False)] = 1.0
+    x[6, 256:384] = straddle
+    x[7, [130, 200, 201]] = np.inf
+    x[8, 384:512] = np.round(x[8, 384:512], 1)  # coarse ties everywhere
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 12, 16, 17, 70])
+def test_cuda_group_topm_matches_twin(cuda: torch.device, m: int) -> None:
+    """Every value and every lane id equal to the twin's, the (-inf, lane 0)
+    slots included, on both kernels: the thread-per-group one up to m = 16
+    (``SELECT_MAX_M``), the warp one above (m > 32 parks results in lanes
+    across several store runs); a row stride wider than the groups."""
+    xt = _t(_topm_cases(m)).to(cuda)
+    key = "group_topm" if m <= topk_select.SELECT_MAX_M else "group_topm_warp"
+    before = dict(_native.LAUNCHES)
+    vals, lanes = topk_select.group_topm(xt, m)
+    assert {k: _native.LAUNCHES[k] - before[k] for k in ("group_topm", "group_topm_warp")} == {
+        k: int(k == key) for k in ("group_topm", "group_topm_warp")}
+    ref_vals, ref_lanes = topk_select.group_topm_reference(xt, m)
     torch.testing.assert_close(vals, ref_vals, atol=0, rtol=0)
     torch.testing.assert_close(lanes, ref_lanes, atol=0, rtol=0)
-    # m > 32 parks results in lanes across several store runs
-    vals, lanes = topk_select.group_topm(xt, 70)
-    ref_vals, ref_lanes = topk_select.group_topm_reference(xt, 70)
-    torch.testing.assert_close(vals, ref_vals, atol=0, rtol=0)
-    torch.testing.assert_close(lanes, ref_lanes, atol=0, rtol=0)
+    assert bool(torch.isneginf(vals[2, 2]).all()) and not lanes[2, 2].any()
+    wide = torch.full((9, 6 * 128), float("nan"), device=cuda)
+    wide[:, : 5 * 128] = xt
+    got = topk_select.group_topm(wide[:, : 5 * 128], m)
+    assert torch.equal(got[0], vals) and torch.equal(got[1], lanes)
 
 
 @pytest.mark.gpu
@@ -825,17 +873,19 @@ def test_cuda_stu_kernels_match_twins(
     at L = 1,024 the scores reach tens, so the tolerances there scale with the
     twin's largest entry. The backward runs on the tensor cores in two
     launches (``stu_bwd``, ``stu_bwd_dq``) at head dims of 32 and 64, on the
-    SIMT kernel in one at 8 and 16; the score gradient is one launch on
-    either tile (64 x 64 on the tensor cores at 32 and 64). dq, dk, dv, ds
-    and its sums by bucket come out bit-equal on a second run."""
+    SIMT kernel in one at 8 and 16, and so does the forward (launch keys
+    ``stu_fwd``, ``stu_fwd_simt``); the score gradient is one launch on
+    either tile (64 x 64 on the tensor cores at 32 and 64). out, dq, dk, dv,
+    ds and its sums by bucket come out bit-equal on a second run."""
     q, k, v, dout, bias, allowed, timeline, buckets = _stu_inputs(b, h, l, ad, lh, cuda, per_row_allowed)
     args = (q, k, v, bias, allowed, timeline)
     before = dict(_native.LAUNCHES)
     out = stu_attention.stu_fwd(*args)
     got = stu_attention.stu_bwd(*args, dout)
     ds, sums = stu_attention.stu_ds(*args, dout, buckets, 129)
-    assert [_native.LAUNCHES[n] - before[n] for n in ("stu_fwd", "stu_bwd", "stu_bwd_dq", "stu_ds")] == [
-        1, 1, int(stu_attention.bwd_on_tensor_cores(ad, lh)), 1]
+    tc = int(stu_attention.bwd_on_tensor_cores(ad, lh))
+    keys = ("stu_fwd", "stu_fwd_simt", "stu_bwd", "stu_bwd_dq", "stu_ds")
+    assert [_native.LAUNCHES[n] - before[n] for n in keys] == [tc, 1 - tc, 1, tc, 1]
     assert out.transpose(1, 2).is_contiguous() and all(g.transpose(1, 2).is_contiguous() for g in got)
     ref_out = stu_attention.stu_reference(*args)
     scale = max(1.0, ref_out.abs().max().item())
@@ -846,10 +896,36 @@ def test_cuda_stu_kernels_match_twins(
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g, ref, atol=1e-4 * max(1.0, ref.abs().max().item()), rtol=0)
     assert sums.abs().max() > 0
-    again = (*stu_attention.stu_bwd(*args, dout), *stu_attention.stu_ds(*args, dout, buckets, 129))
-    assert all(torch.equal(a, g) for a, g in zip(again, (*got, ds, sums)))
+    again = (stu_attention.stu_fwd(*args), *stu_attention.stu_bwd(*args, dout),
+             *stu_attention.stu_ds(*args, dout, buckets, 129))
+    assert all(torch.equal(a, g) for a, g in zip(again, (out, *got, ds, sums)))
     alone, none = stu_attention.stu_ds(*args, dout)  # without buckets: the same ds, no sums
     assert none is None and torch.equal(alone, ds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,h,l,ad,lh,per_row_allowed",
+    [(3, 4, 1024, 32, 32, True), (2, 4, 1024, 64, 64, False), (2, 2, 1024, 32, 64, True), (4, 4, 1024, 16, 16, True),
+     (64, 4, 100, 32, 32, False), (5, 2, 33, 64, 32, False), (3, 2, 100, 8, 8, True)],
+)
+def test_cuda_stu_fwd_routes_long_context_and_rerun(
+    cuda: torch.device, b: int, h: int, l: int, ad: int, lh: int, per_row_allowed: bool
+) -> None:
+    """The forward alone: the tensor-core route at head dims 32 and 64, the
+    SIMT one at 8 and 16; at L = 1,024 each block walks 32 key tiles through
+    its ring of two stages; within 1e-5 of the twin's largest entry (at least
+    1), the same bits on a rerun, zeros for the fully padded row."""
+    q, k, v, _, bias, allowed, timeline, _ = _stu_inputs(b, h, l, ad, lh, cuda, per_row_allowed)
+    args = (q, k, v, bias, allowed, timeline)
+    before = dict(_native.LAUNCHES)
+    out = stu_attention.stu_fwd(*args)
+    tc = int(stu_attention.bwd_on_tensor_cores(ad, lh))
+    assert [_native.LAUNCHES[n] - before[n] for n in ("stu_fwd", "stu_fwd_simt")] == [tc, 1 - tc]
+    ref = stu_attention.stu_reference(*args)
+    torch.testing.assert_close(out, ref, atol=1e-5 * max(1.0, ref.abs().max().item()), rtol=0)
+    assert not out[-1].any()
+    assert torch.equal(stu_attention.stu_fwd(*args), out)
 
 
 @pytest.mark.gpu
@@ -928,8 +1004,9 @@ def test_cuda_hstu_fit_and_recommend_match_cpu(cuda: torch.device, key_padding: 
         model.training_module.fit(model.data_preparator.get_dataloader_train,
                                   model.data_preparator.get_dataloader_val, 1)
         model.is_fitted = True
-    # heads of 16: the SIMT backward, one launch, no dq launch of its own
-    assert [_native.LAUNCHES[n] for n in ("stu_fwd", "stu_bwd", "stu_bwd_dq", "stu_ds")] == [6, 6, 0, 6]
+    # heads of 16: the SIMT forward and backward, one launch each, no dq launch of its own
+    assert [_native.LAUNCHES[n] for n in ("stu_fwd", "stu_fwd_simt", "stu_bwd", "stu_bwd_dq", "stu_ds")] == [
+        0, 6, 6, 0, 6]
     assert _native.LAUNCHES["layer_norm_bwd"] == 12 and _native.LAUNCHES["attention_fwd"] == 0
     np.testing.assert_allclose(models["cuda"].training_module.train_loss_history,
                                models["cpu"].training_module.train_loss_history, rtol=1e-4)

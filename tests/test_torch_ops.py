@@ -7,6 +7,8 @@ hand-written CUDA kernels themselves are held against the twins on the card
 by tests/test_torch_kernels.py and by ``chip_smoke.py``.
 """
 
+import typing as tp
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -146,6 +148,73 @@ def test_group_topm_twin_matches_jax() -> None:
     finite = np.isfinite(jv)
     np.testing.assert_array_equal(lanes.numpy()[finite], ji[finite])
     assert lanes.dtype == torch.int32
+
+
+
+def _select_model(group: np.ndarray, m: int) -> tp.Tuple[np.ndarray, np.ndarray]:
+    """The thread-per-group top-m kernel (csrc/topk_select.cu, m <= 16) on one
+    (128,) group, step by step: the threshold is the m-th largest of the 32
+    four-lane chunk maxima, raised to the largest finite negative float; the
+    candidates are the lanes at or above it, in lane order; each goes into a
+    sorted list of M (4, 8, 12 or 16) >= m (value, lane) pairs that starts as
+    (-inf, 0), above the first entry it is strictly greater than, the entries
+    below moving down one slot. Returns the first m values and lanes."""
+    size = next(s for s in (4, 8, 12, topk_select.SELECT_MAX_M) if m <= s)
+    chunk_max = -np.sort(-group.reshape(32, 4).max(axis=1))
+    threshold = max(chunk_max[m - 1], np.finfo(np.float32).min)
+    vals, lanes = [np.float32(-np.inf)] * size, [0] * size
+    for lane in np.flatnonzero(group >= threshold):
+        value, place, shift = group[lane], int(lane), False
+        for j in range(size):
+            take = shift or value > vals[j]
+            if take:
+                vals[j], value = value, vals[j]
+                lanes[j], place = place, lanes[j]
+            shift = take
+    return np.asarray(vals[:m], np.float32), np.asarray(lanes[:m], np.int32)
+
+
+def _topm_groups(m: int, seed: int) -> np.ndarray:
+    """(rows, 128) groups for the selection's edge cases: N(0, 1) scores,
+    coarse ties, 128 equal values, 0, 1, 3, m - 1 and m finite values among
+    -inf, ties straddling the m-th slot, +inf values, a chunk of four equal
+    maxima, and all -inf."""
+    rng = np.random.default_rng(seed)
+    rows = [rng.normal(size=128), np.round(rng.normal(size=128), 1), np.full(128, 0.7)]
+    for n_finite in sorted({0, 1, 3, max(m - 1, 0), m}):
+        row = np.full(128, -np.inf)
+        row[rng.choice(128, n_finite, replace=False)] = rng.normal(size=n_finite)
+        rows.append(row)
+    straddle = rng.normal(size=128) - 10.0  # m - 2 larger values, then 6 ties over slots m - 1 .. m + 4
+    straddle[rng.choice(128, max(m - 2, 0), replace=False)] = 5.0 + np.arange(max(m - 2, 0))
+    ties = rng.choice(np.flatnonzero(straddle < 0), 6, replace=False)
+    straddle[ties] = 1.0
+    rows.append(straddle)
+    inf = rng.normal(size=128)
+    inf[[5, 77, 100]] = np.inf
+    rows.append(inf)
+    chunk = rng.normal(size=128)
+    chunk[12:16] = 9.0
+    rows.append(chunk)
+    return np.stack(rows).astype(np.float32)
+
+
+@pytest.mark.parametrize("m", [1, 5, 12, 16])
+def test_group_topm_select_model_matches_twin_and_jax(m: int) -> None:
+    """The CUDA selection's order of work for m <= 16, as a numpy model, equals
+    the twin and the JAX kernel (interpret mode) in every value and lane id,
+    the (-inf, lane 0) slots past a group's finite values included: the
+    threshold keeps every element of the top m and the insertion keeps the
+    lowest lane first among equal values."""
+    x = _topm_groups(m, seed=m)
+    model = [_select_model(row, m) for row in x]
+    ref_vals, ref_lanes = topk_select.group_topm_reference(_t(x), m)
+    jv, ji = jax_topk_select._group_topm(jnp.asarray(x), m, rows_blk=8, interpret=True)
+    for got in ((np.stack([v for v, _ in model]), np.stack([l for _, l in model])),
+                (np.asarray(jv), np.asarray(ji))):
+        np.testing.assert_array_equal(got[0], ref_vals.numpy()[:, 0])
+        np.testing.assert_array_equal(got[1], ref_lanes.numpy()[:, 0])
+    assert np.isneginf(ref_vals.numpy()[3]).all() and not ref_lanes.numpy()[3].any()  # all -inf: lane 0 everywhere
 
 
 @pytest.mark.parametrize("n,k", [(4096, 100), (4100, 37), (300, 20), (128, 12)])

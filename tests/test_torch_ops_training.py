@@ -21,7 +21,7 @@ from rectools_tpu.ops import layer_norm as jax_layer_norm
 from rectools_tpu.ops import softmax_lse as jax_softmax_lse
 from rectools_tpu_torch.models.nn import dropout
 from rectools_tpu_torch.models.nn.transformers import losses
-from rectools_tpu_torch.ops import attention, layer_norm, softmax_lse
+from rectools_tpu_torch.ops import attention, layer_norm, softmax_lse, stu_attention
 
 MASK_VALUE = -1e9
 
@@ -832,6 +832,55 @@ def test_attention_in_3xtf32_passes_the_card_tolerance(l: int, dh: int, bias_kin
                *_attention_bwd_tf32(q, k, v, bias, lse, delta, dout, scale, keep, three))
         worst = max((g - e).abs().max().item() for g, e in zip(got, exact))
         assert worst <= 1e-5 if three else worst > 1e-5, (three, worst)
+
+
+def _stu_fwd_tf32(q, k, v, bias, allowed, timeline, three: bool) -> torch.Tensor:
+    """Kernel 17's arithmetic on the tensor-core tile: per 32-key unit in key
+    order, s from TF32 halves plus the bias, a = silu(s) / L times the mask
+    (allowed · tl_q · tl_k) in f32, and a v from TF32 halves added onto the
+    running output."""
+    l = q.shape[2]
+    mask = (allowed * timeline[:, :, None] * timeline[:, None, :])[:, None]
+    acc = torch.zeros(q.shape[:3] + (v.shape[3],))
+    for kc in range(0, l, 32):
+        keys = slice(kc, min(kc + 32, l))
+        s = _mm_tf32(q, k[:, :, keys].transpose(-1, -2).contiguous(), three) + bias[:, None, :, keys]
+        a = s * torch.sigmoid(s) / l * mask[..., keys]
+        acc = acc + _mm_tf32(a.contiguous(), v[:, :, keys], three)
+    return acc
+
+
+@pytest.mark.parametrize("mask_kind", ["causal", "key_padding"])
+@pytest.mark.parametrize("l,d", [(100, 32), (100, 64), (257, 32), (257, 64)])
+def test_stu_forward_in_3xtf32_passes_the_card_tolerance(l: int, d: int, mask_kind: str) -> None:
+    """The arithmetic of kernel 17 on the tensor-core tile, on the CPU: its two
+    products from TF32 halves per 32-key unit, at the input scale of the card's
+    kernel phases (q, k, v N(0, 1), the time-plus-position bias), with left
+    padding and a fully padded row, against the exact f32 twin. 3xTF32 stays
+    within the card's limit, ``STU_FWD_TOL`` (1e-5) times the twin's largest
+    entry where that is above 1; plain TF32 lands above it. The padded row
+    gives exact zeros either way."""
+    rng = np.random.default_rng(l + d)
+    b, h = 3, 2
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, h, l, d)).astype(np.float32)) for _ in range(3))
+    ts = torch.from_numpy(1_600_000_000 + np.sort(rng.integers(0, 86400 * 30, size=(b, l + 2)), axis=1))
+    tw = torch.from_numpy((0.1 * rng.normal(size=(129,))).astype(np.float32))
+    pw = torch.from_numpy((0.1 * rng.normal(size=(2 * l - 1,))).astype(np.float32))
+    bias = stu_attention.combined_bias(stu_attention.time_buckets(ts, l, 128), tw, pw, l, torch.device("cpu"))
+    real = np.arange(l)[None, :] >= rng.integers(0, l, size=b)[:, None]  # left padding
+    real[0], real[-1] = True, False
+    timeline = torch.from_numpy(real.astype(np.float32))
+    allowed = np.tril(np.ones((l, l), np.float32))[None]
+    if mask_kind == "key_padding":
+        allowed = np.maximum(allowed * real[:, None, :], np.eye(l, dtype=np.float32)[None])
+    allowed = torch.from_numpy(np.ascontiguousarray(allowed, dtype=np.float32))
+    exact = stu_attention.stu_reference(q, k, v, bias, allowed, timeline)
+    limit = 1e-5 * max(1.0, exact.abs().max().item())
+    for three in (True, False):
+        got = _stu_fwd_tf32(q, k, v, bias, allowed, timeline, three)
+        worst = (got - exact).abs().max().item()
+        assert worst <= limit if three else worst > limit, (three, worst, limit)
+        assert not got[-1].any()
 
 
 # ------------------------------------------------------------------ losses

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from rectools_tpu.ops.stu_attention import _bucket, _stu_pallas_bwd, _stu_reference, _toeplitz_bias
+from rectools_tpu.ops.stu_attention import _bucket, _stu_pallas, _stu_pallas_bwd, _stu_reference, _toeplitz_bias
 from rectools_tpu.ops.stu_attention import stu_attention as jax_stu_attention
 from rectools_tpu_torch.ops import stu_attention
 
@@ -80,6 +80,25 @@ def test_forward_matches_jax(use_time: bool, use_pos: bool, l: int, block_q: int
     got = _port_out(*(_t(a) for a in arrays), use_time, use_pos).numpy()
     np.testing.assert_allclose(got, np.asarray(ref), atol=1e-5, rtol=0)
     np.testing.assert_allclose(got, np.asarray(fused), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("l,ad,lh,block_q", [(100, 64, 64, 32), (100, 32, 32, 64), (70, 64, 32, 32)])
+def test_forward_twin_matches_jax_pallas_at_the_tensor_core_dims(l: int, ad: int, lh: int, block_q: int) -> None:
+    """The forward's twin, which the card's tensor-core forward is held to, at
+    the head dims that take the tensor cores, against the JAX forward kernel
+    ``_stu_pallas`` in interpret mode with a per-batch bias (time buckets plus
+    positions, (B, L, L)), left padding and a fully padded row: 1e-5
+    absolute, as the module states; the padded row gives zeros on both."""
+    q, k, v, ts, tl, tw, pw, allowed = _inputs(b=3, l=l, ad=ad, lh=lh, seed=l + ad + lh)
+    tl = (np.arange(l)[None, :] >= np.asarray([0, l // 3, l])[:, None]).astype(np.float32)
+    expected = jax.jit(lambda *a: _stu_pallas(*a, NB, True, True, block_q, True))(
+        *(jnp.asarray(a) for a in (q, k, v, ts, tl, tw, pw, allowed)))
+    bias = stu_attention.combined_bias(stu_attention.time_buckets(_t(ts), l, NB), _t(tw), _t(pw), l,
+                                       torch.device("cpu"))
+    assert bias.shape == (3, l, l) and stu_attention.bwd_on_tensor_cores(ad, lh)
+    got = stu_attention.stu_fwd(_t(q), _t(k), _t(v), bias, _t(allowed), _t(tl))
+    np.testing.assert_allclose(got.numpy(), np.asarray(expected), atol=1e-5, rtol=0)
+    assert not got[-1].any() and not np.asarray(expected)[-1].any()
 
 
 @pytest.mark.parametrize("l,block_q", [(64, 32), (80, 32)])
