@@ -16,12 +16,15 @@ own lines; any failure exits nonzero and prints no result:
              only; the port never calls it) and its bound.
    train kernels — the same for the training kernels at the KION training
              width (B = 512, L = 100, d = 128, 4 heads, 15,872 items, dropout
-             0.2): LayerNorm backward, attention forward with dropout (its
+             0.2): LayerNorm backward (one launch a call by the profiler,
+             its device time beside the event-timed call, the same bits on a
+             rerun), attention forward with dropout (its
              keep bits checked for equality with the twin's mask) and
              backward; the streaming logsumexp three ways (kernel 6's
-             per-chunk partials on the 3xTF32 tile, with a plain-TF32
-             control that must fail its limit, and timed again at 65,536
-             and 131,072 items; kernel 15's running max; kernel 16's fixed
+             per-chunk partials on the 3xTF32 tile, timed again at 65,536
+             and 131,072 items; kernel 15's running max on the same tile in
+             clusters of blocks; each with
+             a plain-TF32 control that must fail its limit; kernel 16's fixed
              shift at these inputs and scaled so that window 2 serves the
              rows, with the share of rows in each window); the softmax
              gradients from z (kernel 12; kernels 13 + 14 at 15,872, at the
@@ -151,8 +154,9 @@ PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores, data s
 # kernels (7's two launches, 10, 11, 13, 14), kernels 6 and 18 (kernel 6 at 65,536 and 131,072 items: its device
 # time in a one-step profile of those fits), kernels 8 (at the three mesh shapes) and 19 (with the bucket sums),
 # kernels 2 (at serving, and with dropout at the training width) and 5, and kernel 17 (at the training width, at
-# L = 1,024 and at serving); kernel 3 on its warp-per-group kernel (at serving); by the entry of `kernels` that
-# holds this run's time; printed beside this run's times on `redesigned:` lines, never in the JSON line
+# L = 1,024 and at serving); kernel 3 on its warp-per-group kernel (at serving); kernel 4 as two launches (its
+# partials summed by a second kernel) and kernel 15 on the SIMT tile; by the entry of `kernels` that holds this
+# run's time; printed beside this run's times on `redesigned:` lines, never in the JSON line
 SIMT_TILE_MS = {
     "ce_grads": 33.2298, "lse_bwd_fused": 24.6118, "grads_z_fused": 24.3758, "ce_grads_pair": 33.4354,
     "lse_bwd_ds": 17.7596, "lse_bwd_di": 16.1084, "lse_bwd_ds_shard_2x2": 5.0311, "lse_bwd_di_shard_2x2": 5.1938,
@@ -164,6 +168,7 @@ SIMT_TILE_MS = {
     "stu_ds": 0.8109, "stu_ds_long_ctx": 6.8854,
     "attention_fwd": 1.6675, "attention_fwd_train": 0.2841, "attention_bwd": 0.6189,
     "stu_fwd": 0.2795, "stu_fwd_long_ctx": 4.0498, "stu_fwd_serving": 1.9215, "group_topm": 0.6820,
+    "layer_norm_bwd": 0.0894, "lse_fwd": 10.0975,
 }
 LN_TOL = 1e-5
 ATTN_TOL = 1e-5
@@ -174,8 +179,8 @@ LR = 1e-3
 EPOCHS = 2
 LN_BWD_TOL = 1e-5  # dx absolute; dgamma and dbeta relative to their largest entry (sums over 51,200 rows)
 LSE_RTOL = 1e-5  # relative, per row: one column of 15,872 left out moves an lse of about 10 by 6e-6 relative
-# kernels 6 and 8 on the tensor cores (3xTF32), relative per row from their twins in the same chunks: below it,
-# and plain TF32 products (their control) above it
+# kernels 6, 8 and 15 on the tensor cores (3xTF32), relative per row from their twins: below it, and plain TF32
+# products (their control) above it
 LSE_TC_RTOL = 1e-6
 CE_RTOL = 1e-4  # relative to the largest entry of ds and of di
 # the same for the gradient kernels on the tensor-core tile, fused (7's one pass, 9, 12) and split (7's two
@@ -229,6 +234,34 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_kernels(torch, fn, calls: int) -> dict:
+    """{device kernel name: (launches a call, mean device ms a launch)} of
+    ``calls`` calls of ``fn`` after one warm-up (torch.profiler); empty
+    where nothing runs on a card. A capture of short kernels now and then
+    comes back without some of its device records (fewer launches of a
+    kernel than calls, or none at all): it is taken again, up to five times."""
+    from torch.autograd import DeviceType
+
+    fn()
+    if not torch.cuda.is_available():
+        return {}
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(5):
+        out = {}
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                us = float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
+                out[e.key[:60]] = (e.count / calls, us / 1e3 / e.count)
+        if out and min(n for n, _ in out.values()) >= 1:
+            break
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float, tf32x3: bool = False) -> tuple:
@@ -388,15 +421,25 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     err_sums = max(_max_rel(got[1], ref[1]), _max_rel(got[2], ref[2]))
     check(err_dx <= LN_BWD_TOL and err_sums <= LN_BWD_TOL,
           f"layer_norm_bwd disagrees with its twin: dx {err_dx}, dgamma/dbeta relative {err_sums}")
+    check(all(bool(torch.equal(a, b)) for a, b in zip(layer_norm.layer_norm_bwd(x, gamma, dy, 1e-6), got)),
+          "layer_norm_bwd: other bits on a rerun")
+    # one launch a call, and its device time by the profiler beside the event-timed call
+    ln_device = device_kernels(torch, lambda: layer_norm.layer_norm_bwd(x, gamma, dy, 1e-6), calls=20)
+    check(dev.type != "cuda" or (len(ln_device) == 1 and next(iter(ln_device.values()))[0] == 1.0),
+          f"layer_norm_bwd: device kernels a call {ln_device}")
     xg, gg, bg = (t.detach().clone().requires_grad_() for t in (x, gamma, torch.zeros_like(gamma)))
     y_lib = F.layer_norm(xg, (d,), gg, bg, 1e-6)
     results["layer_norm_bwd"] = dict(
         max_abs_err=max((a - r).abs().max().item() for a, r in zip(got, ref)),
         ms=time_ms(lambda: layer_norm.layer_norm_bwd(x, gamma, dy, 1e-6)),
+        device_ms=sum(n * ms for n, ms in ln_device.values()),
         plain_ms=time_ms(lambda: layer_norm.layer_norm_bwd_reference(x, gamma, dy, 1e-6)),
         library_ms=grad_ms(y_lib, (xg, gg, bg), dy),
         bound=bound_ms(3 * x.numel() * 4 + 3 * d * 4, 12 * x.numel()),
     )
+    print(f"train kernels: layer_norm_bwd {results['layer_norm_bwd']['ms']:.4f} ms a call (CUDA events), "
+          f"{results['layer_norm_bwd']['device_ms']:.4f} ms on the device (torch.profiler, mean of 20 calls): "
+          f"{ln_device}; bits equal on a rerun")
     del x, dy, got, ref, xg, y_lib
 
     # kernel 2 with dropout and kernel 5: (B, L, H, dh) projections, causal bias
@@ -469,6 +512,7 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         ref = twin(s, items)
         rel = ((forwards[name] - ref).abs() / ref.abs()).max().item()
         check(rel <= LSE_RTOL, f"{name} disagrees with its twin: max relative err {rel}")
+        check(bool(torch.equal(softmax_lse.streaming_lse(s, items), forwards[name])), f"{name}: other bits on a rerun")
         # both forwards again on an odd catalog, where the last item tile leaves a tail (checked, not timed)
         got_ragged, ref_ragged = softmax_lse.streaming_lse(s, items[:RAGGED_N]), twin(s, items[:RAGGED_N])
         rel_ragged = ((got_ragged - ref_ragged).abs() / ref_ragged.abs()).max().item()
@@ -479,19 +523,20 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
             ms=time_ms(lambda: softmax_lse.streaming_lse(s, items), iters=5),
             plain_ms=time_ms(lambda: twin(s, items), iters=3),
             library_ms=lse_library_ms,
-            # kernel 6 runs its product in 3xTF32 on the tensor cores at d = 128, kernel 15 in f32
-            **(tc_bounds(lse_bytes, products) if partials else {"bound": bound_ms(lse_bytes, products)}),
+            # kernels 6 and 15 run their product in 3xTF32 on the tensor cores at d = 128
+            **tc_bounds(lse_bytes, products),
         )
-        if partials:  # the control: the same lse from plain TF32 products, in the card's chunks
-            plain_tf32 = softmax_lse.streaming_lse_partials_reference(tf32(torch, s), tf32(torch, items))
-            rel_plain = ((plain_tf32 - ref).abs() / ref.abs()).max().item()
-            check(rel <= LSE_TC_RTOL < rel_plain,
-                  f"lse_partials_fwd {rel} and its plain-TF32 control {rel_plain} relative: not on either side of "
-                  f"{LSE_TC_RTOL}")
-            print(f"train kernels: lse_partials_fwd (3xTF32, {chunks_6} item chunks) {rel:.3g} "
-                  f"relative per row from its twin, plain TF32 products {rel_plain:.3g} (limit {LSE_TC_RTOL}); at "
-                  f"N={RAGGED_N} {rel_ragged:.3g}")
-            del plain_tf32
+        # the control: the same lse from plain TF32 products, in the twin's chunks
+        plain_tf32 = twin(tf32(torch, s), tf32(torch, items))
+        rel_plain = ((plain_tf32 - ref).abs() / ref.abs()).max().item()
+        check(rel <= LSE_TC_RTOL < rel_plain,
+              f"{name} {rel} and its plain-TF32 control {rel_plain} relative: not on either side of {LSE_TC_RTOL}")
+        layout = (f"{chunks_6} item chunks" if partials else
+                  "clusters of {} blocks, {} item rows a rank".format(*softmax_lse.lse_cluster_plan(n)))
+        print(f"train kernels: {name} (3xTF32, {layout}) {rel:.3g} relative per row from its twin, plain TF32 "
+              f"products {rel_plain:.3g} (limit {LSE_TC_RTOL}); at N={RAGGED_N} {rel_ragged:.3g}; bits equal on a "
+              "rerun")
+        del plain_tf32
     softmax_lse.USE_PARTIALS_FWD = True
     lse = forwards["lse_partials_fwd"]
     between = ((lse - forwards["lse_fwd"]).abs() / forwards["lse_fwd"].abs()).max().item()
@@ -1994,6 +2039,8 @@ def main() -> int:
                "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
         if "bound_f32" in r:  # tensor-core kernels: bound_ms counts 3xTF32 products; the FP32 bound beside it
             out.update(bound_ops="3xTF32", bound_f32_ms=r["bound_f32"][0], bound_f32_by=r["bound_f32"][1])
+        if "device_ms" in r:  # kernel 4: its device time by the profiler beside the event-timed call
+            out["device_ms"] = r["device_ms"]
         return out
 
     entries = []

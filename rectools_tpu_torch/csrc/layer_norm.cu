@@ -19,15 +19,47 @@
 // formula), are warp-shuffle reductions in f32. A ragged last block simply has
 // idle warps.
 //
-// Backward design: the TPU kernel sums dgamma/dbeta in an output block that
-// its sequential grid revisits; GPU blocks run in no order, so that does not
-// carry over. Here the grid has a fixed number of blocks (a function of M
-// only), each warp walks rows with a grid stride as in the forward:
-// recompute mean and rstd, write dx, and keep the warp's dgamma/dbeta sums in
-// registers. The block adds its warps' sums in warp order in shared memory and
-// writes one (2, D) row of a (n_blocks, 2, D) scratch buffer; a second small
-// kernel sums that buffer over blocks in block order. No float atomics: the
-// result has the same bits run after run.
+// Backward design: one launch. The TPU kernel sums dgamma/dbeta in an output
+// block that its sequential grid revisits; GPU blocks run in no order, and the
+// port has no float atomics, so the sums go through per-block partials that
+// the same launch adds up in a fixed order:
+// - Partition: block b owns rows [b * rows_per_block, (b + 1) *
+//   rows_per_block), with n_blocks and rows_per_block a function of M only
+//   (ops/layer_norm.py `bwd_partition`: at most 128 blocks of at least 128
+//   rows; 128 x 400 at the training shape, one block per SM, one wave), so
+//   the bits are the same on every card. A block has 16 warps for D <= 256,
+//   else 8 (`bwd_warps`). Warp w takes the block's rows w, w + W, w + 2W,
+//   ..., kRows of them at a time (`kBwdRows`): a lane holds 2 x kRows rows of
+//   x and dy in flight, 4 at D <= 128, at least two but for D > 256.
+// - Per row, the reference's arithmetic in the forward kernel's lane layout
+//   (column lane + 32 j, coalesced 4-byte loads), so the recomputed row
+//   statistics are the forward's to the bit: mean, then the centred sum of
+//   squares (two-pass), rsqrtf(var + eps), xhat, the two means of dxhat and
+//   dxhat * xhat, dx; the kRows rows' warp reductions interleave. Each lane
+//   adds dy * xhat and dy of its columns onto registers, row after row.
+//   16-byte loads (lane q holding columns 4q..4q+3) sum each row in another
+//   order: the backward's statistics then differ from the forward's in their
+//   last bits, and a second path for D % 4 != 0 or unaligned pointers gives
+//   other bits for the same values (PERF.md section 6).
+// - Sums: the W warps' sums meet in shared memory and are added in warp order
+//   into the block's (2, D) row of the (n_blocks, 2, D) partials. The block
+//   then fences its row (__threadfence) and takes a ticket with an integer
+//   atomicAdd; the block that draws the last ticket sums the partial rows in
+//   block order: warp g adds the rows of blocks [g * per, (g + 1) * per), per
+//   = ceil(n_blocks / W), all 32 lanes across the columns (reads past L1), and
+//   the W group sums are added in group order in shared memory into dgamma
+//   and dbeta. Integer atomics only: the same bits on a rerun.
+// - The ticket counter: one unsigned int per (device, stream), allocated and
+//   zeroed once by the wrapper, reset to 0 by the last block after its
+//   reads. Stream order then hands the next launch on that stream a zero
+//   counter with no memset on the stream (a per-call cudaMemsetAsync would
+//   add a device operation and a gap before every launch); a call on another
+//   stream has its own counter, so launches that may overlap never share one.
+// - Measured at 51,200 x 128 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section
+//   6): 0.0350-0.0352 ms on the device (torch.profiler), 67% of the byte
+//   bound; with 16-byte loads 0.0341-0.0342 in the same run, and 0.0355
+//   with 256 blocks of 8 warps; the two launches it replaced (a second
+//   kernel summed 1,024 partial rows on one SM) 0.0311 + 0.0251.
 
 #include <cuda_runtime.h>
 
@@ -83,14 +115,45 @@ void launch(const float* x, const float* gamma, const float* beta, float* y, lon
   ln_fwd_kernel<VPL><<<(unsigned)blocks, 32 * kRowsPerBlock, 0, stream>>>(x, gamma, beta, y, m, d, eps);
 }
 
+
+// warps a backward block: 16 where a lane holds at most 8 values of a row
+// (d <= 256), else 8
+constexpr int bwd_warps(int d) { return d <= 256 ? 16 : 8; }
+
+// rows a warp of the backward holds in flight: a lane keeps 2 * rows * VPL
+// values of x and dy
 template <int VPL>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
+constexpr int kBwdRows = VPL <= 4 ? 4 : VPL <= 8 ? 2 : 1;
+
+// kRows sums across the warp at once (interleaved shuffles, one tree each, in
+// warp_sum's order)
+template <int R>
+__device__ __forceinline__ void warp_sum_rows(float (&v)[R]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < R; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+}
+
+// Block b: rows [b * rows_per_block, min(m, (b + 1) * rows_per_block)); dx for
+// each, its (2, d) row of `partials`, and, in the block that finishes last,
+// dgamma and dbeta (csrc header: the order of every sum). A lane holds the
+// columns lane + 32 j of a row, as in ln_fwd_kernel. Dynamic shared memory:
+// warps x 2d floats.
+template <int VPL>
+__global__ void __launch_bounds__(VPL <= 8 ? 512 : 256, 1)
     ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ dy,
-                  float* __restrict__ dx, float* __restrict__ partials, long long m, int d, float eps) {
-  __shared__ float block_sums[2][32 * VPL];
+                  float* __restrict__ dx, float* __restrict__ partials, unsigned* __restrict__ counter,
+                  float* __restrict__ dgamma, float* __restrict__ dbeta, long long m, int d, long long rows_per_block,
+                  float eps) {
+  constexpr int R = kBwdRows<VPL>;
+  extern __shared__ float red[];  // [warps][2 d]
+  __shared__ unsigned ticket;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   const float inv_d = 1.f / (float)d;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = r0 + rows_per_block < m ? r0 + rows_per_block : m;
 
   float g[VPL], dg[VPL], db[VPL];
 #pragma unroll
@@ -100,84 +163,129 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
     dg[j] = 0.f;
     db[j] = 0.f;
   }
-  const long long stride = (long long)gridDim.x * kRowsPerBlock;
-  for (long long row = (long long)blockIdx.x * kRowsPerBlock + warp; row < m; row += stride) {
-    const float* xr = x + row * d;
-    const float* dyr = dy + row * d;
-    float v[VPL], dyv[VPL];
-    float sum = 0.f;
+  for (long long base = r0 + warp; base < r1; base += (long long)warps * R) {
+    float v[R][VPL], dyv[R][VPL];
 #pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      const int col = lane + 32 * j;
-      v[j] = col < d ? xr[col] : 0.f;
-      dyv[j] = col < d ? dyr[col] : 0.f;
-      sum += v[j];
-    }
-    const float mean = warp_sum(sum) * inv_d;
-    float sq = 0.f;
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      const int col = lane + 32 * j;
-      const float c = col < d ? v[j] - mean : 0.f;
-      sq += c * c;
-    }
-    const float rstd = rsqrtf(warp_sum(sq) * inv_d + eps);
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      const int col = lane + 32 * j;
-      v[j] = col < d ? (v[j] - mean) * rstd : 0.f;  // xhat
-      const float dxhat = dyv[j] * g[j];
-      s1 += dxhat;
-      s2 += dxhat * v[j];
-      dg[j] += dyv[j] * v[j];
-      db[j] += dyv[j];
-    }
-    const float m1 = warp_sum(s1) * inv_d;
-    const float m2 = warp_sum(s2) * inv_d;
-    float* dxr = dx + row * d;
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      const int col = lane + 32 * j;
-      if (col < d) dxr[col] = rstd * (dyv[j] * g[j] - m1 - v[j] * m2);
-    }
-  }
-  // the block's sums, added warp by warp in a fixed order
-  for (int w = 0; w < kRowsPerBlock; ++w) {
-    if (warp == w) {
+    for (int i = 0; i < R; ++i) {
+      const long long row = base + (long long)i * warps;
+      const long long src = row < r1 ? row : base;  // a row past the block's end repeats `base`, never kept
 #pragma unroll
       for (int j = 0; j < VPL; ++j) {
         const int col = lane + 32 * j;
-        if (col < d) {
-          block_sums[0][col] = w == 0 ? dg[j] : block_sums[0][col] + dg[j];
-          block_sums[1][col] = w == 0 ? db[j] : block_sums[1][col] + db[j];
+        v[i][j] = col < d ? x[src * d + col] : 0.f;
+        dyv[i][j] = col < d ? dy[src * d + col] : 0.f;
+      }
+    }
+    float mean[R], rstd[R], s1[R], s2[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      mean[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) mean[i] += v[i][j];
+    }
+    warp_sum_rows(mean);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      mean[i] *= inv_d;
+      rstd[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        const float c = lane + 32 * j < d ? v[i][j] - mean[i] : 0.f;
+        rstd[i] += c * c;
+      }
+    }
+    warp_sum_rows(rstd);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      rstd[i] = rsqrtf(rstd[i] * inv_d + eps);
+      s1[i] = 0.f;
+      s2[i] = 0.f;
+      const bool kept = base + (long long)i * warps < r1;
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        v[i][j] = lane + 32 * j < d ? (v[i][j] - mean[i]) * rstd[i] : 0.f;  // xhat
+        const float dxhat = dyv[i][j] * g[j];
+        s1[i] += dxhat;
+        s2[i] += dxhat * v[i][j];
+        if (kept) {
+          dg[j] += dyv[i][j] * v[i][j];
+          db[j] += dyv[i][j];
         }
       }
     }
-    __syncthreads();
+    warp_sum_rows(s1);
+    warp_sum_rows(s2);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const long long row = base + (long long)i * warps;
+      if (row >= r1) continue;
+      const float m1 = s1[i] * inv_d, m2 = s2[i] * inv_d;
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        const int col = lane + 32 * j;
+        if (col < d) dx[row * d + col] = rstd[i] * (dyv[i][j] * g[j] - m1 - v[i][j] * m2);
+      }
+    }
   }
-  float* out = partials + (long long)blockIdx.x * 2 * d;
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    out[c] = block_sums[0][c];
-    out[d + c] = block_sums[1][c];
-  }
-}
 
-// dgamma, dbeta = the (n_blocks, 2, D) partials summed over blocks, in block order.
-__global__ void ln_bwd_reduce_kernel(const float* __restrict__ partials, float* __restrict__ dgamma,
-                                     float* __restrict__ dbeta, int n_blocks, int d) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= 2 * d) return;
-  float acc = 0.f;
-  for (int b = 0; b < n_blocks; ++b) acc += partials[(long long)b * 2 * d + idx];
-  if (idx < d) dgamma[idx] = acc;
-  else dbeta[idx - d] = acc;
+  // the block's row of partials: the warps' sums added in warp order
+  const int width = 2 * d;
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int col = lane + 32 * j;
+    if (col < d) {
+      red[warp * width + col] = dg[j];
+      red[warp * width + d + col] = db[j];
+    }
+  }
+  __syncthreads();
+  float* __restrict__ mine = partials + (long long)blockIdx.x * width;
+  for (int c = threadIdx.x; c < width; c += blockDim.x) {
+    float p = red[c];
+    for (int w = 1; w < warps; ++w) p += red[w * width + c];
+    mine[c] = p;
+  }
+  __threadfence();  // this block's row is visible to the block that draws the last ticket
+  __syncthreads();
+  if (threadIdx.x == 0) ticket = atomicAdd(counter, 1u);
+  __syncthreads();
+  if (ticket != gridDim.x - 1) return;
+  __threadfence();
+
+  // the last block: warp g sums the rows of blocks [g * per, (g + 1) * per) in
+  // block order, then the groups are added in group order
+  const int per = (gridDim.x + warps - 1) / warps;
+  const int b0 = warp * per, b1 = b0 + per < (int)gridDim.x ? b0 + per : (int)gridDim.x;
+  for (int c = lane; c < width; c += 32) {
+    float acc = 0.f;
+#pragma unroll 8
+    for (int b = b0; b < b1; ++b) acc += __ldcg(partials + (long long)b * width + c);
+    red[warp * width + c] = acc;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < width; c += blockDim.x) {
+    float total = red[c];
+    for (int w = 1; w < warps; ++w) total += red[w * width + c];
+    if (c < d) dgamma[c] = total;
+    else dbeta[c - d] = total;
+  }
+  if (threadIdx.x == 0) *counter = 0u;  // every block has drawn its ticket: ready for the next launch
 }
 
 template <int VPL>
-void launch_bwd(const float* x, const float* gamma, const float* dy, float* dx, float* partials, long long m, int d,
-                float eps, int n_blocks, cudaStream_t stream) {
-  ln_bwd_kernel<VPL><<<n_blocks, 32 * kRowsPerBlock, 0, stream>>>(x, gamma, dy, dx, partials, m, d, eps);
+int launch_bwd(const float* x, const float* gamma, const float* dy, float* dx, float* partials, unsigned* counter,
+               float* dgamma, float* dbeta, long long m, int d, float eps, int n_blocks, long long rows_per_block,
+               cudaStream_t stream) {
+  const int warps = bwd_warps(d);
+  const int smem = warps * 2 * d * (int)sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(ln_bwd_kernel<VPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  ln_bwd_kernel<VPL><<<n_blocks, 32 * warps, smem, stream>>>(x, gamma, dy, dx, partials, counter, dgamma, dbeta, m,
+                                                             d, rows_per_block, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -197,22 +305,27 @@ extern "C" int ln_fwd_f32(const float* x, const float* gamma, const float* beta,
   return (int)cudaGetLastError();
 }
 
-// Backward: dx (M, D), dgamma and dbeta (D,), through a (n_blocks, 2, D) float
-// scratch buffer. Two launches on `stream`; returns cudaGetLastError() after
-// them (0 = launched). 1 <= d <= 1024, 1 <= n_blocks.
+// Backward: dx (M, D), dgamma and dbeta (D,), in one launch on `stream`
+// through a (n_blocks, 2, D) float scratch buffer of partials and a zeroed
+// ticket counter that no launch on another stream uses (left at 0). Block b
+// owns rows [b * rows_per_block, (b + 1) * rows_per_block); the caller's
+// partition must cover M with no empty block (one block for M = 0). Returns
+// cudaGetLastError() after the launch (0 = launched). 1 <= d <= 1024.
 extern "C" int ln_bwd_f32(const float* x, const float* gamma, const float* dy, float* dx, float* partials,
-                          float* dgamma, float* dbeta, long long m, int d, float eps, int n_blocks,
-                          cudaStream_t stream) {
-  if (d < 1 || d > 1024 || n_blocks < 1) return (int)cudaErrorInvalidValue;
+                          unsigned* counter, float* dgamma, float* dbeta, long long m, int d, float eps, int n_blocks,
+                          long long rows_per_block, cudaStream_t stream) {
+  if (d < 1 || d > 1024 || m < 0 || n_blocks < 1 || rows_per_block < 1) return (int)cudaErrorInvalidValue;
+  if ((long long)n_blocks * rows_per_block < m || (m > 0 ? (long long)(n_blocks - 1) * rows_per_block >= m
+                                                         : n_blocks != 1))
+    return (int)cudaErrorInvalidValue;
   const int vpl = (d + 31) / 32;
-  if (vpl <= 1) launch_bwd<1>(x, gamma, dy, dx, partials, m, d, eps, n_blocks, stream);
-  else if (vpl <= 2) launch_bwd<2>(x, gamma, dy, dx, partials, m, d, eps, n_blocks, stream);
-  else if (vpl <= 4) launch_bwd<4>(x, gamma, dy, dx, partials, m, d, eps, n_blocks, stream);
-  else if (vpl <= 8) launch_bwd<8>(x, gamma, dy, dx, partials, m, d, eps, n_blocks, stream);
-  else if (vpl <= 16) launch_bwd<16>(x, gamma, dy, dx, partials, m, d, eps, n_blocks, stream);
-  else launch_bwd<32>(x, gamma, dy, dx, partials, m, d, eps, n_blocks, stream);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ln_bwd_reduce_kernel<<<(2 * d + 255) / 256, 256, 0, stream>>>(partials, dgamma, dbeta, n_blocks, d);
-  return (int)cudaGetLastError();
+  const auto args = [&](auto launcher) {
+    return launcher(x, gamma, dy, dx, partials, counter, dgamma, dbeta, m, d, eps, n_blocks, rows_per_block, stream);
+  };
+  if (vpl <= 1) return args(launch_bwd<1>);
+  if (vpl <= 2) return args(launch_bwd<2>);
+  if (vpl <= 4) return args(launch_bwd<4>);
+  if (vpl <= 8) return args(launch_bwd<8>);
+  if (vpl <= 16) return args(launch_bwd<16>);
+  return args(launch_bwd<32>);
 }

@@ -7,7 +7,8 @@
 //   session tile) the chunk's (max, sum of exp) of s . items^T, written to
 //   (n_chunks, M) partials that the caller combines.
 // - :127 `_lse_fwd_tail_kernel` (`lse_f32`, kernel 15, `USE_PARTIALS_FWD =
-//   False`): one running (max, sum of exp) per row over the whole catalog.
+//   False`): one running (max, sum of exp) per row over the whole catalog,
+//   merged in the launch (no partials in device memory, no combine launch).
 // - :50 `_lse_shift_kernel` (`lse_shift_f32`, kernel 16, `bounded_shift`):
 //   l = sum exp(logit - shift) and l2 = sum exp(logit - shift + 64) per (item
 //   chunk, session tile) with the caller's per-row shift, no max.
@@ -161,16 +162,39 @@
 // twin in the same chunks is ~1e-7 per row; plain TF32 products gave
 // 1.6-2.1e-5.
 //
-// The SIMT tile: everything else (kernels 15 and 16; kernels 6 and 8 and the
+// Kernel 15 on the same tile (`lse_partials_tc_kernel<D, true>`, D in {32,
+// 64, 128}): one block per 128-row session tile walking the whole catalog
+// would give 400 blocks at one block per SM, 3.03 waves in 4 rounds of 248
+// item tiles. So a thread-block cluster of C blocks (launched with a cluster
+// dimension of (1, C, 1)) shares each session tile, rank q walking the item
+// rows [q * rank_rows, (q + 1) * rank_rows) with kernel 6's loop: C = min(8,
+// item tiles) and rank_rows = ceil(tiles / C) * 64, a function of N alone
+// (ops/softmax_lse.py `lse_cluster_plan`; a rank past the last tile adds
+// (-1e30, 0)). Each rank merges its rows' (max, sum of exp) into shared
+// memory; after `cluster.sync()` rank 0 reads the other ranks' pairs through
+// distributed shared memory in rank order, merges them and writes lse; a
+// second `cluster.sync()` keeps every rank resident until it has read. At
+// the training shape: 8 ranks of 31 tiles, kernel 6's 3,200 blocks.
+// `cudaOccupancyMaxActiveClusters` (tools/ln_lse_check.py) gives 15 clusters
+// of 8 at once (120 SMs), 30 of 4, 66 of 2 and 132 of 1. Measured at 51,200
+// x 15,872 x 128 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6):
+// C = 8 5.22-5.30 ms, 4
+// 5.36-5.45, 2 5.33-5.38, one walk (C = 1) 6.03-6.10, the SIMT kernel it
+// replaced 9.79-10.07; kernel 6 keeps an 8% lead on its free grid (25 rounds
+// of 132 blocks against 27 of 120). 9.5e-8 relative per row from the f32
+// twin, plain TF32 1.8-2.0e-5.
+//
+// The SIMT tile: everything else (kernel 16; kernels 6, 8 and 15 and the
 // gradient kernels, fused and split, at D = 16 and 256). 256 threads in a 16 x
 // 16 grid; a block holds a 64-row session tile and a 64-row item tile whole
 // in shared memory (rows padded to D + 1 floats so the per-thread row reads
 // are conflict-free) and forms their 64 x 64 logits, each thread a 4 x 4
 // micro-tile (rows ty + 16a, columns tx + 16b) with f32 FMA. At 21-25
 // TFLOP/s it runs at a third of the FP32 peak.
-// - lse_f32: a block owns a session tile and streams every item tile with a
-//   running (max, sum of exp) per row; the 16 threads of a row merge theirs
-//   by shuffles. 800 blocks, 3 or 2 resident per SM.
+// - lse_f32 (D = 16, 256): a block owns a session tile and streams every item
+//   tile with a running (max, sum of exp) per row; the 16 threads of a row
+//   merge theirs by shuffles. 800 blocks at the training shape, 3 or 2
+//   resident per SM.
 // - lse_partials_f32 / lse_bias_f32 / lse_shift_f32: a block owns (session
 //   tile, item chunk of 2,048 rows); blockIdx.x runs over the session tiles,
 //   so the blocks in flight share a chunk in L2; 6,400 blocks, 16.2 waves.
@@ -184,6 +208,7 @@
 //   and a 128 x 256 ds accumulator would take 128 registers a thread).
 // No fast-math: subnormals reach the edge of kernel 16's shift windows.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -1166,8 +1191,10 @@ struct LseSmem {
 // fragments hold (columns past the chunk's end left out). At the end the
 // four threads of a row merge theirs by shuffles and the two warp columns
 // through shared memory; m_part and l_part are (gridDim.y, M), rows past M
-// never written.
-template <int D>
+// never written. kCluster (kernel 15): the gridDim.y blocks of a session
+// tile are one cluster, y its rank and chunk_rows a rank's item rows; rank 0
+// merges the ranks' rows and writes lse (M,) to m_part; l_part is unused.
+template <int D, bool kCluster = false>
 __global__ void __launch_bounds__(tc::kThreads, 1)
     lse_partials_tc_kernel(const float* __restrict__ s, const float* __restrict__ items,
                            const float* __restrict__ bias, float* __restrict__ m_part, float* __restrict__ l_part,
@@ -1262,6 +1289,39 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
       }
     }
   __syncthreads();
+  if constexpr (kCluster) {
+    // kernel 15: this rank's (max, sum of exp) per row into m_half / l_half,
+    // then rank 0 merges the ranks' in rank order and writes lse (m_part)
+    namespace cg = cooperative_groups;
+    const cg::cluster_group cluster = cg::this_cluster();
+    if (!(warp & 1) && t == 0) {
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = m_base + mf * 16 + g + 8 * h;
+          const float m = m_run[mf][h], l = l_run[mf][h], m_o = sh.m_half[r], l_o = sh.l_half[r];
+          const float m_new = fmaxf(m, m_o);
+          sh.m_half[r] = m_new;
+          sh.l_half[r] = l * expf(m - m_new) + l_o * expf(m_o - m_new);
+        }
+    }
+    cluster.sync();  // every rank's pairs are in its shared memory
+    if (cluster.block_rank() == 0 && threadIdx.x < tc::kBM) {
+      const int r = threadIdx.x;
+      float m = sh.m_half[r], l = sh.l_half[r];
+      for (unsigned q = 1; q < cluster.num_blocks(); ++q) {
+        const float m_o = cluster.map_shared_rank(sh.m_half, q)[r];
+        const float l_o = cluster.map_shared_rank(sh.l_half, q)[r];
+        const float m_new = fmaxf(m, m_o);
+        l = l * expf(m - m_new) + l_o * expf(m_o - m_new);
+        m = m_new;
+      }
+      if (row0 + r < M) m_part[row0 + r] = m + logf(l);
+    }
+    cluster.sync();  // no rank exits while rank 0 reads its shared memory
+    return;
+  }
   if ((warp & 1) || t != 0) return;
   float* __restrict__ m_mine = m_part + (long long)blockIdx.y * M;
   float* __restrict__ l_mine = l_part + (long long)blockIdx.y * M;
@@ -1278,14 +1338,50 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
     }
 }
 
+// Kernel 15's launch configuration on the tensor-core tile: grid (session
+// tiles, cluster), one cluster of `cluster` blocks along y per session tile.
 template <int D>
-int launch_lse(const float* s, const float* items, float* lse, long long M, long long N, cudaStream_t stream) {
-  const int smem = 2 * 64 * (D + 1) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lse_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  lse_kernel<D><<<(unsigned)((M + kBM - 1) / kBM), kThreads, smem, stream>>>(s, items, lse, M, N);
+cudaLaunchConfig_t lse_cluster_config(long long M, int cluster, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((M + tc::kBM - 1) / tc::kBM), (unsigned)cluster);
+  cfg.blockDim = dim3(tc::kThreads);
+  cfg.dynamicSmemBytes = sizeof(LseSmem<D>);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = (unsigned)cluster;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Kernel 15: for D in {32, 64, 128} the tensor-core tile in clusters of
+// `cluster` blocks, rank q walking item rows [q * rank_rows, (q + 1) *
+// rank_rows); else the SIMT tile, one block per 64-row session tile walking
+// the whole catalog.
+template <int D>
+int launch_lse(const float* s, const float* items, float* lse, long long M, long long N, int cluster,
+               long long rank_rows, cudaStream_t stream) {
+  constexpr bool kTensorCores = tensor_cores(D);
+  if constexpr (kTensorCores) {
+    cudaError_t err = cudaFuncSetAttribute(lse_partials_tc_kernel<D, true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(LseSmem<D>));
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = lse_cluster_config<D>(M, cluster, stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, lse_partials_tc_kernel<D, true>, s, items, (const float*)nullptr, lse,
+                             (float*)nullptr, M, N, rank_rows);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    const int smem = 2 * 64 * (D + 1) * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(lse_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    lse_kernel<D><<<(unsigned)((M + kBM - 1) / kBM), kThreads, smem, stream>>>(s, items, lse, M, N);
+  }
   return (int)cudaGetLastError();
 }
+
 
 // Kernels 6, 8 (`bias` not null) and 16 on (session tile, item chunk)
 // blocks: kernels 6 and 8 on the tensor-core tile for D in {32, 64, 128}
@@ -1420,10 +1516,19 @@ int launch_fused(const float* s, const float* items, GradRows in, float* ds_part
 // sessions (M, D) and items (N, D) row-major, 16-byte aligned; D in
 // {16, 32, 64, 128, 256}. Each returns cudaGetLastError() after its launch
 // (0 = launched).
-extern "C" int lse_f32(const float* s, const float* items, float* lse, long long M, long long N, int D,
-                       cudaStream_t stream) {
+//
+// lse_f32 (kernel 15): lse (M,), one running (max, sum of exp) per row over
+// the whole catalog. On the tensor-core tile (D in {32, 64, 128}) clusters of
+// `cluster` (1-8) blocks share a session tile, rank q walking item rows [q *
+// rank_rows, (q + 1) * rank_rows) (a multiple of 64; a rank past N adds
+// nothing); the caller plans both from N (ops/softmax_lse.py
+// `lse_cluster_plan`), and the SIMT tile (D = 16, 256) checks and ignores them.
+extern "C" int lse_f32(const float* s, const float* items, float* lse, long long M, long long N, int D, int cluster,
+                       long long rank_rows, cudaStream_t stream) {
   if (M <= 0) return 0;
-  DISPATCH_D(D, CALL_LSE, s, items, lse, M, N, stream)
+  if (cluster < 1 || cluster > 8 || rank_rows <= 0 || rank_rows % kBN || cluster * rank_rows < N)
+    return (int)cudaErrorInvalidValue;
+  DISPATCH_D(D, CALL_LSE, s, items, lse, M, N, cluster, rank_rows, stream)
 }
 
 // m_part and l_part (ceil(N / chunk_rows), M): each item chunk's max logit and

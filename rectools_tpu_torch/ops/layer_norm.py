@@ -4,8 +4,10 @@ PyTorch twins and the ``torch.autograd.Function`` that joins them.
 Port of rectools_tpu/ops/layer_norm.py. Math follows flax ``nn.LayerNorm``:
 reductions in f32, two-pass variance, ``rsqrt(var + eps)``. The backward
 recomputes the row statistics from x (as the JAX ``_bwd_kernel`` does) and
-returns dx, dγ and dβ. A CUDA tensor goes to ``csrc/layer_norm.cu``
-(``ln_fwd_f32``, ``ln_bwd_f32``); a CPU tensor goes to the twins.
+returns dx, dγ and dβ, in one launch whose last block sums the per-block
+partials of dγ and dβ in a fixed order (:func:`bwd_partition`). A CUDA tensor
+goes to ``csrc/layer_norm.cu`` (``ln_fwd_f32``, ``ln_bwd_f32``); a CPU tensor
+goes to the twins.
 """
 
 import ctypes
@@ -18,14 +20,29 @@ from . import _native
 _C = ctypes.c_void_p
 _SIGNATURES = {
     "ln_fwd_f32": (_C, _C, _C, _C, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, _C),
-    # x, gamma, dy, dx, partials (n_blocks, D), dgamma, dbeta, m, d, eps, n_blocks, stream
-    "ln_bwd_f32": (_C,) * 7 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, _C),
+    # x, gamma, dy, dx, partials (n_blocks, 2, D), counter, dgamma, dbeta, m, d, eps, n_blocks, rows per block,
+    # stream
+    "ln_bwd_f32": (_C,) * 8 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_longlong, _C),
 }
 MAX_D = 1024
-# blocks of the backward: a function of nothing but the row count, so the
-# fixed-order dγ/dβ reduction gives the same bits on every card
-MAX_BWD_BLOCKS = 1024
-_ROWS_PER_BLOCK = 8
+# The backward's partition (`bwd_partition`): a function of nothing but the row
+# count, so the fixed-order dγ/dβ sums give the same bits on every card. At
+# most 128 blocks (one a multiprocessor, one wave on an H100), of at least 128
+# rows; the partial rows the last block sums stay few. 256 blocks of 8 warps
+# ran 4% slower at 51,200 x 128 (PERF.md section 6).
+MAX_BWD_BLOCKS = 128
+BWD_MIN_ROWS = 128
+# one ticket counter per (device, stream) for the backward's last-block sums,
+# zeroed once; each launch leaves it at 0
+_COUNTERS: tp.Dict[tp.Tuple[int, int], torch.Tensor] = {}
+
+
+def bwd_partition(m: int) -> tp.Tuple[int, int]:
+    """(blocks, rows per block) of the backward kernel for ``m`` rows: block b
+    owns rows [b · rows, (b + 1) · rows), none of them empty."""
+    blocks = max(1, min(MAX_BWD_BLOCKS, -(-m // BWD_MIN_ROWS)))
+    rows = max(1, -(-m // blocks))
+    return max(1, -(-m // rows)), rows
 
 
 def layer_norm_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -93,16 +110,22 @@ def layer_norm_bwd(
     m, d = _check("layer_norm_bwd", x, gamma, dy)
     if dy.shape != x.shape:
         raise ValueError("layer_norm_bwd: dy must match x")
-    n_blocks = max(1, min(MAX_BWD_BLOCKS, -(-m // _ROWS_PER_BLOCK)))
+    n_blocks, rows = bwd_partition(m)
     dx = torch.empty_like(x)
-    partials = torch.empty((n_blocks, 2, d), dtype=torch.float32, device=x.device)
-    dgamma = torch.empty((d,), dtype=torch.float32, device=x.device)
-    dbeta = torch.empty((d,), dtype=torch.float32, device=x.device)
+    # one scratch buffer: the (n_blocks, 2, D) partials, then dγ and dβ
+    scratch = torch.empty(((n_blocks + 1) * 2 * d,), dtype=torch.float32, device=x.device)
+    sums = n_blocks * 2 * d
+    dgamma, dbeta = scratch[sums : sums + d], scratch[sums + d :]
     lib = _native.load("layer_norm", _SIGNATURES)
+    stream = _native.current_stream_ptr(x.device)
+    key = (x.device.index, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    counter = _COUNTERS[key]
     with torch.cuda.device(x.device):
         status = lib.ln_bwd_f32(
-            x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), partials.data_ptr(),
-            dgamma.data_ptr(), dbeta.data_ptr(), m, d, eps, n_blocks, _native.current_stream_ptr(x.device),
+            x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), scratch.data_ptr(), counter.data_ptr(),
+            dgamma.data_ptr(), dbeta.data_ptr(), m, d, eps, n_blocks, rows, stream,
         )
     _native.check_launch("layer_norm_bwd", status)
     return dx, dgamma, dbeta

@@ -41,7 +41,9 @@ The gradient kernels, fused (9, 12 and 7's one pass) and split (7's two
 launches, 10, 11, 13, 14), run their products on the tensor cores in 3xTF32
 (each f32 operand split into two TF32 halves, about f32 accuracy) for D in
 32..128, on SIMT f32 tiles for D = 16 and 256. So do the logits products of
-kernels 6 and 8; the lse forwards 15 and 16 are SIMT f32 tiles
+kernels 6, 8 and 15 (kernel 15 in clusters of blocks that share a session
+tile and merge their rows' (max, Σexp) through distributed shared memory:
+:func:`lse_cluster_plan`); the lse forward 16 is a SIMT f32 tile
 (csrc/softmax_lse.cu says why).
 
 CPU tensors take the twins, which walk the catalog in item chunks exactly as
@@ -65,8 +67,8 @@ _C = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
-    # sessions, items, lse; M, N, D; stream
-    "lse_f32": (_C, _C, _C, _LL, _LL, _I, _C),
+    # sessions, items, lse; M, N, D; cluster, item rows per rank; stream
+    "lse_f32": (_C, _C, _C, _LL, _LL, _I, _I, _LL, _C),
     # sessions, items, max partials, sum partials; M, N, D; chunk rows; stream
     "lse_partials_f32": (_C, _C, _C, _C, _LL, _LL, _I, _LL, _C),
     # sessions, items, shift, window-1 partials, window-2 partials; M, N, D; chunk rows; stream
@@ -104,6 +106,10 @@ TILE = 64  # item rows per tile of every kernel, session rows per tile of the SI
 # row). Read at every call.
 USE_PARTIALS_FWD = True
 LSE_CHUNK = 2048  # item rows a block of kernels 6, 8 and 16 owns (why: csrc/softmax_lse.cu)
+# Kernel 15 on the tensor-core tile: a cluster of up to this many blocks
+# shares a session tile, each rank walking a contiguous share of the item
+# tiles (`lse_cluster_plan`)
+LSE_CLUSTER_MAX = 8
 
 # Kernel 16's second window: terms scaled by e^64 inside the exp, which
 # carries exact coverage from bound gaps of ~64 to ~128; window 1 is kept
@@ -139,6 +145,16 @@ def streaming_lse_reference(sessions: torch.Tensor, items: torch.Tensor, chunk: 
         l_run = l_run * torch.exp(m_run - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=1)
         m_run = m_new
     return m_run + torch.log(l_run)
+
+
+def lse_cluster_plan(n: int) -> tp.Tuple[int, int]:
+    """(cluster size, item rows per rank) of kernel 15 on the tensor-core
+    tile, a function of the catalog alone (so the bits are the card's on any
+    card): up to ``LSE_CLUSTER_MAX`` ranks, each ceil(tiles / ranks) 64-row
+    item tiles; a rank past the last tile adds nothing."""
+    tiles = max(1, -(-n // TILE))
+    cluster = min(LSE_CLUSTER_MAX, tiles)
+    return cluster, -(-tiles // cluster) * TILE
 
 
 def combine_lse_partials(m_part: torch.Tensor, l_part: torch.Tensor) -> torch.Tensor:
@@ -424,15 +440,16 @@ def streaming_lse_fwd(
     m, n, d = _check(kernel, sessions, items)
     if row_bias is not None:
         _check_vectors(kernel, n, "item row", row_bias=row_bias)
+    if m == 0 or n == 0:
+        return torch.full((m,), float("-inf"), device=sessions.device)
     if row_bias is not None or partials:
-        if m == 0 or n == 0:
-            return torch.full((m,), float("-inf"), device=sessions.device)
         return combine_lse_partials(*_launch_chunked_lse(kernel, sessions, items, row_bias=row_bias))
     lse = torch.empty((m,), dtype=torch.float32, device=sessions.device)
     lib = _native.load("softmax_lse", _SIGNATURES)
     with torch.cuda.device(sessions.device):
         status = lib.lse_f32(
-            sessions.data_ptr(), items.data_ptr(), lse.data_ptr(), m, n, d, _native.current_stream_ptr(sessions.device)
+            sessions.data_ptr(), items.data_ptr(), lse.data_ptr(), m, n, d, *lse_cluster_plan(n),
+            _native.current_stream_ptr(sessions.device),
         )
     _native.check_launch(kernel, status)
     return lse

@@ -28,6 +28,14 @@ MASK_VALUE = -1e9
 # plain TF32 and 3xTF32 accumulated straight on land above it; the SIMT
 # kernels (D = 16, 256).
 TC_RTOL, SIMT_RTOL = 6e-6, 1e-4
+# the lse forwards on that tile (kernels 6, 8 and 15), relative per row from
+# their twins; plain TF32 products land above it
+LSE_TC_RTOL = 1e-6
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: a plain-TF32 control's operands."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
 def _grads_rtol(d: int) -> float:
@@ -120,6 +128,59 @@ def test_lse_partials_tile_matches_the_cuda_source() -> None:
     assert {d for d in softmax_lse.SUPPORTED_D if softmax_lse._BWD_TILE[d][0] == tc_rows} == {32, 64, 128}
     blocks = -(-51200 // tc_rows) * -(-15872 // softmax_lse.LSE_CHUNK)
     assert blocks == 3200 and blocks / (-(-blocks // 132) * 132) > 0.96
+
+
+def test_layer_norm_bwd_is_one_launch_in_the_cuda_source() -> None:
+    """Kernel 4 is one launch: ``ln_bwd_f32`` launches ``ln_bwd_kernel`` and
+    nothing else, whose last block sums the partial rows after an integer
+    ticket (no float atomics) and resets the counter. The ``.cu`` picks the
+    warps a block from D alone (16 up to D = 256, else 8) and reads every row
+    in the forward kernel's lane layout, with no second path by alignment;
+    ``bwd_partition`` gives every M at most ``MAX_BWD_BLOCKS`` non-empty
+    blocks that cover it: 128 x 400 rows at the training shape (51,200 rows),
+    65 rows in the last of 65 at 8,193."""
+    src = (REPO / "rectools_tpu_torch" / "csrc" / "layer_norm.cu").read_text()
+    entry = src[src.index('extern "C" int ln_bwd_f32('):]
+    assert "<<<" not in entry and src.count("<<<") == 2  # the forward's launch and the backward's
+    assert "ln_bwd_kernel<VPL><<<n_blocks, 32 * warps, smem, stream>>>" in src
+    assert "ticket = atomicAdd(counter, 1u);" in src and "*counter = 0u;" in src
+    assert "atomicAdd(" not in src.replace("atomicAdd(counter, 1u)", "")
+    assert "constexpr int bwd_warps(int d) { return d <= 256 ? 16 : 8; }" in src
+    assert "const int warps = bwd_warps(d);" in src
+    assert "float4" not in src and "uintptr_t" not in src
+    assert layer_norm.bwd_partition(51200) == (128, 400)
+    assert layer_norm.bwd_partition(8193) == (65, 127) and layer_norm.bwd_partition(1) == (1, 1)
+    assert layer_norm.bwd_partition(0) == (1, 1)
+    for m in list(range(1, 700)) + [8192, 8193, 51199, 51200, 409600, 10**7 + 3]:
+        blocks, rows = layer_norm.bwd_partition(m)
+        assert 1 <= blocks <= layer_norm.MAX_BWD_BLOCKS and (blocks - 1) * rows < m <= blocks * rows, m
+
+
+def test_lse_cluster_plan_matches_the_cuda_source() -> None:
+    """Kernel 15 takes kernel 6's tensor-core kernel with the cluster epilogue
+    (``lse_partials_tc_kernel<D, true>``, launched with a cluster dimension)
+    exactly where kernel 6 takes the tile, and the SIMT ``lse_kernel`` at D =
+    16 and 256. ``lse_cluster_plan`` is a function of N alone, within the
+    ``.cu``'s limit of 8 ranks: at the training shape 8 ranks of 31 item tiles
+    (1,984 rows), 400 x 8 = 3,200 blocks as kernel 6's; one rank under one
+    tile; ranks past the last tile where the tiles do not fill the plan."""
+    src = (REPO / "rectools_tpu_torch" / "csrc" / "softmax_lse.cu").read_text()
+    launch = src[src.index("int launch_lse(") :]
+    launch = launch[: launch.index("\n}\n")]
+    assert "constexpr bool kTensorCores = tensor_cores(D);\n  if constexpr (kTensorCores) {" in launch
+    assert "cudaLaunchKernelEx(&cfg, lse_partials_tc_kernel<D, true>, s, items," in launch
+    assert "lse_kernel<D><<<" in launch
+    assert "attr->val.clusterDim.y = (unsigned)cluster;" in src
+    assert "if (cluster < 1 || cluster > 8 || rank_rows <= 0 || rank_rows % kBN || cluster * rank_rows < N)" in src
+    assert softmax_lse.LSE_CLUSTER_MAX == 8
+    assert softmax_lse.lse_cluster_plan(15872) == (8, 1984)
+    assert -(-51200 // 128) * softmax_lse.lse_cluster_plan(15872)[0] == 3200
+    assert softmax_lse.lse_cluster_plan(40) == (1, 64) and softmax_lse.lse_cluster_plan(0) == (1, 64)
+    for n in list(range(1, 3000, 7)) + [15835, 65536, 131072, 10**6 + 1]:
+        cluster, rows = softmax_lse.lse_cluster_plan(n)
+        assert 1 <= cluster <= 8 and rows % softmax_lse.TILE == 0 and cluster * rows >= n
+        assert cluster == min(8, -(-n // softmax_lse.TILE))
+    assert softmax_lse.lse_cluster_plan(576) == (8, 128)  # 9 tiles: ranks 5-7 own none
 
 
 def test_stu_bwd_tile_matches_the_cuda_source() -> None:
@@ -447,9 +508,37 @@ def test_cuda_sasrec_recommend_matches_cpu(cuda: torch.device) -> None:
 # ------------------------------------------------------------------ training kernels on the card
 
 
+def _device_kernels(fn, calls: int = 20) -> dict:
+    """{device kernel name: launches} of ``calls`` calls of ``fn``
+    (torch.profiler). A capture of a few short kernels can come back without
+    some of its device records, so it spans 20 calls and is taken again (up
+    to five times) while a kernel shows fewer launches than calls."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+        if names and min(names.values()) >= calls:
+            break
+    return dict(names)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,d", [(5000, 128), (33, 96), (7, 1024)])
+@pytest.mark.parametrize("m,d", [(5000, 128), (33, 96), (7, 1024), (51200, 128), (1, 128), (8193, 128), (65, 50)])
 def test_cuda_layer_norm_bwd_matches_twin(cuda: torch.device, m: int, d: int) -> None:
+    """Kernel 4 against its twin (dx within 1e-5; dγ and dβ, sums over m
+    rows, within 1e-5 · max(1, m / 1000)): the training shape (51,200 x 128),
+    one row, a ragged last block (8,193 rows: 65 blocks of 127, the last of
+    65), D = 50; one launch a call, the same bits on a rerun and when calls at
+    another shape run between on the same stream (the ticket counter is left
+    at 0)."""
     rng = np.random.default_rng(m + 1)
     x = _t((rng.normal(size=(m, d)) * 3 + 1).astype(np.float32)).to(cuda)
     g = _t(rng.normal(size=(d,)).astype(np.float32)).to(cuda)
@@ -457,11 +546,22 @@ def test_cuda_layer_norm_bwd_matches_twin(cuda: torch.device, m: int, d: int) ->
     before = _native.LAUNCHES["layer_norm_bwd"]
     got = layer_norm.layer_norm_bwd(x, g, dy, 1e-6)
     assert _native.LAUNCHES["layer_norm_bwd"] == before + 1
-    for a, b in zip(got, layer_norm.layer_norm_bwd_reference(x, g, dy, 1e-6)):
+    ref = layer_norm.layer_norm_bwd_reference(x, g, dy, 1e-6)
+    assert (got[0] - ref[0]).abs().max().item() <= 1e-5  # dx: O(1) entries
+    for a, b in zip(got[1:], ref[1:]):  # dγ, dβ: sums over m rows
         torch.testing.assert_close(a, b, atol=1e-5 * max(1.0, m / 1000), rtol=1e-5)
-    # deterministic: the same bits twice
+    kernels = _device_kernels(lambda: layer_norm.layer_norm_bwd(x, g, dy, 1e-6))
+    assert len(kernels) == 1 and "ln_bwd_kernel" in next(iter(kernels)) and set(kernels.values()) == {20}, kernels
+    # deterministic: the same bits twice, and after calls at another shape on this stream
     again = layer_norm.layer_norm_bwd(x, g, dy, 1e-6)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    other = 8193 if m != 8193 else 1
+    xo = _t((rng.normal(size=(other, d)) * 3 + 1).astype(np.float32)).to(cuda)
+    dyo = _t(rng.normal(size=(other, d)).astype(np.float32)).to(cuda)
+    first_other = layer_norm.layer_norm_bwd(xo, g, dyo, 1e-6)
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(layer_norm.layer_norm_bwd(x, g, dy, 1e-6), got))
+        assert all(torch.equal(a, b) for a, b in zip(layer_norm.layer_norm_bwd(xo, g, dyo, 1e-6), first_other))
 
 
 def _blhd(rng: np.random.Generator, b: int, l: int, h: int, dh: int, dev: torch.device) -> torch.Tensor:
@@ -592,6 +692,8 @@ def test_cuda_streaming_lse_and_ce_grads_match_twin(
         "lse_partials_fwd": int(partials), "lse_fwd": int(not partials)}
     twin = softmax_lse.streaming_lse_partials_reference if partials else softmax_lse.streaming_lse_reference
     torch.testing.assert_close(lse, twin(s, items), atol=0, rtol=1e-5)
+    if not partials and 32 <= d <= 128:  # kernel 15 on the 3xTF32 tile: LSE_TC_RTOL per row
+        assert ((lse - twin(s, items)).abs() / twin(s, items).abs()).max().item() <= LSE_TC_RTOL
     assert _native.LAUNCHES[key] == before[key] + 1
     y = _t(rng.integers(0, n, size=m)).to(cuda)
     coeff = _t(rng.uniform(0, 1e-2, size=m).astype(np.float32)).to(cuda)
@@ -611,6 +713,42 @@ def test_cuda_streaming_lse_and_ce_grads_match_twin(
         assert (got - ref).abs().max().item() <= _grads_rtol(d) * ref.abs().max().item()
     again = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
     assert torch.equal(again[0], ds) and torch.equal(again[1], di)  # no atomics: the same bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "m,n,d",
+    [(51, 300, 32), (257, 1000, 64), (1000, 2111, 128), (130, 40, 64), (100, 576, 128), (70, 2177, 32),
+     (300, 15872, 128)],
+)
+def test_cuda_carried_max_lse_on_the_tensor_cores(cuda: torch.device, monkeypatch: pytest.MonkeyPatch, m: int,
+                                                  n: int, d: int) -> None:
+    """Kernel 15 (``USE_PARTIALS_FWD = False``) on the 3xTF32 tile in clusters
+    of ``lse_cluster_plan`` at D = 32, 64 and 128: within ``LSE_TC_RTOL`` per
+    row of its twin, where plain TF32 products (the control) land above it;
+    one launch, the same bits on a rerun, and within 1e-5 of kernel 6. The
+    cases: a catalog under one item tile (one rank), plans that leave ranks
+    with no tile (576, 2,111 and 2,177 items), M not a multiple of 128, the
+    KION catalog (8 ranks of 31 tiles)."""
+    rng = np.random.default_rng(m * n + d)
+    s = _t(rng.normal(size=(m, d)).astype(np.float32)).to(cuda)
+    items = _t((0.3 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+    cluster, rows = softmax_lse.lse_cluster_plan(n)
+    assert (cluster - -(-n // rows) > 0) == (n in (576, 2111, 2177)) and (cluster == 1) == (n < 64)
+    monkeypatch.setattr(softmax_lse, "USE_PARTIALS_FWD", False)
+    before = dict(_native.LAUNCHES)
+    lse = softmax_lse.streaming_lse(s, items)
+    assert {k: _native.LAUNCHES[k] - before[k] for k in ("lse_partials_fwd", "lse_fwd")} == {
+        "lse_partials_fwd": 0, "lse_fwd": 1}
+    ref = softmax_lse.streaming_lse_reference(s, items)
+    plain = softmax_lse.streaming_lse_reference(_tf32(s), _tf32(items))
+    rel = ((lse - ref).abs() / ref.abs()).max().item()
+    rel_plain = ((plain - ref).abs() / ref.abs()).max().item()
+    assert torch.isfinite(lse).all() and rel <= LSE_TC_RTOL < rel_plain, (rel, rel_plain)
+    assert torch.equal(softmax_lse.streaming_lse(s, items), lse)
+    monkeypatch.setattr(softmax_lse, "USE_PARTIALS_FWD", True)
+    kernel_6 = softmax_lse.streaming_lse(s, items)
+    assert ((kernel_6 - lse).abs() / lse.abs()).max().item() <= 1e-5
 
 
 @pytest.mark.gpu

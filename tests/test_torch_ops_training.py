@@ -111,6 +111,72 @@ def test_layer_norm_backward_matches_jax(m: int, eps: float) -> None:
         np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=1e-5, rtol=1e-5)
 
 
+def _ln_bwd_sums_in_the_partition_order(x: np.ndarray, dy: np.ndarray, eps: float) -> tuple:
+    """Kernel 4's dγ and dβ in the order of its partition, in float32: block b
+    of ``bwd_partition`` owns rows [b · rows, (b + 1) · rows); warp w of a
+    block (16 warps for d <= 256, else 8: ``bwd_warps`` in the ``.cu``) adds
+    its rows w, w + warps, ... one after another; the block adds its warps'
+    sums in warp order into its partial row; the last block sums the partial
+    rows of blocks [g · per, (g + 1) · per) per group g (one group a warp, per
+    = ceil(blocks / warps)), then the groups in order. The row statistics are
+    numpy's, not the card's (its warp trees and ``rsqrtf`` are not modelled),
+    so the terms differ from the card's in their last bits."""
+    m, d = x.shape
+    mu = x.mean(axis=1, keepdims=True, dtype=np.float32)
+    xc = x - mu
+    rstd = (1.0 / np.sqrt((xc * xc).mean(axis=1, keepdims=True, dtype=np.float32) + np.float32(eps))).astype(np.float32)
+    terms = np.stack([dy * (xc * rstd), dy], axis=1).astype(np.float32)  # (m, 2, d)
+    n_blocks, rows = layer_norm.bwd_partition(m)
+    warps = 16 if d <= 256 else 8
+    partials, seen = [], 0
+    for b in range(n_blocks):
+        r0, r1 = b * rows, min(m, (b + 1) * rows)
+        block = np.zeros((2, d), np.float32)
+        for w in range(warps):
+            acc = np.zeros((2, d), np.float32)
+            for r in range(r0 + w, r1, warps):
+                acc = acc + terms[r]
+                seen += 1
+            block = block + acc
+        partials.append(block)
+    assert seen == m  # every row once
+    per = -(-n_blocks // warps)
+    total = np.zeros((2, d), np.float32)
+    for g in range(warps):
+        acc = np.zeros((2, d), np.float32)
+        for b in range(g * per, min(n_blocks, (g + 1) * per)):
+            acc = acc + partials[b]
+        total = total + acc
+    return total[0], total[1]
+
+
+@pytest.mark.parametrize("m", [37, 1030, 8193])
+def test_layer_norm_bwd_partition_sums_match_jax(m: int) -> None:
+    """Kernel 4's partition of the dγ/dβ sums (per-block partials over the
+    rows of ``bwd_partition``, summed by the last block in groups), modelled
+    in float32, against the JAX ``fused_layer_norm`` VJP in interpret mode:
+    within 1e-5 of the largest entry (``LN_BWD_TOL`` of chip_smoke.py: sums
+    over thousands of rows). A tolerance check of the partition, which covers
+    every row once; it does not pin the card's bits, which the GPU tests hold
+    against the twin. 8,193 rows leave a last block of 65 rows where the
+    others hold 127."""
+    rng = np.random.default_rng(m + 5)
+    d, eps = 128, 1e-6
+    x = (rng.normal(size=(m, d)) * 3 + 1).astype(np.float32)
+    gamma = rng.normal(size=(d,)).astype(np.float32)
+    beta = rng.normal(size=(d,)).astype(np.float32)
+    dy = rng.normal(size=(m, d)).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda a, g, b: jax_layer_norm.fused_layer_norm(a, g, b, eps, 1024, True), *map(jnp.asarray, (x, gamma, beta))
+    )
+    _, dgamma, dbeta = vjp(jnp.asarray(dy))
+    if m == 8193:
+        assert layer_norm.bwd_partition(m) == (65, 127)
+    for got, exp in zip(_ln_bwd_sums_in_the_partition_order(x, dy, eps), (dgamma, dbeta)):
+        exp = np.asarray(exp)
+        assert np.abs(got - exp).max() <= 1e-5 * np.abs(exp).max()
+
+
 # ------------------------------------------------------------------ attention forward and backward
 
 
@@ -749,6 +815,57 @@ def test_ce_gradients_in_3xtf32_pass_the_card_tolerance(d: int, order: str) -> N
             got = _split_order_tf32(s, items, pw, three)
         worst = max(((g - e).abs().max() / e.abs().max()).item() for g, e in zip(got, exact))
         assert worst <= 1e-5 if three else worst > 1e-4, (three, worst)
+
+
+def _carried_max_lse_tf32(s: torch.Tensor, items: torch.Tensor, three: bool) -> torch.Tensor:
+    """Kernel 15's arithmetic on the tensor-core tile in its cluster's order:
+    rank q of ``lse_cluster_plan`` walks its item rows in 64-row tiles, the
+    logits from TF32 halves, one running (max from -1e30, Σexp) per row; rank
+    0 then merges the ranks' pairs in rank order (an empty rank adds (-1e30,
+    0))."""
+    n = items.shape[0]
+    cluster, rows = softmax_lse.lse_cluster_plan(n)
+    m = torch.full((s.shape[0],), softmax_lse.NEG_BIG)
+    l = torch.zeros((s.shape[0],))
+    for q in range(cluster):
+        m_q, l_q = torch.full_like(m, softmax_lse.NEG_BIG), torch.zeros_like(l)
+        for start in range(q * rows, min(n, (q + 1) * rows), softmax_lse.TILE):
+            logits = _mm_tf32(s, items[start : start + softmax_lse.TILE].T.contiguous(), three)
+            m_new = torch.maximum(m_q, logits.max(dim=1).values)
+            l_q = l_q * torch.exp(m_q - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=1)
+            m_q = m_new
+        m_new = torch.maximum(m, m_q)
+        l = l * torch.exp(m - m_new) + l_q * torch.exp(m_q - m_new)
+        m = m_new
+    return m + torch.log(l)
+
+
+@pytest.mark.parametrize(
+    "m,n,d",
+    [(70, 2177, 32), (64, 40, 64), (100, 576, 128), (130, 1000, 64)],
+    ids=["ragged_m_last_rank_empty", "under_one_tile", "three_ranks_empty", "ragged_m_over_a_tile"],
+)
+def test_carried_max_lse_in_3xtf32_cluster_order_matches_jax(monkeypatch, m: int, n: int, d: int) -> None:
+    """Kernel 15 on the tensor-core tile, modelled on the CPU: 3xTF32 logits
+    in the cluster's order within 1e-6 relative per row (``LSE_TC_RTOL`` of
+    chip_smoke.py) of the JAX carried-max forward (``_lse_fwd_tail_kernel``,
+    ``_USE_PARTIALS_FWD = False``, interpret mode); plain TF32 products land
+    above that limit. The cases: M not a multiple of 128; a catalog under one
+    item tile (one rank); catalogs whose plan leaves one or three ranks with
+    no tile."""
+    rng = np.random.default_rng(m * n + d)
+    s = rng.normal(size=(m, d)).astype(np.float32)
+    items = (0.3 * rng.normal(size=(n, d))).astype(np.float32)
+    monkeypatch.setattr(jax_softmax_lse, "_USE_PARTIALS_FWD", False)
+    expected = _t(np.array(jax_softmax_lse.streaming_lse(jnp.asarray(s), jnp.asarray(items), None, 16, 64, True)))
+    cluster, rows = softmax_lse.lse_cluster_plan(n)
+    empty = cluster - -(-n // rows)
+    assert empty == {2177: 1, 40: 0, 576: 3, 1000: 0}[n] and (cluster == 1) == (n <= softmax_lse.TILE)
+    errors = {}
+    for three in (True, False):
+        got = _carried_max_lse_tf32(_t(s), _t(items), three)
+        errors[three] = ((got - expected).abs() / expected.abs()).max().item()
+    assert errors[True] <= 1e-6 < errors[False], errors
 
 
 def _attention_fwd_tf32(q, k, v, bias, scale: float, keep, three: bool) -> tuple:
