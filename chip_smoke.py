@@ -25,8 +25,11 @@ own lines; any failure exits nonzero and prints no result:
              and 131,072 items; kernel 15's running max on the same tile in
              clusters of blocks; each with
              a plain-TF32 control that must fail its limit; kernel 16's fixed
-             shift at these inputs and scaled so that window 2 serves the
-             rows, with the share of rows in each window); the softmax
+             shift on the same tile at these inputs and scaled so that window
+             2 serves the rows, with the share of rows in each window, held
+             to the tensor-core limit against its twin and the twin in
+             float64 with a plain-TF32 control, its bits on a rerun and its
+             device kernel named by the profiler); the softmax
              gradients from z (kernel 12; kernels 13 + 14 at 15,872, at the
              odd catalog and at 131,072 items); the CE gradients (kernel 7) in
              one pass, and its two launches with the partials budget forced
@@ -155,8 +158,9 @@ PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores, data s
 # time in a one-step profile of those fits), kernels 8 (at the three mesh shapes) and 19 (with the bucket sums),
 # kernels 2 (at serving, and with dropout at the training width) and 5, and kernel 17 (at the training width, at
 # L = 1,024 and at serving); kernel 3 on its warp-per-group kernel (at serving); kernel 4 as two launches (its
-# partials summed by a second kernel) and kernel 15 on the SIMT tile; by the entry of `kernels` that holds this
-# run's time; printed beside this run's times on `redesigned:` lines, never in the JSON line
+# partials summed by a second kernel) and kernels 15 and 16 on the SIMT tile (16 in both windows); by the entry of
+# `kernels` that holds this run's time; printed beside this run's times on `redesigned:` lines, never in the JSON
+# line
 SIMT_TILE_MS = {
     "ce_grads": 33.2298, "lse_bwd_fused": 24.6118, "grads_z_fused": 24.3758, "ce_grads_pair": 33.4354,
     "lse_bwd_ds": 17.7596, "lse_bwd_di": 16.1084, "lse_bwd_ds_shard_2x2": 5.0311, "lse_bwd_di_shard_2x2": 5.1938,
@@ -168,7 +172,7 @@ SIMT_TILE_MS = {
     "stu_ds": 0.8109, "stu_ds_long_ctx": 6.8854,
     "attention_fwd": 1.6675, "attention_fwd_train": 0.2841, "attention_bwd": 0.6189,
     "stu_fwd": 0.2795, "stu_fwd_long_ctx": 4.0498, "stu_fwd_serving": 1.9215, "group_topm": 0.6820,
-    "layer_norm_bwd": 0.0894, "lse_fwd": 10.0975,
+    "layer_norm_bwd": 0.0894, "lse_fwd": 10.0975, "lse_shift_fwd": 8.3168, "lse_shift_fwd_window_2": 8.3156,
 }
 LN_TOL = 1e-5
 ATTN_TOL = 1e-5
@@ -179,8 +183,8 @@ LR = 1e-3
 EPOCHS = 2
 LN_BWD_TOL = 1e-5  # dx absolute; dgamma and dbeta relative to their largest entry (sums over 51,200 rows)
 LSE_RTOL = 1e-5  # relative, per row: one column of 15,872 left out moves an lse of about 10 by 6e-6 relative
-# kernels 6, 8 and 15 on the tensor cores (3xTF32), relative per row from their twins: below it, and plain TF32
-# products (their control) above it
+# kernels 6, 8, 15 and 16 on the tensor cores (3xTF32), relative per row from their twins (kernel 16 also from its
+# twin in float64): below it, and plain TF32 products (their control) above it
 LSE_TC_RTOL = 1e-6
 CE_RTOL = 1e-4  # relative to the largest entry of ds and of di
 # the same for the gradient kernels on the tensor-core tile, fused (7's one pass, 9, 12) and split (7's two
@@ -379,6 +383,11 @@ def _max_rel(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max()).item()
 
 
+def _row_rel(got, ref) -> float:
+    """The largest error relative to the reference's entry, over the rows (in float64)."""
+    return ((got.double() - ref.double()).abs() / ref.double().abs()).max().item()
+
+
 def tf32(torch, x):
     """x rounded to TF32 as ``cvt.rna.tf32.f32`` does (a product of two TF32
     values is exact in f32): the operands of a plain-TF32 control."""
@@ -544,15 +553,30 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     print(f"train kernels: kernels 6 and 15 agree to {between:.3g} relative; at N={RAGGED_N} both within "
           f"{LSE_RTOL} of their twins")
 
-    # kernel 16 at the scale of these inputs, then scaled so that window 2 serves the rows
+    # kernel 16 on the same tile at the scale of these inputs, then scaled so that window 2 serves the rows
     for tag, scale in (("", 1.0), ("_window_2", SHIFT_WINDOW2_SCALE)):
         ss, ii = s * scale, items * scale
         got = softmax_lse.streaming_lse(ss, ii, bounded_shift=True)
         ref = softmax_lse.streaming_lse_shift_reference(ss, ii)
-        exact = lse if scale == 1.0 else softmax_lse.streaming_lse(ss, ii)
-        rel = max(((got - r).abs() / r.abs()).max().item() for r in (ref, exact))
+        kernel_6 = lse if scale == 1.0 else softmax_lse.streaming_lse(ss, ii)
+        rel = max(((got - r).abs() / r.abs()).max().item() for r in (ref, kernel_6))
         check(bool(torch.isfinite(got).all()) and rel <= LSE_RTOL,
               f"lse_shift_fwd at scale {scale} disagrees with its twin or with kernel 6: {rel}")
+        check(bool(torch.equal(softmax_lse.streaming_lse(ss, ii, bounded_shift=True), got)),
+              f"lse_shift_fwd at scale {scale}: other bits on a rerun")
+        # 3xTF32 on the tensor cores: within LSE_TC_RTOL per row of the twin in float64 (the exact function) and of
+        # the f32 twin while that twin is itself within half the limit of the float64 one (window 1; in window 2
+        # the logits are 6.25x larger and it is not: PERF.md §6, PR 13); plain TF32 products, in the twin's
+        # arithmetic on rounded inputs, above the limit from the same references
+        exact = softmax_lse.streaming_lse_shift_reference(ss.double(), ii.double())
+        rel_twin, rel_exact, twin_exact = _row_rel(got, ref), _row_rel(got, exact), _row_rel(ref, exact)
+        plain_tf32 = softmax_lse.streaming_lse_shift_reference(tf32(torch, ss), tf32(torch, ii))
+        refs = [exact, ref] if twin_exact <= LSE_TC_RTOL / 2 else [exact]
+        rel_tc = max(_row_rel(got, r) for r in refs)
+        rel_plain = min(_row_rel(plain_tf32, r) for r in refs)
+        check(rel_tc <= LSE_TC_RTOL < rel_plain,
+              f"lse_shift_fwd at scale {scale}: {rel_twin} from its twin, {rel_exact} from the float64 twin (the "
+              f"twin {twin_exact} from it), plain TF32 {rel_plain}: not on either side of {LSE_TC_RTOL}")
         shift, l_sum, _ = softmax_lse.lse_shift_sums(ss, ii)
         gap = shift - (ss @ ii.T).max(dim=1).values
         window_1 = (l_sum >= softmax_lse.WINDOW1_FLOOR).float().mean().item()
@@ -560,15 +584,26 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
               f"kernel 16 at scale {scale}: window 1 serves {window_1} of the rows")
         print(f"train kernels: lse_shift_fwd at scale {scale}: rows in window 1 {window_1:.4f}, in window 2 "
               f"{1 - window_1:.4f}; bound gap min {gap.min().item():.1f} median {gap.median().item():.1f} max "
-              f"{gap.max().item():.1f}; max relative err against its twin and kernel 6 {rel:.3g}")
+              f"{gap.max().item():.1f}; max relative err against its twin and kernel 6 {rel:.3g}; 3xTF32 "
+              f"{rel_twin:.3g} per row from its twin, {rel_exact:.3g} from the float64 twin (the f32 twin "
+              f"{twin_exact:.3g} from it; held to {len(refs)} of them), plain TF32 products {rel_plain:.3g} (limit "
+              f"{LSE_TC_RTOL}); bits equal on a rerun")
+        if scale == 1.0:  # the kernel that ran, by its profiler name: the tensor-core kernel at d = 128
+            names = device_kernels(torch, lambda: softmax_lse.streaming_lse(ss, ii, bounded_shift=True), calls=3)
+            tile = [k for k in names if "lse_partials_tc_kernel" in k]
+            check(dev.type != "cuda" or (len(tile) == 1 and names[tile[0]][0] == 1.0 and
+                                         not any("lse_chunk_kernel" in k for k in names)),
+                  f"lse_shift_fwd at d = {d}: device kernels {names}")
+            print(f"train kernels: lse_shift_fwd device kernels (torch.profiler, a call): {names}")
         results[f"lse_shift_fwd{tag}"] = dict(
             max_abs_err=(got - ref).abs().max().item(),
             ms=time_ms(lambda: softmax_lse.streaming_lse(ss, ii, bounded_shift=True), iters=5),
             plain_ms=time_ms(lambda: softmax_lse.streaming_lse_shift_reference(ss, ii), iters=3),
             library_ms=time_ms(lambda: torch.logsumexp(ss @ ii.T, dim=1), iters=3),
-            bound=bound_ms((m * d + n * d + 2 * m) * 4, products),
+            # the inputs, the shift and the two (chunks, M) partials
+            **tc_bounds((m * d + n * d + m + 2 * m * chunks_6) * 4, products),
         )
-        del ss, ii, got, ref, exact, shift, l_sum, gap
+        del ss, ii, got, ref, kernel_6, exact, plain_tf32, shift, l_sum, gap
     torch.cuda.empty_cache()
 
     y = torch.randint(1, n, (m,), generator=gen, device=dev)

@@ -162,7 +162,7 @@
 // twin in the same chunks is ~1e-7 per row; plain TF32 products gave
 // 1.6-2.1e-5.
 //
-// Kernel 15 on the same tile (`lse_partials_tc_kernel<D, true>`, D in {32,
+// Kernel 15 on the same tile (`lse_partials_tc_kernel<D, kCluster>`, D in {32,
 // 64, 128}): one block per 128-row session tile walking the whole catalog
 // would give 400 blocks at one block per SM, 3.03 waves in 4 rounds of 248
 // item tiles. So a thread-block cluster of C blocks (launched with a cluster
@@ -184,8 +184,25 @@
 // of 132 blocks against 27 of 120). 9.5e-8 relative per row from the f32
 // twin, plain TF32 1.8-2.0e-5.
 //
-// The SIMT tile: everything else (kernel 16; kernels 6, 8 and 15 and the
-// gradient kernels, fused and split, at D = 16 and 256). 256 threads in a 16 x
+// Kernel 16 on the same tile (`lse_partials_tc_kernel<D, kShift>`, D in {32,
+// 64, 128}): kernel 6's grid, tiles, ring and loop (3,200 blocks at the
+// training shape, 8 chunks of 2,048 item rows), with the caller's shift of
+// the thread's four fragment rows read once at the start and, per item tile,
+// plain sums of expf(x) and expf(x + 64) with x = logit - shift over the
+// thread's columns below the chunk's end: no max, no bias, 64 `expf` a
+// thread a tile against kernel 6's 36. The end sums the four threads of a
+// row by shuffles and adds warp column 1's rows to column 0's: a fixed
+// order, the same bits on every run; the caller sums the (n_chunks, M)
+// partials of each window over the chunks. A masked column is skipped, never
+// added as exp(-1e30 - shift), so a zero session row (shift 0) sums exactly
+// N ones. Registers (ptxas -v) 179 / 159 / 149 at D = 128 / 64 / 32, no
+// spills. At the training shape it runs at kernel 6's time, 4.95-4.97 ms in
+// both windows against the SIMT kernel's 8.29-8.37 (NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md section 6): the extra exps cost nothing measurable, and its
+// bound is kernel 6's (1.26 ms in 3xTF32, 3.11 FP32).
+//
+// The SIMT tile: everything else (kernels 6, 8, 15 and 16 and the gradient
+// kernels, fused and split, at D = 16 and 256). 256 threads in a 16 x
 // 16 grid; a block holds a 64-row session tile and a 64-row item tile whole
 // in shared memory (rows padded to D + 1 floats so the per-thread row reads
 // are conflict-free) and forms their 64 x 64 logits, each thread a 4 x 4
@@ -219,6 +236,8 @@ constexpr int kBM = 64;  // session rows per tile
 constexpr int kBN = 64;  // item rows per tile
 constexpr int kThreads = 256;
 constexpr float kNegBig = -1e30f;
+// kernel 16's second window: its terms scaled by e^64 inside the exp
+constexpr float kWindow2Offset = 64.f;
 
 // Which gradient kernels take the tensor-core tile: D in {32, 64, 128}. D =
 // 16 has rows under the swizzle's 32 floats; at D = 256 a 128 x 256 ds
@@ -383,7 +402,7 @@ __global__ void __launch_bounds__(kThreads)
           if (n0 + tx + 16 * b >= n_end) continue;
           const float x = acc[a][b] - sh[a];
           a_run[a] += expf(x);
-          b_run[a] += expf(x + 64.f);
+          b_run[a] += expf(x + kWindow2Offset);
         }
     } else {
       running_update(acc, a_run, b_run, n0, n_end, tx);
@@ -1170,35 +1189,50 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
     }
 }
 
-// Kernel 6's and 8's shared memory: the session tile, a ring of two item
-// tiles with their bias (kernel 8) and the (max, sum of exp) of warp column 1
-// for the merge at the end. 131,072 bytes of tiles at D = 128.
+// Kernel 6's, 8's, 15's and 16's shared memory: the session tile, a ring of
+// two item tiles with their bias (kernel 8) and warp column 1's row pairs for
+// the merge at the end. 131,072 bytes of tiles at D = 128.
 template <int D>
 struct LseSmem {
   float s[tc::kBM * D];
   float items[2][tc::kBN * D];
   float bs[2][tc::kBN];
-  float m_half[tc::kBM];
-  float l_half[tc::kBM];
+  float a_half[tc::kBM];
+  float b_half[tc::kBM];
 };
 
-// Kernels 6 and 8 on the tensor-core tile (D in {32, 64, 128}): block (x, y)
-// owns the 128-row session tile x and item rows [y * chunk_rows, (y + 1) *
-// chunk_rows), walks the chunk's 64-row item tiles (and, for kernel 8, their
-// bias) through a ring of two by cp.async with product 1 (the logits,
-// 3xTF32), adds the bias (kernel 8; 0 without one) and folds each tile into
-// a running (max, sum of exp), from -1e30, for the four rows its accumulator
-// fragments hold (columns past the chunk's end left out). At the end the
-// four threads of a row merge theirs by shuffles and the two warp columns
-// through shared memory; m_part and l_part are (gridDim.y, M), rows past M
-// never written. kCluster (kernel 15): the gridDim.y blocks of a session
-// tile are one cluster, y its rank and chunk_rows a rank's item rows; rank 0
-// merges the ranks' rows and writes lse (M,) to m_part; l_part is unused.
-template <int D, bool kCluster = false>
+// What lse_partials_tc_kernel computes per row: each item chunk's (max, sum
+// of exp) partials (kernels 6 and 8), lse through a cluster of blocks
+// (kernel 15), or each item chunk's sums of the two shifted windows (kernel
+// 16).
+enum class LseMode { kPartials, kCluster, kShift };
+
+// Kernels 6, 8, 15 and 16 on the tensor-core tile (D in {32, 64, 128}):
+// block (x, y) owns the 128-row session tile x and item rows [y *
+// chunk_rows, (y + 1) * chunk_rows), walks the chunk's 64-row item tiles
+// (and, for kernel 8, their bias) through a ring of two by cp.async with
+// product 1 (the logits, 3xTF32) and folds each tile into a pair per row for
+// the four rows its accumulator fragments hold (columns past the chunk's end
+// left out). At the end the four threads of a row merge theirs by shuffles
+// and the two warp columns through shared memory; out_a and out_b are
+// (gridDim.y, M), rows past M never written.
+// - kPartials (kernels 6 and 8): the bias (kernel 8; 0 without one) added to
+//   each logit, a running (max, sum of exp) from -1e30; out_a the chunk's
+//   max, out_b its sum of exp(logit - max).
+// - kCluster (kernel 15): the gridDim.y blocks of a session tile are one
+//   cluster, y its rank and chunk_rows a rank's item rows; rank 0 merges the
+//   ranks' (max, sum of exp) and writes lse (M,) to out_a; out_b is unused.
+// - kShift (kernel 16): x = logit - shift[m] with the caller's per-row shift
+//   (0 past M), out_a = sum exp(x) and out_b = sum exp(x + 64), plain sums in
+//   a fixed order (each thread's columns tile by tile, the four threads of a
+//   row, then warp column 0 plus column 1); no max, no bias.
+template <int D, LseMode kMode = LseMode::kPartials>
 __global__ void __launch_bounds__(tc::kThreads, 1)
     lse_partials_tc_kernel(const float* __restrict__ s, const float* __restrict__ items,
-                           const float* __restrict__ bias, float* __restrict__ m_part, float* __restrict__ l_part,
-                           long long M, long long N, long long chunk_rows) {
+                           const float* __restrict__ shift, const float* __restrict__ bias,
+                           float* __restrict__ out_a, float* __restrict__ out_b, long long M, long long N,
+                           long long chunk_rows) {
+  constexpr bool kShift = kMode == LseMode::kShift;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   LseSmem<D>& sh = *reinterpret_cast<LseSmem<D>*>(smem_raw);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -1214,13 +1248,16 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
   tc::load_tile<D, tc::kBN>(sh.items[0], items, n_begin, n_end);
   if (bias != nullptr) tc::load_bias(sh.bs[0], bias, n_begin, n_end);
   tc::cp_commit();
-  float m_run[2][2], l_run[2][2];
+  // per fragment row: (max, sum of exp), or kShift (sum of window 1, of window 2) and the row's shift
+  float a_run[2][2], b_run[2][2], row_shift[2][2];
 #pragma unroll
   for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      m_run[mf][h] = kNegBig;
-      l_run[mf][h] = 0.f;
+      const long long row = row0 + m_base + mf * 16 + g + 8 * h;
+      row_shift[mf][h] = kShift && row < M ? shift[row] : 0.f;
+      a_run[mf][h] = kShift ? 0.f : kNegBig;
+      b_run[mf][h] = 0.f;
     }
   int stage = 0;
   for (int j = 0; j < n_tiles; ++j) {
@@ -1234,36 +1271,52 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
     tc::cp_commit();
     float acc[2][4][4];
     tc::logits<D>(sh.s, sh.items[stage], acc);
-    // kernel 8: the bias of this thread's eight columns onto both row blocks (+0 leaves a logit as it is)
+    if constexpr (kShift) {
 #pragma unroll
-    for (int nf = 0; nf < 4; ++nf)
+      for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float bc = bias != nullptr ? sh.bs[stage][n_base + nf * 8 + 2 * t + e] : 0.f;
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int mf = 0; mf < 2; ++mf)
+          for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) acc[mf][nf][2 * h + e] += bc;
-      }
+            for (int e = 0; e < 2; ++e) {
+              if (n0 + n_base + nf * 8 + 2 * t + e >= n_end) continue;
+              const float x = acc[mf][nf][2 * h + e] - row_shift[mf][h];
+              a_run[mf][h] += expf(x);
+              b_run[mf][h] += expf(x + kWindow2Offset);
+            }
+    } else {
+      // kernel 8: the bias of this thread's eight columns onto both row blocks (+0 leaves a logit as it is)
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
+      for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float mx = m_run[mf][h];
+        for (int e = 0; e < 2; ++e) {
+          const float bc = bias != nullptr ? sh.bs[stage][n_base + nf * 8 + 2 * t + e] : 0.f;
 #pragma unroll
-        for (int nf = 0; nf < 4; ++nf)
+          for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (n0 + n_base + nf * 8 + 2 * t + e < n_end) mx = fmaxf(mx, acc[mf][nf][2 * h + e]);
-        float l = l_run[mf][h] * expf(m_run[mf][h] - mx);
+            for (int h = 0; h < 2; ++h) acc[mf][nf][2 * h + e] += bc;
+        }
 #pragma unroll
-        for (int nf = 0; nf < 4; ++nf)
+      for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (n0 + n_base + nf * 8 + 2 * t + e < n_end) l += expf(acc[mf][nf][2 * h + e] - mx);
-        m_run[mf][h] = mx;
-        l_run[mf][h] = l;
-      }
+        for (int h = 0; h < 2; ++h) {
+          float mx = a_run[mf][h];
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (n0 + n_base + nf * 8 + 2 * t + e < n_end) mx = fmaxf(mx, acc[mf][nf][2 * h + e]);
+          float l = b_run[mf][h] * expf(a_run[mf][h] - mx);
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (n0 + n_base + nf * 8 + 2 * t + e < n_end) l += expf(acc[mf][nf][2 * h + e] - mx);
+          a_run[mf][h] = mx;
+          b_run[mf][h] = l;
+        }
+    }
     stage ^= 1;
   }
   // merge: the four threads of a row (lanes 4g + t), then the two warp columns
@@ -1271,27 +1324,32 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
   for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float m = m_run[mf][h], l = l_run[mf][h];
+      float a = a_run[mf][h], b = b_run[mf][h];
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
-        const float m_o = __shfl_xor_sync(0xffffffffu, m, off);
-        const float l_o = __shfl_xor_sync(0xffffffffu, l, off);
-        const float m_new = fmaxf(m, m_o);
-        l = l * expf(m - m_new) + l_o * expf(m_o - m_new);
-        m = m_new;
+        const float a_o = __shfl_xor_sync(0xffffffffu, a, off);
+        const float b_o = __shfl_xor_sync(0xffffffffu, b, off);
+        if constexpr (kShift) {
+          a += a_o;
+          b += b_o;
+        } else {
+          const float m_new = fmaxf(a, a_o);
+          b = b * expf(a - m_new) + b_o * expf(a_o - m_new);
+          a = m_new;
+        }
       }
-      m_run[mf][h] = m;
-      l_run[mf][h] = l;
+      a_run[mf][h] = a;
+      b_run[mf][h] = b;
       const int r = m_base + mf * 16 + g + 8 * h;
       if ((warp & 1) && t == 0) {
-        sh.m_half[r] = m;
-        sh.l_half[r] = l;
+        sh.a_half[r] = a;
+        sh.b_half[r] = b;
       }
     }
   __syncthreads();
-  if constexpr (kCluster) {
-    // kernel 15: this rank's (max, sum of exp) per row into m_half / l_half,
-    // then rank 0 merges the ranks' in rank order and writes lse (m_part)
+  if constexpr (kMode == LseMode::kCluster) {
+    // kernel 15: this rank's (max, sum of exp) per row into a_half / b_half,
+    // then rank 0 merges the ranks' in rank order and writes lse (out_a)
     namespace cg = cooperative_groups;
     const cg::cluster_group cluster = cg::this_cluster();
     if (!(warp & 1) && t == 0) {
@@ -1300,41 +1358,46 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = m_base + mf * 16 + g + 8 * h;
-          const float m = m_run[mf][h], l = l_run[mf][h], m_o = sh.m_half[r], l_o = sh.l_half[r];
+          const float m = a_run[mf][h], l = b_run[mf][h], m_o = sh.a_half[r], l_o = sh.b_half[r];
           const float m_new = fmaxf(m, m_o);
-          sh.m_half[r] = m_new;
-          sh.l_half[r] = l * expf(m - m_new) + l_o * expf(m_o - m_new);
+          sh.a_half[r] = m_new;
+          sh.b_half[r] = l * expf(m - m_new) + l_o * expf(m_o - m_new);
         }
     }
     cluster.sync();  // every rank's pairs are in its shared memory
     if (cluster.block_rank() == 0 && threadIdx.x < tc::kBM) {
       const int r = threadIdx.x;
-      float m = sh.m_half[r], l = sh.l_half[r];
+      float m = sh.a_half[r], l = sh.b_half[r];
       for (unsigned q = 1; q < cluster.num_blocks(); ++q) {
-        const float m_o = cluster.map_shared_rank(sh.m_half, q)[r];
-        const float l_o = cluster.map_shared_rank(sh.l_half, q)[r];
+        const float m_o = cluster.map_shared_rank(sh.a_half, q)[r];
+        const float l_o = cluster.map_shared_rank(sh.b_half, q)[r];
         const float m_new = fmaxf(m, m_o);
         l = l * expf(m - m_new) + l_o * expf(m_o - m_new);
         m = m_new;
       }
-      if (row0 + r < M) m_part[row0 + r] = m + logf(l);
+      if (row0 + r < M) out_a[row0 + r] = m + logf(l);
     }
     cluster.sync();  // no rank exits while rank 0 reads its shared memory
     return;
   }
   if ((warp & 1) || t != 0) return;
-  float* __restrict__ m_mine = m_part + (long long)blockIdx.y * M;
-  float* __restrict__ l_mine = l_part + (long long)blockIdx.y * M;
+  float* __restrict__ a_mine = out_a + (long long)blockIdx.y * M;
+  float* __restrict__ b_mine = out_b + (long long)blockIdx.y * M;
 #pragma unroll
   for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = m_base + mf * 16 + g + 8 * h;
       if (row0 + r >= M) continue;
-      const float m = m_run[mf][h], l = l_run[mf][h], m_o = sh.m_half[r], l_o = sh.l_half[r];
-      const float m_new = fmaxf(m, m_o);
-      m_mine[row0 + r] = m_new;
-      l_mine[row0 + r] = l * expf(m - m_new) + l_o * expf(m_o - m_new);
+      const float a = a_run[mf][h], b = b_run[mf][h], a_o = sh.a_half[r], b_o = sh.b_half[r];
+      if constexpr (kShift) {
+        a_mine[row0 + r] = a + a_o;
+        b_mine[row0 + r] = b + b_o;
+      } else {
+        const float m_new = fmaxf(a, a_o);
+        a_mine[row0 + r] = m_new;
+        b_mine[row0 + r] = b * expf(a - m_new) + b_o * expf(a_o - m_new);
+      }
     }
 }
 
@@ -1365,13 +1428,13 @@ int launch_lse(const float* s, const float* items, float* lse, long long M, long
                long long rank_rows, cudaStream_t stream) {
   constexpr bool kTensorCores = tensor_cores(D);
   if constexpr (kTensorCores) {
-    cudaError_t err = cudaFuncSetAttribute(lse_partials_tc_kernel<D, true>,
+    cudaError_t err = cudaFuncSetAttribute(lse_partials_tc_kernel<D, LseMode::kCluster>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(LseSmem<D>));
     if (err != cudaSuccess) return (int)err;
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = lse_cluster_config<D>(M, cluster, stream, &attr);
-    err = cudaLaunchKernelEx(&cfg, lse_partials_tc_kernel<D, true>, s, items, (const float*)nullptr, lse,
-                             (float*)nullptr, M, N, rank_rows);
+    err = cudaLaunchKernelEx(&cfg, lse_partials_tc_kernel<D, LseMode::kCluster>, s, items, (const float*)nullptr,
+                             (const float*)nullptr, lse, (float*)nullptr, M, N, rank_rows);
     if (err != cudaSuccess) return (int)err;
   } else {
     const int smem = 2 * 64 * (D + 1) * (int)sizeof(float);
@@ -1383,20 +1446,22 @@ int launch_lse(const float* s, const float* items, float* lse, long long M, long
 }
 
 
-// Kernels 6, 8 (`bias` not null) and 16 on (session tile, item chunk)
-// blocks: kernels 6 and 8 on the tensor-core tile for D in {32, 64, 128}
-// (128-row session tiles), else, and kernel 16 always, on the SIMT tile
-// (64-row session tiles).
+// Kernels 6, 8 (`bias` not null) and 16 (kShift, `shift` not null) on
+// (session tile, item chunk) blocks: on the tensor-core tile for D in {32,
+// 64, 128} (128-row session tiles), else on the SIMT tile (64-row session
+// tiles).
 template <int D, bool kShift>
 int launch_chunks(const float* s, const float* items, const float* shift, const float* bias, float* out_a,
                   float* out_b, long long M, long long N, long long chunk_rows, cudaStream_t stream) {
-  if constexpr (!kShift && tensor_cores(D)) {
+  if constexpr (tensor_cores(D)) {
+    constexpr LseMode kMode = kShift ? LseMode::kShift : LseMode::kPartials;
     const int smem = (int)sizeof(LseSmem<D>);
     cudaError_t err =
-        cudaFuncSetAttribute(lse_partials_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncSetAttribute(lse_partials_tc_kernel<D, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)((M + tc::kBM - 1) / tc::kBM), (unsigned)((N + chunk_rows - 1) / chunk_rows));
-    lse_partials_tc_kernel<D><<<grid, tc::kThreads, smem, stream>>>(s, items, bias, out_a, out_b, M, N, chunk_rows);
+    lse_partials_tc_kernel<D, kMode><<<grid, tc::kThreads, smem, stream>>>(s, items, shift, bias, out_a, out_b, M,
+                                                                           N, chunk_rows);
   } else {
     const int smem = (2 * 64 * (D + 1) + kBN) * (int)sizeof(float);
     cudaError_t err =

@@ -41,10 +41,10 @@ The gradient kernels, fused (9, 12 and 7's one pass) and split (7's two
 launches, 10, 11, 13, 14), run their products on the tensor cores in 3xTF32
 (each f32 operand split into two TF32 halves, about f32 accuracy) for D in
 32..128, on SIMT f32 tiles for D = 16 and 256. So do the logits products of
-kernels 6, 8 and 15 (kernel 15 in clusters of blocks that share a session
-tile and merge their rows' (max, Σexp) through distributed shared memory:
-:func:`lse_cluster_plan`); the lse forward 16 is a SIMT f32 tile
-(csrc/softmax_lse.cu says why).
+the lse forwards 6, 8, 15 and 16 (kernel 15 in clusters of blocks that share
+a session tile and merge their rows' (max, Σexp) through distributed shared
+memory: :func:`lse_cluster_plan`; kernel 16 on kernel 6's grid, with plain
+sums of the two windows in place of the running max).
 
 CPU tensors take the twins, which walk the catalog in item chunks exactly as
 the kernels walk their tiles (per-chunk partials, a running max or fixed

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""A short check of kernel 4 (``layer_norm_bwd``, the LayerNorm backward)
-and kernel 15 (``lse_f32``, the carried-max lse) on one NVIDIA GPU: build,
-the compiler's register report, agreement with the twins, bits on a rerun,
-event times and profiler device times.
+"""A short check of kernel 4 (``layer_norm_bwd``, the LayerNorm backward),
+kernel 15 (``lse_f32``, the carried-max lse) and kernel 16 (``lse_shift_f32``,
+the bounded-shift lse) on one NVIDIA GPU: build, the compiler's register
+report, agreement with the twins, bits on a rerun, event times and profiler
+device times.
 
 Run from the repository root: ``python3
 rectools_tpu_torch/tools/ln_lse_check.py [--tree DIR] [--step]`` (a minute
@@ -27,8 +28,18 @@ has a cluster plan (``softmax_lse.lse_cluster_plan``): the same for every
 cluster size C in 1, 2, 4, 8 (C = 1 is one block walking the whole catalog),
 each with ``cudaOccupancyMaxActiveClusters`` (from a helper library the tool
 builds under ``build/tools/``: the tree's ``softmax_lse.cu`` with one query
-function added), at the three feature widths of the tensor-core tile. The first line names the card and its power limit;
-the last is one JSON object.
+function added), at the three feature widths of the tensor-core tile.
+
+Kernel 16 (``streaming_lse(..., bounded_shift=True)``) at 51,200 x 15,872 x
+128 on the same inputs, and scaled by ``chip_smoke.SHIFT_WINDOW2_SCALE`` so
+that window 2 serves the rows: the share of rows in window 1, its error
+relative per row to its twin, to the twin in float64 (the exact function)
+and, for the twin itself, to the float64 twin; the same for plain TF32
+products (the control: the twin on TF32-rounded inputs); bits on a rerun,
+its time, and the device kernel the profiler names (the tensor-core kernel
+in its shift mode, or the SIMT ``lse_chunk_kernel`` of a tree from before
+it). The first line names the card and its power limit; the last is one
+JSON object.
 """
 
 import argparse
@@ -42,6 +53,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[2]
 M, D, N = 51200, 128, 15872
 CLUSTERS = (1, 2, 4, 8)
+ENTRIES = ("ln_bwd", "lse_kernel", "lse_partials_tc", "lse_chunk")  # kernels whose ptxas report is printed
 # cudaOccupancyMaxActiveClusters of kernel 15's tensor-core kernel: the tree's
 # source with a query function, built beside the product's library
 OCCUPANCY_SRC = r"""#include "{source}"
@@ -49,13 +61,13 @@ OCCUPANCY_SRC = r"""#include "{source}"
 template <int D>
 int lse_clusters(int cluster) {{
   if constexpr (tensor_cores(D)) {{
-    cudaError_t err = cudaFuncSetAttribute(lse_partials_tc_kernel<D, true>,
+    cudaError_t err = cudaFuncSetAttribute(lse_partials_tc_kernel<D, {mode}>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(LseSmem<D>));
     if (err != cudaSuccess) return -(int)err;
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = lse_cluster_config<D>(tc::kBM, cluster, nullptr, &attr);
     int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, lse_partials_tc_kernel<D, true>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n, lse_partials_tc_kernel<D, {mode}>, &cfg);
     return err == cudaSuccess ? n : -(int)err;
   }} else {{
     return -(int)cudaErrorInvalidValue;
@@ -81,7 +93,10 @@ def start_occupancy_build(native):
     out = HERE / "build" / "tools"
     out.mkdir(parents=True, exist_ok=True)
     cu = out / "lse_occupancy.cu"
-    cu.write_text(OCCUPANCY_SRC.format(source=native.CSRC / "softmax_lse.cu"))
+    source = native.CSRC / "softmax_lse.cu"
+    # kernel 15's template argument: a mode since kernel 16 joined the kernel, a flag before
+    mode = "LseMode::kCluster" if "enum class LseMode" in source.read_text() else "true"
+    cu.write_text(OCCUPANCY_SRC.format(source=source, mode=mode))
     so = out / "lse_occupancy.so"
     cmd = [native._nvcc(), *native.NVCC_FLAGS, "-o", str(so), str(cu)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so
@@ -114,7 +129,7 @@ def main() -> int:
     for out in reports.values():
         lines = out.splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry" in line and any(k in line for k in ("ln_bwd", "lse_kernel", "lse_partials_tc")):
+            if "Compiling entry" in line and any(k in line for k in ENTRIES):
                 print(line.strip()[:160])
                 print("".join(f"    {nxt.strip()}\n" for nxt in lines[i + 1 : i + 4]
                               if "registers" in nxt or "spill" in nxt), end="")
@@ -179,6 +194,31 @@ def main() -> int:
                             device=device_kernels(lambda: sl.streaming_lse(s, items), 3))
         print(name, result[name], flush=True)
     sl.USE_PARTIALS_FWD = True
+
+    # kernel 16 in both windows
+    for tag, scale in (("window_1", 1.0), ("window_2", smoke.SHIFT_WINDOW2_SCALE)):
+        ss, ii = s * scale, items * scale
+        twin = sl.streaming_lse_shift_reference(ss, ii)
+        exact = sl.streaming_lse_shift_reference(ss.double(), ii.double())
+        plain = sl.streaming_lse_shift_reference(tf32(ss), tf32(ii))
+        before = _native.LAUNCHES["lse_shift_fwd"]
+        got = sl.streaming_lse(ss, ii, bounded_shift=True)
+        launches = _native.LAUNCHES["lse_shift_fwd"] - before
+        _, l_sum, _ = sl.lse_shift_sums(ss, ii)
+        res = dict(
+            launches=launches, window_1_share=(l_sum >= sl.WINDOW1_FLOOR).float().mean().item(),
+            err=row_rel(got, twin), err_exact=row_rel(got.double(), exact),
+            twin_err_exact=row_rel(twin.double(), exact),
+            err_plain_tf32=row_rel(plain, twin), plain_err_exact=row_rel(plain.double(), exact),
+            finite=bool(torch.isfinite(got).all()),
+            bits=bool(torch.equal(got, sl.streaming_lse(ss, ii, bounded_shift=True))),
+            ms=time_ms(lambda: sl.streaming_lse(ss, ii, bounded_shift=True), iters=5),
+            device=device_kernels(lambda: sl.streaming_lse(ss, ii, bounded_shift=True), 3),
+        )
+        result[f"lse_shift_fwd_{tag}"] = res
+        print(f"kernel 16 {tag}", res, flush=True)
+        del ss, ii, twin, exact, plain, got, l_sum
+    torch.cuda.empty_cache()
     if occupancy is not None:
         proc, so = occupancy
         output, _ = proc.communicate(timeout=_native.BUILD_TIMEOUT_S)

@@ -95,7 +95,7 @@ def test_fused_bwd_tile_rows_match_the_cuda_source() -> None:
     chunks."""
     src = (REPO / "rectools_tpu_torch" / "csrc" / "softmax_lse.cu").read_text()
     assert "constexpr bool tensor_cores(int d) { return d >= 32 && d <= 128; }" in src
-    assert src.count("if constexpr (tensor_cores(D))") == 2  # launch_ds, launch_di
+    assert src.count("if constexpr (tensor_cores(D))") == 3  # launch_ds, launch_di, launch_chunks (kernels 6, 8, 16)
     assert "constexpr bool kTensorCores = tensor_cores(D);" in src  # launch_fused
     for kernel in ("grad_ds_tc_kernel", "grad_di_tc_kernel"):
         assert f"{kernel}<D, F><<<" in src
@@ -110,16 +110,23 @@ def test_fused_bwd_tile_rows_match_the_cuda_source() -> None:
 
 
 def test_lse_partials_tile_matches_the_cuda_source() -> None:
-    """Kernel 6 takes the tensor-core kernel (128-row session tiles of
-    ``namespace tc``) for exactly the D of the gradient kernels' tensor-core
-    rule and the SIMT kernel otherwise; kernel 16 stays on the SIMT tile. Both
+    """Kernels 6 and 16 take the tensor-core kernel (128-row session tiles of
+    ``namespace tc``; kernel 16 in its shift mode) for exactly the D of the
+    gradient kernels' tensor-core rule and the SIMT kernel otherwise. Both
     tiles walk the same ``LSE_CHUNK``-row item chunks, whole 64-row item
     tiles, so the twin's chunks are the card's: 8 at the training shape, whose
     400 x 8 = 3,200 blocks of one per multiprocessor fill the last wave to 97%
-    (one chunk per session tile would leave 4 blocks alone in a fourth)."""
+    (one chunk per session tile would leave 4 blocks alone in a fourth). No
+    float atomics: each block writes its own partials."""
     src = (REPO / "rectools_tpu_torch" / "csrc" / "softmax_lse.cu").read_text()
-    assert "if constexpr (!kShift && tensor_cores(D)) {" in src
-    assert "lse_partials_tc_kernel<D><<<grid, tc::kThreads, smem, stream>>>" in src
+    launch = src[src.index("int launch_chunks(") :]
+    launch = launch[: launch.index("\n}\n")]
+    assert "if constexpr (tensor_cores(D)) {" in launch and "kShift &&" not in launch
+    assert "constexpr LseMode kMode = kShift ? LseMode::kShift : LseMode::kPartials;" in launch
+    assert "lse_partials_tc_kernel<D, kMode><<<grid, tc::kThreads, smem, stream>>>" in launch
+    assert "lse_chunk_kernel<D, kShift><<<grid, kThreads, smem, stream>>>" in launch
+    assert "#define CALL_LSE_SHIFT(D, ...) launch_chunks<D, true>(__VA_ARGS__)" in src
+    assert "atomicAdd(" not in src
     grid = "const dim3 grid((unsigned)((M + tc::kBM - 1) / tc::kBM), (unsigned)((N + chunk_rows - 1) / chunk_rows));"
     assert grid in src
     tile = re.search(r"namespace tc \{\s*constexpr int kBM = (\d+);[^\n]*\n\s*constexpr int kBN = (\d+);", src)
@@ -158,7 +165,7 @@ def test_layer_norm_bwd_is_one_launch_in_the_cuda_source() -> None:
 
 def test_lse_cluster_plan_matches_the_cuda_source() -> None:
     """Kernel 15 takes kernel 6's tensor-core kernel with the cluster epilogue
-    (``lse_partials_tc_kernel<D, true>``, launched with a cluster dimension)
+    (``lse_partials_tc_kernel<D, LseMode::kCluster>``, launched with a cluster dimension)
     exactly where kernel 6 takes the tile, and the SIMT ``lse_kernel`` at D =
     16 and 256. ``lse_cluster_plan`` is a function of N alone, within the
     ``.cu``'s limit of 8 ranks: at the training shape 8 ranks of 31 item tiles
@@ -168,7 +175,7 @@ def test_lse_cluster_plan_matches_the_cuda_source() -> None:
     launch = src[src.index("int launch_lse(") :]
     launch = launch[: launch.index("\n}\n")]
     assert "constexpr bool kTensorCores = tensor_cores(D);\n  if constexpr (kTensorCores) {" in launch
-    assert "cudaLaunchKernelEx(&cfg, lse_partials_tc_kernel<D, true>, s, items," in launch
+    assert "cudaLaunchKernelEx(&cfg, lse_partials_tc_kernel<D, LseMode::kCluster>, s, items," in launch
     assert "lse_kernel<D><<<" in launch
     assert "attr->val.clusterDim.y = (unsigned)cluster;" in src
     assert "if (cluster < 1 || cluster > 8 || rank_rows <= 0 || rank_rows % kBN || cluster * rank_rows < N)" in src
@@ -251,7 +258,7 @@ def test_lse_bias_chunks_match_the_cuda_source() -> None:
     assert "DISPATCH_D(D, CALL_LSE_PARTIALS, s, items, nullptr, bias, m_part, l_part, M, N, chunk_rows, stream)" in entry
     assert "chunk_rows % kBN" in entry
     assert "#define CALL_LSE_PARTIALS(D, ...) launch_chunks<D, false>(__VA_ARGS__)" in src
-    assert "lse_partials_tc_kernel<D><<<grid, tc::kThreads, smem, stream>>>(s, items, bias, " in src
+    assert "lse_partials_tc_kernel<D, kMode><<<grid, tc::kThreads, smem, stream>>>(s, items, shift, bias, " in src
     assert "lse_kernel<D><<<" in src and "kBias" not in src
     launch = inspect.getsource(softmax_lse._launch_chunked_lse)
     assert "lib.lse_bias_f32(" in launch and launch.count("LSE_CHUNK, stream") == 3
@@ -753,15 +760,23 @@ def test_cuda_carried_max_lse_on_the_tensor_cores(cuda: torch.device, monkeypatc
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("scale", [0.3, 1.0, 1.5, 4.0])
-@pytest.mark.parametrize("m,n,d", [(51, 300, 32), (700, 4500, 128)])
+@pytest.mark.parametrize("m,n,d", [(51, 300, 32), (700, 4500, 128), (130, 2177, 256)])
 def test_cuda_lse_shift_matches_twin(cuda: torch.device, m: int, n: int, d: int, scale: float) -> None:
     """Kernel 16 against its twin on the card: both windows, and past the
     contract (scale 4 at d = 32) -inf rows where the gap passes ~170, never
     NaN. Rows with a gap between 120 and 170 are left out: the twin's sums and
-    the kernel's round differently near the flush."""
+    the kernel's round differently near the flush. At d = 32 and 128 it is the
+    tensor-core kernel in its shift mode: inside the contract within
+    ``LSE_TC_RTOL`` per row of its twin and of the twin in float64, where
+    plain TF32 products land above (the zero row and scale 4, whose only row
+    inside the contract is that one, left out); at d = 256 the SIMT
+    ``lse_chunk_kernel``. The profiler names the kernel that ran; a rerun
+    gives the same bits; a zero session row (shift 0, every term 1) gives
+    log N."""
     rng = np.random.default_rng(m + n)
     s = _t((scale * rng.normal(size=(m, d)) / np.sqrt(d / 32)).astype(np.float32)).to(cuda)
     items = _t((scale * rng.normal(size=(n, d)) / np.sqrt(d / 32)).astype(np.float32)).to(cuda)
+    s[m // 2] = 0.0
     before = _native.LAUNCHES["lse_shift_fwd"]
     got = softmax_lse.streaming_lse(s, items, bounded_shift=True)
     assert _native.LAUNCHES["lse_shift_fwd"] == before + 1
@@ -771,6 +786,24 @@ def test_cuda_lse_shift_matches_twin(cuda: torch.device, m: int, n: int, d: int,
     inside, outside = gap < 120, gap > 170
     torch.testing.assert_close(got[inside], ref[inside], atol=1e-6, rtol=1e-5)
     assert torch.isneginf(got[outside]).all() and torch.isneginf(ref[outside]).all()
+    assert torch.equal(softmax_lse.streaming_lse(s, items, bounded_shift=True), got)
+    assert abs(got[m // 2].item() - np.log(n)) <= 1e-6 * np.log(n)
+    if 32 <= d <= 128 and scale < 4.0:
+        exact = softmax_lse.streaming_lse_shift_reference(s.double(), items.double())
+        plain = softmax_lse.streaming_lse_shift_reference(_tf32(s), _tf32(items))
+        rows = inside.clone()
+        rows[m // 2] = False
+
+        def row_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+            return ((a[rows].double() - b[rows].double()).abs() / b[rows].double().abs()).max().item()
+
+        rel, rel_plain = max(row_rel(got, ref), row_rel(got, exact)), min(row_rel(plain, ref), row_rel(plain, exact))
+        assert rel <= LSE_TC_RTOL < rel_plain, (rel, rel_plain)
+    if scale == 1.0:
+        names = _device_kernels(lambda: softmax_lse.streaming_lse(s, items, bounded_shift=True))
+        lse_kernels = [k for k in names if "lse_partials_tc_kernel" in k or "lse_chunk_kernel" in k]
+        expected = "lse_partials_tc_kernel" if 32 <= d <= 128 else "lse_chunk_kernel"
+        assert len(lse_kernels) == 1 and expected in lse_kernels[0], names
 
 
 @pytest.mark.gpu

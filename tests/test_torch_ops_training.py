@@ -868,6 +868,59 @@ def test_carried_max_lse_in_3xtf32_cluster_order_matches_jax(monkeypatch, m: int
     assert errors[True] <= 1e-6 < errors[False], errors
 
 
+def _bounded_shift_lse_tf32(s: torch.Tensor, items: torch.Tensor, three: bool) -> torch.Tensor:
+    """Kernel 16's arithmetic on the tensor-core tile in its order: per
+    ``LSE_CHUNK`` item chunk, the 64-row item tiles' logits from TF32 halves,
+    x = logit − shift, the sums of exp(x) and exp(x + 64) added tile by tile;
+    the chunks' sums then added in order (the wrapper's fixed-order sum) and
+    the window chosen per row."""
+    n = items.shape[0]
+    shift = softmax_lse.lse_shift(s, items)
+    l_parts, l2_parts = [], []
+    for lo in range(0, n, softmax_lse.LSE_CHUNK):
+        l, l2 = torch.zeros_like(shift), torch.zeros_like(shift)
+        for start in range(lo, min(n, lo + softmax_lse.LSE_CHUNK), softmax_lse.TILE):
+            x = _mm_tf32(s, items[start : start + softmax_lse.TILE].T.contiguous(), three) - shift[:, None]
+            l = l + torch.exp(x).sum(dim=1)
+            l2 = l2 + torch.exp(x + softmax_lse.WINDOW2_OFFSET).sum(dim=1)
+        l_parts.append(l)
+        l2_parts.append(l2)
+    return softmax_lse.select_shift_window(shift, torch.stack(l_parts).sum(dim=0), torch.stack(l2_parts).sum(dim=0))
+
+
+@pytest.mark.parametrize(
+    "scale,m,n,d,seed,window_1",
+    [(0.3, 60, 300, 32, 0, 1.0), (1.5, 60, 300, 32, 0, 0.0), (1.0, 60, 300, 32, 0, 5 / 60),
+     (1.0, 130, 1000, 64, 1, 0.0), (0.3, 64, 40, 128, 2, 1.0), (0.5, 130, 2177, 64, 4, 1.0)],
+    ids=["window_1", "window_2", "both_windows", "ragged_m", "under_one_tile", "ragged_last_chunk"],
+)
+def test_bounded_shift_lse_in_3xtf32_tile_order_matches_jax(
+    scale: float, m: int, n: int, d: int, seed: int, window_1: float
+) -> None:
+    """Kernel 16 on the tensor-core tile, modelled on the CPU: 3xTF32 logits
+    in 64-row item tiles inside ``LSE_CHUNK`` chunks, per-chunk sums of both
+    windows added over the chunks in order, within 1e-6 relative per row
+    (``LSE_TC_RTOL`` of chip_smoke.py) of the JAX fixed-shift kernel
+    (``_lse_shift_kernel``, interpret mode); plain TF32 products land above
+    that limit. The cases: every row in window 1, every row in window 2, rows
+    in both, M not a multiple of 128, a catalog under one item tile, a
+    catalog whose last chunk is ragged (2,177 = 2,048 + 129 rows). Every
+    bound gap stays under 120 (the band up to 170 is left out, as in the
+    other tests)."""
+    s, items = _shift_case(scale, m, n, d, seed)
+    assert _bound_gap(s, items).max() < 120.0
+    _, l, _ = softmax_lse.lse_shift_sums_reference(_t(s), _t(items))
+    assert (l >= softmax_lse.WINDOW1_FLOOR).float().mean().item() == pytest.approx(window_1)
+    ragged_chunks = n > softmax_lse.LSE_CHUNK and n % softmax_lse.LSE_CHUNK > 0
+    assert (n <= softmax_lse.TILE, ragged_chunks) == (n == 40, n == 2177)
+    expected = _t(np.array(jax_softmax_lse.streaming_lse(jnp.asarray(s), jnp.asarray(items), None, 16, 64, True, True)))
+    errors = {}
+    for three in (True, False):
+        got = _bounded_shift_lse_tf32(_t(s), _t(items), three)
+        errors[three] = ((got - expected).abs() / expected.abs()).max().item()
+    assert errors[True] <= 1e-6 < errors[False], errors
+
+
 def _attention_fwd_tf32(q, k, v, bias, scale: float, keep, three: bool) -> tuple:
     """Kernel 2's arithmetic on the tensor-core tile: per 32-key unit in key
     order, s from TF32 halves, times the scale, plus the bias; the online
