@@ -128,6 +128,32 @@ own lines; any failure exits nonzero and prints no result:
              pass never, finite falling losses, validation loss and recall,
              train examples/s over epoch 2, peak memory, one profiled step,
              and one step's loss gradients against the twins.
+10. families — BERT4Rec, eSASRec (shared negatives, remat) and remat at an
+             ML-20M-sized shape, through the same entry points, after the
+             HSTU phases. ``family kernels``: kernels 2 (with dropout) and 5
+             under BERT4Rec's (B, 1, L, L) key-padding bias (no causal mask,
+             the diagonal kept, left-padded sessions, one of length 1), and
+             causal at L = 200 with 8 heads of 32; kernels 1 and 4 at width
+             256; kernel 6 and the CE gradients on BERT4Rec's 15,873-row
+             catalog (15% of the rows labelled) and at 102,400 x 20,480 x 256
+             (the SIMT tile; kernels 13 + 14 there), each against its twin,
+             timed beside it, the library call and the bound; the remat
+             shape's kernels built with 0 bytes of stack. ``bert4rec train`` /
+             ``main`` / ``agree``: phases 5, 4 and 6 for BERT4RecModel
+             (mask_prob 0.15, full softmax; serving from the fitted weights,
+             no user gets PAD or MASK). ``esasrec train``: SASRecModel over
+             LiGRLayers with the sampled softmax over 128 negatives, three
+             fits of 2 epochs from the seed: positionwise negatives, shared
+             negatives (``negatives_sharing="batch"``), and shared with
+             ``remat=True`` (the encoder's forward kernels once more a step;
+             losses and parameters equal to the shared fit's); one step of
+             the shared fits in turns with its wall and peak memory; then
+             ``esasrec main`` from the positionwise fit and ``esasrec agree``
+             for the positionwise and the shared-with-remat options. ``remat
+             fit``: SASRec at B = 512, L = 200, d = 256, 8 heads, a 20,480-row
+             catalog and full softmax, one epoch without and one with remat
+             from the seed: launch counts, equal loss and parameters, peak
+             memory and epoch wall of each, and one step of each in turns.
 
 Output, last lines: one JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -1303,24 +1329,81 @@ def later_context(np, pd, dataset):
     return get_context(pd.DataFrame({Columns.User: users, Columns.Item: 0, Columns.Datetime: when}))
 
 
-def main_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
-    """The serving path of SASRecModel or, with ``hstu``, of HSTUModel with a
-    recommend context."""
+# the model families the script drives, by the prefix of their lines: SASRec, HSTU, BERT4Rec (PAD and MASK: a
+# 15,873-row table) and eSASRec (SASRec over the LiGR stack with the sampled softmax over 128 negatives, the
+# repo's "esasrec", benchmarks/quality_gate.py)
+FAMILY_TAGS = {"sasrec": "", "hstu": "hstu ", "bert4rec": "bert4rec ", "esasrec": "esasrec "}
+EXTRA_TOKENS = {"sasrec": 1, "hstu": 1, "bert4rec": 2, "esasrec": 1}
+ESASREC_NEGATIVES = 128
+
+
+def family_model(family: str, **kwargs):
+    """A model of ``family`` built through its public class."""
+    from rectools_tpu_torch.models import BERT4RecModel, HSTUModel, SASRecModel
+    from rectools_tpu_torch.models.nn.transformers import LiGRLayers
+
+    if family == "esasrec":
+        kwargs = {**kwargs, "transformer_layers_type": LiGRLayers, "loss": "sampled_softmax",
+                  "n_negatives": ESASREC_NEGATIVES}
+    return {"sasrec": SASRecModel, "hstu": HSTUModel, "bert4rec": BERT4RecModel, "esasrec": SASRecModel}[family](
+        **kwargs)
+
+
+def forward_launches(family: str) -> dict:
+    """Kernel launches of one encoder forward: per block two LayerNorms and one
+    attention (HSTU: its STU attention), and SASRec's closing LayerNorm."""
+    if family == "hstu":
+        return {"layer_norm_fwd": 2 * N_BLOCKS, "stu_fwd": N_BLOCKS}
+    return {"layer_norm_fwd": 2 * N_BLOCKS + (family == "sasrec"), "attention_fwd": N_BLOCKS}
+
+
+def expected_fit_launches(port, family: str, steps: int, forwards: int, loss_keys=("lse_partials_fwd",
+                          "ce_grads_fused"), recomputed: int = 0) -> dict:
+    """Every launch count of a fit of ``steps`` train steps and ``forwards``
+    encoder forwards (steps and validation batches), ``recomputed`` of them run
+    again by remat in the backward: the loss kernels (``loss_keys``) once a
+    step, the encoder's backward kernels once a step (HSTU's STU backward in its
+    two tensor-core launches at heads of 32, and its score gradient)."""
+    expected = {name: 0 for name in port.LAUNCHES}
+    expected.update({key: steps for key in loss_keys})
+    for key, n in forward_launches(family).items():
+        expected[key] = n * (forwards + recomputed)
+    if family == "hstu":
+        expected.update(layer_norm_bwd=2 * N_BLOCKS * steps, stu_bwd=N_BLOCKS * steps, stu_bwd_dq=N_BLOCKS * steps,
+                        stu_ds=N_BLOCKS * steps)
+    else:
+        expected.update(layer_norm_bwd=forward_launches(family)["layer_norm_fwd"] * steps,
+                        attention_bwd=N_BLOCKS * steps)
+    return expected
+
+
+def main_phase(torch, np, port, df, dataset, dev, family: str = "sasrec", model=None) -> dict:
+    """The serving path of a family's model (HSTU with a recommend context):
+    random flax-layout weights from the seed, or the weights of a ``model``
+    fitted in this run."""
     import pandas as pd
 
     from rectools_tpu_torch import Columns
-    from rectools_tpu_torch.models import HSTUModel, SASRecModel
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+    from rectools_tpu_torch.models.nn.transformers import state_dict_to_flax_params
 
-    tag, model_cls = ("hstu main", HSTUModel) if hstu else ("main", SASRecModel)
+    hstu = family == "hstu"
+    tag = f"{FAMILY_TAGS[family]}main"
     config = dict(
         n_blocks=N_BLOCKS, n_heads=N_HEADS, n_factors=N_FACTORS, session_max_len=SESSION_MAX_LEN,
         dropout_rate=0.2, item_net_block_types=(IdEmbeddingsItemNet,),
     )
     extra = {"context": later_context(np, pd, dataset)} if hstu else {}
-    params = flax_params(np, N_ITEM_IDS + 1, hstu)
-    model = model_cls(**config, device=dev).load_jax_params(dataset, params)
-    check(model.backbone.item_model.n_items == N_ITEM_IDS + 1, "item table is not 15,872 rows")
+    n_rows = N_ITEM_IDS + EXTRA_TOKENS[family]
+    if model is None:
+        params = flax_params(np, n_rows, hstu)
+        model = family_model(family, **config, device=dev).load_jax_params(dataset, params)
+        cpu_config = {**config, "device": "cpu"}
+    else:  # the fitted model's own configuration, whose validation split fixes its item ids
+        params = state_dict_to_flax_params(model.training_module.full_state_dict())
+        cpu_config = {**model.get_config(), "device": "cpu"}
+        cpu_config.pop("cls")
+    check(model.backbone.item_model.n_items == n_rows, f"item table is not {n_rows} rows")
     batch = model._effective_recommend_batch_size()
     check(batch == 4096, f"recommend batch resolved to {batch}, expected 4096")
     users = dataset.user_id_map.external_ids
@@ -1332,11 +1415,7 @@ def main_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
     first_s = time.perf_counter() - t0
     launches = dict(port.LAUNCHES)
     expected = {name: 0 for name in port.LAUNCHES}  # no training kernel runs in recommend
-    if hstu:  # two LayerNorms and one STU attention per block, no closing LayerNorm, no softmax attention
-        expected.update(stu_fwd=N_BLOCKS * n_batches, layer_norm_fwd=2 * N_BLOCKS * n_batches, group_topm=n_batches)
-    else:
-        expected.update(attention_fwd=N_BLOCKS * n_batches, layer_norm_fwd=(2 * N_BLOCKS + 1) * n_batches,
-                        group_topm=n_batches)
+    expected.update({key: n * n_batches for key, n in forward_launches(family).items()}, group_topm=n_batches)
     check(launches == expected, f"launches on the {tag} path {launches}, expected {expected}")
     print(f"{tag}: recommend {len(users)} users in {n_batches} batches, launches {launches}")
     if hstu:  # `expected` holds stu_fwd_simt and group_topm_warp at 0
@@ -1347,6 +1426,7 @@ def main_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
     check(bool((reco.groupby("user_id").size() == K).all()), "some user did not get k items")
     seen = set(zip(df[Columns.User].to_numpy().tolist(), df[Columns.Item].to_numpy().tolist()))
     check(not any(p in seen for p in zip(reco["user_id"].tolist(), reco["item_id"].tolist())), "a seen item came back")
+    check(not bool(reco["item_id"].isin(["PAD", "MASK"]).any()), "an extra token (PAD or MASK) was recommended")
     scores = reco["score"].to_numpy().reshape(len(users), K)
     check(bool(np.isfinite(scores).all()), "non-finite scores")
     check(bool((np.diff(scores, axis=1) <= 0).all()), "scores not non-increasing within a user")
@@ -1386,7 +1466,7 @@ def main_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
 
     # the port's own CPU run (plain twins) on 64 users, same weights
     sample = users[:64]
-    cpu_model = model_cls(**config, device="cpu").load_jax_params(dataset, params)
+    cpu_model = family_model(family, **cpu_config).load_jax_params(dataset, params)
     ref = cpu_model.recommend(sample, dataset, k=K + 1, filter_viewed=True, **extra)
     got = model.recommend(sample, dataset, k=K, filter_viewed=True, **extra)
     n_cmp = compare_reco(np, got, ref, K)
@@ -1441,18 +1521,20 @@ def epoch_clock(torch, dev):
     return EpochClock()
 
 
-def train_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
-    """``fit`` at the training width for SASRecModel or, with ``hstu``, HSTUModel."""
+def train_phase(torch, np, port, df, dataset, dev, family: str = "sasrec") -> dict:
+    """``fit`` at the training width for a family's model with the full-catalog
+    softmax (SASRec, HSTU, BERT4Rec)."""
     import pandas as pd
 
-    from rectools_tpu_torch.models import HSTUModel, SASRecModel
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
     from rectools_tpu_torch.models.nn.transformers.training import pad_batch
 
-    tag, model_cls = ("hstu train", HSTUModel) if hstu else ("train", SASRecModel)
+    hstu = family == "hstu"
+    tag = f"{FAMILY_TAGS[family]}train"
     clock = epoch_clock(torch, dev)
-    model = model_cls(
-        **TRAIN_CONFIG, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,), get_val_mask_func=hold_out_last,
+    model = family_model(
+        family, **TRAIN_CONFIG, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,),
+        get_val_mask_func=hold_out_last,
         get_callbacks_func=lambda: [clock], training_module_kwargs={"val_recall_k": K}, device=dev,
     )
     torch.cuda.reset_peak_memory_stats()
@@ -1463,20 +1545,14 @@ def train_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
     launches = dict(port.LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     tm = model.training_module
-    check(model.backbone.item_model.n_items == N_ITEM_IDS + 1, "item table is not 15,872 rows")
+    n_rows = N_ITEM_IDS + EXTRA_TOKENS[family]
+    check(model.backbone.item_model.n_items == n_rows, f"item table is not {n_rows} rows")
     check(tm._use_fused_softmax, "the full-catalog loss did not take the fused softmax-CE")
     steps = tm.global_step
     val_batches = len(model.data_preparator.get_dataloader_val())
     forwards = steps + EPOCHS * val_batches  # validation runs one forward per batch
-    expected = {name: 0 for name in port.LAUNCHES}
-    expected.update(lse_partials_fwd=steps, ce_grads_fused=steps)  # kernel 7's one pass, never its two launches
-    if hstu:  # per block: two LayerNorms, one STU attention with its backward and its score gradient
-        expected.update(layer_norm_fwd=2 * N_BLOCKS * forwards, stu_fwd=N_BLOCKS * forwards,
-                        layer_norm_bwd=2 * N_BLOCKS * steps, stu_bwd=N_BLOCKS * steps, stu_bwd_dq=N_BLOCKS * steps,
-                        stu_ds=N_BLOCKS * steps)  # heads of 32: the backward's two launches on the tensor cores
-    else:
-        expected.update(layer_norm_fwd=(2 * N_BLOCKS + 1) * forwards, attention_fwd=N_BLOCKS * forwards,
-                        layer_norm_bwd=(2 * N_BLOCKS + 1) * steps, attention_bwd=N_BLOCKS * steps)
+    # kernel 7's one pass, never its two launches
+    expected = expected_fit_launches(port, family, steps, forwards)
     check(launches == expected, f"launches in {tag} {launches}, expected {expected}")
     if hstu:  # `expected` holds stu_fwd_simt at 0
         print(f"{tag}: kernel 17 on the tensor-core route, {launches['stu_fwd']} launches (SIMT route 0)")
@@ -1503,6 +1579,7 @@ def train_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
     check(len(reco) == K * len(users), f"{len(reco)} rows after fit, expected {K * len(users)}")
     seen = set(zip(df[Columns.User].to_numpy().tolist(), df[Columns.Item].to_numpy().tolist()))
     check(not any(p in seen for p in zip(reco["user_id"].tolist(), reco["item_id"].tolist())), "a seen item came back")
+    check(not bool(reco["item_id"].isin(["PAD", "MASK"]).any()), "an extra token (PAD or MASK) was recommended")
     scores = reco["score"].to_numpy().reshape(len(users), K)
     check(bool(np.isfinite(scores).all()) and bool((np.diff(scores, axis=1) <= 0).all()), "bad scores after fit")
     print(f"{tag}: the fitted model recommends {K} unseen items to each of {len(users)} users")
@@ -1513,27 +1590,27 @@ def train_phase(torch, np, port, df, dataset, dev, hstu: bool = False) -> dict:
     profile = profile_phase(torch, lambda: tm._train_step(batch))
     return {"launches": launches, "steps": steps, "train_loss": losses, "val_loss": val_losses,
             f"val_recall@{K}": recall, "fit_s": fit_s, "epoch2_s": epoch2_s, "train_examples_per_s": examples_per_s,
-            "peak_device_mib": peak_mb, **{f"step_{k}": v for k, v in profile.items()}}
+            "peak_device_mib": peak_mb, "model": model, **{f"step_{k}": v for k, v in profile.items()}}
 
 
-def agreement_phase(torch, np, dataset, dev, hstu: bool = False) -> dict:
+def agreement_phase(torch, np, dataset, dev, family: str = "sasrec", **training_module_kwargs) -> dict:
     """3 train steps with dropout on the card and on the CPU twins, on one
-    batch of 64 sessions of the KION frame, full catalog, for SASRecModel or,
-    with ``hstu``, HSTUModel."""
-    from rectools_tpu_torch.models import HSTUModel, SASRecModel
+    batch of 64 sessions of the KION frame, full catalog, for a family's model
+    with the given training-module options."""
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
     from rectools_tpu_torch.models.nn.transformers.training import pad_batch
 
-    tag, model_cls = ("hstu agree", HSTUModel) if hstu else ("agree", SASRecModel)
+    tag = f"{FAMILY_TAGS[family]}agree" + (f" {training_module_kwargs}" if training_module_kwargs else "")
     models = {}
     for run, device in (("cpu", "cpu"), ("card", dev)):
-        model = model_cls(
-            **{**TRAIN_CONFIG, "batch_size": AGREE_SESSIONS}, item_net_block_types=(IdEmbeddingsItemNet,),
-            device=device,
+        model = family_model(
+            family, **{**TRAIN_CONFIG, "batch_size": AGREE_SESSIONS}, item_net_block_types=(IdEmbeddingsItemNet,),
+            training_module_kwargs=training_module_kwargs, device=device,
         )
         model._build_model_from_dataset(dataset)
         models[run] = model
-    check(models["card"].backbone.item_model.n_items == N_ITEM_IDS + 1, "agreement model is not at full width")
+    check(models["card"].backbone.item_model.n_items == N_ITEM_IDS + EXTRA_TOKENS[family],
+          "agreement model is not at full width")
     models["cpu"].training_module.init_params()
     start = {k: v.clone() for k, v in models["cpu"].backbone.state_dict().items()}
     batch = pad_batch(next(iter(models["cpu"].data_preparator.get_dataloader_train(np.random.default_rng(SEED)))),
@@ -1969,6 +2046,417 @@ def mesh_fit_4_phase(torch, np, pd, dev, world: int = 4) -> dict:
             "four_ranks_on_one_card_step_ms": step_ms, "spawn_to_results_s": spawn_s}
 
 
+# ---------------------------------------------------------------- phase 10, the other transformer families
+
+
+# SASRec at B = 512 on an ML-20M-sized configuration (benchmarks/perf_suite.py `ml20m_large` at B = 512, the
+# configuration the JAX package's remat exists for): L = 200, d = 256, 8 heads of 32, 2 blocks, a 20,480-row catalog
+# (20,479 ids + PAD), full softmax, f32
+REMAT_SHAPE = dict(l=200, d=256, heads=8, n_item_ids=20479)
+BERT4REC_LABEL_SHARE = 0.15  # the share of BERT4Rec's positions that carry a label (mask_prob)
+REMAT_RTOL, REMAT_ATOL = 1e-6, 1e-6  # remat against the plain fit: losses relative, parameters absolute
+
+
+def entry_stack_frames(report: str) -> dict:
+    """{mangled entry function: bytes of stack frame} from ``ptxas -v`` output."""
+    import re
+
+    frames, current = {}, None
+    for line in report.splitlines():
+        match = re.search(r"Compiling entry function '([^']+)'", line)
+        if match:
+            current = match.group(1)
+        elif current is not None and "bytes stack frame" in line:
+            frames[current] = int(line.split()[0])
+            current = None
+    return frames
+
+
+def _attention_case(torch, F, attention, gen, dev, b: int, l: int, h: int, dh: int, bias, tag: str) -> dict:
+    """Kernels 2 (with dropout) and 5 at (b, h, l, dh) under ``bias`` against
+    their twins (ATTN_TOL, the same bits on a rerun), timed beside the twins,
+    SDPA and its autograd, and the bound of the pairs the bias lets through."""
+    q, k, v, dout = (torch.randn((b, l, h, dh), generator=gen, device=dev).transpose(1, 2) for _ in range(4))
+    scale, seed = 1.0 / math.sqrt(dh), 192837465
+    out, lse = attention.attention_fwd(q, k, v, bias, scale, DROPOUT, seed)
+    ref_out, ref_lse = attention.attention_reference(q, k, v, bias, scale, DROPOUT, seed)
+    err_fwd = max((out - ref_out).abs().max().item(), (lse - ref_lse).abs().max().item())
+    again = attention.attention_fwd(q, k, v, bias, scale, DROPOUT, seed)
+    check(err_fwd <= ATTN_TOL and bool(torch.equal(again[0], out) and torch.equal(again[1], lse)),
+          f"attention forward {tag}: max abs err {err_fwd} from the twin, or other bits on a rerun")
+    delta = (dout * out).sum(-1).contiguous()
+    got = attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)
+    ref = attention.attention_bwd_reference(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)
+    err_bwd = max((a - r).abs().max().item() for a, r in zip(got, ref))
+    again = attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)
+    check(err_bwd <= ATTN_TOL and all(bool(torch.equal(a, g)) for a, g in zip(again, got)),
+          f"attention backward {tag}: max abs err {err_bwd} from the twin, or other bits on a rerun")
+    live = int((bias > -1e8).sum().item()) * (b // bias.shape[0]) * h  # (query, key) pairs the bias lets through
+    flops = live * dh
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias, scale=scale)
+    results = {
+        f"attention_fwd_{tag}": dict(
+            max_abs_err=err_fwd,
+            ms=time_ms(lambda: attention.attention_fwd(q, k, v, bias, scale, DROPOUT, seed)),
+            plain_ms=time_ms(lambda: attention.attention_reference(q, k, v, bias, scale, DROPOUT, seed), iters=3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)),
+            **tc_bounds(4 * q.numel() * 4 + lse.numel() * 4 + bias.numel() * 4, 4 * flops),
+        ),
+        f"attention_bwd_{tag}": dict(
+            max_abs_err=err_bwd,
+            ms=time_ms(lambda: attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)),
+            plain_ms=time_ms(lambda: attention.attention_bwd_reference(q, k, v, bias, lse, delta, dout, scale,
+                                                                       DROPOUT, seed), iters=3),
+            library_ms=time_ms(lambda: torch.autograd.grad(out_lib, (qg, kg, vg), dout, retain_graph=True)),
+            **tc_bounds(7 * q.numel() * 4 + 2 * lse.numel() * 4 + bias.numel() * 4, 10 * flops),
+        ),
+    }
+    print(f"family kernels: attention {tag} at B={b}, H={h}, L={l}, dh={dh}, dropout {DROPOUT}: forward "
+          f"{results[f'attention_fwd_{tag}']['ms']:.4f} ms, backward {results[f'attention_bwd_{tag}']['ms']:.4f} ms; "
+          f"max abs err {err_fwd:.3g} / {err_bwd:.3g} (limit {ATTN_TOL}); {live / (b * h * l * l):.4f} of the "
+          "(query, key) pairs live; bit-equal on a rerun")
+    return results
+
+
+def family_kernel_phase(torch, dev, reports: dict, b: int = TRAIN_B) -> dict:
+    """The kernels at the shapes the BERT4Rec fit and the remat fit give them:
+    kernels 2 and 5 under BERT4Rec's bidirectional key-padding bias ((B, 1, L,
+    L), the diagonal kept, left-padded sessions, one of length 1) and, causal,
+    at L = 200 with heads of 32; kernels 6 and 7 on BERT4Rec's 15,873-row
+    catalog with 15% of the rows labelled; kernels 1 and 4 at width 256; and
+    kernel 6 with kernels 13 + 14 (the route the CE gradients take there) at
+    102,400 x 20,480 x 256 on the SIMT tile, whose build must show no stack."""
+    import types
+
+    import torch.nn.functional as F
+
+    from rectools_tpu_torch.models.nn.transformers import TransformerBackbone
+    from rectools_tpu_torch.ops import _native, attention, layer_norm, softmax_lse
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    results = {}
+
+    # the remat shape's kernels as built: D = 256 loss kernels, width-256 LayerNorms, attention at heads of 32
+    marks = {"softmax_lse": "ILi256E", "layer_norm": "ILi8E", "attention": "ILi32E"}
+    for source, mark in marks.items():
+        if source not in reports:
+            print(f"build: {source} came from the build cache this run; its stack frames are not shown")
+            continue
+        frames = {name: n for name, n in entry_stack_frames(reports[source]).items() if mark in name}
+        check(bool(frames) and not any(frames.values()),
+              f"build: {source}: the remat shape's kernels want stack: {frames}")
+        print(f"build: {source}: {len(frames)} entry functions at the remat shape ({mark}), 0 bytes of stack each")
+
+    # kernels 2 and 5: BERT4Rec's bias, from the backbone's own rule, over sessions of the frame's lengths
+    l, h, dh = SESSION_MAX_LEN, N_HEADS, N_FACTORS // N_HEADS
+    lengths = torch.randint(1, 301, (b,), generator=gen, device=dev).clamp(max=l)
+    lengths[0], lengths[1] = 1, l
+    sessions = torch.where(torch.arange(l, device=dev)[None, :] >= l - lengths[:, None], 1, 0)
+    rule = types.SimpleNamespace(use_causal_attn=False, use_key_padding_mask=True)
+    bias = TransformerBackbone._build_attn_bias(rule, sessions)
+    check(tuple(bias.shape) == (b, 1, l, l) and bias.is_contiguous(), f"BERT4Rec's bias is {tuple(bias.shape)}")
+    results.update(_attention_case(torch, F, attention, gen, dev, b, l, h, dh, bias, "bidirectional"))
+    del bias
+
+    # kernels 2 and 5 at the remat shape: causal, L = 200, 8 heads of 32
+    rl, rd, rh = REMAT_SHAPE["l"], REMAT_SHAPE["d"], REMAT_SHAPE["heads"]
+    causal = torch.where(torch.ones((rl, rl), dtype=torch.bool, device=dev).tril(), 0.0, -1e9)[None, None]
+    results.update(_attention_case(torch, F, attention, gen, dev, b, rl, rh, rd // rh, causal, "remat_shape"))
+    torch.cuda.empty_cache()
+
+    # kernels 1 and 4 at width 256
+    m = b * rl
+    x = torch.randn((m, rd), generator=gen, device=dev) * 2 + 0.5
+    gamma, beta = torch.randn((rd,), generator=gen, device=dev), torch.randn((rd,), generator=gen, device=dev)
+    dy = torch.randn((m, rd), generator=gen, device=dev)
+    y = layer_norm.layer_norm(x, gamma, beta, 1e-6)
+    err = (y - layer_norm.layer_norm_reference(x, gamma, beta, 1e-6)).abs().max().item()
+    got = layer_norm.layer_norm_bwd(x, gamma, dy, 1e-6)
+    ref = layer_norm.layer_norm_bwd_reference(x, gamma, dy, 1e-6)
+    err_dx, err_sums = (got[0] - ref[0]).abs().max().item(), max(_max_rel(got[1], ref[1]), _max_rel(got[2], ref[2]))
+    check(err <= LN_TOL and err_dx <= LN_BWD_TOL and err_sums <= LN_BWD_TOL,
+          f"LayerNorm at width {rd}: forward {err}, dx {err_dx}, dgamma/dbeta relative {err_sums}")
+    check(all(bool(torch.equal(a, g)) for a, g in zip(layer_norm.layer_norm_bwd(x, gamma, dy, 1e-6), got)),
+          f"layer_norm_bwd at width {rd}: other bits on a rerun")
+    xg, gg, bg = (t.detach().clone().requires_grad_() for t in (x, gamma, beta))
+    y_lib = F.layer_norm(xg, (rd,), gg, bg, 1e-6)
+    results["layer_norm_fwd_remat_shape"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: layer_norm.layer_norm(x, gamma, beta, 1e-6)),
+        plain_ms=time_ms(lambda: layer_norm.layer_norm_reference(x, gamma, beta, 1e-6)),
+        library_ms=time_ms(lambda: F.layer_norm(x, (rd,), gamma, beta, 1e-6)),
+        bound=bound_ms(2 * x.numel() * 4 + 2 * rd * 4, 8 * x.numel()),
+    )
+    results["layer_norm_bwd_remat_shape"] = dict(
+        max_abs_err=max((a - r).abs().max().item() for a, r in zip(got, ref)),
+        ms=time_ms(lambda: layer_norm.layer_norm_bwd(x, gamma, dy, 1e-6)),
+        plain_ms=time_ms(lambda: layer_norm.layer_norm_bwd_reference(x, gamma, dy, 1e-6)),
+        library_ms=time_ms(lambda: torch.autograd.grad(y_lib, (xg, gg, bg), dy, retain_graph=True)),
+        bound=bound_ms(3 * x.numel() * 4 + 3 * rd * 4, 12 * x.numel()),
+    )
+    print(f"family kernels: LayerNorm at {m} x {rd}: forward {results['layer_norm_fwd_remat_shape']['ms']:.4f} ms "
+          f"(err {err:.3g}), backward {results['layer_norm_bwd_remat_shape']['ms']:.4f} ms (dx {err_dx:.3g}, "
+          f"dgamma/dbeta {err_sums:.3g} relative); bit-equal on a rerun")
+    del x, dy, y, got, ref, xg, y_lib
+    torch.cuda.empty_cache()
+
+    def loss_case(m_: int, n_: int, d_: int, label_share: float, first_item: int, tag: str) -> None:
+        """Kernel 6 and the CE gradients' route at (m_, n_, d_) against the
+        twins in the card's order: the tensor-core limits at d <= 128, the SIMT
+        ones at 256; timed beside the twins and the library calls."""
+        tensor_cores = d_ <= 128
+        s = torch.randn((m_, d_), generator=gen, device=dev)
+        items = (0.1 if tensor_cores else 0.05) * torch.randn((n_, d_), generator=gen, device=dev)
+        lse = softmax_lse.streaming_lse(s, items)
+        ref = softmax_lse.streaming_lse_partials_reference(s, items)
+        rel = ((lse - ref).abs() / ref.abs()).max().item()
+        lse_limit = LSE_TC_RTOL if tensor_cores else LSE_RTOL
+        check(rel <= lse_limit and bool(torch.equal(softmax_lse.streaming_lse(s, items), lse)),
+              f"lse_partials_fwd {tag}: {rel} relative per row from its twin (limit {lse_limit}), or other bits")
+        products = 2 * m_ * n_ * d_
+        bounds = tc_bounds if tensor_cores else lambda n_bytes, n_ops: {"bound": bound_ms(n_bytes, n_ops)}
+        chunks = -(-n_ // softmax_lse.LSE_CHUNK)
+        results[f"lse_partials_fwd_{tag}"] = dict(
+            max_abs_err=(lse - ref).abs().max().item(),
+            ms=time_ms(lambda: softmax_lse.streaming_lse(s, items), iters=3),
+            plain_ms=time_ms(lambda: softmax_lse.streaming_lse_partials_reference(s, items), iters=3),
+            library_ms=time_ms(lambda: torch.logsumexp(s @ items.T, dim=1), iters=3),
+            **bounds((m_ * d_ + n_ * d_ + 2 * m_ * chunks) * 4, products),
+        )
+        labelled = torch.rand((m_,), generator=gen, device=dev) < label_share
+        y = torch.where(labelled, torch.randint(first_item, n_, (m_,), generator=gen, device=dev), 0)
+        coeff = labelled.float() / labelled.sum()
+        z = lse - torch.log(coeff)  # +inf on the unlabelled rows
+        split = softmax_lse.ce_takes_split_route(m_, n_, d_)
+        keys = ("grads_z_ds", "grads_z_di") if split else ("ce_grads_fused",)
+        before = {k: _native.LAUNCHES[k] for k in keys}
+        got = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+        check(dev.type != "cuda" or all(_native.LAUNCHES[k] == before[k] + 1 for k in keys),
+              f"the CE gradients {tag} did not launch {keys}")
+        fused = softmax_lse._fused_on_the_card(m_, n_, d_)
+        ref_g = softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff, partials=fused)
+        rel_g = max(_max_rel(g, r) for g, r in zip(got, ref_g))
+        limit = TC_RTOL if tensor_cores else CE_RTOL
+        again = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+        check(rel_g <= limit and all(bool(torch.equal(a, g)) for a, g in zip(again, got)),
+              f"CE gradients {tag}: {rel_g} of the largest entry from their twin (limit {limit}), or other bits")
+        check(not bool(got[0][~labelled].any()), f"CE gradients {tag}: an unlabelled row's ds is not 0")
+        sg, ig = s.detach().clone().requires_grad_(), items.detach().clone().requires_grad_()
+        ce_lib = (F.cross_entropy(sg @ ig.T, y, reduction="none") * coeff).sum()
+        name = "grads_z_pair" if split else "ce_grads"
+        results[f"{name}_{tag}"] = dict(
+            max_abs_err=max((a - r).abs().max().item() for a, r in zip(got, ref_g)),
+            ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3),
+            plain_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff,
+                                                                                  partials=fused), iters=1),
+            library_ms=time_ms(lambda: torch.autograd.grad(ce_lib, (sg, ig), retain_graph=True), iters=3),
+            **bounds((2 * m_ * d_ + 2 * n_ * d_ + 3 * m_) * 4, 3 * products),
+        )
+        print(f"family kernels: {tag} loss at {m_} x {n_} x {d_} ({'3xTF32' if tensor_cores else 'SIMT'} tile, "
+              f"{labelled.float().mean().item():.3f} of the rows labelled): lse "
+              f"{results[f'lse_partials_fwd_{tag}']['ms']:.4f} ms, {rel:.3g} relative per row (limit {lse_limit}); CE "
+              f"gradients through {keys} {results[f'{name}_{tag}']['ms']:.4f} ms, {rel_g:.3g} of the largest entry "
+              f"(limit {limit}); bit-equal on a rerun")
+        del s, items, lse, ref, z, got, ref_g, again, sg, ig, ce_lib
+        torch.cuda.empty_cache()
+
+    # BERT4Rec: labels on real items only (ids from 2: PAD and MASK never are targets)
+    loss_case(b * SESSION_MAX_LEN, N_ITEM_IDS + 2, N_FACTORS, BERT4REC_LABEL_SHARE, 2, "bert4rec")
+    loss_case(m, REMAT_SHAPE["n_item_ids"] + 1, rd, 0.8, 1, "remat_shape")
+    return results
+
+
+def step_turns(torch, np, runs: dict, turns: int = 5) -> dict:
+    """Train steps of several fitted models in turns (``runs``: {name:
+    (training module, device batch)}), after one warm-up step each: each
+    step's wall (host clock, the device drained) and the peak of
+    ``torch.cuda.max_memory_allocated`` over it (reset before it), absolute and
+    above the memory allocated when it started."""
+    stats = {name: {"ms": [], "peak": 0.0, "above": 0.0} for name in runs}
+    for tm, batch in runs.values():
+        tm._train_step(batch)
+    for _ in range(turns):
+        for name, (tm, batch) in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            tm._train_step(batch)
+            torch.cuda.synchronize()
+            stats[name]["ms"].append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            stats[name]["peak"] = max(stats[name]["peak"], peak / 2**20)
+            stats[name]["above"] = max(stats[name]["above"], (peak - start) / 2**20)
+    return {name: {"step_ms_median": float(np.median(r["ms"])), "step_ms": r["ms"], "step_peak_mib": r["peak"],
+                   "step_peak_above_start_mib": r["above"]} for name, r in stats.items()}
+
+
+def _params_apart(a, b) -> tuple:
+    """(largest absolute difference, its parameter) between two backbones."""
+    other = dict(b.named_parameters())
+    return max(((p.detach() - other[n].detach()).abs().max().item(), n) for n, p in a.named_parameters())
+
+
+ESASREC_FITS = {"positionwise": {}, "shared": {"negatives_sharing": "batch"},
+                "shared_remat": {"negatives_sharing": "batch", "remat": True}}
+
+
+def esasrec_phase(torch, np, port, dataset, dev) -> dict:
+    """eSASRec at the KION width: three fits of EPOCHS epochs from the seed,
+    with positionwise negatives, shared negatives, and shared negatives with
+    remat. Launch counts (remat: the encoder's forward kernels once more a
+    step), finite falling losses; the remat fit's losses and parameters equal
+    the shared fit's (REMAT_RTOL, REMAT_ATOL); then one train step of the
+    shared fits in turns, each step's wall and peak memory. The positionwise
+    fit is returned under ``model`` for serving."""
+    from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+    from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+
+    results, models = {}, {}
+    for name, kwargs in ESASREC_FITS.items():
+        clock = epoch_clock(torch, dev)
+        model = family_model(
+            "esasrec", **TRAIN_CONFIG, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,),
+            get_val_mask_func=hold_out_last, get_callbacks_func=lambda clock=clock: [clock],
+            training_module_kwargs={"val_recall_k": K, **kwargs}, device=dev,
+        )
+        port.reset_launches()
+        t0 = time.perf_counter()
+        model.fit(dataset)
+        fit_s = time.perf_counter() - t0
+        launches = dict(port.LAUNCHES)
+        tm = model.training_module
+        check(not tm._use_fused_softmax and tm._shares_negatives == (name != "positionwise")
+              and tm.remat == (name == "shared_remat"), f"esasrec {name}: the fit took another route")
+        steps = tm.global_step
+        forwards = steps + EPOCHS * len(model.data_preparator.get_dataloader_val())
+        expected = expected_fit_launches(port, "esasrec", steps, forwards, loss_keys=(),
+                                         recomputed=steps if tm.remat else 0)
+        check(launches == expected, f"launches in esasrec {name} {launches}, expected {expected}")
+        losses, val_losses = tm.train_loss_history, tm.val_loss_history
+        recall = tm.val_metric_history.get(f"val_recall@{K}", [])
+        check(len(losses) == EPOCHS and bool(np.isfinite(losses).all()) and losses[1] < losses[0],
+              f"esasrec {name}: train losses {losses}")
+        check(len(val_losses) == EPOCHS and bool(np.isfinite(val_losses).all()) and len(recall) == EPOCHS,
+              f"esasrec {name}: validation losses {val_losses}, val_recall@{K} {recall}")
+        epoch2_s = clock.times[2] - clock.times[1]
+        results[name] = {"launches": launches, "steps": steps, "train_loss": losses, "val_loss": val_losses,
+                         f"val_recall@{K}": recall, "fit_s": fit_s, "epoch2_s": epoch2_s,
+                         "train_examples_per_s": TRAIN_B * (steps // EPOCHS) / epoch2_s}
+        models[name] = model
+        print(f"esasrec train: {name}: {EPOCHS} epochs x {steps // EPOCHS} steps of {TRAIN_B} in {fit_s:.2f} s, "
+              f"epoch 2 wall {epoch2_s:.3f} s, {results[name]['train_examples_per_s']:.0f} train examples/s; losses "
+              f"{losses}, val_loss {val_losses}, val_recall@{K} {recall}; launches {launches}")
+    shared, remat = results["shared"], results["shared_remat"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(remat["train_loss"] + remat["val_loss"],
+                                                       shared["train_loss"] + shared["val_loss"]))
+    param_err, worst = _params_apart(models["shared_remat"].backbone, models["shared"].backbone)
+    print(f"esasrec remat: the remat fit against the shared fit: losses {loss_rel:.3g} relative, parameters "
+          f"{param_err:.3g} ({worst})")
+    check(loss_rel <= REMAT_RTOL and param_err <= REMAT_ATOL,
+          f"esasrec remat: losses {loss_rel} relative / parameters {param_err} from the fit without remat")
+    batch = pad_batch(next(iter(models["shared"].data_preparator.get_dataloader_train(np.random.default_rng(SEED)))),
+                      TRAIN_B)
+    turns = step_turns(torch, np, {name: (models[name].training_module,
+                                          models[name].training_module._device_batch(batch))
+                                   for name in ("shared", "shared_remat")})
+    for name, stats in turns.items():
+        results[name].update(stats)
+        print(f"esasrec step: {name}: median {stats['step_ms_median']:.2f} ms of "
+              f"{[round(t, 2) for t in stats['step_ms']]}, peak device memory over a step "
+              f"{stats['step_peak_mib']:.0f} MiB "
+              f"({stats['step_peak_above_start_mib']:.0f} MiB above its start)")
+    fitted = {k: v.clone() for k, v in models["positionwise"].backbone.state_dict().items()}
+    for name in ("positionwise", "shared"):
+        tm = models[name].training_module
+        device_batch = tm._device_batch(batch)
+        print(f"esasrec step: {name}: profile of one train step")
+        profile = profile_phase(torch, lambda: tm._train_step(device_batch))
+        results[name].update({f"step_{k}": v for k, v in profile.items()})
+    models["positionwise"].backbone.load_state_dict(fitted)  # served as fitted
+    del models["shared"], models["shared_remat"]
+    torch.cuda.empty_cache()
+    return {"fits": results, "remat_loss_max_rel_diff": loss_rel, "remat_param_max_abs_diff": param_err,
+            "model": models["positionwise"]}
+
+
+def remat_fit_phase(torch, np, pd, port, dev) -> dict:
+    """One epoch of SASRec at the remat shape (REMAT_SHAPE: B = 512, L = 200,
+    d = 256, 8 heads, a 20,480-row catalog, full softmax) without and with
+    ``remat=True``, from the seed's start: launch counts, the losses and
+    parameters equal (REMAT_RTOL, REMAT_ATOL), each fit's peak memory and
+    epoch wall, then one step of each in turns."""
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.dataset import Dataset
+    from rectools_tpu_torch.models import SASRecModel
+    from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+    from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+    from rectools_tpu_torch.ops import softmax_lse
+
+    t0 = time.perf_counter()
+    n_items = REMAT_SHAPE["n_item_ids"] + 1
+    dataset = Dataset.construct(kion_frame(np, pd, Columns, REMAT_SHAPE["n_item_ids"]))
+    print(f"remat fit: frame of {dataset.user_id_map.size} users over {REMAT_SHAPE['n_item_ids']} item ids built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    d, l = REMAT_SHAPE["d"], REMAT_SHAPE["l"]
+    m = TRAIN_B * l
+    if softmax_lse.ce_takes_split_route(m, n_items, d):
+        loss_keys = ("lse_partials_fwd", "grads_z_ds", "grads_z_di")
+    elif softmax_lse._fused_on_the_card(m, n_items, d):
+        loss_keys = ("lse_partials_fwd", "ce_grads_fused")
+    else:
+        loss_keys = ("lse_partials_fwd", "ce_grads_ds", "ce_grads_di")
+    config = dict(n_blocks=N_BLOCKS, n_heads=REMAT_SHAPE["heads"], n_factors=d, session_max_len=l,
+                  dropout_rate=DROPOUT, batch_size=TRAIN_B, lr=LR, loss="softmax", seed=SEED, epochs=1,
+                  item_net_block_types=(IdEmbeddingsItemNet,))
+    results, models = {}, {}
+    for remat in (False, True):
+        name = "remat" if remat else "plain"
+        clock = epoch_clock(torch, dev)
+        model = SASRecModel(**config, get_callbacks_func=lambda clock=clock: [clock],
+                            training_module_kwargs={"remat": remat}, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        port.reset_launches()
+        model.fit(dataset)
+        launches = dict(port.LAUNCHES)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        tm = model.training_module
+        check(model.backbone.item_model.n_items == n_items and tm._use_fused_softmax, f"remat fit {name}: route")
+        steps = tm.global_step
+        expected = expected_fit_launches(port, "sasrec", steps, steps, loss_keys=loss_keys,
+                                         recomputed=steps if remat else 0)
+        check(launches == expected, f"launches in the remat fit ({name}) {launches}, expected {expected}")
+        losses = tm.train_loss_history
+        check(len(losses) == 1 and bool(np.isfinite(losses).all()), f"remat fit {name}: losses {losses}")
+        epoch_s = clock.times[1] - clock.times[0]
+        results[name] = {"launches": launches, "steps": steps, "train_loss": losses, "epoch_s": epoch_s,
+                         "train_examples_per_s": TRAIN_B * steps / epoch_s, "peak_device_mib": peak_mb}
+        models[name] = model
+        print(f"remat fit: {name}: 1 epoch x {steps} steps of {TRAIN_B} at L={l}, d={d}, {REMAT_SHAPE['heads']} heads, "
+              f"{n_items} items in {epoch_s:.3f} s ({results[name]['train_examples_per_s']:.0f} train examples/s), "
+              f"loss {losses}, peak device memory {peak_mb:.0f} MiB; launches {launches}")
+    loss_rel = abs(results["remat"]["train_loss"][0] - results["plain"]["train_loss"][0]) / abs(
+        results["plain"]["train_loss"][0])
+    param_err, worst = _params_apart(models["remat"].backbone, models["plain"].backbone)
+    print(f"remat fit: remat against plain: loss {loss_rel:.3g} relative, parameters {param_err:.3g} ({worst})")
+    check(loss_rel <= REMAT_RTOL and param_err <= REMAT_ATOL,
+          f"remat fit: loss {loss_rel} relative / parameters {param_err} from the fit without remat")
+    batch = pad_batch(next(iter(models["plain"].data_preparator.get_dataloader_train(np.random.default_rng(SEED)))),
+                      TRAIN_B)
+    turns = step_turns(torch, np, {name: (model.training_module, model.training_module._device_batch(batch))
+                                   for name, model in models.items()}, turns=3)
+    for name, stats in turns.items():
+        results[name].update(stats)
+        print(f"remat step: {name}: median {stats['step_ms_median']:.2f} ms of "
+              f"{[round(t, 2) for t in stats['step_ms']]}, peak device memory over a step "
+              f"{stats['step_peak_mib']:.0f} MiB "
+              f"({stats['step_peak_above_start_mib']:.0f} MiB above its start)")
+    del models
+    torch.cuda.empty_cache()
+    return {**results, "loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_err}
+
+
 def main() -> int:
     import torch
 
@@ -2021,12 +2509,30 @@ def main() -> int:
     main_result = main_phase(torch, np, port, df, dataset, "cuda")
     # phase 5: the training path
     train_result = train_phase(torch, np, port, df, dataset, "cuda")
+    del train_result["model"]
     # phase 6: card against CPU twins
     agree_result = agreement_phase(torch, np, dataset, "cuda")
     # phase 7: HSTU through the same entry points
-    hstu_main_result = main_phase(torch, np, port, df, dataset, "cuda", hstu=True)
-    hstu_train_result = train_phase(torch, np, port, df, dataset, "cuda", hstu=True)
-    hstu_agree_result = agreement_phase(torch, np, dataset, "cuda", hstu=True)
+    hstu_main_result = main_phase(torch, np, port, df, dataset, "cuda", family="hstu")
+    hstu_train_result = train_phase(torch, np, port, df, dataset, "cuda", family="hstu")
+    del hstu_train_result["model"]
+    hstu_agree_result = agreement_phase(torch, np, dataset, "cuda", family="hstu")
+    # phase 10: BERT4Rec and eSASRec (shared negatives, remat) through the same entry points, remat at the
+    # ML-20M-sized shape
+    for tag in ("family kernels", "bert4rec", "esasrec", "remat fit"):  # the card beside these phases' numbers
+        print(f"{tag}: on {card}")
+    kernels.update(family_kernel_phase(torch, torch.device("cuda"), reports))
+    bert4rec_train_result = train_phase(torch, np, port, df, dataset, "cuda", family="bert4rec")
+    bert4rec_main_result = main_phase(torch, np, port, df, dataset, "cuda", family="bert4rec",
+                                      model=bert4rec_train_result.pop("model"))
+    bert4rec_agree_result = agreement_phase(torch, np, dataset, "cuda", family="bert4rec")
+    esasrec_result = esasrec_phase(torch, np, port, dataset, "cuda")
+    esasrec_main_result = main_phase(torch, np, port, df, dataset, "cuda", family="esasrec",
+                                     model=esasrec_result.pop("model"))
+    esasrec_agree_result = agreement_phase(torch, np, dataset, "cuda", family="esasrec")
+    esasrec_shared_agree_result = agreement_phase(torch, np, dataset, "cuda", family="esasrec",
+                                                  negatives_sharing="batch", remat=True)
+    remat_result = remat_fit_phase(torch, np, pd, port, "cuda")
     # phase 8: mesh training, one rank and four ranks
     mesh_result = mesh_fit_phase(torch, np, port, dataset, "cuda", train_result)
     mesh_4_result = mesh_fit_4_phase(torch, np, pd, "cuda")
@@ -2067,7 +2573,11 @@ def main() -> int:
              "hstu_fit": hstu_train_result, "mesh_fit": mesh_result, "mesh_fit_4": mesh_4_result,
              "mesh_fit_budget_forced": {"launches": mesh_result["launches_budget_forced"]},
              "ops": ops_result, "fit_classic_fwd": classic_result, "fit_mid_catalog": mid_result,
-             "fit_large_catalog": large_result}
+             "fit_large_catalog": large_result, "bert4rec_recommend": bert4rec_main_result,
+             "bert4rec_fit": bert4rec_train_result,
+             "esasrec_fit": {"launches": {key: sum(fit["launches"][key] for fit in esasrec_result["fits"].values())
+                                          for key in port.LAUNCHES}},
+             "esasrec_recommend": esasrec_main_result, "remat_fit": remat_result["remat"]}
 
     def numbers(r: dict) -> dict:
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -2086,6 +2596,17 @@ def main() -> int:
                  "launches_by_path": by_path, **numbers(kernels[result_key])}
         if name == "attention_fwd":  # the same kernel at the training width, with dropout
             entry["train_width_dropout"] = numbers(kernels["attention_fwd_train"])
+        if name.startswith("attention_"):  # under BERT4Rec's key-padding bias, and at L = 200 with heads of 32
+            entry["bidirectional"] = numbers(kernels[f"{name}_bidirectional"])
+            entry["remat_shape"] = numbers(kernels[f"{name}_remat_shape"])
+        if name.startswith("layer_norm_"):  # at width 256
+            entry["remat_shape"] = numbers(kernels[f"{name}_remat_shape"])
+        if name in ("lse_partials_fwd", "ce_grads"):  # on BERT4Rec's 15,873-row catalog
+            entry["bert4rec"] = numbers(kernels[f"{name}_bert4rec"])
+        if name == "lse_partials_fwd":  # at 102,400 x 20,480 x 256, the SIMT tile
+            entry["remat_shape"] = numbers(kernels["lse_partials_fwd_remat_shape"])
+        if name in ("grads_z_ds", "grads_z_di"):  # the CE route there: kernels 13 + 14 and the label term
+            entry["remat_shape_route"] = numbers(kernels["grads_z_pair_remat_shape"])
         if name.startswith("stu_"):  # the same kernel at B = 64, L = 1,024
             entry["long_ctx"] = numbers(kernels[f"{name}_long_ctx"])
         if name == "stu_fwd":  # and at the recommend batch, B = 4,096, L = 100
@@ -2120,6 +2641,16 @@ def main() -> int:
         "fit_classic_fwd": {k: v for k, v in classic_result.items() if k != "launches"},
         "fit_mid_catalog": {k: v for k, v in mid_result.items() if k != "launches"},
         "fit_large_catalog": {k: v for k, v in large_result.items() if k != "launches"},
+        "bert4rec_recommend": {k: v for k, v in bert4rec_main_result.items() if k != "launches"},
+        "bert4rec_train": {**{k: v for k, v in bert4rec_train_result.items() if k != "launches"},
+                           "agreement": bert4rec_agree_result},
+        "esasrec_train": {"fits": {name: {k: v for k, v in fit.items() if k != "launches"}
+                                   for name, fit in esasrec_result["fits"].items()},
+                          **{k: v for k, v in esasrec_result.items() if k != "fits"},
+                          "agreement": esasrec_agree_result, "agreement_shared_remat": esasrec_shared_agree_result},
+        "esasrec_recommend": {k: v for k, v in esasrec_main_result.items() if k != "launches"},
+        "remat_fit": {k: ({kk: vv for kk, vv in v.items() if kk != "launches"} if isinstance(v, dict) else v)
+                      for k, v in remat_result.items()},
     }
     print(json.dumps(line))
     print(card)

@@ -1,15 +1,21 @@
 from .backbone import TransformerBackbone, TransformerBackboneBase
 from .base import TransformerModelBase, TransformerModelConfig
+from .bert4rec import BERT4RecDataPreparator, BERT4RecModel, BERT4RecModelConfig
 from .callbacks import BestStateKeeper, EarlyStopping, TrainingCallback
 from .convert import flax_params_to_state_dict, state_dict_to_flax_params
 from .data_preparator import BatchLoader, SequenceDataset, TransformerDataPreparatorBase, scatter_left_padded
 from .hstu import HSTUModel, HSTUModelConfig, RelativeAttentionBias, STULayer, STULayers
+from .ligr import LiGRLayer, LiGRLayers
 from .net_blocks import (
     LearnableInversePositionalEncoding,
     MultiHeadAttention,
     PointWiseFeedForward,
     PositionalEncodingBase,
+    PreLNTransformerLayer,
+    PreLNTransformerLayers,
+    SwigluFeedForward,
     TransformerLayersBase,
+    init_feed_forward,
 )
 from .sasrec import (
     SASRecDataPreparator,
@@ -20,8 +26,12 @@ from .sasrec import (
 )
 from .similarity import DistanceSimilarityModule, SimilarityModuleBase
 from .training import TransformerTrainingModule, TransformerTrainingModuleBase
+from .utils import leave_one_out_mask
 
 __all__ = [
+    "BERT4RecDataPreparator",
+    "BERT4RecModel",
+    "BERT4RecModelConfig",
     "BatchLoader",
     "BestStateKeeper",
     "EarlyStopping",
@@ -35,9 +45,13 @@ __all__ = [
     "state_dict_to_flax_params",
     "DistanceSimilarityModule",
     "LearnableInversePositionalEncoding",
+    "LiGRLayer",
+    "LiGRLayers",
     "MultiHeadAttention",
     "PointWiseFeedForward",
     "PositionalEncodingBase",
+    "PreLNTransformerLayer",
+    "PreLNTransformerLayers",
     "SASRecDataPreparator",
     "SASRecModel",
     "SASRecModelConfig",
@@ -45,6 +59,7 @@ __all__ = [
     "SASRecTransformerLayers",
     "SequenceDataset",
     "SimilarityModuleBase",
+    "SwigluFeedForward",
     "TransformerBackbone",
     "TransformerBackboneBase",
     "TransformerDataPreparatorBase",
@@ -53,5 +68,7 @@ __all__ = [
     "TransformerModelConfig",
     "TransformerTrainingModule",
     "flax_params_to_state_dict",
+    "init_feed_forward",
+    "leave_one_out_mask",
     "scatter_left_padded",
 ]

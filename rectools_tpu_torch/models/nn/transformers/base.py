@@ -33,7 +33,12 @@ from .convert import flax_params_to_state_dict
 from .data_preparator import InitKwargs, TransformerDataPreparatorBase
 from .losses import requires_negatives
 from .negative_sampler import CatalogUniformSampler, TransformerNegativeSamplerBase
-from .net_blocks import LearnableInversePositionalEncoding, PositionalEncodingBase, TransformerLayersBase
+from .net_blocks import (
+    LearnableInversePositionalEncoding,
+    PositionalEncodingBase,
+    PreLNTransformerLayers,
+    TransformerLayersBase,
+)
 from .similarity import DistanceSimilarityModule, SimilarityModuleBase
 from .training import TransformerTrainingModule, TransformerTrainingModuleBase
 
@@ -118,7 +123,7 @@ class TransformerModelConfig(ModelConfig):
     item_net_block_types: ItemNetBlockTypes = (IdEmbeddingsItemNet, CatFeaturesItemNet)
     item_net_constructor_type: ItemNetConstructorType = SumOfEmbeddingsConstructor
     pos_encoding_type: PositionalEncodingType = LearnableInversePositionalEncoding
-    transformer_layers_type: TransformerLayersType
+    transformer_layers_type: TransformerLayersType = PreLNTransformerLayers
     training_module_type: TransformerTrainingModuleType = TransformerTrainingModule
     negative_sampler_type: TransformerNegativeSamplerType = CatalogUniformSampler
     similarity_module_type: SimilarityModuleType = DistanceSimilarityModule
@@ -150,7 +155,7 @@ class TransformerModelBase(ModelBase[TransformerModelConfig_T]):
     def __init__(
         self,
         data_preparator_type: tp.Type[TransformerDataPreparatorBase],
-        transformer_layers_type: tp.Type[TransformerLayersBase],
+        transformer_layers_type: tp.Type[TransformerLayersBase] = PreLNTransformerLayers,
         n_blocks: int = 2,
         n_heads: int = 4,
         n_factors: int = 256,

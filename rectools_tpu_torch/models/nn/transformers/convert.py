@@ -11,7 +11,15 @@ dict (flax layout), for SASRec:
     transformer_layers/block_{i}/feed_forward/ff_linear_{1,2}/{kernel,bias}
     transformer_layers/last_layernorm/{scale,bias}
 
-and for HSTU, in place of the ``transformer_layers`` entries above:
+for the Pre-LN stack (BERT4Rec) and the LiGR stack (eSASRec), in place of
+the ``transformer_layers`` entries above:
+
+    transformer_layers/block_{i}/layer_norm_{1,2}/{scale,bias}
+    transformer_layers/block_{i}/multi_head_attn/{q,k,v,out}_proj/{kernel,bias}
+    transformer_layers/block_{i}/feed_forward/ff_linear_{1,2,3}/{kernel[,bias]}   (ff_linear_3: SwiGLU)
+    transformer_layers/block_{i}/gating_linear_{1,2}/{kernel,bias}               (LiGR)
+
+and for HSTU:
 
     transformer_layers/block_{i}/{norm_input,norm_attn_output}/{scale,bias}
     transformer_layers/block_{i}/uvqk_proj                     (d, 2·lh·H + 2·ad·H)
@@ -25,9 +33,9 @@ the transposed ``nn.Linear.weight``, stored (out, in). Embedding tables become
 ``nn.Embedding.weight``. Every other leaf keeps its name and its layout:
 ``uvqk_proj`` is a raw parameter stored (in, out) on both sides and is not
 transposed, and the two relative-bias tables are plain vectors. These names
-cover every parameter of the SASRec and HSTU training paths (item tables,
-positions, LayerNorms, attention, FFN, STU blocks), so a model trained on
-either side continues on the other.
+cover every parameter of the SASRec, eSASRec, BERT4Rec and HSTU training
+paths (item tables, positions, LayerNorms, attention, FFNs, gates, STU
+blocks), so a model trained on either side continues on the other.
 """
 
 import re

@@ -1,23 +1,30 @@
 """Transformer building blocks — port of
-rectools_tpu/models/nn/transformers/net_blocks.py (the SASRec path).
+rectools_tpu/models/nn/transformers/net_blocks.py: multi-head attention, the
+feed-forwards (ReLU, exact GELU, SwiGLU), the Pre-LN block and stack (the
+BERT4Rec default) and the positional encoding.
 
 Attention masks are additive float biases (``MASK_VALUE``, finite, never
 -inf), so fully-masked rows stay NaN-free. In training mode the attention
 draws its dropout seed from the training module's generator and applies the
-counter-hash dropout inside the kernel; the FFN applies :class:`HashDropout`
-to its inner activations. ``PreLNTransformerLayers`` and ``SwigluFeedForward``
-are not ported yet.
+counter-hash dropout inside the kernel; the FFNs apply :class:`HashDropout`
+to their inner activations.
 """
 
 import typing as tp
+from functools import partial
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ....ops.attention import dot_product_attention
 from ..dropout import HashDropout, draw_attention_seed, shifted_attention_seed
+from ..norm import FusedLayerNorm
 
 MASK_VALUE = -1e9  # additive attention-bias "minus infinity"
+
+# exact (erf) GELU, as the JAX package's ``_exact_gelu``
+_exact_gelu = partial(F.gelu, approximate="none")
 
 
 class MultiHeadAttention(nn.Module):
@@ -81,6 +88,48 @@ class PointWiseFeedForward(nn.Module):
         return self.ff_linear_2(self.dropout(self.activation(self.ff_linear_1(seqs))))
 
 
+class SwigluFeedForward(nn.Module):
+    """SwiGLU FFN (reference net_blocks.py:68-110): ``ff_linear_2(dropout(
+    silu(ff_linear_1(x)) * ff_linear_3(x)))``."""
+
+    def __init__(
+        self,
+        n_factors: int,
+        n_factors_ff: int,
+        dropout_rate: float,
+        use_bias: bool = True,
+        device: tp.Optional[torch.device] = None,
+    ) -> None:
+        super().__init__()
+        self.ff_linear_1 = nn.Linear(n_factors, n_factors_ff, bias=use_bias, device=device)
+        self.ff_linear_3 = nn.Linear(n_factors, n_factors_ff, bias=use_bias, device=device)
+        self.ff_linear_2 = nn.Linear(n_factors_ff, n_factors, bias=use_bias, device=device)
+        self.dropout = HashDropout(dropout_rate)
+
+    def forward(self, seqs: torch.Tensor) -> torch.Tensor:
+        output = F.silu(self.ff_linear_1(seqs)) * self.ff_linear_3(seqs)
+        return self.ff_linear_2(self.dropout(output))
+
+
+def init_feed_forward(
+    n_factors: int,
+    ff_factors_multiplier: int,
+    dropout_rate: float,
+    ff_activation: str,
+    use_bias: bool = True,
+    device: tp.Optional[torch.device] = None,
+) -> nn.Module:
+    """FFN factory: "swiglu" / "relu" / "gelu" (reference net_blocks.py:113-151)."""
+    n_factors_ff = n_factors * ff_factors_multiplier
+    if ff_activation == "swiglu":
+        return SwigluFeedForward(n_factors, n_factors_ff, dropout_rate, use_bias, device=device)
+    if ff_activation == "gelu":
+        return PointWiseFeedForward(n_factors, n_factors_ff, dropout_rate, _exact_gelu, use_bias, device=device)
+    if ff_activation == "relu":
+        return PointWiseFeedForward(n_factors, n_factors_ff, dropout_rate, torch.relu, use_bias, device=device)
+    raise ValueError(f"Unsupported ff_activation: {ff_activation}")
+
+
 class TransformerLayersBase(nn.Module):
     """Base class for transformer layer stacks.
 
@@ -104,6 +153,67 @@ class TransformerLayersBase(nn.Module):
         module calls it after the Xavier re-init, which leaves such vectors
         alone, so that the seed fixes them too. A stack without any does
         nothing."""
+
+
+class PreLNTransformerLayer(nn.Module):
+    """Pre-LN block (reference net_blocks.py:188-261): LayerNorm before the
+    attention and before the GELU FFN, dropped-out residuals, and a dropout
+    of the block's output."""
+
+    def __init__(
+        self,
+        n_factors: int,
+        n_heads: int,
+        dropout_rate: float,
+        ff_factors_multiplier: int = 4,
+        device: tp.Optional[torch.device] = None,
+    ) -> None:
+        super().__init__()
+        self.layer_norm_1 = FusedLayerNorm(n_factors, device=device)
+        self.multi_head_attn = MultiHeadAttention(n_factors, n_heads, dropout_rate, device=device)
+        self.layer_norm_2 = FusedLayerNorm(n_factors, device=device)
+        self.feed_forward = PointWiseFeedForward(
+            n_factors, n_factors * ff_factors_multiplier, dropout_rate, _exact_gelu, device=device
+        )
+        self.attn_dropout = HashDropout(dropout_rate)
+        self.ff_dropout = HashDropout(dropout_rate)
+        self.out_dropout = HashDropout(dropout_rate)
+
+    def forward(self, seqs: torch.Tensor, attn_bias: tp.Optional[torch.Tensor]) -> torch.Tensor:
+        mha_input = self.layer_norm_1(seqs)
+        seqs = seqs + self.attn_dropout(self.multi_head_attn(mha_input, mha_input, mha_input, attn_bias))
+        seqs = seqs + self.ff_dropout(self.feed_forward(self.layer_norm_2(seqs)))
+        return self.out_dropout(seqs)
+
+
+class PreLNTransformerLayers(TransformerLayersBase):
+    """Pre-LN stack, the BERT4Rec default (reference net_blocks.py:264-335)."""
+
+    def __init__(
+        self,
+        n_blocks: int,
+        n_factors: int,
+        n_heads: int,
+        dropout_rate: float,
+        ff_factors_multiplier: int = 4,
+        device: tp.Optional[torch.device] = None,
+    ) -> None:
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            PreLNTransformerLayer(n_factors, n_heads, dropout_rate, ff_factors_multiplier, device=device)
+            for _ in range(n_blocks)
+        )
+
+    def forward(
+        self,
+        seqs: torch.Tensor,
+        timeline_mask: torch.Tensor,
+        attn_bias: tp.Optional[torch.Tensor],
+        batch: tp.Dict[str, torch.Tensor],
+    ) -> torch.Tensor:
+        for block in self.blocks:
+            seqs = block(seqs, attn_bias)
+        return seqs
 
 
 class PositionalEncodingBase(nn.Module):

@@ -40,10 +40,25 @@ module on the same dataset and seed, and the collectives are written out:
   on every rank; ``get_state`` and the recommend paths see whole tables (they
   gather the column shards, so every rank must call them together).
 
-Not ported yet, and refused with ``NotImplementedError``: ``remat=True``,
-``negatives_sharing="batch"`` and ``compute_dtype="bfloat16"``;
-``compute_dtype="auto"`` resolves to float32, as it does in the JAX package
-on every backend but the TPU.
+Shared negatives (``negatives_sharing="batch"``): one (B, K) set of uniform
+negatives per step, drawn with the counter hash over ``[n_extra_tokens,
+n_items)`` as the positionwise ones are, shared by every position of a
+session: the positive logits come from one row gather of the item tower, the
+negative logits from one gather of B·K rows and a dense (B, L, K) product,
+and the (B, L, 1 + K) logits go to the sampled losses.
+
+Rematerialization (``remat=True``): in a train step the forward that feeds
+the loss (the towers of the fused softmax, or the logits) runs under
+``torch.utils.checkpoint`` and runs again in the backward instead of keeping
+its activations. The dropout salts come from this module's generator, which
+``checkpoint`` does not restore: :meth:`_rematerialized` gives the recompute
+the generator state the forward started from, so it draws the same masks and
+the gradients are those of the plain step. The recompute runs inside the
+step's ``full_f32_matmul`` and with the same batch offsets.
+
+Not ported yet, and refused with ``NotImplementedError``:
+``compute_dtype="bfloat16"``; ``compute_dtype="auto"`` resolves to float32,
+as it does in the JAX package on every backend but the TPU.
 ``steps_per_dispatch`` is validated for config compatibility and otherwise
 unused: it never changes the trajectory in the JAX package, and the port
 dispatches step by step.
@@ -54,6 +69,7 @@ import typing as tp
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ....dataset.dataset import Dataset
 from ....ops.softmax_lse import sharded_streaming_lse
@@ -155,12 +171,10 @@ class TransformerTrainingModuleBase:
             raise ValueError("negatives_sharing must be 'positionwise' or 'batch'")
         if compute_dtype not in ("auto", "float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be 'auto', 'float32' or 'bfloat16', got {compute_dtype}")
-        if remat:
-            raise NotImplementedError("remat=True is not ported yet (ROADMAP.md §1, remat and shared negatives)")
-        if negatives_sharing == "batch":
-            raise NotImplementedError(
-                "negatives_sharing='batch' (shared negatives, rectools_tpu training.py:406-437) is not ported yet "
-                "(ROADMAP.md §1, remat and shared negatives)"
+        if negatives_sharing == "batch" and not negatives_on_device:
+            raise ValueError(
+                "negatives_sharing='batch' draws its negatives on device; "
+                "it requires negatives_on_device=True and the default CatalogUniformSampler"
             )
         if compute_dtype == "bfloat16":
             raise NotImplementedError(
@@ -175,6 +189,8 @@ class TransformerTrainingModuleBase:
         self.val_recall_k = val_recall_k
         self.fused_softmax_chunk = fused_softmax_chunk
         self.negatives_on_device = negatives_on_device
+        self.negatives_sharing = negatives_sharing
+        self.remat = remat
         self.item_extra_tokens = item_extra_tokens
         self.data_preparator = data_preparator
         self.lr = lr
@@ -263,38 +279,94 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
             and type(self.data_preparator.negative_sampler) is CatalogUniformSampler
         )
 
-    def _draw_device_negatives(self, batch: tp.Dict[str, torch.Tensor], words: tp.Sequence[int]) -> torch.Tensor:
-        """Uniform negatives over [n_extra_tokens, n_items) from the counter
-        hash, as ``CatalogUniformSampler`` draws them on the host."""
+    @property
+    def _shares_negatives(self) -> bool:
+        return self.negatives_sharing == "batch" and bool(self._requires_negatives)
+
+    def _negatives(
+        self, batch: tp.Dict[str, torch.Tensor], words: tp.Optional[tp.Sequence[int]]
+    ) -> torch.Tensor:
+        """The host's negatives, or uniform negatives over [n_extra_tokens,
+        n_items) from the counter hash, as ``CatalogUniformSampler`` draws them
+        on the host: (B, L, K), one set per position, or with shared negatives
+        always one (B, K) set per session (JAX ``_batch_logits``, shared route)."""
+        if "negatives" in batch and not self._shares_negatives:
+            return batch["negatives"]
+        if words is None:
+            raise ValueError("negative key words are required when negatives are sampled on the device")
         b, length = batch["y"].shape
-        shape = (b, length, self.data_preparator.n_negatives)
+        k = self.data_preparator.n_negatives
+        shape = (b, k) if self._shares_negatives else (b, length, k)
         return hash_uniform_ints(
             words, shape, len(self.item_extra_tokens), self.backbone.item_model.n_items, batch["y"].device,
-            offset=self._batch_offset * length * self.data_preparator.n_negatives,
+            offset=self._batch_offset * int(np.prod(shape[1:])),
         )
 
     def _candidates(
         self, batch: tp.Dict[str, torch.Tensor], neg_words: tp.Optional[tp.Sequence[int]]
     ) -> torch.Tensor:
-        if "negatives" in batch:
-            negatives = batch["negatives"]
-        else:
-            if neg_words is None:
-                raise ValueError("negative key words are required when negatives are sampled on the device")
-            negatives = self._draw_device_negatives(batch, neg_words)
-        return torch.cat([batch["y"][..., None], negatives], dim=-1)
+        return torch.cat([batch["y"][..., None], self._negatives(batch, neg_words)], dim=-1)
+
+    def _shared_logits(
+        self, session_embs: torch.Tensor, item_embs: torch.Tensor, y: torch.Tensor, negatives: torch.Tensor
+    ) -> torch.Tensor:
+        """(B, L, 1 + K) logits of the positives and of the session's shared
+        negatives (B, K): the positives from one row gather of the item tower,
+        the negatives from one gather of B·K rows and a dense (B, L, K) product."""
+        s_t, i_t = self.backbone.similarity_module.catalog_loss_towers(session_embs, item_embs)
+        pos_logits = (s_t * i_t[y]).sum(dim=-1, keepdim=True)
+        neg_logits = torch.bmm(s_t, i_t[negatives].transpose(1, 2))
+        return torch.cat([pos_logits, neg_logits], dim=-1)
+
+    def _rematerialized(self, fn: tp.Callable[..., tp.Any], *args: tp.Any) -> tp.Any:
+        """``fn(*args)``; in training with ``remat``, under ``torch.utils.checkpoint``
+        (non-reentrant), with the dropout generator set back to the state the
+        forward started from while the backward recomputes ``fn``, so that the
+        recompute draws the forward's salts, and restored after it."""
+        if not (self.remat and self.backbone.training):
+            return fn(*args)
+        generator = self.dropout_generator
+        start = generator.get_state()
+        calls = 0
+
+        def run(*run_args: tp.Any) -> tp.Any:
+            nonlocal calls
+            calls += 1
+            if calls == 1:
+                return fn(*run_args)
+            resume = generator.get_state()
+            generator.set_state(start)
+            try:
+                return fn(*run_args)
+            finally:
+                generator.set_state(resume)
+
+        return checkpoint(run, *args, use_reentrant=False)
 
     def _batch_logits(
         self, batch: tp.Dict[str, torch.Tensor], neg_words: tp.Optional[tp.Sequence[int]] = None
     ) -> torch.Tensor:
         """Forward pass -> logits / logits_t (reference lightning.py:301-309)."""
-        candidates = self._candidates(batch, neg_words) if self._requires_negatives else None
-        return self.backbone(batch, candidate_item_ids=candidates).float() / self.logits_t
+        if self._shares_negatives:
+            negatives = self._negatives(batch, neg_words)
+
+            def shared(b: tp.Dict[str, torch.Tensor]) -> torch.Tensor:
+                item_embs = self.backbone.item_model.embed_catalog()
+                return self._shared_logits(self.backbone.encode_sessions(b, item_embs), item_embs, b["y"], negatives)
+
+            logits = self._rematerialized(shared, batch)
+        else:
+            candidates = self._candidates(batch, neg_words) if self._requires_negatives else None
+            logits = self._rematerialized(lambda b: self.backbone(b, candidate_item_ids=candidates), batch)
+        return logits.float() / self.logits_t
 
     def _fused_softmax_loss_value(self, batch: tp.Dict[str, torch.Tensor]) -> torch.Tensor:
-        item_embs = self.backbone.item_model.embed_catalog()
-        session_embs = self.backbone.encode_sessions(batch, item_embs)
-        s_t, i_t = self.backbone.similarity_module.catalog_loss_towers(session_embs, item_embs)
+        def towers(b: tp.Dict[str, torch.Tensor]) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+            item_embs = self.backbone.item_model.embed_catalog()
+            session_embs = self.backbone.encode_sessions(b, item_embs)
+            return self.backbone.similarity_module.catalog_loss_towers(session_embs, item_embs)
+
+        s_t, i_t = self._rematerialized(towers, batch)
         s_t, i_t = s_t.float() / self.logits_t, i_t.float()
         mesh = self._get_mesh()
         if mesh is None:
@@ -413,8 +485,13 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
         only that slice."""
         item_embs = self.backbone.item_model.embed_catalog()
         session_embs = self.backbone.encode_sessions(batch, item_embs)[:, -1:, :]
-        candidates = self._candidates(batch, neg_words) if self._requires_negatives else None
-        logits = self.backbone.similarity_module(session_embs, item_embs, candidates).float() / self.logits_t
+        if self._shares_negatives:
+            negatives = self._negatives(batch, neg_words)
+            logits = self._shared_logits(session_embs, item_embs, batch["y"], negatives)
+        else:
+            candidates = self._candidates(batch, neg_words) if self._requires_negatives else None
+            logits = self.backbone.similarity_module(session_embs, item_embs, candidates)
+        logits = logits.float() / self.logits_t
         loss = self._loss_fn(logits, batch["y"], batch["yw"])
         if recall_k is None:
             return loss, None
@@ -461,6 +538,19 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
     ) -> None:
         """Epoch loop. Loaders come from factories so each fit / fit_partial
         call re-derives its host rng stream from the seed and epoch counter."""
+        if self._shares_negatives:
+            if not self._use_device_negatives:
+                raise ValueError(
+                    "negatives_sharing='batch' requires device-drawn negatives "
+                    "(negatives_on_device=True with the default CatalogUniformSampler)"
+                )
+            sim = self.backbone.similarity_module
+            if type(sim).catalog_loss_towers is SimilarityModuleBase.catalog_loss_towers:
+                raise ValueError(
+                    "negatives_sharing='batch' computes its logits from similarity_module.catalog_loss_towers, "
+                    f"which {type(sim).__name__} does not override — use negatives_sharing='positionwise' or "
+                    "implement catalog_loss_towers"
+                )
         self.data_preparator.host_negatives = not self._use_device_negatives
         host_rng = np.random.default_rng(np.random.SeedSequence(entropy=(self.seed, self.epochs_completed)))
         train_loader = train_loader_factory(host_rng)

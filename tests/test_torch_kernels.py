@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from rectools_tpu_torch.models import HSTUModel, SASRecModel, TorchRanker
+from rectools_tpu_torch.models import BERT4RecModel, HSTUModel, SASRecModel, TorchRanker
+from rectools_tpu_torch.models.nn.transformers import LiGRLayers, TransformerBackbone
 from rectools_tpu_torch.ops import _native, attention, layer_norm, softmax_lse, stu_attention, topk, topk_select
 from rectools_tpu_torch.tools import fused_bwd_variants, stu_fwd_topm_check
 
@@ -334,6 +335,17 @@ def _causal_bias(l: int) -> np.ndarray:
     return np.where(np.tril(np.ones((l, l), dtype=bool)), 0.0, MASK_VALUE).astype(np.float32)[None, None]
 
 
+def _bidirectional_bias(rng: np.random.Generator, b: int, l: int) -> np.ndarray:
+    """BERT4Rec's (B, 1, L, L) bias, from the backbone's own rule (key padding,
+    no causal mask, the diagonal kept) over left-padded sessions: one of
+    length 1, one full, the others drawn."""
+    lengths = rng.integers(1, l + 1, size=b)
+    lengths[:2] = (1, l)
+    sessions = torch.from_numpy((np.arange(l)[None, :] >= (l - lengths)[:, None]).astype(np.int64))
+    rule = type("Rule", (), {"use_causal_attn": False, "use_key_padding_mask": True})()
+    return TransformerBackbone._build_attn_bias(rule, sessions).numpy()
+
+
 def _masked_row_bias(l: int) -> np.ndarray:
     """The causal bias with query row l // 3 masked everywhere: its lse is
     about MASK_VALUE and p = exp(s - lse) is 1 for every key, in the twin and
@@ -344,7 +356,7 @@ def _masked_row_bias(l: int) -> np.ndarray:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,d,eps", [(4099, 128, 1e-6), (33, 96, 1e-8), (7, 1024, 1e-6)])
+@pytest.mark.parametrize("m,d,eps", [(4099, 128, 1e-6), (33, 96, 1e-8), (7, 1024, 1e-6), (102400, 256, 1e-6)])
 def test_cuda_layer_norm_matches_twin(cuda: torch.device, m: int, d: int, eps: float) -> None:
     rng = np.random.default_rng(m)
     x = _t((rng.normal(size=(m, d)) * 3 + 1).astype(np.float32)).to(cuda)
@@ -356,7 +368,7 @@ def test_cuda_layer_norm_matches_twin(cuda: torch.device, m: int, d: int, eps: f
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bias_kind", ["none", "causal", "key_padding", "masked_row"])
+@pytest.mark.parametrize("bias_kind", ["none", "causal", "key_padding", "masked_row", "bidirectional"])
 @pytest.mark.parametrize("l,dh", [(100, 32), (12, 16), (257, 64), (100, 64), (37, 32)])
 def test_cuda_attention_matches_twin(cuda: torch.device, bias_kind: str, l: int, dh: int) -> None:
     rng = np.random.default_rng(l)
@@ -372,6 +384,8 @@ def test_cuda_attention_matches_twin(cuda: torch.device, bias_kind: str, l: int,
         kp = np.where(pad, MASK_VALUE, 0.0)[:, None, None, :] + _causal_bias(l)
         kp[:, :, np.arange(l), np.arange(l)] = 0.0
         bias = _t(kp.astype(np.float32)).to(cuda)
+    elif bias_kind == "bidirectional":
+        bias = _t(_bidirectional_bias(rng, b, l)).to(cuda)
     scale = 1.0 / dh**0.5
     before = _native.LAUNCHES["attention_fwd"]
     out, lse = attention.attention_fwd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias, scale)
@@ -538,7 +552,8 @@ def _device_kernels(fn, calls: int = 20) -> dict:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,d", [(5000, 128), (33, 96), (7, 1024), (51200, 128), (1, 128), (8193, 128), (65, 50)])
+@pytest.mark.parametrize("m,d", [(5000, 128), (33, 96), (7, 1024), (51200, 128), (1, 128), (8193, 128), (65, 50),
+                                 (102400, 256)])
 def test_cuda_layer_norm_bwd_matches_twin(cuda: torch.device, m: int, d: int) -> None:
     """Kernel 4 against its twin (dx within 1e-5; dγ and dβ, sums over m
     rows, within 1e-5 · max(1, m / 1000)): the training shape (51,200 x 128),
@@ -578,7 +593,9 @@ def _blhd(rng: np.random.Generator, b: int, l: int, h: int, dh: int, dev: torch.
 @pytest.mark.gpu
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("l,dh,bias_kind", [(100, 32, "causal"), (12, 16, "none"), (200, 64, "key_padding"),
-                                          (100, 64, "causal"), (37, 32, "key_padding"), (100, 32, "masked_row")])
+                                          (100, 64, "causal"), (37, 32, "key_padding"), (100, 32, "masked_row"),
+                                          (100, 32, "bidirectional"), (37, 64, "bidirectional"),
+                                          (200, 32, "causal")])
 def test_cuda_attention_fwd_bwd_with_dropout_matches_twin(
     cuda: torch.device, rate: float, l: int, dh: int, bias_kind: str
 ) -> None:
@@ -595,6 +612,8 @@ def test_cuda_attention_fwd_bwd_with_dropout_matches_twin(
         kp = np.where(pad, MASK_VALUE, 0.0)[:, None, None, :] + _causal_bias(l)
         kp[:, :, np.arange(l), np.arange(l)] = 0.0
         bias = _t(kp.astype(np.float32)).to(cuda)
+    elif bias_kind == "bidirectional":  # BERT4Rec's: every unit of a long session live, a session of length 1
+        bias = _t(_bidirectional_bias(rng, b, l)).to(cuda)
     scale = 1.0 / dh**0.5
     out, lse = attention.attention_fwd(q, k, v, bias, scale, rate, seed)
     ref_out, ref_lse = attention.attention_reference(q, k, v, bias, scale, rate, seed)
@@ -676,7 +695,7 @@ def test_cuda_lse_partials_matches_twin(cuda: torch.device, m: int, n: int, d: i
 @pytest.mark.parametrize(
     "m,n,d",
     [(51, 300, 32), (1000, 2111, 128), (64, 64, 16), (130, 4100, 256), (257, 1000, 64), (300, 2177, 128),
-     (700, 20000, 128), (300, 20033, 64)],
+     (700, 20000, 128), (300, 20033, 64), (1000, 15873, 128), (2000, 20480, 256)],
 )
 def test_cuda_streaming_lse_and_ce_grads_match_twin(
     cuda: torch.device, monkeypatch: pytest.MonkeyPatch, m: int, n: int, d: int, partials: bool, route: str
@@ -1001,6 +1020,91 @@ def test_cuda_sasrec_fit_matches_cpu(cuda: torch.device) -> None:
         # Adam moves them by the sign of rounding noise: held to steps * lr
         tol = 3 * 1e-3 if name.endswith("multi_head_attn.k_proj.bias") else 1e-4
         assert (value.cpu() - cpu_state[name]).abs().max().item() <= tol, name
+
+
+
+def _small_frame(seed: int, n_users: int, n_items: int):
+    import pandas as pd
+
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.dataset import Dataset
+
+    rng = np.random.default_rng(seed)
+    n = 2000
+    return Dataset.construct(pd.DataFrame({
+        Columns.User: rng.integers(0, n_users, n),
+        Columns.Item: rng.integers(0, n_items, n),
+        Columns.Weight: 1.0,
+        Columns.Datetime: pd.Timestamp("2021-01-01") + pd.to_timedelta(rng.integers(0, 10**6, n), unit="s"),
+    }))
+
+
+FIT_FAMILIES = {
+    "bert4rec": (BERT4RecModel, {}),
+    "esasrec_shared_remat": (SASRecModel, {"transformer_layers_type": LiGRLayers, "loss": "sampled_softmax",
+                                           "n_negatives": 16,
+                                           "training_module_kwargs": {"negatives_sharing": "batch", "remat": True}}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", sorted(FIT_FAMILIES))
+def test_cuda_family_fit_matches_cpu(cuda: torch.device, family: str) -> None:
+    """BERT4Rec (the bidirectional key-padding bias, PAD and MASK) and eSASRec
+    with shared negatives and remat: three train steps with dropout on the card
+    and on the CPU twins from the same start, as the SASRec test does; the
+    key-projection biases held to steps * lr."""
+    model_cls, kwargs = FIT_FAMILIES[family]
+    dataset = _small_frame(13, 96, 3000)
+    config = dict(n_blocks=2, n_heads=4, n_factors=64, session_max_len=20, dropout_rate=0.2, batch_size=32,
+                  epochs=1, **kwargs)
+    models = {dev: model_cls(**config, device=dev) for dev in ("cpu", "cuda")}
+    for model in models.values():
+        model._build_model_from_dataset(dataset)
+    models["cpu"].training_module.init_params()
+    start = {k: v.clone() for k, v in models["cpu"].backbone.state_dict().items()}
+    for model in models.values():
+        model.training_module.load_params(start)
+    _native.reset_launches()
+    for model in models.values():
+        model.training_module.fit(model.data_preparator.get_dataloader_train,
+                                  model.data_preparator.get_dataloader_val, 1)
+    steps = models["cuda"].training_module.global_step
+    assert steps == 3 and _native.LAUNCHES["attention_bwd"] == 2 * steps
+    assert _native.LAUNCHES["layer_norm_bwd"] == 4 * steps
+    recomputes = steps if family.endswith("remat") else 0  # remat runs the encoder's forward again in the backward
+    assert _native.LAUNCHES["attention_fwd"] == 2 * (steps + recomputes)
+    np.testing.assert_allclose(models["cuda"].training_module.train_loss_history,
+                               models["cpu"].training_module.train_loss_history, rtol=1e-4)
+    cpu_state = models["cpu"].backbone.state_dict()
+    for name, value in models["cuda"].backbone.state_dict().items():
+        tol = 3 * 1e-3 if name.endswith("multi_head_attn.k_proj.bias") else 1e-4
+        assert (value.cpu() - cpu_state[name]).abs().max().item() <= tol, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", ["softmax", "sampled_softmax"])
+def test_cuda_remat_fit_equals_plain_fit(cuda: torch.device, loss: str) -> None:
+    """On the card, a fit with remat=True at dropout 0.2 takes the plain fit's
+    path: the same losses and parameters (1e-6), the encoder's forward kernels
+    launched once more a step."""
+    dataset = _small_frame(14, 96, 3000)
+    runs = {}
+    for remat in (False, True):
+        _native.reset_launches()
+        model = SASRecModel(n_blocks=2, n_heads=4, n_factors=64, session_max_len=20, dropout_rate=0.2,
+                            batch_size=32, epochs=2, loss=loss, n_negatives=16, seed=3, device="cuda",
+                            training_module_kwargs={"fused_softmax_chunk": 512, "remat": remat}).fit(dataset)
+        runs[remat] = (model, dict(_native.LAUNCHES))
+    (plain, plain_launches), (remat, remat_launches) = runs[False], runs[True]
+    steps = remat.training_module.global_step
+    assert remat_launches["layer_norm_fwd"] == plain_launches["layer_norm_fwd"] + 5 * steps
+    assert remat_launches["attention_bwd"] == plain_launches["attention_bwd"] == 2 * steps
+    np.testing.assert_allclose(remat.training_module.train_loss_history, plain.training_module.train_loss_history,
+                               rtol=1e-6)
+    plain_state = plain.backbone.state_dict()
+    for name, value in remat.backbone.state_dict().items():
+        assert (value - plain_state[name]).abs().max().item() <= 1e-6, name
 
 
 # ------------------------------------------------------------------ STU attention kernels on the card

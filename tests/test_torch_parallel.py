@@ -44,6 +44,9 @@ LSE_CASES = {"ragged": (96, 301, 32), "empty_shard": (32, 3, 16)}  # name: (M, N
 MESHES = ((2, 2), (1, 4), (4, 1))
 SPAWN_TIMEOUT_S = 420.0
 
+# shared negatives with remat: the training options of the sampled softmax
+SHARED_REMAT = {"loss": "sampled_softmax", "negatives_sharing": "batch", "remat": True}
+
 
 def _frame() -> pd.DataFrame:
     rng = np.random.default_rng(31)
@@ -167,6 +170,7 @@ def four_rank_worker(rank: int, payload: tp.Dict[str, tp.Any]) -> tp.Dict[str, t
         out[f"fit_dropout_{shape}"] = _fit_summary(_model(df, shape, 0.2))
     out["fit_sampled_softmax"] = _fit_summary(_model(df, (2, 2), 0.2, loss="sampled_softmax"))
     out["fit_plain_softmax"] = _fit_summary(_model(df, (2, 2), 0.2, fused_softmax_chunk=None))
+    out["fit_shared_remat"] = _fit_summary(_model(df, (2, 2), 0.2, **SHARED_REMAT))
     return out
 
 
@@ -268,6 +272,7 @@ def single_process():
         "dropout": _fit_summary(_model(df, None, 0.2)),
         "sampled_softmax": _fit_summary(_model(df, None, 0.2, loss="sampled_softmax")),
         "plain_softmax": _fit_summary(_model(df, None, 0.2, fused_softmax_chunk=None)),
+        "shared_remat": _fit_summary(_model(df, None, 0.2, **SHARED_REMAT)),
     }
 
 
@@ -390,10 +395,12 @@ def test_mesh_fit_with_dropout_matches_single_process(four_ranks, single_process
             assert np.abs(value - expected["params"][name]).max() <= tol, name
 
 
-@pytest.mark.parametrize("loss", ["sampled_softmax", "plain_softmax"])
+@pytest.mark.parametrize("loss", ["sampled_softmax", "plain_softmax", "shared_remat"])
 def test_mesh_fit_of_unfused_losses_matches_single_process(four_ranks, single_process, loss: str) -> None:
-    """Device-drawn negatives (a rank draws its rows of the global draw) and
-    the plain full-catalog softmax under a mesh."""
+    """Device-drawn negatives (a rank draws its rows of the global draw), the
+    plain full-catalog softmax, and shared negatives (a rank draws its rows of
+    the global (B, K) set) with remat (the recompute gathers the column-sharded
+    table again) under a mesh."""
     for result in four_ranks:
         np.testing.assert_allclose(result[f"fit_{loss}"]["train"], single_process[loss]["train"], rtol=1e-5)
         np.testing.assert_allclose(result[f"fit_{loss}"]["val"], single_process[loss]["val"], rtol=1e-5)

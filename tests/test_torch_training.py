@@ -19,21 +19,26 @@ import torch
 from rectools_tpu.dataset import Dataset as JaxDataset
 from rectools_tpu.models.nn.transformers import SASRecModel as JaxSASRecModel
 from rectools_tpu.models.nn.transformers import sasrec as jax_sasrec
+from rectools_tpu.models.nn.transformers import similarity as jax_similarity
 from rectools_tpu.models.nn.transformers.negative_sampler import CatalogUniformSampler as JaxSampler
 from rectools_tpu.models.nn.transformers.training import pad_batch as jax_pad_batch
 from rectools_tpu_torch import Columns
 from rectools_tpu_torch.dataset import Dataset
-from rectools_tpu_torch.models import SASRecModel
+from rectools_tpu_torch.models import HSTUModel, SASRecModel
 from rectools_tpu_torch.models.nn.transformers import (
     BestStateKeeper,
+    DistanceSimilarityModule,
     EarlyStopping,
+    LiGRLayers,
     SASRecDataPreparator,
+    SimilarityModuleBase,
     TrainingCallback,
     flax_params_to_state_dict,
     state_dict_to_flax_params,
 )
 from rectools_tpu_torch.models.nn.transformers.negative_sampler import CatalogUniformSampler
 from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+from rectools_tpu_torch.ops import layer_norm as layer_norm_op
 from rectools_tpu_torch.ops import softmax_lse
 
 CONFIG = dict(n_blocks=2, n_heads=2, n_factors=32, session_max_len=20, batch_size=32, epochs=1, seed=5)
@@ -307,8 +312,6 @@ def test_sampled_losses_fit(loss: str) -> None:
     "kwargs,match",
     [
         ({"mesh_shape": (2, 1)}, "multi-device"),
-        ({"remat": True}, "remat"),
-        ({"negatives_sharing": "batch"}, "shared negatives"),
         ({"compute_dtype": "bfloat16"}, "bf16"),
         ({"steps_per_dispatch": 0}, "steps_per_dispatch"),
     ],
@@ -318,3 +321,109 @@ def test_unported_training_options_raise(kwargs, match: str) -> None:
     error = ValueError if "steps_per_dispatch" in kwargs or "mesh_shape" in kwargs else NotImplementedError
     with pytest.raises(error, match=match):
         _small_model(None, **kwargs).fit(Dataset.construct(_frame()))
+
+
+# ------------------------------------------------------------------ shared negatives and remat
+
+
+class _SubclassedSampler(CatalogUniformSampler):
+    """Any sampler but the default one keeps its negatives on the host."""
+
+
+class _TowerlessSimilarity(DistanceSimilarityModule):
+    """A similarity module that does not override ``catalog_loss_towers``."""
+
+    catalog_loss_towers = SimilarityModuleBase.catalog_loss_towers
+
+
+@pytest.mark.parametrize(
+    "case,match",
+    [
+        ("not_on_device", "negatives_on_device=True"),
+        ("custom_sampler", "device-drawn negatives"),
+        ("towerless_similarity", "catalog_loss_towers"),
+        ("unknown_sharing", "'positionwise' or 'batch'"),
+    ],
+)
+def test_shared_negative_options_raise_as_in_jax(case: str, match: str) -> None:
+    """The JAX package's errors for ``negatives_sharing`` (its
+    test_behaviors.py ``TestSharedNegatives`` and training.py checks), raised
+    by both packages for the same configuration."""
+    kwargs = {"negatives_sharing": "nope" if case == "unknown_sharing" else "batch"}
+    model_kwargs: dict = {}
+    if case == "not_on_device":
+        kwargs["negatives_on_device"] = False
+    if case == "custom_sampler":
+        model_kwargs["negative_sampler_type"] = _SubclassedSampler
+    if case == "towerless_similarity":
+        model_kwargs["similarity_module_type"] = _TowerlessSimilarity
+        jax_kwargs = {"similarity_module_type": type("JaxTowerless", (jax_similarity.DistanceSimilarityModule,), {
+            "catalog_loss_towers": jax_similarity.SimilarityModuleBase.catalog_loss_towers})}
+    else:
+        jax_kwargs = {"negative_sampler_type": type("JaxSub", (JaxSampler,), {})} if case == "custom_sampler" else {}
+    config = dict(n_blocks=1, n_heads=2, n_factors=16, session_max_len=10, batch_size=64, epochs=1,
+                  loss="sampled_softmax", n_negatives=4, training_module_kwargs=kwargs)
+    with pytest.raises(ValueError, match=match):
+        JaxSASRecModel(**config, **jax_kwargs).fit(JaxDataset.construct(_frame()))
+    with pytest.raises(ValueError, match=match):
+        SASRecModel(**config, **model_kwargs, device="cpu").fit(Dataset.construct(_frame()))
+
+
+FAMILIES = {
+    "sasrec": (SASRecModel, {}),
+    "ligr": (SASRecModel, {"transformer_layers_type": LiGRLayers}),
+    "hstu": (HSTUModel, {}),
+}
+ROUTES = {
+    "fused_softmax": ({"loss": "softmax"}, {"fused_softmax_chunk": 64}),
+    "positionwise": ({"loss": "sampled_softmax", "n_negatives": 8}, {}),
+    "shared": ({"loss": "sampled_softmax", "n_negatives": 8}, {"negatives_sharing": "batch"}),
+}
+
+
+@pytest.fixture
+def one_thread():
+    """One CPU thread: torch's threaded scatter-add on the CPU (the backward of
+    the candidates' embedding gather) sums duplicate rows in a thread-dependent
+    order, so two runs of one fit part by rounding, which Adam turns into moves
+    of up to lr on the key-projection biases. With one thread a fit gives the
+    same bits on every run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_remat_matches_plain_training(family: str, route: str, monkeypatch: pytest.MonkeyPatch, one_thread) -> None:
+    """``remat=True`` recomputes the forward in the backward (the LayerNorm
+    forward runs more often in training) and, at dropout 0.2, follows the
+    plain fit: the recompute draws the forward's dropout salts, so losses,
+    validation losses and parameters after an epoch agree within 1e-6 (the
+    JAX package's test_transformers.py ``test_remat_matches_plain_training``
+    and ``test_remat_with_fused_softmax_chunking``)."""
+    model_cls, family_kwargs = FAMILIES[family]
+    loss_kwargs, training_kwargs = ROUTES[route]
+    dataset = Dataset.construct(_frame())
+    calls = {"ln": 0}
+    twin = layer_norm_op.layer_norm_reference
+    monkeypatch.setattr(layer_norm_op, "layer_norm_reference", lambda *a: calls.__setitem__("ln", calls["ln"] + 1)
+                        or twin(*a))
+    runs = {}
+    for remat in (False, True):
+        calls["ln"] = 0
+        model = model_cls(**CONFIG, **family_kwargs, **loss_kwargs, dropout_rate=0.2, get_val_mask_func=leave_last_out,
+                          training_module_kwargs={**training_kwargs, "remat": remat}, device="cpu")
+        model.fit(dataset)
+        runs[remat] = (model, calls["ln"])
+    (plain, plain_ln), (remat, remat_ln) = runs[False], runs[True]
+    tm, plain_tm = remat.training_module, plain.training_module
+    assert tm._use_fused_softmax == (route == "fused_softmax") and tm._shares_negatives == (route == "shared")
+    assert remat_ln > plain_ln > 0  # the recompute ran the encoder's LayerNorms again
+    np.testing.assert_allclose(tm.train_loss_history, plain_tm.train_loss_history, rtol=1e-6)
+    np.testing.assert_allclose(tm.val_loss_history, plain_tm.val_loss_history, rtol=1e-6)
+    plain_state = plain.backbone.state_dict()
+    for name, value in remat.backbone.state_dict().items():
+        assert (value - plain_state[name]).abs().max().item() <= 1e-6, name
+
