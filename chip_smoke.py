@@ -2203,7 +2203,9 @@ def family_kernel_phase(torch, dev, reports: dict, b: int = TRAIN_B) -> dict:
     def loss_case(m_: int, n_: int, d_: int, label_share: float, first_item: int, tag: str) -> None:
         """Kernel 6 and the CE gradients' route at (m_, n_, d_) against the
         twins in the card's order: the tensor-core limits at d <= 128, the SIMT
-        ones at 256; timed beside the twins and the library calls."""
+        ones at 256; timed beside the twins and the library calls. The bound is
+        the card's least time for these f32 products whatever tile runs them:
+        3xTF32 on the tensor cores, with the FP32 bound beside it."""
         tensor_cores = d_ <= 128
         s = torch.randn((m_, d_), generator=gen, device=dev)
         items = (0.1 if tensor_cores else 0.05) * torch.randn((n_, d_), generator=gen, device=dev)
@@ -2214,14 +2216,13 @@ def family_kernel_phase(torch, dev, reports: dict, b: int = TRAIN_B) -> dict:
         check(rel <= lse_limit and bool(torch.equal(softmax_lse.streaming_lse(s, items), lse)),
               f"lse_partials_fwd {tag}: {rel} relative per row from its twin (limit {lse_limit}), or other bits")
         products = 2 * m_ * n_ * d_
-        bounds = tc_bounds if tensor_cores else lambda n_bytes, n_ops: {"bound": bound_ms(n_bytes, n_ops)}
         chunks = -(-n_ // softmax_lse.LSE_CHUNK)
         results[f"lse_partials_fwd_{tag}"] = dict(
             max_abs_err=(lse - ref).abs().max().item(),
             ms=time_ms(lambda: softmax_lse.streaming_lse(s, items), iters=3),
             plain_ms=time_ms(lambda: softmax_lse.streaming_lse_partials_reference(s, items), iters=3),
             library_ms=time_ms(lambda: torch.logsumexp(s @ items.T, dim=1), iters=3),
-            **bounds((m_ * d_ + n_ * d_ + 2 * m_ * chunks) * 4, products),
+            **tc_bounds((m_ * d_ + n_ * d_ + 2 * m_ * chunks) * 4, products),
         )
         labelled = torch.rand((m_,), generator=gen, device=dev) < label_share
         y = torch.where(labelled, torch.randint(first_item, n_, (m_,), generator=gen, device=dev), 0)
@@ -2250,7 +2251,7 @@ def family_kernel_phase(torch, dev, reports: dict, b: int = TRAIN_B) -> dict:
             plain_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z_reference(s, items, z, y, coeff,
                                                                                   partials=fused), iters=1),
             library_ms=time_ms(lambda: torch.autograd.grad(ce_lib, (sg, ig), retain_graph=True), iters=3),
-            **bounds((2 * m_ * d_ + 2 * n_ * d_ + 3 * m_) * 4, 3 * products),
+            **tc_bounds((2 * m_ * d_ + 2 * n_ * d_ + 3 * m_) * 4, 3 * products),
         )
         print(f"family kernels: {tag} loss at {m_} x {n_} x {d_} ({'3xTF32' if tensor_cores else 'SIMT'} tile, "
               f"{labelled.float().mean().item():.3f} of the rows labelled): lse "
@@ -2391,7 +2392,6 @@ def remat_fit_phase(torch, np, pd, port, dev) -> dict:
     from rectools_tpu_torch.models import SASRecModel
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
     from rectools_tpu_torch.models.nn.transformers.training import pad_batch
-    from rectools_tpu_torch.ops import softmax_lse
 
     t0 = time.perf_counter()
     n_items = REMAT_SHAPE["n_item_ids"] + 1
@@ -2399,13 +2399,8 @@ def remat_fit_phase(torch, np, pd, port, dev) -> dict:
     print(f"remat fit: frame of {dataset.user_id_map.size} users over {REMAT_SHAPE['n_item_ids']} item ids built in "
           f"{time.perf_counter() - t0:.1f} s")
     d, l = REMAT_SHAPE["d"], REMAT_SHAPE["l"]
-    m = TRAIN_B * l
-    if softmax_lse.ce_takes_split_route(m, n_items, d):
-        loss_keys = ("lse_partials_fwd", "grads_z_ds", "grads_z_di")
-    elif softmax_lse._fused_on_the_card(m, n_items, d):
-        loss_keys = ("lse_partials_fwd", "ce_grads_fused")
-    else:
-        loss_keys = ("lse_partials_fwd", "ce_grads_ds", "ce_grads_di")
+    # at 102,400 x 20,480 x 256 the CE gradients take the split route (kernels 13 and 14)
+    loss_keys = ("lse_partials_fwd", "grads_z_ds", "grads_z_di")
     config = dict(n_blocks=N_BLOCKS, n_heads=REMAT_SHAPE["heads"], n_factors=d, session_max_len=l,
                   dropout_rate=DROPOUT, batch_size=TRAIN_B, lr=LR, loss="softmax", seed=SEED, epochs=1,
                   item_net_block_types=(IdEmbeddingsItemNet,))

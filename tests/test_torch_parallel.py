@@ -171,6 +171,7 @@ def four_rank_worker(rank: int, payload: tp.Dict[str, tp.Any]) -> tp.Dict[str, t
     out["fit_sampled_softmax"] = _fit_summary(_model(df, (2, 2), 0.2, loss="sampled_softmax"))
     out["fit_plain_softmax"] = _fit_summary(_model(df, (2, 2), 0.2, fused_softmax_chunk=None))
     out["fit_shared_remat"] = _fit_summary(_model(df, (2, 2), 0.2, **SHARED_REMAT))
+    out["fit_fused_remat"] = _fit_summary(_model(df, (2, 2), 0.2, remat=True))
     return out
 
 
@@ -273,6 +274,7 @@ def single_process():
         "sampled_softmax": _fit_summary(_model(df, None, 0.2, loss="sampled_softmax")),
         "plain_softmax": _fit_summary(_model(df, None, 0.2, fused_softmax_chunk=None)),
         "shared_remat": _fit_summary(_model(df, None, 0.2, **SHARED_REMAT)),
+        "fused_remat": _fit_summary(_model(df, None, 0.2, remat=True)),
     }
 
 
@@ -386,6 +388,22 @@ def test_mesh_fit_with_dropout_matches_single_process(four_ranks, single_process
     expected = single_process["dropout"]
     for result in four_ranks:
         fit = result[f"fit_dropout_{shape}"]
+        assert fit["steps"] == expected["steps"]
+        np.testing.assert_allclose(fit["train"], expected["train"], rtol=1e-5)
+        np.testing.assert_allclose(fit["val"], expected["val"], rtol=1e-5)
+        np.testing.assert_allclose(fit["recall"]["val_recall@5"], expected["recall"]["val_recall@5"])
+        for name, value in fit["params"].items():
+            tol = fit["steps"] * LR if is_key_projection_bias(name) else 1e-4
+            assert np.abs(value - expected["params"][name]).max() <= tol, name
+
+
+def test_mesh_fused_softmax_remat_fit_matches_single_process(four_ranks, single_process) -> None:
+    """The full-catalog fused softmax with remat under a (2, 2) mesh: the
+    recompute runs the column-sharded catalog's collectives again inside the
+    checkpoint, and the fit stays the single-process remat fit's."""
+    expected = single_process["fused_remat"]
+    for result in four_ranks:
+        fit = result["fit_fused_remat"]
         assert fit["steps"] == expected["steps"]
         np.testing.assert_allclose(fit["train"], expected["train"], rtol=1e-5)
         np.testing.assert_allclose(fit["val"], expected["val"], rtol=1e-5)
