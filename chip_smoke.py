@@ -5,8 +5,11 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, each on its
 own lines; any failure exits nonzero and prints no result:
 
 1. device  — require CUDA, print the card's name and power limit, TF32 off.
-2. build   — compile every CUDA kernel of the port from csrc/ (one nvcc per
-             source, all at once) and print the seconds.
+2. build   — build and load the native host ops (native/hostops.cpp, g++
+             -O3 -fopenmp into build/hostops/; the run fails if they do not
+             load: their numpy fallback must not hide here), then compile
+             every CUDA kernel of the port from csrc/ (one nvcc per source, all
+             at once) and print the seconds.
 3. kernels — each serving kernel at the shapes the serving path gives it
              (B = 4096 sessions, L = 100, d = 128, 4 heads, 15,872-column
              catalog): held against its plain PyTorch twin on the same inputs
@@ -55,7 +58,10 @@ own lines; any failure exits nonzero and prints no result:
              the path, the output (k unseen items per user, scores
              non-increasing) and agreement with the port's own CPU run on 64
              users; times warm calls and profiles one (device time by kernel,
-             device busy share, host functions).
+             device busy share, host functions), then (SASRec and HSTU) warm
+             calls with the native host ops and with their numpy versions
+             forced, in turns, with the host seconds of the collates and the
+             seen lists in each.
 5. train   — SASRecModel(...).fit on the same frame at the training width
              (batch 512, full-catalog softmax through the fused CE, Adam) for
              2 epochs with about 1,024 users held out for validation
@@ -63,7 +69,8 @@ own lines; any failure exits nonzero and prints no result:
              kernel, finite losses that fall from epoch 1 to epoch 2, finite
              validation loss and recall, and recommend for 1,024 users; prints
              train examples/s over epoch 2, peak device memory and one profiled
-             step.
+             step, and (SASRec and HSTU) one epoch of the train loader's
+             collate with the native host ops and with their numpy versions.
 6. agree   — 3 train steps with dropout 0.2 on the same 64 sessions at full
              width, on the card and on the port's CPU twins from the same
              start weights and dropout seed: losses within 1e-4 relative,
@@ -155,10 +162,32 @@ own lines; any failure exits nonzero and prints no result:
              from the seed: launch counts, equal loss and parameters, peak
              memory and epoch wall of each, and one step of each in turns.
 
+11. checkpoint — after the HSTU phases, the SASRec and the HSTU model that
+             phases 5 and 7 fitted: ``save_checkpoint`` -> ``load_from_checkpoint``
+             -> recommend for all 8,192 users, bit-equal items and scores and
+             the serving launches; ``load_weights_from_checkpoint`` into a
+             model fitted from another seed and ``load_model`` of
+             ``model.save``, both bit-equal; ``load_from_checkpoint(...,
+             model_params_update={"device": "cpu"})`` against the card on 64
+             users (SCORE_RTOL / SCORE_ATOL). Prints the checkpoint's size and
+             the save and load seconds.
+12. evaluate — ``cross_validate`` of SASRec at the training width (1 epoch a
+             fold) with ``TimeRangeSplitter("1D", n_splits=2)`` (the frame's
+             last two days), k = 10, ``filter_viewed=True``, scoring Precision,
+             Recall, NDCG, MAP, MRR, Serendipity, MeanInvUserFreq,
+             AvgRecPopularity, CatalogCoverage, IntraListDiversity (over a
+             random 4-column item-feature table) and SufficientReco; each
+             fold's metrics equal to the same folds by hand (split -> fit ->
+             recommend -> calc_metrics), whose fits and recommends each
+             launch what ``expected_fit_launches`` and the serving counts say;
+             cross_validate's launches are their sum. Prints the metrics and
+             the phase's wall time.
+
 Output, last lines: one JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
+import contextlib
 import json
 import math
 import subprocess
@@ -1377,6 +1406,54 @@ def expected_fit_launches(port, family: str, steps: int, forwards: int, loss_key
     return expected
 
 
+# the call sites of the native host ops (rectools_tpu_torch/native), and the collates around them
+HOST_OP_FUNCTIONS = ("scatter_left_padded", "_csr_rows_to_padded_idx", "_collate_fn_train", "_collate_fn_recommend")
+HOST_OP_TURNS = 3
+
+
+def host_op_seconds(fn) -> dict:
+    """Host seconds (cProfile, cumulative) of each function of
+    HOST_OP_FUNCTIONS inside one call of ``fn``; a collate's seconds include
+    the scatters it calls."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    out = {name: 0.0 for name in HOST_OP_FUNCTIONS}
+    for (path, _, name), (_, _, _, cumulative, _) in pstats.Stats(prof).stats.items():
+        if name in out and "rectools_tpu_torch" in path:
+            out[name] += cumulative
+    return out
+
+
+def host_op_turns(np, fn, tag: str, what: str) -> dict:
+    """``fn`` with the native host ops and with their numpy versions forced
+    (``native.disabled()``), HOST_OP_TURNS walls of each in turns and one
+    profiled call of each, in this one run."""
+    from rectools_tpu_torch import native
+
+    paths = {"native": contextlib.nullcontext, "numpy": native.disabled}
+    walls = {path: [] for path in paths}
+    for _ in range(HOST_OP_TURNS):
+        for path, context in paths.items():
+            with context():
+                t0 = time.perf_counter()
+                fn()
+                walls[path].append(time.perf_counter() - t0)
+    out = {}
+    for path, context in paths.items():
+        with context():
+            seconds = host_op_seconds(fn)
+        out[path] = {"wall_s": float(np.median(walls[path])), "wall_samples_s": walls[path], "host_s": seconds}
+        print(f"{tag}: host ops {path:6s}: {what} wall median {out[path]['wall_s']:.4f} s of "
+              f"{[round(t, 4) for t in walls[path]]}; host seconds (cProfile) "
+              + ", ".join(f"{name} {sec:.4f}" for name, sec in seconds.items()))
+    return out
+
+
 def main_phase(torch, np, port, df, dataset, dev, family: str = "sasrec", model=None) -> dict:
     """The serving path of a family's model (HSTU with a recommend context):
     random flax-layout weights from the seed, or the weights of a ``model``
@@ -1443,6 +1520,10 @@ def main_phase(torch, np, port, df, dataset, dev, family: str = "sasrec", model=
           f"{len(users) / warm_s:.0f} users/s, peak device memory {peak_mb:.0f} MiB")
 
     profile = profile_phase(torch, lambda: model.recommend(users, dataset, k=K, filter_viewed=True, **extra))
+    host_ops = {}
+    if family in ("sasrec", "hstu"):  # the serving call with the native host ops and with their numpy versions
+        host_ops = host_op_turns(np, lambda: model.recommend(users, dataset, k=K, filter_viewed=True, **extra),
+                                 tag, f"recommend {len(users)} users")
 
     if hstu:
         # the card's integer time buckets against the CPU's, on the first recommend batch of the frame
@@ -1472,7 +1553,7 @@ def main_phase(torch, np, port, df, dataset, dev, family: str = "sasrec", model=
     n_cmp = compare_reco(np, got, ref, K)
     print(f"{tag}: {n_cmp} users agree with the CPU run (score rtol {SCORE_RTOL}, atol {SCORE_ATOL})")
     return {"launches": launches, "first_s": first_s, "warm_s": warm_s, "warm_samples_s": times,
-            "users_per_s": len(users) / warm_s, "peak_device_mib": peak_mb, **profile}
+            "users_per_s": len(users) / warm_s, "peak_device_mib": peak_mb, "host_ops": host_ops, **profile}
 
 
 # ---------------------------------------------------------------- phases 5 and 6
@@ -1588,9 +1669,15 @@ def train_phase(torch, np, port, df, dataset, dev, family: str = "sasrec") -> di
     batch = tm._device_batch(pad_batch(next(iter(loader)), TRAIN_B))
     print(f"{tag}: profile of one train step")
     profile = profile_phase(torch, lambda: tm._train_step(batch))
+    host_ops = {}
+    if family in ("sasrec", "hstu"):  # one epoch of the train collate, host only, native and numpy
+        host_ops = host_op_turns(
+            np, lambda: list(model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))), tag,
+            f"the train loader's {steps_per_epoch} batches")
     return {"launches": launches, "steps": steps, "train_loss": losses, "val_loss": val_losses,
             f"val_recall@{K}": recall, "fit_s": fit_s, "epoch2_s": epoch2_s, "train_examples_per_s": examples_per_s,
-            "peak_device_mib": peak_mb, "model": model, **{f"step_{k}": v for k, v in profile.items()}}
+            "peak_device_mib": peak_mb, "host_ops": host_ops, "model": model,
+            **{f"step_{k}": v for k, v in profile.items()}}
 
 
 def agreement_phase(torch, np, dataset, dev, family: str = "sasrec", **training_module_kwargs) -> dict:
@@ -1665,6 +1752,194 @@ def agreement_phase(torch, np, dataset, dev, family: str = "sasrec", **training_
     return {"loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_err, "key_bias_max_abs_diff": key_bias_err,
             "grad_max_abs_diff": grad_abs, "grad_max_rel_diff": grad_rel, "worst_param": worst,
             "worst_entry_grads": at_worst}
+
+# ---------------------------------------------------------------- phases 11 and 12: checkpoints and evaluation
+
+
+def serving_launches(port, family: str, n_batches: int) -> dict:
+    """Every launch count of a recommend that encodes ``n_batches`` batches."""
+    expected = {name: 0 for name in port.LAUNCHES}
+    expected.update({key: n * n_batches for key, n in forward_launches(family).items()}, group_topm=n_batches)
+    return expected
+
+
+def _same_reco(got, ref) -> bool:
+    """The same rows, items and scores, bit for bit."""
+    return bool(got.reset_index(drop=True).equals(ref.reset_index(drop=True)))
+
+
+def checkpoint_phase(torch, np, pd, port, dataset, dev, model, family: str = "sasrec") -> dict:
+    """A model fitted by ``train_phase`` through its checkpoints:
+    ``save_checkpoint`` -> ``load_from_checkpoint`` -> recommend for all users
+    (bit-equal to the fitted model; its launches counted),
+    ``load_weights_from_checkpoint`` into a second model fitted from another
+    seed, ``load_model`` of ``model.save``, and a CPU copy through
+    ``model_params_update={"device": "cpu"}`` against the card on 64 users."""
+    import io
+
+    from rectools_tpu_torch.models import load_model
+    from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+
+    tag = f"{FAMILY_TAGS[family]}checkpoint"
+    extra = {"context": later_context(np, pd, dataset)} if family == "hstu" else {}
+    users = dataset.user_id_map.external_ids
+    # the fit's callbacks factory is a closure over this run's epoch clock, which no config can name
+    model.get_callbacks_func = None
+    ref = model.recommend(users, dataset, k=K, filter_viewed=True, **extra)
+
+    buf = io.BytesIO()
+    t0 = time.perf_counter()
+    size = model.save_checkpoint(buf)
+    save_s = time.perf_counter() - t0
+    buf.seek(0)
+    t0 = time.perf_counter()
+    loaded = type(model).load_from_checkpoint(buf)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(next(loaded.backbone.parameters()).device.type == torch.device(dev).type, "the loaded model left the card")
+    port.reset_launches()
+    got = loaded.recommend(users, dataset, k=K, filter_viewed=True, **extra)
+    launches = dict(port.LAUNCHES)
+    n_batches = math.ceil(len(users) / loaded._effective_recommend_batch_size())
+    expected = serving_launches(port, family, n_batches)
+    check(launches == expected, f"launches of the loaded model's recommend {launches}, expected {expected}")
+    check(_same_reco(got, ref), "the model loaded from its checkpoint recommends other items or scores")
+    print(f"{tag}: checkpoint of {size / 2**20:.2f} MiB, save_checkpoint {save_s:.3f} s, load_from_checkpoint "
+          f"{load_s:.3f} s; recommend for {len(users)} users bit-equal to the fitted model's; launches {launches}")
+
+    second = family_model(
+        family, **{**TRAIN_CONFIG, "seed": SEED + 7}, epochs=1, item_net_block_types=(IdEmbeddingsItemNet,),
+        get_val_mask_func=hold_out_last, device=dev,
+    ).fit(dataset)
+    check(not _same_reco(second.recommend(users, dataset, k=K, filter_viewed=True, **extra), ref),
+          "the second model already recommends as the first")
+    buf.seek(0)
+    t0 = time.perf_counter()
+    second.load_weights_from_checkpoint(buf)
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    check(_same_reco(second.recommend(users, dataset, k=K, filter_viewed=True, **extra), ref),
+          "load_weights_from_checkpoint did not give the fitted model's recommendations")
+    check(second.training_module.global_step == model.training_module.global_step, "the step count was not loaded")
+
+    saved = io.BytesIO()
+    model.save(saved)
+    saved.seek(0)
+    check(_same_reco(load_model(saved).recommend(users, dataset, k=K, filter_viewed=True, **extra), ref),
+          "load_model of model.save does not recommend as the fitted model")
+    print(f"{tag}: load_weights_from_checkpoint into a model fitted from seed {SEED + 7} in {weights_s:.3f} s, "
+          f"and load_model of model.save: recommend bit-equal to the fitted model's")
+
+    buf.seek(0)
+    t0 = time.perf_counter()
+    cpu = type(model).load_from_checkpoint(buf, model_params_update={"device": "cpu"})
+    cpu_load_s = time.perf_counter() - t0
+    check(next(cpu.backbone.parameters()).device.type == "cpu", "the CPU copy is not on the CPU")
+    sample = users[:64]
+    n_cmp = compare_reco(np, model.recommend(sample, dataset, k=K, filter_viewed=True, **extra),
+                         cpu.recommend(sample, dataset, k=K + 1, filter_viewed=True, **extra), K)
+    print(f"{tag}: the CPU copy (model_params_update device cpu, loaded in {cpu_load_s:.3f} s) agrees with the card "
+          f"on {n_cmp} users (score rtol {SCORE_RTOL}, atol {SCORE_ATOL})")
+    return {"launches": launches, "checkpoint_bytes": size, "save_s": save_s, "load_s": load_s,
+            "load_weights_s": weights_s, "cpu_load_s": cpu_load_s, "cpu_users_compared": n_cmp}
+
+
+EVAL_FOLDS = 2  # 1-day test windows at the end of the frame
+EVAL_FEATURES = 4
+
+
+def evaluation_metrics(np, pd, n_item_ids: int = N_ITEM_IDS) -> dict:
+    """The quickstart's metrics at k = K; IntraListDiversity over a random
+    (n_item_ids, EVAL_FEATURES) categorical feature table from the seed."""
+    from rectools_tpu_torch import metrics as m
+
+    features = pd.DataFrame(np.random.default_rng(SEED + 5).integers(0, 4, size=(n_item_ids, EVAL_FEATURES)),
+                            index=np.arange(n_item_ids), columns=[f"feature_{i}" for i in range(EVAL_FEATURES)])
+    return {
+        f"precision@{K}": m.Precision(k=K), f"recall@{K}": m.Recall(k=K), f"ndcg@{K}": m.NDCG(k=K),
+        f"map@{K}": m.MAP(k=K), f"mrr@{K}": m.MRR(k=K), f"serendipity@{K}": m.Serendipity(k=K),
+        f"miuf@{K}": m.MeanInvUserFreq(k=K), f"arp@{K}": m.AvgRecPopularity(k=K),
+        f"coverage@{K}": m.CatalogCoverage(k=K),
+        f"ild@{K}": m.IntraListDiversity(k=K, distance_calculator=m.PairwiseHammingDistanceCalculator(features)),
+        f"sufficient@{K}": m.SufficientReco(k=K),
+    }
+
+
+def evaluate_phase(torch, np, pd, port, dataset, dev) -> dict:
+    """``cross_validate`` of SASRec at the training width (1 epoch a fold)
+    over the last EVAL_FOLDS days of the frame, held against the same folds
+    by hand: split -> fit -> recommend -> calc_metrics."""
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.metrics import calc_metrics
+    from rectools_tpu_torch.model_selection import TimeRangeSplitter, cross_validate
+    from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+
+    metrics = evaluation_metrics(np, pd)
+    config = {**TRAIN_CONFIG, "epochs": 1, "item_net_block_types": (IdEmbeddingsItemNet,), "device": dev}
+    splitter = TimeRangeSplitter("1D", n_splits=EVAL_FOLDS)
+
+    port.reset_launches()
+    t0 = time.perf_counter()
+    cv = cross_validate(dataset, splitter, metrics, {"sasrec": family_model("sasrec", **config)}, k=K,
+                        filter_viewed=True)
+    wall_s = time.perf_counter() - t0
+    launches = dict(port.LAUNCHES)
+
+    expected = {name: 0 for name in port.LAUNCHES}
+    by_hand, folds = [], []
+    t0 = time.perf_counter()
+    for train_rows, test_rows, info in splitter.split(dataset.interactions, collect_fold_stats=True):
+        train = dataset.filter_interactions(train_rows, keep_external_ids=True)
+        test = dataset.interactions.df.loc[test_rows].copy()
+        test[Columns.User] = dataset.user_id_map.convert_to_external(test[Columns.User])
+        test[Columns.Item] = dataset.item_id_map.convert_to_external(test[Columns.Item])
+        history = train.get_raw_interactions()
+        model = family_model("sasrec", **config)
+        port.reset_launches()
+        model.fit(train)
+        fit_launches = dict(port.LAUNCHES)
+        steps = model.training_module.global_step
+        fit_expected = expected_fit_launches(port, "sasrec", steps, steps)
+        check(fit_launches == fit_expected, f"evaluate: fold {info['i_split']} fit launches {fit_launches}, "
+              f"expected {fit_expected}")
+        users = test[Columns.User].unique()
+        n_encoded = model.data_preparator.transform_dataset_u2i(train, users).user_id_map.size
+        port.reset_launches()
+        reco = model.recommend(users, train, k=K, filter_viewed=True)
+        reco_launches = dict(port.LAUNCHES)
+        reco_expected = serving_launches(port, "sasrec", math.ceil(n_encoded / model._effective_recommend_batch_size()))
+        check(reco_launches == reco_expected, f"evaluate: fold {info['i_split']} recommend launches {reco_launches}, "
+              f"expected {reco_expected}")
+        for key in expected:
+            expected[key] += fit_launches[key] + reco_launches[key]
+        values = calc_metrics(metrics, reco, test, history, history[Columns.Item].unique())
+        by_hand.append({"model": "sasrec", "i_split": info["i_split"], **values})
+        folds.append({"i_split": info["i_split"], "start": str(info["start"]), "end": str(info["end"]),
+                      "train_interactions": len(train_rows), "test_interactions": len(test_rows),
+                      "target_users": len(users), "train_steps": steps})
+    by_hand_s = time.perf_counter() - t0
+
+    check(launches == expected, f"launches in cross_validate {launches}, expected {expected} (the loop by hand)")
+    ran = ("layer_norm_fwd", "attention_fwd", "group_topm", "layer_norm_bwd", "attention_bwd", "lse_partials_fwd",
+           "ce_grads_fused")
+    check(all(launches[key] > 0 for key in ran), f"a kernel of 1-7 was not launched; launches {launches}")
+    check(len(cv["metrics"]) == len(by_hand) == EVAL_FOLDS, f"{len(cv['metrics'])} folds scored")
+    worst = 0.0
+    for row, ref in zip(cv["metrics"], by_hand):
+        check(row.keys() == ref.keys(), f"metrics {sorted(row)} vs {sorted(ref)}")
+        worst = max([worst] + [abs(row[k] - ref[k]) for k in metrics])
+        check(row == ref, f"fold {ref['i_split']}: cross_validate {row} differs from the loop by hand {ref}")
+        check(all(math.isfinite(row[k]) for k in metrics), f"fold {ref['i_split']}: non-finite metric {row}")
+        check(0 < row[f"recall@{K}"] <= 1 and row[f"sufficient@{K}"] > 0, f"fold {ref['i_split']}: {row}")
+    for fold, row in zip(folds, cv["metrics"]):
+        print(f"evaluate: fold {fold['i_split']} [{fold['start']}, {fold['end']}): {fold['train_interactions']} train "
+              f"/ {fold['test_interactions']} test interactions, {fold['target_users']} users, "
+              f"{fold['train_steps']} steps; " + ", ".join(f"{k} {row[k]:.6g}" for k in metrics))
+    print(f"evaluate: cross_validate of SASRec over {EVAL_FOLDS} folds with {len(metrics)} metrics in {wall_s:.2f} s "
+          f"(the loop by hand {by_hand_s:.2f} s); every metric equal to the loop by hand (max abs diff {worst:.3g}); "
+          f"launches {launches}")
+    return {"launches": launches, "wall_s": wall_s, "by_hand_s": by_hand_s, "folds": folds, "metrics": cv["metrics"]}
+
 
 # ---------------------------------------------------------------- phase 9, the other doors of the streaming lse
 
@@ -2476,7 +2751,14 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; nvidia-smi: {card}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # phase 2: build
+    # phase 2: build (the CUDA kernels and the native host ops; the host ops' numpy fallback must not hide here)
+    from rectools_tpu_torch import native
+
+    t0 = time.perf_counter()
+    host_lib = native.lib()
+    check(host_lib is not None, f"the native host ops did not build or load ({native.so_path()})")
+    print(f"build: native host ops {native.so_path().relative_to(repo)} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s (g++ {' '.join(native.GXX_FLAGS)})")
     t0 = time.perf_counter()
     reports = port.build()
     print(f"build: {len(reports)} sources compiled in {time.perf_counter() - t0:.1f} s")
@@ -2504,14 +2786,21 @@ def main() -> int:
     main_result = main_phase(torch, np, port, df, dataset, "cuda")
     # phase 5: the training path
     train_result = train_phase(torch, np, port, df, dataset, "cuda")
-    del train_result["model"]
+    sasrec_fitted = train_result.pop("model")
     # phase 6: card against CPU twins
     agree_result = agreement_phase(torch, np, dataset, "cuda")
     # phase 7: HSTU through the same entry points
     hstu_main_result = main_phase(torch, np, port, df, dataset, "cuda", family="hstu")
     hstu_train_result = train_phase(torch, np, port, df, dataset, "cuda", family="hstu")
-    del hstu_train_result["model"]
+    hstu_fitted = hstu_train_result.pop("model")
     hstu_agree_result = agreement_phase(torch, np, dataset, "cuda", family="hstu")
+    # phase 11: checkpoints of the fitted SASRec and HSTU; phase 12: cross-validation with the metrics
+    for tag in ("checkpoint", "hstu checkpoint", "evaluate"):  # the card beside these phases' numbers
+        print(f"{tag}: on {card}")
+    checkpoint_result = checkpoint_phase(torch, np, pd, port, dataset, "cuda", sasrec_fitted)
+    hstu_checkpoint_result = checkpoint_phase(torch, np, pd, port, dataset, "cuda", hstu_fitted, family="hstu")
+    del sasrec_fitted, hstu_fitted
+    evaluate_result = evaluate_phase(torch, np, pd, port, dataset, "cuda")
     # phase 10: BERT4Rec and eSASRec (shared negatives, remat) through the same entry points, remat at the
     # ML-20M-sized shape
     for tag in ("family kernels", "bert4rec", "esasrec", "remat fit"):  # the card beside these phases' numbers
@@ -2572,7 +2861,9 @@ def main() -> int:
              "bert4rec_fit": bert4rec_train_result,
              "esasrec_fit": {"launches": {key: sum(fit["launches"][key] for fit in esasrec_result["fits"].values())
                                           for key in port.LAUNCHES}},
-             "esasrec_recommend": esasrec_main_result, "remat_fit": remat_result["remat"]}
+             "esasrec_recommend": esasrec_main_result, "remat_fit": remat_result["remat"],
+             "checkpoint_recommend": checkpoint_result, "hstu_checkpoint_recommend": hstu_checkpoint_result,
+             "evaluate": evaluate_result}
 
     def numbers(r: dict) -> dict:
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -2646,6 +2937,9 @@ def main() -> int:
         "esasrec_recommend": {k: v for k, v in esasrec_main_result.items() if k != "launches"},
         "remat_fit": {k: ({kk: vv for kk, vv in v.items() if kk != "launches"} if isinstance(v, dict) else v)
                       for k, v in remat_result.items()},
+        "checkpoint": {k: v for k, v in checkpoint_result.items() if k != "launches"},
+        "hstu_checkpoint": {k: v for k, v in hstu_checkpoint_result.items() if k != "launches"},
+        "evaluate": {k: v for k, v in evaluate_result.items() if k != "launches"},
     }
     print(json.dumps(line))
     print(card)

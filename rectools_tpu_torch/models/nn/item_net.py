@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...dataset.dataset import Dataset, DatasetSchema
+from ...dataset.dataset import Dataset, DatasetSchema, SparseFeaturesSchema
 from ...dataset.features import SparseFeatures
 from ...parallel import collectives
 from ...parallel.mesh import MODEL_AXIS, ProcessMesh
@@ -90,6 +90,14 @@ class ItemNetBase(nn.Module):
         """Construct the block from a Dataset (or return None if unsupported)."""
         raise NotImplementedError()
 
+    @classmethod
+    def from_dataset_schema(
+        cls, dataset_schema: DatasetSchema, *args: tp.Any, **kwargs: tp.Any
+    ) -> tp.Optional["ItemNetBase"]:
+        """Construct the block from a dataset schema (checkpoint restore: the
+        weights are loaded afterwards)."""
+        raise NotImplementedError()
+
 
 class IdEmbeddingsItemNet(ItemNetBase):
     """Id-embedding block (reference item_net.py:236-331)."""
@@ -116,12 +124,21 @@ class IdEmbeddingsItemNet(ItemNetBase):
     ) -> "IdEmbeddingsItemNet":
         return cls(n_items=dataset.item_id_map.size, n_factors=n_factors, dropout_rate=dropout_rate, device=device)
 
+    @classmethod
+    def from_dataset_schema(
+        cls, dataset_schema: DatasetSchema, n_factors: int, dropout_rate: float,
+        device: tp.Optional[torch.device] = None, **kwargs: tp.Any,
+    ) -> "IdEmbeddingsItemNet":
+        return cls(n_items=dataset_schema.items.n_hot, n_factors=n_factors, dropout_rate=dropout_rate, device=device)
+
 
 class CatFeaturesItemNet(ItemNetBase):
     """Categorical-features block: sum of ``cat_emb`` rows over each item's
     feature values (reference item_net.py:60-233). ``feature_rows`` /
     ``feature_cols`` are the COO coordinates of the item categorical-feature
-    CSR, kept as non-persistent buffers (they come from the dataset)."""
+    CSR, kept as buffers outside the ``state_dict`` (they come from the
+    dataset); a checkpoint carries them beside the weights
+    (``TransformerModelBase._checkpoint_dict``)."""
 
     table_name = "cat_emb"
 
@@ -192,6 +209,28 @@ class CatFeaturesItemNet(ItemNetBase):
             )
         return None
 
+    @classmethod
+    def from_dataset_schema(
+        cls, dataset_schema: DatasetSchema, n_factors: int, dropout_rate: float,
+        device: tp.Optional[torch.device] = None, **kwargs: tp.Any,
+    ) -> tp.Optional["CatFeaturesItemNet"]:
+        """Placeholder coordinates of the schema's size; a checkpoint restore
+        sets the real ones (reference item_net.py:193-228 does the same)."""
+        cls._warn_for_unsupported_dataset_schema(dataset_schema)
+        features_schema = dataset_schema.items.features
+        if isinstance(features_schema, SparseFeaturesSchema) and len(features_schema.cat_feature_indices) > 0:
+            nnz = features_schema.cat_n_stored_values
+            return cls(
+                n_items=dataset_schema.items.n_hot,
+                n_cat_feature_values=len(features_schema.cat_feature_indices),
+                n_factors=n_factors,
+                dropout_rate=dropout_rate,
+                feature_rows=np.zeros(nnz, dtype=np.int64),
+                feature_cols=np.zeros(nnz, dtype=np.int64),
+                device=device,
+            )
+        return None
+
 
 class ItemNetConstructorBase(ItemNetBase):
     """Aggregates item-net blocks (reference item_net.py:334-451)."""
@@ -217,6 +256,23 @@ class ItemNetConstructorBase(ItemNetBase):
             if block is not None:
                 item_net_blocks.append(block)
         return cls(n_items=dataset.item_id_map.size, item_net_blocks=item_net_blocks)
+
+    @classmethod
+    def from_dataset_schema(
+        cls,
+        dataset_schema: DatasetSchema,
+        n_factors: int,
+        dropout_rate: float,
+        item_net_block_types: tp.Sequence[tp.Type[ItemNetBase]],
+        device: tp.Optional[torch.device] = None,
+        **kwargs: tp.Any,
+    ) -> "ItemNetConstructorBase":
+        item_net_blocks: tp.List[ItemNetBase] = []
+        for block_type in item_net_block_types:
+            block = block_type.from_dataset_schema(dataset_schema, n_factors, dropout_rate, device=device)
+            if block is not None:
+                item_net_blocks.append(block)
+        return cls(n_items=dataset_schema.items.n_hot, item_net_blocks=item_net_blocks)
 
 
 class SumOfEmbeddingsConstructor(ItemNetConstructorBase):

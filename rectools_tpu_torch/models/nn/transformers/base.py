@@ -1,25 +1,39 @@
 """TransformerModelBase: wires preparator, item net, backbone and training
-module from swappable component types; owns fit, fit_partial, recommend and
-weight loading.
+module from swappable component types; owns fit, fit_partial, recommend,
+weight loading and checkpoints.
 
 Port of rectools_tpu/models/nn/transformers/base.py. The config keeps the JAX
 model's hyper-parameters, so a JAX config carries over, plus ``device``.
 Weights trained by the JAX package come in through :meth:`load_jax_params`.
-Checkpoints (``save_checkpoint``, ``load_from_checkpoint``) are not ported yet.
+
+Checkpoints (``save_checkpoint``, ``load_from_checkpoint``,
+``load_weights_from_checkpoint``, ``save`` / ``load_model``, pickling) hold
+the config, the train dataset's schema, the item ids and the training state
+with every tensor on the CPU, so they do not depend on the device: a loaded
+model builds on its config's ``device``, and
+``load_from_checkpoint(path, model_params_update={"device": "cpu"})`` gives a
+CPU copy of a model fitted on the card. A checkpoint file is read without
+building the model it holds (see :func:`_read_checkpoint`), so the update is
+applied before anything is put on a device.
 """
 
+import contextvars
+import pickle
 import typing as tp
 from collections.abc import Callable
 
 import numpy as np
 import pandas as pd
+import torch
 import typing_extensions as tpe
 from pydantic import BeforeValidator, PlainSerializer
 
-from ....dataset.dataset import Dataset
+from ....dataset.dataset import Dataset, DatasetSchema, DatasetSchemaDict
+from ....dataset.identifiers import IdMap
 from ....types import ExternalIds
 from ....utils.device import resolve_device
-from ....utils.misc import get_class_or_function_full_path, import_object
+from ....utils.misc import get_class_or_function_full_path, import_object, make_dict_flat, unflatten_dict
+from ....utils.serialization import FileLike, read_bytes
 from ...base import ErrorBehaviour, InternalRecoTriplet, ModelBase, ModelConfig
 from ..item_net import (
     CatFeaturesItemNet,
@@ -41,6 +55,10 @@ from .net_blocks import (
 )
 from .similarity import DistanceSimilarityModule, SimilarityModuleBase
 from .training import TransformerTrainingModule, TransformerTrainingModuleBase
+
+# set while a checkpoint file is read: unpickled models keep their state
+# unrestored (see _read_checkpoint)
+_DEFER_RESTORE: contextvars.ContextVar[bool] = contextvars.ContextVar("defer_restore", default=False)
 
 # ---------------------------------------------------------------- config types
 
@@ -240,6 +258,7 @@ class TransformerModelBase(ModelBase[TransformerModelConfig_T]):
         self.data_preparator: TransformerDataPreparatorBase
         self._init_data_preparator()
         self.training_module: TransformerTrainingModuleBase
+        self._dataset_schema: tp.Optional[DatasetSchemaDict] = None  # the train dataset's, for checkpoints
 
     # ------------------------------------------------------------ construction
 
@@ -271,6 +290,16 @@ class TransformerModelBase(ModelBase[TransformerModelConfig_T]):
     def _construct_item_net(self, dataset: Dataset) -> ItemNetBase:
         return self.item_net_constructor_type.from_dataset(
             dataset,
+            self.n_factors,
+            self.dropout_rate,
+            self.item_net_block_types,
+            device=self._device,
+            **self._get_kwargs(self.item_net_constructor_kwargs),
+        )
+
+    def _construct_item_net_from_dataset_schema(self, dataset_schema: DatasetSchema) -> ItemNetBase:
+        return self.item_net_constructor_type.from_dataset_schema(
+            dataset_schema,
             self.n_factors,
             self.dropout_rate,
             self.item_net_block_types,
@@ -342,6 +371,7 @@ class TransformerModelBase(ModelBase[TransformerModelConfig_T]):
         self.data_preparator.process_dataset_train(dataset)
         backbone = self._init_backbone(self._construct_item_net(self.data_preparator.train_dataset))
         self._init_training_module(backbone)
+        self._dataset_schema = self.data_preparator.train_dataset.get_schema()
 
     def load_jax_params(self, dataset: Dataset, params: tp.Mapping[str, tp.Any]) -> tpe.Self:
         """Build the model for ``dataset`` as the JAX ``fit`` does, load the
@@ -462,7 +492,119 @@ class TransformerModelBase(ModelBase[TransformerModelConfig_T]):
         params["cls"] = self.__class__
         return self.config_class(**params)
 
+    # ------------------------------------------------------------- checkpoints
+
+    def _checkpoint_dict(self) -> tp.Dict[str, tp.Any]:
+        """Everything a fitted model is rebuilt from, every tensor on the CPU
+        (the JAX package's checkpoint dict; ``item_net_buffers`` holds the
+        categorical blocks' CSR coordinates, which are not in the
+        ``state_dict``)."""
+        buffers = {
+            i: {"feature_rows": block.feature_rows.cpu().numpy(), "feature_cols": block.feature_cols.cpu().numpy()}
+            for i, block in enumerate(self.backbone.item_model.item_net_blocks)
+            if isinstance(block, CatFeaturesItemNet)
+        }
+        return {
+            "model_config": self.get_config(simple_types=True),
+            "dataset_schema": self._dataset_schema,
+            "item_external_ids": np.asarray(self.data_preparator.item_id_map.external_ids),
+            "item_net_buffers": buffers,
+            "state": self.training_module.get_state(),
+        }
+
+    @classmethod
+    def _model_from_checkpoint(cls, checkpoint: tp.Dict[str, tp.Any]) -> tpe.Self:
+        """Rebuild a fitted model from a checkpoint dict on its config's
+        device (reference transformers/base.py:591-654)."""
+        loaded = cls.from_config(checkpoint["model_config"])
+        loaded.data_preparator.item_id_map = IdMap(checkpoint["item_external_ids"])
+        loaded.data_preparator._init_extra_token_ids()  # pylint: disable=protected-access
+        item_model = loaded._construct_item_net_from_dataset_schema(
+            DatasetSchema.model_validate(checkpoint["dataset_schema"])
+        )
+        for i, buffers in (checkpoint.get("item_net_buffers") or {}).items():
+            block = item_model.item_net_blocks[i]
+            for name, value in buffers.items():
+                setattr(block, name, torch.as_tensor(value, dtype=torch.int64, device=loaded._device))
+        loaded._init_training_module(loaded._init_backbone(item_model))
+        loaded._dataset_schema = checkpoint["dataset_schema"]
+        loaded.training_module.set_state(checkpoint["state"])
+        loaded.is_fitted = True
+        return loaded
+
+    @classmethod
+    def _restore(
+        cls, state: tp.Dict[str, tp.Any], model_params_update: tp.Optional[tp.Dict[str, tp.Any]] = None
+    ) -> tpe.Self:
+        """The model a :meth:`__getstate__` payload describes, its config
+        first updated by flat keys."""
+        fitted = "fitted_checkpoint" in state
+        config = state["fitted_checkpoint"]["model_config"] if fitted else state["model_config"]
+        if model_params_update:
+            flat = make_dict_flat(config)
+            flat.update(model_params_update)
+            config = unflatten_dict(flat)
+        if fitted:
+            return cls._model_from_checkpoint({**state["fitted_checkpoint"], "model_config": config})
+        return cls.from_config(config)
+
+    def __getstate__(self) -> object:
+        if self.is_fitted:
+            return {"fitted_checkpoint": self._checkpoint_dict()}
+        return {"model_config": self.get_config(simple_types=True)}
+
+    def __setstate__(self, state: tp.Dict[str, tp.Any]) -> None:
+        if _DEFER_RESTORE.get():
+            self.__dict__["_unrestored_state"] = state
+            return
+        self.__dict__.update(type(self)._restore(state).__dict__)
+
+    def save_checkpoint(self, f: FileLike) -> int:
+        """Write a standalone checkpoint file of a fitted model."""
+        if not self.is_fitted:
+            raise RuntimeError("Only fitted models can be checkpointed")
+        return self.save(f)
+
+    @classmethod
+    def load_from_checkpoint(
+        cls,
+        checkpoint_path: FileLike,
+        model_params_update: tp.Optional[tp.Dict[str, tp.Any]] = None,
+    ) -> tpe.Self:
+        """Load a model from a checkpoint file, its config first updated by
+        flat keys (reference transformers/base.py:678-710), e.g.
+        ``{"device": "cpu"}`` or ``{"recommend_batch_size": 256}``."""
+        shell = _read_checkpoint(checkpoint_path)
+        if not isinstance(shell, cls):
+            raise TypeError(f"Loaded object is not an instance of `{cls.__name__}`")
+        return type(shell)._restore(shell._unrestored_state, model_params_update)
+
+    def load_weights_from_checkpoint(self, checkpoint_path: FileLike) -> None:
+        """Load the parameters, optimizer state and counters of a checkpoint
+        into this fitted model (reference transformers/base.py:712-725)."""
+        if getattr(self, "training_module", None) is None:
+            raise RuntimeError("Model weights cannot be loaded from checkpoint into unfitted model")
+        state = _read_checkpoint(checkpoint_path)._unrestored_state
+        if "fitted_checkpoint" not in state:
+            raise RuntimeError("The checkpoint holds an unfitted model")
+        self.training_module.set_state(state["fitted_checkpoint"]["state"])
+
     @property
     def backbone(self) -> TransformerBackboneBase:
         """The torch backbone module."""
         return self.training_module.backbone
+
+
+def _read_checkpoint(f: FileLike) -> TransformerModelBase:
+    """Unpickle a checkpoint file without building the model: the object
+    returned is an empty instance of the saved class whose
+    ``_unrestored_state`` is its :meth:`TransformerModelBase.__getstate__`
+    payload."""
+    token = _DEFER_RESTORE.set(True)
+    try:
+        shell = pickle.loads(read_bytes(f))
+    finally:
+        _DEFER_RESTORE.reset(token)
+    if not isinstance(shell, TransformerModelBase):
+        raise TypeError(f"The checkpoint holds a `{type(shell).__name__}`, not a transformer model")
+    return shell

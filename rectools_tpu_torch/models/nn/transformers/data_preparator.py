@@ -2,11 +2,11 @@
 
 Port of rectools_tpu/models/nn/transformers/data_preparator.py: sessions live
 in a CSR-of-sessions structure (flat value arrays + indptr) and every collate
-is a vectorised numpy scatter into fixed-shape left-padded batches — the
-train, validation and recommend loaders, host negative sampling and the u2i /
-i2i dataset transforms. The JAX package's optional native C++ collation is
-not ported: its numpy path, which gives the same batches, is the port's only
-path.
+is a scatter into fixed-shape left-padded batches — the train, validation
+and recommend loaders, host negative sampling and the u2i / i2i dataset
+transforms. The ragged-to-dense scatter runs in the native C++ host ops
+(``rectools_tpu_torch.native``) when they load, else in vectorised numpy;
+both give the same batches.
 """
 
 import typing as tp
@@ -17,6 +17,7 @@ import numpy as np
 import pandas as pd
 from scipy import sparse
 
+from .... import native as _native
 from ....columns import Columns
 from ....dataset import Dataset, IdMap, Interactions
 from ....dataset.features import DenseFeatures, Features, SparseFeatures
@@ -92,7 +93,11 @@ def scatter_left_padded(
 ) -> np.ndarray:
     """Vectorised ragged->dense: place ``values[starts[i]:starts[i]+lengths[i]]``
     right-aligned into row i of an (n, out_len) array (left padding). Rows
-    longer than ``out_len`` keep their LAST ``out_len`` elements."""
+    longer than ``out_len`` keep their LAST ``out_len`` elements. Runs in the
+    native host ops when they load (int64 and float32), else in numpy."""
+    native_out = _native.scatter_left_padded_native(values, starts, lengths, out_len, dtype, fill)
+    if native_out is not None:
+        return native_out
     n = len(starts)
     clipped = np.minimum(lengths, out_len)
     starts = starts + (lengths - clipped)

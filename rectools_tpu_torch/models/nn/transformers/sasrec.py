@@ -1,8 +1,8 @@
 """SASRec: shifted-sequence objective + unidirectional attention.
 
 Port of rectools_tpu/models/nn/transformers/sasrec.py: the train, validation
-and recommend collations (numpy scatters), the SASRec blocks, the config and
-the model.
+and recommend collations (the native host ops, or numpy scatters), the SASRec
+blocks, the config and the model.
 """
 
 import typing as tp
@@ -11,6 +11,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .... import native as _native
 from ..item_net import (
     CatFeaturesItemNet,
     IdEmbeddingsItemNet,
@@ -51,13 +52,20 @@ class SASRecDataPreparator(TransformerDataPreparatorBase):
     def _collate_fn_train(
         self, dataset: SequenceDataset, rows: np.ndarray, rng: tp.Optional[np.random.Generator]
     ) -> Batch:
-        """x = session[:-1], y = session[1:], left-padded to session_max_len."""
+        """x = session[:-1], y = session[1:], left-padded to session_max_len:
+        one pass of the native host ops when they load, else three scatters."""
         starts = dataset.indptr[rows]
         lengths = dataset.lengths[rows]
-        m = lengths - 1  # shifted-pair count per session
-        x = scatter_left_padded(dataset.items, starts, m, self.session_max_len, np.int64)
-        y = scatter_left_padded(dataset.items, starts + 1, m, self.session_max_len, np.int64)
-        yw = scatter_left_padded(dataset.weights, starts + 1, m, self.session_max_len, np.float32)
+        native = _native.sasrec_train_collate_native(
+            dataset.items, dataset.weights, starts, lengths, self.session_max_len
+        )
+        if native is not None:
+            x, y, yw = native
+        else:
+            m = lengths - 1  # shifted-pair count per session
+            x = scatter_left_padded(dataset.items, starts, m, self.session_max_len, np.int64)
+            y = scatter_left_padded(dataset.items, starts + 1, m, self.session_max_len, np.int64)
+            yw = scatter_left_padded(dataset.weights, starts + 1, m, self.session_max_len, np.float32)
         batch: Batch = {"x": x, "y": y, "yw": yw}
         self._sample_negatives(batch, rng)
         if self.add_unix_ts:

@@ -121,6 +121,17 @@ def _xavier_normal_reinit(backbone: TransformerBackboneBase, generator: torch.Ge
         backbone.transformer_layers.reinit_vectors(generator)
 
 
+def _to_cpu(tree: tp.Any) -> tp.Any:
+    """A deep copy of nested dicts / lists with every tensor on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return copy.deepcopy(tree)
+
+
 def pad_batch(batch: Batch, batch_size: int) -> Batch:
     """Zero-pad a batch to the static batch size (padded rows have y == 0 and
     yw == 0, so they never contribute to the loss)."""
@@ -687,12 +698,14 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
     # ------------------------------------------------------------------- state
 
     def get_state(self) -> tp.Dict[str, tp.Any]:
-        """Parameters (CPU copies, whole tables), optimizer state and counters.
-        Under a mesh every rank calls it together; the optimizer state of a
-        column-sharded table stays this rank's shard."""
+        """Checkpoint payload (JAX ``training.py:916-945``): the backbone's
+        parameters (whole tables), the optimizer's ``state_dict``, the epoch
+        and step counters and the loss and metric histories, every tensor a
+        CPU copy. Under a mesh every rank calls it together; the optimizer
+        state of a column-sharded table stays this rank's shard."""
         return {
             "params": {k: v.detach().cpu().clone() for k, v in self.full_state_dict().items()},
-            "opt_state": copy.deepcopy(self.optimizer.state_dict()) if self.optimizer is not None else None,
+            "opt_state": _to_cpu(self.optimizer.state_dict()) if self.optimizer is not None else None,
             "epochs_completed": self.epochs_completed,
             "global_step": self.global_step,
             "train_loss_history": list(self.train_loss_history),
@@ -702,7 +715,9 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
         }
 
     def set_state(self, state: tp.Dict[str, tp.Any], sample_batch: tp.Optional[Batch] = None) -> None:
-        """Restore a :meth:`get_state` payload."""
+        """Restore a :meth:`get_state` payload onto this module's device
+        (``load_state_dict`` moves the optimizer state to its parameters);
+        ``sample_batch`` is unused: the parameter shapes need no batch."""
         self.load_params(state["params"])
         if state["opt_state"] is not None:
             self.optimizer.load_state_dict(state["opt_state"])

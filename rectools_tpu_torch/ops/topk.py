@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from scipy import sparse
 
+from .. import native as _native
 from ..utils.device import DeviceLike, full_f32_matmul, host_to_device, resolve_device
 from .topk_select import grouped_exact_top_k, grouped_top_k_candidates, sorted_top_k
 
@@ -134,16 +135,19 @@ class TopKEngine:
 
 
 def _csr_rows_to_padded_idx(csr: sparse.csr_matrix, rows: np.ndarray, fill: int) -> np.ndarray:
-    """Per-row column indices, padded ragged -> (len(rows), max_len), in
-    vectorised numpy (the native C++ copy is a later port)."""
+    """Per-row column indices, padded ragged -> (len(rows), max_len) int32:
+    the native host ops when they load, else vectorised numpy."""
     indptr = csr.indptr
     lengths = (indptr[rows + 1] - indptr[rows]).astype(np.int64)
     max_len = int(lengths.max()) if len(lengths) else 0
     n = len(rows)
-    out = np.full((n, max_len), fill, dtype=np.int64)
+    if max_len == 0:
+        return np.full((n, 0), fill, dtype=np.int32)
+    native_out = _native.csr_rows_padded_native(csr.indices, indptr, rows, max_len, fill)
+    if native_out is not None:
+        return native_out
+    out = np.full((n, max_len), fill, dtype=np.int32)
     total = int(lengths.sum())
-    if total == 0:
-        return out
     row_pos = np.repeat(np.arange(n), lengths)
     col_pos = np.arange(total) - np.repeat(np.cumsum(lengths) - lengths, lengths)
     src_idx = np.repeat(indptr[rows].astype(np.int64), lengths) + col_pos
