@@ -6,7 +6,7 @@ own lines; any failure exits nonzero and prints no result:
 
 1. device  — require CUDA, print the card's name and power limit, TF32 off.
 2. build   — build and load the native host ops (native/hostops.cpp, g++
-             -O3 -fopenmp into build/hostops/; the run fails if they do not
+             -O3 into build/hostops/; the run fails if they do not
              load: their numpy fallback must not hide here), then compile
              every CUDA kernel of the port from csrc/ (one nvcc per source, all
              at once) and print the seconds.

@@ -1,10 +1,10 @@
 """Native host ops: the port's copy of ``rectools_tpu/native``.
 
-C++ (OpenMP) versions of the data pipeline's host loops, bound with ctypes:
+C++ versions of the data pipeline's host loops, bound with ctypes:
 the ragged-to-dense left pad of the collates (``scatter_left_padded_*``), the
 padded seen lists of the top-k engine (``csr_rows_padded_i32``) and SASRec's
 shifted-sequence train collate (``sasrec_train_collate``). ``hostops.cpp``
-is built with ``g++ -O3 -fopenmp`` at first use into ``build/hostops/`` at the
+is built with ``g++ -O3`` at first use into ``build/hostops/`` at the
 repository root (git ignores it), keyed by a hash of the source.
 
 ``lib()`` returns the loaded library, or None when it cannot be built or
@@ -27,7 +27,7 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "hostops.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hostops"
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-fopenmp", "-std=c++17")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 OPT_OUT_ENV = "RECTOOLS_TPU_TORCH_NO_NATIVE"
 
 _LOCK = threading.Lock()
@@ -42,24 +42,25 @@ def so_path() -> Path:
     return BUILD_DIR / f"hostops_{digest}.so"
 
 
-def compile_to(target: Path, flags: tp.Sequence[str] = GXX_FLAGS) -> bool:
-    """Build ``hostops.cpp`` with g++ into ``target`` (through a temporary
-    file, so concurrent builds never load a half-written library);
-    False if g++ is missing or fails."""
-    target.parent.mkdir(parents=True, exist_ok=True)
-    tmp_path = target.with_suffix(f".{os.getpid()}.tmp")
+def _compile() -> tp.Optional[ctypes.CDLL]:
+    """Build ``hostops.cpp`` with g++ (through a temporary file, so
+    concurrent builds never load a half-written library) unless it is built
+    already, then load it and declare its functions' arguments; None if g++
+    is missing or fails."""
+    target = so_path()
+    if not target.exists():
+        target.parent.mkdir(parents=True, exist_ok=True)
+        tmp_path = target.with_suffix(f".{os.getpid()}.tmp")
+        try:
+            subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp_path), str(SOURCE)], check=True, capture_output=True,
+                           timeout=120)
+        except (OSError, subprocess.SubprocessError):
+            return None
+        os.replace(tmp_path, target)
     try:
-        subprocess.run(["g++", *flags, "-o", str(tmp_path), str(SOURCE)], check=True, capture_output=True,
-                       timeout=120)
-    except (OSError, subprocess.SubprocessError):
-        return False
-    os.replace(tmp_path, target)
-    return True
-
-
-def load(path: Path) -> ctypes.CDLL:
-    """Load a built host-ops library and declare its functions' arguments."""
-    cdll = ctypes.CDLL(str(path))
+        cdll = ctypes.CDLL(str(target))
+    except OSError:  # pragma: no cover
+        return None
     i64p = ctypes.POINTER(ctypes.c_int64)
     i32p = ctypes.POINTER(ctypes.c_int32)
     f32p = ctypes.POINTER(ctypes.c_float)
@@ -72,16 +73,6 @@ def load(path: Path) -> ctypes.CDLL:
                cdll.sasrec_train_collate):
         fn.restype = None
     return cdll
-
-
-def _compile() -> tp.Optional[ctypes.CDLL]:
-    target = so_path()
-    if not target.exists() and not compile_to(target):
-        return None
-    try:
-        return load(target)
-    except OSError:  # pragma: no cover
-        return None
 
 
 def lib() -> tp.Any:
@@ -107,18 +98,6 @@ def disabled() -> tp.Iterator[None]:
         yield
     finally:
         _DISABLED = previous
-
-
-@contextlib.contextmanager
-def using(cdll: ctypes.CDLL) -> tp.Iterator[None]:
-    """Run the block on another build of the library (a tool's variant)."""
-    global _LIB, _TRIED
-    previous = _LIB, _TRIED
-    _LIB, _TRIED = cdll, True
-    try:
-        yield
-    finally:
-        _LIB, _TRIED = previous
 
 
 def _ptr(arr: np.ndarray, ctype: tp.Any) -> tp.Any:
@@ -166,22 +145,21 @@ def csr_rows_padded_native(
     indices: np.ndarray, indptr: np.ndarray, rows: np.ndarray, max_len: int, fill: int
 ) -> tp.Optional[np.ndarray]:
     """Column indices of the given CSR rows, right-padded with ``fill`` into
-    an (len(rows), max_len) int32 table; None if unavailable."""
+    an (len(rows), max_len) int32 table; None if unavailable. Only the
+    given rows' starts and lengths are read from ``indptr``."""
     cdll = lib()
     if cdll is None:
         return None
     n = len(rows)
     indices32 = np.ascontiguousarray(indices, dtype=np.int32)
-    indptr64 = np.ascontiguousarray(indptr, dtype=np.int64)
-    rows64 = np.ascontiguousarray(rows, dtype=np.int64)
-    if n and (rows64.min() < 0 or rows64.max() >= len(indptr64) - 1):
-        raise IndexError(f"a row outside the {len(indptr64) - 1} rows of the matrix")
-    _check_rows(indptr64[rows64], np.diff(indptr64)[rows64], len(indices32))
-    if n and np.diff(indptr64)[rows64].max() > max_len:
+    starts64 = np.ascontiguousarray(indptr[rows], dtype=np.int64)
+    lengths64 = indptr[rows + 1] - starts64
+    _check_rows(starts64, lengths64, len(indices32))
+    if n and lengths64.max() > max_len:
         raise ValueError(f"a row holds more than max_len={max_len} values")
     out = np.full((n, max_len), fill, dtype=np.int32)
     cdll.csr_rows_padded_i32(
-        _ptr(indices32, ctypes.c_int32), _ptr(indptr64, ctypes.c_int64), _ptr(rows64, ctypes.c_int64),
+        _ptr(indices32, ctypes.c_int32), _ptr(starts64, ctypes.c_int64), _ptr(lengths64, ctypes.c_int64),
         n, max_len, _ptr(out, ctypes.c_int32),
     )
     return out

@@ -4,30 +4,22 @@
 // The GPU does the model compute; the host must keep up when collating
 // ragged sessions into fixed-shape batches (KION: 5.5M interactions, ~1M
 // sessions). These are the host pipeline's hot loops, built at first use by
-// rectools_tpu_torch.native with g++ -O3 -fopenmp and bound with ctypes. The
+// rectools_tpu_torch.native with g++ -O3 and bound with ctypes. The
 // vectorised numpy versions beside each call site stay as the fallback when
 // no compiler is available or RECTOOLS_TPU_TORCH_NO_NATIVE is set.
 //
 // All functions use the C ABI; callers pass pre-allocated, pre-filled
 // output buffers.
 //
-// One difference from the JAX copy: a loop runs on OpenMP threads only when
-// it copies at least kMinParallelWork values. The serving and training
-// batches copy 0.05-1.3M values, a few hundred microseconds on one core,
-// while a parallel region waits for its slowest thread: on a host whose
-// cores are shared (the card's machine, or a busy CPU) one descheduled
-// thread costs a scheduler slice, milliseconds (PERF.md §6).
+// Two differences from the JAX copy. The loops run on one thread: the
+// serving and training batches copy 0.05-1.3M values, a few hundred
+// microseconds on one core, and an OpenMP region waits for its slowest
+// thread, so on a host whose cores are shared its tail is longer (PERF.md
+// §6). And csr_rows_padded_i32 takes each row's start and length,
+// worked out for the batch's rows only, rather than the whole indptr.
 
 #include <cstdint>
 #include <algorithm>
-
-#ifndef HOSTOPS_MIN_PARALLEL_WORK  // tools/hostops_check.py builds a variant with 0: every loop threaded
-#define HOSTOPS_MIN_PARALLEL_WORK (int64_t(1) << 22)
-#endif
-
-namespace {
-constexpr int64_t kMinParallelWork = HOSTOPS_MIN_PARALLEL_WORK;
-}
 
 extern "C" {
 
@@ -42,7 +34,6 @@ void scatter_left_padded_i64(
     int64_t n_rows,
     int64_t out_len,
     int64_t* out) {
-#pragma omp parallel for schedule(static) if (n_rows * out_len >= kMinParallelWork)
   for (int64_t i = 0; i < n_rows; ++i) {
     int64_t len = lengths[i];
     int64_t clipped = std::min(len, out_len);
@@ -59,7 +50,6 @@ void scatter_left_padded_f32(
     int64_t n_rows,
     int64_t out_len,
     float* out) {
-#pragma omp parallel for schedule(static) if (n_rows * out_len >= kMinParallelWork)
   for (int64_t i = 0; i < n_rows; ++i) {
     int64_t len = lengths[i];
     int64_t clipped = std::min(len, out_len);
@@ -70,22 +60,20 @@ void scatter_left_padded_f32(
 }
 
 // Per-row CSR column extraction into a right-padded (n_rows, max_len) int32
-// table (the top-k engine's seen-list format). `out` pre-filled with the
-// fill sentinel. Mirrors ops.topk._csr_rows_to_padded_idx's numpy path.
+// table (the top-k engine's seen-list format): row i copies
+// indices[starts[i], starts[i] + lengths[i]). `out` pre-filled with the fill
+// sentinel. Mirrors ops.topk._csr_rows_to_padded_idx's numpy path.
 void csr_rows_padded_i32(
     const int32_t* indices,
-    const int64_t* indptr,
-    const int64_t* rows,
+    const int64_t* starts,
+    const int64_t* lengths,
     int64_t n_rows,
     int64_t max_len,
     int32_t* out) {
-#pragma omp parallel for schedule(static) if (n_rows * max_len >= kMinParallelWork)
   for (int64_t i = 0; i < n_rows; ++i) {
-    int64_t r = rows[i];
-    int64_t start = indptr[r];
-    int64_t len = indptr[r + 1] - start;
+    int64_t start = starts[i];
     int64_t dst = i * max_len;
-    for (int64_t j = 0; j < len; ++j) out[dst + j] = indices[start + j];
+    for (int64_t j = 0; j < lengths[i]; ++j) out[dst + j] = indices[start + j];
   }
 }
 
@@ -104,7 +92,6 @@ void sasrec_train_collate(
     int64_t* x_out,   // pre-filled with 0
     int64_t* y_out,   // pre-filled with 0
     float* yw_out) {  // pre-filled with 0
-#pragma omp parallel for schedule(static) if (3 * n_rows * out_len >= kMinParallelWork)
   for (int64_t i = 0; i < n_rows; ++i) {
     int64_t m = lengths[i] - 1;            // shifted-pair count
     int64_t clipped = std::min(m, out_len);
