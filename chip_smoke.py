@@ -182,6 +182,28 @@ own lines; any failure exits nonzero and prints no result:
              launch what ``expected_fit_launches`` and the serving counts say;
              cross_validate's launches are their sum. Prints the metrics and
              the phase's wall time.
+13. classic — after evaluate, on the same frame: PopularModel,
+             PopularInCategoryModel (a second Dataset with the item category
+             item id mod 12), RandomModel, EASEModel (auto solver, and exact
+             beside it), PureSVDModel(factors=64) and ItemKNNModel(K=50) plain
+             and bm25. Each: fit (seconds; ItemKNN's top-K truncation launches
+             kernel 3 once a 4,096-row block), recommend all 8,192 users at
+             k = 10 with filter_viewed (k unseen items each, no repeat; kernel 3
+             once a serving batch and no other kernel; warm median of 3),
+             recommend_to_items for 256 items, recommend with a 4,096-item
+             whitelist, and a CPU copy of the fitted arrays on 64 users
+             (identical items where the scores are exact, else items equal
+             outside TIE_GAP; scores within SCORE_RTOL / SCORE_ATOL); RandomModel
+             instead: scores n..1, a refit repeats, the next call differs.
+             EASE's two solvers' weights within rtol 1e-3, atol 1e-4; one
+             profiled EASE recommend. Kernel 3 at the truncation shape
+             (15,871 x 15,872 plain co-counts, K = 50): bit-equal to its twin
+             on every block, the top-K table bit-equal to a stable sort's, the
+             blocks whose certificate fired, timed beside the twin, torch.topk
+             and the bound. ``cross_validate`` of Popular, EASE (the exact
+             solver: the auto one took 65 s a fit on an H100 80GB HBM3 at
+             700 W), PureSVD and ItemKNN over evaluate's two folds, equal to
+             the folds by hand.
 
 Output, last lines: one JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -1941,6 +1963,298 @@ def evaluate_phase(torch, np, pd, port, dataset, dev) -> dict:
     return {"launches": launches, "wall_s": wall_s, "by_hand_s": by_hand_s, "folds": folds, "metrics": cv["metrics"]}
 
 
+# ---------------------------------------------------------------- phase 13, the classic models
+
+
+CLASSIC_CATEGORIES = 12  # PopularInCategory's item feature: item id mod 12
+CLASSIC_NEIGHBOURS = 50  # ItemKNN's K
+CLASSIC_FACTORS = 64  # PureSVD's factors
+CLASSIC_I2I_ITEMS = 256
+CLASSIC_WHITELIST = 4096  # items of the whitelisted recommend, drawn from the seed
+CLASSIC_CPU_USERS = 64
+CLASSIC_WARM_CALLS = 3
+EASE_SOLVER_RTOL, EASE_SOLVER_ATOL = 1e-3, 1e-4  # auto against exact, tests/models/test_ease_svd.py:168
+# models whose scores are sums of floats: against the CPU their items may swap only inside TIE_GAP
+CLASSIC_FLOAT_SCORES = ("ease", "ease_exact", "pure_svd", "item_knn_bm25")
+
+
+def classic_models(dev) -> dict:
+    from rectools_tpu_torch.models import (
+        EASEModel, ItemKNNModel, PopularInCategoryModel, PopularModel, PureSVDModel, RandomModel,
+    )
+
+    return {
+        "popular": PopularModel(device=dev),
+        "popular_in_category": PopularInCategoryModel(category_feature="category", n_categories=CLASSIC_CATEGORIES,
+                                                      device=dev),
+        "random": RandomModel(random_state=SEED, device=dev),
+        "ease": EASEModel(device=dev),
+        "ease_exact": EASEModel(solver="exact", device=dev),
+        "pure_svd": PureSVDModel(factors=CLASSIC_FACTORS, device=dev),
+        "item_knn_plain": ItemKNNModel(K=CLASSIC_NEIGHBOURS, variant="plain", device=dev),
+        "item_knn_bm25": ItemKNNModel(K=CLASSIC_NEIGHBOURS, variant="bm25", device=dev),
+    }
+
+
+def category_dataset(np, pd, df):
+    """The frame with one categorical item feature, item id mod CLASSIC_CATEGORIES."""
+    from rectools_tpu_torch.dataset import Dataset
+
+    items = np.unique(df["item_id"].to_numpy())
+    features = pd.DataFrame({"id": items, "feature": "category", "value": items % CLASSIC_CATEGORIES})
+    return Dataset.construct(df, item_features_df=features, cat_item_features=["category"])
+
+
+def _count_group_topm(port, fn, totals: dict):
+    """``fn()`` with kernel 3's launches counted from 0 into ``totals``."""
+    port.reset_launches()
+    out = fn()
+    launches = dict(port.LAUNCHES)
+    check(all(n == 0 for key, n in launches.items() if key not in ("group_topm", "group_topm_warp")),
+          f"a kernel other than kernel 3 ran in a classic model: {launches}")
+    for key in ("group_topm", "group_topm_warp"):
+        totals[key] = totals.get(key, 0) + launches[key]
+    return out, launches["group_topm"] + launches["group_topm_warp"]
+
+
+def _check_u2i(np, reco, users, seen: set, k: int, what: str, whitelist=None) -> None:
+    check(len(reco) == k * len(users), f"{what}: {len(reco)} rows, expected {k * len(users)}")
+    check(bool((reco.groupby("user_id").size() == k).all()), f"{what}: some user did not get k items")
+    check(not any(p in seen for p in zip(reco["user_id"].tolist(), reco["item_id"].tolist())),
+          f"{what}: a seen item came back")
+    check(not bool(reco.duplicated(["user_id", "item_id"]).any()), f"{what}: an item came back twice for a user")
+    scores = reco["score"].to_numpy().reshape(len(users), k)
+    check(bool(np.isfinite(scores).all()), f"{what}: non-finite scores")
+    if whitelist is not None:
+        check(bool(reco["item_id"].isin(whitelist).all()), f"{what}: an item outside the whitelist")
+
+
+def _cpu_agreement(np, name: str, model, data, users) -> str:
+    """The same fitted arrays in a CPU model (the plain twins): identical
+    items and scores within SCORE_RTOL / SCORE_ATOL on ``users``; where the
+    scores are sums of floats, items may swap only inside TIE_GAP."""
+    from rectools_tpu_torch.models import model_from_config
+    from rectools_tpu_torch.models.convert import fitted_arrays, load_fitted_arrays
+
+    cpu = load_fitted_arrays(model_from_config({**model.get_config(), "device": "cpu"}), fitted_arrays(model))
+    got = model.recommend(users, data, k=K, filter_viewed=True)
+    if name in CLASSIC_FLOAT_SCORES:
+        ref = cpu.recommend(users, data, k=K + 1, filter_viewed=True)
+        n = compare_reco(np, got, ref, K)
+        ref_k = ref.groupby("user_id", sort=False).head(K)
+        same = int(sum((g["item_id"].to_numpy() == r["item_id"].to_numpy()).all()
+                       for (_, g), (_, r) in zip(got.groupby("user_id", sort=False),
+                                                 ref_k.groupby("user_id", sort=False))))
+        return f"{n} users agree with the CPU copy (items equal outside TIE_GAP {TIE_GAP}; {same} of them identical)"
+    ref = cpu.recommend(users, data, k=K, filter_viewed=True)
+    check(np.array_equal(got["user_id"].to_numpy(), ref["user_id"].to_numpy())
+          and np.array_equal(got["item_id"].to_numpy(), ref["item_id"].to_numpy()),
+          f"classic {name}: items differ from the CPU copy")
+    check(bool(np.allclose(got["score"], ref["score"], rtol=SCORE_RTOL, atol=SCORE_ATOL)),
+          f"classic {name}: scores differ from the CPU copy")
+    return f"{len(users)} users identical to the CPU copy (scores within rtol {SCORE_RTOL}, atol {SCORE_ATOL})"
+
+
+def _random_properties(np, model, data, users, first) -> str:
+    """RandomModel's agreement is about properties: scores n..1, the same
+    output from a refit with the same random_state, other output next call."""
+    from rectools_tpu_torch.models import RandomModel
+
+    scores = first["score"].to_numpy().reshape(len(users), K)
+    check(bool((scores == np.arange(K, 0, -1)).all()), "classic random: scores are not n..1")
+    refit = RandomModel(random_state=SEED, device=model.device).fit(data)
+    check(_same_reco(refit.recommend(users, data, k=K, filter_viewed=True), first),
+          "classic random: a refit with the same random_state gave other items")
+    again = refit.recommend(users, data, k=K, filter_viewed=True)
+    changed = float((again["item_id"].to_numpy() != first["item_id"].to_numpy()).mean())
+    check(changed > 0.5, f"classic random: the next call repeated the draws ({changed:.3f} of the rows changed)")
+    return f"scores n..1; a refit from random_state={SEED} repeats the first call; the next call changes {changed:.4f}"
+
+
+def truncation_kernel_check(torch, np, dataset, dev) -> dict:
+    """Kernel 3 at ItemKNN's truncation shape: the plain co-counts of the
+    frame (15,871 x 15,871, padded to 15,872 columns), K = 50, in blocks of
+    4,096 rows. Each block's group top-m bit-equal to the twin's; the
+    truncated table bit-equal to the one from a full stable sort of each
+    block; timed beside the twin, torch.topk and the bound."""
+    import torch.nn.functional as F
+
+    from rectools_tpu_torch.models.item_knn import TRUNCATE_BLOCK_ROWS, _truncate_topk_rows, apply_weighting
+    from rectools_tpu_torch.ops import _native, linalg, topk_select
+
+    ui = dataset.get_user_item_matrix(include_weights=True)
+    s = linalg.gram_matrix(apply_weighting(ui, "plain").astype(np.float32).tocsr(), device=dev)
+    n = s.shape[0]
+    k = min(CLASSIC_NEIGHBOURS, n)
+    n_blocks = math.ceil(n / TRUNCATE_BLOCK_ROWS)
+    before = _native.LAUNCHES["group_topm"]
+    truncated, fired = _truncate_topk_rows(s, k)
+    check(_native.LAUNCHES["group_topm"] - before == n_blocks, "truncation: not one group_topm launch a block")
+    reference = torch.zeros_like(s)
+    for start in range(0, n, TRUNCATE_BLOCK_ROWS):
+        vals, idx = topk_select.sorted_top_k(s[start : start + TRUNCATE_BLOCK_ROWS], k)
+        reference[start : start + TRUNCATE_BLOCK_ROWS].scatter_(1, idx, vals)
+    check(bool(torch.equal(truncated, reference)), "truncation: the kernel's top-K differs from the stable sort's")
+    del truncated, reference
+
+    n_pad = -(-n // topk_select.GROUP_W) * topk_select.GROUP_W
+    m = topk_select.pick_m(n_pad, k)
+    blocks = [F.pad(s[start : start + TRUNCATE_BLOCK_ROWS], (0, n_pad - n), value=float("-inf"))
+              for start in range(0, n, TRUNCATE_BLOCK_ROWS)]
+    for i, block in enumerate(blocks):
+        vals, lanes = topk_select.group_topm(block, m)
+        ref_vals, ref_lanes = topk_select.group_topm_reference(block, m)
+        check(bool(torch.equal(vals, ref_vals) and torch.equal(lanes, ref_lanes)),
+              f"truncation: group_topm differs from its twin on block {i}")
+    block = blocks[0]
+    b, g = block.shape[0], n_pad // topk_select.GROUP_W
+    zero_share = float((s == 0).float().mean())
+    result = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: topk_select.group_topm(block, m)),
+        plain_ms=time_ms(lambda: topk_select.group_topm_reference(block, m), iters=3),
+        library_ms=time_ms(lambda: torch.topk(block[:, :n], k, dim=1)),
+        bound=bound_ms(block.numel() * 4 + b * g * m * 8, block.numel()),
+        blocks=n_blocks, fired=fired, m=m, zero_share=zero_share,
+    )
+    print(f"classic truncation: S {n} x {n} plain co-counts ({zero_share:.4f} zeros), K={k}, {n_blocks} blocks of "
+          f"{TRUNCATE_BLOCK_ROWS} rows: kernel 3 (m={m}) bit-equal to its twin on every block, the top-K table "
+          f"bit-equal to a stable sort's; certificate fired on {fired} of {n_blocks} blocks; one block "
+          f"({b} x {n_pad}): ms={result['ms']:.4f} plain_ms={result['plain_ms']:.4f} "
+          f"library_ms={result['library_ms']:.4f} (torch.topk k={k}) {bound_text(result)}")
+    del s, blocks
+    torch.cuda.empty_cache()
+    return result
+
+
+def classic_cv(np, pd, port, dataset, dev, totals: dict) -> dict:
+    """``cross_validate`` of Popular, EASE, PureSVD and ItemKNN over the
+    evaluate phase's folds, each fold's metrics equal to the folds by hand.
+    EASE takes the exact solver here: the auto solver's fit at this catalog
+    took 65 s on an H100 80GB HBM3 at 700 W (the phase times it once beside
+    the exact one)."""
+    import warnings
+
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.metrics import calc_metrics
+    from rectools_tpu_torch.model_selection import TimeRangeSplitter, cross_validate
+
+    names = ("popular", "ease_exact", "pure_svd", "item_knn_plain")
+    metrics = evaluation_metrics(np, pd)
+    splitter = TimeRangeSplitter("1D", n_splits=EVAL_FOLDS)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # test users absent from a fold's train part are dropped, with a warning
+        t0 = time.perf_counter()
+        cv, _ = _count_group_topm(port, lambda: cross_validate(
+            dataset, splitter, metrics, {name: classic_models(dev)[name] for name in names}, k=K,
+            filter_viewed=True), totals)
+        wall_s = time.perf_counter() - t0
+        by_hand = []
+        t0 = time.perf_counter()
+        for train_rows, test_rows, info in splitter.split(dataset.interactions, collect_fold_stats=True):
+            train = dataset.filter_interactions(train_rows, keep_external_ids=True)
+            test = dataset.interactions.df.loc[test_rows].copy()
+            test[Columns.User] = dataset.user_id_map.convert_to_external(test[Columns.User])
+            test[Columns.Item] = dataset.item_id_map.convert_to_external(test[Columns.Item])
+            history = train.get_raw_interactions()
+            for name in names:
+                model = classic_models(dev)[name]
+                model.fit(train)
+                reco = model.recommend(test[Columns.User].unique(), train, k=K, filter_viewed=True,
+                                       on_unsupported_targets="warn")
+                values = calc_metrics(metrics, reco, test, history, history[Columns.Item].unique())
+                by_hand.append({"model": name, "i_split": info["i_split"], **values})
+        by_hand_s = time.perf_counter() - t0
+    check(len(cv["metrics"]) == len(by_hand) == EVAL_FOLDS * len(names), f"{len(cv['metrics'])} rows scored")
+    for row, ref in zip(cv["metrics"], by_hand):
+        check(row == ref, f"classic cross_validate {row} differs from the loop by hand {ref}")
+        check(all(math.isfinite(row[key]) for key in metrics), f"classic cross_validate: non-finite metric {row}")
+    for row in cv["metrics"]:
+        print(f"classic evaluate: fold {row['i_split']} {row['model']}: "
+              + ", ".join(f"{key} {row[key]:.6g}" for key in metrics))
+    print(f"classic evaluate: cross_validate of {', '.join(names)} over {EVAL_FOLDS} folds with {len(metrics)} "
+          f"metrics in {wall_s:.2f} s (the loop by hand {by_hand_s:.2f} s); every metric equal to the loop by hand")
+    return {"wall_s": wall_s, "by_hand_s": by_hand_s, "metrics": cv["metrics"]}
+
+
+def classic_phase(torch, np, pd, port, df, dataset, dev) -> dict:
+    """The heuristic and linear-algebra models on the KION frame: fit,
+    recommend all users (kernel 3 once a serving batch), i2i and a
+    whitelist, a CPU copy of the fitted arrays, EASE's two solvers, kernel 3
+    at ItemKNN's truncation shape, and cross_validate."""
+    users = dataset.user_id_map.external_ids
+    seen = set(zip(df["user_id"].to_numpy().tolist(), df["item_id"].to_numpy().tolist()))
+    rng = np.random.default_rng(SEED + 16)
+    items = dataset.item_id_map.external_ids
+    whitelist = np.sort(rng.choice(items, CLASSIC_WHITELIST, replace=False))
+    t0 = time.perf_counter()
+    by_category = category_dataset(np, pd, df)
+    print(f"classic: the frame with a {CLASSIC_CATEGORIES}-value item category built in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    totals: dict = {}
+    results = {}
+    fitted = {}
+    for name, model in classic_models(dev).items():
+        data = by_category if name == "popular_in_category" else dataset
+        rows_per_user = CLASSIC_CATEGORIES if name == "popular_in_category" else 1
+        t0 = time.perf_counter()
+        _, fit_launches = _count_group_topm(port, lambda: model.fit(data), totals)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reco, launches = _count_group_topm(port, lambda: model.recommend(users, data, k=K, filter_viewed=True),
+                                           totals)
+        first_s = time.perf_counter() - t0
+        expected = math.ceil(len(users) * rows_per_user / SERVING_B)
+        check(launches == expected, f"classic {name}: {launches} group_topm launches in recommend, "
+              f"expected {expected} (one a serving batch)")
+        _check_u2i(np, reco, users, seen, K, f"classic {name}")
+        times = []
+        for _ in range(CLASSIC_WARM_CALLS):
+            t0 = time.perf_counter()
+            _count_group_topm(port, lambda: model.recommend(users, data, k=K, filter_viewed=True), totals)
+            times.append(time.perf_counter() - t0)
+        warm_s = float(np.median(times))
+        targets = items[:CLASSIC_I2I_ITEMS]
+        i2i, i2i_launches = _count_group_topm(port, lambda: model.recommend_to_items(targets, data, k=K), totals)
+        check(len(i2i) == K * len(targets) and not bool((i2i["target_item_id"] == i2i["item_id"]).any()),
+              f"classic {name}: i2i returned {len(i2i)} rows")
+        listed, _ = _count_group_topm(port, lambda: model.recommend(users, data, k=K, filter_viewed=True,
+                                                                    items_to_recommend=whitelist), totals)
+        _check_u2i(np, listed, users, seen, K, f"classic {name} with a whitelist", whitelist)
+        sample = users[:CLASSIC_CPU_USERS]
+        if name == "random":
+            agreement = _random_properties(np, model, data, users, reco)
+        else:
+            agreement = _cpu_agreement(np, name, model, data, sample)
+        print(f"classic {name}: fit {fit_s:.3f} s (kernel 3 launches {fit_launches}); recommend {len(users)} users "
+              f"in {expected} batches, launches {launches}, first {first_s:.3f} s, warm median "
+              f"{warm_s:.3f} s of {[round(t, 3) for t in times]}, {len(users) / warm_s:.0f} users/s; i2i "
+              f"{len(targets)} items (launches {i2i_launches}); whitelist of {len(whitelist)} items; {agreement}")
+        results[name] = {"fit_s": fit_s, "first_s": first_s, "warm_s": warm_s, "warm_samples_s": times,
+                         "users_per_s": len(users) / warm_s, "fit_launches": fit_launches,
+                         "recommend_launches": launches}
+        fitted[name] = model
+
+    auto, exact = fitted["ease"].weight, fitted["ease_exact"].weight
+    check(bool(np.allclose(auto, exact, rtol=EASE_SOLVER_RTOL, atol=EASE_SOLVER_ATOL)),
+          f"classic ease: auto and exact weights differ by {float(np.abs(auto - exact).max()):.3g}")
+    print(f"classic ease solvers: auto (Newton-Schulz above n = 1,024) {results['ease']['fit_s']:.3f} s, exact "
+          f"(cuSOLVER Cholesky) {results['ease_exact']['fit_s']:.3f} s for n = {auto.shape[0]}; weights within "
+          f"rtol {EASE_SOLVER_RTOL}, atol {EASE_SOLVER_ATOL} (max abs diff {float(np.abs(auto - exact).max()):.3g})")
+    print("classic ease profile: one warm recommend of all users")
+    profile = profile_phase(torch, lambda: fitted["ease"].recommend(users, dataset, k=K, filter_viewed=True))
+    del fitted, auto, exact
+    torch.cuda.empty_cache()
+
+    truncation = truncation_kernel_check(torch, np, dataset, dev)
+    evaluate = classic_cv(np, pd, port, dataset, dev, totals)
+    print(f"classic: kernel 3 launches over the phase's fits, recommends and cross_validate {totals}")
+    return {"launches": totals, "models": results, "ease_profile": profile, "truncation": truncation,
+            "evaluate": evaluate}
+
+
 # ---------------------------------------------------------------- phase 9, the other doors of the streaming lse
 
 
@@ -2801,6 +3115,10 @@ def main() -> int:
     hstu_checkpoint_result = checkpoint_phase(torch, np, pd, port, dataset, "cuda", hstu_fitted, family="hstu")
     del sasrec_fitted, hstu_fitted
     evaluate_result = evaluate_phase(torch, np, pd, port, dataset, "cuda")
+    # phase 13: the heuristic and linear-algebra models on the same frame
+    print(f"classic: on {card}")
+    baselines_result = classic_phase(torch, np, pd, port, df, dataset, "cuda")
+    kernels["group_topm_truncation"] = baselines_result["truncation"]
     # phase 10: BERT4Rec and eSASRec (shared negatives, remat) through the same entry points, remat at the
     # ML-20M-sized shape
     for tag in ("family kernels", "bert4rec", "esasrec", "remat fit"):  # the card beside these phases' numbers
@@ -2863,7 +3181,7 @@ def main() -> int:
                                           for key in port.LAUNCHES}},
              "esasrec_recommend": esasrec_main_result, "remat_fit": remat_result["remat"],
              "checkpoint_recommend": checkpoint_result, "hstu_checkpoint_recommend": hstu_checkpoint_result,
-             "evaluate": evaluate_result}
+             "evaluate": evaluate_result, "classic": baselines_result}
 
     def numbers(r: dict) -> dict:
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -2880,6 +3198,10 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": f"rectools_tpu_torch/csrc/{source}",
                  "replaces": f"rectools_tpu/ops/{replaces}", "launches": sum(by_path.values()),
                  "launches_by_path": by_path, **numbers(kernels[result_key])}
+        if name == "group_topm":  # at ItemKNN's truncation shape: plain co-counts, many ties
+            truncation = kernels["group_topm_truncation"]
+            entry["item_knn_truncation"] = {**numbers(truncation), "blocks": truncation["blocks"],
+                                            "certificate_fired": truncation["fired"]}
         if name == "attention_fwd":  # the same kernel at the training width, with dropout
             entry["train_width_dropout"] = numbers(kernels["attention_fwd_train"])
         if name.startswith("attention_"):  # under BERT4Rec's key-padding bias, and at L = 200 with heads of 32
@@ -2940,6 +3262,7 @@ def main() -> int:
         "checkpoint": {k: v for k, v in checkpoint_result.items() if k != "launches"},
         "hstu_checkpoint": {k: v for k, v in hstu_checkpoint_result.items() if k != "launches"},
         "evaluate": {k: v for k, v in evaluate_result.items() if k != "launches"},
+        "classic": {k: v for k, v in baselines_result.items() if k != "launches"},
     }
     print(json.dumps(line))
     print(card)

@@ -121,6 +121,9 @@ def _xavier_normal_reinit(backbone: TransformerBackboneBase, generator: torch.Ge
         backbone.transformer_layers.reinit_vectors(generator)
 
 
+_ADAM_MOMENTS = ("exp_avg", "exp_avg_sq")  # the table-shaped entries of a parameter's Adam state
+
+
 def _to_cpu(tree: tp.Any) -> tp.Any:
     """A deep copy of nested dicts / lists with every tensor on the CPU."""
     if isinstance(tree, torch.Tensor):
@@ -427,15 +430,43 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
             if isinstance(block, ItemNetBase) and block.column_mesh is not None:
                 yield f"{name}.{block.table_name}.weight", block
 
+    @staticmethod
+    def _whole_columns(local: torch.Tensor, block: ItemNetBase) -> torch.Tensor:
+        """A table-shaped tensor's columns gathered over the model group."""
+        return torch.cat(collectives.all_gather(local, block.column_mesh.group(MODEL_AXIS)), dim=1)
+
+    @staticmethod
+    def _local_columns(whole: torch.Tensor, block: ItemNetBase) -> torch.Tensor:
+        """This rank's columns of a whole table-shaped tensor."""
+        width = whole.shape[1] // block.column_mesh.size(MODEL_AXIS)
+        start = block.column_mesh.index(MODEL_AXIS) * width
+        return whole[:, start : start + width]
+
     def full_state_dict(self) -> tp.Dict[str, torch.Tensor]:
         """The backbone ``state_dict`` with whole tables: the column shards
         are gathered over the model group, so under a mesh with ``n_model > 1``
         every rank must call it together."""
         state = dict(self.backbone.state_dict())
         for key, block in self._sharded_tables():
-            parts = collectives.all_gather(state[key], block.column_mesh.group(MODEL_AXIS))
-            state[key] = torch.cat(parts, dim=1)
+            state[key] = self._whole_columns(state[key], block)
         return state
+
+    def _map_table_moments(
+        self, opt_state: tp.Dict[str, tp.Any], columns: tp.Callable[[torch.Tensor, ItemNetBase], torch.Tensor]
+    ) -> tp.Dict[str, tp.Any]:
+        """An optimizer ``state_dict`` with ``columns(moment, block)`` in place
+        of the Adam moments of every column-sharded table. A table's entry is
+        found by its parameter's index in the optimizer's groups, which
+        ``state_dict`` numbers in order."""
+        index = {id(p): i for i, p in enumerate(p for g in self.optimizer.param_groups for p in g["params"])}
+        moments = dict(opt_state["state"])
+        for _, block in self._sharded_tables():
+            i = index[id(getattr(block, block.table_name).weight)]
+            if i in moments:
+                moments[i] = {
+                    name: columns(value, block) if name in _ADAM_MOMENTS else value for name, value in moments[i].items()
+                }
+        return {**opt_state, "state": moments}
 
     def _local_batch(self, batch: Batch) -> Batch:
         """This rank's rows of a global host batch, and the matching offset for
@@ -533,9 +564,7 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
         self._shard_params()
         state_dict = dict(state_dict)
         for key, block in self._sharded_tables():
-            width = state_dict[key].shape[1] // block.column_mesh.size(MODEL_AXIS)
-            start = block.column_mesh.index(MODEL_AXIS) * width
-            state_dict[key] = state_dict[key][:, start : start + width]
+            state_dict[key] = self._local_columns(state_dict[key], block)
         self.backbone.load_state_dict(state_dict, strict=True)
         self.optimizer = self._make_optimizer()
 
@@ -699,13 +728,16 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
 
     def get_state(self) -> tp.Dict[str, tp.Any]:
         """Checkpoint payload (JAX ``training.py:916-945``): the backbone's
-        parameters (whole tables), the optimizer's ``state_dict``, the epoch
-        and step counters and the loss and metric histories, every tensor a
-        CPU copy. Under a mesh every rank calls it together; the optimizer
-        state of a column-sharded table stays this rank's shard."""
+        parameters and the optimizer's ``state_dict``, both with whole tables,
+        the epoch and step counters and the loss and metric histories, every
+        tensor a CPU copy. Under a mesh every rank calls it together."""
         return {
             "params": {k: v.detach().cpu().clone() for k, v in self.full_state_dict().items()},
-            "opt_state": _to_cpu(self.optimizer.state_dict()) if self.optimizer is not None else None,
+            "opt_state": (
+                _to_cpu(self._map_table_moments(self.optimizer.state_dict(), self._whole_columns))
+                if self.optimizer is not None
+                else None
+            ),
             "epochs_completed": self.epochs_completed,
             "global_step": self.global_step,
             "train_loss_history": list(self.train_loss_history),
@@ -716,11 +748,14 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
 
     def set_state(self, state: tp.Dict[str, tp.Any], sample_batch: tp.Optional[Batch] = None) -> None:
         """Restore a :meth:`get_state` payload onto this module's device
-        (``load_state_dict`` moves the optimizer state to its parameters);
-        ``sample_batch`` is unused: the parameter shapes need no batch."""
+        (``load_state_dict`` moves the optimizer state to its parameters).
+        Under a mesh each rank keeps its columns of the whole tables and of
+        their Adam moments, so a payload saved on any mesh, or in one process,
+        loads on any other; ``sample_batch`` is unused: the parameter shapes
+        need no batch."""
         self.load_params(state["params"])
         if state["opt_state"] is not None:
-            self.optimizer.load_state_dict(state["opt_state"])
+            self.optimizer.load_state_dict(self._map_table_moments(state["opt_state"], self._local_columns))
         self.epochs_completed = state["epochs_completed"]
         self.global_step = state["global_step"]
         self.train_loss_history = list(state["train_loss_history"])

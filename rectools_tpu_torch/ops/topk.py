@@ -155,6 +155,24 @@ def _csr_rows_to_padded_idx(csr: sparse.csr_matrix, rows: np.ndarray, fill: int)
     return out
 
 
+def _seen_columns(
+    filter_pairs_csr: sparse.csr_matrix,
+    batch_pos: np.ndarray,
+    sorted_object_whitelist: tp.Optional[np.ndarray],
+    fill: int,
+) -> np.ndarray:
+    """The seen lists of a batch's rows as score columns, padded with
+    ``fill``: object ids, or their whitelist positions (a seen object off the
+    whitelist becomes ``fill``)."""
+    seen_orig = _csr_rows_to_padded_idx(filter_pairs_csr, batch_pos, fill=-1)
+    if sorted_object_whitelist is not None and seen_orig.shape[1] > 0:
+        pos = np.searchsorted(sorted_object_whitelist, seen_orig)
+        pos_clipped = np.clip(pos, 0, len(sorted_object_whitelist) - 1)
+        hit = (seen_orig >= 0) & (sorted_object_whitelist[pos_clipped] == seen_orig)
+        return np.where(hit, pos_clipped, fill)
+    return np.where(seen_orig >= 0, seen_orig, fill)
+
+
 def _fetch(handles: tp.Sequence[Handles]) -> tp.Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """One device->host transfer per output kind, for all batches together."""
     idx = torch.cat([h[0] for h in handles]).cpu().numpy()
@@ -207,15 +225,7 @@ def rank_topk(
 
         seen: tp.Optional[np.ndarray] = None
         if filter_pairs_csr is not None:
-            seen_orig = _csr_rows_to_padded_idx(filter_pairs_csr, batch_pos, fill=-1)
-            if sorted_object_whitelist is not None and seen_orig.shape[1] > 0:
-                # original object ids -> whitelist positions; misses -> fill
-                pos = np.searchsorted(sorted_object_whitelist, seen_orig)
-                pos_clipped = np.clip(pos, 0, len(sorted_object_whitelist) - 1)
-                hit = (seen_orig >= 0) & (sorted_object_whitelist[pos_clipped] == seen_orig)
-                seen = np.where(hit, pos_clipped, fill)
-            else:
-                seen = np.where(seen_orig >= 0, seen_orig, fill)
+            seen = _seen_columns(filter_pairs_csr, batch_pos, sorted_object_whitelist, fill)
         pending.append((batch_subject_ids, sub_block, seen, engine.query_batch_async(sub_block, k, seen)))
 
     if not pending:
@@ -240,3 +250,105 @@ def rank_topk(
     else:
         obj_ids = flat_idx.astype(np.int64)
     return subj_rep, obj_ids, scores_all.ravel()[flat_valid].astype(np.float32)
+
+
+# ----------------------------------------------------------------------- random ranking
+
+ScoreDraw = tp.Callable[[int, tp.Tuple[int, int]], torch.Tensor]
+
+
+def uniform_draws(generator: torch.Generator) -> ScoreDraw:
+    """A ``draw`` for :func:`random_rank_topk`: batch ``bi``'s block of iid
+    U[0, 1) scores from ``generator`` (on its device), advancing it; a second
+    call for the same batch gives the same block again from the generator
+    state saved at the first."""
+    states: tp.Dict[int, torch.Tensor] = {}
+
+    def draw(bi: int, shape: tp.Tuple[int, int]) -> torch.Tensor:
+        source = generator
+        if bi in states:
+            source = torch.Generator(device=generator.device)
+            source.set_state(states[bi])
+        else:
+            states[bi] = generator.get_state()
+        return torch.rand(shape, generator=source, device=generator.device)
+
+    return draw
+
+
+def _random_mask_topk(
+    scores: torch.Tensor,  # (B, N_pad) f32, overwritten
+    seen_idx: torch.Tensor,  # (B, S) int64, fill = n_valid_objects
+    n_valid_objects: int,
+    k: int,
+    exact: bool = False,
+) -> Handles:
+    """Uniform-random ranking with seen-filtering on a drawn score block, the
+    MIPS path's masking (port of JAX ``_random_mask_topk``): (top_idx, top
+    scores, valid, suspect or None)."""
+    scores[:, n_valid_objects:] = NEG_INF
+    scores.scatter_(1, seen_idx, NEG_INF)
+    if exact:
+        top_scores, top_idx = sorted_top_k(scores, k)
+        suspect = None
+    else:
+        top_scores, top_idx, suspect = grouped_top_k_candidates(scores, k)
+    return top_idx, top_scores, top_scores > (NEG_INF / 2), suspect
+
+
+def random_rank_topk(
+    draw: ScoreDraw,
+    n_objects: int,
+    subject_ids: np.ndarray,
+    k: int,
+    filter_pairs_csr: tp.Optional[sparse.csr_matrix] = None,
+    sorted_object_whitelist: tp.Optional[np.ndarray] = None,
+    batch_size: int = 4096,
+    device: DeviceLike = "cuda",
+) -> tp.Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Random top-k per subject with seen / whitelist filtering on the device
+    (port of JAX ``random_rank_topk``). Batch ``bi``'s (B, N_pad) scores are
+    ``draw(bi, (B, N_pad))`` (:func:`uniform_draws`; the tests inject JAX's
+    draws); the candidates are padded to a multiple of 128 with at least one
+    spare, masked column. Scores returned are per-subject ranks n_reco..1, the
+    reference RandomModel's contract. A batch whose certificate fails is drawn
+    again and sorted exactly."""
+    dev = resolve_device(device)
+    n_candidates = len(sorted_object_whitelist) if sorted_object_whitelist is not None else n_objects
+    n_pad = int(math.ceil((n_candidates + 1) / 128)) * 128
+    fill = n_candidates
+    k_eff = min(k, n_candidates)
+    subject_ids = np.asarray(subject_ids)
+    if k_eff == 0 or len(subject_ids) == 0:
+        return np.array([], dtype=np.int64), np.array([], dtype=np.int64), np.array([], dtype=np.float32)
+
+    pending: tp.List[tp.Tuple[np.ndarray, torch.Tensor, Handles]] = []
+    for bi, start in enumerate(range(0, len(subject_ids), batch_size)):
+        batch_pos = np.arange(start, min(start + batch_size, len(subject_ids)))
+        seen = None if filter_pairs_csr is None else _seen_columns(filter_pairs_csr, batch_pos,
+                                                                   sorted_object_whitelist, fill)
+        if seen is None or seen.shape[1] == 0:  # nothing seen: one column of fill
+            seen = np.full((len(batch_pos), 1), fill, dtype=np.int64)
+        seen_dev = host_to_device(seen.astype(np.int64), dev)
+        scores = draw(bi, (len(batch_pos), n_pad)).to(device=dev, dtype=torch.float32)
+        pending.append((subject_ids[batch_pos], seen_dev, _random_mask_topk(scores, seen_dev, n_candidates, k_eff)))
+
+    idx_all, _, valid_all, suspect = _fetch([p[2] for p in pending])
+    offsets = np.concatenate(([0], np.cumsum([len(p[0]) for p in pending])))
+    for bi in np.flatnonzero(suspect):
+        _, seen_dev, _ = pending[bi]
+        scores = draw(int(bi), (len(seen_dev), n_pad)).to(device=dev, dtype=torch.float32)
+        idx_b, _, valid_b, _ = _fetch([_random_mask_topk(scores, seen_dev, n_candidates, k_eff, exact=True)])
+        idx_all[offsets[bi] : offsets[bi + 1]], valid_all[offsets[bi] : offsets[bi + 1]] = idx_b, valid_b
+
+    counts = valid_all.sum(axis=1)
+    flat_idx = idx_all.ravel()[valid_all.ravel()]
+    if sorted_object_whitelist is not None:
+        obj_ids = np.asarray(sorted_object_whitelist)[flat_idx].astype(np.int64)
+    else:
+        obj_ids = flat_idx.astype(np.int64)
+    all_subj = np.concatenate([p[0] for p in pending]).astype(np.int64)
+    ends = np.cumsum(counts)
+    positions = np.arange(int(ends[-1])) - np.repeat(ends - counts, counts)
+    scores_out = (np.repeat(counts, counts) - positions).astype(np.float32)
+    return np.repeat(all_subj, counts), obj_ids, scores_out

@@ -7,6 +7,7 @@ from .array_ops import (
 )
 from .config import BaseConfig
 from .device import resolve_device
+from .indexing import get_element_ids, get_from_series_by_index
 from .misc import get_class_or_function_full_path, import_object, make_dict_flat, unflatten_dict
 
 __all__ = [
@@ -16,6 +17,8 @@ __all__ = [
     "fast_isin",
     "fast_isin_for_sorted_test_elements",
     "get_class_or_function_full_path",
+    "get_element_ids",
+    "get_from_series_by_index",
     "import_object",
     "isin_2d_int",
     "make_dict_flat",

@@ -13,6 +13,10 @@ do not depend on the mesh beyond summation order). JAX is imported inside the
 test functions only, so the spawned ranks, which import this module, run
 without it.
 
+The four-rank world also writes a (2, 2) fit's checkpoint, which must hold
+whole-table Adam moments and resume, at (2, 2) and in one process, as the
+fit itself goes on.
+
 Tolerances: lse 1e-5 relative, gradients 1e-5 of each output's largest
 entry, losses against JAX 1e-4 relative and parameters 1e-4 (the attention
 key-projection biases, whose gradient is rounding noise, within steps * lr),
@@ -167,7 +171,20 @@ def four_rank_worker(rank: int, payload: tp.Dict[str, tp.Any]) -> tp.Dict[str, t
     out["fit_from_jax"] = _fit_summary(_model(df, (2, 2), 0.0, start))
     # (d) the port's own init, dropout on
     for shape in MESHES:
-        out[f"fit_dropout_{shape}"] = _fit_summary(_model(df, shape, 0.2))
+        model = _model(df, shape, 0.2)
+        out[f"fit_dropout_{shape}"] = _fit_summary(model)
+        if shape == (2, 2):
+            fitted = model
+    # (g) the (2, 2) fit's checkpoint, one file written by rank 0, reloaded at (2, 2): one more epoch from it
+    # and one more epoch of the fitted model itself (the uninterrupted fit); the test loads it in one process
+    state = fitted.training_module.get_state()
+    if rank == 0:
+        torch.save(state, payload["checkpoint"])
+    torch.distributed.barrier()
+    resumed = _model(df, (2, 2), 0.2)
+    resumed.training_module.set_state(torch.load(payload["checkpoint"]))
+    out["resumed_2x2"] = _fit_summary(resumed)
+    out["continued_2x2"] = _fit_summary(fitted)
     out["fit_sampled_softmax"] = _fit_summary(_model(df, (2, 2), 0.2, loss="sampled_softmax"))
     out["fit_plain_softmax"] = _fit_summary(_model(df, (2, 2), 0.2, fused_softmax_chunk=None))
     out["fit_shared_remat"] = _fit_summary(_model(df, (2, 2), 0.2, **SHARED_REMAT))
@@ -246,10 +263,16 @@ def jax_mesh_run():
 
 
 @pytest.fixture(scope="module")
-def four_ranks(jax_mesh_run):
+def checkpoint_path(tmp_path_factory):
+    """Where rank 0 of the four-rank world writes the (2, 2) fit's training state."""
+    return str(tmp_path_factory.mktemp("mesh_checkpoint") / "state.pt")
+
+
+@pytest.fixture(scope="module")
+def four_ranks(jax_mesh_run, checkpoint_path):
     payload = {
         "df": jax_mesh_run["df"], "start": jax_mesh_run["start"], "first": jax_mesh_run["first"],
-        "lse": {case: _lse_inputs(case) for case in LSE_CASES},
+        "lse": {case: _lse_inputs(case) for case in LSE_CASES}, "checkpoint": checkpoint_path,
     }
     return run_ranks(four_rank_worker, 4, (payload,), timeout_s=SPAWN_TIMEOUT_S, backend="gloo")
 
@@ -434,6 +457,42 @@ def test_ranks_agree_and_tables_are_column_sharded(four_ranks, shape) -> None:
         assert result[key]["val"] == four_ranks[0][key]["val"]
         for name, value in result[key]["params"].items():
             np.testing.assert_array_equal(value, four_ranks[0][key]["params"][name], err_msg=name)
+
+
+# ------------------------------------------------------------------ (g) a mesh fit's checkpoint
+
+
+def _assert_fits_close(got: tp.Dict[str, tp.Any], expected: tp.Dict[str, tp.Any]) -> None:
+    assert got["steps"] == expected["steps"]
+    np.testing.assert_allclose(got["train"], expected["train"], rtol=1e-5)
+    np.testing.assert_allclose(got["val"], expected["val"], rtol=1e-5)
+    for name, value in got["params"].items():
+        tol = got["steps"] * LR if is_key_projection_bias(name) else 1e-4
+        assert np.abs(value - expected["params"][name]).max() <= tol, name
+
+
+@pytest.mark.parametrize("where", ["mesh_2x2", "one_process"])
+def test_mesh_checkpoint_holds_whole_moments_and_resumes(four_ranks, checkpoint_path, where: str) -> None:
+    """A (2, 2) fit's checkpoint holds whole-table Adam moments, and one more
+    epoch from it, at (2, 2) or in one process, is the uninterrupted fit's
+    second epoch (the mesh checks' tolerance)."""
+    state = torch.load(checkpoint_path)
+    single = _model(_frame(), None, 0.2)
+    names = [name for name, _ in single.training_module.backbone.named_parameters()]
+    moments = state["opt_state"]["state"]
+    assert sorted(moments) == list(range(len(names)))
+    for index, name in enumerate(names):
+        for moment in ("exp_avg", "exp_avg_sq"):
+            assert moments[index][moment].shape == state["params"][name].shape, (name, moment)
+    assert state["params"]["item_model.item_net_blocks.0.ids_emb.weight"].shape[1] == CONFIG["n_factors"]
+    if where == "one_process":
+        single.training_module.set_state(state)
+        resumed = [_fit_summary(single)]
+    else:
+        resumed = [result["resumed_2x2"] for result in four_ranks]
+    for result, got in zip(four_ranks, resumed):
+        assert got["steps"] == 2 * result["fit_dropout_(2, 2)"]["steps"]
+        _assert_fits_close(got, result["continued_2x2"])
 
 
 # ------------------------------------------------------------------ (e), (f) the two-rank world
