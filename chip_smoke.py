@@ -189,18 +189,21 @@ own lines; any failure exits nonzero and prints no result:
              and bm25. Each: fit (seconds; ItemKNN's top-K truncation launches
              kernel 3 once a 4,096-row block), recommend all 8,192 users at
              k = 10 with filter_viewed (k unseen items each, no repeat; kernel 3
-             once a serving batch and no other kernel; warm median of 3),
+             once a serving batch and no other kernel; the batches sorted again
+             after a failed certificate, counted; warm median of 3),
              recommend_to_items for 256 items, recommend with a 4,096-item
              whitelist, and a CPU copy of the fitted arrays on 64 users
-             (identical items where the scores are exact, else items equal
-             outside TIE_GAP; scores within SCORE_RTOL / SCORE_ATOL); RandomModel
+             (identical items and scores within SCORE_RTOL / SCORE_ATOL; where
+             the scores are sums of floats a user whose items differ is held
+             to items equal outside TIE_GAP, and counted); RandomModel
              instead: scores n..1, a refit repeats, the next call differs.
              EASE's two solvers' weights within rtol 1e-3, atol 1e-4; one
              profiled EASE recommend. Kernel 3 at the truncation shape
-             (15,871 x 15,872 plain co-counts, K = 50): bit-equal to its twin
-             on every block, the top-K table bit-equal to a stable sort's, the
-             blocks whose certificate fired, timed beside the twin, torch.topk
-             and the bound. ``cross_validate`` of Popular, EASE (the exact
+             (15,871 x 15,872 plain co-counts, K = 50 candidates a group):
+             bit-equal to its twin on every block, no block sorted again, the
+             top-K table bit-equal to a stable sort's; one block timed beside
+             the twin, torch.topk and the bound, and the whole truncation
+             beside the stable sort's and torch.topk's. ``cross_validate`` of Popular, EASE (the exact
              solver: the auto one took 65 s a fit on an H100 80GB HBM3 at
              700 W), PureSVD and ItemKNN over evaluate's two folds, equal to
              the folds by hand.
@@ -1974,7 +1977,7 @@ CLASSIC_WHITELIST = 4096  # items of the whitelisted recommend, drawn from the s
 CLASSIC_CPU_USERS = 64
 CLASSIC_WARM_CALLS = 3
 EASE_SOLVER_RTOL, EASE_SOLVER_ATOL = 1e-3, 1e-4  # auto against exact, tests/models/test_ease_svd.py:168
-# models whose scores are sums of floats: against the CPU their items may swap only inside TIE_GAP
+# models whose scores are sums of floats: against the CPU a user's items may swap inside TIE_GAP, counted
 CLASSIC_FLOAT_SCORES = ("ease", "ease_exact", "pure_svd", "item_knn_bm25")
 
 
@@ -2031,28 +2034,28 @@ def _check_u2i(np, reco, users, seen: set, k: int, what: str, whitelist=None) ->
 
 def _cpu_agreement(np, name: str, model, data, users) -> str:
     """The same fitted arrays in a CPU model (the plain twins): identical
-    items and scores within SCORE_RTOL / SCORE_ATOL on ``users``; where the
-    scores are sums of floats, items may swap only inside TIE_GAP."""
+    items and scores within SCORE_RTOL / SCORE_ATOL on ``users``. Where the
+    scores are sums of floats, a user whose items differ is held to
+    ``compare_reco`` alone (items may swap only inside TIE_GAP) and counted."""
     from rectools_tpu_torch.models import model_from_config
     from rectools_tpu_torch.models.convert import fitted_arrays, load_fitted_arrays
 
     cpu = load_fitted_arrays(model_from_config({**model.get_config(), "device": "cpu"}), fitted_arrays(model))
     got = model.recommend(users, data, k=K, filter_viewed=True)
-    if name in CLASSIC_FLOAT_SCORES:
-        ref = cpu.recommend(users, data, k=K + 1, filter_viewed=True)
-        n = compare_reco(np, got, ref, K)
-        ref_k = ref.groupby("user_id", sort=False).head(K)
-        same = int(sum((g["item_id"].to_numpy() == r["item_id"].to_numpy()).all()
-                       for (_, g), (_, r) in zip(got.groupby("user_id", sort=False),
-                                                 ref_k.groupby("user_id", sort=False))))
-        return f"{n} users agree with the CPU copy (items equal outside TIE_GAP {TIE_GAP}; {same} of them identical)"
-    ref = cpu.recommend(users, data, k=K, filter_viewed=True)
-    check(np.array_equal(got["user_id"].to_numpy(), ref["user_id"].to_numpy())
-          and np.array_equal(got["item_id"].to_numpy(), ref["item_id"].to_numpy()),
-          f"classic {name}: items differ from the CPU copy")
-    check(bool(np.allclose(got["score"], ref["score"], rtol=SCORE_RTOL, atol=SCORE_ATOL)),
+    ref = cpu.recommend(users, data, k=K + 1, filter_viewed=True)
+    ref_k = ref.groupby("user_id", sort=False).head(K)
+    check(np.array_equal(got["user_id"].to_numpy(), ref_k["user_id"].to_numpy()),
+          f"classic {name}: users or their counts differ from the CPU copy")
+    check(bool(np.allclose(got["score"], ref_k["score"], rtol=SCORE_RTOL, atol=SCORE_ATOL)),
           f"classic {name}: scores differ from the CPU copy")
-    return f"{len(users)} users identical to the CPU copy (scores within rtol {SCORE_RTOL}, atol {SCORE_ATOL})"
+    same_rows = got["item_id"].to_numpy() == ref_k["item_id"].to_numpy()
+    differ = got.loc[~same_rows, "user_id"].unique()
+    check(len(differ) == 0 or name in CLASSIC_FLOAT_SCORES,
+          f"classic {name}: items differ from the CPU copy for {len(differ)} users")
+    for user in differ:
+        compare_reco(np, got[got["user_id"] == user], ref[ref["user_id"] == user], K)
+    return (f"{len(users) - len(differ)} of {len(users)} users identical to the CPU copy (scores within rtol "
+            f"{SCORE_RTOL}, atol {SCORE_ATOL}); {len(differ)} differ only inside ties of TIE_GAP {TIE_GAP}")
 
 
 def _random_properties(np, model, data, users, first) -> str:
@@ -2073,10 +2076,13 @@ def _random_properties(np, model, data, users, first) -> str:
 
 def truncation_kernel_check(torch, np, dataset, dev) -> dict:
     """Kernel 3 at ItemKNN's truncation shape: the plain co-counts of the
-    frame (15,871 x 15,871, padded to 15,872 columns), K = 50, in blocks of
-    4,096 rows. Each block's group top-m bit-equal to the twin's; the
-    truncated table bit-equal to the one from a full stable sort of each
-    block; timed beside the twin, torch.topk and the bound."""
+    frame (15,871 x 15,871, padded to 15,872 columns), K = 50 candidates a
+    group (the warp kernel), in blocks of 4,096 rows. No block sorted again;
+    each block's group top-50 bit-equal to the twin's; the truncated table
+    bit-equal to the one from a full stable sort of each block. The kernel
+    on one block is timed beside its twin and torch.topk, and the whole
+    truncation beside the same table by the stable sort (its plain version)
+    and by torch.topk, against the bound of reading S and writing the table."""
     import torch.nn.functional as F
 
     from rectools_tpu_torch.models.item_knn import TRUNCATE_BLOCK_ROWS, _truncate_topk_rows, apply_weighting
@@ -2086,19 +2092,39 @@ def truncation_kernel_check(torch, np, dataset, dev) -> dict:
     s = linalg.gram_matrix(apply_weighting(ui, "plain").astype(np.float32).tocsr(), device=dev)
     n = s.shape[0]
     k = min(CLASSIC_NEIGHBOURS, n)
+    m = min(k, topk_select.GROUP_W)  # _truncate_topk_rows's candidates a group
     n_blocks = math.ceil(n / TRUNCATE_BLOCK_ROWS)
-    before = _native.LAUNCHES["group_topm"]
-    truncated, fired = _truncate_topk_rows(s, k)
-    check(_native.LAUNCHES["group_topm"] - before == n_blocks, "truncation: not one group_topm launch a block")
-    reference = torch.zeros_like(s)
-    for start in range(0, n, TRUNCATE_BLOCK_ROWS):
-        vals, idx = topk_select.sorted_top_k(s[start : start + TRUNCATE_BLOCK_ROWS], k)
-        reference[start : start + TRUNCATE_BLOCK_ROWS].scatter_(1, idx, vals)
-    check(bool(torch.equal(truncated, reference)), "truncation: the kernel's top-K differs from the stable sort's")
-    del truncated, reference
+    before, fallbacks = _native.LAUNCHES["group_topm_warp"], topk_select.FALLBACKS["exact_top_k"]
+    truncated = _truncate_topk_rows(s, k)
+    check(_native.LAUNCHES["group_topm_warp"] - before == n_blocks,
+          "truncation: not one group_topm_warp launch a block")
+    fired = topk_select.FALLBACKS["exact_top_k"] - fallbacks
+    check(fired == 0, f"truncation: {fired} blocks failed the certificate with {m} candidates a group")
+
+    def by_blocks(select):
+        out = torch.zeros_like(s)
+        for start in range(0, n, TRUNCATE_BLOCK_ROWS):
+            vals, idx = select(s[start : start + TRUNCATE_BLOCK_ROWS])
+            out[start : start + TRUNCATE_BLOCK_ROWS].scatter_(1, idx, vals)
+        return out
+
+    def by_sort():
+        return by_blocks(lambda block: topk_select.sorted_top_k(block, k))
+
+    def by_library():  # torch.topk: no tie order on CUDA, timed only
+        return by_blocks(lambda block: torch.topk(block, k, dim=1))
+
+    check(bool(torch.equal(truncated, by_sort())), "truncation: the kernel's top-K differs from the stable sort's")
+    del truncated
+    whole = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: _truncate_topk_rows(s, k), iters=5, warmup=1),
+        plain_ms=time_ms(by_sort, iters=5, warmup=1),
+        library_ms=time_ms(by_library, iters=5, warmup=1),
+        bound=bound_ms(2 * s.numel() * 4, s.numel()),
+    )
 
     n_pad = -(-n // topk_select.GROUP_W) * topk_select.GROUP_W
-    m = topk_select.pick_m(n_pad, k)
     blocks = [F.pad(s[start : start + TRUNCATE_BLOCK_ROWS], (0, n_pad - n), value=float("-inf"))
               for start in range(0, n, TRUNCATE_BLOCK_ROWS)]
     for i, block in enumerate(blocks):
@@ -2115,13 +2141,16 @@ def truncation_kernel_check(torch, np, dataset, dev) -> dict:
         plain_ms=time_ms(lambda: topk_select.group_topm_reference(block, m), iters=3),
         library_ms=time_ms(lambda: torch.topk(block[:, :n], k, dim=1)),
         bound=bound_ms(block.numel() * 4 + b * g * m * 8, block.numel()),
-        blocks=n_blocks, fired=fired, m=m, zero_share=zero_share,
+        blocks=n_blocks, fired=fired, m=m, zero_share=zero_share, whole=whole,
     )
     print(f"classic truncation: S {n} x {n} plain co-counts ({zero_share:.4f} zeros), K={k}, {n_blocks} blocks of "
-          f"{TRUNCATE_BLOCK_ROWS} rows: kernel 3 (m={m}) bit-equal to its twin on every block, the top-K table "
-          f"bit-equal to a stable sort's; certificate fired on {fired} of {n_blocks} blocks; one block "
+          f"{TRUNCATE_BLOCK_ROWS} rows, m={m}: kernel 3 bit-equal to its twin on every block, the top-K table "
+          f"bit-equal to a stable sort's; certificate failed on {fired} of {n_blocks} blocks; one block "
           f"({b} x {n_pad}): ms={result['ms']:.4f} plain_ms={result['plain_ms']:.4f} "
           f"library_ms={result['library_ms']:.4f} (torch.topk k={k}) {bound_text(result)}")
+    print(f"classic truncation: the whole table: _truncate_topk_rows ms={whole['ms']:.4f}, by the stable sort "
+          f"(its plain version) plain_ms={whole['plain_ms']:.4f}, by torch.topk library_ms={whole['library_ms']:.4f}, "
+          f"{bound_text(whole)}")
     del s, blocks
     torch.cuda.empty_cache()
     return result
@@ -2192,6 +2221,8 @@ def classic_phase(torch, np, pd, port, df, dataset, dev) -> dict:
     print(f"classic: the frame with a {CLASSIC_CATEGORIES}-value item category built in "
           f"{time.perf_counter() - t0:.2f} s")
 
+    from rectools_tpu_torch.ops.topk_select import FALLBACKS
+
     totals: dict = {}
     results = {}
     fitted = {}
@@ -2199,13 +2230,17 @@ def classic_phase(torch, np, pd, port, df, dataset, dev) -> dict:
         data = by_category if name == "popular_in_category" else dataset
         rows_per_user = CLASSIC_CATEGORIES if name == "popular_in_category" else 1
         t0 = time.perf_counter()
+        FALLBACKS.clear()
         _, fit_launches = _count_group_topm(port, lambda: model.fit(data), totals)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
+        fit_fallbacks = sum(FALLBACKS.values())
+        FALLBACKS.clear()
         t0 = time.perf_counter()
         reco, launches = _count_group_topm(port, lambda: model.recommend(users, data, k=K, filter_viewed=True),
                                            totals)
         first_s = time.perf_counter() - t0
+        fallbacks = sum(FALLBACKS.values())  # serving batches sorted again after a failed certificate
         expected = math.ceil(len(users) * rows_per_user / SERVING_B)
         check(launches == expected, f"classic {name}: {launches} group_topm launches in recommend, "
               f"expected {expected} (one a serving batch)")
@@ -2228,13 +2263,15 @@ def classic_phase(torch, np, pd, port, df, dataset, dev) -> dict:
             agreement = _random_properties(np, model, data, users, reco)
         else:
             agreement = _cpu_agreement(np, name, model, data, sample)
-        print(f"classic {name}: fit {fit_s:.3f} s (kernel 3 launches {fit_launches}); recommend {len(users)} users "
-              f"in {expected} batches, launches {launches}, first {first_s:.3f} s, warm median "
+        print(f"classic {name}: fit {fit_s:.3f} s (kernel 3 launches {fit_launches}, blocks sorted again "
+              f"{fit_fallbacks}); recommend {len(users)} users in {expected} batches, launches {launches}, batches "
+              f"sorted again {fallbacks}, first {first_s:.3f} s, warm median "
               f"{warm_s:.3f} s of {[round(t, 3) for t in times]}, {len(users) / warm_s:.0f} users/s; i2i "
               f"{len(targets)} items (launches {i2i_launches}); whitelist of {len(whitelist)} items; {agreement}")
         results[name] = {"fit_s": fit_s, "first_s": first_s, "warm_s": warm_s, "warm_samples_s": times,
                          "users_per_s": len(users) / warm_s, "fit_launches": fit_launches,
-                         "recommend_launches": launches}
+                         "fit_fallbacks": fit_fallbacks, "recommend_launches": launches,
+                         "recommend_fallbacks": fallbacks}
         fitted[name] = model
 
     auto, exact = fitted["ease"].weight, fitted["ease_exact"].weight
@@ -3200,8 +3237,9 @@ def main() -> int:
                  "launches_by_path": by_path, **numbers(kernels[result_key])}
         if name == "group_topm":  # at ItemKNN's truncation shape: plain co-counts, many ties
             truncation = kernels["group_topm_truncation"]
-            entry["item_knn_truncation"] = {**numbers(truncation), "blocks": truncation["blocks"],
-                                            "certificate_fired": truncation["fired"]}
+            entry["item_knn_truncation"] = {**numbers(truncation), "m": truncation["m"],
+                                            "blocks": truncation["blocks"], "certificate_fired": truncation["fired"],
+                                            "whole_table": numbers(truncation["whole"])}
         if name == "attention_fwd":  # the same kernel at the training width, with dropout
             entry["train_width_dropout"] = numbers(kernels["attention_fwd_train"])
         if name.startswith("attention_"):  # under BERT4Rec's key-padding bias, and at L = 200 with heads of 32

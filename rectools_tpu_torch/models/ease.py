@@ -12,6 +12,7 @@ fitting with it set raises (not ported).
 import typing as tp
 
 import numpy as np
+import torch
 import typing_extensions as tpe
 from scipy import sparse
 
@@ -112,7 +113,8 @@ class EASEModel(ModelBase[EASEModelConfig]):
         # scores for target t = weight[t] row: one-hot subjects vs weight^T.
         n = self.weight.shape[0]
         one_hot = sparse.identity(n, dtype=np.float32, format="csr")
-        ranker = TorchRanker(Distance.DOT, one_hot, np.ascontiguousarray(self.weight.T), device=self.device)
+        weight_t = torch.as_tensor(self.weight, device=resolve_device(self.device)).T  # transposed on the device
+        ranker = TorchRanker(Distance.DOT, one_hot, weight_t, device=self.device)
         return ranker.rank(
             subject_ids=target_ids,
             k=k,

@@ -7,10 +7,11 @@ accumulated on the model's ``device`` by the same blocked Gram as EASE, then
 truncated to its top K per row on the device by the grouped top-k (kernel 3 on
 the card) in blocks of ``TRUNCATE_BLOCK_ROWS`` rows: ties keep the lowest
 index, as ``lax.top_k`` does (``torch.topk`` promises no tie order on CUDA).
-The plain variant's co-counts are integers and tie often, so many blocks
-fail the selector's certificate and are sorted exactly; each block still runs
-the kernel first. u2i scoring = user-history CSR rows x S through the top-k
-ranking engine; i2i = similarity-row ranking via one-hot subjects.
+The plain variant's co-counts are integers and tie often, and a row's top K
+may crowd into one group of 128 ids, so every group keeps K candidates: then
+no tie or crowding can hide an entry of the top K. u2i scoring = user-history
+CSR rows x S through the top-k ranking engine; i2i = similarity-row ranking
+via one-hot subjects.
 """
 
 import typing as tp
@@ -22,7 +23,7 @@ from scipy import sparse
 
 from ..dataset import Dataset
 from ..ops.linalg import gram_matrix
-from ..ops.topk_select import grouped_exact_top_k, sorted_top_k
+from ..ops.topk_select import GROUP_W, grouped_exact_top_k
 from ..utils.device import resolve_device
 from .base import ModelBase, ModelConfig
 from .rank import Distance, TorchRanker
@@ -73,23 +74,16 @@ def apply_weighting(
     return sparse.csr_matrix((data, (coo.row, coo.col)), shape=x.shape)
 
 
-def _truncate_topk_rows(
-    s: torch.Tensor, k: int, block_rows: int = TRUNCATE_BLOCK_ROWS
-) -> tp.Tuple[torch.Tensor, int]:
-    """Keep only the top-k entries of each row, zero the rest. Returns the
-    truncated table and the number of row blocks whose certificate failed
-    (sorted exactly instead)."""
+def _truncate_topk_rows(s: torch.Tensor, k: int, block_rows: int = TRUNCATE_BLOCK_ROWS) -> torch.Tensor:
+    """Keep only the top-k entries of each row, zero the rest. Each group of
+    128 columns keeps k candidates, so the grouped selection is exact and its
+    certificate cannot fail, however many entries tie."""
     out = torch.zeros_like(s)
-    fired = []
-
-    def sort_exactly(block: torch.Tensor, k: int) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-        fired.append(block.shape[0])
-        return sorted_top_k(block, k)
-
+    m = min(k, GROUP_W)
     for start in range(0, s.shape[0], block_rows):
-        top_vals, top_idx = grouped_exact_top_k(s[start : start + block_rows], k, fallback=sort_exactly)
+        top_vals, top_idx = grouped_exact_top_k(s[start : start + block_rows], k, m=m)
         out[start : start + block_rows].scatter_(1, top_idx, top_vals)
-    return out, len(fired)
+    return out
 
 
 class ItemKNNModelConfig(ModelConfig):
@@ -145,7 +139,12 @@ class ItemKNNModel(ModelBase[ItemKNNModelConfig]):
         weighted = apply_weighting(ui_csr, self.variant, self.K1, self.B).astype(np.float32)
         s = gram_matrix(weighted.tocsr(), device=self.device)
         k = min(self.K, s.shape[0])
-        self.similarity = _truncate_topk_rows(s, k)[0].cpu().numpy()
+        self.similarity = _truncate_topk_rows(s, k).cpu().numpy()
+
+    def _similarity_t(self) -> torch.Tensor:
+        """S^T, the ranker's object table: S uploaded as it is and transposed
+        on the device (a view), where a host transpose would copy the table."""
+        return torch.as_tensor(self.similarity, device=resolve_device(self.device)).T
 
     def _recommend_u2i(
         self,
@@ -156,7 +155,7 @@ class ItemKNNModel(ModelBase[ItemKNNModelConfig]):
         sorted_item_ids_to_recommend: tp.Optional[np.ndarray],
     ) -> tp.Tuple[np.ndarray, np.ndarray, np.ndarray]:
         user_items = dataset.get_user_item_matrix(include_weights=True)
-        ranker = TorchRanker(Distance.DOT, user_items, np.ascontiguousarray(self.similarity.T), device=self.device)
+        ranker = TorchRanker(Distance.DOT, user_items, self._similarity_t(), device=self.device)
         filter_csr = user_items[user_ids] if filter_viewed else None
         return ranker.rank(
             subject_ids=user_ids,
@@ -174,7 +173,7 @@ class ItemKNNModel(ModelBase[ItemKNNModelConfig]):
     ) -> tp.Tuple[np.ndarray, np.ndarray, np.ndarray]:
         n = self.similarity.shape[0]
         one_hot = sparse.identity(n, dtype=np.float32, format="csr")
-        ranker = TorchRanker(Distance.DOT, one_hot, np.ascontiguousarray(self.similarity.T), device=self.device)
+        ranker = TorchRanker(Distance.DOT, one_hot, self._similarity_t(), device=self.device)
         return ranker.rank(
             subject_ids=target_ids,
             k=k,

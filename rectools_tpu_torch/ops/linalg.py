@@ -16,7 +16,8 @@ uses a shifted Cholesky QR, which breaks down in f32 on skewed catalogs
 ``torch.Generator`` seeded with ``seed`` on the Gram's device; ``q0`` takes a
 given block instead (the tests pass JAX's ``jax.random.normal`` draws).
 
-A ``mesh`` (JAX's sharded Gram accumulation) is not ported: it raises.
+JAX's ``mesh`` argument (the sharded Gram accumulation) is not ported; the
+models refuse a ``mesh_shape`` with :func:`refuse_mesh`.
 """
 
 import typing as tp
@@ -42,9 +43,9 @@ def _check_solver(solver: str) -> str:
     return solver
 
 
-def refuse_mesh(mesh: tp.Any) -> None:
-    """Raise for a mesh (or a model's ``mesh_shape``): sharding is not ported."""
-    if mesh is not None:
+def refuse_mesh(mesh_shape: tp.Any) -> None:
+    """Raise for a model's ``mesh_shape``: sharding is not ported."""
+    if mesh_shape is not None:
         raise NotImplementedError(
             "a mesh for the Gram matrix and the factorizations is not ported yet "
             "(ROADMAP.md §1 item 6, multi-device)"
@@ -52,13 +53,12 @@ def refuse_mesh(mesh: tp.Any) -> None:
 
 
 def gram_matrix(
-    ui_csr: sparse.csr_matrix, block_rows: int = 8192, mesh: tp.Any = None, device: DeviceLike = "cuda"
+    ui_csr: sparse.csr_matrix, block_rows: int = 8192, device: DeviceLike = "cuda"
 ) -> torch.Tensor:
     """X^T X on ``device`` (f32), accumulated over dense row blocks of the CSR
     matrix. A tall matrix (``n_users > 4 * n_items``) is multiplied on the host
     by scipy and uploaded once, as in JAX: the dense blocks would move far
     more bytes than the sparse product reads."""
-    refuse_mesh(mesh)
     dev = resolve_device(device)
     n_users, n_items = ui_csr.shape
     if n_users > 4 * n_items:
@@ -144,13 +144,12 @@ def spd_inverse(a: torch.Tensor, maxiter: int = 200, tol: float = 1e-6, solver: 
 def ease_weight(
     ui_csr: sparse.csr_matrix,
     regularization: float,
-    mesh: tp.Any = None,
     solver: SolverKind = "auto",
     device: DeviceLike = "cuda",
 ) -> np.ndarray:
     """EASE closed-form weights: W = G^-1 / (-diag(G^-1)) with a zero diagonal,
     G the regularized Gram (reference ease.py:122-132)."""
-    gram = gram_matrix(ui_csr, mesh=mesh, device=device)
+    gram = gram_matrix(ui_csr, device=device)
     n = gram.shape[0]
     p = spd_inverse(gram + float(regularization) * torch.eye(n, dtype=torch.float32, device=gram.device),
                     solver=solver)
@@ -234,7 +233,6 @@ def truncated_svd(
     ui_csr: sparse.csr_matrix,
     factors: int,
     block_rows: int = 8192,
-    mesh: tp.Any = None,
     tol: float = 0.0,
     maxiter: tp.Optional[int] = None,
     random_state: tp.Optional[int] = None,
@@ -249,7 +247,7 @@ def truncated_svd(
     n_users, n_items = ui_csr.shape
     if factors > min(n_users, n_items) - 1:
         raise ValueError("`factors` must be less than min(n_users, n_items)")
-    gram = gram_matrix(ui_csr, block_rows, mesh=mesh, device=device)
+    gram = gram_matrix(ui_csr, block_rows, device=device)
     eigvals, v = topk_eigh(
         gram, factors, tol=tol, maxiter=maxiter, seed=0 if random_state is None else int(random_state),
         solver=solver, q0=q0,

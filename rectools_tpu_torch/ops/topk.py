@@ -19,7 +19,7 @@ out-of-range fill that JAX's ``mode="drop"`` discards.
 The serving loop (:func:`rank_topk`) dispatches every batch first and brings
 the results to the host once; the grouped selection's certificate flags come
 back with them, and only a suspect batch (rare; adversarial layouts) is
-recomputed by the exact sort.
+recomputed by the exact sort and counted in ``topk_select.FALLBACKS``.
 """
 
 import math
@@ -32,7 +32,7 @@ from scipy import sparse
 
 from .. import native as _native
 from ..utils.device import DeviceLike, full_f32_matmul, host_to_device, resolve_device
-from .topk_select import grouped_exact_top_k, grouped_top_k_candidates, sorted_top_k
+from .topk_select import FALLBACKS, grouped_exact_top_k, grouped_top_k_candidates, sorted_top_k
 
 
 class Distance(Enum):
@@ -233,6 +233,7 @@ def rank_topk(
     idx_all, scores_all, valid_all, suspect = _fetch([p[3] for p in pending])
     sizes = [len(p[0]) for p in pending]
     offsets = np.concatenate(([0], np.cumsum(sizes)))
+    FALLBACKS["rank_topk"] += int(suspect.sum())
     for bi in np.flatnonzero(suspect):
         # certificate failed: recompute this batch with the exact sort
         batch_subject_ids, sub_block, seen, _ = pending[bi]
@@ -335,6 +336,7 @@ def random_rank_topk(
 
     idx_all, _, valid_all, suspect = _fetch([p[2] for p in pending])
     offsets = np.concatenate(([0], np.cumsum([len(p[0]) for p in pending])))
+    FALLBACKS["random_rank_topk"] += int(suspect.sum())
     for bi in np.flatnonzero(suspect):
         _, seen_dev, _ = pending[bi]
         scores = draw(int(bi), (len(seen_dev), n_pad)).to(device=dev, dtype=torch.float32)

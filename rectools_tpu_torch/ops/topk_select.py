@@ -12,14 +12,19 @@ Port of rectools_tpu/ops/topk_select.py.
    ``torch.sort``. ``torch.topk`` is not used: on CUDA it does not promise
    lowest-index-first among ties, and ``lax.top_k`` does.
 3. **Certificate**: a group can hide an element of the top k only if its m-th
-   kept value still ties or beats the provisional k-th value. Then the batch is
-   suspect and the exact fallback (a full stable sort) recomputes it.
+   kept element comes before the provisional k-th in that order (a greater
+   value, or an equal value at a lower index; a tie at -inf always counts,
+   since the kernel reports lane 0 for such slots). Then the batch is suspect
+   and the exact fallback (a full stable sort) recomputes it. With ``m >= k``
+   and a finite k-th no group can: its m kept would be k or more elements
+   ahead of the k-th.
 
 :func:`grouped_top_k_candidates` returns the fast result and the suspect flag
 as device tensors, so a serving loop can dispatch every batch before it reads
 any flag (ops/topk.py); :func:`grouped_exact_top_k` reads the flag at once.
 """
 
+import collections
 import ctypes
 import typing as tp
 
@@ -37,6 +42,10 @@ _SIGNATURES = {
 }
 
 TopK = tp.Tuple[torch.Tensor, torch.Tensor]
+
+# Batches whose certificate failed and that the exact sort served, by caller
+# ("exact_top_k", "rank_topk", "random_rank_topk"); chip_smoke.py reads them.
+FALLBACKS: tp.Counter[str] = collections.Counter()
 
 
 def group_topm_reference(scores: torch.Tensor, m: int) -> TopK:
@@ -102,13 +111,17 @@ def sorted_top_k(scores: torch.Tensor, k: int) -> TopK:
     return vals[:, :k].contiguous(), idx[:, :k].contiguous()
 
 
-def grouped_top_k_candidates(scores: torch.Tensor, k: int) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def grouped_top_k_candidates(
+    scores: torch.Tensor, k: int, m: tp.Optional[int] = None
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fast path without a host sync: (values (B, k) f32, indices (B, k) int64,
-    suspect () bool). The values and indices are exact unless ``suspect``."""
+    suspect () bool). The values and indices are exact unless ``suspect``.
+    ``m`` candidates a group (default :func:`pick_m`); ``m >= k`` is never
+    suspect while the k-th value is finite."""
     b, n = scores.shape
     n_pad = -(-n // GROUP_W) * GROUP_W
     g = n_pad // GROUP_W
-    m = pick_m(n_pad, k)
+    m = pick_m(n_pad, k) if m is None else m
     if m > GROUP_W or k > n:
         raise ValueError(f"k={k} too large for grouped top-k over {n} columns")
     padded = scores if scores.dtype == torch.float32 else scores.to(torch.float32)
@@ -121,9 +134,11 @@ def grouped_top_k_candidates(scores: torch.Tensor, k: int) -> tp.Tuple[torch.Ten
     sorted_vals, pos = torch.sort(cand_vals, dim=1, descending=True, stable=True)
     top_vals = sorted_vals[:, :k].contiguous()
     top_idx = cand_idx.gather(1, pos[:, :k])
-    kth = top_vals[:, k - 1 : k]
-    group_floor = gv[:, :, m - 1]
-    suspect = (group_floor >= kth).any()
+    kth_val, kth_idx = top_vals[:, k - 1 : k], top_idx[:, k - 1 : k]
+    floor_val, floor_idx = gv[:, :, m - 1], cand_idx.reshape(b, g, m)[:, :, m - 1]
+    # a -inf slot's lane is not its element's (the kernel gives lane 0), so a tie there is suspect
+    tie_ahead = (floor_idx < kth_idx) | torch.isneginf(floor_val)
+    suspect = ((floor_val > kth_val) | ((floor_val == kth_val) & tie_ahead)).any()
     return top_vals, top_idx, suspect
 
 
@@ -131,13 +146,15 @@ def grouped_exact_top_k(
     scores: torch.Tensor,  # (B, N)
     k: int,
     fallback: tp.Optional[tp.Callable[[torch.Tensor, int], TopK]] = None,
+    m: tp.Optional[int] = None,
 ) -> TopK:
     """Exact top k of each row (values f32, indices int64), lowest index first
     among ties on the fast path. Reads the certificate on the host at once;
     ``fallback(scores, k)`` (default :func:`sorted_top_k`) serves a suspect
     batch and is cast to the fast path's dtypes."""
-    top_vals, top_idx, suspect = grouped_top_k_candidates(scores, k)
+    top_vals, top_idx, suspect = grouped_top_k_candidates(scores, k, m)
     if bool(suspect):
+        FALLBACKS["exact_top_k"] += 1
         fv, fi = (fallback or sorted_top_k)(scores, k)
         return fv.to(torch.float32), fi.to(torch.int64)
     return top_vals, top_idx

@@ -38,6 +38,7 @@ from rectools_tpu_torch.models import (
 )
 from rectools_tpu_torch.models.convert import fitted_arrays, load_fitted_arrays
 from rectools_tpu_torch.models.item_knn import _truncate_topk_rows
+from rectools_tpu_torch.ops.topk_select import FALLBACKS
 
 from .models.data import INTERACTIONS
 
@@ -331,8 +332,8 @@ def test_random_model_properties_and_repeatability() -> None:
 @pytest.mark.parametrize("case", ["integer_ties", "distinct"])
 def test_item_knn_truncation_keeps_jax_indices(case: str) -> None:
     """Top-K rows of a co-count matrix with many ties keep ``lax.top_k``'s
-    lowest-index-first order, through blocks that fail the grouped
-    selector's certificate (sorted exactly) or pass it."""
+    lowest-index-first order, from the grouped selection alone: no block is
+    sorted again."""
     import jax.numpy as jnp
 
     from rectools_tpu.models.item_knn import _truncate_topk_rows as jax_truncate
@@ -344,6 +345,7 @@ def test_item_knn_truncation_keeps_jax_indices(case: str) -> None:
     else:
         s = rng.normal(size=(300, 300)).astype(np.float32)
     expected = np.asarray(jax_truncate(jnp.asarray(s), 6))
-    got, fired = _truncate_topk_rows(torch.tensor(s), 6, block_rows=64)
+    before = FALLBACKS["exact_top_k"]
+    got = _truncate_topk_rows(torch.tensor(s), 6, block_rows=64)
     np.testing.assert_array_equal(got.numpy(), expected)
-    assert fired == (5 if case == "integer_ties" else 0)
+    assert FALLBACKS["exact_top_k"] == before  # six candidates a group: the certificate cannot fail

@@ -483,8 +483,8 @@ def test_cuda_item_knn_truncation_matches_cpu(cuda: torch.device) -> None:
     """Kernel 3 at ItemKNN's truncation shape: integer co-counts of a sparse
     15,871-item matrix (most rows end in tied zeros), K = 50, in 4,096-row
     blocks. The truncated table equals the CPU's (the twin), bit for bit;
-    one group_topm launch a block; the same blocks fail the certificate; each
-    block's group top-m equals the twin's."""
+    one group_topm_warp launch a block (50 candidates a group); no block is
+    sorted again; each block's group top-50 equals the twin's."""
     import torch.nn.functional as F
 
     from rectools_tpu_torch.models.item_knn import TRUNCATE_BLOCK_ROWS, _truncate_topk_rows
@@ -493,18 +493,17 @@ def test_cuda_item_knn_truncation_matches_cpu(cuda: torch.device) -> None:
     gen = torch.Generator(device=cuda).manual_seed(16)
     x = (torch.rand((2048, n), generator=gen, device=cuda) < 0.003).float()
     s = x.T @ x
-    before = _native.LAUNCHES["group_topm"]
-    got, fired = _truncate_topk_rows(s, k)
+    before, fallbacks = _native.LAUNCHES["group_topm_warp"], topk_select.FALLBACKS["exact_top_k"]
+    got = _truncate_topk_rows(s, k)
     n_blocks = -(-n // TRUNCATE_BLOCK_ROWS)
-    assert _native.LAUNCHES["group_topm"] - before == n_blocks
-    expected, expected_fired = _truncate_topk_rows(s.cpu(), k)
-    assert torch.equal(got.cpu(), expected) and fired == expected_fired > 0
+    assert _native.LAUNCHES["group_topm_warp"] - before == n_blocks
+    assert topk_select.FALLBACKS["exact_top_k"] == fallbacks
+    assert torch.equal(got.cpu(), _truncate_topk_rows(s.cpu(), k))
     n_pad = -(-n // topk_select.GROUP_W) * topk_select.GROUP_W
-    m = topk_select.pick_m(n_pad, k)
     for start in range(0, n, TRUNCATE_BLOCK_ROWS):
         block = F.pad(s[start : start + TRUNCATE_BLOCK_ROWS], (0, n_pad - n), value=float("-inf"))
-        vals, lanes = topk_select.group_topm(block, m)
-        ref_vals, ref_lanes = topk_select.group_topm_reference(block, m)
+        vals, lanes = topk_select.group_topm(block, k)
+        ref_vals, ref_lanes = topk_select.group_topm_reference(block, k)
         assert torch.equal(vals, ref_vals) and torch.equal(lanes, ref_lanes)
 
 

@@ -253,12 +253,90 @@ def test_certificate_route_is_observed(adversarial: bool) -> None:
         v, i = topk_select.sorted_top_k(s, kk)
         return v.double(), i.int()  # the route must hand back the fast path's dtypes
 
+    before = topk_select.FALLBACKS["exact_top_k"]
     vals, idx = topk_select.grouped_exact_top_k(_t(x), k, fallback=spy_fallback)
     assert calls == ([k] if adversarial else [])
+    assert topk_select.FALLBACKS["exact_top_k"] - before == len(calls)
     assert vals.dtype == torch.float32 and idx.dtype == torch.int64
     ref_v, ref_i = jax.lax.top_k(jnp.asarray(x), k)
     np.testing.assert_array_equal(vals.numpy(), np.asarray(ref_v))
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_i))
+
+
+def _tie_case(case: str) -> tp.Tuple[np.ndarray, int, tp.Optional[int], bool]:
+    """(scores, k, m or None for pick_m, whether the certificate must fail)."""
+    rng = np.random.default_rng(9)
+    x = np.zeros((3, 4096), np.float32)
+    if case == "ties_past_the_kth":  # every group's m-th kept is a zero past the k-th's index
+        x[:, :3] = [3.0, 2.0, 1.0]
+        return x, 5, None, False
+    if case == "ties_hidden_in_group_0":  # group 0 keeps 12 zeros; the top 20 needs 19 of them
+        x[:, 200] = 1.0
+        return x, 20, None, True
+    if case == "fewer_finite_than_k":  # the k-th is -inf, where the kernel's lanes repeat lane 0
+        x[:] = -np.inf
+        x[:, [0, 200, 300]] = [1.0, 2.0, 3.0]
+        return x, 5, 5, True
+    if case == "tied_zeros_m_is_k":  # ItemKNN's truncation: few co-counts a row, K = 50
+        x = ((rng.random((3, 4096)) < 0.005) * rng.integers(1, 4, size=(3, 4096))).astype(np.float32)
+        return x, 50, 50, False
+    # the whole top k in group 0, and ties: m = k keeps all of it
+    x = np.repeat(np.floor(np.linspace(40.0, 1.0, 4096, dtype=np.float32))[None, :], 3, axis=0)
+    return x, 50, 50, False
+
+
+@pytest.mark.parametrize("case", ["ties_past_the_kth", "ties_hidden_in_group_0", "fewer_finite_than_k",
+                                  "tied_zeros_m_is_k", "crowded_m_is_k"])
+def test_certificate_reads_ties_by_index(case: str) -> None:
+    """A group's m-th kept element hides nothing unless it comes before the
+    provisional k-th (a greater value, or an equal one at a lower index): ties
+    past the k-th pass, and with m >= k no input with a finite k-th fails. A
+    tie at -inf always fails. Either way the result is ``lax.top_k``'s."""
+    x, k, m, must_fail = _tie_case(case)
+    _, _, suspect = topk_select.grouped_top_k_candidates(_t(x), k, m)
+    assert bool(suspect) is must_fail
+    before = topk_select.FALLBACKS["exact_top_k"]
+    vals, idx = topk_select.grouped_exact_top_k(_t(x), k, m=m)
+    assert topk_select.FALLBACKS["exact_top_k"] - before == int(must_fail)
+    ref_v, ref_i = jax.lax.top_k(jnp.asarray(x), k)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(ref_v))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_i))
+
+
+@pytest.mark.parametrize("adversarial", [False, True])
+@pytest.mark.parametrize("engine", ["rank_topk", "random_rank_topk"])
+def test_serving_counts_the_batches_sorted_again(engine: str, adversarial: bool) -> None:
+    """Each serving batch whose certificate fails is sorted again exactly and
+    counted in ``FALLBACKS`` under its engine; the output is the exact one."""
+    n_subjects, n_objects, k, batch = 10, 1000, 20, 4
+    expected_fallbacks = -(-n_subjects // batch) if adversarial else 0
+    if engine == "rank_topk":
+        objects = np.random.default_rng(2).normal(size=(n_objects, 4)).astype(np.float32)
+        if adversarial:  # scores fall along the catalog: group 0 holds the whole top k
+            objects[:, 0], objects[:, 1:] = np.linspace(100.0, 1.0, n_objects), 0.0
+        subjects = np.ones((n_subjects, 4), np.float32)
+        run = lambda: topk.rank_topk(subjects, objects, np.arange(n_subjects), k, batch_size=batch, device="cpu")
+        expected = np.argsort(-(subjects @ objects.T), axis=1, kind="stable")[:, :k].ravel()
+    else:
+        blocks = {}
+        rng = np.random.default_rng(3)
+
+        def draw(bi: int, shape: tp.Tuple[int, int]) -> torch.Tensor:
+            if bi not in blocks:
+                row = np.linspace(1.0, 0.0, shape[1], dtype=np.float32) if adversarial else rng.random(shape[1])
+                blocks[bi] = np.repeat(row[None, :].astype(np.float32), shape[0], axis=0)
+            return torch.from_numpy(blocks[bi].copy())
+
+        run = lambda: topk.random_rank_topk(draw, n_objects, np.arange(n_subjects), k, batch_size=batch,
+                                            device="cpu")
+        expected = None
+    before = topk_select.FALLBACKS[engine]
+    _, items, _ = run()
+    assert topk_select.FALLBACKS[engine] - before == expected_fallbacks
+    if expected is not None:
+        np.testing.assert_array_equal(items, expected)
+    elif adversarial:  # the drawn scores fall along the catalog: the first k objects, in order
+        np.testing.assert_array_equal(items.reshape(n_subjects, k), np.tile(np.arange(k), (n_subjects, 1)))
 
 
 # ------------------------------------------------------------------ ranking
