@@ -205,8 +205,26 @@ own lines; any failure exits nonzero and prints no result:
              the twin, torch.topk and the bound, and the whole truncation
              beside the stable sort's and torch.topk's. ``cross_validate`` of Popular, EASE (the exact
              solver: the auto one took 65 s a fit on an H100 80GB HBM3 at
-             700 W), PureSVD and ItemKNN over evaluate's two folds, equal to
-             the folds by hand.
+             700 W), PureSVD, ItemKNN and ALS over evaluate's two folds, equal
+             to the folds by hand.
+14. factorization — after classic, on the same frame and on a copy with
+             seeded KION-shaped features (users: age, income, sex, kids_flg;
+             items: genre = item id mod 12, content_type) and 256 warm users:
+             ALSModel(factors=64, regularization=0.05, iterations=15), plain
+             and with fit_features_together; BPRModel(factors=64,
+             iterations=60); HybridMFModel(no_components=64, loss="warp",
+             epochs=20) with both feature sets; DSSMModel(n_factors=64,
+             batch_size=128, lr=0.01, max_epochs=5), which ranks by
+             EUCLIDEAN. Each: fit seconds (no kernel launched), recommend all
+             8,192 users (kernel 3 once a serving batch and no other kernel;
+             warm median of 3), i2i, a whitelist, a CPU copy on 64 users (as
+             in classic), save / load_model recommending bit-equal; BPR,
+             HybridMF and DSSM fitted again from the seed, bit-equal;
+             HybridMF's and DSSM's loss falls; HybridMF serves warm and cold
+             users, DSSM warm ones; one epoch of HybridMF and of DSSM
+             profiled (device time by kernel, busy share, host functions),
+             HybridMF's host batches timed in one epoch under cProfile.
+             Prints the phase's wall.
 
 Output, last lines: one JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -2032,26 +2050,31 @@ def _check_u2i(np, reco, users, seen: set, k: int, what: str, whitelist=None) ->
         check(bool(reco["item_id"].isin(whitelist).all()), f"{what}: an item outside the whitelist")
 
 
-def _cpu_agreement(np, name: str, model, data, users) -> str:
-    """The same fitted arrays in a CPU model (the plain twins): identical
-    items and scores within SCORE_RTOL / SCORE_ATOL on ``users``. Where the
-    scores are sums of floats, a user whose items differ is held to
+def _cpu_agreement(np, name: str, model, data, users, cpu=None, float_scores=None, phase: str = "classic") -> str:
+    """The same fitted arrays in a CPU model (the plain twins; ``cpu``, else
+    a copy through ``models/convert.py``): identical items and scores within
+    SCORE_RTOL / SCORE_ATOL on ``users``. Where the scores are sums of floats
+    (``float_scores``, by default the classic models of
+    CLASSIC_FLOAT_SCORES), a user whose items differ is held to
     ``compare_reco`` alone (items may swap only inside TIE_GAP) and counted."""
     from rectools_tpu_torch.models import model_from_config
     from rectools_tpu_torch.models.convert import fitted_arrays, load_fitted_arrays
 
-    cpu = load_fitted_arrays(model_from_config({**model.get_config(), "device": "cpu"}), fitted_arrays(model))
+    if cpu is None:
+        cpu = load_fitted_arrays(model_from_config({**model.get_config(), "device": "cpu"}), fitted_arrays(model))
+    if float_scores is None:
+        float_scores = name in CLASSIC_FLOAT_SCORES
     got = model.recommend(users, data, k=K, filter_viewed=True)
     ref = cpu.recommend(users, data, k=K + 1, filter_viewed=True)
     ref_k = ref.groupby("user_id", sort=False).head(K)
     check(np.array_equal(got["user_id"].to_numpy(), ref_k["user_id"].to_numpy()),
-          f"classic {name}: users or their counts differ from the CPU copy")
+          f"{phase} {name}: users or their counts differ from the CPU copy")
     check(bool(np.allclose(got["score"], ref_k["score"], rtol=SCORE_RTOL, atol=SCORE_ATOL)),
-          f"classic {name}: scores differ from the CPU copy")
+          f"{phase} {name}: scores differ from the CPU copy")
     same_rows = got["item_id"].to_numpy() == ref_k["item_id"].to_numpy()
     differ = got.loc[~same_rows, "user_id"].unique()
-    check(len(differ) == 0 or name in CLASSIC_FLOAT_SCORES,
-          f"classic {name}: items differ from the CPU copy for {len(differ)} users")
+    check(len(differ) == 0 or float_scores,
+          f"{phase} {name}: items differ from the CPU copy for {len(differ)} users")
     for user in differ:
         compare_reco(np, got[got["user_id"] == user], ref[ref["user_id"] == user], K)
     return (f"{len(users) - len(differ)} of {len(users)} users identical to the CPU copy (scores within rtol "
@@ -2157,7 +2180,7 @@ def truncation_kernel_check(torch, np, dataset, dev) -> dict:
 
 
 def classic_cv(np, pd, port, dataset, dev, totals: dict) -> dict:
-    """``cross_validate`` of Popular, EASE, PureSVD and ItemKNN over the
+    """``cross_validate`` of Popular, EASE, PureSVD, ItemKNN and ALS over the
     evaluate phase's folds, each fold's metrics equal to the folds by hand.
     EASE takes the exact solver here: the auto solver's fit at this catalog
     took 65 s on an H100 80GB HBM3 at 700 W (the phase times it once beside
@@ -2168,14 +2191,18 @@ def classic_cv(np, pd, port, dataset, dev, totals: dict) -> dict:
     from rectools_tpu_torch.metrics import calc_metrics
     from rectools_tpu_torch.model_selection import TimeRangeSplitter, cross_validate
 
-    names = ("popular", "ease_exact", "pure_svd", "item_knn_plain")
+    names = ("popular", "ease_exact", "pure_svd", "item_knn_plain", "als")
+
+    def models() -> dict:
+        return {**classic_models(dev), "als": als_model(dev)}
+
     metrics = evaluation_metrics(np, pd)
     splitter = TimeRangeSplitter("1D", n_splits=EVAL_FOLDS)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # test users absent from a fold's train part are dropped, with a warning
         t0 = time.perf_counter()
         cv, _ = _count_group_topm(port, lambda: cross_validate(
-            dataset, splitter, metrics, {name: classic_models(dev)[name] for name in names}, k=K,
+            dataset, splitter, metrics, {name: models()[name] for name in names}, k=K,
             filter_viewed=True), totals)
         wall_s = time.perf_counter() - t0
         by_hand = []
@@ -2187,7 +2214,7 @@ def classic_cv(np, pd, port, dataset, dev, totals: dict) -> dict:
             test[Columns.Item] = dataset.item_id_map.convert_to_external(test[Columns.Item])
             history = train.get_raw_interactions()
             for name in names:
-                model = classic_models(dev)[name]
+                model = models()[name]
                 model.fit(train)
                 reco = model.recommend(test[Columns.User].unique(), train, k=K, filter_viewed=True,
                                        on_unsupported_targets="warn")
@@ -2290,6 +2317,232 @@ def classic_phase(torch, np, pd, port, df, dataset, dev) -> dict:
     print(f"classic: kernel 3 launches over the phase's fits, recommends and cross_validate {totals}")
     return {"launches": totals, "models": results, "ease_profile": profile, "truncation": truncation,
             "evaluate": evaluate}
+
+
+# ---------------------------------------------------------------- phase 14, the factorization models and DSSM
+
+
+FACTORIZATION_FACTORS = 64  # benchmarks/quality_gate.py:201-204, benchmarks/dssm_head_to_head.py:183
+FACTORIZATION_WARM_USERS = 256  # users with features and no interactions: HybridMF and DSSM serve them
+FACTORIZATION_COLD_USERS = 64  # ids in no table: HybridMF serves them its item-bias list
+USER_FEATURES = (("age", 6), ("income", 6), ("sex", 2), ("kids_flg", 2))  # KION's users table, values a column
+ITEM_GENRES = 12  # the item genre is id mod 12; content_type takes 2 values
+REFIT_BITS = ("bpr", "hybrid_mf", "dssm")  # a second fit from the seed repeats every bit
+FALLING_LOSS = ("hybrid_mf", "dssm")
+EPOCHS_FIELD = {"hybrid_mf": "epochs", "dssm": "max_epochs"}
+
+
+def factorization_dataset(np, pd, df):
+    """The frame with seeded synthetic features in KION's shape (users: age,
+    income, sex, kids_flg; items: genre = id mod 12, content_type), and
+    FACTORIZATION_WARM_USERS users who have features and no interactions."""
+    from rectools_tpu_torch.dataset import Dataset
+
+    rng = np.random.default_rng(SEED + 17)
+    users = np.arange(N_USERS + FACTORIZATION_WARM_USERS)
+    items = np.unique(df["item_id"].to_numpy())
+    user_features = pd.concat([pd.DataFrame({"id": users, "feature": name, "value": rng.integers(0, n, len(users))})
+                               for name, n in USER_FEATURES])
+    item_features = pd.concat([
+        pd.DataFrame({"id": items, "feature": "genre", "value": items % ITEM_GENRES}),
+        pd.DataFrame({"id": items, "feature": "content_type", "value": rng.integers(0, 2, len(items))}),
+    ])
+    return Dataset.construct(df, user_features_df=user_features, cat_user_features=[n for n, _ in USER_FEATURES],
+                             item_features_df=item_features, cat_item_features=["genre", "content_type"])
+
+
+def als_model(dev, **kwargs):
+    from rectools_tpu_torch.models import ALSModel
+
+    return ALSModel(factors=FACTORIZATION_FACTORS, regularization=0.05, iterations=15, random_state=SEED,
+                    device=dev, **kwargs)
+
+
+def factorization_models(dev) -> dict:
+    """name: (model, whether it fits on the frame with features), at the
+    quality gate's widths."""
+    from rectools_tpu_torch.models import BPRModel, DSSMModel, HybridMFModel
+
+    return {
+        "als": (als_model(dev), False),
+        "als_features": (als_model(dev, fit_features_together=True), True),
+        "bpr": (BPRModel(factors=FACTORIZATION_FACTORS, iterations=60, random_state=SEED, device=dev), False),
+        "hybrid_mf": (HybridMFModel(no_components=FACTORIZATION_FACTORS, loss="warp", epochs=20, random_state=SEED,
+                                    device=dev), True),
+        "dssm": (DSSMModel(n_factors=FACTORIZATION_FACTORS, batch_size=128, lr=0.01, max_epochs=5,
+                           random_state=SEED, device=dev), True),
+    }
+
+
+def _fitted_bits(model) -> dict:
+    """Every fitted array of ``model`` on the host (DSSM: its towers' weights)."""
+    from rectools_tpu_torch.models import DSSMModel
+    from rectools_tpu_torch.models.convert import fitted_arrays
+
+    if isinstance(model, DSSMModel):
+        return {k: v.cpu().numpy() for k, v in model.towers.state_dict().items()}
+    out = {}
+    for key, value in fitted_arrays(model).items():
+        out.update({f"{key}.{k}": v for k, v in value.items()} if isinstance(value, dict) else {key: value})
+    return out
+
+
+def _cpu_copy(model):
+    """The fitted model on the CPU, through models/convert.py."""
+    from rectools_tpu_torch.models import DSSMModel, model_from_config
+    from rectools_tpu_torch.models.convert import fitted_arrays, jax_dssm_params, load_fitted_arrays, load_jax_dssm_params
+
+    cpu = model_from_config({**model.get_config(), "device": "cpu"})
+    if isinstance(model, DSSMModel):
+        return load_jax_dssm_params(cpu, jax_dssm_params(model))
+    return load_fitted_arrays(cpu, fitted_arrays(model))
+
+
+def _host_batch_seconds(torch, model, data) -> tuple:
+    """(seconds in ``_host_batch``, the epoch's wall) of a one-epoch fit of a
+    copy of HybridMF ``model`` under cProfile (which slows both)."""
+    import cProfile
+    import pstats
+
+    from rectools_tpu_torch.models import model_from_config
+
+    probe = model_from_config({**model.get_config(), "epochs": 1})
+    profile = cProfile.Profile()
+    t0 = time.perf_counter()
+    profile.enable()
+    probe.fit(data)
+    torch.cuda.synchronize()
+    profile.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(profile).stats  # (file, line, function) -> (calls, primitive, own s, cumulative s, callers)
+    batch_s = sum(v[3] for k, v in stats.items() if k[2] == "_host_batch")
+    return batch_s, wall
+
+
+def factorization_phase(torch, np, pd, port, df, dataset, dev) -> dict:
+    """ALS (plain and with features fitted together), BPR, HybridMF (WARP,
+    user and item features) and DSSM on the KION frame at the quality gate's
+    widths: fit seconds; recommend all 8,192 users (kernel 3 once a serving
+    batch, no other kernel, in the fits neither); i2i and a whitelist; a CPU
+    copy on 64 users; save / load_model bit-equal; a refit from the seed
+    bit-equal (BPR, HybridMF, DSSM); a falling loss (HybridMF, DSSM); warm
+    users (HybridMF, DSSM) and cold ones (HybridMF)."""
+    import tempfile
+
+    from rectools_tpu_torch.models import load_model, model_from_config
+
+    t_phase = time.perf_counter()
+    users = dataset.user_id_map.external_ids
+    seen = set(zip(df["user_id"].to_numpy().tolist(), df["item_id"].to_numpy().tolist()))
+    items = dataset.item_id_map.external_ids
+    whitelist = np.sort(np.random.default_rng(SEED + 18).choice(items, CLASSIC_WHITELIST, replace=False))
+    t0 = time.perf_counter()
+    featured = factorization_dataset(np, pd, df)
+    warm = featured.user_id_map.external_ids[featured.n_hot_users:]
+    cold = np.arange(10**7, 10**7 + FACTORIZATION_COLD_USERS)
+    check(len(warm) == FACTORIZATION_WARM_USERS, f"{len(warm)} warm users in the frame with features")
+    print(f"factorization: the frame with {len(USER_FEATURES)} user and 2 item features and {len(warm)} warm users "
+          f"built in {time.perf_counter() - t0:.2f} s")
+
+    totals: dict = {}
+    results = {}
+    for name, (model, with_features) in factorization_models(dev).items():
+        data = featured if with_features else dataset
+        t0 = time.perf_counter()
+        _, fit_launches = _count_group_topm(port, lambda: model.fit(data), totals)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        check(fit_launches == 0, f"factorization {name}: the fit launched kernel 3 {fit_launches} times")
+        t0 = time.perf_counter()
+        reco, launches = _count_group_topm(port, lambda: model.recommend(users, data, k=K, filter_viewed=True),
+                                           totals)
+        first_s = time.perf_counter() - t0
+        expected = math.ceil(len(users) / SERVING_B)
+        check(launches == expected, f"factorization {name}: {launches} group_topm launches in recommend, "
+              f"expected {expected} (one a serving batch)")
+        _check_u2i(np, reco, users, seen, K, f"factorization {name}")
+        times = []
+        for _ in range(CLASSIC_WARM_CALLS):
+            t0 = time.perf_counter()
+            _count_group_topm(port, lambda: model.recommend(users, data, k=K, filter_viewed=True), totals)
+            times.append(time.perf_counter() - t0)
+        warm_s = float(np.median(times))
+        targets = items[:CLASSIC_I2I_ITEMS]
+        i2i, i2i_launches = _count_group_topm(port, lambda: model.recommend_to_items(targets, data, k=K), totals)
+        check(len(i2i) == K * len(targets) and not bool((i2i["target_item_id"] == i2i["item_id"]).any()),
+              f"factorization {name}: i2i returned {len(i2i)} rows")
+        listed, _ = _count_group_topm(port, lambda: model.recommend(users, data, k=K, filter_viewed=True,
+                                                                    items_to_recommend=whitelist), totals)
+        _check_u2i(np, listed, users, seen, K, f"factorization {name} with a whitelist", whitelist)
+        agreement = _cpu_agreement(np, name, model, data, users[:CLASSIC_CPU_USERS], cpu=_cpu_copy(model),
+                                   float_scores=True, phase="factorization")
+        with tempfile.TemporaryDirectory(prefix="factorization_") as tmp:
+            path = Path(tmp) / f"{name}.pkl"
+            t0 = time.perf_counter()
+            size = model.save(path)
+            reloaded = load_model(path)
+            reload_s = time.perf_counter() - t0
+        again, _ = _count_group_topm(port, lambda: reloaded.recommend(users, data, k=K, filter_viewed=True), totals)
+        check(_same_reco(again, reco), f"factorization {name}: the reloaded model recommends other bits")
+        extra = {}
+        if name in REFIT_BITS:
+            refit = model_from_config(model.get_config())
+            t0 = time.perf_counter()
+            _count_group_topm(port, lambda: refit.fit(data), totals)
+            torch.cuda.synchronize()
+            extra["refit_s"] = time.perf_counter() - t0
+            bits, ref_bits = _fitted_bits(refit), _fitted_bits(model)
+            check(bits.keys() == ref_bits.keys() and all(np.array_equal(bits[k], ref_bits[k]) for k in bits),
+                  f"factorization {name}: a second fit from random_state={SEED} gave other bits")
+            del refit
+        if name in FALLING_LOSS:
+            history = model.train_loss_history
+            check(all(math.isfinite(v) for v in history) and history[-1] < history[0],
+                  f"factorization {name}: the loss did not fall: {history}")
+            extra["loss_history"] = history
+        targets_text = ""
+        if model.recommends_for_warm:
+            warm_reco, warm_launches = _count_group_topm(
+                port, lambda: model.recommend(warm, data, k=K, filter_viewed=False), totals)
+            check(len(warm_reco) == K * len(warm) and set(warm_reco["user_id"]) == set(warm.tolist()),
+                  f"factorization {name}: warm users got {len(warm_reco)} rows")
+            check(warm_launches == math.ceil(len(warm) / SERVING_B), f"factorization {name}: warm launches "
+                  f"{warm_launches}")
+            targets_text += f"; {len(warm)} warm users served (launches {warm_launches})"
+        if model.recommends_for_cold:
+            cold_reco, cold_launches = _count_group_topm(
+                port, lambda: model.recommend(cold, data, k=K, filter_viewed=False), totals)
+            check(len(cold_reco) == K * len(cold) and cold_launches == 0,
+                  f"factorization {name}: cold users got {len(cold_reco)} rows, launches {cold_launches}")
+            lists = cold_reco.groupby("user_id")["item_id"].apply(tuple)
+            check(lists.nunique() == 1, f"factorization {name}: cold users got different lists")
+            targets_text += f"; {len(cold)} cold users served one item-bias list (host, no launch)"
+        if name in FALLING_LOSS:  # the SGD fits: where one epoch's time goes
+            probe = model_from_config({**model.get_config(), EPOCHS_FIELD[name]: 1})
+            print(f"factorization {name} profile: one epoch of the fit")
+            extra["epoch_profile"] = profile_phase(torch, lambda: probe.fit(data))
+            del probe
+        if name == "hybrid_mf":
+            batch_s, epoch_s = _host_batch_seconds(torch, model, data)
+            extra.update(host_batch_s=batch_s, profiled_epoch_s=epoch_s)
+            targets_text += (f"; one epoch under cProfile {epoch_s:.2f} s, of which the host batches "
+                             f"{batch_s:.2f} s ({fit_s / model.epochs:.2f} s an epoch without it)")
+        print(f"factorization {name}: fit {fit_s:.3f} s; recommend {len(users)} users in {expected} batches, "
+              f"launches {launches}, first {first_s:.3f} s, warm median {warm_s:.3f} s of "
+              f"{[round(t, 3) for t in times]}, {len(users) / warm_s:.0f} users/s; i2i {len(targets)} items "
+              f"(launches {i2i_launches}); whitelist of {len(whitelist)} items; {agreement}; save + load_model "
+              f"{size / 2**20:.2f} MiB in {reload_s:.3f} s, bit-equal"
+              + (f"; a refit from the seed bit-equal ({extra['refit_s']:.3f} s)" if name in REFIT_BITS else "")
+              + (f"; loss {extra['loss_history'][0]:.5f} -> {extra['loss_history'][-1]:.5f}"
+                 if name in FALLING_LOSS else "") + targets_text)
+        results[name] = {"fit_s": fit_s, "first_s": first_s, "warm_s": warm_s, "warm_samples_s": times,
+                         "users_per_s": len(users) / warm_s, "recommend_launches": launches,
+                         "save_mib": size / 2**20, "reload_s": reload_s, **extra}
+        del model, reloaded
+        torch.cuda.empty_cache()
+    wall_s = time.perf_counter() - t_phase
+    print(f"factorization: kernel 3 launches over the phase {totals}; the phase's wall {wall_s:.1f} s")
+    return {"launches": totals, "models": results, "wall_s": wall_s}
 
 
 # ---------------------------------------------------------------- phase 9, the other doors of the streaming lse
@@ -3156,6 +3409,9 @@ def main() -> int:
     print(f"classic: on {card}")
     baselines_result = classic_phase(torch, np, pd, port, df, dataset, "cuda")
     kernels["group_topm_truncation"] = baselines_result["truncation"]
+    # phase 14: ALS, BPR, HybridMF and DSSM on the same frame
+    print(f"factorization: on {card}")
+    factorization_result = factorization_phase(torch, np, pd, port, df, dataset, "cuda")
     # phase 10: BERT4Rec and eSASRec (shared negatives, remat) through the same entry points, remat at the
     # ML-20M-sized shape
     for tag in ("family kernels", "bert4rec", "esasrec", "remat fit"):  # the card beside these phases' numbers
@@ -3218,7 +3474,7 @@ def main() -> int:
                                           for key in port.LAUNCHES}},
              "esasrec_recommend": esasrec_main_result, "remat_fit": remat_result["remat"],
              "checkpoint_recommend": checkpoint_result, "hstu_checkpoint_recommend": hstu_checkpoint_result,
-             "evaluate": evaluate_result, "classic": baselines_result}
+             "evaluate": evaluate_result, "classic": baselines_result, "factorization": factorization_result}
 
     def numbers(r: dict) -> dict:
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -3301,6 +3557,7 @@ def main() -> int:
         "hstu_checkpoint": {k: v for k, v in hstu_checkpoint_result.items() if k != "launches"},
         "evaluate": {k: v for k, v in evaluate_result.items() if k != "launches"},
         "classic": {k: v for k, v in baselines_result.items() if k != "launches"},
+        "factorization": {k: v for k, v in factorization_result.items() if k != "launches"},
     }
     print(json.dumps(line))
     print(card)

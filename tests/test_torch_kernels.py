@@ -16,7 +16,16 @@ import numpy as np
 import pytest
 import torch
 
-from rectools_tpu_torch.models import BERT4RecModel, HSTUModel, SASRecModel, TorchRanker
+from rectools_tpu_torch.models import (
+    ALSModel,
+    BERT4RecModel,
+    BPRModel,
+    DSSMModel,
+    HSTUModel,
+    HybridMFModel,
+    SASRecModel,
+    TorchRanker,
+)
 from rectools_tpu_torch.models.nn.transformers import LiGRLayers, TransformerBackbone
 from rectools_tpu_torch.ops import _native, attention, layer_norm, softmax_lse, stu_attention, topk, topk_select
 from rectools_tpu_torch.tools import fused_bwd_variants, stu_fwd_topm_check
@@ -65,7 +74,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package() -> None:
     }
     scanned = {str(path.relative_to(REPO / "rectools_tpu_torch")) for path in sources if path.name != "chip_smoke.py"}
     assert {"native/__init__.py", "metrics/scoring.py", "metrics/ranking.py", "model_selection/cross_validate.py",
-            "model_selection/time_split.py", "models/serialization.py", "utils/array_ops.py"} <= scanned
+            "model_selection/time_split.py", "models/serialization.py", "utils/array_ops.py", "ops/als.py",
+            "ops/bpr.py", "ops/hybrid_mf.py", "models/als.py", "models/bpr.py", "models/hybrid_mf.py",
+            "models/nn/dssm.py", "dataset/dssm_datasets.py"} <= scanned
     offenders = {}
     for path in sources:
         bad = {
@@ -84,6 +95,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch: pytest.M
         SASRecModel()
     with pytest.raises(RuntimeError, match="cuda"):
         HSTUModel()
+    for cls in (ALSModel, BPRModel, HybridMFModel, DSSMModel):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cls()
     with pytest.raises(RuntimeError, match="cuda"):
         TorchRanker(topk.Distance.DOT, objects, objects)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -505,6 +519,63 @@ def test_cuda_item_knn_truncation_matches_cpu(cuda: torch.device) -> None:
         vals, lanes = topk_select.group_topm(block, k)
         ref_vals, ref_lanes = topk_select.group_topm_reference(block, k)
         assert torch.equal(vals, ref_vals) and torch.equal(lanes, ref_lanes)
+
+
+@pytest.mark.gpu
+def test_cuda_als_half_step_and_fit_match_cpu(cuda: torch.device) -> None:
+    """ALS on the card (cuBLAS products, batched cuSOLVER Cholesky) against
+    its CPU run: a half-step with confidences below 1 and negative ones
+    within 1e-5 of the largest entry, a singular system a NaN row on both,
+    and 3 iterations with feature-column resets within 1e-4."""
+    from scipy import sparse
+
+    from rectools_tpu_torch.ops import als
+
+    rng = np.random.default_rng(17)
+    dense = (rng.random((3000, 900)) < 0.02) * rng.uniform(-2.0, 4.0, (3000, 900))
+    csr = sparse.csr_matrix(dense.astype(np.float32))
+    y = rng.normal(size=(900, 64)).astype(np.float32)
+    got, ref = als.als_half_step(csr, y, 0.05, device=cuda), als.als_half_step(csr, y, 0.05, device="cpu")
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    y[:, 5] = 0.0  # a Gram without that direction and no regularization: no system is SPD
+    assert np.isnan(als.als_half_step(csr[:50], y, 0.0, device=cuda)[np.diff(csr[:50].indptr) > 0]).all()
+    pos = abs(csr)
+    u0, i0 = (rng.random((3000, 70)) * 0.01).astype(np.float32), (rng.random((900, 70)) * 0.01).astype(np.float32)
+    resets = dict(user_reset_cols=(0, 4), user_reset_values=rng.random((3000, 4)).astype(np.float32),
+                  item_reset_cols=(68, 70), item_reset_values=rng.random((900, 2)).astype(np.float32))
+    on_card = als.als_fit(pos, u0, i0, 0.05, 3, device=cuda, **resets)
+    on_cpu = als.als_fit(pos, u0, i0, 0.05, 3, device="cpu", **resets)
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())
+
+
+@pytest.mark.gpu
+def test_cuda_bpr_scatter_repeats_its_bits(cuda: torch.device) -> None:
+    """BPR's scatter-adds (``index_put_`` with accumulate, sorted) give the
+    same bits on a rerun of a fit on the card, with many duplicate rows a
+    step; on the same draws the card's fit is the CPU's within 1e-5."""
+    from scipy import sparse
+
+    from rectools_tpu_torch.ops import bpr
+
+    rng = np.random.default_rng(18)
+    rows = np.repeat(np.arange(2000), rng.integers(1, 60, 2000))
+    cols = (rng.zipf(1.3, len(rows)) - 1) % 500
+    csr = sparse.csr_matrix((np.ones(len(rows), np.float32), (rows, cols)), shape=(2000, 500))
+    csr.data[:] = 1.0
+    first = bpr.bpr_fit(csr, 64, 0.05, 0.01, 3, 5, batch_size=8192, device=cuda)
+    second = bpr.bpr_fit(csr, 64, 0.05, 0.01, 3, 5, batch_size=8192, device=cuda)
+    for a, b in zip(first, second):
+        np.testing.assert_array_equal(a, b)
+
+    def shared_draws():
+        draw = bpr.generator_draws(torch.Generator().manual_seed(7), 500)
+        return lambda *args: tuple(t.clone() for t in draw(*args))
+
+    on_card = bpr.bpr_fit(csr, 64, 0.05, 0.01, 3, 5, batch_size=8192, device=cuda, draw=shared_draws())
+    on_cpu = bpr.bpr_fit(csr, 64, 0.05, 0.01, 3, 5, batch_size=8192, device="cpu", draw=shared_draws())
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * np.abs(b).max())
 
 
 @pytest.mark.gpu
