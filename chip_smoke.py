@@ -225,6 +225,34 @@ own lines; any failure exits nonzero and prints no result:
              profiled (device time by kernel, busy share, host functions),
              HybridMF's host batches timed in one epoch under cProfile.
              Prints the phase's wall.
+15. ranking — after factorization, on the same frame: CandidateRankingModel
+             over PopularModel and ALSModel(factors=64, iterations=15), 50
+             candidates each with ranks, scores and fill values,
+             TimeRangeSplitter("7D", n_splits=1), 3 negatives a user, and a
+             logistic regression written here (torch on the card; sklearn and
+             catboost are not on the card's machine): fit (kernel 3 once a
+             4,096-user batch of each generator's train candidates, no other
+             kernel), the pooled candidates, labels, sampled frame and the
+             reranker's fit frame equal to the pipeline by hand, recommend all
+             8,192 users (k = 10, filter_viewed; the generators refitted on the
+             whole frame; kernel 3 once a batch of each generator), the final
+             top-k equal to scoring and sorting by hand, a CPU copy of the
+             generators on 64 users (the same pooled items and ranks, scores
+             within 1e-5), save / load_model bit-equal; the same pipeline
+             through CatBoostReranker with a pool and a listwise ranker written
+             here. ``ann``: UserToItemAnnRecommender over the fitted ALS
+             factors under COSINE and DOT (all users, top 10, index_top_k 50;
+             256 users with whitelists) and ItemToItemAnnRecommender (4,096
+             items, self excluded): kernel 3 once a 4,096-row batch a query,
+             the certificate's fallbacks equal to the batches that fail it by
+             hand, 64 rows against a CPU brute force, approximate=True equal to
+             exact, a pickle round trip bit-equal, users/s and items/s.
+             ``compat``: translate_reference_config of a reference
+             ImplicitALSWrapperModel config (warns of use_gpu and
+             num_threads), fitted on the card and recommending bit-equal to
+             ALSModel built directly. ``visuals``: VisualApp,
+             ItemToItemVisualApp and MetricsApp built (not displayed) and
+             round-tripped through CSV. Prints the phase's wall.
 
 Output, last lines: one JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -2545,6 +2573,612 @@ def factorization_phase(torch, np, pd, port, df, dataset, dev) -> dict:
     return {"launches": totals, "models": results, "wall_s": wall_s}
 
 
+# ---------------------------------------------------------------- phase 15, two-stage ranking, ANN, compat, visuals
+
+
+RANKING_CANDIDATES = 50  # each generator's candidates a user
+RANKING_NEGATIVES = 3  # PerUserNegativeSampler's negatives a user
+RANKING_STEPS = 300  # full-batch steps of the script's rerankers
+RANKING_CPU_USERS = 64
+RANKING_SCORE_TOL = 1e-5  # the CPU copy's generator scores: f32 products in another order
+ANN_TOP_N, ANN_INDEX_TOP_K = 10, 50  # k = 60 > m = 12: a batch can fail the certificate
+ANN_I2I_ITEMS = 4096
+ANN_WHITELIST_USERS, ANN_WHITELIST_ITEMS = 256, 2000
+ANN_CPU_ROWS = 64
+ANN_WARM_CALLS = 3
+
+
+def _frame_digest(np, X, y) -> str:
+    """A hash of a reranker's fit frame: features and labels, in row order."""
+    import hashlib
+
+    return hashlib.sha1(X.to_numpy(np.float64).tobytes() + np.asarray(y, np.int64).tobytes()).hexdigest()
+
+
+def _standardized(torch, x, stats=None):
+    mean, std = stats if stats is not None else (x.mean(dim=0), x.std(dim=0).clamp_min(1e-6))
+    return (x - mean) / std, (mean, std)
+
+
+class TorchLogisticRegression:
+    """The two-stage phase's reranker (``fit`` / ``predict_proba``, sklearn's
+    protocol): logistic regression on standardized features, RANKING_STEPS
+    full-batch gradient steps on the card. ``fit_digest`` is a hash of the
+    frame it was fitted on, for the phase's check by hand."""
+
+    def __init__(self, device: str = "cuda", steps: int = RANKING_STEPS, lr: float = 0.5) -> None:
+        self.device, self.steps, self.lr = device, steps, lr
+
+    def _features(self, x):
+        import numpy as np
+        import torch
+
+        return torch.as_tensor(np.ascontiguousarray(x.to_numpy(np.float32)), device=self.device)
+
+    def fit(self, X, y):
+        import numpy as np
+        import torch
+
+        self.columns = list(X.columns)
+        self.fit_digest = _frame_digest(np, X, y)
+        z, self.stats = _standardized(torch, self._features(X))
+        target = torch.as_tensor(np.asarray(y, np.float32), device=self.device)
+        self.w = torch.zeros(z.shape[1], device=self.device)
+        self.b = torch.zeros((), device=self.device)
+        for _ in range(self.steps):
+            residual = torch.sigmoid(z @ self.w + self.b) - target
+            self.w -= self.lr * (z.T @ residual) / len(target)
+            self.b -= self.lr * residual.mean()
+        self.loss = float(torch.nn.functional.binary_cross_entropy_with_logits(z @ self.w + self.b, target))
+        return self
+
+    def predict_proba(self, X):
+        import numpy as np
+        import torch
+
+        z, _ = _standardized(torch, self._features(X[self.columns]), self.stats)
+        p = torch.sigmoid(z @ self.w + self.b).cpu().numpy().astype(np.float64)
+        return np.stack([1.0 - p, p], axis=1)
+
+
+class SmokePool:
+    """The phase's stand-in for ``catboost.Pool`` (catboost is not on the
+    card's machine): the frame, labels and group ids as given."""
+
+    def __init__(self, data, label=None, group_id=None, **kwargs) -> None:
+        self.data, self.label, self.group_id, self.extra = data, label, group_id, kwargs
+
+
+class TorchListwiseRanker:
+    """A CatBoostRanker-shaped trainer (``fit(X=pool)`` / ``predict``): a
+    linear scorer trained on the card with a softmax over each group's rows
+    (one group a user) against its positives, RANKING_STEPS Adam steps."""
+
+    def __init__(self, device: str = "cuda", steps: int = RANKING_STEPS, lr: float = 0.05) -> None:
+        self.device, self.steps, self.lr = device, steps, lr
+
+    def fit(self, X):
+        import numpy as np
+        import torch
+
+        group_id = np.asarray(X.group_id)
+        check(len(group_id) == len(X.data) and bool((np.diff(group_id) >= 0).all()),
+              "ranking: the ranker's pool is not sorted by user")
+        self.columns = list(X.data.columns)
+        groups = torch.as_tensor(np.unique(group_id, return_inverse=True)[1], device=self.device)
+        self.n_groups = int(groups.max()) + 1
+        z, self.stats = _standardized(torch, torch.as_tensor(X.data.to_numpy(np.float32), device=self.device))
+        positive = torch.as_tensor(np.asarray(X.label) > 0, device=self.device)
+        self.w = torch.zeros(z.shape[1], device=self.device, requires_grad=True)
+        optimizer = torch.optim.Adam([self.w], lr=self.lr)
+        for _ in range(self.steps):
+            s = z @ self.w
+            shift = s.max().detach()
+            denom = torch.zeros(self.n_groups, device=self.device).index_add(0, groups, torch.exp(s - shift))
+            loss = -(s - shift - torch.log(denom)[groups])[positive].mean()
+            optimizer.zero_grad()
+            loss.backward()
+            optimizer.step()
+        self.w = self.w.detach()
+        self.loss = float(loss.detach())
+        return self
+
+    def predict(self, X):
+        import numpy as np
+        import torch
+
+        z, _ = _standardized(torch, torch.as_tensor(X[self.columns].to_numpy(np.float32), device=self.device),
+                             self.stats)
+        return (z @ self.w).cpu().numpy().astype(np.float64)
+
+
+def ranking_generators(dev) -> list:
+    """PopularModel and ALSModel at the quality gate's width, 50 candidates
+    each, ranks and scores kept, with fill values."""
+    from rectools_tpu_torch.models import PopularModel
+    from rectools_tpu_torch.models.ranking import CandidateGenerator
+
+    fill = dict(keep_ranks=True, keep_scores=True, scores_fillna_value=0.0,
+                ranks_fillna_value=RANKING_CANDIDATES + 1)
+    return [CandidateGenerator(PopularModel(device=dev), RANKING_CANDIDATES, **fill),
+            CandidateGenerator(als_model(dev), RANKING_CANDIDATES, **fill)]
+
+
+def ranking_model(dev, reranker):
+    from rectools_tpu_torch.model_selection import TimeRangeSplitter
+    from rectools_tpu_torch.models.ranking import CandidateRankingModel, PerUserNegativeSampler
+
+    return CandidateRankingModel(ranking_generators(dev), splitter=TimeRangeSplitter("7D", n_splits=1),
+                                 reranker=reranker,
+                                 sampler=PerUserNegativeSampler(n_negatives=RANKING_NEGATIVES, random_state=SEED))
+
+
+def _pool_by_hand(pd, model, users, data, filter_viewed: bool):
+    """Each generator's recommend, renamed, outer-joined on (user, item) in
+    generator order, the fill values applied: the pooled candidates by hand."""
+    pooled, fill = None, {}
+    for name, generator in model.cand_gen_dict.items():
+        part = generator.model.recommend(users, data, k=RANKING_CANDIDATES, filter_viewed=filter_viewed)
+        part = part.rename(columns={"rank": f"{name}_rank", "score": f"{name}_score"})
+        fill.update({f"{name}_rank": generator.ranks_fillna_value, f"{name}_score": generator.scores_fillna_value})
+        pooled = part if pooled is None else pooled.merge(part, how="outer", on=["user_id", "item_id"])
+    return pooled.fillna(fill)
+
+
+def _two_stage_by_hand(np, pd, model, train_users, history, targets) -> dict:
+    """The pipeline's stages by hand on its fitted generators: before serving
+    (generators in their train-stage fit) the pooled candidates, labels and
+    sampled frame. Returns their sizes and the sampled frame."""
+    pooled = _pool_by_hand(pd, model, train_users, history, filter_viewed=True)
+    got = model._pool_first_stage_candidates(train_users, history, filter_viewed=True, for_train=True)
+    check(got.reset_index(drop=True).equals(pooled.reset_index(drop=True)),
+          "ranking: the pooled train candidates differ from the pool by hand")
+    pairs = set(zip(targets["user_id"].tolist(), targets["item_id"].tolist()))
+    labels = np.array([p in pairs for p in zip(pooled["user_id"].tolist(), pooled["item_id"].tolist())], np.int32)
+    labeled = model._label_candidates(got, targets)
+    check(np.array_equal(labeled["target"].to_numpy(), labels), "ranking: labels differ from membership by hand")
+    negatives = labeled[labels == 0].sample(frac=1.0, random_state=SEED)
+    kept = negatives.groupby("user_id", sort=False).head(RANKING_NEGATIVES)
+    sampled = pd.concat([labeled[labels == 1], kept], ignore_index=True).sample(frac=1.0, random_state=SEED)
+    check(model.sampler.sample_negatives(labeled).equals(sampled), "ranking: the sampled frame differs from by hand")
+    per_user = sampled[sampled["target"] == 0].groupby("user_id").size()
+    check(int(per_user.max()) <= RANKING_NEGATIVES, f"ranking: {int(per_user.max())} negatives for a user")
+    return {"pooled": len(pooled), "positives": int(labels.sum()), "sampled": sampled}
+
+
+def _serve_by_hand(np, pd, model, dataset, users, reco) -> None:
+    """Serving by hand on the serving-stage generators: pool, score with the
+    fitted reranker, sort each user's rows by score (stable), keep k; equal
+    to ``reco`` bit for bit."""
+    pooled = _pool_by_hand(pd, model, users, dataset, filter_viewed=True)
+    scored = pooled[["user_id", "item_id"]].copy()
+    scored["score"] = model.reranker.predict_scores(pooled)
+    order = np.lexsort((-scored["score"].to_numpy(), scored["user_id"].to_numpy()))
+    ranked = scored.iloc[order].reset_index(drop=True)
+    ranked = ranked[ranked.groupby("user_id", sort=False).cumcount() < K].reset_index(drop=True)
+    ranked["rank"] = ranked.groupby("user_id", sort=False).cumcount() + 1
+    check(_same_reco(reco, ranked), "ranking: the recommendations differ from scoring and sorting by hand")
+
+
+def _two_stage_cpu_copy(np, model, dataset, users) -> str:
+    """The fitted generators copied to the CPU (models/convert.py): the same
+    pooled users, items and ranks on ``users``, scores within
+    RANKING_SCORE_TOL. Where ALS's CPU list differs it may differ only inside
+    ties of TIE_GAP (``compare_reco`` on its lists), and the user is left out
+    of the pooled comparison and counted."""
+    import copy
+
+    from rectools_tpu_torch.models.ranking import CandidateGenerator
+
+    cpu = copy.copy(model)
+    cpu.cand_gen_dict = {}
+    for name, generator in model.cand_gen_dict.items():
+        copy = CandidateGenerator(_cpu_copy(generator.model), generator.num_candidates, generator.keep_ranks,
+                                  generator.keep_scores, generator.scores_fillna_value, generator.ranks_fillna_value)
+        copy.is_fitted_for_recommend = True
+        cpu.cand_gen_dict[name] = copy
+    als_name = [name for name in model.cand_gen_dict if name.startswith("ALSModel")][0]
+    got_als = model.cand_gen_dict[als_name].model.recommend(users, dataset, k=RANKING_CANDIDATES, filter_viewed=True)
+    ref_als = cpu.cand_gen_dict[als_name].model.recommend(users, dataset, k=RANKING_CANDIDATES + 1,
+                                                          filter_viewed=True)
+    ref_k = ref_als.groupby("user_id", sort=False).head(RANKING_CANDIDATES)
+    differ = got_als.loc[got_als["item_id"].to_numpy() != ref_k["item_id"].to_numpy(), "user_id"].unique()
+    for user in differ:
+        compare_reco(np, got_als[got_als["user_id"] == user], ref_als[ref_als["user_id"] == user],
+                     RANKING_CANDIDATES)
+    same = np.setdiff1d(users, differ)
+    got = model._pool_first_stage_candidates(same, dataset, filter_viewed=True, for_train=False)
+    ref = cpu._pool_first_stage_candidates(same, dataset, filter_viewed=True, for_train=False)
+    check(list(got.columns) == list(ref.columns) and len(got) == len(ref), "ranking: the CPU copy pooled other rows")
+    for col in got.columns:
+        if col.endswith("_score"):
+            check(bool(np.allclose(got[col], ref[col], rtol=RANKING_SCORE_TOL, atol=RANKING_SCORE_TOL)),
+                  f"ranking: the CPU copy's {col} differs by {float(np.abs(got[col] - ref[col]).max()):.3g}")
+        else:
+            check(np.array_equal(got[col].to_numpy(), ref[col].to_numpy()), f"ranking: the CPU copy's {col} differs")
+    return (f"{len(same)} of {len(users)} users pool the same items and ranks as the CPU copy (scores within "
+            f"{RANKING_SCORE_TOL}); {len(differ)} differ in ALS's list only inside ties of TIE_GAP {TIE_GAP}")
+
+
+def _fallbacks(since=None) -> dict:
+    """``topk_select.FALLBACKS`` now, or what it gained since ``since``."""
+    from rectools_tpu_torch.ops.topk_select import FALLBACKS
+
+    return dict(FALLBACKS) if since is None else {k: v - since.get(k, 0) for k, v in FALLBACKS.items()
+                                                  if v != since.get(k, 0)}
+
+
+def two_stage_phase(torch, np, pd, port, df, dataset, dev, totals: dict) -> dict:
+    """CandidateRankingModel over PopularModel and ALSModel (50 candidates
+    each) with TimeRangeSplitter("7D", n_splits=1), 3 negatives a user and
+    the script's logistic regression: fit (kernel 3 once a 4,096-user batch
+    of each generator's train candidates), the stages by hand, recommend all
+    users (the same for the serving candidates), serving by hand, a CPU copy
+    on 64 users, save / load_model bit-equal; then CatBoostReranker over the
+    script's pool and listwise ranker, fitted and served the same way."""
+    import tempfile
+
+    from rectools_tpu_torch.models import load_model
+    from rectools_tpu_torch.models.ranking import CatBoostReranker, Reranker
+
+    users = dataset.user_id_map.external_ids
+    seen = set(zip(df["user_id"].to_numpy().tolist(), df["item_id"].to_numpy().tolist()))
+    model = ranking_model(dev, Reranker(TorchLogisticRegression(device=dev)))
+    history, targets, _ = model.split_to_history_dataset_and_train_targets(dataset, model.splitter)
+    train_users = targets["user_id"].unique()
+    n_gen = len(model.cand_gen_dict)
+    fit_expected = n_gen * math.ceil(len(train_users) / SERVING_B)
+    serve_expected = n_gen * math.ceil(len(users) / SERVING_B)
+    fallbacks = _fallbacks()
+
+    t0 = time.perf_counter()
+    _, fit_launches = _count_group_topm(port, lambda: model.fit(dataset, refit_candidate_generators=False), totals)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check(fit_launches == fit_expected, f"ranking: the fit launched kernel 3 {fit_launches} times, expected "
+          f"{fit_expected} ({n_gen} generators, {len(train_users)} target users)")
+    stages = _two_stage_by_hand(np, pd, model, train_users, history, targets)
+    sampled = stages.pop("sampled")
+    features = sampled.drop(columns=["user_id", "item_id", "target"])
+    check(_frame_digest(np, features, sampled["target"]) == model.reranker.model.fit_digest,
+          "ranking: the reranker was fitted on another frame than the sampled frame by hand")
+
+    t0 = time.perf_counter()
+    reco, serve_launches = _count_group_topm(
+        port, lambda: model.recommend(users, dataset, k=K, filter_viewed=True), totals)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(serve_launches == serve_expected, f"ranking: recommend launched kernel 3 {serve_launches} times, "
+          f"expected {serve_expected}")
+    _check_u2i(np, reco, users, seen, K, "ranking two-stage")
+    times = []
+    for _ in range(CLASSIC_WARM_CALLS):
+        t0 = time.perf_counter()
+        again, _ = _count_group_topm(port, lambda: model.recommend(users, dataset, k=K, filter_viewed=True), totals)
+        times.append(time.perf_counter() - t0)
+        check(_same_reco(again, reco), "ranking: a second recommend gave other bits")
+    warm_s = float(np.median(times))
+    _serve_by_hand(np, pd, model, dataset, users, reco)
+    agreement = _two_stage_cpu_copy(np, model, dataset, users[:RANKING_CPU_USERS])
+    with tempfile.TemporaryDirectory(prefix="ranking_") as tmp:
+        path = Path(tmp) / "two_stage.pkl"
+        t0 = time.perf_counter()
+        size = model.save(path)
+        reloaded = load_model(path)
+        reload_s = time.perf_counter() - t0
+    again, _ = _count_group_topm(port, lambda: reloaded.recommend(users, dataset, k=K, filter_viewed=True), totals)
+    check(_same_reco(again, reco), "ranking: the reloaded two-stage model recommends other bits")
+    print(f"ranking two-stage: {len(train_users)} target users, {stages['pooled']} pooled train candidates "
+          f"({stages['positives']} positive), {len(sampled)} sampled, reranker loss "
+          f"{model.reranker.model.loss:.5f}; "
+          f"fit {fit_s:.3f} s (kernel 3 launches {fit_launches}); recommend {len(users)} users, launches "
+          f"{serve_launches}, first {first_s:.3f} s (generators refitted on the whole frame), warm median "
+          f"{warm_s:.3f} s of {[round(t, 3) for t in times]}, {len(users) / warm_s:.0f} users/s; pooled "
+          f"candidates, labels, sampled frame, fit frame and final top-k equal to the pipeline by hand; "
+          f"{agreement}; save + load_model {size / 2**20:.2f} MiB in {reload_s:.3f} s, bit-equal")
+
+    ranker_model = ranking_model(dev, CatBoostReranker(TorchListwiseRanker(device=dev), pool_factory=SmokePool))
+    t0 = time.perf_counter()
+    _, cb_fit_launches = _count_group_topm(port, lambda: ranker_model.fit(dataset), totals)
+    torch.cuda.synchronize()
+    cb_fit_s = time.perf_counter() - t0
+    cb_reco, cb_launches = _count_group_topm(
+        port, lambda: ranker_model.recommend(users, dataset, k=K, filter_viewed=True), totals)
+    check(cb_fit_launches == fit_expected, f"ranking catboost: the fit launched kernel 3 {cb_fit_launches} times, "
+          f"expected {fit_expected}")
+    check(cb_launches == serve_expected, f"ranking catboost: recommend launched kernel 3 {cb_launches} times")
+    _check_u2i(np, cb_reco, users, seen, K, "ranking catboost")
+    ranker = ranker_model.reranker.model
+    check(ranker.n_groups == sampled["user_id"].nunique(),
+          f"ranking catboost: {ranker.n_groups} groups in the pool, "
+          f"{sampled['user_id'].nunique()} users in the sampled frame")
+    print(f"ranking catboost: CatBoostReranker over the script's pool and listwise ranker: fit {cb_fit_s:.3f} s "
+          f"(kernel 3 launches {cb_fit_launches}, generators refitted for serving), {ranker.n_groups} user groups, "
+          f"loss {ranker.loss:.5f}; recommend {len(users)} users, launches {cb_launches}")
+    return {"model": model, "reco": reco, "fit_s": fit_s, "first_s": first_s, "warm_s": warm_s,
+            "warm_samples_s": times,
+            "users_per_s": len(users) / warm_s, "fit_launches": fit_launches, "recommend_launches": serve_launches,
+            "fallbacks": _fallbacks(fallbacks), "train_users": len(train_users), **stages,
+            "save_mib": size / 2**20, "reload_s": reload_s, "catboost_fit_s": cb_fit_s}
+
+
+def _brute_force(torch, np, queries, objects, cosine: bool, k: int) -> tuple:
+    """The CPU brute force: f32 scores by torch.matmul on the CPU against the
+    objects (COSINE: L2-normalised, zero rows kept), a stable descending
+    sort. Returns (the top k internal ids (B, k), the scores (B, N))."""
+    q, o = torch.as_tensor(np.asarray(queries, np.float32)), torch.as_tensor(np.asarray(objects, np.float32))
+    if cosine:
+        norms = torch.linalg.vector_norm(o, dim=1, keepdim=True)
+        o = o / torch.where(norms == 0, torch.ones_like(norms), norms)
+    scores = q @ o.T
+    return torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :k].numpy(), scores.numpy()
+
+
+def _ann_agreement(np, got_lists, expected, scores, item_id_map, what: str) -> int:
+    """The card's lists (external ids) against the brute force's (internal
+    ids): equal, or, where they differ, the same length with brute-force
+    scores equal position by position within TIE_GAP (items swapped inside
+    a tie). Returns the lists that are identical."""
+    identical = 0
+    for row, (got, ref) in enumerate(zip(got_lists, expected)):
+        got_internal = item_id_map.convert_to_internal(got)
+        if np.array_equal(got_internal, ref):
+            identical += 1
+            continue
+        check(len(got_internal) == len(ref) and bool(np.allclose(scores[row, got_internal], scores[row, ref], rtol=0,
+                                                                 atol=TIE_GAP)),
+              f"{what}: row {row} differs from the CPU brute force: {got_internal} vs {ref}")
+    return identical
+
+
+def _suspect_batches(engine, vectors, k: int) -> int:
+    """The batches of a ``query_batch`` whose certificate fails, by hand:
+    each batch's flag from its own dispatch."""
+    return sum(int(bool(engine.query_batch_async(vectors[start : start + engine.batch_size], k)[3]))
+               for start in range(0, len(vectors), engine.batch_size))
+
+
+def _warm_median(np, fn) -> tuple:
+    times = []
+    for _ in range(ANN_WARM_CALLS):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), times
+
+
+def ann_phase(torch, np, port, dataset, dev, als, totals: dict) -> dict:
+    """The ANN recommenders over the two-stage phase's fitted ALS factors:
+    UserToItemAnnRecommender under COSINE and DOT for all users (top 10,
+    index_top_k 50) and for 256 users with whitelists, ItemToItemAnnRecommender
+    for 4,096 items; kernel 3 once a 4,096-row batch a query, the certificate's
+    fallbacks equal to the batches that fail it by hand; 64 rows against the
+    CPU brute force; approximate=True equal to exact; a pickle round trip
+    bit-equal; users/s and items/s, warm median of 3."""
+    import pickle
+
+    from rectools_tpu_torch.models import Distance
+    from rectools_tpu_torch.models.convert import fitted_arrays
+    from rectools_tpu_torch.tools import ItemToItemAnnRecommender, UserToItemAnnRecommender
+
+    arrays = fitted_arrays(als)
+    user_vectors, item_vectors = arrays["user_factors"], arrays["item_factors"]
+    users, items = dataset.user_id_map.external_ids, dataset.item_id_map.external_ids
+    k = ANN_TOP_N + ANN_INDEX_TOP_K
+    rng = np.random.default_rng(SEED + 19)
+    out: dict = {}
+    for distance in (Distance.COSINE, Distance.DOT):
+        name = distance.name.lower()
+        kwargs = dict(index_top_k=ANN_INDEX_TOP_K, distance=distance, device=dev)
+        rec = UserToItemAnnRecommender(user_vectors, item_vectors, dataset.user_id_map, dataset.item_id_map,
+                                       **kwargs).fit()
+        before = _fallbacks()
+        lists, launches = _count_group_topm(port, lambda: rec.get_item_list_for_user_batch(users, ANN_TOP_N), totals)
+        fell = _fallbacks(before).get("query_batch", 0)
+        check(launches == math.ceil(len(users) / SERVING_B), f"ann u2i {name}: {launches} kernel 3 launches")
+        check(all(len(lst) == ANN_TOP_N for lst in lists), f"ann u2i {name}: a user got fewer than {ANN_TOP_N}")
+        internal = dataset.user_id_map.convert_to_internal(users)
+        suspect = _suspect_batches(rec._engine, user_vectors[internal], k)
+        check(fell == suspect, f"ann u2i {name}: {fell} batches counted as sorted again, {suspect} fail by hand")
+        warm_s, times = _warm_median(np, lambda: rec.get_item_list_for_user_batch(users, ANN_TOP_N))
+
+        rows = internal[:ANN_CPU_ROWS]
+        top, scores = _brute_force(torch, np, user_vectors[rows], item_vectors, distance == Distance.COSINE, k)
+        identical = _ann_agreement(np, lists[:ANN_CPU_ROWS], top[:, :ANN_TOP_N], scores, dataset.item_id_map,
+                                   f"ann u2i {name}")
+
+        listed_users = users[:ANN_WHITELIST_USERS]
+        whitelists = [rng.choice(items, ANN_WHITELIST_ITEMS, replace=False) for _ in listed_users]
+        listed, listed_launches = _count_group_topm(
+            port, lambda: rec.get_item_list_for_user_batch(listed_users, ANN_TOP_N, item_ids=whitelists), totals)
+        check(listed_launches == 1, f"ann u2i {name}: {listed_launches} launches for {len(listed_users)} users")
+        check(all(set(lst) <= set(wl.tolist()) for lst, wl in zip(listed, whitelists)),
+              f"ann u2i {name}: an item outside a user's whitelist")
+        expected = []
+        for row, wl in zip(top[:, :k], whitelists[:ANN_CPU_ROWS]):
+            allowed = set(dataset.item_id_map.convert_to_internal(wl).tolist())
+            expected.append(np.array([i for i in row if i in allowed][:ANN_TOP_N], dtype=np.int64))
+        listed_identical = _ann_agreement(np, listed[:ANN_CPU_ROWS], expected, scores, dataset.item_id_map,
+                                          f"ann u2i {name} with whitelists")
+
+        approx = UserToItemAnnRecommender(user_vectors, item_vectors, dataset.user_id_map, dataset.item_id_map,
+                                          approximate=True, recall_target=0.5, **kwargs).fit()
+        approx_lists, _ = _count_group_topm(port, lambda: approx.get_item_list_for_user_batch(users, ANN_TOP_N),
+                                            totals)
+        check(all(np.array_equal(a, b) for a, b in zip(approx_lists, lists)),
+              f"ann u2i {name}: approximate=True gave other lists than exact")
+        restored = pickle.loads(pickle.dumps(rec))
+        check(restored._engine is None, f"ann u2i {name}: the pickle carried the device table")
+        again, _ = _count_group_topm(port, lambda: restored.get_item_list_for_user_batch(users, ANN_TOP_N), totals)
+        check(all(np.array_equal(a, b) for a, b in zip(again, lists)),
+              f"ann u2i {name}: the pickle gave other lists")
+        print(f"ann u2i {name}: {len(users)} users, top {ANN_TOP_N}, index_top_k {ANN_INDEX_TOP_K} (k = {k}): "
+              f"kernel 3 launches {launches}, batches sorted again {fell} (by hand {suspect}); warm median "
+              f"{warm_s:.3f} s of {[round(t, 3) for t in times]}, {len(users) / warm_s:.0f} users/s; "
+              f"{identical} of {len(rows)} lists identical to the CPU brute force, the rest inside ties of TIE_GAP; "
+              f"{len(listed_users)} users with whitelists of {ANN_WHITELIST_ITEMS} items ({listed_identical} of "
+              f"{len(rows)} identical to the brute force); approximate=True equal to exact; pickle round trip "
+              f"bit-equal")
+        out[f"u2i_{name}"] = {"launches": launches, "fallbacks": fell, "warm_s": warm_s, "warm_samples_s": times,
+                              "users_per_s": len(users) / warm_s, "cpu_identical": identical,
+                              "whitelist_cpu_identical": listed_identical}
+
+    rec = ItemToItemAnnRecommender(item_vectors, dataset.item_id_map, index_top_k=ANN_INDEX_TOP_K, device=dev).fit()
+    targets = items[:ANN_I2I_ITEMS]
+    before = _fallbacks()
+    i2i, launches = _count_group_topm(port, lambda: rec.get_item_list_for_item_batch(targets, ANN_TOP_N), totals)
+    fell = _fallbacks(before).get("query_batch", 0)
+    check(launches == math.ceil(len(targets) / SERVING_B), f"ann i2i: {launches} kernel 3 launches")
+    check(all(len(lst) == ANN_TOP_N and target not in set(lst.tolist()) for target, lst in zip(targets, i2i)),
+          f"ann i2i: a list is short or holds its own item")
+    internal = dataset.item_id_map.convert_to_internal(targets)
+    suspect = _suspect_batches(rec._engine, item_vectors[internal], k + 1)
+    check(fell == suspect, f"ann i2i: {fell} batches counted as sorted again, {suspect} fail by hand")
+    warm_s, times = _warm_median(np, lambda: rec.get_item_list_for_item_batch(targets, ANN_TOP_N))
+    rows = internal[:ANN_CPU_ROWS]
+    top, scores = _brute_force(torch, np, item_vectors[rows], item_vectors, True, k + 1)
+    expected = [np.array([i for i in row if i != self_id][:ANN_TOP_N]) for row, self_id in zip(top, rows)]
+    identical = _ann_agreement(np, i2i[:ANN_CPU_ROWS], expected, scores, dataset.item_id_map, "ann i2i")
+    restored = pickle.loads(pickle.dumps(rec))
+    again, _ = _count_group_topm(port, lambda: restored.get_item_list_for_item_batch(targets, ANN_TOP_N), totals)
+    check(all(np.array_equal(a, b) for a, b in zip(again, i2i)), "ann i2i: the pickle gave other lists")
+    print(f"ann i2i cosine: {len(targets)} items, self excluded: kernel 3 launches {launches}, batches sorted again "
+          f"{fell} (by hand {suspect}); warm median {warm_s:.3f} s of {[round(t, 3) for t in times]}, "
+          f"{len(targets) / warm_s:.0f} items/s; {identical} of {len(rows)} lists identical to the CPU brute force, "
+          f"the rest inside ties of TIE_GAP; pickle round trip bit-equal")
+    out["i2i_cosine"] = {"launches": launches, "fallbacks": fell, "warm_s": warm_s, "warm_samples_s": times,
+                         "items_per_s": len(targets) / warm_s, "cpu_identical": identical}
+    return {**out, "i2i_lists": i2i, "i2i_targets": targets}
+
+
+def compat_phase(np, port, dataset, dev, totals: dict) -> dict:
+    """``translate_reference_config`` of a reference ImplicitALSWrapperModel
+    config (nested ``model`` dict with host knobs): the dropped keys warned
+    about, the translated model fitted and recommending all users bit-equal
+    to ALSModel built directly with the same fields, kernel 3 once a batch."""
+    import warnings
+
+    from rectools_tpu_torch.compat import translate_reference_config
+    from rectools_tpu_torch.models import model_from_config
+
+    users = dataset.user_id_map.external_ids
+    reference = {"cls": "rectools.models.implicit_als.ImplicitALSWrapperModel",
+                 "model": {"factors": FACTORIZATION_FACTORS, "regularization": 0.05, "iterations": 15,
+                           "use_gpu": True, "num_threads": 8, "random_state": SEED}}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        config = translate_reference_config(reference)
+    messages = [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
+    check(len(messages) == 1 and "['num_threads', 'use_gpu']" in messages[0] and "ALSModel" in messages[0],
+          f"compat: the dropped keys were not warned about: {messages}")
+    check(config == {"cls": "ALSModel", "factors": FACTORIZATION_FACTORS, "regularization": 0.05, "iterations": 15,
+                     "random_state": SEED}, f"compat: translated to {config}")
+    translated = model_from_config(config if dev == "cuda" else {**config, "device": dev})
+    check(translated.device == dev, f"compat: the translated model is on {translated.device}")
+    t0 = time.perf_counter()
+    translated.fit(dataset)
+    fit_s = time.perf_counter() - t0
+    reco, launches = _count_group_topm(port, lambda: translated.recommend(users, dataset, k=K, filter_viewed=True),
+                                       totals)
+    check(launches == math.ceil(len(users) / SERVING_B), f"compat: {launches} kernel 3 launches")
+    direct = als_model(dev).fit(dataset)
+    ref, _ = _count_group_topm(port, lambda: direct.recommend(users, dataset, k=K, filter_viewed=True), totals)
+    check(_same_reco(reco, ref), "compat: the translated ALS recommends other bits than ALSModel built directly")
+    print(f"compat: warned \"{messages[0]}\"; translated to {config}; fit {fit_s:.3f} s; recommend "
+          f"{len(users)} users "
+          f"(kernel 3 launches {launches}) bit-equal to ALSModel built directly")
+    return {"config": config, "warning": messages[0], "fit_s": fit_s, "launches": launches, "reco": reco}
+
+
+def visuals_phase(np, pd, df, dataset, reco: dict, i2i_targets, i2i_lists, metrics_rows: list) -> dict:
+    """The visual apps' data half (``display`` is not called: plotly and the
+    widgets are not on the card's machine): VisualApp over the two-stage and
+    ALS recommendations, ItemToItemVisualApp over the ANN's i2i lists,
+    MetricsApp over the evaluate and classic phases' cross_validate rows,
+    each with a CSV round trip in a temporary directory."""
+    import tempfile
+
+    from rectools_tpu_torch.visuals import ItemToItemVisualApp, MetricsApp, VisualApp
+
+    t0 = time.perf_counter()
+    items = dataset.item_id_map.external_ids
+    item_data = pd.DataFrame({"item_id": items, "genre": items % ITEM_GENRES})
+    heaviest = int(df["user_id"].value_counts().index[0])
+    selected = {"first": int(dataset.user_id_map.external_ids[0]), "heaviest": heaviest}
+    app = VisualApp.construct(reco, df, item_data, selected_users=selected, n_random_users=2, auto_display=False)
+    storage = app.data_storage
+    check(storage.request_names[:2] == ["first", "heaviest"] and len(storage.request_names) == 4,
+          f"visuals: requests {storage.request_names}")
+    for model_name, per_request in storage.grouped_reco.items():
+        for request, frame in per_request.items():
+            rows = reco[model_name][reco[model_name]["user_id"] == storage.selected_requests[request]]
+            check(frame["item_id"].tolist() == rows["item_id"].tolist() and "genre" in frame.columns,
+                  f"visuals: {model_name} / {request} shows other items")
+    check(len(storage.grouped_interactions["heaviest"]) == int((df["user_id"] == heaviest).sum()),
+          "visuals: the heaviest user's interactions are incomplete")
+    i2i = pd.DataFrame({"target_item_id": np.repeat(i2i_targets, [len(x) for x in i2i_lists]),
+                        "item_id": np.concatenate(i2i_lists), "model": "ann_cosine"})
+    i2i_app = ItemToItemVisualApp.construct(i2i, item_data, selected_items={"first": int(i2i_targets[0])},
+                                            n_random_items=2, auto_display=False)
+    check(len(i2i_app.data_storage.request_names) == 3, "visuals: i2i requests")
+    metrics = pd.DataFrame(metrics_rows)
+    meta = pd.DataFrame({"model": metrics["model"].unique()})
+    meta["family"] = np.where(meta["model"] == "sasrec", "transformer", "classic")
+    metrics_app = MetricsApp.construct(metrics, models_metadata=meta, auto_display=False)
+    chart = metrics_app.chart_data()
+    check(len(chart) == metrics["model"].nunique() and metrics_app.fold_ids == sorted(metrics["i_split"].unique()),
+          f"visuals: metrics chart of {len(chart)} rows")
+    check(bool(np.allclose(chart.set_index("model")[f"recall@{K}"],
+                           metrics.groupby("model")[f"recall@{K}"].mean())), "visuals: averaged recall differs")
+    with tempfile.TemporaryDirectory(prefix="visuals_") as tmp:
+        for what, viewer, cls in (("u2i", app, VisualApp), ("i2i", i2i_app, ItemToItemVisualApp)):
+            viewer.save(f"{tmp}/{what}")
+            loaded = cls.load(f"{tmp}/{what}", auto_display=False).data_storage
+            saved = viewer.data_storage
+            check(loaded.selected_requests == saved.selected_requests and loaded.id_col == saved.id_col,
+                  f"visuals: {what} requests after the round trip")
+            for model_name, per_request in saved.grouped_reco.items():
+                for request, frame in per_request.items():
+                    pd.testing.assert_frame_equal(frame, loaded.grouped_reco[model_name][request][frame.columns],
+                                                  check_dtype=False)
+            for request, frame in saved.grouped_interactions.items():
+                check(frame["item_id"].tolist() == loaded.grouped_interactions[request]["item_id"].tolist(),
+                      f"visuals: {what} interactions of {request} after the round trip")
+        metrics.to_csv(f"{tmp}/metrics.csv", index=False)
+        again = MetricsApp.construct(pd.read_csv(f"{tmp}/metrics.csv"), models_metadata=meta, auto_display=False)
+        pd.testing.assert_frame_equal(again.chart_data(), chart)
+    wall_s = time.perf_counter() - t0
+    print(f"visuals: VisualApp over {sorted(reco)} ({len(storage.request_names)} users, 2 drawn), "
+          f"ItemToItemVisualApp over the ANN's i2i lists, MetricsApp over {metrics['model'].nunique()} models x "
+          f"{len(metrics_app.fold_ids)} folds, each through a CSV round trip, in {wall_s:.2f} s")
+    return {"wall_s": wall_s, "requests": storage.request_names, "metrics_models": int(metrics["model"].nunique())}
+
+
+def ranking_phase(torch, np, pd, port, df, dataset, dev, metrics_rows: list) -> dict:
+    """Phase 15: the two-stage model, the ANN recommenders over its ALS
+    factors, the reference-config migration and the visual apps, with kernel
+    3's launches counted over the phase."""
+    t_phase = time.perf_counter()
+    totals: dict = {}
+    fallbacks = _fallbacks()
+    two_stage = two_stage_phase(torch, np, pd, port, df, dataset, dev, totals)
+    model, reco = two_stage.pop("model"), two_stage.pop("reco")
+    als = [g.model for name, g in model.cand_gen_dict.items() if name.startswith("ALSModel")][0]
+    ann = ann_phase(torch, np, port, dataset, dev, als, totals)
+    i2i_targets, i2i_lists = ann.pop("i2i_targets"), ann.pop("i2i_lists")
+    compat = compat_phase(np, port, dataset, dev, totals)
+    visuals = visuals_phase(np, pd, df, dataset, {"two_stage": reco, "als": compat.pop("reco")}, i2i_targets,
+                            i2i_lists, metrics_rows)
+    del model
+    torch.cuda.empty_cache()
+    wall_s = time.perf_counter() - t_phase
+    fell = _fallbacks(fallbacks)
+    print(f"ranking: kernel 3 launches over the phase {totals}; batches sorted again {fell}; the phase's wall "
+          f"{wall_s:.1f} s")
+    return {"launches": totals, "fallbacks": fell, "two_stage": two_stage, "ann": ann, "compat": compat,
+            "visuals": visuals, "wall_s": wall_s}
+
+
 # ---------------------------------------------------------------- phase 9, the other doors of the streaming lse
 
 
@@ -3412,6 +4046,10 @@ def main() -> int:
     # phase 14: ALS, BPR, HybridMF and DSSM on the same frame
     print(f"factorization: on {card}")
     factorization_result = factorization_phase(torch, np, pd, port, df, dataset, "cuda")
+    # phase 15: two-stage ranking, the ANN recommenders, compat and the visual apps on the same frame
+    print(f"ranking: on {card}")
+    ranking_result = ranking_phase(torch, np, pd, port, df, dataset, "cuda",
+                                   evaluate_result["metrics"] + baselines_result["evaluate"]["metrics"])
     # phase 10: BERT4Rec and eSASRec (shared negatives, remat) through the same entry points, remat at the
     # ML-20M-sized shape
     for tag in ("family kernels", "bert4rec", "esasrec", "remat fit"):  # the card beside these phases' numbers
@@ -3474,7 +4112,8 @@ def main() -> int:
                                           for key in port.LAUNCHES}},
              "esasrec_recommend": esasrec_main_result, "remat_fit": remat_result["remat"],
              "checkpoint_recommend": checkpoint_result, "hstu_checkpoint_recommend": hstu_checkpoint_result,
-             "evaluate": evaluate_result, "classic": baselines_result, "factorization": factorization_result}
+             "evaluate": evaluate_result, "classic": baselines_result, "factorization": factorization_result,
+             "ranking": ranking_result}
 
     def numbers(r: dict) -> dict:
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -3558,6 +4197,7 @@ def main() -> int:
         "evaluate": {k: v for k, v in evaluate_result.items() if k != "launches"},
         "classic": {k: v for k, v in baselines_result.items() if k != "launches"},
         "factorization": {k: v for k, v in factorization_result.items() if k != "launches"},
+        "ranking": {k: v for k, v in ranking_result.items() if k != "launches"},
     }
     print(json.dumps(line))
     print(card)

@@ -16,10 +16,26 @@ The object table is padded to at least one spare column past the catalog
 serves as the fill index of the seen lists: torch ``scatter_`` raises on the
 out-of-range fill that JAX's ``mode="drop"`` discards.
 
-The serving loop (:func:`rank_topk`) dispatches every batch first and brings
-the results to the host once; the grouped selection's certificate flags come
-back with them, and only a suspect batch (rare; adversarial layouts) is
-recomputed by the exact sort and counted in ``topk_select.FALLBACKS``.
+:class:`TopKEngine` holds the object table on the device and scores subject
+batches against it: ``query_batch_async`` dispatches one batch and returns
+device tensors; ``query_batch`` (the API of the ANN tools, tools/ann.py)
+splits the rows into ``batch_size`` batches and returns numpy arrays.
+:func:`rank_topk` serves a model's recommend through the same loop
+(:func:`_serve_batches`): it dispatches every batch first and brings the
+results to the host once; the grouped selection's certificate flags come
+back with them, and only a suspect batch (one where a group may hide an
+element of the top k: adversarial layouts, or k above m on a catalog whose
+best items share groups) is recomputed by the exact sort and counted in
+``topk_select.FALLBACKS`` under its caller's key.
+
+Scores are never chunked over objects: a batch's score block is
+``batch_size`` × N_pad × 4 bytes (260 MB at 4,096 rows and 15,872 columns).
+Rows are scored independently, so splitting rows gives the same result as
+the JAX engine's one-shot scoring and its object-chunked scorer above 1 GiB.
+The JAX engine's ``use_bfloat16`` storage and its chunked scorer are not
+ported. ``approximate=True`` takes the same exact route: off the TPU
+``jax.lax.approx_max_k`` is exact too, so the port returns what JAX returns
+on the CPU and meets every ``recall_target``.
 """
 
 import math
@@ -90,16 +106,27 @@ def _score_mask_topk(
 
 
 class TopKEngine:
-    """Device-resident object table + batched subject scoring."""
+    """Device-resident object table + batched subject scoring.
+
+    ``batch_size``, ``approximate`` and ``recall_target`` are the JAX
+    engine's; ``approximate=True`` is served exactly (see the module
+    docstring), and both are kept for the callers that read them back.
+    """
 
     def __init__(
         self,
         objects: tp.Union[np.ndarray, torch.Tensor],  # (N, D)
         distance: Distance = Distance.DOT,
+        batch_size: int = 4096,
+        approximate: bool = False,
+        recall_target: float = 0.95,
         device: DeviceLike = "cuda",
     ) -> None:
         self.device = resolve_device(device)
         self.distance = distance
+        self.batch_size = batch_size
+        self.approximate = approximate
+        self.recall_target = recall_target
         obj = torch.as_tensor(objects, dtype=torch.float32, device=self.device)
         self.n_objects, self.dim = obj.shape
         if distance == Distance.COSINE:
@@ -132,6 +159,58 @@ class TopKEngine:
             sub, self._objects_t, seen, self._obj_norm_sq, self.n_objects, min(k, self.n_objects),
             self.distance, exact,
         )
+
+    def query_batch(
+        self,
+        subjects: tp.Union[np.ndarray, torch.Tensor],  # (B, D)
+        k: int,
+        seen_idx: tp.Optional[np.ndarray] = None,  # (B, S), entries >= n_objects are padding
+    ) -> tp.Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Top-min(k, n_objects) of every row: numpy (idx (B, k) int32, report
+        scores (B, k) f32, valid (B, k) bool), JAX ``query_batch``'s contract.
+        Rows go in ``batch_size`` batches, all dispatched before one fetch; a
+        batch whose certificate failed is sorted again and counted in
+        ``FALLBACKS["query_batch"]``."""
+        k_eff = min(k, self.n_objects)
+        b = subjects.shape[0]
+        if b == 0:
+            return np.zeros((0, k_eff), np.int32), np.zeros((0, k_eff), np.float32), np.zeros((0, k_eff), bool)
+        if seen_idx is not None:
+            seen_idx = np.asarray(seen_idx, dtype=np.int64)
+            seen_idx = np.where(seen_idx >= self.n_objects, self.fill, seen_idx)
+
+        def batches() -> tp.Iterator[tp.Tuple[tp.Any, tp.Optional[np.ndarray]]]:
+            for start in range(0, b, self.batch_size):
+                rows = slice(start, start + self.batch_size)
+                yield subjects[rows], None if seen_idx is None else seen_idx[rows]
+
+        idx, scores, valid = _serve_batches(self, batches(), k, "query_batch")
+        return idx.astype(np.int32), scores, valid
+
+
+def _serve_batches(
+    engine: TopKEngine,
+    batches: tp.Iterable[tp.Tuple[tp.Any, tp.Optional[np.ndarray]]],
+    k: int,
+    caller: str,
+) -> tp.Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The serving loop: dispatch every (subjects, seen) batch (kernel
+    launches queue on the stream while the host prepares the next batch),
+    bring all results to the host in one fetch, then sort again each batch
+    whose certificate failed, counted in ``FALLBACKS[caller]``. Returns the
+    batches' rows stacked: idx int64, report scores f32, valid bool."""
+    pending: tp.List[tp.Tuple[tp.Any, tp.Optional[np.ndarray], Handles]] = []
+    for sub_block, seen in batches:
+        pending.append((sub_block, seen, engine.query_batch_async(sub_block, k, seen)))
+    idx_all, scores_all, valid_all, suspect = _fetch([p[2] for p in pending])
+    offsets = np.concatenate(([0], np.cumsum([len(p[2][0]) for p in pending])))
+    FALLBACKS[caller] += int(suspect.sum())
+    for bi in np.flatnonzero(suspect):
+        sub_block, seen, _ = pending[bi]
+        idx_b, scores_b, valid_b, _ = _fetch([engine.query_batch_async(sub_block, k, seen, exact=True)])
+        lo, hi = offsets[bi], offsets[bi + 1]
+        idx_all[lo:hi], scores_all[lo:hi], valid_all[lo:hi] = idx_b, scores_b, valid_b
+    return idx_all, scores_all, valid_all
 
 
 def _csr_rows_to_padded_idx(csr: sparse.csr_matrix, rows: np.ndarray, fill: int) -> np.ndarray:
@@ -206,46 +285,33 @@ def rank_topk(
             object_block = np.asarray(objects, dtype=np.float32)[sorted_object_whitelist]
     else:
         object_block = objects
-    engine = TopKEngine(object_block, distance=distance, device=dev)
+    engine = TopKEngine(object_block, distance=distance, batch_size=batch_size, device=dev)
     fill = engine.fill
     subject_ids = np.asarray(subject_ids)
-
-    # Two-phase serving loop: dispatch every batch (kernel launches queue on
-    # the stream), then bring all results to the host in one fetch.
-    pending: tp.List[tp.Tuple[np.ndarray, tp.Any, tp.Optional[np.ndarray], Handles]] = []
-    for start in range(0, len(subject_ids), batch_size):
-        batch_pos = np.arange(start, min(start + batch_size, len(subject_ids)))
-        batch_subject_ids = subject_ids[batch_pos]
-        if sparse.issparse(subjects):
-            sub_block: tp.Any = np.asarray(subjects[batch_subject_ids].todense(), dtype=np.float32)
-        elif isinstance(subjects, torch.Tensor):
-            sub_block = subjects[host_to_device(batch_subject_ids.astype(np.int64), subjects.device)]
-        else:
-            sub_block = np.asarray(subjects[batch_subject_ids], dtype=np.float32)
-
-        seen: tp.Optional[np.ndarray] = None
-        if filter_pairs_csr is not None:
-            seen = _seen_columns(filter_pairs_csr, batch_pos, sorted_object_whitelist, fill)
-        pending.append((batch_subject_ids, sub_block, seen, engine.query_batch_async(sub_block, k, seen)))
-
-    if not pending:
+    if len(subject_ids) == 0:
         return np.array([], dtype=np.int64), np.array([], dtype=np.int64), np.array([], dtype=np.float32)
-    idx_all, scores_all, valid_all, suspect = _fetch([p[3] for p in pending])
-    sizes = [len(p[0]) for p in pending]
-    offsets = np.concatenate(([0], np.cumsum(sizes)))
-    FALLBACKS["rank_topk"] += int(suspect.sum())
-    for bi in np.flatnonzero(suspect):
-        # certificate failed: recompute this batch with the exact sort
-        batch_subject_ids, sub_block, seen, _ = pending[bi]
-        idx_b, scores_b, valid_b, _ = _fetch([engine.query_batch_async(sub_block, k, seen, exact=True)])
-        lo, hi = offsets[bi], offsets[bi + 1]
-        idx_all[lo:hi], scores_all[lo:hi], valid_all[lo:hi] = idx_b, scores_b, valid_b
+
+    def batches() -> tp.Iterator[tp.Tuple[tp.Any, tp.Optional[np.ndarray]]]:
+        for start in range(0, len(subject_ids), batch_size):
+            batch_pos = np.arange(start, min(start + batch_size, len(subject_ids)))
+            batch_subject_ids = subject_ids[batch_pos]
+            if sparse.issparse(subjects):
+                sub_block: tp.Any = np.asarray(subjects[batch_subject_ids].todense(), dtype=np.float32)
+            elif isinstance(subjects, torch.Tensor):
+                sub_block = subjects[host_to_device(batch_subject_ids.astype(np.int64), subjects.device)]
+            else:
+                sub_block = np.asarray(subjects[batch_subject_ids], dtype=np.float32)
+            seen = None
+            if filter_pairs_csr is not None:
+                seen = _seen_columns(filter_pairs_csr, batch_pos, sorted_object_whitelist, fill)
+            yield sub_block, seen
+
+    idx_all, scores_all, valid_all = _serve_batches(engine, batches(), k, "rank_topk")
 
     # vectorised strip of masked entries; rows stay rank-sorted
     flat_valid = valid_all.ravel()
     flat_idx = idx_all.ravel()[flat_valid]
-    all_subj = np.concatenate([p[0] for p in pending]).astype(np.int64)
-    subj_rep = np.repeat(all_subj, valid_all.sum(axis=1))
+    subj_rep = np.repeat(subject_ids.astype(np.int64), valid_all.sum(axis=1))
     if sorted_object_whitelist is not None:
         obj_ids = np.asarray(sorted_object_whitelist)[flat_idx].astype(np.int64)
     else:

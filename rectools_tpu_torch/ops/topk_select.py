@@ -44,7 +44,8 @@ _SIGNATURES = {
 TopK = tp.Tuple[torch.Tensor, torch.Tensor]
 
 # Batches whose certificate failed and that the exact sort served, by caller
-# ("exact_top_k", "rank_topk", "random_rank_topk"); chip_smoke.py reads them.
+# ("exact_top_k", "rank_topk", "query_batch", "random_rank_topk");
+# chip_smoke.py reads them.
 FALLBACKS: tp.Counter[str] = collections.Counter()
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from rectools_tpu_torch.dataset import IdMap
 from rectools_tpu_torch.models import (
     ALSModel,
     BERT4RecModel,
@@ -28,7 +29,7 @@ from rectools_tpu_torch.models import (
 )
 from rectools_tpu_torch.models.nn.transformers import LiGRLayers, TransformerBackbone
 from rectools_tpu_torch.ops import _native, attention, layer_norm, softmax_lse, stu_attention, topk, topk_select
-from rectools_tpu_torch.tools import fused_bwd_variants, stu_fwd_topm_check
+from rectools_tpu_torch.tools import ItemToItemAnnRecommender, fused_bwd_variants, stu_fwd_topm_check
 
 REPO = Path(__file__).resolve().parents[1]
 MASK_VALUE = -1e9
@@ -76,7 +77,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package() -> None:
     assert {"native/__init__.py", "metrics/scoring.py", "metrics/ranking.py", "model_selection/cross_validate.py",
             "model_selection/time_split.py", "models/serialization.py", "utils/array_ops.py", "ops/als.py",
             "ops/bpr.py", "ops/hybrid_mf.py", "models/als.py", "models/bpr.py", "models/hybrid_mf.py",
-            "models/nn/dssm.py", "dataset/dssm_datasets.py"} <= scanned
+            "models/nn/dssm.py", "dataset/dssm_datasets.py", "compat.py", "models/ranking/__init__.py",
+            "models/ranking/candidate_ranking.py", "models/ranking/catboost_reranker.py", "tools/__init__.py",
+            "tools/ann.py", "visuals/__init__.py", "visuals/metrics_app.py", "visuals/visual_app.py"} <= scanned
     offenders = {}
     for path in sources:
         bad = {
@@ -102,6 +105,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch: pytest.M
         TorchRanker(topk.Distance.DOT, objects, objects)
     with pytest.raises(RuntimeError, match="cuda"):
         topk.TopKEngine(objects)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ItemToItemAnnRecommender(objects, IdMap.from_values(np.arange(4)))
 
 
 def test_fused_bwd_tile_rows_match_the_cuda_source() -> None:
@@ -490,6 +495,36 @@ def test_cuda_rank_topk_matches_cpu(cuda: torch.device, adversarial: bool) -> No
     np.testing.assert_array_equal(got[0], expected[0])
     np.testing.assert_array_equal(got[1], expected[1])
     np.testing.assert_allclose(got[2], expected[2], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("distance", ["DOT", "COSINE", "EUCLIDEAN"])
+def test_cuda_query_batch_matches_cpu(cuda: torch.device, distance: str) -> None:
+    """``TopKEngine.query_batch`` (the ANN tools' call) on the card against
+    the CPU twin: 4,097 rows in two batches of 4,096 rows over 5,000
+    objects, a third of them copies (exact ties; dyadic entries keep every
+    score exact), k = 60 > m = 12, seen lists on odd rows. The same items in
+    the same order; kernel 3 launched once a batch and no other kernel (a
+    batch the certificate sends to the sort is sorted again without it)."""
+    rng = np.random.default_rng(19)
+    n, d, b, k = 5000, 16, 4097, 60
+    objects = (rng.integers(-16, 17, size=(n, d)) / 8).astype(np.float32)
+    objects[rng.choice(n, n // 3, replace=False)] = objects[rng.choice(n, n // 3)]
+    subjects = (rng.integers(-16, 17, size=(b, d)) / 8).astype(np.float32)
+    seen = rng.integers(0, n, size=(b, 9))
+    seen[::2] = n
+    got_engine = topk.TopKEngine(objects, distance=topk.Distance[distance], device=cuda)
+    before = dict(_native.LAUNCHES)
+    fallbacks = topk_select.FALLBACKS["query_batch"]
+    got = got_engine.query_batch(subjects, k, seen)
+    launches = sum(_native.LAUNCHES[key] - before[key] for key in ("group_topm", "group_topm_warp"))
+    assert launches == 2 and all(_native.LAUNCHES[key] == before[key] for key in before
+                                 if key not in ("group_topm", "group_topm_warp"))
+    assert topk_select.FALLBACKS["query_batch"] >= fallbacks
+    ref = topk.TopKEngine(objects, distance=topk.Distance[distance], device="cpu").query_batch(subjects, k, seen)
+    np.testing.assert_array_equal(got[2], ref[2])
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_allclose(got[1], ref[1], rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.gpu
