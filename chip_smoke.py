@@ -253,6 +253,23 @@ own lines; any failure exits nonzero and prints no result:
              ALSModel built directly. ``visuals``: VisualApp,
              ItemToItemVisualApp and MetricsApp built (not displayed) and
              round-tripped through CSV. Prints the phase's wall.
+16. bf16  — after ranking: mixed-precision training (compute_dtype =
+             "bfloat16"). (a) the bf16 forms of kernels 6 and 7 at 51,200 x
+             15,872 x 128 (and checked at the odd catalog) and of kernels 2
+             and 5 at B = 512, H = 4, L = 100, heads of 32, causal with
+             dropout and under BERT4Rec's bias, each against its twin on the
+             card, the same bits on a rerun, timed beside its f32 form on the
+             same values, the library call in bf16 and its bound at 989
+             TFLOP/s bf16 and 3.35 TB/s. (b) SASRecModel.fit with bf16 compute
+             at phase 5's width, batch and epochs beside phase 5's f32 fit:
+             every launch count, a profiled step whose device kernels include
+             the four bf16 forms and no f32 attention or loss kernel and no
+             library attention or cross-entropy, losses within 2e-2 and
+             HitRate@10 on the held-out last items within 0.03 of the f32
+             fit's, train examples/s of both. (c) one bf16 epoch through fit
+             of BERT4Rec and of eSASRec with shared negatives. (d) every route
+             without a bf16 kernel raises NotImplementedError naming ROADMAP
+             §1 item 5 and launches nothing. Prints the phase's wall.
 
 Output, last lines: one JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -3965,6 +3982,391 @@ def remat_fit_phase(torch, np, pd, port, dev) -> dict:
     return {**results, "loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_err}
 
 
+# ---------------------------------------------------------------- phase 16, bf16
+
+PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores, data sheet
+# the bf16 forms against their twins on the card, which multiply the bf16 values in f32 (exact), so that only the
+# order of the f32 sums differs and, where two f32 sums straddle a rounding boundary, a bf16 value lands one step
+# (at most 2^-7 of itself) apart: kernel 6 relative per row; kernel 7 relative to the largest entry, ds 2^-6 (each
+# of the 8 item chunks' bf16 partials may round a step apart, and the partials can exceed their sum: 2.6e-3 to
+# 5.6e-3 on an H100 at these shapes) and di 2^-10 (f32 sums of probabilities that may round a step apart: up to 6.7e-5);
+# kernels 2 and 5 relative to the largest entry of out, dq, dk and dv, one bf16 step (up to 1.8e-3 measured)
+BF16_LSE_RTOL = 1e-6
+BF16_DS_RTOL, BF16_DI_RTOL = 2 ** -6, 2 ** -10
+BF16_ATTN_RTOL = 2 ** -7
+BF16_LOSS_RTOL = 2e-2  # the bf16 fit's train losses against the f32 fit's, as the JAX package holds its bf16 loss
+BF16_HIT_BAND = 0.03  # HitRate@10 on ~1,018 held-out last items: bf16 within 0.03 of f32 (two binomial sigmas)
+BF16_KEYS = ("attention_fwd_bf16", "attention_bwd_bf16", "lse_partials_fwd_bf16", "ce_grads_fused_bf16")
+# device kernels of a bf16 train step: each bf16 form, and nothing of the f32 attention or loss kernels or of a
+# library attention or cross-entropy
+BF16_DEVICE_KERNELS = ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel",
+                       "ce_fused_bf16_kernel")
+BF16_BANNED_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel", "attn_fwd_tc", "attn_bwd_tc", "lse_partials_tc",
+                       "lse_chunk", "lse_bwd_fused", "grad_ds", "grad_di", "fmha", "flash", "attention_kernel",
+                       "cross_entropy", "nll_loss", "log_softmax", "softmax_warp")
+
+
+def bf16_bound(n_bytes: float, n_ops: float) -> tuple:
+    """(ms, "bytes" or "operations"): the bytes over the memory rate or the
+    operations over the bf16 tensor-core rate, whichever is longer."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bf16_line(name: str, r: dict) -> None:
+    print(f"bf16 kernels: {name}: max_rel_err={r['max_rel_err']:.3g} ms={r['ms']:.4f} f32_ms={r['f32_ms']:.4f} "
+          f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (bf16) bound_ms={r['bound'][0]:.4f} "
+          f"({r['bound'][1]}, 989 TFLOP/s bf16, 3.35 TB/s)")
+
+
+def _attention_bf16_case(torch, F, attention, gen, dev, b: int, l: int, h: int, dh: int, bias, tag: str) -> dict:
+    """Kernels 2 (with dropout) and 5 in bf16 at (b, h, l, dh) under ``bias``
+    against their twins (BF16_ATTN_RTOL, the same bits on a rerun), timed beside
+    the f32 forms on the same values, bf16 SDPA and its autograd, and the bound
+    of the pairs the bias lets through."""
+    bf = torch.bfloat16
+    q, k, v, dout = (torch.randn((b, l, h, dh), generator=gen, device=dev).to(bf).transpose(1, 2) for _ in range(4))
+    scale, seed = 1.0 / math.sqrt(dh), 192837465
+    out, lse = attention.attention_fwd(q, k, v, bias, scale, DROPOUT, seed)
+    ref_out, ref_lse = attention.attention_bf16_reference(q, k, v, bias, scale, DROPOUT, seed)
+    check(out.dtype == bf and lse.dtype == torch.float32, f"attention bf16 {tag}: out {out.dtype}, lse {lse.dtype}")
+    # the lse of the rounded scores, per row relative to max(|lse|, 1): a score one step apart moves it by that step
+    err_lse = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item()
+    err_fwd = max(_max_rel(out.float(), ref_out.float()), err_lse)
+    again = attention.attention_fwd(q, k, v, bias, scale, DROPOUT, seed)
+    check(err_fwd <= BF16_ATTN_RTOL and bool(torch.equal(again[0], out) and torch.equal(again[1], lse)),
+          f"attention forward bf16 {tag}: {err_fwd} from the twin (limit {BF16_ATTN_RTOL}), or other bits on a rerun")
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    got = attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)
+    ref = attention.attention_bwd_bf16_reference(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)
+    err_bwd = max(_max_rel(a.float(), r.float()) for a, r in zip(got, ref))
+    again = attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)
+    check(err_bwd <= BF16_ATTN_RTOL and all(bool(torch.equal(a, g)) for a, g in zip(again, got)),
+          f"attention backward bf16 {tag}: {err_bwd} from the twin (limit {BF16_ATTN_RTOL}), or other bits on a "
+          "rerun")
+    live = int((bias > -1e8).sum().item()) * (b // bias.shape[0]) * h
+    flops = live * dh
+    q32, k32, v32, dout32 = (t.float() for t in (q, k, v, dout))
+    out32, lse32 = attention.attention_fwd(q32, k32, v32, bias, scale, DROPOUT, seed)
+    delta32 = (dout32 * out32).sum(-1).contiguous()
+    mask = bias.to(bf)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
+    results = {
+        f"attention_fwd_bf16_{tag}": dict(
+            max_abs_err=(out.float() - ref_out.float()).abs().max().item(), max_rel_err=err_fwd,
+            ms=time_ms(lambda: attention.attention_fwd(q, k, v, bias, scale, DROPOUT, seed)),
+            f32_ms=time_ms(lambda: attention.attention_fwd(q32, k32, v32, bias, scale, DROPOUT, seed)),
+            plain_ms=time_ms(lambda: attention.attention_bf16_reference(q, k, v, bias, scale, DROPOUT, seed),
+                             iters=3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)),
+            bound=bf16_bound(4 * q.numel() * 2 + lse.numel() * 4 + bias.numel() * 4, 4 * flops),
+        ),
+        f"attention_bwd_bf16_{tag}": dict(
+            max_abs_err=max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref)),
+            max_rel_err=err_bwd,
+            ms=time_ms(lambda: attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, DROPOUT, seed)),
+            f32_ms=time_ms(lambda: attention.attention_bwd(q32, k32, v32, bias, lse32, delta32, dout32, scale,
+                                                           DROPOUT, seed)),
+            plain_ms=time_ms(lambda: attention.attention_bwd_bf16_reference(q, k, v, bias, lse, delta, dout, scale,
+                                                                            DROPOUT, seed), iters=3),
+            library_ms=time_ms(lambda: torch.autograd.grad(out_lib, (qg, kg, vg), dout, retain_graph=True)),
+            bound=bf16_bound(7 * q.numel() * 2 + 2 * lse.numel() * 4 + bias.numel() * 4, 10 * flops),
+        ),
+    }
+    for name, r in results.items():
+        _bf16_line(f"{name} (B={b}, H={h}, L={l}, dh={dh}, dropout {DROPOUT})", r)
+    return results
+
+
+def bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
+    """(a) of the ``bf16`` phase: the bf16 forms of kernels 6 and 7 at 51,200 x
+    15,872 x 128 and of kernels 2 and 5 at B = 512, H = 4, L = 100, heads of 32,
+    causal with dropout and under BERT4Rec's bias, each against its twin on the
+    card, the same bits on a rerun, timed beside its f32 form, the library call
+    in bf16 and its bound at the bf16 rate; kernels 6 and 7 also at the odd
+    catalog (checked)."""
+    import types
+
+    import torch.nn.functional as F
+
+    from rectools_tpu_torch.models.nn.transformers import TransformerBackbone
+    from rectools_tpu_torch.ops import attention, softmax_lse
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    m, n, d = b * SESSION_MAX_LEN, N_ITEM_IDS + 1, N_FACTORS
+    products = 2 * m * n * d
+    s = torch.randn((m, d), generator=gen, device=dev).to(bf)
+    items = (0.1 * torch.randn((n, d), generator=gen, device=dev)).to(bf)
+    s32, items32 = s.float(), items.float()
+    results = {}
+
+    # kernel 6
+    lse = softmax_lse.streaming_lse(s, items)
+    ref = softmax_lse.streaming_lse_bf16_reference(s, items)
+    err = _row_rel(lse, ref)
+    check(err <= BF16_LSE_RTOL and bool(torch.equal(lse, softmax_lse.streaming_lse(s, items))),
+          f"kernel 6 bf16: {err} per row from its twin (limit {BF16_LSE_RTOL}), or other bits on a rerun")
+    n_chunks = -(-n // softmax_lse.LSE_CHUNK)
+    results["lse_partials_fwd_bf16"] = dict(
+        max_abs_err=(lse - ref).abs().max().item(), max_rel_err=err,
+        ms=time_ms(lambda: softmax_lse.streaming_lse(s, items)),
+        f32_ms=time_ms(lambda: softmax_lse.streaming_lse(s32, items32)),
+        plain_ms=time_ms(lambda: softmax_lse.streaming_lse_bf16_reference(s, items), iters=3),
+        library_ms=time_ms(lambda: torch.logsumexp(s @ items.T, dim=1), iters=3),
+        bound=bf16_bound((m + n) * d * 2 + 2 * n_chunks * m * 4, products),
+    )
+
+    # kernel 7, from the lse: PAD rows (coeff 0) and labelled rows
+    y = torch.randint(1, n, (m,), generator=gen, device=dev)
+    y[torch.rand((m,), generator=gen, device=dev) < 0.1] = 0
+    coeff = torch.where(y == 0, 0.0, 1.0 / float((y != 0).sum()))
+    z = lse - torch.log(coeff)
+    check(not softmax_lse.ce_takes_split_route(m, n, d, bf),
+          "bf16 CE gradients at the training width leave kernel 7")
+    got = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    ref = softmax_lse.softmax_ce_grads_from_z_bf16_reference(s, items, z, y, coeff)
+    rel_ds, rel_di = _max_rel(got[0], ref[0]), _max_rel(got[1], ref[1])
+    rel = max(rel_ds, rel_di)
+    again = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    rerun = all(bool(torch.equal(a, g)) for a, g in zip(again, got))
+    check(rel_ds <= BF16_DS_RTOL and rel_di <= BF16_DI_RTOL and rerun,
+          f"kernel 7 bf16: ds {rel_ds}, di {rel_di} of the largest entry from its twin (limits {BF16_DS_RTOL}, "
+          f"{BF16_DI_RTOL}), or other bits on a rerun")
+    print(f"bf16 kernels: kernel 7 ds {rel_ds:.3g}, di {rel_di:.3g} of the largest entry from the twin (limits "
+          f"{BF16_DS_RTOL}, {BF16_DI_RTOL}); bit-equal on a rerun")
+    sg, ig = s.detach().clone().requires_grad_(), items.detach().clone().requires_grad_()
+    ce_lib = (F.cross_entropy(sg @ ig.T, y, reduction="none").float() * coeff).sum()
+    results["ce_grads_fused_bf16"] = dict(
+        max_abs_err=max((a - r).abs().max().item() for a, r in zip(got, ref)), max_rel_err=rel,
+        ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3),
+        f32_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s32, items32, z, y, coeff), iters=3),
+        plain_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z_bf16_reference(s, items, z, y, coeff), iters=3),
+        library_ms=time_ms(lambda: torch.autograd.grad(ce_lib, (sg, ig), retain_graph=True), iters=3),
+        bound=bf16_bound((m + n) * d * 2 + m * 16 + (m + n) * d * 4, 3 * products),
+    )
+    del sg, ig, ce_lib, again
+    # both at the odd catalog, where every item tile leaves a tail (checked, not timed)
+    rows, y_ragged = items[:RAGGED_N], torch.where(y < RAGGED_N, y, 0)
+    lse_ragged = softmax_lse.streaming_lse(s, rows)
+    err_ragged = _row_rel(lse_ragged, softmax_lse.streaming_lse_bf16_reference(s, rows))
+    z_ragged = lse_ragged - torch.log(coeff)
+    got_r = softmax_lse.softmax_ce_grads_from_z(s, rows, z_ragged, y_ragged, coeff)
+    ref_r = softmax_lse.softmax_ce_grads_from_z_bf16_reference(s, rows, z_ragged, y_ragged, coeff)
+    rel_r = [_max_rel(g, r) for g, r in zip(got_r, ref_r)]
+    check(err_ragged <= BF16_LSE_RTOL and rel_r[0] <= BF16_DS_RTOL and rel_r[1] <= BF16_DI_RTOL,
+          f"kernels 6 / 7 bf16 at N={RAGGED_N}: {err_ragged} / {rel_r} from their twins")
+    print(f"bf16 kernels: at N={RAGGED_N}, kernel 6 {err_ragged:.3g} per row, kernel 7 ds {rel_r[0]:.3g}, di "
+          f"{rel_r[1]:.3g} of the largest entry from their twins")
+    for name in ("lse_partials_fwd_bf16", "ce_grads_fused_bf16"):
+        _bf16_line(f"{name} (M={m}, N={n}, D={d})", results[name])
+    del s, items, s32, items32, lse, ref, got, rows, y_ragged, lse_ragged, z_ragged, got_r, ref_r
+    torch.cuda.empty_cache()
+
+    # kernels 2 and 5: causal with dropout, and BERT4Rec's bias from the backbone's own rule
+    l, h, dh = SESSION_MAX_LEN, N_HEADS, N_FACTORS // N_HEADS
+    causal = torch.where(torch.ones((l, l), dtype=torch.bool, device=dev).tril(), 0.0, -1e9)[None, None]
+    results.update(_attention_bf16_case(torch, F, attention, gen, dev, b, l, h, dh, causal, "causal"))
+    lengths = torch.randint(1, 301, (b,), generator=gen, device=dev).clamp(max=l)
+    lengths[0], lengths[1] = 1, l
+    sessions = torch.where(torch.arange(l, device=dev)[None, :] >= l - lengths[:, None], 1, 0)
+    rule = types.SimpleNamespace(use_causal_attn=False, use_key_padding_mask=True)
+    bias = TransformerBackbone._build_attn_bias(rule, sessions)
+    results.update(_attention_bf16_case(torch, F, attention, gen, dev, b, l, h, dh, bias, "bidirectional"))
+    for name in ("attention_fwd_bf16", "attention_bwd_bf16"):
+        results[name] = results[f"{name}_causal"]
+    torch.cuda.empty_cache()
+    return results
+
+
+def _bf16_fit_launches(port, steps: int, val_forwards: int, with_loss: bool = True) -> dict:
+    """Every launch count of a bf16 SASRec-stack fit: per step the bf16 attention
+    forms and, with the full-catalog loss, the bf16 loss forms, LayerNorm's f32
+    kernels; per validation batch one bf16 forward (the loss) and one f32
+    forward (the recall), as the JAX package reads its bf16 and f32 weights."""
+    norms = 2 * N_BLOCKS + 1
+    expected = {name: 0 for name in port.LAUNCHES}
+    expected.update(attention_fwd_bf16=N_BLOCKS * (steps + val_forwards), attention_bwd_bf16=N_BLOCKS * steps,
+                    attention_fwd=N_BLOCKS * val_forwards, layer_norm_fwd=norms * (steps + 2 * val_forwards),
+                    layer_norm_bwd=norms * steps)
+    if with_loss:
+        expected.update(lse_partials_fwd_bf16=steps, ce_grads_fused_bf16=steps)
+    return expected
+
+
+def bf16_fit_phase(torch, np, port, df, dataset, dev, f32: dict) -> dict:
+    """(b) of the ``bf16`` phase: SASRecModel(...).fit with compute_dtype
+    "bfloat16" at phase 5's width, depth, batch and epochs on the same frame,
+    beside phase 5's f32 fit: launch counts, one profiled train step's device
+    kernels, losses and HitRate@10 (val_recall@10 on the held-out last items)
+    within their bands of the f32 fit's, train examples/s of both."""
+    from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+    from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+
+    clock = epoch_clock(torch, dev)
+    model = family_model(
+        "sasrec", **TRAIN_CONFIG, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,),
+        get_val_mask_func=hold_out_last, get_callbacks_func=lambda: [clock],
+        training_module_kwargs={"val_recall_k": K, "compute_dtype": "bfloat16"}, device=dev,
+    )
+    torch.cuda.reset_peak_memory_stats()
+    port.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(dataset)
+    fit_s = time.perf_counter() - t0
+    launches = dict(port.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    tm = model.training_module
+    check(tm.resolved_compute_dtype == "bfloat16" and tm._use_fused_softmax, "the bf16 fit left the fused loss")
+    check(all(p.dtype == torch.float32 for p in tm.backbone.parameters()), "the bf16 fit's master weights left f32")
+    steps = tm.global_step
+    val_batches = len(model.data_preparator.get_dataloader_val())
+    expected = _bf16_fit_launches(port, steps, EPOCHS * val_batches)
+    check(launches == expected, f"launches in the bf16 fit {launches}, expected {expected}")
+    losses, recall = tm.train_loss_history, tm.val_metric_history.get(f"val_recall@{K}", [])
+    check(len(losses) == EPOCHS and bool(np.isfinite(losses).all()) and losses[1] < losses[0],
+          f"bf16 train losses {losses}")
+    check(len(recall) == EPOCHS and bool(np.isfinite(recall).all()), f"bf16 val_recall@{K} {recall}")
+    loss_rel = max(abs(a / b - 1) for a, b in zip(losses, f32["train_loss"]))
+    hit_gap = abs(recall[-1] - f32[f"val_recall@{K}"][-1])
+    check(loss_rel <= BF16_LOSS_RTOL, f"bf16 train losses {losses} against f32 {f32['train_loss']}: {loss_rel}")
+    check(hit_gap <= BF16_HIT_BAND, f"bf16 HitRate@{K} {recall[-1]} against f32 {f32[f'val_recall@{K}'][-1]}")
+    epoch2_s = clock.times[2] - clock.times[1]
+    examples_per_s = TRAIN_B * (steps // EPOCHS) / epoch2_s
+    print(f"bf16 train: fit {EPOCHS} epochs x {steps // EPOCHS} steps of {TRAIN_B} in {fit_s:.2f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    print(f"bf16 train: losses {losses} (f32 {f32['train_loss']}, largest relative gap {loss_rel:.3g}, limit "
+          f"{BF16_LOSS_RTOL}); HitRate@{K} on the held-out last items {recall} (f32 {f32[f'val_recall@{K}']}, gap "
+          f"{hit_gap:.4f}, band {BF16_HIT_BAND})")
+    print(f"bf16 train: epoch 2 wall {epoch2_s:.3f} s (validation included), {examples_per_s:.0f} train examples/s "
+          f"beside f32 {f32['train_examples_per_s']:.0f} (phase 5), peak device memory {peak_mb:.0f} MiB")
+    loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
+    batch = tm._device_batch(pad_batch(next(iter(loader)), TRAIN_B))
+    names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
+    missing = [k for k in BF16_DEVICE_KERNELS if not any(k in name for name in names)]
+    banned = [name for name in names if any(k in name for k in BF16_BANNED_KERNELS)]
+    check(not missing and not banned,
+          f"a bf16 train step's device kernels: missing {missing}, f32 or library {banned}")
+    print(f"bf16 train: a profiled step ran {len(names)} device kernels, the four bf16 forms among them, no f32 "
+          "attention or loss kernel, no library attention or cross-entropy")
+    print("bf16 train: profile of one train step")
+    profile = profile_phase(torch, lambda: tm._train_step(batch))
+    return {"launches": launches, "steps": steps, "train_loss": losses, f"val_recall@{K}": recall, "fit_s": fit_s,
+            "epoch2_s": epoch2_s, "train_examples_per_s": examples_per_s,
+            "f32_train_examples_per_s": f32["train_examples_per_s"], "loss_rel_to_f32": loss_rel,
+            "hit_gap_to_f32": hit_gap, "peak_device_mib": peak_mb, **{f"step_{k}": v for k, v in profile.items()}}
+
+
+def bf16_family_phase(torch, np, port, dataset, dev) -> dict:
+    """(c) of the ``bf16`` phase: one epoch through Model.fit with bf16 compute
+    of BERT4Rec (full-catalog loss: kernels 6 and 7 in bf16) and of eSASRec with
+    shared negatives (sampled softmax: the attention forms only): finite
+    losses, the bf16 forms launched, no f32 attention."""
+    from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+
+    out = {}
+    for family, extra in (("bert4rec", {}), ("esasrec", {"negatives_sharing": "batch"})):
+        model = family_model(family, **TRAIN_CONFIG, epochs=1, item_net_block_types=(IdEmbeddingsItemNet,),
+                             training_module_kwargs={"compute_dtype": "bfloat16", **extra}, device=dev)
+        port.reset_launches()
+        t0 = time.perf_counter()
+        model.fit(dataset)
+        fit_s = time.perf_counter() - t0
+        launches = dict(port.LAUNCHES)
+        tm = model.training_module
+        losses = tm.train_loss_history
+        check(len(losses) == 1 and bool(np.isfinite(losses).all()), f"bf16 {family} losses {losses}")
+        steps = tm.global_step
+        norms = 2 * N_BLOCKS  # Pre-LN and LiGR blocks: two LayerNorms each, no closing one
+        expected = {name: 0 for name in port.LAUNCHES}
+        expected.update(attention_fwd_bf16=N_BLOCKS * steps, attention_bwd_bf16=N_BLOCKS * steps,
+                        layer_norm_fwd=norms * steps, layer_norm_bwd=norms * steps)
+        if family == "bert4rec":
+            expected.update(lse_partials_fwd_bf16=steps, ce_grads_fused_bf16=steps)
+        check(launches == expected, f"launches in the bf16 {family} fit {launches}, expected {expected}")
+        print(f"bf16 {family}: one epoch of {steps} steps of {TRAIN_B} in {fit_s:.2f} s, loss {losses}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        out[family] = {"launches": launches, "steps": steps, "train_loss": losses, "fit_s": fit_s}
+    return out
+
+
+def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
+    """(d) of the ``bf16`` phase: every route without a bf16 kernel raises
+    NotImplementedError naming ROADMAP §1 item 5 on the card."""
+    from rectools_tpu_torch.models import HSTUModel, SASRecModel
+    from rectools_tpu_torch.ops import _native, attention, softmax_lse
+
+    bf = torch.bfloat16
+    s = torch.randn((300, 32), device=dev).to(bf)
+    items = torch.randn((5000, 32), device=dev).to(bf)
+    z, coeff = torch.zeros(300, device=dev), torch.full((300,), 1e-3, device=dev)
+    y = torch.ones(300, dtype=torch.int64, device=dev)
+    small = dict(n_blocks=1, n_heads=2, n_factors=32, session_max_len=20, epochs=1, batch_size=64, device=dev)
+
+    def budget(value, fn):
+        def run():
+            saved = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
+            softmax_lse.FUSED_BWD_PARTIALS_BUDGET = value
+            try:
+                fn()
+            finally:
+                softmax_lse.FUSED_BWD_PARTIALS_BUDGET = saved
+        return run
+
+    def kernel_15():
+        softmax_lse.USE_PARTIALS_FWD = False
+        try:
+            softmax_lse.streaming_lse(s, items)
+        finally:
+            softmax_lse.USE_PARTIALS_FWD = True
+
+    refused = {
+        "HSTU (kernels 17-19)": lambda: HSTUModel(**small, training_module_kwargs={"compute_dtype": "bfloat16"},
+                                                  relative_time_attention=False).fit(dataset),
+        "mesh_shape (kernels 8-11)": lambda: SASRecModel(
+            **small, training_module_kwargs={"compute_dtype": "bfloat16", "mesh_shape": (1, 1)}).fit(dataset),
+        "large-catalog route (kernels 12-14)": budget(0, lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y,
+                                                                                                     coeff)),
+        "kernel 7's two launches": budget(100_000,
+                                          lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)),
+        "d = 256": lambda: softmax_lse.streaming_lse(torch.ones((8, 256), device=dev, dtype=bf),
+                                                     torch.ones((3000, 256), device=dev, dtype=bf)),
+        "bounded shift (kernel 16)": lambda: softmax_lse.streaming_lse(s, items, bounded_shift=True),
+        "running max (kernel 15)": kernel_15,
+        "biased lse (kernel 8)": lambda: softmax_lse.streaming_lse(s, items, torch.zeros(5000, device=dev)),
+        "gradients from z (kernels 12-14)": lambda: softmax_lse.softmax_grads_from_z(s, items, z),
+        "head dim 8": lambda: attention.attention_fwd(*(torch.ones((1, 2, 4, 8), device=dev, dtype=bf),) * 3, None,
+                                                      0.3),
+    }
+    before = dict(_native.LAUNCHES)
+    for what, call in refused.items():
+        try:
+            call()
+        except NotImplementedError as err:
+            check(_native.BF16_ROADMAP in str(err), f"bf16 {what}: the refusal does not name the roadmap: {err}")
+            continue
+        raise SmokeFailure(f"bf16 {what}: ran instead of raising NotImplementedError")
+    check(dict(_native.LAUNCHES) == before, "a refused bf16 route launched a kernel")
+    print(f"bf16 refusals: {len(refused)} routes without a bf16 kernel raise NotImplementedError naming "
+          f"{_native.BF16_ROADMAP}: {', '.join(refused)}")
+    return {"refused": list(refused)}
+
+
+def bf16_phase(torch, np, pd, port, df, dataset, dev, f32: dict) -> dict:
+    """The ``bf16`` phase: (a) the kernel forms, (b) the SASRec fit beside
+    phase 5's, (c) BERT4Rec and eSASRec, (d) the refusals; its wall."""
+    t0 = time.perf_counter()
+    kernels = bf16_kernel_phase(torch, torch.device(dev))
+    fit = bf16_fit_phase(torch, np, port, df, dataset, dev, f32)
+    families = bf16_family_phase(torch, np, port, dataset, dev)
+    refusals = bf16_refusals_phase(torch, np, dataset, dev)
+    wall_s = time.perf_counter() - t0
+    print(f"bf16: phase wall {wall_s:.1f} s")
+    return {"kernels": kernels, "fit": fit, "families": families, "refusals": refusals, "wall_s": wall_s}
+
+
 def main() -> int:
     import torch
 
@@ -4050,6 +4452,10 @@ def main() -> int:
     print(f"ranking: on {card}")
     ranking_result = ranking_phase(torch, np, pd, port, df, dataset, "cuda",
                                    evaluate_result["metrics"] + baselines_result["evaluate"]["metrics"])
+    # phase 16: mixed-precision training (compute_dtype="bfloat16") on the bf16 forms of kernels 2, 5, 6 and 7
+    print(f"bf16: on {card}")
+    bf16_result = bf16_phase(torch, np, pd, port, df, dataset, "cuda", train_result)
+    kernels.update(bf16_result["kernels"])
     # phase 10: BERT4Rec and eSASRec (shared negatives, remat) through the same entry points, remat at the
     # ML-20M-sized shape
     for tag in ("family kernels", "bert4rec", "esasrec", "remat fit"):  # the card beside these phases' numbers
@@ -4097,6 +4503,15 @@ def main() -> int:
         "stu_fwd": ("stu_attention.cu", "stu_attention.py:90", ("stu_fwd", "stu_fwd_simt"), "stu_fwd"),
         "stu_bwd": ("stu_attention.cu", "stu_attention.py:274", ("stu_bwd", "stu_bwd_dq"), "stu_bwd"),
         "stu_ds": ("stu_attention.cu", "stu_attention.py:316", ("stu_ds",), "stu_ds"),
+        # the bf16 forms (phase 16)
+        "attention_fwd_bf16": ("attention_bf16.cu", "attention.py:104", ("attention_fwd_bf16",),
+                               "attention_fwd_bf16"),
+        "attention_bwd_bf16": ("attention_bf16.cu", "attention.py:256", ("attention_bwd_bf16",),
+                               "attention_bwd_bf16"),
+        "lse_partials_fwd_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:169", ("lse_partials_fwd_bf16",),
+                                  "lse_partials_fwd_bf16"),
+        "ce_grads_fused_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:643", ("ce_grads_fused_bf16",),
+                                "ce_grads_fused_bf16"),
     }
     # mesh_fit_4 counts one rank's launches (every rank's are equal); kernels 10
     # and 11 run where the partials budget is forced to 0; `ops` calls the public
@@ -4113,7 +4528,9 @@ def main() -> int:
              "esasrec_recommend": esasrec_main_result, "remat_fit": remat_result["remat"],
              "checkpoint_recommend": checkpoint_result, "hstu_checkpoint_recommend": hstu_checkpoint_result,
              "evaluate": evaluate_result, "classic": baselines_result, "factorization": factorization_result,
-             "ranking": ranking_result}
+             "ranking": ranking_result, "bf16_fit": bf16_result["fit"],
+             "bf16_bert4rec_fit": bf16_result["families"]["bert4rec"],
+             "bf16_esasrec_fit": bf16_result["families"]["esasrec"]}
 
     def numbers(r: dict) -> dict:
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -4122,6 +4539,8 @@ def main() -> int:
             out.update(bound_ops="3xTF32", bound_f32_ms=r["bound_f32"][0], bound_f32_by=r["bound_f32"][1])
         if "device_ms" in r:  # kernel 4: its device time by the profiler beside the event-timed call
             out["device_ms"] = r["device_ms"]
+        if "f32_ms" in r:  # the bf16 forms: bound_ms at the bf16 rate, the f32 form's time on the same values
+            out.update(bound_ops="bf16", f32_ms=r["f32_ms"], max_rel_err=r["max_rel_err"])
         return out
 
     entries = []
@@ -4139,7 +4558,8 @@ def main() -> int:
             entry["train_width_dropout"] = numbers(kernels["attention_fwd_train"])
         if name.startswith("attention_"):  # under BERT4Rec's key-padding bias, and at L = 200 with heads of 32
             entry["bidirectional"] = numbers(kernels[f"{name}_bidirectional"])
-            entry["remat_shape"] = numbers(kernels[f"{name}_remat_shape"])
+            if not name.endswith("_bf16"):
+                entry["remat_shape"] = numbers(kernels[f"{name}_remat_shape"])
         if name.startswith("layer_norm_"):  # at width 256
             entry["remat_shape"] = numbers(kernels[f"{name}_remat_shape"])
         if name in ("lse_partials_fwd", "ce_grads"):  # on BERT4Rec's 15,873-row catalog
@@ -4198,6 +4618,10 @@ def main() -> int:
         "classic": {k: v for k, v in baselines_result.items() if k != "launches"},
         "factorization": {k: v for k, v in factorization_result.items() if k != "launches"},
         "ranking": {k: v for k, v in ranking_result.items() if k != "launches"},
+        "bf16": {"fit": {k: v for k, v in bf16_result["fit"].items() if k != "launches"},
+                 "families": {f: {k: v for k, v in r.items() if k != "launches"}
+                              for f, r in bf16_result["families"].items()},
+                 "refused": bf16_result["refusals"]["refused"], "wall_s": bf16_result["wall_s"]},
     }
     print(json.dumps(line))
     print(card)

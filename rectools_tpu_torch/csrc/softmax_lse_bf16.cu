@@ -1,0 +1,449 @@
+// The streaming logsumexp and the softmax-CE gradients on bf16 towers: the
+// forms of kernels 6 and 7 that mixed-precision training
+// (compute_dtype="bfloat16") runs, on bf16 tensor-core products with f32
+// accumulation.
+//
+// Replaces, for bf16 inputs:
+// - rectools_tpu/ops/softmax_lse.py:169 `_lse_fwd_partials_kernel`
+//   (`lse_partials_bf16`, kernel 6): per (item chunk, session tile) the
+//   chunk's (max, sum of exp) of the f32 logits s . items^T, written to f32
+//   (n_chunks, M) partials that the caller combines, as the f32 kernel's.
+// - :643 `_ce_grads_z_fused_kernel` (`ce_fused_bf16`, kernel 7's one pass):
+//   with the f32 logits, P = exp(logit - z) and D = coeff * onehot(y) in f32,
+//   the probability operand (P - D) rounded to bf16 before both products (as
+//   softmax_lse.py:226-228 and :696 round it), ds = (P - D) items per item
+//   chunk in f32, stored as a bf16 partial when `bf16_partials` (JAX's
+//   `BF16_DS_PARTIALS`, :456-473) else as f32, and di = (P - D)^T s
+//   accumulated in f32 per group of session tiles. The caller sums both sets
+//   of partials in f32 in a fixed order. Item rows past N load as zeros and
+//   get P forced to 0 (the NaN rule of :636-640); rows with z = +inf (PAD
+//   targets, coeff = 0) contribute nothing. No float atomics.
+//
+// Products: `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`, one a
+// 16-deep step (bf16_tile.cuh): a bf16 x bf16 product is exact in f32 and the
+// tensor cores sum in f32, so the plain twin (f32 products of the bf16
+// values, ops/softmax_lse.py) differs only in the order of its f32 sums.
+//
+// Tiles (D in {32, 64, 128}; 16 and 256 have no bf16 form yet, ROADMAP §1
+// item 5): 256 threads, 8 warps; 128-row session tiles and 64-row item
+// tiles, staged row-major in shared memory at a pitch of D + 8 bf16 by
+// 16-byte cp.async, the item tiles through a ring of two (the next loading
+// while this one multiplies).
+// - Kernel 6: block (x, y) owns session tile x and item chunk y (2,048 rows,
+//   ops/softmax_lse.py LSE_CHUNK), as the f32 kernel; warps 4 x 2 take 32 x
+//   32 of each 128 x 64 logits tile and fold it into running (max, sum of
+//   exp) pairs of their rows, merged by shuffles and then across the two warp
+//   columns through shared memory. 69,632 bytes of tiles at D = 128.
+// - Kernel 7: the f32 one pass's grid (ops/softmax_lse.py `fused_bwd_plan`:
+//   block (x, y) owns item chunk x of 2,048 rows and group y of session
+//   tiles, all blocks in one wave). Per (session tile, item tile) pair: the
+//   logits (warps 4 x 2, 32 x 32 each), the rounded probability tile staged
+//   twice in shared memory ([session][item] as the A operand of ds,
+//   [item][session] as the A operand of di), ds += (P - D) items into
+//   registers (warps 4 x 2: 32 rows x D / 2), di += (P - D)^T s (warps 4 x 2:
+//   16 item rows x D / 2) read from and written back to the block's own f32
+//   di partial rows in device memory (each thread its own entries, so no
+//   other thread and no other block touches them). The B operands whose
+//   depth runs across rows (items for ds, sessions for di) are read as two
+//   16-bit values a register. 107,520 bytes of shared memory at D = 128.
+//
+// Bound on an H100 at the training shape M = 51,200, N = 15,872, D = 128:
+// kernel 6 is one logit product, 2 M N D = 208 GFLOP, 0.21 ms at 989
+// TFLOP/s bf16 (its inputs, 17 MB, take 0.005 ms at 3.35 TB/s); kernel 7 is
+// three, 624 GFLOP, 0.63 ms, with 0.24 GB of inputs and partials (0.07 ms).
+// What bounds them as written is issue and latency: `mma.sync` (not `wgmma`),
+// one block of 8 warps per SM for kernel 7, the exps, the 16-bit reads of the
+// transposed operands and kernel 7's di read-modify-write in device memory;
+// chip_smoke.py's `bf16` phase prints their times beside these bounds.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+#include "tc_tile.cuh"
+#include "bf16_tile.cuh"
+
+constexpr int kBM = 128;  // session rows per tile
+constexpr int kBN = 64;   // item rows per tile
+constexpr int kThreads = 256;
+constexpr float kNegBig = -1e30f;
+
+// ----------------------------------------------------------------- kernel 6
+
+template <int D>
+struct LseSmem {
+  __nv_bfloat16 s[kBM * bt::pitch(D)];
+  __nv_bfloat16 items[2][kBN * bt::pitch(D)];
+  float red_m[2][kBM];
+  float red_l[2][kBM];
+};
+
+__device__ __forceinline__ void merge_pair(float& m, float& l, float m_o, float l_o) {
+  const float m_new = fmaxf(m, m_o);
+  l = l * expf(m - m_new) + l_o * expf(m_o - m_new);
+  m = m_new;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    lse_partials_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ items,
+                             float* __restrict__ m_part, float* __restrict__ l_part, long long M, long long N,
+                             long long chunk_rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  LseSmem<D>& sm = *reinterpret_cast<LseSmem<D>*>(smem_raw);
+  constexpr int P = bt::pitch(D);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr = warp >> 1, wc = warp & 1;  // warp rows 32 wr + [0, 32), item columns 32 wc + [0, 32)
+  const long long row0 = (long long)blockIdx.x * kBM;
+  const long long n_begin = (long long)blockIdx.y * chunk_rows;
+  const long long n_end = n_begin + chunk_rows < N ? n_begin + chunk_rows : N;
+  const int n_tiles = (int)((n_end - n_begin + kBN - 1) / kBN);
+
+  bt::stage_async<D, kBM, kThreads>(sm.s, s, D, row0, M);
+  bt::stage_async<D, kBN, kThreads>(sm.items[0], items, D, n_begin, n_end);
+  tc::cp_commit();
+
+  // the thread's rows: 32 wr + 16 mf + g + 8 hh, as (mf, hh) -> 2 mf + hh
+  float m_run[4], l_run[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m_run[r] = kNegBig;
+    l_run[r] = 0.f;
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      bt::stage_async<D, kBN, kThreads>(sm.items[(it + 1) & 1], items, D, n_begin + (long long)(it + 1) * kBN, n_end);
+      tc::cp_commit();
+      tc::cp_wait<1>();
+    } else {
+      tc::cp_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* tile = sm.items[it & 1];
+    float acc[2][4][4];
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
+#pragma unroll
+    for (int k = 0; k < D; k += 16) {
+      uint32_t a[2][4], b[4][2];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf) bt::frag_a<P>(sm.s, 32 * wr + 16 * mf, k, a[mf]);
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf) bt::frag_b<P>(tile, 32 * wc + 8 * nf, k, b[nf]);
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) bt::mma(acc[mf][nf], a[mf], b[nf]);
+    }
+    const long long n0 = n_begin + (long long)it * kBN + 32 * wc + 2 * t;
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 2 * mf + hh;
+        float mx = m_run[r];
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (n0 + 8 * nf + j < n_end) mx = fmaxf(mx, acc[mf][nf][2 * hh + j]);
+        float l = l_run[r] * expf(m_run[r] - mx);
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (n0 + 8 * nf + j < n_end) l += expf(acc[mf][nf][2 * hh + j] - mx);
+        m_run[r] = mx;
+        l_run[r] = l;
+      }
+    __syncthreads();  // this ring slot is consumed before the next prefetch overwrites it
+  }
+  // the four threads of a row (lanes 4 g + [0, 4)), then the two warp columns
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float m_o = __shfl_xor_sync(0xffffffffu, m_run[r], off);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l_run[r], off);
+      merge_pair(m_run[r], l_run[r], m_o, l_o);
+    }
+    if (t == 0) {
+      const int row = 32 * wr + 16 * (r >> 1) + g + 8 * (r & 1);
+      sm.red_m[wc][row] = m_run[r];
+      sm.red_l[wc][row] = l_run[r];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kBM && row0 + threadIdx.x < M) {
+    float m = sm.red_m[0][threadIdx.x], l = sm.red_l[0][threadIdx.x];
+    merge_pair(m, l, sm.red_m[1][threadIdx.x], sm.red_l[1][threadIdx.x]);
+    m_part[(long long)blockIdx.y * M + row0 + threadIdx.x] = m;
+    l_part[(long long)blockIdx.y * M + row0 + threadIdx.x] = l;
+  }
+}
+
+// ----------------------------------------------------------------- kernel 7
+
+constexpr int kPP = bt::pitch(kBN);  // the probability tile [session][item]
+constexpr int kPTP = bt::pitch(kBM);  // its transpose [item][session]
+
+template <int D>
+struct CeSmem {
+  __nv_bfloat16 s[kBM * bt::pitch(D)];
+  __nv_bfloat16 items[2][kBN * bt::pitch(D)];
+  __nv_bfloat16 p[kBM * kPP];
+  __nv_bfloat16 pt[kBN * kPTP];
+  float z[kBM];
+  float coeff[kBM];
+  long long y[kBM];
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    ce_fused_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ items,
+                         const float* __restrict__ z, const long long* __restrict__ y,
+                         const float* __restrict__ coeff, void* __restrict__ ds_part, float* __restrict__ di_part,
+                         long long M, long long N, long long chunk_rows, long long tiles_per_group,
+                         int bf16_partials) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CeSmem<D>& sm = *reinterpret_cast<CeSmem<D>*>(smem_raw);
+  constexpr int P = bt::pitch(D);
+  constexpr int kNF = D / 16;  // 8-column fragments of a warp's D / 2 columns of ds or di
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr = warp >> 1, wc = warp & 1;
+  const long long n_begin = (long long)blockIdx.x * chunk_rows;
+  const long long n_end = n_begin + chunk_rows < N ? n_begin + chunk_rows : N;
+  const int n_tiles = (int)((n_end - n_begin + kBN - 1) / kBN);
+  const long long m_tiles = (M + kBM - 1) / kBM;
+  const long long st_begin = (long long)blockIdx.y * tiles_per_group;
+  const long long st_end = st_begin + tiles_per_group < m_tiles ? st_begin + tiles_per_group : m_tiles;
+  float* __restrict__ di_mine = di_part + (long long)blockIdx.y * N * D;
+
+  for (long long st = st_begin; st < st_end; ++st) {
+    const long long row0 = st * kBM;
+    __syncthreads();  // the previous session tile's last pair is done with every tile
+    bt::stage_async<D, kBM, kThreads>(sm.s, s, D, row0, M);
+    bt::stage_async<D, kBN, kThreads>(sm.items[0], items, D, n_begin, n_end);
+    tc::cp_commit();
+    if (threadIdx.x < kBM) {
+      const long long row = row0 + threadIdx.x;
+      const bool ok = row < M;
+      sm.z[threadIdx.x] = ok ? z[row] : INFINITY;
+      sm.coeff[threadIdx.x] = ok ? coeff[row] : 0.f;
+      sm.y[threadIdx.x] = ok ? y[row] : -1;
+    }
+    float ds[2][kNF][4];
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[mf][nf][e] = 0.f;
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const long long item0 = n_begin + (long long)it * kBN;
+      if (it + 1 < n_tiles) {
+        bt::stage_async<D, kBN, kThreads>(sm.items[(it + 1) & 1], items, D, item0 + kBN, n_end);
+        tc::cp_commit();
+        tc::cp_wait<1>();
+      } else {
+        tc::cp_wait<0>();
+      }
+      __syncthreads();
+      const __nv_bfloat16* tile = sm.items[it & 1];
+
+      // product 1: the logits of rows 32 wr + [0, 32), items 32 wc + [0, 32)
+      float acc[2][4][4];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
+#pragma unroll
+      for (int k = 0; k < D; k += 16) {
+        uint32_t a[2][4], b[4][2];
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf) bt::frag_a<P>(sm.s, 32 * wr + 16 * mf, k, a[mf]);
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) bt::frag_b<P>(tile, 32 * wc + 8 * nf, k, b[nf]);
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf) bt::mma(acc[mf][nf], a[mf], b[nf]);
+      }
+      // the probability tile in f32, the label term, the tail, then bf16
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 32 * wr + 16 * mf + g + 8 * (e >> 1);
+            const int c = 32 * wc + 8 * nf + 2 * t + (e & 1);
+            const long long item = item0 + c;
+            float pw = expf(acc[mf][nf][e] - sm.z[r]);
+            if (item == sm.y[r]) pw -= sm.coeff[r];
+            if (item >= n_end) pw = 0.f;
+            const __nv_bfloat16 pb = __float2bfloat16_rn(pw);
+            sm.p[r * kPP + c] = pb;
+            sm.pt[c * kPTP + r] = pb;
+          }
+      __syncthreads();
+
+      // product 2: ds (rows 32 wr + [0, 32), columns D / 2 wc + [0, D / 2)) += P items
+#pragma unroll
+      for (int k = 0; k < kBN; k += 16) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf) bt::frag_a<kPP>(sm.p, 32 * wr + 16 * mf, k, a[mf]);
+#pragma unroll
+        for (int nf = 0; nf < kNF; ++nf) {
+          uint32_t b[2];
+          bt::frag_b_t<P>(tile, k, (D / 2) * wc + 8 * nf, b);
+#pragma unroll
+          for (int mf = 0; mf < 2; ++mf) bt::mma(ds[mf][nf], a[mf], b);
+        }
+      }
+
+      // product 3: di (item rows 16 wr + [0, 16), columns D / 2 wc + [0, D / 2)) += P^T s, onto the
+      // block's partial rows (first session tile of the group: from zero)
+      float di[kNF][4];
+      const long long di_row = item0 + 16 * wr + g;
+#pragma unroll
+      for (int nf = 0; nf < kNF; ++nf) {
+        const int col = (D / 2) * wc + 8 * nf + 2 * t;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float2 v = make_float2(0.f, 0.f);
+          if (st != st_begin && di_row + 8 * hh < n_end)
+            v = *reinterpret_cast<const float2*>(di_mine + (di_row + 8 * hh) * D + col);
+          di[nf][2 * hh] = v.x;
+          di[nf][2 * hh + 1] = v.y;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kBM; k += 16) {
+        uint32_t a[4];
+        bt::frag_a<kPTP>(sm.pt, 16 * wr, k, a);
+#pragma unroll
+        for (int nf = 0; nf < kNF; ++nf) {
+          uint32_t b[2];
+          bt::frag_b_t<P>(sm.s, k, (D / 2) * wc + 8 * nf, b);
+          bt::mma(di[nf], a, b);
+        }
+      }
+#pragma unroll
+      for (int nf = 0; nf < kNF; ++nf) {
+        const int col = (D / 2) * wc + 8 * nf + 2 * t;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          if (di_row + 8 * hh < n_end)
+            *reinterpret_cast<float2*>(di_mine + (di_row + 8 * hh) * D + col) =
+                make_float2(di[nf][2 * hh], di[nf][2 * hh + 1]);
+      }
+      __syncthreads();  // P, P^T and this ring slot are consumed
+    }
+
+    // the ds partial of (item chunk, session tile): bf16 or f32
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long row = row0 + 32 * wr + 16 * mf + g + 8 * hh;
+        if (row >= M) continue;
+        const long long base = ((long long)blockIdx.x * M + row) * D;
+#pragma unroll
+        for (int nf = 0; nf < kNF; ++nf) {
+          const int col = (D / 2) * wc + 8 * nf + 2 * t;
+          const float v0 = ds[mf][nf][2 * hh], v1 = ds[mf][nf][2 * hh + 1];
+          if (bf16_partials)
+            *reinterpret_cast<uint32_t*>(reinterpret_cast<__nv_bfloat16*>(ds_part) + base + col) = bt::pack(v0, v1);
+          else
+            *reinterpret_cast<float2*>(reinterpret_cast<float*>(ds_part) + base + col) = make_float2(v0, v1);
+        }
+      }
+  }
+}
+
+template <int D>
+int launch_lse(const __nv_bfloat16* s, const __nv_bfloat16* items, float* m_part, float* l_part, long long M,
+               long long N, long long chunk_rows, cudaStream_t stream) {
+  const int smem = (int)sizeof(LseSmem<D>);
+  cudaError_t err =
+      cudaFuncSetAttribute(lse_partials_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((N + chunk_rows - 1) / chunk_rows));
+  lse_partials_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(s, items, m_part, l_part, M, N, chunk_rows);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_ce(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* z, const long long* y,
+              const float* coeff, void* ds_part, float* di_part, long long M, long long N, long long chunk_rows,
+              long long tiles_per_group, long long n_groups, int bf16_partials, cudaStream_t stream) {
+  const long long m_tiles = (M + kBM - 1) / kBM;
+  if (tiles_per_group <= 0 || (m_tiles + tiles_per_group - 1) / tiles_per_group != n_groups)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(CeSmem<D>);
+  cudaError_t err = cudaFuncSetAttribute(ce_fused_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((N + chunk_rows - 1) / chunk_rows), (unsigned)n_groups);
+  ce_fused_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(s, items, z, y, coeff, ds_part, di_part, M, N,
+                                                            chunk_rows, tiles_per_group, bf16_partials);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel 6 on bf16 (M, D) sessions and (N, D) items: f32 (n_chunks, M) max
+// and sum-of-exp partials per item chunk of chunk_rows rows (a multiple of
+// 64). D in {32, 64, 128}, rows 16-byte aligned (checked by the Python
+// wrapper). Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int lse_partials_bf16(const void* s, const void* items, float* m_part, float* l_part, long long M,
+                                 long long N, int D, long long chunk_rows, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
+  const auto* sb = static_cast<const __nv_bfloat16*>(s);
+  const auto* ib = static_cast<const __nv_bfloat16*>(items);
+  switch (D) {
+    case 32: return launch_lse<32>(sb, ib, m_part, l_part, M, N, chunk_rows, stream);
+    case 64: return launch_lse<64>(sb, ib, m_part, l_part, M, N, chunk_rows, stream);
+    case 128: return launch_lse<128>(sb, ib, m_part, l_part, M, N, chunk_rows, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel 7's one pass on bf16 sessions and items: ds partials (n_chunks, M, D),
+// bf16 when bf16_partials else f32, and f32 di partials (n_groups, N, D), on
+// the grid of ops/softmax_lse.py `fused_bwd_plan` (chunk_rows a multiple of
+// 64; another n_groups for tiles_per_group returns cudaErrorInvalidValue).
+// z, coeff f32 (M,), y int64 (M,).
+extern "C" int ce_fused_bf16(const void* s, const void* items, const float* z, const long long* y,
+                             const float* coeff, void* ds_part, float* di_part, long long M, long long N, int D,
+                             long long chunk_rows, long long tiles_per_group, long long n_groups, int bf16_partials,
+                             cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
+  const auto* sb = static_cast<const __nv_bfloat16*>(s);
+  const auto* ib = static_cast<const __nv_bfloat16*>(items);
+  switch (D) {
+    case 32:
+      return launch_ce<32>(sb, ib, z, y, coeff, ds_part, di_part, M, N, chunk_rows, tiles_per_group, n_groups,
+                           bf16_partials, stream);
+    case 64:
+      return launch_ce<64>(sb, ib, z, y, coeff, ds_part, di_part, M, N, chunk_rows, tiles_per_group, n_groups,
+                           bf16_partials, stream);
+    case 128:
+      return launch_ce<128>(sb, ib, z, y, coeff, ds_part, di_part, M, N, chunk_rows, tiles_per_group, n_groups,
+                            bf16_partials, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -79,6 +79,15 @@ def hash_uniform_ints(
     return low + bits % (high - low)
 
 
+def scalar_in(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` when that is a half type, as a JAX
+    scalar takes the array's dtype (the dropout scale ``jnp.asarray(1 / (1 -
+    rate), x.dtype)``, a weakly typed Python scale); unchanged otherwise."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return float(torch.tensor(value, dtype=dtype))
+    return value
+
+
 def draw_key_words(generator: tp.Optional[torch.Generator]) -> tp.Tuple[int, int]:
     """Two int32 key words from ``generator``."""
     words = torch.randint(-(2**31), 2**31, (2,), generator=_required(generator))
@@ -139,4 +148,4 @@ class HashDropout(nn.Module):
             return torch.zeros_like(x)
         offset = self.batch_offset * int(np.prod(x.shape[1:]))
         keep = hash_keep_mask(draw_key_words(self.dropout_generator), x.shape, self.rate, x.device, offset)
-        return torch.where(keep, x * (1.0 / (1.0 - self.rate)), torch.zeros_like(x))
+        return torch.where(keep, x * scalar_in(1.0 / (1.0 - self.rate), x.dtype), torch.zeros_like(x))

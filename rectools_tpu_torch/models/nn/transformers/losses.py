@@ -103,8 +103,10 @@ def _ce_pieces(
     lse: torch.Tensor,
     count_reduce: CountReduce = None,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Loss scalar + the per-position pieces both forward and backward need."""
-    logit_y = (s2 * items[y_flat]).sum(dim=-1)
+    """Loss scalar + the per-position pieces both forward and backward need.
+    The label logit is an f32 sum of f32 products, bf16 towers too (JAX
+    ``preferred_element_type=float32``)."""
+    logit_y = (s2.float() * items[y_flat].float()).sum(dim=-1)
     ce = torch.where(y_flat == 0, torch.zeros_like(lse), lse - logit_y)
     weighted = ce * w_flat
     denom = _denominator((weighted > 0).to(torch.float32).sum(), count_reduce)

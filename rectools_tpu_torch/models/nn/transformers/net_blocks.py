@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ....ops.attention import dot_product_attention
-from ..dropout import HashDropout, draw_attention_seed, shifted_attention_seed
+from ..dropout import HashDropout, draw_attention_seed, scalar_in, shifted_attention_seed
 from ..norm import FusedLayerNorm
 
 MASK_VALUE = -1e9  # additive attention-bias "minus infinity"
@@ -245,7 +245,7 @@ class LearnableInversePositionalEncoding(PositionalEncodingBase):
     def forward(self, sessions: torch.Tensor) -> torch.Tensor:
         _, session_max_len, n_factors = sessions.shape
         if self.use_scale_factor:
-            sessions = sessions * (n_factors**0.5)
+            sessions = sessions * scalar_in(n_factors**0.5, sessions.dtype)
         if self.use_pos_emb:
             positions = torch.arange(session_max_len - 1, -1, -1, device=sessions.device)
             sessions = sessions + self.pos_emb[positions][None, :, :]

@@ -80,13 +80,14 @@ class DistanceSimilarityModule(SimilarityModuleBase):
         return _DISTANCE_FROM_STR[self.distance]
 
     def _get_full_catalog_logits(self, session_embs: torch.Tensor, item_embs: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("bld,nd->bln", session_embs, item_embs)
+        # f32 logits, from bf16 towers too (JAX `preferred_element_type=float32`)
+        return torch.einsum("bld,nd->bln", session_embs.float(), item_embs.float())
 
     def _get_pos_neg_logits(
         self, session_embs: torch.Tensor, item_embs: torch.Tensor, candidate_item_ids: torch.Tensor
     ) -> torch.Tensor:
         # candidates (B, L, C): gather, then a per-position dot
-        return torch.einsum("blcd,bld->blc", item_embs[candidate_item_ids], session_embs)
+        return torch.einsum("blcd,bld->blc", item_embs[candidate_item_ids].float(), session_embs.float())
 
     def _normalize(self, embeddings: torch.Tensor) -> torch.Tensor:
         norm_sq = (embeddings * embeddings).sum(dim=-1, keepdim=True)

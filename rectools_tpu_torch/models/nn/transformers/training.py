@@ -56,14 +56,29 @@ the generator state the forward started from, so it draws the same masks and
 the gradients are those of the plain step. The recompute runs inside the
 step's ``full_f32_matmul`` and with the same batch offsets.
 
-Not ported yet, and refused with ``NotImplementedError``:
-``compute_dtype="bfloat16"``; ``compute_dtype="auto"`` resolves to float32,
-as it does in the JAX package on every backend but the TPU.
+Mixed precision (``compute_dtype="bfloat16"``, JAX ``training.py:303-338``,
+``:400-405``): inside the train step's loss, and the validation loss, every
+floating parameter is read as a bf16 copy made inside the autograd graph
+(:meth:`_compute_params`), so the f32 master weights receive the gradients
+through the casts and Adam stays f32. The stack then runs in bf16: the bf16
+forms of the attention kernels (2, 5), LayerNorm through its f32 kernels
+(1, 4) with bf16 in and out, bf16 linear layers accumulating in f32, the
+embedding gather and its scatter-add in bf16 (one bf16 rounding per added
+row, in index order, as XLA's scatter-add sums them). The fused loss applies
+the temperature in f32 and rounds the towers to bf16 for the bf16 forms of
+kernels 6 and 7; every other logit is an f32 sum of bf16 products. The
+validation recall and serving read the f32 weights, as in JAX. Routes
+without a bf16 kernel raise ``NotImplementedError`` naming ROADMAP §1 item
+5 (HSTU, ``mesh_shape``, the large-catalog and two-launch CE routes, D
+outside 32..128, the bounded-shift and running-max forwards); none runs in
+f32. ``compute_dtype="auto"`` resolves to float32 here (JAX: bf16 on a TPU
+only; a standing divergence, ROADMAP §3).
 ``steps_per_dispatch`` is validated for config compatibility and otherwise
 unused: it never changes the trajectory in the JAX package, and the port
 dispatches step by step.
 """
 
+import contextlib
 import copy
 import typing as tp
 
@@ -72,6 +87,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ....dataset.dataset import Dataset
+from ....ops._native import BF16_ROADMAP
 from ....ops.softmax_lse import sharded_streaming_lse
 from ....parallel import collectives
 from ....parallel.distributed import data_parallel_row_range, global_batch_to_local
@@ -190,10 +206,12 @@ class TransformerTrainingModuleBase:
                 "negatives_sharing='batch' draws its negatives on device; "
                 "it requires negatives_on_device=True and the default CatalogUniformSampler"
             )
-        if compute_dtype == "bfloat16":
+        if compute_dtype == "bfloat16" and mesh_shape is not None:
             raise NotImplementedError(
-                "compute_dtype='bfloat16' is not ported yet (ROADMAP.md §1, bf16 compute with tensor-core kernels)"
+                f"compute_dtype='bfloat16' with mesh_shape: the mesh loss (kernels 8-11) has no bf16 form yet "
+                f"({BF16_ROADMAP})"
             )
+        self.compute_dtype = compute_dtype
         self.mesh_shape = (int(mesh_shape[0]), int(mesh_shape[1])) if mesh_shape is not None else None
         self._mesh: tp.Optional[ProcessMesh] = None
         self._batch_offset = 0  # first row of the global batch this rank holds
@@ -286,6 +304,50 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
         )
 
     @property
+    def resolved_compute_dtype(self) -> str:
+        """The dtype ``compute_dtype`` resolves to: ``"auto"`` is float32 in the
+        port (the JAX package picks bf16 on a TPU only; ROADMAP §3)."""
+        return "float32" if self.compute_dtype == "auto" else self.compute_dtype
+
+    def _refuse_unported_bf16(self) -> None:
+        """Under bf16 compute, refuse before any step a stack whose kernels have
+        no bf16 form (HSTU's STU attention); the kernel wrappers refuse the
+        other routes at their first call."""
+        from .hstu import STULayers  # hstu.py imports this module
+
+        if self.resolved_compute_dtype == "bfloat16" and isinstance(self.backbone.transformer_layers, STULayers):
+            raise NotImplementedError(
+                f"compute_dtype='bfloat16' with HSTU: the STU attention (kernels 17-19) has no bf16 form yet "
+                f"({BF16_ROADMAP})"
+            )
+
+    @contextlib.contextmanager
+    def _compute_params(self) -> tp.Iterator[None]:
+        """Under bf16 compute, every floating parameter of the backbone reads
+        as a bf16 copy made here, inside the autograd graph (one copy a
+        parameter, however many modules share it); the parameters come back on
+        exit. Gradients flow through the copies to the f32 parameters (JAX
+        ``training.py:315-317``). Under float32 it does nothing."""
+        if self.resolved_compute_dtype != "bfloat16":
+            yield
+            return
+        copies: tp.Dict[int, torch.Tensor] = {}
+        swapped = []
+        for module in self.backbone.modules():
+            for name, param in list(module._parameters.items()):
+                if param is not None and param.is_floating_point():
+                    swapped.append((module, name, param))
+        try:
+            for module, name, param in swapped:
+                del module._parameters[name]
+                setattr(module, name, copies.setdefault(id(param), param.to(torch.bfloat16)))
+            yield
+        finally:
+            for module, name, param in swapped:
+                module.__dict__.pop(name, None)
+                module._parameters[name] = param
+
+    @property
     def _use_device_negatives(self) -> bool:
         return (
             bool(self._requires_negatives)
@@ -328,8 +390,9 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
         negatives (B, K): the positives from one row gather of the item tower,
         the negatives from one gather of B·K rows and a dense (B, L, K) product."""
         s_t, i_t = self.backbone.similarity_module.catalog_loss_towers(session_embs, item_embs)
-        pos_logits = (s_t * i_t[y]).sum(dim=-1, keepdim=True)
-        neg_logits = torch.bmm(s_t, i_t[negatives].transpose(1, 2))
+        # f32 sums of the products, from bf16 towers too (JAX `preferred_element_type=float32`)
+        pos_logits = (s_t.float() * i_t[y].float()).sum(dim=-1, keepdim=True)
+        neg_logits = torch.bmm(s_t.float(), i_t[negatives].float().transpose(1, 2))
         return torch.cat([pos_logits, neg_logits], dim=-1)
 
     def _rematerialized(self, fn: tp.Callable[..., tp.Any], *args: tp.Any) -> tp.Any:
@@ -365,23 +428,34 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
             negatives = self._negatives(batch, neg_words)
 
             def shared(b: tp.Dict[str, torch.Tensor]) -> torch.Tensor:
-                item_embs = self.backbone.item_model.embed_catalog()
-                return self._shared_logits(self.backbone.encode_sessions(b, item_embs), item_embs, b["y"], negatives)
+                with self._compute_params():
+                    item_embs = self.backbone.item_model.embed_catalog()
+                    session_embs = self.backbone.encode_sessions(b, item_embs)
+                    return self._shared_logits(session_embs, item_embs, b["y"], negatives)
 
             logits = self._rematerialized(shared, batch)
         else:
             candidates = self._candidates(batch, neg_words) if self._requires_negatives else None
-            logits = self._rematerialized(lambda b: self.backbone(b, candidate_item_ids=candidates), batch)
+
+            def forward(b: tp.Dict[str, torch.Tensor]) -> torch.Tensor:
+                with self._compute_params():
+                    return self.backbone(b, candidate_item_ids=candidates)
+
+            logits = self._rematerialized(forward, batch)
         return logits.float() / self.logits_t
 
     def _fused_softmax_loss_value(self, batch: tp.Dict[str, torch.Tensor]) -> torch.Tensor:
         def towers(b: tp.Dict[str, torch.Tensor]) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-            item_embs = self.backbone.item_model.embed_catalog()
-            session_embs = self.backbone.encode_sessions(b, item_embs)
-            return self.backbone.similarity_module.catalog_loss_towers(session_embs, item_embs)
+            with self._compute_params():
+                item_embs = self.backbone.item_model.embed_catalog()
+                session_embs = self.backbone.encode_sessions(b, item_embs)
+                return self.backbone.similarity_module.catalog_loss_towers(session_embs, item_embs)
 
         s_t, i_t = self._rematerialized(towers, batch)
         s_t, i_t = s_t.float() / self.logits_t, i_t.float()
+        if self.resolved_compute_dtype == "bfloat16":
+            # the temperature in f32, then the towers stay bf16 into the loss kernels (JAX training.py:336-338)
+            s_t, i_t = s_t.to(torch.bfloat16), i_t.to(torch.bfloat16)
         mesh = self._get_mesh()
         if mesh is None:
             return fused_softmax_loss(s_t, i_t, batch["y"], batch["yw"])
@@ -522,21 +596,27 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
         recall_k: tp.Optional[int] = None,
     ) -> tp.Tuple[torch.Tensor, tp.Optional[tp.Tuple[torch.Tensor, torch.Tensor]]]:
         """Validation loss of the last position and, with ``recall_k``, the
-        (hits, n_valid) of recall@k, from one encoding of the batch. The JAX
+        (hits, n_valid) of recall@k, from one encoding of the batch (two under
+        bf16 compute: the loss reads the bf16 weights and the recall the f32
+        ones, as JAX's ``_val_step`` and ``_val_recall_step`` do). The JAX
         ``_val_step`` slices the full logits to ``[:, -1:]``; the port computes
         only that slice."""
-        item_embs = self.backbone.item_model.embed_catalog()
-        session_embs = self.backbone.encode_sessions(batch, item_embs)[:, -1:, :]
-        if self._shares_negatives:
-            negatives = self._negatives(batch, neg_words)
-            logits = self._shared_logits(session_embs, item_embs, batch["y"], negatives)
-        else:
-            candidates = self._candidates(batch, neg_words) if self._requires_negatives else None
-            logits = self.backbone.similarity_module(session_embs, item_embs, candidates)
+        with self._compute_params():
+            item_embs = self.backbone.item_model.embed_catalog()
+            session_embs = self.backbone.encode_sessions(batch, item_embs)[:, -1:, :]
+            if self._shares_negatives:
+                negatives = self._negatives(batch, neg_words)
+                logits = self._shared_logits(session_embs, item_embs, batch["y"], negatives)
+            else:
+                candidates = self._candidates(batch, neg_words) if self._requires_negatives else None
+                logits = self.backbone.similarity_module(session_embs, item_embs, candidates)
         logits = logits.float() / self.logits_t
         loss = self._loss_fn(logits, batch["y"], batch["yw"])
         if recall_k is None:
             return loss, None
+        if self.resolved_compute_dtype == "bfloat16":
+            item_embs = self.backbone.item_model.embed_catalog()
+            session_embs = self.backbone.encode_sessions(batch, item_embs)[:, -1:, :]
         # recall@k of the held-out targets: last-position catalog scores,
         # extra tokens masked, padded rows excluded
         scores = self.backbone.similarity_module._get_full_catalog_logits(session_embs, item_embs)[:, 0, :]
@@ -578,6 +658,7 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
     ) -> None:
         """Epoch loop. Loaders come from factories so each fit / fit_partial
         call re-derives its host rng stream from the seed and epoch counter."""
+        self._refuse_unported_bf16()
         if self._shares_negatives:
             if not self._use_device_negatives:
                 raise ValueError(

@@ -25,7 +25,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("layer_norm", "attention", "topk_select", "softmax_lse", "stu_attention")
+SOURCES = (
+    "layer_norm", "attention", "topk_select", "softmax_lse", "stu_attention", "softmax_lse_bf16", "attention_bf16",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -57,7 +59,14 @@ LAUNCHES: tp.Dict[str, int] = {
     "stu_bwd": 0,
     "stu_bwd_dq": 0,
     "stu_ds": 0,
+    # the bf16 forms of kernels 2, 5, 6 and 7 (compute_dtype="bfloat16")
+    "attention_fwd_bf16": 0,
+    "attention_bwd_bf16": 0,
+    "lse_partials_fwd_bf16": 0,
+    "ce_grads_fused_bf16": 0,
 }
+# where the routes without a bf16 kernel are queued
+BF16_ROADMAP = "ROADMAP.md §1 item 5"
 
 _LOCK = threading.Lock()
 _LIBS: tp.Dict[str, ctypes.CDLL] = {}
@@ -162,12 +171,17 @@ def require_cuda_f32(kernel: str, forward_only: bool = False, **tensors: torch.T
     ``forward_only`` kernel (one with no backward kernel, such as the top-m
     selection) also refuses tensors that need a gradient; the others are
     reached through their ``autograd.Function``."""
+    require_cuda(kernel, torch.float32, forward_only, **tensors)
+
+
+def require_cuda(kernel: str, dtype: torch.dtype, forward_only: bool = False, **tensors: torch.Tensor) -> None:
+    """:func:`require_cuda_f32` for a kernel whose inputs are ``dtype``."""
     device = None
     for arg, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{kernel}: {arg} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel}: {arg} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: {arg} must be {dtype}, got {t.dtype}")
         if device is not None and t.device != device:
             raise ValueError(f"{kernel}: all inputs must be on one device")
         if forward_only and t.requires_grad and torch.is_grad_enabled():
@@ -175,11 +189,28 @@ def require_cuda_f32(kernel: str, forward_only: bool = False, **tensors: torch.T
         device = t.device
 
 
+def same_dtype(kernel: str, **tensors: torch.Tensor) -> torch.dtype:
+    """The one dtype of ``tensors``; a mixed set raises (a kernel form takes
+    one operand type, on the card and in its twin alike)."""
+    dtypes = {arg: t.dtype for arg, t in tensors.items()}
+    if len(set(dtypes.values())) > 1:
+        raise TypeError(f"{kernel}: mixed operand dtypes {dtypes}; cast them to one dtype first")
+    return next(iter(dtypes.values()))
+
+
+def refuse_bf16(kernel: str, route: str, *tensors: torch.Tensor) -> None:
+    """Raise for a bf16 input to a route that has no bf16 kernel yet: it never
+    runs silently in f32 or through its twin."""
+    if any(t.dtype == torch.bfloat16 for t in tensors):
+        raise NotImplementedError(f"{kernel}: {route} has no bf16 form yet ({BF16_ROADMAP})")
+
+
 def require_aligned(kernel: str, t: torch.Tensor, dims: tp.Sequence[int]) -> None:
-    """float4 access: 16-byte aligned data, unit last stride, and the strides
-    of ``dims`` multiples of 4 elements."""
-    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(t.stride(d) % 4 for d in dims):
+    """16-byte access: 16-byte aligned data, unit last stride, and the strides
+    of ``dims`` multiples of 16 bytes (4 float32, 8 bfloat16 elements)."""
+    per16 = 16 // t.element_size()
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(t.stride(d) % per16 for d in dims):
         raise ValueError(
             f"{kernel}: tensor of shape {tuple(t.shape)} and strides {t.stride()} needs a unit last stride, "
-            "16-byte alignment and outer strides that are multiples of 4"
+            f"16-byte alignment and outer strides that are multiples of {per16}"
         )

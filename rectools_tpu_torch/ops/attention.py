@@ -21,6 +21,16 @@ default): a bias that requires a gradient raises. The kernels take head dims
 dims 32 and 64 (``TC_HEAD_DIMS``) both run their products on the tensor
 cores in 3xTF32 (each f32 operand as two TF32 halves; on an H100 as close to
 float64 as the f32 FMA kernels at these depths); at 8 and 16 in f32 FMA.
+
+bf16 q, k, v (mixed-precision training) take bf16 forms of both kernels in
+``csrc/attention_bf16.cu`` (``attn_fwd_bf16``, ``attn_bwd_bf16``; launch keys
+``attention_fwd_bf16``, ``attention_bwd_bf16``) at head dims 16, 32 and 64
+(``BF16_HEAD_DIMS``): bf16 tensor-core products with f32 accumulation and the
+rounding points of the JAX package's route below L = 256 (scores rounded to
+bf16 after scale and bias, p rounded before p·v, and in the backward dp, ds
+and the outputs), at every L. Their twins (:func:`attention_bf16_reference`,
+:func:`attention_bwd_bf16_reference`) are that route's math on the bf16
+values in f32. The lse and the bias stay f32; head dim 8 raises.
 """
 
 import ctypes
@@ -42,7 +52,15 @@ _SIGNATURES = {
     # q, k, v, bias, lse, delta, dout, dq, dk, dv; B, H, L, dh; strides of q, k, v, dout, dq, dk, dv
     "attn_bwd_f32": (_C,) * 10 + (_I,) * 4 + (_L,) * 21 + _TAIL,
 }
+_SIGNATURES_BF16 = {
+    # q, k, v, bias, out, lse; B, H, L, dh; (batch, head, row) strides of q, k, v, out
+    "attn_fwd_bf16": (_C,) * 6 + (_I,) * 4 + (_L,) * 12 + _TAIL,
+    # q, k, v, bias, lse, delta, dout, dq, dk, dv, dq scratch; B, H, L, dh; strides of q, k, v, dout, dq, dk, dv
+    "attn_bwd_bf16": (_C,) * 11 + (_I,) * 4 + (_L,) * 21 + _TAIL,
+}
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
+BF16_HEAD_DIMS = (16, 32, 64)
+BF16_TILE = 64  # rows of the bf16 kernels' tiles; the backward sums dq over more key tiles than one in f32 scratch
 # The head dims whose kernels run on the tensor cores (csrc/attention.cu
 # `attn_tensor_cores`), and their tiles: a forward block owns FWD_TILE queries
 # and walks the keys in tiles of FWD_TILE; a backward block owns a (b, h) row
@@ -146,6 +164,80 @@ def attention_bwd_reference(
     return dq, dk, dv
 
 
+def _keep_scale_bf16(dropout_rate: float) -> torch.Tensor:
+    """The dropout keep scale ``1 / (1 - rate)`` rounded to bf16, as the JAX
+    route casts ``keep * scale`` to the input dtype."""
+    return torch.tensor(1.0 / (1.0 - dropout_rate), dtype=torch.bfloat16)
+
+
+def attention_bf16_reference(
+    q: torch.Tensor,  # (B, H, L, dh) bf16
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: tp.Optional[torch.Tensor],  # f32
+    scale: float,
+    dropout_rate: float = 0.0,
+    seed: int = 0,
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of ``attn_fwd_bf16``: (out bf16, lse f32), the JAX
+    ``_reference_attention`` on bf16 inputs (rectools_tpu/ops/attention.py
+    :441-456): scores in f32 rounded to bf16, lse in f32 from them, p rounded
+    to bf16, the dropout scale in bf16, out = p·v in f32 rounded to bf16."""
+    s = _scores(q.float(), k.float(), bias, scale).to(torch.bfloat16)
+    lse = torch.logsumexp(s.float(), dim=-1)
+    p = torch.exp(s.float() - lse[..., None]).to(torch.bfloat16)
+    if dropout_rate > 0.0:
+        b, h, l, _ = q.shape
+        keep = dropout_keep_mask(seed, b, h, l, dropout_rate, q.device)
+        p = p * (keep * _keep_scale_bf16(dropout_rate).float()).to(torch.bfloat16)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(torch.bfloat16)
+    return out, lse
+
+
+def attention_bwd_bf16_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: tp.Optional[torch.Tensor],
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    dout: torch.Tensor,
+    scale: float,
+    dropout_rate: float = 0.0,
+    seed: int = 0,
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of ``attn_bwd_bf16``: bf16 (dq, dk, dv), the JAX
+    ``_xla_bwd_math`` on bf16 inputs (rectools_tpu/ops/attention.py:521-545)."""
+    s = _scores(q.float(), k.float(), bias, scale).to(torch.bfloat16)
+    p = torch.exp(s.float() - lse[..., None]).to(torch.bfloat16)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float()).to(torch.bfloat16)
+    p_dropped = p
+    if dropout_rate > 0.0:
+        b, h, l, _ = q.shape
+        keep = dropout_keep_mask(seed, b, h, l, dropout_rate, q.device)
+        scaled_keep = (keep * _keep_scale_bf16(dropout_rate).float()).to(torch.bfloat16)
+        p_dropped = p * scaled_keep
+        dp = dp * scaled_keep
+    ds = (p.float() * (dp.float() - delta[..., None])).to(torch.bfloat16).float()
+    dq = (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale).to(torch.bfloat16)
+    dk = (torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale).to(torch.bfloat16)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_dropped.float(), dout.float()).to(torch.bfloat16)
+    return dq, dk, dv
+
+
+def _bf16_inputs(kernel: str, **tensors: torch.Tensor) -> bool:
+    """Whether q, k, v (and dout) are bf16 (a mixed set raises); bf16 inputs
+    also need a head dim the bf16 kernels take."""
+    if _native.same_dtype(kernel, **tensors) != torch.bfloat16:
+        return False
+    dh = tensors["q"].shape[-1]
+    if dh not in BF16_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{kernel}: head dim {dh} has no bf16 kernel (head dims {BF16_HEAD_DIMS}) yet ({_native.BF16_ROADMAP})"
+        )
+    return True
+
+
 def _check_shapes(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias) -> tp.Tuple[int, int]:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{kernel}: q, k, v must share one (B, H, L, dh) shape, got {q.shape}, {k.shape}, {v.shape}")
@@ -161,9 +253,9 @@ def _check_shapes(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return (bias.stride(0) if bias.shape[0] > 1 else 0), (bias.stride(1) if bias.shape[1] > 1 else 0)
 
 
-def _blhd_empty(b: int, h: int, l: int, dh: int, device: torch.device) -> torch.Tensor:
+def _blhd_empty(b: int, h: int, l: int, dh: int, device: torch.device, dtype=torch.float32) -> torch.Tensor:
     """A (B, H, L, dh) view over (B, L, H, dh) memory: the projections' layout."""
-    return torch.empty((b, l, h, dh), dtype=torch.float32, device=device).transpose(1, 2)
+    return torch.empty((b, l, h, dh), dtype=dtype, device=device).transpose(1, 2)
 
 
 def _strides(*tensors: torch.Tensor) -> tp.Tuple[int, ...]:
@@ -190,7 +282,10 @@ def attention_fwd(
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """dropout(softmax(q kᵀ · scale + bias)) v and the pre-dropout row
     logsumexp (float32). On CUDA the output is a (B, H, L, dh) view over
-    (B, L, H, dh) memory, so ``out.transpose(1, 2)`` is contiguous."""
+    (B, L, H, dh) memory, so ``out.transpose(1, 2)`` is contiguous. bf16 q,
+    k, v give a bf16 output (kernel 2's bf16 form)."""
+    if _bf16_inputs("attention_fwd", q=q, k=k, v=v):
+        return _attention_fwd_bf16(q, k, v, bias, scale, dropout_rate, seed)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, bias, scale, dropout_rate, seed)
     tensors = {"q": q, "k": k, "v": v} if bias is None else {"q": q, "k": k, "v": v, "bias": bias}
@@ -225,7 +320,9 @@ def attention_bwd(
     seed: int = 0,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`attention_fwd`; on CUDA each is a (B, H, L, dh)
-    view over (B, L, H, dh) memory."""
+    view over (B, L, H, dh) memory (bf16 for bf16 inputs: kernel 5's bf16 form)."""
+    if _bf16_inputs("attention_bwd", q=q, k=k, v=v, dout=dout):
+        return _attention_bwd_bf16(q, k, v, bias, lse, delta, dout, scale, dropout_rate, seed)
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, bias, lse, delta, dout, scale, dropout_rate, seed)
     tensors = {"q": q, "k": k, "v": v, "lse": lse, "delta": delta, "dout": dout}
@@ -253,6 +350,58 @@ def attention_bwd(
     return dq, dk, dv
 
 
+def _attention_fwd_bf16(q, k, v, bias, scale: float, dropout_rate: float, seed: int):
+    if q.device.type == "cpu":
+        return attention_bf16_reference(q, k, v, bias, scale, dropout_rate, seed)
+    _native.require_cuda("attention_fwd_bf16", torch.bfloat16, q=q, k=k, v=v)
+    if bias is not None:
+        _native.require_cuda("attention_fwd_bf16", torch.float32, bias=bias)
+    bias_sb, bias_sh = _check_shapes("attention_fwd_bf16", q, k, v, bias)
+    b, h, l, dh = q.shape
+    for t in (q, k, v):
+        _native.require_aligned("attention_fwd_bf16", t, (0, 1, 2))
+    out = _blhd_empty(b, h, l, dh, q.device, torch.bfloat16)
+    lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    lib = _native.load("attention_bf16", _SIGNATURES_BF16)
+    with torch.cuda.device(q.device):
+        status = lib.attn_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, h, l, dh, *_strides(q, k, v, out),
+            bias_sb, bias_sh, scale, *_dropout_args(seed, dropout_rate), _native.current_stream_ptr(q.device),
+        )
+    _native.check_launch("attention_fwd_bf16", status)
+    return out, lse
+
+
+def _attention_bwd_bf16(q, k, v, bias, lse, delta, dout, scale: float, dropout_rate: float, seed: int):
+    if q.device.type == "cpu":
+        return attention_bwd_bf16_reference(q, k, v, bias, lse, delta, dout, scale, dropout_rate, seed)
+    _native.require_cuda("attention_bwd_bf16", torch.bfloat16, q=q, k=k, v=v, dout=dout)
+    tensors = {"lse": lse, "delta": delta} if bias is None else {"lse": lse, "delta": delta, "bias": bias}
+    _native.require_cuda("attention_bwd_bf16", torch.float32, **tensors)
+    bias_sb, bias_sh = _check_shapes("attention_bwd_bf16", q, k, v, bias)
+    b, h, l, dh = q.shape
+    if dout.shape != q.shape or lse.shape != (b, h, l) or delta.shape != (b, h, l):
+        raise ValueError("attention_bwd_bf16: dout must match q, and lse and delta must be (B, H, L)")
+    if not (lse.is_contiguous() and delta.is_contiguous()):
+        raise ValueError("attention_bwd_bf16: lse and delta must be contiguous")
+    for t in (q, k, v, dout):
+        _native.require_aligned("attention_bwd_bf16", t, (0, 1, 2))
+    dq, dk, dv = (_blhd_empty(b, h, l, dh, q.device, torch.bfloat16) for _ in range(3))
+    # dq's f32 sums over the key tiles, when there is more than one
+    dq_acc = torch.empty((b, h, l, dh), dtype=torch.float32, device=q.device) if l > BF16_TILE else None
+    lib = _native.load("attention_bf16", _SIGNATURES_BF16)
+    with torch.cuda.device(q.device):
+        status = lib.attn_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if dq_acc is None else dq_acc.data_ptr(), b, h, l, dh, *_strides(q, k, v, dout, dq, dk, dv),
+            bias_sb, bias_sh, scale, *_dropout_args(seed, dropout_rate), _native.current_stream_ptr(q.device),
+        )
+    _native.check_launch("attention_bwd_bf16", status)
+    return dq, dk, dv
+
+
 class _Attention(torch.autograd.Function):
     """Kernel 2 forward, kernel 5 backward; the bias is a constant mask."""
 
@@ -267,9 +416,11 @@ class _Attention(torch.autograd.Function):
     def backward(ctx, dout):  # type: ignore[override]
         q, k, v, bias, out, lse = ctx.saved_tensors
         scale, dropout_rate, seed = ctx.args
-        if dout.stride(-1) != 1 or dout.data_ptr() % 16 or any(dout.stride(i) % 4 for i in range(3)):
+        per16 = 16 // dout.element_size()
+        if dout.stride(-1) != 1 or dout.data_ptr() % 16 or any(dout.stride(i) % per16 for i in range(3)):
             dout = dout.transpose(1, 2).contiguous().transpose(1, 2)
-        delta = (dout * out).sum(dim=-1).contiguous()
+        # in f32 for bf16 too (rectools_tpu/ops/attention.py:508); `.float()` leaves f32 as it is
+        delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
         dq, dk, dv = attention_bwd(q, k, v, bias, lse, delta, dout, scale, dropout_rate, seed)
         return dq, dk, dv, None, None, None, None
 

@@ -8,6 +8,11 @@ returns dx, dγ and dβ, in one launch whose last block sums the per-block
 partials of dγ and dβ in a fixed order (:func:`bwd_partition`). A CUDA tensor
 goes to ``csrc/layer_norm.cu`` (``ln_fwd_f32``, ``ln_bwd_f32``); a CPU tensor
 goes to the twins.
+
+bf16 activations (mixed-precision training) go through the same f32
+kernels: the wrapper widens x and dy to f32 (exact), runs kernels 1 and 4,
+and rounds y and dx to the input dtype, with dγ and dβ at γ's dtype, which
+is what the JAX kernels store (rectools_tpu/ops/layer_norm.py:33, 58, 133).
 """
 
 import ctypes
@@ -81,8 +86,18 @@ def _check(kernel: str, x: torch.Tensor, gamma: torch.Tensor, *others: torch.Ten
     return m, d
 
 
+def _widened(x: torch.Tensor, gamma: torch.Tensor) -> bool:
+    """Whether a call is bf16 (x, or γ and β under bf16 compute), and so
+    takes the f32 kernels on widened operands."""
+    return torch.bfloat16 in (x.dtype, gamma.dtype)
+
+
 def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis of a 2-D (M, D) input (kernel 1)."""
+    """LayerNorm over the last axis of a 2-D (M, D) input (kernel 1); bf16
+    through the f32 kernel, y rounded to x's dtype."""
+    _native.same_dtype("layer_norm_fwd", gamma=gamma, beta=beta)
+    if _widened(x, gamma):
+        return layer_norm_fwd(x.float(), gamma.float(), beta.float(), eps).to(x.dtype)
     if x.device.type == "cpu":
         return layer_norm_reference(x, gamma, beta, eps)
     _native.require_cuda_f32("layer_norm_fwd", x=x, gamma=gamma, beta=beta)
@@ -103,7 +118,12 @@ def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps
 def layer_norm_bwd(
     x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dx, dγ, dβ) of :func:`layer_norm_fwd` (kernel 4)."""
+    """(dx, dγ, dβ) of :func:`layer_norm_fwd` (kernel 4); bf16 through the
+    f32 kernel, dx rounded to x's dtype and dγ, dβ to γ's."""
+    _native.same_dtype("layer_norm_bwd", x=x, dy=dy)
+    if _widened(x, gamma):
+        dx, dgamma, dbeta = layer_norm_bwd(x.float(), gamma.float(), dy.float(), eps)
+        return dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
     if x.device.type == "cpu":
         return layer_norm_bwd_reference(x, gamma, dy, eps)
     _native.require_cuda_f32("layer_norm_bwd", x=x, gamma=gamma, dy=dy)

@@ -46,6 +46,21 @@ a session tile and merge their rows' (max, Σexp) through distributed shared
 memory: :func:`lse_cluster_plan`; kernel 16 on kernel 6's grid, with plain
 sums of the two windows in place of the running max).
 
+bf16 sessions and items (mixed-precision training) take bf16 forms of
+kernels 6 and 7 in ``csrc/softmax_lse_bf16.cu`` (``lse_partials_bf16``,
+``ce_fused_bf16``; launch keys ``lse_partials_fwd_bf16``,
+``ce_grads_fused_bf16``): bf16 tensor-core products with f32 accumulation,
+the lse and its partials in f32, kernel 7's probability operand rounded to
+bf16 before both products and its ds partials stored in bf16
+(``BF16_DS_PARTIALS``), as the JAX kernels do for bf16 inputs. Their twins
+(:func:`streaming_lse_bf16_reference`,
+:func:`softmax_ce_grads_from_z_bf16_reference`) multiply the bf16 values in
+f32, which is exact, so twin and card differ only in the order of f32 sums.
+Every other route (kernels 8–16: the bias, the shift and running-max
+forwards, the generic lse backward, the softmax gradients from z, kernel 7's
+two launches and the large-catalog route) and D outside 32..128 raise
+``NotImplementedError`` for bf16 inputs, on the card and on the CPU alike.
+
 CPU tensors take the twins, which walk the catalog in item chunks exactly as
 the kernels walk their tiles (per-chunk partials, a running max or fixed
 shifts for the lse; label correction and tail handling per chunk for the
@@ -132,6 +147,20 @@ FUSED_BWD_CHUNK = 2048  # item rows a block of the fused backward owns
 # blocks; the split ds kernel walks the whole catalog). The kernels are built
 # for the same rows and reject a grid of other session groups or item chunks.
 _BWD_TILE = {d: (128, 1, 4) if 32 <= d <= 128 else (TILE, 2, 1) for d in SUPPORTED_D}
+
+_SIGNATURES_BF16 = {
+    # sessions, items, max partials, sum partials; M, N, D; chunk rows; stream
+    "lse_partials_bf16": (_C, _C, _C, _C, _LL, _LL, _I, _LL, _C),
+    # sessions, items, z, y (int64), coeff, ds partials, di partials; M, N, D; chunk rows, tiles per group,
+    # session groups, bf16 partials; stream
+    "ce_fused_bf16": (_C,) * 7 + (_LL, _LL, _I, _LL, _LL, _LL, _I, _C),
+}
+# The feature widths of the bf16 kernels: the tensor-core tile's. 16 and 256
+# (the f32 SIMT tile) have no bf16 form yet.
+BF16_D = (32, 64, 128)
+# kernel 7's ds partials in bf16 for bf16 inputs: the JAX package's constant
+# and default (rectools_tpu/ops/softmax_lse.py:456-473); False stores them in f32
+BF16_DS_PARTIALS = True
 
 
 def streaming_lse_reference(sessions: torch.Tensor, items: torch.Tensor, chunk: int = TWIN_CHUNK) -> torch.Tensor:
@@ -345,6 +374,56 @@ def softmax_ce_grads_from_z_reference(
     return _grads_reference(sessions, items, weights, chunk, partials)
 
 
+def streaming_lse_bf16_reference(sessions: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of ``lse_partials_bf16`` (kernel 6 on bf16 towers):
+    kernel 6's twin on the bf16 values in f32. A product of two bf16 values is
+    exact in f32, so the logits are the card's up to the order of their sums."""
+    return streaming_lse_partials_reference(sessions.float(), items.float())
+
+
+def softmax_ce_grads_from_z_bf16_reference(
+    sessions: torch.Tensor,
+    items: torch.Tensor,
+    z: torch.Tensor,
+    y: torch.Tensor,
+    coeff: torch.Tensor,
+    chunk: int = FUSED_BWD_CHUNK,
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of ``ce_fused_bf16`` (kernel 7's one pass on bf16
+    towers): per item chunk of ``chunk`` rows the f32 logits and (P − D) in
+    f32, rounded to bf16 before both products (rectools_tpu/ops/softmax_lse.py
+    :696); the chunk's ds partial summed in f32 and stored in bf16 under
+    ``BF16_DS_PARTIALS``; the partials summed in f32 at the end. (ds, di) in
+    f32."""
+    s, it = sessions.float(), items.float()
+    di = torch.empty_like(it)
+    parts = []
+    for start in range(0, it.shape[0], chunk):
+        block = it[start : start + chunk]
+        pw = torch.exp(s @ block.T - z[:, None])
+        cols = torch.arange(start, start + block.shape[0], device=s.device)
+        pw = torch.where(cols[None, :] == y[:, None], pw - coeff[:, None], pw).to(torch.bfloat16).float()
+        part = pw @ block
+        parts.append(part.to(torch.bfloat16).float() if BF16_DS_PARTIALS else part)
+        di[start : start + block.shape[0]] = pw.T @ s
+    if not parts:
+        return torch.zeros_like(s), di
+    return (torch.stack(parts).sum(dim=0) if len(parts) > 1 else parts[0]), di
+
+
+def _bf16_operands(kernel: str, sessions: torch.Tensor, items: torch.Tensor) -> bool:
+    """Whether the towers are bf16 (a mixed pair raises); bf16 towers also
+    need a width the bf16 kernels take."""
+    if _native.same_dtype(kernel, sessions=sessions, items=items) != torch.bfloat16:
+        return False
+    if sessions.shape[-1] not in BF16_D:
+        raise NotImplementedError(
+            f"{kernel}: D = {sessions.shape[-1]} has no bf16 kernel (widths {BF16_D}; D = 16 and 256 keep the "
+            f"f32 SIMT tile) yet ({_native.BF16_ROADMAP})"
+        )
+    return True
+
+
 def _check(kernel: str, sessions: torch.Tensor, items: torch.Tensor) -> tp.Tuple[int, int, int]:
     if sessions.dim() != 2 or items.dim() != 2 or sessions.shape[1] != items.shape[1]:
         raise ValueError(
@@ -403,6 +482,7 @@ def lse_shift_sums(
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(shift, l, l2) of the ``bounded_shift`` forward (kernel 16; its twin on
     the CPU): the per-row shift and the two windows' sums."""
+    _native.refuse_bf16("lse_shift_fwd", "the bounded-shift forward (kernel 16)", sessions, items)
     if sessions.device.type == "cpu":
         return lse_shift_sums_reference(sessions, items)
     _native.require_cuda_f32("lse_shift_fwd", sessions=sessions, items=items)
@@ -423,9 +503,12 @@ def streaming_lse_fwd(
     """(M,) float32 lse, no autograd: with a bias kernel 8; without one
     kernel 16 for ``bounded_shift``, else kernel 6 (or 15 when
     ``USE_PARTIALS_FWD`` is False). Kernels 6 and 8 give per-chunk partials
-    that :func:`combine_lse_partials` merges."""
+    that :func:`combine_lse_partials` merges. bf16 towers take kernel 6's bf16
+    form; the other forwards have none yet and raise."""
     if row_bias is None and bounded_shift:
         return select_shift_window(*lse_shift_sums(sessions, items))
+    if _bf16_operands("lse_fwd", sessions, items):
+        return _lse_bf16(sessions, items, row_bias)
     partials = USE_PARTIALS_FWD
     if sessions.device.type == "cpu":
         if row_bias is not None:
@@ -455,18 +538,46 @@ def streaming_lse_fwd(
     return lse
 
 
-def fused_bwd_plan(m: int, n: int, d: int, n_sms: int) -> tp.Tuple[int, int, int]:
+def _lse_bf16(sessions: torch.Tensor, items: torch.Tensor, row_bias: tp.Optional[torch.Tensor]) -> torch.Tensor:
+    """Kernel 6's bf16 form (its twin on the CPU): the only bf16 lse forward."""
+    if row_bias is not None:
+        raise NotImplementedError(f"lse_bias_fwd: the biased forward (kernel 8) has no bf16 form yet "
+                                  f"({_native.BF16_ROADMAP})")
+    if not USE_PARTIALS_FWD:
+        raise NotImplementedError(f"lse_fwd: the running-max forward (kernel 15) has no bf16 form yet "
+                                  f"({_native.BF16_ROADMAP})")
+    if sessions.device.type == "cpu":
+        return streaming_lse_bf16_reference(sessions, items)
+    _native.require_cuda("lse_partials_fwd_bf16", torch.bfloat16, sessions=sessions, items=items)
+    m, n, d = _check("lse_partials_fwd_bf16", sessions, items)
+    if m == 0 or n == 0:
+        return torch.full((m,), float("-inf"), device=sessions.device)
+    n_chunks = -(-n // LSE_CHUNK)
+    m_part = torch.empty((n_chunks, m), dtype=torch.float32, device=sessions.device)
+    l_part = torch.empty_like(m_part)
+    lib = _native.load("softmax_lse_bf16", _SIGNATURES_BF16)
+    with torch.cuda.device(sessions.device):
+        status = lib.lse_partials_bf16(
+            sessions.data_ptr(), items.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), m, n, d, LSE_CHUNK,
+            _native.current_stream_ptr(sessions.device),
+        )
+    _native.check_launch("lse_partials_fwd_bf16", status)
+    return combine_lse_partials(m_part, l_part)
+
+
+def fused_bwd_plan(m: int, n: int, d: int, n_sms: int, ds_itemsize: int = 4) -> tp.Tuple[int, int, int]:
     """(tiles per session group, n_groups, bytes of partials) of the fused
     backward kernels (7, 9 and 12): one block per (item chunk, session
     group), and no more blocks than fit the multiprocessors at once, so that
     all run in one wave (a few blocks over it and the last ones run alone:
-    twice the time)."""
+    twice the time). The ds partials count ``ds_itemsize`` bytes an entry (2
+    for kernel 7's bf16 partials), the di partials 4."""
     tile_rows, blocks_per_sm, _ = _BWD_TILE[d]
     n_chunks = max(1, -(-n // FUSED_BWD_CHUNK))
     m_tiles = max(1, -(-m // tile_rows))
     tiles_per_group = -(-m_tiles // max(1, blocks_per_sm * n_sms // n_chunks))
     n_groups = -(-m_tiles // tiles_per_group)
-    return tiles_per_group, n_groups, (n_chunks * m + n_groups * n) * d * 4
+    return tiles_per_group, n_groups, (n_chunks * m * ds_itemsize + n_groups * n * 4) * d
 
 
 def _fused_or_split(
@@ -526,6 +637,7 @@ def streaming_lse_bwd(
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """(ds, di) of :func:`streaming_lse`: kernel 9, or kernels 10 + 11 when the
     fused kernel's partials would pass ``FUSED_BWD_PARTIALS_BUDGET``."""
+    _native.refuse_bf16("lse_bwd", "the generic lse backward (kernels 9-11)", sessions, items)
     if row_bias is None:
         row_bias = torch.zeros((items.shape[0],), dtype=torch.float32, device=items.device)
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
@@ -575,6 +687,7 @@ def streaming_lse(
     if row_bias is not None and row_bias.requires_grad:
         raise ValueError("streaming_lse: row_bias is a constant validity mask and cannot require a gradient")
     if torch.is_grad_enabled() and (sessions.requires_grad or items.requires_grad):
+        _native.refuse_bf16("lse_bwd", "the generic lse backward (kernels 9-11)", sessions, items)
         return _StreamingLSE.apply(sessions, items, row_bias, bounded_shift)
     return streaming_lse_fwd(sessions, items, row_bias, bounded_shift)
 
@@ -636,6 +749,7 @@ def sharded_streaming_lse(
     process holds one data shard, so nothing moves along it here; the caller
     sums parameter gradients over it."""
     del data_axis
+    _native.refuse_bf16("sharded_lse", "the mesh loss (kernels 8-11)", sessions, items)
     return _ShardedStreamingLSE.apply(sessions.contiguous(), items.contiguous(), mesh, shard_axis)
 
 
@@ -650,6 +764,7 @@ def softmax_grads_from_z(
     cotangent is ``c >= 0`` up to one scalar sign passes ``z = lse − log(c)``
     and applies the sign to the outputs. Kernel 12 while its partials fit
     ``FUSED_BWD_PARTIALS_BUDGET``, else kernels 13 + 14."""
+    _native.refuse_bf16("grads_z", "the softmax gradients from z (kernels 12-14)", sessions, items)
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
     if sessions.device.type == "cpu":
         return softmax_grads_from_z_reference(sessions, items, z, partials=_fused_on_the_card(m, n, d))
@@ -659,19 +774,31 @@ def softmax_grads_from_z(
     return _fused_or_split("grads_z", sessions, items, (z.data_ptr(),))
 
 
-def ce_takes_split_route(m: int, n: int, d: int) -> bool:
+def _ds_itemsize(dtype: torch.dtype) -> int:
+    """Bytes of one ds partial entry of kernel 7 for towers of ``dtype``
+    (rectools_tpu/ops/softmax_lse.py:476-479 ``_ds_partials_dtype``)."""
+    return 2 if dtype == torch.bfloat16 and BF16_DS_PARTIALS else 4
+
+
+def ce_takes_split_route(m: int, n: int, d: int, dtype: torch.dtype = torch.float32) -> bool:
     """Whether the softmax-CE gradients of (M, D) session rows against an
-    (N, D) float32 catalog leave kernel 7, by the JAX package's rule: the
-    loss's f32 tiling (rectools_tpu/models/nn/transformers/losses.py:25-27,
-    121-127), capped by its backward (:214-215), then the fused kernel's ds
-    partials ``ceil(N / chunk_n) · pad(M, block_m) · D · 4`` bytes against
-    the budget (rectools_tpu/ops/softmax_lse.py:720-723). At M = 51,200 and
-    D = 128 that is (256, 4096) tiles, 26.2 MB a chunk: catalogs above 81,920
-    items take the split route."""
-    block_m, chunk_n = (256, 4096) if d <= 128 else (512, 2048)
+    (N, D) catalog of ``dtype`` leave kernel 7, by the JAX package's rule: the
+    loss's tiling for that dtype (rectools_tpu/models/nn/transformers/
+    losses.py:25-27, 119-127), capped by its backward (:214-215), then the
+    fused kernel's ds partials ``ceil(N / chunk_n) · pad(M, block_m) · D``
+    entries at their real itemsize (2 bytes for bf16 partials) against the
+    budget (rectools_tpu/ops/softmax_lse.py:720-723). At M = 51,200 and
+    D = 128: in f32 (256, 4096) tiles, 26.2 MB a chunk, so catalogs above
+    81,920 items take the split route; in bf16 (384, 4096) tiles, 13.2 MB a
+    chunk, above 163,840 items."""
+    bf16 = dtype == torch.bfloat16
+    if d <= 128:
+        block_m, chunk_n = (512, 4096) if bf16 else (256, 4096)
+    else:
+        block_m, chunk_n = (512, 4096) if bf16 else (512, 2048)
     block_m = min(block_m, 384)
     chunk_n = min(chunk_n, max(1024, (4096 * 128 // max(d, 1)) // 1024 * 1024))
-    partials_bytes = -(-n // chunk_n) * (-(-m // block_m) * block_m) * d * 4
+    partials_bytes = -(-n // chunk_n) * (-(-m // block_m) * block_m) * d * _ds_itemsize(dtype)
     return partials_bytes > FUSED_BWD_PARTIALS_BUDGET
 
 
@@ -692,8 +819,11 @@ def softmax_ce_grads_from_z(
     atomics on the card). Below it kernel 7: one pass (``ce_fused_f32``,
     launch key ``ce_grads_fused``) while its partials fit
     ``FUSED_BWD_PARTIALS_BUDGET``, else two launches (``ce_grads_ds``,
-    ``ce_grads_di``)."""
+    ``ce_grads_di``). bf16 towers take kernel 7's bf16 one pass (launch key
+    ``ce_grads_fused_bf16``) and raise where the route would leave it."""
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
+    if _bf16_operands("ce_grads", sessions, items):
+        return _ce_grads_bf16(sessions, items, z, y, coeff)
     on_card = sessions.device.type != "cpu"
     if on_card:
         _native.require_cuda_f32("ce_grads", sessions=sessions, items=items, z=z, coeff=coeff)
@@ -712,3 +842,54 @@ def softmax_ce_grads_from_z(
         return softmax_ce_grads_from_z_reference(sessions, items, z, y, coeff, partials=_fused_on_the_card(m, n, d))
     z, coeff = z.contiguous(), coeff.contiguous()
     return _fused_or_split("ce", sessions, items, (z.data_ptr(), y.data_ptr(), coeff.data_ptr()), key="ce_grads")
+
+
+def _ce_grads_bf16(
+    sessions: torch.Tensor, items: torch.Tensor, z: torch.Tensor, y: torch.Tensor, coeff: torch.Tensor
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 7's bf16 one pass (its twin on the CPU): (ds, di) in f32. The
+    large-catalog route and the two launches have no bf16 form yet and raise,
+    by the route rule at bf16 (:func:`ce_takes_split_route`, the plan's
+    partials at their real itemsize)."""
+    m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
+    if ce_takes_split_route(m, n, d, torch.bfloat16):
+        raise NotImplementedError(
+            f"ce_grads: {m} x {n} x {d} takes the large-catalog route (kernels 12-14), which has no bf16 form "
+            f"yet ({_native.BF16_ROADMAP})"
+        )
+    on_card = sessions.device.type != "cpu"
+    n_sms = torch.cuda.get_device_properties(sessions.device).multi_processor_count if on_card else 132
+    tiles_per_group, n_groups, partials_bytes = fused_bwd_plan(m, n, d, n_sms, _ds_itemsize(torch.bfloat16))
+    if partials_bytes > FUSED_BWD_PARTIALS_BUDGET:
+        raise NotImplementedError(
+            f"ce_grads: {m} x {n} x {d} needs kernel 7's two launches ({partials_bytes} bytes of one-pass "
+            f"partials), which have no bf16 form yet ({_native.BF16_ROADMAP})"
+        )
+    if not on_card:
+        return softmax_ce_grads_from_z_bf16_reference(sessions, items, z, y.to(torch.int64), coeff)
+    _native.require_cuda("ce_grads_bf16", torch.bfloat16, sessions=sessions, items=items)
+    _native.require_cuda("ce_grads_bf16", torch.float32, z=z, coeff=coeff)
+    _check("ce_grads_bf16", sessions, items)
+    if z.shape != (m,) or coeff.shape != (m,) or y.shape != (m,):
+        raise ValueError(f"ce_grads: z, y and coeff must be ({m},)")
+    if y.device != sessions.device or y.dtype.is_floating_point:
+        raise ValueError(f"ce_grads: y must be an integer tensor on {sessions.device}")
+    if m == 0 or n == 0:
+        return torch.zeros((m, d), device=sessions.device), torch.zeros((n, d), device=sessions.device)
+    y, z, coeff = y.to(torch.int64).contiguous(), z.contiguous(), coeff.contiguous()
+    n_chunks = -(-n // FUSED_BWD_CHUNK)
+    part_dtype = torch.bfloat16 if BF16_DS_PARTIALS else torch.float32
+    ds_part = torch.empty((n_chunks, m, d), dtype=part_dtype, device=sessions.device)
+    di_part = torch.empty((n_groups, n, d), dtype=torch.float32, device=sessions.device)
+    lib = _native.load("softmax_lse_bf16", _SIGNATURES_BF16)
+    with torch.cuda.device(sessions.device):
+        status = lib.ce_fused_bf16(
+            sessions.data_ptr(), items.data_ptr(), z.data_ptr(), y.data_ptr(), coeff.data_ptr(), ds_part.data_ptr(),
+            di_part.data_ptr(), m, n, d, FUSED_BWD_CHUNK, tiles_per_group, n_groups, int(BF16_DS_PARTIALS),
+            _native.current_stream_ptr(sessions.device),
+        )
+    _native.check_launch("ce_grads_fused_bf16", status)
+    # fixed-order f32 sums of the partials (rectools_tpu/ops/softmax_lse.py:745)
+    ds = ds_part.float().sum(dim=0) if n_chunks > 1 else ds_part[0].float()
+    di = di_part.sum(dim=0) if n_groups > 1 else di_part[0]
+    return ds, di

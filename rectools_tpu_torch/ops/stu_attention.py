@@ -283,6 +283,7 @@ def stu_fwd(q, k, v, bias, allowed, timeline) -> torch.Tensor:
     kernel (``stu_fwd_simt``). q, k (B, H, L, ad) and v (B, H, L, lh) with any
     strides and a unit last one; on CUDA the output is a (B, H, L, lh) view
     over (B, L, H, lh) memory."""
+    _native.refuse_bf16("stu_fwd", "HSTU's STU attention (kernels 17-19)", q, k, v)
     if q.device.type == "cpu":
         return stu_reference(q, k, v, bias, allowed, timeline)
     bias_sb, allowed_sb = _check("stu_fwd", q, k, v, bias, allowed, timeline)
@@ -320,6 +321,7 @@ def stu_bwd(q, k, v, bias, allowed, timeline, dout) -> tp.Tuple[torch.Tensor, to
     ``stu_bwd_dq_f32`` for dq (launch keys ``stu_bwd``, ``stu_bwd_dq``), else
     ``stu_bwd_f32`` for all three. On CUDA each is a (B, H, L, d) view over
     (B, L, H, d) memory."""
+    _native.refuse_bf16("stu_bwd", "HSTU's STU attention (kernels 17-19)", q, k, v, dout)
     if q.device.type == "cpu":
         return stu_bwd_reference(q, k, v, bias, allowed, timeline, dout)
     bias_sb, allowed_sb = _check("stu_bwd", q, k, v, bias, allowed, timeline, dout)
@@ -353,6 +355,7 @@ def stu_ds(
     (B, L, L) int32 time buckets, its sums by bucket, (n_entries,): the
     kernel's per-block partials added up in block order. Without buckets the
     second result is None."""
+    _native.refuse_bf16("stu_ds", "HSTU's STU attention (kernels 17-19)", q, k, v, dout)
     if q.device.type == "cpu":
         return stu_ds_reference(q, k, v, bias, allowed, timeline, dout, buckets, n_entries)
     bias_sb, allowed_sb = _check("stu_ds", q, k, v, bias, allowed, timeline, dout)

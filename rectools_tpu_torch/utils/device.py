@@ -29,18 +29,22 @@ def resolve_device(device: DeviceLike) -> torch.device:
 
 @contextlib.contextmanager
 def full_f32_matmul() -> tp.Iterator[None]:
-    """Run float32 matrix products in full f32 (TF32 off) inside the block.
+    """Run float32 matrix products in full f32 (TF32 off) inside the block,
+    and bf16 products (mixed-precision training) with f32 reductions only.
 
     The JAX reference multiplies at ``Precision.HIGHEST``; TF32 keeps about
-    three decimal digits and reorders near-tied scores. The previous setting
-    is restored on exit.
+    three decimal digits and reorders near-tied scores. A bf16 product in JAX
+    accumulates in f32; cuBLAS may otherwise reduce split-k partials in
+    bf16. The previous settings are restored on exit.
     """
-    previous = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    matmul = torch.backends.cuda.matmul
+    previous = matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = previous
+        matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = previous
 
 
 def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1444,3 +1444,162 @@ def test_cuda_hstu_fit_and_recommend_match_cpu(cuda: torch.device, key_padding: 
     np.testing.assert_array_equal(got[Columns.User], expected[Columns.User])
     np.testing.assert_allclose(got[Columns.Score], expected[Columns.Score], rtol=1e-4, atol=1e-4)
     assert (got[Columns.Item].to_numpy() == expected[Columns.Item].to_numpy()).mean() > 0.99
+
+
+# ------------------------------------------------------------------ the bf16 forms (compute_dtype="bfloat16")
+
+# The twins multiply the bf16 values in f32, exactly, so only the order of
+# f32 sums differs and, where two sums straddle a rounding boundary, a bf16
+# value lands one step apart (chip_smoke.py states the same limits): kernel 6
+# relative per row; kernel 7 relative to the largest entry, ds 2^-6 (the 8
+# item chunks' bf16 partials) and di 2^-10; kernels 2 and 5 one bf16 step of
+# the largest entry.
+BF16_LSE_RTOL, BF16_DS_RTOL, BF16_DI_RTOL, BF16_ATTN_RTOL = 1e-6, 2 ** -6, 2 ** -10, 2 ** -7
+
+
+def _max_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,d", [(257, 2177, 32), (300, 4100, 64), (130, 20033, 128), (51, 300, 128),
+                                   (1000, 15872, 128)])
+def test_cuda_bf16_lse_and_ce_grads_match_twin(cuda: torch.device, m: int, n: int, d: int) -> None:
+    """Kernels 6 and 7's bf16 forms against their twins on the card, launched
+    once each, the same bits on a rerun, ragged tails included."""
+    rng = np.random.default_rng(m + n + d)
+    bf = torch.bfloat16
+    s = _t(rng.normal(size=(m, d)).astype(np.float32)).to(cuda).to(bf)
+    items = _t((0.3 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda).to(bf)
+    before = dict(_native.LAUNCHES)
+    lse = softmax_lse.streaming_lse(s, items)
+    assert _native.LAUNCHES["lse_partials_fwd_bf16"] == before["lse_partials_fwd_bf16"] + 1
+    assert _native.LAUNCHES["lse_partials_fwd"] == before["lse_partials_fwd"]
+    ref = softmax_lse.streaming_lse_bf16_reference(s, items)
+    assert ((lse.double() - ref.double()).abs() / ref.double().abs()).max().item() <= BF16_LSE_RTOL
+    assert torch.equal(lse, softmax_lse.streaming_lse(s, items))
+    y = _t(rng.integers(0, n, size=m)).to(cuda)
+    coeff = torch.where(y == 0, 0.0, 1.0 / m)
+    z = (lse - torch.log(coeff)).contiguous()
+    got = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    assert _native.LAUNCHES["ce_grads_fused_bf16"] == before["ce_grads_fused_bf16"] + 1
+    assert _native.LAUNCHES["ce_grads_fused"] == before["ce_grads_fused"]
+    expected = softmax_lse.softmax_ce_grads_from_z_bf16_reference(s, items, z, y, coeff)
+    for g, e, tol in zip(got, expected, (BF16_DS_RTOL, BF16_DI_RTOL)):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        assert _max_rel(g, e) <= tol
+    again = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l,dh,bias_kind,rate", [(100, 32, "causal", 0.2), (12, 16, "none", 0.0),
+                                                 (200, 64, "key_padding", 0.2), (37, 32, "bidirectional", 0.2),
+                                                 (100, 32, "masked_row", 0.0), (130, 64, "causal", 0.0)])
+def test_cuda_bf16_attention_matches_twin(cuda: torch.device, l: int, dh: int, bias_kind: str, rate: float) -> None:
+    """Kernels 2 and 5's bf16 forms against their twins on the card: out and
+    lse, dq, dk and dv, launched once each, the same bits on a rerun."""
+    rng = np.random.default_rng(l + dh)
+    b, h, seed, bf = 3, 4, 123457, torch.bfloat16
+    q, k, v, dout = (_blhd(rng, b, l, h, dh, cuda).to(bf) for _ in range(4))
+    bias = None
+    if bias_kind == "causal":
+        bias = _t(_causal_bias(l)).to(cuda)
+    elif bias_kind == "masked_row":
+        bias = _t(_masked_row_bias(l)).to(cuda)
+    elif bias_kind == "key_padding":
+        pad = np.arange(l)[None, :] < rng.integers(0, l, size=b)[:, None]
+        bias = _t((np.where(pad, MASK_VALUE, 0.0)[:, None, None, :] + _causal_bias(l)).astype(np.float32)).to(cuda)
+    elif bias_kind == "bidirectional":
+        bias = _t(_bidirectional_bias(rng, b, l)).to(cuda)
+    scale = 1.0 / dh**0.5
+    before = dict(_native.LAUNCHES)
+    out, lse = attention.attention_fwd(q, k, v, bias, scale, rate, seed)
+    ref_out, ref_lse = attention.attention_bf16_reference(q, k, v, bias, scale, rate, seed)
+    assert out.dtype == bf and _max_rel(out, ref_out) <= BF16_ATTN_RTOL
+    # the lse of the rounded scores: a score one bf16 step apart moves it by up to that step
+    assert ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)).max().item() <= BF16_ATTN_RTOL
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    got = attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, rate, seed)
+    expected = attention.attention_bwd_bf16_reference(q, k, v, bias, lse, delta, dout, scale, rate, seed)
+    for g, e in zip(got, expected):
+        assert g.dtype == bf and _max_rel(g, e) <= BF16_ATTN_RTOL
+    assert [_native.LAUNCHES[key] - before[key] for key in ("attention_fwd_bf16", "attention_bwd_bf16",
+                                                            "attention_fwd", "attention_bwd")] == [1, 1, 0, 0]
+    assert torch.equal(attention.attention_fwd(q, k, v, bias, scale, rate, seed)[0], out)
+    assert all(torch.equal(a, g) for a, g in zip(
+        attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, rate, seed), got))
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_embedding_scatter_sums_in_index_order(cuda: torch.device) -> None:
+    """The bf16 table's gather backward on the card: duplicates summed in bf16
+    in index order (the sorted scatter), the CPU's one-thread bits."""
+    rng = np.random.default_rng(3)
+    table = _t(rng.normal(size=(300, 64)).astype(np.float32))
+    idx = _t(rng.zipf(1.2, size=51200) % 300)
+    upstream = _t(rng.normal(size=(51200, 64)).astype(np.float32)).to(torch.bfloat16)
+    grads = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for dev in ("cpu", "cuda"):
+            t = table.to(dev).detach().requires_grad_()
+            t.to(torch.bfloat16)[idx.to(dev)].backward(upstream.to(dev))
+            grads[dev] = t.grad.cpu()
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(grads["cuda"], grads["cpu"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["sasrec", "bert4rec", "esasrec"])
+def test_cuda_bf16_fit_matches_cpu(cuda: torch.device, family: str) -> None:
+    """One epoch (3 steps) of bf16 compute on the card and on the CPU twins
+    from the same start: the bf16 forms launched, the losses within 1e-3, the
+    f32 master weights within 1e-4 on average (Adam moves a noise-level entry
+    by up to lr a step on either side)."""
+    import pandas as pd
+
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.dataset import Dataset
+
+    rng = np.random.default_rng(21)
+    n = 3000
+    df = pd.DataFrame({
+        Columns.User: np.arange(n) % 96, Columns.Item: rng.zipf(1.2, n) % 3000, Columns.Weight: 1.0,
+        Columns.Datetime: pd.Timestamp("2021-01-01") + pd.to_timedelta(rng.integers(0, 10**7, n), unit="s"),
+    })
+    dataset = Dataset.construct(df)
+    model_type = BERT4RecModel if family == "bert4rec" else SASRecModel
+    if family == "esasrec":
+        extra = {"transformer_layers_type": LiGRLayers, "loss": "sampled_softmax", "n_negatives": 16,
+                 "training_module_kwargs": {"compute_dtype": "bfloat16", "negatives_on_device": False}}
+    else:
+        extra = {"training_module_kwargs": {"compute_dtype": "bfloat16", "fused_softmax_chunk": 512}}
+    config = dict(n_blocks=2, n_heads=2, n_factors=64, session_max_len=20, dropout_rate=0.0, batch_size=32, epochs=1,
+                  **extra)
+    models = {dev: model_type(**config, device=dev) for dev in ("cpu", "cuda")}
+    for model in models.values():
+        model._build_model_from_dataset(dataset)
+    models["cpu"].training_module.init_params()
+    start = {k: v.clone() for k, v in models["cpu"].backbone.state_dict().items()}
+    for model in models.values():
+        model.training_module.load_params(start)
+    _native.reset_launches()
+    for model in models.values():
+        model.training_module.fit(model.data_preparator.get_dataloader_train,
+                                  model.data_preparator.get_dataloader_val, 1)
+    steps = models["cuda"].training_module.global_step
+    assert steps == 3
+    assert _native.LAUNCHES["attention_fwd_bf16"] == _native.LAUNCHES["attention_bwd_bf16"] == 2 * steps
+    loss_launches = steps if family != "esasrec" else 0
+    assert _native.LAUNCHES["lse_partials_fwd_bf16"] == _native.LAUNCHES["ce_grads_fused_bf16"] == loss_launches
+    assert _native.LAUNCHES["attention_fwd"] == _native.LAUNCHES["ce_grads_fused"] == 0
+    np.testing.assert_allclose(models["cuda"].training_module.train_loss_history,
+                               models["cpu"].training_module.train_loss_history, rtol=1e-3)
+    cpu_state = models["cpu"].backbone.state_dict()
+    diffs = [(value.cpu() - cpu_state[name]).abs().reshape(-1)
+             for name, value in models["cuda"].backbone.state_dict().items()]
+    assert all(value.dtype == torch.float32 for value in cpu_state.values())
+    assert torch.cat(diffs).mean().item() <= 1e-4

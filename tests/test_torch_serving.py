@@ -98,15 +98,18 @@ def test_recommend_to_items_matches_jax(models) -> None:
 
 
 def test_fit_is_not_ported_yet() -> None:
-    """fit is ported; what is not yet (bf16 compute) raises, and a mesh needs
-    a world of n_data * n_model processes, which one process is not."""
+    """fit is ported, bf16 compute too; what is not yet (bf16 compute on a
+    mesh) raises, and a mesh needs a world of n_data * n_model processes,
+    which one process is not."""
     df = _frame()
     model = SASRecModel(**CONFIG, epochs=1, batch_size=32, device="cpu").fit(Dataset.construct(df))
     assert model.is_fitted and np.isfinite(model.training_module.train_loss_history).all()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        SASRecModel(**CONFIG, training_module_kwargs={"compute_dtype": "bfloat16"}, device="cpu").fit(
-            Dataset.construct(df)
-        )
+    bf16 = SASRecModel(**CONFIG, epochs=1, batch_size=32, training_module_kwargs={"compute_dtype": "bfloat16"},
+                       device="cpu").fit(Dataset.construct(df))
+    assert bf16.is_fitted and np.isfinite(bf16.training_module.train_loss_history).all()
+    with pytest.raises(NotImplementedError, match="no bf16 form yet"):
+        SASRecModel(**CONFIG, training_module_kwargs={"compute_dtype": "bfloat16", "mesh_shape": (1, 1)},
+                    device="cpu").fit(Dataset.construct(df))
     with pytest.raises(ValueError, match="must equal the world size 1"):
         SASRecModel(**CONFIG, training_module_kwargs={"mesh_shape": (2, 2)}, device="cpu").fit(Dataset.construct(df))
 
