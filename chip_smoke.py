@@ -260,16 +260,22 @@ own lines; any failure exits nonzero and prints no result:
              dropout and under BERT4Rec's bias, each against its twin on the
              card, the same bits on a rerun, timed beside its f32 form on the
              same values, the library call in bf16 and its bound at 989
-             TFLOP/s bf16 and 3.35 TB/s. (b) SASRecModel.fit with bf16 compute
-             at phase 5's width, batch and epochs beside phase 5's f32 fit:
-             every launch count, a profiled step whose device kernels include
-             the four bf16 forms and no f32 attention or loss kernel and no
-             library attention or cross-entropy, losses within 2e-2 and
-             HitRate@10 on the held-out last items within 0.03 of the f32
-             fit's, train examples/s of both. (c) one bf16 epoch through fit
-             of BERT4Rec and of eSASRec with shared negatives. (d) every route
-             without a bf16 kernel raises NotImplementedError naming ROADMAP
-             §1 item 5 and launches nothing. Prints the phase's wall.
+             TFLOP/s bf16 and 3.35 TB/s; the same for the four launches of
+             kernels 17-19's bf16 forms at B = 512, H = 4, L = 100, heads of
+             32, both biases, and at B = 64, L = 1,024 (a padded row gives
+             zeros). (b) SASRecModel.fit with bf16 compute at phase 5's
+             width, batch and epochs beside phase 5's f32 fit, and
+             HSTUModel.fit so beside phase 7's: every launch count (HSTU:
+             the stu_*_bf16 keys at 2 a step, f32 stu_fwd only in the
+             validation recall's f32 forwards), a profiled step whose device
+             kernels include the bf16 forms and no f32 attention, STU or loss
+             kernel and no library attention or cross-entropy, losses within
+             2e-2 and HitRate@10 on the held-out last items within 0.03 of the
+             f32 fit's, train examples/s of both. (c) one bf16 epoch through
+             fit of BERT4Rec and of eSASRec with shared negatives. (d) every
+             route without a bf16 kernel raises NotImplementedError naming
+             ROADMAP §1 item 5 and launches nothing; an HSTU fit at heads of
+             8 raises so before any STU launch. Prints the phase's wall.
 
 Output, last lines: one JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -3997,6 +4003,11 @@ BF16_ATTN_RTOL = 2 ** -7
 BF16_LOSS_RTOL = 2e-2  # the bf16 fit's train losses against the f32 fit's, as the JAX package holds its bf16 loss
 BF16_HIT_BAND = 0.03  # HitRate@10 on ~1,018 held-out last items: bf16 within 0.03 of f32 (two binomial sigmas)
 BF16_KEYS = ("attention_fwd_bf16", "attention_bwd_bf16", "lse_partials_fwd_bf16", "ce_grads_fused_bf16")
+# kernels 17-19 in bf16 against their twins, relative to the largest entry of out, dq, dk, dv, ds and its bucket
+# sums: one bf16 step where a score's or da's f32 sum lands on the other side of a rounding boundary
+BF16_STU_RTOL = 2 ** -7
+STU_BF16_LAUNCH_KEYS = ("stu_fwd_bf16", "stu_bwd_bf16", "stu_bwd_dq_bf16", "stu_ds_bf16")
+STU_F32_LAUNCH_KEYS = ("stu_fwd", "stu_fwd_simt", "stu_bwd", "stu_bwd_dq", "stu_ds")
 # device kernels of a bf16 train step: each bf16 form, and nothing of the f32 attention or loss kernels or of a
 # library attention or cross-entropy
 BF16_DEVICE_KERNELS = ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel",
@@ -4004,6 +4015,12 @@ BF16_DEVICE_KERNELS = ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel", "lse_part
 BF16_BANNED_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel", "attn_fwd_tc", "attn_bwd_tc", "lse_partials_tc",
                        "lse_chunk", "lse_bwd_fused", "grad_ds", "grad_di", "fmha", "flash", "attention_kernel",
                        "cross_entropy", "nll_loss", "log_softmax", "softmax_warp")
+# the same for a bf16 HSTU step: the bf16 STU kernels (18's two launches) and loss forms, none of the f32 STU
+# kernels (tensor-core or SIMT)
+BF16_HSTU_DEVICE_KERNELS = ("stu_fwd_bf16_kernel", "stu_dkdv_bf16_kernel", "stu_dq_bf16_kernel", "stu_ds_bf16_kernel",
+                            "lse_partials_bf16_kernel", "ce_fused_bf16_kernel")
+BF16_HSTU_BANNED_KERNELS = ("stu_fwd_tc_kernel", "stu_fwd_kernel", "stu_dkdv_tc_kernel", "stu_dq_tc_kernel",
+                            "stu_ds_tc_kernel", "stu_bwd_kernel", "stu_ds_kernel", *BF16_BANNED_KERNELS)
 
 
 def bf16_bound(n_bytes: float, n_ops: float) -> tuple:
@@ -4181,33 +4198,157 @@ def bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     return results
 
 
-def _bf16_fit_launches(port, steps: int, val_forwards: int, with_loss: bool = True) -> dict:
-    """Every launch count of a bf16 SASRec-stack fit: per step the bf16 attention
-    forms and, with the full-catalog loss, the bf16 loss forms, LayerNorm's f32
-    kernels; per validation batch one bf16 forward (the loss) and one f32
-    forward (the recall), as the JAX package reads its bf16 and f32 weights."""
-    norms = 2 * N_BLOCKS + 1
+def _stu_bf16_case(torch, F, gen, dev, b: int, l: int, tag: str) -> dict:
+    """Kernels 17-19's bf16 launches at (b, H, l) with heads of 32, both biases,
+    the causal mask and a timeline whose last row is padding, as the HSTU layer
+    gives them: against their twins (BF16_STU_RTOL), one launch each and none
+    of the f32 forms, the padded row zeros, the same bits on a rerun; timed
+    beside the f32 forms on the same values, the twins, the library call in
+    bf16 (einsum, SiLU, mask, einsum; its autograd; for 19 autograd to the
+    bias, then ``index_add_``) and the bound at 989 TFLOP/s bf16."""
+    from rectools_tpu_torch.ops import _native, stu_attention
+
+    bf = torch.bfloat16
+    h, d = N_HEADS, N_FACTORS // N_HEADS
+    q32, k32, v32, dout32, bias, allowed, timeline, buckets = _stu_case(torch, dev, gen, b, l)
+    q, k, v, dout = (t.to(bf) for t in (q32, k32, v32, dout32))  # the layer's (B, L, H, d) memory, in bf16
+    del q32, k32, v32, dout32
+    args = (q, k, v, bias, allowed, timeline)
+    args32 = (q.float(), k.float(), v.float(), bias, allowed, timeline)
+    n_entries = NUM_BUCKETS + 1
+    what = f"at B={b}, L={l}"
+    before = dict(_native.LAUNCHES)
+    out = stu_attention.stu_fwd(*args)
+    got = stu_attention.stu_bwd(*args, dout)
+    ds = stu_attention.stu_ds(*args, dout, buckets, n_entries)
+    launched = [_native.LAUNCHES[key] - before[key] for key in (*STU_BF16_LAUNCH_KEYS, *STU_F32_LAUNCH_KEYS)]
+    check(launched == [1, 1, 1, 1, 0, 0, 0, 0, 0], f"stu bf16 {what}: launches {launched}")
+    check(out.dtype == bf and all(g.dtype == bf for g in got) and ds[0].dtype == torch.float32,
+          f"stu bf16 {what}: dtypes")
+    errors, abs_errors = {}, {}
+    for name, g, e in zip(("out", "dq", "dk", "dv", "ds", "bucket sums"), (out, *got, *ds),
+                          (stu_attention.stu_bf16_reference(*args), *stu_attention.stu_bwd_bf16_reference(*args, dout),
+                           *stu_attention.stu_ds_bf16_reference(*args, dout, buckets, n_entries))):
+        check(bool(torch.isfinite(g.float()).all()), f"stu bf16 {name} {what}: not finite")
+        errors[name], abs_errors[name] = _max_rel(g.float(), e.float()), (g.float() - e.float()).abs().max().item()
+    check(max(errors.values()) <= BF16_STU_RTOL, f"stu bf16 {what}: {errors} of the largest entry from the twins "
+          f"(limit {BF16_STU_RTOL})")
+    check(not any(bool(g[-1].any()) for g in (out, *got, ds[0])), f"stu bf16 {what}: the padded row is not zeros")
+    again = (stu_attention.stu_fwd(*args), *stu_attention.stu_bwd(*args, dout),
+             *stu_attention.stu_ds(*args, dout, buckets, n_entries))
+    check(all(bool(torch.equal(a, g)) for a, g in zip(again, (out, *got, *ds))),
+          f"stu bf16 {what}: a second run gave other bits")
+    print(f"stu bf16 kernels {what}: of the largest entry from the twins "
+          f"{ {n: float(f'{e:.3g}') for n, e in errors.items()} } (limit {BF16_STU_RTOL}); launches {launched[:4]}, "
+          "no f32 STU launch; the padded row zeros; bit-equal on a second run")
+    del again, got, ds
+
+    def library(q, k, v, bias):
+        """The materialized form in bf16: one einsum, SiLU and mask over (B, H, L, L), one einsum."""
+        mask = (allowed * timeline[:, :, None] * timeline[:, None, :])[:, None].to(bf)
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k) + bias[:, None]
+        return torch.einsum("bhqk,bhkd->bhqd", F.silu(s) / l * mask, v)
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias.to(bf))]
+    lib_out = library(*leaves)
+
+    def library_ds() -> tuple:
+        """Autograd to the bias, then ``index_add_`` by bucket (float atomics)."""
+        (dbias,) = torch.autograd.grad(lib_out, leaves[3:], dout, retain_graph=True)
+        sums = torch.zeros(n_entries, device=dev)
+        return dbias, sums.index_add_(0, buckets.reshape(-1), dbias.reshape(-1).float())
+
+    iters = 10 if b * l <= TRAIN_B * SESSION_MAX_LEN else 3
+    n_pairs = h * (allowed * timeline[:, :, None] * timeline[:, None, :]).sum().item()
+    qkv_bytes = 4 * 2 * b * h * l * d  # q, k, v and one of out / dout, bf16
+    mask_bytes = (bias.numel() + allowed.numel() + timeline.numel()) * 4
+    n_partials = b * math.ceil(l / stu_attention.BWD_TILE) ** 2
+    dout32 = dout.float()
+    results = {
+        f"stu_fwd_bf16{tag}": dict(
+            max_abs_err=abs_errors["out"], max_rel_err=errors["out"],
+            ms=time_ms(lambda: stu_attention.stu_fwd(*args), iters=iters),
+            f32_ms=time_ms(lambda: stu_attention.stu_fwd(*args32), iters=iters),
+            plain_ms=time_ms(lambda: stu_attention.stu_bf16_reference(*args), iters=3),
+            library_ms=time_ms(lambda: library(q, k, v, leaves[3].detach()), iters=iters),
+            bound=bf16_bound(qkv_bytes + mask_bytes, 2 * n_pairs * 2 * d),
+        ),
+        f"stu_bwd_bf16{tag}": dict(  # both launches: dk and dv, then dq
+            max_abs_err=max(abs_errors[n] for n in ("dq", "dk", "dv")),
+            max_rel_err=max(errors[n] for n in ("dq", "dk", "dv")),
+            ms=time_ms(lambda: stu_attention.stu_bwd(*args, dout), iters=iters),
+            f32_ms=time_ms(lambda: stu_attention.stu_bwd(*args32, dout32), iters=iters),
+            plain_ms=time_ms(lambda: stu_attention.stu_bwd_bf16_reference(*args, dout), iters=3),
+            library_ms=time_ms(lambda: torch.autograd.grad(lib_out, leaves[:3], dout, retain_graph=True), iters=iters),
+            bound=bf16_bound(qkv_bytes + 3 * 2 * b * h * l * d + mask_bytes, 2 * n_pairs * 5 * d),
+        ),
+        f"stu_ds_bf16{tag}": dict(
+            max_abs_err=max(abs_errors["ds"], abs_errors["bucket sums"]),
+            max_rel_err=max(errors["ds"], errors["bucket sums"]),
+            ms=time_ms(lambda: stu_attention.stu_ds(*args, dout, buckets, n_entries), iters=iters),
+            f32_ms=time_ms(lambda: stu_attention.stu_ds(*args32, dout32, buckets, n_entries), iters=iters),
+            plain_ms=time_ms(lambda: stu_attention.stu_ds_bf16_reference(*args, dout, buckets, n_entries), iters=3),
+            library_ms=time_ms(library_ds, iters=iters),
+            # reads the buckets too; writes ds, the per-block partials and their sum
+            bound=bf16_bound(qkv_bytes + mask_bytes + 2 * bias.numel() * 4 + (n_partials + 1) * n_entries * 4,
+                             2 * n_pairs * 2 * d + bias.numel()),
+        ),
+    }
+    for name, r in results.items():
+        _bf16_line(f"{name} (B={b}, H={h}, L={l}, ad=lh={d}, time and position biases)", r)
+    return results
+
+
+def stu_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
+    """(a) of the ``bf16`` phase for HSTU: the bf16 forms of kernels 17-19 at
+    the training shape (B = 512, H = 4, L = 100, heads of 32) and at B = 64, L =
+    1,024 (``_long_ctx``)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    results = _stu_bf16_case(torch, F, gen, dev, b, SESSION_MAX_LEN, "")
+    torch.cuda.empty_cache()
+    results.update(_stu_bf16_case(torch, F, gen, dev, LONG_CTX["b"], LONG_CTX["l"], "_long_ctx"))
+    torch.cuda.empty_cache()
+    return results
+
+
+def _bf16_fit_launches(port, steps: int, val_forwards: int, with_loss: bool = True, family: str = "sasrec") -> dict:
+    """Every launch count of a bf16 fit: per step the bf16 attention forms (HSTU:
+    the bf16 STU forms, 18 in two launches, and 19) and, with the full-catalog
+    loss, the bf16 loss forms, LayerNorm's f32 kernels; per validation batch one
+    bf16 forward (the loss) and one f32 forward (the recall), as the JAX package
+    reads its bf16 and f32 weights."""
+    hstu = family == "hstu"
+    norms = 2 * N_BLOCKS + (not hstu)
+    fwd, fwd_f32 = ("stu_fwd_bf16", "stu_fwd") if hstu else ("attention_fwd_bf16", "attention_fwd")
     expected = {name: 0 for name in port.LAUNCHES}
-    expected.update(attention_fwd_bf16=N_BLOCKS * (steps + val_forwards), attention_bwd_bf16=N_BLOCKS * steps,
-                    attention_fwd=N_BLOCKS * val_forwards, layer_norm_fwd=norms * (steps + 2 * val_forwards),
-                    layer_norm_bwd=norms * steps)
+    expected.update({fwd: N_BLOCKS * (steps + val_forwards), fwd_f32: N_BLOCKS * val_forwards,
+                     "layer_norm_fwd": norms * (steps + 2 * val_forwards), "layer_norm_bwd": norms * steps})
+    if hstu:
+        expected.update(stu_bwd_bf16=N_BLOCKS * steps, stu_bwd_dq_bf16=N_BLOCKS * steps, stu_ds_bf16=N_BLOCKS * steps)
+    else:
+        expected.update(attention_bwd_bf16=N_BLOCKS * steps)
     if with_loss:
         expected.update(lse_partials_fwd_bf16=steps, ce_grads_fused_bf16=steps)
     return expected
 
 
-def bf16_fit_phase(torch, np, port, df, dataset, dev, f32: dict) -> dict:
-    """(b) of the ``bf16`` phase: SASRecModel(...).fit with compute_dtype
-    "bfloat16" at phase 5's width, depth, batch and epochs on the same frame,
-    beside phase 5's f32 fit: launch counts, one profiled train step's device
-    kernels, losses and HitRate@10 (val_recall@10 on the held-out last items)
-    within their bands of the f32 fit's, train examples/s of both."""
+def bf16_fit_phase(torch, np, port, df, dataset, dev, f32: dict, family: str = "sasrec") -> dict:
+    """(b) of the ``bf16`` phase: SASRecModel(...).fit (``family="hstu"``:
+    HSTUModel(...).fit) with compute_dtype "bfloat16" at phase 5's (7's) width,
+    depth, batch and epochs on the same frame, beside that phase's f32 fit:
+    launch counts, one profiled train step's device kernels, losses and
+    HitRate@10 (val_recall@10 on the held-out last items) within their bands
+    of the f32 fit's, train examples/s of both."""
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
     from rectools_tpu_torch.models.nn.transformers.training import pad_batch
 
+    hstu = family == "hstu"
+    tag = f"bf16 {FAMILY_TAGS[family]}train"
     clock = epoch_clock(torch, dev)
     model = family_model(
-        "sasrec", **TRAIN_CONFIG, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,),
+        family, **TRAIN_CONFIG, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,),
         get_val_mask_func=hold_out_last, get_callbacks_func=lambda: [clock],
         training_module_kwargs={"val_recall_k": K, "compute_dtype": "bfloat16"}, device=dev,
     )
@@ -4223,8 +4364,8 @@ def bf16_fit_phase(torch, np, port, df, dataset, dev, f32: dict) -> dict:
     check(all(p.dtype == torch.float32 for p in tm.backbone.parameters()), "the bf16 fit's master weights left f32")
     steps = tm.global_step
     val_batches = len(model.data_preparator.get_dataloader_val())
-    expected = _bf16_fit_launches(port, steps, EPOCHS * val_batches)
-    check(launches == expected, f"launches in the bf16 fit {launches}, expected {expected}")
+    expected = _bf16_fit_launches(port, steps, EPOCHS * val_batches, family=family)
+    check(launches == expected, f"launches in the {tag} fit {launches}, expected {expected}")
     losses, recall = tm.train_loss_history, tm.val_metric_history.get(f"val_recall@{K}", [])
     check(len(losses) == EPOCHS and bool(np.isfinite(losses).all()) and losses[1] < losses[0],
           f"bf16 train losses {losses}")
@@ -4235,23 +4376,31 @@ def bf16_fit_phase(torch, np, port, df, dataset, dev, f32: dict) -> dict:
     check(hit_gap <= BF16_HIT_BAND, f"bf16 HitRate@{K} {recall[-1]} against f32 {f32[f'val_recall@{K}'][-1]}")
     epoch2_s = clock.times[2] - clock.times[1]
     examples_per_s = TRAIN_B * (steps // EPOCHS) / epoch2_s
-    print(f"bf16 train: fit {EPOCHS} epochs x {steps // EPOCHS} steps of {TRAIN_B} in {fit_s:.2f} s; launches "
+    print(f"{tag}: fit {EPOCHS} epochs x {steps // EPOCHS} steps of {TRAIN_B} in {fit_s:.2f} s; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
-    print(f"bf16 train: losses {losses} (f32 {f32['train_loss']}, largest relative gap {loss_rel:.3g}, limit "
+    if hstu:
+        print(f"{tag}: per step {launches['stu_fwd_bf16'] // (steps + EPOCHS * val_batches)} stu_fwd_bf16 a forward, "
+              f"{launches['stu_bwd_bf16'] // steps} stu_bwd_bf16, {launches['stu_bwd_dq_bf16'] // steps} "
+              f"stu_bwd_dq_bf16, {launches['stu_ds_bf16'] // steps} stu_ds_bf16; f32 stu_fwd only in the validation "
+              f"recall's f32 forwards ({launches['stu_fwd']}), no f32 stu_bwd, stu_bwd_dq or stu_ds")
+    print(f"{tag}: losses {losses} (f32 {f32['train_loss']}, largest relative gap {loss_rel:.3g}, limit "
           f"{BF16_LOSS_RTOL}); HitRate@{K} on the held-out last items {recall} (f32 {f32[f'val_recall@{K}']}, gap "
           f"{hit_gap:.4f}, band {BF16_HIT_BAND})")
-    print(f"bf16 train: epoch 2 wall {epoch2_s:.3f} s (validation included), {examples_per_s:.0f} train examples/s "
-          f"beside f32 {f32['train_examples_per_s']:.0f} (phase 5), peak device memory {peak_mb:.0f} MiB")
+    print(f"{tag}: epoch 2 wall {epoch2_s:.3f} s (validation included), {examples_per_s:.0f} train examples/s "
+          f"beside f32 {f32['train_examples_per_s']:.0f} (phase {7 if hstu else 5}), peak device memory "
+          f"{peak_mb:.0f} MiB")
     loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
     batch = tm._device_batch(pad_batch(next(iter(loader)), TRAIN_B))
     names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
-    missing = [k for k in BF16_DEVICE_KERNELS if not any(k in name for name in names)]
-    banned = [name for name in names if any(k in name for k in BF16_BANNED_KERNELS)]
+    wanted, banned_keys = ((BF16_HSTU_DEVICE_KERNELS, BF16_HSTU_BANNED_KERNELS) if hstu
+                           else (BF16_DEVICE_KERNELS, BF16_BANNED_KERNELS))
+    missing = [k for k in wanted if not any(k in name for name in names)]
+    banned = [name for name in names if any(k in name for k in banned_keys)]
     check(not missing and not banned,
-          f"a bf16 train step's device kernels: missing {missing}, f32 or library {banned}")
-    print(f"bf16 train: a profiled step ran {len(names)} device kernels, the four bf16 forms among them, no f32 "
-          "attention or loss kernel, no library attention or cross-entropy")
-    print("bf16 train: profile of one train step")
+          f"a {tag} step's device kernels: missing {missing}, f32 or library {banned}")
+    print(f"{tag}: a profiled step ran {len(names)} device kernels, the {len(wanted)} bf16 forms among them, no f32 "
+          f"{'STU' if hstu else 'attention'} or loss kernel, no library attention or cross-entropy")
+    print(f"{tag}: profile of one train step")
     profile = profile_phase(torch, lambda: tm._train_step(batch))
     return {"launches": launches, "steps": steps, "train_loss": losses, f"val_recall@{K}": recall, "fit_s": fit_s,
             "epoch2_s": epoch2_s, "train_examples_per_s": examples_per_s,
@@ -4322,9 +4471,13 @@ def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
         finally:
             softmax_lse.USE_PARTIALS_FWD = True
 
+    from rectools_tpu_torch.ops import stu_attention
+
+    heads_of_8 = torch.ones((1, 2, 4, 8), device=dev, dtype=bf)
+    masks = (torch.zeros((1, 4, 4), device=dev), torch.ones((1, 4, 4), device=dev), torch.ones((1, 4), device=dev))
     refused = {
-        "HSTU (kernels 17-19)": lambda: HSTUModel(**small, training_module_kwargs={"compute_dtype": "bfloat16"},
-                                                  relative_time_attention=False).fit(dataset),
+        "STU at head dim 8 (kernels 17-19)": lambda: stu_attention.stu_fwd(heads_of_8, heads_of_8, heads_of_8,
+                                                                           *masks),
         "mesh_shape (kernels 8-11)": lambda: SASRecModel(
             **small, training_module_kwargs={"compute_dtype": "bfloat16", "mesh_shape": (1, 1)}).fit(dataset),
         "large-catalog route (kernels 12-14)": budget(0, lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y,
@@ -4349,22 +4502,37 @@ def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
             continue
         raise SmokeFailure(f"bf16 {what}: ran instead of raising NotImplementedError")
     check(dict(_native.LAUNCHES) == before, "a refused bf16 route launched a kernel")
-    print(f"bf16 refusals: {len(refused)} routes without a bf16 kernel raise NotImplementedError naming "
-          f"{_native.BF16_ROADMAP}: {', '.join(refused)}")
-    return {"refused": list(refused)}
+    # an HSTU fit at head dim 8 raises at its first STU call (LayerNorm's kernel has run by then)
+    try:
+        HSTUModel(**{**small, "n_factors": 16}, training_module_kwargs={"compute_dtype": "bfloat16"},
+                  relative_time_attention=False).fit(dataset)
+    except NotImplementedError as err:
+        check(_native.BF16_ROADMAP in str(err), f"bf16 HSTU at head dim 8: the refusal does not name the roadmap: {err}")
+    else:
+        raise SmokeFailure("bf16 HSTU at head dim 8: fit ran instead of raising NotImplementedError")
+    check(all(_native.LAUNCHES[key] == before[key] for key in (*STU_BF16_LAUNCH_KEYS, *STU_F32_LAUNCH_KEYS)),
+          "bf16 HSTU at head dim 8 launched an STU kernel")
+    refused_names = [*refused, "HSTU fit at head dim 8"]
+    print(f"bf16 refusals: {len(refused_names)} routes without a bf16 kernel raise NotImplementedError naming "
+          f"{_native.BF16_ROADMAP}: {', '.join(refused_names)}")
+    return {"refused": refused_names}
 
 
-def bf16_phase(torch, np, pd, port, df, dataset, dev, f32: dict) -> dict:
-    """The ``bf16`` phase: (a) the kernel forms, (b) the SASRec fit beside
-    phase 5's, (c) BERT4Rec and eSASRec, (d) the refusals; its wall."""
+def bf16_phase(torch, np, pd, port, df, dataset, dev, f32: dict, hstu_f32: dict) -> dict:
+    """The ``bf16`` phase: (a) the kernel forms (2, 5, 6, 7 and 17-19), (b) the
+    SASRec fit beside phase 5's and the HSTU fit beside phase 7's, (c) BERT4Rec
+    and eSASRec, (d) the refusals; its wall."""
     t0 = time.perf_counter()
     kernels = bf16_kernel_phase(torch, torch.device(dev))
+    kernels.update(stu_bf16_kernel_phase(torch, torch.device(dev)))
     fit = bf16_fit_phase(torch, np, port, df, dataset, dev, f32)
+    hstu_fit = bf16_fit_phase(torch, np, port, df, dataset, dev, hstu_f32, family="hstu")
     families = bf16_family_phase(torch, np, port, dataset, dev)
     refusals = bf16_refusals_phase(torch, np, dataset, dev)
     wall_s = time.perf_counter() - t0
     print(f"bf16: phase wall {wall_s:.1f} s")
-    return {"kernels": kernels, "fit": fit, "families": families, "refusals": refusals, "wall_s": wall_s}
+    return {"kernels": kernels, "fit": fit, "hstu_fit": hstu_fit, "families": families, "refusals": refusals,
+            "wall_s": wall_s}
 
 
 def main() -> int:
@@ -4452,9 +4620,9 @@ def main() -> int:
     print(f"ranking: on {card}")
     ranking_result = ranking_phase(torch, np, pd, port, df, dataset, "cuda",
                                    evaluate_result["metrics"] + baselines_result["evaluate"]["metrics"])
-    # phase 16: mixed-precision training (compute_dtype="bfloat16") on the bf16 forms of kernels 2, 5, 6 and 7
+    # phase 16: mixed-precision training (compute_dtype="bfloat16") on the bf16 forms of kernels 2, 5, 6, 7, 17-19
     print(f"bf16: on {card}")
-    bf16_result = bf16_phase(torch, np, pd, port, df, dataset, "cuda", train_result)
+    bf16_result = bf16_phase(torch, np, pd, port, df, dataset, "cuda", train_result, hstu_train_result)
     kernels.update(bf16_result["kernels"])
     # phase 10: BERT4Rec and eSASRec (shared negatives, remat) through the same entry points, remat at the
     # ML-20M-sized shape
@@ -4512,6 +4680,10 @@ def main() -> int:
                                   "lse_partials_fwd_bf16"),
         "ce_grads_fused_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:643", ("ce_grads_fused_bf16",),
                                 "ce_grads_fused_bf16"),
+        "stu_fwd_bf16": ("stu_attention_bf16.cu", "stu_attention.py:90", ("stu_fwd_bf16",), "stu_fwd_bf16"),
+        "stu_bwd_bf16": ("stu_attention_bf16.cu", "stu_attention.py:274", ("stu_bwd_bf16", "stu_bwd_dq_bf16"),
+                         "stu_bwd_bf16"),
+        "stu_ds_bf16": ("stu_attention_bf16.cu", "stu_attention.py:316", ("stu_ds_bf16",), "stu_ds_bf16"),
     }
     # mesh_fit_4 counts one rank's launches (every rank's are equal); kernels 10
     # and 11 run where the partials budget is forced to 0; `ops` calls the public
@@ -4528,7 +4700,7 @@ def main() -> int:
              "esasrec_recommend": esasrec_main_result, "remat_fit": remat_result["remat"],
              "checkpoint_recommend": checkpoint_result, "hstu_checkpoint_recommend": hstu_checkpoint_result,
              "evaluate": evaluate_result, "classic": baselines_result, "factorization": factorization_result,
-             "ranking": ranking_result, "bf16_fit": bf16_result["fit"],
+             "ranking": ranking_result, "bf16_fit": bf16_result["fit"], "bf16_hstu_fit": bf16_result["hstu_fit"],
              "bf16_bert4rec_fit": bf16_result["families"]["bert4rec"],
              "bf16_esasrec_fit": bf16_result["families"]["esasrec"]}
 
@@ -4619,6 +4791,7 @@ def main() -> int:
         "factorization": {k: v for k, v in factorization_result.items() if k != "launches"},
         "ranking": {k: v for k, v in ranking_result.items() if k != "launches"},
         "bf16": {"fit": {k: v for k, v in bf16_result["fit"].items() if k != "launches"},
+                 "hstu_fit": {k: v for k, v in bf16_result["hstu_fit"].items() if k != "launches"},
                  "families": {f: {k: v for k, v in r.items() if k != "launches"}
                               for f, r in bf16_result["families"].items()},
                  "refused": bf16_result["refusals"]["refused"], "wall_s": bf16_result["wall_s"]},

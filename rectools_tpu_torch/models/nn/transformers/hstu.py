@@ -7,7 +7,9 @@ uvqk projection is one matrix product. The attention goes through
 ``ops/stu_attention.py``: its CUDA kernels for a CUDA tensor at every shape
 and with either mask (causal, shared by the batch, or with key padding, one
 per row), its plain twins for a CPU tensor. Both LayerNorms are the port's
-``FusedLayerNorm``.
+``FusedLayerNorm``. Under bf16 compute the layer rounds where the JAX
+package's layer does on its TPU route: u, v, q, k once after the f32 SiLU,
+the attention output as ``_stu_reference`` returns it (bf16).
 """
 
 import typing as tp
@@ -124,7 +126,9 @@ class STULayer(nn.Module):
         b, l, _ = seqs.shape
         h, lh, ad = self.n_heads, self.linear_hidden_dim, self.attention_dim
         normed_x = self.norm_input(seqs) * timeline_mask
-        transformed = F.silu(torch.matmul(normed_x, self.uvqk_proj))
+        # the product summed in f32 and the SiLU in f32, then the working precision (JAX hstu.py:147-149): under
+        # bf16 compute u, v, q, k are bf16, rounded once; under f32 the casts are no-ops
+        transformed = F.silu(torch.matmul(normed_x.float(), self.uvqk_proj.float())).to(seqs.dtype)
         u, v, q, k = torch.split(transformed, [lh * h, lh * h, ad * h, ad * h], dim=-1)
 
         tw, pw = self.rel_attn.weight_vectors()

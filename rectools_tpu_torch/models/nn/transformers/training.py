@@ -61,7 +61,8 @@ Mixed precision (``compute_dtype="bfloat16"``, JAX ``training.py:303-338``,
 floating parameter is read as a bf16 copy made inside the autograd graph
 (:meth:`_compute_params`), so the f32 master weights receive the gradients
 through the casts and Adam stays f32. The stack then runs in bf16: the bf16
-forms of the attention kernels (2, 5), LayerNorm through its f32 kernels
+forms of the attention kernels (2, 5) or, in HSTU, of the STU kernels
+(17-19), LayerNorm through its f32 kernels
 (1, 4) with bf16 in and out, bf16 linear layers accumulating in f32, the
 embedding gather and its scatter-add in bf16 (one bf16 rounding per added
 row, in index order, as XLA's scatter-add sums them). The fused loss applies
@@ -69,7 +70,7 @@ the temperature in f32 and rounds the towers to bf16 for the bf16 forms of
 kernels 6 and 7; every other logit is an f32 sum of bf16 products. The
 validation recall and serving read the f32 weights, as in JAX. Routes
 without a bf16 kernel raise ``NotImplementedError`` naming ROADMAP §1 item
-5 (HSTU, ``mesh_shape``, the large-catalog and two-launch CE routes, D
+5 (``mesh_shape``, the large-catalog and two-launch CE routes, head dim 8, D
 outside 32..128, the bounded-shift and running-max forwards); none runs in
 f32. ``compute_dtype="auto"`` resolves to float32 here (JAX: bf16 on a TPU
 only; a standing divergence, ROADMAP §3).
@@ -308,18 +309,6 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
         """The dtype ``compute_dtype`` resolves to: ``"auto"`` is float32 in the
         port (the JAX package picks bf16 on a TPU only; ROADMAP §3)."""
         return "float32" if self.compute_dtype == "auto" else self.compute_dtype
-
-    def _refuse_unported_bf16(self) -> None:
-        """Under bf16 compute, refuse before any step a stack whose kernels have
-        no bf16 form (HSTU's STU attention); the kernel wrappers refuse the
-        other routes at their first call."""
-        from .hstu import STULayers  # hstu.py imports this module
-
-        if self.resolved_compute_dtype == "bfloat16" and isinstance(self.backbone.transformer_layers, STULayers):
-            raise NotImplementedError(
-                f"compute_dtype='bfloat16' with HSTU: the STU attention (kernels 17-19) has no bf16 form yet "
-                f"({BF16_ROADMAP})"
-            )
 
     @contextlib.contextmanager
     def _compute_params(self) -> tp.Iterator[None]:
@@ -658,7 +647,6 @@ class TransformerTrainingModule(TransformerTrainingModuleBase):
     ) -> None:
         """Epoch loop. Loaders come from factories so each fit / fit_partial
         call re-derives its host rng stream from the seed and epoch counter."""
-        self._refuse_unported_bf16()
         if self._shares_negatives:
             if not self._use_device_negatives:
                 raise ValueError(

@@ -27,6 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = (
     "layer_norm", "attention", "topk_select", "softmax_lse", "stu_attention", "softmax_lse_bf16", "attention_bf16",
+    "stu_attention_bf16",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -59,11 +60,15 @@ LAUNCHES: tp.Dict[str, int] = {
     "stu_bwd": 0,
     "stu_bwd_dq": 0,
     "stu_ds": 0,
-    # the bf16 forms of kernels 2, 5, 6 and 7 (compute_dtype="bfloat16")
+    # the bf16 forms of kernels 2, 5, 6, 7 and 17-19 (compute_dtype="bfloat16")
     "attention_fwd_bf16": 0,
     "attention_bwd_bf16": 0,
     "lse_partials_fwd_bf16": 0,
     "ce_grads_fused_bf16": 0,
+    "stu_fwd_bf16": 0,
+    "stu_bwd_bf16": 0,
+    "stu_bwd_dq_bf16": 0,
+    "stu_ds_bf16": 0,
 }
 # where the routes without a bf16 kernel are queued
 BF16_ROADMAP = "ROADMAP.md §1 item 5"

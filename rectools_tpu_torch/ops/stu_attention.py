@@ -38,6 +38,29 @@ at three float32 values beyond: 11,455,709, 51,598,328 (the integers
 51,598,326-30) and 94,206,440 (94,206,437-43); eager JAX differs at more.
 ``tests/test_torch_stu_attention.py`` holds the port to exactly that.
 
+bf16. Under mixed-precision training q, k, v and dout arrive in bf16 and take
+the bf16 forms of the three kernels (``csrc/stu_attention_bf16.cu``:
+``stu_fwd_bf16``, ``stu_bwd_bf16`` for dk and dv, ``stu_bwd_dq_bf16`` for dq,
+``stu_ds_bf16``; launch keys of the same names) at attention and hidden dims
+of 16, 32 and 64 (``BF16_HEAD_DIMS``); dim 8 raises on the CPU as on the
+card. bias, allowed and timeline stay f32. The forms round where the JAX
+package's XLA route (``_stu_reference`` and its autodiff, the route its TPU
+users train on below 1 GiB of scores) rounds when it runs on bf16 inputs, as
+XLA on the CPU evaluates it: the score ``s = q·kᵀ + bias`` summed in f32 and
+rounded, the SiLU as ``s · 1 / (1 + exp(−s))`` with each of exp, the sum, the
+reciprocal and the product rounded, the quotient by L (by bf16(L)) rounded,
+the mask multiplied, ``a·v`` summed in f32 and rounded once; in the backward
+``da = dout·vᵀ`` rounded, each step of the SiLU's chain rule rounded except
+the last sum, so the score gradient ``ds`` is an f32 sum of two bf16 values,
+and dq, dk, dv summed in f32 over the whole row and rounded once. The table
+gradients are f32 sums of ds cast to the tables' dtype. The twins
+(:func:`stu_bf16_reference`, :func:`stu_bwd_bf16_reference`,
+:func:`stu_ds_bf16_reference`) compute exactly that on the bf16 values in f32;
+the kernels differ from them only in the order of the f32 sums. JAX's
+Pallas route keeps s and a in f32 and sums dk and dv in bf16 a 128-query block
+at a time, and its layer off the TPU rounds q·kᵀ before adding the bias: both
+are standing divergences (ROADMAP §3).
+
 The table gradients are sums of the head-summed score gradient: by bucket for
 the time table, by diagonal for the positional one. Neither uses a float
 atomic (``index_add_`` and ``bincount`` would), so the same inputs give the
@@ -74,7 +97,19 @@ _SIGNATURES = {
     # buckets, bucket partials, their entries and rows
     "stu_ds_f32": (_C,) * 8 + (_I,) * 5 + (_L,) * 12 + (_L, _L) + (_C, _C, _I, _L) + (_C,),
 }
+_SIGNATURES_BF16 = {
+    # q, k, v, bias, allowed, timeline, out; B, H, L, ad, lh; strides of q, k, v, out; bias and allowed batch strides
+    "stu_fwd_bf16": (_C,) * 7 + (_I,) * 5 + (_L,) * 12 + (_L, _L, _C),
+    # q, k, v, dout, bias, allowed, timeline, dk, dv; dims; strides of q, k, v, dout, dk, dv
+    "stu_bwd_bf16": (_C,) * 9 + (_I,) * 5 + (_L,) * 18 + (_L, _L, _C),
+    # q, k, v, dout, bias, allowed, timeline, dq; dims; strides of q, k, v, dout, dq
+    "stu_bwd_dq_bf16": (_C,) * 8 + (_I,) * 5 + (_L,) * 15 + (_L, _L, _C),
+    # as stu_ds_f32
+    "stu_ds_bf16": (_C,) * 8 + (_I,) * 5 + (_L,) * 12 + (_L, _L) + (_C, _C, _I, _L) + (_C,),
+}
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
+# the attention and hidden dims of the bf16 forms; every bf16 launch tiles by BWD_TILE x BWD_TILE
+BF16_HEAD_DIMS = (16, 32, 64)
 # The backward on the tensor cores: attention and hidden dims both from TC_HEAD_DIMS, two launches
 # (``stu_bwd_f32`` for dk and dv, ``stu_bwd_dq_f32`` for dq) whose blocks own BWD_TILE keys and BWD_TILE
 # queries of one (b, h); other dims take the SIMT kernel, one launch, one block per (b, h).
@@ -238,15 +273,86 @@ def stu_ds_reference(
     return ds, bucket_sums(ds, buckets, n_entries, ds_tile(q.shape[3], v.shape[3]))
 
 
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (ties to even), kept as f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16_length(l: int) -> float:
+    """L as the bf16 divisor the JAX route divides by (a Python int meets a bf16
+    array there): L itself up to 256, and wherever it has 8 significant bits."""
+    return float(torch.tensor(float(l), dtype=torch.bfloat16))
+
+
+def _bf16_activation(s: torch.Tensor, l: int) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(s_b, sig, a0) of f32 scores: s_b = bf16(s), sig = bf16(1 / bf16(1 +
+    bf16(exp(−s_b)))), a0 = bf16(bf16(s_b · sig) / bf16(L))."""
+    sb = _round_bf16(s)
+    sig = _round_bf16(1.0 / _round_bf16(1.0 + _round_bf16(torch.exp(-sb))))
+    return sb, sig, _round_bf16(_round_bf16(sb * sig) / _bf16_length(l))
+
+
+def _scores_f32(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) + bias[:, None]
+
+
+def stu_bf16_reference(q, k, v, bias, allowed, timeline) -> torch.Tensor:
+    """Plain PyTorch twin of ``stu_fwd_bf16``: bf16 (B, H, L, lh) from bf16 q,
+    k, v and f32 bias, allowed, timeline, rounded as the module docstring says."""
+    a0 = _bf16_activation(_scores_f32(q, k, bias), q.shape[2])[2]
+    a = _round_bf16(a0 * _mask(timeline, allowed))
+    return torch.einsum("bhqk,bhkd->bhqd", a, v.float()).to(torch.bfloat16)
+
+
+def _score_grad_bf16(q, k, v, bias, allowed, timeline, dout) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """(a, ds), both (B, H, L, L) f32: a holds bf16 values, ds the f32 sum of
+    the chain rule's two bf16 terms."""
+    l = q.shape[2]
+    sb, sig, a0 = _bf16_activation(_scores_f32(q, k, bias), l)
+    mask = _mask(timeline, allowed)
+    a = _round_bf16(a0 * mask)
+    da = _round_bf16(torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float()))
+    dsi = _round_bf16(_round_bf16(da * mask) / _bf16_length(l))
+    dsig = _round_bf16(dsi * sb)
+    ds = _round_bf16(dsi * sig) + _round_bf16(dsig * _round_bf16(sig * _round_bf16(1.0 - sig)))
+    return a, ds
+
+
+def stu_bwd_bf16_reference(q, k, v, bias, allowed, timeline, dout) -> tp.Tuple[torch.Tensor, ...]:
+    """Plain PyTorch twin of ``stu_bwd_bf16`` and ``stu_bwd_dq_bf16``: bf16
+    (dq, dk, dv), each an f32 sum over the whole row rounded once."""
+    a, ds = _score_grad_bf16(q, k, v, bias, allowed, timeline, dout)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", a, dout.float())
+    return dq.to(torch.bfloat16), dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def stu_ds_bf16_reference(
+    q, k, v, bias, allowed, timeline, dout, buckets: tp.Optional[torch.Tensor] = None, n_entries: int = 0
+) -> tp.Tuple[torch.Tensor, tp.Optional[torch.Tensor]]:
+    """Plain PyTorch twin of ``stu_ds_bf16``: the f32 ds summed over heads,
+    (B, L, L), and, given buckets, its sums by bucket per 64 x 64 tile and
+    then over the tiles (f32; the caller casts them to the table's dtype)."""
+    ds = _score_grad_bf16(q, k, v, bias, allowed, timeline, dout)[1].sum(dim=1)
+    if buckets is None:
+        return ds, None
+    return ds, bucket_sums(ds, buckets, n_entries, (BWD_TILE, BWD_TILE))
+
+
 # ------------------------------------------------------------------ kernel wrappers
 
 
-def _check(kernel: str, q, k, v, bias, allowed, timeline, dout=None) -> tp.Tuple[int, int]:
-    """Input checks of the three wrappers; returns the batch strides of bias and allowed."""
-    tensors = {"q": q, "k": k, "v": v, "bias": bias, "allowed": allowed, "timeline": timeline}
+def _check(kernel: str, q, k, v, bias, allowed, timeline, dout=None, dtype=torch.float32) -> tp.Tuple[int, int]:
+    """Input checks of the wrappers (q, k, v and dout of ``dtype``, the masks
+    f32); returns the batch strides of bias and allowed."""
+    tensors = {"q": q, "k": k, "v": v}
     if dout is not None:
         tensors["dout"] = dout
-    _native.require_cuda_f32(kernel, **tensors)
+    _native.require_cuda(kernel, dtype, **tensors)
+    _native.require_cuda_f32(kernel, bias=bias, allowed=allowed, timeline=timeline)
+    if {t.device for t in (bias, allowed, timeline)} != {q.device}:
+        raise ValueError(f"{kernel}: all inputs must be on one device")
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 or v.shape[:3] != q.shape[:3]:
         raise ValueError(
             f"{kernel}: q, k must be (B, H, L, ad) and v (B, H, L, lh), got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -268,9 +374,23 @@ def _check(kernel: str, q, k, v, bias, allowed, timeline, dout=None) -> tp.Tuple
     return (l * l if bias.shape[0] > 1 else 0), (l * l if allowed.shape[0] > 1 else 0)
 
 
-def _blhd_empty(b: int, h: int, l: int, d: int, device: torch.device) -> torch.Tensor:
+def _blhd_empty(b: int, h: int, l: int, d: int, device: torch.device, dtype=torch.float32) -> torch.Tensor:
     """A (B, H, L, d) view over (B, L, H, d) memory: the layer's layout."""
-    return torch.empty((b, l, h, d), dtype=torch.float32, device=device).transpose(1, 2)
+    return torch.empty((b, l, h, d), dtype=dtype, device=device).transpose(1, 2)
+
+
+def _bf16_inputs(kernel: str, **tensors: torch.Tensor) -> bool:
+    """Whether q, k, v (and dout) are bf16 (a mixed set raises ``TypeError``);
+    bf16 inputs also need attention and hidden dims the bf16 forms take."""
+    if _native.same_dtype(kernel, **tensors) != torch.bfloat16:
+        return False
+    ad, lh = tensors["q"].shape[-1], tensors["v"].shape[-1]
+    if ad not in BF16_HEAD_DIMS or lh not in BF16_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{kernel}: attention dim {ad} and hidden dim {lh} have no bf16 kernel (dims {BF16_HEAD_DIMS}) yet "
+            f"({_native.BF16_ROADMAP})"
+        )
+    return True
 
 
 def _strides(*tensors: torch.Tensor) -> tp.Tuple[int, ...]:
@@ -282,22 +402,25 @@ def stu_fwd(q, k, v, bias, allowed, timeline) -> torch.Tensor:
     dims of :func:`bwd_on_tensor_cores` (launch key ``stu_fwd``), else the SIMT
     kernel (``stu_fwd_simt``). q, k (B, H, L, ad) and v (B, H, L, lh) with any
     strides and a unit last one; on CUDA the output is a (B, H, L, lh) view
-    over (B, L, H, lh) memory."""
-    _native.refuse_bf16("stu_fwd", "HSTU's STU attention (kernels 17-19)", q, k, v)
+    over (B, L, H, lh) memory. bf16 q, k, v take kernel 17's bf16 form
+    (``stu_fwd_bf16``, launch key of that name) and give a bf16 output."""
+    bf16 = _bf16_inputs("stu_fwd", q=q, k=k, v=v)
     if q.device.type == "cpu":
-        return stu_reference(q, k, v, bias, allowed, timeline)
-    bias_sb, allowed_sb = _check("stu_fwd", q, k, v, bias, allowed, timeline)
+        return (stu_bf16_reference if bf16 else stu_reference)(q, k, v, bias, allowed, timeline)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    bias_sb, allowed_sb = _check("stu_fwd", q, k, v, bias, allowed, timeline, dtype=dtype)
     b, h, l, ad = q.shape
     lh = v.shape[3]
-    out = _blhd_empty(b, h, l, lh, q.device)
-    lib = _native.load("stu_attention", _SIGNATURES)
+    out = _blhd_empty(b, h, l, lh, q.device, dtype)
+    lib = _native.load("stu_attention_bf16", _SIGNATURES_BF16) if bf16 else _native.load("stu_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
-        status = lib.stu_fwd_f32(
+        status = (lib.stu_fwd_bf16 if bf16 else lib.stu_fwd_f32)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), allowed.data_ptr(), timeline.data_ptr(),
             out.data_ptr(), b, h, l, ad, lh, *_strides(q, k, v, out), bias_sb, allowed_sb,
             _native.current_stream_ptr(q.device),
         )
-    _native.check_launch("stu_fwd" if bwd_on_tensor_cores(ad, lh) else "stu_fwd_simt", status)
+    _native.check_launch("stu_fwd_bf16" if bf16 else "stu_fwd" if bwd_on_tensor_cores(ad, lh) else "stu_fwd_simt",
+                         status)
     return out
 
 
@@ -320,8 +443,10 @@ def stu_bwd(q, k, v, bias, allowed, timeline, dout) -> tp.Tuple[torch.Tensor, to
     :func:`bwd_on_tensor_cores`) kernel ``stu_bwd_f32`` for dk and dv, then
     ``stu_bwd_dq_f32`` for dq (launch keys ``stu_bwd``, ``stu_bwd_dq``), else
     ``stu_bwd_f32`` for all three. On CUDA each is a (B, H, L, d) view over
-    (B, L, H, d) memory."""
-    _native.refuse_bf16("stu_bwd", "HSTU's STU attention (kernels 17-19)", q, k, v, dout)
+    (B, L, H, d) memory. bf16 inputs take kernel 18's bf16 form (two launches,
+    bf16 gradients)."""
+    if _bf16_inputs("stu_bwd", q=q, k=k, v=v, dout=dout):
+        return _stu_bwd_bf16(q, k, v, bias, allowed, timeline, dout)
     if q.device.type == "cpu":
         return stu_bwd_reference(q, k, v, bias, allowed, timeline, dout)
     bias_sb, allowed_sb = _check("stu_bwd", q, k, v, bias, allowed, timeline, dout)
@@ -354,11 +479,16 @@ def stu_ds(
     (kernel ``stu_ds_f32``, one block per :func:`ds_tile` tile) and, given the
     (B, L, L) int32 time buckets, its sums by bucket, (n_entries,): the
     kernel's per-block partials added up in block order. Without buckets the
-    second result is None."""
-    _native.refuse_bf16("stu_ds", "HSTU's STU attention (kernels 17-19)", q, k, v, dout)
+    second result is None. bf16 inputs take kernel 19's bf16 form
+    (``stu_ds_bf16``, 64 x 64 tiles at every head dim); ds and the sums stay
+    f32."""
+    bf16 = _bf16_inputs("stu_ds", q=q, k=k, v=v, dout=dout)
     if q.device.type == "cpu":
-        return stu_ds_reference(q, k, v, bias, allowed, timeline, dout, buckets, n_entries)
-    bias_sb, allowed_sb = _check("stu_ds", q, k, v, bias, allowed, timeline, dout)
+        reference = stu_ds_bf16_reference if bf16 else stu_ds_reference
+        return reference(q, k, v, bias, allowed, timeline, dout, buckets, n_entries)
+    kernel = "stu_ds_bf16" if bf16 else "stu_ds"
+    bias_sb, allowed_sb = _check(kernel, q, k, v, bias, allowed, timeline, dout,
+                                 torch.bfloat16 if bf16 else torch.float32)
     b, h, l, ad = q.shape
     lh = v.shape[3]
     ds = torch.empty((b, l, l), dtype=torch.float32, device=q.device)
@@ -368,21 +498,46 @@ def stu_ds(
             buckets.dtype != torch.int32 or buckets.device != q.device or buckets.shape != (b, l, l)
             or not buckets.is_contiguous() or n_entries <= 0
         ):
-            raise ValueError(f"stu_ds: buckets must be contiguous int32 ({b}, {l}, {l}) on {q.device}, n_entries > 0")
-        keys, queries = ds_tile(ad, lh)
+            raise ValueError(f"{kernel}: buckets must be contiguous int32 ({b}, {l}, {l}) on {q.device}, n_entries > 0")
+        keys, queries = (BWD_TILE, BWD_TILE) if bf16 else ds_tile(ad, lh)
         n_partials = b * -(-l // keys) * -(-l // queries)
         partials = torch.empty((n_partials, n_entries), dtype=torch.float32, device=q.device)
         buckets_ptr, partials_ptr = buckets.data_ptr(), partials.data_ptr()
-    lib = _native.load("stu_attention", _SIGNATURES)
+    lib = _native.load("stu_attention_bf16", _SIGNATURES_BF16) if bf16 else _native.load("stu_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
-        status = lib.stu_ds_f32(
+        status = (lib.stu_ds_bf16 if bf16 else lib.stu_ds_f32)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(), allowed.data_ptr(),
             timeline.data_ptr(), ds.data_ptr(), b, h, l, ad, lh, *_strides(q, k, v, dout),
             bias_sb, allowed_sb, buckets_ptr, partials_ptr, n_entries, n_partials,
             _native.current_stream_ptr(q.device),
         )
-    _native.check_launch("stu_ds", status)
+    _native.check_launch(kernel, status)
     return ds, (None if partials is None else partials.sum(dim=0))
+
+
+def _stu_bwd_bf16(q, k, v, bias, allowed, timeline, dout) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return stu_bwd_bf16_reference(q, k, v, bias, allowed, timeline, dout)
+    bias_sb, allowed_sb = _check("stu_bwd_bf16", q, k, v, bias, allowed, timeline, dout, torch.bfloat16)
+    b, h, l, ad = q.shape
+    lh = v.shape[3]
+    dq, dk = (_blhd_empty(b, h, l, ad, q.device, torch.bfloat16) for _ in range(2))
+    dv = _blhd_empty(b, h, l, lh, q.device, torch.bfloat16)
+    lib = _native.load("stu_attention_bf16", _SIGNATURES_BF16)
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(), allowed.data_ptr(),
+                timeline.data_ptr())
+    stream = _native.current_stream_ptr(q.device)
+    with torch.cuda.device(q.device):
+        status = lib.stu_bwd_bf16(
+            *pointers, dk.data_ptr(), dv.data_ptr(), b, h, l, ad, lh, *_strides(q, k, v, dout, dk, dv),
+            bias_sb, allowed_sb, stream,
+        )
+        _native.check_launch("stu_bwd_bf16", status)
+        status = lib.stu_bwd_dq_bf16(
+            *pointers, dq.data_ptr(), b, h, l, ad, lh, *_strides(q, k, v, dout, dq), bias_sb, allowed_sb, stream
+        )
+        _native.check_launch("stu_bwd_dq_bf16", status)
+    return dq, dk, dv
 
 
 # ------------------------------------------------------------------ autograd
@@ -402,7 +557,8 @@ class _STUAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):  # type: ignore[override]
         q, k, v, buckets, timeline, allowed, time_weights, pos_weights, bias = ctx.saved_tensors
-        if dout.stride(-1) != 1 or dout.data_ptr() % 16 or any(dout.stride(i) % 4 for i in range(3)):
+        per16 = 16 // dout.element_size()
+        if dout.stride(-1) != 1 or dout.data_ptr() % 16 or any(dout.stride(i) % per16 for i in range(3)):
             dout = dout.contiguous()
         dq, dk, dv = stu_bwd(q, k, v, bias, allowed, timeline, dout)
         dtw = dpw = None

@@ -596,7 +596,7 @@ def test_refused_routes_raise_naming_the_roadmap(monkeypatch) -> None:
         "d = 256": lambda: softmax_lse.streaming_lse(*_bf16_towers(8, 3000, 256)),
         "d = 16": lambda: softmax_lse.softmax_ce_grads_from_z(*_bf16_towers(8, 3000, 16), z[:8], y[:8], coeff[:8]),
         "head dim 8": lambda: attention.attention_fwd(*(_t(np.ones((1, 2, 4, 8)), BF16),) * 3, None, 0.3),
-        "STU (kernels 17-19)": lambda: stu_attention.stu_fwd(
+        "STU at head dim 8 (kernels 17-19)": lambda: stu_attention.stu_fwd(
             *(_t(np.ones((1, 2, 4, 8)), BF16),) * 3, None, torch.ones((4, 4), dtype=torch.bool),
             torch.ones((1, 4), dtype=torch.bool)),
     }
@@ -621,7 +621,8 @@ def test_refused_routes_raise_naming_the_roadmap(monkeypatch) -> None:
 
 
 def test_refused_models_raise_naming_the_roadmap() -> None:
-    """HSTU and a mesh fit refuse bf16 compute; f32 stays available to both."""
+    """HSTU at head dim 8 (n_factors 16, 2 heads) and a mesh fit refuse bf16
+    compute; f32 stays available to both."""
     dataset, _ = _cyclic_dataset(n_users=10, session_len=4)
     hstu = HSTUModel(n_blocks=1, n_heads=2, n_factors=16, session_max_len=6, epochs=1, batch_size=8, device="cpu",
                      training_module_kwargs={"compute_dtype": "bfloat16"}, relative_time_attention=False)

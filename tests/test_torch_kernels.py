@@ -1603,3 +1603,65 @@ def test_cuda_bf16_fit_matches_cpu(cuda: torch.device, family: str) -> None:
              for name, value in models["cuda"].backbone.state_dict().items()]
     assert all(value.dtype == torch.float32 for value in cpu_state.values())
     assert torch.cat(diffs).mean().item() <= 1e-4
+
+
+# Kernels 17-19 in bf16: out, dq, dk, dv (bf16) and ds with its bucket sums (f32) against the twins, relative
+# to the largest entry. The twins round at the same points; a score or da whose f32 sum lands on the other side of
+# a rounding boundary moves that entry by one bf16 step, as for kernels 2 and 5.
+BF16_STU_RTOL = 2 ** -7
+STU_BF16_KEYS = ("stu_fwd_bf16", "stu_bwd_bf16", "stu_bwd_dq_bf16", "stu_ds_bf16", "stu_fwd", "stu_fwd_simt",
+                 "stu_bwd", "stu_bwd_dq", "stu_ds")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,h,l,ad,lh,per_row_allowed",
+    [(512, 4, 100, 32, 32, False), (64, 4, 1024, 32, 32, False), (3, 2, 77, 16, 64, True), (2, 2, 130, 64, 16, False),
+     (3, 4, 7, 32, 32, True), (2, 2, 190, 64, 64, True), (2, 2, 100, 16, 16, False)],
+)
+def test_cuda_bf16_stu_kernels_match_twins(
+    cuda: torch.device, b: int, h: int, l: int, ad: int, lh: int, per_row_allowed: bool
+) -> None:
+    """The four bf16 launches of kernels 17-19 against their twins on the
+    card, at the HSTU training shape, at L = 1,024 and at ragged lengths and
+    mixed head dims: one launch each and none of the f32 forms, a fully
+    padded row of zeros, the same bits on a rerun."""
+    bf = torch.bfloat16
+    q, k, v, dout, bias, allowed, timeline, buckets = _stu_inputs(b, h, l, ad, lh, cuda, per_row_allowed)
+    q, k, v, dout = (t.to(bf) for t in (q, k, v, dout))
+    args = (q, k, v, bias, allowed, timeline)
+    before = dict(_native.LAUNCHES)
+    out = stu_attention.stu_fwd(*args)
+    got = stu_attention.stu_bwd(*args, dout)
+    ds, sums = stu_attention.stu_ds(*args, dout, buckets, 129)
+    assert [_native.LAUNCHES[n] - before[n] for n in STU_BF16_KEYS] == [1, 1, 1, 1, 0, 0, 0, 0, 0]
+    assert out.dtype == bf and all(g.dtype == bf for g in got) and ds.dtype == sums.dtype == torch.float32
+    expected = (stu_attention.stu_bf16_reference(*args), *stu_attention.stu_bwd_bf16_reference(*args, dout),
+                *stu_attention.stu_ds_bf16_reference(*args, dout, buckets, 129))
+    for name, g, e in zip(("out", "dq", "dk", "dv", "ds", "sums"), (out, *got, ds, sums), expected):
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert _max_rel(g, e) <= BF16_STU_RTOL, (name, _max_rel(g, e))
+    for g in (out, *got, ds):
+        assert not g[-1].any()  # the fully padded batch row
+    again = (stu_attention.stu_fwd(*args), *stu_attention.stu_bwd(*args, dout),
+             *stu_attention.stu_ds(*args, dout, buckets, 129))
+    assert all(torch.equal(a, g) for a, g in zip(again, (out, *got, ds, sums)))
+    alone, none = stu_attention.stu_ds(*args, dout)
+    assert none is None and torch.equal(alone, ds)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_stu_refuses_mixed_dtypes_and_head_dim_8(cuda: torch.device) -> None:
+    """A bf16 / f32 operand set raises TypeError and heads of 8 in bf16 raise
+    NotImplementedError naming the roadmap, before anything launches."""
+    q, k, v, dout, bias, allowed, timeline, _ = _stu_inputs(2, 2, 20, 16, 16, cuda, False)
+    bf = torch.bfloat16
+    before = dict(_native.LAUNCHES)
+    with pytest.raises(TypeError, match="mixed operand dtypes"):
+        stu_attention.stu_fwd(q.to(bf), k, v.to(bf), bias, allowed, timeline)
+    with pytest.raises(TypeError, match="mixed operand dtypes"):
+        stu_attention.stu_bwd(q.to(bf), k.to(bf), v.to(bf), bias, allowed, timeline, dout)
+    q8 = q[..., :8].contiguous().to(bf)
+    with pytest.raises(NotImplementedError, match=_native.BF16_ROADMAP):
+        stu_attention.stu_ds(q8, q8, v.to(bf), bias, allowed, timeline, dout.to(bf))
+    assert dict(_native.LAUNCHES) == before
