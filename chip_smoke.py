@@ -122,6 +122,18 @@ own lines; any failure exits nonzero and prints no result:
              single-process fit of the same batches within LOSS_RTOL and
              PARAM_ATOL. The ranks share one card and talk through gloo with
              host staging, so their step time says nothing of a real mesh.
+             Then, in the same ranks, one epoch with bf16 compute (kernels 8
+             and 9's bf16 forms, the column-sharded tables' bf16 copies
+             gathered through gloo): all ranks equal, and the single-process
+             bf16 fit of the same batches within MESH_4_BF16_LOSS_RTOL and
+             the parameter rule beside it. ``bf16 mesh fit`` (after ``mesh
+             fit``, in its one-rank world): SASRec with bf16 compute at
+             ``mesh_shape=(1, 1)``, the training width and depth: kernels 8
+             and 9's bf16 forms once a step and none of kernels 6 and 7 in
+             either dtype, a profiled step's device kernels, losses falling
+             and within 2e-2 of the bf16 phase's fit without a mesh, then two
+             steps with the partials budget forced to 0 (kernels 10 + 11 in
+             bf16).
 9. lse doors — ``ops``: ``streaming_lse(..., bounded_shift=True)`` with its
              backward (kernels 16 and 9) and ``softmax_grads_from_z`` (kernel
              12) as a user calls them, at the training width. ``classic
@@ -263,7 +275,10 @@ own lines; any failure exits nonzero and prints no result:
              TFLOP/s bf16 and 3.35 TB/s; the same for the four launches of
              kernels 17-19's bf16 forms at B = 512, H = 4, L = 100, heads of
              32, both biases, and at B = 64, L = 1,024 (a padded row gives
-             zeros). (b) SASRecModel.fit with bf16 compute at phase 5's
+             zeros); the same for the bf16 forms of kernels 8-11 (``bf16 mesh
+             kernels`` lines) at the three shapes of ``mesh kernels``, the
+             backward fused and split, with kernel 8's bits against kernel 6's
+             bf16 form at a zero bias. (b) SASRecModel.fit with bf16 compute at phase 5's
              width, batch and epochs beside phase 5's f32 fit, and
              HSTUModel.fit so beside phase 7's: every launch count (HSTU:
              the stu_*_bf16 keys at 2 a step, f32 stu_fwd only in the
@@ -3379,11 +3394,11 @@ def classic_fwd_phase(torch, np, port, dataset, dev) -> dict:
 # ---------------------------------------------------------------- phase 8, mesh training
 
 
-def _mesh_model(dev, mesh_shape, epochs: int, callbacks=()):
+def _mesh_model(dev, mesh_shape, epochs: int, callbacks=(), **training_kwargs):
     from rectools_tpu_torch.models import SASRecModel
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
 
-    kwargs = {"val_recall_k": K}
+    kwargs = {"val_recall_k": K, **training_kwargs}
     if mesh_shape is not None:
         kwargs["mesh_shape"] = mesh_shape
     return SASRecModel(
@@ -3405,6 +3420,18 @@ def _mesh_fit_expected(port, model, epochs: int) -> dict:
     return expected
 
 
+def _mesh_bf16_fit_expected(port, model, epochs: int) -> dict:
+    """Launches of a SASRec bf16 mesh fit on one rank: the encoder's bf16
+    forms (and the f32 forwards of the validation recall) as in the bf16 fit
+    without a mesh, kernel 8's and kernel 9's bf16 forms once per step, none
+    of kernels 6, 7, 10 and 11 in either dtype."""
+    steps = model.training_module.global_step
+    expected = _bf16_fit_launches(port, steps, epochs * len(model.data_preparator.get_dataloader_val()),
+                                  with_loss=False)
+    expected.update(lse_bias_fwd_bf16=steps, lse_bwd_fused_bf16=steps)
+    return expected
+
+
 def _losses_close(np, got: dict, ref: dict, what: str) -> float:
     worst = 0.0
     for key in ("train_loss", "val_loss"):
@@ -3414,10 +3441,11 @@ def _losses_close(np, got: dict, ref: dict, what: str) -> float:
     return worst
 
 
-def mesh_fit_phase(torch, np, port, dataset, dev, plain: dict) -> dict:
+def mesh_fit_phase(torch, np, port, dataset, dev, plain: dict, bf16_plain: dict) -> dict:
     """``mesh_shape=(1, 1)`` through a one-rank process group: the mesh route
     of the loss at the full width, against the fit without a mesh (``plain``,
-    the training phase's losses)."""
+    the training phase's losses); then the same with bf16 compute
+    (:func:`bf16_mesh_fit`, against ``bf16_plain``, the bf16 phase's fit)."""
     import tempfile
 
     from rectools_tpu_torch.models.nn.transformers.training import pad_batch
@@ -3472,12 +3500,78 @@ def mesh_fit_phase(torch, np, port, dataset, dev, plain: dict) -> dict:
                   f"losses of two steps on one batch through the split backward: {split_losses}")
             print(f"mesh fit: two steps with the partials budget forced to 0: launches {split}, "
                   f"losses {split_losses}")
+            bf16 = bf16_mesh_fit(torch, np, port, dataset, dev, bf16_plain, backend)
         finally:
             dist.shutdown()
     return {"launches": launches, "launches_budget_forced": split, "steps": steps, "fit_s": fit_s,
             "train_loss": got["train_loss"], "val_loss": got["val_loss"], "loss_max_rel_diff_from_plain_fit": rel,
             "backend": backend, "epoch2_s": epoch2_s, "train_examples_per_s": examples_per_s,
-            **{f"step_{k}": v for k, v in profile.items()}}
+            **{f"step_{k}": v for k, v in profile.items()}, "bf16": bf16}
+
+
+def bf16_mesh_fit(torch, np, port, dataset, dev, bf16_plain: dict, backend: str) -> dict:
+    """``bf16 mesh fit``: SASRec with compute_dtype "bfloat16" at
+    ``mesh_shape=(1, 1)`` in the one-rank world, the training phase's width,
+    depth and epochs: kernels 8 and 9's bf16 forms once a step and none of
+    kernels 6 and 7 in either dtype, a profiled step's device kernels (the
+    bf16 forms, no f32 attention or loss kernel), losses falling and within
+    BF16_LOSS_RTOL of the bf16 fit without a mesh (``bf16_plain``); then two
+    steps with the partials budget forced to 0 (kernels 10 + 11 in bf16)."""
+    from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+    from rectools_tpu_torch.ops import softmax_lse
+
+    clock = epoch_clock(torch, dev)
+    model = _mesh_model(dev, (1, 1), EPOCHS, [clock], compute_dtype="bfloat16")
+    port.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(dataset)
+    fit_s = time.perf_counter() - t0
+    launches = dict(port.LAUNCHES)
+    tm = model.training_module
+    steps = tm.global_step
+    check(tm._use_fused_softmax and tm._get_mesh() is not None and tm.resolved_compute_dtype == "bfloat16",
+          "the bf16 mesh fit did not take the bf16 mesh route")
+    expected = _mesh_bf16_fit_expected(port, model, EPOCHS)
+    check(launches == expected, f"launches in the bf16 mesh fit {launches}, expected {expected}")
+    losses, val = tm.train_loss_history, tm.val_loss_history
+    check(len(losses) == EPOCHS and bool(np.isfinite(losses + val).all()) and losses[1] < losses[0],
+          f"bf16 mesh fit: train losses {losses}, val_loss {val}")
+    rel = max(abs(a / b - 1) for a, b in zip(losses, bf16_plain["train_loss"]))
+    check(rel <= BF16_LOSS_RTOL, f"bf16 mesh fit: losses {losses} against the bf16 fit without a mesh "
+                                 f"{bf16_plain['train_loss']}: {rel}")
+    epoch2_s = clock.times[2] - clock.times[1]
+    examples_per_s = TRAIN_B * (steps // EPOCHS) / epoch2_s
+    print(f"bf16 mesh fit: mesh (1, 1) on a one-rank {backend} world with bf16 compute, {steps} steps in "
+          f"{fit_s:.2f} s; launches { {k: v for k, v in launches.items() if v} }")
+    print(f"bf16 mesh fit: losses {losses}, val_loss {val}; largest relative gap from the bf16 fit without a mesh "
+          f"{rel:.3g} (limit {BF16_LOSS_RTOL}); epoch 2 wall {epoch2_s:.3f} s (validation included), "
+          f"{examples_per_s:.0f} train examples/s")
+    loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
+    batch = tm._device_batch(tm._local_batch(pad_batch(next(iter(loader)), TRAIN_B)))
+    names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
+    missing = [k for k in BF16_DEVICE_KERNELS if not any(k in name for name in names)]
+    banned = [name for name in names if any(k in name for k in BF16_BANNED_KERNELS)]
+    if dev != "cpu":
+        check(not missing and not banned, f"a bf16 mesh step's device kernels: missing {missing}, f32 or library "
+                                          f"{banned}")
+        print(f"bf16 mesh fit: a profiled step ran {len(names)} device kernels, the bf16 forms among them, no f32 "
+              f"attention or loss kernel, no library attention or cross-entropy")
+    budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
+    softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 0
+    port.reset_launches()
+    split_losses = [tm._train_step(batch).item() for _ in range(2)]
+    softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+    split = {k: port.LAUNCHES[k] for k in ("lse_bias_fwd_bf16", "lse_bwd_fused_bf16", "lse_bwd_ds_bf16",
+                                           "lse_bwd_di_bf16", "lse_bias_fwd", "lse_bwd_ds", "lse_bwd_di")}
+    check(split == {"lse_bias_fwd_bf16": 2, "lse_bwd_fused_bf16": 0, "lse_bwd_ds_bf16": 2, "lse_bwd_di_bf16": 2,
+                    "lse_bias_fwd": 0, "lse_bwd_ds": 0, "lse_bwd_di": 0},
+          f"bf16 launches with the partials budget forced to 0: {split}")
+    check(bool(np.isfinite(split_losses).all()) and split_losses[1] < split_losses[0],
+          f"bf16 losses of two steps on one batch through the split backward: {split_losses}")
+    print(f"bf16 mesh fit: two steps with the partials budget forced to 0: launches {split}, losses {split_losses}")
+    return {"launches": launches, "launches_budget_forced": split, "steps": steps, "fit_s": fit_s,
+            "train_loss": losses, "val_loss": val, "loss_max_rel_diff_from_bf16_fit": rel, "epoch2_s": epoch2_s,
+            "train_examples_per_s": examples_per_s}
 
 
 def _state_digest(state: dict) -> str:
@@ -3512,7 +3606,7 @@ def mesh_rank_worker(rank: int, repo: str, dev: str) -> dict:
     launches = dict(port.LAUNCHES)
     tm = model.training_module
     state = tm.get_state()["params"]  # whole tables: every rank gathers
-    return {
+    out = {
         "rank": rank, "coords": dict(tm._get_mesh().coords), "launches": launches,
         "expected_launches": _mesh_fit_expected(port, model, 1), "steps": tm.global_step,
         "epoch_s": clock.times[1] - clock.times[0],
@@ -3522,6 +3616,21 @@ def mesh_rank_worker(rank: int, repo: str, dev: str) -> dict:
         "table_shape": tuple(model.backbone.item_model.item_net_blocks[0].ids_emb.weight.shape),
         "digest": _state_digest(state), "params": state if rank == 0 else None,
     }
+    # then one epoch with bf16 compute from the seed (kernels 8 and 9's bf16 forms)
+    clock = epoch_clock(torch, dev)
+    model = _mesh_model(dev, MESH_4, 1, [clock], compute_dtype="bfloat16")
+    port.reset_launches()
+    model.fit(dataset)
+    tm = model.training_module
+    state = tm.get_state()["params"]
+    out["bf16"] = {
+        "launches": dict(port.LAUNCHES), "expected_launches": _mesh_bf16_fit_expected(port, model, 1),
+        "steps": tm.global_step, "epoch_s": clock.times[1] - clock.times[0],
+        "train_loss": tm.train_loss_history, "val_loss": tm.val_loss_history,
+        "recall": tm.val_metric_history.get(f"val_recall@{K}", []),
+        "digest": _state_digest(state), "params": state if rank == 0 else None,
+    }
+    return out
 
 
 def mesh_fit_4_phase(torch, np, pd, dev, world: int = 4) -> dict:
@@ -3565,6 +3674,7 @@ def mesh_fit_4_phase(torch, np, pd, dev, world: int = 4) -> dict:
             param_err, worst = err, name
     check(param_err <= PARAM_ATOL, f"four-rank mesh fit: parameters differ from the single-process fit by "
                                    f"{param_err} in {worst}")
+    bf16 = mesh_4_bf16_check(np, pd, dev, ranks)
     step_ms = [1e3 * r["epoch_s"] / r["steps"] for r in ranks]  # the epoch's wall, its validation batches included
     print(f"mesh fit 4: {world} ranks on one card ({first['backend']}, host staging), mesh {MESH_4}, "
           f"{first['steps']} steps on the {RAGGED_N}-row catalog, spawn to results {spawn_s:.1f} s; "
@@ -3579,7 +3689,57 @@ def mesh_fit_4_phase(torch, np, pd, dev, world: int = 4) -> dict:
             "steps": first["steps"], "train_loss": first["train_loss"], "val_loss": first["val_loss"],
             "digest": first["digest"], "loss_max_rel_diff_from_single_process": rel,
             "param_max_abs_diff_from_single_process": param_err, "key_bias_max_abs_diff": key_bias_err,
-            "four_ranks_on_one_card_step_ms": step_ms, "spawn_to_results_s": spawn_s}
+            "four_ranks_on_one_card_step_ms": step_ms, "spawn_to_results_s": spawn_s, "bf16": bf16}
+
+
+def mesh_4_bf16_check(np, pd, dev, ranks: list) -> dict:
+    """The ranks' bf16 epoch at MESH_4 (after their f32 one): launches, all
+    ranks equal, and the single-process bf16 fit of the same batches at
+    ``mesh_shape=(1, 1)`` within MESH_4_BF16_LOSS_RTOL and the parameter rule
+    of MESH_4_BF16_PARAM_MEAN_A_STEP."""
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.dataset import Dataset
+
+    first = ranks[0]["bf16"]
+    for r in ranks:
+        got = r["bf16"]
+        check(got["launches"] == got["expected_launches"],
+              f"rank {r['rank']}: bf16 launches {got['launches']}, expected {got['expected_launches']}")
+        for key in ("train_loss", "val_loss", "recall", "digest", "steps"):
+            check(got[key] == first[key], f"rank {r['rank']}: bf16 {key} {got[key]} differs from rank 0's {first[key]}")
+    check(bool(np.isfinite(first["train_loss"] + first["val_loss"] + first["recall"]).all()), f"bf16 ranks {first}")
+    single = _mesh_model(dev, (1, 1), 1, compute_dtype="bfloat16")  # one process: no group to join
+    single.fit(Dataset.construct(kion_frame(np, pd, Columns, RAGGED_N - 1)))
+    tm = single.training_module
+    losses = {"train_loss": tm.train_loss_history, "val_loss": tm.val_loss_history}
+    rel = max(abs(g / r - 1) for key in losses for g, r in zip(first[key], losses[key]))
+    check(len(first["train_loss"]) == len(losses["train_loss"]) and rel <= MESH_4_BF16_LOSS_RTOL,
+          f"four-rank bf16 fit: losses {first['train_loss']}, {first['val_loss']} against the single-process (1, 1) "
+          f"bf16 fit's {losses}: {rel}")
+    steps = first["steps"]
+    errs = {name: (first["params"][name] - value).abs() for name, value in tm.get_state()["params"].items()}
+    mean = sum(e.sum().item() for e in errs.values()) / sum(e.numel() for e in errs.values())
+    # the key-projection biases' gradient is 0 in exact arithmetic (see the agree phase): printed, not held
+    key_bias = max(e.max().item() for name, e in errs.items() if name.endswith("multi_head_attn.k_proj.bias"))
+    errs = {name: e for name, e in errs.items() if not name.endswith("multi_head_attn.k_proj.bias")}
+    worst = max(errs, key=lambda name: errs[name].max().item())
+    largest = errs[worst].max().item()
+    check(largest <= 2 * steps * LR and mean <= steps * MESH_4_BF16_PARAM_MEAN_A_STEP,
+          f"four-rank bf16 fit: parameters differ from the single-process bf16 fit by {largest} in {worst} (limit "
+          f"{2 * steps * LR}), {mean} on average (limit {steps * MESH_4_BF16_PARAM_MEAN_A_STEP})")
+    step_ms = [1e3 * r["bf16"]["epoch_s"] / r["bf16"]["steps"] for r in ranks]
+    print(f"mesh fit 4: bf16 epoch, all ranks report the same losses {first['train_loss']}, val_loss "
+          f"{first['val_loss']}, val_recall@{K} {first['recall']} and parameter digest {first['digest'][:16]}; per rank "
+          f"launches { {k: v for k, v in first['launches'].items() if v} }")
+    print(f"mesh fit 4: bf16 epoch against the single-process (1, 1) bf16 fit: max loss rel diff {rel:.3g} (limit "
+          f"{MESH_4_BF16_LOSS_RTOL}), param abs diff largest {largest:.3g} in {worst} (limit {2 * steps * LR:.3g}; "
+          f"key-projection biases {key_bias:.3g}), mean {mean:.3g} (limit "
+          f"{steps * MESH_4_BF16_PARAM_MEAN_A_STEP:.3g}); epoch wall per step, 4 ranks on one card: "
+          f"{[round(t, 1) for t in step_ms]} ms")
+    return {"launches": first["launches"], "steps": steps, "train_loss": first["train_loss"],
+            "val_loss": first["val_loss"], "digest": first["digest"], "loss_max_rel_diff_from_single_process": rel,
+            "param_max_abs_diff_from_single_process": largest, "param_mean_abs_diff_from_single_process": mean,
+            "key_bias_max_abs_diff": key_bias, "four_ranks_on_one_card_step_ms": step_ms}
 
 
 # ---------------------------------------------------------------- phase 10, the other transformer families
@@ -4023,6 +4183,21 @@ BF16_HSTU_BANNED_KERNELS = ("stu_fwd_tc_kernel", "stu_fwd_kernel", "stu_dkdv_tc_
                             "stu_ds_tc_kernel", "stu_bwd_kernel", "stu_ds_kernel", *BF16_BANNED_KERNELS)
 
 
+# kernels 8-11 in bf16 (the mesh loss on bf16 towers) against their twins: the lse relative per row (BF16_LSE_RTOL);
+# ds and di (f32, the autograd functions round them to bf16 after) relative to the twin's largest entry, where a pw,
+# p or s * dlse one bf16 step apart (its f32 value straddling a rounding boundary) moves a sum: up to 1.2e-3 on an
+# H100 at the training shape (rectools_tpu_torch/tools/mesh_bf16_check.py)
+BF16_MESH_GRAD_RTOL = 2 ** -7
+MESH_BF16_KEYS = ("lse_bias_fwd_bf16", "lse_bwd_fused_bf16", "lse_bwd_ds_bf16", "lse_bwd_di_bf16")
+# the four-rank bf16 epoch against the single-process bf16 fit of the same batches through the same loss route
+# (``mesh_shape=(1, 1)``): the bf16 roundings of the shards' ds and di sums differ (ds summed over the model group
+# in bf16, the tower gradient over the data group in f32). Losses within a quarter of the bf16 band (BF16_LOSS_RTOL);
+# every parameter entry within 2 x steps x lr (Adam moves an entry whose bf16 gradient is rounding noise by up to lr
+# a step on each side) and their mean within 3e-5 a step (the rule of tests/test_torch_parallel.py); the
+# key-projection biases, whose gradient is rounding noise in either dtype, are printed beside them
+MESH_4_BF16_LOSS_RTOL, MESH_4_BF16_PARAM_MEAN_A_STEP = 5e-3, 3e-5
+
+
 def bf16_bound(n_bytes: float, n_ops: float) -> tuple:
     """(ms, "bytes" or "operations"): the bytes over the memory rate or the
     operations over the bf16 tensor-core rate, whichever is longer."""
@@ -4313,6 +4488,146 @@ def stu_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     return results
 
 
+def mesh_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
+    """(a) of the ``bf16`` phase for the mesh loss: the bf16 forms of kernels
+    8-11 at the shapes ``mesh_kernel_phase`` gives their f32 forms (the (1, 1)
+    mesh's 51,200 x 15,872; a (2, 2) shard 25,600 x 7,936; the last shard of
+    the odd catalog cut four ways, one row of it biased -1e30), with a
+    cotangent of mixed sign: each against its twin, the same bits on a rerun,
+    kernel 8's bits against kernel 6's bf16 form at a zero bias, timed beside
+    its f32 form on the same values, the library call (``torch.logsumexp`` of
+    the bf16 product plus the bias, and its autograd) and its bound at the
+    bf16 rate."""
+    from rectools_tpu_torch.ops import _native, softmax_lse
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    l, d, n = SESSION_MAX_LEN, N_FACTORS, N_ITEM_IDS + 1
+    ragged_shard = -(-RAGGED_N // 4)
+    shapes = {"": (b * l, n, 0), "_shard_2x2": (b * l // 2, n // 2, 0),
+              "_ragged_shard": (b * l // 2, ragged_shard, 4 * ragged_shard - RAGGED_N)}
+    budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    results = {}
+    for tag, (m, rows, n_invalid) in shapes.items():
+        s = torch.randn((m, d), generator=gen, device=dev).to(bf)
+        items = (0.1 * torch.randn((rows, d), generator=gen, device=dev)).to(bf)
+        bias = torch.zeros((rows,), device=dev)
+        if n_invalid:
+            items[rows - n_invalid:] = 0.0  # the zero rows a shard is padded with
+            bias[rows - n_invalid:] = softmax_lse.NEG_BIG
+        dlse = torch.randn((m,), generator=gen, device=dev) / m  # mixed sign
+        s32, items32 = s.float(), items.float()
+        what = f"at M={m}, N={rows}" + (f" with {n_invalid} invalid row(s)" if n_invalid else "")
+
+        # kernel 8
+        lse = softmax_lse.streaming_lse_fwd(s, items, bias)
+        ref = softmax_lse.streaming_lse_bias_bf16_reference(s, items, bias)
+        err = _row_rel(lse, ref)
+        check(bool(torch.isfinite(lse).all()) and err <= BF16_LSE_RTOL
+              and bool(torch.equal(lse, softmax_lse.streaming_lse_fwd(s, items, bias))),
+              f"kernel 8 bf16 {what}: {err} per row from its twin (limit {BF16_LSE_RTOL}), or other bits on a rerun")
+        if not n_invalid:  # kernel 8 is kernel 6 with a bias column
+            check(bool(torch.equal(lse, softmax_lse.streaming_lse_fwd(s, items))),
+                  f"kernel 8 bf16 {what}: a zero bias changed the bits of kernel 6's bf16 form")
+        lse32 = softmax_lse.streaming_lse_fwd(s32, items32, bias)
+        products = 2 * m * rows * d
+        vectors = (rows + 2 * m) * 4
+        results[f"lse_bias_fwd_bf16{tag}"] = dict(
+            max_abs_err=(lse - ref).abs().max().item(), max_rel_err=err,
+            ms=time_ms(lambda: softmax_lse.streaming_lse_fwd(s, items, bias)),
+            f32_ms=time_ms(lambda: softmax_lse.streaming_lse_fwd(s32, items32, bias)),
+            plain_ms=time_ms(lambda: softmax_lse.streaming_lse_bias_bf16_reference(s, items, bias), iters=3),
+            library_ms=time_ms(lambda: torch.logsumexp(s @ items.T + bias, dim=1), iters=3),
+            bound=bf16_bound((m + rows) * d * 2 + rows * 4 + m * 4, products),
+        )
+
+        # kernels 9 and 10 + 11
+        got, refs = {}, {}
+        for route, forced in (("fused", 1 << 62), ("split", 0)):
+            softmax_lse.FUSED_BWD_PARTIALS_BUDGET = forced
+            got[route] = softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)
+            again = softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)
+            refs[route] = softmax_lse.streaming_lse_bwd_bf16_reference(s, items, bias, lse, dlse,
+                                                                       partials=route == "fused")
+            rel_ds, rel_di = (_max_rel(g, r) for g, r in zip(got[route], refs[route]))
+            rerun = all(bool(torch.equal(a, g)) for a, g in zip(again, got[route]))
+            check(all(bool(torch.isfinite(g).all()) for g in got[route]) and max(rel_ds, rel_di) <= BF16_MESH_GRAD_RTOL
+                  and rerun, f"lse backward bf16 ({route}) {what}: ds {rel_ds}, di {rel_di} of the largest entry from "
+                             f"its twin (limit {BF16_MESH_GRAD_RTOL}), or other bits on a rerun")
+            if n_invalid:
+                check(not bool(got[route][1][rows - n_invalid:].any()),
+                      f"lse backward bf16 ({route}) {what}: an invalid row's gradient is not exactly 0")
+            print(f"bf16 mesh kernels: lse backward ({route}) {what}: ds {rel_ds:.3g}, di {rel_di:.3g} of the largest "
+                  f"entry from its twin (limit {BF16_MESH_GRAD_RTOL:.3g}), bit-equal on a rerun")
+        softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62
+        fused_ms = time_ms(lambda: softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse), iters=3)
+        fused_f32_ms = time_ms(lambda: softmax_lse.streaming_lse_bwd(s32, items32, bias, lse32, dlse), iters=3)
+        softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+        # each split kernel alone, bf16 and f32, through the library handles (ds with the sum of its chunk partials)
+        n_chunks, chunk_rows = softmax_lse.split_bwd_plan(m, rows, d, n_sms)
+        ds_part, out_di = torch.empty((n_chunks, m, d), device=dev), torch.empty((rows, d), device=dev)
+        split_ms = {"ds": 0.0, "di": 0.0, "ds_f32": 0.0, "di_f32": 0.0}
+        if dev.type == "cuda":
+            stream = _native.current_stream_ptr(s.device)
+            for suffix, lib, towers in (("", _native.load("softmax_lse_bf16", softmax_lse._SIGNATURES_BF16), (s, items)),
+                                        ("_f32", _native.load("softmax_lse", softmax_lse._SIGNATURES),
+                                         (s32, items32))):
+                args = (towers[0].data_ptr(), towers[1].data_ptr(), bias.data_ptr(),
+                        (lse if not suffix else lse32).data_ptr(), dlse.data_ptr())
+                ds_fn = getattr(lib, "lse_bwd_ds_f32" if suffix else "lse_bwd_ds_bf16")
+                di_fn = getattr(lib, "lse_bwd_di_f32" if suffix else "lse_bwd_di_bf16")
+
+                def ds_kernel(ds_fn=ds_fn, args=args):
+                    ds_fn(*args, ds_part.data_ptr(), m, rows, d, chunk_rows, n_chunks, stream)
+                    return ds_part.sum(dim=0)
+
+                split_ms[f"ds{suffix}"] = time_ms(ds_kernel, iters=3)
+                split_ms[f"di{suffix}"] = time_ms(lambda di_fn=di_fn, args=args: di_fn(
+                    *args, out_di.data_ptr(), m, rows, d, stream), iters=3)
+                if not suffix:
+                    check(bool(torch.equal(ds_kernel(), got["split"][0])) and bool(torch.equal(out_di, got["split"][1])),
+                          f"split lse backward bf16 {what}: the timed launches gave other bits than the wrapper's")
+        plain_ms = {route: time_ms(lambda route=route: softmax_lse.streaming_lse_bwd_bf16_reference(
+            s, items, bias, lse, dlse, partials=route == "fused"), iters=3) for route in ("fused", "split")}
+        sg, ig = s.detach().clone().requires_grad_(), items.detach().clone().requires_grad_()
+        lib_out = torch.logsumexp(sg @ ig.T + bias, dim=1)
+
+        def grad_ms(inputs) -> float:
+            return time_ms(lambda: torch.autograd.grad(lib_out, inputs, dlse, retain_graph=True), iters=3)
+
+        def max_abs(route: str, i: int) -> float:
+            return (got[route][i] - refs[route][i]).abs().max().item()
+
+        results[f"lse_bwd_fused_bf16{tag}"] = dict(
+            max_abs_err=max(max_abs("fused", 0), max_abs("fused", 1)),
+            max_rel_err=max(_max_rel(g, r) for g, r in zip(got["fused"], refs["fused"])),
+            ms=fused_ms, f32_ms=fused_f32_ms, plain_ms=plain_ms["fused"], library_ms=grad_ms((sg, ig)),
+            bound=bf16_bound((m + rows) * d * (2 + 4) + vectors, 3 * products),
+        )
+        # the split twin computes both gradients in one walk: its time stands beside each split kernel
+        results[f"lse_bwd_ds_bf16{tag}"] = dict(
+            max_abs_err=max_abs("split", 0), max_rel_err=_max_rel(got["split"][0], refs["split"][0]),
+            ms=split_ms["ds"], f32_ms=split_ms["ds_f32"], plain_ms=plain_ms["split"], library_ms=grad_ms((sg,)),
+            bound=bf16_bound((m + rows) * d * 2 + m * d * 4 + vectors, 2 * products),
+        )
+        results[f"lse_bwd_di_bf16{tag}"] = dict(
+            max_abs_err=max_abs("split", 1), max_rel_err=_max_rel(got["split"][1], refs["split"][1]),
+            ms=split_ms["di"], f32_ms=split_ms["di_f32"], plain_ms=plain_ms["split"], library_ms=grad_ms((ig,)),
+            bound=bf16_bound((m + rows) * d * 2 + rows * d * 4 + vectors, 2 * products),
+        )
+        print(f"bf16 mesh kernels: kernel 8 {what}: {err:.3g} per row from its twin (limit {BF16_LSE_RTOL}), "
+              f"bit-equal on a rerun{'' if n_invalid else ' and to kernel 6 bf16 at a zero bias'}")
+        for name in MESH_BF16_KEYS:
+            r = results[f"{name}{tag}"]
+            print(f"bf16 mesh kernels: {name} {what}: max_rel_err={r['max_rel_err']:.3g} ms={r['ms']:.4f} "
+                  f"f32_ms={r['f32_ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (bf16) "
+                  f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}, 989 TFLOP/s bf16, 3.35 TB/s)")
+        del s, items, bias, dlse, s32, items32, lse, lse32, ref, got, refs, again, ds_part, out_di, sg, ig, lib_out
+        torch.cuda.empty_cache()
+    return results
+
+
 def _bf16_fit_launches(port, steps: int, val_forwards: int, with_loss: bool = True, family: str = "sasrec") -> dict:
     """Every launch count of a bf16 fit: per step the bf16 attention forms (HSTU:
     the bf16 STU forms, 18 in two launches, and 19) and, with the full-catalog
@@ -4444,7 +4759,7 @@ def bf16_family_phase(torch, np, port, dataset, dev) -> dict:
 def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
     """(d) of the ``bf16`` phase: every route without a bf16 kernel raises
     NotImplementedError naming ROADMAP §1 item 5 on the card."""
-    from rectools_tpu_torch.models import HSTUModel, SASRecModel
+    from rectools_tpu_torch.models import HSTUModel
     from rectools_tpu_torch.ops import _native, attention, softmax_lse
 
     bf = torch.bfloat16
@@ -4478,8 +4793,8 @@ def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
     refused = {
         "STU at head dim 8 (kernels 17-19)": lambda: stu_attention.stu_fwd(heads_of_8, heads_of_8, heads_of_8,
                                                                            *masks),
-        "mesh_shape (kernels 8-11)": lambda: SASRecModel(
-            **small, training_module_kwargs={"compute_dtype": "bfloat16", "mesh_shape": (1, 1)}).fit(dataset),
+        "mesh loss (kernels 8-11) at d = 16": lambda: softmax_lse.sharded_streaming_lse(
+            torch.ones((8, 16), device=dev, dtype=bf), torch.ones((3000, 16), device=dev, dtype=bf), None, "model"),
         "large-catalog route (kernels 12-14)": budget(0, lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y,
                                                                                                      coeff)),
         "kernel 7's two launches": budget(100_000,
@@ -4488,7 +4803,9 @@ def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
                                                      torch.ones((3000, 256), device=dev, dtype=bf)),
         "bounded shift (kernel 16)": lambda: softmax_lse.streaming_lse(s, items, bounded_shift=True),
         "running max (kernel 15)": kernel_15,
-        "biased lse (kernel 8)": lambda: softmax_lse.streaming_lse(s, items, torch.zeros(5000, device=dev)),
+        "biased lse (kernel 8) at d = 256": lambda: softmax_lse.streaming_lse(
+            torch.ones((8, 256), device=dev, dtype=bf), torch.ones((3000, 256), device=dev, dtype=bf),
+            torch.zeros(3000, device=dev)),
         "gradients from z (kernels 12-14)": lambda: softmax_lse.softmax_grads_from_z(s, items, z),
         "head dim 8": lambda: attention.attention_fwd(*(torch.ones((1, 2, 4, 8), device=dev, dtype=bf),) * 3, None,
                                                       0.3),
@@ -4525,6 +4842,7 @@ def bf16_phase(torch, np, pd, port, df, dataset, dev, f32: dict, hstu_f32: dict)
     t0 = time.perf_counter()
     kernels = bf16_kernel_phase(torch, torch.device(dev))
     kernels.update(stu_bf16_kernel_phase(torch, torch.device(dev)))
+    kernels.update(mesh_bf16_kernel_phase(torch, torch.device(dev)))
     fit = bf16_fit_phase(torch, np, port, df, dataset, dev, f32)
     hstu_fit = bf16_fit_phase(torch, np, port, df, dataset, dev, hstu_f32, family="hstu")
     families = bf16_family_phase(torch, np, port, dataset, dev)
@@ -4641,7 +4959,7 @@ def main() -> int:
                                                   negatives_sharing="batch", remat=True)
     remat_result = remat_fit_phase(torch, np, pd, port, "cuda")
     # phase 8: mesh training, one rank and four ranks
-    mesh_result = mesh_fit_phase(torch, np, port, dataset, "cuda", train_result)
+    mesh_result = mesh_fit_phase(torch, np, port, dataset, "cuda", train_result, bf16_result["fit"])
     mesh_4_result = mesh_fit_4_phase(torch, np, pd, "cuda")
     # phase 9: the other doors of the streaming lse
     ops_result = ops_phase(torch, torch.device("cuda"))
@@ -4684,6 +5002,11 @@ def main() -> int:
         "stu_bwd_bf16": ("stu_attention_bf16.cu", "stu_attention.py:274", ("stu_bwd_bf16", "stu_bwd_dq_bf16"),
                          "stu_bwd_bf16"),
         "stu_ds_bf16": ("stu_attention_bf16.cu", "stu_attention.py:316", ("stu_ds_bf16",), "stu_ds_bf16"),
+        "lse_bias_fwd_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:99", ("lse_bias_fwd_bf16",), "lse_bias_fwd_bf16"),
+        "lse_bwd_fused_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:234", ("lse_bwd_fused_bf16",),
+                               "lse_bwd_fused_bf16"),
+        "lse_bwd_ds_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:205", ("lse_bwd_ds_bf16",), "lse_bwd_ds_bf16"),
+        "lse_bwd_di_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:266", ("lse_bwd_di_bf16",), "lse_bwd_di_bf16"),
     }
     # mesh_fit_4 counts one rank's launches (every rank's are equal); kernels 10
     # and 11 run where the partials budget is forced to 0; `ops` calls the public
@@ -4702,7 +5025,9 @@ def main() -> int:
              "evaluate": evaluate_result, "classic": baselines_result, "factorization": factorization_result,
              "ranking": ranking_result, "bf16_fit": bf16_result["fit"], "bf16_hstu_fit": bf16_result["hstu_fit"],
              "bf16_bert4rec_fit": bf16_result["families"]["bert4rec"],
-             "bf16_esasrec_fit": bf16_result["families"]["esasrec"]}
+             "bf16_esasrec_fit": bf16_result["families"]["esasrec"], "bf16_mesh_fit": mesh_result["bf16"],
+             "bf16_mesh_fit_budget_forced": {"launches": mesh_result["bf16"]["launches_budget_forced"]},
+             "bf16_mesh_fit_4": mesh_4_result["bf16"]}
 
     def numbers(r: dict) -> dict:
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -4768,8 +5093,10 @@ def main() -> int:
         "hstu_recommend": {k: v for k, v in hstu_main_result.items() if k != "launches"},
         "hstu_train": {**{k: v for k, v in hstu_train_result.items() if k != "launches"},
                        "agreement": hstu_agree_result},
-        "mesh_fit": {k: v for k, v in mesh_result.items() if not k.startswith("launches")},
-        "mesh_fit_4": {k: v for k, v in mesh_4_result.items() if k != "launches"},
+        "mesh_fit": {**{k: v for k, v in mesh_result.items() if not k.startswith("launches") and k != "bf16"},
+                     "bf16": {k: v for k, v in mesh_result["bf16"].items() if not k.startswith("launches")}},
+        "mesh_fit_4": {**{k: v for k, v in mesh_4_result.items() if k not in ("launches", "bf16")},
+                       "bf16": {k: v for k, v in mesh_4_result["bf16"].items() if k != "launches"}},
         "ops": {k: v for k, v in ops_result.items() if k != "launches"},
         "fit_classic_fwd": {k: v for k, v in classic_result.items() if k != "launches"},
         "fit_mid_catalog": {k: v for k, v in mid_result.items() if k != "launches"},

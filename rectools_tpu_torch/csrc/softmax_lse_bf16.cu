@@ -1,13 +1,17 @@
-// The streaming logsumexp and the softmax-CE gradients on bf16 towers: the
-// forms of kernels 6 and 7 that mixed-precision training
-// (compute_dtype="bfloat16") runs, on bf16 tensor-core products with f32
-// accumulation.
+// The streaming logsumexp, its generic backward and the softmax-CE gradients
+// on bf16 towers: the forms of kernels 6 to 11 that mixed-precision training
+// (compute_dtype="bfloat16") runs, without and with a process mesh, on bf16
+// tensor-core products with f32 accumulation.
 //
 // Replaces, for bf16 inputs:
 // - rectools_tpu/ops/softmax_lse.py:169 `_lse_fwd_partials_kernel`
 //   (`lse_partials_bf16`, kernel 6): per (item chunk, session tile) the
 //   chunk's (max, sum of exp) of the f32 logits s . items^T, written to f32
 //   (n_chunks, M) partials that the caller combines, as the f32 kernel's.
+// - :99 `_lse_fwd_kernel` (`lse_bias_bf16`, kernel 8): kernel 6's kernel
+//   with the f32 bias of each item row (0, or -1e30 for a row that only pads
+//   a shard) added to each f32 logit (:116-124); a zero bias gives kernel 6's
+//   bits. The mesh loss's forward.
 // - :643 `_ce_grads_z_fused_kernel` (`ce_fused_bf16`, kernel 7's one pass):
 //   with the f32 logits, P = exp(logit - z) and D = coeff * onehot(y) in f32,
 //   the probability operand (P - D) rounded to bf16 before both products (as
@@ -15,46 +19,76 @@
 //   chunk in f32, stored as a bf16 partial when `bf16_partials` (JAX's
 //   `BF16_DS_PARTIALS`, :456-473) else as f32, and di = (P - D)^T s
 //   accumulated in f32 per group of session tiles. The caller sums both sets
-//   of partials in f32 in a fixed order. Item rows past N load as zeros and
-//   get P forced to 0 (the NaN rule of :636-640); rows with z = +inf (PAD
-//   targets, coeff = 0) contribute nothing. No float atomics.
+//   of partials in f32 in a fixed order.
+// - :234 `_bwd_fused_kernel` (`lse_bwd_fused_bf16`, kernel 9): kernel 7's
+//   kernel and grid in its `kLse` form: pw = exp((logit + bias) - lse) * dlse
+//   in f32, dlse of either sign, rounded to bf16 once for both products
+//   (:258), no label term, ds partials always f32 (:505; JAX's
+//   `BF16_DS_PARTIALS` is not read on this route).
+// - :205 `_dsessions_kernel` (`lse_bwd_ds_bf16`, kernel 10): the same bf16
+//   pw times the item tiles, ds summed in f32 (:220-231).
+// - :266 `_ditems_kernel` (`lse_bwd_di_bf16`, kernel 11), whose rounding
+//   points differ from kernel 9's (:275-287): p = exp((logit + bias) - lse)
+//   rounded to bf16 and s * dlse (f32 product) rounded to bf16, di =
+//   p^T (s * dlse) summed in f32.
+// In all of them item rows past N load as zeros and get P forced to 0 (the
+// NaN rule of :636-640); session rows past M get z = lse = +inf and coeff =
+// dlse = 0, so they contribute nothing; an item row biased -1e30 gets
+// exp(-1e30 - lse) = 0, so its di row is 0. No float atomics: one writer per
+// output row, every run the same bits.
 //
 // Products: `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`, one a
 // 16-deep step (bf16_tile.cuh): a bf16 x bf16 product is exact in f32 and the
-// tensor cores sum in f32, so the plain twin (f32 products of the bf16
-// values, ops/softmax_lse.py) differs only in the order of its f32 sums.
+// tensor cores sum in f32, so the plain twins (f32 products of the bf16
+// values, ops/softmax_lse.py) differ only in the order of their f32 sums.
 //
 // Tiles (D in {32, 64, 128}; 16 and 256 have no bf16 form yet, ROADMAP §1
 // item 5): 256 threads, 8 warps; 128-row session tiles and 64-row item
 // tiles, staged row-major in shared memory at a pitch of D + 8 bf16 by
-// 16-byte cp.async, the item tiles through a ring of two (the next loading
-// while this one multiplies).
-// - Kernel 6: block (x, y) owns session tile x and item chunk y (2,048 rows,
-//   ops/softmax_lse.py LSE_CHUNK), as the f32 kernel; warps 4 x 2 take 32 x
-//   32 of each 128 x 64 logits tile and fold it into running (max, sum of
-//   exp) pairs of their rows, merged by shuffles and then across the two warp
-//   columns through shared memory. 69,632 bytes of tiles at D = 128.
-// - Kernel 7: the f32 one pass's grid (ops/softmax_lse.py `fused_bwd_plan`:
-//   block (x, y) owns item chunk x of 2,048 rows and group y of session
-//   tiles, all blocks in one wave). Per (session tile, item tile) pair: the
-//   logits (warps 4 x 2, 32 x 32 each), the rounded probability tile staged
-//   twice in shared memory ([session][item] as the A operand of ds,
-//   [item][session] as the A operand of di), ds += (P - D) items into
-//   registers (warps 4 x 2: 32 rows x D / 2), di += (P - D)^T s (warps 4 x 2:
-//   16 item rows x D / 2) read from and written back to the block's own f32
-//   di partial rows in device memory (each thread its own entries, so no
-//   other thread and no other block touches them). The B operands whose
-//   depth runs across rows (items for ds, sessions for di) are read as two
-//   16-bit values a register. 107,520 bytes of shared memory at D = 128.
+// 16-byte cp.async, through a ring of two where a block walks many tiles
+// (the next loading while this one multiplies). The bias of an item tile is
+// copied to shared memory beside it.
+// - Kernels 6 and 8: block (x, y) owns session tile x and item chunk y
+//   (2,048 rows, ops/softmax_lse.py LSE_CHUNK), as the f32 kernel; warps 4 x 2
+//   take 32 x 32 of each 128 x 64 logits tile and fold it into running (max,
+//   sum of exp) pairs of their rows, merged by shuffles and then across the
+//   two warp columns through shared memory. 71,936 bytes of shared memory at
+//   D = 128.
+// - Kernels 7 and 9: the f32 one pass's grid (ops/softmax_lse.py
+//   `fused_bwd_plan`: block (x, y) owns item chunk x of 2,048 rows and group y
+//   of session tiles, all blocks in one wave). Per (session tile, item tile)
+//   pair: the logits (warps 4 x 2, 32 x 32 each), the rounded probability
+//   tile staged twice in shared memory ([session][item] as the A operand of
+//   ds, [item][session] as the A operand of di), ds += P items into
+//   registers (warps 4 x 2: 32 rows x D / 2), di += P^T s (warps 4 x 2: 16
+//   item rows x D / 2) read from and written back to the block's own f32 di
+//   partial rows in device memory (each thread its own entries, so no other
+//   thread and no other block touches them). The B operands whose depth runs
+//   across rows (items for ds, sessions for di) are read as two 16-bit values
+//   a register. 107,776 bytes of shared memory at D = 128.
+// - Kernel 10: the f32 split ds kernel's grid (ops/softmax_lse.py
+//   `split_bwd_plan`: block (x, y) owns session tile x and item chunk y, 1 to
+//   4 chunks), kernel 9's products 1 and 2 on each item tile of its chunk,
+//   ds in registers, written as the f32 ds partial of (chunk, session tile)
+//   that the caller sums in order. 89,344 bytes at D = 128.
+// - Kernel 11: block x owns the 64-row item tile x and walks every 128-row
+//   session tile through a ring of two: the logits (product 1), p rounded to
+//   bf16 into [item][session], the session tile times dlse rounded to bf16
+//   into a third tile, and di += p^T (s * dlse) (warps 4 x 2: 16 item rows x
+//   D / 2) in registers; it writes its f32 di rows once. N / 64 blocks.
+//   140,544 bytes at D = 128.
 //
 // Bound on an H100 at the training shape M = 51,200, N = 15,872, D = 128:
-// kernel 6 is one logit product, 2 M N D = 208 GFLOP, 0.21 ms at 989
-// TFLOP/s bf16 (its inputs, 17 MB, take 0.005 ms at 3.35 TB/s); kernel 7 is
-// three, 624 GFLOP, 0.63 ms, with 0.24 GB of inputs and partials (0.07 ms).
-// What bounds them as written is issue and latency: `mma.sync` (not `wgmma`),
-// one block of 8 warps per SM for kernel 7, the exps, the 16-bit reads of the
-// transposed operands and kernel 7's di read-modify-write in device memory;
-// chip_smoke.py's `bf16` phase prints their times beside these bounds.
+// kernels 6 and 8 are one logit product, 2 M N D = 208 GFLOP, 0.21 ms at 989
+// TFLOP/s bf16 (their inputs, 17 MB, take 0.005 ms at 3.35 TB/s); kernels 7
+// and 9 are three, 624 GFLOP, 0.63 ms, with 0.24 GB of inputs and partials
+// (0.07 ms); kernels 10 and 11 two each, 0.42 ms. At a (2, 2) mesh's shard
+// (25,600 x 7,936) each is a quarter of that. What bounds them as written is
+// issue and latency: `mma.sync` (not `wgmma`), one block of 8 warps per SM for
+// the gradient kernels, the exps, the 16-bit reads of the transposed
+// operands and kernel 7 / 9's di read-modify-write in device memory;
+// chip_smoke.py's `bf16` and `bf16 mesh` lines print their times beside
+// these bounds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,7 +113,14 @@ struct LseSmem {
   __nv_bfloat16 items[2][kBN * bt::pitch(D)];
   float red_m[2][kBM];
   float red_l[2][kBM];
+  float bias[kBN];  // kernel 8: the bias of the item tile being multiplied
 };
+
+// the bias of item rows [n0, n0 + 64) into shared memory, 0 past n_end (those
+// columns are forced to 0 or left out); threads 0..63 each copy one
+__device__ __forceinline__ void load_bias(float* dst, const float* __restrict__ bias, long long n0, long long n_end) {
+  if (threadIdx.x < kBN) dst[threadIdx.x] = n0 + threadIdx.x < n_end ? bias[n0 + threadIdx.x] : 0.f;
+}
 
 __device__ __forceinline__ void merge_pair(float& m, float& l, float m_o, float l_o) {
   const float m_new = fmaxf(m, m_o);
@@ -87,11 +128,12 @@ __device__ __forceinline__ void merge_pair(float& m, float& l, float m_o, float 
   m = m_new;
 }
 
-template <int D>
+// kernel 6 (kBias false) and kernel 8 (kBias true: `bias` added to each logit)
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads)
     lse_partials_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ items,
-                             float* __restrict__ m_part, float* __restrict__ l_part, long long M, long long N,
-                             long long chunk_rows) {
+                             const float* __restrict__ bias, float* __restrict__ m_part, float* __restrict__ l_part,
+                             long long M, long long N, long long chunk_rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   LseSmem<D>& sm = *reinterpret_cast<LseSmem<D>*>(smem_raw);
   constexpr int P = bt::pitch(D);
@@ -121,6 +163,7 @@ __global__ void __launch_bounds__(kThreads)
     } else {
       tc::cp_wait<0>();
     }
+    if (kBias) load_bias(sm.bias, bias, n_begin + (long long)it * kBN, n_end);
     __syncthreads();
     const __nv_bfloat16* tile = sm.items[it & 1];
     float acc[2][4][4];
@@ -141,6 +184,14 @@ __global__ void __launch_bounds__(kThreads)
       for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
         for (int nf = 0; nf < 4; ++nf) bt::mma(acc[mf][nf], a[mf], b[nf]);
+    }
+    if (kBias) {  // the f32 bias onto the f32 logits (rectools_tpu/ops/softmax_lse.py:116-124)
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mf][nf][e] += sm.bias[32 * wc + 8 * nf + 2 * t + (e & 1)];
     }
     const long long n0 = n_begin + (long long)it * kBN + 32 * wc + 2 * t;
 #pragma unroll
@@ -189,10 +240,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ----------------------------------------------------------------- kernel 7
+// ------------------------------------------------------- kernels 7 and 9
 
 constexpr int kPP = bt::pitch(kBN);  // the probability tile [session][item]
 constexpr int kPTP = bt::pitch(kBM);  // its transpose [item][session]
+
+// The one pass's two forms. kCE (kernel 7): z = row_a, coeff = row_b, labels
+// y, pw = exp(logit - z) - coeff [item == y]. kLse (kernel 9): lse = row_a,
+// dlse = row_b, the item rows' bias, pw = exp((logit + bias) - lse) * dlse.
+enum Form : int { kCE = 0, kLse = 1 };
 
 template <int D>
 struct CeSmem {
@@ -203,15 +259,16 @@ struct CeSmem {
   float z[kBM];
   float coeff[kBM];
   long long y[kBM];
+  float bias[kBN];
 };
 
-template <int D>
+template <int D, int F>
 __global__ void __launch_bounds__(kThreads, 1)
     ce_fused_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ items,
                          const float* __restrict__ z, const long long* __restrict__ y,
-                         const float* __restrict__ coeff, void* __restrict__ ds_part, float* __restrict__ di_part,
-                         long long M, long long N, long long chunk_rows, long long tiles_per_group,
-                         int bf16_partials) {
+                         const float* __restrict__ coeff, const float* __restrict__ bias, void* __restrict__ ds_part,
+                         float* __restrict__ di_part, long long M, long long N, long long chunk_rows,
+                         long long tiles_per_group, int bf16_partials) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   CeSmem<D>& sm = *reinterpret_cast<CeSmem<D>*>(smem_raw);
   constexpr int P = bt::pitch(D);
@@ -237,7 +294,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bool ok = row < M;
       sm.z[threadIdx.x] = ok ? z[row] : INFINITY;
       sm.coeff[threadIdx.x] = ok ? coeff[row] : 0.f;
-      sm.y[threadIdx.x] = ok ? y[row] : -1;
+      if (F == kCE) sm.y[threadIdx.x] = ok ? y[row] : -1;
     }
     float ds[2][kNF][4];
 #pragma unroll
@@ -256,6 +313,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       } else {
         tc::cp_wait<0>();
       }
+      if (F == kLse) load_bias(sm.bias, bias, item0, n_end);
       __syncthreads();
       const __nv_bfloat16* tile = sm.items[it & 1];
 
@@ -279,7 +337,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int nf = 0; nf < 4; ++nf) bt::mma(acc[mf][nf], a[mf], b[nf]);
       }
-      // the probability tile in f32, the label term, the tail, then bf16
+      // the probability tile in f32 (kCE: the label term; kLse: the bias and
+      // the cotangent), the tail, then bf16
 #pragma unroll
       for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
@@ -289,8 +348,13 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int r = 32 * wr + 16 * mf + g + 8 * (e >> 1);
             const int c = 32 * wc + 8 * nf + 2 * t + (e & 1);
             const long long item = item0 + c;
-            float pw = expf(acc[mf][nf][e] - sm.z[r]);
-            if (item == sm.y[r]) pw -= sm.coeff[r];
+            float pw;
+            if (F == kLse) {
+              pw = expf((acc[mf][nf][e] + sm.bias[c]) - sm.z[r]) * sm.coeff[r];
+            } else {
+              pw = expf(acc[mf][nf][e] - sm.z[r]);
+              if (item == sm.y[r]) pw -= sm.coeff[r];
+            }
             if (item >= n_end) pw = 0.f;
             const __nv_bfloat16 pb = __float2bfloat16_rn(pw);
             sm.p[r * kPP + c] = pb;
@@ -373,31 +437,314 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ------------------------------------------------------------ kernel 10
+
 template <int D>
-int launch_lse(const __nv_bfloat16* s, const __nv_bfloat16* items, float* m_part, float* l_part, long long M,
-               long long N, long long chunk_rows, cudaStream_t stream) {
+struct DsSmem {
+  __nv_bfloat16 s[kBM * bt::pitch(D)];
+  __nv_bfloat16 items[2][kBN * bt::pitch(D)];
+  __nv_bfloat16 p[kBM * kPP];
+  float lse[kBM];
+  float dlse[kBM];
+  float bias[kBN];
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    lse_bwd_ds_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ items,
+                           const float* __restrict__ bias, const float* __restrict__ lse,
+                           const float* __restrict__ dlse, float* __restrict__ ds_part, long long M, long long N,
+                           long long chunk_rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DsSmem<D>& sm = *reinterpret_cast<DsSmem<D>*>(smem_raw);
+  constexpr int P = bt::pitch(D);
+  constexpr int kNF = D / 16;  // 8-column fragments of a warp's D / 2 columns of ds
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr = warp >> 1, wc = warp & 1;
+  const long long row0 = (long long)blockIdx.x * kBM;
+  const long long n_begin = (long long)blockIdx.y * chunk_rows;
+  const long long n_end = n_begin + chunk_rows < N ? n_begin + chunk_rows : N;
+  const int n_tiles = (int)((n_end - n_begin + kBN - 1) / kBN);
+
+  bt::stage_async<D, kBM, kThreads>(sm.s, s, D, row0, M);
+  bt::stage_async<D, kBN, kThreads>(sm.items[0], items, D, n_begin, n_end);
+  tc::cp_commit();
+  if (threadIdx.x < kBM) {
+    const long long row = row0 + threadIdx.x;
+    sm.lse[threadIdx.x] = row < M ? lse[row] : INFINITY;
+    sm.dlse[threadIdx.x] = row < M ? dlse[row] : 0.f;
+  }
+  float ds[2][kNF][4];
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[mf][nf][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const long long item0 = n_begin + (long long)it * kBN;
+    if (it + 1 < n_tiles) {
+      bt::stage_async<D, kBN, kThreads>(sm.items[(it + 1) & 1], items, D, item0 + kBN, n_end);
+      tc::cp_commit();
+      tc::cp_wait<1>();
+    } else {
+      tc::cp_wait<0>();
+    }
+    load_bias(sm.bias, bias, item0, n_end);
+    __syncthreads();
+    const __nv_bfloat16* tile = sm.items[it & 1];
+
+    // product 1: the logits of rows 32 wr + [0, 32), items 32 wc + [0, 32)
+    float acc[2][4][4];
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
+#pragma unroll
+    for (int k = 0; k < D; k += 16) {
+      uint32_t a[2][4], b[4][2];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf) bt::frag_a<P>(sm.s, 32 * wr + 16 * mf, k, a[mf]);
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf) bt::frag_b<P>(tile, 32 * wc + 8 * nf, k, b[nf]);
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) bt::mma(acc[mf][nf], a[mf], b[nf]);
+    }
+    // pw = exp((logit + bias) - lse) * dlse in f32, 0 past N, then bf16 (:220-231)
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 32 * wr + 16 * mf + g + 8 * (e >> 1);
+          const int c = 32 * wc + 8 * nf + 2 * t + (e & 1);
+          float pw = expf((acc[mf][nf][e] + sm.bias[c]) - sm.lse[r]) * sm.dlse[r];
+          if (item0 + c >= n_end) pw = 0.f;
+          sm.p[r * kPP + c] = __float2bfloat16_rn(pw);
+        }
+    __syncthreads();
+
+    // product 2: ds (rows 32 wr + [0, 32), columns D / 2 wc + [0, D / 2)) += P items
+#pragma unroll
+    for (int k = 0; k < kBN; k += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf) bt::frag_a<kPP>(sm.p, 32 * wr + 16 * mf, k, a[mf]);
+#pragma unroll
+      for (int nf = 0; nf < kNF; ++nf) {
+        uint32_t b[2];
+        bt::frag_b_t<P>(tile, k, (D / 2) * wc + 8 * nf, b);
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf) bt::mma(ds[mf][nf], a[mf], b);
+      }
+    }
+    __syncthreads();  // P and this ring slot are consumed
+  }
+
+  // the f32 ds partial of (item chunk, session tile)
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long row = row0 + 32 * wr + 16 * mf + g + 8 * hh;
+      if (row >= M) continue;
+      float* out = ds_part + ((long long)blockIdx.y * M + row) * D;
+#pragma unroll
+      for (int nf = 0; nf < kNF; ++nf) {
+        const int col = (D / 2) * wc + 8 * nf + 2 * t;
+        *reinterpret_cast<float2*>(out + col) = make_float2(ds[mf][nf][2 * hh], ds[mf][nf][2 * hh + 1]);
+      }
+    }
+}
+
+// ------------------------------------------------------------ kernel 11
+
+template <int D>
+struct DiSmem {
+  __nv_bfloat16 items[kBN * bt::pitch(D)];
+  __nv_bfloat16 s[2][kBM * bt::pitch(D)];
+  __nv_bfloat16 ws[kBM * bt::pitch(D)];  // the session tile times dlse, rounded to bf16
+  __nv_bfloat16 pt[kBN * kPTP];          // p rounded to bf16, [item][session]
+  float lse[kBM];
+  float dlse[kBM];
+  float bias[kBN];
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    lse_bwd_di_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ items,
+                           const float* __restrict__ bias, const float* __restrict__ lse,
+                           const float* __restrict__ dlse, float* __restrict__ di_out, long long M, long long N) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DiSmem<D>& sm = *reinterpret_cast<DiSmem<D>*>(smem_raw);
+  constexpr int P = bt::pitch(D);
+  constexpr int kNF = D / 16;  // 8-column fragments of a warp's D / 2 columns of di
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr = warp >> 1, wc = warp & 1;
+  const long long item0 = (long long)blockIdx.x * kBN;
+  const long long m_tiles = (M + kBM - 1) / kBM;
+
+  bt::stage_async<D, kBN, kThreads>(sm.items, items, D, item0, N);
+  bt::stage_async<D, kBM, kThreads>(sm.s[0], s, D, 0, M);
+  tc::cp_commit();
+  load_bias(sm.bias, bias, item0, N);  // read after the first barrier
+  float di[kNF][4];
+#pragma unroll
+  for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) di[nf][e] = 0.f;
+
+  for (long long st = 0; st < m_tiles; ++st) {
+    const long long row0 = st * kBM;
+    if (st + 1 < m_tiles) {
+      bt::stage_async<D, kBM, kThreads>(sm.s[(st + 1) & 1], s, D, row0 + kBM, M);
+      tc::cp_commit();
+      tc::cp_wait<1>();
+    } else {
+      tc::cp_wait<0>();
+    }
+    if (threadIdx.x < kBM) {
+      const long long row = row0 + threadIdx.x;
+      sm.lse[threadIdx.x] = row < M ? lse[row] : INFINITY;
+      sm.dlse[threadIdx.x] = row < M ? dlse[row] : 0.f;
+    }
+    __syncthreads();
+    const __nv_bfloat16* tile = sm.s[st & 1];
+
+    // s * dlse in f32, rounded to bf16 (:281-282); rows past M are zeros times 0
+    for (int idx = threadIdx.x; idx < kBM * (D / 2); idx += kThreads) {
+      const int r = idx / (D / 2);
+      const int c = 2 * (idx - r * (D / 2));
+      const uint32_t v = bt::ld2(tile + r * P + c);
+      const float x0 = __bfloat162float(__ushort_as_bfloat16((unsigned short)(v & 0xffffu)));
+      const float x1 = __bfloat162float(__ushort_as_bfloat16((unsigned short)(v >> 16)));
+      *reinterpret_cast<uint32_t*>(sm.ws + r * P + c) = bt::pack(x0 * sm.dlse[r], x1 * sm.dlse[r]);
+    }
+
+    // product 1: the logits of session rows 32 wr + [0, 32), items 32 wc + [0, 32)
+    float acc[2][4][4];
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
+#pragma unroll
+    for (int k = 0; k < D; k += 16) {
+      uint32_t a[2][4], b[4][2];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf) bt::frag_a<P>(tile, 32 * wr + 16 * mf, k, a[mf]);
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf) bt::frag_b<P>(sm.items, 32 * wc + 8 * nf, k, b[nf]);
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) bt::mma(acc[mf][nf], a[mf], b[nf]);
+    }
+    // p = exp((logit + bias) - lse) in f32, 0 past N, then bf16 (:279-280), as [item][session]
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 32 * wr + 16 * mf + g + 8 * (e >> 1);
+          const int c = 32 * wc + 8 * nf + 2 * t + (e & 1);
+          float p = expf((acc[mf][nf][e] + sm.bias[c]) - sm.lse[r]);
+          if (item0 + c >= N) p = 0.f;
+          sm.pt[c * kPTP + r] = __float2bfloat16_rn(p);
+        }
+    __syncthreads();
+
+    // product 3: di (item rows 16 wr + [0, 16), columns D / 2 wc + [0, D / 2)) += p^T (s * dlse)
+#pragma unroll
+    for (int k = 0; k < kBM; k += 16) {
+      uint32_t a[4];
+      bt::frag_a<kPTP>(sm.pt, 16 * wr, k, a);
+#pragma unroll
+      for (int nf = 0; nf < kNF; ++nf) {
+        uint32_t b[2];
+        bt::frag_b_t<P>(sm.ws, k, (D / 2) * wc + 8 * nf, b);
+        bt::mma(di[nf], a, b);
+      }
+    }
+    __syncthreads();  // p, s * dlse, the row vectors and this ring slot are consumed
+  }
+
+  const long long di_row = item0 + 16 * wr + g;
+#pragma unroll
+  for (int nf = 0; nf < kNF; ++nf) {
+    const int col = (D / 2) * wc + 8 * nf + 2 * t;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      if (di_row + 8 * hh < N)
+        *reinterpret_cast<float2*>(di_out + (di_row + 8 * hh) * D + col) = make_float2(di[nf][2 * hh],
+                                                                                        di[nf][2 * hh + 1]);
+  }
+}
+
+// ---------------------------------------------------------------- launches
+
+template <int D, bool kBias>
+int launch_lse(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* bias, float* m_part, float* l_part,
+               long long M, long long N, long long chunk_rows, cudaStream_t stream) {
   const int smem = (int)sizeof(LseSmem<D>);
   cudaError_t err =
-      cudaFuncSetAttribute(lse_partials_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(lse_partials_bf16_kernel<D, kBias>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((N + chunk_rows - 1) / chunk_rows));
-  lse_partials_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(s, items, m_part, l_part, M, N, chunk_rows);
+  lse_partials_bf16_kernel<D, kBias><<<grid, kThreads, smem, stream>>>(s, items, bias, m_part, l_part, M, N,
+                                                                        chunk_rows);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int F>
 int launch_ce(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* z, const long long* y,
-              const float* coeff, void* ds_part, float* di_part, long long M, long long N, long long chunk_rows,
-              long long tiles_per_group, long long n_groups, int bf16_partials, cudaStream_t stream) {
+              const float* coeff, const float* bias, void* ds_part, float* di_part, long long M, long long N,
+              long long chunk_rows, long long tiles_per_group, long long n_groups, int bf16_partials,
+              cudaStream_t stream) {
   const long long m_tiles = (M + kBM - 1) / kBM;
   if (tiles_per_group <= 0 || (m_tiles + tiles_per_group - 1) / tiles_per_group != n_groups)
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(CeSmem<D>);
-  cudaError_t err = cudaFuncSetAttribute(ce_fused_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(ce_fused_bf16_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((N + chunk_rows - 1) / chunk_rows), (unsigned)n_groups);
-  ce_fused_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(s, items, z, y, coeff, ds_part, di_part, M, N,
-                                                            chunk_rows, tiles_per_group, bf16_partials);
+  ce_fused_bf16_kernel<D, F><<<grid, kThreads, smem, stream>>>(s, items, z, y, coeff, bias, ds_part, di_part, M, N,
+                                                               chunk_rows, tiles_per_group, bf16_partials);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_ds(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* bias, const float* lse,
+              const float* dlse, float* ds_part, long long M, long long N, long long chunk_rows, long long n_chunks,
+              cudaStream_t stream) {
+  if ((N + chunk_rows - 1) / chunk_rows != n_chunks) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(DsSmem<D>);
+  cudaError_t err =
+      cudaFuncSetAttribute(lse_bwd_ds_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)n_chunks);
+  lse_bwd_ds_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(s, items, bias, lse, dlse, ds_part, M, N, chunk_rows);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_di(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* bias, const float* lse,
+              const float* dlse, float* di, long long M, long long N, cudaStream_t stream) {
+  const int smem = (int)sizeof(DiSmem<D>);
+  cudaError_t err =
+      cudaFuncSetAttribute(lse_bwd_di_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  lse_bwd_di_bf16_kernel<D><<<(unsigned)((N + kBN - 1) / kBN), kThreads, smem, stream>>>(s, items, bias, lse, dlse,
+                                                                                         di, M, N);
   return (int)cudaGetLastError();
 }
 
@@ -414,9 +761,25 @@ extern "C" int lse_partials_bf16(const void* s, const void* items, float* m_part
   const auto* sb = static_cast<const __nv_bfloat16*>(s);
   const auto* ib = static_cast<const __nv_bfloat16*>(items);
   switch (D) {
-    case 32: return launch_lse<32>(sb, ib, m_part, l_part, M, N, chunk_rows, stream);
-    case 64: return launch_lse<64>(sb, ib, m_part, l_part, M, N, chunk_rows, stream);
-    case 128: return launch_lse<128>(sb, ib, m_part, l_part, M, N, chunk_rows, stream);
+    case 32: return launch_lse<32, false>(sb, ib, nullptr, m_part, l_part, M, N, chunk_rows, stream);
+    case 64: return launch_lse<64, false>(sb, ib, nullptr, m_part, l_part, M, N, chunk_rows, stream);
+    case 128: return launch_lse<128, false>(sb, ib, nullptr, m_part, l_part, M, N, chunk_rows, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel 8: kernel 6 with the f32 (N,) bias added to each logit; the same
+// partials.
+extern "C" int lse_bias_bf16(const void* s, const void* items, const float* bias, float* m_part, float* l_part,
+                             long long M, long long N, int D, long long chunk_rows, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
+  const auto* sb = static_cast<const __nv_bfloat16*>(s);
+  const auto* ib = static_cast<const __nv_bfloat16*>(items);
+  switch (D) {
+    case 32: return launch_lse<32, true>(sb, ib, bias, m_part, l_part, M, N, chunk_rows, stream);
+    case 64: return launch_lse<64, true>(sb, ib, bias, m_part, l_part, M, N, chunk_rows, stream);
+    case 128: return launch_lse<128, true>(sb, ib, bias, m_part, l_part, M, N, chunk_rows, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -436,14 +799,71 @@ extern "C" int ce_fused_bf16(const void* s, const void* items, const float* z, c
   const auto* ib = static_cast<const __nv_bfloat16*>(items);
   switch (D) {
     case 32:
-      return launch_ce<32>(sb, ib, z, y, coeff, ds_part, di_part, M, N, chunk_rows, tiles_per_group, n_groups,
-                           bf16_partials, stream);
+      return launch_ce<32, kCE>(sb, ib, z, y, coeff, nullptr, ds_part, di_part, M, N, chunk_rows, tiles_per_group,
+                                n_groups, bf16_partials, stream);
     case 64:
-      return launch_ce<64>(sb, ib, z, y, coeff, ds_part, di_part, M, N, chunk_rows, tiles_per_group, n_groups,
-                           bf16_partials, stream);
+      return launch_ce<64, kCE>(sb, ib, z, y, coeff, nullptr, ds_part, di_part, M, N, chunk_rows, tiles_per_group,
+                                n_groups, bf16_partials, stream);
     case 128:
-      return launch_ce<128>(sb, ib, z, y, coeff, ds_part, di_part, M, N, chunk_rows, tiles_per_group, n_groups,
-                            bf16_partials, stream);
+      return launch_ce<128, kCE>(sb, ib, z, y, coeff, nullptr, ds_part, di_part, M, N, chunk_rows, tiles_per_group,
+                                 n_groups, bf16_partials, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel 9: the generic lse backward in one pass, on kernel 7's grid: f32 ds
+// partials (n_chunks, M, D) and f32 di partials (n_groups, N, D). bias f32
+// (N,), lse and dlse f32 (M,).
+extern "C" int lse_bwd_fused_bf16(const void* s, const void* items, const float* bias, const float* lse,
+                                  const float* dlse, float* ds_part, float* di_part, long long M, long long N, int D,
+                                  long long chunk_rows, long long tiles_per_group, long long n_groups,
+                                  cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
+  const auto* sb = static_cast<const __nv_bfloat16*>(s);
+  const auto* ib = static_cast<const __nv_bfloat16*>(items);
+  switch (D) {
+    case 32:
+      return launch_ce<32, kLse>(sb, ib, lse, nullptr, dlse, bias, ds_part, di_part, M, N, chunk_rows,
+                                 tiles_per_group, n_groups, 0, stream);
+    case 64:
+      return launch_ce<64, kLse>(sb, ib, lse, nullptr, dlse, bias, ds_part, di_part, M, N, chunk_rows,
+                                 tiles_per_group, n_groups, 0, stream);
+    case 128:
+      return launch_ce<128, kLse>(sb, ib, lse, nullptr, dlse, bias, ds_part, di_part, M, N, chunk_rows,
+                                  tiles_per_group, n_groups, 0, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel 10: f32 ds partials (n_chunks, M, D), one per item chunk of
+// chunk_rows rows (a multiple of 64) of ops/softmax_lse.py `split_bwd_plan`;
+// another n_chunks returns cudaErrorInvalidValue.
+extern "C" int lse_bwd_ds_bf16(const void* s, const void* items, const float* bias, const float* lse,
+                               const float* dlse, float* ds_part, long long M, long long N, int D,
+                               long long chunk_rows, long long n_chunks, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
+  const auto* sb = static_cast<const __nv_bfloat16*>(s);
+  const auto* ib = static_cast<const __nv_bfloat16*>(items);
+  switch (D) {
+    case 32: return launch_ds<32>(sb, ib, bias, lse, dlse, ds_part, M, N, chunk_rows, n_chunks, stream);
+    case 64: return launch_ds<64>(sb, ib, bias, lse, dlse, ds_part, M, N, chunk_rows, n_chunks, stream);
+    case 128: return launch_ds<128>(sb, ib, bias, lse, dlse, ds_part, M, N, chunk_rows, n_chunks, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel 11: f32 di (N, D), each 64-row item tile written once by its block.
+extern "C" int lse_bwd_di_bf16(const void* s, const void* items, const float* bias, const float* lse,
+                               const float* dlse, float* di, long long M, long long N, int D, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  const auto* sb = static_cast<const __nv_bfloat16*>(s);
+  const auto* ib = static_cast<const __nv_bfloat16*>(items);
+  switch (D) {
+    case 32: return launch_di<32>(sb, ib, bias, lse, dlse, di, M, N, stream);
+    case 64: return launch_di<64>(sb, ib, bias, lse, dlse, di, M, N, stream);
+    case 128: return launch_di<128>(sb, ib, bias, lse, dlse, di, M, N, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -67,13 +67,17 @@ forms of the attention kernels (2, 5) or, in HSTU, of the STU kernels
 embedding gather and its scatter-add in bf16 (one bf16 rounding per added
 row, in index order, as XLA's scatter-add sums them). The fused loss applies
 the temperature in f32 and rounds the towers to bf16 for the bf16 forms of
-kernels 6 and 7; every other logit is an f32 sum of bf16 products. The
+kernels 6 and 7, or under ``mesh_shape`` of the mesh loss's kernels 8 and 9
+(10 + 11 above the partials budget), whose shards' session gradients are
+rounded to bf16 and summed over the model group in bf16 (JAX's transpose of
+the replicated input); the column-sharded tables' bf16 copies are gathered
+over the model group. Every other logit is an f32 sum of bf16 products. The
 validation recall and serving read the f32 weights, as in JAX. Routes
 without a bf16 kernel raise ``NotImplementedError`` naming ROADMAP §1 item
-5 (``mesh_shape``, the large-catalog and two-launch CE routes, head dim 8, D
-outside 32..128, the bounded-shift and running-max forwards); none runs in
-f32. ``compute_dtype="auto"`` resolves to float32 here (JAX: bf16 on a TPU
-only; a standing divergence, ROADMAP §3).
+5 (the large-catalog and two-launch CE routes, head dim 8, D outside
+32..128, the bounded-shift and running-max forwards); none runs in f32.
+``compute_dtype="auto"`` resolves to float32 here (JAX: bf16 on a TPU only;
+a standing divergence, ROADMAP §3).
 ``steps_per_dispatch`` is validated for config compatibility and otherwise
 unused: it never changes the trajectory in the JAX package, and the port
 dispatches step by step.
@@ -88,7 +92,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ....dataset.dataset import Dataset
-from ....ops._native import BF16_ROADMAP
 from ....ops.softmax_lse import sharded_streaming_lse
 from ....parallel import collectives
 from ....parallel.distributed import data_parallel_row_range, global_batch_to_local
@@ -206,11 +209,6 @@ class TransformerTrainingModuleBase:
             raise ValueError(
                 "negatives_sharing='batch' draws its negatives on device; "
                 "it requires negatives_on_device=True and the default CatalogUniformSampler"
-            )
-        if compute_dtype == "bfloat16" and mesh_shape is not None:
-            raise NotImplementedError(
-                f"compute_dtype='bfloat16' with mesh_shape: the mesh loss (kernels 8-11) has no bf16 form yet "
-                f"({BF16_ROADMAP})"
             )
         self.compute_dtype = compute_dtype
         self.mesh_shape = (int(mesh_shape[0]), int(mesh_shape[1])) if mesh_shape is not None else None

@@ -47,18 +47,34 @@ memory: :func:`lse_cluster_plan`; kernel 16 on kernel 6's grid, with plain
 sums of the two windows in place of the running max).
 
 bf16 sessions and items (mixed-precision training) take bf16 forms of
-kernels 6 and 7 in ``csrc/softmax_lse_bf16.cu`` (``lse_partials_bf16``,
-``ce_fused_bf16``; launch keys ``lse_partials_fwd_bf16``,
-``ce_grads_fused_bf16``): bf16 tensor-core products with f32 accumulation,
-the lse and its partials in f32, kernel 7's probability operand rounded to
-bf16 before both products and its ds partials stored in bf16
-(``BF16_DS_PARTIALS``), as the JAX kernels do for bf16 inputs. Their twins
-(:func:`streaming_lse_bf16_reference`,
-:func:`softmax_ce_grads_from_z_bf16_reference`) multiply the bf16 values in
-f32, which is exact, so twin and card differ only in the order of f32 sums.
-Every other route (kernels 8–16: the bias, the shift and running-max
-forwards, the generic lse backward, the softmax gradients from z, kernel 7's
-two launches and the large-catalog route) and D outside 32..128 raise
+kernels 6 to 11 in ``csrc/softmax_lse_bf16.cu``: bf16 tensor-core products
+with f32 accumulation, the lse and its partials in f32, as the JAX kernels
+do for bf16 inputs.
+
+- kernel 6 ``lse_partials_bf16`` (launch key ``lse_partials_fwd_bf16``) and
+  kernel 8 ``lse_bias_bf16`` (``lse_bias_fwd_bf16``: the same kernel with
+  the bias added to each f32 logit; a zero bias gives kernel 6's bits);
+- kernel 7's one pass ``ce_fused_bf16`` (``ce_grads_fused_bf16``): the
+  probability operand rounded to bf16 before both products, its ds partials
+  stored in bf16 (``BF16_DS_PARTIALS``);
+- the generic lse backward, kernel 9 ``lse_bwd_fused_bf16``
+  (``lse_bwd_fused_bf16``: kernel 7's grid, pw = exp((logit + bias) − lse) ·
+  dlse rounded to bf16 once for both products, f32 ds partials: the
+  partials budget counts 4 bytes an entry whatever the dtype, as JAX's
+  route test does), or above the budget kernels 10 ``lse_bwd_ds_bf16`` (the
+  same pw, ds summed in f32) and 11 ``lse_bwd_di_bf16`` (its own rounding
+  points: p and s · dlse each rounded to bf16, di = pᵀ (s · dlse) summed in
+  f32). ds and di come back in f32; the autograd functions round them to
+  bf16, as JAX's VJP does. This is the mesh loss's route.
+
+Their twins (:func:`streaming_lse_bf16_reference`,
+:func:`streaming_lse_bias_bf16_reference`,
+:func:`softmax_ce_grads_from_z_bf16_reference`,
+:func:`streaming_lse_bwd_bf16_reference`) multiply the bf16 values in f32,
+which is exact, so twin and card differ only in the order of f32 sums.
+Every other route (kernels 12–16: the shift and running-max forwards
+without a bias, the softmax gradients from z, kernel 7's two launches and
+the large-catalog route) and D outside 32..128 raise
 ``NotImplementedError`` for bf16 inputs, on the card and on the CPU alike.
 
 CPU tensors take the twins, which walk the catalog in item chunks exactly as
@@ -154,6 +170,15 @@ _SIGNATURES_BF16 = {
     # sessions, items, z, y (int64), coeff, ds partials, di partials; M, N, D; chunk rows, tiles per group,
     # session groups, bf16 partials; stream
     "ce_fused_bf16": (_C,) * 7 + (_LL, _LL, _I, _LL, _LL, _LL, _I, _C),
+    # sessions, items, bias, max partials, sum partials; M, N, D; chunk rows; stream
+    "lse_bias_bf16": (_C, _C, _C, _C, _C, _LL, _LL, _I, _LL, _C),
+    # sessions, items, bias, lse, dlse, f32 ds partials, f32 di partials; M, N, D; chunk rows, tiles per group,
+    # session groups; stream
+    "lse_bwd_fused_bf16": (_C,) * 7 + (_LL, _LL, _I, _LL, _LL, _LL, _C),
+    # sessions, items, bias, lse, dlse, f32 ds partials; M, N, D; chunk rows, chunks; stream
+    "lse_bwd_ds_bf16": (_C,) * 6 + (_LL, _LL, _I, _LL, _LL, _C),
+    # sessions, items, bias, lse, dlse, f32 di; M, N, D; stream
+    "lse_bwd_di_bf16": (_C,) * 6 + (_LL, _LL, _I, _C),
 }
 # The feature widths of the bf16 kernels: the tensor-core tile's. 16 and 256
 # (the f32 SIMT tile) have no bf16 form yet.
@@ -296,13 +321,16 @@ def _grads_reference(
     weights: tp.Callable[[torch.Tensor, int], torch.Tensor],
     chunk: int,
     partials: bool,
+    di_terms: tp.Optional[tp.Tuple[tp.Callable[[torch.Tensor, int], torch.Tensor], torch.Tensor]] = None,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """(pw @ items, pwᵀ @ sessions) with ``pw = weights(logits, start)`` per
     step of ``chunk`` item rows. ``partials=True`` sums one ds partial per step
     at the end, as a fused kernel's caller does; ``False`` takes the split ds
     kernel's order: one partial per item chunk of :func:`split_bwd_plan` (at an
     H100's 132 multiprocessors), each a running sum over its steps, summed at
-    the end."""
+    the end. ``di_terms = (di_weights, rows)`` gives di as
+    ``di_weights(logits, start)ᵀ @ rows`` instead (a split di kernel that
+    rounds its own operands)."""
     m, n = sessions.shape[0], items.shape[0]
     ds_rows = chunk if partials else split_bwd_plan(m, n, sessions.shape[1], 132)[1]
     di = torch.empty_like(items)
@@ -312,10 +340,14 @@ def _grads_reference(
         part = None
         for start in range(lo, hi, chunk):
             block = items[start : min(start + chunk, hi)]
-            pw = weights(sessions @ block.T, start)
+            logits = sessions @ block.T
+            pw = weights(logits, start)
             term = pw @ block
             part = term if part is None else part + term
-            di[start : start + block.shape[0]] = pw.T @ sessions
+            if di_terms is None:
+                di[start : start + block.shape[0]] = pw.T @ sessions
+            else:
+                di[start : start + block.shape[0]] = di_terms[0](logits, start).T @ di_terms[1]
         ds_parts.append(part)
     if not ds_parts:
         return torch.zeros_like(sessions), di
@@ -379,6 +411,47 @@ def streaming_lse_bf16_reference(sessions: torch.Tensor, items: torch.Tensor) ->
     kernel 6's twin on the bf16 values in f32. A product of two bf16 values is
     exact in f32, so the logits are the card's up to the order of their sums."""
     return streaming_lse_partials_reference(sessions.float(), items.float())
+
+
+def streaming_lse_bias_bf16_reference(
+    sessions: torch.Tensor, items: torch.Tensor, row_bias: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch twin of ``lse_bias_bf16`` (kernel 8 on bf16 towers):
+    kernel 8's twin on the bf16 values in f32, the f32 bias added to each f32
+    logit (rectools_tpu/ops/softmax_lse.py:116-124). A zero bias gives
+    :func:`streaming_lse_bf16_reference`, bit for bit."""
+    return streaming_lse_partials_reference(sessions.float(), items.float(), LSE_CHUNK, row_bias)
+
+
+def streaming_lse_bwd_bf16_reference(
+    sessions: torch.Tensor,
+    items: torch.Tensor,
+    row_bias: torch.Tensor,
+    lse: torch.Tensor,
+    dlse: torch.Tensor,
+    partials: bool = True,
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of the lse backward on bf16 towers, (ds, di) in
+    f32. ``partials=True``: kernel 9 (``lse_bwd_fused_bf16``,
+    rectools_tpu/ops/softmax_lse.py:253-263), pw = exp((logit + bias) − lse)
+    · dlse in f32 rounded to bf16 once, one f32 ds partial per item chunk
+    summed at the end, di = pwᵀ s in f32. ``False``: kernels 10 + 11, ds from
+    the same pw as a running sum per item chunk of :func:`split_bwd_plan`
+    (:220-231), di from p = exp((logit + bias) − lse) and s · dlse, each
+    rounded to bf16 (:275-287)."""
+    s, it = sessions.float(), items.float()
+
+    def probs(logits: torch.Tensor, start: int) -> torch.Tensor:
+        return torch.exp((logits + row_bias[start : start + logits.shape[1]][None, :]) - lse[:, None])
+
+    def weights(logits: torch.Tensor, start: int) -> torch.Tensor:
+        return (probs(logits, start) * dlse[:, None]).to(torch.bfloat16).float()
+
+    def rounded_probs(logits: torch.Tensor, start: int) -> torch.Tensor:
+        return probs(logits, start).to(torch.bfloat16).float()
+
+    di_terms = None if partials else (rounded_probs, (s * dlse[:, None]).to(torch.bfloat16).float())
+    return _grads_reference(s, it, weights, FUSED_BWD_CHUNK, partials, di_terms)
 
 
 def softmax_ce_grads_from_z_bf16_reference(
@@ -539,29 +612,35 @@ def streaming_lse_fwd(
 
 
 def _lse_bf16(sessions: torch.Tensor, items: torch.Tensor, row_bias: tp.Optional[torch.Tensor]) -> torch.Tensor:
-    """Kernel 6's bf16 form (its twin on the CPU): the only bf16 lse forward."""
-    if row_bias is not None:
-        raise NotImplementedError(f"lse_bias_fwd: the biased forward (kernel 8) has no bf16 form yet "
-                                  f"({_native.BF16_ROADMAP})")
-    if not USE_PARTIALS_FWD:
+    """The bf16 lse forwards (their twins on the CPU): kernel 8's bf16 form
+    with a bias, else kernel 6's; the running max (kernel 15) has none yet."""
+    if row_bias is None and not USE_PARTIALS_FWD:
         raise NotImplementedError(f"lse_fwd: the running-max forward (kernel 15) has no bf16 form yet "
                                   f"({_native.BF16_ROADMAP})")
+    kernel = "lse_partials_fwd_bf16" if row_bias is None else "lse_bias_fwd_bf16"
     if sessions.device.type == "cpu":
-        return streaming_lse_bf16_reference(sessions, items)
-    _native.require_cuda("lse_partials_fwd_bf16", torch.bfloat16, sessions=sessions, items=items)
-    m, n, d = _check("lse_partials_fwd_bf16", sessions, items)
+        if row_bias is None:
+            return streaming_lse_bf16_reference(sessions, items)
+        return streaming_lse_bias_bf16_reference(sessions, items, row_bias)
+    _native.require_cuda(kernel, torch.bfloat16, sessions=sessions, items=items)
+    m, n, d = _check(kernel, sessions, items)
+    if row_bias is not None:
+        _native.require_cuda_f32(kernel, row_bias=row_bias)
+        _check_vectors(kernel, n, "item row", row_bias=row_bias)
     if m == 0 or n == 0:
         return torch.full((m,), float("-inf"), device=sessions.device)
     n_chunks = -(-n // LSE_CHUNK)
     m_part = torch.empty((n_chunks, m), dtype=torch.float32, device=sessions.device)
     l_part = torch.empty_like(m_part)
     lib = _native.load("softmax_lse_bf16", _SIGNATURES_BF16)
+    pointers = (sessions.data_ptr(), items.data_ptr())
+    tail = (m_part.data_ptr(), l_part.data_ptr(), m, n, d, LSE_CHUNK, _native.current_stream_ptr(sessions.device))
     with torch.cuda.device(sessions.device):
-        status = lib.lse_partials_bf16(
-            sessions.data_ptr(), items.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), m, n, d, LSE_CHUNK,
-            _native.current_stream_ptr(sessions.device),
-        )
-    _native.check_launch("lse_partials_fwd_bf16", status)
+        if row_bias is None:
+            status = lib.lse_partials_bf16(*pointers, *tail)
+        else:
+            status = lib.lse_bias_bf16(*pointers, row_bias.data_ptr(), *tail)
+    _native.check_launch(kernel, status)
     return combine_lse_partials(m_part, l_part)
 
 
@@ -581,20 +660,30 @@ def fused_bwd_plan(m: int, n: int, d: int, n_sms: int, ds_itemsize: int = 4) -> 
 
 
 def _fused_or_split(
-    prefix: str, sessions: torch.Tensor, items: torch.Tensor, row_pointers: tp.Tuple[int, ...], key: str = ""
+    prefix: str,
+    sessions: torch.Tensor,
+    items: torch.Tensor,
+    row_pointers: tp.Tuple[int, ...],
+    key: str = "",
+    bf16: bool = False,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """(ds, di) from ``{prefix}_fused_f32`` while its partials fit
+    """(ds, di) in f32 from ``{prefix}_fused_f32`` while its partials fit
     ``FUSED_BWD_PARTIALS_BUDGET``, else from ``{prefix}_ds_f32`` (on the grid
     of :func:`split_bwd_plan`) and ``{prefix}_di_f32``; ``row_pointers`` are
     the kernels' inputs after the sessions and the items. Launch keys:
-    ``{key}_fused`` / ``_ds`` / ``_di``, ``key`` defaulting to ``prefix``."""
+    ``{key}_fused`` / ``_ds`` / ``_di``, ``key`` defaulting to ``prefix``.
+    ``bf16`` takes the bf16 forms (``{prefix}_fused_bf16`` & co. of
+    ``softmax_lse_bf16.cu``, launch keys ending in ``_bf16``) on the same
+    grids and f32 partials."""
     key = key or prefix
+    suffix = "_bf16" if bf16 else "_f32"
+    key_suffix = "_bf16" if bf16 else ""
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
     if m == 0 or n == 0:
-        return torch.zeros_like(sessions), torch.zeros_like(items)
+        return torch.zeros((m, d), device=sessions.device), torch.zeros((n, d), device=sessions.device)
     n_sms = torch.cuda.get_device_properties(sessions.device).multi_processor_count
     tiles_per_group, n_groups, partials_bytes = fused_bwd_plan(m, n, d, n_sms)
-    lib = _native.load("softmax_lse", _SIGNATURES)
+    lib = _native.load("softmax_lse_bf16", _SIGNATURES_BF16) if bf16 else _native.load("softmax_lse", _SIGNATURES)
     stream = _native.current_stream_ptr(sessions.device)
     args = (sessions.data_ptr(), items.data_ptr(), *row_pointers)
     if partials_bytes <= FUSED_BWD_PARTIALS_BUDGET:
@@ -602,23 +691,23 @@ def _fused_or_split(
         ds_part = torch.empty((n_chunks, m, d), dtype=torch.float32, device=sessions.device)
         di_part = torch.empty((n_groups, n, d), dtype=torch.float32, device=sessions.device)
         with torch.cuda.device(sessions.device):
-            status = getattr(lib, f"{prefix}_fused_f32")(
+            status = getattr(lib, f"{prefix}_fused{suffix}")(
                 *args, ds_part.data_ptr(), di_part.data_ptr(), m, n, d, FUSED_BWD_CHUNK, tiles_per_group, n_groups,
                 stream,
             )
-        _native.check_launch(f"{key}_fused", status)
+        _native.check_launch(f"{key}_fused{key_suffix}", status)
         # fixed-order sums of the partials
         ds = ds_part.sum(dim=0) if n_chunks > 1 else ds_part[0]
         di = di_part.sum(dim=0) if n_groups > 1 else di_part[0]
         return ds, di
     n_chunks, chunk_rows = split_bwd_plan(m, n, d, n_sms)
     ds_part = torch.empty((n_chunks, m, d), dtype=torch.float32, device=sessions.device)
-    di = torch.empty_like(items)
+    di = torch.empty((n, d), dtype=torch.float32, device=sessions.device)
     with torch.cuda.device(sessions.device):
-        status = getattr(lib, f"{prefix}_ds_f32")(*args, ds_part.data_ptr(), m, n, d, chunk_rows, n_chunks, stream)
-        _native.check_launch(f"{key}_ds", status)
-        status = getattr(lib, f"{prefix}_di_f32")(*args, di.data_ptr(), m, n, d, stream)
-    _native.check_launch(f"{key}_di", status)
+        status = getattr(lib, f"{prefix}_ds{suffix}")(*args, ds_part.data_ptr(), m, n, d, chunk_rows, n_chunks, stream)
+        _native.check_launch(f"{key}_ds{key_suffix}", status)
+        status = getattr(lib, f"{prefix}_di{suffix}")(*args, di.data_ptr(), m, n, d, stream)
+    _native.check_launch(f"{key}_di{key_suffix}", status)
     return (ds_part.sum(dim=0) if n_chunks > 1 else ds_part[0]), di  # a fixed-order sum of the chunks
 
 
@@ -635,27 +724,33 @@ def streaming_lse_bwd(
     lse: torch.Tensor,  # (M,) the forward's result
     dlse: torch.Tensor,  # (M,) cotangent, any sign
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """(ds, di) of :func:`streaming_lse`: kernel 9, or kernels 10 + 11 when the
-    fused kernel's partials would pass ``FUSED_BWD_PARTIALS_BUDGET``."""
-    _native.refuse_bf16("lse_bwd", "the generic lse backward (kernels 9-11)", sessions, items)
+    """(ds, di) of :func:`streaming_lse` in f32: kernel 9, or kernels 10 + 11
+    when the fused kernel's partials would pass ``FUSED_BWD_PARTIALS_BUDGET``;
+    bf16 towers take their bf16 forms by the same rule (the partials counted
+    at 4 bytes, as the JAX package counts them for either dtype)."""
+    bf16 = _bf16_operands("lse_bwd", sessions, items)
     if row_bias is None:
         row_bias = torch.zeros((items.shape[0],), dtype=torch.float32, device=items.device)
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
     if sessions.device.type == "cpu":
-        return streaming_lse_bwd_reference(sessions, items, row_bias, lse, dlse, partials=_fused_on_the_card(m, n, d))
-    _native.require_cuda_f32(
-        "lse_bwd", sessions=sessions, items=items, row_bias=row_bias, lse=lse, dlse=dlse
-    )
+        twin = streaming_lse_bwd_bf16_reference if bf16 else streaming_lse_bwd_reference
+        return twin(sessions, items, row_bias, lse, dlse, partials=_fused_on_the_card(m, n, d))
+    _native.require_cuda("lse_bwd", sessions.dtype, sessions=sessions, items=items)
+    _native.require_cuda_f32("lse_bwd", row_bias=row_bias, lse=lse, dlse=dlse)
     _check("lse_bwd", sessions, items)
     _check_vectors("lse_bwd", n, "item row", row_bias=row_bias)
     _check_vectors("lse_bwd", m, "session row", lse=lse, dlse=dlse)
-    return _fused_or_split("lse_bwd", sessions, items, (row_bias.data_ptr(), lse.data_ptr(), dlse.data_ptr()))
+    return _fused_or_split(
+        "lse_bwd", sessions, items, (row_bias.data_ptr(), lse.data_ptr(), dlse.data_ptr()), bf16=bf16
+    )
 
 
 class _StreamingLSE(torch.autograd.Function):
     """Kernel 6, 15, 16 or 8 forward, kernel 9 (or 10 + 11) backward from the
     saved lse, whichever forward made it (the JAX custom VJP's rule); the bias
-    is a constant validity mask and gets no gradient."""
+    is a constant validity mask and gets no gradient. The gradients come back
+    in the towers' dtype (rounded once from f32 for bf16 towers, as JAX's
+    ``ds.astype(sessions.dtype)``)."""
 
     @staticmethod
     def forward(ctx, sessions, items, row_bias, bounded_shift):  # type: ignore[override]
@@ -687,7 +782,6 @@ def streaming_lse(
     if row_bias is not None and row_bias.requires_grad:
         raise ValueError("streaming_lse: row_bias is a constant validity mask and cannot require a gradient")
     if torch.is_grad_enabled() and (sessions.requires_grad or items.requires_grad):
-        _native.refuse_bf16("lse_bwd", "the generic lse backward (kernels 9-11)", sessions, items)
         return _StreamingLSE.apply(sessions, items, row_bias, bounded_shift)
     return streaming_lse_fwd(sessions, items, row_bias, bounded_shift)
 
@@ -724,10 +818,12 @@ class _ShardedStreamingLSE(torch.autograd.Function):
         local_dlse = (dlse.float() * torch.exp(local_lse - lse)).contiguous()
         ds, di_local = streaming_lse_bwd(sessions, local_items, bias, local_lse, local_dlse)
         # sessions are replicated over the shard axis: their gradient is the
-        # sum of the shards' parts; each shard owns its rows of di
-        ds = collectives.all_reduce_sum(ds, group)
-        di = torch.cat(collectives.all_gather(di_local, group))[: ctx.n_items]
-        return ds.to(sessions.dtype), di.to(local_items.dtype), None, None
+        # sum of the shards' parts; each shard owns its rows of di. Both are
+        # rounded to the towers' dtype first, so bf16 towers sum ds in bf16,
+        # as JAX's transpose of the replicated input does (a no-op for f32)
+        ds = collectives.all_reduce_sum(ds.to(sessions.dtype), group)
+        di = torch.cat(collectives.all_gather(di_local.to(local_items.dtype), group))[: ctx.n_items]
+        return ds, di, None, None
 
 
 def sharded_streaming_lse(
@@ -747,9 +843,11 @@ def sharded_streaming_lse(
 
     ``data_axis`` names the axis the session rows are sharded over. One
     process holds one data shard, so nothing moves along it here; the caller
-    sums parameter gradients over it."""
+    sums parameter gradients over it (in f32, where JAX sums the bf16 tower
+    gradient over the data axis in bf16: a standing divergence, ROADMAP.md
+    §3)."""
     del data_axis
-    _native.refuse_bf16("sharded_lse", "the mesh loss (kernels 8-11)", sessions, items)
+    _bf16_operands("sharded_lse", sessions, items)  # one dtype, and a width with a bf16 form
     return _ShardedStreamingLSE.apply(sessions.contiguous(), items.contiguous(), mesh, shard_axis)
 
 

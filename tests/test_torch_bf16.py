@@ -586,13 +586,15 @@ def test_refused_routes_raise_naming_the_roadmap(monkeypatch) -> None:
     a twin."""
     s, items = _bf16_towers(300, 5000, 32)
     z, coeff, y = torch.zeros(300), torch.full((300,), 1e-3), torch.ones(300, dtype=torch.int64)
+    # kernels 8-11 have bf16 forms (tests/test_torch_mesh_bf16.py); at D = 16 and 256 they still raise
+    narrow = _bf16_towers(8, 3000, 16)
     refused = {
         "bounded shift (kernel 16)": lambda: softmax_lse.streaming_lse(s, items, bounded_shift=True),
-        "biased lse (kernel 8)": lambda: softmax_lse.streaming_lse(s, items, torch.zeros(5000)),
-        "generic lse backward (kernels 9-11)": lambda: softmax_lse.streaming_lse(s.requires_grad_(), items),
-        "lse backward": lambda: softmax_lse.streaming_lse_bwd(s, items, None, z, z),
+        "biased lse (kernel 8) at d = 256": lambda: softmax_lse.streaming_lse(*_bf16_towers(8, 3000, 256),
+                                                                              torch.zeros(3000)),
+        "lse backward (kernels 9-11) at d = 16": lambda: softmax_lse.streaming_lse_bwd(*narrow, None, z[:8], z[:8]),
         "gradients from z (kernels 12-14)": lambda: softmax_lse.softmax_grads_from_z(s, items, z),
-        "mesh loss (kernels 8-11)": lambda: softmax_lse.sharded_streaming_lse(s, items, None, "model"),
+        "mesh loss (kernels 8-11) at d = 16": lambda: softmax_lse.sharded_streaming_lse(*narrow, None, "model"),
         "d = 256": lambda: softmax_lse.streaming_lse(*_bf16_towers(8, 3000, 256)),
         "d = 16": lambda: softmax_lse.softmax_ce_grads_from_z(*_bf16_towers(8, 3000, 16), z[:8], y[:8], coeff[:8]),
         "head dim 8": lambda: attention.attention_fwd(*(_t(np.ones((1, 2, 4, 8)), BF16),) * 3, None, 0.3),
@@ -603,7 +605,6 @@ def test_refused_routes_raise_naming_the_roadmap(monkeypatch) -> None:
     for what, call in refused.items():
         with pytest.raises(NotImplementedError, match=ROADMAP):
             call()
-        s.requires_grad_(False)
     with monkeypatch.context() as mp:
         mp.setattr(softmax_lse, "USE_PARTIALS_FWD", False)
         with pytest.raises(NotImplementedError, match="kernel 15"):
@@ -621,16 +622,18 @@ def test_refused_routes_raise_naming_the_roadmap(monkeypatch) -> None:
 
 
 def test_refused_models_raise_naming_the_roadmap() -> None:
-    """HSTU at head dim 8 (n_factors 16, 2 heads) and a mesh fit refuse bf16
-    compute; f32 stays available to both."""
+    """HSTU at head dim 8 (n_factors 16, 2 heads) and a mesh fit at width 16
+    (the mesh loss's kernels 8-11 have bf16 forms at widths 32-128 only)
+    refuse bf16 compute; f32 stays available to both."""
     dataset, _ = _cyclic_dataset(n_users=10, session_len=4)
     hstu = HSTUModel(n_blocks=1, n_heads=2, n_factors=16, session_max_len=6, epochs=1, batch_size=8, device="cpu",
                      training_module_kwargs={"compute_dtype": "bfloat16"}, relative_time_attention=False)
     with pytest.raises(NotImplementedError, match=ROADMAP):
         hstu.fit(dataset)
-    mesh = SASRecModel(n_blocks=1, n_heads=1, n_factors=32, session_max_len=6, epochs=1, batch_size=8, device="cpu",
-                       training_module_kwargs={"compute_dtype": "bfloat16", "mesh_shape": (1, 1)})
-    with pytest.raises(NotImplementedError, match="mesh_shape.*" + ROADMAP):
+    mesh = SASRecModel(n_blocks=1, n_heads=1, n_factors=16, session_max_len=6, epochs=1, batch_size=8, device="cpu",
+                       training_module_kwargs={"compute_dtype": "bfloat16", "mesh_shape": (1, 1),
+                                               "fused_softmax_chunk": 8})  # 12 items: the fused (mesh) loss
+    with pytest.raises(NotImplementedError, match="D = 16.*" + ROADMAP):
         mesh.fit(dataset)
 
 

@@ -1665,3 +1665,102 @@ def test_cuda_bf16_stu_refuses_mixed_dtypes_and_head_dim_8(cuda: torch.device) -
     with pytest.raises(NotImplementedError, match=_native.BF16_ROADMAP):
         stu_attention.stu_ds(q8, q8, v.to(bf), bias, allowed, timeline, dout.to(bf))
     assert dict(_native.LAUNCHES) == before
+
+
+# Kernels 8-11 in bf16 (the mesh loss on bf16 towers): the lse relative per row; ds and di (f32, before the
+# autograd function rounds them) relative to the twin's largest entry, where a pw, p or s * dlse one bf16 step
+# apart (its f32 value straddling a rounding boundary) moves a sum: up to 1.2e-3 on an H100 at the training
+# shape (rectools_tpu_torch/tools/mesh_bf16_check.py)
+BF16_MESH_GRAD_RTOL = 2 ** -7
+MESH_BF16_KEYS = ("lse_bias_fwd_bf16", "lse_bwd_fused_bf16", "lse_bwd_ds_bf16", "lse_bwd_di_bf16",
+                  "lse_partials_fwd_bf16", "ce_grads_fused_bf16", "lse_bias_fwd", "lse_bwd_fused", "lse_bwd_ds",
+                  "lse_bwd_di")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,d,invalid", [(333, 1000, 32, (517, 999)), (257, 2177, 64, ()),
+                                           (130, 4100, 128, (4099,)), (25600, 3959, 128, (3958,)),
+                                           (25600, 7936, 128, ())])
+def test_cuda_bf16_mesh_lse_kernels_match_twins(
+    cuda: torch.device, monkeypatch, m: int, n: int, d: int, invalid: tuple
+) -> None:
+    """Kernel 8's bf16 form (kernel 6's bits at a zero bias) and the VJP's,
+    fused (kernel 9) and split (10 + 11, the partials budget forced to 0),
+    against their twins on the card: one launch each and none of the f32
+    forms, -1e30 rows with a zero di, the same bits on a rerun."""
+    rng = np.random.default_rng(m + n + d)
+    bf = torch.bfloat16
+    s = _t(rng.normal(size=(m, d)).astype(np.float32)).to(cuda).to(bf)
+    items = _t((0.1 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda).to(bf)
+    bias = torch.zeros(n, device=cuda)
+    for row in invalid:
+        items[row] = 0.0
+        bias[row] = softmax_lse.NEG_BIG
+    dlse = _t((rng.normal(size=m) / m).astype(np.float32)).to(cuda)  # mixed sign
+    before = dict(_native.LAUNCHES)
+    lse = softmax_lse.streaming_lse_fwd(s, items, bias)
+    ref = softmax_lse.streaming_lse_bias_bf16_reference(s, items, bias)
+    assert ((lse.double() - ref.double()).abs() / ref.double().abs()).max().item() <= BF16_LSE_RTOL
+    assert torch.equal(lse, softmax_lse.streaming_lse_fwd(s, items, bias))
+    if not invalid:
+        assert torch.equal(lse, softmax_lse.streaming_lse_fwd(s, items))  # kernel 6's bits
+    routes = {"fused": 1 << 62, "split": 0}
+    for route, budget in routes.items():
+        monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", budget)
+        got = softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)
+        expected = softmax_lse.streaming_lse_bwd_bf16_reference(s, items, bias, lse, dlse, partials=route == "fused")
+        for g, e in zip(got, expected):
+            assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+            assert _max_rel(g, e) <= BF16_MESH_GRAD_RTOL, (route, _max_rel(g, e))
+        if invalid:
+            assert not got[1][list(invalid)].any()
+        again = softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse)
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+    counts = [_native.LAUNCHES[key] - before[key] for key in MESH_BF16_KEYS]
+    assert counts == [2, 2, 2, 2, 0 if invalid else 1, 0, 0, 0, 0, 0]
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_mesh_fit_matches_cpu(cuda: torch.device) -> None:
+    """One epoch (3 steps) of bf16 compute at ``mesh_shape=(1, 1)`` on the card
+    and on the CPU twins from the same start: kernels 8 and 9's bf16 forms
+    once a step and none of kernels 6 and 7, the losses within 1e-3, the f32
+    master weights within 1e-4 on average."""
+    import pandas as pd
+
+    from rectools_tpu_torch import Columns
+    from rectools_tpu_torch.dataset import Dataset
+
+    rng = np.random.default_rng(22)
+    n = 3000
+    df = pd.DataFrame({
+        Columns.User: np.arange(n) % 96, Columns.Item: rng.zipf(1.2, n) % 3000, Columns.Weight: 1.0,
+        Columns.Datetime: pd.Timestamp("2021-01-01") + pd.to_timedelta(rng.integers(0, 10**7, n), unit="s"),
+    })
+    dataset = Dataset.construct(df)
+    config = dict(n_blocks=2, n_heads=2, n_factors=64, session_max_len=20, dropout_rate=0.0, batch_size=32, epochs=1,
+                  training_module_kwargs={"compute_dtype": "bfloat16", "fused_softmax_chunk": 512,
+                                          "mesh_shape": (1, 1)})
+    models = {dev: SASRecModel(**config, device=dev) for dev in ("cpu", "cuda")}
+    for model in models.values():
+        model._build_model_from_dataset(dataset)
+    models["cpu"].training_module.init_params()
+    start = {k: v.clone() for k, v in models["cpu"].backbone.state_dict().items()}
+    for model in models.values():
+        model.training_module.load_params(start)
+    _native.reset_launches()
+    for model in models.values():
+        model.training_module.fit(model.data_preparator.get_dataloader_train,
+                                  model.data_preparator.get_dataloader_val, 1)
+    steps = models["cuda"].training_module.global_step
+    assert steps == 3
+    assert _native.LAUNCHES["lse_bias_fwd_bf16"] == _native.LAUNCHES["lse_bwd_fused_bf16"] == steps
+    assert all(_native.LAUNCHES[key] == 0 for key in ("lse_partials_fwd_bf16", "ce_grads_fused_bf16",
+                                                      "lse_partials_fwd", "ce_grads_fused", "lse_bias_fwd",
+                                                      "lse_bwd_fused"))
+    np.testing.assert_allclose(models["cuda"].training_module.train_loss_history,
+                               models["cpu"].training_module.train_loss_history, rtol=1e-3)
+    cpu_state = models["cpu"].backbone.state_dict()
+    diffs = [(value.cpu() - cpu_state[name]).abs().reshape(-1)
+             for name, value in models["cuda"].backbone.state_dict().items()]
+    assert torch.cat(diffs).mean().item() <= 1e-4

@@ -21,6 +21,13 @@ Tolerances: lse 1e-5 relative, gradients 1e-5 of each output's largest
 entry, losses against JAX 1e-4 relative and parameters 1e-4 (the attention
 key-projection biases, whose gradient is rounding noise, within steps * lr),
 losses of a mesh fit against the port's single-process fit 1e-5 relative.
+
+The same worlds also train with bf16 compute (``compute_dtype="bfloat16"``,
+the bf16 forms of kernels 8-11 through their twins): the sharded lse against
+JAX's on bf16 towers, a (2, 2) step and fit against JAX's bf16 mesh fit at
+(4, 2), a (2, 2) fit against the port's single-process bf16 fit, and an HSTU
+step at (2, 1). Their tolerances stand beside the values measured (BF16_*
+below).
 """
 
 import functools
@@ -51,6 +58,25 @@ SPAWN_TIMEOUT_S = 420.0
 # shared negatives with remat: the training options of the sampled softmax
 SHARED_REMAT = {"loss": "sampled_softmax", "negatives_sharing": "batch", "remat": True}
 
+BF16 = {"compute_dtype": "bfloat16"}
+# bf16 towers have kernels at widths 32-128 only: the empty shard at D = 32
+BF16_LSE_CASES = {"ragged": (96, 301, 32), "empty_shard": (32, 3, 32)}
+# Measured on the CPU, and the limits of the bf16 mesh checks:
+# - the sharded lse against JAX's on bf16 towers: lse 1e-6 relative (5.1e-7 measured); ds and di, each rounded
+#   to bf16 on both sides and ds summed over the model group in bf16 in another order, relative to the largest
+#   entry 2^-7, one bf16 step of an entry in the largest one's binade (4.8e-3 and 3.8e-3);
+# - a (2, 2) step and a one-epoch (7-step) fit against JAX's bf16 mesh fit at (4, 2): losses 1e-4 relative (the
+#   step 6.1e-5, the fit's train and validation losses 1.5e-5 and 3.3e-5: bf16 layers that round at other places
+#   in places, as tests/test_torch_bf16.py states); parameters: Adam moves an entry whose bf16 gradient is
+#   rounding noise on both sides by up to lr a step on each, so every entry within 2 x steps x lr (2.0e-3 after
+#   one step, 7.6e-3 after seven), and the mean over all entries within 3e-5 a step (1.3e-5 after one, 7.6e-5
+#   after seven);
+# - the (2, 2) bf16 fit with dropout against the single-process bf16 fit: losses 1e-4 relative (3.7e-5), the
+#   parameters as above (mean 4.2e-5, largest 9.2e-3); the HSTU bf16 step at (2, 1) against one process: loss
+#   1e-4 relative (8.4e-8), parameters as above (mean 2.7e-6).
+BF16_LSE_RTOL, BF16_GRAD_RTOL = 1e-6, 2 ** -7
+BF16_LOSS_RTOL, BF16_PARAM_MEAN_TOL_A_STEP = 1e-4, 3e-5
+
 
 def _frame() -> pd.DataFrame:
     rng = np.random.default_rng(31)
@@ -76,14 +102,20 @@ def is_key_projection_bias(name: str) -> bool:
     return name.endswith("multi_head_attn.k_proj.bias")
 
 
-def _lse_inputs(case: str) -> tp.Dict[str, np.ndarray]:
-    m, n, d = LSE_CASES[case]
+def _lse_inputs(case: str, bf16: bool = False) -> tp.Dict[str, np.ndarray]:
+    """Seeded inputs of an ``LSE_CASES`` (or, ``bf16``, a ``BF16_LSE_CASES``)
+    case; bf16 towers come as the f32 values of bf16 numbers."""
+    m, n, d = (BF16_LSE_CASES if bf16 else LSE_CASES)[case]
     rng = np.random.default_rng(m + n)
-    return {
+    out = {
         "s": rng.normal(0, 0.5, (m, d)).astype(np.float32),
         "items": rng.normal(0, 0.5, (n, d)).astype(np.float32),
         "g": rng.normal(0, 1.0, (m,)).astype(np.float32),  # mixed-sign lse cotangent
     }
+    if bf16:
+        for key in ("s", "items"):
+            out[key] = torch.from_numpy(out[key]).to(torch.bfloat16).float().numpy()
+    return out
 
 
 # ------------------------------------------------------------------ what a rank runs
@@ -145,13 +177,25 @@ def _step_gradients(model: tp.Any, batch: tp.Dict[str, np.ndarray]) -> tp.Dict[s
     return {"loss": float(loss), "grads": {k: v.numpy() for k, v in grads.items()}}
 
 
-def _sharded_lse(mesh: tp.Any, inputs: tp.Dict[str, np.ndarray]) -> tp.Dict[str, np.ndarray]:
+def _sharded_lse(
+    mesh: tp.Any, inputs: tp.Dict[str, np.ndarray], dtype: torch.dtype = torch.float32
+) -> tp.Dict[str, np.ndarray]:
     start, stop = port_dist.data_parallel_row_range(inputs["s"].shape[0], mesh)
-    s = torch.tensor(inputs["s"][start:stop], requires_grad=True)
-    items = torch.tensor(inputs["items"], requires_grad=True)
+    s = torch.tensor(inputs["s"][start:stop]).to(dtype).requires_grad_()
+    items = torch.tensor(inputs["items"]).to(dtype).requires_grad_()
     lse = softmax_lse.sharded_streaming_lse(s, items, mesh, MODEL_AXIS, data_axis=DATA_AXIS)
     (lse * torch.tensor(inputs["g"][start:stop])).sum().backward()
-    return {"lse": lse.detach().numpy(), "ds": s.grad.numpy(), "di": items.grad.numpy()}
+    assert s.grad.dtype == items.grad.dtype == dtype
+    return {"lse": lse.detach().numpy(), "ds": s.grad.float().numpy(), "di": items.grad.float().numpy()}
+
+
+def _step(model: tp.Any, batch: tp.Dict[str, np.ndarray], init: bool = False) -> tp.Tuple[float, tp.Dict[str, tp.Any]]:
+    """The loss of one train step on ``batch`` and the whole parameters after it."""
+    tm = model.training_module
+    if init:
+        tm.init_params()
+    loss = float(tm._train_step(tm._device_batch(tm._local_batch(batch))))
+    return loss, {k: v.numpy() for k, v in tm.get_state()["params"].items()}
 
 
 def four_rank_worker(rank: int, payload: tp.Dict[str, tp.Any]) -> tp.Dict[str, tp.Any]:
@@ -189,6 +233,14 @@ def four_rank_worker(rank: int, payload: tp.Dict[str, tp.Any]) -> tp.Dict[str, t
     out["fit_plain_softmax"] = _fit_summary(_model(df, (2, 2), 0.2, fused_softmax_chunk=None))
     out["fit_shared_remat"] = _fit_summary(_model(df, (2, 2), 0.2, **SHARED_REMAT))
     out["fit_fused_remat"] = _fit_summary(_model(df, (2, 2), 0.2, remat=True))
+    # (h) bf16 compute: the sharded lse on bf16 towers, a (2, 2) step and fit from the converted JAX parameters,
+    # and the port's own (2, 2) fit with dropout
+    for case, inputs in payload["bf16_lse"].items():
+        for shape in ((1, 4), (2, 2)):
+            out[f"bf16_lse_{case}_{shape}"] = _sharded_lse(meshes[shape], inputs, torch.bfloat16)
+    out["bf16_step"] = _step(_model(df, (2, 2), 0.0, start, **BF16), payload["first"])
+    out["bf16_fit_from_jax"] = _fit_summary(_model(df, (2, 2), 0.0, start, **BF16))
+    out["bf16_fit_dropout"] = _fit_summary(_model(df, (2, 2), 0.2, **BF16))
     return out
 
 
@@ -210,12 +262,11 @@ def two_rank_worker(rank: int, payload: tp.Dict[str, tp.Any]) -> tp.Dict[str, tp
         port_dist.make_multihost_mesh(n_model=3)
     except ValueError as error:
         out["errors"]["node"] = str(error)
-    # (e) one HSTU step at (2, 1), dropout on
-    hstu = _model(payload["df"], (2, 1), 0.2, model_cls=HSTUModel)
-    tm = hstu.training_module
-    tm.init_params()
-    out["hstu_loss"] = float(tm._train_step(tm._device_batch(tm._local_batch(payload["hstu_first"]))))
-    out["hstu_params"] = {k: v.numpy() for k, v in tm.get_state()["params"].items()}
+    # (e) one HSTU step at (2, 1), dropout on, in f32 and with bf16 compute
+    out["hstu_loss"], out["hstu_params"] = _step(_model(payload["df"], (2, 1), 0.2, model_cls=HSTUModel),
+                                                 payload["hstu_first"], init=True)
+    out["hstu_bf16"] = _step(_model(payload["df"], (2, 1), 0.2, model_cls=HSTUModel, **BF16), payload["hstu_first"],
+                             init=True)
     return out
 
 
@@ -263,6 +314,43 @@ def jax_mesh_run():
 
 
 @pytest.fixture(scope="module")
+def jax_bf16_mesh_run(jax_mesh_run):
+    """The JAX package with bf16 compute at mesh (4, 2), dropout 0, from the
+    f32 run's start parameters: one train step on the first batch, and a
+    one-epoch fit."""
+    import jax
+    import jax.numpy as jnp
+
+    from rectools_tpu.dataset import Dataset as JaxDataset
+    from rectools_tpu.models.nn.transformers import SASRecModel as JaxSASRecModel
+
+    model = JaxSASRecModel(
+        **CONFIG, dropout_rate=0.0, get_val_mask_func=leave_last_out,
+        training_module_kwargs=dict(TRAINING_KWARGS, mesh_shape=(4, 2), **BF16),
+    )
+    model._build_model_from_dataset(JaxDataset.construct(jax_mesh_run["df"]))
+    tm = model.training_module
+    tm.init_params(jax_mesh_run["first"])
+    start = jax.tree.map(np.array, tm.params)
+    same_start = flax_params_to_state_dict(start)  # the seed's parameters, as the f32 run's
+    assert all(np.array_equal(same_start[k].numpy(), v) for k, v in jax_mesh_run["start"].items())
+
+    def fresh():
+        params = tm._shard_params(jax.tree.map(jnp.array, start))
+        return params, tm._make_optimizer().init(params)
+
+    params, opt_state = fresh()
+    stepped, _, step_loss = tm._train_step(params, opt_state, tm._device_batch(jax_mesh_run["first"]),
+                                           jax.random.PRNGKey(0))
+    one_step = (float(step_loss), flax_params_to_state_dict(jax.tree.map(np.array, stepped)))
+    tm.params, tm.opt_state = fresh()
+    tm.fit(model.data_preparator.get_dataloader_train, model.data_preparator.get_dataloader_val, max_epochs=1)
+    assert tm.resolved_compute_dtype == "bfloat16"
+    return {"one_step": one_step, "train": list(tm.train_loss_history), "val": list(tm.val_loss_history),
+            "steps": tm.global_step, "final": flax_params_to_state_dict(jax.tree.map(np.array, tm.params))}
+
+
+@pytest.fixture(scope="module")
 def checkpoint_path(tmp_path_factory):
     """Where rank 0 of the four-rank world writes the (2, 2) fit's training state."""
     return str(tmp_path_factory.mktemp("mesh_checkpoint") / "state.pt")
@@ -273,6 +361,7 @@ def four_ranks(jax_mesh_run, checkpoint_path):
     payload = {
         "df": jax_mesh_run["df"], "start": jax_mesh_run["start"], "first": jax_mesh_run["first"],
         "lse": {case: _lse_inputs(case) for case in LSE_CASES}, "checkpoint": checkpoint_path,
+        "bf16_lse": {case: _lse_inputs(case, bf16=True) for case in BF16_LSE_CASES},
     }
     return run_ranks(four_rank_worker, 4, (payload,), timeout_s=SPAWN_TIMEOUT_S, backend="gloo")
 
@@ -298,6 +387,7 @@ def single_process():
         "plain_softmax": _fit_summary(_model(df, None, 0.2, fused_softmax_chunk=None)),
         "shared_remat": _fit_summary(_model(df, None, 0.2, **SHARED_REMAT)),
         "fused_remat": _fit_summary(_model(df, None, 0.2, remat=True)),
+        "bf16_dropout": _fit_summary(_model(df, None, 0.2, **BF16)),
     }
 
 
@@ -541,6 +631,156 @@ def test_mesh_of_one_fit_equals_plain_fit(single_process) -> None:
     fit = _fit_summary(_model(_frame(), (1, 1), 0.2))
     np.testing.assert_allclose(fit["train"], single_process["dropout"]["train"], rtol=1e-5)
     np.testing.assert_allclose(fit["val"], single_process["dropout"]["val"], rtol=1e-5)
+
+
+# ------------------------------------------------------------------ (h) bf16 compute
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sharded_lse_bf16(case: str) -> tp.Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(lse, ds, di) of the JAX ``sharded_streaming_lse`` on bf16 towers on the
+    (2, 4) CPU mesh, in interpret mode; ds and di are bf16 values."""
+    import jax
+    import jax.numpy as jnp
+
+    from rectools_tpu.ops import softmax_lse as jax_softmax_lse
+    from rectools_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    inputs = _lse_inputs(case, bf16=True)
+    mesh = jax_make_mesh(n_data=2, n_model=4)
+
+    def value(s, items):
+        return jax_softmax_lse.sharded_streaming_lse(
+            s, items, mesh, "model", data_axis="data", block_m=16, chunk_n=32, interpret=True
+        )
+
+    s, items = jnp.asarray(inputs["s"], jnp.bfloat16), jnp.asarray(inputs["items"], jnp.bfloat16)
+    eds, edi = jax.grad(lambda s_, i_: jnp.sum(value(s_, i_) * inputs["g"]), argnums=(0, 1))(s, items)
+    assert eds.dtype == edi.dtype == jnp.bfloat16
+    return (np.asarray(value(s, items)), np.asarray(eds.astype(jnp.float32)), np.asarray(edi.astype(jnp.float32)))
+
+
+def _bf16_rel(got: np.ndarray, expected: np.ndarray) -> float:
+    return float(np.abs(got - expected).max() / np.abs(expected).max())
+
+
+def _to_bf16(x: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _bf16_data_rows(results, case: str, shape: tp.Tuple[int, int]) -> tp.List[tp.Dict[str, np.ndarray]]:
+    """Each data shard's results of a bf16 sharded-lse case; the ranks of a
+    model group agree exactly."""
+    where = _by_coords(results, shape)
+    key = f"bf16_lse_{case}_{shape}"
+    for (d, m), rank in where.items():
+        for name in ("lse", "ds", "di"):
+            np.testing.assert_array_equal(results[rank][key][name], results[where[(d, 0)]][key][name])
+    return [results[where[(d, 0)]][key] for d in range(shape[0])]
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("case", sorted(BF16_LSE_CASES))
+def test_bf16_sharded_streaming_lse_matches_jax(four_ranks, case: str, shape: tp.Tuple[int, int]) -> None:
+    """The mesh loss on bf16 towers (kernels 8-11's bf16 twins, each shard's
+    ds rounded to bf16 and summed over the model group in bf16, as JAX's
+    transpose does) against JAX's on the (2, 4) mesh: the f32 lse, ds and di
+    in bf16 within one bf16 step. The tower gradient's sum over the data group
+    is the train step's f32 sum (here in numpy), rounded to bf16 to stand
+    beside JAX's bf16 sum (test_bf16_tower_gradient_sums_over_data_in_f32)."""
+    expected, eds, edi = _jax_sharded_lse_bf16(case)
+    rows = _bf16_data_rows(four_ranks, case, shape)
+    lse = np.concatenate([r["lse"] for r in rows])
+    ds = np.concatenate([r["ds"] for r in rows])
+    di = _to_bf16(sum(r["di"] for r in rows))
+    assert np.isfinite(lse).all() and np.array_equal(ds, _to_bf16(ds))
+    np.testing.assert_allclose(lse, expected, rtol=BF16_LSE_RTOL, atol=0)
+    assert _bf16_rel(ds, eds) <= BF16_GRAD_RTOL
+    assert _bf16_rel(di, edi) <= BF16_GRAD_RTOL
+    assert di.shape == _lse_inputs(case, bf16=True)["items"].shape
+
+
+def test_bf16_tower_gradient_sums_over_data_in_f32(four_ranks) -> None:
+    """The standing divergence of ROADMAP §3: JAX sums the item tower's bf16
+    cotangent over the data axis in bf16 inside ``shard_map``; the port sums
+    the f32 parameter gradients over the data group after the cast. With two
+    data shards the two differ by JAX's one rounding of each sum: up to half
+    a bf16 step of the entry, at most 2^-8 of it (measured: 1.5e-3 on an
+    entry of 0.51, 2.9e-3 of the largest entry), and not 0."""
+    rows = _bf16_data_rows(four_ranks, "ragged", (2, 2))
+    f32_sum = rows[0]["di"] + rows[1]["di"]  # bf16 values, summed in f32 as the port's train step sums them
+    bf16_sum = _to_bf16(f32_sum)  # JAX's psum of two bf16 values
+    gap = np.abs(f32_sum - bf16_sum)
+    assert 0 < gap.max() <= 2 ** -8 * np.abs(bf16_sum).max()
+    assert (gap <= 2 ** -8 * np.abs(bf16_sum)).all()
+
+
+def _assert_bf16_params_close(got: tp.Dict[str, np.ndarray], expected: tp.Mapping[str, tp.Any], steps: int) -> float:
+    """Every entry within 2 x steps x lr (a noise-level entry moved by Adam on
+    both sides) and the mean over all entries within steps x
+    BF16_PARAM_MEAN_TOL_A_STEP; returns the mean."""
+    assert set(got) == set(expected)
+    diffs = []
+    for name, value in got.items():
+        assert value.dtype == np.float32, name  # the master weights stay f32
+        other = expected[name].numpy() if isinstance(expected[name], torch.Tensor) else expected[name]
+        err = np.abs(value - other)
+        assert err.max() <= 2 * steps * LR, (name, err.max())
+        diffs.append(err.reshape(-1))
+    mean = float(np.concatenate(diffs).mean())
+    assert mean <= steps * BF16_PARAM_MEAN_TOL_A_STEP
+    return mean
+
+
+def test_bf16_mesh_train_step_matches_jax_mesh(jax_bf16_mesh_run, four_ranks) -> None:
+    """One bf16 step at (2, 2) from the converted JAX start against JAX's bf16
+    step at (4, 2)."""
+    expected_loss, expected_params = jax_bf16_mesh_run["one_step"]
+    for result in four_ranks:
+        loss, params = result["bf16_step"]
+        np.testing.assert_allclose(loss, expected_loss, rtol=BF16_LOSS_RTOL)
+        _assert_bf16_params_close(params, expected_params, steps=1)
+
+
+def test_bf16_mesh_fit_matches_jax_mesh_fit(jax_bf16_mesh_run, four_ranks) -> None:
+    """A one-epoch (7-step) bf16 fit at (2, 2) against JAX's bf16 mesh fit at
+    (4, 2) from the same start; every rank reports the same fit."""
+    for result in four_ranks:
+        fit = result["bf16_fit_from_jax"]
+        assert fit["steps"] == jax_bf16_mesh_run["steps"] == 7
+        assert fit["train"] == four_ranks[0]["bf16_fit_from_jax"]["train"]
+        np.testing.assert_allclose(fit["train"], jax_bf16_mesh_run["train"], rtol=BF16_LOSS_RTOL)
+        np.testing.assert_allclose(fit["val"], jax_bf16_mesh_run["val"], rtol=BF16_LOSS_RTOL)
+        _assert_bf16_params_close(fit["params"], jax_bf16_mesh_run["final"], steps=fit["steps"])
+
+
+def test_bf16_mesh_fit_matches_single_process(four_ranks, single_process) -> None:
+    """The (2, 2) bf16 fit with dropout against the port's single-process bf16
+    fit of the same global batches: column-sharded tables gathered in bf16, the
+    loss through kernels 8 and 9's bf16 twins, the parameter gradients summed
+    over the data group."""
+    expected = single_process["bf16_dropout"]
+    for result in four_ranks:
+        fit = result["bf16_fit_dropout"]
+        assert fit["steps"] == expected["steps"]
+        assert fit["ids_emb_shape"][1] == CONFIG["n_factors"] // 2
+        np.testing.assert_allclose(fit["train"], expected["train"], rtol=BF16_LOSS_RTOL)
+        np.testing.assert_allclose(fit["val"], expected["val"], rtol=BF16_LOSS_RTOL)
+        _assert_bf16_params_close(fit["params"], expected["params"], steps=fit["steps"])
+        for name, value in fit["params"].items():
+            np.testing.assert_array_equal(value, four_ranks[0]["bf16_fit_dropout"]["params"][name], err_msg=name)
+
+
+def test_bf16_hstu_mesh_step_matches_single_process(two_ranks) -> None:
+    """One HSTU step with bf16 compute at (2, 1) (the bf16 forms of kernels
+    17-19 and 8-9 through their twins) against the single-process bf16 step."""
+    payload, results = two_ranks
+    loss, expected = _step(_model(payload["df"], None, 0.2, model_cls=HSTUModel, **BF16), payload["hstu_first"],
+                           init=True)
+    for result in results:
+        got_loss, got = result["hstu_bf16"]
+        np.testing.assert_allclose(got_loss, loss, rtol=BF16_LOSS_RTOL)
+        _assert_bf16_params_close(got, expected, steps=1)
 
 
 def test_failing_rank_fails_the_launch() -> None:

@@ -98,17 +98,23 @@ def test_recommend_to_items_matches_jax(models) -> None:
 
 
 def test_fit_is_not_ported_yet() -> None:
-    """fit is ported, bf16 compute too; what is not yet (bf16 compute on a
-    mesh) raises, and a mesh needs a world of n_data * n_model processes,
-    which one process is not."""
+    """fit is ported, bf16 compute too, on a mesh as well; what is not yet
+    (bf16 compute at a width with no bf16 kernel, here the mesh loss at 16)
+    raises, and a mesh needs a world of n_data * n_model processes, which one
+    process is not."""
     df = _frame()
     model = SASRecModel(**CONFIG, epochs=1, batch_size=32, device="cpu").fit(Dataset.construct(df))
     assert model.is_fitted and np.isfinite(model.training_module.train_loss_history).all()
     bf16 = SASRecModel(**CONFIG, epochs=1, batch_size=32, training_module_kwargs={"compute_dtype": "bfloat16"},
                        device="cpu").fit(Dataset.construct(df))
     assert bf16.is_fitted and np.isfinite(bf16.training_module.train_loss_history).all()
-    with pytest.raises(NotImplementedError, match="no bf16 form yet"):
-        SASRecModel(**CONFIG, training_module_kwargs={"compute_dtype": "bfloat16", "mesh_shape": (1, 1)},
+    # 80 items, a fused-loss chunk of 64: the full-catalog loss takes the mesh route
+    mesh_kwargs = {"compute_dtype": "bfloat16", "mesh_shape": (1, 1), "fused_softmax_chunk": 64}
+    mesh = SASRecModel(**CONFIG, epochs=1, batch_size=32, training_module_kwargs=mesh_kwargs,
+                       device="cpu").fit(Dataset.construct(df))
+    assert mesh.is_fitted and np.isfinite(mesh.training_module.train_loss_history).all()
+    with pytest.raises(NotImplementedError, match="D = 16 has no bf16 kernel"):
+        SASRecModel(**{**CONFIG, "n_factors": 16, "n_heads": 1}, training_module_kwargs=mesh_kwargs,
                     device="cpu").fit(Dataset.construct(df))
     with pytest.raises(ValueError, match="must equal the world size 1"):
         SASRecModel(**CONFIG, training_module_kwargs={"mesh_shape": (2, 2)}, device="cpu").fit(Dataset.construct(df))
