@@ -136,7 +136,8 @@ own lines; any failure exits nonzero and prints no result:
              bf16).
 9. lse doors — ``ops``: ``streaming_lse(..., bounded_shift=True)`` with its
              backward (kernels 16 and 9) and ``softmax_grads_from_z`` (kernel
-             12) as a user calls them, at the training width. ``classic
+             12, and its bf16 form on the same towers in bf16) as a user calls
+             them, at the training width. ``classic
              forward``: two KION train steps with ``USE_PARTIALS_FWD = False``
              (kernel 15 once a step, kernel 6 never), losses within LOSS_RTOL
              of the default's from the same start. ``mid fit`` and ``large
@@ -146,7 +147,16 @@ own lines; any failure exits nonzero and prints no result:
              or kernels 6, 13 and 14 (large), once a step and kernel 7's one
              pass never, finite falling losses, validation loss and recall,
              train examples/s over epoch 2, peak memory, one profiled step,
-             and one step's loss gradients against the twins.
+             and one step's loss gradients against the twins. Then phase 16's
+             ``bf16 mid fit`` and ``bf16 large fit``: the same with bf16
+             compute on the 65,536-row catalog (kernel 7's two launches in
+             bf16 once a step; losses within 2e-2 of the f32 mid fit's) and on
+             a 196,608-row one (65,535 and 196,607 item ids; kernels 13 and
+             14's bf16 forms once a step), no one pass and no f32 loss kernel
+             in the profiled step, the towers' bf16 gradients the route's f32
+             ones rounded once, one step's gradients against the two
+             launches' twin or, through the large-catalog route, against
+             kernel 7's bf16 one pass with the budget lifted (a bf16 band).
 10. families — BERT4Rec, eSASRec (shared negatives, remat) and remat at an
              ML-20M-sized shape, through the same entry points, after the
              HSTU phases. ``family kernels``: kernels 2 (with dropout) and 5
@@ -278,7 +288,12 @@ own lines; any failure exits nonzero and prints no result:
              zeros); the same for the bf16 forms of kernels 8-11 (``bf16 mesh
              kernels`` lines) at the three shapes of ``mesh kernels``, the
              backward fused and split, with kernel 8's bits against kernel 6's
-             bf16 form at a zero bias. (b) SASRecModel.fit with bf16 compute at phase 5's
+             bf16 form at a zero bias; the same for kernel 12's bf16 form, 13
+             + 14's and kernel 7's two launches (``bf16 kernels`` lines) at
+             51,200 x 15,872 x 128 (the split forms with the budget forced),
+             kernel 7's two launches unforced at 65,536 items, 13 + 14
+             unforced at 196,608 items, where the CE route is held against
+             kernel 7's bf16 one pass within a bf16 band. (b) SASRecModel.fit with bf16 compute at phase 5's
              width, batch and epochs beside phase 5's f32 fit, and
              HSTUModel.fit so beside phase 7's: every launch count (HSTU:
              the stu_*_bf16 keys at 2 a step, f32 stu_fwd only in the
@@ -289,7 +304,8 @@ own lines; any failure exits nonzero and prints no result:
              f32 fit's, train examples/s of both. (c) one bf16 epoch through
              fit of BERT4Rec and of eSASRec with shared negatives. (d) every
              route without a bf16 kernel raises NotImplementedError naming
-             ROADMAP §1 item 5 and launches nothing; an HSTU fit at heads of
+             ROADMAP §1 item 5 and launches nothing (the loss routes at width
+             16); an HSTU fit at heads of
              8 raises so before any STU launch. Prints the phase's wall.
 
 Output, last lines: one JSON object with every kernel's numbers, the
@@ -3224,7 +3240,8 @@ def ops_phase(torch, dev, b: int = TRAIN_B) -> dict:
     """The public ops whose kernels no model path runs, as a user calls them at
     the training width (51,200 x 15,872 x 128): ``streaming_lse(...,
     bounded_shift=True)`` with its backward (kernel 16, then kernel 9) and
-    ``softmax_grads_from_z`` (kernel 12, its partials within the budget)."""
+    ``softmax_grads_from_z`` (kernel 12, its partials within the budget), in
+    f32 and on the same towers in bf16 (kernel 12's bf16 form)."""
     import rectools_tpu_torch.ops as port
     from rectools_tpu_torch.ops import softmax_lse
 
@@ -3238,10 +3255,17 @@ def ops_phase(torch, dev, b: int = TRAIN_B) -> dict:
     lse.backward(dlse)
     z = lse.detach() - torch.log(dlse)
     ds, di = softmax_lse.softmax_grads_from_z(s.detach(), items.detach(), z)
+    s_bf, items_bf = s.detach().to(torch.bfloat16), items.detach().to(torch.bfloat16)
+    ds_bf, di_bf = softmax_lse.softmax_grads_from_z(s_bf, items_bf, z)
     launches = dict(port.LAUNCHES)
     expected = {name: 0 for name in launches}
-    expected.update(lse_shift_fwd=1, lse_bwd_fused=1, grads_z_fused=1)
+    expected.update(lse_shift_fwd=1, lse_bwd_fused=1, grads_z_fused=1, grads_z_fused_bf16=1)
     check(launches == expected, f"launches of the ops {launches}, expected {expected}")
+    ref_bf = softmax_lse.softmax_grads_from_z_bf16_reference(s_bf, items_bf, z, partials=True)
+    rel_bf = max(_max_rel(g, r) for g, r in zip((ds_bf, di_bf), ref_bf))
+    check(rel_bf <= BF16_SPLIT_RTOL, f"softmax_grads_from_z on bf16 towers is {rel_bf} from its twin")
+    print(f"ops: softmax_grads_from_z on the same towers in bf16 (kernel 12's bf16 form): {rel_bf:.3g} of the "
+          f"largest entry from its twin (limit {BF16_SPLIT_RTOL:.3g})")
     # the same function twice: the gradients of lse · dlse, and P @ items, Pᵀ @ s from z = lse − log(dlse)
     rel = max(_max_rel(ds, s.grad), _max_rel(di, items.grad))
     check(rel <= CE_RTOL, f"softmax_grads_from_z and the bounded-shift lse's VJP differ by {rel} of the largest entry")
@@ -3251,18 +3275,26 @@ def ops_phase(torch, dev, b: int = TRAIN_B) -> dict:
     print(f"ops: streaming_lse(bounded_shift=True) with its backward and softmax_grads_from_z at M={m}, N={n}: "
           f"launches {launches}; the two gradients agree to {rel:.3g} of the largest entry, the lse with kernel 6's "
           f"to {rel_lse:.3g}")
-    del s, items, dlse, lse, z, ds, di, exact
+    del s, items, dlse, lse, z, ds, di, exact, s_bf, items_bf, ds_bf, di_bf, ref_bf
     torch.cuda.empty_cache()
-    return {"launches": launches, "grads_max_rel_diff": rel, "lse_max_rel_diff": rel_lse}
+    return {"launches": launches, "grads_max_rel_diff": rel, "lse_max_rel_diff": rel_lse,
+            "bf16_grads_max_rel_err": rel_bf}
 
 
-def large_fit_phase(torch, np, pd, port, dev, n_item_ids: int = LARGE_N_ITEM_IDS) -> dict:
+def large_fit_phase(torch, np, pd, port, dev, n_item_ids: int = LARGE_N_ITEM_IDS, f32: dict = None,
+                    compute_dtype: str = "float32") -> dict:
     """``SASRecModel(...).fit`` at the training width on a catalog of
     ``n_item_ids`` + 1 rows, too large for kernel 7's one pass: at 131,072
     rows every step's CE gradients take the very-large-catalog route (kernels
     13 + 14 and the label term in torch), at 65,536 kernel 7's two launches
     (``ce_ds_f32``, ``ce_di_f32``); then one step's loss gradients on the card
-    against the twins."""
+    against the twins. With ``compute_dtype="bfloat16"`` the fit runs the bf16
+    forms, by the route rule at bf16 (kernel 7's two launches at 65,536 rows,
+    the large-catalog route at 196,608), its losses held within BF16_LOSS_RTOL
+    of ``f32`` (the f32 fit on the same catalog) where given, a profiled step's
+    device kernels checked; one step's loss gradients are held against the
+    two launches' twin, or, through the large-catalog route, against kernel
+    7's bf16 one pass on the card with the budget lifted (BF16_ROUTE_BAND)."""
     from rectools_tpu_torch import Columns
     from rectools_tpu_torch.dataset import Dataset
     from rectools_tpu_torch.models import SASRecModel
@@ -3274,18 +3306,22 @@ def large_fit_phase(torch, np, pd, port, dev, n_item_ids: int = LARGE_N_ITEM_IDS
     t0 = time.perf_counter()
     dataset = Dataset.construct(kion_frame(np, pd, Columns, n_item_ids))
     n_items, m = n_item_ids + 1, TRAIN_B * SESSION_MAX_LEN
-    route = softmax_lse.ce_takes_split_route(m, n_items, N_FACTORS)
-    tag = "large fit" if route else "mid fit"
+    bf16 = compute_dtype == "bfloat16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    route = softmax_lse.ce_takes_split_route(m, n_items, N_FACTORS, dtype)
+    tag = ("bf16 " if bf16 else "") + ("large fit" if route else "mid fit")
     # the loss gradients' launches each step: the large-catalog route, or kernel 7's two launches
-    loss_keys = ("grads_z_ds", "grads_z_di") if route else ("ce_grads_ds", "ce_grads_di")
+    loss_keys = tuple(key + ("_bf16" if bf16 else "") for key in (
+        ("grads_z_ds", "grads_z_di") if route else ("ce_grads_ds", "ce_grads_di")))
     print(f"{tag}: frame of {dataset.user_id_map.size} users over {n_item_ids} item ids built in "
           f"{time.perf_counter() - t0:.1f} s")
-    check(not softmax_lse._fused_on_the_card(m, n_items, N_FACTORS),
+    check(not softmax_lse._fused_on_the_card(m, n_items, N_FACTORS, softmax_lse._ds_itemsize(dtype)),
           f"the CE gradients at N={n_items} would take kernel 7's one pass")
     clock = epoch_clock(torch, dev)
     model = SASRecModel(
         **TRAIN_CONFIG, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,), get_val_mask_func=hold_out_last,
-        get_callbacks_func=lambda: [clock], training_module_kwargs={"val_recall_k": K}, device=dev,
+        get_callbacks_func=lambda: [clock], training_module_kwargs={"val_recall_k": K, "compute_dtype": compute_dtype},
+        device=dev,
     )
     torch.cuda.reset_peak_memory_stats()
     port.reset_launches()
@@ -3297,16 +3333,29 @@ def large_fit_phase(torch, np, pd, port, dev, n_item_ids: int = LARGE_N_ITEM_IDS
     tm = model.training_module
     check(model.backbone.item_model.n_items == n_items, f"item table is not {n_items} rows")
     steps = tm.global_step
-    forwards = steps + EPOCHS * len(model.data_preparator.get_dataloader_val())
-    expected = {name: 0 for name in port.LAUNCHES}
-    expected.update(lse_partials_fwd=steps, **{key: steps for key in loss_keys},
-                    layer_norm_fwd=(2 * N_BLOCKS + 1) * forwards, attention_fwd=N_BLOCKS * forwards,
-                    layer_norm_bwd=(2 * N_BLOCKS + 1) * steps, attention_bwd=N_BLOCKS * steps)
+    val_batches = len(model.data_preparator.get_dataloader_val())
+    if bf16:
+        check(tm.resolved_compute_dtype == "bfloat16", f"the {tag} resolved {tm.resolved_compute_dtype}")
+        expected = _bf16_fit_launches(port, steps, EPOCHS * val_batches, with_loss=False)
+        expected.update(lse_partials_fwd_bf16=steps, **{key: steps for key in loss_keys})
+    else:
+        forwards = steps + EPOCHS * val_batches
+        expected = {name: 0 for name in port.LAUNCHES}
+        expected.update(lse_partials_fwd=steps, **{key: steps for key in loss_keys},
+                        layer_norm_fwd=(2 * N_BLOCKS + 1) * forwards, attention_fwd=N_BLOCKS * forwards,
+                        layer_norm_bwd=(2 * N_BLOCKS + 1) * steps, attention_bwd=N_BLOCKS * steps)
     check(launches == expected, f"launches in the {tag} {launches}, expected {expected}")
     losses_, val_losses = tm.train_loss_history, tm.val_loss_history
     recall = tm.val_metric_history.get(f"val_recall@{K}", [])
     check(len(losses_) == EPOCHS and bool(np.isfinite(losses_).all()) and losses_[1] < losses_[0],
           f"train losses {losses_}")
+    loss_rel = None
+    if f32 is not None:
+        loss_rel = max(abs(a / b - 1) for a, b in zip(losses_, f32["train_loss"]))
+        check(loss_rel <= BF16_LOSS_RTOL, f"{tag}: train losses {losses_} against the f32 fit's {f32['train_loss']}: "
+                                          f"{loss_rel} (limit {BF16_LOSS_RTOL})")
+        print(f"{tag}: losses {losses_} against the f32 fit's {f32['train_loss']} on the same catalog: largest "
+              f"relative gap {loss_rel:.3g} (limit {BF16_LOSS_RTOL})")
     check(len(val_losses) == EPOCHS and bool(np.isfinite(val_losses).all()), f"validation losses {val_losses}")
     check(len(recall) == EPOCHS and bool(np.isfinite(recall).all()), f"val_recall@{K} {recall}")
     epoch2_s = clock.times[2] - clock.times[1]
@@ -3319,6 +3368,15 @@ def large_fit_phase(torch, np, pd, port, dev, n_item_ids: int = LARGE_N_ITEM_IDS
 
     loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
     batch = tm._device_batch(pad_batch(next(iter(loader)), TRAIN_B))
+    if bf16:  # a profiled step's device kernels: the bf16 forms of the route, no one pass, no f32 loss kernel
+        names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
+        wanted = ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel", "split_ds_bf16_kernel",
+                  "split_di_bf16_kernel")
+        missing = [k for k in wanted if not any(k in name for name in names)]
+        banned = [name for name in names if any(k in name for k in (*BF16_BANNED_KERNELS, "ce_fused_bf16_kernel"))]
+        check(not missing and not banned, f"a {tag} step's device kernels: missing {missing}, banned {banned}")
+        print(f"{tag}: a profiled step ran {len(names)} device kernels, the bf16 split kernels among them, no one "
+              f"pass, no f32 loss or attention kernel, no library attention or cross-entropy")
     print(f"{tag}: profile of one train step")
     profile = profile_phase(torch, lambda: tm._train_step(batch))
 
@@ -3329,6 +3387,14 @@ def large_fit_phase(torch, np, pd, port, dev, n_item_ids: int = LARGE_N_ITEM_IDS
         s_t, i_t = backbone.similarity_module.catalog_loss_towers(backbone.encode_sessions(batch, item_embs), item_embs)
     s2 = (s_t.float() / tm.logits_t).reshape(m, N_FACTORS).contiguous()
     items, y, w = i_t.float().contiguous(), batch["y"].reshape(-1), batch["yw"].reshape(-1)
+    if bf16:
+        step = bf16_step_check(torch, port, losses, softmax_lse, tag, route, s2.to(dtype), items.to(dtype), y, w,
+                               loss_keys)
+        return {"launches": launches, "steps": steps, "n_items": n_items,
+                "route": "large-catalog" if route else "kernel 7's two launches", "train_loss": losses_,
+                "val_loss": val_losses, f"val_recall@{K}": recall, "fit_s": fit_s, "epoch2_s": epoch2_s,
+                "train_examples_per_s": examples_per_s, "peak_device_mib": peak_mb, "loss_rel_to_f32": loss_rel,
+                **step, **{f"step_{k}": v for k, v in profile.items()}}
     sg, ig = s2.clone().requires_grad_(), items.clone().requires_grad_()
     port.reset_launches()
     loss = losses.fused_softmax_loss(sg[None], ig, y[None], w[None])
@@ -3353,6 +3419,47 @@ def large_fit_phase(torch, np, pd, port, dev, n_item_ids: int = LARGE_N_ITEM_IDS
             f"val_recall@{K}": recall, "fit_s": fit_s, "epoch2_s": epoch2_s, "train_examples_per_s": examples_per_s,
             "peak_device_mib": peak_mb, "step_loss_rel_diff": loss_rel, "step_grad_rel_diff": grad_rel,
             **{f"step_{k}": v for k, v in profile.items()}}
+
+
+def bf16_step_check(torch, port, losses, softmax_lse, tag: str, route: bool, s2, items, y, w, loss_keys) -> dict:
+    """One step's loss gradients of a bf16 fit's towers through the fused
+    loss: the route's kernels once each; the leaves' bf16 gradients are the
+    route's f32 gradients rounded once; the two launches held against their
+    twin (BF16_SPLIT_RTOL), the large-catalog route against kernel 7's bf16
+    one pass on the same inputs with the budget lifted (BF16_ROUTE_BAND)."""
+    m = s2.shape[0]
+    sg, ig = s2.clone().requires_grad_(), items.clone().requires_grad_()
+    port.reset_launches()
+    loss = losses.fused_softmax_loss(sg[None], ig, y[None], w[None])
+    ds, di = torch.autograd.grad(loss, (sg, ig))
+    keys = ("lse_partials_fwd_bf16", "grads_z_ds_bf16", "grads_z_di_bf16", "ce_grads_ds_bf16", "ce_grads_di_bf16",
+            "ce_grads_fused_bf16", "lse_partials_fwd", "ce_grads_fused", "ce_grads_ds", "grads_z_ds")
+    launched = {k: port.LAUNCHES[k] for k in keys}
+    check(launched == {k: int(k == "lse_partials_fwd_bf16" or k in loss_keys) for k in keys},
+          f"{tag}: launches of one loss gradient {launched}")
+    lse = softmax_lse.streaming_lse(s2, items)
+    _, _, denom = losses._ce_pieces(s2, items, y, w, lse)
+    c = w.float() * (y != 0).float() / denom
+    z = (lse - torch.log(c)).contiguous()
+    got = softmax_lse.softmax_ce_grads_from_z(s2, items, z, y, c)
+    check(ds.dtype == di.dtype == torch.bfloat16 and bool(torch.equal(ds, got[0].to(torch.bfloat16)))
+          and bool(torch.equal(di, got[1].to(torch.bfloat16))),
+          f"{tag}: the towers' gradients are not the route's f32 gradients rounded once to bf16")
+    if route:
+        budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
+        softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62
+        ref = softmax_lse.softmax_ce_grads_from_z(s2, items, z, y, c)
+        softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+        limit, against = BF16_ROUTE_BAND, "kernel 7's bf16 one pass (the budget lifted)"
+    else:
+        ref = softmax_lse.softmax_ce_grads_from_z_bf16_reference(s2, items, z, y, c, partials=False)
+        limit, against = BF16_SPLIT_RTOL, "the two launches' twin"
+    errs = [_max_rel(g, r) for g, r in zip(got, ref)]
+    check(max(errs) <= limit, f"{tag}: one step's gradients ds {errs[0]}, di {errs[1]} from {against} (limit {limit})")
+    print(f"{tag}: one step's loss gradients through {'the large-catalog route' if route else 'the two launches'} "
+          f"(M={m}): ds {errs[0]:.3g}, di {errs[1]:.3g} of the largest entry from {against} (limit {limit:.3g}); the "
+          f"towers' bf16 gradients are the route's f32 ones rounded once")
+    return {"step_grad_ds_rel_diff": errs[0], "step_grad_di_rel_diff": errs[1]}
 
 
 def classic_fwd_phase(torch, np, port, dataset, dev) -> dict:
@@ -4628,6 +4735,223 @@ def mesh_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     return results
 
 
+# kernel 7's two launches and kernels 12-14 in bf16 against their twins, relative to the twin's largest entry: the
+# twins round at the kernels' points (kernel 7's one pass's, for its two launches), so only the order of f32 sums
+# differs and, where a sum straddles a rounding boundary, a bf16 value lands a step apart
+BF16_SPLIT_RTOL = 2 ** -7
+# the large-catalog CE route (kernels 13 + 14, the label term in f32) against kernel 7's bf16 one pass on the same
+# inputs: the two round at other points (P - D rounded as one bf16 value and bf16 ds partials in the one pass; P
+# rounded and an f32 label term in the route), as JAX's two routes do: 3.3e-3 (ds) and 1.3e-3 (di) of the largest
+# entry on the CPU at 200 x 5,000 x 32 (ROADMAP §3)
+BF16_ROUTE_BAND = 2 ** -6
+CE_SPLIT_BF16_KEYS = ("ce_grads_pair_bf16", "grads_z_fused_bf16", "grads_z_ds_bf16", "grads_z_di_bf16")
+XL_N_ITEM_IDS = 196_607  # + PAD = 196,608 rows: past the 163,840 items at which bf16 CE gradients leave kernel 7
+
+
+def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
+    """(a) of the ``bf16`` phase for large catalogs: kernel 12's bf16 form
+    (within the budget), 13 + 14's and kernel 7's two launches (the budget
+    forced below the plan's partials, and over the JAX rule's bytes for the two
+    launches) at 51,200 x 15,872 x 128; kernel 7's two launches unforced at
+    65,536 items; kernels 13 + 14 and the large-catalog CE route unforced at
+    196,608 items, the route held against kernel 7's bf16 one pass with the
+    budget lifted. Each against its twin (BF16_SPLIT_RTOL), the same bits on a
+    rerun, timed beside its f32 form on the same values, the library call in
+    bf16 and its bound at the bf16 rate."""
+    import torch.nn.functional as F
+
+    from rectools_tpu_torch.ops import _native, softmax_lse
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    m, n, d = b * SESSION_MAX_LEN, N_ITEM_IDS + 1, N_FACTORS
+    n_mid, n_xl = MID_N_ITEM_IDS + 1, XL_N_ITEM_IDS + 1
+    budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    s = torch.randn((m, d), generator=gen, device=dev).to(bf)
+    items_xl = (0.1 * torch.randn((n_xl, d), generator=gen, device=dev)).to(bf)
+    s32 = s.float()
+    pad = torch.rand((m,), generator=gen, device=dev) < 0.1
+    coeff = torch.where(pad, 0.0, 1.0 / float((~pad).sum()))
+    lib = _native.load("softmax_lse_bf16", softmax_lse._SIGNATURES_BF16) if dev.type == "cuda" else None
+    lib32 = _native.load("softmax_lse", softmax_lse._SIGNATURES) if dev.type == "cuda" else None
+    results = {}
+
+    def materialized(s_, items_, z_, want_ds: bool = True, want_di: bool = True) -> tuple:
+        """P = exp(s @ itemsᵀ − z) in device memory (bf16), then its products."""
+        p = (s_ @ items_.T).sub_(z_[:, None]).exp_()
+        return (p @ items_ if want_ds else None), (p.T @ s_ if want_di else None)
+
+    def hold(what: str, got, ref, rtol: float = BF16_SPLIT_RTOL) -> tuple:
+        errs = [_max_rel(g, r) for g, r in zip(got, ref)]
+        check(all(bool(torch.isfinite(g).all()) for g in got) and max(errs) <= rtol,
+              f"{what}: ds {errs[0]}, di {errs[1]} of the largest entry from its twin (limit {rtol})")
+        return errs, [(g - r).abs().max().item() for g, r in zip(got, ref)]
+
+    def rerun(what: str, fn, got) -> None:
+        check(all(bool(torch.equal(a, g)) for a, g in zip(fn(), got)), f"{what}: a second run gave other bits")
+
+    def launched(fn, keys: tuple) -> tuple:
+        before = dict(_native.LAUNCHES)
+        out = fn()
+        counts = {k: _native.LAUNCHES[k] - before[k] for k in _native.LAUNCHES if _native.LAUNCHES[k] != before[k]}
+        check(counts == {k: 1 for k in keys}, f"launches {counts}, expected one each of {keys}")
+        return out
+
+    def split_pair(rows, z_, tag: str, iters: int) -> None:
+        """Kernels 13 + 14 through the wrapper (the budget as set) against their
+        twin, each then timed alone through the library handle beside its f32
+        form (ds with the sum of its chunk partials)."""
+        n_rows = rows.shape[0]
+        what = f"grads_z_ds_bf16 / _di_bf16 at N={n_rows}"
+        fn = lambda: softmax_lse.softmax_grads_from_z(s, rows, z_)  # noqa: E731
+        got = launched(fn, ("grads_z_ds_bf16", "grads_z_di_bf16"))
+        ref = softmax_lse.softmax_grads_from_z_bf16_reference(s, rows, z_, partials=False)
+        errs, abs_errs = hold(what, got, ref)
+        rerun(what, fn, got)
+        rows32 = rows.float()
+        n_chunks, chunk_rows = softmax_lse.split_bwd_plan(m, n_rows, d, n_sms)
+        ds_part, out_di = torch.empty((n_chunks, m, d), device=dev), torch.empty((n_rows, d), device=dev)
+        times = {"ds": 0.0, "di": 0.0, "ds_f32": 0.0, "di_f32": 0.0}
+        if lib is not None:
+            stream = _native.current_stream_ptr(s.device)
+            for suffix, lib_, towers in (("", lib, (s, rows)), ("_f32", lib32, (s32, rows32))):
+                args = (towers[0].data_ptr(), towers[1].data_ptr(), z_.data_ptr())
+                ds_fn = lib_.grads_z_ds_f32 if suffix else lib_.grads_z_ds_bf16
+                di_fn = lib_.grads_z_di_f32 if suffix else lib_.grads_z_di_bf16
+
+                def ds_kernel(ds_fn=ds_fn, args=args):
+                    ds_fn(*args, ds_part.data_ptr(), m, n_rows, d, chunk_rows, n_chunks, stream)
+                    return ds_part.sum(dim=0)
+
+                times[f"ds{suffix}"] = time_ms(ds_kernel, iters=iters)
+                times[f"di{suffix}"] = time_ms(lambda di_fn=di_fn, args=args: di_fn(
+                    *args, out_di.data_ptr(), m, n_rows, d, stream), iters=iters)
+                if not suffix:
+                    check(bool(torch.equal(ds_kernel(), got[0])) and bool(torch.equal(out_di, got[1])),
+                          f"{what}: the timed launches gave other bits than the wrapper's")
+        plain = time_ms(lambda: softmax_lse.softmax_grads_from_z_bf16_reference(s, rows, z_, partials=False),
+                        iters=1, warmup=1)
+        products = 2 * m * n_rows * d
+        vectors = m * 4
+        for i, (kernel, outputs) in enumerate((("ds", m * d), ("di", n_rows * d))):
+            results[f"grads_z_{kernel}_bf16{tag}"] = dict(
+                max_abs_err=abs_errs[i], max_rel_err=errs[i], ms=times[kernel], f32_ms=times[f"{kernel}_f32"],
+                plain_ms=plain,
+                library_ms=time_ms(lambda: materialized(s, rows, z_, i == 0, i == 1), iters=1, warmup=1),
+                bound=bf16_bound((m + n_rows) * d * 2 + vectors + outputs * 4, 2 * products))
+        print(f"bf16 kernels: {what}: ds {errs[0]:.3g}, di {errs[1]:.3g} of the largest entry from their twin (limit "
+              f"{BF16_SPLIT_RTOL:.3g}), bit-equal on a rerun; ds in {n_chunks} item chunks of {chunk_rows} rows")
+
+    def ce_pair(rows, z_, y_, tag: str, forced: bool) -> None:
+        """Kernel 7's two launches (``forced``: the budget under the bf16 plan's
+        partials) against their twin, timed beside the f32 form on the same
+        values (its two launches too, the budget under the f32 plan)."""
+        n_rows = rows.shape[0]
+        what = f"ce_grads_ds_bf16 / _di_bf16 at N={n_rows}"
+        plan = softmax_lse.fused_bwd_plan(m, n_rows, d, n_sms, softmax_lse._ds_itemsize(bf))
+        plan32 = softmax_lse.fused_bwd_plan(m, n_rows, d, n_sms)
+        if forced:
+            softmax_lse.FUSED_BWD_PARTIALS_BUDGET = plan[2] - 1
+        check(plan[2] > softmax_lse.FUSED_BWD_PARTIALS_BUDGET and not softmax_lse.ce_takes_split_route(m, n_rows, d, bf),
+              f"{what}: the CE gradients do not take kernel 7's two launches ({plan[2]} bytes of one-pass partials)")
+        fn = lambda: softmax_lse.softmax_ce_grads_from_z(s, rows, z_, y_, coeff)  # noqa: E731
+        got = launched(fn, ("ce_grads_ds_bf16", "ce_grads_di_bf16"))
+        rerun(what, fn, got)
+        ms = time_ms(fn, iters=3)
+        rows32 = rows.float()
+        f32_pair = plan32[2] > softmax_lse.FUSED_BWD_PARTIALS_BUDGET and not softmax_lse.ce_takes_split_route(
+            m, n_rows, d)
+        check(f32_pair, f"{what}: the f32 form on the same values would not take its two launches")
+        f32_ms = time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s32, rows32, z_, y_, coeff), iters=3)
+        softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+        ref = softmax_lse.softmax_ce_grads_from_z_bf16_reference(s, rows, z_, y_, coeff, partials=False)
+        errs, abs_errs = hold(what, got, ref)
+        # the one pass's twin on the same inputs: the same roundings, f32 sums in another order
+        one_pass = softmax_lse.softmax_ce_grads_from_z_bf16_reference(s, rows, z_, y_, coeff, partials=True)
+        order = max(_max_rel(a, b) for a, b in zip(ref, one_pass))
+        check(order <= 1e-5, f"{what}: the two-launch twin is {order} from the one-pass twin")
+        sg, ig = s.detach().clone().requires_grad_(), rows.detach().clone().requires_grad_()
+        ce_lib = (F.cross_entropy(sg @ ig.T, y_, reduction="none").float() * coeff).sum()
+        products = 2 * m * n_rows * d
+        results[f"ce_grads_pair_bf16{tag}"] = dict(
+            max_abs_err=max(abs_errs), max_rel_err=max(errs), ms=ms, f32_ms=f32_ms,
+            plain_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z_bf16_reference(
+                s, rows, z_, y_, coeff, partials=False), iters=1, warmup=1),
+            library_ms=time_ms(lambda: torch.autograd.grad(ce_lib, (sg, ig), retain_graph=True), iters=1, warmup=1),
+            bound=bf16_bound((m + n_rows) * d * 2 + m * 16 + (m + n_rows) * d * 4, 3 * products))
+        split = softmax_lse.split_bwd_plan(m, n_rows, d, n_sms, softmax_lse.FUSED_BWD_CHUNK)
+        print(f"bf16 kernels: {what}{' (budget forced)' if forced else ''}: ds {errs[0]:.3g}, di {errs[1]:.3g} of the "
+              f"largest entry from their twin (limit {BF16_SPLIT_RTOL:.3g}), bit-equal on a rerun; one-pass partials "
+              f"{plan[2] / 2**20:.0f} MiB; ds in {split[0]} item chunks of {split[1]} rows; the two-launch twin "
+              f"{order:.3g} from the one-pass twin")
+
+    # at the training width: kernel 12 within the budget
+    items = items_xl[:n]
+    y = torch.where(pad, 0, torch.randint(1, n, (m,), generator=gen, device=dev))
+    z = softmax_lse.streaming_lse(s, items) - torch.log(coeff)
+    check(softmax_lse._fused_on_the_card(m, n, d, softmax_lse._ds_itemsize(bf)),
+          "the bf16 softmax gradients from z at the training width leave kernel 12")
+    fn = lambda: softmax_lse.softmax_grads_from_z(s, items, z)  # noqa: E731
+    got = launched(fn, ("grads_z_fused_bf16",))
+    ref = softmax_lse.softmax_grads_from_z_bf16_reference(s, items, z, partials=True)
+    errs, abs_errs = hold("grads_z_fused_bf16", got, ref)
+    rerun("grads_z_fused_bf16", fn, got)
+    items32 = items.float()
+    products = 2 * m * n * d
+    results["grads_z_fused_bf16"] = dict(
+        max_abs_err=max(abs_errs), max_rel_err=max(errs), ms=time_ms(fn, iters=3),
+        f32_ms=time_ms(lambda: softmax_lse.softmax_grads_from_z(s32, items32, z), iters=3),
+        plain_ms=time_ms(lambda: softmax_lse.softmax_grads_from_z_bf16_reference(s, items, z), iters=1, warmup=1),
+        library_ms=time_ms(lambda: materialized(s, items, z), iters=3),
+        bound=bf16_bound((m + n) * d * 2 + m * 4 + (m + n) * d * 4, 3 * products))
+    print(f"bf16 kernels: grads_z_fused_bf16 at N={n}: ds {errs[0]:.3g}, di {errs[1]:.3g} of the largest entry from "
+          f"its twin (limit {BF16_SPLIT_RTOL:.3g}), bit-equal on a rerun")
+    # kernels 13 + 14 and kernel 7's two launches, the budget forced
+    softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 0
+    split_pair(items, z, "", iters=3)
+    softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+    ce_pair(items, z, y, "", forced=True)
+    del items32
+    # at 65,536 items: kernel 7's two launches, unforced
+    rows = items_xl[:n_mid]
+    y_mid = torch.where(pad, 0, torch.randint(1, n_mid, (m,), generator=gen, device=dev))
+    ce_pair(rows, softmax_lse.streaming_lse(s, rows) - torch.log(coeff), y_mid, "_mid_catalog", forced=False)
+    torch.cuda.empty_cache()
+    # at 196,608 items: kernels 13 + 14 and the large-catalog route, unforced
+    y_xl = torch.where(pad, 0, torch.randint(1, n_xl, (m,), generator=gen, device=dev))
+    y_xl[: m // 50] = n_xl - 1  # a label many rows share, on the catalog's last row
+    z_xl = softmax_lse.streaming_lse(s, items_xl) - torch.log(coeff)
+    check(softmax_lse.ce_takes_split_route(m, n_xl, d, bf), f"the bf16 CE gradients at N={n_xl} stay on kernel 7")
+    split_pair(items_xl, z_xl, "_large_catalog", iters=1)
+    torch.cuda.empty_cache()
+    fn = lambda: softmax_lse.softmax_ce_grads_from_z(s, items_xl, z_xl, y_xl, coeff)  # noqa: E731
+    route = launched(fn, ("grads_z_ds_bf16", "grads_z_di_bf16"))
+    rerun(f"the bf16 CE route at N={n_xl}", fn, route)
+    route_ms = time_ms(fn, iters=1)
+    softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62  # kernel 7's bf16 one pass at any size
+    large_plan = softmax_lse.fused_bwd_plan(m, n_xl, d, n_sms, softmax_lse._ds_itemsize(bf))
+    kernel_7 = softmax_lse.softmax_ce_grads_from_z(s, items_xl, z_xl, y_xl, coeff)
+    kernel_7_ms = time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items_xl, z_xl, y_xl, coeff), iters=1)
+    softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+    band = [_max_rel(a, k) for a, k in zip(route, kernel_7)]
+    check(max(band) <= BF16_ROUTE_BAND,
+          f"the bf16 CE route at N={n_xl} is ds {band[0]}, di {band[1]} from kernel 7's bf16 one pass")
+    results["ce_grads_large_catalog_route_bf16"] = {"route_ms": route_ms, "kernel_7_ms": kernel_7_ms,
+                                                    "ds_rel_diff": band[0], "di_rel_diff": band[1]}
+    print(f"bf16 kernels: at N={n_xl}: the bf16 CE route (kernels 13 + 14, the label term in f32) {route_ms:.3f} ms "
+          f"beside kernel 7's bf16 one pass {kernel_7_ms:.3f} ms (the budget lifted: {large_plan[2] / 2**30:.2f} GiB "
+          f"of partials); ds {band[0]:.3g}, di {band[1]:.3g} of the largest entry apart (band {BF16_ROUTE_BAND:.3g}: "
+          f"the routes round at other points); the route bit-equal on a rerun")
+    del route, kernel_7
+    for name in ("grads_z_fused_bf16", "grads_z_ds_bf16", "grads_z_di_bf16", "ce_grads_pair_bf16",
+                 "ce_grads_pair_bf16_mid_catalog", "grads_z_ds_bf16_large_catalog", "grads_z_di_bf16_large_catalog"):
+        _bf16_line(name, results[name])
+    del s, s32, items_xl, rows, z, z_xl
+    torch.cuda.empty_cache()
+    return results
+
+
 def _bf16_fit_launches(port, steps: int, val_forwards: int, with_loss: bool = True, family: str = "sasrec") -> dict:
     """Every launch count of a bf16 fit: per step the bf16 attention forms (HSTU:
     the bf16 STU forms, 18 in two launches, and 19) and, with the full-catalog
@@ -4758,7 +5082,8 @@ def bf16_family_phase(torch, np, port, dataset, dev) -> dict:
 
 def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
     """(d) of the ``bf16`` phase: every route without a bf16 kernel raises
-    NotImplementedError naming ROADMAP §1 item 5 on the card."""
+    NotImplementedError naming ROADMAP §1 item 5 on the card (the loss
+    routes, kernels 8-14, at width 16: at 32-128 they run)."""
     from rectools_tpu_torch.models import HSTUModel
     from rectools_tpu_torch.ops import _native, attention, softmax_lse
 
@@ -4789,16 +5114,17 @@ def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
     from rectools_tpu_torch.ops import stu_attention
 
     heads_of_8 = torch.ones((1, 2, 4, 8), device=dev, dtype=bf)
+    narrow, narrow_items = torch.ones((8, 16), device=dev, dtype=bf), torch.ones((3000, 16), device=dev, dtype=bf)
     masks = (torch.zeros((1, 4, 4), device=dev), torch.ones((1, 4, 4), device=dev), torch.ones((1, 4), device=dev))
     refused = {
         "STU at head dim 8 (kernels 17-19)": lambda: stu_attention.stu_fwd(heads_of_8, heads_of_8, heads_of_8,
                                                                            *masks),
         "mesh loss (kernels 8-11) at d = 16": lambda: softmax_lse.sharded_streaming_lse(
             torch.ones((8, 16), device=dev, dtype=bf), torch.ones((3000, 16), device=dev, dtype=bf), None, "model"),
-        "large-catalog route (kernels 12-14)": budget(0, lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y,
-                                                                                                     coeff)),
-        "kernel 7's two launches": budget(100_000,
-                                          lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)),
+        "large-catalog route (kernels 12-14) at d = 16": budget(0, lambda: softmax_lse.softmax_ce_grads_from_z(
+            narrow, narrow_items, z[:8], y[:8], coeff[:8])),
+        "kernel 7's two launches at d = 16": budget(100_000, lambda: softmax_lse.softmax_ce_grads_from_z(
+            narrow, narrow_items, z[:8], y[:8], coeff[:8])),
         "d = 256": lambda: softmax_lse.streaming_lse(torch.ones((8, 256), device=dev, dtype=bf),
                                                      torch.ones((3000, 256), device=dev, dtype=bf)),
         "bounded shift (kernel 16)": lambda: softmax_lse.streaming_lse(s, items, bounded_shift=True),
@@ -4806,7 +5132,8 @@ def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
         "biased lse (kernel 8) at d = 256": lambda: softmax_lse.streaming_lse(
             torch.ones((8, 256), device=dev, dtype=bf), torch.ones((3000, 256), device=dev, dtype=bf),
             torch.zeros(3000, device=dev)),
-        "gradients from z (kernels 12-14)": lambda: softmax_lse.softmax_grads_from_z(s, items, z),
+        "gradients from z (kernels 12-14) at d = 16": lambda: softmax_lse.softmax_grads_from_z(narrow, narrow_items,
+                                                                                               z[:8]),
         "head dim 8": lambda: attention.attention_fwd(*(torch.ones((1, 2, 4, 8), device=dev, dtype=bf),) * 3, None,
                                                       0.3),
     }
@@ -4836,13 +5163,16 @@ def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
 
 
 def bf16_phase(torch, np, pd, port, df, dataset, dev, f32: dict, hstu_f32: dict) -> dict:
-    """The ``bf16`` phase: (a) the kernel forms (2, 5, 6, 7 and 17-19), (b) the
-    SASRec fit beside phase 5's and the HSTU fit beside phase 7's, (c) BERT4Rec
-    and eSASRec, (d) the refusals; its wall."""
+    """The ``bf16`` phase: (a) the kernel forms (2, 5-14 with kernel 7's two
+    launches, and 17-19), (b) the SASRec fit beside phase 5's and the HSTU fit
+    beside phase 7's, (c) BERT4Rec and eSASRec, (d) the refusals; its wall.
+    The bf16 fits on the 65,536- and 196,608-row catalogs run after phase 9's
+    f32 fits (``bf16 mid fit``, ``bf16 large fit``)."""
     t0 = time.perf_counter()
     kernels = bf16_kernel_phase(torch, torch.device(dev))
     kernels.update(stu_bf16_kernel_phase(torch, torch.device(dev)))
     kernels.update(mesh_bf16_kernel_phase(torch, torch.device(dev)))
+    kernels.update(ce_split_bf16_kernel_phase(torch, torch.device(dev)))
     fit = bf16_fit_phase(torch, np, port, df, dataset, dev, f32)
     hstu_fit = bf16_fit_phase(torch, np, port, df, dataset, dev, hstu_f32, family="hstu")
     families = bf16_family_phase(torch, np, port, dataset, dev)
@@ -4966,6 +5296,12 @@ def main() -> int:
     classic_result = classic_fwd_phase(torch, np, port, dataset, "cuda")
     mid_result = large_fit_phase(torch, np, pd, port, "cuda", MID_N_ITEM_IDS)
     large_result = large_fit_phase(torch, np, pd, port, "cuda")
+    # phase 16's fits on large catalogs: bf16 on kernel 7's two launches (65,536 rows, beside the f32 mid fit) and
+    # on the large-catalog route (196,608 rows)
+    print(f"bf16 mid fit: on {card}")
+    bf16_mid_result = large_fit_phase(torch, np, pd, port, "cuda", MID_N_ITEM_IDS, mid_result, "bfloat16")
+    print(f"bf16 large fit: on {card}")
+    bf16_large_result = large_fit_phase(torch, np, pd, port, "cuda", XL_N_ITEM_IDS, None, "bfloat16")
 
     # name: (source, replaced TPU kernel, launch-count keys, entry of `kernels` with its numbers), by kernel number
     table = {
@@ -5007,6 +5343,12 @@ def main() -> int:
                                "lse_bwd_fused_bf16"),
         "lse_bwd_ds_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:205", ("lse_bwd_ds_bf16",), "lse_bwd_ds_bf16"),
         "lse_bwd_di_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:266", ("lse_bwd_di_bf16",), "lse_bwd_di_bf16"),
+        "ce_grads_pair_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:643", ("ce_grads_ds_bf16", "ce_grads_di_bf16"),
+                               "ce_grads_pair_bf16"),
+        "grads_z_fused_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:591", ("grads_z_fused_bf16",),
+                               "grads_z_fused_bf16"),
+        "grads_z_ds_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:757", ("grads_z_ds_bf16",), "grads_z_ds_bf16"),
+        "grads_z_di_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:774", ("grads_z_di_bf16",), "grads_z_di_bf16"),
     }
     # mesh_fit_4 counts one rank's launches (every rank's are equal); kernels 10
     # and 11 run where the partials budget is forced to 0; `ops` calls the public
@@ -5027,7 +5369,8 @@ def main() -> int:
              "bf16_bert4rec_fit": bf16_result["families"]["bert4rec"],
              "bf16_esasrec_fit": bf16_result["families"]["esasrec"], "bf16_mesh_fit": mesh_result["bf16"],
              "bf16_mesh_fit_budget_forced": {"launches": mesh_result["bf16"]["launches_budget_forced"]},
-             "bf16_mesh_fit_4": mesh_4_result["bf16"]}
+             "bf16_mesh_fit_4": mesh_4_result["bf16"], "bf16_fit_mid_catalog": bf16_mid_result,
+             "bf16_fit_large_catalog": bf16_large_result}
 
     def numbers(r: dict) -> dict:
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -5079,6 +5422,11 @@ def main() -> int:
             entry["large_catalog"] = numbers(kernels["lse_partials_fwd_large_catalog"])
         if name == "lse_shift_fwd":  # the same kernel with every row in window 2
             entry["window_2"] = numbers(kernels["lse_shift_fwd_window_2"])
+        if name == "ce_grads_pair_bf16":  # unforced at 65,536 items
+            entry["mid_catalog"] = numbers(kernels["ce_grads_pair_bf16_mid_catalog"])
+        if name in ("grads_z_ds_bf16", "grads_z_di_bf16"):  # unforced at 196,608 items; there the CE route
+            entry["large_catalog"] = numbers(kernels[f"{name}_large_catalog"])
+            entry["large_catalog_route"] = kernels["ce_grads_large_catalog_route_bf16"]
         if name == "ce_grads":  # kernel 7's two launches; at 51,200 x 131,072 the split route beside its one pass
             entry["two_launch_pair"] = numbers(kernels["ce_grads_pair"])
             entry["large_catalog_route"] = kernels["ce_grads_large_catalog_route"]
@@ -5101,6 +5449,8 @@ def main() -> int:
         "fit_classic_fwd": {k: v for k, v in classic_result.items() if k != "launches"},
         "fit_mid_catalog": {k: v for k, v in mid_result.items() if k != "launches"},
         "fit_large_catalog": {k: v for k, v in large_result.items() if k != "launches"},
+        "bf16_fit_mid_catalog": {k: v for k, v in bf16_mid_result.items() if k != "launches"},
+        "bf16_fit_large_catalog": {k: v for k, v in bf16_large_result.items() if k != "launches"},
         "bert4rec_recommend": {k: v for k, v in bert4rec_main_result.items() if k != "launches"},
         "bert4rec_train": {**{k: v for k, v in bert4rec_train_result.items() if k != "launches"},
                            "agreement": bert4rec_agree_result},

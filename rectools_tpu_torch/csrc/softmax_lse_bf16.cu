@@ -1,7 +1,8 @@
-// The streaming logsumexp, its generic backward and the softmax-CE gradients
-// on bf16 towers: the forms of kernels 6 to 11 that mixed-precision training
-// (compute_dtype="bfloat16") runs, without and with a process mesh, on bf16
-// tensor-core products with f32 accumulation.
+// The streaming logsumexp, its generic backward, the softmax gradients from z
+// and the softmax-CE gradients on bf16 towers: the forms of kernels 6 to 14
+// that mixed-precision training (compute_dtype="bfloat16") runs, without and
+// with a process mesh and on catalogs of any size, on bf16 tensor-core
+// products with f32 accumulation.
 //
 // Replaces, for bf16 inputs:
 // - rectools_tpu/ops/softmax_lse.py:169 `_lse_fwd_partials_kernel`
@@ -20,6 +21,21 @@
 //   `BF16_DS_PARTIALS`, :456-473) else as f32, and di = (P - D)^T s
 //   accumulated in f32 per group of session tiles. The caller sums both sets
 //   of partials in f32 in a fixed order.
+// - kernel 7's two launches (`ce_ds_bf16`, `ce_di_bf16`), which the port runs
+//   where the one pass's partials pass the budget (JAX has no such form): the
+//   same rounded (P - D); ds walks each item chunk of `split_bwd_plan` (a
+//   whole number of 2,048-row steps) in steps of 2,048 item rows, rounds each
+//   step's f32 sum to bf16 and adds it to the chunk's f32 partial, so that
+//   the one pass's arithmetic differs only in the order of the f32 sums; di =
+//   (P - D)^T s in f32, one block per 64-row item tile.
+// - :591 `_grads_z_fused_kernel` (`grads_z_fused_bf16`, kernel 12): kernel
+//   7's one pass in its `kZ` form, pw = exp(logit - z) rounded to bf16 once,
+//   no label term, ds partials in bf16 under `bf16_partials` (:818-820).
+// - :757 `_ds_z_kernel` (`grads_z_ds_bf16`, kernel 13): the same pw times the
+//   item tiles, ds summed in f32 over every chunk, nothing rounded between
+//   them (:770-771).
+// - :774 `_di_z_kernel` (`grads_z_di_bf16`, kernel 14): di = pw^T s in f32,
+//   pw rounded once (:786-790), unlike kernel 11.
 // - :234 `_bwd_fused_kernel` (`lse_bwd_fused_bf16`, kernel 9): kernel 7's
 //   kernel and grid in its `kLse` form: pw = exp((logit + bias) - lse) * dlse
 //   in f32, dlse of either sign, rounded to bf16 once for both products
@@ -66,11 +82,19 @@
 //   thread and no other block touches them). The B operands whose depth runs
 //   across rows (items for ds, sessions for di) are read as two 16-bit values
 //   a register. 107,776 bytes of shared memory at D = 128.
-// - Kernel 10: the f32 split ds kernel's grid (ops/softmax_lse.py
-//   `split_bwd_plan`: block (x, y) owns session tile x and item chunk y, 1 to
-//   4 chunks), kernel 9's products 1 and 2 on each item tile of its chunk,
-//   ds in registers, written as the f32 ds partial of (chunk, session tile)
-//   that the caller sums in order. 89,344 bytes at D = 128.
+// - Kernel 12: kernel 7's kernel and grid in its `kZ` form.
+// - Kernels 10, 13 and 7's ds launch: one kernel in three forms on the f32
+//   split ds kernel's grid (ops/softmax_lse.py `split_bwd_plan`: block (x, y)
+//   owns session tile x and item chunk y, 1 to 4 chunks), kernel 9's products
+//   1 and 2 on each item tile of its chunk, ds in registers, written as the
+//   f32 ds partial of (chunk, session tile) that the caller sums in order;
+//   stepping (7's ds launch), the step's sum is rounded to bf16 and added to
+//   the partial in device memory at each step's end (each thread its own
+//   entries). 90,368 bytes at D = 128.
+// - Kernels 14 and 7's di launch: kernel 11's grid and ring (block x owns the
+//   64-row item tile x, walks every session tile) without its staged s *
+//   dlse tile: pw rounded once into [item][session], di += pw^T s in
+//   registers, written once. 106,496 bytes at D = 128.
 // - Kernel 11: block x owns the 64-row item tile x and walks every 128-row
 //   session tile through a ring of two: the logits (product 1), p rounded to
 //   bf16 into [item][session], the session tile times dlse rounded to bf16
@@ -82,7 +106,9 @@
 // kernels 6 and 8 are one logit product, 2 M N D = 208 GFLOP, 0.21 ms at 989
 // TFLOP/s bf16 (their inputs, 17 MB, take 0.005 ms at 3.35 TB/s); kernels 7
 // and 9 are three, 624 GFLOP, 0.63 ms, with 0.24 GB of inputs and partials
-// (0.07 ms); kernels 10 and 11 two each, 0.42 ms. At a (2, 2) mesh's shard
+// (0.07 ms); kernels 10 and 11 two each, 0.42 ms, and so are each of 7's two
+// launches and kernels 13 and 14 (kernel 12 three, as 7), at 196,608 items
+// 5.2 ms each (2 x 2.58 TFLOP). At a (2, 2) mesh's shard
 // (25,600 x 7,936) each is a quarter of that. What bounds them as written is
 // issue and latency: `mma.sync` (not `wgmma`), one block of 8 warps per SM for
 // the gradient kernels, the exps, the 16-bit reads of the transposed
@@ -94,6 +120,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -245,10 +273,42 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kPP = bt::pitch(kBN);  // the probability tile [session][item]
 constexpr int kPTP = bt::pitch(kBM);  // its transpose [item][session]
 
-// The one pass's two forms. kCE (kernel 7): z = row_a, coeff = row_b, labels
-// y, pw = exp(logit - z) - coeff [item == y]. kLse (kernel 9): lse = row_a,
-// dlse = row_b, the item rows' bias, pw = exp((logit + bias) - lse) * dlse.
-enum Form : int { kCE = 0, kLse = 1 };
+// The forms of the gradient kernels. kCE (kernel 7): z = row_a, coeff =
+// row_b, labels y, pw = exp(logit - z) - coeff [item == y]. kLse (kernels 9
+// and 10): lse = row_a, dlse = row_b, the item rows' bias, pw = exp((logit +
+// bias) - lse) * dlse. kZ (kernels 12 and 13): z = row_a, pw = exp(logit - z).
+enum Form : int { kCE = 0, kLse = 1, kZ = 2 };
+
+// the f32 weight of one (session row, item) pair of form F, before its
+// rounding to bf16; 0 for an item at or past n_end (the NaN rule)
+template <int F>
+__device__ __forceinline__ float weight(float logit, float a, float b, long long y, float bias, long long item,
+                                        long long n_end) {
+  float pw;
+  if (F == kLse) {
+    pw = expf((logit + bias) - a) * b;
+  } else {
+    pw = expf(logit - a);
+    if (F == kCE && item == y) pw -= b;
+  }
+  return item >= n_end ? 0.f : pw;
+}
+
+// the row vectors of session rows [row0, row0 + 128) into shared memory,
+// threads 0..127 one row each: a row past M gets row_a = +inf and row_b = 0
+// (it contributes nothing) and label -1; kZ reads no row_b, only kCE labels
+template <int F>
+__device__ __forceinline__ void load_rows(float* a_dst, float* b_dst, long long* y_dst, const float* __restrict__ row_a,
+                                          const float* __restrict__ row_b, const long long* __restrict__ y,
+                                          long long row0, long long M) {
+  if (threadIdx.x < kBM) {
+    const long long row = row0 + threadIdx.x;
+    const bool ok = row < M;
+    a_dst[threadIdx.x] = ok ? row_a[row] : INFINITY;
+    b_dst[threadIdx.x] = ok && F != kZ ? row_b[row] : 0.f;
+    if (F == kCE) y_dst[threadIdx.x] = ok ? y[row] : -1;
+  }
+}
 
 template <int D>
 struct CeSmem {
@@ -289,13 +349,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     bt::stage_async<D, kBM, kThreads>(sm.s, s, D, row0, M);
     bt::stage_async<D, kBN, kThreads>(sm.items[0], items, D, n_begin, n_end);
     tc::cp_commit();
-    if (threadIdx.x < kBM) {
-      const long long row = row0 + threadIdx.x;
-      const bool ok = row < M;
-      sm.z[threadIdx.x] = ok ? z[row] : INFINITY;
-      sm.coeff[threadIdx.x] = ok ? coeff[row] : 0.f;
-      if (F == kCE) sm.y[threadIdx.x] = ok ? y[row] : -1;
-    }
+    load_rows<F>(sm.z, sm.coeff, sm.y, z, coeff, y, row0, M);
     float ds[2][kNF][4];
 #pragma unroll
     for (int mf = 0; mf < 2; ++mf)
@@ -347,15 +401,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int e = 0; e < 4; ++e) {
             const int r = 32 * wr + 16 * mf + g + 8 * (e >> 1);
             const int c = 32 * wc + 8 * nf + 2 * t + (e & 1);
-            const long long item = item0 + c;
-            float pw;
-            if (F == kLse) {
-              pw = expf((acc[mf][nf][e] + sm.bias[c]) - sm.z[r]) * sm.coeff[r];
-            } else {
-              pw = expf(acc[mf][nf][e] - sm.z[r]);
-              if (item == sm.y[r]) pw -= sm.coeff[r];
-            }
-            if (item >= n_end) pw = 0.f;
+            const float pw = weight<F>(acc[mf][nf][e], sm.z[r], sm.coeff[r], F == kCE ? sm.y[r] : -1,
+                                       F == kLse ? sm.bias[c] : 0.f, item0 + c, n_end);
             const __nv_bfloat16 pb = __float2bfloat16_rn(pw);
             sm.p[r * kPP + c] = pb;
             sm.pt[c * kPTP + r] = pb;
@@ -437,24 +484,30 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ------------------------------------------------------------ kernel 10
+// ------------------------------------------- the split ds kernels: 10, 7's ds launch and 13
 
 template <int D>
 struct DsSmem {
   __nv_bfloat16 s[kBM * bt::pitch(D)];
   __nv_bfloat16 items[2][kBN * bt::pitch(D)];
   __nv_bfloat16 p[kBM * kPP];
-  float lse[kBM];
-  float dlse[kBM];
-  float bias[kBN];
+  float row_a[kBM];  // lse (kLse) or z
+  float row_b[kBM];  // dlse (kLse) or coeff (kCE)
+  long long y[kBM];  // kCE: the labels
+  float bias[kBN];   // kLse: the bias of the item tile being multiplied
 };
 
-template <int D>
+// Block (x, y) owns session tile x and item chunk y. With step_tiles > 0 the
+// chunk is walked in steps of that many item tiles: each step's ds sum is
+// rounded to bf16 and added to the partial in f32 (kernel 7's bf16 partials,
+// one a 2,048-row step, as its one pass keeps them); with 0 the chunk's ds is
+// one f32 sum.
+template <int D, int F>
 __global__ void __launch_bounds__(kThreads, 1)
-    lse_bwd_ds_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ items,
-                           const float* __restrict__ bias, const float* __restrict__ lse,
-                           const float* __restrict__ dlse, float* __restrict__ ds_part, long long M, long long N,
-                           long long chunk_rows) {
+    split_ds_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ items,
+                         const float* __restrict__ row_a, const long long* __restrict__ y,
+                         const float* __restrict__ row_b, const float* __restrict__ bias,
+                         float* __restrict__ ds_part, long long M, long long N, long long chunk_rows, int step_tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DsSmem<D>& sm = *reinterpret_cast<DsSmem<D>*>(smem_raw);
   constexpr int P = bt::pitch(D);
@@ -469,11 +522,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   bt::stage_async<D, kBM, kThreads>(sm.s, s, D, row0, M);
   bt::stage_async<D, kBN, kThreads>(sm.items[0], items, D, n_begin, n_end);
   tc::cp_commit();
-  if (threadIdx.x < kBM) {
-    const long long row = row0 + threadIdx.x;
-    sm.lse[threadIdx.x] = row < M ? lse[row] : INFINITY;
-    sm.dlse[threadIdx.x] = row < M ? dlse[row] : 0.f;
-  }
+  load_rows<F>(sm.row_a, sm.row_b, sm.y, row_a, row_b, y, row0, M);
   float ds[2][kNF][4];
 #pragma unroll
   for (int mf = 0; mf < 2; ++mf)
@@ -481,6 +530,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int nf = 0; nf < kNF; ++nf)
 #pragma unroll
       for (int e = 0; e < 4; ++e) ds[mf][nf][e] = 0.f;
+  bool first_step = true;
 
   for (int it = 0; it < n_tiles; ++it) {
     const long long item0 = n_begin + (long long)it * kBN;
@@ -491,7 +541,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     } else {
       tc::cp_wait<0>();
     }
-    load_bias(sm.bias, bias, item0, n_end);
+    if (F == kLse) load_bias(sm.bias, bias, item0, n_end);
     __syncthreads();
     const __nv_bfloat16* tile = sm.items[it & 1];
 
@@ -515,7 +565,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int nf = 0; nf < 4; ++nf) bt::mma(acc[mf][nf], a[mf], b[nf]);
     }
-    // pw = exp((logit + bias) - lse) * dlse in f32, 0 past N, then bf16 (:220-231)
+    // pw in f32, 0 past N, then bf16 (kLse: :220-231; kCE: :672-676; kZ: :770)
 #pragma unroll
     for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
@@ -524,8 +574,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int e = 0; e < 4; ++e) {
           const int r = 32 * wr + 16 * mf + g + 8 * (e >> 1);
           const int c = 32 * wc + 8 * nf + 2 * t + (e & 1);
-          float pw = expf((acc[mf][nf][e] + sm.bias[c]) - sm.lse[r]) * sm.dlse[r];
-          if (item0 + c >= n_end) pw = 0.f;
+          const float pw = weight<F>(acc[mf][nf][e], sm.row_a[r], sm.row_b[r], F == kCE ? sm.y[r] : -1,
+                                     F == kLse ? sm.bias[c] : 0.f, item0 + c, n_end);
           sm.p[r * kPP + c] = __float2bfloat16_rn(pw);
         }
     __syncthreads();
@@ -545,22 +595,151 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     __syncthreads();  // P and this ring slot are consumed
-  }
 
-  // the f32 ds partial of (item chunk, session tile)
+    // at a step's end (or the chunk's): the step's sum, rounded to bf16 when stepping, onto the f32 ds partial
+    // of (item chunk, session tile), each thread its own entries
+    if (it + 1 < n_tiles && (step_tiles == 0 || (it + 1) % step_tiles != 0)) continue;
 #pragma unroll
-  for (int mf = 0; mf < 2; ++mf)
+    for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const long long row = row0 + 32 * wr + 16 * mf + g + 8 * hh;
-      if (row >= M) continue;
-      float* out = ds_part + ((long long)blockIdx.y * M + row) * D;
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long row = row0 + 32 * wr + 16 * mf + g + 8 * hh;
+        if (row >= M) continue;
+        float* out = ds_part + ((long long)blockIdx.y * M + row) * D;
+#pragma unroll
+        for (int nf = 0; nf < kNF; ++nf) {
+          const int col = (D / 2) * wc + 8 * nf + 2 * t;
+          float2 v = make_float2(ds[mf][nf][2 * hh], ds[mf][nf][2 * hh + 1]);
+          if (step_tiles > 0) v = make_float2(bt::round_bf16(v.x), bt::round_bf16(v.y));
+          if (!first_step) {
+            const float2 run = *reinterpret_cast<const float2*>(out + col);
+            v = make_float2(run.x + v.x, run.y + v.y);
+          }
+          *reinterpret_cast<float2*>(out + col) = v;
+        }
+      }
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[mf][nf][e] = 0.f;
+    first_step = false;
+  }
+}
+
+// ------------------------------------------- the split di kernels: 7's di launch and 14
+
+template <int D>
+struct ZDiSmem {
+  __nv_bfloat16 items[kBN * bt::pitch(D)];
+  __nv_bfloat16 s[2][kBM * bt::pitch(D)];
+  __nv_bfloat16 pt[kBN * kPTP];  // pw rounded to bf16, [item][session]
+  float z[kBM];
+  float coeff[kBM];
+  long long y[kBM];
+};
+
+// Block x owns the 64-row item tile x and walks every 128-row session tile
+// through a ring of two: pw (form kCE or kZ) rounded to bf16 once, di += pw^T
+// s in f32 registers, written once.
+template <int D, int F>
+__global__ void __launch_bounds__(kThreads, 1)
+    split_di_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ items,
+                         const float* __restrict__ z, const long long* __restrict__ y,
+                         const float* __restrict__ coeff, float* __restrict__ di_out, long long M, long long N) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ZDiSmem<D>& sm = *reinterpret_cast<ZDiSmem<D>*>(smem_raw);
+  constexpr int P = bt::pitch(D);
+  constexpr int kNF = D / 16;  // 8-column fragments of a warp's D / 2 columns of di
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr = warp >> 1, wc = warp & 1;
+  const long long item0 = (long long)blockIdx.x * kBN;
+  const long long m_tiles = (M + kBM - 1) / kBM;
+
+  bt::stage_async<D, kBN, kThreads>(sm.items, items, D, item0, N);
+  bt::stage_async<D, kBM, kThreads>(sm.s[0], s, D, 0, M);
+  tc::cp_commit();
+  float di[kNF][4];
+#pragma unroll
+  for (int nf = 0; nf < kNF; ++nf)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) di[nf][e] = 0.f;
+
+  for (long long st = 0; st < m_tiles; ++st) {
+    const long long row0 = st * kBM;
+    if (st + 1 < m_tiles) {
+      bt::stage_async<D, kBM, kThreads>(sm.s[(st + 1) & 1], s, D, row0 + kBM, M);
+      tc::cp_commit();
+      tc::cp_wait<1>();
+    } else {
+      tc::cp_wait<0>();
+    }
+    load_rows<F>(sm.z, sm.coeff, sm.y, z, coeff, y, row0, M);
+    __syncthreads();
+    const __nv_bfloat16* tile = sm.s[st & 1];
+
+    // product 1: the logits of session rows 32 wr + [0, 32), items 32 wc + [0, 32)
+    float acc[2][4][4];
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
+#pragma unroll
+    for (int k = 0; k < D; k += 16) {
+      uint32_t a[2][4], b[4][2];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf) bt::frag_a<P>(tile, 32 * wr + 16 * mf, k, a[mf]);
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf) bt::frag_b<P>(sm.items, 32 * wc + 8 * nf, k, b[nf]);
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) bt::mma(acc[mf][nf], a[mf], b[nf]);
+    }
+    // pw in f32 (kCE: the label term inside the tile), 0 past N, rounded to bf16 once (:672-676, :786), as
+    // [item][session]
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 32 * wr + 16 * mf + g + 8 * (e >> 1);
+          const int c = 32 * wc + 8 * nf + 2 * t + (e & 1);
+          const float pw = weight<F>(acc[mf][nf][e], sm.z[r], sm.coeff[r], F == kCE ? sm.y[r] : -1, 0.f,
+                                     item0 + c, N);
+          sm.pt[c * kPTP + r] = __float2bfloat16_rn(pw);
+        }
+    __syncthreads();
+
+    // product 3: di (item rows 16 wr + [0, 16), columns D / 2 wc + [0, D / 2)) += pw^T s
+#pragma unroll
+    for (int k = 0; k < kBM; k += 16) {
+      uint32_t a[4];
+      bt::frag_a<kPTP>(sm.pt, 16 * wr, k, a);
 #pragma unroll
       for (int nf = 0; nf < kNF; ++nf) {
-        const int col = (D / 2) * wc + 8 * nf + 2 * t;
-        *reinterpret_cast<float2*>(out + col) = make_float2(ds[mf][nf][2 * hh], ds[mf][nf][2 * hh + 1]);
+        uint32_t b[2];
+        bt::frag_b_t<P>(tile, k, (D / 2) * wc + 8 * nf, b);
+        bt::mma(di[nf], a, b);
       }
     }
+    __syncthreads();  // pw, the row vectors and this ring slot are consumed
+  }
+
+  const long long di_row = item0 + 16 * wr + g;
+#pragma unroll
+  for (int nf = 0; nf < kNF; ++nf) {
+    const int col = (D / 2) * wc + 8 * nf + 2 * t;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      if (di_row + 8 * hh < N)
+        *reinterpret_cast<float2*>(di_out + (di_row + 8 * hh) * D + col) = make_float2(di[nf][2 * hh],
+                                                                                        di[nf][2 * hh + 1]);
+  }
 }
 
 // ------------------------------------------------------------ kernel 11
@@ -722,18 +901,42 @@ int launch_ce(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* z
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_ds(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* bias, const float* lse,
-              const float* dlse, float* ds_part, long long M, long long N, long long chunk_rows, long long n_chunks,
-              cudaStream_t stream) {
+template <int D, int F>
+int launch_ds(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* row_a, const long long* y,
+              const float* row_b, const float* bias, float* ds_part, long long M, long long N, long long chunk_rows,
+              long long n_chunks, int step_tiles, cudaStream_t stream) {
   if ((N + chunk_rows - 1) / chunk_rows != n_chunks) return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(DsSmem<D>);
   cudaError_t err =
-      cudaFuncSetAttribute(lse_bwd_ds_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(split_ds_bf16_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)n_chunks);
-  lse_bwd_ds_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(s, items, bias, lse, dlse, ds_part, M, N, chunk_rows);
+  split_ds_bf16_kernel<D, F><<<grid, kThreads, smem, stream>>>(s, items, row_a, y, row_b, bias, ds_part, M, N,
+                                                               chunk_rows, step_tiles);
   return (int)cudaGetLastError();
+}
+
+template <int D, int F>
+int launch_split_di(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* z, const long long* y,
+                    const float* coeff, float* di, long long M, long long N, cudaStream_t stream) {
+  const int smem = (int)sizeof(ZDiSmem<D>);
+  cudaError_t err =
+      cudaFuncSetAttribute(split_di_bf16_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  split_di_bf16_kernel<D, F><<<(unsigned)((N + kBN - 1) / kBN), kThreads, smem, stream>>>(s, items, z, y, coeff, di,
+                                                                                           M, N);
+  return (int)cudaGetLastError();
+}
+
+// fn(std::integral_constant<int, D>{}) for D in {32, 64, 128}, else cudaErrorInvalidValue
+template <class Fn>
+int by_width(int D, Fn fn) {
+  switch (D) {
+    case 32: return fn(std::integral_constant<int, 32>{});
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int D>
@@ -846,12 +1049,10 @@ extern "C" int lse_bwd_ds_bf16(const void* s, const void* items, const float* bi
   if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
   const auto* sb = static_cast<const __nv_bfloat16*>(s);
   const auto* ib = static_cast<const __nv_bfloat16*>(items);
-  switch (D) {
-    case 32: return launch_ds<32>(sb, ib, bias, lse, dlse, ds_part, M, N, chunk_rows, n_chunks, stream);
-    case 64: return launch_ds<64>(sb, ib, bias, lse, dlse, ds_part, M, N, chunk_rows, n_chunks, stream);
-    case 128: return launch_ds<128>(sb, ib, bias, lse, dlse, ds_part, M, N, chunk_rows, n_chunks, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_width(D, [&](auto w) {
+    return launch_ds<decltype(w)::value, kLse>(sb, ib, lse, nullptr, dlse, bias, ds_part, M, N, chunk_rows,
+                                               n_chunks, 0, stream);
+  });
 }
 
 // Kernel 11: f32 di (N, D), each 64-row item tile written once by its block.
@@ -866,4 +1067,77 @@ extern "C" int lse_bwd_di_bf16(const void* s, const void* items, const float* bi
     case 128: return launch_di<128>(sb, ib, bias, lse, dlse, di, M, N, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Kernel 12 on bf16 sessions and items: kernel 7's one pass in its kZ form (pw
+// = exp(logit - z), no label term), on the grid of ops/softmax_lse.py
+// `fused_bwd_plan`: ds partials (n_chunks, M, D), bf16 when bf16_partials else
+// f32, and f32 di partials (n_groups, N, D). z f32 (M,).
+extern "C" int grads_z_fused_bf16(const void* s, const void* items, const float* z, void* ds_part, float* di_part,
+                                  long long M, long long N, int D, long long chunk_rows, long long tiles_per_group,
+                                  long long n_groups, int bf16_partials, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
+  const auto* sb = static_cast<const __nv_bfloat16*>(s);
+  const auto* ib = static_cast<const __nv_bfloat16*>(items);
+  return by_width(D, [&](auto w) {
+    return launch_ce<decltype(w)::value, kZ>(sb, ib, z, nullptr, nullptr, nullptr, ds_part, di_part, M, N, chunk_rows,
+                                             tiles_per_group, n_groups, bf16_partials, stream);
+  });
+}
+
+// Kernel 7's ds launch: f32 ds partials (n_chunks, M, D), one per item chunk
+// of chunk_rows rows of ops/softmax_lse.py `split_bwd_plan`, each the sum of
+// its steps of step_rows rows rounded to bf16 (0: one f32 sum, no rounding).
+// chunk_rows and step_rows multiples of 64; another n_chunks returns
+// cudaErrorInvalidValue. z, coeff f32 (M,), y int64 (M,).
+extern "C" int ce_ds_bf16(const void* s, const void* items, const float* z, const long long* y, const float* coeff,
+                          float* ds_part, long long M, long long N, int D, long long chunk_rows, long long n_chunks,
+                          long long step_rows, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN || step_rows < 0 || step_rows % kBN) return (int)cudaErrorInvalidValue;
+  const auto* sb = static_cast<const __nv_bfloat16*>(s);
+  const auto* ib = static_cast<const __nv_bfloat16*>(items);
+  return by_width(D, [&](auto w) {
+    return launch_ds<decltype(w)::value, kCE>(sb, ib, z, y, coeff, nullptr, ds_part, M, N, chunk_rows, n_chunks,
+                                              (int)(step_rows / kBN), stream);
+  });
+}
+
+// Kernel 7's di launch: f32 di (N, D), each 64-row item tile written once by
+// its block; (P - D) rounded to bf16 once.
+extern "C" int ce_di_bf16(const void* s, const void* items, const float* z, const long long* y, const float* coeff,
+                          float* di, long long M, long long N, int D, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  const auto* sb = static_cast<const __nv_bfloat16*>(s);
+  const auto* ib = static_cast<const __nv_bfloat16*>(items);
+  return by_width(D, [&](auto w) {
+    return launch_split_di<decltype(w)::value, kCE>(sb, ib, z, y, coeff, di, M, N, stream);
+  });
+}
+
+// Kernel 13: f32 ds partials (n_chunks, M, D) of P items, P = exp(logit - z)
+// rounded to bf16, each chunk one f32 sum (no bf16 partial), on the grid of
+// `split_bwd_plan`.
+extern "C" int grads_z_ds_bf16(const void* s, const void* items, const float* z, float* ds_part, long long M,
+                               long long N, int D, long long chunk_rows, long long n_chunks, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
+  const auto* sb = static_cast<const __nv_bfloat16*>(s);
+  const auto* ib = static_cast<const __nv_bfloat16*>(items);
+  return by_width(D, [&](auto w) {
+    return launch_ds<decltype(w)::value, kZ>(sb, ib, z, nullptr, nullptr, nullptr, ds_part, M, N, chunk_rows,
+                                             n_chunks, 0, stream);
+  });
+}
+
+// Kernel 14: f32 di (N, D) = P^T s with the same rounded P.
+extern "C" int grads_z_di_bf16(const void* s, const void* items, const float* z, float* di, long long M, long long N,
+                               int D, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  const auto* sb = static_cast<const __nv_bfloat16*>(s);
+  const auto* ib = static_cast<const __nv_bfloat16*>(items);
+  return by_width(D, [&](auto w) {
+    return launch_split_di<decltype(w)::value, kZ>(sb, ib, z, nullptr, nullptr, di, M, N, stream);
+  });
 }

@@ -60,11 +60,16 @@ LAUNCHES: tp.Dict[str, int] = {
     "stu_bwd": 0,
     "stu_bwd_dq": 0,
     "stu_ds": 0,
-    # the bf16 forms of kernels 2, 5-11 and 17-19 (compute_dtype="bfloat16")
+    # the bf16 forms of kernels 2, 5-14 and 17-19 (compute_dtype="bfloat16")
     "attention_fwd_bf16": 0,
     "attention_bwd_bf16": 0,
     "lse_partials_fwd_bf16": 0,
     "ce_grads_fused_bf16": 0,
+    "ce_grads_ds_bf16": 0,
+    "ce_grads_di_bf16": 0,
+    "grads_z_fused_bf16": 0,
+    "grads_z_ds_bf16": 0,
+    "grads_z_di_bf16": 0,
     "lse_bias_fwd_bf16": 0,
     "lse_bwd_fused_bf16": 0,
     "lse_bwd_ds_bf16": 0,

@@ -47,16 +47,28 @@ memory: :func:`lse_cluster_plan`; kernel 16 on kernel 6's grid, with plain
 sums of the two windows in place of the running max).
 
 bf16 sessions and items (mixed-precision training) take bf16 forms of
-kernels 6 to 11 in ``csrc/softmax_lse_bf16.cu``: bf16 tensor-core products
-with f32 accumulation, the lse and its partials in f32, as the JAX kernels
-do for bf16 inputs.
+kernels 6 to 14 in ``csrc/softmax_lse_bf16.cu``: bf16 tensor-core products
+with f32 accumulation, the lse, the gradients and their partials in f32
+unless stated, as the JAX kernels do for bf16 inputs.
 
 - kernel 6 ``lse_partials_bf16`` (launch key ``lse_partials_fwd_bf16``) and
   kernel 8 ``lse_bias_bf16`` (``lse_bias_fwd_bf16``: the same kernel with
   the bias added to each f32 logit; a zero bias gives kernel 6's bits);
 - kernel 7's one pass ``ce_fused_bf16`` (``ce_grads_fused_bf16``): the
-  probability operand rounded to bf16 before both products, its ds partials
-  stored in bf16 (``BF16_DS_PARTIALS``);
+  probability operand (P − D) rounded to bf16 once before both products, its
+  ds partials per 2,048-row chunk stored in bf16 (``BF16_DS_PARTIALS``,
+  counted at 2 bytes by the plan); above the budget its two launches
+  ``ce_ds_bf16`` (``ce_grads_ds_bf16``: each 2,048-row step's ds sum rounded
+  to bf16 and added to the chunk's f32 partial, the plan's chunks a whole
+  number of steps, so that the one pass's arithmetic differs only in the
+  order of f32 sums) and ``ce_di_bf16`` (``ce_grads_di_bf16``);
+- the softmax gradients from z: kernel 12 ``grads_z_fused_bf16`` (kernel 7's
+  one pass in a ``kZ`` form, P = exp(logit − z) rounded once, bf16 ds
+  partials counted at 2 bytes as JAX's route test counts them), or above the
+  budget kernels 13 ``grads_z_ds_bf16`` (ds summed in f32 over every chunk,
+  no bf16 partial) and 14 ``grads_z_di_bf16`` (the same rounded P). Above
+  :func:`ce_takes_split_route`'s bf16 threshold (163,840 items at 51,200 ×
+  128) the CE gradients take them and the label term in f32;
 - the generic lse backward, kernel 9 ``lse_bwd_fused_bf16``
   (``lse_bwd_fused_bf16``: kernel 7's grid, pw = exp((logit + bias) − lse) ·
   dlse rounded to bf16 once for both products, f32 ds partials: the
@@ -70,12 +82,12 @@ do for bf16 inputs.
 Their twins (:func:`streaming_lse_bf16_reference`,
 :func:`streaming_lse_bias_bf16_reference`,
 :func:`softmax_ce_grads_from_z_bf16_reference`,
+:func:`softmax_grads_from_z_bf16_reference`,
 :func:`streaming_lse_bwd_bf16_reference`) multiply the bf16 values in f32,
 which is exact, so twin and card differ only in the order of f32 sums.
-Every other route (kernels 12–16: the shift and running-max forwards
-without a bias, the softmax gradients from z, kernel 7's two launches and
-the large-catalog route) and D outside 32..128 raise
-``NotImplementedError`` for bf16 inputs, on the card and on the CPU alike.
+The forwards without a bias other than kernel 6 (kernels 15 and 16) and D
+outside 32..128 raise ``NotImplementedError`` for bf16 inputs, on the card
+and on the CPU alike.
 
 CPU tensors take the twins, which walk the catalog in item chunks exactly as
 the kernels walk their tiles (per-chunk partials, a running max or fixed
@@ -179,6 +191,17 @@ _SIGNATURES_BF16 = {
     "lse_bwd_ds_bf16": (_C,) * 6 + (_LL, _LL, _I, _LL, _LL, _C),
     # sessions, items, bias, lse, dlse, f32 di; M, N, D; stream
     "lse_bwd_di_bf16": (_C,) * 6 + (_LL, _LL, _I, _C),
+    # sessions, items, z, ds partials, f32 di partials; M, N, D; chunk rows, tiles per group, session groups, bf16
+    # partials; stream
+    "grads_z_fused_bf16": (_C,) * 5 + (_LL, _LL, _I, _LL, _LL, _LL, _I, _C),
+    # sessions, items, z, y (int64), coeff, f32 ds partials; M, N, D; chunk rows, chunks, step rows; stream
+    "ce_ds_bf16": (_C,) * 6 + (_LL, _LL, _I, _LL, _LL, _LL, _C),
+    # sessions, items, z, y (int64), coeff, f32 di; M, N, D; stream
+    "ce_di_bf16": (_C,) * 6 + (_LL, _LL, _I, _C),
+    # sessions, items, z, f32 ds partials; M, N, D; chunk rows, chunks; stream
+    "grads_z_ds_bf16": (_C,) * 4 + (_LL, _LL, _I, _LL, _LL, _C),
+    # sessions, items, z, f32 di; M, N, D; stream
+    "grads_z_di_bf16": (_C,) * 4 + (_LL, _LL, _I, _C),
 }
 # The feature widths of the bf16 kernels: the tensor-core tile's. 16 and 256
 # (the f32 SIMT tile) have no bf16 form yet.
@@ -293,7 +316,7 @@ def streaming_lse_bias_reference(
     return streaming_lse_partials_reference(sessions, items, chunk, row_bias)
 
 
-def split_bwd_plan(m: int, n: int, d: int, n_sms: int) -> tp.Tuple[int, int]:
+def split_bwd_plan(m: int, n: int, d: int, n_sms: int, step_rows: int = TILE) -> tp.Tuple[int, int]:
     """(item chunks, rows per chunk) of the split ds kernels (7's ``ce_ds_f32``,
     10, 13). On the tensor-core tile a block owns (128-row session tile, item
     chunk), one block per multiprocessor: of 1 to ``_BWD_TILE[d][2]`` chunks
@@ -301,7 +324,10 @@ def split_bwd_plan(m: int, n: int, d: int, n_sms: int) -> tp.Tuple[int, int]:
     wave best, the fewest on a tie (one block per session tile leaves 4 of 400
     in the last wave at the training width). Each chunk writes a ds partial of
     M · D floats whatever the catalog; the caller sums them in order. The SIMT
-    tile walks the whole catalog in one chunk."""
+    tile walks the whole catalog in one chunk. ``step_rows`` (a multiple of
+    64) rounds the rows per chunk up to a multiple of it: kernel 7's bf16 ds
+    launch rounds each 2,048-row step, which then starts where a chunk of its
+    one pass starts."""
     tile_rows, blocks_per_sm, max_chunks = _BWD_TILE[d]
     n_tiles = max(1, -(-n // TILE))
     m_tiles = max(1, -(-m // tile_rows))
@@ -312,6 +338,8 @@ def split_bwd_plan(m: int, n: int, d: int, n_sms: int) -> tp.Tuple[int, int]:
 
     chunks = max(range(1, min(max_chunks, n_tiles) + 1), key=lambda c: (fill(c), -c))
     tiles_per_chunk = -(-n_tiles // chunks)
+    step_tiles = step_rows // TILE
+    tiles_per_chunk = -(-tiles_per_chunk // step_tiles) * step_tiles  # whole steps
     return -(-n_tiles // tiles_per_chunk), tiles_per_chunk * TILE
 
 
@@ -322,6 +350,7 @@ def _grads_reference(
     chunk: int,
     partials: bool,
     di_terms: tp.Optional[tp.Tuple[tp.Callable[[torch.Tensor, int], torch.Tensor], torch.Tensor]] = None,
+    round_steps: bool = False,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """(pw @ items, pwᵀ @ sessions) with ``pw = weights(logits, start)`` per
     step of ``chunk`` item rows. ``partials=True`` sums one ds partial per step
@@ -330,9 +359,11 @@ def _grads_reference(
     H100's 132 multiprocessors), each a running sum over its steps, summed at
     the end. ``di_terms = (di_weights, rows)`` gives di as
     ``di_weights(logits, start)ᵀ @ rows`` instead (a split di kernel that
-    rounds its own operands)."""
+    rounds its own operands). ``round_steps`` rounds each step's ds term to
+    bf16 before it is added (bf16 ds partials; in the split order the plan's
+    chunks then start on a step)."""
     m, n = sessions.shape[0], items.shape[0]
-    ds_rows = chunk if partials else split_bwd_plan(m, n, sessions.shape[1], 132)[1]
+    ds_rows = chunk if partials else split_bwd_plan(m, n, sessions.shape[1], 132, chunk if round_steps else TILE)[1]
     di = torch.empty_like(items)
     ds_parts = []
     for lo in range(0, n, ds_rows):
@@ -343,6 +374,8 @@ def _grads_reference(
             logits = sessions @ block.T
             pw = weights(logits, start)
             term = pw @ block
+            if round_steps:
+                term = term.to(torch.bfloat16).float()
             part = term if part is None else part + term
             if di_terms is None:
                 di[start : start + block.shape[0]] = pw.T @ sessions
@@ -460,28 +493,46 @@ def softmax_ce_grads_from_z_bf16_reference(
     z: torch.Tensor,
     y: torch.Tensor,
     coeff: torch.Tensor,
-    chunk: int = FUSED_BWD_CHUNK,
+    partials: bool = True,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of ``ce_fused_bf16`` (kernel 7's one pass on bf16
-    towers): per item chunk of ``chunk`` rows the f32 logits and (P − D) in
-    f32, rounded to bf16 before both products (rectools_tpu/ops/softmax_lse.py
-    :696); the chunk's ds partial summed in f32 and stored in bf16 under
-    ``BF16_DS_PARTIALS``; the partials summed in f32 at the end. (ds, di) in
-    f32."""
+    """Plain PyTorch twin of kernel 7 on bf16 towers, (ds, di) in f32: per
+    2,048-row item step (``FUSED_BWD_CHUNK``) the f32 logits and (P − D) in
+    f32, rounded to bf16 once before both products
+    (rectools_tpu/ops/softmax_lse.py:672-693); the step's ds term summed in
+    f32 and rounded to bf16 under ``BF16_DS_PARTIALS``; di = (P − D)ᵀ s in
+    f32. ``partials=True``: the one pass ``ce_fused_bf16``, the steps' ds
+    partials summed at the end. ``False``: its two launches ``ce_ds_bf16`` +
+    ``ce_di_bf16``, the same rounded steps added to a running sum per item
+    chunk of :func:`split_bwd_plan` (its chunks a whole number of steps), the
+    chunks summed at the end: the one pass's arithmetic in another order of
+    f32 sums."""
     s, it = sessions.float(), items.float()
-    di = torch.empty_like(it)
-    parts = []
-    for start in range(0, it.shape[0], chunk):
-        block = it[start : start + chunk]
-        pw = torch.exp(s @ block.T - z[:, None])
-        cols = torch.arange(start, start + block.shape[0], device=s.device)
-        pw = torch.where(cols[None, :] == y[:, None], pw - coeff[:, None], pw).to(torch.bfloat16).float()
-        part = pw @ block
-        parts.append(part.to(torch.bfloat16).float() if BF16_DS_PARTIALS else part)
-        di[start : start + block.shape[0]] = pw.T @ s
-    if not parts:
-        return torch.zeros_like(s), di
-    return (torch.stack(parts).sum(dim=0) if len(parts) > 1 else parts[0]), di
+
+    def weights(logits: torch.Tensor, start: int) -> torch.Tensor:
+        pw = torch.exp(logits - z[:, None])
+        cols = torch.arange(start, start + logits.shape[1], device=s.device)
+        return torch.where(cols[None, :] == y[:, None], pw - coeff[:, None], pw).to(torch.bfloat16).float()
+
+    return _grads_reference(s, it, weights, FUSED_BWD_CHUNK, partials, round_steps=BF16_DS_PARTIALS)
+
+
+def softmax_grads_from_z_bf16_reference(
+    sessions: torch.Tensor, items: torch.Tensor, z: torch.Tensor, partials: bool = True
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of the softmax gradients from z on bf16 towers,
+    (ds, di) in f32, with P = exp(logit − z) in f32 rounded to bf16 once for
+    both products. ``partials=True``: kernel 12 (``grads_z_fused_bf16``,
+    rectools_tpu/ops/softmax_lse.py:611-640), one ds partial per 2,048-row
+    item chunk, stored in bf16 under ``BF16_DS_PARTIALS`` (:818-820) and
+    summed in f32 at the end. ``False``: kernels 13 + 14 (:757-790), ds summed
+    in f32 over every chunk with nothing rounded between them (a running sum
+    per item chunk of :func:`split_bwd_plan`), di = Pᵀ s in f32."""
+    s, it = sessions.float(), items.float()
+
+    def weights(logits: torch.Tensor, start: int) -> torch.Tensor:
+        return torch.exp(logits - z[:, None]).to(torch.bfloat16).float()
+
+    return _grads_reference(s, it, weights, FUSED_BWD_CHUNK, partials, round_steps=partials and BF16_DS_PARTIALS)
 
 
 def _bf16_operands(kernel: str, sessions: torch.Tensor, items: torch.Tensor) -> bool:
@@ -666,6 +717,8 @@ def _fused_or_split(
     row_pointers: tp.Tuple[int, ...],
     key: str = "",
     bf16: bool = False,
+    bf16_partials: tp.Optional[bool] = None,
+    ds_step_rows: tp.Optional[int] = None,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """(ds, di) in f32 from ``{prefix}_fused_f32`` while its partials fit
     ``FUSED_BWD_PARTIALS_BUDGET``, else from ``{prefix}_ds_f32`` (on the grid
@@ -674,7 +727,11 @@ def _fused_or_split(
     ``{key}_fused`` / ``_ds`` / ``_di``, ``key`` defaulting to ``prefix``.
     ``bf16`` takes the bf16 forms (``{prefix}_fused_bf16`` & co. of
     ``softmax_lse_bf16.cu``, launch keys ending in ``_bf16``) on the same
-    grids and f32 partials."""
+    grids. Where the bf16 fused entry takes a flag for its ds partials' dtype
+    (``ce``, ``grads_z``), ``bf16_partials`` gives it, and the plan counts
+    those partials at their itemsize; where the bf16 ds entry rounds per step
+    (``ce``), ``ds_step_rows`` gives the step (0: no rounding) and aligns the
+    split plan's chunks to it."""
     key = key or prefix
     suffix = "_bf16" if bf16 else "_f32"
     key_suffix = "_bf16" if bf16 else ""
@@ -682,39 +739,45 @@ def _fused_or_split(
     if m == 0 or n == 0:
         return torch.zeros((m, d), device=sessions.device), torch.zeros((n, d), device=sessions.device)
     n_sms = torch.cuda.get_device_properties(sessions.device).multi_processor_count
-    tiles_per_group, n_groups, partials_bytes = fused_bwd_plan(m, n, d, n_sms)
+    tiles_per_group, n_groups, partials_bytes = fused_bwd_plan(m, n, d, n_sms, 2 if bf16_partials else 4)
     lib = _native.load("softmax_lse_bf16", _SIGNATURES_BF16) if bf16 else _native.load("softmax_lse", _SIGNATURES)
     stream = _native.current_stream_ptr(sessions.device)
     args = (sessions.data_ptr(), items.data_ptr(), *row_pointers)
     if partials_bytes <= FUSED_BWD_PARTIALS_BUDGET:
         n_chunks = -(-n // FUSED_BWD_CHUNK)
-        ds_part = torch.empty((n_chunks, m, d), dtype=torch.float32, device=sessions.device)
+        part_dtype = torch.bfloat16 if bf16_partials else torch.float32
+        ds_part = torch.empty((n_chunks, m, d), dtype=part_dtype, device=sessions.device)
         di_part = torch.empty((n_groups, n, d), dtype=torch.float32, device=sessions.device)
+        flag = () if bf16_partials is None else (int(bf16_partials),)
         with torch.cuda.device(sessions.device):
             status = getattr(lib, f"{prefix}_fused{suffix}")(
                 *args, ds_part.data_ptr(), di_part.data_ptr(), m, n, d, FUSED_BWD_CHUNK, tiles_per_group, n_groups,
-                stream,
+                *flag, stream,
             )
         _native.check_launch(f"{key}_fused{key_suffix}", status)
-        # fixed-order sums of the partials
-        ds = ds_part.sum(dim=0) if n_chunks > 1 else ds_part[0]
+        # fixed-order f32 sums of the partials (rectools_tpu/ops/softmax_lse.py:745, :840)
+        ds = ds_part.float().sum(dim=0) if n_chunks > 1 else ds_part[0].float()
         di = di_part.sum(dim=0) if n_groups > 1 else di_part[0]
         return ds, di
-    n_chunks, chunk_rows = split_bwd_plan(m, n, d, n_sms)
+    n_chunks, chunk_rows = split_bwd_plan(m, n, d, n_sms, ds_step_rows or TILE)
     ds_part = torch.empty((n_chunks, m, d), dtype=torch.float32, device=sessions.device)
     di = torch.empty((n, d), dtype=torch.float32, device=sessions.device)
+    step = () if ds_step_rows is None else (ds_step_rows,)
     with torch.cuda.device(sessions.device):
-        status = getattr(lib, f"{prefix}_ds{suffix}")(*args, ds_part.data_ptr(), m, n, d, chunk_rows, n_chunks, stream)
+        status = getattr(lib, f"{prefix}_ds{suffix}")(
+            *args, ds_part.data_ptr(), m, n, d, chunk_rows, n_chunks, *step, stream
+        )
         _native.check_launch(f"{key}_ds{key_suffix}", status)
         status = getattr(lib, f"{prefix}_di{suffix}")(*args, di.data_ptr(), m, n, d, stream)
     _native.check_launch(f"{key}_di{key_suffix}", status)
     return (ds_part.sum(dim=0) if n_chunks > 1 else ds_part[0]), di  # a fixed-order sum of the chunks
 
 
-def _fused_on_the_card(m: int, n: int, d: int) -> bool:
-    """Whether the card would take the fused kernel; the CPU twins keep that
-    summation order, or the split kernels' (132 = an H100's multiprocessors)."""
-    return fused_bwd_plan(m, n, d, 132)[2] <= FUSED_BWD_PARTIALS_BUDGET
+def _fused_on_the_card(m: int, n: int, d: int, ds_itemsize: int = 4) -> bool:
+    """Whether the card would take the fused kernel, its ds partials counted at
+    ``ds_itemsize`` bytes; the CPU twins keep that summation order, or the
+    split kernels' (132 = an H100's multiprocessors)."""
+    return fused_bwd_plan(m, n, d, 132, ds_itemsize)[2] <= FUSED_BWD_PARTIALS_BUDGET
 
 
 def streaming_lse_bwd(
@@ -861,15 +924,27 @@ def softmax_grads_from_z(
     (rectools_tpu/ops/softmax_lse.py:793-868). A caller whose per-row lse
     cotangent is ``c >= 0`` up to one scalar sign passes ``z = lse − log(c)``
     and applies the sign to the outputs. Kernel 12 while its partials fit
-    ``FUSED_BWD_PARTIALS_BUDGET``, else kernels 13 + 14."""
-    _native.refuse_bf16("grads_z", "the softmax gradients from z (kernels 12-14)", sessions, items)
+    ``FUSED_BWD_PARTIALS_BUDGET``, else kernels 13 + 14. bf16 towers take
+    their bf16 forms by the same rule, kernel 12's ds partials counted at
+    their real itemsize (2 bytes under ``BF16_DS_PARTIALS``, as JAX's route
+    test counts them: rectools_tpu/ops/softmax_lse.py:818-821); (ds, di) come
+    back in f32."""
+    bf16 = _bf16_operands("grads_z", sessions, items)
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
     if sessions.device.type == "cpu":
+        if bf16:
+            fused = _fused_on_the_card(m, n, d, _ds_itemsize(torch.bfloat16))
+            return softmax_grads_from_z_bf16_reference(sessions, items, z, partials=fused)
         return softmax_grads_from_z_reference(sessions, items, z, partials=_fused_on_the_card(m, n, d))
-    _native.require_cuda_f32("grads_z", sessions=sessions, items=items, z=z)
+    if bf16:
+        _native.require_cuda("grads_z", torch.bfloat16, sessions=sessions, items=items)
+        _native.require_cuda_f32("grads_z", z=z)
+    else:
+        _native.require_cuda_f32("grads_z", sessions=sessions, items=items, z=z)
     _check("grads_z", sessions, items)
     _check_vectors("grads_z", m, "session row", z=z)
-    return _fused_or_split("grads_z", sessions, items, (z.data_ptr(),))
+    return _fused_or_split("grads_z", sessions, items, (z.data_ptr(),), bf16=bf16,
+                           bf16_partials=BF16_DS_PARTIALS if bf16 else None)
 
 
 def _ds_itemsize(dtype: torch.dtype) -> int:
@@ -917,77 +992,50 @@ def softmax_ce_grads_from_z(
     atomics on the card). Below it kernel 7: one pass (``ce_fused_f32``,
     launch key ``ce_grads_fused``) while its partials fit
     ``FUSED_BWD_PARTIALS_BUDGET``, else two launches (``ce_grads_ds``,
-    ``ce_grads_di``). bf16 towers take kernel 7's bf16 one pass (launch key
-    ``ce_grads_fused_bf16``) and raise where the route would leave it."""
+    ``ce_grads_di``). bf16 towers take the bf16 forms by the same routes,
+    the threshold and the plan at bf16 itemsizes (launch keys ending in
+    ``_bf16``), and get (ds, di) in f32."""
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
-    if _bf16_operands("ce_grads", sessions, items):
-        return _ce_grads_bf16(sessions, items, z, y, coeff)
+    bf16 = _bf16_operands("ce_grads", sessions, items)
+    dtype = torch.bfloat16 if bf16 else torch.float32
     on_card = sessions.device.type != "cpu"
     if on_card:
-        _native.require_cuda_f32("ce_grads", sessions=sessions, items=items, z=z, coeff=coeff)
+        if bf16:
+            _native.require_cuda("ce_grads_bf16", dtype, sessions=sessions, items=items)
+            _native.require_cuda_f32("ce_grads_bf16", z=z, coeff=coeff)
+        else:
+            _native.require_cuda_f32("ce_grads", sessions=sessions, items=items, z=z, coeff=coeff)
         _check("ce_grads", sessions, items)
         if z.shape != (m,) or coeff.shape != (m,) or y.shape != (m,):
             raise ValueError(f"ce_grads: z, y and coeff must be ({m},)")
         if y.device != sessions.device or y.dtype.is_floating_point:
             raise ValueError(f"ce_grads: y must be an integer tensor on {sessions.device}")
     y = y.to(torch.int64).contiguous()
-    if ce_takes_split_route(m, n, d):
-        ds, di = softmax_grads_from_z(sessions, items, z)
-        coeff_col = coeff[:, None]
-        labels = torch.zeros_like(items).index_put_((y,), coeff_col * sessions, accumulate=True)
-        return ds - coeff_col * items[y], di - labels
+    if ce_takes_split_route(m, n, d, dtype):
+        return _large_catalog_route(sessions, items, z, y, coeff)
+    fused = _fused_on_the_card(m, n, d, _ds_itemsize(dtype))
+    if not on_card and bf16:
+        return softmax_ce_grads_from_z_bf16_reference(sessions, items, z, y, coeff, partials=fused)
     if not on_card:
-        return softmax_ce_grads_from_z_reference(sessions, items, z, y, coeff, partials=_fused_on_the_card(m, n, d))
+        return softmax_ce_grads_from_z_reference(sessions, items, z, y, coeff, partials=fused)
     z, coeff = z.contiguous(), coeff.contiguous()
-    return _fused_or_split("ce", sessions, items, (z.data_ptr(), y.data_ptr(), coeff.data_ptr()), key="ce_grads")
+    pointers = (z.data_ptr(), y.data_ptr(), coeff.data_ptr())
+    if not bf16:
+        return _fused_or_split("ce", sessions, items, pointers, key="ce_grads")
+    # the two launches' ds rounds each 2,048-row step's sum to bf16, as the one pass rounds its partials
+    return _fused_or_split("ce", sessions, items, pointers, key="ce_grads", bf16=True, bf16_partials=BF16_DS_PARTIALS,
+                           ds_step_rows=FUSED_BWD_CHUNK if BF16_DS_PARTIALS else 0)
 
 
-def _ce_grads_bf16(
+def _large_catalog_route(
     sessions: torch.Tensor, items: torch.Tensor, z: torch.Tensor, y: torch.Tensor, coeff: torch.Tensor
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 7's bf16 one pass (its twin on the CPU): (ds, di) in f32. The
-    large-catalog route and the two launches have no bf16 form yet and raise,
-    by the route rule at bf16 (:func:`ce_takes_split_route`, the plan's
-    partials at their real itemsize)."""
-    m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
-    if ce_takes_split_route(m, n, d, torch.bfloat16):
-        raise NotImplementedError(
-            f"ce_grads: {m} x {n} x {d} takes the large-catalog route (kernels 12-14), which has no bf16 form "
-            f"yet ({_native.BF16_ROADMAP})"
-        )
-    on_card = sessions.device.type != "cpu"
-    n_sms = torch.cuda.get_device_properties(sessions.device).multi_processor_count if on_card else 132
-    tiles_per_group, n_groups, partials_bytes = fused_bwd_plan(m, n, d, n_sms, _ds_itemsize(torch.bfloat16))
-    if partials_bytes > FUSED_BWD_PARTIALS_BUDGET:
-        raise NotImplementedError(
-            f"ce_grads: {m} x {n} x {d} needs kernel 7's two launches ({partials_bytes} bytes of one-pass "
-            f"partials), which have no bf16 form yet ({_native.BF16_ROADMAP})"
-        )
-    if not on_card:
-        return softmax_ce_grads_from_z_bf16_reference(sessions, items, z, y.to(torch.int64), coeff)
-    _native.require_cuda("ce_grads_bf16", torch.bfloat16, sessions=sessions, items=items)
-    _native.require_cuda("ce_grads_bf16", torch.float32, z=z, coeff=coeff)
-    _check("ce_grads_bf16", sessions, items)
-    if z.shape != (m,) or coeff.shape != (m,) or y.shape != (m,):
-        raise ValueError(f"ce_grads: z, y and coeff must be ({m},)")
-    if y.device != sessions.device or y.dtype.is_floating_point:
-        raise ValueError(f"ce_grads: y must be an integer tensor on {sessions.device}")
-    if m == 0 or n == 0:
-        return torch.zeros((m, d), device=sessions.device), torch.zeros((n, d), device=sessions.device)
-    y, z, coeff = y.to(torch.int64).contiguous(), z.contiguous(), coeff.contiguous()
-    n_chunks = -(-n // FUSED_BWD_CHUNK)
-    part_dtype = torch.bfloat16 if BF16_DS_PARTIALS else torch.float32
-    ds_part = torch.empty((n_chunks, m, d), dtype=part_dtype, device=sessions.device)
-    di_part = torch.empty((n_groups, n, d), dtype=torch.float32, device=sessions.device)
-    lib = _native.load("softmax_lse_bf16", _SIGNATURES_BF16)
-    with torch.cuda.device(sessions.device):
-        status = lib.ce_fused_bf16(
-            sessions.data_ptr(), items.data_ptr(), z.data_ptr(), y.data_ptr(), coeff.data_ptr(), ds_part.data_ptr(),
-            di_part.data_ptr(), m, n, d, FUSED_BWD_CHUNK, tiles_per_group, n_groups, int(BF16_DS_PARTIALS),
-            _native.current_stream_ptr(sessions.device),
-        )
-    _native.check_launch("ce_grads_fused_bf16", status)
-    # fixed-order f32 sums of the partials (rectools_tpu/ops/softmax_lse.py:745)
-    ds = ds_part.float().sum(dim=0) if n_chunks > 1 else ds_part[0].float()
-    di = di_part.sum(dim=0) if n_groups > 1 else di_part[0]
-    return ds, di
+    """The JAX very-large-catalog route (rectools_tpu/ops/softmax_lse.py
+    :748-754): :func:`softmax_grads_from_z`, then the label term in f32
+    whatever the towers' dtype, ``ds −= coeff · items[y]`` and ``di −=
+    segment-sum(coeff · sessions, y)`` (a sorted, in-order ``index_put_``)."""
+    ds, di = softmax_grads_from_z(sessions, items, z)
+    coeff_col = coeff[:, None]
+    labels = torch.zeros(di.shape, dtype=torch.float32, device=di.device)
+    labels.index_put_((y,), coeff_col * sessions.float(), accumulate=True)
+    return ds - coeff_col * items[y].float(), di - labels

@@ -29,7 +29,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 LSE_RTOL, GRAD_RTOL = 1e-6, 2 ** -7
-KERNELS = ("lse_partials_bf16_kernel", "ce_fused_bf16_kernel", "lse_bwd_ds_bf16_kernel", "lse_bwd_di_bf16_kernel")
+KERNELS = ("lse_partials_bf16_kernel", "ce_fused_bf16_kernel", "split_ds_bf16_kernel", "lse_bwd_di_bf16_kernel")
 
 
 def main() -> int:

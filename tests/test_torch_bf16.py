@@ -586,14 +586,15 @@ def test_refused_routes_raise_naming_the_roadmap(monkeypatch) -> None:
     a twin."""
     s, items = _bf16_towers(300, 5000, 32)
     z, coeff, y = torch.zeros(300), torch.full((300,), 1e-3), torch.ones(300, dtype=torch.int64)
-    # kernels 8-11 have bf16 forms (tests/test_torch_mesh_bf16.py); at D = 16 and 256 they still raise
+    # kernels 8-14 and kernel 7's two launches have bf16 forms (tests/test_torch_mesh_bf16.py,
+    # tests/test_torch_ce_split_bf16.py); at D = 16 and 256 they still raise
     narrow = _bf16_towers(8, 3000, 16)
     refused = {
         "bounded shift (kernel 16)": lambda: softmax_lse.streaming_lse(s, items, bounded_shift=True),
         "biased lse (kernel 8) at d = 256": lambda: softmax_lse.streaming_lse(*_bf16_towers(8, 3000, 256),
                                                                               torch.zeros(3000)),
         "lse backward (kernels 9-11) at d = 16": lambda: softmax_lse.streaming_lse_bwd(*narrow, None, z[:8], z[:8]),
-        "gradients from z (kernels 12-14)": lambda: softmax_lse.softmax_grads_from_z(s, items, z),
+        "gradients from z (kernels 12-14) at d = 16": lambda: softmax_lse.softmax_grads_from_z(*narrow, z[:8]),
         "mesh loss (kernels 8-11) at d = 16": lambda: softmax_lse.sharded_streaming_lse(*narrow, None, "model"),
         "d = 256": lambda: softmax_lse.streaming_lse(*_bf16_towers(8, 3000, 256)),
         "d = 16": lambda: softmax_lse.softmax_ce_grads_from_z(*_bf16_towers(8, 3000, 16), z[:8], y[:8], coeff[:8]),
@@ -609,16 +610,13 @@ def test_refused_routes_raise_naming_the_roadmap(monkeypatch) -> None:
         mp.setattr(softmax_lse, "USE_PARTIALS_FWD", False)
         with pytest.raises(NotImplementedError, match="kernel 15"):
             softmax_lse.streaming_lse(s, items)
-    # the large-catalog route, then kernel 7's two launches (the budget between the JAX rule's and the plan's)
-    with monkeypatch.context() as mp:
-        mp.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 0)
-        with pytest.raises(NotImplementedError, match="large-catalog route.*" + ROADMAP):
-            softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
-    with monkeypatch.context() as mp:
-        mp.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 100_000)
-        assert not softmax_lse.ce_takes_split_route(300, 5000, 32, BF16)
-        with pytest.raises(NotImplementedError, match="two launches.*" + ROADMAP):
-            softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    # the large-catalog route and kernel 7's two launches at d = 16 (at widths 32-128 they run:
+    # tests/test_torch_ce_split_bf16.py)
+    for budget in (0, 100_000):
+        with monkeypatch.context() as mp:
+            mp.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", budget)
+            with pytest.raises(NotImplementedError, match="D = 16.*" + ROADMAP):
+                softmax_lse.softmax_ce_grads_from_z(*narrow, z[:8], y[:8], coeff[:8])
 
 
 def test_refused_models_raise_naming_the_roadmap() -> None:

@@ -1764,3 +1764,96 @@ def test_cuda_bf16_mesh_fit_matches_cpu(cuda: torch.device) -> None:
     diffs = [(value.cpu() - cpu_state[name]).abs().reshape(-1)
              for name, value in models["cuda"].backbone.state_dict().items()]
     assert torch.cat(diffs).mean().item() <= 1e-4
+
+
+# Kernel 7's two launches and kernels 12-14 in bf16 against their twins, relative to the twin's largest entry:
+# the twins round at the kernels' points, so only the order of f32 sums differs and, where a sum straddles a
+# rounding boundary, a bf16 value lands one step apart (2^-7, the limit chip_smoke.py holds them to)
+BF16_SPLIT_RTOL = 2 ** -7
+CE_SPLIT_BF16_KEYS = ("ce_grads_fused_bf16", "ce_grads_ds_bf16", "ce_grads_di_bf16", "grads_z_fused_bf16",
+                      "grads_z_ds_bf16", "grads_z_di_bf16")
+F32_LOSS_KEYS = ("ce_grads_fused", "ce_grads_ds", "ce_grads_di", "grads_z_fused", "grads_z_ds", "grads_z_di")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,d", [(257, 2177, 32), (300, 4100, 64), (130, 20033, 128), (51, 300, 128),
+                                   (40, 20011, 32), (1000, 15872, 128)])
+def test_cuda_bf16_grads_z_and_ce_split_routes_match_twins(
+    cuda: torch.device, monkeypatch: pytest.MonkeyPatch, m: int, n: int, d: int
+) -> None:
+    """On bf16 towers: kernel 12 (its partials within the budget) and 13 + 14
+    (the budget 0), kernel 7's two launches (a budget between the JAX rule's
+    bytes and the plan's) and the large-catalog route (the budget 0), each
+    against its twin in its order, launched once each and no f32 form,
+    ignored rows' ds exactly 0, the same bits on a rerun."""
+    rng = np.random.default_rng(7 * n + m)
+    bf = torch.bfloat16
+    s = _t(rng.normal(size=(m, d)).astype(np.float32)).to(cuda).to(bf)
+    items = _t((0.3 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda).to(bf)
+    y = _t(rng.integers(0, n, size=m)).to(cuda)
+    y[m // 3 : m // 2] = n - 1  # repeated labels on the catalog's tail
+    coeff = torch.where(y == 0, 0.0, 1.0 / m)
+    z = (softmax_lse.streaming_lse(s, items) - torch.log(coeff)).contiguous()
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = softmax_lse.fused_bwd_plan(m, n, d, n_sms, 2)[2]
+    cases = {  # name: (budget, the function, its twin, launch keys)
+        "kernel 12": (1 << 62, lambda: softmax_lse.softmax_grads_from_z(s, items, z),
+                      lambda: softmax_lse.softmax_grads_from_z_bf16_reference(s, items, z, partials=True),
+                      ("grads_z_fused_bf16",)),
+        "kernels 13 + 14": (0, lambda: softmax_lse.softmax_grads_from_z(s, items, z),
+                            lambda: softmax_lse.softmax_grads_from_z_bf16_reference(s, items, z, partials=False),
+                            ("grads_z_ds_bf16", "grads_z_di_bf16")),
+        "kernel 7's two launches": (plan - 1, lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff),
+                                    lambda: softmax_lse.softmax_ce_grads_from_z_bf16_reference(
+                                        s, items, z, y, coeff, partials=False),
+                                    ("ce_grads_ds_bf16", "ce_grads_di_bf16")),
+    }
+    for what, (budget, fn, twin, keys) in cases.items():
+        monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", budget)
+        if what == "kernel 7's two launches":
+            assert not softmax_lse.ce_takes_split_route(m, n, d, bf)
+        before = dict(_native.LAUNCHES)
+        got = fn()
+        launched = {k: _native.LAUNCHES[k] - before[k] for k in (*CE_SPLIT_BF16_KEYS, *F32_LOSS_KEYS)}
+        assert launched == {k: int(k in keys) for k in launched}, (what, launched)
+        for g, e in zip(got, twin()):
+            assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+            assert _max_rel(g, e) <= BF16_SPLIT_RTOL, (what, _max_rel(g, e))
+        if what != "kernel 7's two launches":
+            assert not got[0][coeff == 0].any()
+        again = fn()
+        assert all(torch.equal(a, g) for a, g in zip(again, got)), what
+    # the large-catalog route: kernels 13 + 14 and the label term in f32, against the one pass on the same inputs
+    monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 1 << 62)
+    one_pass = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 0)
+    before = dict(_native.LAUNCHES)
+    route = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    assert [_native.LAUNCHES[k] - before[k] for k in ("grads_z_ds_bf16", "grads_z_di_bf16", "ce_grads_fused_bf16",
+                                                      "ce_grads_ds_bf16")] == [1, 1, 0, 0]
+    for g, e in zip(route, one_pass):  # the two routes round at other points (ROADMAP §3): a bf16 band
+        assert _max_rel(g, e) <= 2 ** -6
+    assert all(torch.equal(a, g) for a, g in zip(softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), route))
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_split_entries_refuse_another_grid(cuda: torch.device) -> None:
+    """The bf16 split ds entries take the plan's chunks and refuse another
+    count, chunk rows or a step that is not a multiple of 64 rows."""
+    m, n, d = 300, 5000, 32
+    bf = torch.bfloat16
+    s, items = torch.zeros((m, d), device=cuda, dtype=bf), torch.zeros((n, d), device=cuda, dtype=bf)
+    z, coeff = torch.zeros((m,), device=cuda), torch.zeros((m,), device=cuda)
+    y = torch.zeros((m,), device=cuda, dtype=torch.int64)
+    n_chunks, chunk_rows = softmax_lse.split_bwd_plan(m, n, d, 132, softmax_lse.FUSED_BWD_CHUNK)
+    ds_part = torch.empty((n_chunks + 1, m, d), device=cuda)
+    lib = _native.load("softmax_lse_bf16", softmax_lse._SIGNATURES_BF16)
+    stream = _native.current_stream_ptr(cuda)
+    ce = (s.data_ptr(), items.data_ptr(), z.data_ptr(), y.data_ptr(), coeff.data_ptr(), ds_part.data_ptr(), m, n, d)
+    assert lib.ce_ds_bf16(*ce, chunk_rows, n_chunks, softmax_lse.FUSED_BWD_CHUNK, stream) == 0
+    assert lib.ce_ds_bf16(*ce, chunk_rows, n_chunks + 1, softmax_lse.FUSED_BWD_CHUNK, stream) != 0
+    assert lib.ce_ds_bf16(*ce, chunk_rows, n_chunks, 100, stream) != 0
+    gz = (s.data_ptr(), items.data_ptr(), z.data_ptr(), ds_part.data_ptr(), m, n, d)
+    assert lib.grads_z_ds_bf16(*gz, chunk_rows, n_chunks, stream) == 0
+    assert lib.grads_z_ds_bf16(*gz, chunk_rows + 1, n_chunks, stream) != 0
+    torch.cuda.synchronize()
