@@ -3388,8 +3388,8 @@ def large_fit_phase(torch, np, pd, port, dev, n_item_ids: int = LARGE_N_ITEM_IDS
     s2 = (s_t.float() / tm.logits_t).reshape(m, N_FACTORS).contiguous()
     items, y, w = i_t.float().contiguous(), batch["y"].reshape(-1), batch["yw"].reshape(-1)
     if bf16:
-        step = bf16_step_check(torch, port, losses, softmax_lse, tag, route, s2.to(dtype), items.to(dtype), y, w,
-                               loss_keys)
+        step = bf16_step_check(torch, port, losses, softmax_lse, tag, "large-catalog" if route else "two launches",
+                               s2.to(dtype), items.to(dtype), y, w, loss_keys)
         return {"launches": launches, "steps": steps, "n_items": n_items,
                 "route": "large-catalog" if route else "kernel 7's two launches", "train_loss": losses_,
                 "val_loss": val_losses, f"val_recall@{K}": recall, "fit_s": fit_s, "epoch2_s": epoch2_s,
@@ -3421,12 +3421,14 @@ def large_fit_phase(torch, np, pd, port, dev, n_item_ids: int = LARGE_N_ITEM_IDS
             **{f"step_{k}": v for k, v in profile.items()}}
 
 
-def bf16_step_check(torch, port, losses, softmax_lse, tag: str, route: bool, s2, items, y, w, loss_keys) -> dict:
+def bf16_step_check(torch, port, losses, softmax_lse, tag: str, route: str, s2, items, y, w, loss_keys) -> dict:
     """One step's loss gradients of a bf16 fit's towers through the fused
     loss: the route's kernels once each; the leaves' bf16 gradients are the
-    route's f32 gradients rounded once; the two launches held against their
-    twin (BF16_SPLIT_RTOL), the large-catalog route against kernel 7's bf16
-    one pass on the same inputs with the budget lifted (BF16_ROUTE_BAND)."""
+    route's f32 gradients rounded once; kernel 7's one pass (``route`` "one
+    pass") or its two launches ("two launches") held against their twin
+    (BF16_SPLIT_RTOL), the large-catalog route ("large-catalog") against
+    kernel 7's bf16 one pass on the same inputs with the budget lifted
+    (BF16_ROUTE_BAND)."""
     m = s2.shape[0]
     sg, ig = s2.clone().requires_grad_(), items.clone().requires_grad_()
     port.reset_launches()
@@ -3445,20 +3447,21 @@ def bf16_step_check(torch, port, losses, softmax_lse, tag: str, route: bool, s2,
     check(ds.dtype == di.dtype == torch.bfloat16 and bool(torch.equal(ds, got[0].to(torch.bfloat16)))
           and bool(torch.equal(di, got[1].to(torch.bfloat16))),
           f"{tag}: the towers' gradients are not the route's f32 gradients rounded once to bf16")
-    if route:
+    if route == "large-catalog":
         budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
         softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62
         ref = softmax_lse.softmax_ce_grads_from_z(s2, items, z, y, c)
         softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
         limit, against = BF16_ROUTE_BAND, "kernel 7's bf16 one pass (the budget lifted)"
     else:
-        ref = softmax_lse.softmax_ce_grads_from_z_bf16_reference(s2, items, z, y, c, partials=False)
-        limit, against = BF16_SPLIT_RTOL, "the two launches' twin"
+        one_pass = route == "one pass"
+        ref = softmax_lse.softmax_ce_grads_from_z_bf16_reference(s2, items, z, y, c, partials=one_pass)
+        limit, against = BF16_SPLIT_RTOL, f"the {route}'s twin"
     errs = [_max_rel(g, r) for g, r in zip(got, ref)]
     check(max(errs) <= limit, f"{tag}: one step's gradients ds {errs[0]}, di {errs[1]} from {against} (limit {limit})")
-    print(f"{tag}: one step's loss gradients through {'the large-catalog route' if route else 'the two launches'} "
-          f"(M={m}): ds {errs[0]:.3g}, di {errs[1]:.3g} of the largest entry from {against} (limit {limit:.3g}); the "
-          f"towers' bf16 gradients are the route's f32 ones rounded once")
+    print(f"{tag}: one step's loss gradients through the {route} (M={m}, D={s2.shape[1]}): ds {errs[0]:.3g}, di "
+          f"{errs[1]:.3g} of the largest entry from {against} (limit {limit:.3g}); the towers' bf16 gradients are the "
+          f"route's f32 ones rounded once")
     return {"step_grad_ds_rel_diff": errs[0], "step_grad_di_rel_diff": errs[1]}
 
 
@@ -3501,7 +3504,7 @@ def classic_fwd_phase(torch, np, port, dataset, dev) -> dict:
 # ---------------------------------------------------------------- phase 8, mesh training
 
 
-def _mesh_model(dev, mesh_shape, epochs: int, callbacks=(), **training_kwargs):
+def _mesh_model(dev, mesh_shape, epochs: int, callbacks=(), width: dict = None, **training_kwargs):
     from rectools_tpu_torch.models import SASRecModel
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
 
@@ -3509,7 +3512,7 @@ def _mesh_model(dev, mesh_shape, epochs: int, callbacks=(), **training_kwargs):
     if mesh_shape is not None:
         kwargs["mesh_shape"] = mesh_shape
     return SASRecModel(
-        **TRAIN_CONFIG, epochs=epochs, item_net_block_types=(IdEmbeddingsItemNet,), get_val_mask_func=hold_out_last,
+        **{**TRAIN_CONFIG, **(width or {})}, epochs=epochs, item_net_block_types=(IdEmbeddingsItemNet,), get_val_mask_func=hold_out_last,
         get_callbacks_func=lambda: list(callbacks), training_module_kwargs=kwargs, device=dev,
     )
 
@@ -3608,6 +3611,7 @@ def mesh_fit_phase(torch, np, port, dataset, dev, plain: dict, bf16_plain: dict)
             print(f"mesh fit: two steps with the partials budget forced to 0: launches {split}, "
                   f"losses {split_losses}")
             bf16 = bf16_mesh_fit(torch, np, port, dataset, dev, bf16_plain, backend)
+            bf16["wide_steps"] = bf16_wide_mesh_steps(torch, np, port, dataset, dev)
         finally:
             dist.shutdown()
     return {"launches": launches, "launches_budget_forced": split, "steps": steps, "fit_s": fit_s,
@@ -3860,19 +3864,22 @@ BERT4REC_LABEL_SHARE = 0.15  # the share of BERT4Rec's positions that carry a la
 REMAT_RTOL, REMAT_ATOL = 1e-6, 1e-6  # remat against the plain fit: losses relative, parameters absolute
 
 
-def entry_stack_frames(report: str) -> dict:
-    """{mangled entry function: bytes of stack frame} from ``ptxas -v`` output."""
+def ptxas_entries(report: str) -> dict:
+    """{mangled entry function: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from ``ptxas -v`` output."""
     import re
 
-    frames, current = {}, None
+    entries, current = {}, None
     for line in report.splitlines():
         match = re.search(r"Compiling entry function '([^']+)'", line)
         if match:
-            current = match.group(1)
+            current = entries.setdefault(match.group(1), {})
         elif current is not None and "bytes stack frame" in line:
-            frames[current] = int(line.split()[0])
-            current = None
-    return frames
+            current.update(zip(("stack", "spill_stores", "spill_loads"),
+                               (int(x) for x in re.findall(r"(\d+) bytes", line))))
+        elif current is not None and "Used" in line and "registers" in line:
+            current["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return entries
 
 
 def _attention_case(torch, F, attention, gen, dev, b: int, l: int, h: int, dh: int, bias, tag: str) -> dict:
@@ -3946,7 +3953,7 @@ def family_kernel_phase(torch, dev, reports: dict, b: int = TRAIN_B) -> dict:
         if source not in reports:
             print(f"build: {source} came from the build cache this run; its stack frames are not shown")
             continue
-        frames = {name: n for name, n in entry_stack_frames(reports[source]).items() if mark in name}
+        frames = {name: e["stack"] for name, e in ptxas_entries(reports[source]).items() if mark in name}
         check(bool(frames) and not any(frames.values()),
               f"build: {source}: the remat shape's kernels want stack: {frames}")
         print(f"build: {source}: {len(frames)} entry functions at the remat shape ({mark}), 0 bytes of stack each")
@@ -4258,6 +4265,9 @@ def remat_fit_phase(torch, np, pd, port, dev) -> dict:
 # ---------------------------------------------------------------- phase 16, bf16
 
 PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores, data sheet
+# H100 SXM: each multiprocessor's SFUs return 16 exps a clock (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0), 132 multiprocessors at the 1.98 GHz boost clock
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 # the bf16 forms against their twins on the card, which multiply the bf16 values in f32 (exact), so that only the
 # order of the f32 sums differs and, where two f32 sums straddle a rounding boundary, a bf16 value lands one step
 # (at most 2^-7 of itself) apart: kernel 6 relative per row; kernel 7 relative to the largest entry, ds 2^-6 (each
@@ -4305,11 +4315,13 @@ MESH_BF16_KEYS = ("lse_bias_fwd_bf16", "lse_bwd_fused_bf16", "lse_bwd_ds_bf16", 
 MESH_4_BF16_LOSS_RTOL, MESH_4_BF16_PARAM_MEAN_A_STEP = 5e-3, 3e-5
 
 
-def bf16_bound(n_bytes: float, n_ops: float) -> tuple:
-    """(ms, "bytes" or "operations"): the bytes over the memory rate or the
-    operations over the bf16 tensor-core rate, whichever is longer."""
+def bf16_bound(n_bytes: float, n_ops: float, n_exps: float = 0) -> tuple:
+    """(ms, "bytes" or "operations"): the bytes over the memory rate, or the
+    operations: the products over the bf16 tensor-core rate or the ``n_exps``
+    exponentials over the SFUs' rate, whichever is longer (the exps rule at D =
+    16, where a logit is one 16-deep product)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_BF16_FLOP_PER_S * 1e3
+    t_ops = max(n_ops / PEAK_BF16_FLOP_PER_S, n_exps / SFU_EXP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -4379,13 +4391,14 @@ def _attention_bf16_case(torch, F, attention, gen, dev, b: int, l: int, h: int, 
     return results
 
 
-def bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
+def bf16_kernel_phase(torch, dev, b: int = TRAIN_B, d: int = N_FACTORS) -> dict:
     """(a) of the ``bf16`` phase: the bf16 forms of kernels 6 and 7 at 51,200 x
-    15,872 x 128 and of kernels 2 and 5 at B = 512, H = 4, L = 100, heads of 32,
-    causal with dropout and under BERT4Rec's bias, each against its twin on the
-    card, the same bits on a rerun, timed beside its f32 form, the library call
-    in bf16 and its bound at the bf16 rate; kernels 6 and 7 also at the odd
-    catalog (checked)."""
+    15,872 x 128 (x ``d``: then their result keys end in ``_d{d}`` and the
+    attention cases are left out) and of kernels 2 and 5 at B = 512, H = 4, L =
+    100, heads of 32, causal with dropout and under BERT4Rec's bias, each
+    against its twin on the card, the same bits on a rerun, timed beside its
+    f32 form, the library call in bf16 and its bound at the bf16 rate; kernels
+    6 and 7 also at the odd catalog (checked)."""
     import types
 
     import torch.nn.functional as F
@@ -4394,9 +4407,10 @@ def bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     from rectools_tpu_torch.ops import attention, softmax_lse
 
     bf = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
-    m, n, d = b * SESSION_MAX_LEN, N_ITEM_IDS + 1, N_FACTORS
-    products = 2 * m * n * d
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16 + d)
+    m, n = b * SESSION_MAX_LEN, N_ITEM_IDS + 1
+    sfx = width_suffix(d)
+    products, exps = 2 * m * n * d, m * n
     s = torch.randn((m, d), generator=gen, device=dev).to(bf)
     items = (0.1 * torch.randn((n, d), generator=gen, device=dev)).to(bf)
     s32, items32 = s.float(), items.float()
@@ -4407,15 +4421,15 @@ def bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     ref = softmax_lse.streaming_lse_bf16_reference(s, items)
     err = _row_rel(lse, ref)
     check(err <= BF16_LSE_RTOL and bool(torch.equal(lse, softmax_lse.streaming_lse(s, items))),
-          f"kernel 6 bf16: {err} per row from its twin (limit {BF16_LSE_RTOL}), or other bits on a rerun")
+          f"kernel 6 bf16 at D={d}: {err} per row from its twin (limit {BF16_LSE_RTOL}), or other bits on a rerun")
     n_chunks = -(-n // softmax_lse.LSE_CHUNK)
-    results["lse_partials_fwd_bf16"] = dict(
+    results[f"lse_partials_fwd_bf16{sfx}"] = dict(
         max_abs_err=(lse - ref).abs().max().item(), max_rel_err=err,
         ms=time_ms(lambda: softmax_lse.streaming_lse(s, items)),
         f32_ms=time_ms(lambda: softmax_lse.streaming_lse(s32, items32)),
         plain_ms=time_ms(lambda: softmax_lse.streaming_lse_bf16_reference(s, items), iters=3),
         library_ms=time_ms(lambda: torch.logsumexp(s @ items.T, dim=1), iters=3),
-        bound=bf16_bound((m + n) * d * 2 + 2 * n_chunks * m * 4, products),
+        bound=bf16_bound((m + n) * d * 2 + 2 * n_chunks * m * 4, products, exps),
     )
 
     # kernel 7, from the lse: PAD rows (coeff 0) and labelled rows
@@ -4423,8 +4437,9 @@ def bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     y[torch.rand((m,), generator=gen, device=dev) < 0.1] = 0
     coeff = torch.where(y == 0, 0.0, 1.0 / float((y != 0).sum()))
     z = lse - torch.log(coeff)
-    check(not softmax_lse.ce_takes_split_route(m, n, d, bf),
-          "bf16 CE gradients at the training width leave kernel 7")
+    check(not softmax_lse.ce_takes_split_route(m, n, d, bf)
+          and softmax_lse._fused_on_the_card(m, n, d, softmax_lse._ds_itemsize(bf), bf),
+          f"bf16 CE gradients at the training shape, D={d}, leave kernel 7's one pass")
     got = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
     ref = softmax_lse.softmax_ce_grads_from_z_bf16_reference(s, items, z, y, coeff)
     rel_ds, rel_di = _max_rel(got[0], ref[0]), _max_rel(got[1], ref[1])
@@ -4432,19 +4447,19 @@ def bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     again = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
     rerun = all(bool(torch.equal(a, g)) for a, g in zip(again, got))
     check(rel_ds <= BF16_DS_RTOL and rel_di <= BF16_DI_RTOL and rerun,
-          f"kernel 7 bf16: ds {rel_ds}, di {rel_di} of the largest entry from its twin (limits {BF16_DS_RTOL}, "
-          f"{BF16_DI_RTOL}), or other bits on a rerun")
-    print(f"bf16 kernels: kernel 7 ds {rel_ds:.3g}, di {rel_di:.3g} of the largest entry from the twin (limits "
-          f"{BF16_DS_RTOL}, {BF16_DI_RTOL}); bit-equal on a rerun")
+          f"kernel 7 bf16 at D={d}: ds {rel_ds}, di {rel_di} of the largest entry from its twin (limits "
+          f"{BF16_DS_RTOL}, {BF16_DI_RTOL}), or other bits on a rerun")
+    print(f"bf16 kernels: kernel 7 at D={d} ds {rel_ds:.3g}, di {rel_di:.3g} of the largest entry from the twin "
+          f"(limits {BF16_DS_RTOL}, {BF16_DI_RTOL}); bit-equal on a rerun")
     sg, ig = s.detach().clone().requires_grad_(), items.detach().clone().requires_grad_()
     ce_lib = (F.cross_entropy(sg @ ig.T, y, reduction="none").float() * coeff).sum()
-    results["ce_grads_fused_bf16"] = dict(
+    results[f"ce_grads_fused_bf16{sfx}"] = dict(
         max_abs_err=max((a - r).abs().max().item() for a, r in zip(got, ref)), max_rel_err=rel,
         ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3),
         f32_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s32, items32, z, y, coeff), iters=3),
         plain_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z_bf16_reference(s, items, z, y, coeff), iters=3),
         library_ms=time_ms(lambda: torch.autograd.grad(ce_lib, (sg, ig), retain_graph=True), iters=3),
-        bound=bf16_bound((m + n) * d * 2 + m * 16 + (m + n) * d * 4, 3 * products),
+        bound=bf16_bound((m + n) * d * 2 + m * 16 + (m + n) * d * 4, 3 * products, exps),
     )
     del sg, ig, ce_lib, again
     # both at the odd catalog, where every item tile leaves a tail (checked, not timed)
@@ -4456,13 +4471,15 @@ def bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     ref_r = softmax_lse.softmax_ce_grads_from_z_bf16_reference(s, rows, z_ragged, y_ragged, coeff)
     rel_r = [_max_rel(g, r) for g, r in zip(got_r, ref_r)]
     check(err_ragged <= BF16_LSE_RTOL and rel_r[0] <= BF16_DS_RTOL and rel_r[1] <= BF16_DI_RTOL,
-          f"kernels 6 / 7 bf16 at N={RAGGED_N}: {err_ragged} / {rel_r} from their twins")
-    print(f"bf16 kernels: at N={RAGGED_N}, kernel 6 {err_ragged:.3g} per row, kernel 7 ds {rel_r[0]:.3g}, di "
+          f"kernels 6 / 7 bf16 at N={RAGGED_N}, D={d}: {err_ragged} / {rel_r} from their twins")
+    print(f"bf16 kernels: at N={RAGGED_N}, D={d}, kernel 6 {err_ragged:.3g} per row, kernel 7 ds {rel_r[0]:.3g}, di "
           f"{rel_r[1]:.3g} of the largest entry from their twins")
     for name in ("lse_partials_fwd_bf16", "ce_grads_fused_bf16"):
-        _bf16_line(f"{name} (M={m}, N={n}, D={d})", results[name])
+        _bf16_line(f"{name} (M={m}, N={n}, D={d})", results[name + sfx])
     del s, items, s32, items32, lse, ref, got, rows, y_ragged, lse_ragged, z_ragged, got_r, ref_r
     torch.cuda.empty_cache()
+    if d != N_FACTORS:
+        return results
 
     # kernels 2 and 5: causal with dropout, and BERT4Rec's bias from the backbone's own rule
     l, h, dh = SESSION_MAX_LEN, N_HEADS, N_FACTORS // N_HEADS
@@ -4595,11 +4612,12 @@ def stu_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     return results
 
 
-def mesh_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
+def mesh_bf16_kernel_phase(torch, dev, b: int = TRAIN_B, d: int = N_FACTORS) -> dict:
     """(a) of the ``bf16`` phase for the mesh loss: the bf16 forms of kernels
     8-11 at the shapes ``mesh_kernel_phase`` gives their f32 forms (the (1, 1)
     mesh's 51,200 x 15,872; a (2, 2) shard 25,600 x 7,936; the last shard of
-    the odd catalog cut four ways, one row of it biased -1e30), with a
+    the odd catalog cut four ways, one row of it biased -1e30; at another
+    width ``d`` the first two, their result keys with ``_d{d}``), with a
     cotangent of mixed sign: each against its twin, the same bits on a rerun,
     kernel 8's bits against kernel 6's bf16 form at a zero bias, timed beside
     its f32 form on the same values, the library call (``torch.logsumexp`` of
@@ -4608,11 +4626,13 @@ def mesh_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     from rectools_tpu_torch.ops import _native, softmax_lse
 
     bf = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
-    l, d, n = SESSION_MAX_LEN, N_FACTORS, N_ITEM_IDS + 1
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22 + d)
+    l, n = SESSION_MAX_LEN, N_ITEM_IDS + 1
+    sfx = width_suffix(d)
     ragged_shard = -(-RAGGED_N // 4)
-    shapes = {"": (b * l, n, 0), "_shard_2x2": (b * l // 2, n // 2, 0),
-              "_ragged_shard": (b * l // 2, ragged_shard, 4 * ragged_shard - RAGGED_N)}
+    shapes = {"": (b * l, n, 0), "_shard_2x2": (b * l // 2, n // 2, 0)}
+    if d == N_FACTORS:
+        shapes["_ragged_shard"] = (b * l // 2, ragged_shard, 4 * ragged_shard - RAGGED_N)
     budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
     results = {}
@@ -4625,7 +4645,7 @@ def mesh_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
             bias[rows - n_invalid:] = softmax_lse.NEG_BIG
         dlse = torch.randn((m,), generator=gen, device=dev) / m  # mixed sign
         s32, items32 = s.float(), items.float()
-        what = f"at M={m}, N={rows}" + (f" with {n_invalid} invalid row(s)" if n_invalid else "")
+        what = f"at M={m}, N={rows}, D={d}" + (f" with {n_invalid} invalid row(s)" if n_invalid else "")
 
         # kernel 8
         lse = softmax_lse.streaming_lse_fwd(s, items, bias)
@@ -4638,15 +4658,15 @@ def mesh_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
             check(bool(torch.equal(lse, softmax_lse.streaming_lse_fwd(s, items))),
                   f"kernel 8 bf16 {what}: a zero bias changed the bits of kernel 6's bf16 form")
         lse32 = softmax_lse.streaming_lse_fwd(s32, items32, bias)
-        products = 2 * m * rows * d
+        products, exps = 2 * m * rows * d, m * rows
         vectors = (rows + 2 * m) * 4
-        results[f"lse_bias_fwd_bf16{tag}"] = dict(
+        results[f"lse_bias_fwd_bf16{sfx}{tag}"] = dict(
             max_abs_err=(lse - ref).abs().max().item(), max_rel_err=err,
             ms=time_ms(lambda: softmax_lse.streaming_lse_fwd(s, items, bias)),
             f32_ms=time_ms(lambda: softmax_lse.streaming_lse_fwd(s32, items32, bias)),
             plain_ms=time_ms(lambda: softmax_lse.streaming_lse_bias_bf16_reference(s, items, bias), iters=3),
             library_ms=time_ms(lambda: torch.logsumexp(s @ items.T + bias, dim=1), iters=3),
-            bound=bf16_bound((m + rows) * d * 2 + rows * 4 + m * 4, products),
+            bound=bf16_bound((m + rows) * d * 2 + rows * 4 + m * 4, products, exps),
         )
 
         # kernels 9 and 10 + 11
@@ -4671,9 +4691,9 @@ def mesh_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         fused_ms = time_ms(lambda: softmax_lse.streaming_lse_bwd(s, items, bias, lse, dlse), iters=3)
         fused_f32_ms = time_ms(lambda: softmax_lse.streaming_lse_bwd(s32, items32, bias, lse32, dlse), iters=3)
         softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
-        # each split kernel alone, bf16 and f32, through the library handles (ds with the sum of its chunk partials)
-        n_chunks, chunk_rows = softmax_lse.split_bwd_plan(m, rows, d, n_sms)
-        ds_part, out_di = torch.empty((n_chunks, m, d), device=dev), torch.empty((rows, d), device=dev)
+        # each split kernel alone, bf16 and f32, through the library handles (ds with the sum of its chunk partials
+        # over each dtype's plan)
+        out_di = torch.empty((rows, d), device=dev)
         split_ms = {"ds": 0.0, "di": 0.0, "ds_f32": 0.0, "di_f32": 0.0}
         if dev.type == "cuda":
             stream = _native.current_stream_ptr(s.device)
@@ -4684,8 +4704,11 @@ def mesh_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
                         (lse if not suffix else lse32).data_ptr(), dlse.data_ptr())
                 ds_fn = getattr(lib, "lse_bwd_ds_f32" if suffix else "lse_bwd_ds_bf16")
                 di_fn = getattr(lib, "lse_bwd_di_f32" if suffix else "lse_bwd_di_bf16")
+                n_chunks, chunk_rows = softmax_lse.split_bwd_plan(m, rows, d, n_sms,
+                                                                  dtype=torch.float32 if suffix else bf)
+                ds_part = torch.empty((n_chunks, m, d), device=dev)
 
-                def ds_kernel(ds_fn=ds_fn, args=args):
+                def ds_kernel(ds_fn=ds_fn, args=args, n_chunks=n_chunks, chunk_rows=chunk_rows, ds_part=ds_part):
                     ds_fn(*args, ds_part.data_ptr(), m, rows, d, chunk_rows, n_chunks, stream)
                     return ds_part.sum(dim=0)
 
@@ -4706,31 +4729,31 @@ def mesh_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         def max_abs(route: str, i: int) -> float:
             return (got[route][i] - refs[route][i]).abs().max().item()
 
-        results[f"lse_bwd_fused_bf16{tag}"] = dict(
+        results[f"lse_bwd_fused_bf16{sfx}{tag}"] = dict(
             max_abs_err=max(max_abs("fused", 0), max_abs("fused", 1)),
             max_rel_err=max(_max_rel(g, r) for g, r in zip(got["fused"], refs["fused"])),
             ms=fused_ms, f32_ms=fused_f32_ms, plain_ms=plain_ms["fused"], library_ms=grad_ms((sg, ig)),
-            bound=bf16_bound((m + rows) * d * (2 + 4) + vectors, 3 * products),
+            bound=bf16_bound((m + rows) * d * (2 + 4) + vectors, 3 * products, exps),
         )
         # the split twin computes both gradients in one walk: its time stands beside each split kernel
-        results[f"lse_bwd_ds_bf16{tag}"] = dict(
+        results[f"lse_bwd_ds_bf16{sfx}{tag}"] = dict(
             max_abs_err=max_abs("split", 0), max_rel_err=_max_rel(got["split"][0], refs["split"][0]),
             ms=split_ms["ds"], f32_ms=split_ms["ds_f32"], plain_ms=plain_ms["split"], library_ms=grad_ms((sg,)),
-            bound=bf16_bound((m + rows) * d * 2 + m * d * 4 + vectors, 2 * products),
+            bound=bf16_bound((m + rows) * d * 2 + m * d * 4 + vectors, 2 * products, exps),
         )
-        results[f"lse_bwd_di_bf16{tag}"] = dict(
+        results[f"lse_bwd_di_bf16{sfx}{tag}"] = dict(
             max_abs_err=max_abs("split", 1), max_rel_err=_max_rel(got["split"][1], refs["split"][1]),
             ms=split_ms["di"], f32_ms=split_ms["di_f32"], plain_ms=plain_ms["split"], library_ms=grad_ms((ig,)),
-            bound=bf16_bound((m + rows) * d * 2 + rows * d * 4 + vectors, 2 * products),
+            bound=bf16_bound((m + rows) * d * 2 + rows * d * 4 + vectors, 2 * products, exps),
         )
         print(f"bf16 mesh kernels: kernel 8 {what}: {err:.3g} per row from its twin (limit {BF16_LSE_RTOL}), "
               f"bit-equal on a rerun{'' if n_invalid else ' and to kernel 6 bf16 at a zero bias'}")
         for name in MESH_BF16_KEYS:
-            r = results[f"{name}{tag}"]
+            r = results[f"{name}{sfx}{tag}"]
             print(f"bf16 mesh kernels: {name} {what}: max_rel_err={r['max_rel_err']:.3g} ms={r['ms']:.4f} "
                   f"f32_ms={r['f32_ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (bf16) "
                   f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}, 989 TFLOP/s bf16, 3.35 TB/s)")
-        del s, items, bias, dlse, s32, items32, lse, lse32, ref, got, refs, again, ds_part, out_di, sg, ig, lib_out
+        del s, items, bias, dlse, s32, items32, lse, lse32, ref, got, refs, again, out_di, sg, ig, lib_out
         torch.cuda.empty_cache()
     return results
 
@@ -4748,28 +4771,31 @@ CE_SPLIT_BF16_KEYS = ("ce_grads_pair_bf16", "grads_z_fused_bf16", "grads_z_ds_bf
 XL_N_ITEM_IDS = 196_607  # + PAD = 196,608 rows: past the 163,840 items at which bf16 CE gradients leave kernel 7
 
 
-def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
+def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B, d: int = N_FACTORS, mid_n: int = MID_N_ITEM_IDS + 1,
+                               large_n: int = XL_N_ITEM_IDS + 1) -> dict:
     """(a) of the ``bf16`` phase for large catalogs: kernel 12's bf16 form
     (within the budget), 13 + 14's and kernel 7's two launches (the budget
     forced below the plan's partials, and over the JAX rule's bytes for the two
-    launches) at 51,200 x 15,872 x 128; kernel 7's two launches unforced at
-    65,536 items; kernels 13 + 14 and the large-catalog CE route unforced at
-    196,608 items, the route held against kernel 7's bf16 one pass with the
-    budget lifted. Each against its twin (BF16_SPLIT_RTOL), the same bits on a
-    rerun, timed beside its f32 form on the same values, the library call in
-    bf16 and its bound at the bf16 rate."""
+    launches) at 51,200 x 15,872 x ``d`` (result keys with ``_d{d}`` at
+    another width than 128); kernel 7's two launches unforced at ``mid_n``
+    items; kernels 13 + 14 and the large-catalog CE route unforced at
+    ``large_n`` items, the route held against kernel 7's bf16 one pass with the
+    budget lifted (0 leaves a case out). Each against its twin
+    (BF16_SPLIT_RTOL), the same bits on a rerun, timed beside its f32 form on
+    the same values, the library call in bf16 and its bound at the bf16
+    rate."""
     import torch.nn.functional as F
 
     from rectools_tpu_torch.ops import _native, softmax_lse
 
     bf = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
-    m, n, d = b * SESSION_MAX_LEN, N_ITEM_IDS + 1, N_FACTORS
-    n_mid, n_xl = MID_N_ITEM_IDS + 1, XL_N_ITEM_IDS + 1
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23 + d)
+    m, n = b * SESSION_MAX_LEN, N_ITEM_IDS + 1
+    sfx = width_suffix(d)
     budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
     s = torch.randn((m, d), generator=gen, device=dev).to(bf)
-    items_xl = (0.1 * torch.randn((n_xl, d), generator=gen, device=dev)).to(bf)
+    items_xl = (0.1 * torch.randn((max(n, mid_n or 0, large_n or 0), d), generator=gen, device=dev)).to(bf)
     s32 = s.float()
     pad = torch.rand((m,), generator=gen, device=dev) < 0.1
     coeff = torch.where(pad, 0.0, 1.0 / float((~pad).sum()))
@@ -4810,8 +4836,8 @@ def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         errs, abs_errs = hold(what, got, ref)
         rerun(what, fn, got)
         rows32 = rows.float()
-        n_chunks, chunk_rows = softmax_lse.split_bwd_plan(m, n_rows, d, n_sms)
-        ds_part, out_di = torch.empty((n_chunks, m, d), device=dev), torch.empty((n_rows, d), device=dev)
+        n_chunks, chunk_rows = softmax_lse.split_bwd_plan(m, n_rows, d, n_sms, dtype=bf)
+        out_di = torch.empty((n_rows, d), device=dev)
         times = {"ds": 0.0, "di": 0.0, "ds_f32": 0.0, "di_f32": 0.0}
         if lib is not None:
             stream = _native.current_stream_ptr(s.device)
@@ -4819,9 +4845,11 @@ def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
                 args = (towers[0].data_ptr(), towers[1].data_ptr(), z_.data_ptr())
                 ds_fn = lib_.grads_z_ds_f32 if suffix else lib_.grads_z_ds_bf16
                 di_fn = lib_.grads_z_di_f32 if suffix else lib_.grads_z_di_bf16
+                plan = softmax_lse.split_bwd_plan(m, n_rows, d, n_sms, dtype=torch.float32 if suffix else bf)
+                ds_part = torch.empty((plan[0], m, d), device=dev)
 
-                def ds_kernel(ds_fn=ds_fn, args=args):
-                    ds_fn(*args, ds_part.data_ptr(), m, n_rows, d, chunk_rows, n_chunks, stream)
+                def ds_kernel(ds_fn=ds_fn, args=args, plan=plan, ds_part=ds_part):
+                    ds_fn(*args, ds_part.data_ptr(), m, n_rows, d, plan[1], plan[0], stream)
                     return ds_part.sum(dim=0)
 
                 times[f"ds{suffix}"] = time_ms(ds_kernel, iters=iters)
@@ -4835,13 +4863,14 @@ def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         products = 2 * m * n_rows * d
         vectors = m * 4
         for i, (kernel, outputs) in enumerate((("ds", m * d), ("di", n_rows * d))):
-            results[f"grads_z_{kernel}_bf16{tag}"] = dict(
+            results[f"grads_z_{kernel}_bf16{sfx}{tag}"] = dict(
                 max_abs_err=abs_errs[i], max_rel_err=errs[i], ms=times[kernel], f32_ms=times[f"{kernel}_f32"],
                 plain_ms=plain,
                 library_ms=time_ms(lambda: materialized(s, rows, z_, i == 0, i == 1), iters=1, warmup=1),
-                bound=bf16_bound((m + n_rows) * d * 2 + vectors + outputs * 4, 2 * products))
-        print(f"bf16 kernels: {what}: ds {errs[0]:.3g}, di {errs[1]:.3g} of the largest entry from their twin (limit "
-              f"{BF16_SPLIT_RTOL:.3g}), bit-equal on a rerun; ds in {n_chunks} item chunks of {chunk_rows} rows")
+                bound=bf16_bound((m + n_rows) * d * 2 + vectors + outputs * 4, 2 * products, m * n_rows))
+        print(f"bf16 kernels: {what}, D={d}: ds {errs[0]:.3g}, di {errs[1]:.3g} of the largest entry from their twin "
+              f"(limit {BF16_SPLIT_RTOL:.3g}), bit-equal on a rerun; ds in {n_chunks} item chunks of {chunk_rows} "
+              "rows")
 
     def ce_pair(rows, z_, y_, tag: str, forced: bool) -> None:
         """Kernel 7's two launches (``forced``: the budget under the bf16 plan's
@@ -4849,7 +4878,7 @@ def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         values (its two launches too, the budget under the f32 plan)."""
         n_rows = rows.shape[0]
         what = f"ce_grads_ds_bf16 / _di_bf16 at N={n_rows}"
-        plan = softmax_lse.fused_bwd_plan(m, n_rows, d, n_sms, softmax_lse._ds_itemsize(bf))
+        plan = softmax_lse.fused_bwd_plan(m, n_rows, d, n_sms, softmax_lse._ds_itemsize(bf), bf)
         plan32 = softmax_lse.fused_bwd_plan(m, n_rows, d, n_sms)
         if forced:
             softmax_lse.FUSED_BWD_PARTIALS_BUDGET = plan[2] - 1
@@ -4874,14 +4903,14 @@ def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
         sg, ig = s.detach().clone().requires_grad_(), rows.detach().clone().requires_grad_()
         ce_lib = (F.cross_entropy(sg @ ig.T, y_, reduction="none").float() * coeff).sum()
         products = 2 * m * n_rows * d
-        results[f"ce_grads_pair_bf16{tag}"] = dict(
+        results[f"ce_grads_pair_bf16{sfx}{tag}"] = dict(
             max_abs_err=max(abs_errs), max_rel_err=max(errs), ms=ms, f32_ms=f32_ms,
             plain_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z_bf16_reference(
                 s, rows, z_, y_, coeff, partials=False), iters=1, warmup=1),
             library_ms=time_ms(lambda: torch.autograd.grad(ce_lib, (sg, ig), retain_graph=True), iters=1, warmup=1),
-            bound=bf16_bound((m + n_rows) * d * 2 + m * 16 + (m + n_rows) * d * 4, 3 * products))
-        split = softmax_lse.split_bwd_plan(m, n_rows, d, n_sms, softmax_lse.FUSED_BWD_CHUNK)
-        print(f"bf16 kernels: {what}{' (budget forced)' if forced else ''}: ds {errs[0]:.3g}, di {errs[1]:.3g} of the "
+            bound=bf16_bound((m + n_rows) * d * 2 + m * 16 + (m + n_rows) * d * 4, 3 * products, m * n_rows))
+        split = softmax_lse.split_bwd_plan(m, n_rows, d, n_sms, softmax_lse.FUSED_BWD_CHUNK, bf)
+        print(f"bf16 kernels: {what}, D={d}{' (budget forced)' if forced else ''}: ds {errs[0]:.3g}, di {errs[1]:.3g} of the "
               f"largest entry from their twin (limit {BF16_SPLIT_RTOL:.3g}), bit-equal on a rerun; one-pass partials "
               f"{plan[2] / 2**20:.0f} MiB; ds in {split[0]} item chunks of {split[1]} rows; the two-launch twin "
               f"{order:.3g} from the one-pass twin")
@@ -4890,8 +4919,8 @@ def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     items = items_xl[:n]
     y = torch.where(pad, 0, torch.randint(1, n, (m,), generator=gen, device=dev))
     z = softmax_lse.streaming_lse(s, items) - torch.log(coeff)
-    check(softmax_lse._fused_on_the_card(m, n, d, softmax_lse._ds_itemsize(bf)),
-          "the bf16 softmax gradients from z at the training width leave kernel 12")
+    check(softmax_lse._fused_on_the_card(m, n, d, softmax_lse._ds_itemsize(bf), bf),
+          f"the bf16 softmax gradients from z at the training shape, D={d}, leave kernel 12")
     fn = lambda: softmax_lse.softmax_grads_from_z(s, items, z)  # noqa: E731
     got = launched(fn, ("grads_z_fused_bf16",))
     ref = softmax_lse.softmax_grads_from_z_bf16_reference(s, items, z, partials=True)
@@ -4899,30 +4928,41 @@ def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     rerun("grads_z_fused_bf16", fn, got)
     items32 = items.float()
     products = 2 * m * n * d
-    results["grads_z_fused_bf16"] = dict(
+    results[f"grads_z_fused_bf16{sfx}"] = dict(
         max_abs_err=max(abs_errs), max_rel_err=max(errs), ms=time_ms(fn, iters=3),
         f32_ms=time_ms(lambda: softmax_lse.softmax_grads_from_z(s32, items32, z), iters=3),
         plain_ms=time_ms(lambda: softmax_lse.softmax_grads_from_z_bf16_reference(s, items, z), iters=1, warmup=1),
         library_ms=time_ms(lambda: materialized(s, items, z), iters=3),
-        bound=bf16_bound((m + n) * d * 2 + m * 4 + (m + n) * d * 4, 3 * products))
-    print(f"bf16 kernels: grads_z_fused_bf16 at N={n}: ds {errs[0]:.3g}, di {errs[1]:.3g} of the largest entry from "
-          f"its twin (limit {BF16_SPLIT_RTOL:.3g}), bit-equal on a rerun")
+        bound=bf16_bound((m + n) * d * 2 + m * 4 + (m + n) * d * 4, 3 * products, m * n))
+    print(f"bf16 kernels: grads_z_fused_bf16 at N={n}, D={d}: ds {errs[0]:.3g}, di {errs[1]:.3g} of the largest entry "
+          f"from its twin (limit {BF16_SPLIT_RTOL:.3g}), bit-equal on a rerun")
     # kernels 13 + 14 and kernel 7's two launches, the budget forced
     softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 0
     split_pair(items, z, "", iters=3)
     softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
     ce_pair(items, z, y, "", forced=True)
     del items32
-    # at 65,536 items: kernel 7's two launches, unforced
-    rows = items_xl[:n_mid]
-    y_mid = torch.where(pad, 0, torch.randint(1, n_mid, (m,), generator=gen, device=dev))
-    ce_pair(rows, softmax_lse.streaming_lse(s, rows) - torch.log(coeff), y_mid, "_mid_catalog", forced=False)
-    torch.cuda.empty_cache()
-    # at 196,608 items: kernels 13 + 14 and the large-catalog route, unforced
+    names = ["grads_z_fused_bf16", "grads_z_ds_bf16", "grads_z_di_bf16", "ce_grads_pair_bf16"]
+    if mid_n:  # kernel 7's two launches, unforced
+        rows = items_xl[:mid_n]
+        y_mid = torch.where(pad, 0, torch.randint(1, mid_n, (m,), generator=gen, device=dev))
+        ce_pair(rows, softmax_lse.streaming_lse(s, rows) - torch.log(coeff), y_mid, "_mid_catalog", forced=False)
+        names.append("ce_grads_pair_bf16_mid_catalog")
+        torch.cuda.empty_cache()
+    if not large_n:
+        for name in names:
+            _bf16_line(f"{name} at D={d}", results[name.replace("_bf16", "_bf16" + sfx)])
+        del s, s32, items_xl, items, z
+        torch.cuda.empty_cache()
+        return results
+    # kernels 13 + 14 and the large-catalog route, unforced
+    n_xl = large_n
+    items_xl = items_xl[:n_xl]
     y_xl = torch.where(pad, 0, torch.randint(1, n_xl, (m,), generator=gen, device=dev))
     y_xl[: m // 50] = n_xl - 1  # a label many rows share, on the catalog's last row
     z_xl = softmax_lse.streaming_lse(s, items_xl) - torch.log(coeff)
-    check(softmax_lse.ce_takes_split_route(m, n_xl, d, bf), f"the bf16 CE gradients at N={n_xl} stay on kernel 7")
+    check(softmax_lse.ce_takes_split_route(m, n_xl, d, bf),
+          f"the bf16 CE gradients at N={n_xl}, D={d} stay on kernel 7")
     split_pair(items_xl, z_xl, "_large_catalog", iters=1)
     torch.cuda.empty_cache()
     fn = lambda: softmax_lse.softmax_ce_grads_from_z(s, items_xl, z_xl, y_xl, coeff)  # noqa: E731
@@ -4930,24 +4970,23 @@ def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
     rerun(f"the bf16 CE route at N={n_xl}", fn, route)
     route_ms = time_ms(fn, iters=1)
     softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62  # kernel 7's bf16 one pass at any size
-    large_plan = softmax_lse.fused_bwd_plan(m, n_xl, d, n_sms, softmax_lse._ds_itemsize(bf))
+    large_plan = softmax_lse.fused_bwd_plan(m, n_xl, d, n_sms, softmax_lse._ds_itemsize(bf), bf)
     kernel_7 = softmax_lse.softmax_ce_grads_from_z(s, items_xl, z_xl, y_xl, coeff)
     kernel_7_ms = time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items_xl, z_xl, y_xl, coeff), iters=1)
     softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
     band = [_max_rel(a, k) for a, k in zip(route, kernel_7)]
     check(max(band) <= BF16_ROUTE_BAND,
           f"the bf16 CE route at N={n_xl} is ds {band[0]}, di {band[1]} from kernel 7's bf16 one pass")
-    results["ce_grads_large_catalog_route_bf16"] = {"route_ms": route_ms, "kernel_7_ms": kernel_7_ms,
-                                                    "ds_rel_diff": band[0], "di_rel_diff": band[1]}
-    print(f"bf16 kernels: at N={n_xl}: the bf16 CE route (kernels 13 + 14, the label term in f32) {route_ms:.3f} ms "
+    results[f"ce_grads_large_catalog_route_bf16{sfx}"] = {"route_ms": route_ms, "kernel_7_ms": kernel_7_ms,
+                                                          "ds_rel_diff": band[0], "di_rel_diff": band[1]}
+    print(f"bf16 kernels: at N={n_xl}, D={d}: the bf16 CE route (kernels 13 + 14, the label term in f32) {route_ms:.3f} ms "
           f"beside kernel 7's bf16 one pass {kernel_7_ms:.3f} ms (the budget lifted: {large_plan[2] / 2**30:.2f} GiB "
           f"of partials); ds {band[0]:.3g}, di {band[1]:.3g} of the largest entry apart (band {BF16_ROUTE_BAND:.3g}: "
           f"the routes round at other points); the route bit-equal on a rerun")
     del route, kernel_7
-    for name in ("grads_z_fused_bf16", "grads_z_ds_bf16", "grads_z_di_bf16", "ce_grads_pair_bf16",
-                 "ce_grads_pair_bf16_mid_catalog", "grads_z_ds_bf16_large_catalog", "grads_z_di_bf16_large_catalog"):
-        _bf16_line(name, results[name])
-    del s, s32, items_xl, rows, z, z_xl
+    for name in (*names, "grads_z_ds_bf16_large_catalog", "grads_z_di_bf16_large_catalog"):
+        _bf16_line(f"{name} at D={d}", results[name.replace("_bf16", "_bf16" + sfx)])
+    del s, s32, items_xl, z, z_xl
     torch.cuda.empty_cache()
     return results
 
@@ -4973,21 +5012,26 @@ def _bf16_fit_launches(port, steps: int, val_forwards: int, with_loss: bool = Tr
     return expected
 
 
-def bf16_fit_phase(torch, np, port, df, dataset, dev, f32: dict, family: str = "sasrec") -> dict:
+def bf16_fit_phase(torch, np, port, df, dataset, dev, f32: dict, family: str = "sasrec", width: dict = None) -> dict:
     """(b) of the ``bf16`` phase: SASRecModel(...).fit (``family="hstu"``:
     HSTUModel(...).fit) with compute_dtype "bfloat16" at phase 5's (7's) width,
     depth, batch and epochs on the same frame, beside that phase's f32 fit:
     launch counts, one profiled train step's device kernels, losses and
     HitRate@10 (val_recall@10 on the held-out last items) within their bands
-    of the f32 fit's, train examples/s of both."""
+    of the f32 fit's, train examples/s of both. ``width`` (``n_factors``,
+    ``n_heads``) fits at another width beside ``f32``, the f32 fit at that
+    width, and adds one step's loss gradients against kernel 7's twin."""
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+    from rectools_tpu_torch.models.nn.transformers import losses as loss_fns
     from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+    from rectools_tpu_torch.ops import softmax_lse
 
     hstu = family == "hstu"
-    tag = f"bf16 {FAMILY_TAGS[family]}train"
+    tag = f"bf16 {FAMILY_TAGS[family]}{'wide ' if width else ''}train"
+    config = {**TRAIN_CONFIG, **(width or {})}
     clock = epoch_clock(torch, dev)
     model = family_model(
-        family, **TRAIN_CONFIG, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,),
+        family, **config, epochs=EPOCHS, item_net_block_types=(IdEmbeddingsItemNet,),
         get_val_mask_func=hold_out_last, get_callbacks_func=lambda: [clock],
         training_module_kwargs={"val_recall_k": K, "compute_dtype": "bfloat16"}, device=dev,
     )
@@ -5025,9 +5069,9 @@ def bf16_fit_phase(torch, np, port, df, dataset, dev, f32: dict, family: str = "
     print(f"{tag}: losses {losses} (f32 {f32['train_loss']}, largest relative gap {loss_rel:.3g}, limit "
           f"{BF16_LOSS_RTOL}); HitRate@{K} on the held-out last items {recall} (f32 {f32[f'val_recall@{K}']}, gap "
           f"{hit_gap:.4f}, band {BF16_HIT_BAND})")
+    f32_fit = f"the f32 fit at d = {config['n_factors']}" if width else f"phase {7 if hstu else 5}"
     print(f"{tag}: epoch 2 wall {epoch2_s:.3f} s (validation included), {examples_per_s:.0f} train examples/s "
-          f"beside f32 {f32['train_examples_per_s']:.0f} (phase {7 if hstu else 5}), peak device memory "
-          f"{peak_mb:.0f} MiB")
+          f"beside f32 {f32['train_examples_per_s']:.0f} ({f32_fit}), peak device memory {peak_mb:.0f} MiB")
     loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
     batch = tm._device_batch(pad_batch(next(iter(loader)), TRAIN_B))
     names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
@@ -5041,10 +5085,22 @@ def bf16_fit_phase(torch, np, port, df, dataset, dev, f32: dict, family: str = "
           f"{'STU' if hstu else 'attention'} or loss kernel, no library attention or cross-entropy")
     print(f"{tag}: profile of one train step")
     profile = profile_phase(torch, lambda: tm._train_step(batch))
+    step = {}
+    if width:  # one step's loss gradients of the trained towers: kernel 7's one pass against its twin
+        backbone, d = model.backbone.eval(), config["n_factors"]
+        with torch.no_grad():
+            item_embs = backbone.item_model.embed_catalog()
+            s_t, i_t = backbone.similarity_module.catalog_loss_towers(backbone.encode_sessions(batch, item_embs),
+                                                                      item_embs)
+        bf = torch.bfloat16
+        s2 = (s_t.float() / tm.logits_t).reshape(-1, d).contiguous().to(bf)
+        step = bf16_step_check(torch, port, loss_fns, softmax_lse, tag, "one pass", s2, i_t.float().contiguous().to(bf),
+                               batch["y"].reshape(-1), batch["yw"].reshape(-1), ("ce_grads_fused_bf16",))
     return {"launches": launches, "steps": steps, "train_loss": losses, f"val_recall@{K}": recall, "fit_s": fit_s,
             "epoch2_s": epoch2_s, "train_examples_per_s": examples_per_s,
             "f32_train_examples_per_s": f32["train_examples_per_s"], "loss_rel_to_f32": loss_rel,
-            "hit_gap_to_f32": hit_gap, "peak_device_mib": peak_mb, **{f"step_{k}": v for k, v in profile.items()}}
+            "hit_gap_to_f32": hit_gap, "peak_device_mib": peak_mb, **step,
+            **{f"step_{k}": v for k, v in profile.items()}}
 
 
 def bf16_family_phase(torch, np, port, dataset, dev) -> dict:
@@ -5082,58 +5138,41 @@ def bf16_family_phase(torch, np, port, dataset, dev) -> dict:
 
 def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
     """(d) of the ``bf16`` phase: every route without a bf16 kernel raises
-    NotImplementedError naming ROADMAP §1 item 5 on the card (the loss
-    routes, kernels 8-14, at width 16: at 32-128 they run)."""
+    NotImplementedError naming ROADMAP §1 item 5 on the card: head dim 8 in
+    attention and in STU attention, the bounded-shift (16) and running-max
+    (15) forwards, these also at the widths 16 and 256, where every other loss
+    route runs."""
     from rectools_tpu_torch.models import HSTUModel
     from rectools_tpu_torch.ops import _native, attention, softmax_lse
 
     bf = torch.bfloat16
     s = torch.randn((300, 32), device=dev).to(bf)
     items = torch.randn((5000, 32), device=dev).to(bf)
-    z, coeff = torch.zeros(300, device=dev), torch.full((300,), 1e-3, device=dev)
-    y = torch.ones(300, dtype=torch.int64, device=dev)
     small = dict(n_blocks=1, n_heads=2, n_factors=32, session_max_len=20, epochs=1, batch_size=64, device=dev)
 
-    def budget(value, fn):
+    def kernel_15(s_, items_):
         def run():
-            saved = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
-            softmax_lse.FUSED_BWD_PARTIALS_BUDGET = value
+            softmax_lse.USE_PARTIALS_FWD = False
             try:
-                fn()
+                softmax_lse.streaming_lse(s_, items_)
             finally:
-                softmax_lse.FUSED_BWD_PARTIALS_BUDGET = saved
+                softmax_lse.USE_PARTIALS_FWD = True
         return run
-
-    def kernel_15():
-        softmax_lse.USE_PARTIALS_FWD = False
-        try:
-            softmax_lse.streaming_lse(s, items)
-        finally:
-            softmax_lse.USE_PARTIALS_FWD = True
 
     from rectools_tpu_torch.ops import stu_attention
 
     heads_of_8 = torch.ones((1, 2, 4, 8), device=dev, dtype=bf)
     narrow, narrow_items = torch.ones((8, 16), device=dev, dtype=bf), torch.ones((3000, 16), device=dev, dtype=bf)
+    wide, wide_items = torch.ones((8, 256), device=dev, dtype=bf), torch.ones((3000, 256), device=dev, dtype=bf)
     masks = (torch.zeros((1, 4, 4), device=dev), torch.ones((1, 4, 4), device=dev), torch.ones((1, 4), device=dev))
     refused = {
         "STU at head dim 8 (kernels 17-19)": lambda: stu_attention.stu_fwd(heads_of_8, heads_of_8, heads_of_8,
                                                                            *masks),
-        "mesh loss (kernels 8-11) at d = 16": lambda: softmax_lse.sharded_streaming_lse(
-            torch.ones((8, 16), device=dev, dtype=bf), torch.ones((3000, 16), device=dev, dtype=bf), None, "model"),
-        "large-catalog route (kernels 12-14) at d = 16": budget(0, lambda: softmax_lse.softmax_ce_grads_from_z(
-            narrow, narrow_items, z[:8], y[:8], coeff[:8])),
-        "kernel 7's two launches at d = 16": budget(100_000, lambda: softmax_lse.softmax_ce_grads_from_z(
-            narrow, narrow_items, z[:8], y[:8], coeff[:8])),
-        "d = 256": lambda: softmax_lse.streaming_lse(torch.ones((8, 256), device=dev, dtype=bf),
-                                                     torch.ones((3000, 256), device=dev, dtype=bf)),
         "bounded shift (kernel 16)": lambda: softmax_lse.streaming_lse(s, items, bounded_shift=True),
-        "running max (kernel 15)": kernel_15,
-        "biased lse (kernel 8) at d = 256": lambda: softmax_lse.streaming_lse(
-            torch.ones((8, 256), device=dev, dtype=bf), torch.ones((3000, 256), device=dev, dtype=bf),
-            torch.zeros(3000, device=dev)),
-        "gradients from z (kernels 12-14) at d = 16": lambda: softmax_lse.softmax_grads_from_z(narrow, narrow_items,
-                                                                                               z[:8]),
+        "bounded shift (kernel 16) at d = 16": lambda: softmax_lse.streaming_lse(narrow, narrow_items,
+                                                                                 bounded_shift=True),
+        "running max (kernel 15)": kernel_15(s, items),
+        "running max (kernel 15) at d = 256": kernel_15(wide, wide_items),
         "head dim 8": lambda: attention.attention_fwd(*(torch.ones((1, 2, 4, 8), device=dev, dtype=bf),) * 3, None,
                                                       0.3),
     }
@@ -5162,25 +5201,280 @@ def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
     return {"refused": refused_names}
 
 
-def bf16_phase(torch, np, pd, port, df, dataset, dev, f32: dict, hstu_f32: dict) -> dict:
+# ---------------------------------------------------------------- phase 16 at the widths 256 and 16
+
+WIDE_WIDTHS = (256, 16)  # the models' default width, and the narrow end of SUPPORTED_D
+WIDE_FIT = dict(n_factors=256, n_heads=4)  # the package defaults (models/nn/transformers/base.py): heads of 64
+NARROW_FIT = dict(n_factors=16, n_heads=1)  # one head of 16
+WIDE_LARGE_N = 65_536  # D = 256: past the 40,960 items at which JAX's bf16 CE gradients leave kernel 7
+WIDE_PAIR_N = 32_768  # D = 256: kernel 7's one pass over the partials budget, JAX's rule still on kernel 7
+BF16_LOSS_KERNELS = ("lse_partials_bf16_kernel", "ce_fused_bf16_kernel", "split_ds_bf16_kernel",
+                     "split_di_bf16_kernel", "lse_bwd_di_bf16_kernel")  # in the order of lse_bf16_smem_bytes
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may take on an H100
+# the bf16 loss entries of the kernels line, whose forms at D = 256 and 16 it gives beside them
+BF16_LOSS_ENTRIES = ("lse_partials_fwd_bf16", "ce_grads_fused_bf16", "lse_bias_fwd_bf16", "lse_bwd_fused_bf16",
+                     "lse_bwd_ds_bf16", "lse_bwd_di_bf16", "ce_grads_pair_bf16", "grads_z_fused_bf16",
+                     "grads_z_ds_bf16", "grads_z_di_bf16")
+
+
+def width_suffix(d: int) -> str:
+    """The end of a bf16 kernel result's key at width ``d``: none at the
+    training width (128), ``_d{d}`` at another."""
+    return "" if d == N_FACTORS else f"_d{d}"
+
+
+def bf16_wide_build_check(torch, dev, reports: dict) -> dict:
+    """Every bf16 loss kernel instantiated at D = 256 and 16: ``ptxas``'s
+    registers, 0 bytes of stack and no spill for each of its forms, and the
+    shared memory a block takes (``lse_bf16_smem_bytes``) within SMEM_LIMIT."""
+    from rectools_tpu_torch.ops import _native, softmax_lse
+
+    if dev.type != "cuda":
+        return {}
+    lib = _native.load("softmax_lse_bf16", softmax_lse._SIGNATURES_BF16)
+    cached = "softmax_lse_bf16" not in reports
+    if cached:
+        print("bf16 wide build: softmax_lse_bf16 came from the build cache this run; its registers are not shown")
+    entries = ptxas_entries(reports.get("softmax_lse_bf16", ""))
+    out = {}
+    for d in WIDE_WIDTHS:
+        for i, kernel in enumerate(BF16_LOSS_KERNELS):
+            forms = [e for name, e in entries.items() if f"{kernel}ILi{d}E" in name]
+            smem = lib.lse_bf16_smem_bytes(i, d)
+            check(cached or bool(forms), f"bf16 wide build: no ptxas report of {kernel} at D={d}")
+            clean = all(e.get("stack") == 0 and e.get("spill_stores") == 0 and e.get("spill_loads") == 0
+                        for e in forms)
+            check(clean and 0 < smem <= SMEM_LIMIT,
+                  f"bf16 wide build: {kernel} at D={d}: {forms}, {smem} bytes of shared memory a block")
+            registers = sorted(e["registers"] for e in forms)
+            out[f"{kernel}_d{d}"] = {"registers": registers, "stack_bytes": 0, "smem_bytes": smem}
+            print(f"bf16 wide build: {kernel} at D={d}: {len(forms)} forms, registers {registers}, 0 bytes of stack, "
+                  f"no spill, {smem} bytes of shared memory a block (limit {SMEM_LIMIT})")
+    return out
+
+
+def bf16_wide_kernel_phase(torch, dev, reports: dict) -> dict:
+    """``bf16 wide kernels``: the bf16 loss forms at D = 256 and 16 (the
+    build check, then kernels 6 and 7, 8-11 at the (1, 1) mesh's shape and a
+    (2, 2) shard, 12, 13 + 14 and kernel 7's two launches at 51,200 x 15,872;
+    at D = 256 also 13 + 14 and the CE route unforced at 65,536 items), each
+    against its twin (BF16_SPLIT_RTOL; lse BF16_LSE_RTOL per row), its bits on
+    a rerun, timed beside its f32 form, its bf16 library call and its bound."""
+    results = {"build": bf16_wide_build_check(torch, dev, reports)}
+    for d in WIDE_WIDTHS:
+        results.update(bf16_kernel_phase(torch, dev, d=d))
+        results.update(mesh_bf16_kernel_phase(torch, dev, d=d))
+        results.update(ce_split_bf16_kernel_phase(torch, dev, d=d, mid_n=0, large_n=WIDE_LARGE_N if d == 256 else 0))
+    return results
+
+
+def _f32_fit(torch, np, port, dataset, dev, width: dict) -> dict:
+    """SASRec's f32 fit at ``width``, the training phase's depth, batch and
+    epochs: losses, HitRate@10 on the held-out last items, train examples/s."""
+    from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+
+    clock = epoch_clock(torch, dev)
+    model = family_model("sasrec", **{**TRAIN_CONFIG, **width}, epochs=EPOCHS,
+                         item_net_block_types=(IdEmbeddingsItemNet,), get_val_mask_func=hold_out_last,
+                         get_callbacks_func=lambda: [clock], training_module_kwargs={"val_recall_k": K}, device=dev)
+    port.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(dataset)
+    fit_s = time.perf_counter() - t0
+    tm = model.training_module
+    steps, losses = tm.global_step, tm.train_loss_history
+    recall = tm.val_metric_history.get(f"val_recall@{K}", [])
+    check(len(losses) == EPOCHS and bool(np.isfinite(losses).all()) and losses[1] < losses[0],
+          f"f32 train losses at d = {width['n_factors']}: {losses}")
+    epoch2_s = clock.times[2] - clock.times[1]
+    examples_per_s = TRAIN_B * (steps // EPOCHS) / epoch2_s
+    loss_launches = {k: v for k, v in port.LAUNCHES.items() if v and k.startswith(("lse", "ce_", "grads"))}
+    print(f"f32 wide train: {EPOCHS} epochs x {steps // EPOCHS} steps of {TRAIN_B} at d = {width['n_factors']}, "
+          f"{width['n_heads']} heads in {fit_s:.2f} s; losses {losses}, HitRate@{K} {recall}; epoch 2 wall "
+          f"{epoch2_s:.3f} s, {examples_per_s:.0f} train examples/s; the loss's launches {loss_launches}")
+    return {"train_loss": losses, f"val_recall@{K}": recall, "fit_s": fit_s, "epoch2_s": epoch2_s,
+            "train_examples_per_s": examples_per_s, "loss_launches": loss_launches}
+
+
+def _bf16_epoch(torch, np, port, dataset, dev, family: str, width: dict, tag: str) -> dict:
+    """One bf16 epoch of ``family`` at ``width`` through Model.fit: every
+    launch (the bf16 forms, LayerNorm's f32 kernels; no validation), a finite
+    loss."""
+    from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
+
+    model = family_model(family, **{**TRAIN_CONFIG, **width}, epochs=1, item_net_block_types=(IdEmbeddingsItemNet,),
+                         training_module_kwargs={"compute_dtype": "bfloat16"}, device=dev)
+    port.reset_launches()
+    t0 = time.perf_counter()
+    model.fit(dataset)
+    fit_s = time.perf_counter() - t0
+    launches = dict(port.LAUNCHES)
+    tm = model.training_module
+    steps, losses = tm.global_step, tm.train_loss_history
+    check(tm.resolved_compute_dtype == "bfloat16" and len(losses) == 1 and bool(np.isfinite(losses).all()),
+          f"{tag}: losses {losses}")
+    expected = _bf16_fit_launches(port, steps, 0, family=family)
+    check(launches == expected, f"launches in the {tag} epoch {launches}, expected {expected}")
+    print(f"{tag}: one bf16 epoch of {steps} steps of {TRAIN_B} at d = {width['n_factors']}, {width['n_heads']} "
+          f"heads in {fit_s:.2f} s, loss {losses}; launches { {k: v for k, v in launches.items() if v} }")
+    return {"launches": launches, "steps": steps, "train_loss": losses, "fit_s": fit_s}
+
+
+def bf16_wide_fit_phase(torch, np, port, df, dataset, dev) -> dict:
+    """``bf16 wide fit``: SASRec at the package defaults (d 256, 4 heads, 2
+    blocks, L 100), batch 512, 2 epochs in f32 and then in bf16 from the same
+    seed (``bf16_fit_phase``: launches, a profiled step's device kernels with
+    no f32 loss kernel, losses within BF16_LOSS_RTOL, HitRate@10 within
+    BF16_HIT_BAND, train examples/s of both, one step's loss gradients against
+    kernel 7's twin); then one bf16 epoch of HSTU at d 256 and one of SASRec
+    at d 16."""
+    f32 = _f32_fit(torch, np, port, dataset, dev, WIDE_FIT)
+    fit = bf16_fit_phase(torch, np, port, df, dataset, dev, f32, width=WIDE_FIT)
+    hstu = _bf16_epoch(torch, np, port, dataset, dev, "hstu", WIDE_FIT, "bf16 wide hstu")
+    narrow = _bf16_epoch(torch, np, port, dataset, dev, "sasrec", NARROW_FIT, "bf16 narrow")
+    return {"f32": f32, "fit": fit, "hstu": hstu, "narrow": narrow}
+
+
+def bf16_wide_mesh_steps(torch, np, port, dataset, dev) -> dict:
+    """``bf16 wide mesh``: SASRec at d 256 with bf16 compute at
+    ``mesh_shape=(1, 1)`` in the one-rank world, two train steps on one batch
+    by the route the card's plan gives (kernel 8, then 9, or 10 + 11 where
+    kernel 9's f32 partials pass the budget: 679 MB at 51,200 x 15,872) and
+    two by the other route (the budget lifted, or forced to 0): the bf16
+    forms once a step each, no f32 loss kernel, losses finite and falling."""
+    from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+    from rectools_tpu_torch.ops import softmax_lse
+
+    bf = torch.bfloat16
+    model = _mesh_model(dev, (1, 1), 1, width=WIDE_FIT, compute_dtype="bfloat16")
+    model._build_model_from_dataset(dataset)
+    tm = model.training_module
+    tm.init_params()
+    loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
+    batch = tm._device_batch(tm._local_batch(pad_batch(next(iter(loader)), TRAIN_B)))
+    m, n, d = TRAIN_B * SESSION_MAX_LEN, model.backbone.item_model.n_items, WIDE_FIT["n_factors"]
+    fused = softmax_lse._fused_on_the_card(m, n, d, 4, bf)
+    keys = ("lse_bias_fwd_bf16", "lse_bwd_fused_bf16", "lse_bwd_ds_bf16", "lse_bwd_di_bf16", "lse_bias_fwd",
+            "lse_bwd_fused", "lse_bwd_ds", "lse_bwd_di", "lse_partials_fwd_bf16", "ce_grads_fused_bf16")
+    budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
+    out = {}
+    for name, forced in (("plan", None), ("other_route", 0 if fused else 1 << 62)):
+        takes_fused = fused if forced is None else not fused
+        if forced is not None:
+            softmax_lse.FUSED_BWD_PARTIALS_BUDGET = forced
+        try:
+            port.reset_launches()
+            losses = [tm._train_step(batch).item() for _ in range(2)]
+        finally:
+            softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+        launches = {k: port.LAUNCHES[k] for k in keys}
+        want = {k: 0 for k in keys}
+        want.update({"lse_bias_fwd_bf16": 2, **({"lse_bwd_fused_bf16": 2} if takes_fused else
+                                                 {"lse_bwd_ds_bf16": 2, "lse_bwd_di_bf16": 2})})
+        check(launches == want, f"bf16 wide mesh ({name}): launches {launches}, expected {want}")
+        check(bool(np.isfinite(losses).all()) and losses[1] < losses[0], f"bf16 wide mesh ({name}): losses {losses}")
+        route = "kernel 9" if takes_fused else "kernels 10 + 11"
+        how = "the plan" if forced is None else ("the budget lifted" if forced else "the budget forced to 0")
+        print(f"bf16 wide mesh: two steps at d = {d} on mesh (1, 1), {route} ({how}): launches "
+              f"{ {k: v for k, v in launches.items() if v} }, losses {losses}")
+        out[name] = {"launches": dict(port.LAUNCHES), "route": route, "train_loss": losses}
+    return out
+
+
+def bf16_wide_ops_phase(torch, dev) -> dict:
+    """``bf16 wide ops``: the public loss ops on bf16 towers at 51,200 session
+    rows whose forms at D = 256 and 16 no fit above runs. D = 256: the
+    softmax gradients from z (kernel 12), the CE gradients at 32,768 items
+    (kernel 7's two launches) and at 65,536 (the large-catalog route, 13 +
+    14), all by the card's plan. D = 16, on the KION catalog: the biased lse's
+    VJP (kernel 9) and kernel 12, and with the budget forced kernels 10 + 11
+    and 13 + 14 (0) and kernel 7's two launches (under its one pass's
+    partials). Finite results, the expected launches."""
+    from rectools_tpu_torch.ops import _native, softmax_lse
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    m, n = TRAIN_B * SESSION_MAX_LEN, N_ITEM_IDS + 1
+    budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
+    out = {}
+
+    def run(fn, keys: tuple, forced: int = -1) -> None:
+        if forced >= 0:
+            softmax_lse.FUSED_BWD_PARTIALS_BUDGET = forced
+        try:
+            before = dict(_native.LAUNCHES)
+            got = fn()
+        finally:
+            softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+        counts = {k: v - before[k] for k, v in _native.LAUNCHES.items() if v != before[k]}
+        check(counts == {k: 1 for k in keys} and all(bool(torch.isfinite(g).all()) for g in got),
+              f"bf16 wide ops: launches {counts}, expected one each of {keys}, or a result not finite")
+
+    for d in WIDE_WIDTHS:
+        s = torch.randn((m, d), generator=gen, device=dev).to(bf)
+        items = (0.1 * torch.randn((WIDE_LARGE_N if d == 256 else n, d), generator=gen, device=dev)).to(bf)
+        pad = torch.rand((m,), generator=gen, device=dev) < 0.1
+        coeff = torch.where(pad, 0.0, 1.0 / float((~pad).sum()))
+        lse = softmax_lse.streaming_lse(s, items[:n])
+        z = (lse - torch.log(coeff)).contiguous()
+        _native.reset_launches()
+        if d == 256:
+            run(lambda: softmax_lse.softmax_grads_from_z(s, items[:n], z), ("grads_z_fused_bf16",))
+            for rows, keys in ((WIDE_PAIR_N, ("ce_grads_ds_bf16", "ce_grads_di_bf16")),
+                               (WIDE_LARGE_N, ("grads_z_ds_bf16", "grads_z_di_bf16"))):
+                part = items[:rows]
+                y = torch.where(pad, 0, torch.randint(1, rows, (m,), generator=gen, device=dev))
+                z_rows = (softmax_lse.streaming_lse_fwd(s, part) - torch.log(coeff)).contiguous()
+                run(lambda: softmax_lse.softmax_ce_grads_from_z(s, part, z_rows, y, coeff), keys)
+        else:
+            bias = torch.zeros((n,), device=dev)
+            bias[n - 3:] = softmax_lse.NEG_BIG
+            dlse = torch.randn((m,), generator=gen, device=dev) / m
+            y = torch.where(pad, 0, torch.randint(1, n, (m,), generator=gen, device=dev))
+            lse_b = softmax_lse.streaming_lse_fwd(s, items, bias)
+            plan = softmax_lse.fused_bwd_plan(m, n, d, 132, softmax_lse._ds_itemsize(bf), bf)[2]
+            run(lambda: softmax_lse.streaming_lse_bwd(s, items, bias, lse_b, dlse), ("lse_bwd_fused_bf16",))
+            run(lambda: softmax_lse.softmax_grads_from_z(s, items, z), ("grads_z_fused_bf16",))
+            run(lambda: softmax_lse.streaming_lse_bwd(s, items, bias, lse_b, dlse),
+                ("lse_bwd_ds_bf16", "lse_bwd_di_bf16"), forced=0)
+            run(lambda: softmax_lse.softmax_grads_from_z(s, items, z), ("grads_z_ds_bf16", "grads_z_di_bf16"), forced=0)
+            run(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff),
+                ("ce_grads_ds_bf16", "ce_grads_di_bf16"), forced=plan - 1)
+        out[f"d{d}"] = {"launches": dict(_native.LAUNCHES)}
+        print(f"bf16 wide ops: D={d}: launches { {k: v for k, v in _native.LAUNCHES.items() if v} }")
+        del s, items
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_phase(torch, np, pd, port, df, dataset, dev, f32: dict, hstu_f32: dict, reports: dict) -> dict:
     """The ``bf16`` phase: (a) the kernel forms (2, 5-14 with kernel 7's two
-    launches, and 17-19), (b) the SASRec fit beside phase 5's and the HSTU fit
-    beside phase 7's, (c) BERT4Rec and eSASRec, (d) the refusals; its wall.
-    The bf16 fits on the 65,536- and 196,608-row catalogs run after phase 9's
-    f32 fits (``bf16 mid fit``, ``bf16 large fit``)."""
+    launches, and 17-19), and the loss forms 6-14 at D = 256 and 16 (``bf16
+    wide kernels``), (b) the SASRec fit beside phase 5's and the HSTU fit
+    beside phase 7's, then the fits at the package defaults (``bf16 wide
+    fit``) and the public ops at both widths (``bf16 wide ops``), (c) BERT4Rec
+    and eSASRec, (d) the refusals; its wall. The bf16 fits on the 65,536- and
+    196,608-row catalogs run after phase 9's f32 fits (``bf16 mid fit``,
+    ``bf16 large fit``), the mesh steps at D = 256 in phase 8 (``bf16 wide
+    mesh``)."""
     t0 = time.perf_counter()
     kernels = bf16_kernel_phase(torch, torch.device(dev))
     kernels.update(stu_bf16_kernel_phase(torch, torch.device(dev)))
     kernels.update(mesh_bf16_kernel_phase(torch, torch.device(dev)))
     kernels.update(ce_split_bf16_kernel_phase(torch, torch.device(dev)))
+    wide_t0 = time.perf_counter()
+    kernels.update(bf16_wide_kernel_phase(torch, torch.device(dev), reports))
+    print(f"bf16 wide kernels: wall {time.perf_counter() - wide_t0:.1f} s")
     fit = bf16_fit_phase(torch, np, port, df, dataset, dev, f32)
     hstu_fit = bf16_fit_phase(torch, np, port, df, dataset, dev, hstu_f32, family="hstu")
+    wide = bf16_wide_fit_phase(torch, np, port, df, dataset, dev)
+    wide["ops"] = bf16_wide_ops_phase(torch, torch.device(dev))
     families = bf16_family_phase(torch, np, port, dataset, dev)
     refusals = bf16_refusals_phase(torch, np, dataset, dev)
     wall_s = time.perf_counter() - t0
     print(f"bf16: phase wall {wall_s:.1f} s")
-    return {"kernels": kernels, "fit": fit, "hstu_fit": hstu_fit, "families": families, "refusals": refusals,
-            "wall_s": wall_s}
+    return {"kernels": kernels, "fit": fit, "hstu_fit": hstu_fit, "wide": wide, "families": families,
+            "refusals": refusals, "wall_s": wall_s}
 
 
 def main() -> int:
@@ -5268,9 +5562,10 @@ def main() -> int:
     print(f"ranking: on {card}")
     ranking_result = ranking_phase(torch, np, pd, port, df, dataset, "cuda",
                                    evaluate_result["metrics"] + baselines_result["evaluate"]["metrics"])
-    # phase 16: mixed-precision training (compute_dtype="bfloat16") on the bf16 forms of kernels 2, 5, 6, 7, 17-19
+    # phase 16: mixed-precision training (compute_dtype="bfloat16") on the bf16 forms of kernels 2, 5-14, 17-19, the
+    # loss forms also at the widths 256 (the models' default) and 16
     print(f"bf16: on {card}")
-    bf16_result = bf16_phase(torch, np, pd, port, df, dataset, "cuda", train_result, hstu_train_result)
+    bf16_result = bf16_phase(torch, np, pd, port, df, dataset, "cuda", train_result, hstu_train_result, reports)
     kernels.update(bf16_result["kernels"])
     # phase 10: BERT4Rec and eSASRec (shared negatives, remat) through the same entry points, remat at the
     # ML-20M-sized shape
@@ -5371,6 +5666,18 @@ def main() -> int:
              "bf16_mesh_fit_budget_forced": {"launches": mesh_result["bf16"]["launches_budget_forced"]},
              "bf16_mesh_fit_4": mesh_4_result["bf16"], "bf16_fit_mid_catalog": bf16_mid_result,
              "bf16_fit_large_catalog": bf16_large_result}
+    # the paths that run the bf16 loss forms at the widths 256 and 16, by width: the fits, the mesh steps and the
+    # public ops of phase 16 (``bf16 wide ...``); they count in the entries' launches too
+    wide = bf16_result["wide"]
+    width_paths = {
+        256: {"bf16_wide_fit": wide["fit"], "bf16_wide_hstu_fit": wide["hstu"],
+              "bf16_wide_mesh_steps": mesh_result["bf16"]["wide_steps"]["plan"],
+              "bf16_wide_mesh_steps_other_route": mesh_result["bf16"]["wide_steps"]["other_route"],
+              "bf16_wide_ops": wide["ops"]["d256"]},
+        16: {"bf16_narrow_fit": wide["narrow"], "bf16_narrow_ops": wide["ops"]["d16"]},
+    }
+    for by_width in width_paths.values():
+        paths.update(by_width)
 
     def numbers(r: dict) -> dict:
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -5430,6 +5737,16 @@ def main() -> int:
         if name == "ce_grads":  # kernel 7's two launches; at 51,200 x 131,072 the split route beside its one pass
             entry["two_launch_pair"] = numbers(kernels["ce_grads_pair"])
             entry["large_catalog_route"] = kernels["ce_grads_large_catalog_route"]
+        if name in BF16_LOSS_ENTRIES:  # the same kernel's forms at D = 256 and 16: numbers, launches on their paths
+            for d, wpaths in width_paths.items():
+                w_by_path = {path: sum(result["launches"].get(key, 0) for key in keys) for path, result in wpaths.items()}
+                sub = {**numbers(kernels[f"{name}_d{d}"]), "launches": sum(w_by_path.values()),
+                       "launches_by_path": w_by_path}
+                for tag in ("_shard_2x2", "_large_catalog"):
+                    if f"{name}_d{d}{tag}" in kernels:
+                        sub[tag[1:]] = numbers(kernels[f"{name}_d{d}{tag}"])
+                check(sub["launches"] > 0, f"{name} at D={d}: no path launched it")
+                entry[f"d{d}"] = sub
         check(entry["launches"] > 0, f"{name}: no path launched it")
         entries.append(entry)
     for key, before_ms in SIMT_TILE_MS.items():  # redesigned
@@ -5442,7 +5759,8 @@ def main() -> int:
         "hstu_train": {**{k: v for k, v in hstu_train_result.items() if k != "launches"},
                        "agreement": hstu_agree_result},
         "mesh_fit": {**{k: v for k, v in mesh_result.items() if not k.startswith("launches") and k != "bf16"},
-                     "bf16": {k: v for k, v in mesh_result["bf16"].items() if not k.startswith("launches")}},
+                     "bf16": {k: v for k, v in mesh_result["bf16"].items()
+                              if not k.startswith("launches") and k != "wide_steps"}},
         "mesh_fit_4": {**{k: v for k, v in mesh_4_result.items() if k not in ("launches", "bf16")},
                        "bf16": {k: v for k, v in mesh_4_result["bf16"].items() if k != "launches"}},
         "ops": {k: v for k, v in ops_result.items() if k != "launches"},
@@ -5471,7 +5789,14 @@ def main() -> int:
                  "hstu_fit": {k: v for k, v in bf16_result["hstu_fit"].items() if k != "launches"},
                  "families": {f: {k: v for k, v in r.items() if k != "launches"}
                               for f, r in bf16_result["families"].items()},
-                 "refused": bf16_result["refusals"]["refused"], "wall_s": bf16_result["wall_s"]},
+                 "refused": bf16_result["refusals"]["refused"], "wall_s": bf16_result["wall_s"],
+                 "wide": {"build": kernels["build"], "f32_fit": wide["f32"],
+                          "fit": {k: v for k, v in wide["fit"].items() if k != "launches"},
+                          "hstu": {k: v for k, v in wide["hstu"].items() if k != "launches"},
+                          "narrow": {k: v for k, v in wide["narrow"].items() if k != "launches"},
+                          "mesh_steps": {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+                                         for k, v in mesh_result["bf16"]["wide_steps"].items()},
+                          "large_catalog_route": kernels["ce_grads_large_catalog_route_bf16_d256"]}},
     }
     print(json.dumps(line))
     print(card)

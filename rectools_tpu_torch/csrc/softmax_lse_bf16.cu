@@ -58,30 +58,35 @@
 // tensor cores sum in f32, so the plain twins (f32 products of the bf16
 // values, ops/softmax_lse.py) differ only in the order of their f32 sums.
 //
-// Tiles (D in {32, 64, 128}; 16 and 256 have no bf16 form yet, ROADMAP §1
-// item 5): 256 threads, 8 warps; 128-row session tiles and 64-row item
-// tiles, staged row-major in shared memory at a pitch of D + 8 bf16 by
-// 16-byte cp.async, through a ring of two where a block walks many tiles
-// (the next loading while this one multiplies). The bias of an item tile is
-// copied to shared memory beside it.
+// Tiles (D in {16, 32, 64, 128, 256}, the widths of ops/softmax_lse.py
+// SUPPORTED_D): 256 threads, 8 warps; 64-row item tiles, and session tiles of
+// 128 rows, or of 64 rows in the gradient kernels at D = 256 (`grad_bm`: a
+// warp of the 4 x 2 split keeps its ds slice, rows x D / 2 in f32 registers,
+// at 64 a thread either way, and kernel 11's tiles fit a block's 232,448
+// bytes); staged row-major in shared memory at a pitch of D + 8 bf16 by
+// 16-byte cp.async, through a ring of two where a block walks many tiles (the
+// next loading while this one multiplies). The bias of an item tile is copied
+// to shared memory beside it. At D = 16 a staged row is two 16-byte copies
+// and product 1 is one 16-deep step; each warp's D / 2 columns of ds and di
+// are one 8-column fragment. Shared memory at D = 16 / 128 / 256 (bytes):
 // - Kernels 6 and 8: block (x, y) owns session tile x and item chunk y
 //   (2,048 rows, ops/softmax_lse.py LSE_CHUNK), as the f32 kernel; warps 4 x 2
 //   take 32 x 32 of each 128 x 64 logits tile and fold it into running (max,
 //   sum of exp) pairs of their rows, merged by shuffles and then across the
-//   two warp columns through shared memory. 71,936 bytes of shared memory at
-//   D = 128.
+//   two warp columns through shared memory. 14,592 / 71,936 / 137,472.
 // - Kernels 7 and 9: the f32 one pass's grid (ops/softmax_lse.py
 //   `fused_bwd_plan`: block (x, y) owns item chunk x of 2,048 rows and group y
 //   of session tiles, all blocks in one wave). Per (session tile, item tile)
-//   pair: the logits (warps 4 x 2, 32 x 32 each), the rounded probability
+//   pair: the logits (warps 4 x 2, BM / 4 x 32 each), the rounded probability
 //   tile staged twice in shared memory ([session][item] as the A operand of
 //   ds, [item][session] as the A operand of di), ds += P items into
-//   registers (warps 4 x 2: 32 rows x D / 2), di += P^T s (warps 4 x 2: 16
-//   item rows x D / 2) read from and written back to the block's own f32 di
-//   partial rows in device memory (each thread its own entries, so no other
-//   thread and no other block touches them). The B operands whose depth runs
-//   across rows (items for ds, sessions for di) are read as two 16-bit values
-//   a register. 107,776 bytes of shared memory at D = 128.
+//   registers (warps 4 x 2: BM / 4 rows x D / 2), di += P^T s (warps 4 x 2:
+//   16 item rows x D / 2, at D = 256 in two passes of D / 4 columns so that
+//   ds and di together stay 96 f32 registers a thread) read from and written
+//   back to the block's own f32 di partial rows in device memory (each thread
+//   its own entries, so no other thread and no other block touches them). The
+//   B operands whose depth runs across rows (items for ds, sessions for di)
+//   are read as two 16-bit values a register. 50,432 / 107,776 / 121,088.
 // - Kernel 12: kernel 7's kernel and grid in its `kZ` form.
 // - Kernels 10, 13 and 7's ds launch: one kernel in three forms on the f32
 //   split ds kernel's grid (ops/softmax_lse.py `split_bwd_plan`: block (x, y)
@@ -90,17 +95,20 @@
 //   f32 ds partial of (chunk, session tile) that the caller sums in order;
 //   stepping (7's ds launch), the step's sum is rounded to bf16 and added to
 //   the partial in device memory at each step's end (each thread its own
-//   entries). 90,368 bytes at D = 128.
+//   entries). 33,024 / 90,368 / 111,872.
 // - Kernels 14 and 7's di launch: kernel 11's grid and ring (block x owns the
 //   64-row item tile x, walks every session tile) without its staged s *
 //   dlse tile: pw rounded once into [item][session], di += pw^T s in
-//   registers, written once. 106,496 bytes at D = 128.
-// - Kernel 11: block x owns the 64-row item tile x and walks every 128-row
-//   session tile through a ring of two: the logits (product 1), p rounded to
-//   bf16 into [item][session], the session tile times dlse rounded to bf16
-//   into a third tile, and di += p^T (s * dlse) (warps 4 x 2: 16 item rows x
-//   D / 2) in registers; it writes its f32 di rows once. N / 64 blocks.
-//   140,544 bytes at D = 128.
+//   registers, written once. 34,816 / 106,496 / 111,616.
+// - Kernel 11: block x owns the 64-row item tile x and walks every session
+//   tile through a ring of two: the logits (product 1), p rounded to bf16
+//   into [item][session], the session tile times dlse rounded to bf16 into a
+//   third tile, and di += p^T (s * dlse) (warps 4 x 2: 16 item rows x D / 2)
+//   in registers; it writes its f32 di rows once. N / 64 blocks. 40,192 /
+//   140,544 / 145,152 (with 128-row session tiles it would need 255,232 at D
+//   = 256, over the block's limit).
+// The session tile's size changes no sum: ds sums per row over item tiles,
+// di per item row over session rows 16 at a time in order, as at 128 rows.
 //
 // Bound on an H100 at the training shape M = 51,200, N = 15,872, D = 128:
 // kernels 6 and 8 are one logit product, 2 M N D = 208 GFLOP, 0.21 ms at 989
@@ -108,13 +116,16 @@
 // and 9 are three, 624 GFLOP, 0.63 ms, with 0.24 GB of inputs and partials
 // (0.07 ms); kernels 10 and 11 two each, 0.42 ms, and so are each of 7's two
 // launches and kernels 13 and 14 (kernel 12 three, as 7), at 196,608 items
-// 5.2 ms each (2 x 2.58 TFLOP). At a (2, 2) mesh's shard
-// (25,600 x 7,936) each is a quarter of that. What bounds them as written is
-// issue and latency: `mma.sync` (not `wgmma`), one block of 8 warps per SM for
-// the gradient kernels, the exps, the 16-bit reads of the transposed
-// operands and kernel 7 / 9's di read-modify-write in device memory;
-// chip_smoke.py's `bf16` and `bf16 mesh` lines print their times beside
-// these bounds.
+// 5.2 ms each (2 x 2.58 TFLOP). At D = 256 each product doubles (0.42 ms a
+// product). At D = 16 the products take 0.026 ms and the M N = 8.1e8 exps
+// bound every form instead: 0.19 ms at the SFUs' 16 a clock a
+// multiprocessor (132 x 16 x 1.98 GHz). At a (2, 2) mesh's shard (25,600 x
+// 7,936) each is a quarter of that. What bounds them as written is issue and
+// latency: `mma.sync` (not `wgmma`), one block of 8 warps per SM for the
+// gradient kernels, the exps, the 16-bit reads of the transposed operands
+// and kernel 7 / 9's di read-modify-write in device memory; chip_smoke.py's
+// `bf16`, `bf16 mesh` and `bf16 wide` lines print their times beside these
+// bounds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,10 +139,15 @@ namespace {
 #include "tc_tile.cuh"
 #include "bf16_tile.cuh"
 
-constexpr int kBM = 128;  // session rows per tile
+constexpr int kBM = 128;  // session rows per tile of kernels 6 and 8
 constexpr int kBN = 64;   // item rows per tile
 constexpr int kThreads = 256;
 constexpr float kNegBig = -1e30f;
+
+// session rows per tile of the gradient kernels (7, 9-14) at width D: 64 at D =
+// 256, where a warp's ds slice of 32 rows would take 128 f32 registers a thread
+// and kernel 11's tiles 236,544 bytes of shared memory; 128 below
+__host__ __device__ constexpr int grad_bm(int D) { return D > 128 ? 64 : 128; }
 
 // ----------------------------------------------------------------- kernel 6
 
@@ -271,7 +287,6 @@ __global__ void __launch_bounds__(kThreads)
 // ------------------------------------------------------- kernels 7 and 9
 
 constexpr int kPP = bt::pitch(kBN);  // the probability tile [session][item]
-constexpr int kPTP = bt::pitch(kBM);  // its transpose [item][session]
 
 // The forms of the gradient kernels. kCE (kernel 7): z = row_a, coeff =
 // row_b, labels y, pw = exp(logit - z) - coeff [item == y]. kLse (kernels 9
@@ -294,14 +309,14 @@ __device__ __forceinline__ float weight(float logit, float a, float b, long long
   return item >= n_end ? 0.f : pw;
 }
 
-// the row vectors of session rows [row0, row0 + 128) into shared memory,
-// threads 0..127 one row each: a row past M gets row_a = +inf and row_b = 0
+// the row vectors of session rows [row0, row0 + BM) into shared memory,
+// threads 0..BM-1 one row each: a row past M gets row_a = +inf and row_b = 0
 // (it contributes nothing) and label -1; kZ reads no row_b, only kCE labels
-template <int F>
+template <int F, int BM>
 __device__ __forceinline__ void load_rows(float* a_dst, float* b_dst, long long* y_dst, const float* __restrict__ row_a,
                                           const float* __restrict__ row_b, const long long* __restrict__ y,
                                           long long row0, long long M) {
-  if (threadIdx.x < kBM) {
+  if (threadIdx.x < BM) {
     const long long row = row0 + threadIdx.x;
     const bool ok = row < M;
     a_dst[threadIdx.x] = ok ? row_a[row] : INFINITY;
@@ -310,15 +325,15 @@ __device__ __forceinline__ void load_rows(float* a_dst, float* b_dst, long long*
   }
 }
 
-template <int D>
+template <int D, int BM = grad_bm(D)>
 struct CeSmem {
-  __nv_bfloat16 s[kBM * bt::pitch(D)];
+  __nv_bfloat16 s[BM * bt::pitch(D)];
   __nv_bfloat16 items[2][kBN * bt::pitch(D)];
-  __nv_bfloat16 p[kBM * kPP];
-  __nv_bfloat16 pt[kBN * kPTP];
-  float z[kBM];
-  float coeff[kBM];
-  long long y[kBM];
+  __nv_bfloat16 p[BM * kPP];
+  __nv_bfloat16 pt[kBN * bt::pitch(BM)];  // the transpose [item][session]
+  float z[BM];
+  float coeff[BM];
+  long long y[BM];
   float bias[kBN];
 };
 
@@ -332,27 +347,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   CeSmem<D>& sm = *reinterpret_cast<CeSmem<D>*>(smem_raw);
   constexpr int P = bt::pitch(D);
+  constexpr int BM = grad_bm(D), PTP = bt::pitch(BM);
+  constexpr int MF = BM / 64;  // 16-row fragments of a warp's BM / 4 session rows
   constexpr int kNF = D / 16;  // 8-column fragments of a warp's D / 2 columns of ds or di
+  constexpr int kDiPasses = D > 128 ? 2 : 1;  // di's columns in passes, so that ds and di fit the registers
+  constexpr int kDiNF = kNF / kDiPasses;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr = warp >> 1, wc = warp & 1;
   const long long n_begin = (long long)blockIdx.x * chunk_rows;
   const long long n_end = n_begin + chunk_rows < N ? n_begin + chunk_rows : N;
   const int n_tiles = (int)((n_end - n_begin + kBN - 1) / kBN);
-  const long long m_tiles = (M + kBM - 1) / kBM;
+  const long long m_tiles = (M + BM - 1) / BM;
   const long long st_begin = (long long)blockIdx.y * tiles_per_group;
   const long long st_end = st_begin + tiles_per_group < m_tiles ? st_begin + tiles_per_group : m_tiles;
   float* __restrict__ di_mine = di_part + (long long)blockIdx.y * N * D;
 
   for (long long st = st_begin; st < st_end; ++st) {
-    const long long row0 = st * kBM;
+    const long long row0 = st * BM;
     __syncthreads();  // the previous session tile's last pair is done with every tile
-    bt::stage_async<D, kBM, kThreads>(sm.s, s, D, row0, M);
+    bt::stage_async<D, BM, kThreads>(sm.s, s, D, row0, M);
     bt::stage_async<D, kBN, kThreads>(sm.items[0], items, D, n_begin, n_end);
     tc::cp_commit();
-    load_rows<F>(sm.z, sm.coeff, sm.y, z, coeff, y, row0, M);
-    float ds[2][kNF][4];
+    load_rows<F, BM>(sm.z, sm.coeff, sm.y, z, coeff, y, row0, M);
+    float ds[MF][kNF][4];
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
+    for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
       for (int nf = 0; nf < kNF; ++nf)
 #pragma unroll
@@ -371,104 +390,108 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();
       const __nv_bfloat16* tile = sm.items[it & 1];
 
-      // product 1: the logits of rows 32 wr + [0, 32), items 32 wc + [0, 32)
-      float acc[2][4][4];
+      // product 1: the logits of rows BM / 4 wr + [0, BM / 4), items 32 wc + [0, 32)
+      float acc[MF][4][4];
 #pragma unroll
-      for (int mf = 0; mf < 2; ++mf)
+      for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
         for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
 #pragma unroll
       for (int k = 0; k < D; k += 16) {
-        uint32_t a[2][4], b[4][2];
+        uint32_t a[MF][4], b[4][2];
 #pragma unroll
-        for (int mf = 0; mf < 2; ++mf) bt::frag_a<P>(sm.s, 32 * wr + 16 * mf, k, a[mf]);
+        for (int mf = 0; mf < MF; ++mf) bt::frag_a<P>(sm.s, (BM / 4) * wr + 16 * mf, k, a[mf]);
 #pragma unroll
         for (int nf = 0; nf < 4; ++nf) bt::frag_b<P>(tile, 32 * wc + 8 * nf, k, b[nf]);
 #pragma unroll
-        for (int mf = 0; mf < 2; ++mf)
+        for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
           for (int nf = 0; nf < 4; ++nf) bt::mma(acc[mf][nf], a[mf], b[nf]);
       }
       // the probability tile in f32 (kCE: the label term; kLse: the bias and
       // the cotangent), the tail, then bf16
 #pragma unroll
-      for (int mf = 0; mf < 2; ++mf)
+      for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
         for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int r = 32 * wr + 16 * mf + g + 8 * (e >> 1);
+            const int r = (BM / 4) * wr + 16 * mf + g + 8 * (e >> 1);
             const int c = 32 * wc + 8 * nf + 2 * t + (e & 1);
             const float pw = weight<F>(acc[mf][nf][e], sm.z[r], sm.coeff[r], F == kCE ? sm.y[r] : -1,
                                        F == kLse ? sm.bias[c] : 0.f, item0 + c, n_end);
             const __nv_bfloat16 pb = __float2bfloat16_rn(pw);
             sm.p[r * kPP + c] = pb;
-            sm.pt[c * kPTP + r] = pb;
+            sm.pt[c * PTP + r] = pb;
           }
       __syncthreads();
 
-      // product 2: ds (rows 32 wr + [0, 32), columns D / 2 wc + [0, D / 2)) += P items
+      // product 2: ds (rows BM / 4 wr + [0, BM / 4), columns D / 2 wc + [0, D / 2)) += P items
 #pragma unroll
       for (int k = 0; k < kBN; k += 16) {
-        uint32_t a[2][4];
+        uint32_t a[MF][4];
 #pragma unroll
-        for (int mf = 0; mf < 2; ++mf) bt::frag_a<kPP>(sm.p, 32 * wr + 16 * mf, k, a[mf]);
+        for (int mf = 0; mf < MF; ++mf) bt::frag_a<kPP>(sm.p, (BM / 4) * wr + 16 * mf, k, a[mf]);
 #pragma unroll
         for (int nf = 0; nf < kNF; ++nf) {
           uint32_t b[2];
           bt::frag_b_t<P>(tile, k, (D / 2) * wc + 8 * nf, b);
 #pragma unroll
-          for (int mf = 0; mf < 2; ++mf) bt::mma(ds[mf][nf], a[mf], b);
+          for (int mf = 0; mf < MF; ++mf) bt::mma(ds[mf][nf], a[mf], b);
         }
       }
 
-      // product 3: di (item rows 16 wr + [0, 16), columns D / 2 wc + [0, D / 2)) += P^T s, onto the
-      // block's partial rows (first session tile of the group: from zero)
-      float di[kNF][4];
+      // product 3: di (item rows 16 wr + [0, 16), columns D / 2 wc + [0, D / 2), in kDiPasses passes) += P^T s,
+      // onto the block's partial rows (first session tile of the group: from zero)
       const long long di_row = item0 + 16 * wr + g;
 #pragma unroll
-      for (int nf = 0; nf < kNF; ++nf) {
-        const int col = (D / 2) * wc + 8 * nf + 2 * t;
+      for (int pass = 0; pass < kDiPasses; ++pass) {
+        const int col0 = (D / 2) * wc + 8 * kDiNF * pass;
+        float di[kDiNF][4];
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          float2 v = make_float2(0.f, 0.f);
-          if (st != st_begin && di_row + 8 * hh < n_end)
-            v = *reinterpret_cast<const float2*>(di_mine + (di_row + 8 * hh) * D + col);
-          di[nf][2 * hh] = v.x;
-          di[nf][2 * hh + 1] = v.y;
+        for (int nf = 0; nf < kDiNF; ++nf) {
+          const int col = col0 + 8 * nf + 2 * t;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float2 v = make_float2(0.f, 0.f);
+            if (st != st_begin && di_row + 8 * hh < n_end)
+              v = *reinterpret_cast<const float2*>(di_mine + (di_row + 8 * hh) * D + col);
+            di[nf][2 * hh] = v.x;
+            di[nf][2 * hh + 1] = v.y;
+          }
         }
-      }
 #pragma unroll
-      for (int k = 0; k < kBM; k += 16) {
-        uint32_t a[4];
-        bt::frag_a<kPTP>(sm.pt, 16 * wr, k, a);
+        for (int k = 0; k < BM; k += 16) {
+          uint32_t a[4];
+          bt::frag_a<PTP>(sm.pt, 16 * wr, k, a);
 #pragma unroll
-        for (int nf = 0; nf < kNF; ++nf) {
-          uint32_t b[2];
-          bt::frag_b_t<P>(sm.s, k, (D / 2) * wc + 8 * nf, b);
-          bt::mma(di[nf], a, b);
+          for (int nf = 0; nf < kDiNF; ++nf) {
+            uint32_t b[2];
+            bt::frag_b_t<P>(sm.s, k, col0 + 8 * nf, b);
+            bt::mma(di[nf], a, b);
+          }
         }
-      }
 #pragma unroll
-      for (int nf = 0; nf < kNF; ++nf) {
-        const int col = (D / 2) * wc + 8 * nf + 2 * t;
+        for (int nf = 0; nf < kDiNF; ++nf) {
+          const int col = col0 + 8 * nf + 2 * t;
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-          if (di_row + 8 * hh < n_end)
-            *reinterpret_cast<float2*>(di_mine + (di_row + 8 * hh) * D + col) =
-                make_float2(di[nf][2 * hh], di[nf][2 * hh + 1]);
+          for (int hh = 0; hh < 2; ++hh)
+            if (di_row + 8 * hh < n_end)
+              *reinterpret_cast<float2*>(di_mine + (di_row + 8 * hh) * D + col) =
+                  make_float2(di[nf][2 * hh], di[nf][2 * hh + 1]);
+        }
       }
       __syncthreads();  // P, P^T and this ring slot are consumed
     }
 
     // the ds partial of (item chunk, session tile): bf16 or f32
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
+    for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const long long row = row0 + 32 * wr + 16 * mf + g + 8 * hh;
+        const long long row = row0 + (BM / 4) * wr + 16 * mf + g + 8 * hh;
         if (row >= M) continue;
         const long long base = ((long long)blockIdx.x * M + row) * D;
 #pragma unroll
@@ -486,15 +509,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------- the split ds kernels: 10, 7's ds launch and 13
 
-template <int D>
+template <int D, int BM = grad_bm(D)>
 struct DsSmem {
-  __nv_bfloat16 s[kBM * bt::pitch(D)];
+  __nv_bfloat16 s[BM * bt::pitch(D)];
   __nv_bfloat16 items[2][kBN * bt::pitch(D)];
-  __nv_bfloat16 p[kBM * kPP];
-  float row_a[kBM];  // lse (kLse) or z
-  float row_b[kBM];  // dlse (kLse) or coeff (kCE)
-  long long y[kBM];  // kCE: the labels
-  float bias[kBN];   // kLse: the bias of the item tile being multiplied
+  __nv_bfloat16 p[BM * kPP];
+  float row_a[BM];  // lse (kLse) or z
+  float row_b[BM];  // dlse (kLse) or coeff (kCE)
+  long long y[BM];  // kCE: the labels
+  float bias[kBN];  // kLse: the bias of the item tile being multiplied
 };
 
 // Block (x, y) owns session tile x and item chunk y. With step_tiles > 0 the
@@ -511,21 +534,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DsSmem<D>& sm = *reinterpret_cast<DsSmem<D>*>(smem_raw);
   constexpr int P = bt::pitch(D);
+  constexpr int BM = grad_bm(D);
+  constexpr int MF = BM / 64;  // 16-row fragments of a warp's BM / 4 session rows
   constexpr int kNF = D / 16;  // 8-column fragments of a warp's D / 2 columns of ds
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr = warp >> 1, wc = warp & 1;
-  const long long row0 = (long long)blockIdx.x * kBM;
+  const long long row0 = (long long)blockIdx.x * BM;
   const long long n_begin = (long long)blockIdx.y * chunk_rows;
   const long long n_end = n_begin + chunk_rows < N ? n_begin + chunk_rows : N;
   const int n_tiles = (int)((n_end - n_begin + kBN - 1) / kBN);
 
-  bt::stage_async<D, kBM, kThreads>(sm.s, s, D, row0, M);
+  bt::stage_async<D, BM, kThreads>(sm.s, s, D, row0, M);
   bt::stage_async<D, kBN, kThreads>(sm.items[0], items, D, n_begin, n_end);
   tc::cp_commit();
-  load_rows<F>(sm.row_a, sm.row_b, sm.y, row_a, row_b, y, row0, M);
-  float ds[2][kNF][4];
+  load_rows<F, BM>(sm.row_a, sm.row_b, sm.y, row_a, row_b, y, row0, M);
+  float ds[MF][kNF][4];
 #pragma unroll
-  for (int mf = 0; mf < 2; ++mf)
+  for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
     for (int nf = 0; nf < kNF; ++nf)
 #pragma unroll
@@ -545,34 +570,34 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     const __nv_bfloat16* tile = sm.items[it & 1];
 
-    // product 1: the logits of rows 32 wr + [0, 32), items 32 wc + [0, 32)
-    float acc[2][4][4];
+    // product 1: the logits of rows BM / 4 wr + [0, BM / 4), items 32 wc + [0, 32)
+    float acc[MF][4][4];
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
+    for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
 #pragma unroll
     for (int k = 0; k < D; k += 16) {
-      uint32_t a[2][4], b[4][2];
+      uint32_t a[MF][4], b[4][2];
 #pragma unroll
-      for (int mf = 0; mf < 2; ++mf) bt::frag_a<P>(sm.s, 32 * wr + 16 * mf, k, a[mf]);
+      for (int mf = 0; mf < MF; ++mf) bt::frag_a<P>(sm.s, (BM / 4) * wr + 16 * mf, k, a[mf]);
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf) bt::frag_b<P>(tile, 32 * wc + 8 * nf, k, b[nf]);
 #pragma unroll
-      for (int mf = 0; mf < 2; ++mf)
+      for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
         for (int nf = 0; nf < 4; ++nf) bt::mma(acc[mf][nf], a[mf], b[nf]);
     }
     // pw in f32, 0 past N, then bf16 (kLse: :220-231; kCE: :672-676; kZ: :770)
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
+    for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int r = 32 * wr + 16 * mf + g + 8 * (e >> 1);
+          const int r = (BM / 4) * wr + 16 * mf + g + 8 * (e >> 1);
           const int c = 32 * wc + 8 * nf + 2 * t + (e & 1);
           const float pw = weight<F>(acc[mf][nf][e], sm.row_a[r], sm.row_b[r], F == kCE ? sm.y[r] : -1,
                                      F == kLse ? sm.bias[c] : 0.f, item0 + c, n_end);
@@ -580,18 +605,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
     __syncthreads();
 
-    // product 2: ds (rows 32 wr + [0, 32), columns D / 2 wc + [0, D / 2)) += P items
+    // product 2: ds (rows BM / 4 wr + [0, BM / 4), columns D / 2 wc + [0, D / 2)) += P items
 #pragma unroll
     for (int k = 0; k < kBN; k += 16) {
-      uint32_t a[2][4];
+      uint32_t a[MF][4];
 #pragma unroll
-      for (int mf = 0; mf < 2; ++mf) bt::frag_a<kPP>(sm.p, 32 * wr + 16 * mf, k, a[mf]);
+      for (int mf = 0; mf < MF; ++mf) bt::frag_a<kPP>(sm.p, (BM / 4) * wr + 16 * mf, k, a[mf]);
 #pragma unroll
       for (int nf = 0; nf < kNF; ++nf) {
         uint32_t b[2];
         bt::frag_b_t<P>(tile, k, (D / 2) * wc + 8 * nf, b);
 #pragma unroll
-        for (int mf = 0; mf < 2; ++mf) bt::mma(ds[mf][nf], a[mf], b);
+        for (int mf = 0; mf < MF; ++mf) bt::mma(ds[mf][nf], a[mf], b);
       }
     }
     __syncthreads();  // P and this ring slot are consumed
@@ -600,10 +625,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     // of (item chunk, session tile), each thread its own entries
     if (it + 1 < n_tiles && (step_tiles == 0 || (it + 1) % step_tiles != 0)) continue;
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
+    for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const long long row = row0 + 32 * wr + 16 * mf + g + 8 * hh;
+        const long long row = row0 + (BM / 4) * wr + 16 * mf + g + 8 * hh;
         if (row >= M) continue;
         float* out = ds_part + ((long long)blockIdx.y * M + row) * D;
 #pragma unroll
@@ -619,7 +644,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
+    for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
       for (int nf = 0; nf < kNF; ++nf)
 #pragma unroll
@@ -630,17 +655,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------- the split di kernels: 7's di launch and 14
 
-template <int D>
+template <int D, int BM = grad_bm(D)>
 struct ZDiSmem {
   __nv_bfloat16 items[kBN * bt::pitch(D)];
-  __nv_bfloat16 s[2][kBM * bt::pitch(D)];
-  __nv_bfloat16 pt[kBN * kPTP];  // pw rounded to bf16, [item][session]
-  float z[kBM];
-  float coeff[kBM];
-  long long y[kBM];
+  __nv_bfloat16 s[2][BM * bt::pitch(D)];
+  __nv_bfloat16 pt[kBN * bt::pitch(BM)];  // pw rounded to bf16, [item][session]
+  float z[BM];
+  float coeff[BM];
+  long long y[BM];
 };
 
-// Block x owns the 64-row item tile x and walks every 128-row session tile
+// Block x owns the 64-row item tile x and walks every session tile
 // through a ring of two: pw (form kCE or kZ) rounded to bf16 once, di += pw^T
 // s in f32 registers, written once.
 template <int D, int F>
@@ -651,14 +676,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   ZDiSmem<D>& sm = *reinterpret_cast<ZDiSmem<D>*>(smem_raw);
   constexpr int P = bt::pitch(D);
+  constexpr int BM = grad_bm(D), PTP = bt::pitch(BM);
+  constexpr int MF = BM / 64;  // 16-row fragments of a warp's BM / 4 session rows
   constexpr int kNF = D / 16;  // 8-column fragments of a warp's D / 2 columns of di
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr = warp >> 1, wc = warp & 1;
   const long long item0 = (long long)blockIdx.x * kBN;
-  const long long m_tiles = (M + kBM - 1) / kBM;
+  const long long m_tiles = (M + BM - 1) / BM;
 
   bt::stage_async<D, kBN, kThreads>(sm.items, items, D, item0, N);
-  bt::stage_async<D, kBM, kThreads>(sm.s[0], s, D, 0, M);
+  bt::stage_async<D, BM, kThreads>(sm.s[0], s, D, 0, M);
   tc::cp_commit();
   float di[kNF][4];
 #pragma unroll
@@ -667,59 +694,59 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int e = 0; e < 4; ++e) di[nf][e] = 0.f;
 
   for (long long st = 0; st < m_tiles; ++st) {
-    const long long row0 = st * kBM;
+    const long long row0 = st * BM;
     if (st + 1 < m_tiles) {
-      bt::stage_async<D, kBM, kThreads>(sm.s[(st + 1) & 1], s, D, row0 + kBM, M);
+      bt::stage_async<D, BM, kThreads>(sm.s[(st + 1) & 1], s, D, row0 + BM, M);
       tc::cp_commit();
       tc::cp_wait<1>();
     } else {
       tc::cp_wait<0>();
     }
-    load_rows<F>(sm.z, sm.coeff, sm.y, z, coeff, y, row0, M);
+    load_rows<F, BM>(sm.z, sm.coeff, sm.y, z, coeff, y, row0, M);
     __syncthreads();
     const __nv_bfloat16* tile = sm.s[st & 1];
 
-    // product 1: the logits of session rows 32 wr + [0, 32), items 32 wc + [0, 32)
-    float acc[2][4][4];
+    // product 1: the logits of session rows BM / 4 wr + [0, BM / 4), items 32 wc + [0, 32)
+    float acc[MF][4][4];
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
+    for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
 #pragma unroll
     for (int k = 0; k < D; k += 16) {
-      uint32_t a[2][4], b[4][2];
+      uint32_t a[MF][4], b[4][2];
 #pragma unroll
-      for (int mf = 0; mf < 2; ++mf) bt::frag_a<P>(tile, 32 * wr + 16 * mf, k, a[mf]);
+      for (int mf = 0; mf < MF; ++mf) bt::frag_a<P>(tile, (BM / 4) * wr + 16 * mf, k, a[mf]);
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf) bt::frag_b<P>(sm.items, 32 * wc + 8 * nf, k, b[nf]);
 #pragma unroll
-      for (int mf = 0; mf < 2; ++mf)
+      for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
         for (int nf = 0; nf < 4; ++nf) bt::mma(acc[mf][nf], a[mf], b[nf]);
     }
     // pw in f32 (kCE: the label term inside the tile), 0 past N, rounded to bf16 once (:672-676, :786), as
     // [item][session]
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
+    for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int r = 32 * wr + 16 * mf + g + 8 * (e >> 1);
+          const int r = (BM / 4) * wr + 16 * mf + g + 8 * (e >> 1);
           const int c = 32 * wc + 8 * nf + 2 * t + (e & 1);
           const float pw = weight<F>(acc[mf][nf][e], sm.z[r], sm.coeff[r], F == kCE ? sm.y[r] : -1, 0.f,
                                      item0 + c, N);
-          sm.pt[c * kPTP + r] = __float2bfloat16_rn(pw);
+          sm.pt[c * PTP + r] = __float2bfloat16_rn(pw);
         }
     __syncthreads();
 
     // product 3: di (item rows 16 wr + [0, 16), columns D / 2 wc + [0, D / 2)) += pw^T s
 #pragma unroll
-    for (int k = 0; k < kBM; k += 16) {
+    for (int k = 0; k < BM; k += 16) {
       uint32_t a[4];
-      bt::frag_a<kPTP>(sm.pt, 16 * wr, k, a);
+      bt::frag_a<PTP>(sm.pt, 16 * wr, k, a);
 #pragma unroll
       for (int nf = 0; nf < kNF; ++nf) {
         uint32_t b[2];
@@ -744,14 +771,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------------------------ kernel 11
 
-template <int D>
+template <int D, int BM = grad_bm(D)>
 struct DiSmem {
   __nv_bfloat16 items[kBN * bt::pitch(D)];
-  __nv_bfloat16 s[2][kBM * bt::pitch(D)];
-  __nv_bfloat16 ws[kBM * bt::pitch(D)];  // the session tile times dlse, rounded to bf16
-  __nv_bfloat16 pt[kBN * kPTP];          // p rounded to bf16, [item][session]
-  float lse[kBM];
-  float dlse[kBM];
+  __nv_bfloat16 s[2][BM * bt::pitch(D)];
+  __nv_bfloat16 ws[BM * bt::pitch(D)];     // the session tile times dlse, rounded to bf16
+  __nv_bfloat16 pt[kBN * bt::pitch(BM)];  // p rounded to bf16, [item][session]
+  float lse[BM];
+  float dlse[BM];
   float bias[kBN];
 };
 
@@ -763,14 +790,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DiSmem<D>& sm = *reinterpret_cast<DiSmem<D>*>(smem_raw);
   constexpr int P = bt::pitch(D);
+  constexpr int BM = grad_bm(D), PTP = bt::pitch(BM);
+  constexpr int MF = BM / 64;  // 16-row fragments of a warp's BM / 4 session rows
   constexpr int kNF = D / 16;  // 8-column fragments of a warp's D / 2 columns of di
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr = warp >> 1, wc = warp & 1;
   const long long item0 = (long long)blockIdx.x * kBN;
-  const long long m_tiles = (M + kBM - 1) / kBM;
+  const long long m_tiles = (M + BM - 1) / BM;
 
   bt::stage_async<D, kBN, kThreads>(sm.items, items, D, item0, N);
-  bt::stage_async<D, kBM, kThreads>(sm.s[0], s, D, 0, M);
+  bt::stage_async<D, BM, kThreads>(sm.s[0], s, D, 0, M);
   tc::cp_commit();
   load_bias(sm.bias, bias, item0, N);  // read after the first barrier
   float di[kNF][4];
@@ -780,15 +809,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int e = 0; e < 4; ++e) di[nf][e] = 0.f;
 
   for (long long st = 0; st < m_tiles; ++st) {
-    const long long row0 = st * kBM;
+    const long long row0 = st * BM;
     if (st + 1 < m_tiles) {
-      bt::stage_async<D, kBM, kThreads>(sm.s[(st + 1) & 1], s, D, row0 + kBM, M);
+      bt::stage_async<D, BM, kThreads>(sm.s[(st + 1) & 1], s, D, row0 + BM, M);
       tc::cp_commit();
       tc::cp_wait<1>();
     } else {
       tc::cp_wait<0>();
     }
-    if (threadIdx.x < kBM) {
+    if (threadIdx.x < BM) {
       const long long row = row0 + threadIdx.x;
       sm.lse[threadIdx.x] = row < M ? lse[row] : INFINITY;
       sm.dlse[threadIdx.x] = row < M ? dlse[row] : 0.f;
@@ -797,7 +826,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const __nv_bfloat16* tile = sm.s[st & 1];
 
     // s * dlse in f32, rounded to bf16 (:281-282); rows past M are zeros times 0
-    for (int idx = threadIdx.x; idx < kBM * (D / 2); idx += kThreads) {
+    for (int idx = threadIdx.x; idx < BM * (D / 2); idx += kThreads) {
       const int r = idx / (D / 2);
       const int c = 2 * (idx - r * (D / 2));
       const uint32_t v = bt::ld2(tile + r * P + c);
@@ -806,46 +835,46 @@ __global__ void __launch_bounds__(kThreads, 1)
       *reinterpret_cast<uint32_t*>(sm.ws + r * P + c) = bt::pack(x0 * sm.dlse[r], x1 * sm.dlse[r]);
     }
 
-    // product 1: the logits of session rows 32 wr + [0, 32), items 32 wc + [0, 32)
-    float acc[2][4][4];
+    // product 1: the logits of session rows BM / 4 wr + [0, BM / 4), items 32 wc + [0, 32)
+    float acc[MF][4][4];
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
+    for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.f;
 #pragma unroll
     for (int k = 0; k < D; k += 16) {
-      uint32_t a[2][4], b[4][2];
+      uint32_t a[MF][4], b[4][2];
 #pragma unroll
-      for (int mf = 0; mf < 2; ++mf) bt::frag_a<P>(tile, 32 * wr + 16 * mf, k, a[mf]);
+      for (int mf = 0; mf < MF; ++mf) bt::frag_a<P>(tile, (BM / 4) * wr + 16 * mf, k, a[mf]);
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf) bt::frag_b<P>(sm.items, 32 * wc + 8 * nf, k, b[nf]);
 #pragma unroll
-      for (int mf = 0; mf < 2; ++mf)
+      for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
         for (int nf = 0; nf < 4; ++nf) bt::mma(acc[mf][nf], a[mf], b[nf]);
     }
     // p = exp((logit + bias) - lse) in f32, 0 past N, then bf16 (:279-280), as [item][session]
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
+    for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int r = 32 * wr + 16 * mf + g + 8 * (e >> 1);
+          const int r = (BM / 4) * wr + 16 * mf + g + 8 * (e >> 1);
           const int c = 32 * wc + 8 * nf + 2 * t + (e & 1);
           float p = expf((acc[mf][nf][e] + sm.bias[c]) - sm.lse[r]);
           if (item0 + c >= N) p = 0.f;
-          sm.pt[c * kPTP + r] = __float2bfloat16_rn(p);
+          sm.pt[c * PTP + r] = __float2bfloat16_rn(p);
         }
     __syncthreads();
 
     // product 3: di (item rows 16 wr + [0, 16), columns D / 2 wc + [0, D / 2)) += p^T (s * dlse)
 #pragma unroll
-    for (int k = 0; k < kBM; k += 16) {
+    for (int k = 0; k < BM; k += 16) {
       uint32_t a[4];
-      bt::frag_a<kPTP>(sm.pt, 16 * wr, k, a);
+      bt::frag_a<PTP>(sm.pt, 16 * wr, k, a);
 #pragma unroll
       for (int nf = 0; nf < kNF; ++nf) {
         uint32_t b[2];
@@ -870,6 +899,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---------------------------------------------------------------- launches
 
+// fn(std::integral_constant<int, D>{}) for D in {16, 32, 64, 128, 256}, else cudaErrorInvalidValue
+template <class Fn>
+int by_width(int D, Fn fn) {
+  switch (D) {
+    case 16: return fn(std::integral_constant<int, 16>{});
+    case 32: return fn(std::integral_constant<int, 32>{});
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+    case 256: return fn(std::integral_constant<int, 256>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <int D, bool kBias>
 int launch_lse(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* bias, float* m_part, float* l_part,
                long long M, long long N, long long chunk_rows, cudaStream_t stream) {
@@ -888,7 +930,7 @@ int launch_ce(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* z
               const float* coeff, const float* bias, void* ds_part, float* di_part, long long M, long long N,
               long long chunk_rows, long long tiles_per_group, long long n_groups, int bf16_partials,
               cudaStream_t stream) {
-  const long long m_tiles = (M + kBM - 1) / kBM;
+  const long long m_tiles = (M + grad_bm(D) - 1) / grad_bm(D);
   if (tiles_per_group <= 0 || (m_tiles + tiles_per_group - 1) / tiles_per_group != n_groups)
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(CeSmem<D>);
@@ -910,7 +952,7 @@ int launch_ds(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* r
   cudaError_t err =
       cudaFuncSetAttribute(split_ds_bf16_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)n_chunks);
+  const dim3 grid((unsigned)((M + grad_bm(D) - 1) / grad_bm(D)), (unsigned)n_chunks);
   split_ds_bf16_kernel<D, F><<<grid, kThreads, smem, stream>>>(s, items, row_a, y, row_b, bias, ds_part, M, N,
                                                                chunk_rows, step_tiles);
   return (int)cudaGetLastError();
@@ -926,17 +968,6 @@ int launch_split_di(const __nv_bfloat16* s, const __nv_bfloat16* items, const fl
   split_di_bf16_kernel<D, F><<<(unsigned)((N + kBN - 1) / kBN), kThreads, smem, stream>>>(s, items, z, y, coeff, di,
                                                                                            M, N);
   return (int)cudaGetLastError();
-}
-
-// fn(std::integral_constant<int, D>{}) for D in {32, 64, 128}, else cudaErrorInvalidValue
-template <class Fn>
-int by_width(int D, Fn fn) {
-  switch (D) {
-    case 32: return fn(std::integral_constant<int, 32>{});
-    case 64: return fn(std::integral_constant<int, 64>{});
-    case 128: return fn(std::integral_constant<int, 128>{});
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 template <int D>
@@ -955,7 +986,7 @@ int launch_di(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* b
 
 // Kernel 6 on bf16 (M, D) sessions and (N, D) items: f32 (n_chunks, M) max
 // and sum-of-exp partials per item chunk of chunk_rows rows (a multiple of
-// 64). D in {32, 64, 128}, rows 16-byte aligned (checked by the Python
+// 64). D in {16, 32, 64, 128, 256}, rows 16-byte aligned (checked by the Python
 // wrapper). Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int lse_partials_bf16(const void* s, const void* items, float* m_part, float* l_part, long long M,
                                  long long N, int D, long long chunk_rows, cudaStream_t stream) {
@@ -963,12 +994,9 @@ extern "C" int lse_partials_bf16(const void* s, const void* items, float* m_part
   if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
   const auto* sb = static_cast<const __nv_bfloat16*>(s);
   const auto* ib = static_cast<const __nv_bfloat16*>(items);
-  switch (D) {
-    case 32: return launch_lse<32, false>(sb, ib, nullptr, m_part, l_part, M, N, chunk_rows, stream);
-    case 64: return launch_lse<64, false>(sb, ib, nullptr, m_part, l_part, M, N, chunk_rows, stream);
-    case 128: return launch_lse<128, false>(sb, ib, nullptr, m_part, l_part, M, N, chunk_rows, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_width(D, [&](auto w) {
+    return launch_lse<decltype(w)::value, false>(sb, ib, nullptr, m_part, l_part, M, N, chunk_rows, stream);
+  });
 }
 
 // Kernel 8: kernel 6 with the f32 (N,) bias added to each logit; the same
@@ -979,12 +1007,9 @@ extern "C" int lse_bias_bf16(const void* s, const void* items, const float* bias
   if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
   const auto* sb = static_cast<const __nv_bfloat16*>(s);
   const auto* ib = static_cast<const __nv_bfloat16*>(items);
-  switch (D) {
-    case 32: return launch_lse<32, true>(sb, ib, bias, m_part, l_part, M, N, chunk_rows, stream);
-    case 64: return launch_lse<64, true>(sb, ib, bias, m_part, l_part, M, N, chunk_rows, stream);
-    case 128: return launch_lse<128, true>(sb, ib, bias, m_part, l_part, M, N, chunk_rows, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_width(D, [&](auto w) {
+    return launch_lse<decltype(w)::value, true>(sb, ib, bias, m_part, l_part, M, N, chunk_rows, stream);
+  });
 }
 
 // Kernel 7's one pass on bf16 sessions and items: ds partials (n_chunks, M, D),
@@ -1000,18 +1025,10 @@ extern "C" int ce_fused_bf16(const void* s, const void* items, const float* z, c
   if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
   const auto* sb = static_cast<const __nv_bfloat16*>(s);
   const auto* ib = static_cast<const __nv_bfloat16*>(items);
-  switch (D) {
-    case 32:
-      return launch_ce<32, kCE>(sb, ib, z, y, coeff, nullptr, ds_part, di_part, M, N, chunk_rows, tiles_per_group,
-                                n_groups, bf16_partials, stream);
-    case 64:
-      return launch_ce<64, kCE>(sb, ib, z, y, coeff, nullptr, ds_part, di_part, M, N, chunk_rows, tiles_per_group,
-                                n_groups, bf16_partials, stream);
-    case 128:
-      return launch_ce<128, kCE>(sb, ib, z, y, coeff, nullptr, ds_part, di_part, M, N, chunk_rows, tiles_per_group,
-                                 n_groups, bf16_partials, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_width(D, [&](auto w) {
+    return launch_ce<decltype(w)::value, kCE>(sb, ib, z, y, coeff, nullptr, ds_part, di_part, M, N, chunk_rows,
+                                              tiles_per_group, n_groups, bf16_partials, stream);
+  });
 }
 
 // Kernel 9: the generic lse backward in one pass, on kernel 7's grid: f32 ds
@@ -1025,18 +1042,10 @@ extern "C" int lse_bwd_fused_bf16(const void* s, const void* items, const float*
   if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
   const auto* sb = static_cast<const __nv_bfloat16*>(s);
   const auto* ib = static_cast<const __nv_bfloat16*>(items);
-  switch (D) {
-    case 32:
-      return launch_ce<32, kLse>(sb, ib, lse, nullptr, dlse, bias, ds_part, di_part, M, N, chunk_rows,
-                                 tiles_per_group, n_groups, 0, stream);
-    case 64:
-      return launch_ce<64, kLse>(sb, ib, lse, nullptr, dlse, bias, ds_part, di_part, M, N, chunk_rows,
-                                 tiles_per_group, n_groups, 0, stream);
-    case 128:
-      return launch_ce<128, kLse>(sb, ib, lse, nullptr, dlse, bias, ds_part, di_part, M, N, chunk_rows,
-                                  tiles_per_group, n_groups, 0, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_width(D, [&](auto w) {
+    return launch_ce<decltype(w)::value, kLse>(sb, ib, lse, nullptr, dlse, bias, ds_part, di_part, M, N, chunk_rows,
+                                               tiles_per_group, n_groups, 0, stream);
+  });
 }
 
 // Kernel 10: f32 ds partials (n_chunks, M, D), one per item chunk of
@@ -1061,12 +1070,9 @@ extern "C" int lse_bwd_di_bf16(const void* s, const void* items, const float* bi
   if (M <= 0 || N <= 0) return 0;
   const auto* sb = static_cast<const __nv_bfloat16*>(s);
   const auto* ib = static_cast<const __nv_bfloat16*>(items);
-  switch (D) {
-    case 32: return launch_di<32>(sb, ib, bias, lse, dlse, di, M, N, stream);
-    case 64: return launch_di<64>(sb, ib, bias, lse, dlse, di, M, N, stream);
-    case 128: return launch_di<128>(sb, ib, bias, lse, dlse, di, M, N, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_width(D, [&](auto w) {
+    return launch_di<decltype(w)::value>(sb, ib, bias, lse, dlse, di, M, N, stream);
+  });
 }
 
 // Kernel 12 on bf16 sessions and items: kernel 7's one pass in its kZ form (pw
@@ -1139,5 +1145,23 @@ extern "C" int grads_z_di_bf16(const void* s, const void* items, const float* z,
   const auto* ib = static_cast<const __nv_bfloat16*>(items);
   return by_width(D, [&](auto w) {
     return launch_split_di<decltype(w)::value, kZ>(sb, ib, z, nullptr, nullptr, di, M, N, stream);
+  });
+}
+
+// Bytes of dynamic shared memory a block of each bf16 loss kernel takes at
+// width D: kernel 0 = kernels 6 / 8, 1 = 7 / 9 / 12 (the one pass), 2 = 10 / 13
+// / 7's ds launch, 3 = 14 / 7's di launch, 4 = 11; -1 for another kernel, and
+// cudaErrorInvalidValue (1) for another D.
+extern "C" int lse_bf16_smem_bytes(int kernel, int D) {
+  return by_width(D, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    switch (kernel) {
+      case 0: return (int)sizeof(LseSmem<W>);
+      case 1: return (int)sizeof(CeSmem<W>);
+      case 2: return (int)sizeof(DsSmem<W>);
+      case 3: return (int)sizeof(ZDiSmem<W>);
+      case 4: return (int)sizeof(DiSmem<W>);
+      default: return -1;
+    }
   });
 }

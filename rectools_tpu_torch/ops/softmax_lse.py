@@ -85,9 +85,10 @@ Their twins (:func:`streaming_lse_bf16_reference`,
 :func:`softmax_grads_from_z_bf16_reference`,
 :func:`streaming_lse_bwd_bf16_reference`) multiply the bf16 values in f32,
 which is exact, so twin and card differ only in the order of f32 sums.
-The forwards without a bias other than kernel 6 (kernels 15 and 16) and D
-outside 32..128 raise ``NotImplementedError`` for bf16 inputs, on the card
-and on the CPU alike.
+They take every width of ``SUPPORTED_D``, on bf16 tiles of their own
+(:func:`_bwd_tile`; 64-row session tiles in the gradient kernels at D = 256).
+The forwards without a bias other than kernel 6 (kernels 15 and 16) raise
+``NotImplementedError`` for bf16 inputs, on the card and on the CPU alike.
 
 CPU tensors take the twins, which walk the catalog in item chunks exactly as
 the kernels walk their tiles (per-chunk partials, a running max or fixed
@@ -167,14 +168,27 @@ WINDOW1_FLOOR = 2.061e-9
 # JAX package's constant and rule).
 FUSED_BWD_PARTIALS_BUDGET = 512 * 1024 * 1024
 FUSED_BWD_CHUNK = 2048  # item rows a block of the fused backward owns
-# The gradient kernels' tile by feature width: (session rows per tile, blocks
-# of the fused kernel per multiprocessor, most item chunks of the split ds
-# kernel). D in 32..128 take the tensor-core tile (one block of up to 227 KB of
-# shared memory per multiprocessor; the split ds kernel cuts the catalog into
-# up to 4 chunks to fill its last wave), 16 and 256 the SIMT tile (two fused
-# blocks; the split ds kernel walks the whole catalog). The kernels are built
-# for the same rows and reject a grid of other session groups or item chunks.
+# The f32 gradient kernels' tile by feature width: (session rows per tile,
+# blocks of the fused kernel per multiprocessor, most item chunks of the split
+# ds kernel). D in 32..128 take the tensor-core tile (one block of up to 227 KB
+# of shared memory per multiprocessor; the split ds kernel cuts the catalog
+# into up to 4 chunks to fill its last wave), 16 and 256 the SIMT tile (two
+# fused blocks; the split ds kernel walks the whole catalog). The kernels are
+# built for the same rows and reject a grid of other session groups or item
+# chunks.
 _BWD_TILE = {d: (128, 1, 4) if 32 <= d <= 128 else (TILE, 2, 1) for d in SUPPORTED_D}
+# The bf16 gradient kernels' tile (csrc/softmax_lse_bf16.cu ``grad_bm``): one
+# block per multiprocessor and up to 4 split ds chunks at every width, 128-row
+# session tiles, 64-row ones at D = 256 (where a warp's ds slice of 32 rows
+# would take 128 f32 registers a thread).
+_BWD_TILE_BF16 = {d: (64 if d > 128 else 128, 1, 4) for d in SUPPORTED_D}
+
+
+def _bwd_tile(d: int, dtype: torch.dtype = torch.float32) -> tp.Tuple[int, int, int]:
+    """The gradient kernels' tile for towers of width ``d`` and ``dtype``: the
+    bf16 forms' own or the f32 kernels'."""
+    return (_BWD_TILE_BF16 if dtype == torch.bfloat16 else _BWD_TILE)[d]
+
 
 _SIGNATURES_BF16 = {
     # sessions, items, max partials, sum partials; M, N, D; chunk rows; stream
@@ -202,10 +216,9 @@ _SIGNATURES_BF16 = {
     "grads_z_ds_bf16": (_C,) * 4 + (_LL, _LL, _I, _LL, _LL, _C),
     # sessions, items, z, f32 di; M, N, D; stream
     "grads_z_di_bf16": (_C,) * 4 + (_LL, _LL, _I, _C),
+    # kernel (0: 6 / 8, 1: the one pass, 2: split ds, 3: split di, 4: 11), D -> bytes of shared memory a block
+    "lse_bf16_smem_bytes": (_I, _I),
 }
-# The feature widths of the bf16 kernels: the tensor-core tile's. 16 and 256
-# (the f32 SIMT tile) have no bf16 form yet.
-BF16_D = (32, 64, 128)
 # kernel 7's ds partials in bf16 for bf16 inputs: the JAX package's constant
 # and default (rectools_tpu/ops/softmax_lse.py:456-473); False stores them in f32
 BF16_DS_PARTIALS = True
@@ -316,19 +329,21 @@ def streaming_lse_bias_reference(
     return streaming_lse_partials_reference(sessions, items, chunk, row_bias)
 
 
-def split_bwd_plan(m: int, n: int, d: int, n_sms: int, step_rows: int = TILE) -> tp.Tuple[int, int]:
+def split_bwd_plan(
+    m: int, n: int, d: int, n_sms: int, step_rows: int = TILE, dtype: torch.dtype = torch.float32
+) -> tp.Tuple[int, int]:
     """(item chunks, rows per chunk) of the split ds kernels (7's ``ce_ds_f32``,
-    10, 13). On the tensor-core tile a block owns (128-row session tile, item
-    chunk), one block per multiprocessor: of 1 to ``_BWD_TILE[d][2]`` chunks
-    (no more than the 64-row item tiles) the count whose grid fills its last
-    wave best, the fewest on a tie (one block per session tile leaves 4 of 400
-    in the last wave at the training width). Each chunk writes a ds partial of
-    M · D floats whatever the catalog; the caller sums them in order. The SIMT
-    tile walks the whole catalog in one chunk. ``step_rows`` (a multiple of
-    64) rounds the rows per chunk up to a multiple of it: kernel 7's bf16 ds
-    launch rounds each 2,048-row step, which then starts where a chunk of its
-    one pass starts."""
-    tile_rows, blocks_per_sm, max_chunks = _BWD_TILE[d]
+    10, 13; ``dtype`` picks the bf16 forms' tile). On the tensor-core tiles a
+    block owns (session tile, item chunk), one block per multiprocessor: of 1
+    to ``_bwd_tile(d, dtype)[2]`` chunks (no more than the 64-row item tiles)
+    the count whose grid fills its last wave best, the fewest on a tie (one
+    block per session tile leaves 4 of 400 in the last wave at the training
+    width). Each chunk writes a ds partial of M · D floats whatever the
+    catalog; the caller sums them in order. The f32 SIMT tile walks the whole
+    catalog in one chunk. ``step_rows`` (a multiple of 64) rounds the rows per
+    chunk up to a multiple of it: kernel 7's bf16 ds launch rounds each
+    2,048-row step, which then starts where a chunk of its one pass starts."""
+    tile_rows, blocks_per_sm, max_chunks = _bwd_tile(d, dtype)
     n_tiles = max(1, -(-n // TILE))
     m_tiles = max(1, -(-m // tile_rows))
     wave = blocks_per_sm * n_sms
@@ -351,6 +366,7 @@ def _grads_reference(
     partials: bool,
     di_terms: tp.Optional[tp.Tuple[tp.Callable[[torch.Tensor, int], torch.Tensor], torch.Tensor]] = None,
     round_steps: bool = False,
+    dtype: torch.dtype = torch.float32,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """(pw @ items, pwᵀ @ sessions) with ``pw = weights(logits, start)`` per
     step of ``chunk`` item rows. ``partials=True`` sums one ds partial per step
@@ -361,9 +377,11 @@ def _grads_reference(
     ``di_weights(logits, start)ᵀ @ rows`` instead (a split di kernel that
     rounds its own operands). ``round_steps`` rounds each step's ds term to
     bf16 before it is added (bf16 ds partials; in the split order the plan's
-    chunks then start on a step)."""
+    chunks then start on a step). ``dtype`` is the towers' dtype before the
+    twin widened them: it picks the split plan's tile."""
     m, n = sessions.shape[0], items.shape[0]
-    ds_rows = chunk if partials else split_bwd_plan(m, n, sessions.shape[1], 132, chunk if round_steps else TILE)[1]
+    step = chunk if round_steps else TILE
+    ds_rows = chunk if partials else split_bwd_plan(m, n, sessions.shape[1], 132, step, dtype)[1]
     di = torch.empty_like(items)
     ds_parts = []
     for lo in range(0, n, ds_rows):
@@ -484,7 +502,7 @@ def streaming_lse_bwd_bf16_reference(
         return probs(logits, start).to(torch.bfloat16).float()
 
     di_terms = None if partials else (rounded_probs, (s * dlse[:, None]).to(torch.bfloat16).float())
-    return _grads_reference(s, it, weights, FUSED_BWD_CHUNK, partials, di_terms)
+    return _grads_reference(s, it, weights, FUSED_BWD_CHUNK, partials, di_terms, dtype=torch.bfloat16)
 
 
 def softmax_ce_grads_from_z_bf16_reference(
@@ -513,7 +531,8 @@ def softmax_ce_grads_from_z_bf16_reference(
         cols = torch.arange(start, start + logits.shape[1], device=s.device)
         return torch.where(cols[None, :] == y[:, None], pw - coeff[:, None], pw).to(torch.bfloat16).float()
 
-    return _grads_reference(s, it, weights, FUSED_BWD_CHUNK, partials, round_steps=BF16_DS_PARTIALS)
+    return _grads_reference(s, it, weights, FUSED_BWD_CHUNK, partials, round_steps=BF16_DS_PARTIALS,
+                            dtype=torch.bfloat16)
 
 
 def softmax_grads_from_z_bf16_reference(
@@ -532,20 +551,14 @@ def softmax_grads_from_z_bf16_reference(
     def weights(logits: torch.Tensor, start: int) -> torch.Tensor:
         return torch.exp(logits - z[:, None]).to(torch.bfloat16).float()
 
-    return _grads_reference(s, it, weights, FUSED_BWD_CHUNK, partials, round_steps=partials and BF16_DS_PARTIALS)
+    return _grads_reference(s, it, weights, FUSED_BWD_CHUNK, partials, round_steps=partials and BF16_DS_PARTIALS,
+                            dtype=torch.bfloat16)
 
 
 def _bf16_operands(kernel: str, sessions: torch.Tensor, items: torch.Tensor) -> bool:
-    """Whether the towers are bf16 (a mixed pair raises); bf16 towers also
-    need a width the bf16 kernels take."""
-    if _native.same_dtype(kernel, sessions=sessions, items=items) != torch.bfloat16:
-        return False
-    if sessions.shape[-1] not in BF16_D:
-        raise NotImplementedError(
-            f"{kernel}: D = {sessions.shape[-1]} has no bf16 kernel (widths {BF16_D}; D = 16 and 256 keep the "
-            f"f32 SIMT tile) yet ({_native.BF16_ROADMAP})"
-        )
-    return True
+    """Whether the towers are bf16 (a mixed pair raises). The bf16 forms take
+    every width of ``SUPPORTED_D``; ``_check`` refuses another on the card."""
+    return _native.same_dtype(kernel, sessions=sessions, items=items) == torch.bfloat16
 
 
 def _check(kernel: str, sessions: torch.Tensor, items: torch.Tensor) -> tp.Tuple[int, int, int]:
@@ -695,14 +708,16 @@ def _lse_bf16(sessions: torch.Tensor, items: torch.Tensor, row_bias: tp.Optional
     return combine_lse_partials(m_part, l_part)
 
 
-def fused_bwd_plan(m: int, n: int, d: int, n_sms: int, ds_itemsize: int = 4) -> tp.Tuple[int, int, int]:
+def fused_bwd_plan(
+    m: int, n: int, d: int, n_sms: int, ds_itemsize: int = 4, dtype: torch.dtype = torch.float32
+) -> tp.Tuple[int, int, int]:
     """(tiles per session group, n_groups, bytes of partials) of the fused
-    backward kernels (7, 9 and 12): one block per (item chunk, session
-    group), and no more blocks than fit the multiprocessors at once, so that
-    all run in one wave (a few blocks over it and the last ones run alone:
-    twice the time). The ds partials count ``ds_itemsize`` bytes an entry (2
-    for kernel 7's bf16 partials), the di partials 4."""
-    tile_rows, blocks_per_sm, _ = _BWD_TILE[d]
+    backward kernels (7, 9 and 12) on ``dtype`` towers: one block per (item
+    chunk, session group), and no more blocks than fit the multiprocessors at
+    once, so that all run in one wave (a few blocks over it and the last ones
+    run alone: twice the time). The ds partials count ``ds_itemsize`` bytes an
+    entry (2 for kernel 7's bf16 partials), the di partials 4."""
+    tile_rows, blocks_per_sm, _ = _bwd_tile(d, dtype)
     n_chunks = max(1, -(-n // FUSED_BWD_CHUNK))
     m_tiles = max(1, -(-m // tile_rows))
     tiles_per_group = -(-m_tiles // max(1, blocks_per_sm * n_sms // n_chunks))
@@ -739,7 +754,8 @@ def _fused_or_split(
     if m == 0 or n == 0:
         return torch.zeros((m, d), device=sessions.device), torch.zeros((n, d), device=sessions.device)
     n_sms = torch.cuda.get_device_properties(sessions.device).multi_processor_count
-    tiles_per_group, n_groups, partials_bytes = fused_bwd_plan(m, n, d, n_sms, 2 if bf16_partials else 4)
+    tiles_per_group, n_groups, partials_bytes = fused_bwd_plan(m, n, d, n_sms, 2 if bf16_partials else 4,
+                                                               sessions.dtype)
     lib = _native.load("softmax_lse_bf16", _SIGNATURES_BF16) if bf16 else _native.load("softmax_lse", _SIGNATURES)
     stream = _native.current_stream_ptr(sessions.device)
     args = (sessions.data_ptr(), items.data_ptr(), *row_pointers)
@@ -759,7 +775,7 @@ def _fused_or_split(
         ds = ds_part.float().sum(dim=0) if n_chunks > 1 else ds_part[0].float()
         di = di_part.sum(dim=0) if n_groups > 1 else di_part[0]
         return ds, di
-    n_chunks, chunk_rows = split_bwd_plan(m, n, d, n_sms, ds_step_rows or TILE)
+    n_chunks, chunk_rows = split_bwd_plan(m, n, d, n_sms, ds_step_rows or TILE, sessions.dtype)
     ds_part = torch.empty((n_chunks, m, d), dtype=torch.float32, device=sessions.device)
     di = torch.empty((n, d), dtype=torch.float32, device=sessions.device)
     step = () if ds_step_rows is None else (ds_step_rows,)
@@ -773,11 +789,12 @@ def _fused_or_split(
     return (ds_part.sum(dim=0) if n_chunks > 1 else ds_part[0]), di  # a fixed-order sum of the chunks
 
 
-def _fused_on_the_card(m: int, n: int, d: int, ds_itemsize: int = 4) -> bool:
-    """Whether the card would take the fused kernel, its ds partials counted at
-    ``ds_itemsize`` bytes; the CPU twins keep that summation order, or the
-    split kernels' (132 = an H100's multiprocessors)."""
-    return fused_bwd_plan(m, n, d, 132, ds_itemsize)[2] <= FUSED_BWD_PARTIALS_BUDGET
+def _fused_on_the_card(m: int, n: int, d: int, ds_itemsize: int = 4, dtype: torch.dtype = torch.float32) -> bool:
+    """Whether the card would take the fused kernel on ``dtype`` towers, its ds
+    partials counted at ``ds_itemsize`` bytes; the CPU twins keep that
+    summation order, or the split kernels' (132 = an H100's
+    multiprocessors)."""
+    return fused_bwd_plan(m, n, d, 132, ds_itemsize, dtype)[2] <= FUSED_BWD_PARTIALS_BUDGET
 
 
 def streaming_lse_bwd(
@@ -797,7 +814,7 @@ def streaming_lse_bwd(
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
     if sessions.device.type == "cpu":
         twin = streaming_lse_bwd_bf16_reference if bf16 else streaming_lse_bwd_reference
-        return twin(sessions, items, row_bias, lse, dlse, partials=_fused_on_the_card(m, n, d))
+        return twin(sessions, items, row_bias, lse, dlse, partials=_fused_on_the_card(m, n, d, 4, sessions.dtype))
     _native.require_cuda("lse_bwd", sessions.dtype, sessions=sessions, items=items)
     _native.require_cuda_f32("lse_bwd", row_bias=row_bias, lse=lse, dlse=dlse)
     _check("lse_bwd", sessions, items)
@@ -910,7 +927,7 @@ def sharded_streaming_lse(
     gradient over the data axis in bf16: a standing divergence, ROADMAP.md
     §3)."""
     del data_axis
-    _bf16_operands("sharded_lse", sessions, items)  # one dtype, and a width with a bf16 form
+    _bf16_operands("sharded_lse", sessions, items)  # one dtype
     return _ShardedStreamingLSE.apply(sessions.contiguous(), items.contiguous(), mesh, shard_axis)
 
 
@@ -933,7 +950,7 @@ def softmax_grads_from_z(
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
     if sessions.device.type == "cpu":
         if bf16:
-            fused = _fused_on_the_card(m, n, d, _ds_itemsize(torch.bfloat16))
+            fused = _fused_on_the_card(m, n, d, _ds_itemsize(torch.bfloat16), torch.bfloat16)
             return softmax_grads_from_z_bf16_reference(sessions, items, z, partials=fused)
         return softmax_grads_from_z_reference(sessions, items, z, partials=_fused_on_the_card(m, n, d))
     if bf16:
@@ -1013,7 +1030,7 @@ def softmax_ce_grads_from_z(
     y = y.to(torch.int64).contiguous()
     if ce_takes_split_route(m, n, d, dtype):
         return _large_catalog_route(sessions, items, z, y, coeff)
-    fused = _fused_on_the_card(m, n, d, _ds_itemsize(dtype))
+    fused = _fused_on_the_card(m, n, d, _ds_itemsize(dtype), dtype)
     if not on_card and bf16:
         return softmax_ce_grads_from_z_bf16_reference(sessions, items, z, y, coeff, partials=fused)
     if not on_card:

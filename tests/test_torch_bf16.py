@@ -72,7 +72,8 @@ def _np(x) -> np.ndarray:
 # ------------------------------------------------------------------ kernel 6
 
 
-@pytest.mark.parametrize("m,n,d", [(200, 700, 32), (130, 4100, 64), (70, 2049, 128)])
+@pytest.mark.parametrize("m,n,d", [(200, 700, 32), (130, 4100, 64), (70, 2049, 128), (90, 2500, 16),
+                                   (70, 2049, 256)])
 def test_lse_twin_matches_jax_pallas(m: int, n: int, d: int) -> None:
     """Kernel 6's bf16 twin against JAX ``_lse_fwd_partials_kernel`` on bf16
     inputs in interpret mode, in the same 2,048-row item chunks."""
@@ -103,7 +104,8 @@ def _ce_inputs(m: int, n: int, d: int, seed: int):
     return s, items, z, y, coeff
 
 
-@pytest.mark.parametrize("m,n,d", [(200, 700, 32), (130, 4100, 64), (70, 2049, 128)])
+@pytest.mark.parametrize("m,n,d", [(200, 700, 32), (130, 4100, 64), (70, 2049, 128), (130, 2100, 16),
+                                   (70, 2049, 256)])
 def test_ce_grads_twin_matches_jax_pallas(m: int, n: int, d: int) -> None:
     """Kernel 7's bf16 twin against JAX ``_ce_grads_z_fused_kernel`` on bf16
     inputs in interpret mode, in the port's 2,048-row chunks (so the bf16 ds
@@ -154,7 +156,7 @@ def _jax_ce_split(m: int, n: int, d: int, dtype) -> bool:
     return -(-n // chunk_n) * (-(-m // block_m) * block_m) * d * itemsize > jax_softmax_lse._FUSED_BWD_PARTIALS_BUDGET
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("m", [51_200, 102_400, 3_000])
 def test_route_choice_counts_partials_at_their_itemsize(m: int, d: int) -> None:
     """At every (M, D) and both dtypes, and at catalogs around the JAX
@@ -172,6 +174,46 @@ def test_route_choice_counts_partials_at_their_itemsize(m: int, d: int) -> None:
     assert softmax_lse.ce_takes_split_route(51_200, 163_841, 128, BF16)
     assert softmax_lse.ce_takes_split_route(51_200, 81_921, 128) and not softmax_lse.ce_takes_split_route(
         51_200, 81_920, 128)
+
+
+@pytest.mark.parametrize("d", [16, 256])
+def test_bf16_plan_takes_the_bf16_tile_at_16_and_256(monkeypatch, d: int) -> None:
+    """At D = 16 and 256 the f32 kernels keep the SIMT tile (64-row session
+    tiles, two fused blocks per multiprocessor, one split ds chunk); bf16
+    towers take the bf16 kernels' own: one block per multiprocessor, up to 4
+    ds chunks, 128-row session tiles at 16 and 64-row ones at 256. The plans
+    (grid and partial bytes) follow the dtype, and the CPU twins take the
+    order the card's plan gives (132 multiprocessors)."""
+    m, n = 51_200, 15_872
+    rows = 64 if d == 256 else 128
+    assert softmax_lse._bwd_tile(d, BF16) == (rows, 1, 4) and softmax_lse._bwd_tile(d) == (64, 2, 1)
+    m_tiles = -(-m // rows)
+    tiles_per_group = -(-m_tiles // (132 // 8))  # 8 item chunks of 2,048 rows, one block per multiprocessor
+    groups = -(-m_tiles // tiles_per_group)
+    assert softmax_lse.fused_bwd_plan(m, n, d, 132, 2, BF16) == (tiles_per_group, groups,
+                                                                 (8 * m * 2 + groups * n * 4) * d)
+    assert softmax_lse.fused_bwd_plan(m, n, d, 132, 2) != softmax_lse.fused_bwd_plan(m, n, d, 132, 2, BF16)
+    assert softmax_lse.split_bwd_plan(m, n, d, 132, dtype=BF16) == (4, 3_968)  # the f32 SIMT tile: one chunk
+    assert softmax_lse.split_bwd_plan(m, n, d, 132) == (1, n)
+    # the twins' order is the card's: record the partials flag each twin is asked for
+    calls = []
+    for name in ("softmax_ce_grads_from_z_bf16_reference", "softmax_grads_from_z_bf16_reference",
+                 "streaming_lse_bwd_bf16_reference"):
+        monkeypatch.setattr(softmax_lse, name, lambda *a, _n=name, partials=True, **k: calls.append(
+            (_n, partials)) or (torch.zeros(1), torch.zeros(1)))
+    s, items = torch.zeros((m, d), dtype=BF16), torch.zeros((n, d), dtype=BF16)
+    z, y, c = torch.zeros(m), torch.zeros(m, dtype=torch.int64), torch.zeros(m)
+    softmax_lse.softmax_ce_grads_from_z(s, items, z, y, c)
+    softmax_lse.softmax_grads_from_z(s, items, z)
+    softmax_lse.streaming_lse_bwd(s, items, None, z, z)
+    card = [softmax_lse.fused_bwd_plan(m, n, d, 132, size, BF16)[2] <= softmax_lse.FUSED_BWD_PARTIALS_BUDGET
+            for size in (2, 2, 4)]
+    assert [partials for _, partials in calls] == card
+    # at D = 256 kernel 9's 4-byte partials pass the budget (10 + 11), kernels 7 and 12 keep their one pass
+    assert card == ([True, True, False] if d == 256 else [True, True, True])
+    # the split twin walks the bf16 plan's chunks: 4 at the training shape, where the f32 SIMT tile takes one
+    _, chunk_rows = softmax_lse.split_bwd_plan(m, n, d, 132, dtype=BF16)
+    assert chunk_rows == 3_968 < n
 
 
 def test_fused_plan_counts_bf16_partials_at_two_bytes() -> None:
@@ -583,21 +625,15 @@ def _bf16_towers(m: int, n: int, d: int):
 def test_refused_routes_raise_naming_the_roadmap(monkeypatch) -> None:
     """Every route without a bf16 kernel raises ``NotImplementedError`` naming
     ROADMAP §1 item 5, on the CPU as on the card: none runs in f32 or through
-    a twin."""
+    a twin. The loss routes at D = 16 and 256, which raised before they had
+    bf16 forms, now run: the same calls against their twins, and against JAX
+    in interpret mode where a route has a JAX kernel."""
     s, items = _bf16_towers(300, 5000, 32)
     z, coeff, y = torch.zeros(300), torch.full((300,), 1e-3), torch.ones(300, dtype=torch.int64)
-    # kernels 8-14 and kernel 7's two launches have bf16 forms (tests/test_torch_mesh_bf16.py,
-    # tests/test_torch_ce_split_bf16.py); at D = 16 and 256 they still raise
     narrow = _bf16_towers(8, 3000, 16)
+    wide = _bf16_towers(8, 3000, 256)
     refused = {
         "bounded shift (kernel 16)": lambda: softmax_lse.streaming_lse(s, items, bounded_shift=True),
-        "biased lse (kernel 8) at d = 256": lambda: softmax_lse.streaming_lse(*_bf16_towers(8, 3000, 256),
-                                                                              torch.zeros(3000)),
-        "lse backward (kernels 9-11) at d = 16": lambda: softmax_lse.streaming_lse_bwd(*narrow, None, z[:8], z[:8]),
-        "gradients from z (kernels 12-14) at d = 16": lambda: softmax_lse.softmax_grads_from_z(*narrow, z[:8]),
-        "mesh loss (kernels 8-11) at d = 16": lambda: softmax_lse.sharded_streaming_lse(*narrow, None, "model"),
-        "d = 256": lambda: softmax_lse.streaming_lse(*_bf16_towers(8, 3000, 256)),
-        "d = 16": lambda: softmax_lse.softmax_ce_grads_from_z(*_bf16_towers(8, 3000, 16), z[:8], y[:8], coeff[:8]),
         "head dim 8": lambda: attention.attention_fwd(*(_t(np.ones((1, 2, 4, 8)), BF16),) * 3, None, 0.3),
         "STU at head dim 8 (kernels 17-19)": lambda: stu_attention.stu_fwd(
             *(_t(np.ones((1, 2, 4, 8)), BF16),) * 3, None, torch.ones((4, 4), dtype=torch.bool),
@@ -610,29 +646,55 @@ def test_refused_routes_raise_naming_the_roadmap(monkeypatch) -> None:
         mp.setattr(softmax_lse, "USE_PARTIALS_FWD", False)
         with pytest.raises(NotImplementedError, match="kernel 15"):
             softmax_lse.streaming_lse(s, items)
-    # the large-catalog route and kernel 7's two launches at d = 16 (at widths 32-128 they run:
-    # tests/test_torch_ce_split_bf16.py)
-    for budget in (0, 100_000):
+        with pytest.raises(NotImplementedError, match="kernel 15"):
+            softmax_lse.streaming_lse(*wide)  # at the new widths too
+    # what raised at D = 16 and 256 runs, through the bf16 twins on the CPU
+    bias = torch.zeros(3000)
+    bias[-2:] = softmax_lse.NEG_BIG
+    lse_wide = softmax_lse.streaming_lse(*wide, bias)
+    assert torch.equal(lse_wide, softmax_lse.streaming_lse_bias_bf16_reference(*wide, bias))
+    assert torch.equal(softmax_lse.streaming_lse(*wide), softmax_lse.streaming_lse_bf16_reference(*wide))
+    lse_narrow = softmax_lse.streaming_lse(*narrow)
+    dlse = torch.linspace(-1.0, 1.0, 8)
+    got = softmax_lse.streaming_lse_bwd(*narrow, None, lse_narrow, dlse)
+    want = softmax_lse.streaming_lse_bwd_bf16_reference(*narrow, torch.zeros(3000), lse_narrow, dlse)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    zn = lse_narrow - torch.log(coeff[:8])
+    got = softmax_lse.softmax_grads_from_z(*narrow, zn)
+    assert all(torch.equal(g, w) for g, w in zip(got, softmax_lse.softmax_grads_from_z_bf16_reference(*narrow, zn)))
+    # kernel 7 at d = 16 in its three routes: the one pass, its two launches, the large-catalog route (budget 0),
+    # each against JAX's kernel 7 or large-catalog route in interpret mode on the same inputs
+    jargs = [jnp.asarray(_np(t), jnp.bfloat16) for t in narrow] + [jnp.asarray(t.numpy()) for t in (zn, y[:8],
+                                                                                          coeff[:8])]
+    for budget in (softmax_lse.FUSED_BWD_PARTIALS_BUDGET, 100_000, 0):
         with monkeypatch.context() as mp:
             mp.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", budget)
-            with pytest.raises(NotImplementedError, match="D = 16.*" + ROADMAP):
-                softmax_lse.softmax_ce_grads_from_z(*narrow, z[:8], y[:8], coeff[:8])
+            mp.setattr(jax_softmax_lse, "_FUSED_BWD_PARTIALS_BUDGET", budget)
+            ds, di = softmax_lse.softmax_ce_grads_from_z(*narrow, zn, y[:8], coeff[:8])
+            exp_ds, exp_di = jax_softmax_lse.softmax_ce_grads_from_z(*jargs, 128, softmax_lse.FUSED_BWD_CHUNK, True)
+        assert _rel(ds.numpy(), exp_ds) <= GRAD_TOL and _rel(di.numpy(), exp_di) <= GRAD_TOL, budget
 
 
 def test_refused_models_raise_naming_the_roadmap() -> None:
-    """HSTU at head dim 8 (n_factors 16, 2 heads) and a mesh fit at width 16
-    (the mesh loss's kernels 8-11 have bf16 forms at widths 32-128 only)
-    refuse bf16 compute; f32 stays available to both."""
+    """HSTU at head dim 8 (n_factors 16, 2 heads) refuses bf16 compute. A mesh
+    fit at width 16, which raised before the mesh loss's kernels 8-11 had bf16
+    forms at that width, now fits on their twins and tracks the bf16 fit
+    without a mesh (kernels 6 and 7) from the same seed."""
     dataset, _ = _cyclic_dataset(n_users=10, session_len=4)
     hstu = HSTUModel(n_blocks=1, n_heads=2, n_factors=16, session_max_len=6, epochs=1, batch_size=8, device="cpu",
                      training_module_kwargs={"compute_dtype": "bfloat16"}, relative_time_attention=False)
     with pytest.raises(NotImplementedError, match=ROADMAP):
         hstu.fit(dataset)
-    mesh = SASRecModel(n_blocks=1, n_heads=1, n_factors=16, session_max_len=6, epochs=1, batch_size=8, device="cpu",
-                       training_module_kwargs={"compute_dtype": "bfloat16", "mesh_shape": (1, 1),
-                                               "fused_softmax_chunk": 8})  # 12 items: the fused (mesh) loss
-    with pytest.raises(NotImplementedError, match="D = 16.*" + ROADMAP):
-        mesh.fit(dataset)
+    losses = {}
+    for name, extra in (("mesh", {"mesh_shape": (1, 1)}), ("plain", {})):
+        model = SASRecModel(n_blocks=1, n_heads=1, n_factors=16, session_max_len=6, epochs=1, batch_size=8,
+                            device="cpu", training_module_kwargs={"compute_dtype": "bfloat16",
+                                                                  "fused_softmax_chunk": 8, **extra})
+        model.fit(dataset)  # 12 items: the fused (mesh) loss
+        assert model.is_fitted and model.training_module.resolved_compute_dtype == "bfloat16"
+        losses[name] = model.training_module.train_loss_history
+    assert np.isfinite(losses["mesh"]).all()
+    np.testing.assert_allclose(losses["mesh"], losses["plain"], rtol=1e-4)
 
 
 # ------------------------------------------------------------------ mixed dtypes

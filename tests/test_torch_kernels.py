@@ -1463,7 +1463,8 @@ def _max_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,n,d", [(257, 2177, 32), (300, 4100, 64), (130, 20033, 128), (51, 300, 128),
-                                   (1000, 15872, 128)])
+                                   (1000, 15872, 128), (333, 5003, 256), (5000, 15872, 256), (257, 2177, 16),
+                                   (5000, 15872, 16)])
 def test_cuda_bf16_lse_and_ce_grads_match_twin(cuda: torch.device, m: int, n: int, d: int) -> None:
     """Kernels 6 and 7's bf16 forms against their twins on the card, launched
     once each, the same bits on a rerun, ragged tails included."""
@@ -1559,6 +1560,21 @@ def test_cuda_bf16_fit_matches_cpu(cuda: torch.device, family: str) -> None:
     from the same start: the bf16 forms launched, the losses within 1e-3, the
     f32 master weights within 1e-4 on average (Adam moves a noise-level entry
     by up to lr a step on either side)."""
+    _bf16_fit_card_against_cpu(cuda, family, n_factors=64, n_heads=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_factors,n_heads", [(256, 4), (16, 1)])
+def test_cuda_bf16_fit_at_the_wide_and_narrow_widths_matches_cpu(
+    cuda: torch.device, n_factors: int, n_heads: int
+) -> None:
+    """The same at the models' default width (256, 4 heads: attention at head
+    dim 64, the loss's bf16 forms at D = 256 on 64-row session tiles) and at
+    D = 16 (one head): the bf16 loss forms launched, no f32 loss kernel."""
+    _bf16_fit_card_against_cpu(cuda, "sasrec", n_factors=n_factors, n_heads=n_heads)
+
+
+def _bf16_fit_card_against_cpu(cuda: torch.device, family: str, n_factors: int, n_heads: int) -> None:
     import pandas as pd
 
     from rectools_tpu_torch import Columns
@@ -1577,8 +1593,8 @@ def test_cuda_bf16_fit_matches_cpu(cuda: torch.device, family: str) -> None:
                  "training_module_kwargs": {"compute_dtype": "bfloat16", "negatives_on_device": False}}
     else:
         extra = {"training_module_kwargs": {"compute_dtype": "bfloat16", "fused_softmax_chunk": 512}}
-    config = dict(n_blocks=2, n_heads=2, n_factors=64, session_max_len=20, dropout_rate=0.0, batch_size=32, epochs=1,
-                  **extra)
+    config = dict(n_blocks=2, n_heads=n_heads, n_factors=n_factors, session_max_len=20, dropout_rate=0.0,
+                  batch_size=32, epochs=1, **extra)
     models = {dev: model_type(**config, device=dev) for dev in ("cpu", "cuda")}
     for model in models.values():
         model._build_model_from_dataset(dataset)
@@ -1680,7 +1696,8 @@ MESH_BF16_KEYS = ("lse_bias_fwd_bf16", "lse_bwd_fused_bf16", "lse_bwd_ds_bf16", 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,n,d,invalid", [(333, 1000, 32, (517, 999)), (257, 2177, 64, ()),
                                            (130, 4100, 128, (4099,)), (25600, 3959, 128, (3958,)),
-                                           (25600, 7936, 128, ())])
+                                           (25600, 7936, 128, ()), (333, 4100, 256, (517, 4099)),
+                                           (25600, 7936, 256, ()), (257, 2177, 16, (2176,)), (25600, 7936, 16, ())])
 def test_cuda_bf16_mesh_lse_kernels_match_twins(
     cuda: torch.device, monkeypatch, m: int, n: int, d: int, invalid: tuple
 ) -> None:
@@ -1777,7 +1794,8 @@ F32_LOSS_KEYS = ("ce_grads_fused", "ce_grads_ds", "ce_grads_di", "grads_z_fused"
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,n,d", [(257, 2177, 32), (300, 4100, 64), (130, 20033, 128), (51, 300, 128),
-                                   (40, 20011, 32), (1000, 15872, 128)])
+                                   (40, 20011, 32), (1000, 15872, 128), (333, 5003, 256), (40, 20011, 256),
+                                   (257, 2177, 16), (1000, 15872, 16)])
 def test_cuda_bf16_grads_z_and_ce_split_routes_match_twins(
     cuda: torch.device, monkeypatch: pytest.MonkeyPatch, m: int, n: int, d: int
 ) -> None:
@@ -1795,7 +1813,7 @@ def test_cuda_bf16_grads_z_and_ce_split_routes_match_twins(
     coeff = torch.where(y == 0, 0.0, 1.0 / m)
     z = (softmax_lse.streaming_lse(s, items) - torch.log(coeff)).contiguous()
     n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    plan = softmax_lse.fused_bwd_plan(m, n, d, n_sms, 2)[2]
+    plan = softmax_lse.fused_bwd_plan(m, n, d, n_sms, 2, bf)[2]
     cases = {  # name: (budget, the function, its twin, launch keys)
         "kernel 12": (1 << 62, lambda: softmax_lse.softmax_grads_from_z(s, items, z),
                       lambda: softmax_lse.softmax_grads_from_z_bf16_reference(s, items, z, partials=True),

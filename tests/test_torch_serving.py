@@ -98,9 +98,10 @@ def test_recommend_to_items_matches_jax(models) -> None:
 
 
 def test_fit_is_not_ported_yet() -> None:
-    """fit is ported, bf16 compute too, on a mesh as well; what is not yet
-    (bf16 compute at a width with no bf16 kernel, here the mesh loss at 16)
-    raises, and a mesh needs a world of n_data * n_model processes, which one
+    """fit is ported, bf16 compute too, on a mesh as well, at every width of
+    the loss's kernels (here the mesh loss at 16, which raised before its bf16
+    forms took that width: it now fits and tracks the bf16 fit without a
+    mesh); a mesh needs a world of n_data * n_model processes, which one
     process is not."""
     df = _frame()
     model = SASRecModel(**CONFIG, epochs=1, batch_size=32, device="cpu").fit(Dataset.construct(df))
@@ -113,9 +114,14 @@ def test_fit_is_not_ported_yet() -> None:
     mesh = SASRecModel(**CONFIG, epochs=1, batch_size=32, training_module_kwargs=mesh_kwargs,
                        device="cpu").fit(Dataset.construct(df))
     assert mesh.is_fitted and np.isfinite(mesh.training_module.train_loss_history).all()
-    with pytest.raises(NotImplementedError, match="D = 16 has no bf16 kernel"):
-        SASRecModel(**{**CONFIG, "n_factors": 16, "n_heads": 1}, training_module_kwargs=mesh_kwargs,
-                    device="cpu").fit(Dataset.construct(df))
+    narrow = {**CONFIG, "n_factors": 16, "n_heads": 1, "epochs": 1, "batch_size": 32}
+    narrow_mesh = SASRecModel(**narrow, training_module_kwargs=mesh_kwargs, device="cpu").fit(Dataset.construct(df))
+    narrow_plain = SASRecModel(**narrow, training_module_kwargs={"compute_dtype": "bfloat16",
+                                                                 "fused_softmax_chunk": 64},
+                               device="cpu").fit(Dataset.construct(df))
+    assert narrow_mesh.is_fitted and np.isfinite(narrow_mesh.training_module.train_loss_history).all()
+    np.testing.assert_allclose(narrow_mesh.training_module.train_loss_history,
+                               narrow_plain.training_module.train_loss_history, rtol=1e-4)
     with pytest.raises(ValueError, match="must equal the world size 1"):
         SASRecModel(**CONFIG, training_module_kwargs={"mesh_shape": (2, 2)}, device="cpu").fit(Dataset.construct(df))
 
