@@ -1018,7 +1018,8 @@ def train_kernel_phase(torch, dev, b: int = TRAIN_B) -> dict:
 # ---------------------------------------------------------------- phase 7, STU attention kernels
 
 
-def _stu_case(torch, dev, gen, b: int, l: int, per_row_allowed: bool = False, serving: bool = False) -> tuple:
+def _stu_case(torch, dev, gen, b: int, l: int, per_row_allowed: bool = False, serving: bool = False,
+              d: int = N_FACTORS // N_HEADS) -> tuple:
     """Inputs of the three STU kernels as the HSTU layer gives them: q, k, v,
     dout in (B, L, H, d) memory, the (B, L, L) time buckets and the bias of
     buckets plus positions, the causal mask (shared, or one per row with key
@@ -1027,7 +1028,7 @@ def _stu_case(torch, dev, gen, b: int, l: int, per_row_allowed: bool = False, se
     ``recommend`` sees them; otherwise every length is as likely."""
     from rectools_tpu_torch.ops import stu_attention
 
-    h, d = N_HEADS, N_FACTORS // N_HEADS
+    h = N_HEADS
     q, k, v, dout = (torch.randn((b, l, h, d), generator=gen, device=dev).transpose(1, 2) for _ in range(4))
     gaps = torch.randint(1, 3 * 86400, (b, l + 2), generator=gen, device=dev)
     ts = 1_600_000_000 + torch.cumsum(gaps, dim=1)
@@ -4497,8 +4498,8 @@ def bf16_kernel_phase(torch, dev, b: int = TRAIN_B, d: int = N_FACTORS) -> dict:
     return results
 
 
-def _stu_bf16_case(torch, F, gen, dev, b: int, l: int, tag: str) -> dict:
-    """Kernels 17-19's bf16 launches at (b, H, l) with heads of 32, both biases,
+def _stu_bf16_case(torch, F, gen, dev, b: int, l: int, tag: str, d: int = N_FACTORS // N_HEADS) -> dict:
+    """Kernels 17-19's bf16 launches at (b, H, l) with heads of ``d``, both biases,
     the causal mask and a timeline whose last row is padding, as the HSTU layer
     gives them: against their twins (BF16_STU_RTOL), one launch each and none
     of the f32 forms, the padded row zeros, the same bits on a rerun; timed
@@ -4508,14 +4509,14 @@ def _stu_bf16_case(torch, F, gen, dev, b: int, l: int, tag: str) -> dict:
     from rectools_tpu_torch.ops import _native, stu_attention
 
     bf = torch.bfloat16
-    h, d = N_HEADS, N_FACTORS // N_HEADS
-    q32, k32, v32, dout32, bias, allowed, timeline, buckets = _stu_case(torch, dev, gen, b, l)
+    h = N_HEADS
+    q32, k32, v32, dout32, bias, allowed, timeline, buckets = _stu_case(torch, dev, gen, b, l, d=d)
     q, k, v, dout = (t.to(bf) for t in (q32, k32, v32, dout32))  # the layer's (B, L, H, d) memory, in bf16
     del q32, k32, v32, dout32
     args = (q, k, v, bias, allowed, timeline)
     args32 = (q.float(), k.float(), v.float(), bias, allowed, timeline)
     n_entries = NUM_BUCKETS + 1
-    what = f"at B={b}, L={l}"
+    what = f"at B={b}, L={l}, ad=lh={d}"
     before = dict(_native.LAUNCHES)
     out = stu_attention.stu_fwd(*args)
     got = stu_attention.stu_bwd(*args, dout)
@@ -5136,19 +5137,17 @@ def bf16_family_phase(torch, np, port, dataset, dev) -> dict:
     return out
 
 
-def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
+def bf16_refusals_phase(torch, dev) -> dict:
     """(d) of the ``bf16`` phase: every route without a bf16 kernel raises
-    NotImplementedError naming ROADMAP §1 item 5 on the card: head dim 8 in
-    attention and in STU attention, the bounded-shift (16) and running-max
-    (15) forwards, these also at the widths 16 and 256, where every other loss
-    route runs."""
-    from rectools_tpu_torch.models import HSTUModel
-    from rectools_tpu_torch.ops import _native, attention, softmax_lse
+    NotImplementedError naming ROADMAP §1 item 5 on the card: the
+    bounded-shift (16) and running-max (15) forwards, also at the widths 16
+    and 256, where every other loss route runs. (Head dim 8, which raised
+    here before its bf16 forms existed, runs in ``bf16 narrow heads``.)"""
+    from rectools_tpu_torch.ops import _native, softmax_lse
 
     bf = torch.bfloat16
     s = torch.randn((300, 32), device=dev).to(bf)
     items = torch.randn((5000, 32), device=dev).to(bf)
-    small = dict(n_blocks=1, n_heads=2, n_factors=32, session_max_len=20, epochs=1, batch_size=64, device=dev)
 
     def kernel_15(s_, items_):
         def run():
@@ -5159,22 +5158,14 @@ def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
                 softmax_lse.USE_PARTIALS_FWD = True
         return run
 
-    from rectools_tpu_torch.ops import stu_attention
-
-    heads_of_8 = torch.ones((1, 2, 4, 8), device=dev, dtype=bf)
     narrow, narrow_items = torch.ones((8, 16), device=dev, dtype=bf), torch.ones((3000, 16), device=dev, dtype=bf)
     wide, wide_items = torch.ones((8, 256), device=dev, dtype=bf), torch.ones((3000, 256), device=dev, dtype=bf)
-    masks = (torch.zeros((1, 4, 4), device=dev), torch.ones((1, 4, 4), device=dev), torch.ones((1, 4), device=dev))
     refused = {
-        "STU at head dim 8 (kernels 17-19)": lambda: stu_attention.stu_fwd(heads_of_8, heads_of_8, heads_of_8,
-                                                                           *masks),
         "bounded shift (kernel 16)": lambda: softmax_lse.streaming_lse(s, items, bounded_shift=True),
         "bounded shift (kernel 16) at d = 16": lambda: softmax_lse.streaming_lse(narrow, narrow_items,
                                                                                  bounded_shift=True),
         "running max (kernel 15)": kernel_15(s, items),
         "running max (kernel 15) at d = 256": kernel_15(wide, wide_items),
-        "head dim 8": lambda: attention.attention_fwd(*(torch.ones((1, 2, 4, 8), device=dev, dtype=bf),) * 3, None,
-                                                      0.3),
     }
     before = dict(_native.LAUNCHES)
     for what, call in refused.items():
@@ -5185,17 +5176,7 @@ def bf16_refusals_phase(torch, np, dataset, dev) -> dict:
             continue
         raise SmokeFailure(f"bf16 {what}: ran instead of raising NotImplementedError")
     check(dict(_native.LAUNCHES) == before, "a refused bf16 route launched a kernel")
-    # an HSTU fit at head dim 8 raises at its first STU call (LayerNorm's kernel has run by then)
-    try:
-        HSTUModel(**{**small, "n_factors": 16}, training_module_kwargs={"compute_dtype": "bfloat16"},
-                  relative_time_attention=False).fit(dataset)
-    except NotImplementedError as err:
-        check(_native.BF16_ROADMAP in str(err), f"bf16 HSTU at head dim 8: the refusal does not name the roadmap: {err}")
-    else:
-        raise SmokeFailure("bf16 HSTU at head dim 8: fit ran instead of raising NotImplementedError")
-    check(all(_native.LAUNCHES[key] == before[key] for key in (*STU_BF16_LAUNCH_KEYS, *STU_F32_LAUNCH_KEYS)),
-          "bf16 HSTU at head dim 8 launched an STU kernel")
-    refused_names = [*refused, "HSTU fit at head dim 8"]
+    refused_names = list(refused)
     print(f"bf16 refusals: {len(refused_names)} routes without a bf16 kernel raise NotImplementedError naming "
           f"{_native.BF16_ROADMAP}: {', '.join(refused_names)}")
     return {"refused": refused_names}
@@ -5296,14 +5277,16 @@ def _f32_fit(torch, np, port, dataset, dev, width: dict) -> dict:
             "train_examples_per_s": examples_per_s, "loss_launches": loss_launches}
 
 
-def _bf16_epoch(torch, np, port, dataset, dev, family: str, width: dict, tag: str) -> dict:
-    """One bf16 epoch of ``family`` at ``width`` through Model.fit: every
-    launch (the bf16 forms, LayerNorm's f32 kernels; no validation), a finite
-    loss."""
+def _epoch(torch, np, port, dataset, dev, family: str, width: dict, tag: str, compute_dtype: str = "bfloat16",
+           keep_model: bool = False) -> dict:
+    """One epoch of ``family`` at ``width`` through Model.fit in
+    ``compute_dtype``: a finite loss and, in bf16, every launch (the bf16
+    forms, LayerNorm's f32 kernels; no validation), in f32 no bf16 form.
+    ``keep_model`` returns the fitted model under ``"model"``."""
     from rectools_tpu_torch.models.nn.item_net import IdEmbeddingsItemNet
 
     model = family_model(family, **{**TRAIN_CONFIG, **width}, epochs=1, item_net_block_types=(IdEmbeddingsItemNet,),
-                         training_module_kwargs={"compute_dtype": "bfloat16"}, device=dev)
+                         training_module_kwargs={"compute_dtype": compute_dtype}, device=dev)
     port.reset_launches()
     t0 = time.perf_counter()
     model.fit(dataset)
@@ -5311,13 +5294,18 @@ def _bf16_epoch(torch, np, port, dataset, dev, family: str, width: dict, tag: st
     launches = dict(port.LAUNCHES)
     tm = model.training_module
     steps, losses = tm.global_step, tm.train_loss_history
-    check(tm.resolved_compute_dtype == "bfloat16" and len(losses) == 1 and bool(np.isfinite(losses).all()),
+    check(tm.resolved_compute_dtype == compute_dtype and len(losses) == 1 and bool(np.isfinite(losses).all()),
           f"{tag}: losses {losses}")
-    expected = _bf16_fit_launches(port, steps, 0, family=family)
-    check(launches == expected, f"launches in the {tag} epoch {launches}, expected {expected}")
-    print(f"{tag}: one bf16 epoch of {steps} steps of {TRAIN_B} at d = {width['n_factors']}, {width['n_heads']} "
+    if compute_dtype == "bfloat16":
+        expected = _bf16_fit_launches(port, steps, 0, family=family)
+        check(launches == expected, f"launches in the {tag} epoch {launches}, expected {expected}")
+    else:
+        check(not any(v for k, v in launches.items() if k.endswith("_bf16")), f"{tag}: a bf16 form in f32 {launches}")
+    dtype = "bf16" if compute_dtype == "bfloat16" else "f32"
+    print(f"{tag}: one {dtype} epoch of {steps} steps of {TRAIN_B} at d = {width['n_factors']}, {width['n_heads']} "
           f"heads in {fit_s:.2f} s, loss {losses}; launches { {k: v for k, v in launches.items() if v} }")
-    return {"launches": launches, "steps": steps, "train_loss": losses, "fit_s": fit_s}
+    out = {"launches": launches, "steps": steps, "train_loss": losses, "fit_s": fit_s}
+    return {**out, "model": model} if keep_model else out
 
 
 def bf16_wide_fit_phase(torch, np, port, df, dataset, dev) -> dict:
@@ -5330,8 +5318,8 @@ def bf16_wide_fit_phase(torch, np, port, df, dataset, dev) -> dict:
     at d 16."""
     f32 = _f32_fit(torch, np, port, dataset, dev, WIDE_FIT)
     fit = bf16_fit_phase(torch, np, port, df, dataset, dev, f32, width=WIDE_FIT)
-    hstu = _bf16_epoch(torch, np, port, dataset, dev, "hstu", WIDE_FIT, "bf16 wide hstu")
-    narrow = _bf16_epoch(torch, np, port, dataset, dev, "sasrec", NARROW_FIT, "bf16 narrow")
+    hstu = _epoch(torch, np, port, dataset, dev, "hstu", WIDE_FIT, "bf16 wide hstu")
+    narrow = _epoch(torch, np, port, dataset, dev, "sasrec", NARROW_FIT, "bf16 narrow")
     return {"f32": f32, "fit": fit, "hstu": hstu, "narrow": narrow}
 
 
@@ -5447,13 +5435,98 @@ def bf16_wide_ops_phase(torch, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 16 at heads of 8
+
+HEADS_OF_8_FIT = dict(n_factors=32, n_heads=4)  # the transformer config's default 4 heads at width 32: heads of 8
+HEADS_OF_8 = HEADS_OF_8_FIT["n_factors"] // HEADS_OF_8_FIT["n_heads"]
+# the bf16 attention and STU entries of the kernels line, whose forms at head dim 8 it gives beside them
+HEADS_OF_8_ENTRIES = ("attention_fwd_bf16", "attention_bwd_bf16", "stu_fwd_bf16", "stu_bwd_bf16", "stu_ds_bf16")
+
+
+def bf16_narrow_heads_phase(torch, np, port, dataset, dev, b: int = TRAIN_B) -> dict:
+    """``bf16 narrow heads``: (a) the bf16 forms of kernels 2 and 5 at B = 512,
+    H = 4, L = 100, heads of 8, causal with dropout and under BERT4Rec's bias,
+    and of kernels 17-19 at the HSTU training shape with ad = lh = 8, each
+    against its twin, the same bits on a rerun, timed beside its f32 form, its
+    bf16 library call and its bound (result keys ending ``_dh8``); (b) one
+    epoch each of SASRec and HSTU at n_factors 32 with 4 heads, in f32 and
+    then in bf16 from the same seed: the bf16 loss within BF16_LOSS_RTOL of
+    the f32 one, weights apart from the f32 fit's, the bf16 forms launched,
+    and a profiled bf16 step that runs
+    the bf16 device kernels and none of the f32 attention, STU or loss
+    kernels."""
+    import types
+
+    import torch.nn.functional as F
+
+    from rectools_tpu_torch.models.nn.transformers import TransformerBackbone
+    from rectools_tpu_torch.models.nn.transformers.training import pad_batch
+    from rectools_tpu_torch.ops import attention
+
+    t0 = time.perf_counter()
+    dev_t = torch.device(dev)
+    gen = torch.Generator(device=dev_t).manual_seed(SEED + 25)
+    l, h, dh = SESSION_MAX_LEN, N_HEADS, HEADS_OF_8
+    causal = torch.where(torch.ones((l, l), dtype=torch.bool, device=dev_t).tril(), 0.0, -1e9)[None, None]
+    kernels = _attention_bf16_case(torch, F, attention, gen, dev_t, b, l, h, dh, causal, "dh8_causal")
+    lengths = torch.randint(1, 301, (b,), generator=gen, device=dev_t).clamp(max=l)
+    lengths[0], lengths[1] = 1, l
+    sessions = torch.where(torch.arange(l, device=dev_t)[None, :] >= l - lengths[:, None], 1, 0)
+    rule = types.SimpleNamespace(use_causal_attn=False, use_key_padding_mask=True)
+    bias = TransformerBackbone._build_attn_bias(rule, sessions)
+    kernels.update(_attention_bf16_case(torch, F, attention, gen, dev_t, b, l, h, dh, bias, "dh8_bidirectional"))
+    for name in ("attention_fwd_bf16", "attention_bwd_bf16"):
+        kernels[f"{name}_dh8"] = kernels[f"{name}_dh8_causal"]
+    kernels.update(_stu_bf16_case(torch, F, gen, dev_t, b, l, "_dh8", d=dh))
+    torch.cuda.empty_cache()
+
+    fits = {}
+    for family, wanted, banned_keys in (("sasrec", BF16_DEVICE_KERNELS, BF16_BANNED_KERNELS),
+                                        ("hstu", BF16_HSTU_DEVICE_KERNELS, BF16_HSTU_BANNED_KERNELS)):
+        tag = f"bf16 narrow heads {FAMILY_TAGS[family]}".rstrip()
+        f32 = _epoch(torch, np, port, dataset, dev, family, HEADS_OF_8_FIT, tag, "float32", keep_model=True)
+        fit = _epoch(torch, np, port, dataset, dev, family, HEADS_OF_8_FIT, tag, keep_model=True)
+        model, f32_model = fit.pop("model"), f32.pop("model")
+        loss_rel = max(abs(a / c - 1) for a, c in zip(fit["train_loss"], f32["train_loss"]))
+        check(loss_rel <= BF16_LOSS_RTOL,
+              f"{tag}: bf16 loss {fit['train_loss']} against f32 {f32['train_loss']}: {loss_rel}")
+        # the epoch's mean loss can agree to the last f32 bit (HSTU here); the f32 master weights show that the
+        # bf16 fit computed other gradients
+        f32_state = f32_model.backbone.state_dict()
+        gaps = torch.cat([(v - f32_state[n]).abs().reshape(-1) for n, v in model.backbone.state_dict().items()])
+        param_gap, param_mean_gap = gaps.max().item(), gaps.mean().item()
+        check(param_gap > 0, f"{tag}: the bf16 fit's weights equal the f32 fit's")
+        del f32_model, f32_state, gaps
+        tm = model.training_module
+        loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
+        batch = tm._device_batch(pad_batch(next(iter(loader)), TRAIN_B))
+        names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
+        missing = [k for k in wanted if not any(k in name for name in names)]
+        banned = [name for name in names if any(k in name for k in banned_keys)]
+        check(not missing and not banned, f"{tag}: a step's device kernels: missing {missing}, f32 or library {banned}")
+        print(f"{tag}: bf16 loss {fit['train_loss']} beside f32 {f32['train_loss']} (relative gap {loss_rel:.3g}, "
+              f"limit {BF16_LOSS_RTOL}); weights {param_gap:.3g} apart at most, {param_mean_gap:.3g} on average; "
+              f"a profiled bf16 step ran {len(names)} device kernels, the {len(wanted)} "
+              "bf16 forms among them, no f32 attention, STU or loss kernel, no library attention or cross-entropy")
+        fits[family] = {**fit, "f32_train_loss": f32["train_loss"], "f32_fit_s": f32["fit_s"],
+                        "loss_rel_to_f32": loss_rel, "param_max_abs_diff_to_f32": param_gap,
+                        "param_mean_abs_diff_to_f32": param_mean_gap, "step_device_kernels": len(names)}
+        del model, tm, batch
+        torch.cuda.empty_cache()
+    wall_s = time.perf_counter() - t0
+    print(f"bf16 narrow heads: wall {wall_s:.1f} s")
+    return {"kernels": kernels, "fits": fits, "wall_s": wall_s}
+
+
 def bf16_phase(torch, np, pd, port, df, dataset, dev, f32: dict, hstu_f32: dict, reports: dict) -> dict:
     """The ``bf16`` phase: (a) the kernel forms (2, 5-14 with kernel 7's two
     launches, and 17-19), and the loss forms 6-14 at D = 256 and 16 (``bf16
     wide kernels``), (b) the SASRec fit beside phase 5's and the HSTU fit
     beside phase 7's, then the fits at the package defaults (``bf16 wide
-    fit``) and the public ops at both widths (``bf16 wide ops``), (c) BERT4Rec
-    and eSASRec, (d) the refusals; its wall. The bf16 fits on the 65,536- and
+    fit``) and the public ops at both widths (``bf16 wide ops``), then the
+    forms of kernels 2, 5 and 17-19 and SASRec's and HSTU's epochs at heads of
+    8 (``bf16 narrow heads``), (c) BERT4Rec and eSASRec, (d) the refusals;
+    its wall. The bf16 fits on the 65,536- and
     196,608-row catalogs run after phase 9's f32 fits (``bf16 mid fit``,
     ``bf16 large fit``), the mesh steps at D = 256 in phase 8 (``bf16 wide
     mesh``)."""
@@ -5469,12 +5542,14 @@ def bf16_phase(torch, np, pd, port, df, dataset, dev, f32: dict, hstu_f32: dict,
     hstu_fit = bf16_fit_phase(torch, np, port, df, dataset, dev, hstu_f32, family="hstu")
     wide = bf16_wide_fit_phase(torch, np, port, df, dataset, dev)
     wide["ops"] = bf16_wide_ops_phase(torch, torch.device(dev))
+    narrow_heads = bf16_narrow_heads_phase(torch, np, port, dataset, dev)
+    kernels.update(narrow_heads.pop("kernels"))
     families = bf16_family_phase(torch, np, port, dataset, dev)
-    refusals = bf16_refusals_phase(torch, np, dataset, dev)
+    refusals = bf16_refusals_phase(torch, dev)
     wall_s = time.perf_counter() - t0
     print(f"bf16: phase wall {wall_s:.1f} s")
-    return {"kernels": kernels, "fit": fit, "hstu_fit": hstu_fit, "wide": wide, "families": families,
-            "refusals": refusals, "wall_s": wall_s}
+    return {"kernels": kernels, "fit": fit, "hstu_fit": hstu_fit, "wide": wide, "narrow_heads": narrow_heads,
+            "families": families, "refusals": refusals, "wall_s": wall_s}
 
 
 def main() -> int:
@@ -5678,6 +5753,10 @@ def main() -> int:
     }
     for by_width in width_paths.values():
         paths.update(by_width)
+    # the paths that run the bf16 attention and STU forms at heads of 8: phase 16's epochs at n_factors 32, 4 heads
+    narrow_fits = bf16_result["narrow_heads"]["fits"]
+    dh8_paths = {"bf16_heads_of_8_fit": narrow_fits["sasrec"], "bf16_heads_of_8_hstu_fit": narrow_fits["hstu"]}
+    paths.update(dh8_paths)
 
     def numbers(r: dict) -> dict:
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -5747,6 +5826,15 @@ def main() -> int:
                         sub[tag[1:]] = numbers(kernels[f"{name}_d{d}{tag}"])
                 check(sub["launches"] > 0, f"{name} at D={d}: no path launched it")
                 entry[f"d{d}"] = sub
+        if name in HEADS_OF_8_ENTRIES:  # the same kernel's form at head dim 8: numbers, launches on the epochs there
+            h_by_path = {path: sum(result["launches"].get(key, 0) for key in keys)
+                         for path, result in dh8_paths.items()}
+            sub = {**numbers(kernels[f"{name}_dh8"]), "launches": sum(h_by_path.values()),
+                   "launches_by_path": h_by_path}
+            if name.startswith("attention_"):
+                sub["bidirectional"] = numbers(kernels[f"{name}_dh8_bidirectional"])
+            check(sub["launches"] > 0, f"{name} at head dim 8: no path launched it")
+            entry["dh8"] = sub
         check(entry["launches"] > 0, f"{name}: no path launched it")
         entries.append(entry)
     for key, before_ms in SIMT_TILE_MS.items():  # redesigned
@@ -5790,6 +5878,9 @@ def main() -> int:
                  "families": {f: {k: v for k, v in r.items() if k != "launches"}
                               for f, r in bf16_result["families"].items()},
                  "refused": bf16_result["refusals"]["refused"], "wall_s": bf16_result["wall_s"],
+                 "narrow_heads": {"fits": {f: {k: v for k, v in r.items() if k != "launches"}
+                                           for f, r in narrow_fits.items()},
+                                  "wall_s": bf16_result["narrow_heads"]["wall_s"]},
                  "wide": {"build": kernels["build"], "f32_fit": wide["f32"],
                           "fit": {k: v for k, v in wide["fit"].items() if k != "launches"},
                           "hstu": {k: v for k, v in wide["hstu"].items() if k != "launches"},

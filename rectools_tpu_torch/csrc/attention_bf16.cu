@@ -24,13 +24,18 @@
 // MASK_VALUE) gets p = 1 on every key, the sum of v, as in that route.
 //
 // Products: `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`
-// (bf16_tile.cuh); scale and bias are applied with rounded f32 operations
+// (bf16_tile.cuh); at a head dim of 8 the two products over the head dim (q
+// k^T, and dout v^T in the backward) take one
+// `mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32` each (`bt::mma_depth`),
+// as exact as the 16-deep step, and the products whose columns run over the
+// head dim (p v, ds k, ds^T q, p_drop^T dout) take one 8-column fragment, as
+// at every width. Scale and bias are applied with rounded f32 operations
 // (`__fmul_rn`, `__fadd_rn`), never fused, so each rounding point sees the
 // twin's f32 value up to the order of the product's sums.
 //
-// Tiles (head dims 16, 32 and 64; 8 has no bf16 form, ROADMAP §1 item 5):
-// 128 threads, 4 warps, tiles of 64 rows of one (b, h) staged in shared
-// memory at a pitch of dh + 8 bf16, transposed copies at a pitch of 72.
+// Tiles (head dims 8, 16, 32 and 64): 128 threads, 4 warps, tiles of 64 rows
+// of one (b, h) staged in shared memory at a pitch of `bt::pitch(dh)` bf16
+// (dh + 8; 24 at dh = 8), transposed copies at a pitch of 72.
 // - Forward: block (bh, 64-query tile), warp w owns queries 16 w + [0, 16),
 //   its q fragments in registers. Pass 1 walks the 64-key tiles for the rows'
 //   running (max, sum of exp) of the rounded scores; pass 2 walks them again,
@@ -49,7 +54,10 @@
 // its products over every (query, key) pair are 2.6 GFLOP, 0.003 ms at 989
 // TFLOP/s bf16; the backward moves 105 MB (0.031 ms). Both are bound by
 // bytes; as written they are latency-bound small blocks (two passes of the
-// score product in the forward).
+// score product in the forward). At dh = 8 (the same B, H, L) the forward
+// moves 14 MB (0.004 ms) and the backward 25 MB (0.007 ms), bound by bytes
+// too; the blocks do a quarter of the products for the same walk over the
+// tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,23 +133,18 @@ __device__ __forceinline__ void load_rows_t(__nv_bfloat16* dst, const __nv_bfloa
   }
 }
 
-// acc (16 rows x 64 columns, eight 8-column fragments) = rows r0 + [0, 16)
-// of `a` (pitch DH + 8, A fragments given) times rows [0, 64) of `b`,
-// transposed, over the head dim
+// acc (16 rows x 64 columns, eight 8-column fragments) = the warp's A
+// fragments over the head dim (bt::frags_a) times rows [0, 64) of `b` (pitch
+// bt::pitch(DH)), transposed
 template <int DH>
-__device__ __forceinline__ void product_64(const uint32_t a[DH / 16][4], const __nv_bfloat16* b, float acc[8][4]) {
+__device__ __forceinline__ void product_64(const uint32_t a[bt::Depth<DH>::kFrags][4], const __nv_bfloat16* b,
+                                           float acc[8][4]) {
 #pragma unroll
-  for (int nf = 0; nf < 8; ++nf)
+  for (int nf = 0; nf < 8; ++nf) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nf][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-#pragma unroll
-    for (int nf = 0; nf < 8; ++nf) {
-      uint32_t bb[2];
-      bt::frag_b<bt::pitch(DH)>(b, 8 * nf, 16 * kk, bb);
-      bt::mma(acc[nf], a[kk], bb);
-    }
+    bt::mma_depth<DH, bt::pitch(DH)>(acc[nf], a, b, 8 * nf);
+  }
 }
 
 struct FwdParams {
@@ -186,9 +189,8 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_bf16_kernel(const FwdParams
 
   load_rows<DH>(qs, qb, p.q_sl, q0, L);
   __syncthreads();
-  uint32_t qa[DH / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) bt::frag_a<PD>(qs, 16 * warp, 16 * kk, qa[kk]);
+  uint32_t qa[bt::Depth<DH>::kFrags][4];
+  bt::frags_a<DH, PD>(qs, 16 * warp, qa);
 
   // pass 1: the rows' running (max, sum of exp) of the rounded scores
   float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
@@ -349,7 +351,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_bf16_kernel(const BwdParams
     load_rows<DH>(sm.k, kb, p.k_sl, key0, L);
     load_rows<DH>(sm.v, vb, p.v_sl, key0, L);
     load_rows_t<DH>(sm.kt, kb, p.k_sl, key0, L);
-    uint32_t ak[DH / 16][4], av[DH / 16][4];
+    uint32_t ak[bt::Depth<DH>::kFrags][4], av[bt::Depth<DH>::kFrags][4];
     float dk[DH / 8][4], dv[DH / 8][4];
 #pragma unroll
     for (int nf = 0; nf < DH / 8; ++nf)
@@ -373,11 +375,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_bf16_kernel(const BwdParams
       }
       __syncthreads();
       if (qt == 0) {
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          bt::frag_a<PD>(sm.k, 16 * warp, 16 * kk, ak[kk]);
-          bt::frag_a<PD>(sm.v, 16 * warp, 16 * kk, av[kk]);
-        }
+        bt::frags_a<DH, PD>(sm.k, 16 * warp, ak);
+        bt::frags_a<DH, PD>(sm.v, 16 * warp, av);
       }
       // s^T and dp^T: the warp's 16 keys x the tile's 64 queries
       float st[8][4], dpt[8][4];
@@ -533,6 +532,7 @@ extern "C" int attn_fwd_bf16(const void* q, const void* k, const void* v, const 
                     q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl, o_sb, o_sh, o_sl, bias_sb, bias_sh, scale,
                     make_dropout(seed, dropout, threshold, keep_scale)};
   switch (dh) {
+    case 8: return launch_fwd<8>(p, stream);
     case 16: return launch_fwd<16>(p, stream);
     case 32: return launch_fwd<32>(p, stream);
     case 64: return launch_fwd<64>(p, stream);
@@ -564,6 +564,7 @@ extern "C" int attn_bwd_bf16(const void* q, const void* k, const void* v, const 
                     dk_sb, dk_sh, dk_sl, dv_sb, dv_sh, dv_sl, bias_sb, bias_sh, scale,
                     make_dropout(seed, dropout, threshold, keep_scale)};
   switch (dh) {
+    case 8: return launch_bwd<8>(p, stream);
     case 16: return launch_bwd<16>(p, stream);
     case 32: return launch_bwd<32>(p, stream);
     case 64: return launch_bwd<64>(p, stream);

@@ -1,5 +1,6 @@
 // The bf16 tensor-core tile's building blocks, shared by softmax_lse_bf16.cu
-// (kernels 6 and 7 in bf16) and attention_bf16.cu (kernels 2 and 5 in bf16):
+// (kernels 6-14 in bf16), attention_bf16.cu (kernels 2 and 5 in bf16) and
+// stu_attention_bf16.cu (kernels 17-19 in bf16):
 // `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` (one product per 16
 // deep, no hi/lo split: a product of two bf16 values is exact in f32, and the
 // sum is the tensor cores' f32 accumulation), the packing of its fragments and
@@ -14,13 +15,26 @@
 // 2t + 9, n = g); C c0, c1 (g, 2t and 2t + 1), c2, c3 (g + 8, 2t and 2t + 1).
 // These are not the m16n8k8 TF32 layouts of tc_tile.cuh.
 //
-// Staged tiles are row-major bf16 with a pitch of (row length + 8): the
+// Depth 8 (a head dim of 8, contracted in q k^T and dout v^T): one
+// `mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32`, whose A is a0 and a1
+// above and whose B is b0 above, with C as above. It is as exact as the
+// 16-deep product: each of the 8 products of two bf16 values is exact in f32
+// and the sum is the same f32 accumulation, with no zero-padded half and no
+// hi/lo split. `Depth<D>`, `frags_a` and `mma_depth` pick the 16-deep steps or
+// this one by D; a loop of D / 16 steps is never instantiated at D = 8 (a
+// static_assert guards it), where it would run no step and leave every score
+// 0.
+//
+// Staged tiles are row-major bf16 with a pitch of `pitch(row length)`: the
 // 32-bit fragment reads (8 rows x 4 words) then hit 32 distinct banks at
 // every width these kernels take, and rows stay 16-byte aligned.
 
 namespace bt {
 
-__host__ __device__ constexpr int pitch(int row) { return row + 8; }
+// row + 8 (row / 2 + 4 words: 8 rows of 4 words fall on 32 banks); a row of 8
+// takes 24 (12 words), where 16 (8 words) would put rows g and g + 4 on one
+// bank
+__host__ __device__ constexpr int pitch(int row) { return row == 8 ? 24 : row + 8; }
 
 __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm volatile(
@@ -28,6 +42,14 @@ __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint3
       "{%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b over a depth of 8 (m16n8k8: A two registers, B one)
+__device__ __forceinline__ void mma_k8(float c[4], const uint32_t a[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 // x rounded to the nearest bf16 (ties to even), as a float
@@ -79,6 +101,51 @@ __device__ __forceinline__ void frag_b_t(const __nv_bfloat16* tile, int k, int n
   const __nv_bfloat16* x = tile + (k + 2 * t) * P + n0 + g;
   b[0] = ld2_rows(x, P);
   b[1] = ld2_rows(x + 8 * P, P);
+}
+
+// Products over a depth D (a head dim): D / 16 m16n8k16 steps, or at D = 8
+// one m16n8k8 step. kFrags A fragments of four registers hold a warp's 16 rows
+// over the depth; at D = 8 the first two registers of the one fragment hold
+// the m16n8k8 A.
+template <int D>
+struct Depth {
+  static_assert(D == 8 || (D >= 16 && D % 16 == 0), "a depth of 8 or a multiple of 16");
+  static constexpr int kFrags = D == 8 ? 1 : D / 16;
+};
+
+// the warp's A fragments of rows r0 + [0, 16), depth [0, D), of a tile of
+// pitch P whose rows run along the depth
+template <int D, int P>
+__device__ __forceinline__ void frags_a(const __nv_bfloat16* tile, int r0, uint32_t a[Depth<D>::kFrags][4]) {
+  if constexpr (D == 8) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const __nv_bfloat16* x = tile + (r0 + g) * P + 2 * t;
+    a[0][0] = ld2(x);
+    a[0][1] = ld2(x + 8 * P);
+  } else {
+    static_assert(D >= 16 && D % 16 == 0, "16-deep fragments need a depth of 16 or more");
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) frag_a<P>(tile, r0, 16 * kk, a[kk]);
+  }
+}
+
+// c (16 rows x 8 columns) += a (frags_a over depth D) times B(k, n) = tile[n0
+// + n][k], n in [0, 8): a tile of pitch P whose rows run along the depth
+template <int D, int P>
+__device__ __forceinline__ void mma_depth(float c[4], const uint32_t a[Depth<D>::kFrags][4],
+                                          const __nv_bfloat16* tile, int n0) {
+  if constexpr (D == 8) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    mma_k8(c, a[0], ld2(tile + (n0 + g) * P + 2 * t));
+  } else {
+    static_assert(D >= 16 && D % 16 == 0, "16-deep steps need a depth of 16 or more");
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t b[2];
+      frag_b<P>(tile, n0, 16 * kk, b);
+      mma(c, a[kk], b);
+    }
+  }
 }
 
 // A fragment (16 rows, depth 16) from two 16 x 8 accumulator fragments, c0

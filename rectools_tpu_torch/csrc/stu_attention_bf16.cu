@@ -31,14 +31,19 @@
 // sums and in expf's last bit.
 //
 // Products: `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`
-// (bf16_tile.cuh). ds is an f32 sum of two bf16 values and no bf16 value
-// itself, so the products that take it (dq, dk) take it as two bf16 operands,
-// hi = R(ds) and lo = R(ds - hi), whose sum is ds (the sum of two bf16 values
-// leaves a residue of at most 8 significant bits): two products each.
+// (bf16_tile.cuh); at a dim of 8 the products over it (q k^T over ad, dout
+// v^T over lh) take one `mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32`
+// each (`bt::mma_depth`), as exact as the 16-deep step, and the products
+// whose columns run over a dim (a v, ds k, ds^T q, a^T dout) take one
+// 8-column fragment, as at every dim. ds is an f32 sum of two bf16 values
+// and no bf16 value itself, so the products that take it (dq, dk) take it as
+// two bf16 operands, hi = R(ds) and lo = R(ds - hi), whose sum is ds (the sum
+// of two bf16 values leaves a residue of at most 8 significant bits): two
+// products each.
 //
-// Tiles (attention and hidden dims ad, lh in {16, 32, 64}; 8 has no bf16
-// form, ROADMAP §1 item 5): 128 threads, 4 warps; 64-row tiles of one (b, h)
-// staged in shared memory at a pitch of d + 8 bf16 by 16-byte cp.async, the
+// Tiles (attention and hidden dims ad, lh in {8, 16, 32, 64}, each pair):
+// 128 threads, 4 warps; 64-row tiles of one (b, h) staged in shared memory at
+// a pitch of `bt::pitch(d)` bf16 (d + 8; 24 at d = 8) by 16-byte cp.async, the
 // (query, key) tiles of bias and allowed at 72 floats a query row (68 in the
 // dk/dv launch, whose reads run down the query axis), the timeline entries of
 // both tiles. Warp w owns rows 16 w + [0, 16) of its block's own tile; each
@@ -73,7 +78,10 @@
 // and writes ds (113 MB, 0.034 ms). Their products are 1.3-3.3 GFLOP over
 // the pairs the causal mask lets through, under 0.004 ms at 989 TFLOP/s bf16:
 // all three are bound by bytes. As written they are latency-bound: one
-// cp.async stage per step, small blocks, every step behind a barrier.
+// cp.async stage per step, small blocks, every step behind a barrier. At ad =
+// lh = 8 q, k, v and dout shrink fourfold and the (B, L, L) tensors (the f32
+// bias, the buckets, ds) dominate: the forward moves 34 MB (0.010 ms), the
+// backward 43 MB (0.013 ms), the score gradient 75 MB (0.022 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -250,28 +258,22 @@ __device__ __forceinline__ void frag_a_split(const float c0[4], const float c1[4
 }
 
 // acc (16 rows x 64 columns) = a (the warp's A fragments over depth D) times
-// rows [0, 64) of `b` (pitch D + 8), transposed
+// rows [0, 64) of `b` (pitch bt::pitch(D)), transposed
 template <int D>
-__device__ __forceinline__ void product_64(const uint32_t a[D / 16][4], const bf16* b, float acc[8][4]) {
+__device__ __forceinline__ void product_64(const uint32_t a[bt::Depth<D>::kFrags][4], const bf16* b,
+                                           float acc[8][4]) {
 #pragma unroll
-  for (int nf = 0; nf < 8; ++nf)
+  for (int nf = 0; nf < 8; ++nf) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nf][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-    for (int nf = 0; nf < 8; ++nf) {
-      uint32_t bb[2];
-      bt::frag_b<bt::pitch(D)>(b, 8 * nf, 16 * kk, bb);
-      bt::mma(acc[nf], a[kk], bb);
-    }
+    bt::mma_depth<D, bt::pitch(D)>(acc[nf], a, b, 8 * nf);
+  }
 }
 
-// the warp's A fragments of rows r0 + [0, 16) of a tile of pitch D + 8
+// the warp's A fragments of rows r0 + [0, 16) of a tile of pitch bt::pitch(D)
 template <int D>
-__device__ __forceinline__ void frags_a(const bf16* tile, int r0, uint32_t a[D / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) bt::frag_a<bt::pitch(D)>(tile, r0, 16 * kk, a[kk]);
+__device__ __forceinline__ void frags_a(const bf16* tile, int r0, uint32_t a[bt::Depth<D>::kFrags][4]) {
+  bt::frags_a<D, bt::pitch(D)>(tile, r0, a);
 }
 
 // out (16 rows x W) += the warp's 16 x 64 unit `x` (a in bf16 values, as one
@@ -346,7 +348,7 @@ __global__ void __launch_bounds__(kThreads) stu_fwd_bf16_kernel(const Params p) 
 
   float o[LH / 8][4];
   zero_frags<LH>(o);
-  uint32_t qa[AD / 16][4];
+  uint32_t qa[bt::Depth<AD>::kFrags][4];
   bool have_q = false;
   const bool queries_live = timeline_live(tl, q0, L);
   if (queries_live) {
@@ -418,7 +420,7 @@ __global__ void __launch_bounds__(kThreads) stu_dkdv_bf16_kernel(const Params p)
   float dk[AD / 8][4], dv[LH / 8][4];
   zero_frags<AD>(dk);
   zero_frags<LH>(dv);
-  uint32_t ka[AD / 16][4], va[LH / 16][4];
+  uint32_t ka[bt::Depth<AD>::kFrags][4], va[bt::Depth<LH>::kFrags][4];
   bool have_kv = false;
   const bool keys_live = timeline_live(tl, k0, L);
   if (keys_live) {
@@ -515,7 +517,7 @@ __global__ void __launch_bounds__(kThreads) stu_dq_bf16_kernel(const Params p) {
 
   float dq[AD / 8][4];
   zero_frags<AD>(dq);
-  uint32_t qa[AD / 16][4], doa[LH / 16][4];
+  uint32_t qa[bt::Depth<AD>::kFrags][4], doa[bt::Depth<LH>::kFrags][4];
   bool have_q = false;
   const bool queries_live = timeline_live(tl, q0, L);
   if (queries_live) {
@@ -608,7 +610,7 @@ __global__ void __launch_bounds__(kThreads) stu_ds_bf16_kernel(const Params p) {
     tc::cp_wait<0>();
     __syncthreads();
     if (!live) continue;
-    uint32_t qa[AD / 16][4], doa[LH / 16][4];
+    uint32_t qa[bt::Depth<AD>::kFrags][4], doa[bt::Depth<LH>::kFrags][4];
     frags_a<AD>(sh.q, qr, qa);
     frags_a<LH>(sh.dout, qr, doa);
     float mask[8][4];
@@ -732,6 +734,7 @@ int launch(const Params& p, long long n_partials, cudaStream_t stream) {
 template <int AD, Kind K>
 int dispatch_lh(int lh, const Params& p, long long n_partials, cudaStream_t stream) {
   switch (lh) {
+    case 8: return launch<AD, 8, K>(p, n_partials, stream);
     case 16: return launch<AD, 16, K>(p, n_partials, stream);
     case 32: return launch<AD, 32, K>(p, n_partials, stream);
     case 64: return launch<AD, 64, K>(p, n_partials, stream);
@@ -739,11 +742,12 @@ int dispatch_lh(int lh, const Params& p, long long n_partials, cudaStream_t stre
   }
 }
 
-// attention dim `ad` (q, k) and hidden dim `lh` (v, dout) each from {16, 32, 64}
+// attention dim `ad` (q, k) and hidden dim `lh` (v, dout) each from {8, 16, 32, 64}
 template <Kind K>
 int dispatch(int ad, int lh, const Params& p, long long n_partials, cudaStream_t stream) {
   if (p.B <= 0 || p.H <= 0 || p.L <= 0) return 0;
   switch (ad) {
+    case 8: return dispatch_lh<8, K>(lh, p, n_partials, stream);
     case 16: return dispatch_lh<16, K>(lh, p, n_partials, stream);
     case 32: return dispatch_lh<32, K>(lh, p, n_partials, stream);
     case 64: return dispatch_lh<64, K>(lh, p, n_partials, stream);

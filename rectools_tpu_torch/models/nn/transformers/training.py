@@ -74,8 +74,7 @@ the replicated input); the column-sharded tables' bf16 copies are gathered
 over the model group. Every other logit is an f32 sum of bf16 products. The
 validation recall and serving read the f32 weights, as in JAX. Routes
 without a bf16 kernel raise ``NotImplementedError`` naming ROADMAP §1 item
-5 (head dim 8, the bounded-shift and running-max forwards); none runs in
-f32. The loss's bf16 forms take every width of ``SUPPORTED_D``, the models'
+5 (the bounded-shift and running-max forwards); none runs in f32. The loss's bf16 forms take every width of ``SUPPORTED_D``, the models'
 default 256 among them.
 ``compute_dtype="auto"`` resolves to float32 here (JAX: bf16 on a TPU only;
 a standing divergence, ROADMAP §3).

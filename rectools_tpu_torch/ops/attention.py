@@ -24,13 +24,14 @@ float64 as the f32 FMA kernels at these depths); at 8 and 16 in f32 FMA.
 
 bf16 q, k, v (mixed-precision training) take bf16 forms of both kernels in
 ``csrc/attention_bf16.cu`` (``attn_fwd_bf16``, ``attn_bwd_bf16``; launch keys
-``attention_fwd_bf16``, ``attention_bwd_bf16``) at head dims 16, 32 and 64
-(``BF16_HEAD_DIMS``): bf16 tensor-core products with f32 accumulation and the
-rounding points of the JAX package's route below L = 256 (scores rounded to
-bf16 after scale and bias, p rounded before p·v, and in the backward dp, ds
-and the outputs), at every L. Their twins (:func:`attention_bf16_reference`,
-:func:`attention_bwd_bf16_reference`) are that route's math on the bf16
-values in f32. The lse and the bias stay f32; head dim 8 raises.
+``attention_fwd_bf16``, ``attention_bwd_bf16``) at every head dim of
+``SUPPORTED_HEAD_DIMS`` (``BF16_HEAD_DIMS``; at 8 the products over the head
+dim are 8-deep ``mma`` steps): bf16 tensor-core products with f32
+accumulation and the rounding points of the JAX package's route below L =
+256 (scores rounded to bf16 after scale and bias, p rounded before p·v, and
+in the backward dp, ds and the outputs), at every L. Their twins
+(:func:`attention_bf16_reference`, :func:`attention_bwd_bf16_reference`) are
+that route's math on the bf16 values in f32. The lse and the bias stay f32.
 """
 
 import ctypes
@@ -59,7 +60,7 @@ _SIGNATURES_BF16 = {
     "attn_bwd_bf16": (_C,) * 11 + (_I,) * 4 + (_L,) * 21 + _TAIL,
 }
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
-BF16_HEAD_DIMS = (16, 32, 64)
+BF16_HEAD_DIMS = SUPPORTED_HEAD_DIMS
 BF16_TILE = 64  # rows of the bf16 kernels' tiles; the backward sums dq over more key tiles than one in f32 scratch
 # The head dims whose kernels run on the tensor cores (csrc/attention.cu
 # `attn_tensor_cores`), and their tiles: a forward block owns FWD_TILE queries
@@ -226,16 +227,8 @@ def attention_bwd_bf16_reference(
 
 
 def _bf16_inputs(kernel: str, **tensors: torch.Tensor) -> bool:
-    """Whether q, k, v (and dout) are bf16 (a mixed set raises); bf16 inputs
-    also need a head dim the bf16 kernels take."""
-    if _native.same_dtype(kernel, **tensors) != torch.bfloat16:
-        return False
-    dh = tensors["q"].shape[-1]
-    if dh not in BF16_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{kernel}: head dim {dh} has no bf16 kernel (head dims {BF16_HEAD_DIMS}) yet ({_native.BF16_ROADMAP})"
-        )
-    return True
+    """Whether q, k, v (and dout) are bf16 (a mixed set raises)."""
+    return _native.same_dtype(kernel, **tensors) == torch.bfloat16
 
 
 def _check_shapes(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias) -> tp.Tuple[int, int]:

@@ -41,12 +41,13 @@ at three float32 values beyond: 11,455,709, 51,598,328 (the integers
 bf16. Under mixed-precision training q, k, v and dout arrive in bf16 and take
 the bf16 forms of the three kernels (``csrc/stu_attention_bf16.cu``:
 ``stu_fwd_bf16``, ``stu_bwd_bf16`` for dk and dv, ``stu_bwd_dq_bf16`` for dq,
-``stu_ds_bf16``; launch keys of the same names) at attention and hidden dims
-of 16, 32 and 64 (``BF16_HEAD_DIMS``); dim 8 raises on the CPU as on the
-card. bias, allowed and timeline stay f32. The forms round where the JAX
-package's XLA route (``_stu_reference`` and its autodiff, the route its TPU
-users train on below 1 GiB of scores) rounds when it runs on bf16 inputs, as
-XLA on the CPU evaluates it: the score ``s = q·kᵀ + bias`` summed in f32 and
+``stu_ds_bf16``; launch keys of the same names) at every pair of attention
+and hidden dims of ``SUPPORTED_HEAD_DIMS`` (``BF16_HEAD_DIMS``; at 8 the
+products over that dim are 8-deep ``mma`` steps). bias, allowed and
+timeline stay f32. The forms round where the JAX package's XLA route
+(``_stu_reference`` and its autodiff, the route its TPU users train on below
+1 GiB of scores) rounds when it runs on bf16 inputs, as XLA on the CPU
+evaluates it: the score ``s = q·kᵀ + bias`` summed in f32 and
 rounded, the SiLU as ``s · 1 / (1 + exp(−s))`` with each of exp, the sum, the
 reciprocal and the product rounded, the quotient by L (by bf16(L)) rounded,
 the mask multiplied, ``a·v`` summed in f32 and rounded once; in the backward
@@ -109,7 +110,7 @@ _SIGNATURES_BF16 = {
 }
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
 # the attention and hidden dims of the bf16 forms; every bf16 launch tiles by BWD_TILE x BWD_TILE
-BF16_HEAD_DIMS = (16, 32, 64)
+BF16_HEAD_DIMS = SUPPORTED_HEAD_DIMS
 # The backward on the tensor cores: attention and hidden dims both from TC_HEAD_DIMS, two launches
 # (``stu_bwd_f32`` for dk and dv, ``stu_bwd_dq_f32`` for dq) whose blocks own BWD_TILE keys and BWD_TILE
 # queries of one (b, h); other dims take the SIMT kernel, one launch, one block per (b, h).
@@ -380,17 +381,8 @@ def _blhd_empty(b: int, h: int, l: int, d: int, device: torch.device, dtype=torc
 
 
 def _bf16_inputs(kernel: str, **tensors: torch.Tensor) -> bool:
-    """Whether q, k, v (and dout) are bf16 (a mixed set raises ``TypeError``);
-    bf16 inputs also need attention and hidden dims the bf16 forms take."""
-    if _native.same_dtype(kernel, **tensors) != torch.bfloat16:
-        return False
-    ad, lh = tensors["q"].shape[-1], tensors["v"].shape[-1]
-    if ad not in BF16_HEAD_DIMS or lh not in BF16_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{kernel}: attention dim {ad} and hidden dim {lh} have no bf16 kernel (dims {BF16_HEAD_DIMS}) yet "
-            f"({_native.BF16_ROADMAP})"
-        )
-    return True
+    """Whether q, k, v (and dout) are bf16 (a mixed set raises ``TypeError``)."""
+    return _native.same_dtype(kernel, **tensors) == torch.bfloat16
 
 
 def _strides(*tensors: torch.Tensor) -> tp.Tuple[int, ...]:

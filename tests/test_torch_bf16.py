@@ -14,6 +14,8 @@ stated relative to the largest entry and sit between that step and the
 5e-2 of JAX's own bf16 tests (tests/ops/test_softmax_lse.py:64, :196).
 """
 
+import typing as tp
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,7 @@ from rectools_tpu.models.nn.transformers.training import pad_batch as jax_pad_ba
 from rectools_tpu.ops import attention as jax_attention
 from rectools_tpu.ops import layer_norm as jax_layer_norm
 from rectools_tpu.ops import softmax_lse as jax_softmax_lse
+from rectools_tpu.ops import stu_attention as jax_stu
 from rectools_tpu_torch import Columns
 from rectools_tpu_torch.dataset import Dataset
 from rectools_tpu_torch.metrics import HitRate
@@ -276,11 +279,13 @@ def _port_attention(q, k, v, dout, bias, rate, seed):
 @pytest.mark.parametrize(
     "b,h,l,dh,bias_kind,rate",
     [(3, 2, 20, 16, "causal", 0.2), (2, 4, 100, 32, "causal", 0.2), (2, 2, 70, 64, "key_padding", 0.0),
-     (2, 2, 33, 32, "none", 0.1), (2, 2, 100, 32, "key_padding", 0.2)],
+     (2, 2, 33, 32, "none", 0.1), (2, 2, 100, 32, "key_padding", 0.2), (2, 4, 100, 8, "causal", 0.2),
+     (2, 4, 70, 8, "key_padding", 0.0)],
 )
 def test_attention_twins_match_jax_xla_route(b, h, l, dh, bias_kind, rate) -> None:
     """Kernels 2 and 5's bf16 twins against the JAX route below L = 256
-    (``xla_attention``), out and dq, dk, dv, with the same dropout bits."""
+    (``xla_attention``), out and dq, dk, dv, with the same dropout bits; at
+    heads of 8 too (SASRec's and BERT4Rec's n_factors 32 with 4 heads)."""
     q, k, v, dout, bias = _attention_case(b, h, l, dh, bias_kind, l + dh)
     expected = _jax_attention(q, k, v, dout, bias, rate, 11)
     got = _port_attention(q, k, v, dout, bias, rate, 11)
@@ -388,13 +393,13 @@ FIT_CONFIG = dict(n_blocks=2, n_heads=2, n_factors=32, session_max_len=20, batch
 FIT_KWARGS = {"fused_softmax_chunk": 64, "compute_dtype": "bfloat16"}
 N_NEGATIVES = 7
 # The 3-step fits against JAX's bf16 fits (measured on the CPU, and the limit): the epoch's train loss
-# 7.3e-6 to 1.7e-5 relative (limit 1e-4), its validation loss 7.9e-5 to 2.3e-4 (limit 1e-3; one forward of
-# bf16 layers whose roundings differ in places, such as a linear layer's bias added in its product's
-# epilogue). The parameters: Adam moves an entry by up to lr a step whatever its gradient's size, so an
-# entry whose bf16 gradient is rounding noise on both sides (the key-projection biases, and rare items'
-# rows) can part by up to 2 x steps x lr = 6e-3 (5.7e-3 measured): that bounds every entry; the mean over
-# all entries is the real check, 2.1e-5 to 3.5e-5 (limit 1e-4; the port's own bf16 fit sits 1.8e-5 to
-# 3.6e-5 from its f32 fit).
+# 7.3e-6 to 1.7e-5 relative (4.2e-5 at heads of 8; limit 1e-4), its validation loss 1.5e-5 to 2.3e-4
+# (limit 1e-3; one forward of bf16 layers whose roundings differ in places, such as a linear layer's bias
+# added in its product's epilogue). The parameters: Adam moves an entry by up to lr a step whatever its
+# gradient's size, so an entry whose bf16 gradient is rounding noise on both sides (the key-projection
+# biases, and rare items' rows) can part by up to 2 x steps x lr = 6e-3 (5.7e-3 measured): that bounds
+# every entry; the mean over all entries is the real check, 2.1e-5 to 3.8e-5 (limit 1e-4; the port's own
+# bf16 fit sits 1.8e-5 to 3.6e-5 from its f32 fit).
 FIT_LOSS_RTOL = 1e-4
 FIT_VAL_LOSS_RTOL = 1e-3
 FIT_PARAM_TOL = 2 * 3 * FIT_LR
@@ -426,10 +431,15 @@ def _families():
     }
 
 
-def _jax_fit(family: str, df: pd.DataFrame):
+# heads of 8: the transformer config's default 4 heads at n_factors 32
+HEADS_OF_8 = dict(n_factors=32, n_heads=4)
+
+
+def _jax_fit(family: str, df: pd.DataFrame, width: tp.Optional[dict] = None):
     jax_cls, _, jax_kwargs, _ = _families()[family]
     extra = {"negatives_on_device": False} if family == "esasrec" else {}
-    model = jax_cls(**FIT_CONFIG, dropout_rate=0.0, training_module_kwargs={**FIT_KWARGS, **extra}, **jax_kwargs)
+    model = jax_cls(**{**FIT_CONFIG, **(width or {})}, dropout_rate=0.0,
+                    training_module_kwargs={**FIT_KWARGS, **extra}, **jax_kwargs)
     model._build_model_from_dataset(JaxDataset.construct(df))
     tm = model.training_module
     first = jax_pad_batch(next(iter(model.data_preparator.get_dataloader_train(np.random.default_rng(0)))), 32)
@@ -439,10 +449,10 @@ def _jax_fit(family: str, df: pd.DataFrame):
     return start, tm
 
 
-def _port_fit(family: str, df: pd.DataFrame, start, compute_dtype: str = "bfloat16"):
+def _port_fit(family: str, df: pd.DataFrame, start, compute_dtype: str = "bfloat16", width: tp.Optional[dict] = None):
     _, port_cls, _, port_kwargs = _families()[family]
     extra = {"negatives_on_device": False} if family == "esasrec" else {}
-    model = port_cls(**FIT_CONFIG, dropout_rate=0.0, device="cpu",
+    model = port_cls(**{**FIT_CONFIG, **(width or {})}, dropout_rate=0.0, device="cpu",
                      training_module_kwargs={**FIT_KWARGS, "compute_dtype": compute_dtype, **extra}, **port_kwargs)
     model._build_model_from_dataset(Dataset.construct(df))
     tm = model.training_module
@@ -468,7 +478,20 @@ def test_three_step_bf16_fit_matches_jax(fits, family: str) -> None:
     CPU differentiates its XLA loss scan, the port runs kernel 7's bf16
     rounding points, so the two part by bf16 roundings of the gradients.)"""
     df, start, jax_tm = fits[family]
-    model = _port_fit(family, df, start)
+    _check_against_jax_fit(_port_fit(family, df, start), jax_tm, family)
+
+
+def test_three_step_bf16_fit_at_heads_of_8_matches_jax() -> None:
+    """The same for SASRec at n_factors 32 with 4 heads (heads of 8: the bf16
+    forms of kernels 2 and 5 at head dim 8, here their twins)."""
+    df = _fit_frame()
+    start, jax_tm = _jax_fit("sasrec", df, HEADS_OF_8)
+    model = _port_fit("sasrec", df, start, width=HEADS_OF_8)
+    assert model.n_factors // model.n_heads == 8
+    _check_against_jax_fit(model, jax_tm, "sasrec")
+
+
+def _check_against_jax_fit(model, jax_tm, family: str) -> None:
     tm = model.training_module
     assert tm.resolved_compute_dtype == jax_tm.resolved_compute_dtype == "bfloat16"
     assert tm.global_step == jax_tm.global_step == 3
@@ -625,23 +648,32 @@ def _bf16_towers(m: int, n: int, d: int):
 def test_refused_routes_raise_naming_the_roadmap(monkeypatch) -> None:
     """Every route without a bf16 kernel raises ``NotImplementedError`` naming
     ROADMAP §1 item 5, on the CPU as on the card: none runs in f32 or through
-    a twin. The loss routes at D = 16 and 256, which raised before they had
-    bf16 forms, now run: the same calls against their twins, and against JAX
-    in interpret mode where a route has a JAX kernel."""
+    a twin. The routes that raised before they had bf16 forms now run: the
+    loss routes at D = 16 and 256, against their twins and against JAX in
+    interpret mode where a route has a JAX kernel; attention and STU
+    attention at head dim 8, against JAX's XLA route and ``_stu_reference``."""
     s, items = _bf16_towers(300, 5000, 32)
     z, coeff, y = torch.zeros(300), torch.full((300,), 1e-3), torch.ones(300, dtype=torch.int64)
     narrow = _bf16_towers(8, 3000, 16)
     wide = _bf16_towers(8, 3000, 256)
-    refused = {
-        "bounded shift (kernel 16)": lambda: softmax_lse.streaming_lse(s, items, bounded_shift=True),
-        "head dim 8": lambda: attention.attention_fwd(*(_t(np.ones((1, 2, 4, 8)), BF16),) * 3, None, 0.3),
-        "STU at head dim 8 (kernels 17-19)": lambda: stu_attention.stu_fwd(
-            *(_t(np.ones((1, 2, 4, 8)), BF16),) * 3, None, torch.ones((4, 4), dtype=torch.bool),
-            torch.ones((1, 4), dtype=torch.bool)),
-    }
-    for what, call in refused.items():
-        with pytest.raises(NotImplementedError, match=ROADMAP):
-            call()
+    with pytest.raises(NotImplementedError, match=ROADMAP):
+        softmax_lse.streaming_lse(s, items, bounded_shift=True)  # kernel 16
+    # what raised at head dim 8 runs: kernel 2's bf16 form (its twin here) against JAX's XLA route ...
+    q, k, v, _, _ = _attention_case(1, 2, 6, 8, "none", 8)
+    out, _ = attention.attention_fwd(*(_t(x, BF16).transpose(1, 2) for x in (q, k, v)), None, 0.3)
+    expected = jax_attention.dot_product_attention(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), None, 0.3,
+                                                   use_fused=False)
+    assert out.dtype == BF16 and _rel(_np(out.transpose(1, 2)), _np(expected)) <= ATTN_TOL
+    # ... and kernel 17's against _stu_reference (no time or position bias: the bias is 0)
+    l, rng = 6, np.random.default_rng(8)
+    q, k, v = (_bf16_np(0.5 * rng.normal(size=(1, 2, l, 8))) for _ in range(3))
+    timeline, allowed = np.ones((1, l), np.float32), np.tril(np.ones((l, l), np.float32))
+    out = stu_attention.stu_fwd(*(_t(x, BF16) for x in (q, k, v)), torch.zeros((1, l, l)), _t(allowed[None]),
+                                _t(timeline))
+    expected = jax_stu._stu_reference(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                      jnp.zeros((1, l + 1), jnp.int32), jnp.asarray(timeline, jnp.bfloat16), None,
+                                      None, jnp.asarray(allowed, jnp.bfloat16), 128, False, False)
+    assert out.dtype == BF16 and _rel(_np(out), _np(expected)) <= ATTN_TOL
     with monkeypatch.context() as mp:
         mp.setattr(softmax_lse, "USE_PARTIALS_FWD", False)
         with pytest.raises(NotImplementedError, match="kernel 15"):
@@ -676,15 +708,21 @@ def test_refused_routes_raise_naming_the_roadmap(monkeypatch) -> None:
 
 
 def test_refused_models_raise_naming_the_roadmap() -> None:
-    """HSTU at head dim 8 (n_factors 16, 2 heads) refuses bf16 compute. A mesh
-    fit at width 16, which raised before the mesh loss's kernels 8-11 had bf16
-    forms at that width, now fits on their twins and tracks the bf16 fit
+    """The model fits that raised before their bf16 forms existed now run. HSTU
+    at head dim 8 (n_factors 16, 2 heads: kernels 17-19 at ad = lh = 8) fits in
+    bf16 and tracks its f32 fit from the same seed. A mesh fit at width 16
+    fits on the twins of the mesh loss's kernels 8-11 and tracks the bf16 fit
     without a mesh (kernels 6 and 7) from the same seed."""
     dataset, _ = _cyclic_dataset(n_users=10, session_len=4)
-    hstu = HSTUModel(n_blocks=1, n_heads=2, n_factors=16, session_max_len=6, epochs=1, batch_size=8, device="cpu",
-                     training_module_kwargs={"compute_dtype": "bfloat16"}, relative_time_attention=False)
-    with pytest.raises(NotImplementedError, match=ROADMAP):
+    hstu_losses = {}
+    for dtype in ("bfloat16", "float32"):
+        hstu = HSTUModel(n_blocks=1, n_heads=2, n_factors=16, session_max_len=6, epochs=1, batch_size=8,
+                         device="cpu", training_module_kwargs={"compute_dtype": dtype}, relative_time_attention=False)
         hstu.fit(dataset)
+        assert hstu.training_module.resolved_compute_dtype == dtype
+        hstu_losses[dtype] = hstu.training_module.train_loss_history
+    assert np.isfinite(hstu_losses["bfloat16"]).all() and hstu_losses["bfloat16"] != hstu_losses["float32"]
+    np.testing.assert_allclose(hstu_losses["bfloat16"], hstu_losses["float32"], rtol=2e-2)
     losses = {}
     for name, extra in (("mesh", {"mesh_shape": (1, 1)}), ("plain", {})):
         model = SASRecModel(n_blocks=1, n_heads=1, n_factors=16, session_max_len=6, epochs=1, batch_size=8,

@@ -1496,10 +1496,13 @@ def test_cuda_bf16_lse_and_ce_grads_match_twin(cuda: torch.device, m: int, n: in
 @pytest.mark.gpu
 @pytest.mark.parametrize("l,dh,bias_kind,rate", [(100, 32, "causal", 0.2), (12, 16, "none", 0.0),
                                                  (200, 64, "key_padding", 0.2), (37, 32, "bidirectional", 0.2),
-                                                 (100, 32, "masked_row", 0.0), (130, 64, "causal", 0.0)])
+                                                 (100, 32, "masked_row", 0.0), (130, 64, "causal", 0.0),
+                                                 (100, 8, "causal", 0.2), (70, 8, "key_padding", 0.0),
+                                                 (37, 8, "masked_row", 0.2)])
 def test_cuda_bf16_attention_matches_twin(cuda: torch.device, l: int, dh: int, bias_kind: str, rate: float) -> None:
     """Kernels 2 and 5's bf16 forms against their twins on the card: out and
-    lse, dq, dk and dv, launched once each, the same bits on a rerun."""
+    lse, dq, dk and dv, launched once each, the same bits on a rerun; at
+    heads of 8 too (the 8-deep products over the head dim)."""
     rng = np.random.default_rng(l + dh)
     b, h, seed, bf = 3, 4, 123457, torch.bfloat16
     q, k, v, dout = (_blhd(rng, b, l, h, dh, cuda).to(bf) for _ in range(4))
@@ -1561,6 +1564,14 @@ def test_cuda_bf16_fit_matches_cpu(cuda: torch.device, family: str) -> None:
     f32 master weights within 1e-4 on average (Adam moves a noise-level entry
     by up to lr a step on either side)."""
     _bf16_fit_card_against_cpu(cuda, family, n_factors=64, n_heads=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["sasrec", "bert4rec"])
+def test_cuda_bf16_fit_at_heads_of_8_matches_cpu(cuda: torch.device, family: str) -> None:
+    """The same at n_factors 32 with the default 4 heads: attention's bf16
+    forms at head dim 8 on the card."""
+    _bf16_fit_card_against_cpu(cuda, family, n_factors=32, n_heads=4)
 
 
 @pytest.mark.gpu
@@ -1633,15 +1644,16 @@ STU_BF16_KEYS = ("stu_fwd_bf16", "stu_bwd_bf16", "stu_bwd_dq_bf16", "stu_ds_bf16
 @pytest.mark.parametrize(
     "b,h,l,ad,lh,per_row_allowed",
     [(512, 4, 100, 32, 32, False), (64, 4, 1024, 32, 32, False), (3, 2, 77, 16, 64, True), (2, 2, 130, 64, 16, False),
-     (3, 4, 7, 32, 32, True), (2, 2, 190, 64, 64, True), (2, 2, 100, 16, 16, False)],
+     (3, 4, 7, 32, 32, True), (2, 2, 190, 64, 64, True), (2, 2, 100, 16, 16, False), (512, 4, 100, 8, 8, False),
+     (3, 2, 77, 8, 16, True), (2, 2, 130, 16, 8, False)],
 )
 def test_cuda_bf16_stu_kernels_match_twins(
     cuda: torch.device, b: int, h: int, l: int, ad: int, lh: int, per_row_allowed: bool
 ) -> None:
     """The four bf16 launches of kernels 17-19 against their twins on the
     card, at the HSTU training shape, at L = 1,024 and at ragged lengths and
-    mixed head dims: one launch each and none of the f32 forms, a fully
-    padded row of zeros, the same bits on a rerun."""
+    mixed head dims, dims of 8 among them: one launch each and none of the
+    f32 forms, a fully padded row of zeros, the same bits on a rerun."""
     bf = torch.bfloat16
     q, k, v, dout, bias, allowed, timeline, buckets = _stu_inputs(b, h, l, ad, lh, cuda, per_row_allowed)
     q, k, v, dout = (t.to(bf) for t in (q, k, v, dout))
@@ -1668,19 +1680,23 @@ def test_cuda_bf16_stu_kernels_match_twins(
 
 @pytest.mark.gpu
 def test_cuda_bf16_stu_refuses_mixed_dtypes_and_head_dim_8(cuda: torch.device) -> None:
-    """A bf16 / f32 operand set raises TypeError and heads of 8 in bf16 raise
-    NotImplementedError naming the roadmap, before anything launches."""
-    q, k, v, dout, bias, allowed, timeline, _ = _stu_inputs(2, 2, 20, 16, 16, cuda, False)
+    """A bf16 / f32 operand set raises TypeError before anything launches.
+    Heads of 8 in bf16, which raised NotImplementedError before their forms
+    existed, launch kernel 19's bf16 form and match its twin."""
+    q, k, v, dout, bias, allowed, timeline, buckets = _stu_inputs(2, 2, 20, 16, 16, cuda, False)
     bf = torch.bfloat16
     before = dict(_native.LAUNCHES)
     with pytest.raises(TypeError, match="mixed operand dtypes"):
         stu_attention.stu_fwd(q.to(bf), k, v.to(bf), bias, allowed, timeline)
     with pytest.raises(TypeError, match="mixed operand dtypes"):
         stu_attention.stu_bwd(q.to(bf), k.to(bf), v.to(bf), bias, allowed, timeline, dout)
-    q8 = q[..., :8].contiguous().to(bf)
-    with pytest.raises(NotImplementedError, match=_native.BF16_ROADMAP):
-        stu_attention.stu_ds(q8, q8, v.to(bf), bias, allowed, timeline, dout.to(bf))
     assert dict(_native.LAUNCHES) == before
+    q8 = q[..., :8].contiguous().to(bf)
+    args = (q8, q8, v.to(bf), bias, allowed, timeline, dout.to(bf), buckets, 129)
+    got = stu_attention.stu_ds(*args)
+    assert _native.LAUNCHES["stu_ds_bf16"] - before["stu_ds_bf16"] == 1
+    for g, e in zip(got, stu_attention.stu_ds_bf16_reference(*args)):
+        assert _max_rel(g, e) <= BF16_STU_RTOL
 
 
 # Kernels 8-11 in bf16 (the mesh loss on bf16 towers): the lse relative per row; ds and di (f32, before the

@@ -22,13 +22,14 @@ here (largest over the cases) and set with headroom:
   4.4e-3, where JAX's two branches are 4.9e-3 apart, limit 1e-2;
 - a 3-step bf16 fit against JAX's bf16 fit, whose layer off the TPU rounds
   q·kᵀ before adding the bias and keeps the attention output in f32: the
-  train loss 1.6e-6 (limit 1e-4), the validation loss 3.8e-5 (limit 1e-3),
-  the mean parameter gap 1.8e-5 (limit 1e-4), every entry within 2 x steps x
-  lr (Adam moves an entry whose gradient is rounding noise by up to lr a
-  step; 3.2e-3 measured).
+  train loss 1.6e-6 (1.2e-5 at heads of 8; limit 1e-4), the validation loss
+  3.8e-5 (2.5e-5; limit 1e-3), the mean parameter gap 1.8e-5 (1.8e-5; limit
+  1e-4), every entry within 2 x steps x lr (Adam moves an entry whose
+  gradient is rounding noise by up to lr a step; 3.2e-3 measured, 2.2e-3).
 """
 
 import types
+import typing as tp
 
 import jax
 import jax.numpy as jnp
@@ -47,7 +48,7 @@ from rectools_tpu_torch.dataset import Dataset
 from rectools_tpu_torch.models import HSTUModel
 from rectools_tpu_torch.models.nn.transformers import flax_params_to_state_dict
 from rectools_tpu_torch.models.nn.transformers.hstu import STULayer
-from rectools_tpu_torch.ops import _native, layer_norm, stu_attention
+from rectools_tpu_torch.ops import layer_norm, stu_attention
 
 BF16 = torch.bfloat16
 JBF16 = jnp.bfloat16
@@ -122,13 +123,14 @@ BIASES = [(True, True), (True, False), (False, True), (False, False)]
 
 @pytest.mark.parametrize(
     "l,ad,lh,use_time,use_pos",
-    [(100, 16, 32, *b) for b in BIASES] + [(77, 32, 16, *b) for b in BIASES] + [(257, 16, 16, True, True)],
+    [(100, 16, 32, *b) for b in BIASES] + [(77, 32, 16, *b) for b in BIASES] + [(257, 16, 16, True, True)]
+    + [(100, 8, 8, True, True), (77, 8, 16, True, False), (100, 16, 8, False, True)],
 )
 def test_twins_match_jax_reference(l: int, ad: int, lh: int, use_time: bool, use_pos: bool) -> None:
     """Kernels 17 and 18's twins and the table gradients from kernel 19's
     against ``_stu_reference`` and its VJP: L = 100, L = 77 (no multiple of
     64) and L = 257 (whose bf16 is 256: both sides divide by it), with and
-    without each bias."""
+    without each bias, and at dims of 8 (HSTU's n_factors 32 with 4 heads)."""
     b, h = (2, 1) if l > 200 else (3, 2)
     x = _inputs(b, h, l, ad, lh, seed=l + ad)
     got = _port_grads(x, use_time, use_pos)
@@ -291,17 +293,25 @@ def _fit_frame() -> pd.DataFrame:
     ).astype({Columns.Datetime: "datetime64[ns]"})  # the unit the JAX package's unix seconds assume
 
 
-@pytest.fixture(scope="module")
-def jax_fit():
+# heads of 8: attention and hidden dims n_factors / n_heads = 8
+HEADS_OF_8 = dict(n_factors=16, n_heads=2)
+
+
+def _jax_hstu_fit(width: tp.Optional[dict] = None):
     """JAX's bf16 HSTU fit on the CPU (its layer's materialized branch) and its start."""
     df = _fit_frame()
-    model = JaxHSTUModel(**FIT_CONFIG, training_module_kwargs=FIT_KWARGS)
+    model = JaxHSTUModel(**{**FIT_CONFIG, **(width or {})}, training_module_kwargs=FIT_KWARGS)
     model._build_model_from_dataset(JaxDataset.construct(df))
     tm = model.training_module
     tm.init_params(jax_pad_batch(next(iter(model.data_preparator.get_dataloader_train(np.random.default_rng(0)))), 32))
     start = jax.tree.map(np.array, tm.params)
     tm.fit(model.data_preparator.get_dataloader_train, model.data_preparator.get_dataloader_val, max_epochs=1)
     return df, start, tm
+
+
+@pytest.fixture(scope="module")
+def jax_fit():
+    return _jax_hstu_fit()
 
 
 def _port_model(df: pd.DataFrame, start, compute_dtype: str = "bfloat16", **kwargs) -> HSTUModel:
@@ -323,7 +333,19 @@ def test_three_step_hstu_bf16_fit_matches_jax(jax_fit) -> None:
     the same converted start: losses and the f32 master parameters follow
     JAX's bf16 fit."""
     df, start, jax_tm = jax_fit
-    model = _port_model(df, start)
+    _check_against_jax_fit(_port_model(df, start), jax_tm)
+
+
+def test_three_step_hstu_bf16_fit_at_heads_of_8_matches_jax() -> None:
+    """The same at n_factors 16 with 2 heads: kernels 17-19's bf16 forms at
+    attention and hidden dims of 8 (here their twins)."""
+    df, start, jax_tm = _jax_hstu_fit(HEADS_OF_8)
+    model = _port_model(df, start, **HEADS_OF_8)
+    assert model.backbone.transformer_layers.blocks[0].attention_dim == 8
+    _check_against_jax_fit(model, jax_tm)
+
+
+def _check_against_jax_fit(model: HSTUModel, jax_tm) -> None:
     tm = _fit(model)
     assert tm.resolved_compute_dtype == jax_tm.resolved_compute_dtype == "bfloat16"
     assert tm.global_step == jax_tm.global_step == 3
@@ -400,17 +422,34 @@ def test_wrappers_refuse_mixed_dtypes() -> None:
 
 
 def test_head_dim_8_raises_naming_the_roadmap() -> None:
-    """bf16 at a head dim of 8 raises NotImplementedError naming the roadmap
-    in each wrapper and in an HSTU fit (n_factors 16, 2 heads); f32 at that
-    head dim still runs."""
-    args = _small(d=8)
-    for call in (lambda: stu_attention.stu_fwd(*args[:6]), lambda: stu_attention.stu_bwd(*args),
-                 lambda: stu_attention.stu_ds(*args)):
-        with pytest.raises(NotImplementedError, match=_native.BF16_ROADMAP):
-            call()
-    assert stu_attention.stu_fwd(*(a.float() for a in args[:6])).dtype == torch.float32
+    """bf16 at a head dim of 8, which raised NotImplementedError before the
+    bf16 forms took it, now runs: kernels 17 and 18 at (ad, lh) = (8, 8)
+    against ``_stu_reference`` and its VJP (19's ds at 8 is held to JAX
+    through the table gradients of ``test_twins_match_jax_reference``), f32
+    at that dim as before, and an HSTU fit (n_factors 16, 2 heads) to a
+    finite loss in bf16."""
+    q, k, v, bias, allowed, timeline, dout = _small(d=8)
+    out = stu_attention.stu_fwd(q, k, v, bias, allowed, timeline)
+    dq, dk, dv = stu_attention.stu_bwd(q, k, v, bias, allowed, timeline, dout)
+    ds, _ = stu_attention.stu_ds(q, k, v, bias, allowed, timeline, dout)
+    assert out.dtype == dq.dtype == BF16 and ds.dtype == torch.float32
+    l = q.shape[2]
+
+    def f(q_, k_, v_):
+        return jax_stu._stu_reference(q_, k_, v_, jnp.zeros((1, l + 1), jnp.int32), jnp.asarray(timeline, JBF16),
+                                      None, None, jnp.asarray(allowed[0], JBF16), NUM_BUCKETS, False, False)
+
+    def with_vjp(*args):
+        y, vjp = jax.vjp(f, *args)
+        return (y, *vjp(jnp.asarray(dout.float().numpy(), JBF16)))
+
+    expected = jax.jit(with_vjp)(*(jnp.asarray(t.float().numpy(), JBF16) for t in (q, k, v)))
+    for name, g, e in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv), expected):
+        assert _rel(g, e) <= TWIN_TOL, (name, _rel(g, e))
+    assert stu_attention.stu_fwd(*(a.float() for a in (q, k, v, bias, allowed, timeline))).dtype == torch.float32
     dataset = Dataset.construct(_fit_frame())
     hstu = HSTUModel(n_blocks=1, n_heads=2, n_factors=16, session_max_len=6, epochs=1, batch_size=8, device="cpu",
                      training_module_kwargs={"compute_dtype": "bfloat16"})
-    with pytest.raises(NotImplementedError, match=_native.BF16_ROADMAP):
-        hstu.fit(dataset)
+    hstu.fit(dataset)
+    assert hstu.training_module.resolved_compute_dtype == "bfloat16"
+    assert np.isfinite(hstu.training_module.train_loss_history).all()
