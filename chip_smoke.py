@@ -301,12 +301,18 @@ own lines; any failure exits nonzero and prints no result:
              kernels include the bf16 forms and no f32 attention, STU or loss
              kernel and no library attention or cross-entropy, losses within
              2e-2 and HitRate@10 on the held-out last items within 0.03 of the
-             f32 fit's, train examples/s of both. (c) one bf16 epoch through
-             fit of BERT4Rec and of eSASRec with shared negatives. (d) every
-             route without a bf16 kernel raises NotImplementedError naming
-             ROADMAP §1 item 5 and launches nothing (the loss routes at width
-             16); an HSTU fit at heads of
-             8 raises so before any STU launch. Prints the phase's wall.
+             f32 fit's, train examples/s of both; LayerNorm through its bf16
+             forms (5 + 5 a SASRec step, 4 + 4 an HSTU step) and no f32
+             LayerNorm in a bf16 step, the profiled step's copy kernels
+             counted. (c) one bf16 epoch through fit of BERT4Rec and of
+             eSASRec with shared negatives. (d) ``bf16 lse and layer norm``:
+             the bf16 forms of kernels 15 and 16 through the public
+             streaming_lse at 51,200 x 15,872 x {128, 16, 256}, and of kernels 1
+             and 4 at 51,200 x {16, 128, 256} and a ragged row count, each
+             against its twin (1 and 4 bit-equal to the f32 kernels on the
+             widened operands), the same bits on a rerun, timed beside its f32
+             form, the library call in bf16 and its bound. Prints the phase's
+             wall.
 
 Output, last lines: one JSON object with every kernel's numbers, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -1455,8 +1461,11 @@ def profile_phase(torch, recommend) -> dict:
         reverse=True,
     )
     device_ms = sum(r[0] for r in rows) / 1e3
+    copies = [r for r in rows if "direct_copy_kernel" in r[2]]  # dtype casts and contiguous copies
+    copy_count, copy_ms = sum(r[1] for r in copies), sum(r[0] for r in copies) / 1e3
     print(f"profile: {device_ms:.2f} ms of device work in a {wall_ms:.1f} ms call, "
-          f"busy share {device_ms / wall_ms:.4f}")
+          f"busy share {device_ms / wall_ms:.4f}; {copy_count} copy kernels (casts, contiguous copies) "
+          f"{copy_ms:.3f} ms")
     for us, count, name in rows[:12]:
         print(f"profile: device {us / 1e3:8.3f} ms x{count:<3d} {name[:90]}")
 
@@ -1469,7 +1478,8 @@ def profile_phase(torch, recommend) -> dict:
     for line in out.getvalue().splitlines():
         if "rectools_tpu_torch" in line or "{method" in line:
             print(f"profile: host {line.strip()}")
-    return {"profiled_wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms}
+    return {"profiled_wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+            "copy_kernels": copy_count, "copy_ms": copy_ms}
 
 
 def later_context(np, pd, dataset):
@@ -3373,11 +3383,11 @@ def large_fit_phase(torch, np, pd, port, dev, n_item_ids: int = LARGE_N_ITEM_IDS
         names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
         wanted = ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel", "split_ds_bf16_kernel",
                   "split_di_bf16_kernel")
-        missing = [k for k in wanted if not any(k in name for name in names)]
-        banned = [name for name in names if any(k in name for k in (*BF16_BANNED_KERNELS, "ce_fused_bf16_kernel"))]
+        missing, banned = bf16_step_kernels(names, wanted, (*BF16_BANNED_KERNELS, "ce_fused_bf16_kernel"))
         check(not missing and not banned, f"a {tag} step's device kernels: missing {missing}, banned {banned}")
-        print(f"{tag}: a profiled step ran {len(names)} device kernels, the bf16 split kernels among them, no one "
-              f"pass, no f32 loss or attention kernel, no library attention or cross-entropy")
+        print(f"{tag}: a profiled step ran {len(names)} device kernels, the bf16 split kernels and LayerNorm's bf16 "
+              f"forms among them, no one pass, no f32 loss, attention or LayerNorm kernel, no library attention or "
+              f"cross-entropy")
     print(f"{tag}: profile of one train step")
     profile = profile_phase(torch, lambda: tm._train_step(batch))
 
@@ -3661,13 +3671,12 @@ def bf16_mesh_fit(torch, np, port, dataset, dev, bf16_plain: dict, backend: str)
     loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
     batch = tm._device_batch(tm._local_batch(pad_batch(next(iter(loader)), TRAIN_B)))
     names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
-    missing = [k for k in BF16_DEVICE_KERNELS if not any(k in name for name in names)]
-    banned = [name for name in names if any(k in name for k in BF16_BANNED_KERNELS)]
+    missing, banned = bf16_step_kernels(names, BF16_DEVICE_KERNELS, BF16_BANNED_KERNELS)
     if dev != "cpu":
         check(not missing and not banned, f"a bf16 mesh step's device kernels: missing {missing}, f32 or library "
                                           f"{banned}")
         print(f"bf16 mesh fit: a profiled step ran {len(names)} device kernels, the bf16 forms among them, no f32 "
-              f"attention or loss kernel, no library attention or cross-entropy")
+              f"attention, loss or LayerNorm kernel, no library attention or cross-entropy")
     budget = softmax_lse.FUSED_BWD_PARTIALS_BUDGET
     softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 0
     port.reset_launches()
@@ -4299,6 +4308,20 @@ BF16_HSTU_DEVICE_KERNELS = ("stu_fwd_bf16_kernel", "stu_dkdv_bf16_kernel", "stu_
                             "lse_partials_bf16_kernel", "ce_fused_bf16_kernel")
 BF16_HSTU_BANNED_KERNELS = ("stu_fwd_tc_kernel", "stu_fwd_kernel", "stu_dkdv_tc_kernel", "stu_dq_tc_kernel",
                             "stu_ds_tc_kernel", "stu_bwd_kernel", "stu_ds_kernel", *BF16_BANNED_KERNELS)
+
+
+def bf16_step_kernels(names, wanted, banned_keys) -> tuple:
+    """(missing, banned) of a bf16 step's device kernel ``names``: each of
+    ``wanted`` and of LayerNorm's bf16 forms (``ln_fwd_kernel``,
+    ``ln_bwd_kernel`` on ``__nv_bfloat16``) that no name holds, and each name
+    that holds one of ``banned_keys`` or is an f32 LayerNorm kernel."""
+    norms = [name for name in names if "ln_fwd_kernel" in name or "ln_bwd_kernel" in name]
+    missing = [k for k in wanted if not any(k in name for name in names)]
+    missing += [f"{k} (bf16)" for k in ("ln_fwd_kernel", "ln_bwd_kernel")
+                if not any(k in name and "bfloat16" in name for name in norms)]
+    banned = [name for name in names
+              if any(k in name for k in banned_keys) or (name in norms and "bfloat16" not in name)]
+    return missing, banned
 
 
 # kernels 8-11 in bf16 (the mesh loss on bf16 towers) against their twins: the lse relative per row (BF16_LSE_RTOL);
@@ -4994,16 +5017,17 @@ def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B, d: int = N_FACTORS,
 
 def _bf16_fit_launches(port, steps: int, val_forwards: int, with_loss: bool = True, family: str = "sasrec") -> dict:
     """Every launch count of a bf16 fit: per step the bf16 attention forms (HSTU:
-    the bf16 STU forms, 18 in two launches, and 19) and, with the full-catalog
-    loss, the bf16 loss forms, LayerNorm's f32 kernels; per validation batch one
-    bf16 forward (the loss) and one f32 forward (the recall), as the JAX package
-    reads its bf16 and f32 weights."""
+    the bf16 STU forms, 18 in two launches, and 19), LayerNorm's bf16 forms
+    and, with the full-catalog loss, the bf16 loss forms; per validation batch
+    one bf16 forward (the loss) and one f32 forward (the recall, LayerNorm's
+    f32 kernel among it), as the JAX package reads its bf16 and f32 weights."""
     hstu = family == "hstu"
     norms = 2 * N_BLOCKS + (not hstu)
     fwd, fwd_f32 = ("stu_fwd_bf16", "stu_fwd") if hstu else ("attention_fwd_bf16", "attention_fwd")
     expected = {name: 0 for name in port.LAUNCHES}
     expected.update({fwd: N_BLOCKS * (steps + val_forwards), fwd_f32: N_BLOCKS * val_forwards,
-                     "layer_norm_fwd": norms * (steps + 2 * val_forwards), "layer_norm_bwd": norms * steps})
+                     "layer_norm_fwd_bf16": norms * (steps + val_forwards), "layer_norm_fwd": norms * val_forwards,
+                     "layer_norm_bwd_bf16": norms * steps})
     if hstu:
         expected.update(stu_bwd_bf16=N_BLOCKS * steps, stu_bwd_dq_bf16=N_BLOCKS * steps, stu_ds_bf16=N_BLOCKS * steps)
     else:
@@ -5078,14 +5102,17 @@ def bf16_fit_phase(torch, np, port, df, dataset, dev, f32: dict, family: str = "
     names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
     wanted, banned_keys = ((BF16_HSTU_DEVICE_KERNELS, BF16_HSTU_BANNED_KERNELS) if hstu
                            else (BF16_DEVICE_KERNELS, BF16_BANNED_KERNELS))
-    missing = [k for k in wanted if not any(k in name for name in names)]
-    banned = [name for name in names if any(k in name for k in banned_keys)]
+    missing, banned = bf16_step_kernels(names, wanted, banned_keys)
     check(not missing and not banned,
           f"a {tag} step's device kernels: missing {missing}, f32 or library {banned}")
-    print(f"{tag}: a profiled step ran {len(names)} device kernels, the {len(wanted)} bf16 forms among them, no f32 "
-          f"{'STU' if hstu else 'attention'} or loss kernel, no library attention or cross-entropy")
+    print(f"{tag}: a profiled step ran {len(names)} device kernels, the {len(wanted)} bf16 forms and LayerNorm's "
+          f"bf16 forms among them, no f32 {'STU' if hstu else 'attention'}, loss or LayerNorm kernel, no library "
+          f"attention or cross-entropy")
     print(f"{tag}: profile of one train step")
     profile = profile_phase(torch, lambda: tm._train_step(batch))
+    print(f"{tag}: the profiled step ran {profile['copy_kernels']} copy kernels in {profile['copy_ms']:.3f} ms on the "
+          f"device (a bf16 SASRec step at d = 128 with LayerNorm widened to its f32 kernels, counted by this "
+          f"profile: 80 copy kernels, 0.77 ms; PERF.md §6)")
     step = {}
     if width:  # one step's loss gradients of the trained towers: kernel 7's one pass against its twin
         backbone, d = model.backbone.eval(), config["n_factors"]
@@ -5127,7 +5154,7 @@ def bf16_family_phase(torch, np, port, dataset, dev) -> dict:
         norms = 2 * N_BLOCKS  # Pre-LN and LiGR blocks: two LayerNorms each, no closing one
         expected = {name: 0 for name in port.LAUNCHES}
         expected.update(attention_fwd_bf16=N_BLOCKS * steps, attention_bwd_bf16=N_BLOCKS * steps,
-                        layer_norm_fwd=norms * steps, layer_norm_bwd=norms * steps)
+                        layer_norm_fwd_bf16=norms * steps, layer_norm_bwd_bf16=norms * steps)
         if family == "bert4rec":
             expected.update(lse_partials_fwd_bf16=steps, ce_grads_fused_bf16=steps)
         check(launches == expected, f"launches in the bf16 {family} fit {launches}, expected {expected}")
@@ -5137,49 +5164,192 @@ def bf16_family_phase(torch, np, port, dataset, dev) -> dict:
     return out
 
 
-def bf16_refusals_phase(torch, dev) -> dict:
-    """(d) of the ``bf16`` phase: every route without a bf16 kernel raises
-    NotImplementedError naming ROADMAP §1 item 5 on the card: the
-    bounded-shift (16) and running-max (15) forwards, also at the widths 16
-    and 256, where every other loss route runs. (Head dim 8, which raised
-    here before its bf16 forms existed, runs in ``bf16 narrow heads``.)"""
-    from rectools_tpu_torch.ops import _native, softmax_lse
+# kernels 1 and 4 in bf16 against their twins, relative to the largest entry: one bf16 step where the card's f32
+# row sums, in another order than the twin's, straddle a rounding boundary (against the f32 kernels on the widened
+# operands they are bit-equal, and checked so)
+BF16_LN_RTOL = 2 ** -8
+LSE_LN_BF16_WIDTHS = (N_FACTORS, 16, 256)  # the training width first: its result keys carry no suffix
+LSE_LN_BF16_ENTRIES = ("layer_norm_fwd_bf16", "layer_norm_bwd_bf16", "lse_fwd_bf16", "lse_shift_fwd_bf16")
 
-    bf = torch.bfloat16
-    s = torch.randn((300, 32), device=dev).to(bf)
-    items = torch.randn((5000, 32), device=dev).to(bf)
 
-    def kernel_15(s_, items_):
-        def run():
-            softmax_lse.USE_PARTIALS_FWD = False
-            try:
-                softmax_lse.streaming_lse(s_, items_)
-            finally:
-                softmax_lse.USE_PARTIALS_FWD = True
-        return run
+def _lse_bf16_cases(torch, softmax_lse, s, items, sfx: str) -> dict:
+    """Kernels 15 and 16's bf16 forms through the public streaming_lse on bf16
+    towers: each against its twin per row (BF16_LSE_RTOL), the same bits on a
+    rerun, timed beside its f32 form on the widened values, its twin on the
+    card, torch.logsumexp of the bf16 product and its bound."""
+    m, d = s.shape
+    n = items.shape[0]
+    s32, items32 = s.float(), items.float()
+    products, exps = 2 * m * n * d, m * n
+    n_chunks = -(-n // softmax_lse.LSE_CHUNK)
+    out = {}
 
-    narrow, narrow_items = torch.ones((8, 16), device=dev, dtype=bf), torch.ones((3000, 16), device=dev, dtype=bf)
-    wide, wide_items = torch.ones((8, 256), device=dev, dtype=bf), torch.ones((3000, 256), device=dev, dtype=bf)
-    refused = {
-        "bounded shift (kernel 16)": lambda: softmax_lse.streaming_lse(s, items, bounded_shift=True),
-        "bounded shift (kernel 16) at d = 16": lambda: softmax_lse.streaming_lse(narrow, narrow_items,
-                                                                                 bounded_shift=True),
-        "running max (kernel 15)": kernel_15(s, items),
-        "running max (kernel 15) at d = 256": kernel_15(wide, wide_items),
-    }
-    before = dict(_native.LAUNCHES)
-    for what, call in refused.items():
+    def carried(a, b):
+        softmax_lse.USE_PARTIALS_FWD = False
         try:
-            call()
-        except NotImplementedError as err:
-            check(_native.BF16_ROADMAP in str(err), f"bf16 {what}: the refusal does not name the roadmap: {err}")
-            continue
-        raise SmokeFailure(f"bf16 {what}: ran instead of raising NotImplementedError")
-    check(dict(_native.LAUNCHES) == before, "a refused bf16 route launched a kernel")
-    refused_names = list(refused)
-    print(f"bf16 refusals: {len(refused_names)} routes without a bf16 kernel raise NotImplementedError naming "
-          f"{_native.BF16_ROADMAP}: {', '.join(refused_names)}")
-    return {"refused": refused_names}
+            return softmax_lse.streaming_lse(a, b)
+        finally:
+            softmax_lse.USE_PARTIALS_FWD = True
+
+    def shifted(a, b):
+        return softmax_lse.streaming_lse(a, b, bounded_shift=True)
+
+    def shift_twin(a, b):
+        return softmax_lse.select_shift_window(*softmax_lse.lse_shift_sums_bf16_reference(a, b))
+
+    # kernel 15: one running (max, sum of exp) a row, lse (M,); kernel 16: the f32 shift (M,) in, two windows'
+    # (n_chunks, M) sums out. One exp a logit for both: window 2's term is e^64 times window 1's (the kernel
+    # takes two exps, but the function needs one)
+    cases = (("lse_fwd_bf16", carried, softmax_lse.streaming_lse_carried_bf16_reference, (m + n) * d * 2 + m * 4),
+             ("lse_shift_fwd_bf16", shifted, shift_twin, (m + n) * d * 2 + m * 4 + 2 * n_chunks * m * 4))
+    for name, fn, twin, n_bytes in cases:
+        lse = fn(s, items)
+        ref = twin(s, items)
+        err = _row_rel(lse, ref)
+        rerun = bool(torch.equal(lse, fn(s, items)))
+        check(bool(torch.isfinite(lse).all()) and err <= BF16_LSE_RTOL and rerun,
+              f"{name} at {m} x {n} x {d}: {err} per row from its twin (limit {BF16_LSE_RTOL}), or other bits on a "
+              f"rerun ({rerun})")
+        out[name + sfx] = dict(
+            max_abs_err=(lse - ref).abs().max().item(), max_rel_err=err,
+            ms=time_ms(lambda: fn(s, items)), f32_ms=time_ms(lambda: fn(s32, items32), iters=5),
+            plain_ms=time_ms(lambda: twin(s, items), iters=3),
+            library_ms=time_ms(lambda: torch.logsumexp(s @ items.T, dim=1), iters=3),
+            bound=bf16_bound(n_bytes, products, exps),
+        )
+        _bf16_line(f"{name} (M={m}, N={n}, D={d})", out[name + sfx])
+    shift, l, _ = softmax_lse.lse_shift_sums_bf16_reference(s, items)
+    window_2 = (l < softmax_lse.WINDOW1_FLOOR).float().mean().item()
+    print(f"bf16 lse and layer norm: at D={d} kernels 15 and 16 bf16 within {BF16_LSE_RTOL} per row of their twins, "
+          f"bit-equal on a rerun; kernel 16's rows in window 2: {window_2:.4f}")
+    return out
+
+
+def _layer_norm_bf16_cases(torch, F, layer_norm, gen, dev, rows: int, d: int, sfx: str) -> dict:
+    """Kernels 1 and 4's bf16 forms on (rows, d) bf16 x and dy with bf16 γ, β:
+    bit-equal to the f32 kernels on the widened operands (y and dx rounded to
+    bf16, dγ and dβ to γ's dtype), within BF16_LN_RTOL of their twins, the same
+    bits on a rerun, timed beside the f32 kernels on the widened values (CUDA
+    events, and the device time by the profiler), their twins on the card, bf16
+    F.layer_norm and its autograd, and their bounds (bytes)."""
+    bf = torch.bfloat16
+    x = (3 * torch.randn((rows, d), generator=gen, device=dev) + 1).to(bf)
+    dy = torch.randn((rows, d), generator=gen, device=dev).to(bf)
+    g = (1 + 0.3 * torch.randn((d,), generator=gen, device=dev)).to(bf)
+    b = (0.3 * torch.randn((d,), generator=gen, device=dev)).to(bf)
+    x32, dy32, g32, b32 = x.float(), dy.float(), g.float(), b.float()
+    y = layer_norm.layer_norm_fwd(x, g, b, 1e-6)
+    grads = layer_norm.layer_norm_bwd(x, g, dy, 1e-6)
+    widened = (layer_norm.layer_norm_fwd(x32, g32, b32, 1e-6), *layer_norm.layer_norm_bwd(x32, g32, dy32, 1e-6))
+    bits = all(bool(torch.equal(a, w.to(bf))) for a, w in zip((y, *grads), widened))
+    rerun = bool(torch.equal(layer_norm.layer_norm_fwd(x, g, b, 1e-6), y)) and all(
+        bool(torch.equal(a, c)) for a, c in zip(layer_norm.layer_norm_bwd(x, g, dy, 1e-6), grads))
+    twin_y = layer_norm.layer_norm_bf16_reference(x, g, b, 1e-6)
+    twin_g = layer_norm.layer_norm_bwd_bf16_reference(x, g, dy, 1e-6)
+    rel_y = _max_rel(y.float(), twin_y.float())
+    rel_g = max(_max_rel(a.float(), w.float()) for a, w in zip(grads, twin_g))
+    check(bits and rerun and rel_y <= BF16_LN_RTOL and rel_g <= BF16_LN_RTOL,
+          f"LayerNorm bf16 at {rows} x {d}: equal to the widened f32 route {bits}, on a rerun {rerun}; "
+          f"{rel_y} / {rel_g} of the largest entry from the twins (limit {BF16_LN_RTOL})")
+    xg, gg, bg = (t.detach().clone().requires_grad_() for t in (x, g, b))
+    y_lib = F.layer_norm(xg, (d,), gg, bg, 1e-6)
+    numel = rows * d
+
+    def device_ms(fn, kernel: str):
+        """The device ms a call of ``kernel`` by the profiler, or None where no
+        capture of three holds its records (a capture of short kernels now
+        and then comes back without them)."""
+        for _ in range(3):
+            found = [(k, ms) for name, (k, ms) in device_kernels(torch, fn, calls=20).items() if kernel in name]
+            if found and all(k >= 1 for k, _ in found):
+                return sum(k * ms for k, ms in found)
+        return None
+
+    out = {
+        f"layer_norm_fwd_bf16{sfx}": dict(
+            max_abs_err=(y.float() - twin_y.float()).abs().max().item(), max_rel_err=rel_y,
+            ms=time_ms(lambda: layer_norm.layer_norm_fwd(x, g, b, 1e-6)),
+            device_ms=device_ms(lambda: layer_norm.layer_norm_fwd(x, g, b, 1e-6), "ln_fwd_kernel"),
+            f32_ms=time_ms(lambda: layer_norm.layer_norm_fwd(x32, g32, b32, 1e-6)),
+            plain_ms=time_ms(lambda: layer_norm.layer_norm_bf16_reference(x, g, b, 1e-6)),
+            library_ms=time_ms(lambda: F.layer_norm(x, (d,), g, b, 1e-6)),
+            bound=bound_ms(2 * numel * 2 + 2 * d * 2, 8 * numel), bound_ops="FP32",
+        ),
+        f"layer_norm_bwd_bf16{sfx}": dict(
+            max_abs_err=max((a.float() - w.float()).abs().max().item() for a, w in zip(grads, twin_g)),
+            max_rel_err=rel_g,
+            ms=time_ms(lambda: layer_norm.layer_norm_bwd(x, g, dy, 1e-6)),
+            device_ms=device_ms(lambda: layer_norm.layer_norm_bwd(x, g, dy, 1e-6), "ln_bwd_kernel"),
+            f32_ms=time_ms(lambda: layer_norm.layer_norm_bwd(x32, g32, dy32, 1e-6)),
+            plain_ms=time_ms(lambda: layer_norm.layer_norm_bwd_bf16_reference(x, g, dy, 1e-6)),
+            library_ms=time_ms(lambda: torch.autograd.grad(y_lib, (xg, gg, bg), dy, retain_graph=True)),
+            bound=bound_ms(3 * numel * 2 + 3 * d * 2, 12 * numel), bound_ops="FP32",
+        ),
+    }
+    for name, r in out.items():
+        on_device = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
+        print(f"bf16 lse and layer norm: {name} ({rows} x {d}): bit-equal to the f32 kernels on the widened "
+              f"operands, max_rel_err={r['max_rel_err']:.3g} (twin) ms={r['ms']:.4f} device_ms={on_device} "
+              f"f32_ms={r['f32_ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (bf16) "
+              f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}, 3.35 TB/s)")
+    return out
+
+
+def bf16_lse_ln_phase(torch, dev, b: int = TRAIN_B) -> dict:
+    """(d) of the ``bf16`` phase, ``bf16 lse and layer norm``: the bf16 forms of
+    kernels 15 and 16 through the public streaming_lse at 51,200 x 15,872 and
+    D = 128, 16 and 256 (``_lse_bf16_cases``), and of kernels 1 and 4 at
+    51,200 rows of 128, 16 and 256 and at 51,199 rows of 128
+    (``_layer_norm_bf16_cases``; result keys ``..._ragged``). Then, at each
+    width, one public call of each lse form with the launch counts set to 0
+    just before it (kernel 15, and kernel 16 with its backward through kernel
+    9's bf16 form, or 10 + 11's where 9's partials pass the budget): the
+    ``ops`` launches of the kernels line. Returns the numbers under
+    ``kernels`` and those launches by width under ``ops``; prints the phase's
+    wall."""
+    import torch.nn.functional as F
+
+    from rectools_tpu_torch.ops import _native, layer_norm, softmax_lse
+
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    m, n = b * SESSION_MAX_LEN, N_ITEM_IDS + 1
+    kernels, ops = {}, {}
+    for d in LSE_LN_BF16_WIDTHS:
+        sfx = width_suffix(d)
+        s = torch.randn((m, d), generator=gen, device=dev).to(bf)
+        items = (0.1 * torch.randn((n, d), generator=gen, device=dev)).to(bf)
+        kernels.update(_lse_bf16_cases(torch, softmax_lse, s, items, sfx))
+        # the public op once a form, counted from 0
+        _native.reset_launches()
+        softmax_lse.USE_PARTIALS_FWD = False
+        try:
+            softmax_lse.streaming_lse(s, items)
+        finally:
+            softmax_lse.USE_PARTIALS_FWD = True
+        sg, ig = s.detach().clone().requires_grad_(), items.detach().clone().requires_grad_()
+        softmax_lse.streaming_lse(sg, ig, bounded_shift=True).sum().backward()
+        torch.cuda.synchronize()
+        launches = dict(_native.LAUNCHES)
+        fused = softmax_lse._fused_on_the_card(m, n, d, 4, bf)
+        want = {key: 0 for key in launches}
+        want.update(lse_fwd_bf16=1, lse_shift_fwd_bf16=1,
+                    **({"lse_bwd_fused_bf16": 1} if fused else {"lse_bwd_ds_bf16": 1, "lse_bwd_di_bf16": 1}))
+        check(launches == want and sg.grad.dtype == ig.grad.dtype == bf
+              and bool(torch.isfinite(sg.grad.float()).all()) and bool(torch.isfinite(ig.grad.float()).all()),
+              f"bf16 lse ops at D={d}: launches {launches}, expected {want}; gradients {sg.grad.dtype}")
+        print(f"bf16 lse and layer norm: the public streaming_lse on bf16 towers at D={d}: launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        ops[d] = {"launches": launches}
+        del s, items, sg, ig
+        torch.cuda.empty_cache()
+        kernels.update(_layer_norm_bf16_cases(torch, F, layer_norm, gen, dev, m, d, sfx))
+    kernels.update(_layer_norm_bf16_cases(torch, F, layer_norm, gen, dev, m - 1, N_FACTORS, "_ragged"))
+    torch.cuda.empty_cache()
+    wall_s = time.perf_counter() - t0
+    print(f"bf16 lse and layer norm: wall {wall_s:.1f} s")
+    return {"kernels": kernels, "ops": ops, "wall_s": wall_s}
 
 
 # ---------------------------------------------------------------- phase 16 at the widths 256 and 16
@@ -5501,13 +5671,13 @@ def bf16_narrow_heads_phase(torch, np, port, dataset, dev, b: int = TRAIN_B) -> 
         loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
         batch = tm._device_batch(pad_batch(next(iter(loader)), TRAIN_B))
         names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
-        missing = [k for k in wanted if not any(k in name for name in names)]
-        banned = [name for name in names if any(k in name for k in banned_keys)]
+        missing, banned = bf16_step_kernels(names, wanted, banned_keys)
         check(not missing and not banned, f"{tag}: a step's device kernels: missing {missing}, f32 or library {banned}")
         print(f"{tag}: bf16 loss {fit['train_loss']} beside f32 {f32['train_loss']} (relative gap {loss_rel:.3g}, "
               f"limit {BF16_LOSS_RTOL}); weights {param_gap:.3g} apart at most, {param_mean_gap:.3g} on average; "
               f"a profiled bf16 step ran {len(names)} device kernels, the {len(wanted)} "
-              "bf16 forms among them, no f32 attention, STU or loss kernel, no library attention or cross-entropy")
+              "bf16 forms and LayerNorm's among them, no f32 attention, STU, loss or LayerNorm kernel, no library "
+              "attention or cross-entropy")
         fits[family] = {**fit, "f32_train_loss": f32["train_loss"], "f32_fit_s": f32["fit_s"],
                         "loss_rel_to_f32": loss_rel, "param_max_abs_diff_to_f32": param_gap,
                         "param_mean_abs_diff_to_f32": param_mean_gap, "step_device_kernels": len(names)}
@@ -5525,7 +5695,8 @@ def bf16_phase(torch, np, pd, port, df, dataset, dev, f32: dict, hstu_f32: dict,
     beside phase 7's, then the fits at the package defaults (``bf16 wide
     fit``) and the public ops at both widths (``bf16 wide ops``), then the
     forms of kernels 2, 5 and 17-19 and SASRec's and HSTU's epochs at heads of
-    8 (``bf16 narrow heads``), (c) BERT4Rec and eSASRec, (d) the refusals;
+    8 (``bf16 narrow heads``), (c) BERT4Rec and eSASRec, (d) the bf16 forms of
+    kernels 15, 16, 1 and 4 (``bf16 lse and layer norm``);
     its wall. The bf16 fits on the 65,536- and
     196,608-row catalogs run after phase 9's f32 fits (``bf16 mid fit``,
     ``bf16 large fit``), the mesh steps at D = 256 in phase 8 (``bf16 wide
@@ -5545,16 +5716,18 @@ def bf16_phase(torch, np, pd, port, df, dataset, dev, f32: dict, hstu_f32: dict,
     narrow_heads = bf16_narrow_heads_phase(torch, np, port, dataset, dev)
     kernels.update(narrow_heads.pop("kernels"))
     families = bf16_family_phase(torch, np, port, dataset, dev)
-    refusals = bf16_refusals_phase(torch, dev)
+    lse_ln = bf16_lse_ln_phase(torch, torch.device(dev))
+    kernels.update(lse_ln.pop("kernels"))
     wall_s = time.perf_counter() - t0
     print(f"bf16: phase wall {wall_s:.1f} s")
     return {"kernels": kernels, "fit": fit, "hstu_fit": hstu_fit, "wide": wide, "narrow_heads": narrow_heads,
-            "families": families, "refusals": refusals, "wall_s": wall_s}
+            "families": families, "lse_ln": lse_ln, "wall_s": wall_s}
 
 
 def main() -> int:
     import torch
 
+    script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -5719,6 +5892,11 @@ def main() -> int:
                                "grads_z_fused_bf16"),
         "grads_z_ds_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:757", ("grads_z_ds_bf16",), "grads_z_ds_bf16"),
         "grads_z_di_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:774", ("grads_z_di_bf16",), "grads_z_di_bf16"),
+        "layer_norm_fwd_bf16": ("layer_norm.cu", "layer_norm.py:27", ("layer_norm_fwd_bf16",), "layer_norm_fwd_bf16"),
+        "layer_norm_bwd_bf16": ("layer_norm.cu", "layer_norm.py:36", ("layer_norm_bwd_bf16",), "layer_norm_bwd_bf16"),
+        "lse_fwd_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:127", ("lse_fwd_bf16",), "lse_fwd_bf16"),
+        "lse_shift_fwd_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:50", ("lse_shift_fwd_bf16",),
+                               "lse_shift_fwd_bf16"),
     }
     # mesh_fit_4 counts one rank's launches (every rank's are equal); kernels 10
     # and 11 run where the partials budget is forced to 0; `ops` calls the public
@@ -5740,7 +5918,8 @@ def main() -> int:
              "bf16_esasrec_fit": bf16_result["families"]["esasrec"], "bf16_mesh_fit": mesh_result["bf16"],
              "bf16_mesh_fit_budget_forced": {"launches": mesh_result["bf16"]["launches_budget_forced"]},
              "bf16_mesh_fit_4": mesh_4_result["bf16"], "bf16_fit_mid_catalog": bf16_mid_result,
-             "bf16_fit_large_catalog": bf16_large_result}
+             "bf16_fit_large_catalog": bf16_large_result,
+             "bf16_lse_ops": bf16_result["lse_ln"]["ops"][N_FACTORS]}
     # the paths that run the bf16 loss forms at the widths 256 and 16, by width: the fits, the mesh steps and the
     # public ops of phase 16 (``bf16 wide ...``); they count in the entries' launches too
     wide = bf16_result["wide"]
@@ -5766,7 +5945,7 @@ def main() -> int:
         if "device_ms" in r:  # kernel 4: its device time by the profiler beside the event-timed call
             out["device_ms"] = r["device_ms"]
         if "f32_ms" in r:  # the bf16 forms: bound_ms at the bf16 rate, the f32 form's time on the same values
-            out.update(bound_ops="bf16", f32_ms=r["f32_ms"], max_rel_err=r["max_rel_err"])
+            out.update(bound_ops=r.get("bound_ops", "bf16"), f32_ms=r["f32_ms"], max_rel_err=r["max_rel_err"])
         return out
 
     entries = []
@@ -5786,7 +5965,7 @@ def main() -> int:
             entry["bidirectional"] = numbers(kernels[f"{name}_bidirectional"])
             if not name.endswith("_bf16"):
                 entry["remat_shape"] = numbers(kernels[f"{name}_remat_shape"])
-        if name.startswith("layer_norm_"):  # at width 256
+        if name in ("layer_norm_fwd", "layer_norm_bwd"):  # at width 256
             entry["remat_shape"] = numbers(kernels[f"{name}_remat_shape"])
         if name in ("lse_partials_fwd", "ce_grads"):  # on BERT4Rec's 15,873-row catalog
             entry["bert4rec"] = numbers(kernels[f"{name}_bert4rec"])
@@ -5826,6 +6005,17 @@ def main() -> int:
                         sub[tag[1:]] = numbers(kernels[f"{name}_d{d}{tag}"])
                 check(sub["launches"] > 0, f"{name} at D={d}: no path launched it")
                 entry[f"d{d}"] = sub
+        if name in LSE_LN_BF16_ENTRIES:  # at D = 256 and 16: LayerNorm on the fits of that width, the lse on its ops
+            for d in (256, 16):
+                wpaths = (width_paths[d] if name.startswith("layer_norm_")
+                          else {f"bf16_lse_ops_d{d}": bf16_result["lse_ln"]["ops"][d]})
+                w_by_path = {path: sum(result["launches"].get(key, 0) for key in keys) for path, result in wpaths.items()}
+                sub = {**numbers(kernels[f"{name}_d{d}"]), "launches": sum(w_by_path.values()),
+                       "launches_by_path": w_by_path}
+                check(sub["launches"] > 0, f"{name} at D={d}: no path launched it")
+                entry[f"d{d}"] = sub
+            if name.startswith("layer_norm_"):  # 51,199 rows: the backward's last block one row short
+                entry["ragged"] = numbers(kernels[f"{name}_ragged"])
         if name in HEADS_OF_8_ENTRIES:  # the same kernel's form at head dim 8: numbers, launches on the epochs there
             h_by_path = {path: sum(result["launches"].get(key, 0) for key in keys)
                          for path, result in dh8_paths.items()}
@@ -5877,7 +6067,7 @@ def main() -> int:
                  "hstu_fit": {k: v for k, v in bf16_result["hstu_fit"].items() if k != "launches"},
                  "families": {f: {k: v for k, v in r.items() if k != "launches"}
                               for f, r in bf16_result["families"].items()},
-                 "refused": bf16_result["refusals"]["refused"], "wall_s": bf16_result["wall_s"],
+                 "lse_ln_wall_s": bf16_result["lse_ln"]["wall_s"], "wall_s": bf16_result["wall_s"],
                  "narrow_heads": {"fits": {f: {k: v for k, v in r.items() if k != "launches"}
                                            for f, r in narrow_fits.items()},
                                   "wall_s": bf16_result["narrow_heads"]["wall_s"]},
@@ -5889,6 +6079,7 @@ def main() -> int:
                                          for k, v in mesh_result["bf16"]["wide_steps"].items()},
                           "large_catalog_route": kernels["ce_grads_large_catalog_route_bf16_d256"]}},
     }
+    print(f"chip_smoke: wall {time.perf_counter() - script_t0:.1f} s")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

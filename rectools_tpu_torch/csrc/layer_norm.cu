@@ -1,16 +1,33 @@
-// LayerNorm over the last axis of an (M, D) float32 matrix: forward, and the
-// backward that gives dx, dgamma and dbeta.
+// LayerNorm over the last axis of an (M, D) matrix: forward, and the
+// backward that gives dx, dgamma and dbeta; float32, or bf16 in and out.
 //
-// Replaces: rectools_tpu/ops/layer_norm.py:27 `_fwd_kernel` (`ln_fwd_f32`) and
-// rectools_tpu/ops/layer_norm.py:36 `_bwd_kernel` (`ln_bwd_f32`) (Pallas; one
-// (block_m, D) VMEM tile per program, row statistics in f32).
+// Replaces: rectools_tpu/ops/layer_norm.py:27 `_fwd_kernel` (`ln_fwd_f32`, and
+// `ln_fwd_bf16` for bf16 x) and rectools_tpu/ops/layer_norm.py:36 `_bwd_kernel`
+// (`ln_bwd_f32`, and `ln_bwd_bf16`) (Pallas; one (block_m, D) VMEM tile per
+// program, row statistics in f32, y and dx stored in x's dtype (:33, :58),
+// dgamma and dbeta summed in f32 and cast to gamma's dtype (:133)).
+//
+// The bf16 forms are the f32 kernels instantiated on the element type T of x,
+// y, dy and dx (`__nv_bfloat16`) and a second type G of gamma and beta (bf16
+// when mixed-precision training casts the parameters, else float), with the
+// same f32 arithmetic, lane layout and order of every sum: a loaded value is
+// widened (exact), and each output is rounded once to nearest even
+// (`__float2bfloat16_rn`), where JAX rounds it. So a bf16 call gives, bit for
+// bit, what the f32 kernels give on the widened operands once rounded; a card
+// test holds that. The f32 instantiations (T = G = float) are the f32 kernels
+// as they were. dgamma and dbeta keep the f32 (n_blocks, 2, D) partials, the
+// integer ticket and the last block's fixed-order sum; that block writes them
+// in G, one rounding. Loads stay one element a lane a step (column lane + 32
+// j): a bf16x2 or 16-byte load would sum each row in another order.
 //
 // Bound on an H100: bytes, both directions. The forward reads x once and
 // writes y once (gamma and beta are D floats); at the serving shape
 // M = 4096 * 100, D = 128 that is 420 MB, 0.125 ms at 3.35 TB/s. The backward
 // reads x and dy and writes dx: at the training shape M = 512 * 100, D = 128,
-// 3 * 26.2 MB, 0.023 ms. Arithmetic is a few operations per byte, far below
-// the FP32 ridge.
+// 3 * 26.2 MB, 0.023 ms. In bf16 every (M, D) array is half the bytes: at
+// 51,200 x 128 the forward moves 26.2 MB, 0.0078 ms, and the backward 39.3 MB,
+// 0.0117 ms. Arithmetic is a few operations per byte, far below the FP32
+// ridge.
 //
 // Forward design: one warp per row, eight rows per 256-thread block. A lane
 // keeps its ceil(D/32) values in registers (column lane + 32*j, so each load
@@ -61,11 +78,25 @@
 //   with 256 blocks of 8 warps; the two launches it replaced (a second
 //   kernel summed 1,024 partial rows on one SM) 0.0311 + 0.0251.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kRowsPerBlock = 8;
+
+// an element as f32 (a bf16 widens exactly), and an f32 value stored as T
+// (bf16: rounded to nearest even, once)
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <class T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -73,22 +104,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int VPL>  // values per lane: D <= 32 * VPL
+// values per lane: D <= 32 * VPL; x and y of type T, gamma and beta of type G
+template <int VPL, class T, class G>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
-    ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
-                  float* __restrict__ y, long long m, int d, float eps) {
+    ln_fwd_kernel(const T* __restrict__ x, const G* __restrict__ gamma, const G* __restrict__ beta,
+                  T* __restrict__ y, long long m, int d, float eps) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= m) return;  // whole warp leaves together
-  const float* xr = x + row * d;
-  float* yr = y + row * d;
+  const T* xr = x + row * d;
+  T* yr = y + row * d;
 
   float v[VPL];
   float sum = 0.f;
 #pragma unroll
   for (int j = 0; j < VPL; ++j) {
     const int col = lane + 32 * j;
-    v[j] = col < d ? xr[col] : 0.f;
+    v[j] = col < d ? widen(xr[col]) : 0.f;
     sum += v[j];
   }
   const float inv_d = 1.f / (float)d;
@@ -104,15 +136,15 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
 #pragma unroll
   for (int j = 0; j < VPL; ++j) {
     const int col = lane + 32 * j;
-    if (col < d) yr[col] = (v[j] - mean) * rstd * gamma[col] + beta[col];
+    if (col < d) yr[col] = narrow<T>((v[j] - mean) * rstd * widen(gamma[col]) + widen(beta[col]));
   }
 }
 
-template <int VPL>
-void launch(const float* x, const float* gamma, const float* beta, float* y, long long m, int d, float eps,
-            cudaStream_t stream) {
+template <int VPL, class T, class G>
+int launch(const T* x, const G* gamma, const G* beta, T* y, long long m, int d, float eps, cudaStream_t stream) {
   const long long blocks = (m + kRowsPerBlock - 1) / kRowsPerBlock;
-  ln_fwd_kernel<VPL><<<(unsigned)blocks, 32 * kRowsPerBlock, 0, stream>>>(x, gamma, beta, y, m, d, eps);
+  ln_fwd_kernel<VPL, T, G><<<(unsigned)blocks, 32 * kRowsPerBlock, 0, stream>>>(x, gamma, beta, y, m, d, eps);
+  return (int)cudaGetLastError();
 }
 
 
@@ -138,13 +170,14 @@ __device__ __forceinline__ void warp_sum_rows(float (&v)[R]) {
 // Block b: rows [b * rows_per_block, min(m, (b + 1) * rows_per_block)); dx for
 // each, its (2, d) row of `partials`, and, in the block that finishes last,
 // dgamma and dbeta (csrc header: the order of every sum). A lane holds the
-// columns lane + 32 j of a row, as in ln_fwd_kernel. Dynamic shared memory:
+// columns lane + 32 j of a row, as in ln_fwd_kernel. x, dy and dx of type T,
+// gamma, dgamma and dbeta of type G; the partials f32. Dynamic shared memory:
 // warps x 2d floats.
-template <int VPL>
+template <int VPL, class T, class G>
 __global__ void __launch_bounds__(VPL <= 8 ? 512 : 256, 1)
-    ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ dy,
-                  float* __restrict__ dx, float* __restrict__ partials, unsigned* __restrict__ counter,
-                  float* __restrict__ dgamma, float* __restrict__ dbeta, long long m, int d, long long rows_per_block,
+    ln_bwd_kernel(const T* __restrict__ x, const G* __restrict__ gamma, const T* __restrict__ dy,
+                  T* __restrict__ dx, float* __restrict__ partials, unsigned* __restrict__ counter,
+                  G* __restrict__ dgamma, G* __restrict__ dbeta, long long m, int d, long long rows_per_block,
                   float eps) {
   constexpr int R = kBwdRows<VPL>;
   extern __shared__ float red[];  // [warps][2 d]
@@ -159,7 +192,7 @@ __global__ void __launch_bounds__(VPL <= 8 ? 512 : 256, 1)
 #pragma unroll
   for (int j = 0; j < VPL; ++j) {
     const int col = lane + 32 * j;
-    g[j] = col < d ? gamma[col] : 0.f;
+    g[j] = col < d ? widen(gamma[col]) : 0.f;
     dg[j] = 0.f;
     db[j] = 0.f;
   }
@@ -172,8 +205,8 @@ __global__ void __launch_bounds__(VPL <= 8 ? 512 : 256, 1)
 #pragma unroll
       for (int j = 0; j < VPL; ++j) {
         const int col = lane + 32 * j;
-        v[i][j] = col < d ? x[src * d + col] : 0.f;
-        dyv[i][j] = col < d ? dy[src * d + col] : 0.f;
+        v[i][j] = col < d ? widen(x[src * d + col]) : 0.f;
+        dyv[i][j] = col < d ? widen(dy[src * d + col]) : 0.f;
       }
     }
     float mean[R], rstd[R], s1[R], s2[R];
@@ -223,7 +256,7 @@ __global__ void __launch_bounds__(VPL <= 8 ? 512 : 256, 1)
 #pragma unroll
       for (int j = 0; j < VPL; ++j) {
         const int col = lane + 32 * j;
-        if (col < d) dx[row * d + col] = rstd[i] * (dyv[i][j] * g[j] - m1 - v[i][j] * m2);
+        if (col < d) dx[row * d + col] = narrow<T>(rstd[i] * (dyv[i][j] * g[j] - m1 - v[i][j] * m2));
       }
     }
   }
@@ -266,26 +299,65 @@ __global__ void __launch_bounds__(VPL <= 8 ? 512 : 256, 1)
   for (int c = threadIdx.x; c < width; c += blockDim.x) {
     float total = red[c];
     for (int w = 1; w < warps; ++w) total += red[w * width + c];
-    if (c < d) dgamma[c] = total;
-    else dbeta[c - d] = total;
+    if (c < d) dgamma[c] = narrow<G>(total);
+    else dbeta[c - d] = narrow<G>(total);
   }
   if (threadIdx.x == 0) *counter = 0u;  // every block has drawn its ticket: ready for the next launch
 }
 
-template <int VPL>
-int launch_bwd(const float* x, const float* gamma, const float* dy, float* dx, float* partials, unsigned* counter,
-               float* dgamma, float* dbeta, long long m, int d, float eps, int n_blocks, long long rows_per_block,
-               cudaStream_t stream) {
+template <int VPL, class T, class G>
+int launch_bwd(const T* x, const G* gamma, const T* dy, T* dx, float* partials, unsigned* counter, G* dgamma,
+               G* dbeta, long long m, int d, float eps, int n_blocks, long long rows_per_block, cudaStream_t stream) {
   const int warps = bwd_warps(d);
   const int smem = warps * 2 * d * (int)sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err =
-        cudaFuncSetAttribute(ln_bwd_kernel<VPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncSetAttribute(ln_bwd_kernel<VPL, T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  ln_bwd_kernel<VPL><<<n_blocks, 32 * warps, smem, stream>>>(x, gamma, dy, dx, partials, counter, dgamma, dbeta, m,
-                                                             d, rows_per_block, eps);
+  ln_bwd_kernel<VPL, T, G><<<n_blocks, 32 * warps, smem, stream>>>(x, gamma, dy, dx, partials, counter, dgamma,
+                                                                   dbeta, m, d, rows_per_block, eps);
   return (int)cudaGetLastError();
+}
+
+// fn(std::integral_constant<int, VPL>{}) for the values per lane of width d
+// (1 <= d <= 1024): 1, 2, 4, 8, 16 or 32
+template <class Fn>
+int by_vpl(int d, Fn fn) {
+  const int vpl = (d + 31) / 32;
+  if (vpl <= 1) return fn(std::integral_constant<int, 1>{});
+  if (vpl <= 2) return fn(std::integral_constant<int, 2>{});
+  if (vpl <= 4) return fn(std::integral_constant<int, 4>{});
+  if (vpl <= 8) return fn(std::integral_constant<int, 8>{});
+  if (vpl <= 16) return fn(std::integral_constant<int, 16>{});
+  return fn(std::integral_constant<int, 32>{});
+}
+
+template <class T, class G>
+int forward(const void* x, const void* gamma, const void* beta, void* y, long long m, int d, float eps,
+            cudaStream_t stream) {
+  if (m <= 0) return 0;
+  if (d < 1 || d > 1024) return (int)cudaErrorInvalidValue;
+  return by_vpl(d, [&](auto w) {
+    return launch<decltype(w)::value>(static_cast<const T*>(x), static_cast<const G*>(gamma),
+                                      static_cast<const G*>(beta), static_cast<T*>(y), m, d, eps, stream);
+  });
+}
+
+template <class T, class G>
+int backward(const void* x, const void* gamma, const void* dy, void* dx, float* partials, unsigned* counter,
+             void* dgamma, void* dbeta, long long m, int d, float eps, int n_blocks, long long rows_per_block,
+             cudaStream_t stream) {
+  if (d < 1 || d > 1024 || m < 0 || n_blocks < 1 || rows_per_block < 1) return (int)cudaErrorInvalidValue;
+  if ((long long)n_blocks * rows_per_block < m || (m > 0 ? (long long)(n_blocks - 1) * rows_per_block >= m
+                                                         : n_blocks != 1))
+    return (int)cudaErrorInvalidValue;
+  return by_vpl(d, [&](auto w) {
+    return launch_bwd<decltype(w)::value>(static_cast<const T*>(x), static_cast<const G*>(gamma),
+                                          static_cast<const T*>(dy), static_cast<T*>(dx), partials, counter,
+                                          static_cast<G*>(dgamma), static_cast<G*>(dbeta), m, d, eps, n_blocks,
+                                          rows_per_block, stream);
+  });
 }
 
 }  // namespace
@@ -293,16 +365,7 @@ int launch_bwd(const float* x, const float* gamma, const float* dy, float* dx, f
 // Returns cudaGetLastError() after the launch (0 = launched). 1 <= d <= 1024.
 extern "C" int ln_fwd_f32(const float* x, const float* gamma, const float* beta, float* y, long long m, int d,
                           float eps, cudaStream_t stream) {
-  if (m <= 0) return 0;
-  if (d < 1 || d > 1024) return (int)cudaErrorInvalidValue;
-  const int vpl = (d + 31) / 32;
-  if (vpl <= 1) launch<1>(x, gamma, beta, y, m, d, eps, stream);
-  else if (vpl <= 2) launch<2>(x, gamma, beta, y, m, d, eps, stream);
-  else if (vpl <= 4) launch<4>(x, gamma, beta, y, m, d, eps, stream);
-  else if (vpl <= 8) launch<8>(x, gamma, beta, y, m, d, eps, stream);
-  else if (vpl <= 16) launch<16>(x, gamma, beta, y, m, d, eps, stream);
-  else launch<32>(x, gamma, beta, y, m, d, eps, stream);
-  return (int)cudaGetLastError();
+  return forward<float, float>(x, gamma, beta, y, m, d, eps, stream);
 }
 
 // Backward: dx (M, D), dgamma and dbeta (D,), in one launch on `stream`
@@ -314,18 +377,26 @@ extern "C" int ln_fwd_f32(const float* x, const float* gamma, const float* beta,
 extern "C" int ln_bwd_f32(const float* x, const float* gamma, const float* dy, float* dx, float* partials,
                           unsigned* counter, float* dgamma, float* dbeta, long long m, int d, float eps, int n_blocks,
                           long long rows_per_block, cudaStream_t stream) {
-  if (d < 1 || d > 1024 || m < 0 || n_blocks < 1 || rows_per_block < 1) return (int)cudaErrorInvalidValue;
-  if ((long long)n_blocks * rows_per_block < m || (m > 0 ? (long long)(n_blocks - 1) * rows_per_block >= m
-                                                         : n_blocks != 1))
-    return (int)cudaErrorInvalidValue;
-  const int vpl = (d + 31) / 32;
-  const auto args = [&](auto launcher) {
-    return launcher(x, gamma, dy, dx, partials, counter, dgamma, dbeta, m, d, eps, n_blocks, rows_per_block, stream);
-  };
-  if (vpl <= 1) return args(launch_bwd<1>);
-  if (vpl <= 2) return args(launch_bwd<2>);
-  if (vpl <= 4) return args(launch_bwd<4>);
-  if (vpl <= 8) return args(launch_bwd<8>);
-  if (vpl <= 16) return args(launch_bwd<16>);
-  return args(launch_bwd<32>);
+  return backward<float, float>(x, gamma, dy, dx, partials, counter, dgamma, dbeta, m, d, eps, n_blocks,
+                                rows_per_block, stream);
+}
+
+// ln_fwd_f32 on bf16 x and y; gamma and beta bf16 when `gamma_bf16`, else
+// float.
+extern "C" int ln_fwd_bf16(const void* x, const void* gamma, const void* beta, void* y, long long m, int d,
+                           float eps, int gamma_bf16, cudaStream_t stream) {
+  if (gamma_bf16) return forward<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, m, d, eps, stream);
+  return forward<__nv_bfloat16, float>(x, gamma, beta, y, m, d, eps, stream);
+}
+
+// ln_bwd_f32 on bf16 x, dy and dx, the same f32 partials; gamma, dgamma and
+// dbeta bf16 when `gamma_bf16`, else float.
+extern "C" int ln_bwd_bf16(const void* x, const void* gamma, const void* dy, void* dx, float* partials,
+                           unsigned* counter, void* dgamma, void* dbeta, long long m, int d, float eps, int n_blocks,
+                           long long rows_per_block, int gamma_bf16, cudaStream_t stream) {
+  if (gamma_bf16)
+    return backward<__nv_bfloat16, __nv_bfloat16>(x, gamma, dy, dx, partials, counter, dgamma, dbeta, m, d, eps,
+                                                  n_blocks, rows_per_block, stream);
+  return backward<__nv_bfloat16, float>(x, gamma, dy, dx, partials, counter, dgamma, dbeta, m, d, eps, n_blocks,
+                                        rows_per_block, stream);
 }

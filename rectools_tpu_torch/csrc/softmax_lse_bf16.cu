@@ -1,8 +1,9 @@
 // The streaming logsumexp, its generic backward, the softmax gradients from z
 // and the softmax-CE gradients on bf16 towers: the forms of kernels 6 to 14
 // that mixed-precision training (compute_dtype="bfloat16") runs, without and
-// with a process mesh and on catalogs of any size, on bf16 tensor-core
-// products with f32 accumulation.
+// with a process mesh and on catalogs of any size, and of the public lse op's
+// other forwards 15 and 16, on bf16 tensor-core products with f32
+// accumulation.
 //
 // Replaces, for bf16 inputs:
 // - rectools_tpu/ops/softmax_lse.py:169 `_lse_fwd_partials_kernel`
@@ -13,6 +14,27 @@
 //   with the f32 bias of each item row (0, or -1e30 for a row that only pads
 //   a shard) added to each f32 logit (:116-124); a zero bias gives kernel 6's
 //   bits. The mesh loss's forward.
+// - :127 `_lse_fwd_tail_kernel` (`lse_bf16`, kernel 15, the public op with
+//   `USE_PARTIALS_FWD` False): one running (max, sum of exp) of the f32
+//   logits per row over the whole catalog, the tail masked, lse = m + log l
+//   (:141-164, :414-425). Kernel 6's kernel in its `kCluster` mode, on the
+//   f32 form's plan (ops/softmax_lse.py `lse_cluster_plan`): a thread-block
+//   cluster of C = min(8, item tiles) blocks shares a 128-row session tile,
+//   rank q walking item rows [q * rank_rows, (q + 1) * rank_rows), rank_rows
+//   = ceil(tiles / C) * 64; each rank folds its tiles as kernel 6 does, then
+//   rank 0 reads the ranks' (max, sum of exp) pairs through distributed
+//   shared memory in rank order and writes lse. One block per session tile
+//   would give 400 blocks at 51,200 rows, just past what the card holds at
+//   once, so the last few would run alone; the clusters give kernel 6's 3,200
+//   blocks (8 ranks of 31 tiles at 15,872 items).
+// - :50 `_lse_shift_kernel` (`lse_shift_bf16`, kernel 16, the public op with
+//   `bounded_shift=True`): kernel 6's kernel and grid in its `kShift` mode:
+//   with the caller's f32 shift (computed on the widened towers,
+//   :364-365), per item chunk and row the plain f32 sums l = sum exp(logit -
+//   shift) and l2 = sum exp(logit - shift + 64) over the chunk's columns, the
+//   tail masked (:92-96), in a fixed order (each thread's columns tile by
+//   tile, the four threads of a row, warp column 0 plus column 1); the caller
+//   sums the (n_chunks, M) partials over the chunks and picks the window.
 // - :643 `_ce_grads_z_fused_kernel` (`ce_fused_bf16`, kernel 7's one pass):
 //   with the f32 logits, P = exp(logit - z) and D = coeff * onehot(y) in f32,
 //   the probability operand (P - D) rounded to bf16 before both products (as
@@ -69,11 +91,13 @@
 // to shared memory beside it. At D = 16 a staged row is two 16-byte copies
 // and product 1 is one 16-deep step; each warp's D / 2 columns of ds and di
 // are one 8-column fragment. Shared memory at D = 16 / 128 / 256 (bytes):
-// - Kernels 6 and 8: block (x, y) owns session tile x and item chunk y
-//   (2,048 rows, ops/softmax_lse.py LSE_CHUNK), as the f32 kernel; warps 4 x 2
-//   take 32 x 32 of each 128 x 64 logits tile and fold it into running (max,
-//   sum of exp) pairs of their rows, merged by shuffles and then across the
-//   two warp columns through shared memory. 14,592 / 71,936 / 137,472.
+// - Kernels 6, 8, 15 and 16: block (x, y) owns session tile x and item chunk
+//   y (2,048 rows, ops/softmax_lse.py LSE_CHUNK; kernel 15: rank y of the
+//   session tile's cluster), as the f32 kernel; warps 4 x 2 take 32 x 32 of
+//   each 128 x 64 logits tile and fold it into running (max, sum of exp)
+//   pairs of their rows (kernel 16: the two windows' sums), merged by
+//   shuffles and then across the two warp columns through shared memory.
+//   14,592 / 71,936 / 137,472.
 // - Kernels 7 and 9: the f32 one pass's grid (ops/softmax_lse.py
 //   `fused_bwd_plan`: block (x, y) owns item chunk x of 2,048 rows and group y
 //   of session tiles, all blocks in one wave). Per (session tile, item tile)
@@ -111,8 +135,10 @@
 // di per item row over session rows 16 at a time in order, as at 128 rows.
 //
 // Bound on an H100 at the training shape M = 51,200, N = 15,872, D = 128:
-// kernels 6 and 8 are one logit product, 2 M N D = 208 GFLOP, 0.21 ms at 989
-// TFLOP/s bf16 (their inputs, 17 MB, take 0.005 ms at 3.35 TB/s); kernels 7
+// kernels 6, 8 and 15 are one logit product, 2 M N D = 208 GFLOP, 0.21 ms at
+// 989 TFLOP/s bf16 (their inputs, 17 MB, take 0.005 ms at 3.35 TB/s); kernel
+// 16 the same (it takes two exps a logit, one a window, but the function needs
+// one: window 2's term is e^64 times window 1's); kernels 7
 // and 9 are three, 624 GFLOP, 0.63 ms, with 0.24 GB of inputs and partials
 // (0.07 ms); kernels 10 and 11 two each, 0.42 ms, and so are each of 7's two
 // launches and kernels 13 and 14 (kernel 12 three, as 7), at 196,608 items
@@ -127,6 +153,7 @@
 // `bf16`, `bf16 mesh` and `bf16 wide` lines print their times beside these
 // bounds.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -143,13 +170,14 @@ constexpr int kBM = 128;  // session rows per tile of kernels 6 and 8
 constexpr int kBN = 64;   // item rows per tile
 constexpr int kThreads = 256;
 constexpr float kNegBig = -1e30f;
+constexpr float kWindow2Offset = 64.f;  // kernel 16's second window (rectools_tpu/ops/softmax_lse.py:47)
 
 // session rows per tile of the gradient kernels (7, 9-14) at width D: 64 at D =
 // 256, where a warp's ds slice of 32 rows would take 128 f32 registers a thread
 // and kernel 11's tiles 236,544 bytes of shared memory; 128 below
 __host__ __device__ constexpr int grad_bm(int D) { return D > 128 ? 64 : 128; }
 
-// ----------------------------------------------------------------- kernel 6
+// ------------------------------------------------------- kernels 6, 8, 15 and 16
 
 template <int D>
 struct LseSmem {
@@ -172,12 +200,36 @@ __device__ __forceinline__ void merge_pair(float& m, float& l, float m_o, float 
   m = m_new;
 }
 
-// kernel 6 (kBias false) and kernel 8 (kBias true: `bias` added to each logit)
-template <int D, bool kBias>
+// What lse_partials_bf16_kernel computes per row: each item chunk's (max, sum
+// of exp) of the logits (kernel 6), of the logits plus the item rows' bias
+// (kernel 8), each chunk's sums of the two shifted windows (kernel 16), or
+// the lse through a cluster of blocks (kernel 15).
+enum LseMode : int { kPartials = 0, kBias = 1, kShift = 2, kCluster = 3 };
+
+// Block (x, y) owns the 128-row session tile x and item rows [y * chunk_rows,
+// (y + 1) * chunk_rows), walks the chunk's 64-row item tiles and folds each
+// into a pair per row for its thread's four rows (columns past the chunk's
+// end left out); the four threads of a row merge theirs by shuffles, then the
+// two warp columns through shared memory. out_a and out_b are (gridDim.y, M),
+// rows past M never written.
+// - kPartials (6) and kBias (8: `bias` added to each f32 logit): a running
+//   (max, sum of exp) from -1e30; out_a the chunk's max, out_b its sum of
+//   exp(logit - max).
+// - kShift (16): x = logit - shift[m] with the caller's f32 shift (0 past M),
+//   out_a = sum exp(x) and out_b = sum exp(x + 64), plain f32 sums in a fixed
+//   order (each thread's columns tile by tile, the four threads of a row, then
+//   warp column 0 plus column 1); no max.
+// - kCluster (15): the gridDim.y blocks of a session tile are one cluster, y
+//   its rank and chunk_rows a rank's item rows; rank 0 merges the ranks'
+//   (max, sum of exp) in rank order through distributed shared memory and
+//   writes lse = m + log l (M,) to out_a; out_b is unused.
+template <int D, int kMode>
 __global__ void __launch_bounds__(kThreads)
     lse_partials_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ items,
-                             const float* __restrict__ bias, float* __restrict__ m_part, float* __restrict__ l_part,
-                             long long M, long long N, long long chunk_rows) {
+                             const float* __restrict__ bias, const float* __restrict__ shift,
+                             float* __restrict__ m_part, float* __restrict__ l_part, long long M, long long N,
+                             long long chunk_rows) {
+  constexpr bool kBiased = kMode == kBias, kShifted = kMode == kShift;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   LseSmem<D>& sm = *reinterpret_cast<LseSmem<D>*>(smem_raw);
   constexpr int P = bt::pitch(D);
@@ -192,11 +244,15 @@ __global__ void __launch_bounds__(kThreads)
   bt::stage_async<D, kBN, kThreads>(sm.items[0], items, D, n_begin, n_end);
   tc::cp_commit();
 
-  // the thread's rows: 32 wr + 16 mf + g + 8 hh, as (mf, hh) -> 2 mf + hh
-  float m_run[4], l_run[4];
+  // the thread's rows: 32 wr + 16 mf + g + 8 hh, as (mf, hh) -> 2 mf + hh; per
+  // row (max, sum of exp), or under kShift the two windows' sums and the
+  // row's shift
+  float m_run[4], l_run[4], row_shift[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    m_run[r] = kNegBig;
+    const long long row = row0 + 32 * wr + 16 * (r >> 1) + g + 8 * (r & 1);
+    row_shift[r] = kShifted && row < M ? shift[row] : 0.f;
+    m_run[r] = kShifted ? 0.f : kNegBig;
     l_run[r] = 0.f;
   }
   for (int it = 0; it < n_tiles; ++it) {
@@ -207,7 +263,7 @@ __global__ void __launch_bounds__(kThreads)
     } else {
       tc::cp_wait<0>();
     }
-    if (kBias) load_bias(sm.bias, bias, n_begin + (long long)it * kBN, n_end);
+    if (kBiased) load_bias(sm.bias, bias, n_begin + (long long)it * kBN, n_end);
     __syncthreads();
     const __nv_bfloat16* tile = sm.items[it & 1];
     float acc[2][4][4];
@@ -229,7 +285,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int nf = 0; nf < 4; ++nf) bt::mma(acc[mf][nf], a[mf], b[nf]);
     }
-    if (kBias) {  // the f32 bias onto the f32 logits (rectools_tpu/ops/softmax_lse.py:116-124)
+    if (kBiased) {  // the f32 bias onto the f32 logits (rectools_tpu/ops/softmax_lse.py:116-124)
 #pragma unroll
       for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
@@ -243,6 +299,18 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int r = 2 * mf + hh;
+        if (kShifted) {  // the tail masked: a column past the chunk's end is left out (softmax_lse.py:92-96)
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              if (n0 + 8 * nf + j >= n_end) continue;
+              const float x = acc[mf][nf][2 * hh + j] - row_shift[r];
+              m_run[r] += expf(x);
+              l_run[r] += expf(x + kWindow2Offset);
+            }
+          continue;
+        }
         float mx = m_run[r];
 #pragma unroll
         for (int nf = 0; nf < 4; ++nf)
@@ -267,7 +335,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int off = 1; off < 4; off <<= 1) {
       const float m_o = __shfl_xor_sync(0xffffffffu, m_run[r], off);
       const float l_o = __shfl_xor_sync(0xffffffffu, l_run[r], off);
-      merge_pair(m_run[r], l_run[r], m_o, l_o);
+      if (kShifted) {
+        m_run[r] += m_o;
+        l_run[r] += l_o;
+      } else {
+        merge_pair(m_run[r], l_run[r], m_o, l_o);
+      }
     }
     if (t == 0) {
       const int row = 32 * wr + 16 * (r >> 1) + g + 8 * (r & 1);
@@ -276,9 +349,36 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
+  if constexpr (kMode == kCluster) {
+    // kernel 15: this rank's (max, sum of exp) per row into red_m[0] / red_l[0],
+    // then rank 0 merges the ranks' in rank order and writes lse (m_part)
+    namespace cg = cooperative_groups;
+    const cg::cluster_group cluster = cg::this_cluster();
+    if (threadIdx.x < kBM) {
+      float m = sm.red_m[0][threadIdx.x], l = sm.red_l[0][threadIdx.x];
+      merge_pair(m, l, sm.red_m[1][threadIdx.x], sm.red_l[1][threadIdx.x]);
+      sm.red_m[0][threadIdx.x] = m;
+      sm.red_l[0][threadIdx.x] = l;
+    }
+    cluster.sync();  // every rank's pairs are in its shared memory
+    if (cluster.block_rank() == 0 && threadIdx.x < kBM) {
+      float m = sm.red_m[0][threadIdx.x], l = sm.red_l[0][threadIdx.x];
+      for (unsigned q = 1; q < cluster.num_blocks(); ++q)
+        merge_pair(m, l, cluster.map_shared_rank(sm.red_m[0], q)[threadIdx.x],
+                   cluster.map_shared_rank(sm.red_l[0], q)[threadIdx.x]);
+      if (row0 + threadIdx.x < M) m_part[row0 + threadIdx.x] = m + logf(l);
+    }
+    cluster.sync();  // no rank exits while rank 0 reads its shared memory
+    return;
+  }
   if (threadIdx.x < kBM && row0 + threadIdx.x < M) {
     float m = sm.red_m[0][threadIdx.x], l = sm.red_l[0][threadIdx.x];
-    merge_pair(m, l, sm.red_m[1][threadIdx.x], sm.red_l[1][threadIdx.x]);
+    if (kShifted) {
+      m += sm.red_m[1][threadIdx.x];
+      l += sm.red_l[1][threadIdx.x];
+    } else {
+      merge_pair(m, l, sm.red_m[1][threadIdx.x], sm.red_l[1][threadIdx.x]);
+    }
     m_part[(long long)blockIdx.y * M + row0 + threadIdx.x] = m;
     l_part[(long long)blockIdx.y * M + row0 + threadIdx.x] = l;
   }
@@ -912,16 +1012,39 @@ int by_width(int D, Fn fn) {
   }
 }
 
-template <int D, bool kBias>
-int launch_lse(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* bias, float* m_part, float* l_part,
-               long long M, long long N, long long chunk_rows, cudaStream_t stream) {
+// kernels 6, 8 and 16: one block per (session tile, item chunk); kernel 15
+// (kCluster): grid (session tiles, cluster), one cluster of `cluster` blocks
+// along y per session tile, chunk_rows a rank's item rows
+template <int D, int kMode>
+int launch_lse(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* bias, const float* shift,
+               float* m_part, float* l_part, long long M, long long N, long long chunk_rows, int cluster,
+               cudaStream_t stream) {
   const int smem = (int)sizeof(LseSmem<D>);
   cudaError_t err =
-      cudaFuncSetAttribute(lse_partials_bf16_kernel<D, kBias>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(lse_partials_bf16_kernel<D, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((N + chunk_rows - 1) / chunk_rows));
-  lse_partials_bf16_kernel<D, kBias><<<grid, kThreads, smem, stream>>>(s, items, bias, m_part, l_part, M, N,
-                                                                        chunk_rows);
+  const unsigned m_tiles = (unsigned)((M + kBM - 1) / kBM);
+  if constexpr (kMode != kCluster) {
+    const dim3 grid(m_tiles, (unsigned)((N + chunk_rows - 1) / chunk_rows));
+    lse_partials_bf16_kernel<D, kMode><<<grid, kThreads, smem, stream>>>(s, items, bias, shift, m_part, l_part, M,
+                                                                          N, chunk_rows);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(m_tiles, (unsigned)cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = (unsigned)cluster;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, lse_partials_bf16_kernel<D, kMode>, s, items, bias, shift, m_part, l_part, M, N,
+                           chunk_rows);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -995,7 +1118,8 @@ extern "C" int lse_partials_bf16(const void* s, const void* items, float* m_part
   const auto* sb = static_cast<const __nv_bfloat16*>(s);
   const auto* ib = static_cast<const __nv_bfloat16*>(items);
   return by_width(D, [&](auto w) {
-    return launch_lse<decltype(w)::value, false>(sb, ib, nullptr, m_part, l_part, M, N, chunk_rows, stream);
+    return launch_lse<decltype(w)::value, kPartials>(sb, ib, nullptr, nullptr, m_part, l_part, M, N, chunk_rows, 1,
+                                                      stream);
   });
 }
 
@@ -1008,7 +1132,41 @@ extern "C" int lse_bias_bf16(const void* s, const void* items, const float* bias
   const auto* sb = static_cast<const __nv_bfloat16*>(s);
   const auto* ib = static_cast<const __nv_bfloat16*>(items);
   return by_width(D, [&](auto w) {
-    return launch_lse<decltype(w)::value, true>(sb, ib, bias, m_part, l_part, M, N, chunk_rows, stream);
+    return launch_lse<decltype(w)::value, kBias>(sb, ib, bias, nullptr, m_part, l_part, M, N, chunk_rows, 1,
+                                                  stream);
+  });
+}
+
+// Kernel 16 on bf16 towers: the caller's f32 shift (M,); l_part and l2_part
+// (ceil(N / chunk_rows), M): each item chunk's f32 sum of exp(logit - shift)
+// and of exp(logit - shift + 64) per session row.
+extern "C" int lse_shift_bf16(const void* s, const void* items, const float* shift, float* l_part, float* l2_part,
+                              long long M, long long N, int D, long long chunk_rows, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
+  const auto* sb = static_cast<const __nv_bfloat16*>(s);
+  const auto* ib = static_cast<const __nv_bfloat16*>(items);
+  return by_width(D, [&](auto w) {
+    return launch_lse<decltype(w)::value, kShift>(sb, ib, nullptr, shift, l_part, l2_part, M, N, chunk_rows, 1,
+                                                   stream);
+  });
+}
+
+// Kernel 15 on bf16 towers: lse (M,) in f32, one running (max, sum of exp) per
+// row over the whole catalog, in clusters of `cluster` (1-8) blocks per
+// session tile, rank q walking item rows [q * rank_rows, (q + 1) * rank_rows)
+// (a multiple of 64; a rank past N adds nothing); the caller plans both from
+// N (ops/softmax_lse.py `lse_cluster_plan`).
+extern "C" int lse_bf16(const void* s, const void* items, float* lse, long long M, long long N, int D, int cluster,
+                        long long rank_rows, cudaStream_t stream) {
+  if (M <= 0) return 0;
+  if (cluster < 1 || cluster > 8 || rank_rows <= 0 || rank_rows % kBN || cluster * rank_rows < N)
+    return (int)cudaErrorInvalidValue;
+  const auto* sb = static_cast<const __nv_bfloat16*>(s);
+  const auto* ib = static_cast<const __nv_bfloat16*>(items);
+  return by_width(D, [&](auto w) {
+    return launch_lse<decltype(w)::value, kCluster>(sb, ib, nullptr, nullptr, lse, nullptr, M, N, rank_rows, cluster,
+                                                     stream);
   });
 }
 
@@ -1149,7 +1307,7 @@ extern "C" int grads_z_di_bf16(const void* s, const void* items, const float* z,
 }
 
 // Bytes of dynamic shared memory a block of each bf16 loss kernel takes at
-// width D: kernel 0 = kernels 6 / 8, 1 = 7 / 9 / 12 (the one pass), 2 = 10 / 13
+// width D: kernel 0 = kernels 6 / 8 / 15 / 16, 1 = 7 / 9 / 12 (the one pass), 2 = 10 / 13
 // / 7's ds launch, 3 = 14 / 7's di launch, 4 = 11; -1 for another kernel, and
 // cudaErrorInvalidValue (1) for another D.
 extern "C" int lse_bf16_smem_bytes(int kernel, int D) {

@@ -62,8 +62,8 @@ floating parameter is read as a bf16 copy made inside the autograd graph
 (:meth:`_compute_params`), so the f32 master weights receive the gradients
 through the casts and Adam stays f32. The stack then runs in bf16: the bf16
 forms of the attention kernels (2, 5) or, in HSTU, of the STU kernels
-(17-19), LayerNorm through its f32 kernels
-(1, 4) with bf16 in and out, bf16 linear layers accumulating in f32, the
+(17-19), the bf16 forms of LayerNorm's kernels (1, 4: bf16 in and out, f32
+inside, dγ and dβ rounded to bf16 once), bf16 linear layers accumulating in f32, the
 embedding gather and its scatter-add in bf16 (one bf16 rounding per added
 row, in index order, as XLA's scatter-add sums them). The fused loss applies
 the temperature in f32 and rounds the towers to bf16 for the bf16 forms of
@@ -72,10 +72,9 @@ kernels 6 and 7, or under ``mesh_shape`` of the mesh loss's kernels 8 and 9
 rounded to bf16 and summed over the model group in bf16 (JAX's transpose of
 the replicated input); the column-sharded tables' bf16 copies are gathered
 over the model group. Every other logit is an f32 sum of bf16 products. The
-validation recall and serving read the f32 weights, as in JAX. Routes
-without a bf16 kernel raise ``NotImplementedError`` naming ROADMAP §1 item
-5 (the bounded-shift and running-max forwards); none runs in f32. The loss's bf16 forms take every width of ``SUPPORTED_D``, the models'
-default 256 among them.
+validation recall and serving read the f32 weights, as in JAX. Every route
+has a bf16 form; none runs in f32. The loss's bf16 forms take every width of
+``SUPPORTED_D``, the models' default 256 among them.
 ``compute_dtype="auto"`` resolves to float32 here (JAX: bf16 on a TPU only;
 a standing divergence, ROADMAP §3).
 ``steps_per_dispatch`` is validated for config compatibility and otherwise

@@ -60,7 +60,7 @@ LAUNCHES: tp.Dict[str, int] = {
     "stu_bwd": 0,
     "stu_bwd_dq": 0,
     "stu_ds": 0,
-    # the bf16 forms of kernels 2, 5-14 and 17-19 (compute_dtype="bfloat16")
+    # the bf16 forms of kernels 2, 5-14 and 17-19 (compute_dtype="bfloat16"; the public lse ops)
     "attention_fwd_bf16": 0,
     "attention_bwd_bf16": 0,
     "lse_partials_fwd_bf16": 0,
@@ -78,9 +78,12 @@ LAUNCHES: tp.Dict[str, int] = {
     "stu_bwd_bf16": 0,
     "stu_bwd_dq_bf16": 0,
     "stu_ds_bf16": 0,
+    # the bf16 forms of kernels 1, 4, 15 and 16
+    "layer_norm_fwd_bf16": 0,
+    "layer_norm_bwd_bf16": 0,
+    "lse_fwd_bf16": 0,
+    "lse_shift_fwd_bf16": 0,
 }
-# where the routes without a bf16 kernel are queued
-BF16_ROADMAP = "ROADMAP.md §1 item 5"
 
 _LOCK = threading.Lock()
 _LIBS: tp.Dict[str, ctypes.CDLL] = {}
@@ -210,13 +213,6 @@ def same_dtype(kernel: str, **tensors: torch.Tensor) -> torch.dtype:
     if len(set(dtypes.values())) > 1:
         raise TypeError(f"{kernel}: mixed operand dtypes {dtypes}; cast them to one dtype first")
     return next(iter(dtypes.values()))
-
-
-def refuse_bf16(kernel: str, route: str, *tensors: torch.Tensor) -> None:
-    """Raise for a bf16 input to a route that has no bf16 kernel yet: it never
-    runs silently in f32 or through its twin."""
-    if any(t.dtype == torch.bfloat16 for t in tensors):
-        raise NotImplementedError(f"{kernel}: {route} has no bf16 form yet ({BF16_ROADMAP})")
 
 
 def require_aligned(kernel: str, t: torch.Tensor, dims: tp.Sequence[int]) -> None:

@@ -9,10 +9,17 @@ partials of dγ and dβ in a fixed order (:func:`bwd_partition`). A CUDA tensor
 goes to ``csrc/layer_norm.cu`` (``ln_fwd_f32``, ``ln_bwd_f32``); a CPU tensor
 goes to the twins.
 
-bf16 activations (mixed-precision training) go through the same f32
-kernels: the wrapper widens x and dy to f32 (exact), runs kernels 1 and 4,
-and rounds y and dx to the input dtype, with dγ and dβ at γ's dtype, which
-is what the JAX kernels store (rectools_tpu/ops/layer_norm.py:33, 58, 133).
+bf16 activations (mixed-precision training) take the bf16 forms
+``ln_fwd_bf16`` and ``ln_bwd_bf16`` (launch keys ``layer_norm_fwd_bf16``,
+``layer_norm_bwd_bf16``): the f32 kernels on bf16 x, y, dy and dx, with γ
+and β in bf16 (the cast parameters) or f32. They read bf16, keep the f32
+arithmetic and order, and round y and dx to bf16 and dγ, dβ to γ's dtype
+once each, where the JAX kernels store them
+(rectools_tpu/ops/layer_norm.py:33, 58, 133): the widened f32 route's bits.
+Their twins (:func:`layer_norm_bf16_reference`,
+:func:`layer_norm_bwd_bf16_reference`) are the f32 twins on the widened
+values, rounded at those points. f32 x with bf16 γ has no form and raises
+``ValueError``, on the CPU as on the card.
 """
 
 import ctypes
@@ -28,6 +35,11 @@ _SIGNATURES = {
     # x, gamma, dy, dx, partials (n_blocks, 2, D), counter, dgamma, dbeta, m, d, eps, n_blocks, rows per block,
     # stream
     "ln_bwd_f32": (_C,) * 8 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_longlong, _C),
+    # as ln_fwd_f32 on bf16 x and y; gamma and beta bf16 (1) or f32 (0); stream
+    "ln_fwd_bf16": (_C, _C, _C, _C, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, _C),
+    # as ln_bwd_f32 on bf16 x, dy and dx (f32 partials); gamma, dgamma and dbeta bf16 (1) or f32 (0); stream
+    "ln_bwd_bf16": (_C,) * 8 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
+                                ctypes.c_int, _C),
 }
 MAX_D = 1024
 # The backward's partition (`bwd_partition`): a function of nothing but the row
@@ -75,6 +87,24 @@ def layer_norm_bwd_reference(
     return dx.to(x.dtype), (dyf * xhat).sum(0).to(gamma.dtype), dyf.sum(0).to(gamma.dtype)
 
 
+def layer_norm_bf16_reference(
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6
+) -> torch.Tensor:
+    """Plain PyTorch twin of ``ln_fwd_bf16``: the f32 twin on the widened
+    values, y rounded to bf16 once (rectools_tpu/ops/layer_norm.py:33)."""
+    return layer_norm_reference(x.float(), gamma.float(), beta.float(), eps).to(torch.bfloat16)
+
+
+def layer_norm_bwd_bf16_reference(
+    x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of ``ln_bwd_bf16``: the f32 twin on the widened
+    values, dx rounded to bf16 and dγ, dβ to γ's dtype, once each
+    (rectools_tpu/ops/layer_norm.py:58, 133)."""
+    dx, dgamma, dbeta = layer_norm_bwd_reference(x.float(), gamma.float(), dy.float(), eps)
+    return dx.to(torch.bfloat16), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
+
+
 def _check(kernel: str, x: torch.Tensor, gamma: torch.Tensor, *others: torch.Tensor) -> tp.Tuple[int, int]:
     if x.dim() != 2 or not 1 <= x.shape[1] <= MAX_D:
         raise ValueError(f"{kernel}: x must be (M, D) with 1 <= D <= {MAX_D}, got {tuple(x.shape)}")
@@ -86,68 +116,91 @@ def _check(kernel: str, x: torch.Tensor, gamma: torch.Tensor, *others: torch.Ten
     return m, d
 
 
-def _widened(x: torch.Tensor, gamma: torch.Tensor) -> bool:
-    """Whether a call is bf16 (x, or γ and β under bf16 compute), and so
-    takes the f32 kernels on widened operands."""
-    return torch.bfloat16 in (x.dtype, gamma.dtype)
+def _bf16_form(kernel: str, x: torch.Tensor, gamma: torch.Tensor) -> bool:
+    """Whether a call takes the bf16 form (bf16 x, γ in bf16 or f32). f32 x
+    with bf16 γ raises: no form reads that pair, and no wrapper widens or
+    narrows an operand."""
+    if x.dtype == torch.bfloat16 and gamma.dtype in (torch.bfloat16, torch.float32):
+        return True
+    if x.dtype != gamma.dtype:
+        raise ValueError(f"{kernel}: x of {x.dtype} with gamma of {gamma.dtype} has no kernel form; "
+                         f"bf16 x takes bf16 or float32 gamma, float32 x float32 gamma")
+    return False
+
+
+def _same_device(kernel: str, x: torch.Tensor, gamma: torch.Tensor) -> None:
+    if gamma.device != x.device:
+        raise ValueError(f"{kernel}: all inputs must be on one device")
 
 
 def layer_norm_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis of a 2-D (M, D) input (kernel 1); bf16
-    through the f32 kernel, y rounded to x's dtype."""
+    """LayerNorm over the last axis of a 2-D (M, D) input (kernel 1): y in
+    x's dtype; bf16 x through the bf16 form."""
     _native.same_dtype("layer_norm_fwd", gamma=gamma, beta=beta)
-    if _widened(x, gamma):
-        return layer_norm_fwd(x.float(), gamma.float(), beta.float(), eps).to(x.dtype)
+    bf16 = _bf16_form("layer_norm_fwd", x, gamma)
     if x.device.type == "cpu":
-        return layer_norm_reference(x, gamma, beta, eps)
-    _native.require_cuda_f32("layer_norm_fwd", x=x, gamma=gamma, beta=beta)
-    m, d = _check("layer_norm_fwd", x, gamma, beta)
+        return (layer_norm_bf16_reference if bf16 else layer_norm_reference)(x, gamma, beta, eps)
+    kernel = "layer_norm_fwd_bf16" if bf16 else "layer_norm_fwd"
+    # pinned dtypes: a float16 or float64 x must not reach the f32 kernel (_bf16_form passes same-dtype pairs)
+    _native.require_cuda(kernel, torch.bfloat16 if bf16 else torch.float32, x=x)
+    _native.require_cuda(kernel, gamma.dtype if bf16 else torch.float32, gamma=gamma, beta=beta)
+    _same_device(kernel, x, gamma)
+    m, d = _check(kernel, x, gamma, beta)
     if beta.shape != (d,):
-        raise ValueError(f"layer_norm_fwd: gamma and beta must be ({d},)")
+        raise ValueError(f"{kernel}: gamma and beta must be ({d},)")
     y = torch.empty_like(x)
     lib = _native.load("layer_norm", _SIGNATURES)
+    pointers = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), m, d, eps)
+    stream = _native.current_stream_ptr(x.device)
     with torch.cuda.device(x.device):
-        status = lib.ln_fwd_f32(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), m, d, eps,
-            _native.current_stream_ptr(x.device),
-        )
-    _native.check_launch("layer_norm_fwd", status)
+        if bf16:
+            status = lib.ln_fwd_bf16(*pointers, int(gamma.dtype == torch.bfloat16), stream)
+        else:
+            status = lib.ln_fwd_f32(*pointers, stream)
+    _native.check_launch(kernel, status)
     return y
 
 
 def layer_norm_bwd(
     x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dx, dγ, dβ) of :func:`layer_norm_fwd` (kernel 4); bf16 through the
-    f32 kernel, dx rounded to x's dtype and dγ, dβ to γ's."""
+    """(dx, dγ, dβ) of :func:`layer_norm_fwd` (kernel 4): dx in x's dtype, dγ
+    and dβ in γ's; bf16 x through the bf16 form."""
     _native.same_dtype("layer_norm_bwd", x=x, dy=dy)
-    if _widened(x, gamma):
-        dx, dgamma, dbeta = layer_norm_bwd(x.float(), gamma.float(), dy.float(), eps)
-        return dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
+    bf16 = _bf16_form("layer_norm_bwd", x, gamma)
     if x.device.type == "cpu":
-        return layer_norm_bwd_reference(x, gamma, dy, eps)
-    _native.require_cuda_f32("layer_norm_bwd", x=x, gamma=gamma, dy=dy)
-    m, d = _check("layer_norm_bwd", x, gamma, dy)
+        return (layer_norm_bwd_bf16_reference if bf16 else layer_norm_bwd_reference)(x, gamma, dy, eps)
+    kernel = "layer_norm_bwd_bf16" if bf16 else "layer_norm_bwd"
+    _native.require_cuda(kernel, torch.bfloat16 if bf16 else torch.float32, x=x, dy=dy)
+    _native.require_cuda(kernel, gamma.dtype if bf16 else torch.float32, gamma=gamma)
+    _same_device(kernel, x, gamma)
+    m, d = _check(kernel, x, gamma, dy)
     if dy.shape != x.shape:
-        raise ValueError("layer_norm_bwd: dy must match x")
+        raise ValueError(f"{kernel}: dy must match x")
     n_blocks, rows = bwd_partition(m)
     dx = torch.empty_like(x)
-    # one scratch buffer: the (n_blocks, 2, D) partials, then dγ and dβ
-    scratch = torch.empty(((n_blocks + 1) * 2 * d,), dtype=torch.float32, device=x.device)
-    sums = n_blocks * 2 * d
-    dgamma, dbeta = scratch[sums : sums + d], scratch[sums + d :]
+    # one f32 scratch buffer: the (n_blocks, 2, D) partials, then dγ and dβ when γ is f32 (bf16 γ: their own)
+    f32_sums = gamma.dtype == torch.float32
+    scratch = torch.empty(((n_blocks + f32_sums) * 2 * d,), dtype=torch.float32, device=x.device)
+    if f32_sums:
+        sums = n_blocks * 2 * d
+        dgamma, dbeta = scratch[sums : sums + d], scratch[sums + d :]
+    else:
+        dgamma, dbeta = torch.empty((2, d), dtype=gamma.dtype, device=x.device).unbind(0)
     lib = _native.load("layer_norm", _SIGNATURES)
     stream = _native.current_stream_ptr(x.device)
     key = (x.device.index, stream)
     if key not in _COUNTERS:
         _COUNTERS[key] = torch.zeros((1,), dtype=torch.int32, device=x.device)
     counter = _COUNTERS[key]
+    args = (x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), scratch.data_ptr(), counter.data_ptr(),
+            dgamma.data_ptr(), dbeta.data_ptr(), m, d, eps, n_blocks, rows)
     with torch.cuda.device(x.device):
-        status = lib.ln_bwd_f32(
-            x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), scratch.data_ptr(), counter.data_ptr(),
-            dgamma.data_ptr(), dbeta.data_ptr(), m, d, eps, n_blocks, rows, stream,
-        )
-    _native.check_launch("layer_norm_bwd", status)
+        if bf16:
+            status = lib.ln_bwd_bf16(*args, int(gamma.dtype == torch.bfloat16), stream)
+        else:
+            status = lib.ln_bwd_f32(*args, stream)
+    _native.check_launch(kernel, status)
     return dx, dgamma, dbeta
 
 
@@ -167,7 +220,8 @@ class _LayerNorm(torch.autograd.Function):
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Differentiable LayerNorm over the last axis of a 2-D (M, D) input:
-    kernels 1 and 4 on CUDA, their twins on the CPU."""
+    kernels 1 and 4 (their bf16 forms for bf16 x) on CUDA, their twins on the
+    CPU."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta)):
         return _LayerNorm.apply(x, gamma, beta, eps)
     return layer_norm_fwd(x, gamma, beta, eps)

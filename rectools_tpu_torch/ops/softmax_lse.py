@@ -47,13 +47,19 @@ memory: :func:`lse_cluster_plan`; kernel 16 on kernel 6's grid, with plain
 sums of the two windows in place of the running max).
 
 bf16 sessions and items (mixed-precision training) take bf16 forms of
-kernels 6 to 14 in ``csrc/softmax_lse_bf16.cu``: bf16 tensor-core products
+kernels 6 to 16 in ``csrc/softmax_lse_bf16.cu``: bf16 tensor-core products
 with f32 accumulation, the lse, the gradients and their partials in f32
 unless stated, as the JAX kernels do for bf16 inputs.
 
 - kernel 6 ``lse_partials_bf16`` (launch key ``lse_partials_fwd_bf16``) and
   kernel 8 ``lse_bias_bf16`` (``lse_bias_fwd_bf16``: the same kernel with
   the bias added to each f32 logit; a zero bias gives kernel 6's bits);
+- kernel 15 ``lse_bf16`` (``lse_fwd_bf16``, ``USE_PARTIALS_FWD = False``):
+  the same kernel with one running (max, Σexp) per row, in clusters of
+  :func:`lse_cluster_plan` as the f32 form; kernel 16 ``lse_shift_bf16``
+  (``lse_shift_fwd_bf16``, ``bounded_shift=True``): the same kernel with
+  plain sums of the two shifted windows, from a shift computed on the
+  widened towers (rectools_tpu/ops/softmax_lse.py:364-365);
 - kernel 7's one pass ``ce_fused_bf16`` (``ce_grads_fused_bf16``): the
   probability operand (P − D) rounded to bf16 once before both products, its
   ds partials per 2,048-row chunk stored in bf16 (``BF16_DS_PARTIALS``,
@@ -87,8 +93,9 @@ Their twins (:func:`streaming_lse_bf16_reference`,
 which is exact, so twin and card differ only in the order of f32 sums.
 They take every width of ``SUPPORTED_D``, on bf16 tiles of their own
 (:func:`_bwd_tile`; 64-row session tiles in the gradient kernels at D = 256).
-The forwards without a bias other than kernel 6 (kernels 15 and 16) raise
-``NotImplementedError`` for bf16 inputs, on the card and on the CPU alike.
+Kernels 15 and 16's twins (:func:`streaming_lse_carried_bf16_reference`,
+:func:`lse_shift_sums_bf16_reference`) are their f32 twins on the widened
+values in the same way.
 
 CPU tensors take the twins, which walk the catalog in item chunks exactly as
 the kernels walk their tiles (per-chunk partials, a running max or fixed
@@ -216,7 +223,12 @@ _SIGNATURES_BF16 = {
     "grads_z_ds_bf16": (_C,) * 4 + (_LL, _LL, _I, _LL, _LL, _C),
     # sessions, items, z, f32 di; M, N, D; stream
     "grads_z_di_bf16": (_C,) * 4 + (_LL, _LL, _I, _C),
-    # kernel (0: 6 / 8, 1: the one pass, 2: split ds, 3: split di, 4: 11), D -> bytes of shared memory a block
+    # sessions, items, f32 shift, f32 window-1 partials, f32 window-2 partials; M, N, D; chunk rows; stream
+    "lse_shift_bf16": (_C, _C, _C, _C, _C, _LL, _LL, _I, _LL, _C),
+    # sessions, items, f32 lse; M, N, D; cluster, item rows per rank; stream
+    "lse_bf16": (_C, _C, _C, _LL, _LL, _I, _I, _LL, _C),
+    # kernel (0: 6 / 8 / 15 / 16, 1: the one pass, 2: split ds, 3: split di, 4: 11), D -> bytes of shared memory a
+    # block
     "lse_bf16_smem_bytes": (_I, _I),
 }
 # kernel 7's ds partials in bf16 for bf16 inputs: the JAX package's constant
@@ -280,7 +292,10 @@ def streaming_lse_partials_reference(
 
 def lse_shift(sessions: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
     """(M,) per-row upper bound of the logits, ``‖s_m‖ · max_n ‖item_n‖``
-    (Cauchy-Schwarz; rectools_tpu/ops/softmax_lse.py:364-365)."""
+    (Cauchy-Schwarz; rectools_tpu/ops/softmax_lse.py:364-365), in f32 from
+    the widened towers as JAX computes it (bf16 squares and sums would round
+    at other points); a tower in a wider type stays in it."""
+    sessions, items = (t.float() if t.dtype == torch.bfloat16 else t for t in (sessions, items))
     if items.shape[0] == 0:
         return torch.zeros((sessions.shape[0],), device=sessions.device)
     item_max_norm = torch.sqrt((items * items).sum(dim=1).max())
@@ -317,6 +332,21 @@ def streaming_lse_shift_reference(
     """Plain PyTorch twin of the ``bounded_shift`` forward: kernel 16's sums
     and the window selection."""
     return select_shift_window(*lse_shift_sums_reference(sessions, items, chunk))
+
+
+def lse_shift_sums_bf16_reference(
+    sessions: torch.Tensor, items: torch.Tensor
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of ``lse_shift_bf16`` (kernel 16 on bf16 towers):
+    kernel 16's twin on the widened values (the shift from them too, as JAX's
+    ``items.astype(jnp.float32)``), in the kernel's item chunks."""
+    return lse_shift_sums_reference(sessions.float(), items.float())
+
+
+def streaming_lse_carried_bf16_reference(sessions: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of ``lse_bf16`` (kernel 15 on bf16 towers): kernel
+    15's running (max, Σexp) twin on the widened values."""
+    return streaming_lse_reference(sessions.float(), items.float())
 
 
 def streaming_lse_bias_reference(
@@ -590,26 +620,26 @@ def _launch_chunked_lse(
     row_bias: tp.Optional[torch.Tensor] = None,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel 6, kernel 8 (given ``row_bias``) or kernel 16 (given
-    ``shift``) on (session tile, item chunk) blocks; returns its two (n_chunks,
-    M) partials."""
+    ``shift``), their bf16 forms on bf16 towers, on (session tile, item
+    chunk) blocks; returns its two f32 (n_chunks, M) partials."""
     m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
     n_chunks = -(-n // LSE_CHUNK)
     part_a = torch.empty((n_chunks, m), dtype=torch.float32, device=sessions.device)
     part_b = torch.empty_like(part_a)
-    lib = _native.load("softmax_lse", _SIGNATURES)
+    if sessions.dtype == torch.bfloat16:
+        lib, suffix = _native.load("softmax_lse_bf16", _SIGNATURES_BF16), "_bf16"
+    else:
+        lib, suffix = _native.load("softmax_lse", _SIGNATURES), "_f32"
     stream = _native.current_stream_ptr(sessions.device)
     pointers = (sessions.data_ptr(), items.data_ptr())
+    tail = (part_a.data_ptr(), part_b.data_ptr(), m, n, d, LSE_CHUNK, stream)
     with torch.cuda.device(sessions.device):
         if row_bias is not None:
-            status = lib.lse_bias_f32(
-                *pointers, row_bias.data_ptr(), part_a.data_ptr(), part_b.data_ptr(), m, n, d, LSE_CHUNK, stream
-            )
+            status = getattr(lib, f"lse_bias{suffix}")(*pointers, row_bias.data_ptr(), *tail)
         elif shift is None:
-            status = lib.lse_partials_f32(*pointers, part_a.data_ptr(), part_b.data_ptr(), m, n, d, LSE_CHUNK, stream)
+            status = getattr(lib, f"lse_partials{suffix}")(*pointers, *tail)
         else:
-            status = lib.lse_shift_f32(
-                *pointers, shift.data_ptr(), part_a.data_ptr(), part_b.data_ptr(), m, n, d, LSE_CHUNK, stream
-            )
+            status = getattr(lib, f"lse_shift{suffix}")(*pointers, shift.data_ptr(), *tail)
     _native.check_launch(kernel, status)
     return part_a, part_b
 
@@ -617,17 +647,19 @@ def _launch_chunked_lse(
 def lse_shift_sums(
     sessions: torch.Tensor, items: torch.Tensor
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(shift, l, l2) of the ``bounded_shift`` forward (kernel 16; its twin on
-    the CPU): the per-row shift and the two windows' sums."""
-    _native.refuse_bf16("lse_shift_fwd", "the bounded-shift forward (kernel 16)", sessions, items)
+    """(shift, l, l2) of the ``bounded_shift`` forward (kernel 16, its bf16
+    form on bf16 towers; their twins on the CPU): the per-row f32 shift and
+    the two windows' f32 sums."""
+    bf16 = _bf16_operands("lse_shift_fwd", sessions, items)
     if sessions.device.type == "cpu":
-        return lse_shift_sums_reference(sessions, items)
-    _native.require_cuda_f32("lse_shift_fwd", sessions=sessions, items=items)
-    m, n, _ = _check("lse_shift_fwd", sessions, items)
+        return (lse_shift_sums_bf16_reference if bf16 else lse_shift_sums_reference)(sessions, items)
+    kernel = "lse_shift_fwd_bf16" if bf16 else "lse_shift_fwd"
+    _native.require_cuda(kernel, torch.bfloat16 if bf16 else torch.float32, sessions=sessions, items=items)
+    m, n, _ = _check(kernel, sessions, items)
     shift = lse_shift(sessions, items).contiguous()
     if m == 0 or n == 0:
         return shift, torch.zeros_like(shift), torch.zeros_like(shift)
-    l_part, l2_part = _launch_chunked_lse("lse_shift_fwd", sessions, items, shift=shift)
+    l_part, l2_part = _launch_chunked_lse(kernel, sessions, items, shift=shift)
     return shift, l_part.sum(dim=0), l2_part.sum(dim=0)  # fixed-order sums over the chunks
 
 
@@ -640,72 +672,42 @@ def streaming_lse_fwd(
     """(M,) float32 lse, no autograd: with a bias kernel 8; without one
     kernel 16 for ``bounded_shift``, else kernel 6 (or 15 when
     ``USE_PARTIALS_FWD`` is False). Kernels 6 and 8 give per-chunk partials
-    that :func:`combine_lse_partials` merges. bf16 towers take kernel 6's bf16
-    form; the other forwards have none yet and raise."""
+    that :func:`combine_lse_partials` merges. bf16 towers take the bf16 form
+    of the same kernel (a bias stays f32)."""
     if row_bias is None and bounded_shift:
         return select_shift_window(*lse_shift_sums(sessions, items))
-    if _bf16_operands("lse_fwd", sessions, items):
-        return _lse_bf16(sessions, items, row_bias)
+    bf16 = _bf16_operands("lse_fwd", sessions, items)
     partials = USE_PARTIALS_FWD
     if sessions.device.type == "cpu":
         if row_bias is not None:
-            return streaming_lse_bias_reference(sessions, items, row_bias)
-        twin = streaming_lse_partials_reference if partials else streaming_lse_reference
-        return twin(sessions, items)
+            return (streaming_lse_bias_bf16_reference if bf16 else streaming_lse_bias_reference)(
+                sessions, items, row_bias)
+        if bf16:
+            return (streaming_lse_bf16_reference if partials else streaming_lse_carried_bf16_reference)(sessions, items)
+        return (streaming_lse_partials_reference if partials else streaming_lse_reference)(sessions, items)
     kernel = "lse_bias_fwd" if row_bias is not None else "lse_partials_fwd" if partials else "lse_fwd"
-    tensors = {"sessions": sessions, "items": items}
-    if row_bias is not None:
-        tensors["row_bias"] = row_bias
-    _native.require_cuda_f32(kernel, **tensors)
-    m, n, d = _check(kernel, sessions, items)
-    if row_bias is not None:
-        _check_vectors(kernel, n, "item row", row_bias=row_bias)
-    if m == 0 or n == 0:
-        return torch.full((m,), float("-inf"), device=sessions.device)
-    if row_bias is not None or partials:
-        return combine_lse_partials(*_launch_chunked_lse(kernel, sessions, items, row_bias=row_bias))
-    lse = torch.empty((m,), dtype=torch.float32, device=sessions.device)
-    lib = _native.load("softmax_lse", _SIGNATURES)
-    with torch.cuda.device(sessions.device):
-        status = lib.lse_f32(
-            sessions.data_ptr(), items.data_ptr(), lse.data_ptr(), m, n, d, *lse_cluster_plan(n),
-            _native.current_stream_ptr(sessions.device),
-        )
-    _native.check_launch(kernel, status)
-    return lse
-
-
-def _lse_bf16(sessions: torch.Tensor, items: torch.Tensor, row_bias: tp.Optional[torch.Tensor]) -> torch.Tensor:
-    """The bf16 lse forwards (their twins on the CPU): kernel 8's bf16 form
-    with a bias, else kernel 6's; the running max (kernel 15) has none yet."""
-    if row_bias is None and not USE_PARTIALS_FWD:
-        raise NotImplementedError(f"lse_fwd: the running-max forward (kernel 15) has no bf16 form yet "
-                                  f"({_native.BF16_ROADMAP})")
-    kernel = "lse_partials_fwd_bf16" if row_bias is None else "lse_bias_fwd_bf16"
-    if sessions.device.type == "cpu":
-        if row_bias is None:
-            return streaming_lse_bf16_reference(sessions, items)
-        return streaming_lse_bias_bf16_reference(sessions, items, row_bias)
-    _native.require_cuda(kernel, torch.bfloat16, sessions=sessions, items=items)
+    kernel += "_bf16" if bf16 else ""
+    _native.require_cuda(kernel, torch.bfloat16 if bf16 else torch.float32, sessions=sessions, items=items)
     m, n, d = _check(kernel, sessions, items)
     if row_bias is not None:
         _native.require_cuda_f32(kernel, row_bias=row_bias)
         _check_vectors(kernel, n, "item row", row_bias=row_bias)
     if m == 0 or n == 0:
         return torch.full((m,), float("-inf"), device=sessions.device)
-    n_chunks = -(-n // LSE_CHUNK)
-    m_part = torch.empty((n_chunks, m), dtype=torch.float32, device=sessions.device)
-    l_part = torch.empty_like(m_part)
-    lib = _native.load("softmax_lse_bf16", _SIGNATURES_BF16)
-    pointers = (sessions.data_ptr(), items.data_ptr())
-    tail = (m_part.data_ptr(), l_part.data_ptr(), m, n, d, LSE_CHUNK, _native.current_stream_ptr(sessions.device))
+    if row_bias is not None or partials:
+        return combine_lse_partials(*_launch_chunked_lse(kernel, sessions, items, row_bias=row_bias))
+    lse = torch.empty((m,), dtype=torch.float32, device=sessions.device)
+    if bf16:
+        lib, entry = _native.load("softmax_lse_bf16", _SIGNATURES_BF16), "lse_bf16"
+    else:
+        lib, entry = _native.load("softmax_lse", _SIGNATURES), "lse_f32"
     with torch.cuda.device(sessions.device):
-        if row_bias is None:
-            status = lib.lse_partials_bf16(*pointers, *tail)
-        else:
-            status = lib.lse_bias_bf16(*pointers, row_bias.data_ptr(), *tail)
+        status = getattr(lib, entry)(
+            sessions.data_ptr(), items.data_ptr(), lse.data_ptr(), m, n, d, *lse_cluster_plan(n),
+            _native.current_stream_ptr(sessions.device),
+        )
     _native.check_launch(kernel, status)
-    return combine_lse_partials(m_part, l_part)
+    return lse
 
 
 def fused_bwd_plan(
@@ -815,7 +817,7 @@ def streaming_lse_bwd(
     if sessions.device.type == "cpu":
         twin = streaming_lse_bwd_bf16_reference if bf16 else streaming_lse_bwd_reference
         return twin(sessions, items, row_bias, lse, dlse, partials=_fused_on_the_card(m, n, d, 4, sessions.dtype))
-    _native.require_cuda("lse_bwd", sessions.dtype, sessions=sessions, items=items)
+    _native.require_cuda("lse_bwd", torch.bfloat16 if bf16 else torch.float32, sessions=sessions, items=items)
     _native.require_cuda_f32("lse_bwd", row_bias=row_bias, lse=lse, dlse=dlse)
     _check("lse_bwd", sessions, items)
     _check_vectors("lse_bwd", n, "item row", row_bias=row_bias)

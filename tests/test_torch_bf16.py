@@ -3,7 +3,7 @@ against the JAX package's bf16 path on the CPU.
 
 Every input is made from a seed with numpy and fed to both sides. The port
 runs on CPU tensors, through the plain twins of the bf16 kernel forms
-(kernels 2, 5, 6 and 7; LayerNorm widens to its f32 kernels). The twins
+(kernels 1, 2, 4, 5, 6 and 7, and 15 and 16 of the public lse op). The twins
 multiply bf16 values in f32, which is exact, so they differ from the card's
 tensor-core products with f32 accumulation only in the order of the f32
 sums; the JAX side runs its Pallas kernels in interpret mode, or its XLA
@@ -42,7 +42,6 @@ from rectools_tpu_torch.ops import attention, layer_norm, softmax_lse, stu_atten
 
 BF16 = torch.bfloat16
 MASK_VALUE = -1e9
-ROADMAP = "ROADMAP.md §1 item 5"
 # Measured on the CPU at these shapes (largest over the cases), and the limit:
 LSE_TOL = 1e-6  # lse, relative per row: 1.4e-7 (f32 sums of exact products on both sides)
 GRAD_TOL = 1e-3  # kernel 7's ds and di, relative to the largest entry: 1.1e-4 and 2.8e-6 (a bf16 ds partial
@@ -322,9 +321,9 @@ def test_fully_masked_row_sums_v_in_bf16() -> None:
 
 def test_layer_norm_bf16_matches_jax() -> None:
     """LayerNorm on bf16 activations and bf16 γ, β (the cast parameters):
-    widened to the f32 kernels' twins, y and dx in bf16, dγ and dβ at γ's
-    dtype, against JAX ``fused_layer_norm`` in interpret mode
-    (tests/ops/test_layer_norm.py:61) and its VJP."""
+    the bf16 forms' twins (the f32 twins on the widened values), y and dx in
+    bf16, dγ and dβ at γ's dtype, against JAX ``fused_layer_norm`` in
+    interpret mode (tests/ops/test_layer_norm.py:61) and its VJP."""
     rng = np.random.default_rng(4)
     x, dy = _bf16_np(rng.normal(size=(128, 64)) * 2 + 0.5), _bf16_np(rng.normal(size=(128, 64)))
     gamma, beta = _bf16_np(rng.normal(size=64)), _bf16_np(rng.normal(size=64))
@@ -521,16 +520,17 @@ def test_bf16_fit_tracks_the_f32_fit(fits, family: str) -> None:
 
 
 def test_bf16_step_launches_the_bf16_forms_only(fits, monkeypatch) -> None:
-    """A bf16 train step reaches the four bf16 forms (here their twins) and no
-    f32 attention or loss twin; LayerNorm takes its f32 twins through the
-    wrapper."""
+    """A bf16 train step reaches the bf16 forms (here their twins) and no f32
+    attention or loss twin; LayerNorm takes its bf16 twins, each of which runs
+    the f32 twin on the widened values and nothing else."""
     calls = []
     for module, names in ((attention, ("attention_reference", "attention_bwd_reference", "attention_bf16_reference",
                                        "attention_bwd_bf16_reference")),
                           (softmax_lse, ("streaming_lse_partials_reference", "streaming_lse_bf16_reference",
                                          "softmax_ce_grads_from_z_reference",
                                          "softmax_ce_grads_from_z_bf16_reference")),
-                          (layer_norm, ("layer_norm_reference", "layer_norm_bwd_reference"))):
+                          (layer_norm, ("layer_norm_reference", "layer_norm_bwd_reference",
+                                        "layer_norm_bf16_reference", "layer_norm_bwd_bf16_reference"))):
         for name in names:
             twin = getattr(module, name)
             monkeypatch.setattr(module, name, lambda *a, _n=name, _t=twin, **k: calls.append(_n) or _t(*a, **k))
@@ -544,6 +544,7 @@ def test_bf16_step_launches_the_bf16_forms_only(fits, monkeypatch) -> None:
     n = FIT_CONFIG["n_blocks"]
     assert calls.count("attention_bf16_reference") == calls.count("attention_bwd_bf16_reference") == n
     assert calls.count("streaming_lse_bf16_reference") == calls.count("softmax_ce_grads_from_z_bf16_reference") == 1
+    assert calls.count("layer_norm_bf16_reference") == calls.count("layer_norm_bwd_bf16_reference") == 2 * n + 1
     assert calls.count("layer_norm_reference") == calls.count("layer_norm_bwd_reference") == 2 * n + 1
     assert "attention_reference" not in calls and "softmax_ce_grads_from_z_reference" not in calls
     # the bf16 lse twin is kernel 6's f32 twin on the widened values: once, from it
@@ -646,18 +647,26 @@ def _bf16_towers(m: int, n: int, d: int):
 
 
 def test_refused_routes_raise_naming_the_roadmap(monkeypatch) -> None:
-    """Every route without a bf16 kernel raises ``NotImplementedError`` naming
-    ROADMAP §1 item 5, on the CPU as on the card: none runs in f32 or through
-    a twin. The routes that raised before they had bf16 forms now run: the
-    loss routes at D = 16 and 256, against their twins and against JAX in
-    interpret mode where a route has a JAX kernel; attention and STU
-    attention at head dim 8, against JAX's XLA route and ``_stu_reference``."""
+    """No route of the port refuses bf16 any more: the routes that raised
+    before they had bf16 forms now run. The bounded-shift (kernel 16) and
+    running-max (kernel 15) forwards, also at the widths 16 and 256, against
+    JAX's kernels in interpret mode on the same bf16 inputs; the loss routes
+    at D = 16 and 256, against their twins and against JAX in interpret mode
+    where a route has a JAX kernel; attention and STU attention at head dim
+    8, against JAX's XLA route and ``_stu_reference``."""
     s, items = _bf16_towers(300, 5000, 32)
     z, coeff, y = torch.zeros(300), torch.full((300,), 1e-3), torch.ones(300, dtype=torch.int64)
     narrow = _bf16_towers(8, 3000, 16)
     wide = _bf16_towers(8, 3000, 256)
-    with pytest.raises(NotImplementedError, match=ROADMAP):
-        softmax_lse.streaming_lse(s, items, bounded_shift=True)  # kernel 16
+
+    def jax_lse(towers, bounded_shift=False):
+        jt = [jnp.asarray(_np(t), jnp.bfloat16) for t in towers]
+        return np.asarray(jax_softmax_lse.streaming_lse(*jt, None, 128, softmax_lse.LSE_CHUNK, True, bounded_shift))
+
+    scaled = tuple((t.float() * 0.2).to(BF16) for t in (s, items))  # inside kernel 16's contract at d = 32
+    for towers in (scaled, narrow):  # kernel 16 runs, against JAX
+        got = softmax_lse.streaming_lse(*towers, bounded_shift=True)
+        np.testing.assert_allclose(got.numpy(), jax_lse(towers, True), rtol=LSE_TOL)
     # what raised at head dim 8 runs: kernel 2's bf16 form (its twin here) against JAX's XLA route ...
     q, k, v, _, _ = _attention_case(1, 2, 6, 8, "none", 8)
     out, _ = attention.attention_fwd(*(_t(x, BF16).transpose(1, 2) for x in (q, k, v)), None, 0.3)
@@ -674,12 +683,11 @@ def test_refused_routes_raise_naming_the_roadmap(monkeypatch) -> None:
                                       jnp.zeros((1, l + 1), jnp.int32), jnp.asarray(timeline, jnp.bfloat16), None,
                                       None, jnp.asarray(allowed, jnp.bfloat16), 128, False, False)
     assert out.dtype == BF16 and _rel(_np(out), _np(expected)) <= ATTN_TOL
-    with monkeypatch.context() as mp:
+    with monkeypatch.context() as mp:  # kernel 15 runs, against JAX, at the new widths too
         mp.setattr(softmax_lse, "USE_PARTIALS_FWD", False)
-        with pytest.raises(NotImplementedError, match="kernel 15"):
-            softmax_lse.streaming_lse(s, items)
-        with pytest.raises(NotImplementedError, match="kernel 15"):
-            softmax_lse.streaming_lse(*wide)  # at the new widths too
+        mp.setattr(jax_softmax_lse, "_USE_PARTIALS_FWD", False)
+        for towers in ((s, items), wide):
+            np.testing.assert_allclose(softmax_lse.streaming_lse(*towers).numpy(), jax_lse(towers), rtol=LSE_TOL)
     # what raised at D = 16 and 256 runs, through the bf16 twins on the CPU
     bias = torch.zeros(3000)
     bias[-2:] = softmax_lse.NEG_BIG

@@ -161,9 +161,10 @@ def test_lse_partials_tile_matches_the_cuda_source() -> None:
 
 
 def test_layer_norm_bwd_is_one_launch_in_the_cuda_source() -> None:
-    """Kernel 4 is one launch: ``ln_bwd_f32`` launches ``ln_bwd_kernel`` and
-    nothing else, whose last block sums the partial rows after an integer
-    ticket (no float atomics) and resets the counter. The ``.cu`` picks the
+    """Kernel 4 is one launch: ``ln_bwd_f32`` (and its bf16 form
+    ``ln_bwd_bf16``) launches ``ln_bwd_kernel`` and nothing else, whose last
+    block sums the partial rows after an integer ticket (no float atomics) and
+    resets the counter. The ``.cu`` picks the
     warps a block from D alone (16 up to D = 256, else 8) and reads every row
     in the forward kernel's lane layout, with no second path by alignment;
     ``bwd_partition`` gives every M at most ``MAX_BWD_BLOCKS`` non-empty
@@ -172,7 +173,7 @@ def test_layer_norm_bwd_is_one_launch_in_the_cuda_source() -> None:
     src = (REPO / "rectools_tpu_torch" / "csrc" / "layer_norm.cu").read_text()
     entry = src[src.index('extern "C" int ln_bwd_f32('):]
     assert "<<<" not in entry and src.count("<<<") == 2  # the forward's launch and the backward's
-    assert "ln_bwd_kernel<VPL><<<n_blocks, 32 * warps, smem, stream>>>" in src
+    assert "ln_bwd_kernel<VPL, T, G><<<n_blocks, 32 * warps, smem, stream>>>" in src
     assert "ticket = atomicAdd(counter, 1u);" in src and "*counter = 0u;" in src
     assert "atomicAdd(" not in src.replace("atomicAdd(counter, 1u)", "")
     assert "constexpr int bwd_warps(int d) { return d <= 256 ? 16 : 8; }" in src
@@ -284,7 +285,9 @@ def test_lse_bias_chunks_match_the_cuda_source() -> None:
     assert "lse_partials_tc_kernel<D, kMode><<<grid, tc::kThreads, smem, stream>>>(s, items, shift, bias, " in src
     assert "lse_kernel<D><<<" in src and "kBias" not in src
     launch = inspect.getsource(softmax_lse._launch_chunked_lse)
-    assert "lib.lse_bias_f32(" in launch and launch.count("LSE_CHUNK, stream") == 3
+    # kernels 6, 8 and 16 (and their bf16 forms) take one tail of arguments: LSE_CHUNK-row chunks, two partials
+    assert "tail = (part_a.data_ptr(), part_b.data_ptr(), m, n, d, LSE_CHUNK, stream)" in launch
+    assert 'getattr(lib, f"lse_bias{suffix}")(*pointers, row_bias.data_ptr(), *tail)' in launch
     assert softmax_lse._SIGNATURES["lse_bias_f32"] == softmax_lse._SIGNATURES["lse_partials_f32"][:2] + (
         softmax_lse._C,) + softmax_lse._SIGNATURES["lse_partials_f32"][2:]
     fwd = inspect.getsource(softmax_lse.streaming_lse_fwd)
@@ -1585,6 +1588,15 @@ def test_cuda_bf16_fit_at_the_wide_and_narrow_widths_matches_cpu(
     _bf16_fit_card_against_cpu(cuda, "sasrec", n_factors=n_factors, n_heads=n_heads)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_factors,n_heads", [(32, 4), (64, 2)])
+def test_cuda_bf16_hstu_fit_matches_cpu(cuda: torch.device, n_factors: int, n_heads: int) -> None:
+    """The same for HSTU at head dims 8 (n_factors 32, 4 heads) and 32 (64, 2
+    heads): the bf16 forms of kernels 17-19 (18 in its two launches) and of
+    LayerNorm's kernels on the card, no f32 STU or LayerNorm launch."""
+    _bf16_fit_card_against_cpu(cuda, "hstu", n_factors=n_factors, n_heads=n_heads)
+
+
 def _bf16_fit_card_against_cpu(cuda: torch.device, family: str, n_factors: int, n_heads: int) -> None:
     import pandas as pd
 
@@ -1598,7 +1610,7 @@ def _bf16_fit_card_against_cpu(cuda: torch.device, family: str, n_factors: int, 
         Columns.Datetime: pd.Timestamp("2021-01-01") + pd.to_timedelta(rng.integers(0, 10**7, n), unit="s"),
     })
     dataset = Dataset.construct(df)
-    model_type = BERT4RecModel if family == "bert4rec" else SASRecModel
+    model_type = {"bert4rec": BERT4RecModel, "hstu": HSTUModel}.get(family, SASRecModel)
     if family == "esasrec":
         extra = {"transformer_layers_type": LiGRLayers, "loss": "sampled_softmax", "n_negatives": 16,
                  "training_module_kwargs": {"compute_dtype": "bfloat16", "negatives_on_device": False}}
@@ -1619,10 +1631,17 @@ def _bf16_fit_card_against_cpu(cuda: torch.device, family: str, n_factors: int, 
                                   model.data_preparator.get_dataloader_val, 1)
     steps = models["cuda"].training_module.global_step
     assert steps == 3
-    assert _native.LAUNCHES["attention_fwd_bf16"] == _native.LAUNCHES["attention_bwd_bf16"] == 2 * steps
+    if family == "hstu":
+        assert all(_native.LAUNCHES[k] == 2 * steps for k in STU_BF16_KEYS[:4])
+        assert not any(_native.LAUNCHES[k] for k in STU_BF16_KEYS[4:])
+    else:
+        assert _native.LAUNCHES["attention_fwd_bf16"] == _native.LAUNCHES["attention_bwd_bf16"] == 2 * steps
     loss_launches = steps if family != "esasrec" else 0
     assert _native.LAUNCHES["lse_partials_fwd_bf16"] == _native.LAUNCHES["ce_grads_fused_bf16"] == loss_launches
     assert _native.LAUNCHES["attention_fwd"] == _native.LAUNCHES["ce_grads_fused"] == 0
+    norms = 5 if family == "sasrec" else 4  # two a block, and SASRec's closing LayerNorm
+    assert _native.LAUNCHES["layer_norm_fwd_bf16"] == _native.LAUNCHES["layer_norm_bwd_bf16"] == norms * steps
+    assert _native.LAUNCHES["layer_norm_fwd"] == _native.LAUNCHES["layer_norm_bwd"] == 0
     np.testing.assert_allclose(models["cuda"].training_module.train_loss_history,
                                models["cpu"].training_module.train_loss_history, rtol=1e-3)
     cpu_state = models["cpu"].backbone.state_dict()
@@ -1891,3 +1910,218 @@ def test_cuda_bf16_split_entries_refuse_another_grid(cuda: torch.device) -> None
     assert lib.grads_z_ds_bf16(*gz, chunk_rows, n_chunks, stream) == 0
     assert lib.grads_z_ds_bf16(*gz, chunk_rows + 1, n_chunks, stream) != 0
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------------ kernels 1, 4, 15 and 16 in bf16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gamma_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d", [(51200, 16), (51200, 128), (51200, 256), (51199, 128), (33, 96), (7, 1024),
+                                 (1, 128)])
+def test_cuda_bf16_layer_norm_is_the_widened_route_to_the_bit(
+    cuda: torch.device, m: int, d: int, gamma_dtype: torch.dtype
+) -> None:
+    """Kernels 1 and 4's bf16 forms (``ln_fwd_bf16``, ``ln_bwd_bf16``) on bf16
+    x and dy with bf16 or f32 γ, β: one launch each and no f32 launch; bit for
+    bit the f32 kernels on the widened operands, y and dx rounded to bf16 and
+    dγ, dβ to γ's dtype (widening is exact and each output is rounded once);
+    the same bits on a rerun; within one bf16 step (2^-8 of the largest entry)
+    of the bf16 twins, whose f32 sums run in another order."""
+    rng = np.random.default_rng(m + d)
+    bf = torch.bfloat16
+    x = _t((rng.normal(size=(m, d)) * 3 + 1).astype(np.float32)).to(cuda).to(bf)
+    dy = _t(rng.normal(size=(m, d)).astype(np.float32)).to(cuda).to(bf)
+    g = _t((1 + 0.3 * rng.normal(size=d)).astype(np.float32)).to(cuda).to(gamma_dtype)
+    b = _t((0.3 * rng.normal(size=d)).astype(np.float32)).to(cuda).to(gamma_dtype)
+    keys = ("layer_norm_fwd_bf16", "layer_norm_bwd_bf16", "layer_norm_fwd", "layer_norm_bwd")
+    before = dict(_native.LAUNCHES)
+    y = layer_norm.layer_norm_fwd(x, g, b, 1e-6)
+    grads = layer_norm.layer_norm_bwd(x, g, dy, 1e-6)
+    assert [_native.LAUNCHES[k] - before[k] for k in keys] == [1, 1, 0, 0]
+    assert y.dtype == grads[0].dtype == bf and grads[1].dtype == grads[2].dtype == gamma_dtype
+    assert torch.equal(y, layer_norm.layer_norm_fwd(x.float(), g.float(), b.float(), 1e-6).to(bf))
+    widened = layer_norm.layer_norm_bwd(x.float(), g.float(), dy.float(), 1e-6)
+    assert torch.equal(grads[0], widened[0].to(bf))
+    assert all(torch.equal(a, w.to(gamma_dtype)) for a, w in zip(grads[1:], widened[1:]))
+    assert torch.equal(layer_norm.layer_norm_fwd(x, g, b, 1e-6), y)
+    assert all(torch.equal(a, c) for a, c in zip(layer_norm.layer_norm_bwd(x, g, dy, 1e-6), grads))
+    assert _max_rel(y, layer_norm.layer_norm_bf16_reference(x, g, b, 1e-6)) <= 2 ** -8
+    for a, w in zip(grads, layer_norm.layer_norm_bwd_bf16_reference(x, g, dy, 1e-6)):
+        assert _max_rel(a, w) <= 2 ** -8
+
+
+@pytest.mark.gpu
+def test_cuda_layer_norm_refuses_f32_x_with_bf16_gamma(cuda: torch.device) -> None:
+    """f32 x with bf16 γ has no kernel form: ValueError on the card as on the
+    CPU, and nothing launches."""
+    x, g = torch.ones((4, 32), device=cuda), torch.ones((32,), device=cuda, dtype=torch.bfloat16)
+    before = dict(_native.LAUNCHES)
+    for call in (lambda: layer_norm.layer_norm_fwd(x, g, g), lambda: layer_norm.layer_norm_bwd(x, g, x)):
+        with pytest.raises(ValueError, match="has no kernel form"):
+            call()
+    assert dict(_native.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_cuda_layer_norm_and_lse_refuse_other_float_dtypes(cuda: torch.device, monkeypatch: pytest.MonkeyPatch,
+                                                           dtype: torch.dtype) -> None:
+    """float16 and float64 operands (all of one dtype) have no kernel form:
+    the LayerNorm and lse wrappers raise TypeError before a launch, and never
+    hand such pointers to an f32 or bf16 kernel."""
+    x, g = torch.ones((4, 32), device=cuda, dtype=dtype), torch.ones((32,), device=cuda, dtype=dtype)
+    s, items = torch.ones((4, 32), device=cuda, dtype=dtype), torch.ones((300, 32), device=cuda, dtype=dtype)
+    lse, dlse = torch.zeros((4,), device=cuda), torch.ones((4,), device=cuda)
+    calls = [
+        lambda: layer_norm.layer_norm_fwd(x, g, g),
+        lambda: layer_norm.layer_norm_bwd(x, g, x),
+        lambda: softmax_lse.lse_shift_sums(s, items),
+        lambda: softmax_lse.streaming_lse_fwd(s, items, bounded_shift=True),
+        lambda: softmax_lse.streaming_lse_fwd(s, items),
+        lambda: softmax_lse.streaming_lse_bwd(s, items, None, lse, dlse),
+    ]
+    before = dict(_native.LAUNCHES)
+    for partials in (True, False):
+        monkeypatch.setattr(softmax_lse, "USE_PARTIALS_FWD", partials)
+        for call in calls:
+            with pytest.raises(TypeError, match=f"must be torch.(float32|bfloat16), got {dtype}"):
+                call()
+    assert dict(_native.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,d", [(130, 2177, 16), (51, 300, 32), (257, 4100, 64), (130, 40, 64), (1000, 576, 128),
+                                   (300, 15872, 128), (130, 2177, 256)])
+def test_cuda_bf16_carried_max_lse_matches_twin(cuda: torch.device, monkeypatch: pytest.MonkeyPatch, m: int, n: int,
+                                                d: int) -> None:
+    """Kernel 15's bf16 form (``lse_bf16``, ``USE_PARTIALS_FWD = False``) in
+    clusters of ``lse_cluster_plan`` at every width: one launch and no other
+    lse forward; within ``LSE_TC_RTOL`` per row of its twin; the same bits on
+    a rerun; within 1e-6 of kernel 6's bf16 form. The cases: one rank (40
+    items), ranks past the last tile (576, 2,177 items), M not a multiple of
+    128, the KION catalog (8 ranks of 31 tiles)."""
+    rng = np.random.default_rng(m * n + d)
+    bf = torch.bfloat16
+    s = _t(rng.normal(size=(m, d)).astype(np.float32)).to(cuda).to(bf)
+    items = _t((0.3 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda).to(bf)
+    monkeypatch.setattr(softmax_lse, "USE_PARTIALS_FWD", False)
+    keys = ("lse_fwd_bf16", "lse_partials_fwd_bf16", "lse_fwd", "lse_partials_fwd")
+    before = dict(_native.LAUNCHES)
+    lse = softmax_lse.streaming_lse(s, items)
+    assert [_native.LAUNCHES[k] - before[k] for k in keys] == [1, 0, 0, 0]
+    ref = softmax_lse.streaming_lse_carried_bf16_reference(s, items)
+    rel = ((lse - ref).abs() / ref.abs()).max().item()
+    assert lse.dtype == torch.float32 and torch.isfinite(lse).all() and rel <= LSE_TC_RTOL, rel
+    assert torch.equal(softmax_lse.streaming_lse(s, items), lse)
+    monkeypatch.setattr(softmax_lse, "USE_PARTIALS_FWD", True)
+    kernel_6 = softmax_lse.streaming_lse(s, items)
+    assert ((kernel_6 - lse).abs() / lse.abs()).max().item() <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [0.3, 1.0, 1.5, 4.0])
+@pytest.mark.parametrize("m,n,d", [(130, 2177, 16), (51, 300, 32), (300, 4500, 64), (700, 4500, 128),
+                                   (130, 2177, 256)])
+def test_cuda_bf16_lse_shift_matches_twin(cuda: torch.device, m: int, n: int, d: int, scale: float) -> None:
+    """Kernel 16's bf16 form (``lse_shift_bf16``, ``bounded_shift=True``): one
+    launch and no f32 one; the shift from the widened towers; inside the
+    contract (bound gap under 120) within ``LSE_TC_RTOL`` per row of its twin
+    in both windows, past it (gap over 170, scale 4) -inf rows in both, never
+    NaN; the same bits on a rerun; a zero session row (shift 0, every term 1)
+    gives log N. Its backward is kernel 9's bf16 form."""
+    rng = np.random.default_rng(m + n)
+    bf = torch.bfloat16
+    s = _t((scale * rng.normal(size=(m, d)) / np.sqrt(d / 32)).astype(np.float32)).to(cuda).to(bf)
+    items = _t((scale * rng.normal(size=(n, d)) / np.sqrt(d / 32)).astype(np.float32)).to(cuda).to(bf)
+    s[m // 2] = 0.0
+    keys = ("lse_shift_fwd_bf16", "lse_shift_fwd")
+    before = dict(_native.LAUNCHES)
+    got = softmax_lse.streaming_lse(s, items, bounded_shift=True)
+    assert [_native.LAUNCHES[k] - before[k] for k in keys] == [1, 0]
+    shift, l, l2 = softmax_lse.lse_shift_sums_bf16_reference(s, items)
+    ref = softmax_lse.select_shift_window(shift, l, l2)
+    assert torch.equal(softmax_lse.lse_shift(s, items), softmax_lse.lse_shift(s.float(), items.float()))
+    gap = shift - (s.float() @ items.float().T).max(dim=1).values
+    inside, outside = gap < 120, gap > 170
+    assert not torch.isnan(got).any() and inside[m // 2]
+    rel = ((got[inside] - ref[inside]).abs() / ref[inside].abs()).max().item()
+    assert rel <= LSE_TC_RTOL, rel
+    assert torch.isneginf(got[outside]).all() and torch.isneginf(ref[outside]).all()
+    assert torch.equal(softmax_lse.streaming_lse(s, items, bounded_shift=True), got)
+    assert abs(got[m // 2].item() - np.log(n)) <= 1e-6 * np.log(n)
+    if outside.any():  # an lse of -inf has no gradient
+        return
+    ts, ti = s.clone().requires_grad_(True), items.clone().requires_grad_(True)
+    before = dict(_native.LAUNCHES)
+    softmax_lse.streaming_lse(ts, ti, bounded_shift=True).sum().backward()
+    bwd = _native.LAUNCHES["lse_bwd_fused_bf16"] + _native.LAUNCHES["lse_bwd_ds_bf16"]
+    assert bwd - before["lse_bwd_fused_bf16"] - before["lse_bwd_ds_bf16"] == 1
+    assert ts.grad.dtype == ti.grad.dtype == bf
+    assert torch.isfinite(ts.grad.float()).all() and torch.isfinite(ti.grad.float()).all()
+
+
+# Kernels 1, 4, 15 and 16 in f32 on seeded inputs: a digest of each form's output bits, as the f32 kernels gave them
+# on an H100 before their bf16 forms were added (the f32 instantiations of the templated LayerNorm kernels, and the
+# f32 lse forwards, keep those bits).
+F32_DIGESTS = {
+    "ln_fwd_51200x128": "dd77d907cd3df550",
+    "ln_bwd_51200x128": "b86463a03e04f6bb",
+    "ln_fwd_4099x96": "9cefca4d3aefaf7d",
+    "ln_bwd_4099x96": "a5592d6f3ff07b6d",
+    "ln_fwd_7x1024": "1f17cb3e604db201",
+    "ln_bwd_7x1024": "f4546cf3cd85d91d",
+    "ln_fwd_51200x256": "9dcfbf8e3e4eda30",
+    "ln_bwd_51200x256": "bb2a8a04e5c483af",
+    "lse_fwd_300x15872x128": "6a12042b548896e8",
+    "lse_shift_fwd_300x15872x128": "41a9db1731d5dd76",
+    "lse_fwd_130x2177x16": "faa002384e0b35c3",
+    "lse_shift_fwd_130x2177x16": "fa476ae17c44f839",
+    "lse_fwd_257x1000x64": "b1c29ff74156c31f",
+    "lse_shift_fwd_257x1000x64": "17711987950d7d2e",
+    "lse_fwd_130x2177x256": "e1dff909b3a61350",
+    "lse_shift_fwd_130x2177x256": "8c85a5b1bba181b7",
+}
+
+
+def _f32_digests(dev: torch.device) -> dict:
+    """{case: the first 16 hex digits of the SHA-256 of its output bytes}
+    for kernels 1, 4, 15 and 16 in f32 at shapes of the main path and ragged
+    ones."""
+    import hashlib
+
+    def digest(*tensors: torch.Tensor) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    out = {}
+    for m, d in ((51200, 128), (4099, 96), (7, 1024), (51200, 256)):
+        rng = np.random.default_rng(m + d)
+        x = _t((rng.normal(size=(m, d)) * 3 + 1).astype(np.float32)).to(dev)
+        dy = _t(rng.normal(size=(m, d)).astype(np.float32)).to(dev)
+        g = _t((1 + 0.3 * rng.normal(size=d)).astype(np.float32)).to(dev)
+        b = _t((0.3 * rng.normal(size=d)).astype(np.float32)).to(dev)
+        out[f"ln_fwd_{m}x{d}"] = digest(layer_norm.layer_norm_fwd(x, g, b, 1e-6))
+        out[f"ln_bwd_{m}x{d}"] = digest(*layer_norm.layer_norm_bwd(x, g, dy, 1e-6))
+    partials = softmax_lse.USE_PARTIALS_FWD
+    try:
+        softmax_lse.USE_PARTIALS_FWD = False
+        for m, n, d in ((300, 15872, 128), (130, 2177, 16), (257, 1000, 64), (130, 2177, 256)):
+            rng = np.random.default_rng(m * n + d)
+            s = _t(rng.normal(size=(m, d)).astype(np.float32)).to(dev)
+            items = _t((0.3 * rng.normal(size=(n, d))).astype(np.float32)).to(dev)
+            out[f"lse_fwd_{m}x{n}x{d}"] = digest(softmax_lse.streaming_lse(s, items))
+            out[f"lse_shift_fwd_{m}x{n}x{d}"] = digest(softmax_lse.streaming_lse(s, items, bounded_shift=True))
+    finally:
+        softmax_lse.USE_PARTIALS_FWD = partials
+    return out
+
+
+@pytest.mark.gpu
+def test_cuda_f32_forms_keep_their_bits(cuda: torch.device) -> None:
+    """``compute_dtype="float32"`` keeps its bits: kernels 1, 4, 15 and 16 in
+    f32 give, on the same seeded inputs, the bits they gave before their bf16
+    forms were added."""
+    assert _f32_digests(cuda) == F32_DIGESTS
