@@ -1433,11 +1433,12 @@ def compare_reco(np, got, ref, k: int) -> int:
     return n
 
 
-def profile_phase(torch, recommend) -> dict:
+def profile_phase(torch, recommend, by_kernel: bool = False) -> dict:
     """Where one warm recommend's time goes: device time by kernel name
     (torch.profiler), the device busy share of the call's wall time, and the
     host functions with the most cumulative time (cProfile; it inflates
-    Python-heavy parts, so read it for where, not how much)."""
+    Python-heavy parts, so read it for where, not how much). ``by_kernel``
+    adds ``device_ms_by_kernel``, {kernel name: device ms}."""
     import cProfile
     import io
     import pstats
@@ -1478,8 +1479,11 @@ def profile_phase(torch, recommend) -> dict:
     for line in out.getvalue().splitlines():
         if "rectools_tpu_torch" in line or "{method" in line:
             print(f"profile: host {line.strip()}")
-    return {"profiled_wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
-            "copy_kernels": copy_count, "copy_ms": copy_ms}
+    out = {"profiled_wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+           "copy_kernels": copy_count, "copy_ms": copy_ms}
+    if by_kernel:
+        out["device_ms_by_kernel"] = {name: us / 1e3 for us, _, name in rows}
+    return out
 
 
 def later_context(np, pd, dataset):
@@ -3381,13 +3385,16 @@ def large_fit_phase(torch, np, pd, port, dev, n_item_ids: int = LARGE_N_ITEM_IDS
     batch = tm._device_batch(pad_batch(next(iter(loader)), TRAIN_B))
     if bf16:  # a profiled step's device kernels: the bf16 forms of the route, no one pass, no f32 loss kernel
         names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
-        wanted = ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel", "split_ds_bf16_kernel",
-                  "split_di_bf16_kernel")
-        missing, banned = bf16_step_kernels(names, wanted, (*BF16_BANNED_KERNELS, "ce_fused_bf16_kernel"))
+        # the route's kernels (13 + 14, or kernel 7's engine) and not the other's
+        split, engine = ("split_ds_bf16_kernel", "split_di_bf16_kernel"), (CE_BF16_ENGINE_KERNEL,)
+        wanted = ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel",
+                  *(split if route else engine))
+        missing, banned = bf16_step_kernels(names, wanted, (*BF16_BANNED_KERNELS, "ce_fused_bf16_kernel",
+                                                            *(engine if route else split)))
         check(not missing and not banned, f"a {tag} step's device kernels: missing {missing}, banned {banned}")
-        print(f"{tag}: a profiled step ran {len(names)} device kernels, the bf16 split kernels and LayerNorm's bf16 "
-              f"forms among them, no one pass, no f32 loss, attention or LayerNorm kernel, no library attention or "
-              f"cross-entropy")
+        print(f"{tag}: a profiled step ran {len(names)} device kernels, {'the bf16 split kernels (13 + 14)' if route else 'kernel 7 bf16 engine'} and "
+              f"LayerNorm's bf16 forms among them, no one pass, no f32 loss, attention or LayerNorm kernel, no "
+              f"library attention or cross-entropy")
     print(f"{tag}: profile of one train step")
     profile = profile_phase(torch, lambda: tm._train_step(batch))
 
@@ -3671,7 +3678,7 @@ def bf16_mesh_fit(torch, np, port, dataset, dev, bf16_plain: dict, backend: str)
     loader = model.data_preparator.get_dataloader_train(np.random.default_rng(SEED))
     batch = tm._device_batch(tm._local_batch(pad_batch(next(iter(loader)), TRAIN_B)))
     names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
-    missing, banned = bf16_step_kernels(names, BF16_DEVICE_KERNELS, BF16_BANNED_KERNELS)
+    missing, banned = bf16_step_kernels(names, BF16_MESH_DEVICE_KERNELS, (*BF16_BANNED_KERNELS, CE_BF16_ENGINE_KERNEL))
     if dev != "cpu":
         check(not missing and not banned, f"a bf16 mesh step's device kernels: missing {missing}, f32 or library "
                                           f"{banned}")
@@ -4297,15 +4304,28 @@ STU_BF16_LAUNCH_KEYS = ("stu_fwd_bf16", "stu_bwd_bf16", "stu_bwd_dq_bf16", "stu_
 STU_F32_LAUNCH_KEYS = ("stu_fwd", "stu_fwd_simt", "stu_bwd", "stu_bwd_dq", "stu_ds")
 # device kernels of a bf16 train step: each bf16 form, and nothing of the f32 attention or loss kernels or of a
 # library attention or cross-entropy
+CE_BF16_ENGINE_KERNEL = "ce_grads_bf16_kernel"  # kernel 7's bf16 forms (csrc/ce_grads_bf16.cu)
+# softmax_lse_bf16.cu's kernels that ran kernel 7's bf16 forms before the engine (9, 10, 12-14 keep them)
+CE_BF16_OLD_KERNELS = ("ce_fused_bf16_kernel", "split_ds_bf16_kernel", "split_di_bf16_kernel")
+CE_BF16_LAUNCH_REGS = 168  # the engine's registers a thread at launch, which setmaxnreg redistributes
+# kernel 7's bf16 forms on those kernels at 51,200 session rows, by (form, D, items): ms on an NVIDIA H100 80GB HBM3
+# at 700 W (PERF.md section 6, the kernel table's bracketed times)
+CE_BF16_OLD_MS = {("one_pass", 128, 15872): 6.3503, ("one_pass", 256, 15872): 16.3567, ("one_pass", 16, 15872): 2.2980,
+                  ("two_launches", 128, 15872): 7.3662, ("two_launches", 128, 65536): 29.4117,
+                  ("two_launches", 256, 15872): 13.1909, ("two_launches", 16, 15872): 2.5259}
 BF16_DEVICE_KERNELS = ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel",
-                       "ce_fused_bf16_kernel")
+                       CE_BF16_ENGINE_KERNEL)
+# a bf16 mesh step's: kernel 8 (kernel 6's kernel with the bias) and kernel 9 (the one pass of softmax_lse_bf16.cu
+# in its kLse form) in place of kernels 6 and 7
+BF16_MESH_DEVICE_KERNELS = ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel",
+                            "ce_fused_bf16_kernel")
 BF16_BANNED_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel", "attn_fwd_tc", "attn_bwd_tc", "lse_partials_tc",
                        "lse_chunk", "lse_bwd_fused", "grad_ds", "grad_di", "fmha", "flash", "attention_kernel",
                        "cross_entropy", "nll_loss", "log_softmax", "softmax_warp")
 # the same for a bf16 HSTU step: the bf16 STU kernels (18's two launches) and loss forms, none of the f32 STU
 # kernels (tensor-core or SIMT)
 BF16_HSTU_DEVICE_KERNELS = ("stu_fwd_bf16_kernel", "stu_dkdv_bf16_kernel", "stu_dq_bf16_kernel", "stu_ds_bf16_kernel",
-                            "lse_partials_bf16_kernel", "ce_fused_bf16_kernel")
+                            "lse_partials_bf16_kernel", CE_BF16_ENGINE_KERNEL)
 BF16_HSTU_BANNED_KERNELS = ("stu_fwd_tc_kernel", "stu_fwd_kernel", "stu_dkdv_tc_kernel", "stu_dq_tc_kernel",
                             "stu_ds_tc_kernel", "stu_bwd_kernel", "stu_ds_kernel", *BF16_BANNED_KERNELS)
 
@@ -4353,6 +4373,17 @@ def _bf16_line(name: str, r: dict) -> None:
     print(f"bf16 kernels: {name}: max_rel_err={r['max_rel_err']:.3g} ms={r['ms']:.4f} f32_ms={r['f32_ms']:.4f} "
           f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (bf16) bound_ms={r['bound'][0]:.4f} "
           f"({r['bound'][1]}, 989 TFLOP/s bf16, 3.35 TB/s)")
+    if "design_floor" in r:  # kernel 7's engine: its own floor and the form it replaced
+        print(f"bf16 kernels: {name}: kernel 7's engine {r['ms']:.4f} ms beside its design's floor "
+              f"{r['design_floor'][0]:.4f} ms (four products and two exps a logit, {r['design_floor'][1]}), the "
+              f"function's bound {r['bound'][0]:.4f} ms (three products), the library call {r['library_ms']:.4f} ms "
+              f"and the form before it {r['old_ms']} ms (PERF.md section 6)")
+
+
+def ce_bf16_design_floor(n_bytes: float, products: float, exps: float) -> tuple:
+    """Kernel 7's bf16 engine's floor: four products (the logits once in
+    each role) and two exps a logit where the function needs three and one."""
+    return bf16_bound(n_bytes, 4 * products, 2 * exps)
 
 
 def _attention_bf16_case(torch, F, attention, gen, dev, b: int, l: int, h: int, dh: int, bias, tag: str) -> dict:
@@ -4421,8 +4452,9 @@ def bf16_kernel_phase(torch, dev, b: int = TRAIN_B, d: int = N_FACTORS) -> dict:
     attention cases are left out) and of kernels 2 and 5 at B = 512, H = 4, L =
     100, heads of 32, causal with dropout and under BERT4Rec's bias, each
     against its twin on the card, the same bits on a rerun, timed beside its
-    f32 form, the library call in bf16 and its bound at the bf16 rate; kernels
-    6 and 7 also at the odd catalog (checked)."""
+    f32 form, the library call in bf16 and its bound at the bf16 rate (kernel
+    7 also beside its engine's floor and the form it replaced); kernels 6 and
+    7 also at the odd catalog (checked)."""
     import types
 
     import torch.nn.functional as F
@@ -4477,13 +4509,15 @@ def bf16_kernel_phase(torch, dev, b: int = TRAIN_B, d: int = N_FACTORS) -> dict:
           f"(limits {BF16_DS_RTOL}, {BF16_DI_RTOL}); bit-equal on a rerun")
     sg, ig = s.detach().clone().requires_grad_(), items.detach().clone().requires_grad_()
     ce_lib = (F.cross_entropy(sg @ ig.T, y, reduction="none").float() * coeff).sum()
+    ce_bytes = (m + n) * d * 2 + m * 16 + (m + n) * d * 4
     results[f"ce_grads_fused_bf16{sfx}"] = dict(
         max_abs_err=max((a - r).abs().max().item() for a, r in zip(got, ref)), max_rel_err=rel,
         ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff), iters=3),
         f32_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z(s32, items32, z, y, coeff), iters=3),
         plain_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z_bf16_reference(s, items, z, y, coeff), iters=3),
         library_ms=time_ms(lambda: torch.autograd.grad(ce_lib, (sg, ig), retain_graph=True), iters=3),
-        bound=bf16_bound((m + n) * d * 2 + m * 16 + (m + n) * d * 4, 3 * products, exps),
+        bound=bf16_bound(ce_bytes, 3 * products, exps), design_floor=ce_bf16_design_floor(ce_bytes, products, exps),
+        old_ms=CE_BF16_OLD_MS.get(("one_pass", d, n)),
     )
     del sg, ig, ce_lib, again
     # both at the odd catalog, where every item tile leaves a tail (checked, not timed)
@@ -4927,12 +4961,15 @@ def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B, d: int = N_FACTORS,
         sg, ig = s.detach().clone().requires_grad_(), rows.detach().clone().requires_grad_()
         ce_lib = (F.cross_entropy(sg @ ig.T, y_, reduction="none").float() * coeff).sum()
         products = 2 * m * n_rows * d
+        ce_bytes = (m + n_rows) * d * 2 + m * 16 + (m + n_rows) * d * 4
         results[f"ce_grads_pair_bf16{sfx}{tag}"] = dict(
             max_abs_err=max(abs_errs), max_rel_err=max(errs), ms=ms, f32_ms=f32_ms,
             plain_ms=time_ms(lambda: softmax_lse.softmax_ce_grads_from_z_bf16_reference(
                 s, rows, z_, y_, coeff, partials=False), iters=1, warmup=1),
             library_ms=time_ms(lambda: torch.autograd.grad(ce_lib, (sg, ig), retain_graph=True), iters=1, warmup=1),
-            bound=bf16_bound((m + n_rows) * d * 2 + m * 16 + (m + n_rows) * d * 4, 3 * products, m * n_rows))
+            bound=bf16_bound(ce_bytes, 3 * products, m * n_rows),
+            design_floor=ce_bf16_design_floor(ce_bytes, products, m * n_rows),
+            old_ms=CE_BF16_OLD_MS.get(("two_launches", d, n_rows)))
         split = softmax_lse.split_bwd_plan(m, n_rows, d, n_sms, softmax_lse.FUSED_BWD_CHUNK, bf)
         print(f"bf16 kernels: {what}, D={d}{' (budget forced)' if forced else ''}: ds {errs[0]:.3g}, di {errs[1]:.3g} of the "
               f"largest entry from their twin (limit {BF16_SPLIT_RTOL:.3g}), bit-equal on a rerun; one-pass partials "
@@ -5102,14 +5139,19 @@ def bf16_fit_phase(torch, np, port, df, dataset, dev, f32: dict, family: str = "
     names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
     wanted, banned_keys = ((BF16_HSTU_DEVICE_KERNELS, BF16_HSTU_BANNED_KERNELS) if hstu
                            else (BF16_DEVICE_KERNELS, BF16_BANNED_KERNELS))
-    missing, banned = bf16_step_kernels(names, wanted, banned_keys)
+    missing, banned = bf16_step_kernels(names, wanted, (*banned_keys, *CE_BF16_OLD_KERNELS))
     check(not missing and not banned,
           f"a {tag} step's device kernels: missing {missing}, f32 or library {banned}")
     print(f"{tag}: a profiled step ran {len(names)} device kernels, the {len(wanted)} bf16 forms and LayerNorm's "
           f"bf16 forms among them, no f32 {'STU' if hstu else 'attention'}, loss or LayerNorm kernel, no library "
-          f"attention or cross-entropy")
+          f"attention or cross-entropy, none of kernel 7's kernels before its engine")
     print(f"{tag}: profile of one train step")
-    profile = profile_phase(torch, lambda: tm._train_step(batch))
+    profile = profile_phase(torch, lambda: tm._train_step(batch), by_kernel=True)
+    by_kernel = profile.pop("device_ms_by_kernel")
+    kernel_7_ms = sum(ms for name, ms in by_kernel.items() if CE_BF16_ENGINE_KERNEL in name)
+    profile["kernel_7_ms"], profile["kernel_7_share"] = kernel_7_ms, kernel_7_ms / profile["device_ms"]
+    print(f"{tag}: kernel 7's engine took {kernel_7_ms:.3f} ms of the step's {profile['device_ms']:.3f} ms on the "
+          f"device ({profile['kernel_7_share']:.3f}); the step at d = {config['n_factors']} on {gpu_name_and_power()}")
     print(f"{tag}: the profiled step ran {profile['copy_kernels']} copy kernels in {profile['copy_ms']:.3f} ms on the "
           f"device (a bf16 SASRec step at d = 128 with LayerNorm widened to its f32 kernels, counted by this "
           f"profile: 80 copy kernels, 0.77 ms; PERF.md §6)")
@@ -5404,14 +5446,48 @@ def bf16_wide_build_check(torch, dev, reports: dict) -> dict:
     return out
 
 
+def ce_bf16_engine_build_check(torch, dev, reports: dict) -> dict:
+    """Kernel 7's bf16 engine (``csrc/ce_grads_bf16.cu``) at every D of
+    SUPPORTED_D: ``ptxas``'s registers (the launch count setmaxnreg
+    balances against, which the launches check too), 0 bytes of stack and no
+    spill, and its shared memory a block
+    within SMEM_LIMIT."""
+    from rectools_tpu_torch.ops import _native, softmax_lse
+
+    if dev.type != "cuda":
+        return {}
+    lib = _native.load("ce_grads_bf16", softmax_lse._SIGNATURES_CE_BF16)
+    cached = "ce_grads_bf16" not in reports
+    if cached:
+        print("bf16 engine build: ce_grads_bf16 came from the build cache this run; its registers are not shown")
+    entries = ptxas_entries(reports.get("ce_grads_bf16", ""))
+    out = {}
+    for d in softmax_lse.SUPPORTED_D:
+        forms = [e for name, e in entries.items() if f"{CE_BF16_ENGINE_KERNEL}ILi{d}EE" in name]
+        smem = lib.ce_grads_bf16_smem_bytes(d)
+        clean = all(e.get("stack") == 0 and e.get("spill_stores") == 0 and e.get("spill_loads") == 0
+                    and e.get("registers") == CE_BF16_LAUNCH_REGS for e in forms)
+        check((cached or len(forms) == 1) and clean and 0 < smem <= SMEM_LIMIT,
+              f"bf16 engine build: {CE_BF16_ENGINE_KERNEL} at D={d}: {forms}, {smem} bytes of shared memory a block")
+        stack = [e.get("stack") for e in forms]
+        spills = [e.get("spill_stores") for e in forms]
+        out[f"{CE_BF16_ENGINE_KERNEL}_d{d}"] = {"registers": CE_BF16_LAUNCH_REGS, "stack_bytes": stack,
+                                                "spill_store_bytes": spills, "smem_bytes": smem}
+        print(f"bf16 engine build: {CE_BF16_ENGINE_KERNEL} at D={d}: {CE_BF16_LAUNCH_REGS} registers a thread at "
+              f"launch (setmaxnreg: 24 the producer warpgroup, 240 the consumers), stack {stack} bytes, spill stores "
+              f"{spills} bytes (limit 0 for both), {smem} bytes of shared memory a block (limit {SMEM_LIMIT})")
+    return out
+
+
 def bf16_wide_kernel_phase(torch, dev, reports: dict) -> dict:
     """``bf16 wide kernels``: the bf16 loss forms at D = 256 and 16 (the
-    build check, then kernels 6 and 7, 8-11 at the (1, 1) mesh's shape and a
+    build checks, kernel 7's engine at every D among them, then kernels 6 and 7, 8-11 at the (1, 1) mesh's shape and a
     (2, 2) shard, 12, 13 + 14 and kernel 7's two launches at 51,200 x 15,872;
     at D = 256 also 13 + 14 and the CE route unforced at 65,536 items), each
     against its twin (BF16_SPLIT_RTOL; lse BF16_LSE_RTOL per row), its bits on
     a rerun, timed beside its f32 form, its bf16 library call and its bound."""
-    results = {"build": bf16_wide_build_check(torch, dev, reports)}
+    results = {"build": {**bf16_wide_build_check(torch, dev, reports),
+                         **ce_bf16_engine_build_check(torch, dev, reports)}}
     for d in WIDE_WIDTHS:
         results.update(bf16_kernel_phase(torch, dev, d=d))
         results.update(mesh_bf16_kernel_phase(torch, dev, d=d))
@@ -5875,7 +5951,7 @@ def main() -> int:
                                "attention_bwd_bf16"),
         "lse_partials_fwd_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:169", ("lse_partials_fwd_bf16",),
                                   "lse_partials_fwd_bf16"),
-        "ce_grads_fused_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:643", ("ce_grads_fused_bf16",),
+        "ce_grads_fused_bf16": ("ce_grads_bf16.cu", "softmax_lse.py:643", ("ce_grads_fused_bf16",),
                                 "ce_grads_fused_bf16"),
         "stu_fwd_bf16": ("stu_attention_bf16.cu", "stu_attention.py:90", ("stu_fwd_bf16",), "stu_fwd_bf16"),
         "stu_bwd_bf16": ("stu_attention_bf16.cu", "stu_attention.py:274", ("stu_bwd_bf16", "stu_bwd_dq_bf16"),
@@ -5886,7 +5962,7 @@ def main() -> int:
                                "lse_bwd_fused_bf16"),
         "lse_bwd_ds_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:205", ("lse_bwd_ds_bf16",), "lse_bwd_ds_bf16"),
         "lse_bwd_di_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:266", ("lse_bwd_di_bf16",), "lse_bwd_di_bf16"),
-        "ce_grads_pair_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:643", ("ce_grads_ds_bf16", "ce_grads_di_bf16"),
+        "ce_grads_pair_bf16": ("ce_grads_bf16.cu", "softmax_lse.py:643", ("ce_grads_ds_bf16", "ce_grads_di_bf16"),
                                "ce_grads_pair_bf16"),
         "grads_z_fused_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:591", ("grads_z_fused_bf16",),
                                "grads_z_fused_bf16"),

@@ -1,9 +1,13 @@
-// The streaming logsumexp, its generic backward, the softmax gradients from z
-// and the softmax-CE gradients on bf16 towers: the forms of kernels 6 to 14
-// that mixed-precision training (compute_dtype="bfloat16") runs, without and
-// with a process mesh and on catalogs of any size, and of the public lse op's
-// other forwards 15 and 16, on bf16 tensor-core products with f32
-// accumulation.
+// The streaming logsumexp, its generic backward and the softmax gradients from
+// z on bf16 towers: the forms of kernels 6 and 8 to 14 that mixed-precision
+// training (compute_dtype="bfloat16") runs, without and with a process mesh
+// and on catalogs of any size, and of the public lse op's other forwards 15
+// and 16, on bf16 tensor-core products with f32 accumulation. Kernel 7's bf16
+// forms (the softmax-CE gradients: `ce_fused_bf16`, `ce_ds_bf16`,
+// `ce_di_bf16`) run on the `wgmma` engine of ce_grads_bf16.cu; the gradient
+// kernels below keep its `kCE` form (the label term, the stepped ds
+// partials), which no entry instantiates, beside the `kLse` and `kZ` forms
+// that kernels 9, 10, 12 and 13 take.
 //
 // Replaces, for bf16 inputs:
 // - rectools_tpu/ops/softmax_lse.py:169 `_lse_fwd_partials_kernel`
@@ -35,30 +39,21 @@
 //   tail masked (:92-96), in a fixed order (each thread's columns tile by
 //   tile, the four threads of a row, warp column 0 plus column 1); the caller
 //   sums the (n_chunks, M) partials over the chunks and picks the window.
-// - :643 `_ce_grads_z_fused_kernel` (`ce_fused_bf16`, kernel 7's one pass):
-//   with the f32 logits, P = exp(logit - z) and D = coeff * onehot(y) in f32,
-//   the probability operand (P - D) rounded to bf16 before both products (as
-//   softmax_lse.py:226-228 and :696 round it), ds = (P - D) items per item
-//   chunk in f32, stored as a bf16 partial when `bf16_partials` (JAX's
-//   `BF16_DS_PARTIALS`, :456-473) else as f32, and di = (P - D)^T s
+// - :591 `_grads_z_fused_kernel` (`grads_z_fused_bf16`, kernel 12): the one
+//   pass below (`ce_fused_bf16_kernel`, the design kernel 7's bf16 one pass
+//   had before ce_grads_bf16.cu) in its `kZ` form: with the f32 logits, pw =
+//   exp(logit - z) rounded to bf16 once before both products (as
+//   softmax_lse.py:226-228 and :696 round it), no label term, ds = pw items
+//   per item chunk in f32, stored as a bf16 partial under `bf16_partials`
+//   (JAX's `BF16_DS_PARTIALS`, :818-820) else as f32, and di = pw^T s
 //   accumulated in f32 per group of session tiles. The caller sums both sets
 //   of partials in f32 in a fixed order.
-// - kernel 7's two launches (`ce_ds_bf16`, `ce_di_bf16`), which the port runs
-//   where the one pass's partials pass the budget (JAX has no such form): the
-//   same rounded (P - D); ds walks each item chunk of `split_bwd_plan` (a
-//   whole number of 2,048-row steps) in steps of 2,048 item rows, rounds each
-//   step's f32 sum to bf16 and adds it to the chunk's f32 partial, so that
-//   the one pass's arithmetic differs only in the order of the f32 sums; di =
-//   (P - D)^T s in f32, one block per 64-row item tile.
-// - :591 `_grads_z_fused_kernel` (`grads_z_fused_bf16`, kernel 12): kernel
-//   7's one pass in its `kZ` form, pw = exp(logit - z) rounded to bf16 once,
-//   no label term, ds partials in bf16 under `bf16_partials` (:818-820).
 // - :757 `_ds_z_kernel` (`grads_z_ds_bf16`, kernel 13): the same pw times the
 //   item tiles, ds summed in f32 over every chunk, nothing rounded between
 //   them (:770-771).
 // - :774 `_di_z_kernel` (`grads_z_di_bf16`, kernel 14): di = pw^T s in f32,
 //   pw rounded once (:786-790), unlike kernel 11.
-// - :234 `_bwd_fused_kernel` (`lse_bwd_fused_bf16`, kernel 9): kernel 7's
+// - :234 `_bwd_fused_kernel` (`lse_bwd_fused_bf16`, kernel 9): kernel 12's
 //   kernel and grid in its `kLse` form: pw = exp((logit + bias) - lse) * dlse
 //   in f32, dlse of either sign, rounded to bf16 once for both products
 //   (:258), no label term, ds partials always f32 (:505; JAX's
@@ -98,7 +93,7 @@
 //   pairs of their rows (kernel 16: the two windows' sums), merged by
 //   shuffles and then across the two warp columns through shared memory.
 //   14,592 / 71,936 / 137,472.
-// - Kernels 7 and 9: the f32 one pass's grid (ops/softmax_lse.py
+// - Kernels 9 and 12: the f32 one pass's grid (ops/softmax_lse.py
 //   `fused_bwd_plan`: block (x, y) owns item chunk x of 2,048 rows and group y
 //   of session tiles, all blocks in one wave). Per (session tile, item tile)
 //   pair: the logits (warps 4 x 2, BM / 4 x 32 each), the rounded probability
@@ -111,16 +106,14 @@
 //   its own entries, so no other thread and no other block touches them). The
 //   B operands whose depth runs across rows (items for ds, sessions for di)
 //   are read as two 16-bit values a register. 50,432 / 107,776 / 121,088.
-// - Kernel 12: kernel 7's kernel and grid in its `kZ` form.
-// - Kernels 10, 13 and 7's ds launch: one kernel in three forms on the f32
+// - Kernels 10 and 13: one kernel in two forms on the f32
 //   split ds kernel's grid (ops/softmax_lse.py `split_bwd_plan`: block (x, y)
 //   owns session tile x and item chunk y, 1 to 4 chunks), kernel 9's products
 //   1 and 2 on each item tile of its chunk, ds in registers, written as the
-//   f32 ds partial of (chunk, session tile) that the caller sums in order;
-//   stepping (7's ds launch), the step's sum is rounded to bf16 and added to
-//   the partial in device memory at each step's end (each thread its own
-//   entries). 33,024 / 90,368 / 111,872.
-// - Kernels 14 and 7's di launch: kernel 11's grid and ring (block x owns the
+//   f32 ds partial of (chunk, session tile) that the caller sums in order
+//   (the `kCE` form's stepping, a step's sum rounded to bf16 and added to the
+//   partial at each step's end, runs in none). 33,024 / 90,368 / 111,872.
+// - Kernel 14: kernel 11's grid and ring (block x owns the
 //   64-row item tile x, walks every session tile) without its staged s *
 //   dlse tile: pw rounded once into [item][session], di += pw^T s in
 //   registers, written once. 34,816 / 106,496 / 111,616.
@@ -138,18 +131,17 @@
 // kernels 6, 8 and 15 are one logit product, 2 M N D = 208 GFLOP, 0.21 ms at
 // 989 TFLOP/s bf16 (their inputs, 17 MB, take 0.005 ms at 3.35 TB/s); kernel
 // 16 the same (it takes two exps a logit, one a window, but the function needs
-// one: window 2's term is e^64 times window 1's); kernels 7
-// and 9 are three, 624 GFLOP, 0.63 ms, with 0.24 GB of inputs and partials
-// (0.07 ms); kernels 10 and 11 two each, 0.42 ms, and so are each of 7's two
-// launches and kernels 13 and 14 (kernel 12 three, as 7), at 196,608 items
-// 5.2 ms each (2 x 2.58 TFLOP). At D = 256 each product doubles (0.42 ms a
+// one: window 2's term is e^64 times window 1's); kernels 9
+// and 12 are three, 624 GFLOP, 0.63 ms, with 0.24 GB of inputs and partials
+// (0.07 ms); kernels 10 and 11 two each, 0.42 ms, and so are kernels 13 and
+// 14, at 196,608 items 5.2 ms each (2 x 2.58 TFLOP). At D = 256 each product doubles (0.42 ms a
 // product). At D = 16 the products take 0.026 ms and the M N = 8.1e8 exps
 // bound every form instead: 0.19 ms at the SFUs' 16 a clock a
 // multiprocessor (132 x 16 x 1.98 GHz). At a (2, 2) mesh's shard (25,600 x
 // 7,936) each is a quarter of that. What bounds them as written is issue and
 // latency: `mma.sync` (not `wgmma`), one block of 8 warps per SM for the
 // gradient kernels, the exps, the 16-bit reads of the transposed operands
-// and kernel 7 / 9's di read-modify-write in device memory; chip_smoke.py's
+// and kernel 9 / 12's di read-modify-write in device memory; chip_smoke.py's
 // `bf16`, `bf16 mesh` and `bf16 wide` lines print their times beside these
 // bounds.
 
@@ -388,8 +380,8 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kPP = bt::pitch(kBN);  // the probability tile [session][item]
 
-// The forms of the gradient kernels. kCE (kernel 7): z = row_a, coeff =
-// row_b, labels y, pw = exp(logit - z) - coeff [item == y]. kLse (kernels 9
+// The forms of the gradient kernels. kCE (kernel 7; no entry instantiates it):
+// z = row_a, coeff = row_b, labels y, pw = exp(logit - z) - coeff [item == y]. kLse (kernels 9
 // and 10): lse = row_a, dlse = row_b, the item rows' bias, pw = exp((logit +
 // bias) - lse) * dlse. kZ (kernels 12 and 13): z = row_a, pw = exp(logit - z).
 enum Form : int { kCE = 0, kLse = 1, kZ = 2 };
@@ -607,7 +599,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ------------------------------------------- the split ds kernels: 10, 7's ds launch and 13
+// ------------------------------------------- the split ds kernels: 10 and 13
 
 template <int D, int BM = grad_bm(D)>
 struct DsSmem {
@@ -623,8 +615,8 @@ struct DsSmem {
 // Block (x, y) owns session tile x and item chunk y. With step_tiles > 0 the
 // chunk is walked in steps of that many item tiles: each step's ds sum is
 // rounded to bf16 and added to the partial in f32 (kernel 7's bf16 partials,
-// one a 2,048-row step, as its one pass keeps them); with 0 the chunk's ds is
-// one f32 sum.
+// one a 2,048-row step; the kCE form, which no entry takes); with 0 the
+// chunk's ds is one f32 sum.
 template <int D, int F>
 __global__ void __launch_bounds__(kThreads, 1)
     split_ds_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ items,
@@ -753,7 +745,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ------------------------------------------- the split di kernels: 7's di launch and 14
+// ------------------------------------------- the split di kernel: 14
 
 template <int D, int BM = grad_bm(D)>
 struct ZDiSmem {
@@ -1170,26 +1162,7 @@ extern "C" int lse_bf16(const void* s, const void* items, float* lse, long long 
   });
 }
 
-// Kernel 7's one pass on bf16 sessions and items: ds partials (n_chunks, M, D),
-// bf16 when bf16_partials else f32, and f32 di partials (n_groups, N, D), on
-// the grid of ops/softmax_lse.py `fused_bwd_plan` (chunk_rows a multiple of
-// 64; another n_groups for tiles_per_group returns cudaErrorInvalidValue).
-// z, coeff f32 (M,), y int64 (M,).
-extern "C" int ce_fused_bf16(const void* s, const void* items, const float* z, const long long* y,
-                             const float* coeff, void* ds_part, float* di_part, long long M, long long N, int D,
-                             long long chunk_rows, long long tiles_per_group, long long n_groups, int bf16_partials,
-                             cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return 0;
-  if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
-  const auto* sb = static_cast<const __nv_bfloat16*>(s);
-  const auto* ib = static_cast<const __nv_bfloat16*>(items);
-  return by_width(D, [&](auto w) {
-    return launch_ce<decltype(w)::value, kCE>(sb, ib, z, y, coeff, nullptr, ds_part, di_part, M, N, chunk_rows,
-                                              tiles_per_group, n_groups, bf16_partials, stream);
-  });
-}
-
-// Kernel 9: the generic lse backward in one pass, on kernel 7's grid: f32 ds
+// Kernel 9: the generic lse backward in one pass, on kernel 12's grid: f32 ds
 // partials (n_chunks, M, D) and f32 di partials (n_groups, N, D). bias f32
 // (N,), lse and dlse f32 (M,).
 extern "C" int lse_bwd_fused_bf16(const void* s, const void* items, const float* bias, const float* lse,
@@ -1233,7 +1206,7 @@ extern "C" int lse_bwd_di_bf16(const void* s, const void* items, const float* bi
   });
 }
 
-// Kernel 12 on bf16 sessions and items: kernel 7's one pass in its kZ form (pw
+// Kernel 12 on bf16 sessions and items: the one pass in its kZ form (pw
 // = exp(logit - z), no label term), on the grid of ops/softmax_lse.py
 // `fused_bwd_plan`: ds partials (n_chunks, M, D), bf16 when bf16_partials else
 // f32, and f32 di partials (n_groups, N, D). z f32 (M,).
@@ -1247,36 +1220,6 @@ extern "C" int grads_z_fused_bf16(const void* s, const void* items, const float*
   return by_width(D, [&](auto w) {
     return launch_ce<decltype(w)::value, kZ>(sb, ib, z, nullptr, nullptr, nullptr, ds_part, di_part, M, N, chunk_rows,
                                              tiles_per_group, n_groups, bf16_partials, stream);
-  });
-}
-
-// Kernel 7's ds launch: f32 ds partials (n_chunks, M, D), one per item chunk
-// of chunk_rows rows of ops/softmax_lse.py `split_bwd_plan`, each the sum of
-// its steps of step_rows rows rounded to bf16 (0: one f32 sum, no rounding).
-// chunk_rows and step_rows multiples of 64; another n_chunks returns
-// cudaErrorInvalidValue. z, coeff f32 (M,), y int64 (M,).
-extern "C" int ce_ds_bf16(const void* s, const void* items, const float* z, const long long* y, const float* coeff,
-                          float* ds_part, long long M, long long N, int D, long long chunk_rows, long long n_chunks,
-                          long long step_rows, cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return 0;
-  if (chunk_rows <= 0 || chunk_rows % kBN || step_rows < 0 || step_rows % kBN) return (int)cudaErrorInvalidValue;
-  const auto* sb = static_cast<const __nv_bfloat16*>(s);
-  const auto* ib = static_cast<const __nv_bfloat16*>(items);
-  return by_width(D, [&](auto w) {
-    return launch_ds<decltype(w)::value, kCE>(sb, ib, z, y, coeff, nullptr, ds_part, M, N, chunk_rows, n_chunks,
-                                              (int)(step_rows / kBN), stream);
-  });
-}
-
-// Kernel 7's di launch: f32 di (N, D), each 64-row item tile written once by
-// its block; (P - D) rounded to bf16 once.
-extern "C" int ce_di_bf16(const void* s, const void* items, const float* z, const long long* y, const float* coeff,
-                          float* di, long long M, long long N, int D, cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return 0;
-  const auto* sb = static_cast<const __nv_bfloat16*>(s);
-  const auto* ib = static_cast<const __nv_bfloat16*>(items);
-  return by_width(D, [&](auto w) {
-    return launch_split_di<decltype(w)::value, kCE>(sb, ib, z, y, coeff, di, M, N, stream);
   });
 }
 
@@ -1307,9 +1250,9 @@ extern "C" int grads_z_di_bf16(const void* s, const void* items, const float* z,
 }
 
 // Bytes of dynamic shared memory a block of each bf16 loss kernel takes at
-// width D: kernel 0 = kernels 6 / 8 / 15 / 16, 1 = 7 / 9 / 12 (the one pass), 2 = 10 / 13
-// / 7's ds launch, 3 = 14 / 7's di launch, 4 = 11; -1 for another kernel, and
-// cudaErrorInvalidValue (1) for another D.
+// width D: kernel 0 = kernels 6 / 8 / 15 / 16, 1 = 9 / 12 (the one pass), 2 = 10 / 13,
+// 3 = 14, 4 = 11; -1 for another kernel, and cudaErrorInvalidValue (1) for another D
+// (kernel 7's bf16 forms: ce_grads_bf16.cu `ce_grads_bf16_smem_bytes`).
 extern "C" int lse_bf16_smem_bytes(int kernel, int D) {
   return by_width(D, [&](auto w) {
     constexpr int W = decltype(w)::value;

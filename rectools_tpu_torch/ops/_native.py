@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = (
     "layer_norm", "attention", "topk_select", "softmax_lse", "stu_attention", "softmax_lse_bf16", "attention_bf16",
-    "stu_attention_bf16",
+    "stu_attention_bf16", "ce_grads_bf16",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

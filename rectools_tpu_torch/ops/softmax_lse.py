@@ -60,14 +60,17 @@ unless stated, as the JAX kernels do for bf16 inputs.
   (``lse_shift_fwd_bf16``, ``bounded_shift=True``): the same kernel with
   plain sums of the two shifted windows, from a shift computed on the
   widened towers (rectools_tpu/ops/softmax_lse.py:364-365);
-- kernel 7's one pass ``ce_fused_bf16`` (``ce_grads_fused_bf16``): the
-  probability operand (P − D) rounded to bf16 once before both products, its
-  ds partials per 2,048-row chunk stored in bf16 (``BF16_DS_PARTIALS``,
-  counted at 2 bytes by the plan); above the budget its two launches
-  ``ce_ds_bf16`` (``ce_grads_ds_bf16``: each 2,048-row step's ds sum rounded
-  to bf16 and added to the chunk's f32 partial, the plan's chunks a whole
-  number of steps, so that the one pass's arithmetic differs only in the
-  order of f32 sums) and ``ce_di_bf16`` (``ce_grads_di_bf16``);
+- kernel 7's bf16 forms, in ``csrc/ce_grads_bf16.cu`` (a ds role and a di
+  role on ``wgmma``, each keeping its accumulator and its probability tile
+  in registers): the one pass ``ce_fused_bf16`` (``ce_grads_fused_bf16``,
+  both roles in one launch): the probability operand (P − D) rounded to
+  bf16 once before both products, its ds partials per 2,048-row chunk
+  stored in bf16 (``BF16_DS_PARTIALS``, counted at 2 bytes by the plan), di
+  written whole in f32; above the budget its two launches ``ce_ds_bf16``
+  (``ce_grads_ds_bf16``: each 2,048-row step's ds sum rounded to bf16 and
+  added to the chunk's f32 partial, the plan's chunks a whole number of
+  steps, so that the one pass's arithmetic differs only in the order of f32
+  sums) and ``ce_di_bf16`` (``ce_grads_di_bf16``);
 - the softmax gradients from z: kernel 12 ``grads_z_fused_bf16`` (kernel 7's
   one pass in a ``kZ`` form, P = exp(logit − z) rounded once, bf16 ds
   partials counted at 2 bytes as JAX's route test counts them), or above the
@@ -200,9 +203,6 @@ def _bwd_tile(d: int, dtype: torch.dtype = torch.float32) -> tp.Tuple[int, int, 
 _SIGNATURES_BF16 = {
     # sessions, items, max partials, sum partials; M, N, D; chunk rows; stream
     "lse_partials_bf16": (_C, _C, _C, _C, _LL, _LL, _I, _LL, _C),
-    # sessions, items, z, y (int64), coeff, ds partials, di partials; M, N, D; chunk rows, tiles per group,
-    # session groups, bf16 partials; stream
-    "ce_fused_bf16": (_C,) * 7 + (_LL, _LL, _I, _LL, _LL, _LL, _I, _C),
     # sessions, items, bias, max partials, sum partials; M, N, D; chunk rows; stream
     "lse_bias_bf16": (_C, _C, _C, _C, _C, _LL, _LL, _I, _LL, _C),
     # sessions, items, bias, lse, dlse, f32 ds partials, f32 di partials; M, N, D; chunk rows, tiles per group,
@@ -215,10 +215,6 @@ _SIGNATURES_BF16 = {
     # sessions, items, z, ds partials, f32 di partials; M, N, D; chunk rows, tiles per group, session groups, bf16
     # partials; stream
     "grads_z_fused_bf16": (_C,) * 5 + (_LL, _LL, _I, _LL, _LL, _LL, _I, _C),
-    # sessions, items, z, y (int64), coeff, f32 ds partials; M, N, D; chunk rows, chunks, step rows; stream
-    "ce_ds_bf16": (_C,) * 6 + (_LL, _LL, _I, _LL, _LL, _LL, _C),
-    # sessions, items, z, y (int64), coeff, f32 di; M, N, D; stream
-    "ce_di_bf16": (_C,) * 6 + (_LL, _LL, _I, _C),
     # sessions, items, z, f32 ds partials; M, N, D; chunk rows, chunks; stream
     "grads_z_ds_bf16": (_C,) * 4 + (_LL, _LL, _I, _LL, _LL, _C),
     # sessions, items, z, f32 di; M, N, D; stream
@@ -230,6 +226,17 @@ _SIGNATURES_BF16 = {
     # kernel (0: 6 / 8 / 15 / 16, 1: the one pass, 2: split ds, 3: split di, 4: 11), D -> bytes of shared memory a
     # block
     "lse_bf16_smem_bytes": (_I, _I),
+}
+# kernel 7's bf16 forms (csrc/ce_grads_bf16.cu)
+_SIGNATURES_CE_BF16 = {
+    # sessions, items, z, y (int64), coeff, ds partials, f32 di; M, N, D; chunk rows, bf16 partials; stream
+    "ce_fused_bf16": (_C,) * 7 + (_LL, _LL, _I, _LL, _I, _C),
+    # sessions, items, z, y (int64), coeff, f32 ds partials; M, N, D; chunk rows, chunks, step rows; stream
+    "ce_ds_bf16": (_C,) * 6 + (_LL, _LL, _I, _LL, _LL, _LL, _C),
+    # sessions, items, z, y (int64), coeff, f32 di; M, N, D; stream
+    "ce_di_bf16": (_C,) * 6 + (_LL, _LL, _I, _C),
+    # D -> bytes of shared memory a block
+    "ce_grads_bf16_smem_bytes": (_I,),
 }
 # kernel 7's ds partials in bf16 for bf16 inputs: the JAX package's constant
 # and default (rectools_tpu/ops/softmax_lse.py:456-473); False stores them in f32
@@ -735,7 +742,6 @@ def _fused_or_split(
     key: str = "",
     bf16: bool = False,
     bf16_partials: tp.Optional[bool] = None,
-    ds_step_rows: tp.Optional[int] = None,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """(ds, di) in f32 from ``{prefix}_fused_f32`` while its partials fit
     ``FUSED_BWD_PARTIALS_BUDGET``, else from ``{prefix}_ds_f32`` (on the grid
@@ -745,10 +751,9 @@ def _fused_or_split(
     ``bf16`` takes the bf16 forms (``{prefix}_fused_bf16`` & co. of
     ``softmax_lse_bf16.cu``, launch keys ending in ``_bf16``) on the same
     grids. Where the bf16 fused entry takes a flag for its ds partials' dtype
-    (``ce``, ``grads_z``), ``bf16_partials`` gives it, and the plan counts
-    those partials at their itemsize; where the bf16 ds entry rounds per step
-    (``ce``), ``ds_step_rows`` gives the step (0: no rounding) and aligns the
-    split plan's chunks to it."""
+    (``grads_z``), ``bf16_partials`` gives it, and the plan counts those
+    partials at their itemsize. (Kernel 7's bf16 forms take
+    :func:`_ce_grads_bf16`.)"""
     key = key or prefix
     suffix = "_bf16" if bf16 else "_f32"
     key_suffix = "_bf16" if bf16 else ""
@@ -777,14 +782,11 @@ def _fused_or_split(
         ds = ds_part.float().sum(dim=0) if n_chunks > 1 else ds_part[0].float()
         di = di_part.sum(dim=0) if n_groups > 1 else di_part[0]
         return ds, di
-    n_chunks, chunk_rows = split_bwd_plan(m, n, d, n_sms, ds_step_rows or TILE, sessions.dtype)
+    n_chunks, chunk_rows = split_bwd_plan(m, n, d, n_sms, TILE, sessions.dtype)
     ds_part = torch.empty((n_chunks, m, d), dtype=torch.float32, device=sessions.device)
     di = torch.empty((n, d), dtype=torch.float32, device=sessions.device)
-    step = () if ds_step_rows is None else (ds_step_rows,)
     with torch.cuda.device(sessions.device):
-        status = getattr(lib, f"{prefix}_ds{suffix}")(
-            *args, ds_part.data_ptr(), m, n, d, chunk_rows, n_chunks, *step, stream
-        )
+        status = getattr(lib, f"{prefix}_ds{suffix}")(*args, ds_part.data_ptr(), m, n, d, chunk_rows, n_chunks, stream)
         _native.check_launch(f"{key}_ds{key_suffix}", status)
         status = getattr(lib, f"{prefix}_di{suffix}")(*args, di.data_ptr(), m, n, d, stream)
     _native.check_launch(f"{key}_di{key_suffix}", status)
@@ -1038,12 +1040,55 @@ def softmax_ce_grads_from_z(
     if not on_card:
         return softmax_ce_grads_from_z_reference(sessions, items, z, y, coeff, partials=fused)
     z, coeff = z.contiguous(), coeff.contiguous()
-    pointers = (z.data_ptr(), y.data_ptr(), coeff.data_ptr())
-    if not bf16:
-        return _fused_or_split("ce", sessions, items, pointers, key="ce_grads")
-    # the two launches' ds rounds each 2,048-row step's sum to bf16, as the one pass rounds its partials
-    return _fused_or_split("ce", sessions, items, pointers, key="ce_grads", bf16=True, bf16_partials=BF16_DS_PARTIALS,
-                           ds_step_rows=FUSED_BWD_CHUNK if BF16_DS_PARTIALS else 0)
+    if bf16:
+        return _ce_grads_bf16(sessions, items, z, y, coeff)
+    return _fused_or_split("ce", sessions, items, (z.data_ptr(), y.data_ptr(), coeff.data_ptr()), key="ce_grads")
+
+
+def _ce_grads_bf16(
+    sessions: torch.Tensor, items: torch.Tensor, z: torch.Tensor, y: torch.Tensor, coeff: torch.Tensor
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 7's bf16 forms (``csrc/ce_grads_bf16.cu``), (ds, di) in f32,
+    by :func:`_fused_or_split`'s rule: the one pass ``ce_fused_bf16`` (launch
+    key ``ce_grads_fused_bf16``) while :func:`fused_bwd_plan`'s partials fit
+    ``FUSED_BWD_PARTIALS_BUDGET``: ds partials per ``FUSED_BWD_CHUNK`` item
+    rows (bf16 under ``BF16_DS_PARTIALS``) summed here in f32 in chunk order,
+    di whole. Else its two launches ``ce_ds_bf16`` + ``ce_di_bf16`` (keys
+    ``ce_grads_ds_bf16`` / ``ce_grads_di_bf16``): f32 ds partials per item
+    chunk of :func:`split_bwd_plan`, each 2,048-row step rounded to bf16
+    before it is added (under ``BF16_DS_PARTIALS``), as the one pass rounds
+    its partials; the chunks summed here in order. z, y (int64) and coeff are
+    contiguous; the kernels read them by TMA, which wants them 16-byte
+    aligned (a misaligned view is copied)."""
+    m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
+    dev = sessions.device
+    if m == 0 or n == 0:
+        return torch.zeros((m, d), device=dev), torch.zeros((n, d), device=dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _native.load("ce_grads_bf16", _SIGNATURES_CE_BF16)
+    stream = _native.current_stream_ptr(dev)
+    vectors = [t if t.data_ptr() % 16 == 0 else t.clone() for t in (z, y, coeff)]
+    args = (sessions.data_ptr(), items.data_ptr(), *(t.data_ptr() for t in vectors))
+    di = torch.empty((n, d), dtype=torch.float32, device=dev)
+    if fused_bwd_plan(m, n, d, n_sms, _ds_itemsize(torch.bfloat16), torch.bfloat16)[2] <= FUSED_BWD_PARTIALS_BUDGET:
+        n_chunks = -(-n // FUSED_BWD_CHUNK)
+        ds_part = torch.empty((n_chunks, m, d), dtype=torch.bfloat16 if BF16_DS_PARTIALS else torch.float32,
+                              device=dev)
+        with torch.cuda.device(dev):
+            status = lib.ce_fused_bf16(*args, ds_part.data_ptr(), di.data_ptr(), m, n, d, FUSED_BWD_CHUNK,
+                                       int(BF16_DS_PARTIALS), stream)
+        _native.check_launch("ce_grads_fused_bf16", status)
+        # a fixed-order f32 sum of the partials (rectools_tpu/ops/softmax_lse.py:745)
+        return (ds_part.float().sum(dim=0) if n_chunks > 1 else ds_part[0].float()), di
+    step_rows = FUSED_BWD_CHUNK if BF16_DS_PARTIALS else 0
+    n_chunks, chunk_rows = split_bwd_plan(m, n, d, n_sms, step_rows or TILE, torch.bfloat16)
+    ds_part = torch.empty((n_chunks, m, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.ce_ds_bf16(*args, ds_part.data_ptr(), m, n, d, chunk_rows, n_chunks, step_rows, stream)
+        _native.check_launch("ce_grads_ds_bf16", status)
+        status = lib.ce_di_bf16(*args, di.data_ptr(), m, n, d, stream)
+    _native.check_launch("ce_grads_di_bf16", status)
+    return (ds_part.sum(dim=0) if n_chunks > 1 else ds_part[0]), di
 
 
 def _large_catalog_route(

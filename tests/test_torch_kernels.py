@@ -29,7 +29,8 @@ from rectools_tpu_torch.models import (
 )
 from rectools_tpu_torch.models.nn.transformers import LiGRLayers, TransformerBackbone
 from rectools_tpu_torch.ops import _native, attention, layer_norm, softmax_lse, stu_attention, topk, topk_select
-from rectools_tpu_torch.tools import ItemToItemAnnRecommender, fused_bwd_variants, stu_fwd_topm_check
+from rectools_tpu_torch.tools import (ItemToItemAnnRecommender, ce_grads_bf16_variants, fused_bwd_variants,
+                                      stu_fwd_topm_check)
 
 REPO = Path(__file__).resolve().parents[1]
 MASK_VALUE = -1e9
@@ -1901,11 +1902,12 @@ def test_cuda_bf16_split_entries_refuse_another_grid(cuda: torch.device) -> None
     n_chunks, chunk_rows = softmax_lse.split_bwd_plan(m, n, d, 132, softmax_lse.FUSED_BWD_CHUNK)
     ds_part = torch.empty((n_chunks + 1, m, d), device=cuda)
     lib = _native.load("softmax_lse_bf16", softmax_lse._SIGNATURES_BF16)
+    ce_lib = _native.load("ce_grads_bf16", softmax_lse._SIGNATURES_CE_BF16)
     stream = _native.current_stream_ptr(cuda)
     ce = (s.data_ptr(), items.data_ptr(), z.data_ptr(), y.data_ptr(), coeff.data_ptr(), ds_part.data_ptr(), m, n, d)
-    assert lib.ce_ds_bf16(*ce, chunk_rows, n_chunks, softmax_lse.FUSED_BWD_CHUNK, stream) == 0
-    assert lib.ce_ds_bf16(*ce, chunk_rows, n_chunks + 1, softmax_lse.FUSED_BWD_CHUNK, stream) != 0
-    assert lib.ce_ds_bf16(*ce, chunk_rows, n_chunks, 100, stream) != 0
+    assert ce_lib.ce_ds_bf16(*ce, chunk_rows, n_chunks, softmax_lse.FUSED_BWD_CHUNK, stream) == 0
+    assert ce_lib.ce_ds_bf16(*ce, chunk_rows, n_chunks + 1, softmax_lse.FUSED_BWD_CHUNK, stream) != 0
+    assert ce_lib.ce_ds_bf16(*ce, chunk_rows, n_chunks, 100, stream) != 0
     gz = (s.data_ptr(), items.data_ptr(), z.data_ptr(), ds_part.data_ptr(), m, n, d)
     assert lib.grads_z_ds_bf16(*gz, chunk_rows, n_chunks, stream) == 0
     assert lib.grads_z_ds_bf16(*gz, chunk_rows + 1, n_chunks, stream) != 0
@@ -2125,3 +2127,142 @@ def test_cuda_f32_forms_keep_their_bits(cuda: torch.device) -> None:
     f32 give, on the same seeded inputs, the bits they gave before their bf16
     forms were added."""
     assert _f32_digests(cuda) == F32_DIGESTS
+
+
+# ------------------------------------------------------------------ kernel 7's bf16 forms on the wgmma engine
+
+
+def test_ce_grads_bf16_entries_match_the_cuda_source() -> None:
+    """Kernel 7's bf16 entries of ops/softmax_lse.py ``_SIGNATURES_CE_BF16``
+    are C functions of csrc/ce_grads_bf16.cu, each with as many parameters as
+    its ctypes signature, and of no other library; the source dispatches every
+    width of ``SUPPORTED_D`` and walks the wrapper's 64-row item tiles."""
+    src = (REPO / "rectools_tpu_torch" / "csrc" / "ce_grads_bf16.cu").read_text()
+    old = (REPO / "rectools_tpu_torch" / "csrc" / "softmax_lse_bf16.cu").read_text()
+    for name, argtypes in softmax_lse._SIGNATURES_CE_BF16.items():
+        found = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
+        assert found is not None, name
+        assert len([a for a in found.group(1).split(",") if a.strip()]) == len(argtypes), name
+        assert f'extern "C" int {name}(' not in old and name not in softmax_lse._SIGNATURES_BF16
+    widths = {int(w) for w in re.findall(r"case (\d+): return fn\(std::integral_constant<int, \d+>\{\}\);", src)}
+    assert widths == set(softmax_lse.SUPPORTED_D)
+    assert int(re.search(r"^constexpr int kTileRows = (\d+);", src, re.M).group(1)) == softmax_lse.TILE
+    assert "ce_grads_bf16" in _native.SOURCES
+
+
+@pytest.mark.parametrize("name", sorted(ce_grads_bf16_variants.VARIANTS))
+def test_ce_grads_bf16_variants_still_apply(name: str) -> None:
+    """Each variant that tools/ce_grads_bf16_variants.py times on the card
+    finds each text it replaces as often as it says in today's source, and
+    changes it (but the source as it is)."""
+    edited = ce_grads_bf16_variants.edited_source(name)
+    src = (REPO / ce_grads_bf16_variants.CU).read_text()
+    assert (edited == src) == (name == "engine")
+
+
+# the launch keys of each form of kernel 7 in bf16, and the kernel both run (csrc/ce_grads_bf16.cu)
+CE_BF16_FORMS = {"one_pass": ("ce_grads_fused_bf16",), "two_launches": ("ce_grads_ds_bf16", "ce_grads_di_bf16")}
+CE_BF16_ENGINE_KERNEL = "ce_grads_bf16_kernel"
+CE_BF16_OLD_KERNELS = ("ce_fused_bf16_kernel", "split_ds_bf16_kernel", "split_di_bf16_kernel")
+
+
+def _ce_bf16_case(dev: torch.device, m: int, n: int, d: int) -> tuple:
+    """(s, items, z, y, coeff) on bf16 towers: a sixth of the rows labelled on
+    the catalog's last row, label 0 with coeff 0 (z = +inf) on a tenth."""
+    rng = np.random.default_rng(m * 7 + n + d)
+    bf = torch.bfloat16
+    s = _t(rng.normal(size=(m, d)).astype(np.float32)).to(dev).to(bf)
+    items = _t((0.3 * rng.normal(size=(n, d))).astype(np.float32)).to(dev).to(bf)
+    y = _t(rng.integers(1, n, size=m)).to(dev)
+    y[m // 3 : m // 2] = n - 1
+    y[: max(1, m // 10)] = 0
+    coeff = torch.where(y == 0, 0.0, 1.0 / m)
+    z = (softmax_lse.streaming_lse(s, items) - torch.log(coeff)).contiguous()
+    return s, items, z, y, coeff
+
+
+def _ce_bf16_budget(monkeypatch: pytest.MonkeyPatch, form: str, m: int, n: int, d: int) -> None:
+    """The partials budget that puts kernel 7's bf16 CE gradients on ``form``."""
+    plan = softmax_lse.fused_bwd_plan(m, n, d, torch.cuda.get_device_properties(0).multi_processor_count,
+                                      softmax_lse._ds_itemsize(torch.bfloat16), torch.bfloat16)[2]
+    monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 1 << 62 if form == "one_pass" else plan - 1)
+    assert not softmax_lse.ce_takes_split_route(m, n, d, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", sorted(CE_BF16_FORMS))
+@pytest.mark.parametrize("d", softmax_lse.SUPPORTED_D)
+@pytest.mark.parametrize("m,n", [(257, 2177), (130, 6181), (64, 2112), (51, 300)])
+def test_cuda_ce_grads_bf16_engine_matches_twin(
+    cuda: torch.device, monkeypatch: pytest.MonkeyPatch, form: str, d: int, m: int, n: int
+) -> None:
+    """Kernel 7's bf16 forms at the engine's edges (M not a multiple of 64,
+    N ending inside an item tile and inside a 2,048-row chunk, one session
+    tile and a catalog of whole tiles, labels on the catalog's last row,
+    label 0 with coeff 0 and z = +inf) against the twin in the form's order: ds within BF16_DS_RTOL and di
+    within BF16_DI_RTOL of the largest entry, ignored rows' ds exactly 0, one
+    launch of each of the form's keys and of no other kernel-7 key, the same
+    bits on a rerun."""
+    s, items, z, y, coeff = _ce_bf16_case(cuda, m, n, d)
+    _ce_bf16_budget(monkeypatch, form, m, n, d)
+    keys = ("ce_grads_fused", "ce_grads_ds", "ce_grads_di", *(k for ks in CE_BF16_FORMS.values() for k in ks))
+    before = dict(_native.LAUNCHES)
+    got = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    assert {k: _native.LAUNCHES[k] - before[k] for k in keys} == {k: int(k in CE_BF16_FORMS[form]) for k in keys}
+    ref = softmax_lse.softmax_ce_grads_from_z_bf16_reference(s, items, z, y, coeff, partials=form == "one_pass")
+    for g, e, tol in zip(got, ref, (BF16_DS_RTOL, BF16_DI_RTOL)):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        assert _max_rel(g, e) <= tol
+    assert not got[0][coeff == 0].any()
+    again = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", sorted(CE_BF16_FORMS))
+def test_cuda_ce_grads_bf16_runs_the_engine_kernel(
+    cuda: torch.device, monkeypatch: pytest.MonkeyPatch, form: str
+) -> None:
+    """Both forms of kernel 7 in bf16 run csrc/ce_grads_bf16.cu's kernel, one
+    launch a wrapper key (the one pass one a call, the two launches two), and
+    none of softmax_lse_bf16.cu's gradient kernels."""
+    m, n, d = 1000, 15872, 128
+    s, items, z, y, coeff = _ce_bf16_case(cuda, m, n, d)
+    _ce_bf16_budget(monkeypatch, form, m, n, d)
+    calls, expected = 4, 4 * len(CE_BF16_FORMS[form])
+
+    def call() -> None:  # an elementwise kernel after the form's launches: a capture's last record can go missing
+        softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)[1].add_(0.0)
+
+    for _ in range(5):  # a capture now and then drops a record of a short kernel: take it again
+        names = _device_kernels(call, calls)
+        if sum(v for k, v in names.items() if CE_BF16_ENGINE_KERNEL in k) == expected:
+            break
+    assert sum(v for k, v in names.items() if CE_BF16_ENGINE_KERNEL in k) == expected
+    assert not [k for k in names if any(old in k for old in CE_BF16_OLD_KERNELS)]
+
+
+@pytest.mark.gpu
+def test_cuda_ce_grads_bf16_entries_refuse_bad_arguments(cuda: torch.device) -> None:
+    """The engine's entries refuse chunk rows that are not a multiple of 64,
+    a width outside ``SUPPORTED_D`` and rows past its 32-bit indices, and
+    launch nothing for an empty catalog."""
+    m, n, d = 300, 5000, 32
+    bf = torch.bfloat16
+    s, items = torch.zeros((m, d), device=cuda, dtype=bf), torch.zeros((n, d), device=cuda, dtype=bf)
+    z, coeff = torch.zeros((m,), device=cuda), torch.zeros((m,), device=cuda)
+    y = torch.zeros((m,), device=cuda, dtype=torch.int64)
+    ds_part = torch.empty((-(-n // softmax_lse.FUSED_BWD_CHUNK), m, d), device=cuda, dtype=bf)
+    di = torch.empty((n, d), device=cuda)
+    lib = _native.load("ce_grads_bf16", softmax_lse._SIGNATURES_CE_BF16)
+    stream = _native.current_stream_ptr(cuda)
+    head = (s.data_ptr(), items.data_ptr(), z.data_ptr(), y.data_ptr(), coeff.data_ptr(), ds_part.data_ptr(),
+            di.data_ptr())
+    assert lib.ce_fused_bf16(*head, m, n, d, softmax_lse.FUSED_BWD_CHUNK, 1, stream) == 0
+    assert lib.ce_fused_bf16(*head, m, n, d, 100, 1, stream) != 0
+    assert lib.ce_fused_bf16(*head, m, n, 48, softmax_lse.FUSED_BWD_CHUNK, 1, stream) != 0
+    assert lib.ce_di_bf16(*head[:5], di.data_ptr(), m, n, 48, stream) != 0
+    assert lib.ce_di_bf16(*head[:5], di.data_ptr(), 1 << 31, n, d, stream) != 0  # rows past 32-bit indices
+    assert lib.ce_fused_bf16(*head, m, 0, d, softmax_lse.FUSED_BWD_CHUNK, 1, stream) == 0
+    assert lib.ce_grads_bf16_smem_bytes(256) <= 232_448 and lib.ce_grads_bf16_smem_bytes(48) == 1
+    torch.cuda.synchronize()
