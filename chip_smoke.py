@@ -426,32 +426,63 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+PROFILE_SPAN = "device_kernels: counted calls"  # the record_function span around the calls a capture counts
+PROFILE_SPIN_CYCLES = 2_000_000  # about a millisecond of one spinning kernel at the H100's clock
+
+
+def is_launch(name: str) -> bool:
+    """Whether a host profiler record names a runtime or driver call that
+    puts work on the card (its kernel's device record shares its id)."""
+    return name.startswith("cu") and any(word in name for word in ("Launch", "Memset", "Memcpy"))
+
+
 def device_kernels(torch, fn, calls: int) -> dict:
     """{device kernel name: (launches a call, mean device ms a launch)} of
     ``calls`` calls of ``fn`` after one warm-up (torch.profiler); empty
-    where nothing runs on a card. A capture of short kernels now and then
-    comes back without some of its device records (fewer launches of a
-    kernel than calls, or none at all): it is taken again, up to five times."""
+    where nothing runs on a card. The device records of a capture's first
+    launches go missing now and then, whether or not the host waits before
+    them (rectools_tpu_torch/tools/profiler_capture_check.py): each capture
+    first runs a spinning kernel and two calls of ``fn`` that it does not
+    count, then the ``calls`` calls inside a ``record_function`` span, and
+    counts the device records of the launches made inside the span (a
+    launch's host record and its kernel's record share a correlation id).
+    While a kernel shows fewer launches than calls (now and then a capture
+    keeps none of a kernel's records), a capture is taken again, up to five
+    times; each kernel gets the count of the capture that kept the most of
+    its records (no capture keeps more records than launches)."""
     from torch.autograd import DeviceType
 
     fn()
     if not torch.cuda.is_available():
         return {}
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    best: dict = {}
     for _ in range(5):
         out = {}
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=activities) as prof:
-            for _ in range(calls):
-                fn()
+            torch.cuda._sleep(PROFILE_SPIN_CYCLES)
+            fn()
+            fn()
             torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                us = float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
-                out[e.key[:60]] = (e.count / calls, us / 1e3 / e.count)
-        if out and min(n for n, _ in out.values()) >= 1:
+            with torch.profiler.record_function(PROFILE_SPAN):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        span = next(e.time_range for e in events if e.name == PROFILE_SPAN and e.device_type == DeviceType.CPU)
+        launched = {e.id for e in events if e.device_type == DeviceType.CPU and is_launch(e.name)
+                    and span.start <= e.time_range.start <= span.end}
+        for e in events:
+            if e.device_type == DeviceType.CUDA and e.id in launched and e.name != PROFILE_SPAN:
+                n, us = out.get(e.name[:60], (0, 0.0))
+                out[e.name[:60]] = (n + 1, us + e.time_range.elapsed_us())
+        for name, (n, us) in out.items():  # a capture keeps no more records than launches: the most kept
+            if n / calls > best.get(name, (0.0, 0.0))[0]:
+                best[name] = (n / calls, us / 1e3 / n)
+        if best and min(n for n, _ in best.values()) >= 1:
             break
-    return out
+    return best
 
 
 def bound_ms(n_bytes: float, n_ops: float, tf32x3: bool = False) -> tuple:
@@ -3387,7 +3418,7 @@ def large_fit_phase(torch, np, pd, port, dev, n_item_ids: int = LARGE_N_ITEM_IDS
         names = list(device_kernels(torch, lambda: tm._train_step(batch), 1))
         # the route's kernels (13 + 14, or kernel 7's engine) and not the other's
         split, engine = ("split_ds_bf16_kernel", "split_di_bf16_kernel"), (CE_BF16_ENGINE_KERNEL,)
-        wanted = ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel",
+        wanted = (ATTN_BF16_FWD_KERNEL, "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel",
                   *(split if route else engine))
         missing, banned = bf16_step_kernels(names, wanted, (*BF16_BANNED_KERNELS, "ce_fused_bf16_kernel",
                                                             *(engine if route else split)))
@@ -4313,15 +4344,22 @@ CE_BF16_LAUNCH_REGS = 168  # the engine's registers a thread at launch, which se
 CE_BF16_OLD_MS = {("one_pass", 128, 15872): 6.3503, ("one_pass", 256, 15872): 16.3567, ("one_pass", 16, 15872): 2.2980,
                   ("two_launches", 128, 15872): 7.3662, ("two_launches", 128, 65536): 29.4117,
                   ("two_launches", 256, 15872): 13.1909, ("two_launches", 16, 15872): 2.5259}
-BF16_DEVICE_KERNELS = ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel",
+# kernel 2's bf16 forward (csrc/attention_bf16.cu: every score formed once, in its rows or tiles mode), and the
+# two-pass kernel it replaced, which no step may launch
+ATTN_BF16_FWD_KERNEL, ATTN_BF16_OLD_FWD_KERNEL = "attn_fwd_onepass_bf16_kernel", "attn_fwd_bf16_kernel"
+# that form's times before (CUDA events a call, dropout 0.2, B = 512, L = 100) by (head dim, bias) on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md section 6, the kernel table's bracketed times); heads of 64 and 16 had none
+ATTN_BF16_OLD_MS = {(32, "causal"): 0.2567, (32, "bidirectional"): 0.2959, (8, "causal"): 0.1629,
+                    (8, "bidirectional"): 0.2207}
+BF16_DEVICE_KERNELS = (ATTN_BF16_FWD_KERNEL, "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel",
                        CE_BF16_ENGINE_KERNEL)
 # a bf16 mesh step's: kernel 8 (kernel 6's kernel with the bias) and kernel 9 (the one pass of softmax_lse_bf16.cu
 # in its kLse form) in place of kernels 6 and 7
-BF16_MESH_DEVICE_KERNELS = ("attn_fwd_bf16_kernel", "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel",
+BF16_MESH_DEVICE_KERNELS = (ATTN_BF16_FWD_KERNEL, "attn_bwd_bf16_kernel", "lse_partials_bf16_kernel",
                             "ce_fused_bf16_kernel")
 BF16_BANNED_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel", "attn_fwd_tc", "attn_bwd_tc", "lse_partials_tc",
                        "lse_chunk", "lse_bwd_fused", "grad_ds", "grad_di", "fmha", "flash", "attention_kernel",
-                       "cross_entropy", "nll_loss", "log_softmax", "softmax_warp")
+                       "cross_entropy", "nll_loss", "log_softmax", "softmax_warp", ATTN_BF16_OLD_FWD_KERNEL)
 # the same for a bf16 HSTU step: the bf16 STU kernels (18's two launches) and loss forms, none of the f32 STU
 # kernels (tensor-core or SIMT)
 BF16_HSTU_DEVICE_KERNELS = ("stu_fwd_bf16_kernel", "stu_dkdv_bf16_kernel", "stu_dq_bf16_kernel", "stu_ds_bf16_kernel",
@@ -4390,7 +4428,9 @@ def _attention_bf16_case(torch, F, attention, gen, dev, b: int, l: int, h: int, 
     """Kernels 2 (with dropout) and 5 in bf16 at (b, h, l, dh) under ``bias``
     against their twins (BF16_ATTN_RTOL, the same bits on a rerun), timed beside
     the f32 forms on the same values, bf16 SDPA and its autograd, and the bound
-    of the pairs the bias lets through."""
+    of the pairs the bias lets through; kernel 2 also without dropout, on the
+    device (torch.profiler: its one kernel, ATTN_BF16_FWD_KERNEL) beside SDPA's
+    kernels, and beside the two-pass form's time (ATTN_BF16_OLD_MS)."""
     bf = torch.bfloat16
     q, k, v, dout = (torch.randn((b, l, h, dh), generator=gen, device=dev).to(bf).transpose(1, 2) for _ in range(4))
     scale, seed = 1.0 / math.sqrt(dh), 192837465
@@ -4419,14 +4459,32 @@ def _attention_bf16_case(torch, F, attention, gen, dev, b: int, l: int, h: int, 
     mask = bias.to(bf)
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
     out_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
+    fwd = {rate: (lambda r=rate: attention.attention_fwd(q, k, v, bias, scale, r, seed)) for rate in (DROPOUT, 0.0)}
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)  # noqa: E731
+    # a call's device kernels: the one-pass forward once a call, and no other attention kernel
+    # (a form of which no capture kept a record has no device time; one of the two must show the kernel)
+    device = {rate: {n: c for n, c in device_kernels(torch, fn, 5).items() if "attn" in n or "attention" in n}
+              for rate, fn in fwd.items()}
+    for rate, kernels in device.items():
+        check(not torch.cuda.is_available() or not kernels or (len(kernels) == 1 and all(
+            ATTN_BF16_FWD_KERNEL in n and launches == 1 for n, (launches, _) in kernels.items())),
+              f"attention forward bf16 {tag}, dropout {rate}: device kernels {kernels}")
+    check(not torch.cuda.is_available() or any(device.values()),
+          f"attention forward bf16 {tag}: the profiler kept no record of it at either dropout rate")
+    # SDPA's device time, from a capture that holds each of its kernels a whole number of times a call, else none
+    library = device_kernels(torch, sdpa, 5)
+    whole = bool(library) and all(n >= 1 and float(n).is_integer() for n, _ in library.values())
     results = {
         f"attention_fwd_bf16_{tag}": dict(
             max_abs_err=(out.float() - ref_out.float()).abs().max().item(), max_rel_err=err_fwd,
-            ms=time_ms(lambda: attention.attention_fwd(q, k, v, bias, scale, DROPOUT, seed)),
+            ms=time_ms(fwd[DROPOUT]), ms_dropout_0=time_ms(fwd[0.0]),
+            device_ms=sum(n * ms for n, ms in device[DROPOUT].values()) if device[DROPOUT] else None,
+            device_ms_dropout_0=sum(n * ms for n, ms in device[0.0].values()) if device[0.0] else None,
             f32_ms=time_ms(lambda: attention.attention_fwd(q32, k32, v32, bias, scale, DROPOUT, seed)),
             plain_ms=time_ms(lambda: attention.attention_bf16_reference(q, k, v, bias, scale, DROPOUT, seed),
                              iters=3),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)),
+            library_ms=time_ms(sdpa),
+            library_device_ms=sum(n * ms for n, ms in library.values()) if whole else None,
             bound=bf16_bound(4 * q.numel() * 2 + lse.numel() * 4 + bias.numel() * 4, 4 * flops),
         ),
         f"attention_bwd_bf16_{tag}": dict(
@@ -4443,7 +4501,32 @@ def _attention_bf16_case(torch, F, attention, gen, dev, b: int, l: int, h: int, 
     }
     for name, r in results.items():
         _bf16_line(f"{name} (B={b}, H={h}, L={l}, dh={dh}, dropout {DROPOUT})", r)
+    r = results[f"attention_fwd_bf16_{tag}"]
+    old_ms = ATTN_BF16_OLD_MS.get((dh, "causal" if "causal" in tag else "bidirectional"))
+    old_ms = "not measured" if old_ms is None else f"{old_ms} ms"
+    lib_device, dev_ms, dev_ms_0 = ("not measured" if r[k] is None else f"{r[k]:.4f}"
+                                    for k in ("library_device_ms", "device_ms", "device_ms_dropout_0"))
+    print(f"bf16 kernels: attention_fwd_bf16_{tag}: {r['ms']:.4f} ms a call with dropout {DROPOUT} "
+          f"({dev_ms} on the device), {r['ms_dropout_0']:.4f} without ({dev_ms_0}); "
+          f"bf16 SDPA (no dropout) {r['library_ms']:.4f} a call ({lib_device} on the device); the two-pass form "
+          f"before it {old_ms} (PERF.md section 6); bound "
+          f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
     return results
+
+
+def bert4rec_bias(torch, gen, dev, b: int, l: int):
+    """BERT4Rec's (B, 1, L, L) attention bias from the backbone's own rule (key
+    padding, no causal mask, the diagonal kept) over left-padded sessions of
+    drawn lengths (one of length 1, one full)."""
+    import types
+
+    from rectools_tpu_torch.models.nn.transformers import TransformerBackbone
+
+    lengths = torch.randint(1, 301, (b,), generator=gen, device=dev).clamp(max=l)
+    lengths[0], lengths[1] = 1, l
+    sessions = torch.where(torch.arange(l, device=dev)[None, :] >= l - lengths[:, None], 1, 0)
+    rule = types.SimpleNamespace(use_causal_attn=False, use_key_padding_mask=True)
+    return TransformerBackbone._build_attn_bias(rule, sessions)
 
 
 def bf16_kernel_phase(torch, dev, b: int = TRAIN_B, d: int = N_FACTORS) -> dict:
@@ -4455,11 +4538,8 @@ def bf16_kernel_phase(torch, dev, b: int = TRAIN_B, d: int = N_FACTORS) -> dict:
     f32 form, the library call in bf16 and its bound at the bf16 rate (kernel
     7 also beside its engine's floor and the form it replaced); kernels 6 and
     7 also at the odd catalog (checked)."""
-    import types
-
     import torch.nn.functional as F
 
-    from rectools_tpu_torch.models.nn.transformers import TransformerBackbone
     from rectools_tpu_torch.ops import attention, softmax_lse
 
     bf = torch.bfloat16
@@ -4543,11 +4623,7 @@ def bf16_kernel_phase(torch, dev, b: int = TRAIN_B, d: int = N_FACTORS) -> dict:
     l, h, dh = SESSION_MAX_LEN, N_HEADS, N_FACTORS // N_HEADS
     causal = torch.where(torch.ones((l, l), dtype=torch.bool, device=dev).tril(), 0.0, -1e9)[None, None]
     results.update(_attention_bf16_case(torch, F, attention, gen, dev, b, l, h, dh, causal, "causal"))
-    lengths = torch.randint(1, 301, (b,), generator=gen, device=dev).clamp(max=l)
-    lengths[0], lengths[1] = 1, l
-    sessions = torch.where(torch.arange(l, device=dev)[None, :] >= l - lengths[:, None], 1, 0)
-    rule = types.SimpleNamespace(use_causal_attn=False, use_key_padding_mask=True)
-    bias = TransformerBackbone._build_attn_bias(rule, sessions)
+    bias = bert4rec_bias(torch, gen, dev, b, l)
     results.update(_attention_bf16_case(torch, F, attention, gen, dev, b, l, h, dh, bias, "bidirectional"))
     for name in ("attention_fwd_bf16", "attention_bwd_bf16"):
         results[name] = results[f"{name}_causal"]
@@ -5479,19 +5555,78 @@ def ce_bf16_engine_build_check(torch, dev, reports: dict) -> dict:
     return out
 
 
+# (heads, head dim) of the package defaults (d 256, 4 heads) and of the narrow fit (d 16, one head)
+WIDE_HEADS = tuple((w["n_heads"], w["n_factors"] // w["n_heads"]) for w in (WIDE_FIT, NARROW_FIT))
+
+
+def attention_bf16_build_check(torch, dev, reports: dict) -> dict:
+    """Kernel 2's bf16 forward (ATTN_BF16_FWD_KERNEL) in each of its forms (4
+    head dims, dropout on and off, rows and tiles modes): ``ptxas``'s
+    registers, 0 bytes of stack and no spill."""
+    from rectools_tpu_torch.ops import attention
+
+    if dev.type != "cuda":
+        return {}
+    cached = "attention_bf16" not in reports
+    if cached:
+        print("bf16 attention build: attention_bf16 came from the build cache this run; its registers are not shown")
+    entries = ptxas_entries(reports.get("attention_bf16", ""))
+    out = {}
+    for dh in attention.BF16_HEAD_DIMS:
+        forms = {name: e for name, e in entries.items() if f"{ATTN_BF16_FWD_KERNEL}ILi{dh}E" in name}
+        clean = all(e.get("stack") == 0 and e.get("spill_stores") == 0 and e.get("spill_loads") == 0
+                    for e in forms.values())
+        check((cached or len(forms) == 4) and clean,
+              f"bf16 attention build: {ATTN_BF16_FWD_KERNEL} at dh={dh}: {forms}")
+        registers = sorted(e["registers"] for e in forms.values())
+        out[f"{ATTN_BF16_FWD_KERNEL}_dh{dh}"] = {"registers": registers, "stack_bytes": 0, "spill_bytes": 0}
+        print(f"bf16 attention build: {ATTN_BF16_FWD_KERNEL} at dh={dh}: {len(forms)} forms (rows and tiles mode, "
+              f"dropout on and off), registers {registers}, 0 bytes of stack, no spill")
+    return out
+
+
+def bf16_wide_attention_cases(torch, dev, b: int = TRAIN_B) -> dict:
+    """Kernels 2 and 5 in bf16 at B = 512, L = 100 with the package defaults'
+    4 heads of 64 and the narrow fit's one head of 16, causal and under
+    BERT4Rec's bias (``_attention_bf16_case``; result keys
+    ``attention_{fwd,bwd}_bf16_dh{dh}_{causal,bidirectional}``, and
+    ``_dh{dh}`` for the causal case)."""
+    import torch.nn.functional as F
+
+    from rectools_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    l = SESSION_MAX_LEN
+    causal = torch.where(torch.ones((l, l), dtype=torch.bool, device=dev).tril(), 0.0, -1e9)[None, None]
+    bias = bert4rec_bias(torch, gen, dev, b, l)
+    results = {}
+    for h, dh in WIDE_HEADS:
+        results.update(_attention_bf16_case(torch, F, attention, gen, dev, b, l, h, dh, causal, f"dh{dh}_causal"))
+        results.update(_attention_bf16_case(torch, F, attention, gen, dev, b, l, h, dh, bias, f"dh{dh}_bidirectional"))
+        for name in ("attention_fwd_bf16", "attention_bwd_bf16"):
+            results[f"{name}_dh{dh}"] = results[f"{name}_dh{dh}_causal"]
+        torch.cuda.empty_cache()
+    return results
+
+
 def bf16_wide_kernel_phase(torch, dev, reports: dict) -> dict:
     """``bf16 wide kernels``: the bf16 loss forms at D = 256 and 16 (the
-    build checks, kernel 7's engine at every D among them, then kernels 6 and 7, 8-11 at the (1, 1) mesh's shape and a
-    (2, 2) shard, 12, 13 + 14 and kernel 7's two launches at 51,200 x 15,872;
-    at D = 256 also 13 + 14 and the CE route unforced at 65,536 items), each
-    against its twin (BF16_SPLIT_RTOL; lse BF16_LSE_RTOL per row), its bits on
-    a rerun, timed beside its f32 form, its bf16 library call and its bound."""
+    build checks, kernel 7's engine at every D and kernel 2's bf16 forward at
+    every head dim among them, then kernels 6 and 7, 8-11 at the (1, 1) mesh's
+    shape and a (2, 2) shard, 12, 13 + 14 and kernel 7's two launches at 51,200
+    x 15,872; at D = 256 also 13 + 14 and the CE route unforced at 65,536
+    items), then kernels 2 and 5 at those widths' heads (64 and 16), each
+    against its twin (BF16_SPLIT_RTOL; lse BF16_LSE_RTOL per row;
+    BF16_ATTN_RTOL), its bits on a rerun, timed beside its f32 form, its bf16
+    library call and its bound."""
     results = {"build": {**bf16_wide_build_check(torch, dev, reports),
-                         **ce_bf16_engine_build_check(torch, dev, reports)}}
+                         **ce_bf16_engine_build_check(torch, dev, reports),
+                         **attention_bf16_build_check(torch, dev, reports)}}
     for d in WIDE_WIDTHS:
         results.update(bf16_kernel_phase(torch, dev, d=d))
         results.update(mesh_bf16_kernel_phase(torch, dev, d=d))
         results.update(ce_split_bf16_kernel_phase(torch, dev, d=d, mid_n=0, large_n=WIDE_LARGE_N if d == 256 else 0))
+    results.update(bf16_wide_attention_cases(torch, dev))
     return results
 
 
@@ -5701,11 +5836,8 @@ def bf16_narrow_heads_phase(torch, np, port, dataset, dev, b: int = TRAIN_B) -> 
     and a profiled bf16 step that runs
     the bf16 device kernels and none of the f32 attention, STU or loss
     kernels."""
-    import types
-
     import torch.nn.functional as F
 
-    from rectools_tpu_torch.models.nn.transformers import TransformerBackbone
     from rectools_tpu_torch.models.nn.transformers.training import pad_batch
     from rectools_tpu_torch.ops import attention
 
@@ -5715,11 +5847,7 @@ def bf16_narrow_heads_phase(torch, np, port, dataset, dev, b: int = TRAIN_B) -> 
     l, h, dh = SESSION_MAX_LEN, N_HEADS, HEADS_OF_8
     causal = torch.where(torch.ones((l, l), dtype=torch.bool, device=dev_t).tril(), 0.0, -1e9)[None, None]
     kernels = _attention_bf16_case(torch, F, attention, gen, dev_t, b, l, h, dh, causal, "dh8_causal")
-    lengths = torch.randint(1, 301, (b,), generator=gen, device=dev_t).clamp(max=l)
-    lengths[0], lengths[1] = 1, l
-    sessions = torch.where(torch.arange(l, device=dev_t)[None, :] >= l - lengths[:, None], 1, 0)
-    rule = types.SimpleNamespace(use_causal_attn=False, use_key_padding_mask=True)
-    bias = TransformerBackbone._build_attn_bias(rule, sessions)
+    bias = bert4rec_bias(torch, gen, dev_t, b, l)
     kernels.update(_attention_bf16_case(torch, F, attention, gen, dev_t, b, l, h, dh, bias, "dh8_bidirectional"))
     for name in ("attention_fwd_bf16", "attention_bwd_bf16"):
         kernels[f"{name}_dh8"] = kernels[f"{name}_dh8_causal"]
@@ -6022,6 +6150,8 @@ def main() -> int:
             out["device_ms"] = r["device_ms"]
         if "f32_ms" in r:  # the bf16 forms: bound_ms at the bf16 rate, the f32 form's time on the same values
             out.update(bound_ops=r.get("bound_ops", "bf16"), f32_ms=r["f32_ms"], max_rel_err=r["max_rel_err"])
+        if "ms_dropout_0" in r:  # kernel 2 bf16: without dropout, and on the device beside SDPA's kernels
+            out.update({k: r[k] for k in ("ms_dropout_0", "device_ms", "device_ms_dropout_0", "library_device_ms")})
         return out
 
     entries = []
@@ -6101,6 +6231,16 @@ def main() -> int:
                 sub["bidirectional"] = numbers(kernels[f"{name}_dh8_bidirectional"])
             check(sub["launches"] > 0, f"{name} at head dim 8: no path launched it")
             entry["dh8"] = sub
+        if name == "attention_fwd_bf16":  # the one-pass kernel the entry launches
+            entry["device_kernel"] = ATTN_BF16_FWD_KERNEL
+        if name in ("attention_fwd_bf16", "attention_bwd_bf16"):  # at the heads of the widths 256 and 16 (64, 16)
+            for (_, dh), d in zip(WIDE_HEADS, WIDE_WIDTHS):
+                w_by_path = {path: sum(result["launches"].get(key, 0) for key in keys)
+                             for path, result in width_paths[d].items()}
+                sub = {**numbers(kernels[f"{name}_dh{dh}"]), "launches": sum(w_by_path.values()),
+                       "launches_by_path": w_by_path, "bidirectional": numbers(kernels[f"{name}_dh{dh}_bidirectional"])}
+                check(sub["launches"] > 0, f"{name} at head dim {dh}: no path launched it")
+                entry[f"dh{dh}"] = sub
         check(entry["launches"] > 0, f"{name}: no path launched it")
         entries.append(entry)
     for key, before_ms in SIMT_TILE_MS.items():  # redesigned

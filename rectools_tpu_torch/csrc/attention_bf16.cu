@@ -20,8 +20,10 @@
 // bf16 a query block at a time; the port keeps the rounding points above at
 // every L (ROADMAP §3). The dropout bits are the f32 kernels' counter hash:
 // keep (bh, row, col) when mix32_fast((row * L + col) * 0x9E3779B9 + (seed +
-// bh * 40503) * 0x01000193) >= threshold. A fully masked row (every bias at
-// MASK_VALUE) gets p = 1 on every key, the sum of v, as in that route.
+// bh * 40503) * 0x01000193) >= threshold, bh the global b * H + h (so a mesh
+// data shard's shifted seed gives its rows the whole batch's bits). A fully
+// masked row (every bias at MASK_VALUE) gets p = 1 on every key, the sum of v,
+// as in that route.
 //
 // Products: `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`
 // (bf16_tile.cuh); at a head dim of 8 the two products over the head dim (q
@@ -33,31 +35,51 @@
 // (`__fmul_rn`, `__fadd_rn`), never fused, so each rounding point sees the
 // twin's f32 value up to the order of the product's sums.
 //
-// Tiles (head dims 8, 16, 32 and 64): 128 threads, 4 warps, tiles of 64 rows
-// of one (b, h) staged in shared memory at a pitch of `bt::pitch(dh)` bf16
-// (dh + 8; 24 at dh = 8), transposed copies at a pitch of 72.
-// - Forward: block (bh, 64-query tile), warp w owns queries 16 w + [0, 16),
-//   its q fragments in registers. Pass 1 walks the 64-key tiles for the rows'
-//   running (max, sum of exp) of the rounded scores; pass 2 walks them again,
-//   forms p from the finished lse (the rounding of p needs it) and adds p v,
-//   with p taken from the scores' accumulator fragments as the A operand.
-// - Backward: block (bh), warp w owns keys 16 w + [0, 16) of each 64-key
-//   tile; for each query tile it forms s^T and dp^T (keys x queries), dv and
-//   dk into registers from those fragments, ds through shared memory
-//   ([query][key]) for dq += ds k, whose f32 sums over the key tiles wait in
-//   a scratch (B, H, L, dh) buffer that only this block touches, each thread
-//   its own entries (no atomics), until the last key tile scales and rounds
-//   them.
-//
 // Bound on an H100 at the training shape (B = 512, H = 4, L = 100, dh = 32):
-// the forward reads q, k, v and writes out, 52 MB, 0.016 ms at 3.35 TB/s;
-// its products over every (query, key) pair are 2.6 GFLOP, 0.003 ms at 989
-// TFLOP/s bf16; the backward moves 105 MB (0.031 ms). Both are bound by
-// bytes; as written they are latency-bound small blocks (two passes of the
-// score product in the forward). At dh = 8 (the same B, H, L) the forward
-// moves 14 MB (0.004 ms) and the backward 25 MB (0.007 ms), bound by bytes
-// too; the blocks do a quarter of the products for the same walk over the
-// tiles.
+// the forward reads q, k, v and writes out, 52 MB, 0.016 ms at 3.35 TB/s
+// (BERT4Rec's (B, 1, L, L) f32 bias adds 20 MB); its products over every
+// (query, key) pair are 2.6 GFLOP, 0.003 ms at 989 TFLOP/s bf16; the backward
+// moves 105 MB (0.031 ms). Both are bound by bytes. At dh = 8 the forward
+// moves 14 MB (0.004 ms), the backward 25 MB (0.007 ms). Below the bytes
+// lies the forward's work per score, the same at every head dim: a scale, a
+// bias, two roundings, two exps (the row's sum and p) and, with dropout, a
+// hash, 20.5 M scores at the training shape; the design pays each once.
+//
+// Forward (`attn_fwd_onepass_bf16_kernel`): one kernel, two modes by L; every
+// score formed once (one q k^T product per (query, key) pair), each tile
+// staged by 16-byte cp.async, q and k fragments by `ldmatrix`, v's by
+// `ldmatrix.trans` from its row-major tile, p taken as the A operand of p v
+// straight from registers. `mma.sync`, not `wgmma`: a warp's 16 query rows
+// against all keys is the m16 tile, the products are a fifth of the bound,
+// and the rows' elementwise work stays in the warp that holds them.
+// - Rows (L <= kRegKeys = 128): block (b, group of up to kHeadsPerBlock = 4
+//   heads), ceil(L / 16) warps, warp w the query rows 16 w + [0, 16) of
+//   each head. The bias rows (L x L f32, pitch bias_pitch(L)) are staged
+//   once a block and serve its heads (a bias of head stride 0 is read once
+//   per b; a per-head bias makes a block of one head). The heads' q, k and v
+//   pass through a ring of two slots: head j + 1 loads while head j
+//   computes, and each (b, h)'s q, k and v are read from device memory once.
+//   A warp keeps its rows' rounded scores over every key as packed bf16 pairs
+//   in 32 registers, takes each row's max from them (bf16x2 max), sums
+//   exp(s - max) in column order and then over the row's 4 lanes, and forms p
+//   from the finished lse.
+// - Tiles (L > 128): block (b h, 64 query rows), 4 warps; key tiles of 64
+//   (k, v and the tile's bias rows) through a ring of two. Sweep 1 forms each
+//   score once, keeps the rounded row in shared memory (32 KB a warp at
+//   kSmemKeys = 1,024 keys) and the rows' running (max, sum of exp) a tile at
+//   a time; sweep 2 reads the scores back for p and adds p v. A longer row
+//   outgrows shared memory, and sweep 2 forms its scores again from k. The
+//   query blocks of one (b, h) each read its k and v.
+//
+// Backward: block (bh), 128 threads, 4 warps, tiles of 64 rows of one (b, h)
+// staged in shared memory at a pitch of `bt::pitch(dh)` bf16 (dh + 8; 24 at
+// dh = 8), transposed copies at a pitch of 72; warp w owns keys 16 w + [0,
+// 16) of each 64-key tile; for each query tile it forms s^T and dp^T (keys x
+// queries), dv and dk into registers from those fragments, ds through shared
+// memory ([query][key]) for dq += ds k, whose f32 sums over the key tiles
+// wait in a scratch (B, H, L, dh) buffer that only this block touches, each
+// thread its own entries (no atomics), until the last key tile scales and
+// rounds them. As written it is a latency-bound walk of small tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +91,7 @@ namespace {
 #include "tc_tile.cuh"
 #include "bf16_tile.cuh"
 
-constexpr int kT = 64;  // rows of every tile: queries of a forward block, keys and queries of the backward's tiles
+constexpr int kT = 64;  // rows of the backward's key and query tiles
 constexpr int kThreads = 128;
 constexpr int kTP = bt::pitch(kT);  // transposed tiles [dh][row]
 constexpr float kNegBig = -1e30f;
@@ -147,6 +169,23 @@ __device__ __forceinline__ void product_64(const uint32_t a[bt::Depth<DH>::kFrag
   }
 }
 
+// ------------------------------------------------------------------ forward
+
+constexpr int kRegKeys = 128;      // rows mode: the longest row whose rounded scores a warp keeps in registers
+constexpr int kHeadsPerBlock = 4;  // rows mode: the heads of one b a block walks when they share the bias
+constexpr int kFwdTile = 64;       // tiles mode: the query rows of a block and the keys of a staged tile
+constexpr int kFwdTileThreads = 128;
+constexpr int kSmemKeys = 1024;    // tiles mode: the longest row whose rounded scores stay in shared memory
+constexpr int kFwdMaxThreads = 32 * kRegKeys / 16;
+constexpr int kMaxDevices = 64;  // devices whose shared-memory attribute a launch remembers
+constexpr int kBiasTilePitch = 72;  // floats; a float2 read of 8 rows x 4 lanes falls on distinct banks (72 = 8 mod 32)
+constexpr float kLog2e = 1.4426950408889634f;
+// the rows mode's ring of q, k, v slots: two (the next head loads under this one's products) where two blocks of L
+// = 100 still fit an SM with them, else one (at dh = 64; then the SM's two blocks overlap each other's loads)
+__host__ __device__ constexpr int ring_slots(int dh) { return dh == 64 ? 1 : 2; }
+
+enum FwdMode { kRows = 0, kTiles = 1 };
+
 struct FwdParams {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
@@ -162,65 +201,409 @@ struct FwdParams {
   long long bias_sb, bias_sh;  // bias rows are L contiguous floats
   float scale;
   Dropout dr;
+  int heads_per_block;  // rows mode: set by the launch
 };
 
-template <int DH, bool kDropout>
-__global__ void __launch_bounds__(kThreads) attn_fwd_bf16_kernel(const FwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// the rows mode's bias pitch in floats: the row rounded up to 16, plus 8 (= 8 or 24 mod 32: a float2 read of 8
+// rows x 4 lanes falls on distinct banks in each half warp)
+__host__ __device__ constexpr int bias_pitch(int L) { return (L + 15) / 16 * 16 + 8; }
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) { return *reinterpret_cast<uint32_t*>(&v); }
+__device__ __forceinline__ float lo_of(uint32_t s) { return __uint_as_float(s << 16); }
+__device__ __forceinline__ float hi_of(uint32_t s) { return __uint_as_float(s & 0xffff0000u); }
+// exp(x) as the SFU's ex2 of x log2 e (subnormal results flush to 0); exp(0) = 1 exactly, so the fully masked row
+// keeps p = 1. expf, the function of the twin and of the backward, takes the largest error from the twin down by up
+// to four times where ex2's roundings set it (heads of 8 and 16), but costs 12-23% of a call at heads of 32 with
+// dropout and 14-16% at heads of 64 (tools/attention_bf16_variants.py, variant `expf`); both stay inside the limit
+__device__ __forceinline__ float exp_of(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(__fmul_rn(x, kLog2e)));
+  return y;
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];" : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t r[2], const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];" : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// rows [row0, row0 + n) of one (b, h) of a strided bf16 tensor into a tile of pitch bt::pitch(DH) by 16-byte
+// cp.async, zeros past L, by `threads` threads, this one `tid`
+template <int DH>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, long long sl, int row0, int n,
+                                           int L, int tid, int threads) {
+  constexpr int C = DH / 8;
+  for (int idx = tid; idx < n * C; idx += threads) {
+    const int r = idx / C, c = 8 * (idx - r * C);
+    const bool ok = row0 + r < L;
+    tc::cp_async16(dst + r * bt::pitch(DH) + c, ok ? src + (long long)(row0 + r) * sl + c : src, ok);
+  }
+}
+
+// rows [r0, r0 + nr) x columns [c0, c0 + nc) of an (L, L) f32 bias into a tile of pitch P floats by cp.async,
+// coalesced (16 bytes a thread where the rows allow it, else 4), by `threads` threads, this one `tid`; rows and
+// columns past L stay unwritten (those scores are masked, those rows never stored)
+__device__ __forceinline__ void stage_bias(float* dst, int P, const float* src, int L, int r0, int nr, int c0, int nc,
+                                           int tid, int threads) {
+  const int rows = min(nr, L - r0), cols = min(nc, L - c0);
+  if (((L | c0) & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int chunks = cols / 4;
+    for (int idx = tid; idx < rows * chunks; idx += threads) {
+      const int r = idx / chunks, c = 4 * (idx - r * chunks);
+      tc::cp_async16(dst + r * P + c, src + (long long)(r0 + r) * L + c0 + c, true);
+    }
+  } else {
+    for (int idx = tid; idx < rows * cols; idx += threads) {
+      const int r = idx / cols, c = idx - r * cols;
+      tc::cp_async4(dst + r * P + c, src + (long long)(r0 + r) * L + c0 + c, true);
+    }
+  }
+}
+
+// the warp's q fragments, rows r0 + [0, 16) of a tile of pitch bt::pitch(DH), by ldmatrix
+template <int DH>
+__device__ __forceinline__ void q_frags(const __nv_bfloat16* tile, int r0, uint32_t a[bt::Depth<DH>::kFrags][4]) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* row = tile + (r0 + (lane & 15)) * bt::pitch(DH);
+  if constexpr (DH == 8) {
+    ldsm_x2(a[0], row);  // m16n8k8: rows g and g + 8
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) tc::ldsm_x4(a[kk], row + 16 * kk + 8 * (lane >> 4));
+  }
+}
+
+// acc[f] (the warp's 16 rows x keys k0 + 8 f + [0, 8)) = q k^T over the head dim, keys k0 + [0, 16) of the
+// row-major key tile `ks` (pitch bt::pitch(DH)) taken as the B operand by ldmatrix
+template <int DH>
+__device__ __forceinline__ void score_product(const uint32_t qa[bt::Depth<DH>::kFrags][4], const __nv_bfloat16* ks,
+                                              int k0, float acc[2][4]) {
   constexpr int PD = bt::pitch(DH);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][DH + 8]
-  __nv_bfloat16* ks = qs + kT * PD;                                 // [64][DH + 8]
-  __nv_bfloat16* vt = ks + kT * PD;                                 // [DH][72]
-  const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
-  const int q0 = blockIdx.y * kT, L = p.L;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int f = 0; f < 2; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[f][e] = 0.f;
+  if constexpr (DH == 8) {
+    uint32_t b[2];
+    ldsm_x2(b, ks + (k0 + (lane & 15)) * PD);
+    bt::mma_k8(acc[0], qa[0], b[0]);
+    bt::mma_k8(acc[1], qa[0], b[1]);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t b[4];
+      tc::ldsm_x4(b, ks + (k0 + 8 * (lane >> 4) + (lane & 7)) * PD + 16 * kk + 8 * ((lane >> 3) & 1));
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      bt::mma(acc[0], qa[kk], b0);
+      bt::mma(acc[1], qa[kk], b1);
+    }
+  }
+}
+
+// the rounded scores of keys (key, key + 1) of one row: bf16(acc * scale + bias) with both f32 operations
+// rounded, the bias from `brow[col]` (a staged row, or none); kNegBig past L (checked only on a tail group)
+__device__ __forceinline__ __nv_bfloat162 score_pair(float a0, float a1, float scale, const float* brow, int col,
+                                                     int key, int L, bool tail) {
+  float x0 = __fmul_rn(a0, scale), x1 = __fmul_rn(a1, scale);
+  if (brow != nullptr) {
+    const float2 bb = *reinterpret_cast<const float2*>(brow + col);
+    x0 = __fadd_rn(x0, bb.x);
+    x1 = __fadd_rn(x1, bb.y);
+  }
+  if (tail) {
+    if (key >= L) x0 = kNegBig;
+    if (key + 1 >= L) x1 = kNegBig;
+  }
+  return __floats2bfloat162_rn(x0, x1);
+}
+
+// p = bf16(exp(s - lse)) of one register of two rounded scores (keys key, key + 1 of a row whose hash starts at
+// `hrow`), with dropout bf16(p * bf16(keep scale)) or 0: one register of the A operand of p v
+template <bool kDropout>
+__device__ __forceinline__ uint32_t prob_pair(uint32_t s, float lse, const Dropout& dr, unsigned hrow, int key,
+                                              __nv_bfloat162 sk2) {
+  __nv_bfloat162 pp = __floats2bfloat162_rn(exp_of(__fsub_rn(lo_of(s), lse)), exp_of(__fsub_rn(hi_of(s), lse)));
+  if constexpr (kDropout) {
+    pp = __hmul2(pp, sk2);  // the product of two bf16 is exact in f32: one rounding, as round_bf16(p * sk)
+    const unsigned h0 = hrow + (unsigned)key * kGolden;
+    const uint32_t keep = (mix32_fast(h0) >= dr.threshold ? 0x0000ffffu : 0u) |
+                          (mix32_fast(h0 + kGolden) >= dr.threshold ? 0xffff0000u : 0u);
+    return as_u32(pp) & keep;
+  }
+  return as_u32(pp);
+}
+
+// o (16 rows x the head dim) += a (p of keys k0 + [0, 16)) times rows k0 + [0, 16) of the row-major value tile
+// `vs`, its B fragments by ldmatrix.trans
+template <int DH>
+__device__ __forceinline__ void pv_step(const uint32_t a[4], const __nv_bfloat16* vs, int k0, float o[DH / 8][4]) {
+  constexpr int PD = bt::pitch(DH);
+  const int lane = threadIdx.x & 31;
+  if constexpr (DH == 8) {
+    uint32_t b[2];
+    ldsm_x2_t(b, vs + (k0 + (lane & 15)) * PD);
+    bt::mma(o[0], a, b);
+  } else {
+#pragma unroll
+    for (int np = 0; np < DH / 16; ++np) {
+      uint32_t b[4];
+      ldsm_x4_t(b, vs + (k0 + 8 * ((lane >> 3) & 1) + (lane & 7)) * PD + 16 * np + 8 * (lane >> 4));
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      bt::mma(o[2 * np], a, b0);
+      bt::mma(o[2 * np + 1], a, b1);
+    }
+  }
+}
+
+// the warp's 16 rows of out (bf16) and lse, rows row0 + [0, 16): out through the warp's own rows of a staged tile
+// (`rows`, pitch bt::pitch(DH); only this warp reads them), then 16-byte stores of whole rows; lse by lanes 0-15
+template <int DH>
+__device__ __forceinline__ void store_rows(const FwdParams& p, int b, int h, int row0, __nv_bfloat16* rows,
+                                           const float o[DH / 8][4], const float lse[2]) {
+  constexpr int PD = bt::pitch(DH), C = DH / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  __syncwarp();  // every lane is done reading the tile's rows
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int nf = 0; nf < C; ++nf)
+      *reinterpret_cast<uint32_t*>(rows + (g + 8 * hh) * PD + 8 * nf + 2 * t) = bt::pack(o[nf][2 * hh], o[nf][2 * hh + 1]);
+  __syncwarp();
+  __nv_bfloat16* ob = p.out + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int idx = lane; idx < 16 * C; idx += 32) {
+    const int r = idx / C, c = 8 * (idx - r * C);
+    if (row0 + r < p.L)
+      *reinterpret_cast<uint4*>(ob + (long long)(row0 + r) * p.o_sl + c) = *reinterpret_cast<const uint4*>(rows + r * PD + c);
+  }
+  const float lo = __shfl_sync(0xffffffffu, lse[0], 4 * (lane & 7));  // row g of lane 4 g
+  const float hi = __shfl_sync(0xffffffffu, lse[1], 4 * (lane & 7));  // row g + 8
+  if (lane < 16 && row0 + lane < p.L) p.lse[(long long)(b * p.H + h) * p.L + row0 + lane] = lane < 8 ? lo : hi;
+}
+
+// Rows mode: block (b, group of heads), warp w the query rows 16 w + [0, 16) of each head; the heads' q, k, v
+// through a ring of ring_slots(DH) slots, staged by every thread of the block
+template <int DH, bool kDropout>
+__device__ __forceinline__ void fwd_rows(const FwdParams& p, unsigned char* smem) {
+  constexpr int PD = bt::pitch(DH), S = ring_slots(DH);
+  const int L = p.L, rows = blockDim.x / 2;  // 16 rows a warp
+  const int G = p.heads_per_block, groups = (p.H + G - 1) / G;
+  const int b = blockIdx.x / groups, h0 = (blockIdx.x - b * groups) * G, hn = min(G, p.H - h0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const float* bias = p.bias != nullptr ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
-  const unsigned salt = salt_of(p.dr, bh);
-  const float sk = bt::round_bf16(p.dr.keep_scale);
-  const int n_tiles = (L + kT - 1) / kT;
-  int rows[2];
-  rows[0] = q0 + 16 * warp + g;
-  rows[1] = rows[0] + 8;
-  // a row past L reads the bias of row 0 (its values are never written)
-  const int brow[2] = {rows[0] < L ? rows[0] : 0, rows[1] < L ? rows[1] : 0};
+  const int BP = bias_pitch(L);
+  float* bias_s = reinterpret_cast<float*>(smem);
+  __nv_bfloat16* slots = reinterpret_cast<__nv_bfloat16*>(smem + (p.bias != nullptr ? L * BP * 4 : 0));
+  const int slot_elems = 3 * rows * PD;  // q, k, v of one head
+  auto stage_head = [&](int j) {
+    const int h = h0 + j;
+    __nv_bfloat16* s = slots + (j % S) * slot_elems;
+    stage_rows<DH>(s, p.q + b * p.q_sb + h * p.q_sh, p.q_sl, 0, rows, L, threadIdx.x, blockDim.x);
+    stage_rows<DH>(s + rows * PD, p.k + b * p.k_sb + h * p.k_sh, p.k_sl, 0, rows, L, threadIdx.x, blockDim.x);
+    stage_rows<DH>(s + 2 * rows * PD, p.v + b * p.v_sb + h * p.v_sh, p.v_sl, 0, rows, L, threadIdx.x, blockDim.x);
+  };
+  // one bias for the block's heads: their head stride is 0, or the block owns one head
+  if (p.bias != nullptr)
+    stage_bias(bias_s, BP, p.bias + b * p.bias_sb + h0 * p.bias_sh, L, 0, L, 0, L, threadIdx.x, blockDim.x);
+  for (int j = 0; j < S && j < hn; ++j) {
+    stage_head(j);
+    tc::cp_commit();
+  }
+  const int r0 = 16 * warp, nk = (L + 15) / 16;
+  const int rows_of[2] = {r0 + g, r0 + g + 8};
+  const float* brow[2] = {nullptr, nullptr};
+  if (p.bias != nullptr)  // a row past L reads row L - 1 (its values are never stored)
+    for (int hh = 0; hh < 2; ++hh) brow[hh] = bias_s + min(rows_of[hh], L - 1) * BP;
+  const __nv_bfloat162 sk2 = __float2bfloat162_rn(p.dr.keep_scale);
+  const __nv_bfloat162 neg2 = __float2bfloat162_rn(kNegBig);
 
-  load_rows<DH>(qs, qb, p.q_sl, q0, L);
-  __syncthreads();
-  uint32_t qa[bt::Depth<DH>::kFrags][4];
-  bt::frags_a<DH, PD>(qs, 16 * warp, qa);
+  for (int j = 0; j < hn; ++j) {
+    if (min(j + S, hn) - 1 > j)  // head j + 1 is in flight too
+      tc::cp_wait<1>();
+    else
+      tc::cp_wait<0>();
+    __syncthreads();  // head j's q, k, v (and the bias) are in shared memory
+    const int h = h0 + j;
+    const __nv_bfloat16* qs = slots + (j % S) * slot_elems;
+    const __nv_bfloat16* ks = qs + rows * PD;
+    const __nv_bfloat16* vs = ks + rows * PD;
+    uint32_t qa[bt::Depth<DH>::kFrags][4];
+    q_frags<DH>(qs, r0, qa);
 
-  // pass 1: the rows' running (max, sum of exp) of the rounded scores
-  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();
-    load_rows<DH>(ks, kb, p.k_sl, kt * kT, L);
-    __syncthreads();
-    float acc[8][4];
-    product_64<DH>(qa, ks, acc);
+    // every score of the warp's rows, once: rounded, packed, in registers
+    uint32_t sc[kRegKeys / 8][2];
+    __nv_bfloat162 mx[2][2] = {{neg2, neg2}, {neg2, neg2}};
+#pragma unroll
+    for (int jg = 0; jg < kRegKeys / 16; ++jg) {
+      if (jg < nk) {
+        float acc[2][4];
+        score_product<DH>(qa, ks, 16 * jg, acc);
+        const bool tail = 16 * jg + 16 > L;
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int col = 16 * jg + 8 * f + 2 * t;
+            const __nv_bfloat162 s2 =
+                score_pair(acc[f][2 * hh], acc[f][2 * hh + 1], p.scale, brow[hh], col, col, L, tail);
+            mx[hh][jg & 1] = __hmax2(mx[hh][jg & 1], s2);
+            sc[2 * jg + f][hh] = as_u32(s2);
+          }
+      }
+    }
+    // lse: the row's max, then its sum of exp(s - max) in four column-strided partial sums and over its 4 lanes
+    float lse[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      float x[8][2];
+      const __nv_bfloat162 m2 = __hmax2(mx[hh][0], mx[hh][1]);
+      float m = fmaxf(__low2float(m2), __high2float(m2));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      float l4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int nf = 0; nf < kRegKeys / 8; ++nf)
+        if (nf < 2 * nk)
+          l4[nf & 3] += exp_of(__fsub_rn(lo_of(sc[nf][hh]), m)) + exp_of(__fsub_rn(hi_of(sc[nf][hh]), m));
+      float l = (l4[0] + l4[1]) + (l4[2] + l4[3]);
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      lse[hh] = m + logf(l);
+    }
+    // p from the finished lse, straight into the A operand of p v
+    const unsigned salt = salt_of(p.dr, b * p.H + h);
+    const unsigned hrow[2] = {(unsigned)rows_of[0] * (unsigned)L * kGolden + salt,
+                              (unsigned)rows_of[1] * (unsigned)L * kGolden + salt};
+    float o[DH / 8][4];
+#pragma unroll
+    for (int nf = 0; nf < DH / 8; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nf][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kRegKeys / 16; ++kk) {
+      if (kk < nk) {
+        uint32_t a[4];
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            a[2 * f + hh] = prob_pair<kDropout>(sc[2 * kk + f][hh], lse[hh], p.dr, hrow[hh], 16 * kk + 8 * f + 2 * t, sk2);
+        pv_step<DH>(a, vs, 16 * kk, o);
+      }
+    }
+    store_rows<DH>(p, b, h, r0, const_cast<__nv_bfloat16*>(qs) + r0 * PD, o, lse);
+    if (j + S < hn) {
+      __syncthreads();  // every warp is done with this slot
+      stage_head(j + S);
+      tc::cp_commit();
+    }
+  }
+}
+
+// Tiles mode: block (b h, 64 query rows), warp w the rows 16 w + [0, 16); key tiles of 64 in a ring of two
+template <int DH, bool kDropout>
+__device__ __forceinline__ void fwd_tiles(const FwdParams& p, unsigned char* smem) {
+  constexpr int PD = bt::pitch(DH), T = kFwdTile, BPT = kBiasTilePitch;
+  const int L = p.L, bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H, q0 = blockIdx.y * T;
+  const int nt = (L + T - 1) / T;
+  const bool stored = nt * T <= kSmemKeys;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool has_bias = p.bias != nullptr;
+  // shared memory: q tile, two slots of (k tile, v tile, bias tile), then each warp's scores
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int slot_bytes = 2 * T * PD * 2 + (has_bias ? T * BPT * 4 : 0);
+  unsigned char* slot0 = smem + T * PD * 2;
+  uint32_t* scores = reinterpret_cast<uint32_t*>(slot0 + 2 * slot_bytes) + warp * (nt * 4) * 128;
+  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const float* biasb = has_bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
+  auto k_tile = [&](int s) { return reinterpret_cast<__nv_bfloat16*>(slot0 + s * slot_bytes); };
+  auto v_tile = [&](int s) { return k_tile(s) + T * PD; };
+  auto b_tile = [&](int s) { return reinterpret_cast<float*>(slot0 + s * slot_bytes + 2 * T * PD * 2); };
+  auto stage = [&](int kt, bool keys, bool values) {
+    const int s = kt & 1;
+    if (keys) {
+      stage_rows<DH>(k_tile(s), kb, p.k_sl, kt * T, T, L, threadIdx.x, blockDim.x);
+      if (has_bias) stage_bias(b_tile(s), BPT, biasb, L, q0, T, kt * T, T, threadIdx.x, blockDim.x);
+    }
+    if (values) stage_rows<DH>(v_tile(s), vb, p.v_sl, kt * T, T, L, threadIdx.x, blockDim.x);
+  };
+  const int rows_of[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  const int brow_local[2] = {(16 * warp + g) * BPT, (16 * warp + g + 8) * BPT};
+  const __nv_bfloat162 sk2 = __float2bfloat162_rn(p.dr.keep_scale);
+  uint32_t qa[bt::Depth<DH>::kFrags][4];
+  // the scores of keys kt * 64 + 16 jg + [0, 16) of the warp's rows, from slot kt & 1
+  auto scores_of = [&](int kt, int jg, uint32_t sc[2][2]) {
+    float acc[2][4];
+    score_product<DH>(qa, k_tile(kt & 1), 16 * jg, acc);
+    const bool tail = kt * T + 16 * jg + 16 > L;
+    const float* bt_ = b_tile(kt & 1);
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int col = 16 * jg + 8 * f + 2 * t;
+        sc[f][hh] = as_u32(score_pair(acc[f][2 * hh], acc[f][2 * hh + 1], p.scale,
+                                      has_bias ? bt_ + brow_local[hh] : nullptr, col, kt * T + col, L, tail));
+      }
+  };
+
+  // sweep 1: every score once (kept in shared memory while the row fits), the rows' running (max, sum of exp)
+  stage_rows<DH>(qs, p.q + b * p.q_sb + h * p.q_sh, p.q_sl, q0, T, L, threadIdx.x, blockDim.x);
+  stage(0, true, false);
+  tc::cp_commit();
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
+  for (int kt = 0; kt < nt; ++kt) {
+    if (kt + 1 < nt) {
+      stage(kt + 1, true, false);
+      tc::cp_commit();
+      tc::cp_wait<1>();
+    } else {
+      tc::cp_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) q_frags<DH>(qs, 16 * warp, qa);
+    uint32_t sc[4][2][2];
+#pragma unroll
+    for (int jg = 0; jg < 4; ++jg) {
+      if (kt * T + 16 * jg < L) {
+        scores_of(kt, jg, sc[jg]);
+        if (stored)
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) scores[(kt * 4 + jg) * 128 + (2 * f + hh) * 32 + lane] = sc[jg][f][hh];
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
       float mx = m[hh];
 #pragma unroll
-      for (int nf = 0; nf < 8; ++nf)
+      for (int jg = 0; jg < 4; ++jg)
+        if (kt * T + 16 * jg < L)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int key = kt * kT + 8 * nf + 2 * t + j;
-          x[nf][j] = key < L ? score(acc[nf][2 * hh + j], p.scale, bias, brow[hh], key, L) : kNegBig;
-          mx = fmaxf(mx, x[nf][j]);
-        }
-      float sum = l[hh] * expf(m[hh] - mx);
+          for (int f = 0; f < 2; ++f) mx = fmaxf(mx, fmaxf(lo_of(sc[jg][f][hh]), hi_of(sc[jg][f][hh])));
+      float sum = l[hh] * exp_of(__fsub_rn(m[hh], mx));
 #pragma unroll
-      for (int nf = 0; nf < 8; ++nf)
+      for (int jg = 0; jg < 4; ++jg)
+        if (kt * T + 16 * jg < L)
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          if (kt * kT + 8 * nf + 2 * t + j < L) sum += expf(x[nf][j] - mx);
+          for (int f = 0; f < 2; ++f)
+            sum += exp_of(__fsub_rn(lo_of(sc[jg][f][hh]), mx)) + exp_of(__fsub_rn(hi_of(sc[jg][f][hh]), mx));
       m[hh] = mx;
       l[hh] = sum;
     }
+    __syncthreads();  // every warp is done with this slot
   }
   float lse[2];
 #pragma unroll
@@ -230,60 +613,83 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_bf16_kernel(const FwdParams
       const float m_o = __shfl_xor_sync(0xffffffffu, m[hh], off);
       const float l_o = __shfl_xor_sync(0xffffffffu, l[hh], off);
       const float m_new = fmaxf(m[hh], m_o);
-      l[hh] = l[hh] * expf(m[hh] - m_new) + l_o * expf(m_o - m_new);
+      l[hh] = l[hh] * exp_of(__fsub_rn(m[hh], m_new)) + l_o * exp_of(__fsub_rn(m_o, m_new));
       m[hh] = m_new;
     }
     lse[hh] = m[hh] + logf(l[hh]);
   }
 
-  // pass 2: p = bf16(exp(s - lse)), dropout, out += p v
+  // sweep 2: p from the finished lse (scores read back, or past kSmemKeys formed again), out += p v
+  const unsigned salt = salt_of(p.dr, bh);
+  const unsigned hrow[2] = {(unsigned)rows_of[0] * (unsigned)L * kGolden + salt,
+                            (unsigned)rows_of[1] * (unsigned)L * kGolden + salt};
   float o[DH / 8][4];
 #pragma unroll
   for (int nf = 0; nf < DH / 8; ++nf)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nf][e] = 0.f;
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  stage(0, !stored, true);
+  tc::cp_commit();
+  for (int kt = 0; kt < nt; ++kt) {
+    if (kt + 1 < nt) {
+      stage(kt + 1, !stored, true);
+      tc::cp_commit();
+      tc::cp_wait<1>();
+    } else {
+      tc::cp_wait<0>();
+    }
     __syncthreads();
-    load_rows<DH>(ks, kb, p.k_sl, kt * kT, L);
-    load_rows_t<DH>(vt, vb, p.v_sl, kt * kT, L);
-    __syncthreads();
-    float acc[8][4];
-    product_64<DH>(qa, ks, acc);
 #pragma unroll
-    for (int nf = 0; nf < 8; ++nf)
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kt * T + 16 * kk < L) {
+        uint32_t sc[2][2];
+        if (stored) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e >> 1;
-        const int key = kt * kT + 8 * nf + 2 * t + (e & 1);
-        float pr = 0.f;
-        if (key < L) {
-          pr = bt::round_bf16(expf(score(acc[nf][e], p.scale, bias, brow[hh], key, L) - lse[hh]));
-          if (kDropout) pr = keep(p.dr, salt, rows[hh], key, L) ? bt::round_bf16(pr * sk) : 0.f;
+          for (int f = 0; f < 2; ++f)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) sc[f][hh] = scores[(kt * 4 + kk) * 128 + (2 * f + hh) * 32 + lane];
+        } else {
+          scores_of(kt, kk, sc);
         }
-        acc[nf][e] = pr;
-      }
+        uint32_t a[4];
 #pragma unroll
-    for (int kk = 0; kk < kT / 16; ++kk) {
-      uint32_t a[4];
-      bt::frag_a_from_c(acc[2 * kk], acc[2 * kk + 1], a);
+        for (int f = 0; f < 2; ++f)
 #pragma unroll
-      for (int nf = 0; nf < DH / 8; ++nf) {
-        uint32_t bb[2];
-        bt::frag_b<kTP>(vt, 8 * nf, 16 * kk, bb);
-        bt::mma(o[nf], a, bb);
+          for (int hh = 0; hh < 2; ++hh)
+            a[2 * f + hh] =
+                prob_pair<kDropout>(sc[f][hh], lse[hh], p.dr, hrow[hh], kt * T + 16 * kk + 8 * f + 2 * t, sk2);
+        pv_step<DH>(a, v_tile(kt & 1), 16 * kk, o);
       }
     }
+    __syncthreads();  // every warp is done with this slot
   }
-  __nv_bfloat16* ob = p.out + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = rows[hh];
-    if (row >= L) continue;
-#pragma unroll
-    for (int nf = 0; nf < DH / 8; ++nf)
-      *reinterpret_cast<uint32_t*>(ob + row * p.o_sl + 8 * nf + 2 * t) = bt::pack(o[nf][2 * hh], o[nf][2 * hh + 1]);
-    if (t == 0) p.lse[(long long)bh * L + row] = lse[hh];
+  store_rows<DH>(p, b, h, q0 + 16 * warp, qs + 16 * warp * PD, o, lse);
+}
+
+// One kernel, two modes: rows (L <= kRegKeys) and tiles (longer rows)
+template <int DH, bool kDropout, int kMode>
+__global__ void __launch_bounds__(kFwdMaxThreads, kMode == kRows ? 2 : 1)
+    attn_fwd_onepass_bf16_kernel(const FwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if constexpr (kMode == kRows)
+    fwd_rows<DH, kDropout>(p, smem_raw);
+  else
+    fwd_tiles<DH, kDropout>(p, smem_raw);
+}
+
+// shared memory of a forward block
+template <int DH>
+int fwd_smem_bytes(int mode, int L, bool bias, int heads_per_block) {
+  constexpr int PD = bt::pitch(DH);
+  if (mode == kRows) {
+    const int rows = (L + 15) / 16 * 16;
+    const int slots = heads_per_block < ring_slots(DH) ? heads_per_block : ring_slots(DH);
+    return (bias ? L * bias_pitch(L) * 4 : 0) + slots * 3 * rows * PD * 2;
   }
+  const int nt = (L + kFwdTile - 1) / kFwdTile;
+  const int slot = 2 * kFwdTile * PD * 2 + (bias ? kFwdTile * kBiasTilePitch * 4 : 0);
+  const int scores = nt * kFwdTile <= kSmemKeys ? (kFwdTileThreads / 32) * nt * 4 * 128 * 4 : 0;
+  return kFwdTile * PD * 2 + 2 * slot + scores;
 }
 
 struct BwdParams {
@@ -479,15 +885,57 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_bf16_kernel(const BwdParams
   }
 }
 
-template <int DH, bool kDropout>
-int launch_fwd(const FwdParams& p, cudaStream_t stream) {
-  const int smem = (2 * kT * bt::pitch(DH) + DH * kTP) * (int)sizeof(__nv_bfloat16);
-  cudaError_t err =
-      cudaFuncSetAttribute(attn_fwd_bf16_kernel<DH, kDropout>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// the launch of a forward: mode, heads a block walks, grid, threads and shared memory of a block
+struct FwdPlan {
+  int mode, heads_per_block;
+  dim3 grid;
+  int threads, smem;
+};
+
+template <int DH>
+FwdPlan plan_fwd(const FwdParams& p) {
+  const bool bias = p.bias != nullptr;
+  if (p.L <= kRegKeys) {
+    // heads that share the bias (or have none) go kHeadsPerBlock to a block; a per-head bias, one
+    const int heads = !bias || p.bias_sh == 0 ? (p.H < kHeadsPerBlock ? p.H : kHeadsPerBlock) : 1;
+    return FwdPlan{kRows, heads, dim3((unsigned)(p.B * ((p.H + heads - 1) / heads))), 32 * ((p.L + 15) / 16),
+                   fwd_smem_bytes<DH>(kRows, p.L, bias, heads)};
+  }
+  return FwdPlan{kTiles, 1, dim3((unsigned)(p.B * p.H), (unsigned)((p.L + kFwdTile - 1) / kFwdTile)),
+                 kFwdTileThreads, fwd_smem_bytes<DH>(kTiles, p.L, bias, 1)};
+}
+
+// lets a form take `smem` bytes of dynamic shared memory on the current device, with the SM's whole shared
+// memory carved out for it (two blocks of the rows mode need more than half); remembered per device
+template <int DH, bool kDropout, int kMode>
+cudaError_t allow_smem(int smem) {
+  static int allowed[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || (device < kMaxDevices && smem <= allowed[device])) return err;
+  err = cudaFuncSetAttribute(attn_fwd_onepass_bf16_kernel<DH, kDropout, kMode>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_fwd_onepass_bf16_kernel<DH, kDropout, kMode>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && device < kMaxDevices) allowed[device] = smem;
+  return err;
+}
+
+template <int DH, bool kDropout, int kMode>
+int launch_plan(const FwdParams& p, const FwdPlan& plan, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<DH, kDropout, kMode>(plan.smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.L + kT - 1) / kT));
-  attn_fwd_bf16_kernel<DH, kDropout><<<grid, kThreads, smem, stream>>>(p);
+  attn_fwd_onepass_bf16_kernel<DH, kDropout, kMode><<<plan.grid, plan.threads, plan.smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int DH, bool kDropout>
+int launch_fwd(FwdParams p, cudaStream_t stream) {
+  const FwdPlan plan = plan_fwd<DH>(p);
+  p.heads_per_block = plan.heads_per_block;
+  return plan.mode == kRows ? launch_plan<DH, kDropout, kRows>(p, plan, stream)
+                            : launch_plan<DH, kDropout, kTiles>(p, plan, stream);
 }
 
 template <int DH>

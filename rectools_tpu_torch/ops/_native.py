@@ -12,6 +12,7 @@ right after its kernel launched, and nowhere else, so a run can show that
 its path went through the kernels.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -179,8 +180,20 @@ def check_launch(kernel: str, status: int) -> None:
 
 
 def current_stream_ptr(device: torch.device) -> int:
-    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``
+    (read without building a ``torch.cuda.Stream`` where torch allows it)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def device_guard(device: torch.device) -> tp.ContextManager:
+    """A context in which ``device`` is the current CUDA device for a
+    launch: none to enter when it already is."""
+    if device.index is not None and torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def require_cuda_f32(kernel: str, forward_only: bool = False, **tensors: torch.Tensor) -> None:

@@ -32,6 +32,10 @@ accumulation and the rounding points of the JAX package's route below L =
 in the backward dp, ds and the outputs), at every L. Their twins
 (:func:`attention_bf16_reference`, :func:`attention_bwd_bf16_reference`) are
 that route's math on the bf16 values in f32. The lse and the bias stay f32.
+The bf16 forward (``attn_fwd_onepass_bf16_kernel``) forms every score once
+and keeps the rounded row until p is formed from the finished lse: in
+registers up to ``BF16_FWD_REG_KEYS`` keys, else in shared memory up to
+``BF16_FWD_SMEM_KEYS``.
 """
 
 import ctypes
@@ -61,7 +65,13 @@ _SIGNATURES_BF16 = {
 }
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
 BF16_HEAD_DIMS = SUPPORTED_HEAD_DIMS
-BF16_TILE = 64  # rows of the bf16 kernels' tiles; the backward sums dq over more key tiles than one in f32 scratch
+BF16_TILE = 64  # rows of the bf16 backward's tiles; it sums dq over more key tiles than one in f32 scratch
+# The bf16 forward (csrc/attention_bf16.cu `attn_fwd_onepass_bf16_kernel`) in its rows mode (L <= BF16_FWD_REG_KEYS):
+# a block per b and group of up to BF16_FWD_HEADS heads that share the bias (a per-head bias: one head), a warp per 16
+# query rows, each row's rounded scores in registers; in its tiles mode (longer L): a block per (b, h) and
+# BF16_FWD_TILE query rows, keys staged BF16_FWD_TILE at a time, the rounded rows in shared memory up to
+# BF16_FWD_SMEM_KEYS keys (past that the second sweep forms them again from k).
+BF16_FWD_REG_KEYS, BF16_FWD_HEADS, BF16_FWD_TILE, BF16_FWD_SMEM_KEYS = 128, 4, 64, 1024
 # The head dims whose kernels run on the tensor cores (csrc/attention.cu
 # `attn_tensor_cores`), and their tiles: a forward block owns FWD_TILE queries
 # and walks the keys in tiles of FWD_TILE; a backward block owns a (b, h) row
@@ -356,10 +366,12 @@ def _attention_fwd_bf16(q, k, v, bias, scale: float, dropout_rate: float, seed: 
     out = _blhd_empty(b, h, l, dh, q.device, torch.bfloat16)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     lib = _native.load("attention_bf16", _SIGNATURES_BF16)
-    with torch.cuda.device(q.device):
+    # the (batch, head, row) strides of q, k, v and out, as the entry takes them
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    with _native.device_guard(q.device):
         status = lib.attn_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, h, l, dh, *_strides(q, k, v, out),
+            out.data_ptr(), lse.data_ptr(), b, h, l, dh, *strides,
             bias_sb, bias_sh, scale, *_dropout_args(seed, dropout_rate), _native.current_stream_ptr(q.device),
         )
     _native.check_launch("attention_fwd_bf16", status)

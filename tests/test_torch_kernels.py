@@ -29,8 +29,8 @@ from rectools_tpu_torch.models import (
 )
 from rectools_tpu_torch.models.nn.transformers import LiGRLayers, TransformerBackbone
 from rectools_tpu_torch.ops import _native, attention, layer_norm, softmax_lse, stu_attention, topk, topk_select
-from rectools_tpu_torch.tools import (ItemToItemAnnRecommender, ce_grads_bf16_variants, fused_bwd_variants,
-                                      stu_fwd_topm_check)
+from rectools_tpu_torch.tools import (ItemToItemAnnRecommender, attention_bf16_variants, ce_grads_bf16_variants,
+                                      fused_bwd_variants, stu_fwd_topm_check)
 
 REPO = Path(__file__).resolve().parents[1]
 MASK_VALUE = -1e9
@@ -267,6 +267,33 @@ def test_attention_tile_matches_the_cuda_source() -> None:
     assert "const long long blocks = (long long)p.B * p.H * ((p.L + kFwdTile - 1) / kFwdTile);" in src
     assert "attn_bwd_tc_kernel<DH, kDropout><<<(unsigned)(p.B * p.H), kBwdThreads, smem, stream>>>(p);" in src
     assert 512 * 4 * -(-100 // attention.FWD_TILE) == 4096
+
+
+def test_bf16_attention_forward_plan_matches_the_cuda_source() -> None:
+    """Kernel 2's bf16 forward (``attn_fwd_onepass_bf16_kernel``) plans its
+    launch with the constants the wrapper module names: rows kept in
+    registers up to ``BF16_FWD_REG_KEYS`` keys (a block per b and group of
+    ``BF16_FWD_HEADS`` heads sharing the bias, a warp per 16 query rows),
+    else blocks of ``BF16_FWD_TILE`` query rows with the rows in shared
+    memory up to ``BF16_FWD_SMEM_KEYS`` keys. The two-pass kernel it
+    replaced is gone, and the backward keeps its ``BF16_TILE``-row tiles."""
+    src = (REPO / "rectools_tpu_torch" / "csrc" / "attention_bf16.cu").read_text()
+    const = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+             for name in ("kRegKeys", "kHeadsPerBlock", "kFwdTile", "kFwdTileThreads", "kSmemKeys", "kT")}
+    assert (const["kRegKeys"], const["kHeadsPerBlock"], const["kFwdTile"], const["kSmemKeys"]) == (
+        attention.BF16_FWD_REG_KEYS, attention.BF16_FWD_HEADS, attention.BF16_FWD_TILE, attention.BF16_FWD_SMEM_KEYS)
+    assert const["kFwdTileThreads"] == 2 * attention.BF16_FWD_TILE and const["kT"] == attention.BF16_TILE
+    assert "attn_fwd_bf16_kernel" not in src
+
+
+@pytest.mark.parametrize("name", sorted(attention_bf16_variants.VARIANTS))
+def test_attention_bf16_variants_still_apply(name: str) -> None:
+    """Each variant that tools/attention_bf16_variants.py times on the card
+    finds each text it replaces as often as it says in today's source, and
+    changes it (but the source as it is)."""
+    edited = attention_bf16_variants.edited_source(name)
+    src = (REPO / attention_bf16_variants.CU).read_text()
+    assert (edited == src) == (name == "as_is")
 
 
 def test_lse_bias_chunks_match_the_cuda_source() -> None:
@@ -681,26 +708,48 @@ def test_cuda_sasrec_recommend_matches_cpu(cuda: torch.device) -> None:
 # ------------------------------------------------------------------ training kernels on the card
 
 
+PROFILE_SPAN = "counted calls"  # the record_function span around the calls a capture counts
+
+
 def _device_kernels(fn, calls: int = 20) -> dict:
     """{device kernel name: launches} of ``calls`` calls of ``fn``
-    (torch.profiler). A capture of a few short kernels can come back without
-    some of its device records, so it spans 20 calls and is taken again (up
-    to five times) while a kernel shows fewer launches than calls."""
+    (torch.profiler). The device records of a capture's first launches go
+    missing now and then (tools/profiler_capture_check.py), so each capture
+    first runs a spinning kernel and two calls of ``fn`` that it does not
+    count, then counts the device records of the launches made inside a
+    ``record_function`` span around the ``calls`` calls (a launch's host
+    record and its kernel's record share a correlation id). While a kernel
+    shows fewer launches than calls, a capture is taken again (up to five
+    times); each kernel gets the most records any capture kept of it."""
     from collections import Counter
 
     from torch.autograd import DeviceType
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    best: Counter = Counter()
     for _ in range(5):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=activities) as prof:
-            for _ in range(calls):
-                fn()
+            torch.cuda._sleep(2_000_000)
+            fn()
+            fn()
             torch.cuda.synchronize()
-        names = Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
-        if names and min(names.values()) >= calls:
+            with torch.profiler.record_function(PROFILE_SPAN):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        span = next(e.time_range for e in events if e.name == PROFILE_SPAN and e.device_type == DeviceType.CPU)
+        launched = {e.id for e in events if e.device_type == DeviceType.CPU and e.name.startswith("cu")
+                    and any(word in e.name for word in ("Launch", "Memset", "Memcpy"))
+                    and span.start <= e.time_range.start <= span.end}
+        names = Counter(e.name for e in events
+                        if e.device_type == DeviceType.CUDA and e.id in launched and e.name != PROFILE_SPAN)
+        for name, count in names.items():  # no capture keeps more records than launches: the most kept
+            best[name] = max(best[name], count)
+        if best and min(best.values()) >= calls:
             break
-    return dict(names)
+    return dict(best)
 
 
 @pytest.mark.gpu
@@ -1497,29 +1546,37 @@ def test_cuda_bf16_lse_and_ce_grads_match_twin(cuda: torch.device, m: int, n: in
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("l,dh,bias_kind,rate", [(100, 32, "causal", 0.2), (12, 16, "none", 0.0),
-                                                 (200, 64, "key_padding", 0.2), (37, 32, "bidirectional", 0.2),
-                                                 (100, 32, "masked_row", 0.0), (130, 64, "causal", 0.0),
-                                                 (100, 8, "causal", 0.2), (70, 8, "key_padding", 0.0),
-                                                 (37, 8, "masked_row", 0.2)])
-def test_cuda_bf16_attention_matches_twin(cuda: torch.device, l: int, dh: int, bias_kind: str, rate: float) -> None:
-    """Kernels 2 and 5's bf16 forms against their twins on the card: out and
-    lse, dq, dk and dv, launched once each, the same bits on a rerun; at
-    heads of 8 too (the 8-deep products over the head dim)."""
-    rng = np.random.default_rng(l + dh)
-    b, h, seed, bf = 3, 4, 123457, torch.bfloat16
-    q, k, v, dout = (_blhd(rng, b, l, h, dh, cuda).to(bf) for _ in range(4))
-    bias = None
-    if bias_kind == "causal":
-        bias = _t(_causal_bias(l)).to(cuda)
-    elif bias_kind == "masked_row":
-        bias = _t(_masked_row_bias(l)).to(cuda)
-    elif bias_kind == "key_padding":
+def _bf16_attention_bias(rng: np.random.Generator, kind: str, b: int, h: int, l: int, dev: torch.device):
+    """The bias of a bf16 attention case: none, the causal (1, 1, L, L) mask,
+    the causal mask with a fully masked row, a (B, 1, L, L) key padding on
+    the causal mask, BERT4Rec's (B, 1, L, L) bias, or a per-head (B, H, L,
+    L) bias (each head its own drawn key padding on the causal mask, the
+    diagonal kept)."""
+    if kind == "none":
+        return None
+    if kind == "causal":
+        return _t(_causal_bias(l)).to(dev)
+    if kind == "masked_row":
+        return _t(_masked_row_bias(l)).to(dev)
+    if kind == "key_padding":
         pad = np.arange(l)[None, :] < rng.integers(0, l, size=b)[:, None]
-        bias = _t((np.where(pad, MASK_VALUE, 0.0)[:, None, None, :] + _causal_bias(l)).astype(np.float32)).to(cuda)
-    elif bias_kind == "bidirectional":
-        bias = _t(_bidirectional_bias(rng, b, l)).to(cuda)
+        return _t((np.where(pad, MASK_VALUE, 0.0)[:, None, None, :] + _causal_bias(l)).astype(np.float32)).to(dev)
+    if kind == "bidirectional":
+        return _t(_bidirectional_bias(rng, b, l)).to(dev)
+    assert kind == "per_head"
+    bias = np.where(rng.random((b, h, 1, l)) < 0.3, MASK_VALUE, 0.0) + _causal_bias(l)
+    bias[..., np.arange(l), np.arange(l)] = 0.0
+    return _t(bias.astype(np.float32)).to(dev)
+
+
+def _check_bf16_attention(cuda: torch.device, b: int, h: int, l: int, dh: int, bias_kind: str, rate: float) -> None:
+    """Kernels 2 and 5's bf16 forms at (b, h, l, dh) under ``bias_kind``
+    against their twins: out and lse, dq, dk and dv, launched once each, the
+    same bits on a rerun."""
+    rng = np.random.default_rng(l + dh)
+    seed, bf = 123457, torch.bfloat16
+    q, k, v, dout = (_blhd(rng, b, l, h, dh, cuda).to(bf) for _ in range(4))
+    bias = _bf16_attention_bias(rng, bias_kind, b, h, l, cuda)
     scale = 1.0 / dh**0.5
     before = dict(_native.LAUNCHES)
     out, lse = attention.attention_fwd(q, k, v, bias, scale, rate, seed)
@@ -1534,9 +1591,89 @@ def test_cuda_bf16_attention_matches_twin(cuda: torch.device, l: int, dh: int, b
         assert g.dtype == bf and _max_rel(g, e) <= BF16_ATTN_RTOL
     assert [_native.LAUNCHES[key] - before[key] for key in ("attention_fwd_bf16", "attention_bwd_bf16",
                                                             "attention_fwd", "attention_bwd")] == [1, 1, 0, 0]
-    assert torch.equal(attention.attention_fwd(q, k, v, bias, scale, rate, seed)[0], out)
+    again = attention.attention_fwd(q, k, v, bias, scale, rate, seed)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
     assert all(torch.equal(a, g) for a, g in zip(
         attention.attention_bwd(q, k, v, bias, lse, delta, dout, scale, rate, seed), got))
+
+
+# the bf16 forward's edges: each side of its switch from rows in registers to rows in shared memory (128 | 129
+# keys) and of the longest row kept there (1,024 | 1,025), every head dim with and without dropout, the bias of
+# each shape ((B, H, L, L), (1, 1, L, L), (B, 1, L, L)) and none
+BF16_FWD_EDGE_CASES = [
+    (l, dh, ("per_head", "causal", "bidirectional", "none")[(i + j) % 4], rate)
+    for i, l in enumerate((1, 16, 64, attention.BF16_FWD_REG_KEYS, attention.BF16_FWD_REG_KEYS + 1, 256,
+                           attention.BF16_FWD_SMEM_KEYS, attention.BF16_FWD_SMEM_KEYS + 1))
+    for j, dh in enumerate((8, 16, 32, 64))
+    for rate in (0.0, 0.2)
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l,dh,bias_kind,rate", [(100, 32, "causal", 0.2), (12, 16, "none", 0.0),
+                                                 (200, 64, "key_padding", 0.2), (37, 32, "bidirectional", 0.2),
+                                                 (100, 32, "masked_row", 0.0), (130, 64, "causal", 0.0),
+                                                 (100, 8, "causal", 0.2), (70, 8, "key_padding", 0.0),
+                                                 (37, 8, "masked_row", 0.2)] + BF16_FWD_EDGE_CASES)
+def test_cuda_bf16_attention_matches_twin(cuda: torch.device, l: int, dh: int, bias_kind: str, rate: float) -> None:
+    """Kernels 2 and 5's bf16 forms against their twins on the card: out and
+    lse, dq, dk and dv, launched once each, the same bits on a rerun; at
+    heads of 8 too (the 8-deep products over the head dim), and at the
+    forward's edges (BF16_FWD_EDGE_CASES)."""
+    _check_bf16_attention(cuda, 3, 4, l, dh, bias_kind, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,l,dh,bias_kind,rate", [
+    (3, 5, 100, 32, "causal", 0.2), (2, 6, 100, 16, "bidirectional", 0.0), (1, 7, 64, 64, "none", 0.2),
+    (2, 7, 1, 8, "causal", 0.0), (4, 3, 128, 8, "per_head", 0.2), (512, 1, 100, 16, "causal", 0.2),
+    (128, 4, 100, 32, "per_head", 0.0)])
+def test_cuda_bf16_attention_partial_head_groups_match_twin(
+    cuda: torch.device, b: int, h: int, l: int, dh: int, bias_kind: str, rate: float
+) -> None:
+    """The bf16 forward where the heads of a b do not fill whole groups of
+    the rows mode's blocks (B·H not a multiple of the grouping), and where a
+    block owns one head (a per-head bias, or one head: the narrow fit's
+    shape, with blocks sharing each SM), against the twins."""
+    assert l <= attention.BF16_FWD_REG_KEYS  # the rows mode
+    assert bias_kind == "per_head" or h == 1 or h % attention.BF16_FWD_HEADS != 0
+    _check_bf16_attention(cuda, b, h, l, dh, bias_kind, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [100, 300])
+def test_cuda_bf16_attention_forward_is_the_onepass_kernel(cuda: torch.device, l: int) -> None:
+    """The profiler names the bf16 forward's kernel once a call, in its rows
+    mode (L = 100) and its tiles mode (L = 300), and never the two-pass
+    kernel it replaced (``attn_fwd_bf16_kernel``)."""
+    rng = np.random.default_rng(l)
+    q, k, v = (_blhd(rng, 8, l, 4, 32, cuda).to(torch.bfloat16) for _ in range(3))
+    bias = _t(_causal_bias(l)).to(cuda)
+    kernels = _device_kernels(lambda: attention.attention_fwd(q, k, v, bias, 32 ** -0.5, 0.2, 5))
+    forward = {n: c for n, c in kernels.items() if "attn_fwd" in n}
+    assert len(forward) == 1 and "attn_fwd_onepass_bf16_kernel" in next(iter(forward)), kernels
+    assert set(forward.values()) == {20} and not any("attn_fwd_bf16_kernel" in n for n in kernels), kernels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l,dh", [(100, 32), (100, 8), (300, 64)])
+def test_cuda_bf16_attention_batch_halves_give_the_whole_batch_bits(cuda: torch.device, l: int, dh: int) -> None:
+    """A row's out and lse do not depend on the rest of the batch: each half
+    of the batch, run alone with the seed a mesh data shard gets
+    (``shifted_attention_seed``), gives the whole batch's bits, dropout
+    included, under BERT4Rec's (B, 1, L, L) bias."""
+    from rectools_tpu_torch.models.nn.dropout import shifted_attention_seed
+
+    rng = np.random.default_rng(l + dh)
+    b, h, seed = 16, 4, 987654321
+    q, k, v = (_blhd(rng, b, l, h, dh, cuda).to(torch.bfloat16) for _ in range(3))
+    bias = _t(_bidirectional_bias(rng, b, l)).to(cuda)
+    out, lse = attention.attention_fwd(q, k, v, bias, dh ** -0.5, 0.2, seed)
+    for lo in (0, b // 2):
+        part = slice(lo, lo + b // 2)
+        o_p, lse_p = attention.attention_fwd(q[part], k[part], v[part], bias[part], dh ** -0.5, 0.2,
+                                             shifted_attention_seed(seed, lo, h))
+        assert torch.equal(o_p, out[part]) and torch.equal(lse_p, lse[part])
 
 
 @pytest.mark.gpu
@@ -2234,12 +2371,14 @@ def test_cuda_ce_grads_bf16_runs_the_engine_kernel(
     def call() -> None:  # an elementwise kernel after the form's launches: a capture's last record can go missing
         softmax_lse.softmax_ce_grads_from_z(s, items, z, y, coeff)[1].add_(0.0)
 
+    seen = set()  # the kernels of every capture taken
     for _ in range(5):  # a capture now and then drops a record of a short kernel: take it again
         names = _device_kernels(call, calls)
+        seen |= set(names)
         if sum(v for k, v in names.items() if CE_BF16_ENGINE_KERNEL in k) == expected:
             break
     assert sum(v for k, v in names.items() if CE_BF16_ENGINE_KERNEL in k) == expected
-    assert not [k for k in names if any(old in k for old in CE_BF16_OLD_KERNELS)]
+    assert not [k for k in seen if any(old in k for old in CE_BF16_OLD_KERNELS)]
 
 
 @pytest.mark.gpu
