@@ -222,9 +222,10 @@ own lines; any failure exits nonzero and prints no result:
              EASE's two solvers' weights within rtol 1e-3, atol 1e-4; one
              profiled EASE recommend. Kernel 3 at the truncation shape
              (15,871 x 15,872 plain co-counts, K = 50 candidates a group):
-             bit-equal to its twin on every block, no block sorted again, the
-             top-K table bit-equal to a stable sort's; one block timed beside
-             the twin, torch.topk and the bound, and the whole truncation
+             bit-equal to its twin on every block at m = 50 and 128, no block
+             sorted again, the top-K table bit-equal to a stable sort's; one
+             block timed at both m beside the twin, the group-wise and the
+             row-wise torch.topk and the bound, and the whole truncation
              beside the stable sort's and torch.topk's. ``cross_validate`` of Popular, EASE (the exact
              solver: the auto one took 65 s a fit on an H100 80GB HBM3 at
              700 W), PureSVD, ItemKNN and ALS over evaluate's two folds, equal
@@ -2228,12 +2229,15 @@ def _random_properties(np, model, data, users, first) -> str:
 def truncation_kernel_check(torch, np, dataset, dev) -> dict:
     """Kernel 3 at ItemKNN's truncation shape: the plain co-counts of the
     frame (15,871 x 15,871, padded to 15,872 columns), K = 50 candidates a
-    group (the warp kernel), in blocks of 4,096 rows. No block sorted again;
-    each block's group top-50 bit-equal to the twin's; the truncated table
-    bit-equal to the one from a full stable sort of each block. The kernel
-    on one block is timed beside its twin and torch.topk, and the whole
-    truncation beside the same table by the stable sort (its plain version)
-    and by torch.topk, against the bound of reading S and writing the table."""
+    group (the sorting kernel, launch key group_topm_warp), in blocks of 4,096
+    rows. No block sorted again; each block's group top-50 bit-equal to the
+    twin's, and its group top-128 (the whole group in order); the truncated
+    table bit-equal to the one from a full stable sort of each block. The
+    kernel on one block is timed at m = 50 and 128 beside its twin, the
+    group-wise ``torch.topk`` (the kernel's function up to tie order) and the
+    row-wise ``torch.topk`` (the truncation's), and the whole truncation
+    beside the same table by the stable sort (its plain version) and by
+    torch.topk, against the bound of reading S and writing the table."""
     import torch.nn.functional as F
 
     from rectools_tpu_torch.models.item_knn import TRUNCATE_BLOCK_ROWS, _truncate_topk_rows, apply_weighting
@@ -2279,26 +2283,39 @@ def truncation_kernel_check(torch, np, dataset, dev) -> dict:
     blocks = [F.pad(s[start : start + TRUNCATE_BLOCK_ROWS], (0, n_pad - n), value=float("-inf"))
               for start in range(0, n, TRUNCATE_BLOCK_ROWS)]
     for i, block in enumerate(blocks):
-        vals, lanes = topk_select.group_topm(block, m)
-        ref_vals, ref_lanes = topk_select.group_topm_reference(block, m)
-        check(bool(torch.equal(vals, ref_vals) and torch.equal(lanes, ref_lanes)),
-              f"truncation: group_topm differs from its twin on block {i}")
+        for m_ in (m, topk_select.GROUP_W):
+            vals, lanes = topk_select.group_topm(block, m_)
+            ref_vals, ref_lanes = topk_select.group_topm_reference(block, m_)
+            check(bool(torch.equal(vals, ref_vals) and torch.equal(lanes, ref_lanes)),
+                  f"truncation: group_topm at m={m_} differs from its twin on block {i}")
+        del vals, lanes, ref_vals, ref_lanes
     block = blocks[0]
     b, g = block.shape[0], n_pad // topk_select.GROUP_W
     zero_share = float((s == 0).float().mean())
-    result = dict(
-        max_abs_err=0.0,
-        ms=time_ms(lambda: topk_select.group_topm(block, m)),
-        plain_ms=time_ms(lambda: topk_select.group_topm_reference(block, m), iters=3),
-        library_ms=time_ms(lambda: torch.topk(block[:, :n], k, dim=1)),
-        bound=bound_ms(block.numel() * 4 + b * g * m * 8, block.numel()),
-        blocks=n_blocks, fired=fired, m=m, zero_share=zero_share, whole=whole,
-    )
+
+    def timed(m_: int) -> dict:
+        # library_ms: the group-wise torch.topk, the kernel's function up to tie order; rowwise_library_ms: the
+        # row-wise top-K, the truncation's
+        return dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: topk_select.group_topm(block, m_)),
+            plain_ms=time_ms(lambda: topk_select.group_topm_reference(block, m_), iters=1, warmup=1),
+            library_ms=time_ms(lambda: torch.topk(block.view(-1, topk_select.GROUP_W), m_, dim=1)),
+            rowwise_library_ms=time_ms(lambda: torch.topk(block[:, :n], k, dim=1)),
+            bound=bound_ms(block.numel() * 4 + b * g * m_ * 8, block.numel()), m=m_,
+        )
+
+    result = dict(**timed(m), blocks=n_blocks, fired=fired, zero_share=zero_share, whole=whole,
+                  m_128=timed(topk_select.GROUP_W))
     print(f"classic truncation: S {n} x {n} plain co-counts ({zero_share:.4f} zeros), K={k}, {n_blocks} blocks of "
-          f"{TRUNCATE_BLOCK_ROWS} rows, m={m}: kernel 3 bit-equal to its twin on every block, the top-K table "
-          f"bit-equal to a stable sort's; certificate failed on {fired} of {n_blocks} blocks; one block "
-          f"({b} x {n_pad}): ms={result['ms']:.4f} plain_ms={result['plain_ms']:.4f} "
-          f"library_ms={result['library_ms']:.4f} (torch.topk k={k}) {bound_text(result)}")
+          f"{TRUNCATE_BLOCK_ROWS} rows, m={m}: kernel 3 bit-equal to its twin on every block at m={m} and "
+          f"m={topk_select.GROUP_W}, the top-K table bit-equal to a stable sort's; certificate failed on {fired} of "
+          f"{n_blocks} blocks")
+    for r in (result, result["m_128"]):
+        print(f"classic truncation: one block ({b} x {n_pad}), m={r['m']}: ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (torch.topk of each 128-column group, "
+              f"k={r['m']}) rowwise_library_ms={r['rowwise_library_ms']:.4f} (torch.topk k={k} a row) "
+              f"{bound_text(r)}")
     print(f"classic truncation: the whole table: _truncate_topk_rows ms={whole['ms']:.4f}, by the stable sort "
           f"(its plain version) plain_ms={whole['plain_ms']:.4f}, by torch.topk library_ms={whole['library_ms']:.4f}, "
           f"{bound_text(whole)}")
@@ -4335,7 +4352,7 @@ STU_BF16_LAUNCH_KEYS = ("stu_fwd_bf16", "stu_bwd_bf16", "stu_bwd_dq_bf16", "stu_
 STU_F32_LAUNCH_KEYS = ("stu_fwd", "stu_fwd_simt", "stu_bwd", "stu_bwd_dq", "stu_ds")
 # device kernels of a bf16 train step: each bf16 form, and nothing of the f32 attention or loss kernels or of a
 # library attention or cross-entropy
-CE_BF16_ENGINE_KERNEL = "ce_grads_bf16_kernel"  # kernel 7's bf16 forms (csrc/ce_grads_bf16.cu)
+CE_BF16_ENGINE_KERNEL = "ce_grads_bf16_kernel"  # kernel 7's and 12's bf16 forms (csrc/ce_grads_bf16.cu)
 # softmax_lse_bf16.cu's kernels that ran kernel 7's bf16 forms before the engine (9, 10, 12-14 keep them)
 CE_BF16_OLD_KERNELS = ("ce_fused_bf16_kernel", "split_ds_bf16_kernel", "split_di_bf16_kernel")
 CE_BF16_LAUNCH_REGS = 168  # the engine's registers a thread at launch, which setmaxnreg redistributes
@@ -4344,6 +4361,9 @@ CE_BF16_LAUNCH_REGS = 168  # the engine's registers a thread at launch, which se
 CE_BF16_OLD_MS = {("one_pass", 128, 15872): 6.3503, ("one_pass", 256, 15872): 16.3567, ("one_pass", 16, 15872): 2.2980,
                   ("two_launches", 128, 15872): 7.3662, ("two_launches", 128, 65536): 29.4117,
                   ("two_launches", 256, 15872): 13.1909, ("two_launches", 16, 15872): 2.5259}
+# kernel 12's bf16 one pass on softmax_lse_bf16.cu's one-pass kernel (its kZ form) at 51,200 x 15,872, by D: ms on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6, the kernel table's bracketed times)
+GRADS_Z_BF16_OLD_MS = {128: 6.1004, 256: 16.2336, 16: 2.1839}
 # kernel 2's bf16 forward (csrc/attention_bf16.cu: every score formed once, in its rows or tiles mode), and the
 # two-pass kernel it replaced, which no step may launch
 ATTN_BF16_FWD_KERNEL, ATTN_BF16_OLD_FWD_KERNEL = "attn_fwd_onepass_bf16_kernel", "attn_fwd_bf16_kernel"
@@ -4411,7 +4431,7 @@ def _bf16_line(name: str, r: dict) -> None:
     print(f"bf16 kernels: {name}: max_rel_err={r['max_rel_err']:.3g} ms={r['ms']:.4f} f32_ms={r['f32_ms']:.4f} "
           f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (bf16) bound_ms={r['bound'][0]:.4f} "
           f"({r['bound'][1]}, 989 TFLOP/s bf16, 3.35 TB/s)")
-    if "design_floor" in r:  # kernel 7's engine: its own floor and the form it replaced
+    if "design_floor" in r:  # kernel 7's engine (kernels 7 and 12): its own floor and the form it replaced
         print(f"bf16 kernels: {name}: kernel 7's engine {r['ms']:.4f} ms beside its design's floor "
               f"{r['design_floor'][0]:.4f} ms (four products and two exps a logit, {r['design_floor'][1]}), the "
               f"function's bound {r['bound'][0]:.4f} ms (three products), the library call {r['library_ms']:.4f} ms "
@@ -4462,9 +4482,13 @@ def _attention_bf16_case(torch, F, attention, gen, dev, b: int, l: int, h: int, 
     fwd = {rate: (lambda r=rate: attention.attention_fwd(q, k, v, bias, scale, r, seed)) for rate in (DROPOUT, 0.0)}
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)  # noqa: E731
     # a call's device kernels: the one-pass forward once a call, and no other attention kernel
-    # (a form of which no capture kept a record has no device time; one of the two must show the kernel)
-    device = {rate: {n: c for n, c in device_kernels(torch, fn, 5).items() if "attn" in n or "attention" in n}
-              for rate, fn in fwd.items()}
+    # (a form of which no capture kept a record has no device time; one of the two must show the kernel: while
+    # neither does, both are captured again over more calls, up to 20)
+    for calls in (5, 10, 20):
+        device = {rate: {n: c for n, c in device_kernels(torch, fn, calls).items() if "attn" in n or "attention" in n}
+                  for rate, fn in fwd.items()}
+        if any(device.values()):
+            break
     for rate, kernels in device.items():
         check(not torch.cuda.is_available() or not kernels or (len(kernels) == 1 and all(
             ATTN_BF16_FWD_KERNEL in n and launches == 1 for n, (launches, _) in kernels.items())),
@@ -5063,16 +5087,28 @@ def ce_split_bf16_kernel_phase(torch, dev, b: int = TRAIN_B, d: int = N_FACTORS,
     ref = softmax_lse.softmax_grads_from_z_bf16_reference(s, items, z, partials=True)
     errs, abs_errs = hold("grads_z_fused_bf16", got, ref)
     rerun("grads_z_fused_bf16", fn, got)
+    # kernel 12 is kernel 7's engine without the label term: kernel 7's one pass with coeff = 0 gives its bits
+    if dev.type == "cuda":
+        softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 1 << 62
+        no_label = launched(lambda: softmax_lse.softmax_ce_grads_from_z(s, items, z, y, torch.zeros_like(coeff)),
+                            ("ce_grads_fused_bf16",))
+        softmax_lse.FUSED_BWD_PARTIALS_BUDGET = budget
+        check(all(bool(torch.equal(a, g)) for a, g in zip(no_label, got)),
+              f"grads_z_fused_bf16 at D={d}: other bits than kernel 7's one pass with coeff = 0")
+        del no_label
     items32 = items.float()
     products = 2 * m * n * d
+    z_bytes = (m + n) * d * 2 + m * 4 + (m + n) * d * 4
     results[f"grads_z_fused_bf16{sfx}"] = dict(
         max_abs_err=max(abs_errs), max_rel_err=max(errs), ms=time_ms(fn, iters=3),
         f32_ms=time_ms(lambda: softmax_lse.softmax_grads_from_z(s32, items32, z), iters=3),
         plain_ms=time_ms(lambda: softmax_lse.softmax_grads_from_z_bf16_reference(s, items, z), iters=1, warmup=1),
         library_ms=time_ms(lambda: materialized(s, items, z), iters=3),
-        bound=bf16_bound((m + n) * d * 2 + m * 4 + (m + n) * d * 4, 3 * products, m * n))
+        bound=bf16_bound(z_bytes, 3 * products, m * n), design_floor=ce_bf16_design_floor(z_bytes, products, m * n),
+        old_ms=GRADS_Z_BF16_OLD_MS.get(d))
     print(f"bf16 kernels: grads_z_fused_bf16 at N={n}, D={d}: ds {errs[0]:.3g}, di {errs[1]:.3g} of the largest entry "
-          f"from its twin (limit {BF16_SPLIT_RTOL:.3g}), bit-equal on a rerun")
+          f"from its twin (limit {BF16_SPLIT_RTOL:.3g}), bit-equal on a rerun and to kernel 7's one pass with "
+          "coeff = 0 (the engine's two forms)")
     # kernels 13 + 14 and kernel 7's two launches, the budget forced
     softmax_lse.FUSED_BWD_PARTIALS_BUDGET = 0
     split_pair(items, z, "", iters=3)
@@ -5524,9 +5560,10 @@ def bf16_wide_build_check(torch, dev, reports: dict) -> dict:
 
 def ce_bf16_engine_build_check(torch, dev, reports: dict) -> dict:
     """Kernel 7's bf16 engine (``csrc/ce_grads_bf16.cu``) at every D of
-    SUPPORTED_D: ``ptxas``'s registers (the launch count setmaxnreg
+    SUPPORTED_D in both its forms (with the label term, kernel 7, and
+    without, kernel 12): ``ptxas``'s registers (the launch count setmaxnreg
     balances against, which the launches check too), 0 bytes of stack and no
-    spill, and its shared memory a block
+    spill, and its shared memory a block (kernel 7's, the larger)
     within SMEM_LIMIT."""
     from rectools_tpu_torch.ops import _native, softmax_lse
 
@@ -5539,19 +5576,20 @@ def ce_bf16_engine_build_check(torch, dev, reports: dict) -> dict:
     entries = ptxas_entries(reports.get("ce_grads_bf16", ""))
     out = {}
     for d in softmax_lse.SUPPORTED_D:
-        forms = [e for name, e in entries.items() if f"{CE_BF16_ENGINE_KERNEL}ILi{d}EE" in name]
+        forms = [e for name, e in entries.items() if f"{CE_BF16_ENGINE_KERNEL}ILi{d}ELb" in name]
         smem = lib.ce_grads_bf16_smem_bytes(d)
         clean = all(e.get("stack") == 0 and e.get("spill_stores") == 0 and e.get("spill_loads") == 0
                     and e.get("registers") == CE_BF16_LAUNCH_REGS for e in forms)
-        check((cached or len(forms) == 1) and clean and 0 < smem <= SMEM_LIMIT,
+        check((cached or len(forms) == 2) and clean and 0 < smem <= SMEM_LIMIT,
               f"bf16 engine build: {CE_BF16_ENGINE_KERNEL} at D={d}: {forms}, {smem} bytes of shared memory a block")
         stack = [e.get("stack") for e in forms]
         spills = [e.get("spill_stores") for e in forms]
         out[f"{CE_BF16_ENGINE_KERNEL}_d{d}"] = {"registers": CE_BF16_LAUNCH_REGS, "stack_bytes": stack,
                                                 "spill_store_bytes": spills, "smem_bytes": smem}
-        print(f"bf16 engine build: {CE_BF16_ENGINE_KERNEL} at D={d}: {CE_BF16_LAUNCH_REGS} registers a thread at "
-              f"launch (setmaxnreg: 24 the producer warpgroup, 240 the consumers), stack {stack} bytes, spill stores "
-              f"{spills} bytes (limit 0 for both), {smem} bytes of shared memory a block (limit {SMEM_LIMIT})")
+        print(f"bf16 engine build: {CE_BF16_ENGINE_KERNEL} at D={d}, kernels 7 and 12: {CE_BF16_LAUNCH_REGS} "
+              f"registers a thread at launch (setmaxnreg: 24 the producer warpgroup, 240 the consumers), stack "
+              f"{stack} bytes, spill stores {spills} bytes (limit 0 for both), {smem} bytes of shared memory a block "
+              f"(limit {SMEM_LIMIT})")
     return out
 
 
@@ -6092,7 +6130,7 @@ def main() -> int:
         "lse_bwd_di_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:266", ("lse_bwd_di_bf16",), "lse_bwd_di_bf16"),
         "ce_grads_pair_bf16": ("ce_grads_bf16.cu", "softmax_lse.py:643", ("ce_grads_ds_bf16", "ce_grads_di_bf16"),
                                "ce_grads_pair_bf16"),
-        "grads_z_fused_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:591", ("grads_z_fused_bf16",),
+        "grads_z_fused_bf16": ("ce_grads_bf16.cu", "softmax_lse.py:591", ("grads_z_fused_bf16",),
                                "grads_z_fused_bf16"),
         "grads_z_ds_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:757", ("grads_z_ds_bf16",), "grads_z_ds_bf16"),
         "grads_z_di_bf16": ("softmax_lse_bf16.cu", "softmax_lse.py:774", ("grads_z_di_bf16",), "grads_z_di_bf16"),
@@ -6163,8 +6201,11 @@ def main() -> int:
         if name == "group_topm":  # at ItemKNN's truncation shape: plain co-counts, many ties
             truncation = kernels["group_topm_truncation"]
             entry["item_knn_truncation"] = {**numbers(truncation), "m": truncation["m"],
+                                            "rowwise_library_ms": truncation["rowwise_library_ms"],
                                             "blocks": truncation["blocks"], "certificate_fired": truncation["fired"],
-                                            "whole_table": numbers(truncation["whole"])}
+                                            "whole_table": numbers(truncation["whole"]),
+                                            "m_128": {**numbers(truncation["m_128"]),
+                                                      "rowwise_library_ms": truncation["m_128"]["rowwise_library_ms"]}}
         if name == "attention_fwd":  # the same kernel at the training width, with dropout
             entry["train_width_dropout"] = numbers(kernels["attention_fwd_train"])
         if name.startswith("attention_"):  # under BERT4Rec's key-padding bias, and at L = 200 with heads of 32

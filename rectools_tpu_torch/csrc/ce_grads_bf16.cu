@@ -18,6 +18,17 @@
 //   (a whole number of 2,048-row steps), rounds each step's f32 sum to bf16
 //   and adds it to the chunk's f32 partial in device memory (its own entries);
 //   the caller sums the chunks in order. `ce_di_bf16` is the di role alone.
+// And :591 `_grads_z_fused_kernel` (kernel 12; JAX's kernel 7 is kernel 12
+// with the label correction fused in): `grads_z_fused_bf16` (launch key of
+// the same name) is the one pass without the label term (kLabel false): P =
+// exp(logit - z) in f32 rounded to bf16 once before both products, the same
+// ds partials (:818-820) and di whole in f32. The form drops coeff and the
+// labels from the ds role's registers and from the di role's staged row
+// vectors (z alone, 256 bytes a stage); with coeff = 0 kernel 7's form gives
+// its bits. It replaced softmax_lse_bf16.cu's one pass (`mma.sync`, di
+// partials per group of session tiles summed by the caller): 16.23 / 6.10 /
+// 2.18 ms at D = 256 / 128 / 16 at 51,200 x 15,872 on an NVIDIA H100 80GB
+// HBM3 at 700 W (PERF.md section 6).
 // Rows past the towers load as zeros. In the ds role item columns past N get
 // P forced to 0 (the NaN rule of :636-640) and session rows past M get z =
 // +inf and coeff = 0; in the di role an item row past N is never written (its
@@ -111,27 +122,33 @@ struct Geo {
 };
 
 // the streamed session tile's row vectors (the di role), by TMA beside it:
-// zeros past M, where the tile's session rows are zeros too
+// zeros past M, where the tile's session rows are zeros too. kLabel: z,
+// coeff and labels (kernel 7); else z alone (kernel 12)
+template <bool kLabel>
 struct RowVec {
   float z[kTileRows];
   float coeff[kTileRows];
   long long y[kTileRows];
 };
+template <>
+struct RowVec<false> {
+  float z[kTileRows];
+};
 
-template <int D>
+template <int D, bool kLabel>
 struct alignas(1024) Smem {
   __nv_bfloat16 resident[kConsumers][kTileRows * D];
   __nv_bfloat16 stream[kStages][kTileRows * D];
-  RowVec vec[kStages];
+  RowVec<kLabel> vec[kStages];
   uint64_t full[kStages];
   uint64_t empty[kStages];
   uint64_t resident_full;
 };
 
 // dynamic shared memory a block takes
-template <int D>
+template <int D, bool kLabel>
 constexpr int smem_bytes() {
-  return (int)sizeof(Smem<D>);
+  return (int)sizeof(Smem<D, kLabel>);
 }
 
 // What a launch computes. Blocks [0, di_blocks) are di units of 128 item
@@ -428,10 +445,10 @@ struct Maps {
 };
 
 // Walk the unit's streamed tiles, the resident tiles first: the producer
-// thread's side. A di unit's stage also takes the session tile's z, coeff and
-// labels.
-template <int D>
-__device__ __forceinline__ void produce(Smem<D>& sm, const Maps& maps, const Unit& u) {
+// thread's side. A di unit's stage also takes the session tile's z and, with
+// kLabel, its coeff and labels.
+template <int D, bool kLabel>
+__device__ __forceinline__ void produce(Smem<D, kLabel>& sm, const Maps& maps, const Unit& u) {
   bar_arrive_tx(&sm.resident_full, kConsumers * Geo<D>::kTileBytes);
 #pragma unroll
   for (int c = 0; c < kConsumers; ++c)
@@ -440,12 +457,14 @@ __device__ __forceinline__ void produce(Smem<D>& sm, const Maps& maps, const Uni
     const int stage = t % kStages;
     bar_wait<true>(&sm.empty[stage], ((t / kStages) & 1) ^ 1);
     const int row0 = (u.t_begin + t) * kTileRows;
-    bar_arrive_tx(&sm.full[stage], Geo<D>::kTileBytes + (u.di ? (int)sizeof(RowVec) : 0));
+    bar_arrive_tx(&sm.full[stage], Geo<D>::kTileBytes + (u.di ? (int)sizeof(RowVec<kLabel>) : 0));
     load_tile<D>(sm.stream[stage], u.di ? &maps.s : &maps.items, &sm.full[stage], row0);
     if (u.di) {
       tma_load_1d(sm.vec[stage].z, &maps.z, &sm.full[stage], row0);
-      tma_load_1d(sm.vec[stage].coeff, &maps.coeff, &sm.full[stage], row0);
-      tma_load_1d(sm.vec[stage].y, &maps.y, &sm.full[stage], row0);
+      if constexpr (kLabel) {
+        tma_load_1d(sm.vec[stage].coeff, &maps.coeff, &sm.full[stage], row0);
+        tma_load_1d(sm.vec[stage].y, &maps.y, &sm.full[stage], row0);
+      }
     }
   }
 }
@@ -479,14 +498,14 @@ __device__ __forceinline__ void store_ds(const Params& p, const float (&acc)[D /
   }
 }
 
-// The weights of a logits tile: (P - D) in f32 from the logits x, rounded to
-// bf16 as product 2's A fragments (depth step kk = tile columns [16 kk, 16 kk
-// + 16)). ds: item columns, the rows' z, coeff and label in registers, 0 past
-// N; di: session columns, their z, coeff and label staged in vec (an item row
-// past N loads as zeros, and its weights reach only its own di row, never
-// written).
-template <bool kDi, bool kTail>
-__device__ __forceinline__ void weigh(const float (&x)[32], uint32_t (&a)[4][4], int t4, const RowVec& vec,
+// The weights of a logits tile: (P - D) in f32 from the logits x (P alone
+// without kLabel), rounded to bf16 as product 2's A fragments (depth step kk =
+// tile columns [16 kk, 16 kk + 16)). ds: item columns, the rows' z, coeff and
+// label in registers, 0 past N; di: session columns, their z, coeff and label
+// staged in vec (an item row past N loads as zeros, and its weights reach
+// only its own di row, never written).
+template <bool kDi, bool kTail, bool kLabel>
+__device__ __forceinline__ void weigh(const float (&x)[32], uint32_t (&a)[4][4], int t4, const RowVec<kLabel>& vec,
                                       const int (&row)[2], const float (&zr)[2], const float (&cr)[2],
                                       const int (&lab)[2], int n_left) {
 #pragma unroll
@@ -494,21 +513,25 @@ __device__ __forceinline__ void weigh(const float (&x)[32], uint32_t (&a)[4][4],
     const int c = 8 * j + 2 * t4;
     if constexpr (kDi) {
       const float2 zc = *reinterpret_cast<const float2*>(vec.z + c);
-      const float2 cc = *reinterpret_cast<const float2*>(vec.coeff + c);
-      const longlong2 yc = *reinterpret_cast<const longlong2*>(vec.y + c);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float pw0 = expf(x[4 * j + 2 * h] - zc.x), pw1 = expf(x[4 * j + 2 * h + 1] - zc.y);
-        if (row[h] == yc.x) pw0 -= cc.x;
-        if (row[h] == yc.y) pw1 -= cc.y;
+        if constexpr (kLabel) {
+          const float2 cc = *reinterpret_cast<const float2*>(vec.coeff + c);
+          const longlong2 yc = *reinterpret_cast<const longlong2*>(vec.y + c);
+          if (row[h] == yc.x) pw0 -= cc.x;
+          if (row[h] == yc.y) pw1 -= cc.y;
+        }
         a[j >> 1][2 * (j & 1) + h] = bt::pack(pw0, pw1);
       }
     } else {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float pw0 = expf(x[4 * j + 2 * h] - zr[h]), pw1 = expf(x[4 * j + 2 * h + 1] - zr[h]);
-        if (c == lab[h]) pw0 -= cr[h];
-        if (c + 1 == lab[h]) pw1 -= cr[h];
+        if constexpr (kLabel) {
+          if (c == lab[h]) pw0 -= cr[h];
+          if (c + 1 == lab[h]) pw1 -= cr[h];
+        }
         if (kTail && c >= n_left) pw0 = 0.f;
         if (kTail && c + 1 >= n_left) pw1 = 0.f;
         a[j >> 1][2 * (j & 1) + h] = bt::pack(pw0, pw1);
@@ -519,11 +542,12 @@ __device__ __forceinline__ void weigh(const float (&x)[32], uint32_t (&a)[4][4],
 
 // The consumer warpgroups' side: kDi walks session tiles against resident
 // item rows, else item tiles against resident session rows (unit = the ds
-// partial it writes). Per tile: product 1, the weights, product 2 or 3, each
-// product waited for where its result is read; the two warpgroups of a block
-// interleave, one forming weights while the other's products run.
-template <int D, bool kDi>
-__device__ __forceinline__ void consume(Smem<D>& sm, const Params& p, const Unit& u) {
+// partial it writes); kLabel: with the label term. Per tile: product 1, the
+// weights, product 2 or 3, each product waited for where its result is read;
+// the two warpgroups of a block interleave, one forming weights while the
+// other's products run.
+template <int D, bool kDi, bool kLabel>
+__device__ __forceinline__ void consume(Smem<D, kLabel>& sm, const Params& p, const Unit& u) {
   const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, t4 = lane & 3;
   int row[2];  // the thread's resident rows: sessions (ds) or items (di)
   row[0] = u.res_row0 + kTileRows * wg + 16 * w + (lane >> 2);
@@ -536,8 +560,10 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const Params& p, const Unit
     for (int h = 0; h < 2; ++h) {
       const bool ok = row[h] < p.M;
       zr[h] = ok ? p.z[row[h]] : INFINITY;
-      cr[h] = ok ? p.coeff[row[h]] : 0.f;
-      yr[h] = ok ? (int)p.y[row[h]] : -1;
+      if constexpr (kLabel) {
+        cr[h] = ok ? p.coeff[row[h]] : 0.f;
+        yr[h] = ok ? (int)p.y[row[h]] : -1;
+      }
     }
   }
   float acc[D / 2];
@@ -554,8 +580,10 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const Params& p, const Unit
     int lab[2] = {-1, -1}, n_left = kTileRows;         // ds: the rows' labels as tile columns, the catalog's end
     if constexpr (!kDi) {
       n_left = p.N - col0 < kTileRows ? p.N - col0 : kTileRows;
+      if constexpr (kLabel) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) lab[h] = yr[h] >= col0 && yr[h] < col0 + kTileRows ? yr[h] - col0 : -1;
+        for (int h = 0; h < 2; ++h) lab[h] = yr[h] >= col0 && yr[h] < col0 + kTileRows ? yr[h] - col0 : -1;
+      }
     }
     // product 1: the logits of the resident rows against the streamed tile's
     float x[32];
@@ -569,11 +597,11 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const Params& p, const Unit
 
     uint32_t a[4][4];
     if constexpr (kDi)
-      weigh<true, false>(x, a, t4, sm.vec[stage], row, zr, cr, lab, n_left);
+      weigh<true, false, kLabel>(x, a, t4, sm.vec[stage], row, zr, cr, lab, n_left);
     else if (n_left < kTileRows)
-      weigh<false, true>(x, a, t4, sm.vec[stage], row, zr, cr, lab, n_left);
+      weigh<false, true, kLabel>(x, a, t4, sm.vec[stage], row, zr, cr, lab, n_left);
     else
-      weigh<false, false>(x, a, t4, sm.vec[stage], row, zr, cr, lab, n_left);
+      weigh<false, false, kLabel>(x, a, t4, sm.vec[stage], row, zr, cr, lab, n_left);
 
     // product 2 (ds += (P - D) items) or 3 (di += (P - D)^T s) on the same tile read MN-major
     const uint64_t dm = desc_mn<D>(tile);
@@ -608,12 +636,12 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const Params& p, const Unit
   }
 }
 
-template <int D>
+template <int D, bool kLabel>
 __global__ void __launch_bounds__(kThreads, 1) ce_grads_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
   // the block's dynamic shared memory starts 1,024-byte aligned (the swizzle's atom; checked), and a cast that
   // keeps it a shared-memory pointer keeps every access below an ld.shared / st.shared
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
+  Smem<D, kLabel>& sm = *reinterpret_cast<Smem<D, kLabel>*>(smem_raw);
   if (threadIdx.x == 0 && (smem_u32(smem_raw) & 1023) != 0) __trap();
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -629,14 +657,14 @@ __global__ void __launch_bounds__(kThreads, 1) ce_grads_bf16_kernel(const __grid
   // the unit is worked out after setmaxnreg in each branch, so that nothing is live across it
   if (threadIdx.x >= 128 * kConsumers) {  // the producer warpgroup: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
-    if (threadIdx.x == 128 * kConsumers) produce<D>(sm, maps, unit_of(p));
+    if (threadIdx.x == 128 * kConsumers) produce<D, kLabel>(sm, maps, unit_of(p));
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
     const Unit u = unit_of(p);
     if (u.di)
-      consume<D, true>(sm, p, u);
+      consume<D, true, kLabel>(sm, p, u);
     else
-      consume<D, false>(sm, p, u);
+      consume<D, false, kLabel>(sm, p, u);
   }
 }
 
@@ -698,15 +726,17 @@ long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
 // A launch of the di role (with_di) and of ds units over ds_ranges item ranges
 // of unit_tiles tiles (0: none), di units first: each walks every session
-// tile, the ds units fill the card around them.
-template <int D>
+// tile, the ds units fill the card around them. kLabel: kernel 7 (z, coeff
+// and labels), else kernel 12 (z alone; p.coeff and p.y unread).
+template <int D, bool kLabel>
 int launch(const void* s, const void* items, Params p, bool with_di, long long ds_ranges, cudaStream_t stream) {
-  auto kernel = ce_grads_bf16_kernel<D>;
-  Maps maps;
+  auto kernel = ce_grads_bf16_kernel<D, kLabel>;
+  Maps maps = {};
   if (!tensor_map<D>(&maps.s, s, p.M) || !tensor_map<D>(&maps.items, items, p.N) ||
-      !vector_map(&maps.z, p.z, p.M, CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
-      !vector_map(&maps.coeff, p.coeff, p.M, CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
-      !vector_map(&maps.y, p.y, p.M, CU_TENSOR_MAP_DATA_TYPE_INT64))
+      !vector_map(&maps.z, p.z, p.M, CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+    return (int)cudaErrorInvalidValue;
+  if (kLabel && (!vector_map(&maps.coeff, p.coeff, p.M, CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+                 !vector_map(&maps.y, p.y, p.M, CU_TENSOR_MAP_DATA_TYPE_INT64)))
     return (int)cudaErrorInvalidValue;
   // setmaxnreg.inc takes what setmaxnreg.dec gives back: refuse a build whose launch allocation would leave the
   // consumers waiting for registers
@@ -718,9 +748,10 @@ int launch(const void* s, const void* items, Params p, bool with_di, long long d
   p.di_blocks = with_di ? (int)ceil_div(p.N, kConsumers * kTileRows) : 0;
   p.m_blocks = (int)ceil_div(p.M, kConsumers * kTileRows);
   const long long grid = p.di_blocks + p.m_blocks * ds_ranges;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+  const int smem = smem_bytes<D, kLabel>();
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)grid, kThreads, smem_bytes<D>(), stream>>>(maps, p);
+  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(maps, p);
   return (int)cudaGetLastError();
 }
 
@@ -752,6 +783,23 @@ Params make_params(const float* z, const long long* y, const float* coeff, void*
   return p;
 }
 
+// the one pass of kernel 7 (kLabel) or 12: both roles in one launch, ds partials per chunk_rows item rows (bf16
+// when bf16_partials), di whole
+template <bool kLabel>
+int one_pass(const void* s, const void* items, const float* z, const long long* y, const float* coeff, void* ds_part,
+             float* di, long long M, long long N, int D, long long chunk_rows, int bf16_partials,
+             cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (M >= kMaxRows || N >= kMaxRows) return (int)cudaErrorInvalidValue;
+  if (chunk_rows <= 0 || chunk_rows % kTileRows) return (int)cudaErrorInvalidValue;
+  Params p = make_params(z, y, coeff, ds_part, di, M, N);
+  p.unit_tiles = (int)(chunk_rows / kTileRows);
+  p.ds_mode = bf16_partials ? 1 : 0;
+  return by_width(D, [&](auto w) {
+    return launch<decltype(w)::value, kLabel>(s, items, p, true, ceil_div(N, chunk_rows), stream);
+  });
+}
+
 }  // namespace
 
 // Kernel 7's one pass on bf16 sessions (M, D) and items (N, D), rows 16-byte
@@ -762,15 +810,16 @@ Params make_params(const float* z, const long long* y, const float* coeff, void*
 extern "C" int ce_fused_bf16(const void* s, const void* items, const float* z, const long long* y,
                              const float* coeff, void* ds_part, float* di, long long M, long long N, int D,
                              long long chunk_rows, int bf16_partials, cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return 0;
-  if (M >= kMaxRows || N >= kMaxRows) return (int)cudaErrorInvalidValue;
-  if (chunk_rows <= 0 || chunk_rows % kTileRows) return (int)cudaErrorInvalidValue;
-  Params p = make_params(z, y, coeff, ds_part, di, M, N);
-  p.unit_tiles = (int)(chunk_rows / kTileRows);
-  p.ds_mode = bf16_partials ? 1 : 0;
-  return by_width(D, [&](auto w) {
-    return launch<decltype(w)::value>(s, items, p, true, ceil_div(N, chunk_rows), stream);
-  });
+  return one_pass<true>(s, items, z, y, coeff, ds_part, di, M, N, D, chunk_rows, bf16_partials, stream);
+}
+
+// Kernel 12's one pass on bf16 sessions (M, D) and items (N, D): kernel 7's
+// with no label term (P = exp(logit - z)), the same partials and di. z f32
+// (M,), 16-byte aligned (TMA).
+extern "C" int grads_z_fused_bf16(const void* s, const void* items, const float* z, void* ds_part, float* di,
+                                  long long M, long long N, int D, long long chunk_rows, int bf16_partials,
+                                  cudaStream_t stream) {
+  return one_pass<false>(s, items, z, nullptr, nullptr, ds_part, di, M, N, D, chunk_rows, bf16_partials, stream);
 }
 
 // Kernel 7's ds launch: f32 ds partials (n_chunks, M, D), one per item chunk
@@ -790,7 +839,7 @@ extern "C" int ce_ds_bf16(const void* s, const void* items, const float* z, cons
   p.unit_tiles = (int)(chunk_rows / kTileRows);
   p.step_tiles = step_rows ? (int)(step_rows / kTileRows) : 1;
   p.ds_mode = step_rows ? 2 : 0;
-  return by_width(D, [&](auto w) { return launch<decltype(w)::value>(s, items, p, false, n_chunks, stream); });
+  return by_width(D, [&](auto w) { return launch<decltype(w)::value, true>(s, items, p, false, n_chunks, stream); });
 }
 
 // Kernel 7's di launch: f32 di (N, D), each 64-row item tile written once.
@@ -799,10 +848,11 @@ extern "C" int ce_di_bf16(const void* s, const void* items, const float* z, cons
   if (M <= 0 || N <= 0) return 0;
   if (M >= kMaxRows || N >= kMaxRows) return (int)cudaErrorInvalidValue;
   Params p = make_params(z, y, coeff, nullptr, di, M, N);
-  return by_width(D, [&](auto w) { return launch<decltype(w)::value>(s, items, p, true, 0, stream); });
+  return by_width(D, [&](auto w) { return launch<decltype(w)::value, true>(s, items, p, true, 0, stream); });
 }
 
-// Bytes of dynamic shared memory a block takes at width D; cudaErrorInvalidValue (1) for another D.
+// Bytes of dynamic shared memory a block takes at width D; cudaErrorInvalidValue (1) for another D. Kernel 7's
+// (kernel 12's stages hold z alone: 768 bytes fewer a stage).
 extern "C" int ce_grads_bf16_smem_bytes(int D) {
-  return by_width(D, [&](auto w) { return smem_bytes<decltype(w)::value>(); });
+  return by_width(D, [&](auto w) { return smem_bytes<decltype(w)::value, true>(); });
 }

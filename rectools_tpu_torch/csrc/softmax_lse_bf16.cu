@@ -4,10 +4,12 @@
 // and on catalogs of any size, and of the public lse op's other forwards 15
 // and 16, on bf16 tensor-core products with f32 accumulation. Kernel 7's bf16
 // forms (the softmax-CE gradients: `ce_fused_bf16`, `ce_ds_bf16`,
-// `ce_di_bf16`) run on the `wgmma` engine of ce_grads_bf16.cu; the gradient
+// `ce_di_bf16`) and kernel 12's (`grads_z_fused_bf16`, the engine without
+// the label term) run on the `wgmma` engine of ce_grads_bf16.cu; the gradient
 // kernels below keep its `kCE` form (the label term, the stepped ds
 // partials), which no entry instantiates, beside the `kLse` and `kZ` forms
-// that kernels 9, 10, 12 and 13 take.
+// that kernels 9, 10, 13 and 14 take: the one pass below is instantiated for
+// kernel 9 alone.
 //
 // Replaces, for bf16 inputs:
 // - rectools_tpu/ops/softmax_lse.py:169 `_lse_fwd_partials_kernel`
@@ -39,22 +41,14 @@
 //   tail masked (:92-96), in a fixed order (each thread's columns tile by
 //   tile, the four threads of a row, warp column 0 plus column 1); the caller
 //   sums the (n_chunks, M) partials over the chunks and picks the window.
-// - :591 `_grads_z_fused_kernel` (`grads_z_fused_bf16`, kernel 12): the one
-//   pass below (`ce_fused_bf16_kernel`, the design kernel 7's bf16 one pass
-//   had before ce_grads_bf16.cu) in its `kZ` form: with the f32 logits, pw =
-//   exp(logit - z) rounded to bf16 once before both products (as
-//   softmax_lse.py:226-228 and :696 round it), no label term, ds = pw items
-//   per item chunk in f32, stored as a bf16 partial under `bf16_partials`
-//   (JAX's `BF16_DS_PARTIALS`, :818-820) else as f32, and di = pw^T s
-//   accumulated in f32 per group of session tiles. The caller sums both sets
-//   of partials in f32 in a fixed order.
 // - :757 `_ds_z_kernel` (`grads_z_ds_bf16`, kernel 13): the same pw times the
 //   item tiles, ds summed in f32 over every chunk, nothing rounded between
 //   them (:770-771).
 // - :774 `_di_z_kernel` (`grads_z_di_bf16`, kernel 14): di = pw^T s in f32,
 //   pw rounded once (:786-790), unlike kernel 11.
-// - :234 `_bwd_fused_kernel` (`lse_bwd_fused_bf16`, kernel 9): kernel 12's
-//   kernel and grid in its `kLse` form: pw = exp((logit + bias) - lse) * dlse
+// - :234 `_bwd_fused_kernel` (`lse_bwd_fused_bf16`, kernel 9): the one pass
+//   below (`ce_fused_bf16_kernel`, the design kernels 7 and 12 had in bf16
+//   before ce_grads_bf16.cu) in its `kLse` form: pw = exp((logit + bias) - lse) * dlse
 //   in f32, dlse of either sign, rounded to bf16 once for both products
 //   (:258), no label term, ds partials always f32 (:505; JAX's
 //   `BF16_DS_PARTIALS` is not read on this route).
@@ -93,7 +87,7 @@
 //   pairs of their rows (kernel 16: the two windows' sums), merged by
 //   shuffles and then across the two warp columns through shared memory.
 //   14,592 / 71,936 / 137,472.
-// - Kernels 9 and 12: the f32 one pass's grid (ops/softmax_lse.py
+// - Kernel 9: the f32 one pass's grid (ops/softmax_lse.py
 //   `fused_bwd_plan`: block (x, y) owns item chunk x of 2,048 rows and group y
 //   of session tiles, all blocks in one wave). Per (session tile, item tile)
 //   pair: the logits (warps 4 x 2, BM / 4 x 32 each), the rounded probability
@@ -131,8 +125,8 @@
 // kernels 6, 8 and 15 are one logit product, 2 M N D = 208 GFLOP, 0.21 ms at
 // 989 TFLOP/s bf16 (their inputs, 17 MB, take 0.005 ms at 3.35 TB/s); kernel
 // 16 the same (it takes two exps a logit, one a window, but the function needs
-// one: window 2's term is e^64 times window 1's); kernels 9
-// and 12 are three, 624 GFLOP, 0.63 ms, with 0.24 GB of inputs and partials
+// one: window 2's term is e^64 times window 1's); kernel 9
+// is three, 624 GFLOP, 0.63 ms, with 0.24 GB of inputs and partials
 // (0.07 ms); kernels 10 and 11 two each, 0.42 ms, and so are kernels 13 and
 // 14, at 196,608 items 5.2 ms each (2 x 2.58 TFLOP). At D = 256 each product doubles (0.42 ms a
 // product). At D = 16 the products take 0.026 ms and the M N = 8.1e8 exps
@@ -141,7 +135,7 @@
 // 7,936) each is a quarter of that. What bounds them as written is issue and
 // latency: `mma.sync` (not `wgmma`), one block of 8 warps per SM for the
 // gradient kernels, the exps, the 16-bit reads of the transposed operands
-// and kernel 9 / 12's di read-modify-write in device memory; chip_smoke.py's
+// and kernel 9's di read-modify-write in device memory; chip_smoke.py's
 // `bf16`, `bf16 mesh` and `bf16 wide` lines print their times beside these
 // bounds.
 
@@ -383,7 +377,7 @@ constexpr int kPP = bt::pitch(kBN);  // the probability tile [session][item]
 // The forms of the gradient kernels. kCE (kernel 7; no entry instantiates it):
 // z = row_a, coeff = row_b, labels y, pw = exp(logit - z) - coeff [item == y]. kLse (kernels 9
 // and 10): lse = row_a, dlse = row_b, the item rows' bias, pw = exp((logit +
-// bias) - lse) * dlse. kZ (kernels 12 and 13): z = row_a, pw = exp(logit - z).
+// bias) - lse) * dlse. kZ (kernels 13 and 14): z = row_a, pw = exp(logit - z).
 enum Form : int { kCE = 0, kLse = 1, kZ = 2 };
 
 // the f32 weight of one (session row, item) pair of form F, before its
@@ -433,9 +427,9 @@ template <int D, int F>
 __global__ void __launch_bounds__(kThreads, 1)
     ce_fused_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ items,
                          const float* __restrict__ z, const long long* __restrict__ y,
-                         const float* __restrict__ coeff, const float* __restrict__ bias, void* __restrict__ ds_part,
+                         const float* __restrict__ coeff, const float* __restrict__ bias, float* __restrict__ ds_part,
                          float* __restrict__ di_part, long long M, long long N, long long chunk_rows,
-                         long long tiles_per_group, int bf16_partials) {
+                         long long tiles_per_group) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   CeSmem<D>& sm = *reinterpret_cast<CeSmem<D>*>(smem_raw);
   constexpr int P = bt::pitch(D);
@@ -578,7 +572,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();  // P, P^T and this ring slot are consumed
     }
 
-    // the ds partial of (item chunk, session tile): bf16 or f32
+    // the f32 ds partial of (item chunk, session tile)
 #pragma unroll
     for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
@@ -589,11 +583,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int nf = 0; nf < kNF; ++nf) {
           const int col = (D / 2) * wc + 8 * nf + 2 * t;
-          const float v0 = ds[mf][nf][2 * hh], v1 = ds[mf][nf][2 * hh + 1];
-          if (bf16_partials)
-            *reinterpret_cast<uint32_t*>(reinterpret_cast<__nv_bfloat16*>(ds_part) + base + col) = bt::pack(v0, v1);
-          else
-            *reinterpret_cast<float2*>(reinterpret_cast<float*>(ds_part) + base + col) = make_float2(v0, v1);
+          *reinterpret_cast<float2*>(ds_part + base + col) = make_float2(ds[mf][nf][2 * hh], ds[mf][nf][2 * hh + 1]);
         }
       }
   }
@@ -1042,9 +1032,8 @@ int launch_lse(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* 
 
 template <int D, int F>
 int launch_ce(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* z, const long long* y,
-              const float* coeff, const float* bias, void* ds_part, float* di_part, long long M, long long N,
-              long long chunk_rows, long long tiles_per_group, long long n_groups, int bf16_partials,
-              cudaStream_t stream) {
+              const float* coeff, const float* bias, float* ds_part, float* di_part, long long M, long long N,
+              long long chunk_rows, long long tiles_per_group, long long n_groups, cudaStream_t stream) {
   const long long m_tiles = (M + grad_bm(D) - 1) / grad_bm(D);
   if (tiles_per_group <= 0 || (m_tiles + tiles_per_group - 1) / tiles_per_group != n_groups)
     return (int)cudaErrorInvalidValue;
@@ -1054,7 +1043,7 @@ int launch_ce(const __nv_bfloat16* s, const __nv_bfloat16* items, const float* z
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((N + chunk_rows - 1) / chunk_rows), (unsigned)n_groups);
   ce_fused_bf16_kernel<D, F><<<grid, kThreads, smem, stream>>>(s, items, z, y, coeff, bias, ds_part, di_part, M, N,
-                                                               chunk_rows, tiles_per_group, bf16_partials);
+                                                               chunk_rows, tiles_per_group);
   return (int)cudaGetLastError();
 }
 
@@ -1162,7 +1151,7 @@ extern "C" int lse_bf16(const void* s, const void* items, float* lse, long long 
   });
 }
 
-// Kernel 9: the generic lse backward in one pass, on kernel 12's grid: f32 ds
+// Kernel 9: the generic lse backward in one pass, on the f32 one pass's grid: f32 ds
 // partials (n_chunks, M, D) and f32 di partials (n_groups, N, D). bias f32
 // (N,), lse and dlse f32 (M,).
 extern "C" int lse_bwd_fused_bf16(const void* s, const void* items, const float* bias, const float* lse,
@@ -1175,7 +1164,7 @@ extern "C" int lse_bwd_fused_bf16(const void* s, const void* items, const float*
   const auto* ib = static_cast<const __nv_bfloat16*>(items);
   return by_width(D, [&](auto w) {
     return launch_ce<decltype(w)::value, kLse>(sb, ib, lse, nullptr, dlse, bias, ds_part, di_part, M, N, chunk_rows,
-                                               tiles_per_group, n_groups, 0, stream);
+                                               tiles_per_group, n_groups, stream);
   });
 }
 
@@ -1206,23 +1195,6 @@ extern "C" int lse_bwd_di_bf16(const void* s, const void* items, const float* bi
   });
 }
 
-// Kernel 12 on bf16 sessions and items: the one pass in its kZ form (pw
-// = exp(logit - z), no label term), on the grid of ops/softmax_lse.py
-// `fused_bwd_plan`: ds partials (n_chunks, M, D), bf16 when bf16_partials else
-// f32, and f32 di partials (n_groups, N, D). z f32 (M,).
-extern "C" int grads_z_fused_bf16(const void* s, const void* items, const float* z, void* ds_part, float* di_part,
-                                  long long M, long long N, int D, long long chunk_rows, long long tiles_per_group,
-                                  long long n_groups, int bf16_partials, cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return 0;
-  if (chunk_rows <= 0 || chunk_rows % kBN) return (int)cudaErrorInvalidValue;
-  const auto* sb = static_cast<const __nv_bfloat16*>(s);
-  const auto* ib = static_cast<const __nv_bfloat16*>(items);
-  return by_width(D, [&](auto w) {
-    return launch_ce<decltype(w)::value, kZ>(sb, ib, z, nullptr, nullptr, nullptr, ds_part, di_part, M, N, chunk_rows,
-                                             tiles_per_group, n_groups, bf16_partials, stream);
-  });
-}
-
 // Kernel 13: f32 ds partials (n_chunks, M, D) of P items, P = exp(logit - z)
 // rounded to bf16, each chunk one f32 sum (no bf16 partial), on the grid of
 // `split_bwd_plan`.
@@ -1250,9 +1222,9 @@ extern "C" int grads_z_di_bf16(const void* s, const void* items, const float* z,
 }
 
 // Bytes of dynamic shared memory a block of each bf16 loss kernel takes at
-// width D: kernel 0 = kernels 6 / 8 / 15 / 16, 1 = 9 / 12 (the one pass), 2 = 10 / 13,
+// width D: kernel 0 = kernels 6 / 8 / 15 / 16, 1 = 9 (the one pass), 2 = 10 / 13,
 // 3 = 14, 4 = 11; -1 for another kernel, and cudaErrorInvalidValue (1) for another D
-// (kernel 7's bf16 forms: ce_grads_bf16.cu `ce_grads_bf16_smem_bytes`).
+// (kernels 7 and 12 in bf16: ce_grads_bf16.cu `ce_grads_bf16_smem_bytes`).
 extern "C" int lse_bf16_smem_bytes(int kernel, int D) {
   return by_width(D, [&](auto w) {
     constexpr int W = decltype(w)::value;

@@ -15,8 +15,8 @@
 // 0.092 ms at 3.35 TB/s.
 //
 // m <= kSelectMaxM (16; the serving path's m is 12): `group_topm_select_kernel`,
-// one thread per group, a block of kSelectGroups groups. The warp-per-group
-// kernel below spent m rounds of a 5-step shuffle butterfly on every group
+// one thread per group, a block of kSelectGroups groups. The first port, a
+// warp per group, spent m rounds of a 5-step shuffle butterfly on every group
 // (about 600 warp instructions a group at m = 12, 0.68 ms at the serving
 // shape on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6): bound by
 // instruction issue. Here a thread does about 3,000 instructions for its
@@ -40,17 +40,34 @@
 //    at m = 12), never once per element.
 // 5. The first m entries go through shared memory to coalesced stores.
 //
-// m > kSelectMaxM (up to 128): `group_topm_kernel`, one warp per (row,
-// group). Each lane loads 4 neighbouring values with one float4 load (a warp
-// reads the group's 512 contiguous bytes in one access). Each of the m rounds
-// takes the lane-local best, then a butterfly of warp shuffles over (value,
-// column) pairs that prefers the larger value and, on equal values, the
-// lower column: the same lowest-lane-first rule as the TPU kernel's float max
-// over (w-1-lane). The lane that owns the winner masks it to -inf. A group
-// that is all -inf yields lane 0 every round, as on the TPU. Round j's result
-// is parked in lane j % 32 and stored in coalesced runs of up to 32, so the
-// scores never leave registers between rounds and are read from device
-// memory exactly once.
+// kSelectMaxM < m <= 128 (ItemKNN's truncation keeps m = min(K, 128); small
+// catalogs take m > 16 for k > 12 G): `group_topm_sort_kernel`. The first
+// port's butterfly costs m rounds, about 2,000 warp instructions a group at m
+// = 50 (2.70 ms for a 4,096 x 15,872 block of co-counts, against a byte bound
+// of 0.138 ms: 260 MB in, 4,096 * 124 * 50 * 8 B = 203 MB out; 0.233 ms at m
+// = 128). The threshold of the m <= 16 kernel does not exist past 32 chunk
+// maxima and its register list does not scale to m = 128, so this kernel
+// sorts: its work grows with the group's 128 elements and not with m, and m
+// = 128 (a full ordering) costs what m = 17 does.
+// 1. Eight lanes own a group, four groups a warp, 32 a block: lane l of a
+//    group loads chunks l + 8 i (i = 0..3) by 16-byte loads, so each load of
+//    the warp reads four runs of 128 contiguous bytes. A thread keeps 16
+//    (value, lane) pairs in registers.
+// 2. A bitonic network (28 stages of 64 compare-exchanges) sorts the group's
+//    128 pairs by value descending, then lane ascending: a total order, since
+//    lanes differ, so the result is the reference's whatever the network,
+//    however many values tie at the m-th slot (the co-counts end in runs of
+//    tied zeros). Position p = 16 l + s is register s of lane l: the 22 stages
+//    whose partner is p ^ J with J < 16 compare two registers of a thread,
+//    the 6 with J >= 16 the same register of two lanes by shuffles. The
+//    compare is a float compare (-0 and +0 tie, as in the reference) and
+//    costs three instructions and four selects a pair: about 550 warp
+//    instructions a group, 0.3 ms for the block above at the card's issue
+//    rate (132 SMs x 4 schedulers x 1.755 GHz), twice the byte bound.
+// 3. The sorted runs go through shared memory (a lane's 16 at a pitch of 17:
+//    the warp's 32 writes of one register hit distinct banks) to coalesced
+//    stores of each group's first m. A -inf entry is stored with lane 0: the
+//    TPU's (-inf, lane 0) for the slots past a group's values above -inf.
 //
 // NaN scores are outside the contract (the model's scores are finite or
 // -inf).
@@ -65,65 +82,139 @@ namespace {
 #include "tc_tile.cuh"
 
 constexpr int kGroupW = 128;
-constexpr int kWarpsPerBlock = 8;
+// the sorting kernel (m > kSelectMaxM): lanes a group, (value, lane) pairs a
+// thread, groups a warp, warps a block, and a group's staged entries (a
+// lane's run of kSortPerLane at a pitch of kSortPitch)
+constexpr int kSortLanes = 8;
+constexpr int kSortPerLane = kGroupW / kSortLanes;
+constexpr int kSortGroupsPerWarp = 32 / kSortLanes;
+constexpr int kSortWarps = 8;
+constexpr int kSortPitch = kSortPerLane + 1;
+constexpr int kSortStage = kSortLanes * kSortPitch;
 // the thread-per-group kernel: groups per block (= threads), the largest m it
 // serves, the 16-byte chunks of a group
 constexpr int kSelectGroups = 64;
 constexpr int kSelectMaxM = 16;
 constexpr int kChunks = kGroupW / 4;
 
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-    group_topm_kernel(const float* __restrict__ x, long long n_rows, int n_groups, long long row_stride, int m,
-                      float* __restrict__ vals, int* __restrict__ idx) {
-  const int lane = threadIdx.x & 31;
-  const long long w = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (w >= n_rows * n_groups) return;  // whole warp leaves together
-  const long long row = w / n_groups;
-  const int g = (int)(w - row * n_groups);
+// whether (va, ia) comes before (vb, ib) in the output's order: the larger
+// value, then the lower lane (a float compare: -0 and +0 tie, as on the TPU)
+__device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
 
-  const float4 t = reinterpret_cast<const float4*>(x + row * row_stride + (long long)g * kGroupW)[lane];
-  float v[4] = {t.x, t.y, t.z, t.w};
-  float* out_v = vals + w * m;
-  int* out_i = idx + w * m;
+// One bitonic stage (K, J) over the positions p = kSortPerLane l + s of a
+// group, l = lane % kSortLanes, s = 0..kSortPerLane-1: p and p ^ J compare,
+// the lower position keeping the earlier entry where p & K is clear
+// (descending blocks) and the later one where it is set. J < kSortPerLane
+// pairs two registers of a thread; larger J pairs the same register of lanes
+// l and l ^ (J / kSortPerLane) of the group by shuffles.
+template <int K, int J>
+__device__ __forceinline__ void sort_stage(float (&v)[kSortPerLane], int (&id)[kSortPerLane], int l) {
+  if constexpr (J < kSortPerLane) {
+    // descending where bit K of p is clear: bit K of s below kSortPerLane, of l up to 64, always at 128
+    const bool lane_desc = K < kSortPerLane || K == kGroupW || (l & (K / kSortPerLane)) == 0;
+#pragma unroll
+    for (int s = 0; s < kSortPerLane; ++s) {
+      if (s & J) continue;
+      const bool desc = K < kSortPerLane ? (s & K) == 0 : lane_desc;
+      const bool swap = before(v[s + J], id[s + J], v[s], id[s]) == desc;
+      const float va = v[s], vb = v[s + J];
+      const int ia = id[s], ib = id[s + J];
+      v[s] = swap ? vb : va;
+      id[s] = swap ? ib : ia;
+      v[s + J] = swap ? va : vb;
+      id[s + J] = swap ? ia : ib;
+    }
+  } else {
+    constexpr int kMask = J / kSortPerLane;
+    const bool lower = (l & kMask) == 0;
+    const bool desc = K == kGroupW || (l & (K / kSortPerLane)) == 0;
+    const bool keep_first = lower == desc;  // this lane keeps the earlier entry of each pair
+#pragma unroll
+    for (int s = 0; s < kSortPerLane; ++s) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v[s], kMask);
+      const int oi = __shfl_xor_sync(0xffffffffu, id[s], kMask);
+      const bool take = before(ov, oi, v[s], id[s]) == keep_first;
+      v[s] = take ? ov : v[s];
+      id[s] = take ? oi : id[s];
+    }
+  }
+}
 
-  float keep_v = 0.f;
-  int keep_i = 0;
-  for (int j = 0; j < m; ++j) {
-    float bv = v[0];
-    int bc = 4 * lane;
+template <int K, int J = K / 2>
+__device__ __forceinline__ void sort_merge(float (&v)[kSortPerLane], int (&id)[kSortPerLane], int l) {
+  if constexpr (J > 0) {
+    sort_stage<K, J>(v, id, l);
+    sort_merge<K, J / 2>(v, id, l);
+  }
+}
+
+template <int K = 2>
+__device__ __forceinline__ void sort_group(float (&v)[kSortPerLane], int (&id)[kSortPerLane], int l) {
+  if constexpr (K <= kGroupW) {
+    sort_merge<K>(v, id, l);
+    sort_group<K * 2>(v, id, l);
+  }
+}
+
+// kSelectMaxM < m <= 128: warp w of block x owns groups 4 (8 x + w) + q, q =
+// 0..3, lanes 8 q .. 8 q + 7 a group, as the header says.
+__global__ void __launch_bounds__(32 * kSortWarps)
+    group_topm_sort_kernel(const float* __restrict__ x, long long n_rows, int n_groups, long long row_stride, int m,
+                           float* __restrict__ vals, int* __restrict__ idx) {
+  __shared__ float stage_v[kSortWarps][kSortGroupsPerWarp][kSortStage];
+  __shared__ int stage_i[kSortWarps][kSortGroupsPerWarp][kSortStage];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane / kSortLanes, l = lane % kSortLanes;
+  const long long total = n_rows * n_groups;
+  const long long w0 = ((long long)blockIdx.x * kSortWarps + warp) * kSortGroupsPerWarp;  // the warp's first group
+  const long long w = w0 + q;
+
+  // 1. chunk l + 8 i (columns 4 (l + 8 i) .. + 3) of the group into registers 4 i .. 4 i + 3
+  float v[kSortPerLane];
+  int id[kSortPerLane];
+  if (w < total) {
+    const long long row = w / n_groups;
+    const float4* src = reinterpret_cast<const float4*>(x + row * row_stride + (w - row * n_groups) * kGroupW);
 #pragma unroll
-    for (int i = 1; i < 4; ++i) {
-      if (v[i] > bv) {
-        bv = v[i];
-        bc = 4 * lane + i;
-      }
+    for (int i = 0; i < kSortPerLane / 4; ++i) {
+      const float4 t = __ldg(src + l + kSortLanes * i);
+      v[4 * i] = t.x;
+      v[4 * i + 1] = t.y;
+      v[4 * i + 2] = t.z;
+      v[4 * i + 3] = t.w;
     }
+  } else {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int oc = __shfl_xor_sync(0xffffffffu, bc, off);
-      if (ov > bv || (ov == bv && oc < bc)) {
-        bv = ov;
-        bc = oc;
-      }
-    }
-    if ((bc >> 2) == lane) {
+    for (int s = 0; s < kSortPerLane; ++s) v[s] = -INFINITY;
+  }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if ((bc & 3) == i) v[i] = -INFINITY;
-      }
-    }
-    const int slot = j & 31;
-    if (lane == slot) {
-      keep_v = bv;
-      keep_i = bc;
-    }
-    if (slot == 31 || j == m - 1) {
-      const int base = j - slot;
-      if (lane <= slot) {
-        out_v[base + lane] = keep_v;
-        out_i[base + lane] = keep_i;
-      }
+  for (int s = 0; s < kSortPerLane; ++s) id[s] = 4 * (l + kSortLanes * (s / 4)) + s % 4;
+
+  // 2. the whole group in the output's order: position p holds the entry of rank p
+  sort_group(v, id, l);
+
+  // 3. through shared memory (a lane's 16 at a pitch of 17: the 32 lanes' writes hit distinct banks) to coalesced
+  // stores of the first m; a -inf slot gives lane 0
+  float* sv = stage_v[warp][q];
+  int* si = stage_i[warp][q];
+#pragma unroll
+  for (int s = 0; s < kSortPerLane; ++s) {
+    sv[kSortPitch * l + s] = v[s];
+    si[kSortPitch * l + s] = id[s];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int g = 0; g < kSortGroupsPerWarp; ++g) {
+    if (w0 + g >= total) break;
+    float* out_v = vals + (w0 + g) * m;
+    int* out_i = idx + (w0 + g) * m;
+    for (int j = lane; j < m; j += 32) {
+      const int at = kSortPitch * (j / kSortPerLane) + j % kSortPerLane;
+      const float value = stage_v[warp][g][at];
+      out_v[j] = value;
+      out_i[j] = value == -INFINITY ? 0 : stage_i[warp][g][at];
     }
   }
 }
@@ -291,7 +382,7 @@ int launch_select(const float* x, long long n_rows, int n_groups, long long row_
 // x: n_rows rows of n_groups * 128 floats, row stride `row_stride` elements
 // (a multiple of 4; x 16-byte aligned). vals/idx: (n_rows, n_groups, m)
 // contiguous. 1 <= m <= 128: the thread-per-group kernel for m <= 16 (a list
-// of 4, 8, 12 or 16 entries), the warp-per-group kernel above. Returns
+// of 4, 8, 12 or 16 entries), the sorting kernel above. Returns
 // cudaGetLastError() after the launch.
 extern "C" int group_topm_f32(const float* x, long long n_rows, int n_groups, long long row_stride, int m,
                               float* vals, int* idx, cudaStream_t stream) {
@@ -301,9 +392,9 @@ extern "C" int group_topm_f32(const float* x, long long n_rows, int n_groups, lo
   if (m <= 8) return launch_select<8>(x, n_rows, n_groups, row_stride, m, vals, idx, stream);
   if (m <= 12) return launch_select<12>(x, n_rows, n_groups, row_stride, m, vals, idx, stream);
   if (m <= kSelectMaxM) return launch_select<kSelectMaxM>(x, n_rows, n_groups, row_stride, m, vals, idx, stream);
-  const long long warps = n_rows * n_groups;
-  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  group_topm_kernel<<<(unsigned)blocks, 32 * kWarpsPerBlock, 0, stream>>>(x, n_rows, n_groups, row_stride, m, vals,
-                                                                          idx);
+  constexpr int kGroupsPerBlock = kSortWarps * kSortGroupsPerWarp;
+  const long long blocks = (n_rows * n_groups + kGroupsPerBlock - 1) / kGroupsPerBlock;
+  group_topm_sort_kernel<<<(unsigned)blocks, 32 * kSortWarps, 0, stream>>>(x, n_rows, n_groups, row_stride, m, vals,
+                                                                           idx);
   return (int)cudaGetLastError();
 }

@@ -72,10 +72,12 @@ unless stated, as the JAX kernels do for bf16 inputs.
   steps, so that the one pass's arithmetic differs only in the order of f32
   sums) and ``ce_di_bf16`` (``ce_grads_di_bf16``);
 - the softmax gradients from z: kernel 12 ``grads_z_fused_bf16`` (kernel 7's
-  one pass in a ``kZ`` form, P = exp(logit − z) rounded once, bf16 ds
-  partials counted at 2 bytes as JAX's route test counts them), or above the
-  budget kernels 13 ``grads_z_ds_bf16`` (ds summed in f32 over every chunk,
-  no bf16 partial) and 14 ``grads_z_di_bf16`` (the same rounded P). Above
+  engine in ``csrc/ce_grads_bf16.cu`` without the label term, both roles in
+  one launch: P = exp(logit − z) rounded once, bf16 ds partials per
+  2,048-row chunk counted at 2 bytes as JAX's route test counts them, di
+  written whole in f32), or above the budget kernels 13 ``grads_z_ds_bf16``
+  (ds summed in f32 over every chunk, no bf16 partial) and 14
+  ``grads_z_di_bf16`` (the same rounded P). Above
   :func:`ce_takes_split_route`'s bf16 threshold (163,840 items at 51,200 ×
   128) the CE gradients take them and the label term in f32;
 - the generic lse backward, kernel 9 ``lse_bwd_fused_bf16``
@@ -212,9 +214,6 @@ _SIGNATURES_BF16 = {
     "lse_bwd_ds_bf16": (_C,) * 6 + (_LL, _LL, _I, _LL, _LL, _C),
     # sessions, items, bias, lse, dlse, f32 di; M, N, D; stream
     "lse_bwd_di_bf16": (_C,) * 6 + (_LL, _LL, _I, _C),
-    # sessions, items, z, ds partials, f32 di partials; M, N, D; chunk rows, tiles per group, session groups, bf16
-    # partials; stream
-    "grads_z_fused_bf16": (_C,) * 5 + (_LL, _LL, _I, _LL, _LL, _LL, _I, _C),
     # sessions, items, z, f32 ds partials; M, N, D; chunk rows, chunks; stream
     "grads_z_ds_bf16": (_C,) * 4 + (_LL, _LL, _I, _LL, _LL, _C),
     # sessions, items, z, f32 di; M, N, D; stream
@@ -227,10 +226,12 @@ _SIGNATURES_BF16 = {
     # block
     "lse_bf16_smem_bytes": (_I, _I),
 }
-# kernel 7's bf16 forms (csrc/ce_grads_bf16.cu)
+# kernel 7's bf16 forms and kernel 12's (csrc/ce_grads_bf16.cu)
 _SIGNATURES_CE_BF16 = {
     # sessions, items, z, y (int64), coeff, ds partials, f32 di; M, N, D; chunk rows, bf16 partials; stream
     "ce_fused_bf16": (_C,) * 7 + (_LL, _LL, _I, _LL, _I, _C),
+    # sessions, items, z, ds partials, f32 di; M, N, D; chunk rows, bf16 partials; stream
+    "grads_z_fused_bf16": (_C,) * 5 + (_LL, _LL, _I, _LL, _I, _C),
     # sessions, items, z, y (int64), coeff, f32 ds partials; M, N, D; chunk rows, chunks, step rows; stream
     "ce_ds_bf16": (_C,) * 6 + (_LL, _LL, _I, _LL, _LL, _LL, _C),
     # sessions, items, z, y (int64), coeff, f32 di; M, N, D; stream
@@ -578,11 +579,14 @@ def softmax_grads_from_z_bf16_reference(
     """Plain PyTorch twin of the softmax gradients from z on bf16 towers,
     (ds, di) in f32, with P = exp(logit − z) in f32 rounded to bf16 once for
     both products. ``partials=True``: kernel 12 (``grads_z_fused_bf16``,
-    rectools_tpu/ops/softmax_lse.py:611-640), one ds partial per 2,048-row
-    item chunk, stored in bf16 under ``BF16_DS_PARTIALS`` (:818-820) and
-    summed in f32 at the end. ``False``: kernels 13 + 14 (:757-790), ds summed
-    in f32 over every chunk with nothing rounded between them (a running sum
-    per item chunk of :func:`split_bwd_plan`), di = Pᵀ s in f32."""
+    rectools_tpu/ops/softmax_lse.py:611-640) in the order of kernel 7's bf16
+    engine, which runs it: one ds partial per 2,048-row item chunk, stored in
+    bf16 under ``BF16_DS_PARTIALS`` (:818-820) and summed in f32 at the end,
+    di = Pᵀ s whole in f32 (no partials per group of session rows).
+    :func:`softmax_ce_grads_from_z_bf16_reference` with coeff = 0, bit for
+    bit. ``False``: kernels 13 + 14 (:757-790), ds summed in f32 over every
+    chunk with nothing rounded between them (a running sum per item chunk of
+    :func:`split_bwd_plan`), di = Pᵀ s in f32."""
     s, it = sessions.float(), items.float()
 
     def weights(logits: torch.Tensor, start: int) -> torch.Tensor:
@@ -741,7 +745,6 @@ def _fused_or_split(
     row_pointers: tp.Tuple[int, ...],
     key: str = "",
     bf16: bool = False,
-    bf16_partials: tp.Optional[bool] = None,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """(ds, di) in f32 from ``{prefix}_fused_f32`` while its partials fit
     ``FUSED_BWD_PARTIALS_BUDGET``, else from ``{prefix}_ds_f32`` (on the grid
@@ -750,10 +753,8 @@ def _fused_or_split(
     ``{key}_fused`` / ``_ds`` / ``_di``, ``key`` defaulting to ``prefix``.
     ``bf16`` takes the bf16 forms (``{prefix}_fused_bf16`` & co. of
     ``softmax_lse_bf16.cu``, launch keys ending in ``_bf16``) on the same
-    grids. Where the bf16 fused entry takes a flag for its ds partials' dtype
-    (``grads_z``), ``bf16_partials`` gives it, and the plan counts those
-    partials at their itemsize. (Kernel 7's bf16 forms take
-    :func:`_ce_grads_bf16`.)"""
+    grids, f32 ds partials. (Kernels 7 and 12 in bf16 take
+    :func:`_ce_grads_bf16` and :func:`_grads_z_bf16`.)"""
     key = key or prefix
     suffix = "_bf16" if bf16 else "_f32"
     key_suffix = "_bf16" if bf16 else ""
@@ -761,25 +762,22 @@ def _fused_or_split(
     if m == 0 or n == 0:
         return torch.zeros((m, d), device=sessions.device), torch.zeros((n, d), device=sessions.device)
     n_sms = torch.cuda.get_device_properties(sessions.device).multi_processor_count
-    tiles_per_group, n_groups, partials_bytes = fused_bwd_plan(m, n, d, n_sms, 2 if bf16_partials else 4,
-                                                               sessions.dtype)
+    tiles_per_group, n_groups, partials_bytes = fused_bwd_plan(m, n, d, n_sms, 4, sessions.dtype)
     lib = _native.load("softmax_lse_bf16", _SIGNATURES_BF16) if bf16 else _native.load("softmax_lse", _SIGNATURES)
     stream = _native.current_stream_ptr(sessions.device)
     args = (sessions.data_ptr(), items.data_ptr(), *row_pointers)
     if partials_bytes <= FUSED_BWD_PARTIALS_BUDGET:
         n_chunks = -(-n // FUSED_BWD_CHUNK)
-        part_dtype = torch.bfloat16 if bf16_partials else torch.float32
-        ds_part = torch.empty((n_chunks, m, d), dtype=part_dtype, device=sessions.device)
+        ds_part = torch.empty((n_chunks, m, d), dtype=torch.float32, device=sessions.device)
         di_part = torch.empty((n_groups, n, d), dtype=torch.float32, device=sessions.device)
-        flag = () if bf16_partials is None else (int(bf16_partials),)
         with torch.cuda.device(sessions.device):
             status = getattr(lib, f"{prefix}_fused{suffix}")(
                 *args, ds_part.data_ptr(), di_part.data_ptr(), m, n, d, FUSED_BWD_CHUNK, tiles_per_group, n_groups,
-                *flag, stream,
+                stream,
             )
         _native.check_launch(f"{key}_fused{key_suffix}", status)
         # fixed-order f32 sums of the partials (rectools_tpu/ops/softmax_lse.py:745, :840)
-        ds = ds_part.float().sum(dim=0) if n_chunks > 1 else ds_part[0].float()
+        ds = ds_part.sum(dim=0) if n_chunks > 1 else ds_part[0]
         di = di_part.sum(dim=0) if n_groups > 1 else di_part[0]
         return ds, di
     n_chunks, chunk_rows = split_bwd_plan(m, n, d, n_sms, TILE, sessions.dtype)
@@ -964,8 +962,45 @@ def softmax_grads_from_z(
         _native.require_cuda_f32("grads_z", sessions=sessions, items=items, z=z)
     _check("grads_z", sessions, items)
     _check_vectors("grads_z", m, "session row", z=z)
-    return _fused_or_split("grads_z", sessions, items, (z.data_ptr(),), bf16=bf16,
-                           bf16_partials=BF16_DS_PARTIALS if bf16 else None)
+    if bf16:
+        return _grads_z_bf16(sessions, items, z)
+    return _fused_or_split("grads_z", sessions, items, (z.data_ptr(),))
+
+
+def _grads_z_bf16(
+    sessions: torch.Tensor, items: torch.Tensor, z: torch.Tensor
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 12's bf16 forms, (ds, di) in f32, by :func:`_fused_or_split`'s
+    rule with the ds partials counted at their itemsize (2 bytes under
+    ``BF16_DS_PARTIALS``): the one pass ``grads_z_fused_bf16`` (launch key of
+    the same name; kernel 7's engine without the label term,
+    ``csrc/ce_grads_bf16.cu``) while :func:`fused_bwd_plan`'s partials fit
+    ``FUSED_BWD_PARTIALS_BUDGET`` (the plan still counts the di partials of
+    the f32 form, which this one does not allocate, as JAX's route test
+    counts its own): ds partials per ``FUSED_BWD_CHUNK`` item rows summed here
+    in f32 in chunk order, di whole. Else kernels 13 + 14 (through
+    :func:`_fused_or_split`). z is read by TMA, which wants it 16-byte aligned
+    (a misaligned view is copied)."""
+    m, n, d = sessions.shape[0], items.shape[0], sessions.shape[1]
+    dev = sessions.device
+    if m == 0 or n == 0:
+        return torch.zeros((m, d), device=dev), torch.zeros((n, d), device=dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if fused_bwd_plan(m, n, d, n_sms, _ds_itemsize(torch.bfloat16), torch.bfloat16)[2] > FUSED_BWD_PARTIALS_BUDGET:
+        # the plan at 4 bytes a ds partial is over the budget too: kernels 13 + 14
+        return _fused_or_split("grads_z", sessions, items, (z.data_ptr(),), bf16=True)
+    z = z if z.data_ptr() % 16 == 0 else z.clone()
+    lib = _native.load("ce_grads_bf16", _SIGNATURES_CE_BF16)
+    n_chunks = -(-n // FUSED_BWD_CHUNK)
+    ds_part = torch.empty((n_chunks, m, d), dtype=torch.bfloat16 if BF16_DS_PARTIALS else torch.float32, device=dev)
+    di = torch.empty((n, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.grads_z_fused_bf16(sessions.data_ptr(), items.data_ptr(), z.data_ptr(), ds_part.data_ptr(),
+                                        di.data_ptr(), m, n, d, FUSED_BWD_CHUNK, int(BF16_DS_PARTIALS),
+                                        _native.current_stream_ptr(dev))
+    _native.check_launch("grads_z_fused_bf16", status)
+    # a fixed-order f32 sum of the partials (rectools_tpu/ops/softmax_lse.py:840)
+    return (ds_part.float().sum(dim=0) if n_chunks > 1 else ds_part[0].float()), di
 
 
 def _ds_itemsize(dtype: torch.dtype) -> int:

@@ -7,7 +7,8 @@ Port of rectools_tpu/ops/topk_select.py.
    toward the lowest lane (``csrc/topk_select.cu`` on CUDA,
    :func:`group_topm_reference` on the CPU). On CUDA ``m <= SELECT_MAX_M``
    takes the thread-per-group kernel (launch key ``group_topm``), a larger m
-   the warp-per-group kernel (``group_topm_warp``).
+   the sorting kernel (``group_topm_warp``: eight lanes a group sort its 128
+   (value, lane) pairs by a bitonic network and store the first m).
 2. **Stage 2**: the top k of the (B, G·m) candidates by a stable descending
    ``torch.sort``. ``torch.topk`` is not used: on CUDA it does not promise
    lowest-index-first among ties, and ``lax.top_k`` does.

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time kernel 7's bf16 engine (``csrc/ce_grads_bf16.cu``) beside variants of
-its source on one NVIDIA GPU: where a one pass's time goes, by taking one
+"""Time kernel 7's bf16 engine (``csrc/ce_grads_bf16.cu``, which also runs
+kernel 12's bf16 one pass: the engine without the label term) beside variants
+of its source on one NVIDIA GPU: where a one pass's time goes, by taking one
 part of the work out at a time; and where its two roles round a probability
 apart.
 
@@ -27,11 +28,12 @@ longer holds as often as it says:
   between them.
 
 Only ``engine`` and ``probe`` compute the function; the others are timings.
-Each build prints ptxas's stack and spill stores a width. Each library is
-timed in turns, twice, at 51,200 x 15,872 and D = 16, 128 and 256 (CUDA
-events, mean of 3 after a warm-up): the one pass ``ce_fused_bf16``, and the
-two launches' ``ce_ds_bf16`` and ``ce_di_bf16`` alone (NaN where the entry
-refused the launch). Then the probe at D = 128 and 256: how many entries of
+Each build prints ptxas's stack and spill stores a width and form (``k7``
+with the label term, ``k12`` without). Each library is timed in turns, twice,
+at 51,200 x 15,872 and D = 16, 128 and 256 (CUDA events, mean of 3 after a
+warm-up): the one pass ``ce_fused_bf16``, kernel 12's ``grads_z_fused_bf16``,
+and the two launches' ``ce_ds_bf16`` and ``ce_di_bf16`` alone (NaN where the
+entry refused the launch). Then the probe at D = 128 and 256: how many entries of
 the two roles' (P - D) differ, by how many bf16 steps at most. One JSON line a
 variant and round; the first line names the card and its power limit.
 """
@@ -106,15 +108,22 @@ def edited_source(name: str) -> str:
     return text
 
 
+def _form(mangled: str) -> str:
+    """"D=... k7" or "D=... k12" of the engine's kernel name: its width and
+    whether it has the label term (kernel 7) or not (kernel 12)."""
+    found = re.search(r"kernelILi(\d+)ELb(\d)E", mangled)
+    return f"D={found.group(1)} {'k7' if found.group(2) == '1' else 'k12'}" if found else mangled
+
+
 def frames(report: str) -> tp.Dict[str, tp.Tuple[int, int]]:
-    """{"D=...": (stack bytes, spill store bytes)} of each kernel in ``nvcc``'s
-    ``ptxas -v`` report."""
+    """{"D=... k7" / "D=... k12": (stack bytes, spill store bytes)} of each
+    kernel in ``nvcc``'s ``ptxas -v`` report."""
     out: tp.Dict[str, tp.Tuple[int, int]] = {}
     name = None
     for line in report.splitlines():
-        found = re.search(r"Compiling entry function '\S*kernelILi(\d+)E", line)
+        found = re.search(r"Compiling entry function '(\S*kernelILi\d+ELb\dE\S*)'", line)
         if found:
-            name = f"D={found.group(1)}"
+            name = _form(found.group(1))
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
         if frame and name is not None:
             out[name] = (int(frame.group(1)), int(frame.group(2)))
@@ -133,7 +142,7 @@ def highest_registers(native, so: Path) -> tp.Dict[str, int]:
     for line in sass.splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
-            name = re.sub(r".*kernelILi(\d+)E.*", r"D=\1", found.group(1))
+            name = _form(found.group(1))
             out[name] = 0
         elif name is not None:
             regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
@@ -215,6 +224,8 @@ def main() -> int:
                 head = tuple(c[k].data_ptr() for k in ("s", "items", "z", "y", "coeff"))
                 row[f"one_pass_d{d}_ms"] = time_ms(lambda: lib.ce_fused_bf16(
                     *head, c["ds_bf16"].data_ptr(), c["di"].data_ptr(), M, N, d, sl.FUSED_BWD_CHUNK, 1, stream))
+                row[f"kernel_12_d{d}_ms"] = time_ms(lambda: lib.grads_z_fused_bf16(
+                    *head[:3], c["ds_bf16"].data_ptr(), c["di"].data_ptr(), M, N, d, sl.FUSED_BWD_CHUNK, 1, stream))
                 row[f"ds_d{d}_ms"] = time_ms(lambda: lib.ce_ds_bf16(
                     *head, c["ds_f32"].data_ptr(), M, N, d, c["chunks"][1], c["chunks"][0], sl.FUSED_BWD_CHUNK,
                     stream))

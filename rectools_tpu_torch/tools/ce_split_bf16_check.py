@@ -8,7 +8,8 @@ Run from the repository root: ``python3
 rectools_tpu_torch/tools/ce_split_bf16_check.py`` (about a minute). It builds
 ``csrc/softmax_lse_bf16.cu``, prints ``ptxas``'s registers, shared memory and
 spills for its gradient kernels, then runs on bf16 towers, through the
-wrappers: kernel 12 (``softmax_grads_from_z``, the budget lifted), kernels 13 +
+wrappers: kernel 12 (``softmax_grads_from_z``, the budget lifted; kernel 7's
+engine in ``csrc/ce_grads_bf16.cu``, built at first use), kernels 13 +
 14 (the budget 0), kernel 7's two launches (the budget one byte under the
 plan's one-pass partials) and the large-catalog CE route (the budget 0, against
 kernel 7's one pass with the budget lifted), at small ragged shapes for D =

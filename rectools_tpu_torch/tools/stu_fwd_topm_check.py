@@ -11,14 +11,15 @@ VARIANTS edits them (the copies under ``build/variants/``, every build at
 once) and prints ``ptxas``'s registers and spills of their kernels. The
 variants: ``simt`` (the forward on the SIMT kernel at every head dim, as
 before its redesign), ``order`` (``mma3_k16``'s 3xTF32 order), ``warp``
-(every m on the warp-per-group top-m kernel, as before its redesign); and
+(every m on the top-m kernel of m > 16, the sorting kernel, launch key
+``group_topm_warp``: at the serving m = 12 it sorts each whole group); and
 three diagnostics of the tensor-core forward, timed only: ``no_act`` (a = s *
 mask), ``tf32`` (plain TF32 products) and ``no_bias`` (no bias staged). Then,
 on the builds as they are: the forward at ragged lengths, every head-dim
 route, shared and per-row masks, against its twin (1e-5 of the twin's largest
 entry, at least 1), zeros for the fully padded row, bits on a rerun; the
 top-m at m = 1, 12,
-16, 17 and 70 on edge-case groups against its twin, every slot. At the HSTU
+16, 17, 50, 70 and 128 on edge-case groups against its twin, every slot. At the HSTU
 training shape (B = 512, L = 100, 4 heads of 32) the largest error of the
 twin and of the forward builds against float64. Last, each kernel timed
 (CUDA events, mean of 20 after a warm-up) on each build in 8 rounds of turns
@@ -138,7 +139,7 @@ def main() -> int:
             bits=bool(torch.equal(stu_attention.stu_fwd(*args), got)), launches=launches)
     print("stu_fwd cases", out["stu_fwd"], flush=True)
 
-    for m in (1, 12, 16, 17, 70):
+    for m in (1, 12, 16, 17, 50, 70, 128):
         rng = torch.Generator(device=dev).manual_seed(m)
         x = torch.randn((64, 124 * 128), generator=rng, device=dev)
         x[:, 5::7] = x[:, 3::7].clone()  # ties

@@ -132,6 +132,23 @@ def test_grads_from_z_runs_kernel_12_and_matches_jax(monkeypatch, m: int, n: int
     assert not ds[torch.from_numpy(coeff == 0)].any()
 
 
+@pytest.mark.parametrize("m,n,d", [(70, 2049, 128), (70, 2049, 256), (130, 4100, 16)])
+def test_kernel_12_twin_is_kernel_7s_without_the_label_term(m: int, n: int, d: int) -> None:
+    """Kernel 12 runs on kernel 7's bf16 engine with the label term dropped,
+    so its twin is kernel 7's one-pass twin with coeff = 0, bit for bit (and
+    JAX defines kernel 7 as kernel 12 with the label correction fused in,
+    rectools_tpu/ops/softmax_lse.py:643); both held against JAX's kernel 12
+    in interpret mode."""
+    s, items, z, y, _ = _inputs(m, n, d)
+    args = (torch.from_numpy(s).to(BF16), torch.from_numpy(items).to(BF16), torch.from_numpy(z))
+    twin = softmax_lse.softmax_grads_from_z_bf16_reference(*args, partials=True)
+    no_label = softmax_lse.softmax_ce_grads_from_z_bf16_reference(
+        *args, torch.from_numpy(y), torch.zeros((m,), dtype=torch.float32), partials=True)
+    assert all(torch.equal(a, b) for a, b in zip(twin, no_label))
+    exp_ds, exp_di = _jax(s, items, z)
+    assert _rel(twin[0], exp_ds) <= GRAD_TOL and _rel(twin[1], exp_di) <= GRAD_TOL
+
+
 def test_kernel_12_rounds_its_ds_partials() -> None:
     """Under ``BF16_DS_PARTIALS`` kernel 12's twin stores each chunk's ds
     partial in bf16 (JAX :818-820); with it off they stay f32, ds moves by

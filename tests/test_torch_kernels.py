@@ -236,13 +236,17 @@ def test_group_topm_routes_match_the_cuda_source() -> None:
     """The wrapper counts a launch as the thread-per-group kernel's
     (``group_topm``) exactly for the m the ``.cu`` gives it, up to
     ``SELECT_MAX_M``, with lists of 4, 8, 12 or 16 entries; a larger m takes
-    the warp kernel (``group_topm_warp``)."""
+    the sorting kernel (``group_topm_sort_kernel``, launch key
+    ``group_topm_warp``): eight lanes of 16 pairs a group."""
     src = (REPO / "rectools_tpu_torch" / "csrc" / "topk_select.cu").read_text()
     assert int(re.search(r"constexpr int kSelectMaxM = (\d+);", src).group(1)) == topk_select.SELECT_MAX_M == 16
     entry = src[src.index('extern "C" int group_topm_f32('):]
     sizes = [int(n) for n in re.findall(r"if \(m <= (\d+)\) return launch_select<\1>", entry)]
     assert sizes == [4, 8, 12] and "if (m <= kSelectMaxM) return launch_select<kSelectMaxM>" in entry
-    assert entry.index("launch_select<kSelectMaxM>") < entry.index("group_topm_kernel<<<")
+    assert entry.index("launch_select<kSelectMaxM>") < entry.index("group_topm_sort_kernel<<<")
+    assert not re.search(r"\bgroup_topm_kernel\b", src)  # the first port's butterfly kernel is gone
+    lanes = int(re.search(r"constexpr int kSortLanes = (\d+);", src).group(1))
+    assert lanes * 16 == topk_select.GROUP_W and "constexpr int kSortPerLane = kGroupW / kSortLanes;" in src
 
 
 def test_attention_tile_matches_the_cuda_source() -> None:
@@ -453,12 +457,13 @@ def test_cuda_attention_matches_twin(cuda: torch.device, bias_kind: str, l: int,
 
 
 def _topm_cases(m: int) -> np.ndarray:
-    """(9, 5 * 128) scores whose groups hold the selection's edge cases:
+    """(10, 5 * 128) scores whose groups hold the selection's edge cases:
     N(0, 1) scores, ties inside a group, 128 equal values, fewer than m
-    finite values among -inf, ties straddling the m-th slot, +inf values and
-    all -inf."""
+    finite values among -inf, ties straddling the m-th slot, +inf values, all
+    -inf, and a row of plain co-counts (non-negative integers, about 90%
+    zeros: runs of tied zeros across the m-th slot)."""
     rng = np.random.default_rng(m)
-    x = rng.normal(size=(9, 5 * 128)).astype(np.float32)
+    x = rng.normal(size=(10, 5 * 128)).astype(np.float32)
     x[:, [3, 40, 77, 127]] = 5.0  # ties inside a group: lowest lane first
     x[1, 128:256] = 1.0  # 128 equal values
     x[2, 256:384] = -np.inf  # all -inf: (-inf, lane 0) every slot
@@ -467,20 +472,27 @@ def _topm_cases(m: int) -> np.ndarray:
     x[5, 128 + rng.choice(128, max(m // 2, 1), replace=False)] = rng.normal(size=max(m // 2, 1))
     straddle = rng.normal(size=128).astype(np.float32) - 10.0  # m - 2 larger values, then 6 ties
     straddle[rng.choice(128, max(m - 2, 0), replace=False)] = 5.0 + np.arange(max(m - 2, 0))
-    straddle[rng.choice(np.flatnonzero(straddle < 0), 6, replace=False)] = 1.0
+    below = np.flatnonzero(straddle < 0)
+    straddle[rng.choice(below, min(6, below.size), replace=False)] = 1.0
     x[6, 256:384] = straddle
     x[7, [130, 200, 201]] = np.inf
     x[8, 384:512] = np.round(x[8, 384:512], 1)  # coarse ties everywhere
+    cocount = np.zeros(5 * 128, np.float32)
+    nonzero = rng.choice(5 * 128, 64, replace=False)
+    cocount[nonzero] = rng.integers(1, 4, nonzero.size)
+    x[9] = cocount
     return x
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 12, 16, 17, 70])
+@pytest.mark.parametrize("m", [1, 12, 16, 17, 33, 50, 64, 70, 128])
 def test_cuda_group_topm_matches_twin(cuda: torch.device, m: int) -> None:
     """Every value and every lane id equal to the twin's, the (-inf, lane 0)
     slots included, on both kernels: the thread-per-group one up to m = 16
-    (``SELECT_MAX_M``), the warp one above (m > 32 parks results in lanes
-    across several store runs); a row stride wider than the groups."""
+    (``SELECT_MAX_M``), the sorting one above (m > 32 stores each group in
+    several runs of 32; m = 128 is the whole group in order), co-counts whose
+    tied zeros straddle the m-th slot; a row stride wider than the groups;
+    the same bits on a rerun."""
     xt = _t(_topm_cases(m)).to(cuda)
     key = "group_topm" if m <= topk_select.SELECT_MAX_M else "group_topm_warp"
     before = dict(_native.LAUNCHES)
@@ -491,7 +503,9 @@ def test_cuda_group_topm_matches_twin(cuda: torch.device, m: int) -> None:
     torch.testing.assert_close(vals, ref_vals, atol=0, rtol=0)
     torch.testing.assert_close(lanes, ref_lanes, atol=0, rtol=0)
     assert bool(torch.isneginf(vals[2, 2]).all()) and not lanes[2, 2].any()
-    wide = torch.full((9, 6 * 128), float("nan"), device=cuda)
+    again = topk_select.group_topm(xt, m)
+    assert torch.equal(again[0], vals) and torch.equal(again[1], lanes)
+    wide = torch.full((10, 6 * 128), float("nan"), device=cuda)
     wide[:, : 5 * 128] = xt
     got = topk_select.group_topm(wide[:, : 5 * 128], m)
     assert torch.equal(got[0], vals) and torch.equal(got[1], lanes)
@@ -2382,10 +2396,67 @@ def test_cuda_ce_grads_bf16_runs_the_engine_kernel(
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", softmax_lse.SUPPORTED_D)
+@pytest.mark.parametrize("m,n", [(257, 2177), (130, 6181), (64, 2112), (51, 300)])
+def test_cuda_grads_z_bf16_runs_on_the_engine(
+    cuda: torch.device, monkeypatch: pytest.MonkeyPatch, d: int, m: int, n: int
+) -> None:
+    """Kernel 12 in bf16 (its partials within the budget) at the engine's
+    edges: one ``grads_z_fused_bf16`` launch and no other loss key, ds and di
+    within BF16_SPLIT_RTOL of the twin's largest entry (kernel 12's limit: with
+    no label term di's largest entry is a sum of probabilities, where a P one
+    bf16 step apart weighs more than against kernel 7's label rows), ignored
+    rows' ds exactly 0, the same bits on a rerun, and the bits of kernel 7's
+    one pass with coeff = 0 (the engine with the label term at zero)."""
+    s, items, z, y, coeff = _ce_bf16_case(cuda, m, n, d)
+    monkeypatch.setattr(softmax_lse, "FUSED_BWD_PARTIALS_BUDGET", 1 << 62)
+    keys = (*CE_SPLIT_BF16_KEYS, *F32_LOSS_KEYS)
+    before = dict(_native.LAUNCHES)
+    got = softmax_lse.softmax_grads_from_z(s, items, z)
+    assert {k: _native.LAUNCHES[k] - before[k] for k in keys} == {k: int(k == "grads_z_fused_bf16") for k in keys}
+    ref = softmax_lse.softmax_grads_from_z_bf16_reference(s, items, z, partials=True)
+    for g, e in zip(got, ref):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        assert _max_rel(g, e) <= BF16_SPLIT_RTOL
+    assert not got[0][coeff == 0].any()
+    assert all(torch.equal(a, g) for a, g in zip(softmax_lse.softmax_grads_from_z(s, items, z), got))
+    no_label = softmax_lse.softmax_ce_grads_from_z(s, items, z, y, torch.zeros_like(coeff))
+    assert all(torch.equal(a, g) for a, g in zip(no_label, got))
+
+
+@pytest.mark.gpu
+def test_cuda_grads_z_bf16_runs_the_engine_kernel(cuda: torch.device) -> None:
+    """Kernel 12 in bf16 runs csrc/ce_grads_bf16.cu's kernel, one launch a
+    call, and none of softmax_lse_bf16.cu's gradient kernels; z at an
+    address that is not 16-byte aligned is copied for TMA and gives the same
+    bits."""
+    m, n, d = 1000, 15872, 128
+    s, items, z, _, _ = _ce_bf16_case(cuda, m, n, d)
+    calls = 4
+
+    def call() -> None:  # an elementwise kernel after the launch: a capture's last record can go missing
+        softmax_lse.softmax_grads_from_z(s, items, z)[1].add_(0.0)
+
+    seen = set()
+    for _ in range(5):  # a capture now and then drops a record of a short kernel: take it again
+        names = _device_kernels(call, calls)
+        seen |= set(names)
+        if sum(v for k, v in names.items() if CE_BF16_ENGINE_KERNEL in k) == calls:
+            break
+    assert sum(v for k, v in names.items() if CE_BF16_ENGINE_KERNEL in k) == calls
+    assert not [k for k in seen if any(old in k for old in CE_BF16_OLD_KERNELS)]
+    shifted = torch.empty((m + 1,), device=cuda)[1:]
+    shifted.copy_(z)
+    assert shifted.data_ptr() % 16 != 0
+    got = softmax_lse.softmax_grads_from_z(s, items, z)
+    assert all(torch.equal(a, g) for a, g in zip(softmax_lse.softmax_grads_from_z(s, items, shifted), got))
+
+
+@pytest.mark.gpu
 def test_cuda_ce_grads_bf16_entries_refuse_bad_arguments(cuda: torch.device) -> None:
-    """The engine's entries refuse chunk rows that are not a multiple of 64,
-    a width outside ``SUPPORTED_D`` and rows past its 32-bit indices, and
-    launch nothing for an empty catalog."""
+    """The engine's entries (kernel 7's and kernel 12's) refuse chunk rows
+    that are not a multiple of 64, a width outside ``SUPPORTED_D`` and rows
+    past its 32-bit indices, and launch nothing for an empty catalog."""
     m, n, d = 300, 5000, 32
     bf = torch.bfloat16
     s, items = torch.zeros((m, d), device=cuda, dtype=bf), torch.zeros((n, d), device=cuda, dtype=bf)
@@ -2404,4 +2475,9 @@ def test_cuda_ce_grads_bf16_entries_refuse_bad_arguments(cuda: torch.device) -> 
     assert lib.ce_di_bf16(*head[:5], di.data_ptr(), 1 << 31, n, d, stream) != 0  # rows past 32-bit indices
     assert lib.ce_fused_bf16(*head, m, 0, d, softmax_lse.FUSED_BWD_CHUNK, 1, stream) == 0
     assert lib.ce_grads_bf16_smem_bytes(256) <= 232_448 and lib.ce_grads_bf16_smem_bytes(48) == 1
+    gz = (s.data_ptr(), items.data_ptr(), z.data_ptr(), ds_part.data_ptr(), di.data_ptr())
+    assert lib.grads_z_fused_bf16(*gz, m, n, d, softmax_lse.FUSED_BWD_CHUNK, 1, stream) == 0
+    assert lib.grads_z_fused_bf16(*gz, m, n, d, 100, 1, stream) != 0
+    assert lib.grads_z_fused_bf16(*gz, m, n, 48, softmax_lse.FUSED_BWD_CHUNK, 1, stream) != 0
+    assert lib.grads_z_fused_bf16(*gz, 1 << 31, n, d, softmax_lse.FUSED_BWD_CHUNK, 1, stream) != 0
     torch.cuda.synchronize()

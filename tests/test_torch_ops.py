@@ -187,8 +187,8 @@ def _topm_groups(m: int, seed: int) -> np.ndarray:
         rows.append(row)
     straddle = rng.normal(size=128) - 10.0  # m - 2 larger values, then 6 ties over slots m - 1 .. m + 4
     straddle[rng.choice(128, max(m - 2, 0), replace=False)] = 5.0 + np.arange(max(m - 2, 0))
-    ties = rng.choice(np.flatnonzero(straddle < 0), 6, replace=False)
-    straddle[ties] = 1.0
+    below = np.flatnonzero(straddle < 0)
+    straddle[rng.choice(below, min(6, below.size), replace=False)] = 1.0
     rows.append(straddle)
     inf = rng.normal(size=128)
     inf[[5, 77, 100]] = np.inf
@@ -215,6 +215,72 @@ def test_group_topm_select_model_matches_twin_and_jax(m: int) -> None:
         np.testing.assert_array_equal(got[0], ref_vals.numpy()[:, 0])
         np.testing.assert_array_equal(got[1], ref_lanes.numpy()[:, 0])
     assert np.isneginf(ref_vals.numpy()[3]).all() and not ref_lanes.numpy()[3].any()  # all -inf: lane 0 everywhere
+
+
+def _sort_model(group: np.ndarray, m: int) -> tp.Tuple[np.ndarray, np.ndarray]:
+    """The sorting top-m kernel (csrc/topk_select.cu, 16 < m <= 128) on one
+    (128,) group, step by step: position p = 16 l + s is register s of lane l
+    of the group's eight, loaded with column 4 (l + 8 (s // 4)) + s % 4; the
+    bitonic network's stage (K, J) compares p with p ^ J, the lower position
+    keeping the earlier pair (the larger value, then the lower lane; a float
+    compare) where p & K is clear and the later one where it is set. The
+    first m positions are stored, a -inf value with lane 0."""
+    pos = np.arange(128)
+    vals = group[4 * (pos // 16 + 8 * (pos % 16 // 4)) + pos % 4].astype(np.float32)
+    lanes = (4 * (pos // 16 + 8 * (pos % 16 // 4)) + pos % 4).astype(np.int32)
+    k = 2
+    while k <= 128:
+        j = k // 2
+        while j > 0:
+            for p in range(128):
+                q = p ^ j
+                if q < p:
+                    continue
+                later_first = vals[q] > vals[p] or (vals[q] == vals[p] and lanes[q] < lanes[p])
+                if later_first == ((p & k) == 0):
+                    vals[p], vals[q] = vals[q], vals[p]
+                    lanes[p], lanes[q] = lanes[q], lanes[p]
+            j //= 2
+        k *= 2
+    out_vals, out_lanes = vals[:m].copy(), lanes[:m].copy()
+    out_lanes[np.isneginf(out_vals)] = 0
+    return out_vals, out_lanes
+
+
+def _cocount_groups(seed: int) -> np.ndarray:
+    """(4, 128) groups of plain co-counts, as ItemKNN truncates them:
+    non-negative integers, about 90% zeros (ties straddle every m past the
+    non-zeros), one with 60 non-zeros of 1 to 3 (ties straddle the m-th slot
+    among them), one all zeros and one with a few -inf columns (the padding
+    past the catalog's end)."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((4, 128), np.float32)
+    rows[0, rng.choice(128, 13, replace=False)] = rng.integers(1, 6, 13)
+    rows[1, rng.choice(128, 60, replace=False)] = rng.integers(1, 4, 60)
+    rows[3, rng.choice(128, 12, replace=False)] = rng.integers(1, 9, 12)
+    rows[3, 120:] = -np.inf
+    return rows
+
+
+@pytest.mark.parametrize("m", [17, 33, 50, 64, 127, 128])
+def test_group_topm_sort_model_matches_twin_and_jax(m: int) -> None:
+    """The CUDA sorting kernel's order of work for m > 16, as a numpy model,
+    equals the twin and the JAX kernel (interpret mode) in every value and
+    lane id on the selection's edge cases and on co-count groups: the network
+    sorts (value, lane) pairs into one total order, however many values tie
+    at the m-th slot, and the slots past a group's values above -inf read
+    (-inf, lane 0)."""
+    x = np.concatenate([_topm_groups(m, seed=m), _cocount_groups(seed=m)])
+    model = [_sort_model(row, m) for row in x]
+    ref_vals, ref_lanes = topk_select.group_topm_reference(_t(x), m)
+    jv, ji = jax_topk_select._group_topm(jnp.asarray(x), m, rows_blk=8, interpret=True)
+    for got in ((np.stack([v for v, _ in model]), np.stack([l for _, l in model])),
+                (np.asarray(jv), np.asarray(ji))):
+        np.testing.assert_array_equal(got[0], ref_vals.numpy()[:, 0])
+        np.testing.assert_array_equal(got[1], ref_lanes.numpy()[:, 0])
+    assert np.isneginf(ref_vals.numpy()[3]).all() and not ref_lanes.numpy()[3].any()  # all -inf: lane 0 everywhere
+    cocount = ref_vals.numpy()[-4:, 0]
+    assert (cocount[0, 13:] == 0).all() and (cocount[2] == 0).all()  # runs of tied zeros reach the m-th slot
 
 
 @pytest.mark.parametrize("n,k", [(4096, 100), (4100, 37), (300, 20), (128, 12)])
